@@ -1,0 +1,87 @@
+"""Config schema for the PyTorch/CUDA port.
+
+Own copies of the JAX package's dataclasses (f5tts_tpu/config.py) that the
+zero-shot inference path reads: the mel front end, the backbone arch, the
+sampler defaults and the F5TTS_v1 presets. The port imports nothing of the
+JAX package, so the values are repeated here and the parity tests pin them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Optional
+
+
+@dataclass(frozen=True)
+class MelConfig:
+    """100-channel mel at 24 kHz, hop 256 / win 1024 / n_fft 1024."""
+
+    target_sample_rate: int = 24_000
+    n_mel_channels: int = 100
+    hop_length: int = 256
+    win_length: int = 1024
+    n_fft: int = 1024
+    mel_spec_type: str = "vocos"  # only "vocos" is ported
+
+
+@dataclass(frozen=True)
+class ModelArch:
+    """DiT backbone architecture (reference configs/*.yaml model.arch)."""
+
+    dim: int = 1024
+    depth: int = 22
+    heads: int = 16
+    dim_head: int = 64
+    ff_mult: int = 2
+    mel_dim: int = 100
+    text_num_embeds: int = 256  # vocab size (without the +1 filler)
+    text_dim: Optional[int] = 512
+    text_mask_padding: bool = True
+    conv_layers: int = 4
+    conv_mult: int = 2
+    pe_attn_head: Optional[int] = None  # partial RoPE: first N heads only
+
+    @property
+    def inner_dim(self) -> int:
+        return self.heads * self.dim_head
+
+
+@dataclass(frozen=True)
+class SamplingConfig:
+    """Defaults for sampling (reference infer/utils_infer.py:52-65)."""
+
+    nfe_steps: int = 32
+    cfg_strength: float = 2.0
+    sway_sampling_coef: Optional[float] = -1.0
+    use_epss: bool = True
+    max_duration: int = 4096  # frames; the bucket cap, as in the JAX package
+    target_rms: float = 0.1
+    cross_fade_duration: float = 0.15
+    speed: float = 1.0
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str = "F5TTS_v1_Base"
+    arch: ModelArch = dataclasses.field(default_factory=ModelArch)
+    mel_spec: MelConfig = dataclasses.field(default_factory=MelConfig)
+    sampling: SamplingConfig = dataclasses.field(default_factory=SamplingConfig)
+
+
+def _preset(name: str, **arch_kw: Any) -> ModelConfig:
+    return ModelConfig(name=name, arch=ModelArch(**arch_kw))
+
+
+PRESETS: dict[str, ModelConfig] = {
+    # F5TTS_v1_Base.yaml: dim 1024, depth 22, heads 16, ff_mult 2, text_dim 512,
+    # conv_layers 4, text_mask_padding True, pe_attn_head None
+    "F5TTS_v1_Base": _preset(
+        "F5TTS_v1_Base", dim=1024, depth=22, heads=16, ff_mult=2, text_dim=512,
+        text_mask_padding=True, conv_layers=4, pe_attn_head=None,
+    ),
+    "F5TTS_v1_Small": _preset(
+        "F5TTS_v1_Small", dim=768, depth=18, heads=12, ff_mult=2, text_dim=512,
+        text_mask_padding=True, conv_layers=4, pe_attn_head=None,
+    ),
+}

@@ -1,0 +1,55 @@
+"""Weights from the JAX package into the port.
+
+`dit_params_from_jax` and `vocos_params_from_jax` take the JAX package's
+parameter pytree as numpy arrays (nested dicts and lists; the DiT and Vocos
+blocks stacked on a leading depth axis; DiT attention fused (`to_qkv`) or
+not) and return the port's parameters as CPU f32 tensors.
+
+Layouts. The port keeps the JAX package's layouts, so no tensor is
+transposed: Linear weights stay (in, out) and are applied as `x @ w + b`;
+Conv1d weights stay (k, in/groups, out) (WIO), which is also the layout the
+conv-position kernel K2 reads. The one change of structure: the stacked
+[depth, ...] block arrays become a Python list of per-block dicts.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def _to_torch(tree):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_torch(v) for v in tree]
+    return _tensor(tree)
+
+
+def _unstack(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _depth(tree) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return int(np.asarray(tree).shape[0])
+
+
+def dit_params_from_jax(tree: dict) -> dict:
+    """JAX DiT params (numpy leaves) -> the port's DiT params."""
+    out = {k: _to_torch(v) for k, v in tree.items() if k != "blocks"}
+    blocks = tree["blocks"]
+    out["blocks"] = [_to_torch(_unstack(blocks, i)) for i in range(_depth(blocks))]
+    return out
+
+
+def vocos_params_from_jax(tree: dict) -> dict:
+    """JAX Vocos params (numpy leaves) -> the port's Vocos params."""
+    return dit_params_from_jax(tree)

@@ -1,0 +1,206 @@
+"""Zero-shot inference pipeline (counterpart of f5tts_tpu/infer/pipeline.py).
+
+(ref wav, ref text, gen text) -> waveform: resample, RMS-normalise the
+reference, log-mel, chunk the text to a speech-rate budget, estimate each
+chunk's duration, pad to a bucket, run `cfm_sample` (the DiT and its three
+kernels) and Vocos, restore the RMS and cross-fade the chunks. Single
+requests only: batching, streaming, int8 and the low-TTFB path are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from f5tts_tpu_torch.config import MelConfig, SamplingConfig
+from f5tts_tpu_torch.infer import audio_io
+from f5tts_tpu_torch.models import cfm, dit
+from f5tts_tpu_torch.models.modules import fuse_backbone_qkv, tree_cast
+from f5tts_tpu_torch.ops.mel import MelFrontend
+from f5tts_tpu_torch.text.vocab import list_str_to_idx, list_str_to_tensor
+from f5tts_tpu_torch.utils import duration_bucket, make_time_grid, resolve_device
+
+SENTENCE_SPLIT_RE = re.compile(r"(?<=[;:,.!?])\s+|(?<=[；：，。！？])")
+
+
+def chunk_text(text: str, max_chars: int = 135) -> list[str]:
+    """Split on sentence punctuation, pack to a UTF-8 byte budget."""
+    chunks: list[str] = []
+    current = ""
+    for sentence in SENTENCE_SPLIT_RE.split(text):
+        if not sentence:
+            continue
+        joiner = " " if len(sentence[-1].encode("utf-8")) == 1 else ""
+        if len(current.encode("utf-8")) + len(sentence.encode("utf-8")) <= max_chars:
+            current += sentence + joiner
+        else:
+            if current:
+                chunks.append(current.strip())
+            current = sentence + joiner
+    if current:
+        chunks.append(current.strip())
+    return chunks
+
+
+def max_chars_for_ref(ref_text: str, ref_audio_secs: float, speed: float = 1.0) -> int:
+    return int(len(ref_text.encode("utf-8")) / max(ref_audio_secs, 1e-6)
+               * (22 - ref_audio_secs) * speed)
+
+
+def estimate_duration_frames(ref_frames: int, ref_text: str, gen_text: str,
+                             speed: float = 1.0, fix_duration_secs: Optional[float] = None,
+                             sample_rate: int = 24000, hop: int = 256) -> int:
+    if fix_duration_secs is not None:
+        return int(fix_duration_secs * sample_rate / hop)
+    if len(gen_text.encode("utf-8")) < 10:
+        speed = 0.3
+    ref_bytes = max(len(ref_text.encode("utf-8")), 1)
+    gen_bytes = len(gen_text.encode("utf-8"))
+    return ref_frames + int(ref_frames / ref_bytes * gen_bytes / speed)
+
+
+def cross_fade(waves: list[np.ndarray], sr: int, duration: float = 0.15) -> np.ndarray:
+    if not waves:
+        return np.zeros(0, np.float32)
+    if duration <= 0:
+        return np.concatenate(waves)
+    out = waves[0]
+    for nxt in waves[1:]:
+        n = min(int(duration * sr), len(out), len(nxt))
+        if n <= 0:
+            out = np.concatenate([out, nxt])
+            continue
+        fade_out = np.linspace(1.0, 0.0, n, dtype=np.float32)
+        fade_in = np.linspace(0.0, 1.0, n, dtype=np.float32)
+        out = np.concatenate([out[:-n], out[-n:] * fade_out + nxt[:n] * fade_in, nxt[n:]])
+    return out
+
+
+@dataclass
+class InferencePipeline:
+    """Zero-shot voice cloning on one device (the card unless `device` says
+    otherwise). At load the DiT params are cast to `dtype` and their q/k/v
+    projections fused, so attention takes the flat-QKV kernel."""
+
+    params: dict
+    statics: dit.DiTStatics
+    vocoder: object                     # callable mel [b, d, t] -> wav [b, n]
+    vocab_char_map: Optional[dict] = None
+    mel_cfg: MelConfig = field(default_factory=MelConfig)
+    sampling: SamplingConfig = field(default_factory=SamplingConfig)
+    tokenizer: str = "char"             # "char" | "byte"
+    dtype: torch.dtype = torch.bfloat16
+    bucket_size: int = 256
+    device: Optional[object] = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        if self.tokenizer not in ("char", "byte"):
+            raise ValueError(f"tokenizer {self.tokenizer!r} is not ported (char | byte)")
+        self.mel = MelFrontend(self.mel_cfg, device=self.device)
+        self.hop = self.mel_cfg.hop_length
+        self.sr = self.mel_cfg.target_sample_rate
+        self.statics = dit.DiTStatics(self.statics.arch, self.device)
+        self.params = fuse_backbone_qkv(tree_cast(self.params, self.dtype, self.device))
+
+    def ref_mel(self, wav: np.ndarray) -> np.ndarray:
+        """ref wav -> mel [t, n_mels]. The wav is zero-padded to a 128-frame
+        bucket first and the frames past the clip cut off, as in the JAX
+        package."""
+        true_frames = len(wav) // self.hop + 1
+        bucket = max(-(-len(wav) // (128 * self.hop)) * 128 * self.hop, 128 * self.hop)
+        if bucket > len(wav):
+            wav = np.pad(wav, (0, bucket - len(wav)))
+        mel = self.mel.frames_to_mel_bnd(torch.from_numpy(np.asarray(wav, np.float32))[None])
+        return mel[0, :true_frames].cpu().numpy()
+
+    def tokenize(self, texts: list[str]) -> np.ndarray:
+        if self.tokenizer == "char":
+            ids = list_str_to_idx(texts, self.vocab_char_map)
+        else:
+            ids = list_str_to_tensor(texts)
+        nt = ids.shape[1]
+        nt_bucket = max(((nt + 63) // 64) * 64, 64)
+        return np.pad(ids, ((0, 0), (0, nt_bucket - nt)), constant_values=-1)
+
+    def generate_chunk(self, ref_wav: np.ndarray, ref_text: str, gen_text: str,
+                       seed: int = 0, speed: Optional[float] = None,
+                       fix_duration: Optional[float] = None, nfe_step: Optional[int] = None,
+                       cfg_strength: Optional[float] = None,
+                       sway_sampling_coef="default",
+                       target_rms: Optional[float] = None) -> tuple[np.ndarray, np.ndarray]:
+        """Returns (wave [n], generated mel [d, t]) for one text chunk."""
+        s = self.sampling
+        rms_target = s.target_rms if target_rms is None else target_rms
+        speed = s.speed if speed is None else speed
+        nfe = s.nfe_steps if nfe_step is None else nfe_step
+        cfg_strength = s.cfg_strength if cfg_strength is None else cfg_strength
+        sway = s.sway_sampling_coef if sway_sampling_coef == "default" else sway_sampling_coef
+
+        ref_rms = audio_io.rms(ref_wav)
+        if 0 < ref_rms < rms_target:
+            ref_wav = ref_wav * (rms_target / ref_rms)
+        ref_mel = self.ref_mel(ref_wav)
+        ref_frames = ref_mel.shape[0]
+
+        total = estimate_duration_frames(ref_frames, ref_text, gen_text, speed,
+                                         fix_duration, self.sr, self.hop)
+        text_ids = self.tokenize([ref_text + gen_text])
+        text_lens = int((text_ids != -1).sum())
+        total = int(cfm.compute_duration(torch.tensor([text_lens]), torch.tensor([ref_frames]),
+                                         torch.tensor([total]), s.max_duration)[0])
+        n_bucket = duration_bucket(total, self.bucket_size, s.max_duration)
+        cond = np.zeros((1, n_bucket, self.mel_cfg.n_mel_channels), np.float32)
+        cond[0, :ref_frames] = ref_mel
+
+        dev = self.device
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        mel = cfm.cfm_sample(
+            self.params, self.statics, torch.from_numpy(cond).to(dev),
+            torch.from_numpy(text_ids).to(dev),
+            torch.tensor([ref_frames], dtype=torch.int32, device=dev),
+            torch.tensor([total], dtype=torch.int32, device=dev),
+            make_time_grid(nfe, sway_sampling_coef=sway, use_epss=s.use_epss).to(dev),
+            generator=gen, cfg_strength=cfg_strength, dtype=self.dtype,
+            noise_max_len=s.max_duration)
+        wave_full = self.vocoder(mel.transpose(1, 2)).cpu().numpy()
+        gen_mel = mel[0, ref_frames:total].transpose(0, 1).cpu().numpy()
+        wave = wave_full[0, ref_frames * self.hop: min(total * self.hop, wave_full.shape[1])]
+        if 0 < ref_rms < rms_target:
+            wave = wave * (ref_rms / rms_target)
+        return wave.astype(np.float32), gen_mel
+
+    def infer(self, ref_wav: np.ndarray, ref_sr: int, ref_text: str, gen_text: str,
+              seed: int = 0, speed: Optional[float] = None,
+              fix_duration: Optional[float] = None, nfe_step: Optional[int] = None,
+              cfg_strength: Optional[float] = None, sway_sampling_coef="default",
+              cross_fade_duration: Optional[float] = None,
+              target_rms: Optional[float] = None) -> tuple[np.ndarray, int, np.ndarray]:
+        """Full pipeline: chunk the text, generate each chunk, cross-fade.
+        Returns (wave, sample_rate, mel [d, t])."""
+        s = self.sampling
+        xf = s.cross_fade_duration if cross_fade_duration is None else cross_fade_duration
+        speed_v = s.speed if speed is None else speed
+        ref_wav = audio_io.resample(ref_wav, ref_sr, self.sr)
+        if not ref_text.endswith(". ") and not ref_text.endswith("。"):
+            ref_text = ref_text + " " if ref_text.endswith(".") else ref_text + ". "
+        if len(ref_text[-1].encode("utf-8")) == 1 and not ref_text.endswith(" "):
+            ref_text = ref_text + " "
+        ref_secs = len(ref_wav) / self.sr
+        chunks = chunk_text(gen_text, max_chars=max(max_chars_for_ref(ref_text, ref_secs, speed_v), 16))
+        if not chunks:
+            return np.zeros(0, np.float32), self.sr, np.zeros((self.mel_cfg.n_mel_channels, 0))
+        waves, mels = [], []
+        for chunk in chunks:
+            w, mspec = self.generate_chunk(
+                ref_wav, ref_text, chunk, seed=seed, speed=speed, fix_duration=fix_duration,
+                nfe_step=nfe_step, cfg_strength=cfg_strength,
+                sway_sampling_coef=sway_sampling_coef, target_rms=target_rms)
+            waves.append(w)
+            mels.append(mspec)
+        return cross_fade(waves, self.sr, xf), self.sr, np.concatenate(mels, axis=1)

@@ -1,0 +1,82 @@
+"""Flow-matching sampler (counterpart of f5tts_tpu/models/cfm.py:169-364).
+
+`cfm_sample` runs the Euler ODE over a precomputed time grid (EPSS + sway)
+with CFG: cond and uncond rows go through the DiT as one 2b batch and
+combine as pred + (pred - null) * cfg. Text embeddings and every step's
+AdaLN modulation are computed once, before the step loop. The prompt frames
+are re-imposed on the result.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from f5tts_tpu_torch.models import dit
+from f5tts_tpu_torch.utils import lens_to_mask
+
+
+def make_noise(generator: torch.Generator, batch: int, seq_len: int, num_channels: int,
+               duration: torch.Tensor, noise_max_len: Optional[int] = None) -> torch.Tensor:
+    """Sampling noise y0 [batch, seq_len, c] f32 on duration's device: ONE
+    panel shared by every row, drawn at `noise_max_len` rows and cut to
+    seq_len (the same seed gives the same audio in any bucket), rows >=
+    duration zeroed. Drawn from `generator`, on the generator's device."""
+    gen_len = max(noise_max_len or seq_len, seq_len)
+    panel = torch.randn((gen_len, num_channels), generator=generator,
+                        device=generator.device, dtype=torch.float32)[:seq_len]
+    noise = panel.to(duration.device)[None].expand(batch, seq_len, num_channels)
+    valid = lens_to_mask(duration, seq_len)
+    return torch.where(valid[:, :, None], noise, 0.0)
+
+
+def sample_euler(params, statics, y0: torch.Tensor, step_cond: torch.Tensor,
+                 text: torch.Tensor, duration: torch.Tensor, t_grid: torch.Tensor,
+                 cfg_strength: float, dtype=torch.bfloat16) -> torch.Tensor:
+    """Euler steps with CFG over `t_grid` [steps+1]; x stays f32."""
+    b, n, _ = y0.shape
+    steps = t_grid.shape[0] - 1
+    te_cond = dit.text_embedding(params["text_embed"], statics, text, n,
+                                 lengths=duration, drop_text=False, dtype=dtype)
+    te_uncond = dit.text_embedding(params["text_embed"], statics, text, n,
+                                   lengths=duration, drop_text=True, dtype=dtype)
+    block_mods, final_mods = dit.precompute_t_mods(params, t_grid[:steps], 2 * b, dtype)
+    cfg = torch.tensor(cfg_strength, dtype=torch.float32, device=y0.device)
+    x = y0
+    for i in range(steps):
+        pred_cfg = dit.dit_forward(
+            params, statics, x, step_cond, text, t_grid[i], lengths=duration,
+            cfg_infer=True, text_embeds=(te_cond, te_uncond), dtype=dtype,
+            t_mods=(block_mods[:, i], final_mods[i]))
+        pred, null_pred = pred_cfg.chunk(2, dim=0)
+        v = pred + (pred - null_pred) * cfg
+        x = x + (t_grid[i + 1] - t_grid[i]) * v
+    return x
+
+
+@torch.no_grad()
+def cfm_sample(params, statics, cond: torch.Tensor, text: torch.Tensor,
+               lens: torch.Tensor, duration: torch.Tensor, t_grid: torch.Tensor, *,
+               generator: Optional[torch.Generator] = None, y0: Optional[torch.Tensor] = None,
+               cfg_strength: float = 2.0, dtype=torch.bfloat16,
+               noise_max_len: Optional[int] = None) -> torch.Tensor:
+    """cond [b, n, d] prompt mel zero-padded to the bucket n, text [b, nt]
+    ids (-1 padded), lens [b] prompt frames, duration [b] total frames <= n.
+    Returns the mel [b, n, d] (f32). Pass `y0` or a `generator` for noise."""
+    b, n, d = cond.shape
+    cond_mask = lens_to_mask(lens, n)
+    step_cond = torch.where(cond_mask[:, :, None], cond, 0.0)
+    if y0 is None:
+        if generator is None:
+            raise ValueError("cfm_sample needs a generator or y0")
+        y0 = make_noise(generator, b, n, d, duration, noise_max_len)
+    sampled = sample_euler(params, statics, y0.float(), step_cond, text, duration,
+                           t_grid.float().to(cond.device), cfg_strength, dtype)
+    return torch.where(cond_mask[:, :, None], cond, sampled)
+
+
+def compute_duration(text_lens, prompt_lens, requested, max_duration: int):
+    """duration = max(max(text_len, lens) + 1, requested), clamped."""
+    return torch.clamp(torch.maximum(torch.maximum(text_lens, prompt_lens) + 1, requested),
+                       max=max_duration)

@@ -1,0 +1,193 @@
+"""DiT backbone (counterpart of f5tts_tpu/models/dit.py).
+
+- text_embedding: +1 token shift (0 = filler), curtail/pad to the mel
+  length, filler beyond each sample's length, freqs_cis added on valid
+  positions only, ConvNeXt V2 stack with padding re-zeroed after each block.
+- input_embedding: Linear(concat(x, cond, text)) + ConvPositionEmbedding (K2).
+- dit_apply: the blocks (K1, K3) + final AdaLN (K1) + projection.
+- dit_forward(cfg_infer=True): cond rows then uncond rows in one 2b batch;
+  the uncond rows drop both the audio cond and the text.
+- precompute_t_mods: every step's AdaLN modulation at once, before the loop.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from f5tts_tpu_torch.config import ModelArch
+from f5tts_tpu_torch.models import modules as m
+from f5tts_tpu_torch.ops.rope import (
+    precompute_freqs_cis,
+    rope_flat_tables,
+    rope_freqs_interleaved,
+)
+
+TEXT_PRECOMPUTE_MAX_POS = 8192  # reference dit.py:47
+
+
+def init_dit(generator: torch.Generator, arch: ModelArch) -> m.Params:
+    """Random DiT parameters from `generator` (on the CPU, f32). The AdaLN,
+    norm_out and proj_out linears are zero (AdaLN-zero), as in the JAX
+    package: such a DiT is an identity until those are trained or randomised
+    (`activate_zero_init`)."""
+    g = generator
+    text_dim = arch.text_dim or arch.mel_dim
+    text = {"embed": {"w": torch.randn(arch.text_num_embeds + 1, text_dim, generator=g)}}
+    if arch.conv_layers > 0:
+        text["blocks"] = [m.init_convnext_v2_block(g, text_dim, text_dim * arch.conv_mult)
+                          for _ in range(arch.conv_layers)]
+    return {
+        "time_embed": m.init_timestep_embedding(g, arch.dim),
+        "text_embed": text,
+        "input_embed": {
+            "proj": m.init_linear(g, arch.mel_dim * 2 + text_dim, arch.dim),
+            "conv_pos": m.init_conv_pos_embedding(g, arch.dim),
+        },
+        "blocks": [m.init_dit_block(g, arch.dim, arch.heads, arch.dim_head, arch.ff_mult)
+                   for _ in range(arch.depth)],
+        "norm_out": {"linear": m.init_linear(g, arch.dim, 2 * arch.dim, zero=True)},
+        "proj_out": m.init_linear(g, arch.dim, arch.mel_dim, zero=True),
+    }
+
+
+def activate_zero_init(params: m.Params, generator: torch.Generator,
+                       scale: float = 0.05) -> m.Params:
+    """Replace every all-zero float leaf (AdaLN and final-norm linears,
+    proj_out, GRN gamma/beta) with scale * N(0, 1), so a random-init model
+    carries real signal (the JAX package's scripts/int8_quality_ab.py does
+    the same)."""
+    def act(a):
+        if a.is_floating_point() and a.numel() and not bool(torch.any(a != 0)):
+            return scale * torch.randn(a.shape, generator=generator).to(a.dtype)
+        return a
+    return m.tree_map(act, params)
+
+
+class DiTStatics:
+    """Constant tables (text position table, RoPE angles) on `device`."""
+
+    def __init__(self, arch: ModelArch, device=None):
+        self.arch = arch
+        text_dim = arch.text_dim or arch.mel_dim
+        self.text_freqs_cis = precompute_freqs_cis(text_dim, TEXT_PRECOMPUTE_MAX_POS).to(device)
+        self.rope_angles = rope_freqs_interleaved(arch.dim_head, TEXT_PRECOMPUTE_MAX_POS).to(device)
+
+
+def text_embedding(p: m.Params, statics: DiTStatics, text: torch.Tensor, seq_len: int,
+                   lengths: Optional[torch.Tensor] = None, drop_text: bool = False,
+                   dtype=torch.float32) -> torch.Tensor:
+    """text [b, nt] ids, -1 padded -> [b, seq_len, text_dim]."""
+    arch = statics.arch
+    b, nt = text.shape
+    text = text.long() + 1  # -1 pad -> 0 filler
+    text = text[:, :seq_len] if nt >= seq_len else F.pad(text, (0, seq_len - nt))
+
+    valid = None
+    if lengths is not None:
+        valid = torch.arange(seq_len, device=text.device)[None, :] < lengths[:, None]
+        text = torch.where(valid, text, 0)
+    pad_mask = text == 0
+    if drop_text:
+        text = torch.zeros_like(text)
+
+    emb = p["embed"]["w"][text].to(dtype)
+    zero = torch.zeros((), dtype=dtype, device=emb.device)
+    if valid is not None:
+        emb = torch.where(valid[:, :, None], emb, zero)
+    if arch.conv_layers > 0:
+        freqs = statics.text_freqs_cis[:seq_len].to(dtype)
+        if valid is not None:
+            emb = emb + freqs[None] * valid[:, :, None].to(dtype)
+        else:
+            emb = emb + freqs[None]
+        if arch.text_mask_padding:
+            emb = torch.where(pad_mask[:, :, None], zero, emb)
+            for blk in p["blocks"]:
+                emb = torch.where(pad_mask[:, :, None], zero, m.convnext_v2_block(blk, emb))
+        else:
+            for blk in p["blocks"]:
+                emb = m.convnext_v2_block(blk, emb)
+    return emb
+
+
+def input_embedding(p: m.Params, x: torch.Tensor, cond: torch.Tensor,
+                    text_embed: torch.Tensor, drop_audio_cond: bool = False,
+                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if drop_audio_cond:
+        cond = torch.zeros_like(cond)
+    h = m.linear(p["proj"], torch.cat([x, cond, text_embed], dim=-1))
+    return m.conv_pos_embedding(p["conv_pos"], h, lengths) + h
+
+
+def dit_apply(params: m.Params, statics: DiTStatics, x: torch.Tensor,
+              block_mods, final_mod: torch.Tensor,
+              lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """Blocks + final AdaLN + proj_out. block_mods[i] is block i's [b, 6*dim]."""
+    arch = statics.arch
+    n = x.shape[1]
+    rope_tabs = rope_flat_tables(statics.rope_angles, n, arch.heads, arch.pe_attn_head,
+                                 dtype=x.dtype)
+    for blk, mods in zip(params["blocks"], block_mods):
+        x = m.dit_block(blk, x, mods, arch.heads, rope_tabs, lengths)
+    x = m.adaln_final(x, final_mod)
+    return m.linear(params["proj_out"], x)
+
+
+def t_mods_from_emb(params: m.Params, t_emb: torch.Tensor) -> tuple:
+    """(per-block [b, 6*dim] mods, final [b, 2*dim] mod) from [b, dim] t_emb."""
+    h = F.silu(t_emb)
+    block_mods = [m.linear(blk["attn_norm"]["linear"], h) for blk in params["blocks"]]
+    return block_mods, m.linear(params["norm_out"]["linear"], h)
+
+
+def precompute_t_mods(params: m.Params, t_values: torch.Tensor, batch: int,
+                      dtype=torch.bfloat16) -> tuple:
+    """All timestep-dependent AdaLN work for `t_values` [S], at once.
+    Returns (block_mods [L, S, batch, 6*dim], final_mod [S, batch, 2*dim])."""
+    s = t_values.shape[0]
+    t_flat = t_values[:, None].expand(s, batch).reshape(-1)
+    emb = m.timestep_embedding(params["time_embed"], t_flat, dtype=dtype)
+    block_mods, final_mod = t_mods_from_emb(params, emb)
+    block_mods = torch.stack(block_mods).reshape(len(params["blocks"]), s, batch, -1)
+    return block_mods, final_mod.reshape(s, batch, -1)
+
+
+def dit_forward(params: m.Params, statics: DiTStatics, x: torch.Tensor,
+                cond: torch.Tensor, text: torch.Tensor, time: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None, drop_audio_cond: bool = False,
+                drop_text: bool = False, cfg_infer: bool = False,
+                text_embeds: Optional[tuple] = None, dtype=torch.float32,
+                t_mods: Optional[tuple] = None) -> torch.Tensor:
+    """Flow prediction [b, n, mel] (f32); with cfg_infer, [2b, n, mel]: cond
+    rows then uncond rows. `t_mods` = (block_mods [L, B, 6*dim], final_mod
+    [B, 2*dim]) with B the packed batch replaces the timestep embedding."""
+    b, n, _ = x.shape
+    x = x.to(dtype)
+    cond = cond.to(dtype)
+    ip = params["input_embed"]
+
+    def te(drop):
+        if text_embeds is not None:
+            return text_embeds[1] if drop else text_embeds[0]
+        return text_embedding(params["text_embed"], statics, text, n, lengths=lengths,
+                              drop_text=drop, dtype=dtype)
+
+    if cfg_infer:
+        h = torch.cat([input_embedding(ip, x, cond, te(False), False, lengths),
+                       input_embedding(ip, x, cond, te(True), True, lengths)], dim=0)
+        lengths = torch.cat([lengths, lengths]) if lengths is not None else None
+    else:
+        h = input_embedding(ip, x, cond, te(drop_text), drop_audio_cond, lengths)
+
+    if t_mods is None:
+        if time.dim() == 0:
+            time = time.expand(b)
+        t_emb = m.timestep_embedding(params["time_embed"], time, dtype=dtype)
+        if cfg_infer:
+            t_emb = torch.cat([t_emb, t_emb], dim=0)
+        t_mods = t_mods_from_emb(params, t_emb)
+    out = dit_apply(params, statics, h, t_mods[0], t_mods[1], lengths)
+    return out.float()

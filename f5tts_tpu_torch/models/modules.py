@@ -1,0 +1,286 @@
+"""Building blocks of the DiT main path, as functions over parameter dicts.
+
+Counterparts of f5tts_tpu/models/modules.py. Parameters are nested dicts of
+tensors with the JAX package's keys and layouts, which the port keeps:
+- Linear weights (in, out), applied as `x @ w + b`;
+- Conv1d weights (k, in/groups, out) (WIO);
+- per-block dicts are kept in a Python list (the JAX package stacks them on
+  a leading depth axis; `convert.py` unstacks).
+Compute runs in the caller's dtype with LayerNorm, GRN and softmax
+statistics in f32, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from f5tts_tpu_torch.ops.adaln_norm import adaln_norm
+from f5tts_tpu_torch.ops.attention import fused_qkv_rope_attention
+from f5tts_tpu_torch.ops.grouped_conv import conv_pos_embedding as conv_pos_kernel
+
+Params = dict
+
+
+# ---------------------------------------------------------------------------
+# Init (torch-default-like bounds, as the JAX package initialises)
+# ---------------------------------------------------------------------------
+
+def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
+    return (torch.rand(shape, generator=gen, dtype=torch.float32) * 2.0 - 1.0) * bound
+
+
+def init_linear(gen, d_in: int, d_out: int, bias: bool = True, zero: bool = False) -> Params:
+    if zero:
+        p = {"w": torch.zeros(d_in, d_out)}
+        if bias:
+            p["b"] = torch.zeros(d_out)
+        return p
+    bound = 1.0 / math.sqrt(d_in)
+    p = {"w": _uniform(gen, (d_in, d_out), bound)}
+    if bias:
+        p["b"] = _uniform(gen, (d_out,), bound)
+    return p
+
+
+def init_conv1d(gen, c_in: int, c_out: int, kernel: int, groups: int = 1) -> Params:
+    """Kernel [kernel, c_in // groups, c_out] (WIO)."""
+    bound = 1.0 / math.sqrt((c_in // groups) * kernel)
+    return {"w": _uniform(gen, (kernel, c_in // groups, c_out), bound),
+            "b": _uniform(gen, (c_out,), bound)}
+
+
+# ---------------------------------------------------------------------------
+# Primitives
+# ---------------------------------------------------------------------------
+
+def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    y = torch.matmul(x, p["w"].to(x.dtype))
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def layer_norm(x: torch.Tensor, weight=None, bias=None, eps: float = 1e-6) -> torch.Tensor:
+    """One-pass f32 statistics (var = E[x^2] - E[x]^2, clamped >= 0)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if weight is not None:
+        y = y * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def depthwise_conv1d(p: Params, x: torch.Tensor, dilation: int = 1,
+                     padding: Optional[int] = None) -> torch.Tensor:
+    """Depthwise conv of x [b, n, c] as k shifted multiply-adds in x's dtype
+    (kernel [k, 1, c]), as the JAX package computes it."""
+    kern = p["w"][:, 0, :].to(x.dtype)
+    k = kern.shape[0]
+    total = dilation * (k - 1)
+    lead = total // 2 if padding is None else padding
+    n = x.shape[1]
+    xp = F.pad(x, (0, 0, lead, total - lead))
+    y = None
+    for i in range(k):
+        term = xp[:, i * dilation: i * dilation + n] * kern[i]
+        y = term if y is None else y + term
+    return y + p["b"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Position / timestep embeddings
+# ---------------------------------------------------------------------------
+
+def sinus_pos_embedding(x: torch.Tensor, dim: int, scale: float = 1000.0) -> torch.Tensor:
+    """[b] -> [b, dim]; note the (half - 1) denominator."""
+    half = dim // 2
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=x.device)
+                      * (-math.log(10000.0) / (half - 1)))
+    ang = scale * x.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def init_timestep_embedding(gen, dim: int, freq_embed_dim: int = 256) -> Params:
+    return {"mlp1": init_linear(gen, freq_embed_dim, dim), "mlp2": init_linear(gen, dim, dim)}
+
+
+def timestep_embedding(p: Params, t: torch.Tensor, dtype=torch.float32,
+                       freq_embed_dim: int = 256) -> torch.Tensor:
+    h = sinus_pos_embedding(t, freq_embed_dim).to(dtype)
+    return linear(p["mlp2"], F.silu(linear(p["mlp1"], h)))
+
+
+# ---------------------------------------------------------------------------
+# Conv position embedding -> kernel K2
+# ---------------------------------------------------------------------------
+
+def init_conv_pos_embedding(gen, dim: int, kernel: int = 31, groups: int = 16) -> Params:
+    return {"conv1": init_conv1d(gen, dim, dim, kernel, groups),
+            "conv2": init_conv1d(gen, dim, dim, kernel, groups)}
+
+
+def conv_pos_embedding(p: Params, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                       groups: int = 16) -> torch.Tensor:
+    """x [b, n, d]; rows >= lengths are zeroed before and after each conv."""
+    b, n, _ = x.shape
+    if lengths is None:
+        lengths = torch.full((b,), n, dtype=torch.int32, device=x.device)
+    return conv_pos_kernel(x, p["conv1"]["w"].to(x.dtype), p["conv1"]["b"].to(x.dtype),
+                           p["conv2"]["w"].to(x.dtype), p["conv2"]["b"].to(x.dtype),
+                           lengths.to(torch.int32), groups)
+
+
+# ---------------------------------------------------------------------------
+# GRN + ConvNeXt V2
+# ---------------------------------------------------------------------------
+
+def grn(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Global response norm over the SEQUENCE axis (dim 1 of [b, n, d])."""
+    xf = x.float()
+    gx = torch.sqrt(torch.sum(xf * xf, dim=1, keepdim=True))
+    nx = gx / (gx.mean(dim=-1, keepdim=True) + 1e-6)
+    y = p["gamma"].float() * (xf * nx) + p["beta"].float() + xf
+    return y.to(x.dtype)
+
+
+def init_convnext_v2_block(gen, dim: int, intermediate_dim: int) -> Params:
+    return {
+        "dwconv": init_conv1d(gen, dim, dim, 7, groups=dim),
+        "norm_w": torch.ones(dim),
+        "norm_b": torch.zeros(dim),
+        "pw1": init_linear(gen, dim, intermediate_dim),
+        "grn": {"gamma": torch.zeros(intermediate_dim), "beta": torch.zeros(intermediate_dim)},
+        "pw2": init_linear(gen, intermediate_dim, dim),
+    }
+
+
+def convnext_v2_block(p: Params, x: torch.Tensor, dilation: int = 1) -> torch.Tensor:
+    h = depthwise_conv1d(p["dwconv"], x, dilation=dilation, padding=(dilation * 6) // 2)
+    h = layer_norm(h, p["norm_w"], p["norm_b"], eps=1e-6)
+    h = gelu_exact(linear(p["pw1"], h))
+    h = grn(p["grn"], h)
+    return x + linear(p["pw2"], h)
+
+
+# ---------------------------------------------------------------------------
+# AdaLN -> kernel K1
+# ---------------------------------------------------------------------------
+
+def adaln_pre(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """LayerNorm (no affine) * (1 + scale) + shift, broadcast over the sequence."""
+    return adaln_norm(x, scale, shift)
+
+
+def adaln_final(x: torch.Tensor, mod: torch.Tensor) -> torch.Tensor:
+    """Final AdaLN from a precomputed [b, 2*dim] modulation. NOTE the
+    (scale, shift) order here against (shift, scale, gate, ...) in blocks."""
+    scale, shift = mod.chunk(2, dim=-1)
+    return adaln_pre(x, shift, scale)
+
+
+def feed_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return linear(p["out"], gelu_tanh(linear(p["in"], x)))
+
+
+# ---------------------------------------------------------------------------
+# Self-attention on the fused to_qkv path -> kernel K3
+# ---------------------------------------------------------------------------
+
+def self_attention(p: Params, x: torch.Tensor, heads: int, rope_tabs: tuple,
+                   lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x [b, n, dim]; rope_tabs = flat (cos, sin) [n, h*d]; `p` holds the
+    fused to_qkv projection (`fuse_backbone_qkv`). Rows >= lengths of the
+    output are zeroed after to_out."""
+    b, n, _ = x.shape
+    if "to_qkv" not in p:
+        raise ValueError("self_attention takes fused to_qkv params: apply fuse_backbone_qkv")
+    qkv = linear(p["to_qkv"], x)
+    lens = (torch.full((b,), n, dtype=torch.int32, device=x.device) if lengths is None
+            else lengths.to(torch.int32))
+    o = fused_qkv_rope_attention(qkv.contiguous(), rope_tabs[0], rope_tabs[1], lens, heads)
+    o = linear(p["to_out"], o)
+    if lengths is not None:
+        mask = torch.arange(n, device=x.device)[None, :] < lengths[:, None]
+        o = torch.where(mask[:, :, None], o, torch.zeros((), dtype=o.dtype, device=o.device))
+    return o
+
+
+# ---------------------------------------------------------------------------
+# DiT block
+# ---------------------------------------------------------------------------
+
+def init_dit_block(gen, dim: int, heads: int, dim_head: int, ff_mult: int) -> Params:
+    inner = heads * dim_head
+    return {
+        "attn_norm": {"linear": init_linear(gen, dim, 6 * dim, zero=True)},  # AdaLN-zero
+        "attn": {
+            "to_q": init_linear(gen, dim, inner),
+            "to_k": init_linear(gen, dim, inner),
+            "to_v": init_linear(gen, dim, inner),
+            "to_out": init_linear(gen, inner, dim),
+        },
+        "ff": {"in": init_linear(gen, dim, dim * ff_mult),
+               "out": init_linear(gen, dim * ff_mult, dim)},
+    }
+
+
+def dit_block(p: Params, x: torch.Tensor, mods: torch.Tensor, heads: int,
+              rope_tabs: tuple, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mods [b, 6*dim]: shift_msa, scale_msa, gate_msa, shift/scale/gate_mlp."""
+    shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods.chunk(6, dim=-1)
+    norm = adaln_pre(x, shift_msa, scale_msa)
+    x = x + gate_msa[:, None, :] * self_attention(p["attn"], norm, heads, rope_tabs, lengths)
+    norm = adaln_pre(x, shift_mlp, scale_mlp)
+    return x + gate_mlp[:, None, :] * feed_forward(p["ff"], norm)
+
+
+def fuse_attention_qkv(attn: Params) -> Params:
+    """Merge to_q/to_k/to_v into one to_qkv linear (output axis concat)."""
+    if "to_qkv" in attn or "to_q" not in attn:
+        return attn
+    parts = [attn[k] for k in ("to_q", "to_k", "to_v")]
+    fused = {"w": torch.cat([q["w"] for q in parts], dim=-1)}
+    if "b" in parts[0]:
+        fused["b"] = torch.cat([q["b"] for q in parts], dim=-1)
+    out = {k: v for k, v in attn.items() if k not in ("to_q", "to_k", "to_v")}
+    out["to_qkv"] = fused
+    return out
+
+
+def fuse_backbone_qkv(params: Params) -> Params:
+    """fuse_attention_qkv on every block of the DiT."""
+    out = dict(params)
+    out["blocks"] = [dict(blk, attn=fuse_attention_qkv(blk["attn"])) for blk in params["blocks"]]
+    return out
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_cast(params, dtype=None, device=None):
+    """Cast floating leaves to `dtype` and move every leaf to `device`."""
+    def cast(a):
+        if dtype is not None and a.is_floating_point():
+            a = a.to(dtype)
+        return a.to(device) if device is not None else a
+    return tree_map(cast, params)

@@ -1,0 +1,76 @@
+"""AdaLN-modulated LayerNorm: y = LN(x) * (1 + scale[b]) + shift[b].
+
+Counterpart of f5tts_tpu/ops/adaln_norm.py. `adaln_norm` launches the
+hand-written kernel K1 (csrc/adaln_norm.cu, replacing the Pallas
+`_adaln_norm_kernel`) for CUDA tensors and runs the plain version
+`adaln_norm_ref` for CPU tensors only. The DiT runs it 2 * depth + 1 times
+per ODE step.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from f5tts_tpu_torch.ops import _build
+
+_MAX_D = 4096  # the kernel keeps at most 4 16-byte vectors per thread
+
+
+def adaln_norm_ref(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """Plain version: f32 one-pass stats (var clamped >= 0), then modulation."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * (1.0 + scale.float()[:, None, :]) + shift.float()[:, None, :]
+    return y.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _fn():
+    lib = _build.load("adaln_norm")
+    fn = lib.f5_adaln_norm_bf16
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x, scale, shift):
+    if x.dtype != torch.bfloat16 or scale.dtype != torch.bfloat16 or shift.dtype != torch.bfloat16:
+        raise TypeError("adaln_norm kernel takes bf16 x, scale and shift")
+    if x.dim() != 3 or not x.is_contiguous():
+        raise ValueError("adaln_norm kernel takes a contiguous [b, n, d] x")
+    b, _, d = x.shape
+    if d % 8 or d > _MAX_D:
+        raise ValueError(f"adaln_norm kernel needs d % 8 == 0 and d <= {_MAX_D}, got {d}")
+    for t in (scale, shift):
+        if t.device != x.device:
+            raise ValueError("adaln_norm: scale/shift must be on x's device")
+        if t.shape != (b, d) or t.stride(1) != 1:
+            raise ValueError("adaln_norm kernel takes [b, d] scale/shift with unit inner stride")
+        if t.data_ptr() % 16 or t.stride(0) % 8:
+            raise ValueError("adaln_norm kernel needs 16-byte aligned scale/shift rows")
+    if x.data_ptr() % 16:
+        raise ValueError("adaln_norm kernel needs a 16-byte aligned x")
+
+
+def adaln_norm(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """x [b, n, d], scale/shift [b, d]. Kernel K1 on CUDA, plain on the CPU."""
+    if x.device.type == "cpu":
+        return adaln_norm_ref(x, scale, shift, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"adaln_norm: unsupported device {x.device}")
+    _check(x, scale, shift)
+    b, n, d = x.shape
+    out = torch.empty_like(x)
+    err = _fn()(_build.ptr(x), _build.ptr(scale), _build.ptr(shift), _build.ptr(out),
+                b, n, d, scale.stride(0), shift.stride(0), eps, _build.stream_ptr(x.device))
+    _build.check(err, "adaln_norm")
+    _build.count("adaln_norm")
+    return out

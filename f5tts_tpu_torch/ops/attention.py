@@ -1,0 +1,107 @@
+"""Attention (counterpart of f5tts_tpu/ops/attention.py:31 and :777-1172).
+
+`fused_qkv_rope_attention` takes the fused QKV projection output flat
+[b, n, 3*h*d], rotates q and k with interleaved RoPE from flat cos/sin
+tables, scales q by 1/sqrt(d), takes the softmax over keys < lengths[b] and
+writes flat [b, n, h*d] with rows >= lengths[b] zeroed. For CUDA tensors it
+launches the hand-written kernel K3 (csrc/attention.cu, replacing the Pallas
+`_fused_qkv_attn_kernel` and `_fused_qkv_attn_kernel_stream`); CPU tensors
+go to the plain version `fused_qkv_rope_attention_ref`. `mha_reference` is
+the plain [b, h, n, d] oracle.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from f5tts_tpu_torch.ops import _build
+from f5tts_tpu_torch.ops.rope import apply_rotary_flat_tables
+
+NEG_INF = -1e30
+HEAD_DIM = 64  # the kernel's head width
+
+
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[b,h,n,d] x3 -> [b,h,n,d]; f32 softmax; keys >= lengths masked."""
+    n, d = q.shape[-2], q.shape[-1]
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    if lengths is not None:
+        kmask = torch.arange(n, device=q.device)[None, :] < lengths[:, None]
+        scores = torch.where(kmask[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.matmul(probs.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
+def fused_qkv_rope_attention_ref(qkv, cos, sin, lengths, heads: int) -> torch.Tensor:
+    """Plain version with the kernel's rounding points: roped q * 1/sqrt(d)
+    and roped k in qkv's dtype, f32 scores and softmax, probabilities in
+    qkv's dtype, rows >= length zeroed."""
+    b, n, hd3 = qkv.shape
+    hd = hd3 // 3
+    d = hd // heads
+    q, k, v = qkv.split(hd, dim=-1)
+    cos, sin = cos[:n], sin[:n]
+    q = (apply_rotary_flat_tables(q, cos, sin).float() * (1.0 / math.sqrt(d))).to(qkv.dtype)
+    k = apply_rotary_flat_tables(k, cos, sin)
+
+    def split_heads(t):
+        return t.reshape(b, n, heads, d).transpose(1, 2)
+
+    scores = torch.matmul(split_heads(q).float(), split_heads(k).float().transpose(-1, -2))
+    kmask = torch.arange(n, device=qkv.device)[None, :] < lengths[:, None]
+    scores = scores + torch.where(kmask, 0.0, NEG_INF)[:, None, None, :]
+    probs = torch.softmax(scores, dim=-1).to(qkv.dtype)
+    o = torch.matmul(probs.float(), split_heads(v).float())
+    o = o.transpose(1, 2).reshape(b, n, hd)
+    return torch.where(kmask[:, :, None], o, 0.0).to(qkv.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _fn():
+    lib = _build.load("attention")
+    fn = lib.f5_fused_qkv_rope_attn_bf16
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(qkv, cos, sin, lengths, heads):
+    if qkv.dim() != 3 or not qkv.is_contiguous() or qkv.dtype != torch.bfloat16:
+        raise ValueError("attention kernel takes a contiguous bf16 [b, n, 3*h*d] qkv")
+    b, n, hd3 = qkv.shape
+    if hd3 != 3 * heads * HEAD_DIM:
+        raise ValueError(f"attention kernel takes head width {HEAD_DIM}: "
+                         f"qkv width {hd3} with {heads} heads")
+    hd = heads * HEAD_DIM
+    for t in (cos, sin):
+        if (t.dim() != 2 or t.shape[0] < n or t.shape[1] != hd or not t.is_contiguous()
+                or t.dtype != torch.bfloat16 or t.device != qkv.device):
+            raise ValueError("attention kernel takes contiguous bf16 [>=n, h*d] "
+                             "rope tables on qkv's device")
+    if (lengths.shape != (b,) or lengths.dtype != torch.int32 or lengths.device != qkv.device
+            or not lengths.is_contiguous()):
+        raise ValueError("attention kernel takes int32 [b] lengths on qkv's device")
+
+
+def fused_qkv_rope_attention(qkv, cos, sin, lengths, heads: int) -> torch.Tensor:
+    """qkv [b, n, 3*h*d], cos/sin [>=n, h*d], lengths [b] int32 -> [b, n, h*d].
+    Kernel K3 on CUDA, plain on the CPU."""
+    if qkv.device.type == "cpu":
+        return fused_qkv_rope_attention_ref(qkv, cos, sin, lengths, heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"fused_qkv_rope_attention: unsupported device {qkv.device}")
+    _check(qkv, cos, sin, lengths, heads)
+    b, n, hd3 = qkv.shape
+    out = torch.empty((b, n, hd3 // 3), dtype=qkv.dtype, device=qkv.device)
+    err = _fn()(_build.ptr(qkv), _build.ptr(cos), _build.ptr(sin), _build.ptr(lengths),
+                _build.ptr(out), b, n, heads, 1.0 / math.sqrt(HEAD_DIM),
+                _build.stream_ptr(qkv.device))
+    _build.check(err, "fused_qkv_rope_attention")
+    _build.count("fused_qkv_rope_attention")
+    return out

@@ -1,0 +1,105 @@
+"""ConvPositionEmbedding (counterpart of f5tts_tpu/ops/grouped_conv.py:168-263).
+
+The whole module: zero rows >= length -> grouped conv1d (k=31, groups of 64
+channels, same padding) + bias -> mask -> Mish -> the same again.
+`conv_pos_embedding` launches the hand-written kernel K2
+(csrc/grouped_conv.cu, replacing the Pallas `_cpe_kernel`) for CUDA tensors,
+twice per call with the intermediate rounded to bf16 as the Pallas kernel
+rounds it, and runs the plain version `conv_pos_embedding_ref` (the
+`_xla_conv_pos` semantics) for CPU tensors only.
+
+Weights keep the JAX package's WIO layout: w [k, c // groups, c].
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from f5tts_tpu_torch.ops import _build
+
+GROUP_WIDTH = 64  # channels per group the kernel takes
+MAX_K = 31
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    """x * tanh(softplus(x)) in f32, softplus as jax.nn.softplus computes it."""
+    xf = x.float()
+    sp = torch.clamp(xf, min=0.0) + torch.log1p(torch.exp(-xf.abs()))
+    return (xf * torch.tanh(sp)).to(x.dtype)
+
+
+def grouped_conv1d_ref(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                       groups: int) -> torch.Tensor:
+    """Same-padded grouped conv of x [b, n, c] with WIO w [k, c/g, c], in f32."""
+    k = w.shape[0]
+    lead = (k - 1) // 2
+    xt = F.pad(x.float().transpose(1, 2), (lead, k - 1 - lead))
+    y = F.conv1d(xt, w.float().permute(2, 1, 0), groups=groups)
+    return y.transpose(1, 2) + bias.float()
+
+
+def conv_pos_embedding_ref(x, w1, b1, w2, b2, lengths, groups: int) -> torch.Tensor:
+    """Plain version. Sums in f32; the intermediate and the output are
+    rounded to x's dtype, as `_xla_conv_pos` and the Pallas kernel do."""
+    n = x.shape[1]
+    valid = (torch.arange(n, device=x.device)[None, :] < lengths[:, None])[..., None]
+    h = torch.where(valid, x, torch.zeros((), dtype=x.dtype, device=x.device))
+    h = grouped_conv1d_ref(h, w1, b1, groups)
+    h = mish(torch.where(valid, h, 0.0)).to(x.dtype)
+    h = grouped_conv1d_ref(h, w2, b2, groups)
+    return mish(torch.where(valid, h, 0.0)).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _fn():
+    lib = _build.load("grouped_conv")
+    fn = lib.f5_conv_mish_bf16
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x, ws, bs, lengths, groups):
+    if x.dim() != 3 or not x.is_contiguous() or x.dtype != torch.bfloat16:
+        raise ValueError("conv_pos_embedding kernel takes a contiguous bf16 [b, n, c] x")
+    b, _, c = x.shape
+    if c % groups or c // groups != GROUP_WIDTH:
+        raise ValueError(f"conv_pos_embedding kernel needs {GROUP_WIDTH} channels a group")
+    for w, bias in zip(ws, bs):
+        k = w.shape[0]
+        if (w.shape != (k, GROUP_WIDTH, c) or k > MAX_K or k % 2 == 0
+                or not w.is_contiguous() or w.dtype != torch.bfloat16):
+            raise ValueError("conv_pos_embedding kernel takes contiguous bf16 WIO "
+                             f"weights [k <= {MAX_K} odd, {GROUP_WIDTH}, c]")
+        if bias.shape != (c,) or not bias.is_contiguous() or bias.dtype != torch.bfloat16:
+            raise ValueError("conv_pos_embedding kernel takes a contiguous bf16 [c] bias")
+        if w.device != x.device or bias.device != x.device:
+            raise ValueError("conv_pos_embedding: weights must be on x's device")
+    if (lengths.shape != (b,) or lengths.dtype != torch.int32 or lengths.device != x.device
+            or not lengths.is_contiguous()):
+        raise ValueError("conv_pos_embedding kernel takes int32 [b] lengths on x's device")
+
+
+def conv_pos_embedding(x, w1, b1, w2, b2, lengths, groups: int = 16) -> torch.Tensor:
+    """x [b, n, c], w [k, c/groups, c] WIO, b [c], lengths [b] int32.
+    Kernel K2 on CUDA, plain on the CPU."""
+    if x.device.type == "cpu":
+        return conv_pos_embedding_ref(x, w1, b1, w2, b2, lengths, groups)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_pos_embedding: unsupported device {x.device}")
+    _check(x, (w1, w2), (b1, b2), lengths, groups)
+    b, n, c = x.shape
+    fn = _fn()
+    stream = _build.stream_ptr(x.device)
+    h = torch.empty_like(x)
+    y = torch.empty_like(x)
+    for src, w, bias, dst in ((x, w1, b1, h), (h, w2, b2, y)):
+        err = fn(_build.ptr(src), _build.ptr(w), _build.ptr(bias), _build.ptr(lengths),
+                 _build.ptr(dst), b, n, c, w.shape[0], stream)
+        _build.check(err, "conv_pos_embedding")
+    _build.count("conv_pos_embedding")
+    return y

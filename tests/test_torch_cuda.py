@@ -1,0 +1,112 @@
+"""Port kernels on the card (marker `cuda`; skipped where there is no GPU).
+
+Each hand-written kernel against its plain PyTorch version at small shapes,
+including ragged lengths and an n that is no multiple of the tiles, and one
+tiny DiT forward through all three kernels against the CPU plain path.
+Run on a GPU machine with:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from f5tts_tpu_torch.ops import _build
+from f5tts_tpu_torch.ops.adaln_norm import adaln_norm, adaln_norm_ref
+from f5tts_tpu_torch.ops.attention import fused_qkv_rope_attention, fused_qkv_rope_attention_ref
+from f5tts_tpu_torch.ops.grouped_conv import conv_pos_embedding, conv_pos_embedding_ref
+from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _bf16(rng, shape, dev, scale=1.0):
+    return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(dev, torch.bfloat16)
+
+
+def _live_max(a, b, lengths):
+    n = a.shape[1]
+    live = torch.arange(n, device=a.device)[None, :] < lengths[:, None]
+    return float((a.float() - b.float()).abs()[live].max())
+
+
+@pytest.mark.parametrize("n", [1, 100, 1024])
+def test_adaln_norm_kernel(dev, n):
+    rng = np.random.default_rng(n)
+    x = _bf16(rng, (2, n, 1024), dev)
+    mods = _bf16(rng, (2, 6 * 1024), dev, 0.05)
+    out = adaln_norm(x, mods[:, 1024:2048], mods[:, :1024])
+    ref = adaln_norm_ref(x.float(), mods[:, 1024:2048].float(), mods[:, :1024].float())
+    assert _live_max(out, ref, torch.full((2,), n, device=dev)) <= 2e-2
+
+
+@pytest.mark.parametrize("n,length", [(64, 64), (200, 131), (1024, 777)])
+def test_conv_pos_kernel(dev, n, length):
+    rng = np.random.default_rng(n)
+    x = _bf16(rng, (2, n, 1024), dev)
+    w1, w2 = _bf16(rng, (31, 64, 1024), dev, 0.02), _bf16(rng, (31, 64, 1024), dev, 0.02)
+    b1, b2 = _bf16(rng, (1024,), dev, 0.02), _bf16(rng, (1024,), dev, 0.02)
+    lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)
+    out = conv_pos_embedding(x, w1, b1, w2, b2, lengths, 16)
+    ref = conv_pos_embedding_ref(x.float(), w1.float(), b1.float(), w2.float(), b2.float(),
+                                 lengths, 16)
+    assert _live_max(out, ref, lengths) <= 3e-2
+    assert not out[1, length:].any()
+
+
+@pytest.mark.parametrize("n,length", [(64, 1), (100, 37), (1024, 777), (3200, 3001)])
+def test_attention_kernel(dev, n, length):
+    rng = np.random.default_rng(n)
+    qkv = _bf16(rng, (2, n, 3 * 1024), dev)
+    cos, sin = rope_flat_tables(rope_freqs_interleaved(64, n).to(dev), n, 16)
+    lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)
+    out = fused_qkv_rope_attention(qkv, cos, sin, lengths, 16)
+    ref = fused_qkv_rope_attention_ref(qkv.float(), cos.float(), sin.float(), lengths, 16)
+    assert _live_max(out, ref, lengths) <= 2e-2
+    assert not out[1, length:].any()
+
+
+def test_kernels_refuse_what_they_do_not_take(dev):
+    x = torch.zeros(1, 8, 1024, device=dev)  # f32, not bf16
+    with pytest.raises(TypeError):
+        adaln_norm(x, x[:, 0], x[:, 0])
+    with pytest.raises(ValueError):
+        fused_qkv_rope_attention(torch.zeros(1, 8, 3 * 1024, device=dev), x[0], x[0],
+                                 torch.zeros(1, dtype=torch.int32, device=dev), 16)
+
+
+def test_tiny_dit_through_the_kernels(dev):
+    from f5tts_tpu_torch.config import ModelArch
+    from f5tts_tpu_torch.models import dit
+    from f5tts_tpu_torch.models.modules import fuse_backbone_qkv, tree_cast
+
+    arch = ModelArch(dim=1024, depth=2, heads=16, dim_head=64, text_dim=64, conv_layers=1,
+                     text_num_embeds=32)
+    gen = torch.Generator().manual_seed(0)
+    params = fuse_backbone_qkv(dit.activate_zero_init(dit.init_dit(gen, arch), gen))
+    rng = np.random.default_rng(0)
+    n = 256
+    x = torch.from_numpy(rng.standard_normal((1, n, 100)).astype(np.float32))
+    text = torch.from_numpy(rng.integers(0, 32, (1, 40)).astype(np.int32))
+    lens = torch.tensor([201], dtype=torch.int32)
+    t = torch.tensor([0.4])
+    outs = {}
+    for where, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        _build.reset_launches()
+        outs[where.type] = dit.dit_forward(
+            tree_cast(params, dtype, where), dit.DiTStatics(arch, where), x.to(where),
+            x.to(where), text.to(where), t.to(where), lengths=lens.to(where), cfg_infer=True,
+            dtype=dtype).cpu()
+        if where.type == "cuda":
+            assert _build.launches() == {"conv_pos_embedding": 2, "adaln_norm": 5,
+                                         "fused_qkv_rope_attention": 2}
+    a, b = outs["cuda"][:, :201], outs["cpu"][:, :201]
+    assert float((a - b).norm() / b.norm()) <= 3e-2
