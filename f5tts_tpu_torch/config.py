@@ -1,9 +1,10 @@
 """Config schema for the PyTorch/CUDA port.
 
 Own copies of the JAX package's dataclasses (f5tts_tpu/config.py) that the
-zero-shot inference path reads: the mel front end, the backbone arch, the
-sampler defaults and the F5TTS_v1 presets. The port imports nothing of the
-JAX package, so the values are repeated here and the parity tests pin them.
+zero-shot inference and training paths read: the mel front end, the backbone
+arch, the CFM and sampler defaults, the training hyperparameters and the
+F5TTS_v1 presets. The port imports nothing of the JAX package, so the values
+are repeated here and the parity tests pin them.
 """
 
 from __future__ import annotations
@@ -45,6 +46,47 @@ class ModelArch:
     @property
     def inner_dim(self) -> int:
         return self.heads * self.dim_head
+
+
+@dataclass(frozen=True)
+class CFMConfig:
+    """CFM wrapper hyperparameters (reference model/cfm.py:34-77)."""
+
+    audio_drop_prob: float = 0.3
+    cond_drop_prob: float = 0.2
+    frac_lengths_mask: tuple = (0.7, 1.0)
+    sigma: float = 0.0
+    ode_method: str = "euler"  # only "euler" is ported
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (reference configs/*.yaml optim + datasets + ckpts)."""
+
+    dataset_name: str = "Emilia_ZH_EN"
+    dataset_type: str = "CustomDataset"
+    audio_type: str = "raw"
+    batch_size_per_device: int = 38_400  # frames per device per update
+    batch_size_type: str = "frame"
+    max_samples: int = 64
+    num_workers: int = 4
+
+    epochs: int = 11
+    learning_rate: float = 7.5e-5
+    num_warmup_updates: int = 20_000
+    grad_accumulation_steps: int = 1
+    max_grad_norm: float = 1.0
+
+    ema_decay: float = 0.999
+    ema_update_after_step: int = 100
+    ema_update_every: int = 10
+
+    save_per_updates: int = 50_000
+    keep_last_n_checkpoints: int = -1
+    last_per_updates: int = 5_000
+    save_dir: str = "ckpts"
+    logger: Optional[str] = "tensorboard"  # only None is ported
+    log_samples: bool = False  # not ported
 
 
 @dataclass(frozen=True)

@@ -4,6 +4,9 @@
 parameter pytree as numpy arrays (nested dicts and lists; the DiT and Vocos
 blocks stacked on a leading depth axis; DiT attention fused (`to_qkv`) or
 not) and return the port's parameters as CPU f32 tensors.
+`train_state_from_jax` takes a JAX `TrainState` with numpy leaves (params,
+the optax AdamW mu / nu / count, the EMA and the step) and returns the port's
+`TrainState`, so both sides can take an optimizer step from one state.
 
 Layouts. The port keeps the JAX package's layouts, so no tensor is
 transposed: Linear weights stay (in, out) and are applied as `x @ w + b`;
@@ -53,3 +56,33 @@ def dit_params_from_jax(tree: dict) -> dict:
 def vocos_params_from_jax(tree: dict) -> dict:
     """JAX Vocos params (numpy leaves) -> the port's Vocos params."""
     return dit_params_from_jax(tree)
+
+
+def _find_states(node, found: list) -> list:
+    """The optax states (namedtuples with a `count`) inside an opt_state."""
+    if hasattr(node, "_fields"):
+        if "count" in node._fields:
+            found.append(node)
+        for child in node:
+            _find_states(child, found)
+    elif isinstance(node, (tuple, list)):
+        for child in node:
+            _find_states(child, found)
+    return found
+
+
+def train_state_from_jax(state):
+    """JAX TrainState (numpy leaves; the optax chain clip + adamw) -> the
+    port's TrainState on the CPU."""
+    from f5tts_tpu_torch.train.step import TrainState
+
+    counts = _find_states(state.opt_state, [])
+    adam = [s for s in counts if "mu" in s._fields]
+    if len(adam) != 1:
+        raise ValueError("train_state_from_jax expects one AdamW (ScaleByAdamState) in opt_state")
+    count = int(np.asarray(adam[0].count))
+    if any(int(np.asarray(s.count)) != count for s in counts):
+        raise ValueError("the schedule count and the AdamW count differ")
+    return TrainState(params=dit_params_from_jax(state.params), mu=dit_params_from_jax(adam[0].mu),
+                      nu=dit_params_from_jax(adam[0].nu), count=count,
+                      ema=dit_params_from_jax(state.ema_params), step=int(np.asarray(state.step)))

@@ -28,15 +28,6 @@
 #define AT_LDS 72  // padded shared row (bf16): conflict-free fragment loads
 #define AT_NEG -1e30f
 
-__device__ __forceinline__ void rope8(float* x, const float* c, const float* s) {
-#pragma unroll
-    for (int e = 0; e < 8; e += 2) {
-        const float x0 = x[e], x1 = x[e + 1];
-        x[e] = x0 * c[e] - x1 * s[e];
-        x[e + 1] = x1 * c[e + 1] + x0 * s[e + 1];
-    }
-}
-
 __global__ void __launch_bounds__(128) fused_qkv_rope_attn_kernel(
     const bf16* __restrict__ qkv, const bf16* __restrict__ cos_t,
     const bf16* __restrict__ sin_t, const int* __restrict__ lengths,

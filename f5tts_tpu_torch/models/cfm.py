@@ -1,4 +1,13 @@
-"""Flow-matching sampler (counterpart of f5tts_tpu/models/cfm.py:169-364).
+"""Flow matching: the training loss and the sampler (counterpart of
+f5tts_tpu/models/cfm.py:111-364).
+
+`cfm_loss` is the masked-infilling CFM regression: a random span (fraction
+0.7-1.0 of each length) is cut out of the mel and predicted from noise,
+x0 ~ N(0, I), t ~ U[0, 1], phi = (1 - t) x0 + t x1, target flow = x1 - x0,
+with per-sample CFG dropout (audio 0.3; both 0.2, which also drops the
+audio), then the MSE over the span. Its random draws come from a
+`torch.Generator` or are passed in (`CFMDraws`): the JAX PRNG and torch's
+differ, so a test passes the JAX draws.
 
 `cfm_sample` runs the Euler ODE over a precomputed time grid (EPSS + sway)
 with CFG: cond and uncond rows go through the DiT as one 2b batch and
@@ -9,12 +18,70 @@ are re-imposed on the result.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
+from f5tts_tpu_torch.config import CFMConfig
 from f5tts_tpu_torch.models import dit
-from f5tts_tpu_torch.utils import lens_to_mask
+from f5tts_tpu_torch.utils import lens_to_mask, mask_from_frac_lengths
+
+
+class CFMDraws(NamedTuple):
+    """The random inputs of one `cfm_loss` call (JAX cfm.py:125-150)."""
+
+    frac: torch.Tensor        # [b] span fraction, U[frac_lengths_mask)
+    start: torch.Tensor       # [b] U[0, 1): where the span starts
+    x0: torch.Tensor          # [b, n, d] N(0, 1) noise
+    time: torch.Tensor        # [b] U[0, 1) flow time
+    drop_audio: torch.Tensor  # [b] U[0, 1), < audio_drop_prob drops the audio cond
+    drop_both: torch.Tensor   # [b] U[0, 1), < cond_drop_prob drops audio and text
+
+
+def make_draws(generator: torch.Generator, b: int, n: int, d: int,
+               cfg: CFMConfig = CFMConfig()) -> CFMDraws:
+    """Draw a `CFMDraws` from `generator`, on the generator's device."""
+    def u(shape):
+        return torch.rand(shape, generator=generator, device=generator.device)
+
+    lo, hi = cfg.frac_lengths_mask
+    return CFMDraws(frac=u((b,)) * (hi - lo) + lo, start=u((b,)),
+                    x0=torch.randn((b, n, d), generator=generator, device=generator.device),
+                    time=u((b,)), drop_audio=u((b,)), drop_both=u((b,)))
+
+
+def cfm_loss(params, statics, mel: torch.Tensor, text: torch.Tensor, lens: torch.Tensor,
+             cfg: CFMConfig = CFMConfig(), dtype=torch.bfloat16, *,
+             generator: Optional[torch.Generator] = None,
+             draws: Optional[CFMDraws] = None) -> tuple[torch.Tensor, dict]:
+    """(scalar f32 loss, aux) for target mel [b, n, d] (x1), text [b, nt] ids
+    (-1 padded), lens [b] valid frames. `params` must hold the fused to_qkv
+    (`fuse_backbone_qkv`). Pass `draws` or a `generator`."""
+    b, n, d = mel.shape
+    if draws is None:
+        if generator is None:
+            raise ValueError("cfm_loss needs a generator or draws")
+        draws = make_draws(generator, b, n, d, cfg)
+    draws = CFMDraws(*(t.to(mel.device) for t in draws))
+    mask = lens_to_mask(lens, n)
+    span = mask_from_frac_lengths(lens, draws.frac, draws.start, n) & mask
+
+    x1 = mel.float()
+    x0 = draws.x0.float()
+    t = draws.time.float()[:, None, None]
+    phi = (1.0 - t) * x0 + t * x1
+    flow = x1 - x0
+    cond = torch.where(span[:, :, None], 0.0, x1)
+
+    drop_both = draws.drop_both < cfg.cond_drop_prob
+    drop_audio = (draws.drop_audio < cfg.audio_drop_prob) | drop_both
+    pred = dit.dit_forward(params, statics, phi, cond, text, draws.time.float(), lengths=lens,
+                           drop_audio_cond=drop_audio, drop_text=drop_both, dtype=dtype)
+
+    se = (pred.float() - flow) ** 2
+    spanf = span[:, :, None].float()
+    loss = (se * spanf).sum() / torch.clamp(spanf.sum() * d, min=1.0)
+    return loss, {"pred": pred, "cond": cond, "rand_span_mask": span}
 
 
 def make_noise(generator: torch.Generator, batch: int, seq_len: int, num_channels: int,

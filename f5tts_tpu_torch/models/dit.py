@@ -7,7 +7,10 @@
 - dit_apply: the blocks (K1, K3) + final AdaLN (K1) + projection.
 - dit_forward(cfg_infer=True): cond rows then uncond rows in one 2b batch;
   the uncond rows drop both the audio cond and the text.
-- precompute_t_mods: every step's AdaLN modulation at once, before the loop.
+- precompute_t_mods: every step's AdaLN modulation at once, before the loop;
+  hoist_t_mods: its one-step counterpart, which the training forward uses.
+- drop_audio_cond / drop_text: a bool (the sampler's CFG packing) or a [b]
+  bool tensor (training's per-sample CFG dropout).
 """
 
 from __future__ import annotations
@@ -77,9 +80,10 @@ class DiTStatics:
 
 
 def text_embedding(p: m.Params, statics: DiTStatics, text: torch.Tensor, seq_len: int,
-                   lengths: Optional[torch.Tensor] = None, drop_text: bool = False,
+                   lengths: Optional[torch.Tensor] = None, drop_text=False,
                    dtype=torch.float32) -> torch.Tensor:
-    """text [b, nt] ids, -1 padded -> [b, seq_len, text_dim]."""
+    """text [b, nt] ids, -1 padded -> [b, seq_len, text_dim]. `drop_text`: a
+    bool, or a [b] bool tensor that drops the text of some samples."""
     arch = statics.arch
     b, nt = text.shape
     text = text.long() + 1  # -1 pad -> 0 filler
@@ -90,10 +94,15 @@ def text_embedding(p: m.Params, statics: DiTStatics, text: torch.Tensor, seq_len
         valid = torch.arange(seq_len, device=text.device)[None, :] < lengths[:, None]
         text = torch.where(valid, text, 0)
     pad_mask = text == 0
-    if drop_text:
+    if isinstance(drop_text, torch.Tensor):
+        text = torch.where(drop_text[:, None], 0, text)
+    elif drop_text:
         text = torch.zeros_like(text)
 
-    emb = p["embed"]["w"][text].to(dtype)
+    # F.embedding, not w[text]: advanced indexing's backward accumulates the
+    # thousands of filler (0) ids one by one (8.9 ms a training step at
+    # 16 x 1024 on the H100); embedding's backward reduces them in segments
+    emb = F.embedding(text, p["embed"]["w"]).to(dtype)
     zero = torch.zeros((), dtype=dtype, device=emb.device)
     if valid is not None:
         emb = torch.where(valid[:, :, None], emb, zero)
@@ -114,9 +123,13 @@ def text_embedding(p: m.Params, statics: DiTStatics, text: torch.Tensor, seq_len
 
 
 def input_embedding(p: m.Params, x: torch.Tensor, cond: torch.Tensor,
-                    text_embed: torch.Tensor, drop_audio_cond: bool = False,
+                    text_embed: torch.Tensor, drop_audio_cond=False,
                     lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    if drop_audio_cond:
+    """`drop_audio_cond`: a bool, or a [b] bool tensor."""
+    if isinstance(drop_audio_cond, torch.Tensor):
+        cond = torch.where(drop_audio_cond[:, None, None], torch.zeros((), dtype=cond.dtype,
+                                                                      device=cond.device), cond)
+    elif drop_audio_cond:
         cond = torch.zeros_like(cond)
     h = m.linear(p["proj"], torch.cat([x, cond, text_embed], dim=-1))
     return m.conv_pos_embedding(p["conv_pos"], h, lengths) + h
@@ -143,6 +156,14 @@ def t_mods_from_emb(params: m.Params, t_emb: torch.Tensor) -> tuple:
     return block_mods, m.linear(params["norm_out"]["linear"], h)
 
 
+def hoist_t_mods(params: m.Params, t_emb: torch.Tensor) -> tuple:
+    """One step's AdaLN modulation for every block at once, from t_emb
+    [b, dim]: (block_mods [L, b, 6*dim], final_mod [b, 2*dim]). The training
+    counterpart of `precompute_t_mods` (JAX dit.py:355-369)."""
+    block_mods, final_mod = t_mods_from_emb(params, t_emb)
+    return torch.stack(block_mods), final_mod
+
+
 def precompute_t_mods(params: m.Params, t_values: torch.Tensor, batch: int,
                       dtype=torch.bfloat16) -> tuple:
     """All timestep-dependent AdaLN work for `t_values` [S], at once.
@@ -157,13 +178,15 @@ def precompute_t_mods(params: m.Params, t_values: torch.Tensor, batch: int,
 
 def dit_forward(params: m.Params, statics: DiTStatics, x: torch.Tensor,
                 cond: torch.Tensor, text: torch.Tensor, time: torch.Tensor,
-                lengths: Optional[torch.Tensor] = None, drop_audio_cond: bool = False,
-                drop_text: bool = False, cfg_infer: bool = False,
+                lengths: Optional[torch.Tensor] = None, drop_audio_cond=False,
+                drop_text=False, cfg_infer: bool = False,
                 text_embeds: Optional[tuple] = None, dtype=torch.float32,
                 t_mods: Optional[tuple] = None) -> torch.Tensor:
     """Flow prediction [b, n, mel] (f32); with cfg_infer, [2b, n, mel]: cond
     rows then uncond rows. `t_mods` = (block_mods [L, B, 6*dim], final_mod
-    [B, 2*dim]) with B the packed batch replaces the timestep embedding."""
+    [B, 2*dim]) with B the packed batch replaces the timestep embedding.
+    `drop_audio_cond` / `drop_text` (without cfg_infer): bools or [b] bool
+    tensors."""
     b, n, _ = x.shape
     x = x.to(dtype)
     cond = cond.to(dtype)
@@ -188,6 +211,6 @@ def dit_forward(params: m.Params, statics: DiTStatics, x: torch.Tensor,
         t_emb = m.timestep_embedding(params["time_embed"], time, dtype=dtype)
         if cfg_infer:
             t_emb = torch.cat([t_emb, t_emb], dim=0)
-        t_mods = t_mods_from_emb(params, t_emb)
+        t_mods = hoist_t_mods(params, t_emb)
     out = dit_apply(params, statics, h, t_mods[0], t_mods[1], lengths)
     return out.float()

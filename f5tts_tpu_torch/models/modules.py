@@ -249,23 +249,28 @@ def dit_block(p: Params, x: torch.Tensor, mods: torch.Tensor, heads: int,
     return x + gate_mlp[:, None, :] * feed_forward(p["ff"], norm)
 
 
-def fuse_attention_qkv(attn: Params) -> Params:
-    """Merge to_q/to_k/to_v into one to_qkv linear (output axis concat)."""
+def fuse_attention_qkv(attn: Params, dtype=None) -> Params:
+    """Merge to_q/to_k/to_v into one to_qkv linear (output axis concat).
+    `dtype` casts each part first, as the training step fuses a per-step view
+    of the f32 params straight in the compute dtype; `torch.cat` and `.to` are
+    differentiable, so gradients reach the unfused leaves."""
     if "to_qkv" in attn or "to_q" not in attn:
         return attn
+    cast = (lambda a: a.to(dtype)) if dtype is not None else (lambda a: a)
     parts = [attn[k] for k in ("to_q", "to_k", "to_v")]
-    fused = {"w": torch.cat([q["w"] for q in parts], dim=-1)}
+    fused = {"w": torch.cat([cast(q["w"]) for q in parts], dim=-1)}
     if "b" in parts[0]:
-        fused["b"] = torch.cat([q["b"] for q in parts], dim=-1)
+        fused["b"] = torch.cat([cast(q["b"]) for q in parts], dim=-1)
     out = {k: v for k, v in attn.items() if k not in ("to_q", "to_k", "to_v")}
     out["to_qkv"] = fused
     return out
 
 
-def fuse_backbone_qkv(params: Params) -> Params:
+def fuse_backbone_qkv(params: Params, dtype=None) -> Params:
     """fuse_attention_qkv on every block of the DiT."""
     out = dict(params)
-    out["blocks"] = [dict(blk, attn=fuse_attention_qkv(blk["attn"])) for blk in params["blocks"]]
+    out["blocks"] = [dict(blk, attn=fuse_attention_qkv(blk["attn"], dtype))
+                     for blk in params["blocks"]]
     return out
 
 
@@ -275,6 +280,19 @@ def tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists, in tree_map's order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like `like` holding `leaves` (in tree_leaves' order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
 
 
 def tree_cast(params, dtype=None, device=None):

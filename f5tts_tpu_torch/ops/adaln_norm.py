@@ -5,6 +5,13 @@ hand-written kernel K1 (csrc/adaln_norm.cu, replacing the Pallas
 `_adaln_norm_kernel`) for CUDA tensors and runs the plain version
 `adaln_norm_ref` for CPU tensors only. The DiT runs it 2 * depth + 1 times
 per ODE step.
+
+It is differentiable (`torch.autograd.Function`). The JAX package has no
+backward kernel for it: its custom_vjp takes the VJP of the XLA formula
+`adaln_norm_ref` (f5tts_tpu/ops/adaln_norm.py:170-174). `adaln_norm_bwd` is
+that VJP in PyTorch ops (autograd through `adaln_norm_ref`, in f32, cast back
+to the inputs' dtypes), so a PyTorch backward is the faithful port here, not
+a fallback; the forward on the card stays the kernel.
 """
 
 from __future__ import annotations
@@ -59,9 +66,36 @@ def _check(x, scale, shift):
         raise ValueError("adaln_norm kernel needs a 16-byte aligned x")
 
 
+def adaln_norm_bwd(x, scale, shift, dy, eps: float = 1e-6):
+    """(dx, dscale, dshift) of `adaln_norm_ref` at (x, scale, shift) for dy."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in (x, scale, shift)]
+        y = adaln_norm_ref(*xs, eps)
+        return torch.autograd.grad(y, xs, dy)
+
+
+class _AdaLNNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, shift, eps):
+        ctx.save_for_backward(x, scale, shift)
+        ctx.eps = eps
+        return _forward(x, scale, shift, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*adaln_norm_bwd(*ctx.saved_tensors, dy, ctx.eps), None)
+
+
 def adaln_norm(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
-    """x [b, n, d], scale/shift [b, d]. Kernel K1 on CUDA, plain on the CPU."""
+    """x [b, n, d], scale/shift [b, d]. Kernel K1 on CUDA, plain on the CPU;
+    differentiable (`adaln_norm_bwd`)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, shift)):
+        return _AdaLNNorm.apply(x, scale, shift, eps)
+    return _forward(x, scale, shift, eps)
+
+
+def _forward(x, scale, shift, eps):
     if x.device.type == "cpu":
         return adaln_norm_ref(x, scale, shift, eps)
     if x.device.type != "cuda":

@@ -1,4 +1,4 @@
-"""Attention (counterpart of f5tts_tpu/ops/attention.py:31 and :777-1172).
+"""Attention (counterpart of f5tts_tpu/ops/attention.py:31 and :777-1224).
 
 `fused_qkv_rope_attention` takes the fused QKV projection output flat
 [b, n, 3*h*d], rotates q and k with interleaved RoPE from flat cos/sin
@@ -8,6 +8,16 @@ launches the hand-written kernel K3 (csrc/attention.cu, replacing the Pallas
 `_fused_qkv_attn_kernel` and `_fused_qkv_attn_kernel_stream`); CPU tensors
 go to the plain version `fused_qkv_rope_attention_ref`. `mha_reference` is
 the plain [b, h, n, d] oracle.
+
+It is differentiable (`torch.autograd.Function`, as the JAX custom_vjp): the
+backward maps (qkv, dO) to the flat dQKV [b, n, 3*h*d] with the softmax
+recomputed, through the hand-written kernel K4 (csrc/attention_bwd.cu,
+replacing the Pallas `_fused_qkv_bwd_kernel` and `_fused_qkv_bwd_kernel_long`)
+for CUDA tensors and the plain version `fused_qkv_rope_attention_bwd_ref` for
+CPU tensors. Only (qkv, cos, sin, lengths) are saved for the backward, not the
+output: K4 takes delta = rowsum(p * dp) from the recomputed scores. Rows >=
+lengths[b] are zero in the forward, so their gradient is zero whatever dO
+holds there: both backwards read dO as 0 on those rows.
 """
 
 from __future__ import annotations
@@ -62,6 +72,41 @@ def fused_qkv_rope_attention_ref(qkv, cos, sin, lengths, heads: int) -> torch.Te
     return torch.where(kmask[:, :, None], o, 0.0).to(qkv.dtype)
 
 
+def fused_qkv_rope_attention_bwd_ref(qkv, cos, sin, lengths, dout, heads: int) -> torch.Tensor:
+    """Plain backward with the kernel's rounding points (the Pallas backward's,
+    attention.py:876-959): q and k roped in f32 and rounded to qkv's dtype
+    (q not pre-scaled), f32 scores and softmax, ds and p rounded to qkv's
+    dtype before the three products, dq and dk scaled and un-roped (rope with
+    -sin) in f32. dO is read as 0 on rows >= length. One head at a time, so
+    no [b, h, n, n] tensor exists."""
+    b, n, hd3 = qkv.shape
+    hd = hd3 // 3
+    d = hd // heads
+    scale = 1.0 / math.sqrt(d)
+    dt = qkv.dtype
+    q, k, v = qkv.split(hd, dim=-1)
+    cos, sin = cos[:n], sin[:n]
+    qr = apply_rotary_flat_tables(q, cos, sin)
+    kr = apply_rotary_flat_tables(k, cos, sin)
+    live = torch.arange(n, device=qkv.device)[None, :] < lengths[:, None]
+    bias = torch.where(live, 0.0, NEG_INF)[:, None, :]
+    do = torch.where(live[:, :, None], dout.to(dt), torch.zeros((), dtype=dt, device=qkv.device))
+    grads = [torch.empty(b, n, hd, dtype=torch.float32, device=qkv.device) for _ in range(3)]
+    for i in range(heads):
+        lanes = slice(i * d, (i + 1) * d)
+        qh, kh, vh, doh = (t[..., lanes].float() for t in (qr, kr, v, do))
+        p = torch.softmax(torch.matmul(qh, kh.transpose(1, 2)) * scale + bias, dim=-1)
+        dp = torch.matmul(doh, vh.transpose(1, 2))
+        delta = (p * dp).sum(dim=-1, keepdim=True)
+        ds = (p * (dp - delta)).to(dt).float()
+        grads[0][..., lanes] = torch.matmul(ds, kh) * scale
+        grads[1][..., lanes] = torch.matmul(ds.transpose(1, 2), qh) * scale
+        grads[2][..., lanes] = torch.matmul(p.to(dt).float().transpose(1, 2), doh)
+    dq = apply_rotary_flat_tables(grads[0], cos, -sin)
+    dk = apply_rotary_flat_tables(grads[1], cos, -sin)
+    return torch.cat([dq, dk, grads[2]], dim=-1).to(dt)
+
+
 @functools.lru_cache(maxsize=None)
 def _fn():
     lib = _build.load("attention")
@@ -72,8 +117,10 @@ def _fn():
 
 
 def _check(qkv, cos, sin, lengths, heads):
-    if qkv.dim() != 3 or not qkv.is_contiguous() or qkv.dtype != torch.bfloat16:
-        raise ValueError("attention kernel takes a contiguous bf16 [b, n, 3*h*d] qkv")
+    if (qkv.dim() != 3 or not qkv.is_contiguous() or qkv.dtype != torch.bfloat16
+            or qkv.data_ptr() % 16):
+        raise ValueError("attention kernel takes a contiguous, 16-byte aligned bf16 "
+                         "[b, n, 3*h*d] qkv")
     b, n, hd3 = qkv.shape
     if hd3 != 3 * heads * HEAD_DIM:
         raise ValueError(f"attention kernel takes head width {HEAD_DIM}: "
@@ -89,9 +136,64 @@ def _check(qkv, cos, sin, lengths, heads):
         raise ValueError("attention kernel takes int32 [b] lengths on qkv's device")
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_fn():
+    lib = _build.load("attention_bwd")
+    fn = lib.f5_fused_qkv_rope_attn_bwd_bf16
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_qkv_rope_attention_bwd(qkv, cos, sin, lengths, dout, heads: int) -> torch.Tensor:
+    """dQKV [b, n, 3*h*d] of `fused_qkv_rope_attention` for the incoming
+    gradient dout [b, n, h*d]. Kernel K4 on CUDA, plain on the CPU."""
+    if qkv.device.type == "cpu":
+        return fused_qkv_rope_attention_bwd_ref(qkv, cos, sin, lengths, dout, heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"fused_qkv_rope_attention_bwd: unsupported device {qkv.device}")
+    _check(qkv, cos, sin, lengths, heads)
+    b, n, hd3 = qkv.shape
+    dout = dout.contiguous()
+    if (dout.shape != (b, n, hd3 // 3) or dout.dtype != qkv.dtype or dout.device != qkv.device
+            or dout.data_ptr() % 16):
+        raise ValueError("attention backward kernel takes a 16-byte aligned bf16 [b, n, h*d] "
+                         "gradient on qkv's device")
+    dqkv = torch.empty_like(qkv)
+    lse = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
+    delta = torch.empty_like(lse)
+    err = _bwd_fn()(_build.ptr(qkv), _build.ptr(cos), _build.ptr(sin), _build.ptr(lengths),
+                    _build.ptr(dout), _build.ptr(dqkv), _build.ptr(lse), _build.ptr(delta),
+                    b, n, heads, 1.0 / math.sqrt(HEAD_DIM), _build.stream_ptr(qkv.device))
+    _build.check(err, "fused_qkv_rope_attention_bwd")
+    _build.count("fused_qkv_rope_attention_bwd")
+    return dqkv
+
+
+class _FusedQKVRopeAttention(torch.autograd.Function):
+    """K3 forward, K4 backward (plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, qkv, cos, sin, lengths, heads):
+        ctx.save_for_backward(qkv, cos, sin, lengths)
+        ctx.heads = heads
+        return _forward(qkv, cos, sin, lengths, heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, cos, sin, lengths = ctx.saved_tensors
+        return fused_qkv_rope_attention_bwd(qkv, cos, sin, lengths, dout, ctx.heads), None, None, None, None
+
+
 def fused_qkv_rope_attention(qkv, cos, sin, lengths, heads: int) -> torch.Tensor:
     """qkv [b, n, 3*h*d], cos/sin [>=n, h*d], lengths [b] int32 -> [b, n, h*d].
-    Kernel K3 on CUDA, plain on the CPU."""
+    Kernel K3 on CUDA, plain on the CPU; differentiable in qkv (K4 on CUDA)."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _FusedQKVRopeAttention.apply(qkv, cos, sin, lengths, heads)
+    return _forward(qkv, cos, sin, lengths, heads)
+
+
+def _forward(qkv, cos, sin, lengths, heads: int) -> torch.Tensor:
     if qkv.device.type == "cpu":
         return fused_qkv_rope_attention_ref(qkv, cos, sin, lengths, heads)
     if qkv.device.type != "cuda":

@@ -9,6 +9,14 @@ rounds it, and runs the plain version `conv_pos_embedding_ref` (the
 `_xla_conv_pos` semantics) for CPU tensors only.
 
 Weights keep the JAX package's WIO layout: w [k, c // groups, c].
+
+It is differentiable (`torch.autograd.Function`). The JAX package has no
+backward kernel for it: its custom_vjp takes the VJP of the XLA formula
+`_xla_conv_pos` (f5tts_tpu/ops/grouped_conv.py:253-283), which convolves in
+x's dtype. `conv_pos_embedding_bwd` is that VJP in PyTorch ops (autograd
+through `conv_pos_embedding_xla`, the same formula), so a PyTorch backward is
+the faithful port here, not a fallback; the forward on the card stays the
+kernel.
 """
 
 from __future__ import annotations
@@ -33,13 +41,13 @@ def mish(x: torch.Tensor) -> torch.Tensor:
 
 
 def grouped_conv1d_ref(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                       groups: int) -> torch.Tensor:
-    """Same-padded grouped conv of x [b, n, c] with WIO w [k, c/g, c], in f32."""
+                       groups: int, dtype=torch.float32) -> torch.Tensor:
+    """Same-padded grouped conv of x [b, n, c] with WIO w [k, c/g, c], in `dtype`."""
     k = w.shape[0]
     lead = (k - 1) // 2
-    xt = F.pad(x.float().transpose(1, 2), (lead, k - 1 - lead))
-    y = F.conv1d(xt, w.float().permute(2, 1, 0), groups=groups)
-    return y.transpose(1, 2) + bias.float()
+    xt = F.pad(x.to(dtype).transpose(1, 2), (lead, k - 1 - lead))
+    y = F.conv1d(xt, w.to(dtype).permute(2, 1, 0), groups=groups)
+    return y.transpose(1, 2) + bias.to(dtype)
 
 
 def conv_pos_embedding_ref(x, w1, b1, w2, b2, lengths, groups: int) -> torch.Tensor:
@@ -52,6 +60,39 @@ def conv_pos_embedding_ref(x, w1, b1, w2, b2, lengths, groups: int) -> torch.Ten
     h = mish(torch.where(valid, h, 0.0)).to(x.dtype)
     h = grouped_conv1d_ref(h, w2, b2, groups)
     return mish(torch.where(valid, h, 0.0)).to(x.dtype)
+
+
+def conv_pos_embedding_xla(x, w1, b1, w2, b2, lengths, groups: int) -> torch.Tensor:
+    """`_xla_conv_pos` as the JAX package writes it: each conv in x's dtype
+    (the bias added in that dtype), Mish in f32, cast back."""
+    n = x.shape[1]
+    valid = (torch.arange(n, device=x.device)[None, :] < lengths[:, None])[..., None]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    h = grouped_conv1d_ref(torch.where(valid, x, zero), w1, b1, groups, x.dtype)
+    h = mish(torch.where(valid, h, zero))
+    h = grouped_conv1d_ref(h, w2, b2, groups, x.dtype)
+    return mish(torch.where(valid, h, zero))
+
+
+def conv_pos_embedding_bwd(x, w1, b1, w2, b2, lengths, groups: int, dy):
+    """(dx, dw1, db1, dw2, db2) of `conv_pos_embedding_xla` for dy."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in (x, w1, b1, w2, b2)]
+        y = conv_pos_embedding_xla(*xs, lengths, groups)
+        return torch.autograd.grad(y, xs, dy)
+
+
+class _ConvPosEmbedding(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, lengths, groups):
+        ctx.save_for_backward(x, w1, b1, w2, b2, lengths)
+        ctx.groups = groups
+        return _forward(x, w1, b1, w2, b2, lengths, groups)
+
+    @staticmethod
+    def backward(ctx, dy):
+        *xs, lengths = ctx.saved_tensors
+        return (*conv_pos_embedding_bwd(*xs, lengths, ctx.groups, dy), None, None)
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,7 +127,13 @@ def _check(x, ws, bs, lengths, groups):
 
 def conv_pos_embedding(x, w1, b1, w2, b2, lengths, groups: int = 16) -> torch.Tensor:
     """x [b, n, c], w [k, c/groups, c] WIO, b [c], lengths [b] int32.
-    Kernel K2 on CUDA, plain on the CPU."""
+    Kernel K2 on CUDA, plain on the CPU; differentiable (`conv_pos_embedding_bwd`)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2)):
+        return _ConvPosEmbedding.apply(x, w1, b1, w2, b2, lengths, groups)
+    return _forward(x, w1, b1, w2, b2, lengths, groups)
+
+
+def _forward(x, w1, b1, w2, b2, lengths, groups):
     if x.device.type == "cpu":
         return conv_pos_embedding_ref(x, w1, b1, w2, b2, lengths, groups)
     if x.device.type != "cuda":

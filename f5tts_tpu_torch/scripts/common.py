@@ -1,4 +1,5 @@
-"""Seeded models and requests shared by chip_smoke.py and the profiler.
+"""Seeded models, requests and trace helpers shared by chip_smoke.py and the
+profiling scripts.
 
 F5TTS_v1_Base (text_num_embeds 2545, as the JAX package's bench.py) and
 Vocos with random weights from fixed seeds; the zero-initialised AdaLN,
@@ -47,3 +48,53 @@ def synthetic_ref_wav(seconds: float = 2.7, sr: int = 24000) -> np.ndarray:
     wav = wav * (0.5 + 0.5 * np.sin(2 * np.pi * 1.5 * t) ** 2)
     wav = 0.05 * wav / np.abs(wav).max() + 0.003 * rng.standard_normal(t.shape)
     return wav.astype(np.float32)
+
+
+def union_us(intervals: list[tuple[float, float]]) -> float:
+    """Length of the union of [start, end) intervals (device busy time)."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def device_time_by_class(prof, classes, top: int = 0) -> dict:
+    """From a torch.profiler trace: device busy ms (union of kernel
+    intervals), kernel count and {class: {ms, launches}} by the first class
+    whose keys occur in the kernel's name ("other" when none does); with
+    `top`, also the `top` kernel names that took the most time."""
+    import torch
+
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_class: dict[str, dict] = {}
+    by_name: dict[str, dict] = {}
+    for e in kernels:
+        cls = next((c for c, keys in classes if any(k in e.name for k in keys)), "other")
+        for table, key in ((by_class, cls), (by_name, e.name[:120])):
+            c = table.setdefault(key, {"ms": 0.0, "launches": 0})
+            c["ms"] += (e.time_range.end - e.time_range.start) / 1e3
+            c["launches"] += 1
+    busy_ms = union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
+
+    def ranked(table, n=None):
+        rows = sorted(table.items(), key=lambda kv: -kv[1]["ms"])[:n]
+        return {k: {"ms": round(v["ms"], 4), "launches": v["launches"]} for k, v in rows}
+
+    out = {"device_busy_ms": busy_ms, "device_kernels": len(kernels), "by_class": ranked(by_class)}
+    if top:
+        out["top_kernels"] = ranked(by_name, top)
+    return out
+
+
+def gpu_name_and_limit() -> str:
+    """`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout else "unknown"

@@ -18,7 +18,6 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import time
 from pathlib import Path
 
@@ -35,27 +34,8 @@ CLASSES = (
 )
 
 
-def _class(name: str) -> str:
-    for cls, keys in CLASSES:
-        if any(k in name for k in keys):
-            return cls
-    return "other"
-
-
-def _union_us(intervals: list[tuple[float, float]]) -> float:
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
-
-
 def profile_bucket(pipe, ref, text: str, bucket: int, reps: int) -> dict:
-    from f5tts_tpu_torch.scripts.common import REF_TEXT
+    from f5tts_tpu_torch.scripts.common import REF_TEXT, device_time_by_class
 
     hop, sr = pipe.hop, pipe.sr
     fix = (bucket - 10) * hop / sr  # total frames land in this bucket
@@ -76,27 +56,13 @@ def profile_bucket(pipe, ref, text: str, bucket: int, reps: int) -> dict:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         traced_wall, _ = request()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_class: dict[str, dict] = {}
-    for e in kernels:
-        c = by_class.setdefault(_class(e.name), {"ms": 0.0, "launches": 0})
-        c["ms"] += (e.time_range.end - e.time_range.start) / 1e3
-        c["launches"] += 1
-    busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
-    if kernels:
-        span_ms = (max(e.time_range.end for e in kernels)
-                   - min(e.time_range.start for e in kernels)) / 1e3
-    else:
-        span_ms = 0.0
+    trace = device_time_by_class(prof, CLASSES)
+    busy_ms = trace["device_busy_ms"]
     wall = statistics.median(walls)
     return {
         "bucket": bucket, "audio_s": audio_s, "wall_s": wall, "walls_s": walls,
         "rtf": wall / audio_s, "traced_wall_s": traced_wall,
-        "device_busy_ms": busy_ms, "kernel_span_ms": span_ms,
-        "device_busy_share_of_wall": busy_ms / (traced_wall * 1e3),
-        "device_kernels": len(kernels),
-        "by_class": {k: {"ms": round(v["ms"], 4), "launches": v["launches"]}
-                     for k, v in sorted(by_class.items(), key=lambda kv: -kv[1]["ms"])},
+        "device_busy_share_of_wall": busy_ms / (traced_wall * 1e3), **trace,
     }
 
 
@@ -110,7 +76,8 @@ def main(argv=None) -> int:
     from f5tts_tpu_torch.config import SamplingConfig
     from f5tts_tpu_torch.infer.pipeline import InferencePipeline
     from f5tts_tpu_torch.models import dit
-    from f5tts_tpu_torch.scripts.common import REQUESTS, VOCAB, base_models, synthetic_ref_wav
+    from f5tts_tpu_torch.scripts.common import (REQUESTS, VOCAB, base_models, gpu_name_and_limit,
+                                                synthetic_ref_wav)
     from f5tts_tpu_torch.vocoder.vocos import Vocos, VocosConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -120,8 +87,7 @@ def main(argv=None) -> int:
     pipe = InferencePipeline(params, dit.DiTStatics(arch), Vocos(vocos_params, VocosConfig(), device=dev),
                              vocab_char_map=VOCAB, sampling=SamplingConfig(nfe_steps=16),
                              tokenizer="char", dtype=torch.bfloat16, device=dev)
-    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
+    gpu = gpu_name_and_limit()
     ref = synthetic_ref_wav()
     result = {"gpu": gpu, "torch": torch.__version__, "buckets": []}
     for bucket in BUCKETS:

@@ -1,0 +1,133 @@
+"""Training-step throughput of F5TTS_v1_Base on the card.
+
+    python -m f5tts_tpu_torch.scripts.train_bench [--cells 16x1024,4x3072,37x1024]
+        [--steps 5] [--out train_bench.json]
+
+The counterpart of the JAX package's scripts/train_bench.py: F5TTS_v1_Base
+(dim 1024, depth 22, 16 x 64 heads, ff_mult 2, text_dim 512, conv_layers 4,
+text_num_embeds 2545), seeded random weights (AdaLN-zero leaves randomised),
+bf16 compute, f32 params and optimizer state, one `TrainStep` (cfm_loss ->
+backward -> clip + AdamW + EMA, the EMA update on every step) on
+b rows of n frames, lens uniform in [n/2, n], text ids of width 256, as the
+JAX bench draws them. No activation checkpointing.
+
+Cells (b x n): 16 x 1024 (the JAX bench default), 4 x 3072 (K4's long band)
+and 37 x 1024 (37,888 frames: whole 1024-frame rows within the reference's
+per-device budget of 38,400 frames, TrainConfig.batch_size_per_device).
+For each: 2 warm-up steps, then `steps` timed steps (host clock ending in a
+device sync): ms/step, frames/s (b * n padded frames a step, as the JAX bench
+counts, and the live frames), peak torch.cuda.max_memory_allocated; then one
+step under torch.profiler: its device busy time against that step's wall
+(the profiler's cost included) and against the median untraced step, device
+time by class and the 15 kernels that took the most. A cell that runs out
+of device memory is recorded as such. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+CLASSES = (
+    ("attention_fwd K3", ("fused_qkv_rope_attn_kernel",)),
+    ("attention_bwd K4", ("attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel")),
+    ("adaln_norm K1", ("adaln_norm_kernel",)),
+    ("conv_pos K2", ("conv_mish_kernel",)),
+    ("gemm", ("gemm", "Gemm", "cutlass", "xmma", "nvjet", "cublas")),
+    ("conv (cuDNN, K2/ConvNeXt backward)", ("conv", "Conv", "cudnn", "dgrad", "wgrad")),
+    ("optimizer (foreach)", ("multi_tensor_apply",)),
+)
+
+
+def run_cell(step_fn, state, b: int, n: int, steps: int, dev) -> dict:
+    rng = np.random.default_rng(0)
+    mel = torch.from_numpy((rng.standard_normal((b, n, 100)) * 0.3).astype(np.float32)).to(dev)
+    text = torch.from_numpy(rng.integers(1, 2545, (b, 256)).astype(np.int32)).to(dev)
+    lens = torch.from_numpy(rng.integers(n // 2, n + 1, (b,)).astype(np.int32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    row = {"batch": b, "frames": n, "padded_frames_per_step": b * n,
+           "live_frames_per_step": int(lens.sum())}
+
+    def one(i: int):
+        return step_fn(state, mel * (1.0 + 0.01 * i), text, lens, generator=gen)[1]
+
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(2):
+            m = one(i)
+        torch.cuda.synchronize(dev)
+        walls, losses = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            m = one(2 + i)
+            losses.append(m["loss"])
+            torch.cuda.synchronize(dev)
+            walls.append(time.perf_counter() - t0)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            one(100)
+            torch.cuda.synchronize(dev)
+            traced = time.perf_counter() - t0
+    except torch.cuda.OutOfMemoryError as e:
+        torch.cuda.synchronize(dev)
+        return {**row, "oom": True, "error": str(e).splitlines()[0]}
+    from f5tts_tpu_torch.scripts.common import device_time_by_class
+
+    loss = [float(v) for v in losses]
+    if not all(np.isfinite(loss)):
+        raise AssertionError(f"non-finite loss at b={b} n={n}: {loss}")
+    ms = statistics.median(walls) * 1e3
+    trace = device_time_by_class(prof, CLASSES, top=15)
+    return {**row, "oom": False, "ms_per_step": ms, "ms_per_step_all": [w * 1e3 for w in walls],
+            "frames_per_s": b * n / ms * 1e3, "live_frames_per_s": row["live_frames_per_step"] / ms * 1e3,
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "losses": loss,
+            "grad_norm": float(m["grad_norm"]), "traced_step_ms": traced * 1e3,
+            "device_busy_share": trace["device_busy_ms"] / (traced * 1e3),
+            "device_busy_share_of_median_step": trace["device_busy_ms"] / ms, **trace}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cells", default="16x1024,4x3072,37x1024")
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--out", default=None, help="also write the JSON result here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("train_bench needs a CUDA device")
+
+    from f5tts_tpu_torch.models import dit
+    from f5tts_tpu_torch.scripts.common import base_models, gpu_name_and_limit
+    from f5tts_tpu_torch.train.step import init_train_state, make_optimizer, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    arch, params, _ = base_models()
+    state = init_train_state(params, dev)
+    del params
+    step_fn = make_train_step(dit.DiTStatics(arch, dev), make_optimizer(7.5e-5, 1000, 10000),
+                              ema_update_every=1, ema_update_after_step=0)
+    gpu = gpu_name_and_limit()
+    result = {"gpu": gpu, "torch": torch.__version__, "cells": []}
+    for cell in args.cells.split(","):
+        b, n = (int(v) for v in cell.split("x"))
+        row = run_cell(step_fn, state, b, n, args.steps, dev)
+        result["cells"].append(row)
+        print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    print(gpu)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,142 @@
+"""Trainer: the training loop on one device (counterpart of
+f5tts_tpu/train/trainer.py:40-384).
+
+- DynamicBatchSampler frame-budget batches (`batch_size_per_device` frames,
+  at most `max_samples` rows), collated and padded to 64-frame buckets.
+- Gradient accumulation over `grad_accumulation_steps` micro-batches (summed,
+  then divided), one optimizer update at the boundary.
+- Deterministic mid-epoch resume (skip_first_batches semantics): the sampler
+  is rebuilt with the same seed and the batches the restored update count
+  already consumed are skipped. Each micro-batch draws its CFM noise from a
+  generator seeded by (seed, micro-batch index), so a resumed run draws what
+  an uninterrupted one would.
+- Checkpoints: a milestone every `save_per_updates`, a heartbeat every
+  `last_per_updates` and at the end (`CheckpointManager`).
+- Tokenizers "char" (vocab map) and "byte" (UTF-8).
+Not ported yet: multi-device and multi-host data parallelism, ZeRO-1, the
+pinyin tokenizer (needs `pypinyin`), wandb/tensorboard logging, log_samples.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from f5tts_tpu_torch.config import CFMConfig, TrainConfig
+from f5tts_tpu_torch.models import dit
+from f5tts_tpu_torch.models.modules import tree_leaves
+from f5tts_tpu_torch.text.vocab import list_str_to_idx, list_str_to_tensor
+from f5tts_tpu_torch.train.checkpoint import CheckpointManager
+from f5tts_tpu_torch.train.dataset import DynamicBatchSampler, collate
+from f5tts_tpu_torch.train.step import init_train_state, make_optimizer, make_train_step
+from f5tts_tpu_torch.utils import resolve_device
+
+
+class Trainer:
+    def __init__(self, params: dict, statics: dit.DiTStatics, train_cfg: TrainConfig,
+                 cfm_cfg: CFMConfig = CFMConfig(), vocab_char_map: Optional[dict] = None,
+                 tokenizer: str = "char", total_updates: Optional[int] = None,
+                 dtype=torch.bfloat16, device=None):
+        if tokenizer not in ("char", "byte"):
+            raise ValueError(f"tokenizer {tokenizer!r} is not ported (char and byte are)")
+        if tokenizer == "char" and vocab_char_map is None:
+            raise ValueError("the char tokenizer needs a vocab_char_map")
+        self.cfg = train_cfg
+        self.device = resolve_device(device)
+        self.tokenizer = tokenizer
+        self.vocab_char_map = vocab_char_map
+        self.statics = dit.DiTStatics(statics.arch, self.device)
+        warmup = train_cfg.num_warmup_updates
+        self.hp = make_optimizer(train_cfg.learning_rate, warmup, total_updates or warmup * 10,
+                                 train_cfg.max_grad_norm)
+        self.state = init_train_state(params, self.device)
+        self.step_fn = make_train_step(
+            self.statics, self.hp, cfm_cfg, ema_decay=train_cfg.ema_decay,
+            ema_update_every=train_cfg.ema_update_every,
+            ema_update_after_step=train_cfg.ema_update_after_step, dtype=dtype)
+        self.accum = max(train_cfg.grad_accumulation_steps, 1)
+        self.ckpt = CheckpointManager(train_cfg.save_dir, train_cfg.keep_last_n_checkpoints)
+
+    def tokenize(self, texts: list) -> np.ndarray:
+        if self.tokenizer == "char":
+            return list_str_to_idx(texts, self.vocab_char_map)
+        return list_str_to_tensor(texts)
+
+    def maybe_resume(self) -> int:
+        restored = self.ckpt.restore(device=self.device)
+        if restored is None:
+            return 0
+        self.state = restored
+        return restored.step
+
+    def _generator(self, seed: int, micro_index: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(seed * 1_000_003 + micro_index)
+
+    def train(self, dataset, resumable_with_seed: Optional[int] = 666,
+              max_updates: Optional[int] = None, log_every: int = 10,
+              on_update: Optional[Callable[[int, dict], None]] = None) -> dict:
+        """Train until `epochs` or `max_updates`; returns the last logged
+        metrics (floats). `on_update(update, metrics)` is called after each
+        optimizer update with the metrics as device tensors."""
+        cfg = self.cfg
+        start_update = self.maybe_resume()
+        seed = resumable_with_seed or 0
+        frame_lens = [dataset.get_frame_len(i) for i in range(len(dataset))]
+        sampler = DynamicBatchSampler(frame_lens, frames_threshold=cfg.batch_size_per_device,
+                                      max_samples=cfg.max_samples, random_seed=resumable_with_seed)
+        updates_per_epoch = max(len(sampler) // self.accum, 1)
+        start_epoch = start_update // updates_per_epoch
+        skip_batches = (start_update % updates_per_epoch) * self.accum
+
+        update = start_update
+        t0 = time.time()
+        last_metrics: dict = {}
+        accum_grads, accum_loss, accum_count = None, 0.0, 0
+        for epoch in range(start_epoch, cfg.epochs):
+            sampler.set_epoch(epoch)
+            for bi, batch_idx in enumerate(sampler):
+                if epoch == start_epoch and bi < skip_batches:
+                    continue
+                batch = collate([dataset[i] for i in batch_idx])
+                mel = torch.from_numpy(batch["mel"]).to(self.device)
+                text = torch.from_numpy(self.tokenize(batch["text"])).to(self.device)
+                lens = torch.from_numpy(batch["mel_lengths"]).to(self.device)
+                gen = self._generator(seed, update * self.accum + accum_count)
+                loss, grads = self.step_fn.grad_step(self.state.params, mel, text, lens,
+                                                     generator=gen)
+                if self.accum > 1:
+                    if accum_grads is None:
+                        accum_grads = grads
+                    else:
+                        torch._foreach_add_(tree_leaves(accum_grads), tree_leaves(grads))
+                    accum_loss = accum_loss + loss
+                    accum_count += 1
+                    if accum_count < self.accum:
+                        continue
+                    torch._foreach_div_(tree_leaves(accum_grads), float(self.accum))
+                    loss, grads = accum_loss / self.accum, accum_grads
+                    accum_grads, accum_loss, accum_count = None, 0.0, 0
+                self.state, metrics = self.step_fn.apply_step(self.state, loss, grads)
+                update = self.state.step
+                if on_update is not None:
+                    on_update(update, metrics)
+
+                if update % log_every == 0:
+                    last_metrics = {k: float(v) for k, v in metrics.items()}
+                    last_metrics["updates_per_s"] = log_every / max(time.time() - t0, 1e-9)
+                    t0 = time.time()
+
+                if update % cfg.save_per_updates == 0:
+                    self.ckpt.save(self.state)
+                elif update % cfg.last_per_updates == 0:
+                    self.ckpt.save(self.state, heartbeat=True)
+
+                if max_updates is not None and update >= max_updates:
+                    self.ckpt.save(self.state, heartbeat=True)
+                    return last_metrics
+        self.ckpt.save(self.state, heartbeat=True)
+        return last_metrics
+

@@ -1,8 +1,9 @@
 """Device choice, masks and ODE time-grid utilities.
 
-Counterparts of f5tts_tpu/utils.py:22-137 (`lens_to_mask`, the EPSS table,
-`sway_timesteps`, `make_time_grid`, `duration_bucket`); the time grid is
-computed exactly as the JAX package computes it (float64 table, f32 result).
+Counterparts of f5tts_tpu/utils.py:22-137 (`lens_to_mask`, the training
+span masks, the EPSS table, `sway_timesteps`, `make_time_grid`,
+`duration_bucket`); the time grid is computed exactly as the JAX package
+computes it (float64 table, f32 result).
 """
 
 from __future__ import annotations
@@ -31,6 +32,24 @@ def lens_to_mask(lens: torch.Tensor, length: int) -> torch.Tensor:
     """[b] lengths -> [b, length] bool mask."""
     seq = torch.arange(length, device=lens.device)
     return seq[None, :] < lens[:, None]
+
+
+def mask_from_start_end_indices(start: torch.Tensor, end: torch.Tensor, length: int) -> torch.Tensor:
+    """[b] start/end -> [b, length] bool mask of the spans [start, end)."""
+    seq = torch.arange(length, device=start.device)
+    return (seq[None, :] >= start[:, None]) & (seq[None, :] < end[:, None])
+
+
+def mask_from_frac_lengths(seq_len: torch.Tensor, frac_lengths: torch.Tensor,
+                           rand: torch.Tensor, length: int) -> torch.Tensor:
+    """Random span covering `frac_lengths` (f32 [b]) of each sample's length;
+    `rand` ~ U[0, 1) [b] places its start. f32 products truncated to int32,
+    as the JAX package computes them."""
+    frac_lengths = frac_lengths.float()
+    lengths = (frac_lengths * seq_len.float()).to(torch.int32)
+    max_start = seq_len.to(torch.int32) - lengths
+    start = torch.clamp((max_start.float() * rand.float()).to(torch.int32), min=0)
+    return mask_from_start_end_indices(start, start + lengths, length)
 
 
 # Empirically Pruned Step Sampling: indices into a 32-step uniform grid

@@ -1,8 +1,9 @@
 """Port kernels on the card (marker `cuda`; skipped where there is no GPU).
 
 Each hand-written kernel against its plain PyTorch version at small shapes,
-including ragged lengths and an n that is no multiple of the tiles, and one
-tiny DiT forward through all three kernels against the CPU plain path.
+including ragged lengths and an n that is no multiple of the tiles; the
+attention backward K4 alone and through autograd; one tiny DiT forward and
+one tiny DiT training step through the kernels against the CPU plain path.
 Run on a GPU machine with:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -14,7 +15,12 @@ import torch
 
 from f5tts_tpu_torch.ops import _build
 from f5tts_tpu_torch.ops.adaln_norm import adaln_norm, adaln_norm_ref
-from f5tts_tpu_torch.ops.attention import fused_qkv_rope_attention, fused_qkv_rope_attention_ref
+from f5tts_tpu_torch.ops.attention import (
+    fused_qkv_rope_attention,
+    fused_qkv_rope_attention_bwd,
+    fused_qkv_rope_attention_bwd_ref,
+    fused_qkv_rope_attention_ref,
+)
 from f5tts_tpu_torch.ops.grouped_conv import conv_pos_embedding, conv_pos_embedding_ref
 from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
 
@@ -74,6 +80,40 @@ def test_attention_kernel(dev, n, length):
     assert not out[1, length:].any()
 
 
+@pytest.mark.parametrize("n,length", [(64, 1), (100, 37), (960, 960), (1024, 777), (3200, 3001)])
+def test_attention_bwd_kernel(dev, n, length):
+    """K4 against its plain version: dQKV over live rows by rel-L2 (<= 1e-2)
+    and max-abs (<= 2e-2 of the largest entry); dead rows exactly 0."""
+    rng = np.random.default_rng(n + 1)
+    qkv = _bf16(rng, (2, n, 3 * 1024), dev)
+    dout = _bf16(rng, (2, n, 1024), dev)  # not masked: K4 must ignore dead rows
+    cos, sin = rope_flat_tables(rope_freqs_interleaved(64, n).to(dev), n, 16)
+    lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)
+    _build.reset_launches()
+    got = fused_qkv_rope_attention_bwd(qkv, cos, sin, lengths, dout, 16)
+    assert _build.launches() == {"fused_qkv_rope_attention_bwd": 1}
+    want = fused_qkv_rope_attention_bwd_ref(qkv, cos, sin, lengths, dout, 16)
+    live = torch.arange(n, device=dev)[None, :] < lengths[:, None]
+    a, b = got.float()[live], want.float()[live]
+    assert float((a - b).norm() / b.norm()) <= 1e-2
+    assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())
+    assert not got[1, length:].any()
+
+
+def test_attention_autograd_launches_k4(dev):
+    rng = np.random.default_rng(3)
+    qkv = _bf16(rng, (1, 128, 3 * 1024), dev).requires_grad_()
+    cos, sin = rope_flat_tables(rope_freqs_interleaved(64, 128).to(dev), 128, 16)
+    lengths = torch.tensor([100], dtype=torch.int32, device=dev)
+    _build.reset_launches()
+    out = fused_qkv_rope_attention(qkv, cos, sin, lengths, 16)
+    out.float().sum().backward()
+    assert _build.launches() == {"fused_qkv_rope_attention": 1, "fused_qkv_rope_attention_bwd": 1}
+    want = fused_qkv_rope_attention_bwd_ref(qkv.detach(), cos, sin, lengths,
+                                            torch.ones_like(out), 16)
+    assert float((qkv.grad.float() - want.float()).norm() / want.float().norm()) <= 1e-2
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     x = torch.zeros(1, 8, 1024, device=dev)  # f32, not bf16
     with pytest.raises(TypeError):
@@ -110,3 +150,40 @@ def test_tiny_dit_through_the_kernels(dev):
                                          "fused_qkv_rope_attention": 2}
     a, b = outs["cuda"][:, :201], outs["cpu"][:, :201]
     assert float((a - b).norm() / b.norm()) <= 3e-2
+
+
+def test_tiny_dit_training_step_on_the_card(dev):
+    """One grad step of a depth-2 DiT on the card (bf16, the kernels) against
+    the CPU (f32, the plain versions) with the same draws: loss within 2e-2
+    relative, every gradient leaf's rel-L2 <= 1e-1; launch counts 2/2/5/1."""
+    from f5tts_tpu_torch.config import ModelArch
+    from f5tts_tpu_torch.models import dit
+    from f5tts_tpu_torch.models.cfm import make_draws
+    from f5tts_tpu_torch.models.modules import tree_cast, tree_leaves
+    from f5tts_tpu_torch.train.step import make_optimizer, make_train_step
+
+    arch = ModelArch(dim=1024, depth=2, heads=16, dim_head=64, text_dim=64, conv_layers=1,
+                     text_num_embeds=32)
+    gen = torch.Generator().manual_seed(0)
+    params = dit.activate_zero_init(dit.init_dit(gen, arch), gen)
+    rng = np.random.default_rng(0)
+    b, n = 2, 200
+    mel = torch.from_numpy(rng.standard_normal((b, n, 100)).astype(np.float32))
+    text = torch.from_numpy(rng.integers(0, 32, (b, 40)).astype(np.int32))
+    lens = torch.tensor([200, 131], dtype=torch.int32)
+    draws = make_draws(torch.Generator().manual_seed(1), b, n, 100)
+    out = {}
+    for where, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        step = make_train_step(dit.DiTStatics(arch, where), make_optimizer(1e-4, 10, 100), dtype=dtype)
+        _build.reset_launches()
+        loss, grads = step.grad_step(tree_cast(params, torch.float32, where), mel.to(where),
+                                     text.to(where), lens.to(where), draws=draws)
+        if where.type == "cuda":
+            assert _build.launches() == {"fused_qkv_rope_attention": 2, "fused_qkv_rope_attention_bwd": 2,
+                                         "adaln_norm": 5, "conv_pos_embedding": 1}
+        out[where.type] = (float(loss), [g.float().cpu() for g in tree_leaves(grads)])
+    (la, ga), (lb, gb) = out["cuda"], out["cpu"]
+    assert abs(la - lb) <= 2e-2 * abs(lb)
+    for a, w in zip(ga, gb):
+        if float(w.norm()) > 0:
+            assert float((a - w).norm() / w.norm()) <= 1e-1
