@@ -12,7 +12,11 @@ Phases (any failure raises, and the script exits non-zero):
    time as a yardstick (the port never calls it). The attention backward K4
    (b = 2, h = 16, lengths [n, 777], n = 1024, 3072, 4096): dQKV rel-L2 and
    max-abs over live rows, dead rows exactly 0, SDPA's backward (fwd+bwd
-   minus fwd on the same pre-roped inputs) as the yardstick.
+   minus fwd on the same pre-roped inputs) as the yardstick. K5, the
+   key-masked flat attention (joint n = 1152, 3200, 4352: audio + text rows,
+   dead keys mid-sequence, SDPA with a boolean mask as yardstick); K6,
+   RMSNorm ([2, 1024, 1024], F.rms_norm as yardstick); K7, head-layout
+   attention (n = 1024, 4224, lengths [n, 777]; SDPA as yardstick).
 3. The main path: InferencePipeline.infer at F5TTS_v1_Base + Vocos, random
    weights from a seed (the zero-initialised AdaLN, norm_out and proj_out
    weights randomised), three requests, 16 NFE, CFG 2, sway -1. Every wav
@@ -30,9 +34,18 @@ Phases (any failure raises, and the script exits non-zero):
 6. One training step at depth 2 (b = 4, n = 512), the same draws, on the card
    in bf16 (the kernels) against the CPU in f32 (the plain versions): loss
    within 2e-2 relative, each gradient leaf's rel-L2 <= 1e-1.
+7. InferencePipeline.infer at E2TTS_Base (UNetT) + Vocos, random weights
+   from a seed, 16 NFE: one request in the 1023-frame bucket (1024 rows with
+   the time token; K3 / K6 / K2 launched 384 / 784 / 32 times a generate)
+   and one at the 4096-frame cap (4224 rows: K7 384 times, K3 none).
+8. InferencePipeline.infer at MMDiT_Base + Vocos (the zero-initialised AdaLN
+   and proj_out randomised), 16 NFE: one request in the 1024 bucket (joint
+   1152 rows) and one at the cap (joint 4352 rows); K5 / K1 / K2 launched
+   352 / 1408 / 32 times a generate.
+9. Phase 4 for the two new backbones at depth 2: mel rel-L2 <= 3e-2.
 
 Prints the `kernels` JSON line (launches: the inference and training paths
-of phases 3 and 5), the card's name and power limit, and as the last line
+of phases 3, 5, 7 and 8), the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the repo's
 f5tts_tpu_torch package beside this file; imports nothing of JAX.
 """
@@ -55,7 +68,8 @@ BF16_FLOPS_PER_S = 989e12    # dense bf16 tensor cores, data sheet
 F32_FLOPS_PER_S = 67e12      # f32 outside the tensor cores
 
 # max-abs error over live rows
-TOL = {"adaln_norm": 2e-2, "conv_pos_embedding": 3e-2, "fused_qkv_rope_attention": 2e-2}
+TOL = {"adaln_norm": 2e-2, "conv_pos_embedding": 3e-2, "fused_qkv_rope_attention": 2e-2,
+       "fused_qkv_rope_attention_bias": 2e-2, "rms_norm": 2e-2, "flash_attention": 2e-2}
 # K4's dQKV over live rows: rel-L2, and max-abs against the largest entry of
 # the plain version's dQKV (whose scale grows with n)
 BWD_REL_L2_TOL = 1e-2
@@ -65,12 +79,18 @@ REPLACES = {
     "conv_pos_embedding": "f5tts_tpu/ops/grouped_conv.py:168",
     "fused_qkv_rope_attention": "f5tts_tpu/ops/attention.py:567 (+ :659 stream twin)",
     "fused_qkv_rope_attention_bwd": "f5tts_tpu/ops/attention.py:886 (+ :970 long twin)",
+    "fused_qkv_rope_attention_bias": "f5tts_tpu/ops/attention.py:1240 (+ :1307 stream twin)",
+    "rms_norm": "f5tts_tpu/ops/adaln_norm.py:97",
+    "flash_attention": "f5tts_tpu/ops/attention.py:123 (+ :50 loop twin)",
 }
 SOURCES = {
     "adaln_norm": "f5tts_tpu_torch/csrc/adaln_norm.cu",
     "conv_pos_embedding": "f5tts_tpu_torch/csrc/grouped_conv.cu",
     "fused_qkv_rope_attention": "f5tts_tpu_torch/csrc/attention.cu",
     "fused_qkv_rope_attention_bwd": "f5tts_tpu_torch/csrc/attention_bwd.cu",
+    "fused_qkv_rope_attention_bias": "f5tts_tpu_torch/csrc/attention.cu",
+    "rms_norm": "f5tts_tpu_torch/csrc/adaln_norm.cu",
+    "flash_attention": "f5tts_tpu_torch/csrc/attention.cu",
 }
 NFE = 16
 TRAIN_CELLS = ((16, 1024, 4), (4, 3072, 2))  # (batch, frames, updates)
@@ -83,34 +103,11 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, reps: int = 10, iters: int = 15) -> float:
-    """Median device time of one fn() call: fn is captured `reps` times in one
-    CUDA graph, and each replay is timed with CUDA events (no host launch
-    overhead inside the window)."""
-    import torch
+    """Median device time of one fn() call by CUDA-graph replay
+    (`f5tts_tpu_torch.scripts.common.time_ms`)."""
+    from f5tts_tpu_torch.scripts.common import time_ms as graph_time_ms
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    del graph
-    return statistics.median(times)
+    return graph_time_ms(fn, reps, iters)
 
 
 def wall_ms(fn, iters: int = 20) -> float:
@@ -355,6 +352,128 @@ def check_attention_bwd(rng, dev) -> dict:
     return out_row
 
 
+def check_attention_bias(rng, dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from f5tts_tpu_torch.ops.attention import (fused_qkv_rope_attention_bias,
+                                               fused_qkv_rope_attention_bias_ref)
+    from f5tts_tpu_torch.ops.rope import apply_rotary_flat_tables, rope_flat_tables, rope_freqs_interleaved
+
+    b, h, d = 2, 16, 64
+    hd = h * d
+    out_row = None
+    for na, nt in ((1024, 128), (3072, 128), (4096, 256)):  # joint 1152, 3200, 4352
+        n = na + nt
+        # row 0: audio live to 777 of 1024 (3/4 of longer buckets), text 100
+        # live; row 1: all audio live, text 120: dead keys mid-sequence
+        kmask = torch.zeros(b, n, dtype=torch.bool, device=dev)
+        kmask[0, :777 if na == 1024 else 3 * na // 4] = True
+        kmask[0, na:na + 100] = True
+        kmask[1, :na] = True
+        kmask[1, na:na + 120] = True
+        qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * hd)).astype(np.float32)).to(dev, torch.bfloat16)
+        ang = rope_freqs_interleaved(d, na).to(dev)
+        ca, sa = rope_flat_tables(ang, na, h, dtype=torch.bfloat16)
+        ct, st = rope_flat_tables(ang, nt, h, dtype=torch.bfloat16)
+        cos, sin = torch.cat([ca, ct]).contiguous(), torch.cat([sa, st]).contiguous()
+        out = fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, h)
+        ref = fused_qkv_rope_attention_bias_ref(qkv.float(), cos.float(), sin.float(), kmask, h)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs()[kmask].max())
+        dead = float((out.float() - ref.float()).abs()[~kmask].max())
+        live_keys = [int(v) for v in kmask.sum(dim=1).tolist()]
+        flops = 4 * h * d * n * sum(live_keys)
+        nbytes = (b * n * 3 * hd + 2 * n * hd + b * n * hd) * 2 + b * n
+        bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        ms = time_ms(lambda: fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, h))
+        wall = wall_ms(lambda: fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, h))
+        plain = time_ms(lambda: fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, h),
+                        reps=1, iters=5)
+        q, k, v = qkv.split(hd, dim=-1)
+        qh, kh, vh = (t.reshape(b, n, h, d).transpose(1, 2).contiguous() for t in
+                      (apply_rotary_flat_tables(q, cos, sin), apply_rotary_flat_tables(k, cos, sin), v))
+        mask4 = kmask[:, None, None, :]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask4))
+        log(f"  fused_qkv_rope_attention_bias b=2 h=16 d=64 joint n={n} ({na} audio + {nt} text), "
+            f"live keys {live_keys}: max_abs_err over live rows {err:.3e} (tol "
+            f"{TOL['fused_qkv_rope_attention_bias']}), dead rows {dead:.3e}, {ms:.4f} ms (eager "
+            f"call {wall:.4f} ms), bound {bound:.4f} ms (operations), plain {plain:.4f} ms, "
+            f"sdpa {lib:.4f} ms")
+        if not dead <= TOL["fused_qkv_rope_attention_bias"]:
+            raise AssertionError(f"fused_qkv_rope_attention_bias: dead rows differ by {dead}")
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+               "bound_by": "operations", "library_ms": lib}
+        if out_row is None:
+            out_row = row
+        out_row["max_abs_err"] = max(out_row["max_abs_err"], err)
+    return out_row
+
+
+def check_rms_norm(rng, dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from f5tts_tpu_torch.ops.adaln_norm import rms_norm, rms_norm_ref
+
+    b, n, d = 2, 1024, 1024
+    x = torch.from_numpy((2 * rng.standard_normal((b, n, d))).astype(np.float32)).to(dev, torch.bfloat16)
+    w = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(dev, torch.bfloat16)
+    out = rms_norm(x, w, 1e-8)
+    ref = rms_norm_ref(x.float(), w.float(), 1e-8)
+    torch.cuda.synchronize()
+    err = live_err(out, ref, torch.full((b,), n))
+    nbytes = 2 * b * n * d * 2 + d * 2
+    bound = max(nbytes / HBM_BYTES_PER_S, 4 * b * n * d / F32_FLOPS_PER_S) * 1e3
+    ms = time_ms(lambda: rms_norm(x, w, 1e-8))
+    wall = wall_ms(lambda: rms_norm(x, w, 1e-8))
+    plain = time_ms(lambda: rms_norm_ref(x, w, 1e-8), reps=2)
+    lib = time_ms(lambda: F.rms_norm(x, (d,), w, 1e-8))
+    log(f"  rms_norm [2,1024,1024] bf16, eps 1e-8: max_abs_err {err:.3e} (tol {TOL['rms_norm']}), "
+        f"{ms:.4f} ms (eager call {wall:.4f} ms), bound {bound:.4f} ms (bytes), plain "
+        f"{plain:.4f} ms, F.rms_norm {lib:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": lib}
+
+
+def check_flash(rng, dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from f5tts_tpu_torch.ops.attention import flash_attention, mha_reference
+
+    b, h, d = 2, 16, 64
+    out_row = None
+    for n in (1024, 4224):
+        lengths = torch.tensor([n, 777], dtype=torch.int32, device=dev)
+        q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, d)).astype(np.float32))
+                   .to(dev, torch.bfloat16) for _ in range(3))
+        out = flash_attention(q, k, v, lengths)
+        ref = mha_reference(q.float(), k.float(), v.float(), lengths)
+        torch.cuda.synchronize()
+        err = max(float((out[i, :, :ln].float() - ref[i, :, :ln]).abs().max())
+                  for i, ln in enumerate(lengths.tolist()))
+        dead = float(out[1, :, -(-777 // 64) * 64:].abs().max())
+        sq = sum(int(x) ** 2 for x in lengths.tolist())
+        flops = 4 * h * d * sq
+        nbytes = 4 * b * h * n * d * 2
+        bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        ms = time_ms(lambda: flash_attention(q, k, v, lengths))
+        wall = wall_ms(lambda: flash_attention(q, k, v, lengths))
+        plain = time_ms(lambda: mha_reference(q, k, v, lengths), reps=1, iters=5)
+        kmask = (torch.arange(n, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=kmask))
+        log(f"  flash_attention b=2 h=16 d=64 n={n} lengths [{n}, 777]: max_abs_err {err:.3e} "
+            f"(tol {TOL['flash_attention']}), dead q tiles max {dead:.1e}, {ms:.4f} ms (eager call "
+            f"{wall:.4f} ms), bound {bound:.4f} ms (operations), plain {plain:.4f} ms, "
+            f"sdpa {lib:.4f} ms")
+        if dead != 0.0:
+            raise AssertionError("flash_attention: q tiles past the length are not zero")
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+               "bound_by": "operations", "library_ms": lib}
+        if out_row is None:
+            out_row = row
+        out_row["max_abs_err"] = max(out_row["max_abs_err"], err)
+    return out_row
+
+
 def phase_kernels(dev) -> dict:
     import torch
 
@@ -362,7 +481,10 @@ def phase_kernels(dev) -> dict:
     rows = {"adaln_norm": check_adaln(rng, dev),
             "conv_pos_embedding": check_conv_pos(rng, dev),
             "fused_qkv_rope_attention": check_attention(rng, dev),
-            "fused_qkv_rope_attention_bwd": check_attention_bwd(rng, dev)}
+            "fused_qkv_rope_attention_bwd": check_attention_bwd(rng, dev),
+            "fused_qkv_rope_attention_bias": check_attention_bias(rng, dev),
+            "rms_norm": check_rms_norm(rng, dev),
+            "flash_attention": check_flash(rng, dev)}
     torch.cuda.synchronize()
     for name, tol in TOL.items():
         if not rows[name]["max_abs_err"] <= tol:
@@ -371,31 +493,41 @@ def phase_kernels(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 3 and 4
+# phases 3, 4, 7, 8 and 9
 # ---------------------------------------------------------------------------
 
-def phase_main_path(dev, arch, params, vocos_params, gpu: str) -> dict:
+def make_pipeline(dev, backbone: str, arch, params, vocos_params):
     import torch
     from f5tts_tpu_torch.config import SamplingConfig
     from f5tts_tpu_torch.infer.pipeline import InferencePipeline
-    from f5tts_tpu_torch.models import dit
-    from f5tts_tpu_torch.ops import _build
-    from f5tts_tpu_torch.scripts.common import REF_TEXT, REQUESTS, VOCAB, synthetic_ref_wav
+    from f5tts_tpu_torch.models.cfm import BACKBONES
+    from f5tts_tpu_torch.scripts.common import VOCAB
     from f5tts_tpu_torch.vocoder.vocos import Vocos, VocosConfig
 
-    pipe = InferencePipeline(params, dit.DiTStatics(arch), Vocos(vocos_params, VocosConfig(), device=dev),
-                             vocab_char_map=VOCAB, sampling=SamplingConfig(nfe_steps=NFE),
-                             tokenizer="char", dtype=torch.bfloat16, device=dev)
+    return InferencePipeline(params, BACKBONES[backbone].statics_cls(arch),
+                             Vocos(vocos_params, VocosConfig(), device=dev), vocab_char_map=VOCAB,
+                             sampling=SamplingConfig(nfe_steps=NFE), tokenizer="char",
+                             dtype=torch.bfloat16, device=dev, backbone=backbone)
+
+
+def run_requests(pipe, cases, gpu: str) -> dict:
+    """Each case (text, total frames or None to estimate them, the launches
+    one generate must make) through pipe.infer, every count set to 0 just
+    before the request and read just after; returns the summed launches."""
+    import torch
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.scripts.common import REF_TEXT, synthetic_ref_wav
+
     ref = synthetic_ref_wav()
-    expect = {"fused_qkv_rope_attention": arch.depth * NFE,
-              "adaln_norm": (2 * arch.depth + 1) * NFE, "conv_pos_embedding": 2 * NFE}
-    total = {k: 0 for k in expect}
-    for i, text in enumerate(REQUESTS):
+    total: dict[str, int] = {}
+    for i, (text, frames, expect) in enumerate(cases):
+        fix = None if frames is None else (frames + 0.5) * pipe.hop / pipe.sr
         torch.cuda.synchronize()
         _build.reset_launches()  # every count to 0 just before the request
         t0 = time.perf_counter()
         wave, sr, mel = pipe.infer(ref, 24000, REF_TEXT, text, seed=i, nfe_step=NFE,
-                                   cfg_strength=2.0, sway_sampling_coef=-1.0)
+                                   cfg_strength=2.0, sway_sampling_coef=-1.0, fix_duration=fix)
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _build.launches()
         secs = len(wave) / sr
@@ -404,26 +536,71 @@ def phase_main_path(dev, arch, params, vocos_params, gpu: str) -> dict:
             f"RTF {wall / max(secs, 1e-9):.5f}, rms {rms:.4f}, launches {counts} [{gpu}]")
         if not (wave.size and np.isfinite(wave).all() and np.isfinite(mel).all() and rms > 1e-4):
             raise AssertionError(f"request {i}: wav is empty, non-finite or silent")
-        for name, want in expect.items():
-            if counts.get(name, 0) != want:
-                raise AssertionError(f"request {i}: {name} launched {counts.get(name, 0)} "
-                                     f"times, expected {want} for one {NFE}-NFE generate")
-            total[name] += counts[name]
-    torch.cuda.synchronize()
+        if counts != expect:
+            raise AssertionError(f"request {i}: launches {counts}, expected {expect} for one "
+                                 f"{NFE}-NFE generate")
+        for name, c in counts.items():
+            total[name] = total.get(name, 0) + c
     return total
 
 
-def phase_card_vs_cpu(dev, arch, params, vocos_params) -> float:
+def phase_main_path(dev, arch, params, vocos_params, gpu: str) -> dict:
+    from f5tts_tpu_torch.scripts.common import REQUESTS
+
+    expect = {"fused_qkv_rope_attention": arch.depth * NFE,
+              "adaln_norm": (2 * arch.depth + 1) * NFE, "conv_pos_embedding": 2 * NFE}
+    pipe = make_pipeline(dev, "DiT", arch, params, vocos_params)
+    return run_requests(pipe, [(text, None, expect) for text in REQUESTS], gpu)
+
+
+def phase_unett(dev, arch, params, vocos_params, gpu: str) -> dict:
+    """E2TTS_Base: 1013 frames + the time token fill the 1024-row bucket (K3);
+    the 4096-frame cap is 4097 rows padded to 4224, past the flat gate (K7).
+    RMSNorm: two a block and the final norm, every step."""
+    from f5tts_tpu_torch.scripts.common import REQUESTS
+
+    per_step = {"rms_norm": 2 * arch.depth + 1, "conv_pos_embedding": 2}
+    short = dict(per_step, fused_qkv_rope_attention=arch.depth)
+    cap = dict(per_step, flash_attention=arch.depth)
+    pipe = make_pipeline(dev, "UNetT", arch, params, vocos_params)
+    return run_requests(pipe, [(REQUESTS[0], 1013, {k: v * NFE for k, v in short.items()}),
+                               (REQUESTS[1], 4096, {k: v * NFE for k, v in cap.items()})], gpu)
+
+
+def phase_mmdit(dev, arch, params, vocos_params, gpu: str) -> dict:
+    """MMDiT_Base: the 1024 bucket with a short text (joint 1024 + 128 rows)
+    and the cap with a long one (joint 4096 + 256). AdaLN: four a block, three
+    in the context_pre_only last block, the final norm."""
+    from f5tts_tpu_torch.scripts.common import REQUESTS
+
+    expect = {k: v * NFE for k, v in {"fused_qkv_rope_attention_bias": arch.depth,
+                                       "adaln_norm": 4 * (arch.depth - 1) + 3 + 1,
+                                       "conv_pos_embedding": 2}.items()}
+    pipe = make_pipeline(dev, "MMDiT", arch, params, vocos_params)
+    return run_requests(pipe, [(REQUESTS[2], 1014, expect), (REQUESTS[1], 4096, expect)], gpu)
+
+
+def cut_to_depth_2(backbone: str, params: dict) -> dict:
+    if backbone == "UNetT":
+        return dict(params, first_half=params["first_half"][:1],
+                    second_half=params["second_half"][:1])
+    if backbone == "MMDiT":  # one block and the context_pre_only last block
+        return dict(params, blocks=params["blocks"][:1])
+    return dict(params, blocks=params["blocks"][:2])
+
+
+def phase_card_vs_cpu(dev, arch, params, vocos_params, backbone: str = "DiT") -> float:
     import torch
-    from f5tts_tpu_torch.models import cfm, dit
+    from f5tts_tpu_torch.models import cfm
     from f5tts_tpu_torch.models.modules import fuse_backbone_qkv, tree_cast
     from f5tts_tpu_torch.ops.mel import MelFrontend
     from f5tts_tpu_torch.scripts.common import synthetic_ref_wav
     from f5tts_tpu_torch.utils import make_time_grid
     from f5tts_tpu_torch.vocoder.vocos import Vocos, VocosConfig
 
+    bdef = cfm.BACKBONES[backbone]
     arch2 = dataclasses.replace(arch, depth=2)
-    p2 = fuse_backbone_qkv(dict(params, blocks=params["blocks"][:2]))
+    p2 = fuse_backbone_qkv(cut_to_depth_2(backbone, params))
     n, prompt, total, nfe = 1024, 254, 1000, 4
     rng = np.random.default_rng(3)
     ref_mel = MelFrontend(device="cpu").frames_to_mel_bnd(torch.from_numpy(synthetic_ref_wav())[None])
@@ -439,22 +616,23 @@ def phase_card_vs_cpu(dev, arch, params, vocos_params) -> float:
     mels, waves = {}, {}
     for where, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
         pw = tree_cast(p2, dtype, where)
-        statics = dit.DiTStatics(arch2, where)
+        statics = bdef.statics_cls(arch2, where)
         t0 = time.perf_counter()
         mel = cfm.cfm_sample(pw, statics, cond.to(where), text.to(where), lens.to(where),
                              dur.to(where), grid.to(where), y0=y0.to(where), cfg_strength=2.0,
-                             dtype=dtype)
+                             dtype=dtype, backbone=bdef)
         wav = Vocos(vocos_params, VocosConfig(), device=where)(mel.transpose(1, 2))
         mels[where.type], waves[where.type] = mel.float().cpu(), wav.float().cpu()
-        log(f"  {where.type} {str(dtype)[6:]}: depth 2, {nfe} NFE, n {n}: "
+        log(f"  {backbone} {where.type} {str(dtype)[6:]}: depth 2, {nfe} NFE, n {n}: "
             f"{time.perf_counter() - t0:.2f} s")
     a, b = mels["cuda"][:, prompt:total], mels["cpu"][:, prompt:total]
     rel = float((a - b).norm() / b.norm())
     wa, wb = waves["cuda"], waves["cpu"]
     wrel = float((wa - wb).norm() / wb.norm())
-    log(f"  card bf16 vs cpu f32: mel rel-L2 {rel:.4e} (tol 3e-2), wav rel-L2 {wrel:.4e}")
+    log(f"  {backbone} card bf16 vs cpu f32: mel rel-L2 {rel:.4e} (tol 3e-2), "
+        f"wav rel-L2 {wrel:.4e}")
     if not (np.isfinite(rel) and rel <= 3e-2):
-        raise AssertionError(f"card vs cpu mel rel-L2 {rel} > 3e-2")
+        raise AssertionError(f"{backbone} card vs cpu mel rel-L2 {rel} > 3e-2")
     return rel
 
 
@@ -633,6 +811,22 @@ def main() -> int:
 
     log("phase 6: training step, card bf16 against cpu f32, depth 2")
     phase_train_card_vs_cpu(dev, arch, params)
+    torch.cuda.synchronize()
+    del params
+    torch.cuda.empty_cache()
+
+    new = {}
+    for phase, model, backbone, run in ((7, "E2TTS_Base", "UNetT", phase_unett),
+                                        (8, "MMDiT_Base", "MMDiT", phase_mmdit)):
+        new[backbone] = base_models(model=model)
+        log(f"phase {phase}: InferencePipeline.infer at {model} ({backbone}) + Vocos, bf16")
+        for name, count in run(dev, *new[backbone], gpu).items():
+            launches[name] = launches.get(name, 0) + count
+        torch.cuda.empty_cache()
+
+    log("phase 9: card bf16 against cpu f32, depth 2, UNetT and MMDiT")
+    for backbone, (arch_b, params_b, vocos_b) in new.items():
+        phase_card_vs_cpu(dev, arch_b, params_b, vocos_b, backbone)
     torch.cuda.synchronize()
 
     kernels = []

@@ -3,8 +3,8 @@
 Own copies of the JAX package's dataclasses (f5tts_tpu/config.py) that the
 zero-shot inference and training paths read: the mel front end, the backbone
 arch, the CFM and sampler defaults, the training hyperparameters and the
-F5TTS_v1 presets. The port imports nothing of the JAX package, so the values
-are repeated here and the parity tests pin them.
+F5TTS_v1, E2TTS (UNetT) and MMDiT presets. The port imports nothing of the
+JAX package, so the values are repeated here and the parity tests pin them.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ class MelConfig:
 
 @dataclass(frozen=True)
 class ModelArch:
-    """DiT backbone architecture (reference configs/*.yaml model.arch)."""
+    """Backbone architecture (reference configs/*.yaml model.arch)."""
 
     dim: int = 1024
     depth: int = 22
@@ -42,6 +42,15 @@ class ModelArch:
     conv_layers: int = 4
     conv_mult: int = 2
     pe_attn_head: Optional[int] = None  # partial RoPE: first N heads only
+    qk_norm: Optional[str] = None  # None | "rms_norm" (not ported: raises)
+    skip_connect_type: str = "concat"  # UNetT only: "add" | "concat" | "none"
+
+    def __post_init__(self):
+        if self.qk_norm is not None:
+            raise NotImplementedError(
+                f"qk_norm={self.qk_norm!r}: the head-layout attention it needs is not ported")
+        if self.skip_connect_type not in ("add", "concat", "none"):
+            raise ValueError(f"skip_connect_type {self.skip_connect_type!r}")
 
     @property
     def inner_dim(self) -> int:
@@ -106,24 +115,41 @@ class SamplingConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "F5TTS_v1_Base"
+    backbone: str = "DiT"  # "DiT" | "UNetT" | "MMDiT"
     arch: ModelArch = dataclasses.field(default_factory=ModelArch)
     mel_spec: MelConfig = dataclasses.field(default_factory=MelConfig)
     sampling: SamplingConfig = dataclasses.field(default_factory=SamplingConfig)
 
 
-def _preset(name: str, **arch_kw: Any) -> ModelConfig:
-    return ModelConfig(name=name, arch=ModelArch(**arch_kw))
+def _preset(name: str, backbone: str, **arch_kw: Any) -> ModelConfig:
+    return ModelConfig(name=name, backbone=backbone, arch=ModelArch(**arch_kw))
 
 
 PRESETS: dict[str, ModelConfig] = {
     # F5TTS_v1_Base.yaml: dim 1024, depth 22, heads 16, ff_mult 2, text_dim 512,
     # conv_layers 4, text_mask_padding True, pe_attn_head None
     "F5TTS_v1_Base": _preset(
-        "F5TTS_v1_Base", dim=1024, depth=22, heads=16, ff_mult=2, text_dim=512,
+        "F5TTS_v1_Base", "DiT", dim=1024, depth=22, heads=16, ff_mult=2, text_dim=512,
         text_mask_padding=True, conv_layers=4, pe_attn_head=None,
     ),
     "F5TTS_v1_Small": _preset(
-        "F5TTS_v1_Small", dim=768, depth=18, heads=12, ff_mult=2, text_dim=512,
+        "F5TTS_v1_Small", "DiT", dim=768, depth=18, heads=12, ff_mult=2, text_dim=512,
         text_mask_padding=True, conv_layers=4, pe_attn_head=None,
+    ),
+    # E2TTS_Base.yaml: UNetT dim 1024, depth 24, heads 16, ff_mult 4, the mel
+    # width as text width, no ConvNeXt text blocks
+    "E2TTS_Base": _preset(
+        "E2TTS_Base", "UNetT", dim=1024, depth=24, heads=16, ff_mult=4, text_dim=None,
+        text_mask_padding=False, conv_layers=0,
+    ),
+    "E2TTS_Small": _preset(
+        "E2TTS_Small", "UNetT", dim=768, depth=20, heads=12, ff_mult=4, text_dim=None,
+        text_mask_padding=False, conv_layers=0,
+    ),
+    # SD3-style dual-stream backbone: no published checkpoint; the upstream
+    # class defaults at the DiT-Base size, as the JAX package sizes it
+    "MMDiT_Base": _preset(
+        "MMDiT_Base", "MMDiT", dim=1024, depth=22, heads=16, ff_mult=2, text_dim=None,
+        text_mask_padding=True, conv_layers=0,
     ),
 }

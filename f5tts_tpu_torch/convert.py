@@ -1,9 +1,11 @@
 """Weights from the JAX package into the port.
 
-`dit_params_from_jax` and `vocos_params_from_jax` take the JAX package's
-parameter pytree as numpy arrays (nested dicts and lists; the DiT and Vocos
-blocks stacked on a leading depth axis; DiT attention fused (`to_qkv`) or
-not) and return the port's parameters as CPU f32 tensors.
+`dit_params_from_jax`, `unett_params_from_jax`, `mmdit_params_from_jax` and
+`vocos_params_from_jax` take the JAX package's parameter pytree as numpy
+arrays (nested dicts and lists; blocks stacked on a leading depth axis:
+"blocks" of the DiT, MMDiT and Vocos, "first_half" / "second_half" of the
+UNetT; attention fused (`to_qkv`, `to_qkv_c`) or not) and return the port's
+parameters as CPU f32 tensors.
 `train_state_from_jax` takes a JAX `TrainState` with numpy leaves (params,
 the optax AdamW mu / nu / count, the EMA and the step) and returns the port's
 `TrainState`, so both sides can take an optimizer step from one state.
@@ -12,7 +14,8 @@ Layouts. The port keeps the JAX package's layouts, so no tensor is
 transposed: Linear weights stay (in, out) and are applied as `x @ w + b`;
 Conv1d weights stay (k, in/groups, out) (WIO), which is also the layout the
 conv-position kernel K2 reads. The one change of structure: the stacked
-[depth, ...] block arrays become a Python list of per-block dicts.
+[depth, ...] block arrays become a Python list of per-block dicts (MMDiT's
+unstacked "last_block" stays one dict).
 """
 
 from __future__ import annotations
@@ -45,12 +48,26 @@ def _depth(tree) -> int:
     return int(np.asarray(tree).shape[0])
 
 
+def _params_from_jax(tree: dict, stacked: tuple) -> dict:
+    out = {k: _to_torch(v) for k, v in tree.items() if k not in stacked}
+    for k in stacked:
+        out[k] = [_to_torch(_unstack(tree[k], i)) for i in range(_depth(tree[k]))]
+    return out
+
+
 def dit_params_from_jax(tree: dict) -> dict:
     """JAX DiT params (numpy leaves) -> the port's DiT params."""
-    out = {k: _to_torch(v) for k, v in tree.items() if k != "blocks"}
-    blocks = tree["blocks"]
-    out["blocks"] = [_to_torch(_unstack(blocks, i)) for i in range(_depth(blocks))]
-    return out
+    return _params_from_jax(tree, ("blocks",))
+
+
+def unett_params_from_jax(tree: dict) -> dict:
+    """JAX UNetT params (numpy leaves) -> the port's UNetT params."""
+    return _params_from_jax(tree, ("first_half", "second_half"))
+
+
+def mmdit_params_from_jax(tree: dict) -> dict:
+    """JAX MMDiT params (numpy leaves) -> the port's MMDiT params."""
+    return _params_from_jax(tree, ("blocks",))
 
 
 def vocos_params_from_jax(tree: dict) -> dict:

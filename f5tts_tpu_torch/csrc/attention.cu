@@ -1,25 +1,42 @@
-// K3: fused QKV + interleaved RoPE + length-masked attention, flat layout.
+// Forward attention kernels K3, K5 and K7: one tile loop, three entry points.
 //
-// Replaces f5tts_tpu/ops/attention.py:567 _fused_qkv_attn_kernel and its
-// streaming twin :659 _fused_qkv_attn_kernel_stream with ONE kernel: the
-// online softmax over 64-key tiles covers every n, so there is no
-// single-pass/streaming split and no VMEM-driven dispatch threshold.
+// K3 fused_qkv_rope_attn_kernel: fused QKV + interleaved RoPE + length-masked
+//    attention, flat layout. Replaces f5tts_tpu/ops/attention.py:567
+//    _fused_qkv_attn_kernel and its streaming twin :659
+//    _fused_qkv_attn_kernel_stream with ONE kernel: the online softmax over
+//    64-key tiles covers every n, so there is no single-pass/streaming split
+//    and no VMEM-driven dispatch threshold.
+//    In:  qkv [b, n, 3*h*64] bf16 (the fused to_qkv projection output),
+//         cos/sin [>=n, h*64] bf16 flat tables, lengths [b] int32.
+//    Out: [b, n, h*64] bf16; rows >= lengths[b] are written as zeros.
+// K5 fused_qkv_rope_attn_bias_kernel: the same under an arbitrary key mask.
+//    Replaces :1240 _fused_qkv_attn_bias_kernel and :1307 its streaming twin
+//    (MMDiT joint attention: audio padding leaves dead keys in the MIDDLE of
+//    the joint audio+text sequence, so no prefix length can express it).
+//    In:  qkv and joint cos/sin as K3 (audio rows rotate with audio
+//         positions, text rows with text positions), kmask [b, n] bool.
+//    Out: [b, n, h*64] bf16, every row computed (the caller masks dead rows
+//         after to_out); a 64-key tile whose keys are all dead is skipped.
+// K7 flash_attn_kernel: head-layout prefix-length attention forward.
+//    Replaces :123 _flash_kernel_single and :50 _flash_kernel (the Pallas
+//    n <= 2048 / online-softmax split is a VMEM artefact; one loop here).
+//    In:  q, k, v [b, h, n, 64] bf16 (already roped), lengths [b] int32.
+//    Out: [b, h, n, 64] bf16; q tiles wholly past the length are zeros, rows
+//         past the length inside a live tile are computed, as in Pallas.
 //
-// In:  qkv [b, n, 3*h*64] bf16 (the fused to_qkv projection output),
-//      cos/sin [>=n, h*64] bf16 flat tables, lengths [b] int32.
-// Out: [b, n, h*64] bf16; rows >= lengths[b] are written as zeros.
-//
-// Bound: tensor-core operations. 4*b*h*n^2*64 flops (8.6 GFLOP at b=2, n=1024,
-// h=16, ~9 us at 989 TFLOP/s) against ~12 MB of bytes. Design: one 128-thread
-// block per (64-row q tile, head, batch). Q is roped in f32, scaled by
-// 1/sqrt(d) and kept as bf16 mma.sync A fragments in registers. The loop over
-// 64-key tiles stops at lengths[b] (bucket padding costs no compute): each
-// tile's K is roped on load into shared memory, V is stored transposed so the
-// P@V B fragments are single 32-bit shared loads; scores and the running
-// (max, sum, acc) stay in f32 registers. Keys past the length get an additive
-// -1e30 (not -inf, which makes dead rows NaN) and l == 0 is guarded as the
-// JAX kernel guards it. Loads are synchronous; wgmma, TMA and a cp.async
-// pipeline are later work.
+// Bound: tensor-core operations. 4*b*h*n*live_keys*64 flops (8.6 GFLOP at
+// b=2, n=1024, h=16, ~9 us at 989 TFLOP/s) against ~12 MB of bytes. Design:
+// one 128-thread block per (64-row q tile, head, batch). Q is (roped in f32,)
+// scaled by 1/sqrt(d) and kept as bf16 mma.sync A fragments in registers. The
+// loop over 64-key tiles stops at the length (bucket padding costs no
+// compute) or, under a key mask, skips all-dead tiles: each tile's K is
+// (roped on load and) stored into shared memory, V is stored transposed so
+// the P@V B fragments are single 32-bit shared loads; scores and the running
+// (max, sum, acc) stay in f32 registers. Dead keys get an additive -1e30 (not
+// -inf, which makes dead rows NaN) and l == 0 is guarded as the JAX kernels
+// guard it. Loads are synchronous; wgmma, TMA and a cp.async pipeline are
+// later work. The three modes are compile-time template arguments of one
+// body, so K3's instantiation is the loop it always was.
 #include "common.cuh"
 
 #define AT_D 64
@@ -28,25 +45,26 @@
 #define AT_LDS 72  // padded shared row (bf16): conflict-free fragment loads
 #define AT_NEG -1e30f
 
-__global__ void __launch_bounds__(128) fused_qkv_rope_attn_kernel(
-    const bf16* __restrict__ qkv, const bf16* __restrict__ cos_t,
-    const bf16* __restrict__ sin_t, const int* __restrict__ lengths,
-    bf16* __restrict__ out, int n, int heads, float sm_scale) {
+// ROPE: rotate q and k with the flat tables. BIAS: key mask row instead of a
+// prefix length. ZERO_DEAD_ROWS: write rows >= len as zeros (K3).
+// qb/kb/vb/outb point at row 0 of this (batch, head); rows are in_row /
+// out_row elements apart; cos_t/sin_t at this head's lanes, tab_row apart.
+template <bool ROPE, bool BIAS, bool ZERO_DEAD_ROWS>
+__device__ __forceinline__ void attn_fwd_tile(
+    const bf16* __restrict__ qb, const bf16* __restrict__ kb, const bf16* __restrict__ vb,
+    long long in_row, const bf16* __restrict__ cos_t, const bf16* __restrict__ sin_t,
+    int tab_row, int len, const uint8_t* __restrict__ kmask, bf16* __restrict__ outb,
+    long long out_row, int n, float sm_scale) {
     const int q0 = blockIdx.x * AT_BQ;
-    const int h = blockIdx.y;
-    const int b = blockIdx.z;
-    const int hd = heads * AT_D;
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t4 = lane & 3;
-    const int len = min(max(lengths[b], 0), n);
-    bf16* outb = out + (size_t)b * n * hd + h * AT_D;
 
-    if (q0 >= len) {  // whole q tile past the length: zeros
+    if (!BIAS && q0 >= len) {  // whole q tile past the length: zeros
         for (int i = tid; i < AT_BQ * 8; i += 128) {
             const int row = q0 + (i >> 3);
             if (row < n)
-                *reinterpret_cast<uint4*>(outb + (size_t)row * hd + (i & 7) * 8) =
+                *reinterpret_cast<uint4*>(outb + row * out_row + (i & 7) * 8) =
                     make_uint4(0, 0, 0, 0);
         }
         return;
@@ -55,21 +73,21 @@ __global__ void __launch_bounds__(128) fused_qkv_rope_attn_kernel(
     __shared__ __align__(16) bf16 sQ[AT_BQ * AT_LDS];
     __shared__ __align__(16) bf16 sK[AT_BK * AT_LDS];
     __shared__ __align__(16) bf16 sVt[AT_D * AT_LDS];  // V transposed: [dim][key]
+    __shared__ float sBias[AT_BK];                       // BIAS: this tile's key bias
 
-    const size_t row3 = (size_t)3 * hd;
-    const bf16* qkvb = qkv + (size_t)b * n * row3;
-
-    // q tile: rope in f32, * 1/sqrt(d), round to bf16
+    // q tile: (rope in f32,) * 1/sqrt(d), round to bf16
     for (int i = tid; i < AT_BQ * 8; i += 128) {
         const int r = i >> 3, c = (i & 7) * 8;
         const int row = q0 + r;
         float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
         if (row < n) {
-            float cs[8], sn[8];
-            unpack8(*reinterpret_cast<const uint4*>(qkvb + row * row3 + h * AT_D + c), f);
-            unpack8(*reinterpret_cast<const uint4*>(cos_t + (size_t)row * hd + h * AT_D + c), cs);
-            unpack8(*reinterpret_cast<const uint4*>(sin_t + (size_t)row * hd + h * AT_D + c), sn);
-            rope8(f, cs, sn);
+            unpack8(*reinterpret_cast<const uint4*>(qb + row * in_row + c), f);
+            if constexpr (ROPE) {
+                float cs[8], sn[8];
+                unpack8(*reinterpret_cast<const uint4*>(cos_t + (size_t)row * tab_row + c), cs);
+                unpack8(*reinterpret_cast<const uint4*>(sin_t + (size_t)row * tab_row + c), sn);
+                rope8(f, cs, sn);
+            }
 #pragma unroll
             for (int e = 0; e < 8; ++e) f[e] *= sm_scale;
         }
@@ -99,18 +117,29 @@ __global__ void __launch_bounds__(128) fused_qkv_rope_attn_kernel(
     const int n_tiles = (len + AT_BK - 1) / AT_BK;
     for (int kt = 0; kt < n_tiles; ++kt) {
         const int k0 = kt * AT_BK;
-        __syncthreads();  // previous tile's sK / sVt reads are done
-        // K tile, roped on load
+        if constexpr (BIAS) {
+            const int key = k0 + tid;
+            const bool live = tid < AT_BK && key < n && kmask[key];
+            // the barrier also ends the previous tile's shared reads; a tile
+            // whose keys are all dead contributes nothing and is skipped
+            if (!__syncthreads_or(live)) continue;
+            if (tid < AT_BK) sBias[tid] = live ? 0.f : AT_NEG;
+        } else {
+            __syncthreads();  // previous tile's sK / sVt reads are done
+        }
+        // K tile (roped on load)
         for (int i = tid; i < AT_BK * 8; i += 128) {
             const int r = i >> 3, c = (i & 7) * 8;
             const int key = k0 + r;
             float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
             if (key < n) {
-                float cs[8], sn[8];
-                unpack8(*reinterpret_cast<const uint4*>(qkvb + key * row3 + hd + h * AT_D + c), f);
-                unpack8(*reinterpret_cast<const uint4*>(cos_t + (size_t)key * hd + h * AT_D + c), cs);
-                unpack8(*reinterpret_cast<const uint4*>(sin_t + (size_t)key * hd + h * AT_D + c), sn);
-                rope8(f, cs, sn);
+                unpack8(*reinterpret_cast<const uint4*>(kb + key * in_row + c), f);
+                if constexpr (ROPE) {
+                    float cs[8], sn[8];
+                    unpack8(*reinterpret_cast<const uint4*>(cos_t + (size_t)key * tab_row + c), cs);
+                    unpack8(*reinterpret_cast<const uint4*>(sin_t + (size_t)key * tab_row + c), sn);
+                    rope8(f, cs, sn);
+                }
             }
             *reinterpret_cast<uint4*>(sK + r * AT_LDS + c) = pack8(f);
         }
@@ -121,8 +150,7 @@ __global__ void __launch_bounds__(128) fused_qkv_rope_attn_kernel(
 #pragma unroll
             for (int j = 0; j < 8; ++j) {
                 const int key = k0 + kg + j;
-                w[j] = key < n ? *reinterpret_cast<const uint32_t*>(
-                                     qkvb + key * row3 + 2 * hd + h * AT_D + dp * 2)
+                w[j] = key < n ? *reinterpret_cast<const uint32_t*>(vb + key * in_row + dp * 2)
                                : 0u;
             }
             uint4 lo, hi;  // dim 2dp gets the low halves, dim 2dp+1 the high
@@ -153,9 +181,15 @@ __global__ void __launch_bounds__(128) fused_qkv_rope_attn_kernel(
         float mx[2] = {AT_NEG, AT_NEG};
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
-            const int key = k0 + nt * 8 + t4 * 2;
-            if (key >= len) { s[nt][0] += AT_NEG; s[nt][2] += AT_NEG; }
-            if (key + 1 >= len) { s[nt][1] += AT_NEG; s[nt][3] += AT_NEG; }
+            if constexpr (BIAS) {
+                const float b0 = sBias[nt * 8 + t4 * 2], b1 = sBias[nt * 8 + t4 * 2 + 1];
+                s[nt][0] += b0; s[nt][2] += b0;
+                s[nt][1] += b1; s[nt][3] += b1;
+            } else {
+                const int key = k0 + nt * 8 + t4 * 2;
+                if (key >= len) { s[nt][0] += AT_NEG; s[nt][2] += AT_NEG; }
+                if (key + 1 >= len) { s[nt][1] += AT_NEG; s[nt][3] += AT_NEG; }
+            }
             mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
             mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
         }
@@ -199,7 +233,7 @@ __global__ void __launch_bounds__(128) fused_qkv_rope_attn_kernel(
         }
     }
 
-    // finish: quad-reduce l, normalise, zero rows past the length
+    // finish: quad-reduce l, normalise, (zero rows past the length)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
@@ -209,13 +243,51 @@ __global__ void __launch_bounds__(128) fused_qkv_rope_attn_kernel(
     for (int r = 0; r < 2; ++r) {
         const int row = q0 + warp * 16 + g + r * 8;
         if (row >= n) continue;
-        const float inv = (row < len && l_run[r] != 0.f) ? 1.f / l_run[r] : 0.f;
-        bf16* orow = outb + (size_t)row * hd + t4 * 2;
+        const bool live_row = !ZERO_DEAD_ROWS || row < len;
+        const float inv = (live_row && l_run[r] != 0.f) ? 1.f / l_run[r] : 0.f;
+        bf16* orow = outb + row * out_row + t4 * 2;
 #pragma unroll
         for (int dt = 0; dt < 8; ++dt)
             *reinterpret_cast<uint32_t*>(orow + dt * 8) =
                 pack_bf16x2(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
     }
+}
+
+__global__ void __launch_bounds__(128) fused_qkv_rope_attn_kernel(
+    const bf16* __restrict__ qkv, const bf16* __restrict__ cos_t,
+    const bf16* __restrict__ sin_t, const int* __restrict__ lengths,
+    bf16* __restrict__ out, int n, int heads, float sm_scale) {
+    const int h = blockIdx.y, b = blockIdx.z;
+    const int hd = heads * AT_D;
+    const long long row3 = 3LL * hd;
+    const bf16* qb = qkv + (size_t)b * n * row3 + h * AT_D;
+    attn_fwd_tile<true, false, true>(qb, qb + hd, qb + 2 * hd, row3, cos_t + h * AT_D,
+                                     sin_t + h * AT_D, hd, min(max(lengths[b], 0), n), nullptr,
+                                     out + (size_t)b * n * hd + h * AT_D, hd, n, sm_scale);
+}
+
+__global__ void __launch_bounds__(128) fused_qkv_rope_attn_bias_kernel(
+    const bf16* __restrict__ qkv, const bf16* __restrict__ cos_t,
+    const bf16* __restrict__ sin_t, const uint8_t* __restrict__ kmask,
+    bf16* __restrict__ out, int n, int heads, float sm_scale) {
+    const int h = blockIdx.y, b = blockIdx.z;
+    const int hd = heads * AT_D;
+    const long long row3 = 3LL * hd;
+    const bf16* qb = qkv + (size_t)b * n * row3 + h * AT_D;
+    attn_fwd_tile<true, true, false>(qb, qb + hd, qb + 2 * hd, row3, cos_t + h * AT_D,
+                                     sin_t + h * AT_D, hd, n, kmask + (size_t)b * n,
+                                     out + (size_t)b * n * hd + h * AT_D, hd, n, sm_scale);
+}
+
+__global__ void __launch_bounds__(128) flash_attn_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const int* __restrict__ lengths, bf16* __restrict__ out, int n, int heads,
+    float sm_scale) {
+    const int h = blockIdx.y, b = blockIdx.z;
+    const size_t base = ((size_t)b * heads + h) * n * AT_D;
+    attn_fwd_tile<false, false, false>(q + base, k + base, v + base, AT_D, nullptr, nullptr, 0,
+                                       min(max(lengths[b], 0), n), nullptr, out + base, AT_D, n,
+                                       sm_scale);
 }
 
 extern "C" int f5_fused_qkv_rope_attn_bf16(const void* qkv, const void* cos_t,
@@ -227,6 +299,31 @@ extern "C" int f5_fused_qkv_rope_attn_bf16(const void* qkv, const void* cos_t,
         fused_qkv_rope_attn_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
             (const bf16*)qkv, (const bf16*)cos_t, (const bf16*)sin_t,
             (const int*)lengths, (bf16*)out, n, heads, sm_scale);
+    }
+    return (int)cudaGetLastError();
+}
+
+extern "C" int f5_fused_qkv_rope_attn_bias_bf16(const void* qkv, const void* cos_t,
+                                                const void* sin_t, const void* kmask,
+                                                void* out, int b, int n, int heads,
+                                                float sm_scale, void* stream) {
+    if (b > 0 && n > 0) {
+        dim3 grid((n + AT_BQ - 1) / AT_BQ, heads, b);
+        fused_qkv_rope_attn_bias_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
+            (const bf16*)qkv, (const bf16*)cos_t, (const bf16*)sin_t,
+            (const uint8_t*)kmask, (bf16*)out, n, heads, sm_scale);
+    }
+    return (int)cudaGetLastError();
+}
+
+extern "C" int f5_flash_attn_bf16(const void* q, const void* k, const void* v,
+                                  const void* lengths, void* out, int b, int n, int heads,
+                                  float sm_scale, void* stream) {
+    if (b > 0 && n > 0) {
+        dim3 grid((n + AT_BQ - 1) / AT_BQ, heads, b);
+        flash_attn_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
+            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lengths,
+            (bf16*)out, n, heads, sm_scale);
     }
     return (int)cudaGetLastError();
 }

@@ -2,10 +2,10 @@
 
 (ref wav, ref text, gen text) -> waveform: resample, RMS-normalise the
 reference, log-mel, chunk the text to a speech-rate budget, estimate each
-chunk's duration, pad to a bucket, run `cfm_sample` (the DiT and its three
-kernels) and Vocos, restore the RMS and cross-fade the chunks. Single
-requests only: batching, streaming, int8 and the low-TTFB path are not
-ported yet.
+chunk's duration, pad to a bucket, run `cfm_sample` (the backbone, DiT,
+UNetT or MMDiT, and its kernels) and Vocos, restore the RMS and cross-fade
+the chunks. Single requests only: batching, streaming, int8 and the low-TTFB
+path are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import torch
 
 from f5tts_tpu_torch.config import MelConfig, SamplingConfig
 from f5tts_tpu_torch.infer import audio_io
-from f5tts_tpu_torch.models import cfm, dit
+from f5tts_tpu_torch.models import cfm
 from f5tts_tpu_torch.models.modules import fuse_backbone_qkv, tree_cast
 from f5tts_tpu_torch.ops.mel import MelFrontend
 from f5tts_tpu_torch.text.vocab import list_str_to_idx, list_str_to_tensor
@@ -84,11 +84,13 @@ def cross_fade(waves: list[np.ndarray], sr: int, duration: float = 0.15) -> np.n
 @dataclass
 class InferencePipeline:
     """Zero-shot voice cloning on one device (the card unless `device` says
-    otherwise). At load the DiT params are cast to `dtype` and their q/k/v
-    projections fused, so attention takes the flat-QKV kernel."""
+    otherwise). `backbone` names the model family (`ModelConfig.backbone`:
+    "DiT", "UNetT" or "MMDiT"); `statics` carries its arch. At load the
+    params are cast to `dtype` and their q/k/v projections fused, so
+    attention takes the flat-QKV kernels."""
 
     params: dict
-    statics: dit.DiTStatics
+    statics: object                     # the backbone's statics (its .arch is read)
     vocoder: object                     # callable mel [b, d, t] -> wav [b, n]
     vocab_char_map: Optional[dict] = None
     mel_cfg: MelConfig = field(default_factory=MelConfig)
@@ -97,6 +99,7 @@ class InferencePipeline:
     dtype: torch.dtype = torch.bfloat16
     bucket_size: int = 256
     device: Optional[object] = None
+    backbone: str = "DiT"
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -105,7 +108,8 @@ class InferencePipeline:
         self.mel = MelFrontend(self.mel_cfg, device=self.device)
         self.hop = self.mel_cfg.hop_length
         self.sr = self.mel_cfg.target_sample_rate
-        self.statics = dit.DiTStatics(self.statics.arch, self.device)
+        self.bdef = cfm.BACKBONES[self.backbone]
+        self.statics = self.bdef.statics_cls(self.statics.arch, self.device)
         self.params = fuse_backbone_qkv(tree_cast(self.params, self.dtype, self.device))
 
     def ref_mel(self, wav: np.ndarray) -> np.ndarray:
@@ -154,7 +158,8 @@ class InferencePipeline:
         text_lens = int((text_ids != -1).sum())
         total = int(cfm.compute_duration(torch.tensor([text_lens]), torch.tensor([ref_frames]),
                                          torch.tensor([total]), s.max_duration)[0])
-        n_bucket = duration_bucket(total, self.bucket_size, s.max_duration)
+        n_bucket = duration_bucket(total, self.bucket_size, s.max_duration,
+                                   self.bdef.seq_extra_tokens)
         cond = np.zeros((1, n_bucket, self.mel_cfg.n_mel_channels), np.float32)
         cond[0, :ref_frames] = ref_mel
 
@@ -167,7 +172,7 @@ class InferencePipeline:
             torch.tensor([total], dtype=torch.int32, device=dev),
             make_time_grid(nfe, sway_sampling_coef=sway, use_epss=s.use_epss).to(dev),
             generator=gen, cfg_strength=cfg_strength, dtype=self.dtype,
-            noise_max_len=s.max_duration)
+            noise_max_len=s.max_duration, backbone=self.bdef)
         wave_full = self.vocoder(mel.transpose(1, 2)).cpu().numpy()
         gen_mel = mel[0, ref_frames:total].transpose(0, 1).cpu().numpy()
         wave = wave_full[0, ref_frames * self.hop: min(total * self.hop, wave_full.shape[1])]

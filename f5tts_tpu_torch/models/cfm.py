@@ -10,21 +10,68 @@ audio), then the MSE over the span. Its random draws come from a
 differ, so a test passes the JAX draws.
 
 `cfm_sample` runs the Euler ODE over a precomputed time grid (EPSS + sway)
-with CFG: cond and uncond rows go through the DiT as one 2b batch and
+with CFG: cond and uncond rows go through the backbone as one 2b batch and
 combine as pred + (pred - null) * cfg. Text embeddings and every step's
-AdaLN modulation are computed once, before the step loop. The prompt frames
-are re-imposed on the result.
+AdaLN modulation (DiT, MMDiT; the UNetT's time rides the sequence as a
+token) are computed once, before the step loop. The prompt frames are
+re-imposed on the result. `BACKBONES` describes each backbone as the JAX
+package's `BackboneDef` table does (cfm.py:37-103).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from f5tts_tpu_torch.config import CFMConfig
-from f5tts_tpu_torch.models import dit
+from f5tts_tpu_torch.models import dit, mmdit, unett
 from f5tts_tpu_torch.utils import lens_to_mask, mask_from_frac_lengths
+
+
+class BackboneDef(NamedTuple):
+    """What the sampler and the pipeline need of a backbone."""
+
+    name: str
+    init: Callable          # (generator, arch) -> params
+    statics_cls: type       # (arch, device) -> constant tables
+    forward: Callable       # (params, statics, x, cond, text, time, ...) -> flow
+    text_embeds: Callable   # (params, statics, text, n, lengths, dtype) -> (cond, uncond)
+    # (params, t_values [S], batch, dtype) -> at(i), step i's AdaLN mods;
+    # None for a backbone without AdaLN (the UNetT's time token)
+    precompute_mods: Optional[Callable] = None
+    # sequence tokens the backbone prepends to the mel frames (the UNetT's
+    # time token); `duration_bucket` keeps frames + these a bucket multiple
+    seq_extra_tokens: int = 0
+
+
+def _dit_text_embeds(params, statics, text, n, lengths, dtype):
+    return tuple(dit.text_embedding(params["text_embed"], statics, text, n, lengths=lengths,
+                                    drop_text=drop, dtype=dtype) for drop in (False, True))
+
+
+def _unett_text_embeds(params, statics, text, n, lengths, dtype):
+    return unett.unett_text_embeds(params, statics, text, n, dtype)  # no per-sample length
+
+
+def _mmdit_text_embeds(params, statics, text, n, lengths, dtype):
+    return mmdit.mmdit_text_embeds(params, statics, text, dtype)  # the text's own length
+
+
+def _dit_mods(params, t_values, batch, dtype):
+    block_mods, final_mods = dit.precompute_t_mods(params, t_values, batch, dtype)
+    return lambda i: (block_mods[:, i], final_mods[i])
+
+
+BACKBONES: dict[str, BackboneDef] = {
+    "DiT": BackboneDef("DiT", dit.init_dit, dit.DiTStatics, dit.dit_forward,
+                       _dit_text_embeds, _dit_mods),
+    "UNetT": BackboneDef("UNetT", unett.init_unett, unett.UNetTStatics, unett.unett_forward,
+                         _unett_text_embeds, seq_extra_tokens=1),
+    "MMDiT": BackboneDef("MMDiT", mmdit.init_mmdit, mmdit.MMDiTStatics, mmdit.mmdit_forward,
+                         _mmdit_text_embeds, mmdit.mmdit_precompute_t_mods),
+}
+DIT = BACKBONES["DiT"]
 
 
 class CFMDraws(NamedTuple):
@@ -100,22 +147,21 @@ def make_noise(generator: torch.Generator, batch: int, seq_len: int, num_channel
 
 def sample_euler(params, statics, y0: torch.Tensor, step_cond: torch.Tensor,
                  text: torch.Tensor, duration: torch.Tensor, t_grid: torch.Tensor,
-                 cfg_strength: float, dtype=torch.bfloat16) -> torch.Tensor:
+                 cfg_strength: float, dtype=torch.bfloat16,
+                 backbone: BackboneDef = DIT) -> torch.Tensor:
     """Euler steps with CFG over `t_grid` [steps+1]; x stays f32."""
     b, n, _ = y0.shape
     steps = t_grid.shape[0] - 1
-    te_cond = dit.text_embedding(params["text_embed"], statics, text, n,
-                                 lengths=duration, drop_text=False, dtype=dtype)
-    te_uncond = dit.text_embedding(params["text_embed"], statics, text, n,
-                                   lengths=duration, drop_text=True, dtype=dtype)
-    block_mods, final_mods = dit.precompute_t_mods(params, t_grid[:steps], 2 * b, dtype)
+    text_embeds = backbone.text_embeds(params, statics, text, n, duration, dtype)
+    mods_at = (backbone.precompute_mods(params, t_grid[:steps], 2 * b, dtype)
+               if backbone.precompute_mods is not None else None)
     cfg = torch.tensor(cfg_strength, dtype=torch.float32, device=y0.device)
     x = y0
     for i in range(steps):
-        pred_cfg = dit.dit_forward(
+        kw = {"t_mods": mods_at(i)} if mods_at is not None else {}
+        pred_cfg = backbone.forward(
             params, statics, x, step_cond, text, t_grid[i], lengths=duration,
-            cfg_infer=True, text_embeds=(te_cond, te_uncond), dtype=dtype,
-            t_mods=(block_mods[:, i], final_mods[i]))
+            cfg_infer=True, text_embeds=text_embeds, dtype=dtype, **kw)
         pred, null_pred = pred_cfg.chunk(2, dim=0)
         v = pred + (pred - null_pred) * cfg
         x = x + (t_grid[i + 1] - t_grid[i]) * v
@@ -127,10 +173,12 @@ def cfm_sample(params, statics, cond: torch.Tensor, text: torch.Tensor,
                lens: torch.Tensor, duration: torch.Tensor, t_grid: torch.Tensor, *,
                generator: Optional[torch.Generator] = None, y0: Optional[torch.Tensor] = None,
                cfg_strength: float = 2.0, dtype=torch.bfloat16,
-               noise_max_len: Optional[int] = None) -> torch.Tensor:
+               noise_max_len: Optional[int] = None,
+               backbone: BackboneDef = DIT) -> torch.Tensor:
     """cond [b, n, d] prompt mel zero-padded to the bucket n, text [b, nt]
     ids (-1 padded), lens [b] prompt frames, duration [b] total frames <= n.
-    Returns the mel [b, n, d] (f32). Pass `y0` or a `generator` for noise."""
+    Returns the mel [b, n, d] (f32). Pass `y0` or a `generator` for noise.
+    `params` must hold the fused QKV projections (`fuse_backbone_qkv`)."""
     b, n, d = cond.shape
     cond_mask = lens_to_mask(lens, n)
     step_cond = torch.where(cond_mask[:, :, None], cond, 0.0)
@@ -139,7 +187,7 @@ def cfm_sample(params, statics, cond: torch.Tensor, text: torch.Tensor,
             raise ValueError("cfm_sample needs a generator or y0")
         y0 = make_noise(generator, b, n, d, duration, noise_max_len)
     sampled = sample_euler(params, statics, y0.float(), step_cond, text, duration,
-                           t_grid.float().to(cond.device), cfg_strength, dtype)
+                           t_grid.float().to(cond.device), cfg_strength, dtype, backbone)
     return torch.where(cond_mask[:, :, None], cond, sampled)
 
 

@@ -4,6 +4,8 @@
   length, filler beyond each sample's length, freqs_cis added on valid
   positions only, ConvNeXt V2 stack with padding re-zeroed after each block.
 - input_embedding: Linear(concat(x, cond, text)) + ConvPositionEmbedding (K2).
+  Both also serve the UNetT in its forms: no per-sample `lengths` (the text
+  is neither cut nor masked per sample; the conv runs over every row).
 - dit_apply: the blocks (K1, K3) + final AdaLN (K1) + projection.
 - dit_forward(cfg_infer=True): cond rows then uncond rows in one 2b batch;
   the uncond rows drop both the audio cond and the text.
@@ -31,27 +33,34 @@ from f5tts_tpu_torch.ops.rope import (
 TEXT_PRECOMPUTE_MAX_POS = 8192  # reference dit.py:47
 
 
+def init_text_embedding(gen: torch.Generator, arch: ModelArch) -> m.Params:
+    text_dim = arch.text_dim or arch.mel_dim
+    text = {"embed": {"w": torch.randn(arch.text_num_embeds + 1, text_dim, generator=gen)}}
+    if arch.conv_layers > 0:
+        text["blocks"] = [m.init_convnext_v2_block(gen, text_dim, text_dim * arch.conv_mult)
+                          for _ in range(arch.conv_layers)]
+    return text
+
+
+def init_input_embedding(gen: torch.Generator, arch: ModelArch) -> m.Params:
+    text_dim = arch.text_dim or arch.mel_dim
+    return {"proj": m.init_linear(gen, arch.mel_dim * 2 + text_dim, arch.dim),
+            "conv_pos": m.init_conv_pos_embedding(gen, arch.dim)}
+
+
 def init_dit(generator: torch.Generator, arch: ModelArch) -> m.Params:
     """Random DiT parameters from `generator` (on the CPU, f32). The AdaLN,
     norm_out and proj_out linears are zero (AdaLN-zero), as in the JAX
     package: such a DiT is an identity until those are trained or randomised
     (`activate_zero_init`)."""
     g = generator
-    text_dim = arch.text_dim or arch.mel_dim
-    text = {"embed": {"w": torch.randn(arch.text_num_embeds + 1, text_dim, generator=g)}}
-    if arch.conv_layers > 0:
-        text["blocks"] = [m.init_convnext_v2_block(g, text_dim, text_dim * arch.conv_mult)
-                          for _ in range(arch.conv_layers)]
     return {
         "time_embed": m.init_timestep_embedding(g, arch.dim),
-        "text_embed": text,
-        "input_embed": {
-            "proj": m.init_linear(g, arch.mel_dim * 2 + text_dim, arch.dim),
-            "conv_pos": m.init_conv_pos_embedding(g, arch.dim),
-        },
+        "text_embed": init_text_embedding(g, arch),
+        "input_embed": init_input_embedding(g, arch),
         "blocks": [m.init_dit_block(g, arch.dim, arch.heads, arch.dim_head, arch.ff_mult)
                    for _ in range(arch.depth)],
-        "norm_out": {"linear": m.init_linear(g, arch.dim, 2 * arch.dim, zero=True)},
+        "norm_out": m.init_adaln_final(g, arch.dim, zero=True),
         "proj_out": m.init_linear(g, arch.dim, arch.mel_dim, zero=True),
     }
 

@@ -1,4 +1,5 @@
-"""Building blocks of the DiT main path, as functions over parameter dicts.
+"""Building blocks of the DiT, UNetT and MMDiT backbones, as functions over
+parameter dicts.
 
 Counterparts of f5tts_tpu/models/modules.py. Parameters are nested dicts of
 tensors with the JAX package's keys and layouts, which the port keeps:
@@ -6,7 +7,7 @@ tensors with the JAX package's keys and layouts, which the port keeps:
 - Conv1d weights (k, in/groups, out) (WIO);
 - per-block dicts are kept in a Python list (the JAX package stacks them on
   a leading depth axis; `convert.py` unstacks).
-Compute runs in the caller's dtype with LayerNorm, GRN and softmax
+Compute runs in the caller's dtype with LayerNorm, RMSNorm, GRN and softmax
 statistics in f32, as in the JAX package.
 """
 
@@ -19,8 +20,10 @@ import torch
 import torch.nn.functional as F
 
 from f5tts_tpu_torch.ops.adaln_norm import adaln_norm
-from f5tts_tpu_torch.ops.attention import fused_qkv_rope_attention
+from f5tts_tpu_torch.ops.adaln_norm import rms_norm as rms_norm_kernel
+from f5tts_tpu_torch.ops.attention import FLAT_ATTN_MAX_N, attention, fused_qkv_rope_attention
 from f5tts_tpu_torch.ops.grouped_conv import conv_pos_embedding as conv_pos_kernel
+from f5tts_tpu_torch.ops.rope import apply_rotary_flat_tables
 
 Params = dict
 
@@ -75,6 +78,15 @@ def layer_norm(x: torch.Tensor, weight=None, bias=None, eps: float = 1e-6) -> to
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype)
+
+
+def init_rms_norm(dim: int) -> Params:
+    return {"w": torch.ones(dim)}
+
+
+def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * w, f32 statistics -> kernel K6."""
+    return rms_norm_kernel(x, p["w"], eps)
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -181,6 +193,14 @@ def convnext_v2_block(p: Params, x: torch.Tensor, dilation: int = 1) -> torch.Te
 # AdaLN -> kernel K1
 # ---------------------------------------------------------------------------
 
+def init_adaln(gen, dim: int, zero: bool = True) -> Params:
+    return {"linear": init_linear(gen, dim, 6 * dim, zero=zero)}
+
+
+def init_adaln_final(gen, dim: int, zero: bool = True) -> Params:
+    return {"linear": init_linear(gen, dim, 2 * dim, zero=zero)}
+
+
 def adaln_pre(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """LayerNorm (no affine) * (1 + scale) + shift, broadcast over the sequence."""
     return adaln_norm(x, scale, shift)
@@ -193,26 +213,53 @@ def adaln_final(x: torch.Tensor, mod: torch.Tensor) -> torch.Tensor:
     return adaln_pre(x, shift, scale)
 
 
+def init_feed_forward(gen, dim: int, mult: int) -> Params:
+    return {"in": init_linear(gen, dim, dim * mult), "out": init_linear(gen, dim * mult, dim)}
+
+
 def feed_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
     return linear(p["out"], gelu_tanh(linear(p["in"], x)))
 
 
 # ---------------------------------------------------------------------------
-# Self-attention on the fused to_qkv path -> kernel K3
+# Self-attention on the fused to_qkv path -> kernel K3, or K7 past 4096 rows
 # ---------------------------------------------------------------------------
+
+def init_attention(gen, dim: int, heads: int, dim_head: int) -> Params:
+    inner = heads * dim_head
+    return {"to_q": init_linear(gen, dim, inner), "to_k": init_linear(gen, dim, inner),
+            "to_v": init_linear(gen, dim, inner), "to_out": init_linear(gen, inner, dim)}
+
 
 def self_attention(p: Params, x: torch.Tensor, heads: int, rope_tabs: tuple,
                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x [b, n, dim]; rope_tabs = flat (cos, sin) [n, h*d]; `p` holds the
+    """x [b, n, dim]; rope_tabs = flat (cos, sin) [>=n, h*d]; `p` holds the
     fused to_qkv projection (`fuse_backbone_qkv`). Rows >= lengths of the
-    output are zeroed after to_out."""
+    output are zeroed after to_out.
+
+    The JAX gate (modules.py:410-413): up to FLAT_ATTN_MAX_N rows the flat
+    kernel K3 takes the projection as it is; past it q/k/v are split, roped,
+    split into heads and go to the head-layout kernel K7 (UNetT at the
+    4096-frame cap: 4097 rows padded to 4224)."""
     b, n, _ = x.shape
     if "to_qkv" not in p:
         raise ValueError("self_attention takes fused to_qkv params: apply fuse_backbone_qkv")
     qkv = linear(p["to_qkv"], x)
     lens = (torch.full((b,), n, dtype=torch.int32, device=x.device) if lengths is None
             else lengths.to(torch.int32))
-    o = fused_qkv_rope_attention(qkv.contiguous(), rope_tabs[0], rope_tabs[1], lens, heads)
+    if n <= FLAT_ATTN_MAX_N:
+        o = fused_qkv_rope_attention(qkv.contiguous(), rope_tabs[0], rope_tabs[1], lens, heads)
+    else:
+        inner = qkv.shape[-1] // 3
+        cos, sin = rope_tabs[0][:n], rope_tabs[1][:n]
+        q, k, v = qkv.split(inner, dim=-1)
+        q, k = apply_rotary_flat_tables(q, cos, sin), apply_rotary_flat_tables(k, cos, sin)
+
+        def split_heads(t):
+            return t.reshape(b, n, heads, inner // heads).transpose(1, 2).contiguous()
+
+        o = attention(split_heads(q), split_heads(k), split_heads(v), lens)
+        o = o.transpose(1, 2).reshape(b, n, inner)
     o = linear(p["to_out"], o)
     if lengths is not None:
         mask = torch.arange(n, device=x.device)[None, :] < lengths[:, None]
@@ -225,17 +272,10 @@ def self_attention(p: Params, x: torch.Tensor, heads: int, rope_tabs: tuple,
 # ---------------------------------------------------------------------------
 
 def init_dit_block(gen, dim: int, heads: int, dim_head: int, ff_mult: int) -> Params:
-    inner = heads * dim_head
     return {
-        "attn_norm": {"linear": init_linear(gen, dim, 6 * dim, zero=True)},  # AdaLN-zero
-        "attn": {
-            "to_q": init_linear(gen, dim, inner),
-            "to_k": init_linear(gen, dim, inner),
-            "to_v": init_linear(gen, dim, inner),
-            "to_out": init_linear(gen, inner, dim),
-        },
-        "ff": {"in": init_linear(gen, dim, dim * ff_mult),
-               "out": init_linear(gen, dim * ff_mult, dim)},
+        "attn_norm": init_adaln(gen, dim, zero=True),  # AdaLN-zero
+        "attn": init_attention(gen, dim, heads, dim_head),
+        "ff": init_feed_forward(gen, dim, ff_mult),
     }
 
 
@@ -250,27 +290,43 @@ def dit_block(p: Params, x: torch.Tensor, mods: torch.Tensor, heads: int,
 
 
 def fuse_attention_qkv(attn: Params, dtype=None) -> Params:
-    """Merge to_q/to_k/to_v into one to_qkv linear (output axis concat).
-    `dtype` casts each part first, as the training step fuses a per-step view
-    of the f32 params straight in the compute dtype; `torch.cat` and `.to` are
-    differentiable, so gradients reach the unfused leaves."""
+    """Merge to_q/to_k/to_v into one to_qkv linear (output axis concat), and
+    MMDiT's context to_q_c/to_k_c/to_v_c into to_qkv_c. `dtype` casts each
+    part first, as the training step fuses a per-step view of the f32 params
+    straight in the compute dtype; `torch.cat` and `.to` are differentiable,
+    so gradients reach the unfused leaves."""
     if "to_qkv" in attn or "to_q" not in attn:
         return attn
     cast = (lambda a: a.to(dtype)) if dtype is not None else (lambda a: a)
-    parts = [attn[k] for k in ("to_q", "to_k", "to_v")]
-    fused = {"w": torch.cat([cast(q["w"]) for q in parts], dim=-1)}
-    if "b" in parts[0]:
-        fused["b"] = torch.cat([cast(q["b"]) for q in parts], dim=-1)
-    out = {k: v for k, v in attn.items() if k not in ("to_q", "to_k", "to_v")}
-    out["to_qkv"] = fused
+
+    def fuse3(names):
+        parts = [attn[k] for k in names]
+        fused = {"w": torch.cat([cast(q["w"]) for q in parts], dim=-1)}
+        if "b" in parts[0]:
+            fused["b"] = torch.cat([cast(q["b"]) for q in parts], dim=-1)
+        return fused
+
+    drop = {"to_q", "to_k", "to_v", "to_q_c", "to_k_c", "to_v_c"}
+    out = {k: v for k, v in attn.items() if k not in drop}
+    out["to_qkv"] = fuse3(("to_q", "to_k", "to_v"))
+    if "to_q_c" in attn:
+        out["to_qkv_c"] = fuse3(("to_q_c", "to_k_c", "to_v_c"))
     return out
 
 
 def fuse_backbone_qkv(params: Params, dtype=None) -> Params:
-    """fuse_attention_qkv on every block of the DiT."""
+    """fuse_attention_qkv on every attention a backbone carries: the block
+    lists "blocks" (DiT, MMDiT), "first_half" / "second_half" (UNetT) and
+    MMDiT's single "last_block"."""
+    def fuse(blk):
+        return dict(blk, attn=fuse_attention_qkv(blk["attn"], dtype))
+
     out = dict(params)
-    out["blocks"] = [dict(blk, attn=fuse_attention_qkv(blk["attn"], dtype))
-                     for blk in params["blocks"]]
+    for stack in ("blocks", "first_half", "second_half"):
+        if stack in out:
+            out[stack] = [fuse(blk) for blk in out[stack]]
+    if "last_block" in out:
+        out["last_block"] = fuse(out["last_block"])
     return out
 
 

@@ -1,17 +1,23 @@
-"""AdaLN-modulated LayerNorm: y = LN(x) * (1 + scale[b]) + shift[b].
+"""AdaLN-modulated LayerNorm, y = LN(x) * (1 + scale[b]) + shift[b], and
+RMSNorm, y = x * rsqrt(mean(x^2) + eps) * w.
 
 Counterpart of f5tts_tpu/ops/adaln_norm.py. `adaln_norm` launches the
 hand-written kernel K1 (csrc/adaln_norm.cu, replacing the Pallas
 `_adaln_norm_kernel`) for CUDA tensors and runs the plain version
 `adaln_norm_ref` for CPU tensors only. The DiT runs it 2 * depth + 1 times
-per ODE step.
+per ODE step. `rms_norm` launches K6 (the same file, replacing the Pallas
+`_rms_norm_kernel`) for CUDA tensors and `rms_norm_ref` for CPU tensors: the
+UNetT runs it 2 * depth + 1 times per ODE step. The JAX package keeps its
+kernel behind a switch that is off by default, because XLA fuses the RMS
+passes on a TPU; eager PyTorch does not, so the port always runs K6.
 
 It is differentiable (`torch.autograd.Function`). The JAX package has no
 backward kernel for it: its custom_vjp takes the VJP of the XLA formula
 `adaln_norm_ref` (f5tts_tpu/ops/adaln_norm.py:170-174). `adaln_norm_bwd` is
 that VJP in PyTorch ops (autograd through `adaln_norm_ref`, in f32, cast back
 to the inputs' dtypes), so a PyTorch backward is the faithful port here, not
-a fallback; the forward on the card stays the kernel.
+a fallback; the forward on the card stays the kernel. `rms_norm` is
+differentiable the same way (the JAX `_rms_bwd`, adaln_norm.py:145).
 """
 
 from __future__ import annotations
@@ -107,4 +113,80 @@ def _forward(x, scale, shift, eps):
                 b, n, d, scale.stride(0), shift.stride(0), eps, _build.stream_ptr(x.device))
     _build.check(err, "adaln_norm")
     _build.count("adaln_norm")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm -> kernel K6
+# ---------------------------------------------------------------------------
+
+def rms_norm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Plain version: f32 mean of squares, (x * rstd) * w in f32."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rms_fn():
+    lib = _build.load("adaln_norm")
+    fn = lib.f5_rms_norm_bf16
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _rms_check(x, w):
+    if x.dtype != torch.bfloat16 or w.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("rms_norm kernel takes a bf16 x and an f32 or bf16 weight")
+    if x.dim() < 2 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("rms_norm kernel takes a contiguous, 16-byte aligned [..., d] x")
+    d = x.shape[-1]
+    if d % 8 or d > _MAX_D:
+        raise ValueError(f"rms_norm kernel needs d % 8 == 0 and d <= {_MAX_D}, got {d}")
+    if (w.shape != (d,) or not w.is_contiguous() or w.device != x.device
+            or w.data_ptr() % 16):
+        raise ValueError("rms_norm kernel takes a contiguous, 16-byte aligned [d] weight "
+                         "on x's device")
+
+
+def rms_norm_bwd(x, w, dy, eps: float = 1e-6):
+    """(dx, dw) of `rms_norm_ref` at (x, w) for dy."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in (x, w)]
+        return torch.autograd.grad(rms_norm_ref(*xs, eps), xs, dy)
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rms_forward(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*rms_norm_bwd(*ctx.saved_tensors, dy, ctx.eps), None)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x [..., d], w [d]. Kernel K6 on CUDA, plain on the CPU; differentiable
+    (`rms_norm_bwd`)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RMSNorm.apply(x, w, eps)
+    return _rms_forward(x, w, eps)
+
+
+def _rms_forward(x, w, eps):
+    if x.device.type == "cpu":
+        return rms_norm_ref(x, w, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rms_norm: unsupported device {x.device}")
+    _rms_check(x, w)
+    out = torch.empty_like(x)
+    err = _rms_fn()(_build.ptr(x), _build.ptr(w), int(w.dtype == torch.float32), _build.ptr(out),
+                    x.numel() // x.shape[-1], x.shape[-1], eps, _build.stream_ptr(x.device))
+    _build.check(err, "rms_norm")
+    _build.count("rms_norm")
     return out

@@ -1,4 +1,5 @@
-"""Attention (counterpart of f5tts_tpu/ops/attention.py:31 and :777-1224).
+"""Attention (counterpart of f5tts_tpu/ops/attention.py:31-246, :777-1224,
+:1401-1500 and :1695-1790).
 
 `fused_qkv_rope_attention` takes the fused QKV projection output flat
 [b, n, 3*h*d], rotates q and k with interleaved RoPE from flat cos/sin
@@ -18,6 +19,20 @@ CPU tensors. Only (qkv, cos, sin, lengths) are saved for the backward, not the
 output: K4 takes delta = rowsum(p * dp) from the recomputed scores. Rows >=
 lengths[b] are zero in the forward, so their gradient is zero whatever dO
 holds there: both backwards read dO as 0 on those rows.
+
+`fused_qkv_rope_attention_bias` is the same flat attention under an arbitrary
+[b, n] key mask (MMDiT's joint audio+text sequence, whose dead keys sit in
+the middle): kernel K5 (the Pallas `_fused_qkv_attn_bias_kernel` and its
+streaming twin), plain version `fused_qkv_rope_attention_bias_ref` (the
+function of the JAX `_bias_decomposed_ref`, at the kernel's rounding points).
+Every row is computed; the caller masks dead rows after to_out.
+
+`flash_attention` is head-layout attention [b, h, n, d] over keys <
+lengths[b] on already-roped q/k: kernel K7 (the Pallas `_flash_kernel_single`
+and `_flash_kernel`), plain version `mha_reference`; `attention` is the
+dispatcher of the JAX package's attention.py:1766 without its mesh branch.
+K5 and K7 are forward only: their backward kernels are not ported yet, so a
+CUDA input that requires grad raises.
 """
 
 from __future__ import annotations
@@ -33,7 +48,10 @@ from f5tts_tpu_torch.ops import _build
 from f5tts_tpu_torch.ops.rope import apply_rotary_flat_tables
 
 NEG_INF = -1e30
-HEAD_DIM = 64  # the kernel's head width
+HEAD_DIM = 64  # the kernels' head width
+# the longest sequence the JAX package sends through its flat kernels; past
+# it `self_attention` splits heads for K7, as the JAX gate does
+FLAT_ATTN_MAX_N = 4096
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -117,6 +135,17 @@ def _fn():
 
 
 def _check(qkv, cos, sin, lengths, heads):
+    _check_qkv(qkv, cos, sin, heads)
+    _check_lengths(lengths, qkv.shape[0], qkv.device)
+
+
+def _check_lengths(lengths, b, device):
+    if (lengths.shape != (b,) or lengths.dtype != torch.int32 or lengths.device != device
+            or not lengths.is_contiguous()):
+        raise ValueError("attention kernel takes int32 [b] lengths on the inputs' device")
+
+
+def _check_qkv(qkv, cos, sin, heads):
     if (qkv.dim() != 3 or not qkv.is_contiguous() or qkv.dtype != torch.bfloat16
             or qkv.data_ptr() % 16):
         raise ValueError("attention kernel takes a contiguous, 16-byte aligned bf16 "
@@ -131,9 +160,12 @@ def _check(qkv, cos, sin, lengths, heads):
                 or t.dtype != torch.bfloat16 or t.device != qkv.device):
             raise ValueError("attention kernel takes contiguous bf16 [>=n, h*d] "
                              "rope tables on qkv's device")
-    if (lengths.shape != (b,) or lengths.dtype != torch.int32 or lengths.device != qkv.device
-            or not lengths.is_contiguous()):
-        raise ValueError("attention kernel takes int32 [b] lengths on qkv's device")
+
+
+def _refuse_grad(name, *tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{name}: the backward kernel is not ported; call it "
+                                  "under torch.no_grad() on the card")
 
 
 @functools.lru_cache(maxsize=None)
@@ -207,3 +239,106 @@ def _forward(qkv, cos, sin, lengths, heads: int) -> torch.Tensor:
     _build.check(err, "fused_qkv_rope_attention")
     _build.count("fused_qkv_rope_attention")
     return out
+
+
+# ---------------------------------------------------------------------------
+# K5: flat fused QKV + RoPE attention under a [b, n] key mask
+# ---------------------------------------------------------------------------
+
+def fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, heads: int) -> torch.Tensor:
+    """Plain version: `fused_qkv_rope_attention_ref` with the key mask as an
+    additive 0 / -1e30 row and no row zeroed."""
+    b, n, hd3 = qkv.shape
+    hd = hd3 // 3
+    d = hd // heads
+    q, k, v = qkv.split(hd, dim=-1)
+    cos, sin = cos[:n], sin[:n]
+    q = (apply_rotary_flat_tables(q, cos, sin).float() * (1.0 / math.sqrt(d))).to(qkv.dtype)
+    k = apply_rotary_flat_tables(k, cos, sin)
+
+    def split_heads(t):
+        return t.reshape(b, n, heads, d).transpose(1, 2)
+
+    scores = torch.matmul(split_heads(q).float(), split_heads(k).float().transpose(-1, -2))
+    scores = scores + torch.where(kmask, 0.0, NEG_INF)[:, None, None, :]
+    probs = torch.softmax(scores, dim=-1).to(qkv.dtype)
+    o = torch.matmul(probs.float(), split_heads(v).float())
+    return o.transpose(1, 2).reshape(b, n, hd).to(qkv.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _bias_fn():
+    lib = _build.load("attention")
+    fn = lib.f5_fused_qkv_rope_attn_bias_bf16
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, heads: int) -> torch.Tensor:
+    """qkv [b, n, 3*h*d], joint cos/sin [>=n, h*d], kmask [b, n] bool (True =
+    live key) -> [b, n, h*d]. Kernel K5 on CUDA (forward only), plain on the
+    CPU."""
+    if qkv.device.type == "cpu":
+        return fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"fused_qkv_rope_attention_bias: unsupported device {qkv.device}")
+    _refuse_grad("fused_qkv_rope_attention_bias", qkv, cos, sin)
+    _check_qkv(qkv, cos, sin, heads)
+    b, n, hd3 = qkv.shape
+    if (kmask.shape != (b, n) or kmask.dtype != torch.bool or kmask.device != qkv.device
+            or not kmask.is_contiguous()):
+        raise ValueError("attention bias kernel takes a contiguous bool [b, n] key mask on "
+                         "qkv's device")
+    out = torch.empty((b, n, hd3 // 3), dtype=qkv.dtype, device=qkv.device)
+    err = _bias_fn()(_build.ptr(qkv), _build.ptr(cos), _build.ptr(sin), _build.ptr(kmask),
+                     _build.ptr(out), b, n, heads, 1.0 / math.sqrt(HEAD_DIM),
+                     _build.stream_ptr(qkv.device))
+    _build.check(err, "fused_qkv_rope_attention_bias")
+    _build.count("fused_qkv_rope_attention_bias")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K7: head-layout attention over keys < lengths
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _flash_fn():
+    lib = _build.load("attention")
+    fn = lib.f5_flash_attn_bf16
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention(q, k, v, lengths) -> torch.Tensor:
+    """q/k/v [b, h, n, d] (already roped), lengths [b] int32 -> [b, h, n, d]
+    over keys < lengths[b]. Kernel K7 on CUDA (forward only; q tiles wholly
+    past the length are written as 0), `mha_reference` on the CPU."""
+    if q.device.type == "cpu":
+        return mha_reference(q, k, v, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _refuse_grad("flash_attention", q, k, v)
+    for t in (q, k, v):
+        if (t.dim() != 4 or t.shape != q.shape or t.shape[-1] != HEAD_DIM or not t.is_contiguous()
+                or t.dtype != torch.bfloat16 or t.device != q.device or t.data_ptr() % 16):
+            raise ValueError(f"flash attention kernel takes contiguous, 16-byte aligned bf16 "
+                             f"[b, h, n, {HEAD_DIM}] q, k and v of one shape")
+    b, h, n, _ = q.shape
+    _check_lengths(lengths, b, q.device)
+    out = torch.empty_like(q)
+    err = _flash_fn()(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(lengths),
+                      _build.ptr(out), b, n, h, 1.0 / math.sqrt(HEAD_DIM),
+                      _build.stream_ptr(q.device))
+    _build.check(err, "flash_attention")
+    _build.count("flash_attention")
+    return out
+
+
+def attention(q, k, v, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[b, h, n, d] attention over keys < lengths (all keys when None)."""
+    if lengths is None:
+        lengths = torch.full((q.shape[0],), q.shape[2], dtype=torch.int32, device=q.device)
+    return flash_attention(q, k, v, lengths.to(torch.int32))

@@ -1,21 +1,23 @@
 """Seeded models, requests and trace helpers shared by chip_smoke.py and the
 profiling scripts.
 
-F5TTS_v1_Base (text_num_embeds 2545, as the JAX package's bench.py) and
-Vocos with random weights from fixed seeds; the zero-initialised AdaLN,
-norm_out, proj_out and GRN leaves are randomised so the DiT is no identity.
-No checkpoint is read.
+F5TTS_v1_Base, E2TTS_Base or MMDiT_Base (text_num_embeds 2545, as the JAX
+package's bench.py) and Vocos with random weights from fixed seeds; the
+zero-initialised AdaLN, norm_out, proj_out and GRN leaves are randomised so
+the backbone is no identity (the UNetT has none). No checkpoint is read.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import statistics
 
 import numpy as np
 import torch
 
 from f5tts_tpu_torch.config import PRESETS, ModelArch
 from f5tts_tpu_torch.models import dit
+from f5tts_tpu_torch.models.cfm import BACKBONES
 from f5tts_tpu_torch.vocoder.vocos import VocosConfig, init_vocos
 
 REF_TEXT = "Some call me nature, others call me mother nature."
@@ -29,11 +31,13 @@ REQUESTS = [
 VOCAB = {c: i for i, c in enumerate(" " + "".join(chr(i) for i in range(33, 127)))}
 
 
-def base_models(seed: int = 0) -> tuple[ModelArch, dict, dict]:
-    """(arch, DiT params, Vocos params), f32 on the CPU."""
-    arch = dataclasses.replace(PRESETS["F5TTS_v1_Base"].arch, text_num_embeds=2545)
+def base_models(seed: int = 0, model: str = "F5TTS_v1_Base") -> tuple[ModelArch, dict, dict]:
+    """(arch, backbone params, Vocos params) of the preset `model`, f32 on the
+    CPU; its backbone is `PRESETS[model].backbone`."""
+    cfg = PRESETS[model]
+    arch = dataclasses.replace(cfg.arch, text_num_embeds=2545)
     gen = torch.Generator().manual_seed(seed)
-    params = dit.activate_zero_init(dit.init_dit(gen, arch), gen)
+    params = dit.activate_zero_init(BACKBONES[cfg.backbone].init(gen, arch), gen)
     vocos_params = init_vocos(torch.Generator().manual_seed(seed + 1), VocosConfig())
     return arch, params, vocos_params
 
@@ -48,6 +52,35 @@ def synthetic_ref_wav(seconds: float = 2.7, sr: int = 24000) -> np.ndarray:
     wav = wav * (0.5 + 0.5 * np.sin(2 * np.pi * 1.5 * t) ** 2)
     wav = 0.05 * wav / np.abs(wav).max() + 0.003 * rng.standard_normal(t.shape)
     return wav.astype(np.float32)
+
+
+def time_ms(fn, reps: int = 10, iters: int = 15) -> float:
+    """Median device time of one fn() call: fn is captured `reps` times in one
+    CUDA graph, and each replay is timed with CUDA events (no host launch
+    overhead inside the window)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del graph
+    return statistics.median(times)
 
 
 def union_us(intervals: list[tuple[float, float]]) -> float:

@@ -1,16 +1,18 @@
 """Where the time of one zero-shot request goes, on the card.
 
-    python -m f5tts_tpu_torch.scripts.profile_generate [--out profile_generate.json]
+    python -m f5tts_tpu_torch.scripts.profile_generate [--model F5TTS_v1_Base]
+        [--out profile_generate.json]
 
-F5TTS_v1_Base + Vocos (seeded random weights, bf16 DiT, f32 Vocos), 16 NFE,
-CFG 2, sway -1, through `InferencePipeline.infer` with a fixed duration per
-bucket (768, 1024 and the 4096 cap). For each bucket: one warm-up request,
-3 timed requests (host clock, ending in a device sync), then one request
-under torch.profiler. From the trace: device busy time (the union of kernel
-intervals) against the request's wall time, kernel time and launch count by
-class (the port's three kernels, GEMM including cuDNN's implicit-GEMM convs,
-FFT, the rest), and the traced request's wall (the profiler's own cost).
-Needs a CUDA device.
+`--model` F5TTS_v1_Base (DiT), E2TTS_Base (UNetT) or MMDiT_Base, + Vocos
+(seeded random weights, bf16 backbone, f32 Vocos), 16 NFE, CFG 2, sway -1,
+through `InferencePipeline.infer` with a fixed duration per bucket (the DiT
+at 768, 1024 and the 4096 cap; the others at 1024 and the cap). For each
+bucket: one warm-up request, 3 timed requests (host clock, ending in a
+device sync), then one request under torch.profiler. From the trace: device
+busy time (the union of kernel intervals) against the request's wall time,
+kernel time and launch count by class (the port's kernels, GEMM including
+cuDNN's implicit-GEMM convs, FFT, the rest), and the traced request's wall
+(the profiler's own cost). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -23,22 +25,32 @@ from pathlib import Path
 
 import torch
 
-BUCKETS = (768, 1024, 4096)
+# total frames a request asks for, by model: each lands in the bucket it
+# names (the UNetT's 1013 + 1 time token in the 1024-row bucket; 4096 is the
+# cap, 4224 rows for the UNetT)
+FRAMES = {"F5TTS_v1_Base": (758, 1014, 4086), "E2TTS_Base": (1013, 4096),
+          "MMDiT_Base": (1014, 4086)}
 REPS = 3
 CLASSES = (
     ("fused_qkv_rope_attention", ("fused_qkv_rope_attn_kernel",)),
+    ("fused_qkv_rope_attention_bias", ("fused_qkv_rope_attn_bias_kernel",)),
+    ("flash_attention", ("flash_attn_kernel",)),
     ("adaln_norm", ("adaln_norm_kernel",)),
+    ("rms_norm", ("rms_norm_kernel",)),
     ("conv_pos_embedding", ("conv_mish_kernel",)),
     ("gemm", ("gemm", "Gemm", "cutlass", "xmma", "nvjet", "cublas")),
     ("fft", ("fft", "FFT")),
 )
 
 
-def profile_bucket(pipe, ref, text: str, bucket: int, reps: int) -> dict:
+def profile_bucket(pipe, ref, text: str, frames: int, reps: int) -> dict:
     from f5tts_tpu_torch.scripts.common import REF_TEXT, device_time_by_class
+    from f5tts_tpu_torch.utils import duration_bucket
 
     hop, sr = pipe.hop, pipe.sr
-    fix = (bucket - 10) * hop / sr  # total frames land in this bucket
+    fix = (frames + 0.5) * hop / sr  # exactly `frames` total frames
+    bucket = duration_bucket(frames, pipe.bucket_size, pipe.sampling.max_duration,
+                             pipe.bdef.seq_extra_tokens)
 
     def request():
         torch.cuda.synchronize()
@@ -68,14 +80,15 @@ def profile_bucket(pipe, ref, text: str, bucket: int, reps: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="F5TTS_v1_Base", choices=sorted(FRAMES))
     ap.add_argument("--out", default=None, help="also write the JSON result here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_generate needs a CUDA device")
 
-    from f5tts_tpu_torch.config import SamplingConfig
+    from f5tts_tpu_torch.config import PRESETS, SamplingConfig
     from f5tts_tpu_torch.infer.pipeline import InferencePipeline
-    from f5tts_tpu_torch.models import dit
+    from f5tts_tpu_torch.models.cfm import BACKBONES
     from f5tts_tpu_torch.scripts.common import (REQUESTS, VOCAB, base_models, gpu_name_and_limit,
                                                 synthetic_ref_wav)
     from f5tts_tpu_torch.vocoder.vocos import Vocos, VocosConfig
@@ -83,15 +96,18 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    arch, params, vocos_params = base_models()
-    pipe = InferencePipeline(params, dit.DiTStatics(arch), Vocos(vocos_params, VocosConfig(), device=dev),
+    backbone = PRESETS[args.model].backbone
+    arch, params, vocos_params = base_models(model=args.model)
+    pipe = InferencePipeline(params, BACKBONES[backbone].statics_cls(arch),
+                             Vocos(vocos_params, VocosConfig(), device=dev),
                              vocab_char_map=VOCAB, sampling=SamplingConfig(nfe_steps=16),
-                             tokenizer="char", dtype=torch.bfloat16, device=dev)
+                             tokenizer="char", dtype=torch.bfloat16, device=dev,
+                             backbone=backbone)
     gpu = gpu_name_and_limit()
     ref = synthetic_ref_wav()
-    result = {"gpu": gpu, "torch": torch.__version__, "buckets": []}
-    for bucket in BUCKETS:
-        row = profile_bucket(pipe, ref, REQUESTS[1], bucket, REPS)
+    result = {"gpu": gpu, "torch": torch.__version__, "model": args.model, "buckets": []}
+    for frames in FRAMES[args.model]:
+        row = profile_bucket(pipe, ref, REQUESTS[1], frames, REPS)
         result["buckets"].append(row)
         print(json.dumps(row), flush=True)
     if args.out:

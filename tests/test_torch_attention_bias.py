@@ -1,0 +1,183 @@
+"""Plain versions of kernels K5, K6 and K7 against the Pallas bodies they
+replace, in interpret mode, on the CPU.
+
+- K5 `fused_qkv_rope_attention_bias_ref` against the JAX
+  `fused_qkv_rope_attention_bias` forced onto its Pallas kernel
+  (`FORCE_BIAS_KERNEL`), both bodies (`FLAT_SINGLE_PASS_MAX_N` lowered to
+  force the streaming one at a small n), and against the JAX
+  `_bias_decomposed_ref`, with dead keys in the middle of the sequence;
+- K7 `mha_reference` (the `flash_attention` plain version) against the JAX
+  `flash_attention` in both bodies (`SINGLE_PASS_MAX_N` set to 0 for the
+  online-softmax loop), live rows;
+- K6 `rms_norm_ref` against `_rms_norm_fwd_pallas` at eps 1e-8, and its
+  autograd against the JAX `rms_norm_fused` VJP;
+- the wrappers take the plain versions for CPU tensors and count no launch.
+All f32 on numpy-seeded inputs; differences are sum orders (atol 2e-5, as
+`tests/test_torch_ops.py` holds K3).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from f5tts_tpu.ops import adaln_norm as jan
+from f5tts_tpu.ops import attention as jatt
+from f5tts_tpu.ops import rope as jrope
+from f5tts_tpu_torch.ops import _build
+from f5tts_tpu_torch.ops import adaln_norm as tan
+from f5tts_tpu_torch.ops import attention as tatt
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _live(a, lengths):
+    return np.concatenate([a[i, :l] for i, l in enumerate(lengths)], axis=0)
+
+
+# ---------------------------------------------------------------------------
+# K5: key-masked flat fused QKV + RoPE attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("body,n", [("single", 256), ("stream", 1152)])
+def test_bias_attention_plain_matches_pallas(body, n, monkeypatch):
+    monkeypatch.setattr(jatt, "FORCE_BIAS_KERNEL", True)
+    if body == "stream":  # the online-softmax body, over one 1024-key block and a tail
+        monkeypatch.setattr(jatt, "FLAT_SINGLE_PASS_MAX_N", 128)
+    heads, d, b = 2, 64, 2
+    hd = heads * d
+    rng = np.random.default_rng(21)
+    qkv = rng.standard_normal((b, n, 3 * hd)).astype(np.float32)
+    kmask = np.ones((b, n), bool)
+    kmask[0, n // 3: n // 2] = False      # dead keys mid-sequence (audio padding)
+    kmask[1, n // 4: n // 2] = False
+    kmask[1, n - n // 8:] = False         # and the text stream's pad
+    # joint tables: the first rows rotate with one stream's positions, the
+    # rest restart at 0, as MMDiT joins its audio and text tables
+    split = n - 128
+    ang = jrope.rope_freqs_interleaved(d, n)
+    ca, sa = jrope.rope_flat_tables(ang, split, heads, dtype=jnp.float32)
+    ct, st = jrope.rope_flat_tables(ang, n - split, heads, dtype=jnp.float32)
+    cos, sin = jnp.concatenate([ca, ct]), jnp.concatenate([sa, st])
+    pallas = np.asarray(jatt.fused_qkv_rope_attention_bias(
+        jnp.asarray(qkv), cos, sin, jnp.asarray(kmask), heads))
+    xla = np.asarray(jatt._bias_decomposed_ref(jnp.asarray(qkv), cos, sin, jnp.asarray(kmask),
+                                               heads))
+    got = _np(tatt.fused_qkv_rope_attention_bias(_t(qkv), _t(np.asarray(cos)),
+                                                 _t(np.asarray(sin)), _t(kmask), heads))
+    assert got.shape == (b, n, hd)
+    # every row is computed (dead rows too, as the Pallas kernel does)
+    np.testing.assert_allclose(got, pallas, atol=2e-5)
+    np.testing.assert_allclose(got, xla, atol=2e-5)
+
+
+def test_bias_attention_equals_prefix_attention_on_a_prefix_mask():
+    """Under a prefix mask K5's plain version is K3's on live rows."""
+    heads, n = 2, 192
+    rng = np.random.default_rng(22)
+    qkv = _t(rng.standard_normal((2, n, 3 * 128)).astype(np.float32))
+    cos, sin = (_t(np.asarray(t)) for t in jrope.rope_flat_tables(
+        jrope.rope_freqs_interleaved(64, n), n, heads, dtype=jnp.float32))
+    lens = np.array([n, 100], np.int32)
+    kmask = torch.arange(n)[None, :] < _t(lens)[:, None]
+    a = _np(tatt.fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, heads))
+    b = _np(tatt.fused_qkv_rope_attention(qkv, cos, sin, _t(lens), heads))
+    np.testing.assert_allclose(_live(a, lens), _live(b, lens), atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K7: head-layout attention over keys < lengths
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("body,n,lengths", [("single", 256, [256, 177]),
+                                            ("loop", 384, [384, 200])])
+def test_flash_plain_matches_pallas(body, n, lengths, monkeypatch):
+    if body == "loop":  # the online-softmax body over three 128-key blocks
+        monkeypatch.setattr(jatt, "SINGLE_PASS_MAX_N", 0)
+    rng = np.random.default_rng(23)
+    q, k, v = (rng.standard_normal((2, 2, n, 64)).astype(np.float32) for _ in range(3))
+    lens = np.array(lengths, np.int32)
+    pallas = np.asarray(jatt.flash_attention(*(jnp.asarray(t) for t in (q, k, v)),
+                                             jnp.asarray(lens)))
+    got = _np(tatt.flash_attention(_t(q), _t(k), _t(v), _t(lens)))
+    for i, ln in enumerate(lens):  # rows past the length are unspecified
+        np.testing.assert_allclose(got[i, :, :ln], pallas[i, :, :ln], atol=2e-5)
+    # the dispatcher: all keys when no lengths are given
+    full = np.asarray(jatt.mha_reference(*(jnp.asarray(t) for t in (q, k, v))))
+    np.testing.assert_allclose(_np(tatt.attention(_t(q), _t(k), _t(v))), full, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# K6: RMSNorm
+# ---------------------------------------------------------------------------
+
+def test_rms_norm_plain_matches_pallas():
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((2, 512, 256)) * 1.7).astype(np.float32)
+    w = rng.standard_normal(256).astype(np.float32)
+    pallas = np.asarray(jan._rms_norm_fwd_pallas(jnp.asarray(x), jnp.asarray(w), 1e-8))
+    got = _np(tan.rms_norm(_t(x), _t(w), 1e-8))
+    np.testing.assert_allclose(got, pallas, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(got, np.asarray(jan.rms_norm_ref(jnp.asarray(x), jnp.asarray(w),
+                                                                1e-8)), atol=2e-5, rtol=2e-5)
+
+
+def test_rms_norm_gradients_match_jax():
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 64, 128)).astype(np.float32)
+    w = rng.standard_normal(128).astype(np.float32)
+    dy = rng.standard_normal((2, 64, 128)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b: jan.rms_norm_fused(a, b, 1e-8), jnp.asarray(x), jnp.asarray(w))
+    want = vjp(jnp.asarray(dy))
+    xt, wt = _t(x).requires_grad_(), _t(w).requires_grad_()
+    tan.rms_norm(xt, wt, 1e-8).backward(_t(dy))
+    np.testing.assert_allclose(_np(xt.grad), np.asarray(want[0]), atol=1e-5)
+    np.testing.assert_allclose(_np(wt.grad), np.asarray(want[1]), atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# wrappers: CPU tensors take the plain version, nothing else does silently
+# ---------------------------------------------------------------------------
+
+def test_new_wrappers_cpu_plain_and_no_launch_counted():
+    _build.reset_launches()
+    x = torch.randn(1, 64, 128)
+    tan.rms_norm(x, torch.ones(128), 1e-8)
+    qkv = torch.randn(1, 64, 3 * 128)
+    tatt.fused_qkv_rope_attention_bias(qkv, torch.ones(64, 128), torch.zeros(64, 128),
+                                       torch.ones(1, 64, dtype=torch.bool), 2)
+    q = torch.randn(1, 2, 64, 64)
+    tatt.flash_attention(q, q, q, torch.tensor([40], dtype=torch.int32))
+    assert _build.launches() == {}
+
+
+def test_new_wrappers_refuse_other_devices():
+    x = torch.empty(1, 64, 128, device="meta")
+    with pytest.raises(ValueError):
+        tan.rms_norm(x, torch.empty(128, device="meta"))
+    with pytest.raises(ValueError):
+        tatt.fused_qkv_rope_attention_bias(torch.empty(1, 64, 384, device="meta"), x[0], x[0],
+                                           torch.empty(1, 64, dtype=torch.bool, device="meta"), 2)
+    q = torch.empty(1, 2, 64, 64, device="meta")
+    with pytest.raises(ValueError):
+        tatt.flash_attention(q, q, q, torch.empty(1, dtype=torch.int32, device="meta"))
+
+
+def test_rms_norm_argument_checks():
+    bf = torch.bfloat16
+    with pytest.raises(TypeError):  # f32 x
+        tan._rms_check(torch.zeros(1, 8, 128), torch.ones(128))
+    with pytest.raises(ValueError):  # d not a multiple of 8
+        tan._rms_check(torch.zeros(1, 8, 100, dtype=bf), torch.ones(100))
+    with pytest.raises(ValueError):  # weight of another width
+        tan._rms_check(torch.zeros(1, 8, 128, dtype=bf), torch.ones(64))
+    # what the UNetT passes is accepted: bf16 x, f32 or bf16 weight
+    tan._rms_check(torch.zeros(2, 64, 1024, dtype=bf), torch.ones(1024))
+    tan._rms_check(torch.zeros(2, 64, 1024, dtype=bf), torch.ones(1024, dtype=bf))

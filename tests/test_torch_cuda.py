@@ -2,8 +2,9 @@
 
 Each hand-written kernel against its plain PyTorch version at small shapes,
 including ragged lengths and an n that is no multiple of the tiles; the
-attention backward K4 alone and through autograd; one tiny DiT forward and
-one tiny DiT training step through the kernels against the CPU plain path.
+attention backward K4 alone and through autograd; K5 and K7 refusing inputs
+that require grad; one tiny DiT, UNetT and MMDiT forward and one tiny DiT
+training step through the kernels against the CPU plain path.
 Run on a GPU machine with:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -14,12 +15,16 @@ import pytest
 import torch
 
 from f5tts_tpu_torch.ops import _build
-from f5tts_tpu_torch.ops.adaln_norm import adaln_norm, adaln_norm_ref
+from f5tts_tpu_torch.ops.adaln_norm import adaln_norm, adaln_norm_ref, rms_norm, rms_norm_ref
 from f5tts_tpu_torch.ops.attention import (
+    flash_attention,
     fused_qkv_rope_attention,
+    fused_qkv_rope_attention_bias,
+    fused_qkv_rope_attention_bias_ref,
     fused_qkv_rope_attention_bwd,
     fused_qkv_rope_attention_bwd_ref,
     fused_qkv_rope_attention_ref,
+    mha_reference,
 )
 from f5tts_tpu_torch.ops.grouped_conv import conv_pos_embedding, conv_pos_embedding_ref
 from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
@@ -114,6 +119,67 @@ def test_attention_autograd_launches_k4(dev):
     assert float((qkv.grad.float() - want.float()).norm() / want.float().norm()) <= 1e-2
 
 
+@pytest.mark.parametrize("n,w_dtype", [(1, torch.float32), (100, torch.bfloat16),
+                                       (1024, torch.float32)])
+def test_rms_norm_kernel(dev, n, w_dtype):
+    rng = np.random.default_rng(n)
+    x = _bf16(rng, (2, n, 1024), dev, 2.0)
+    w = (1.0 + 0.1 * torch.from_numpy(rng.standard_normal(1024).astype(np.float32))).to(dev, w_dtype)
+    _build.reset_launches()
+    out = rms_norm(x, w, 1e-8)
+    assert _build.launches() == {"rms_norm": 1}
+    ref = rms_norm_ref(x.float(), w.float(), 1e-8)
+    assert _live_max(out, ref, torch.full((2,), n, device=dev)) <= 2e-2
+
+
+@pytest.mark.parametrize("n", [64, 200, 1152])
+def test_bias_attention_kernel(dev, n):
+    """K5 with dead keys mid-sequence, a whole dead 64-key tile and a dead
+    tail; every row is computed, all rows compared."""
+    rng = np.random.default_rng(n + 2)
+    qkv = _bf16(rng, (2, n, 3 * 1024), dev)
+    cos, sin = rope_flat_tables(rope_freqs_interleaved(64, n).to(dev), n, 16)
+    kmask = torch.ones(2, n, dtype=torch.bool, device=dev)
+    kmask[0, n // 4: n // 2] = False
+    kmask[1, n - n // 3:] = False
+    if n >= 192:
+        kmask[1, 64:128] = False
+    _build.reset_launches()
+    out = fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, 16)
+    assert _build.launches() == {"fused_qkv_rope_attention_bias": 1}
+    ref = fused_qkv_rope_attention_bias_ref(qkv.float(), cos.float(), sin.float(), kmask, 16)
+    assert _live_max(out, ref, torch.full((2,), n, device=dev)) <= 2e-2
+
+
+@pytest.mark.parametrize("n,length", [(64, 1), (100, 37), (1024, 777), (4224, 3001)])
+def test_flash_attention_kernel(dev, n, length):
+    """K7 over live rows; q tiles wholly past the length are zeros."""
+    rng = np.random.default_rng(n + 3)
+    q, k, v = (_bf16(rng, (2, 16, n, 64), dev) for _ in range(3))
+    lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)
+    _build.reset_launches()
+    out = flash_attention(q, k, v, lengths)
+    assert _build.launches() == {"flash_attention": 1}
+    ref = mha_reference(q.float(), k.float(), v.float(), lengths)
+    for i, ln in enumerate((n, length)):
+        assert float((out[i, :, :ln].float() - ref[i, :, :ln]).abs().max()) <= 2e-2
+    assert not out[1, :, -(-length // 64) * 64:].any()
+
+
+def test_forward_only_kernels_refuse_grad(dev):
+    """K5 and K7 have no backward kernel yet: no silent autograd on the card."""
+    qkv = torch.zeros(1, 64, 3 * 1024, dtype=torch.bfloat16, device=dev, requires_grad=True)
+    tab = torch.zeros(64, 1024, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(NotImplementedError):
+        fused_qkv_rope_attention_bias(qkv, tab, tab, torch.ones(1, 64, dtype=torch.bool,
+                                                                device=dev), 16)
+    q = torch.zeros(1, 16, 64, 64, dtype=torch.bfloat16, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        flash_attention(q, q, q, torch.tensor([64], dtype=torch.int32, device=dev))
+    with torch.no_grad():
+        flash_attention(q, q, q, torch.tensor([64], dtype=torch.int32, device=dev))
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     x = torch.zeros(1, 8, 1024, device=dev)  # f32, not bf16
     with pytest.raises(TypeError):
@@ -148,6 +214,43 @@ def test_tiny_dit_through_the_kernels(dev):
         if where.type == "cuda":
             assert _build.launches() == {"conv_pos_embedding": 2, "adaln_norm": 5,
                                          "fused_qkv_rope_attention": 2}
+    a, b = outs["cuda"][:, :201], outs["cpu"][:, :201]
+    assert float((a - b).norm() / b.norm()) <= 3e-2
+
+
+@pytest.mark.parametrize("backbone", ["UNetT", "MMDiT"])
+def test_tiny_new_backbones_through_the_kernels(dev, backbone):
+    """A depth-2 UNetT (K3, K6, K2) and MMDiT (K5, K1, K2) forward on the card
+    in bf16 against the CPU in f32: rel-L2 <= 3e-2, launch counts exact."""
+    from f5tts_tpu_torch.config import ModelArch
+    from f5tts_tpu_torch.models import dit
+    from f5tts_tpu_torch.models.cfm import BACKBONES
+    from f5tts_tpu_torch.models.modules import fuse_backbone_qkv, tree_cast
+
+    arch = ModelArch(dim=1024, depth=2, heads=16, dim_head=64, text_dim=None, conv_layers=0,
+                     text_num_embeds=32)
+    bdef = BACKBONES[backbone]
+    gen = torch.Generator().manual_seed(0)
+    params = fuse_backbone_qkv(dit.activate_zero_init(bdef.init(gen, arch), gen))
+    rng = np.random.default_rng(0)
+    n = 255
+    x = torch.from_numpy(rng.standard_normal((1, n, 100)).astype(np.float32))
+    text = torch.from_numpy(rng.integers(0, 32, (1, 40)).astype(np.int32))
+    lens = torch.tensor([201], dtype=torch.int32)
+    t = torch.tensor([0.4])
+    want = ({"fused_qkv_rope_attention": 2, "rms_norm": 5, "conv_pos_embedding": 2}
+            if backbone == "UNetT" else
+            {"fused_qkv_rope_attention_bias": 2, "adaln_norm": 8, "conv_pos_embedding": 2})
+    outs = {}
+    for where, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        _build.reset_launches()
+        with torch.no_grad():
+            outs[where.type] = bdef.forward(
+                tree_cast(params, dtype, where), bdef.statics_cls(arch, where), x.to(where),
+                x.to(where), text.to(where), t.to(where), lengths=lens.to(where),
+                cfg_infer=True, dtype=dtype).cpu()
+        if where.type == "cuda":
+            assert _build.launches() == want
     a, b = outs["cuda"][:, :201], outs["cpu"][:, :201]
     assert float((a - b).norm() / b.norm()) <= 3e-2
 

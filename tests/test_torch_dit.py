@@ -33,20 +33,26 @@ SMALL = dict(dim=128, depth=2, heads=2, dim_head=64, ff_mult=2, text_dim=64,
 ATOL = 2e-4
 
 
+STACKS = ("blocks", "first_half", "second_half")  # depth-stacked block dicts
+
+
 def np_params(init_fn, seed: int):
     """Numpy-seeded weights in the tree layout `init_fn()` builds (traced
     for its shapes only). Matrices N(0, 1/fan_in), embeddings N(0, 1), norm
-    weights 1, every other vector 0.05 * N(0, 1): the AdaLN / norm_out /
-    proj_out / GRN leaves that init to zero are random too, so the DiT is no
-    identity."""
+    weights 1, RMSNorm weights 1 + 0.1 * N(0, 1), every other vector
+    0.05 * N(0, 1): the AdaLN / norm_out / proj_out / GRN leaves that init
+    to zero are random too, so the backbone is no identity. Stacked blocks
+    (a STACKS key followed by a dict key, not a list index) draw per block."""
     rng = np.random.default_rng(seed)
 
     def draw(path, leaf):
         keys = [getattr(k, "key", getattr(k, "idx", None)) for k in path]
-        stacked = "blocks" in keys and not isinstance(keys[keys.index("blocks") + 1], int)
+        stacked = any(k in STACKS and not isinstance(nxt, int) for k, nxt in zip(keys, keys[1:]))
         core = leaf.shape[1:] if stacked else leaf.shape
         if keys[-1] in ("norm_w", "in_norm_w", "final_norm_w"):
             return np.ones(leaf.shape, np.float32)
+        if keys[-1] == "w" and len(core) == 1:  # RMSNorm weight
+            return (1.0 + 0.1 * rng.standard_normal(leaf.shape)).astype(np.float32)
         if keys[-1] == "gamma" and "grn" not in keys:  # Vocos layer scale
             return (0.125 + 0.02 * rng.standard_normal(leaf.shape)).astype(np.float32)
         if len(core) >= 2:

@@ -43,9 +43,11 @@ VOCAB = {c: i for i, c in enumerate(" abcdefghijklmnopqrstuvwxyz.,'!?")}  # 32 i
 def test_port_imports_no_jax():
     code = ("import sys, f5tts_tpu_torch, f5tts_tpu_torch.infer.pipeline, "
             "f5tts_tpu_torch.convert, f5tts_tpu_torch.ops.attention, chip_smoke, "
+            "f5tts_tpu_torch.models.unett, f5tts_tpu_torch.models.mmdit, "
             "f5tts_tpu_torch.train.step, f5tts_tpu_torch.train.dataset, "
             "f5tts_tpu_torch.train.checkpoint, f5tts_tpu_torch.train.trainer, "
-            "f5tts_tpu_torch.scripts.train_bench, f5tts_tpu_torch.scripts.profile_generate\n"
+            "f5tts_tpu_torch.scripts.train_bench, f5tts_tpu_torch.scripts.profile_generate, "
+            "f5tts_tpu_torch.scripts.kernel_ab\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'f5tts_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
