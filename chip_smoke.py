@@ -16,7 +16,14 @@ Phases (any failure raises, and the script exits non-zero):
    key-masked flat attention (joint n = 1152, 3200, 4352: audio + text rows,
    dead keys mid-sequence, SDPA with a boolean mask as yardstick); K6,
    RMSNorm ([2, 1024, 1024], F.rms_norm as yardstick); K7, head-layout
-   attention (n = 1024, 4224, lengths [n, 777]; SDPA as yardstick).
+   attention (n = 1024, 4224, lengths [n, 777]; SDPA as yardstick). K7's lse
+   mode (the same inputs: the output as K7's, the lse within 1e-3 on live q
+   tiles and exactly -1e30 on dead ones); K8, the key-masked flat backward
+   (K5's joint shapes and masks, dO on every row: dQKV rel-L2 and max-abs as
+   K4's, dead keys' dk/dv exactly 0); K9, the head-layout backward from K7's
+   saved output and lse (b = 2, h = 16, n = 1024, 4224, lengths [n, 777], dO
+   zero on rows >= length: dq/dk/dv as K4's, exactly 0 on dead tiles and
+   keys). Each backward is timed beside SDPA's backward on the same inputs.
 3. The main path: InferencePipeline.infer at F5TTS_v1_Base + Vocos, random
    weights from a seed (the zero-initialised AdaLN, norm_out and proj_out
    weights randomised), three requests, 16 NFE, CFG 2, sway -1. Every wav
@@ -43,9 +50,18 @@ Phases (any failure raises, and the script exits non-zero):
    1152 rows) and one at the cap (joint 4352 rows); K5 / K1 / K2 launched
    352 / 1408 / 32 times a generate.
 9. Phase 4 for the two new backbones at depth 2: mel rel-L2 <= 3e-2.
+10. Trainer.train at E2TTS_Base (UNetT), as phase 5: 3 updates at b = 16,
+    n = 1024 (1152 rows: K3 / K4 / K6 / K2 24 / 24 / 49 / 1 an update) and 2
+    at b = 4, n = 4096, the cap (4224 rows, past the flat gate: K7's lse mode
+    / K9 / K6 / K2 24 / 24 / 49 / 1).
+11. Trainer.train at MMDiT_Base: 3 updates at b = 16, n = 1024 and 2 at
+    b = 4, n = 3072, text of ceil(frames / 6) ids (joint <= 1536 rows and in
+    (1536, 4096]: K5 / K8 / K1 / K2 22 / 22 / 88 / 1 an update).
+12. Phase 6 for the UNetT (n = 1023 frames, 1024 rows, once on the flat gate
+    and once past it, FLAT_ATTN_MAX_N lowered) and the MMDiT (n = 512).
 
 Prints the `kernels` JSON line (launches: the inference and training paths
-of phases 3, 5, 7 and 8), the card's name and power limit, and as the last line
+of phases 3, 5, 7, 8, 10 and 11), the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the repo's
 f5tts_tpu_torch package beside this file; imports nothing of JAX.
 """
@@ -69,7 +85,9 @@ F32_FLOPS_PER_S = 67e12      # f32 outside the tensor cores
 
 # max-abs error over live rows
 TOL = {"adaln_norm": 2e-2, "conv_pos_embedding": 3e-2, "fused_qkv_rope_attention": 2e-2,
-       "fused_qkv_rope_attention_bias": 2e-2, "rms_norm": 2e-2, "flash_attention": 2e-2}
+       "fused_qkv_rope_attention_bias": 2e-2, "rms_norm": 2e-2, "flash_attention": 2e-2,
+       "flash_attention_lse": 2e-2}
+LSE_TOL = 1e-3  # K7's lse mode: |lse - plain| on live q tiles
 # K4's dQKV over live rows: rel-L2, and max-abs against the largest entry of
 # the plain version's dQKV (whose scale grows with n)
 BWD_REL_L2_TOL = 1e-2
@@ -82,6 +100,9 @@ REPLACES = {
     "fused_qkv_rope_attention_bias": "f5tts_tpu/ops/attention.py:1240 (+ :1307 stream twin)",
     "rms_norm": "f5tts_tpu/ops/adaln_norm.py:97",
     "flash_attention": "f5tts_tpu/ops/attention.py:123 (+ :50 loop twin)",
+    "flash_attention_lse": "f5tts_tpu/ops/attention.py:193 return_lse (lse_ref of :123 / :50)",
+    "fused_qkv_rope_attention_bias_bwd": "f5tts_tpu/ops/attention.py:1503 (+ bias row of :970)",
+    "flash_attention_bwd": "f5tts_tpu/ops/attention.py:357 (+ :249 / :300 split pair)",
 }
 SOURCES = {
     "adaln_norm": "f5tts_tpu_torch/csrc/adaln_norm.cu",
@@ -91,11 +112,23 @@ SOURCES = {
     "fused_qkv_rope_attention_bias": "f5tts_tpu_torch/csrc/attention.cu",
     "rms_norm": "f5tts_tpu_torch/csrc/adaln_norm.cu",
     "flash_attention": "f5tts_tpu_torch/csrc/attention.cu",
+    "flash_attention_lse": "f5tts_tpu_torch/csrc/attention.cu",
+    "fused_qkv_rope_attention_bias_bwd": "f5tts_tpu_torch/csrc/attention_bwd.cu",
+    "flash_attention_bwd": "f5tts_tpu_torch/csrc/attention_bwd.cu",
 }
 NFE = 16
-TRAIN_CELLS = ((16, 1024, 4), (4, 3072, 2))  # (batch, frames, updates)
-PER_UPDATE = {"fused_qkv_rope_attention": 22, "fused_qkv_rope_attention_bwd": 22,
-              "adaln_norm": 45, "conv_pos_embedding": 1}
+# phases 5, 10 and 11: (batch, frames, updates, launches an update)
+_DIT_PER_UPDATE = {"fused_qkv_rope_attention": 22, "fused_qkv_rope_attention_bwd": 22,
+                   "adaln_norm": 45, "conv_pos_embedding": 1}
+DIT_TRAIN_CELLS = ((16, 1024, 4, _DIT_PER_UPDATE), (4, 3072, 2, _DIT_PER_UPDATE))
+UNETT_TRAIN_CELLS = (
+    (16, 1024, 3, {"fused_qkv_rope_attention": 24, "fused_qkv_rope_attention_bwd": 24,
+                   "rms_norm": 49, "conv_pos_embedding": 1}),
+    (4, 4096, 2, {"flash_attention_lse": 24, "flash_attention_bwd": 24, "rms_norm": 49,
+                  "conv_pos_embedding": 1}))
+_MMDIT_PER_UPDATE = {"fused_qkv_rope_attention_bias": 22, "fused_qkv_rope_attention_bias_bwd": 22,
+                     "adaln_norm": 88, "conv_pos_embedding": 1}
+MMDIT_TRAIN_CELLS = ((16, 1024, 3, _MMDIT_PER_UPDATE), (4, 3072, 2, _MMDIT_PER_UPDATE))
 
 
 def log(msg: str) -> None:
@@ -247,7 +280,7 @@ def check_attention(rng, dev) -> dict:
     import torch
     import torch.nn.functional as F
     from f5tts_tpu_torch.ops.attention import fused_qkv_rope_attention, fused_qkv_rope_attention_ref
-    from f5tts_tpu_torch.ops.rope import apply_rotary_flat_tables, rope_flat_tables, rope_freqs_interleaved
+    from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
 
     b, h, d = 2, 16, 64
     hd = h * d
@@ -269,9 +302,7 @@ def check_attention(rng, dev) -> dict:
         wall = wall_ms(lambda: fused_qkv_rope_attention(qkv, cos, sin, lengths, h))
         plain = time_ms(lambda: fused_qkv_rope_attention_ref(qkv, cos, sin, lengths, h), reps=1, iters=5)
         # yardstick: SDPA on pre-roped [b, h, n, d] with the same key mask
-        q, k, v = qkv.split(hd, dim=-1)
-        qh, kh, vh = (t.reshape(b, n, h, d).transpose(1, 2).contiguous() for t in
-                      (apply_rotary_flat_tables(q, cos, sin), apply_rotary_flat_tables(k, cos, sin), v))
+        qh, kh, vh = flat_to_heads(qkv, cos, sin, h)
         kmask = (torch.arange(n, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
         lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=kmask))
         log(f"  fused_qkv_rope_attention b=2 h=16 d=64 n={n} lengths [{n}, 777]: max_abs_err "
@@ -288,12 +319,53 @@ def check_attention(rng, dev) -> dict:
     return out_row
 
 
-def check_attention_bwd(rng, dev) -> dict:
+def flat_to_heads(qkv, cos, sin, heads: int) -> tuple:
+    """Pre-roped [b, h, n, d] q, k, v of a flat qkv (the yardsticks' inputs)."""
+    from f5tts_tpu_torch.ops.rope import apply_rotary_flat_tables
+
+    b, n, hd3 = qkv.shape
+    q, k, v = qkv.split(hd3 // 3, dim=-1)
+    return tuple(t.reshape(b, n, heads, -1).transpose(1, 2).contiguous() for t in
+                 (apply_rotary_flat_tables(q, cos, sin), apply_rotary_flat_tables(k, cos, sin), v))
+
+
+def sdpa_bwd_ms(qh, kh, vh, dout, kmask) -> tuple[float, float]:
+    """(backward, forward) ms of F.scaled_dot_product_attention on [b, h, n, d]
+    under the [b, n] key mask, the backward as (fwd + bwd) - fwd; dout is
+    flat [b, n, h*d] or [b, h, n, d]."""
     import torch
     import torch.nn.functional as F
+
+    qh, kh, vh = (t.detach().requires_grad_() for t in (qh, kh, vh))
+    gh = dout if dout.dim() == 4 else dout.reshape(qh.shape[0], qh.shape[2], qh.shape[1],
+                                                   -1).transpose(1, 2).contiguous()
+    mask4 = kmask[:, None, None, :]
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask4)
+        return torch.autograd.grad(o, (qh, kh, vh), gh)
+
+    with torch.no_grad():
+        fwd = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask4))
+    return time_ms(fwd_bwd) - fwd, fwd
+
+
+def bwd_errors(got, want) -> tuple[float, float, float]:
+    """(rel-L2, max-abs error, largest entry of want) of a backward."""
+    a, w = got.float(), want.float()
+    return float((a - w).norm() / w.norm()), float((a - w).abs().max()), float(w.abs().max())
+
+
+def check_bwd_tol(name: str, rel: float, err: float, top: float) -> None:
+    if not (rel <= BWD_REL_L2_TOL and err <= BWD_MAX_ABS_REL_TOL * top):
+        raise AssertionError(f"{name}: rel-L2 {rel}, max_abs_err {err} against largest entry {top}")
+
+
+def check_attention_bwd(rng, dev) -> dict:
+    import torch
     from f5tts_tpu_torch.ops.attention import (fused_qkv_rope_attention_bwd,
                                                fused_qkv_rope_attention_bwd_ref)
-    from f5tts_tpu_torch.ops.rope import apply_rotary_flat_tables, rope_flat_tables, rope_freqs_interleaved
+    from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
 
     b, h, d = 2, 16, 64
     hd = h * d
@@ -306,10 +378,8 @@ def check_attention_bwd(rng, dev) -> dict:
         got = fused_qkv_rope_attention_bwd(qkv, cos, sin, lengths, dout, h)
         want = fused_qkv_rope_attention_bwd_ref(qkv, cos, sin, lengths, dout, h)
         torch.cuda.synchronize()
-        live = torch.arange(n, device=dev)[None, :] < lengths[:, None]
-        a, w = got.float()[live], want.float()[live]
-        rel = float((a - w).norm() / w.norm())
-        err, top = float((a - w).abs().max()), float(w.abs().max())
+        kmask = torch.arange(n, device=dev)[None, :] < lengths[:, None]
+        rel, err, top = bwd_errors(got[kmask], want[kmask])
         dead = float(got[1, 777:].abs().max())
         sq = sum(int(v) ** 2 for v in lengths.tolist())
         flops = 10 * h * d * sq
@@ -319,21 +389,8 @@ def check_attention_bwd(rng, dev) -> dict:
         wall = wall_ms(lambda: fused_qkv_rope_attention_bwd(qkv, cos, sin, lengths, dout, h))
         plain = time_ms(lambda: fused_qkv_rope_attention_bwd_ref(qkv, cos, sin, lengths, dout, h),
                         reps=1, iters=3)
-        # yardstick: SDPA's backward on pre-roped [b, h, n, d], the same key
-        # mask, as (fwd + bwd) - fwd
-        q, k, v = qkv.split(hd, dim=-1)
-        qh, kh, vh = (t.reshape(b, n, h, d).transpose(1, 2).contiguous().requires_grad_() for t in
-                      (apply_rotary_flat_tables(q, cos, sin), apply_rotary_flat_tables(k, cos, sin), v))
-        gh = dout.reshape(b, n, h, d).transpose(1, 2).contiguous()
-        kmask = (torch.arange(n, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
-
-        def sdpa_fwd_bwd():
-            o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=kmask)
-            return torch.autograd.grad(o, (qh, kh, vh), gh)
-
-        with torch.no_grad():
-            lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=kmask))
-        lib = time_ms(sdpa_fwd_bwd) - lib_fwd
+        # yardstick: SDPA's backward on pre-roped [b, h, n, d], the same key mask
+        lib, lib_fwd = sdpa_bwd_ms(*flat_to_heads(qkv, cos, sin, h), dout, kmask)
         log(f"  fused_qkv_rope_attention_bwd b=2 h=16 d=64 n={n} lengths [{n}, 777]: rel-L2 "
             f"{rel:.3e} (tol {BWD_REL_L2_TOL}), max_abs_err {err:.3e} (tol {BWD_MAX_ABS_REL_TOL} x "
             f"largest entry {top:.3e}), dead rows max {dead:.1e}, {ms:.4f} ms "
@@ -341,9 +398,7 @@ def check_attention_bwd(rng, dev) -> dict:
             f"sdpa bwd {lib:.4f} ms (fwd {lib_fwd:.4f} ms)")
         if dead != 0.0:
             raise AssertionError("fused_qkv_rope_attention_bwd: dead rows are not zero")
-        if not (rel <= BWD_REL_L2_TOL and err <= BWD_MAX_ABS_REL_TOL * top):
-            raise AssertionError(f"fused_qkv_rope_attention_bwd at n={n}: rel-L2 {rel}, "
-                                 f"max_abs_err {err} against largest entry {top}")
+        check_bwd_tol(f"fused_qkv_rope_attention_bwd at n={n}", rel, err, top)
         row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
                "bound_by": "operations", "library_ms": lib}
         if out_row is None:
@@ -357,7 +412,7 @@ def check_attention_bias(rng, dev) -> dict:
     import torch.nn.functional as F
     from f5tts_tpu_torch.ops.attention import (fused_qkv_rope_attention_bias,
                                                fused_qkv_rope_attention_bias_ref)
-    from f5tts_tpu_torch.ops.rope import apply_rotary_flat_tables, rope_flat_tables, rope_freqs_interleaved
+    from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
 
     b, h, d = 2, 16, 64
     hd = h * d
@@ -389,9 +444,7 @@ def check_attention_bias(rng, dev) -> dict:
         wall = wall_ms(lambda: fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, h))
         plain = time_ms(lambda: fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, h),
                         reps=1, iters=5)
-        q, k, v = qkv.split(hd, dim=-1)
-        qh, kh, vh = (t.reshape(b, n, h, d).transpose(1, 2).contiguous() for t in
-                      (apply_rotary_flat_tables(q, cos, sin), apply_rotary_flat_tables(k, cos, sin), v))
+        qh, kh, vh = flat_to_heads(qkv, cos, sin, h)
         mask4 = kmask[:, None, None, :]
         lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask4))
         log(f"  fused_qkv_rope_attention_bias b=2 h=16 d=64 joint n={n} ({na} audio + {nt} text), "
@@ -474,6 +527,153 @@ def check_flash(rng, dev) -> dict:
     return out_row
 
 
+def check_flash_lse(rng, dev) -> dict:
+    """K7's lse mode: the output as K7's, the lse on live q tiles within
+    LSE_TOL of the plain version's, exactly -1e30 on the tiles past the length."""
+    import torch
+    import torch.nn.functional as F
+    from f5tts_tpu_torch.ops.attention import NEG_INF, flash_attention_fwd, flash_attention_fwd_ref
+
+    b, h, d = 2, 16, 64
+    out_row = None
+    for n in (1024, 4224):
+        lengths = torch.tensor([n, 777], dtype=torch.int32, device=dev)
+        q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, d)).astype(np.float32))
+                   .to(dev, torch.bfloat16) for _ in range(3))
+        out, lse = flash_attention_fwd(q, k, v, lengths, return_lse=True)
+        ref, ref_lse = flash_attention_fwd_ref(q.float(), k.float(), v.float(), lengths,
+                                               return_lse=True)
+        torch.cuda.synchronize()
+        tile_end = -(-777 // 64) * 64
+        err = max(float((out[i, :, :ln].float() - ref[i, :, :ln]).abs().max())
+                  for i, ln in enumerate(lengths.tolist()))
+        lse_err = max(float((lse[0] - ref_lse[0]).abs().max()),
+                      float((lse[1, :, :tile_end] - ref_lse[1, :, :tile_end]).abs().max()))
+        dead_ok = bool((lse[1, :, tile_end:] == NEG_INF).all()) and not out[1, :, tile_end:].any()
+        sq = sum(int(x) ** 2 for x in lengths.tolist())
+        flops = 4 * h * d * sq
+        nbytes = 4 * b * h * n * d * 2 + b * h * n * 4
+        bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        ms = time_ms(lambda: flash_attention_fwd(q, k, v, lengths, return_lse=True))
+        plain = time_ms(lambda: flash_attention_fwd_ref(q, k, v, lengths, return_lse=True),
+                        reps=1, iters=5)
+        kmask = (torch.arange(n, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=kmask))
+        log(f"  flash_attention_lse b=2 h=16 d=64 n={n} lengths [{n}, 777]: max_abs_err {err:.3e} "
+            f"(tol {TOL['flash_attention_lse']}), lse max err {lse_err:.3e} (tol {LSE_TOL}) on live "
+            f"tiles, dead tiles -1e30 and 0: {dead_ok}, {ms:.4f} ms, bound {bound:.4f} ms "
+            f"(operations), plain {plain:.4f} ms, sdpa fwd (no lse out) {lib:.4f} ms")
+        if not (dead_ok and lse_err <= LSE_TOL):
+            raise AssertionError(f"flash_attention_lse at n={n}: lse err {lse_err}, dead tiles "
+                                 f"{dead_ok}")
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+               "bound_by": "operations", "library_ms": lib}
+        if out_row is None:
+            out_row = row
+        out_row["max_abs_err"] = max(out_row["max_abs_err"], err)
+    return out_row
+
+
+def check_attention_bias_bwd(rng, dev) -> dict:
+    """K8 on K5's joint shapes and masks, dO on every row."""
+    import torch
+    from f5tts_tpu_torch.ops.attention import (fused_qkv_rope_attention_bias_bwd,
+                                               fused_qkv_rope_attention_bias_bwd_ref)
+    from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
+
+    b, h, d = 2, 16, 64
+    hd = h * d
+    out_row = None
+    for na, nt in ((1024, 128), (3072, 128), (4096, 256)):  # joint 1152, 3200, 4352
+        n = na + nt
+        kmask = torch.zeros(b, n, dtype=torch.bool, device=dev)
+        kmask[0, :777 if na == 1024 else 3 * na // 4] = True
+        kmask[0, na:na + 100] = True
+        kmask[1, :na] = True
+        kmask[1, na:na + 120] = True
+        qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * hd)).astype(np.float32)).to(dev, torch.bfloat16)
+        dout = torch.from_numpy(rng.standard_normal((b, n, hd)).astype(np.float32)).to(dev, torch.bfloat16)
+        ang = rope_freqs_interleaved(d, na).to(dev)
+        ca, sa = rope_flat_tables(ang, na, h, dtype=torch.bfloat16)
+        ct, st = rope_flat_tables(ang, nt, h, dtype=torch.bfloat16)
+        cos, sin = torch.cat([ca, ct]).contiguous(), torch.cat([sa, st]).contiguous()
+        got = fused_qkv_rope_attention_bias_bwd(qkv, cos, sin, kmask, dout, h)
+        want = fused_qkv_rope_attention_bias_bwd_ref(qkv, cos, sin, kmask, dout, h)
+        torch.cuda.synchronize()
+        rel, err, top = bwd_errors(got, want)
+        dead = float(got[:, :, hd:][~kmask].abs().max())
+        live_keys = [int(v) for v in kmask.sum(dim=1).tolist()]
+        flops = 10 * h * d * n * sum(live_keys)
+        nbytes = (2 * b * n * 3 * hd + b * n * hd + 2 * n * hd) * 2 + b * n
+        bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        ms = time_ms(lambda: fused_qkv_rope_attention_bias_bwd(qkv, cos, sin, kmask, dout, h))
+        plain = time_ms(lambda: fused_qkv_rope_attention_bias_bwd_ref(qkv, cos, sin, kmask, dout, h),
+                        reps=1, iters=3)
+        lib, lib_fwd = sdpa_bwd_ms(*flat_to_heads(qkv, cos, sin, h), dout, kmask)
+        log(f"  fused_qkv_rope_attention_bias_bwd b=2 h=16 d=64 joint n={n} ({na} audio + {nt} "
+            f"text), live keys {live_keys}: rel-L2 {rel:.3e} (tol {BWD_REL_L2_TOL}), max_abs_err "
+            f"{err:.3e} (tol {BWD_MAX_ABS_REL_TOL} x largest entry {top:.3e}), dead keys' dk/dv "
+            f"max {dead:.1e}, {ms:.4f} ms, bound {bound:.4f} ms (operations), plain {plain:.4f} "
+            f"ms, sdpa bwd {lib:.4f} ms (fwd {lib_fwd:.4f} ms)")
+        if dead != 0.0:
+            raise AssertionError("fused_qkv_rope_attention_bias_bwd: dead keys' dk/dv not 0")
+        check_bwd_tol(f"fused_qkv_rope_attention_bias_bwd at n={n}", rel, err, top)
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+               "bound_by": "operations", "library_ms": lib}
+        if out_row is None:
+            out_row = row
+        out_row["max_abs_err"] = max(out_row["max_abs_err"], err)
+    return out_row
+
+
+def check_flash_bwd(rng, dev) -> dict:
+    """K9 from K7's saved output and lse, dO zero on rows >= length."""
+    import torch
+    from f5tts_tpu_torch.ops.attention import (flash_attention_bwd, flash_attention_bwd_ref,
+                                               flash_attention_fwd)
+
+    b, h, d = 2, 16, 64
+    out_row = None
+    for n in (1024, 4224):
+        lengths = torch.tensor([n, 777], dtype=torch.int32, device=dev)
+        q, k, v, dout = (torch.from_numpy(rng.standard_normal((b, h, n, d)).astype(np.float32))
+                         .to(dev, torch.bfloat16) for _ in range(4))
+        live = torch.arange(n, device=dev)[None, :] < lengths[:, None]
+        dout = dout * live[:, None, :, None]
+        o, lse = flash_attention_fwd(q, k, v, lengths, return_lse=True)
+        got = flash_attention_bwd(q, k, v, lengths, o, lse, dout)
+        want = flash_attention_bwd_ref(q, k, v, lengths, o, lse, dout)
+        torch.cuda.synchronize()
+        stats = [bwd_errors(g, w) for g, w in zip(got, want)]
+        rel, err = max(x[0] for x in stats), max(x[1] for x in stats)
+        top = min(x[2] for x in stats)
+        dead = max(float(g[1, :, 777:].abs().max()) for g in got)
+        tile_rows = [-(-ln // 64) * 64 for ln in lengths.tolist()]  # rows of live q tiles
+        pairs = sum(min(r, n) * ln for r, ln in zip(tile_rows, lengths.tolist()))
+        flops = 10 * h * d * pairs
+        nbytes = 8 * b * h * n * d * 2 + b * h * n * 4
+        bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        ms = time_ms(lambda: flash_attention_bwd(q, k, v, lengths, o, lse, dout))
+        plain = time_ms(lambda: flash_attention_bwd_ref(q, k, v, lengths, o, lse, dout),
+                        reps=1, iters=3)
+        lib, lib_fwd = sdpa_bwd_ms(q, k, v, dout, live)
+        log(f"  flash_attention_bwd b=2 h=16 d=64 n={n} lengths [{n}, 777]: dq/dk/dv rel-L2 "
+            f"max {rel:.3e} (tol {BWD_REL_L2_TOL}), max_abs_err {err:.3e} (tol "
+            f"{BWD_MAX_ABS_REL_TOL} x smallest largest entry {top:.3e}), dead rows/keys max "
+            f"{dead:.1e}, {ms:.4f} ms, bound {bound:.4f} ms (operations), plain {plain:.4f} ms, "
+            f"sdpa bwd {lib:.4f} ms (fwd {lib_fwd:.4f} ms)")
+        if dead != 0.0:
+            raise AssertionError("flash_attention_bwd: dead tiles or keys are not 0")
+        for name, (r, e, t) in zip(("dq", "dk", "dv"), stats):
+            check_bwd_tol(f"flash_attention_bwd {name} at n={n}", r, e, t)
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+               "bound_by": "operations", "library_ms": lib}
+        if out_row is None:
+            out_row = row
+        out_row["max_abs_err"] = max(out_row["max_abs_err"], err)
+    return out_row
+
+
 def phase_kernels(dev) -> dict:
     import torch
 
@@ -484,7 +684,10 @@ def phase_kernels(dev) -> dict:
             "fused_qkv_rope_attention_bwd": check_attention_bwd(rng, dev),
             "fused_qkv_rope_attention_bias": check_attention_bias(rng, dev),
             "rms_norm": check_rms_norm(rng, dev),
-            "flash_attention": check_flash(rng, dev)}
+            "flash_attention": check_flash(rng, dev),
+            "flash_attention_lse": check_flash_lse(rng, dev),
+            "fused_qkv_rope_attention_bias_bwd": check_attention_bias_bwd(rng, dev),
+            "flash_attention_bwd": check_flash_bwd(rng, dev)}
     torch.cuda.synchronize()
     for name, tol in TOL.items():
         if not rows[name]["max_abs_err"] <= tol:
@@ -637,11 +840,12 @@ def phase_card_vs_cpu(dev, arch, params, vocos_params, backbone: str = "DiT") ->
 
 
 # ---------------------------------------------------------------------------
-# phases 5 and 6
+# phases 5, 6, 10, 11 and 12
 # ---------------------------------------------------------------------------
 
-def _train_dataset(rng, b: int, n: int):
-    """b rows of mel with lens in [n/2, n] (the longest exactly n) and char text."""
+def _train_dataset(rng, b: int, n: int, frames_per_char: int = 4):
+    """b rows of mel with lens in [n/2, n] (the longest exactly n) and char
+    text of ceil(frames / frames_per_char) characters."""
     from f5tts_tpu_torch.scripts.common import VOCAB
     from f5tts_tpu_torch.train.dataset import InMemoryDataset
 
@@ -649,28 +853,32 @@ def _train_dataset(rng, b: int, n: int):
     lens[0] = n
     chars = np.array(list(VOCAB))
     mels = [rng.standard_normal((int(t), 100)).astype(np.float32) for t in lens]
-    texts = ["".join(rng.choice(chars, size=int(t) // 4)) for t in lens]
+    texts = ["".join(rng.choice(chars, size=-(-int(t) // frames_per_char))) for t in lens]
     return InMemoryDataset(mels, texts), int(lens.sum())
 
 
-def phase_train(dev, arch, params, gpu: str) -> dict:
+def phase_train(dev, arch, params, gpu: str, backbone: str = "DiT", cells=DIT_TRAIN_CELLS,
+                frames_per_char: int = 4) -> dict:
+    """Trainer.train on each (batch, frames, updates, launches an update)
+    cell; returns the summed launches."""
     import shutil
     import tempfile
 
     import torch
     from f5tts_tpu_torch.config import TrainConfig
-    from f5tts_tpu_torch.models import dit
+    from f5tts_tpu_torch.models.cfm import BACKBONES
     from f5tts_tpu_torch.models.modules import tree_leaves
     from f5tts_tpu_torch.ops import _build
     from f5tts_tpu_torch.scripts.common import VOCAB
     from f5tts_tpu_torch.train.step import ema_alpha
     from f5tts_tpu_torch.train.trainer import Trainer
 
+    bdef = BACKBONES[backbone]
     rng = np.random.default_rng(11)
-    total = {k: 0 for k in PER_UPDATE}
+    total: dict[str, int] = {}
     base = tree_leaves(params)
-    for b, n, updates in TRAIN_CELLS:
-        data, live = _train_dataset(rng, b, n)
+    for b, n, updates, per_update in cells:
+        data, live = _train_dataset(rng, b, n, frames_per_char)
         save_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
         # one batch of all b rows an epoch; the EMA copies at update 2 and
         # decays at update 4 (every 2, after 2)
@@ -678,7 +886,8 @@ def phase_train(dev, arch, params, gpu: str) -> dict:
                           num_warmup_updates=2, ema_update_every=2, ema_update_after_step=2,
                           save_dir=save_dir, save_per_updates=10 ** 9, last_per_updates=10 ** 9,
                           logger=None)
-        trainer = Trainer(params, dit.DiTStatics(arch), cfg, vocab_char_map=VOCAB, device=dev)
+        trainer = Trainer(params, bdef.statics_cls(arch), cfg, backbone=bdef,
+                          vocab_char_map=VOCAB, device=dev)
         leaf = lambda tree: tree["proj_out"]["b"].detach().float().cpu().clone()  # noqa: E731
         emas, ps, rows = [leaf(trainer.state.ema)], [leaf(trainer.state.params)], []
         torch.cuda.synchronize()
@@ -699,76 +908,96 @@ def phase_train(dev, arch, params, gpu: str) -> dict:
 
         _build.reset_launches()  # every count to 0 just before the training run
         trainer.train(data, max_updates=updates, on_update=on_update)
+        ckpt_s = time.perf_counter() - t_last[0]  # the heartbeat written at the end
+        ckpt_gb = sum(f.stat().st_size for f in Path(save_dir).rglob("*.pt")) / 1e9
         peak = torch.cuda.max_memory_allocated(dev) / 1e9
         steady = [r["wall_ms"] for r in rows[1:]] or [rows[0]["wall_ms"]]
         ms = statistics.median(steady)
         for r in rows:
-            log(f"  b={b} n={n} update {r['update']}: loss {r['loss']:.5f}, grad norm "
+            log(f"  {backbone} b={b} n={n} update {r['update']}: loss {r['loss']:.5f}, grad norm "
                 f"{r['grad_norm']:.4f}, wall {r['wall_ms']:.1f} ms, launches {r['launches']}")
-        log(f"  b={b} n={n} ({live} live frames): {ms:.1f} ms/step (median of updates 2..), "
-            f"{b * n / ms * 1e3:.0f} frames/s padded, {live / ms * 1e3:.0f} live, peak "
-            f"{peak:.2f} GB allocated [{gpu}]")
+        log(f"  {backbone} b={b} n={n} ({live} live frames): {ms:.1f} ms/step (median of updates "
+            f"2..), {b * n / ms * 1e3:.0f} frames/s padded, {live / ms * 1e3:.0f} live, peak "
+            f"{peak:.2f} GB allocated, heartbeat checkpoint {ckpt_gb:.2f} GB in {ckpt_s:.1f} s "
+            f"[{gpu}]")
         for r in rows:
             if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
-                raise AssertionError(f"b={b} n={n} update {r['update']}: non-finite loss or grad norm")
-            if r["launches"] != PER_UPDATE:
-                raise AssertionError(f"b={b} n={n} update {r['update']}: launches {r['launches']}, "
-                                     f"expected {PER_UPDATE}")
-            for k in total:
-                total[k] += r["launches"][k]
+                raise AssertionError(f"{backbone} b={b} n={n} update {r['update']}: non-finite "
+                                     f"loss or grad norm")
+            if r["launches"] != per_update:
+                raise AssertionError(f"{backbone} b={b} n={n} update {r['update']}: launches "
+                                     f"{r['launches']}, expected {per_update}")
+            for k, c in r["launches"].items():
+                total[k] = total.get(k, 0) + c
         unchanged = [i for i, (a, p0) in enumerate(zip(tree_leaves(trainer.state.params), base))
                      if torch.equal(a.cpu(), p0)]
         if unchanged:
-            raise AssertionError(f"b={b} n={n}: {len(unchanged)} parameter leaves did not change")
+            raise AssertionError(f"{backbone} b={b} n={n}: {len(unchanged)} parameter leaves "
+                                 f"did not change")
         for u in range(1, updates + 1):
             alpha = ema_alpha(u, cfg.ema_decay, cfg.ema_update_every, cfg.ema_update_after_step)
             want = emas[u - 1] * float(alpha) + ps[u] * float(np.float32(1.0) - alpha)
             if not torch.allclose(emas[u], want, rtol=1e-6, atol=1e-7):
-                raise AssertionError(f"b={b} n={n}: the EMA is off its cadence at update {u}")
+                raise AssertionError(f"{backbone} b={b} n={n}: the EMA is off its cadence at "
+                                     f"update {u}")
         del trainer
         shutil.rmtree(save_dir)
         torch.cuda.empty_cache()
     return total
 
 
-def phase_train_card_vs_cpu(dev, arch, params) -> None:
+def phase_train_card_vs_cpu(dev, arch, params, backbone: str = "DiT", n: int = 512,
+                            expect=None, flat_max=None) -> None:
+    """One depth-2 grad step, the same draws, on the card in bf16 (the
+    kernels, `expect` launches) and the CPU in f32 (the plain versions).
+    `flat_max` lowers modules.FLAT_ATTN_MAX_N for the run (the head-layout
+    gate of the UNetT at n rows)."""
     import torch
-    from f5tts_tpu_torch.models import dit
-    from f5tts_tpu_torch.models.cfm import make_draws
+    from f5tts_tpu_torch.models import modules
+    from f5tts_tpu_torch.models.cfm import BACKBONES, make_draws
     from f5tts_tpu_torch.models.modules import tree_cast, tree_leaves
     from f5tts_tpu_torch.ops import _build
     from f5tts_tpu_torch.train.step import make_optimizer, make_train_step
 
+    bdef = BACKBONES[backbone]
     arch2 = dataclasses.replace(arch, depth=2)
-    p2 = dict(params, blocks=params["blocks"][:2])
-    b, n = 4, 512
+    p2 = cut_to_depth_2(backbone, params)
+    expect = expect or {"fused_qkv_rope_attention": 2, "fused_qkv_rope_attention_bwd": 2,
+                        "adaln_norm": 5, "conv_pos_embedding": 1}
+    b = 4
     rng = np.random.default_rng(12)
     mel = torch.from_numpy(rng.standard_normal((b, n, 100)).astype(np.float32))
     text = torch.from_numpy(rng.integers(1, 96, (b, 128)).astype(np.int32))
-    lens = torch.tensor([512, 400, 300, 450], dtype=torch.int32)
+    lens = torch.tensor([n, n * 25 // 32, n * 19 // 32, n * 7 // 8], dtype=torch.int32)
     draws = make_draws(torch.Generator().manual_seed(5), b, n, 100)
+    gate = modules.FLAT_ATTN_MAX_N
+    if flat_max is not None:
+        modules.FLAT_ATTN_MAX_N = flat_max
     out = {}
-    for where, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
-        step = make_train_step(dit.DiTStatics(arch2, where), make_optimizer(7.5e-5, 10, 100),
-                               dtype=dtype)
-        _build.reset_launches()
-        t0 = time.perf_counter()
-        loss, grads = step.grad_step(tree_cast(p2, torch.float32, where), mel.to(where),
-                                     text.to(where), lens.to(where), draws=draws)
-        out[where.type] = (float(loss), [g.float().cpu() for g in tree_leaves(grads)])
-        log(f"  {where.type} {str(dtype)[6:]}: depth 2, b {b}, n {n}: loss {float(loss):.6f}, "
-            f"{time.perf_counter() - t0:.2f} s, launches {_build.launches()}")
-        if where.type == "cuda" and _build.launches() != {
-                "fused_qkv_rope_attention": 2, "fused_qkv_rope_attention_bwd": 2,
-                "adaln_norm": 5, "conv_pos_embedding": 1}:
-            raise AssertionError(f"depth-2 training step launches {_build.launches()}")
+    try:
+        for where, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+            step = make_train_step(bdef.statics_cls(arch2, where), make_optimizer(7.5e-5, 10, 100),
+                                   dtype=dtype, backbone=bdef)
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            loss, grads = step.grad_step(tree_cast(p2, torch.float32, where), mel.to(where),
+                                         text.to(where), lens.to(where), draws=draws)
+            out[where.type] = (float(loss), [g.float().cpu() for g in tree_leaves(grads)])
+            log(f"  {backbone} {where.type} {str(dtype)[6:]}: depth 2, b {b}, n {n}: loss "
+                f"{float(loss):.6f}, {time.perf_counter() - t0:.2f} s, launches {_build.launches()}")
+            if where.type == "cuda" and _build.launches() != expect:
+                raise AssertionError(f"{backbone} depth-2 training step launches "
+                                     f"{_build.launches()}, expected {expect}")
+    finally:
+        modules.FLAT_ATTN_MAX_N = gate
     (la, ga), (lb, gb) = out["cuda"], out["cpu"]
     rels = [float((a - w).norm() / w.norm()) for a, w in zip(ga, gb) if float(w.norm()) > 0]
     loss_rel = abs(la - lb) / abs(lb)
-    log(f"  card bf16 vs cpu f32: loss rel {loss_rel:.3e} (tol 2e-2), gradient rel-L2 over "
-        f"{len(rels)} leaves: median {statistics.median(rels):.3e}, max {max(rels):.3e} (tol 1e-1)")
+    log(f"  {backbone} card bf16 vs cpu f32: loss rel {loss_rel:.3e} (tol 2e-2), gradient rel-L2 "
+        f"over {len(rels)} leaves: median {statistics.median(rels):.3e}, max {max(rels):.3e} "
+        f"(tol 1e-1)")
     if not (loss_rel <= 2e-2 and max(rels) <= 1e-1):
-        raise AssertionError("training step: card bf16 and cpu f32 disagree")
+        raise AssertionError(f"{backbone} training step: card bf16 and cpu f32 disagree")
 
 
 def main() -> int:
@@ -829,6 +1058,34 @@ def main() -> int:
         phase_card_vs_cpu(dev, arch_b, params_b, vocos_b, backbone)
     torch.cuda.synchronize()
 
+    from f5tts_tpu_torch.scripts.common import MMDIT_FRAMES_PER_ID
+
+    for phase, model, backbone, cells, per_char in (
+            (10, "E2TTS_Base", "UNetT", UNETT_TRAIN_CELLS, 4),
+            (11, "MMDiT_Base", "MMDiT", MMDIT_TRAIN_CELLS, MMDIT_FRAMES_PER_ID)):
+        log(f"phase {phase}: training path, Trainer.train at {model} ({backbone}), bf16 compute, "
+            f"f32 state")
+        arch_b, params_b, _ = new[backbone]
+        for name, count in phase_train(dev, arch_b, params_b, gpu, backbone, cells,
+                                       per_char).items():
+            launches[name] = launches.get(name, 0) + count
+
+    log("phase 12: training step, card bf16 against cpu f32, depth 2, UNetT and MMDiT")
+    arch_u, params_u, _ = new["UNetT"]
+    rest = {"rms_norm": 5, "conv_pos_embedding": 1}
+    phase_train_card_vs_cpu(dev, arch_u, params_u, "UNetT", 1023, dict(
+        rest, fused_qkv_rope_attention=2, fused_qkv_rope_attention_bwd=2))
+    phase_train_card_vs_cpu(dev, arch_u, params_u, "UNetT", 1023, dict(
+        rest, flash_attention_lse=2, flash_attention_bwd=2), flat_max=512)
+    arch_m, params_m, _ = new["MMDiT"]
+    phase_train_card_vs_cpu(dev, arch_m, params_m, "MMDiT", 512, {
+        "fused_qkv_rope_attention_bias": 2, "fused_qkv_rope_attention_bias_bwd": 2,
+        "adaln_norm": 8, "conv_pos_embedding": 1})
+    torch.cuda.synchronize()
+
+    idle = [name for name in rows if not launches.get(name)]
+    if idle:
+        raise AssertionError(f"kernels never launched on the main paths: {idle}")
     kernels = []
     for name, row in rows.items():
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],

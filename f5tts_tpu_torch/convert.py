@@ -7,8 +7,9 @@ arrays (nested dicts and lists; blocks stacked on a leading depth axis:
 UNetT; attention fused (`to_qkv`, `to_qkv_c`) or not) and return the port's
 parameters as CPU f32 tensors.
 `train_state_from_jax` takes a JAX `TrainState` with numpy leaves (params,
-the optax AdamW mu / nu / count, the EMA and the step) and returns the port's
-`TrainState`, so both sides can take an optimizer step from one state.
+the optax AdamW mu / nu / count, the EMA and the step) of any backbone
+("DiT", "UNetT", "MMDiT") and returns the port's `TrainState`, so both sides
+can take an optimizer step from one state.
 
 Layouts. The port keeps the JAX package's layouts, so no tensor is
 transposed: Linear weights stay (in, out) and are applied as `x @ w + b`;
@@ -88,11 +89,16 @@ def _find_states(node, found: list) -> list:
     return found
 
 
-def train_state_from_jax(state):
-    """JAX TrainState (numpy leaves; the optax chain clip + adamw) -> the
-    port's TrainState on the CPU."""
+PARAMS_FROM_JAX = {"DiT": dit_params_from_jax, "UNetT": unett_params_from_jax,
+                   "MMDiT": mmdit_params_from_jax}
+
+
+def train_state_from_jax(state, backbone: str = "DiT"):
+    """JAX TrainState (numpy leaves; the optax chain clip + adamw) of the
+    `backbone`'s tree -> the port's TrainState on the CPU."""
     from f5tts_tpu_torch.train.step import TrainState
 
+    to_port = PARAMS_FROM_JAX[backbone]
     counts = _find_states(state.opt_state, [])
     adam = [s for s in counts if "mu" in s._fields]
     if len(adam) != 1:
@@ -100,6 +106,6 @@ def train_state_from_jax(state):
     count = int(np.asarray(adam[0].count))
     if any(int(np.asarray(s.count)) != count for s in counts):
         raise ValueError("the schedule count and the AdamW count differ")
-    return TrainState(params=dit_params_from_jax(state.params), mu=dit_params_from_jax(adam[0].mu),
-                      nu=dit_params_from_jax(adam[0].nu), count=count,
-                      ema=dit_params_from_jax(state.ema_params), step=int(np.asarray(state.step)))
+    return TrainState(params=to_port(state.params), mu=to_port(adam[0].mu),
+                      nu=to_port(adam[0].nu), count=count, ema=to_port(state.ema_params),
+                      step=int(np.asarray(state.step)))

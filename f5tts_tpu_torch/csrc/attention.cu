@@ -1,4 +1,5 @@
-// Forward attention kernels K3, K5 and K7: one tile loop, three entry points.
+// Forward attention kernels K3, K5 and K7 (and K7's lse mode): one tile loop,
+// four entry points.
 //
 // K3 fused_qkv_rope_attn_kernel: fused QKV + interleaved RoPE + length-masked
 //    attention, flat layout. Replaces f5tts_tpu/ops/attention.py:567
@@ -23,6 +24,11 @@
 //    In:  q, k, v [b, h, n, 64] bf16 (already roped), lengths [b] int32.
 //    Out: [b, h, n, 64] bf16; q tiles wholly past the length are zeros, rows
 //         past the length inside a live tile are computed, as in Pallas.
+//    flash_attn_lse_kernel, the training mode (the Pallas bodies with their
+//    lse_ref, :115-120 and :161-164, behind :193 _flash_forward(return_lse)):
+//    also writes lse [b, h, n] f32 = m + log(l) over the scaled scores, and
+//    -1e30 for the rows of q tiles wholly past the length, for the backward
+//    K9 (csrc/attention_bwd.cu).
 //
 // Bound: tensor-core operations. 4*b*h*n*live_keys*64 flops (8.6 GFLOP at
 // b=2, n=1024, h=16, ~9 us at 989 TFLOP/s) against ~12 MB of bytes. Design:
@@ -35,8 +41,8 @@
 // (max, sum, acc) stay in f32 registers. Dead keys get an additive -1e30 (not
 // -inf, which makes dead rows NaN) and l == 0 is guarded as the JAX kernels
 // guard it. Loads are synchronous; wgmma, TMA and a cp.async pipeline are
-// later work. The three modes are compile-time template arguments of one
-// body, so K3's instantiation is the loop it always was.
+// later work. The modes are compile-time template arguments of one body, so
+// K3's instantiation is the loop it always was.
 #include "common.cuh"
 
 #define AT_D 64
@@ -46,15 +52,17 @@
 #define AT_NEG -1e30f
 
 // ROPE: rotate q and k with the flat tables. BIAS: key mask row instead of a
-// prefix length. ZERO_DEAD_ROWS: write rows >= len as zeros (K3).
+// prefix length. ZERO_DEAD_ROWS: write rows >= len as zeros (K3). LSE: write
+// each row's lse to lseb (K7's training mode).
 // qb/kb/vb/outb point at row 0 of this (batch, head); rows are in_row /
-// out_row elements apart; cos_t/sin_t at this head's lanes, tab_row apart.
-template <bool ROPE, bool BIAS, bool ZERO_DEAD_ROWS>
+// out_row elements apart; cos_t/sin_t at this head's lanes, tab_row apart;
+// lseb at this (batch, head)'s n rows.
+template <bool ROPE, bool BIAS, bool ZERO_DEAD_ROWS, bool LSE = false>
 __device__ __forceinline__ void attn_fwd_tile(
     const bf16* __restrict__ qb, const bf16* __restrict__ kb, const bf16* __restrict__ vb,
     long long in_row, const bf16* __restrict__ cos_t, const bf16* __restrict__ sin_t,
     int tab_row, int len, const uint8_t* __restrict__ kmask, bf16* __restrict__ outb,
-    long long out_row, int n, float sm_scale) {
+    long long out_row, int n, float sm_scale, float* __restrict__ lseb = nullptr) {
     const int q0 = blockIdx.x * AT_BQ;
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
@@ -67,6 +75,7 @@ __device__ __forceinline__ void attn_fwd_tile(
                 *reinterpret_cast<uint4*>(outb + row * out_row + (i & 7) * 8) =
                     make_uint4(0, 0, 0, 0);
         }
+        if (LSE && tid < AT_BQ && q0 + tid < n) lseb[q0 + tid] = AT_NEG;
         return;
     }
 
@@ -245,6 +254,7 @@ __device__ __forceinline__ void attn_fwd_tile(
         if (row >= n) continue;
         const bool live_row = !ZERO_DEAD_ROWS || row < len;
         const float inv = (live_row && l_run[r] != 0.f) ? 1.f / l_run[r] : 0.f;
+        if (LSE && t4 == 0) lseb[row] = l_run[r] > 0.f ? m_run[r] + logf(l_run[r]) : AT_NEG;
         bf16* orow = outb + row * out_row + t4 * 2;
 #pragma unroll
         for (int dt = 0; dt < 8; ++dt)
@@ -290,6 +300,18 @@ __global__ void __launch_bounds__(128) flash_attn_kernel(
                                        sm_scale);
 }
 
+__global__ void __launch_bounds__(128) flash_attn_lse_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const int* __restrict__ lengths, bf16* __restrict__ out, float* __restrict__ lse, int n,
+    int heads, float sm_scale) {
+    const int h = blockIdx.y, b = blockIdx.z;
+    const size_t rows = ((size_t)b * heads + h) * n;
+    attn_fwd_tile<false, false, false, true>(q + rows * AT_D, k + rows * AT_D, v + rows * AT_D,
+                                             AT_D, nullptr, nullptr, 0,
+                                             min(max(lengths[b], 0), n), nullptr,
+                                             out + rows * AT_D, AT_D, n, sm_scale, lse + rows);
+}
+
 extern "C" int f5_fused_qkv_rope_attn_bf16(const void* qkv, const void* cos_t,
                                            const void* sin_t, const void* lengths,
                                            void* out, int b, int n, int heads,
@@ -324,6 +346,18 @@ extern "C" int f5_flash_attn_bf16(const void* q, const void* k, const void* v,
         flash_attn_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
             (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lengths,
             (bf16*)out, n, heads, sm_scale);
+    }
+    return (int)cudaGetLastError();
+}
+
+extern "C" int f5_flash_attn_lse_bf16(const void* q, const void* k, const void* v,
+                                      const void* lengths, void* out, void* lse, int b, int n,
+                                      int heads, float sm_scale, void* stream) {
+    if (b > 0 && n > 0) {
+        dim3 grid((n + AT_BQ - 1) / AT_BQ, heads, b);
+        flash_attn_lse_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
+            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lengths,
+            (bf16*)out, (float*)lse, n, heads, sm_scale);
     }
     return (int)cudaGetLastError();
 }

@@ -1,8 +1,10 @@
 """Flow matching: the training loss and the sampler (counterpart of
 f5tts_tpu/models/cfm.py:111-364).
 
-`cfm_loss` is the masked-infilling CFM regression: a random span (fraction
-0.7-1.0 of each length) is cut out of the mel and predicted from noise,
+`cfm_loss` is the masked-infilling CFM regression through any backbone of
+`BACKBONES` (its `forward`, as JAX cfm.py:111-162 runs `BackboneDef.forward`):
+a random span (fraction 0.7-1.0 of each length) is cut out of the mel and
+predicted from noise,
 x0 ~ N(0, I), t ~ U[0, 1], phi = (1 - t) x0 + t x1, target flow = x1 - x0,
 with per-sample CFG dropout (audio 0.3; both 0.2, which also drops the
 audio), then the MSE over the span. Its random draws come from a
@@ -100,9 +102,11 @@ def make_draws(generator: torch.Generator, b: int, n: int, d: int,
 def cfm_loss(params, statics, mel: torch.Tensor, text: torch.Tensor, lens: torch.Tensor,
              cfg: CFMConfig = CFMConfig(), dtype=torch.bfloat16, *,
              generator: Optional[torch.Generator] = None,
-             draws: Optional[CFMDraws] = None) -> tuple[torch.Tensor, dict]:
+             draws: Optional[CFMDraws] = None,
+             backbone: BackboneDef = DIT) -> tuple[torch.Tensor, dict]:
     """(scalar f32 loss, aux) for target mel [b, n, d] (x1), text [b, nt] ids
-    (-1 padded), lens [b] valid frames. `params` must hold the fused to_qkv
+    (-1 padded), lens [b] valid frames, through `backbone` (`statics` are
+    its `statics_cls`'s). `params` must hold the fused to_qkv
     (`fuse_backbone_qkv`). Pass `draws` or a `generator`."""
     b, n, d = mel.shape
     if draws is None:
@@ -122,8 +126,8 @@ def cfm_loss(params, statics, mel: torch.Tensor, text: torch.Tensor, lens: torch
 
     drop_both = draws.drop_both < cfg.cond_drop_prob
     drop_audio = (draws.drop_audio < cfg.audio_drop_prob) | drop_both
-    pred = dit.dit_forward(params, statics, phi, cond, text, draws.time.float(), lengths=lens,
-                           drop_audio_cond=drop_audio, drop_text=drop_both, dtype=dtype)
+    pred = backbone.forward(params, statics, phi, cond, text, draws.time.float(), lengths=lens,
+                            drop_audio_cond=drop_audio, drop_text=drop_both, dtype=dtype)
 
     se = (pred.float() - flow) ** 2
     spanf = span[:, :, None].float()

@@ -16,6 +16,10 @@
 - Every AdaLN modulation is computed before the block loop
   (`mmdit_hoist_t_mods`), and for every ODE step at once in the sampler
   (`mmdit_precompute_t_mods`).
+- Training (`cfm_loss`): per-sample [b] bool drops; the joint attention's
+  backward is kernel K8, which reads the joint dO on every row (dead rows
+  get a zero dO from the masks after to_out / to_out_c, and the last
+  block's text rows from its unused text output).
 The JAX package stacks the depth - 1 uniform blocks for `lax.scan`; here
 they are a Python list of block dicts (`convert.py` unstacks).
 """

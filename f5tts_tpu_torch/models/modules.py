@@ -240,7 +240,9 @@ def self_attention(p: Params, x: torch.Tensor, heads: int, rope_tabs: tuple,
     The JAX gate (modules.py:410-413): up to FLAT_ATTN_MAX_N rows the flat
     kernel K3 takes the projection as it is; past it q/k/v are split, roped,
     split into heads and go to the head-layout kernel K7 (UNetT at the
-    4096-frame cap: 4097 rows padded to 4224)."""
+    4096-frame cap: 4097 rows padded to 4224). Both branches are
+    differentiable: K4 is K3's backward; under grad the head-layout branch
+    runs K7's lse mode and K9 (without grad, K7 alone)."""
     b, n, _ = x.shape
     if "to_qkv" not in p:
         raise ValueError("self_attention takes fused to_qkv params: apply fuse_backbone_qkv")

@@ -12,6 +12,9 @@ f5tts_tpu/models/unett.py:32-223).
   x @ W[:d] + skip @ W[d:] (no [b, n, 2d] concat), "add", or "none".
 - Text and input embeddings are the DiT's in their UNetT forms: no
   per-sample lengths, conv position over every row.
+- Training (`cfm_loss`) passes per-sample [b] bool `drop_audio_cond` /
+  `drop_text`; autograd runs through the attention kernels' backwards (K4,
+  or K9 past the flat gate), K6's f32 formula and the split skip matmul.
 The JAX package stacks each half on a leading depth axis for `lax.scan`;
 here each half is a Python list of block dicts (`convert.py` unstacks).
 """
@@ -106,7 +109,8 @@ def unett_forward(params: m.Params, statics: UNetTStatics, x: torch.Tensor,
                   text_embeds: Optional[tuple] = None, dtype=torch.float32) -> torch.Tensor:
     """Flow prediction [b, n, mel] (f32); with cfg_infer, [2b, n, mel]: cond
     rows then uncond rows (the uncond rows drop the audio cond and the text).
-    `params` must hold the fused to_qkv (`fuse_backbone_qkv`)."""
+    `drop_audio_cond` / `drop_text` (without cfg_infer): bools or [b] bool
+    tensors. `params` must hold the fused to_qkv (`fuse_backbone_qkv`)."""
     arch = statics.arch
     b, n, _ = x.shape
     if time.dim() == 0:

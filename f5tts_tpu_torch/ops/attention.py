@@ -1,5 +1,5 @@
-"""Attention (counterpart of f5tts_tpu/ops/attention.py:31-246, :777-1224,
-:1401-1500 and :1695-1790).
+"""Attention (counterpart of f5tts_tpu/ops/attention.py:31-546, :777-1224,
+:1401-1641 and :1695-1790).
 
 `fused_qkv_rope_attention` takes the fused QKV projection output flat
 [b, n, 3*h*d], rotates q and k with interleaved RoPE from flat cos/sin
@@ -25,14 +25,20 @@ holds there: both backwards read dO as 0 on those rows.
 the middle): kernel K5 (the Pallas `_fused_qkv_attn_bias_kernel` and its
 streaming twin), plain version `fused_qkv_rope_attention_bias_ref` (the
 function of the JAX `_bias_decomposed_ref`, at the kernel's rounding points).
-Every row is computed; the caller masks dead rows after to_out.
+Every row is computed; the caller masks dead rows after to_out. Its backward
+is kernel K8 (K4's pair in its key-mask mode, replacing `_fused_bias_bwd_kernel`
+and the bias-row branch of `_fused_qkv_bwd_kernel_long`), plain version
+`fused_qkv_rope_attention_bias_bwd_ref`; dO is read as it is on every row.
 
 `flash_attention` is head-layout attention [b, h, n, d] over keys <
 lengths[b] on already-roped q/k: kernel K7 (the Pallas `_flash_kernel_single`
-and `_flash_kernel`), plain version `mha_reference`; `attention` is the
-dispatcher of the JAX package's attention.py:1766 without its mesh branch.
-K5 and K7 are forward only: their backward kernels are not ported yet, so a
-CUDA input that requires grad raises.
+and `_flash_kernel`), plain version `flash_attention_fwd_ref` (`mha_reference`
+with K7's zero q tiles); `attention` is the dispatcher of the JAX package's
+attention.py:1766 without its mesh branch. When an input requires grad it
+runs K7's lse mode (the row log-sum-exp saved, as the Pallas forward's
+`return_lse`) and its backward is kernel K9 (csrc/attention_bwd.cu, replacing
+`_flash_bwd_fused_kernel` and the split `_flash_bwd_dq_kernel` /
+`_flash_bwd_dkv_kernel`), plain version `flash_attention_bwd_ref`.
 """
 
 from __future__ import annotations
@@ -48,7 +54,11 @@ from f5tts_tpu_torch.ops import _build
 from f5tts_tpu_torch.ops.rope import apply_rotary_flat_tables
 
 NEG_INF = -1e30
+# a row whose saved lse is below this is dead (K7 writes NEG_INF on q tiles
+# wholly past the length), as the Pallas backward tests lse > NEG_INF / 2
+DEAD_LSE = NEG_INF / 2
 HEAD_DIM = 64  # the kernels' head width
+Q_TILE = 64    # K7's q tile: tiles wholly past the length are dead
 # the longest sequence the JAX package sends through its flat kernels; past
 # it `self_attention` splits heads for K7, as the JAX gate does
 FLAT_ATTN_MAX_N = 4096
@@ -97,6 +107,20 @@ def fused_qkv_rope_attention_bwd_ref(qkv, cos, sin, lengths, dout, heads: int) -
     dtype before the three products, dq and dk scaled and un-roped (rope with
     -sin) in f32. dO is read as 0 on rows >= length. One head at a time, so
     no [b, h, n, n] tensor exists."""
+    live = torch.arange(qkv.shape[1], device=qkv.device)[None, :] < lengths[:, None]
+    do = torch.where(live[:, :, None], dout.to(qkv.dtype),
+                     torch.zeros((), dtype=qkv.dtype, device=qkv.device))
+    return _flat_bwd_ref(qkv, cos, sin, live, do, heads)
+
+
+def fused_qkv_rope_attention_bias_bwd_ref(qkv, cos, sin, kmask, dout, heads: int) -> torch.Tensor:
+    """Plain backward of `fused_qkv_rope_attention_bias` (K8's function):
+    `fused_qkv_rope_attention_bwd_ref` with the key mask as the bias row and
+    dO read as it is on every row (the forward computes every row)."""
+    return _flat_bwd_ref(qkv, cos, sin, kmask, dout.to(qkv.dtype), heads)
+
+
+def _flat_bwd_ref(qkv, cos, sin, kmask, do, heads: int) -> torch.Tensor:
     b, n, hd3 = qkv.shape
     hd = hd3 // 3
     d = hd // heads
@@ -106,9 +130,7 @@ def fused_qkv_rope_attention_bwd_ref(qkv, cos, sin, lengths, dout, heads: int) -
     cos, sin = cos[:n], sin[:n]
     qr = apply_rotary_flat_tables(q, cos, sin)
     kr = apply_rotary_flat_tables(k, cos, sin)
-    live = torch.arange(n, device=qkv.device)[None, :] < lengths[:, None]
-    bias = torch.where(live, 0.0, NEG_INF)[:, None, :]
-    do = torch.where(live[:, :, None], dout.to(dt), torch.zeros((), dtype=dt, device=qkv.device))
+    bias = torch.where(kmask, 0.0, NEG_INF)[:, None, :]
     grads = [torch.empty(b, n, hd, dtype=torch.float32, device=qkv.device) for _ in range(3)]
     for i in range(heads):
         lanes = slice(i * d, (i + 1) * d)
@@ -126,10 +148,11 @@ def fused_qkv_rope_attention_bwd_ref(qkv, cos, sin, lengths, dout, heads: int) -
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
-    lib = _build.load("attention")
-    fn = lib.f5_fused_qkv_rope_attn_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+def _entry(lib: str, name: str, n_ptrs: int):
+    """`name` of csrc/<lib>.cu: n_ptrs pointers, then (b, n, heads, scale, stream)."""
+    fn = getattr(_build.load(lib), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3 + [ctypes.c_float,
+                                                                     ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -143,6 +166,13 @@ def _check_lengths(lengths, b, device):
     if (lengths.shape != (b,) or lengths.dtype != torch.int32 or lengths.device != device
             or not lengths.is_contiguous()):
         raise ValueError("attention kernel takes int32 [b] lengths on the inputs' device")
+
+
+def _check_kmask(kmask, b, n, device):
+    if (kmask.shape != (b, n) or kmask.dtype != torch.bool or kmask.device != device
+            or not kmask.is_contiguous()):
+        raise ValueError("attention bias kernel takes a contiguous bool [b, n] key mask on "
+                         "qkv's device")
 
 
 def _check_qkv(qkv, cos, sin, heads):
@@ -162,29 +192,15 @@ def _check_qkv(qkv, cos, sin, heads):
                              "rope tables on qkv's device")
 
 
-def _refuse_grad(name, *tensors):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(f"{name}: the backward kernel is not ported; call it "
-                                  "under torch.no_grad() on the card")
+def _device(name: str, t: torch.Tensor) -> str:
+    """"cpu" or "cuda"; any other device raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device.type
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_fn():
-    lib = _build.load("attention_bwd")
-    fn = lib.f5_fused_qkv_rope_attn_bwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def fused_qkv_rope_attention_bwd(qkv, cos, sin, lengths, dout, heads: int) -> torch.Tensor:
-    """dQKV [b, n, 3*h*d] of `fused_qkv_rope_attention` for the incoming
-    gradient dout [b, n, h*d]. Kernel K4 on CUDA, plain on the CPU."""
-    if qkv.device.type == "cpu":
-        return fused_qkv_rope_attention_bwd_ref(qkv, cos, sin, lengths, dout, heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"fused_qkv_rope_attention_bwd: unsupported device {qkv.device}")
-    _check(qkv, cos, sin, lengths, heads)
+def _flat_bwd(entry: str, name: str, qkv, cos, sin, mask, dout, heads: int) -> torch.Tensor:
+    """Launch a flat dQKV pair: K4 (`mask` = lengths) or K8 (`mask` = kmask)."""
     b, n, hd3 = qkv.shape
     dout = dout.contiguous()
     if (dout.shape != (b, n, hd3 // 3) or dout.dtype != qkv.dtype or dout.device != qkv.device
@@ -194,12 +210,27 @@ def fused_qkv_rope_attention_bwd(qkv, cos, sin, lengths, dout, heads: int) -> to
     dqkv = torch.empty_like(qkv)
     lse = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
     delta = torch.empty_like(lse)
-    err = _bwd_fn()(_build.ptr(qkv), _build.ptr(cos), _build.ptr(sin), _build.ptr(lengths),
-                    _build.ptr(dout), _build.ptr(dqkv), _build.ptr(lse), _build.ptr(delta),
-                    b, n, heads, 1.0 / math.sqrt(HEAD_DIM), _build.stream_ptr(qkv.device))
-    _build.check(err, "fused_qkv_rope_attention_bwd")
-    _build.count("fused_qkv_rope_attention_bwd")
+    err = _entry("attention_bwd", entry, 8)(
+        _build.ptr(qkv), _build.ptr(cos), _build.ptr(sin), _build.ptr(mask), _build.ptr(dout),
+        _build.ptr(dqkv), _build.ptr(lse), _build.ptr(delta), b, n, heads,
+        1.0 / math.sqrt(HEAD_DIM), _build.stream_ptr(qkv.device))
+    _build.check(err, name)
+    _build.count(name)
     return dqkv
+
+
+# ---------------------------------------------------------------------------
+# K3 forward, K4 backward: flat fused QKV + RoPE attention over keys < lengths
+# ---------------------------------------------------------------------------
+
+def fused_qkv_rope_attention_bwd(qkv, cos, sin, lengths, dout, heads: int) -> torch.Tensor:
+    """dQKV [b, n, 3*h*d] of `fused_qkv_rope_attention` for the incoming
+    gradient dout [b, n, h*d]. Kernel K4 on CUDA, plain on the CPU."""
+    if _device("fused_qkv_rope_attention_bwd", qkv) == "cpu":
+        return fused_qkv_rope_attention_bwd_ref(qkv, cos, sin, lengths, dout, heads)
+    _check(qkv, cos, sin, lengths, heads)
+    return _flat_bwd("f5_fused_qkv_rope_attn_bwd_bf16", "fused_qkv_rope_attention_bwd",
+                     qkv, cos, sin, lengths, dout, heads)
 
 
 class _FusedQKVRopeAttention(torch.autograd.Function):
@@ -226,23 +257,21 @@ def fused_qkv_rope_attention(qkv, cos, sin, lengths, heads: int) -> torch.Tensor
 
 
 def _forward(qkv, cos, sin, lengths, heads: int) -> torch.Tensor:
-    if qkv.device.type == "cpu":
+    if _device("fused_qkv_rope_attention", qkv) == "cpu":
         return fused_qkv_rope_attention_ref(qkv, cos, sin, lengths, heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"fused_qkv_rope_attention: unsupported device {qkv.device}")
     _check(qkv, cos, sin, lengths, heads)
     b, n, hd3 = qkv.shape
     out = torch.empty((b, n, hd3 // 3), dtype=qkv.dtype, device=qkv.device)
-    err = _fn()(_build.ptr(qkv), _build.ptr(cos), _build.ptr(sin), _build.ptr(lengths),
-                _build.ptr(out), b, n, heads, 1.0 / math.sqrt(HEAD_DIM),
-                _build.stream_ptr(qkv.device))
+    err = _entry("attention", "f5_fused_qkv_rope_attn_bf16", 5)(
+        _build.ptr(qkv), _build.ptr(cos), _build.ptr(sin), _build.ptr(lengths), _build.ptr(out),
+        b, n, heads, 1.0 / math.sqrt(HEAD_DIM), _build.stream_ptr(qkv.device))
     _build.check(err, "fused_qkv_rope_attention")
     _build.count("fused_qkv_rope_attention")
     return out
 
 
 # ---------------------------------------------------------------------------
-# K5: flat fused QKV + RoPE attention under a [b, n] key mask
+# K5 forward, K8 backward: flat fused QKV + RoPE attention under a key mask
 # ---------------------------------------------------------------------------
 
 def fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, heads: int) -> torch.Tensor:
@@ -266,75 +295,188 @@ def fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, heads: int) -> torch
     return o.transpose(1, 2).reshape(b, n, hd).to(qkv.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _bias_fn():
-    lib = _build.load("attention")
-    fn = lib.f5_fused_qkv_rope_attn_bias_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def fused_qkv_rope_attention_bias_bwd(qkv, cos, sin, kmask, dout, heads: int) -> torch.Tensor:
+    """dQKV [b, n, 3*h*d] of `fused_qkv_rope_attention_bias` for the incoming
+    gradient dout [b, n, h*d]. Kernel K8 on CUDA, plain on the CPU."""
+    if _device("fused_qkv_rope_attention_bias_bwd", qkv) == "cpu":
+        return fused_qkv_rope_attention_bias_bwd_ref(qkv, cos, sin, kmask, dout, heads)
+    _check_qkv(qkv, cos, sin, heads)
+    _check_kmask(kmask, qkv.shape[0], qkv.shape[1], qkv.device)
+    return _flat_bwd("f5_fused_qkv_rope_attn_bias_bwd_bf16", "fused_qkv_rope_attention_bias_bwd",
+                     qkv, cos, sin, kmask, dout, heads)
+
+
+class _FusedQKVRopeAttentionBias(torch.autograd.Function):
+    """K5 forward, K8 backward (plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, qkv, cos, sin, kmask, heads):
+        ctx.save_for_backward(qkv, cos, sin, kmask)
+        ctx.heads = heads
+        return _bias_forward(qkv, cos, sin, kmask, heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, cos, sin, kmask = ctx.saved_tensors
+        dqkv = fused_qkv_rope_attention_bias_bwd(qkv, cos, sin, kmask, dout, ctx.heads)
+        return dqkv, None, None, None, None
 
 
 def fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, heads: int) -> torch.Tensor:
     """qkv [b, n, 3*h*d], joint cos/sin [>=n, h*d], kmask [b, n] bool (True =
-    live key) -> [b, n, h*d]. Kernel K5 on CUDA (forward only), plain on the
-    CPU."""
-    if qkv.device.type == "cpu":
+    live key) -> [b, n, h*d]. Kernel K5 on CUDA, plain on the CPU;
+    differentiable in qkv (K8 on CUDA)."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _FusedQKVRopeAttentionBias.apply(qkv, cos, sin, kmask, heads)
+    return _bias_forward(qkv, cos, sin, kmask, heads)
+
+
+def _bias_forward(qkv, cos, sin, kmask, heads: int) -> torch.Tensor:
+    if _device("fused_qkv_rope_attention_bias", qkv) == "cpu":
         return fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"fused_qkv_rope_attention_bias: unsupported device {qkv.device}")
-    _refuse_grad("fused_qkv_rope_attention_bias", qkv, cos, sin)
     _check_qkv(qkv, cos, sin, heads)
     b, n, hd3 = qkv.shape
-    if (kmask.shape != (b, n) or kmask.dtype != torch.bool or kmask.device != qkv.device
-            or not kmask.is_contiguous()):
-        raise ValueError("attention bias kernel takes a contiguous bool [b, n] key mask on "
-                         "qkv's device")
+    _check_kmask(kmask, b, n, qkv.device)
     out = torch.empty((b, n, hd3 // 3), dtype=qkv.dtype, device=qkv.device)
-    err = _bias_fn()(_build.ptr(qkv), _build.ptr(cos), _build.ptr(sin), _build.ptr(kmask),
-                     _build.ptr(out), b, n, heads, 1.0 / math.sqrt(HEAD_DIM),
-                     _build.stream_ptr(qkv.device))
+    err = _entry("attention", "f5_fused_qkv_rope_attn_bias_bf16", 5)(
+        _build.ptr(qkv), _build.ptr(cos), _build.ptr(sin), _build.ptr(kmask), _build.ptr(out),
+        b, n, heads, 1.0 / math.sqrt(HEAD_DIM), _build.stream_ptr(qkv.device))
     _build.check(err, "fused_qkv_rope_attention_bias")
     _build.count("fused_qkv_rope_attention_bias")
     return out
 
 
 # ---------------------------------------------------------------------------
-# K7: head-layout attention over keys < lengths
+# K7 forward (its lse mode under grad), K9 backward: head-layout attention
+# over keys < lengths
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _flash_fn():
-    lib = _build.load("attention")
-    fn = lib.f5_flash_attn_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _live_tiles(lengths, n: int) -> torch.Tensor:
+    """[b, n] bool: the row's 64-row q tile starts before the length."""
+    tile0 = torch.arange(n, device=lengths.device) // Q_TILE * Q_TILE
+    return tile0[None, :] < lengths[:, None]
+
+
+def flash_attention_fwd_ref(q, k, v, lengths, return_lse: bool = False):
+    """K7's function: `mha_reference` with the q tiles wholly past the length
+    written as 0; with `return_lse`, also the row lse [b, h, n] f32 of the
+    scaled scores (log-sum-exp over keys < length), NEG_INF on those tiles."""
+    n, d = q.shape[-2], q.shape[-1]
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    kmask = torch.arange(n, device=q.device)[None, :] < lengths[:, None]
+    scores = torch.where(kmask[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    o = torch.matmul(probs.to(v.dtype).float(), v.float()).to(v.dtype)
+    live = _live_tiles(lengths, n)[:, None, :]
+    o = torch.where(live[..., None], o, torch.zeros((), dtype=o.dtype, device=o.device))
+    if not return_lse:
+        return o
+    return o, torch.where(live, torch.logsumexp(scores, dim=-1), NEG_INF)
+
+
+def flash_attention_bwd_ref(q, k, v, lengths, o, lse, dout) -> tuple:
+    """(dq, dk, dv) of the head-layout attention from the saved row lse (K9's
+    function, the Pallas backward bodies'): rows with lse <= DEAD_LSE and keys
+    >= length get p = 0, else p = exp(s * scale - lse); delta = rowsum(dO *
+    O) in f32; ds = p * (dp - delta); p and ds rounded to q's dtype before
+    dv = p^T dO, dk = ds^T q * scale and dq = ds k * scale. One head at a
+    time, so no [b, h, n, n] tensor exists."""
+    b, h, n, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    dt = q.dtype
+    delta = (dout.float() * o.float()).sum(dim=-1, keepdim=True)
+    key_live = (torch.arange(n, device=q.device)[None, :] < lengths[:, None])[:, None, :]
+    grads = [torch.empty(b, h, n, d, dtype=torch.float32, device=q.device) for _ in range(3)]
+    for i in range(h):
+        qh, kh, vh, doh = (t[:, i].float() for t in (q, k, v, dout))
+        lse_i = lse[:, i, :, None]
+        s = torch.matmul(qh, kh.transpose(1, 2)) * scale
+        p = torch.where((lse_i > DEAD_LSE) & key_live, torch.exp(s - lse_i), 0.0)
+        dp = torch.matmul(doh, vh.transpose(1, 2))
+        ds = (p * (dp - delta[:, i])).to(dt).float()
+        grads[0][:, i] = torch.matmul(ds, kh) * scale
+        grads[1][:, i] = torch.matmul(ds.transpose(1, 2), qh) * scale
+        grads[2][:, i] = torch.matmul(p.to(dt).float().transpose(1, 2), doh)
+    return tuple(g.to(dt) for g in grads)
+
+
+def _check_heads(*tensors):
+    q = tensors[0]
+    for t in tensors:
+        if (t.dim() != 4 or t.shape != q.shape or t.shape[-1] != HEAD_DIM or not t.is_contiguous()
+                or t.dtype != torch.bfloat16 or t.device != q.device or t.data_ptr() % 16):
+            raise ValueError(f"flash attention kernel takes contiguous, 16-byte aligned bf16 "
+                             f"[b, h, n, {HEAD_DIM}] tensors of one shape")
+
+
+def flash_attention_fwd(q, k, v, lengths, return_lse: bool = False):
+    """[b, h, n, d] q/k/v (already roped), lengths [b] int32 -> out [b, h, n, d]
+    (and with `return_lse` the row lse [b, h, n] f32). Kernel K7 on CUDA (its
+    lse mode with `return_lse`), `flash_attention_fwd_ref` on the CPU."""
+    if _device("flash_attention", q) == "cpu":
+        return flash_attention_fwd_ref(q, k, v, lengths, return_lse)
+    _check_heads(q, k, v)
+    b, h, n, _ = q.shape
+    _check_lengths(lengths, b, q.device)
+    out = torch.empty_like(q)
+    args = [_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(lengths), _build.ptr(out)]
+    if return_lse:
+        lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+        name, fn = "flash_attention_lse", _entry("attention", "f5_flash_attn_lse_bf16", 6)
+        args.append(_build.ptr(lse))
+    else:
+        name, fn = "flash_attention", _entry("attention", "f5_flash_attn_bf16", 5)
+    err = fn(*args, b, n, h, 1.0 / math.sqrt(HEAD_DIM), _build.stream_ptr(q.device))
+    _build.check(err, name)
+    _build.count(name)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q, k, v, lengths, o, lse, dout) -> tuple:
+    """(dq, dk, dv) [b, h, n, d] of `flash_attention` from its saved output o
+    and row lse, for the incoming gradient dout. Kernel K9 on CUDA, plain on
+    the CPU."""
+    if _device("flash_attention_bwd", q) == "cpu":
+        return flash_attention_bwd_ref(q, k, v, lengths, o, lse, dout)
+    dout = dout.contiguous()
+    _check_heads(q, k, v, o, dout)
+    b, h, n, _ = q.shape
+    _check_lengths(lengths, b, q.device)
+    if (lse.shape != (b, h, n) or lse.dtype != torch.float32 or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError("flash attention backward kernel takes a contiguous f32 [b, h, n] lse")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    err = _entry("attention_bwd", "f5_flash_attn_bwd_bf16", 11)(
+        *(_build.ptr(t) for t in (q, k, v, lengths, o, lse, dout, dq, dk, dv, delta)),
+        b, n, h, 1.0 / math.sqrt(HEAD_DIM), _build.stream_ptr(q.device))
+    _build.check(err, "flash_attention_bwd")
+    _build.count("flash_attention_bwd")
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K7 forward in its lse mode, K9 backward (plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths):
+        o, lse = flash_attention_fwd(q, k, v, lengths, return_lse=True)
+        ctx.save_for_backward(q, k, v, lengths, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (*flash_attention_bwd(*ctx.saved_tensors, dout), None)
 
 
 def flash_attention(q, k, v, lengths) -> torch.Tensor:
     """q/k/v [b, h, n, d] (already roped), lengths [b] int32 -> [b, h, n, d]
-    over keys < lengths[b]. Kernel K7 on CUDA (forward only; q tiles wholly
-    past the length are written as 0), `mha_reference` on the CPU."""
-    if q.device.type == "cpu":
-        return mha_reference(q, k, v, lengths)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _refuse_grad("flash_attention", q, k, v)
-    for t in (q, k, v):
-        if (t.dim() != 4 or t.shape != q.shape or t.shape[-1] != HEAD_DIM or not t.is_contiguous()
-                or t.dtype != torch.bfloat16 or t.device != q.device or t.data_ptr() % 16):
-            raise ValueError(f"flash attention kernel takes contiguous, 16-byte aligned bf16 "
-                             f"[b, h, n, {HEAD_DIM}] q, k and v of one shape")
-    b, h, n, _ = q.shape
-    _check_lengths(lengths, b, q.device)
-    out = torch.empty_like(q)
-    err = _flash_fn()(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(lengths),
-                      _build.ptr(out), b, n, h, 1.0 / math.sqrt(HEAD_DIM),
-                      _build.stream_ptr(q.device))
-    _build.check(err, "flash_attention")
-    _build.count("flash_attention")
-    return out
+    over keys < lengths[b]; q tiles wholly past the length are written as 0.
+    Kernel K7 on CUDA, `flash_attention_fwd_ref` on the CPU; differentiable
+    in q, k and v (K7's lse mode and K9 on CUDA)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, lengths)
+    return flash_attention_fwd(q, k, v, lengths)
 
 
 def attention(q, k, v, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:

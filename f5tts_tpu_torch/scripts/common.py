@@ -1,5 +1,5 @@
-"""Seeded models, requests and trace helpers shared by chip_smoke.py and the
-profiling scripts.
+"""Seeded models, requests, training text and trace helpers shared by
+chip_smoke.py and the profiling scripts.
 
 F5TTS_v1_Base, E2TTS_Base or MMDiT_Base (text_num_embeds 2545, as the JAX
 package's bench.py) and Vocos with random weights from fixed seeds; the
@@ -29,6 +29,23 @@ REQUESTS = [
 ]
 # char vocabulary: space (index 0) and printable ASCII
 VOCAB = {c: i for i, c in enumerate(" " + "".join(chr(i) for i in range(33, 127)))}
+# MMDiT's synthetic training text: one id per 6 mel frames (~16 ids a second
+# at 93.75 frames a second, about Emilia's rate), so the text stream's share
+# of the joint sequence is a real one
+MMDIT_FRAMES_PER_ID = 6
+
+
+def synthetic_text_ids(rng, lens, model: str, width: int = 256) -> np.ndarray:
+    """[b, nt] int32 ids in [1, 2545) for training rows of `lens` frames:
+    MMDiT_Base rows carry ceil(len / MMDIT_FRAMES_PER_ID) ids, -1 padded;
+    the other models `width` ids a row, as the JAX train_bench draws them."""
+    if PRESETS[model].backbone != "MMDiT":
+        return rng.integers(1, 2545, (len(lens), width)).astype(np.int32)
+    counts = [-(-int(t) // MMDIT_FRAMES_PER_ID) for t in lens]
+    ids = np.full((len(lens), max(counts)), -1, np.int32)
+    for i, c in enumerate(counts):
+        ids[i, :c] = rng.integers(1, 2545, c)
+    return ids
 
 
 def base_models(seed: int = 0, model: str = "F5TTS_v1_Base") -> tuple[ModelArch, dict, dict]:

@@ -6,8 +6,12 @@
   milestone (the reference's model_last.pt vs model_<step>.pt). A payload
   holds params, AdamW mu/nu/count, the EMA and the update counter; it is
   written to a temporary file and renamed, so a cut run leaves no torn file.
+  Any backbone's tree is saved as it is: the DiT's and MMDiT's "blocks"
+  lists (and MMDiT's "last_block" dict), the UNetT's "first_half" /
+  "second_half".
 - load_params: the (EMA) params of the newest checkpoint across both.
-- save_safetensors_ema: the EMA weights in the reference's state-dict key
+- save_safetensors_ema: the EMA weights of a DiT (the one backbone the JAX
+  package exports, as its `_to_reference_keys`) in the reference's state-dict key
   schema, as a safetensors file written by hand (an 8-byte little-endian
   header length, a compact JSON header sorted by key and padded with spaces
   to 8 bytes, then raw little-endian f32), byte-equal to what the
@@ -99,7 +103,11 @@ def load_params(ckpt_dir: str, use_ema: bool = True, step: Optional[int] = None)
 
 def to_reference_keys(params: dict, prefix: str = "") -> dict:
     """The port's DiT params -> the reference state-dict key schema (numpy,
-    torch layouts: Linear (out, in), Conv1d (out, in/groups, k))."""
+    torch layouts: Linear (out, in), Conv1d (out, in/groups, k)). Other
+    backbones raise: the JAX package maps only the DiT's keys."""
+    if "blocks" not in params or "last_block" in params:
+        raise ValueError("the reference-key export covers the DiT only (as the JAX "
+                         "_to_reference_keys); this tree is a UNetT or an MMDiT")
     sd: dict[str, np.ndarray] = {}
     t = "transformer"
 

@@ -17,7 +17,9 @@ is 5.4 GB in f32 and is never double-buffered.
 
 The optimizer state is kept on the unfused to_q / to_k / to_v tree; the loss
 fuses a per-step to_qkv view (`fuse_backbone_qkv(params, dtype)`), and
-autograd carries the gradient back through the concatenation.
+autograd carries the gradient back through the concatenation. The loss runs
+through any backbone of `cfm.BACKBONES` (`backbone=`, as the JAX
+make_train_step's `backbone`): the DiT, the UNetT or the MMDiT.
 """
 
 from __future__ import annotations
@@ -100,17 +102,19 @@ class TrainStep:
 
     def __init__(self, statics, hp: OptHParams, cfg: CFMConfig = CFMConfig(),
                  ema_decay: float = 0.999, ema_update_every: int = 10,
-                 ema_update_after_step: int = 100, dtype=torch.bfloat16):
+                 ema_update_after_step: int = 100, dtype=torch.bfloat16,
+                 backbone: cfm.BackboneDef = cfm.DIT):
         self.statics = statics
         self.hp = hp
         self.cfg = cfg
         self.ema = (ema_decay, ema_update_every, ema_update_after_step)
         self.dtype = dtype
+        self.backbone = backbone
 
     def loss_fn(self, params, mel, text, lens, generator=None, draws=None) -> torch.Tensor:
         fused = m.fuse_backbone_qkv(params, dtype=self.dtype)
         loss, _ = cfm.cfm_loss(fused, self.statics, mel, text, lens, self.cfg, self.dtype,
-                               generator=generator, draws=draws)
+                               generator=generator, draws=draws, backbone=self.backbone)
         return loss
 
     def grad_step(self, params, mel, text, lens, *, generator: Optional[torch.Generator] = None,
@@ -167,5 +171,7 @@ class TrainStep:
 
 def make_train_step(statics, hp: OptHParams, cfg: CFMConfig = CFMConfig(),
                     ema_decay: float = 0.999, ema_update_every: int = 10,
-                    ema_update_after_step: int = 100, dtype=torch.bfloat16) -> TrainStep:
-    return TrainStep(statics, hp, cfg, ema_decay, ema_update_every, ema_update_after_step, dtype)
+                    ema_update_after_step: int = 100, dtype=torch.bfloat16,
+                    backbone: cfm.BackboneDef = cfm.DIT) -> TrainStep:
+    return TrainStep(statics, hp, cfg, ema_decay, ema_update_every, ema_update_after_step, dtype,
+                     backbone)

@@ -13,6 +13,8 @@ f5tts_tpu/train/trainer.py:40-384).
 - Checkpoints: a milestone every `save_per_updates`, a heartbeat every
   `last_per_updates` and at the end (`CheckpointManager`).
 - Tokenizers "char" (vocab map) and "byte" (UTF-8).
+- Any backbone of `cfm.BACKBONES` (`backbone=`, the DiT by default): its
+  statics are rebuilt on the device by its `statics_cls`.
 Not ported yet: multi-device and multi-host data parallelism, ZeRO-1, the
 pinyin tokenizer (needs `pypinyin`), wandb/tensorboard logging, log_samples.
 """
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from f5tts_tpu_torch.config import CFMConfig, TrainConfig
-from f5tts_tpu_torch.models import dit
+from f5tts_tpu_torch.models.cfm import DIT, BackboneDef
 from f5tts_tpu_torch.models.modules import tree_leaves
 from f5tts_tpu_torch.text.vocab import list_str_to_idx, list_str_to_tensor
 from f5tts_tpu_torch.train.checkpoint import CheckpointManager
@@ -36,10 +38,12 @@ from f5tts_tpu_torch.utils import resolve_device
 
 
 class Trainer:
-    def __init__(self, params: dict, statics: dit.DiTStatics, train_cfg: TrainConfig,
-                 cfm_cfg: CFMConfig = CFMConfig(), vocab_char_map: Optional[dict] = None,
-                 tokenizer: str = "char", total_updates: Optional[int] = None,
-                 dtype=torch.bfloat16, device=None):
+    def __init__(self, params: dict, statics, train_cfg: TrainConfig,
+                 cfm_cfg: CFMConfig = CFMConfig(), backbone: BackboneDef = DIT,
+                 vocab_char_map: Optional[dict] = None, tokenizer: str = "char",
+                 total_updates: Optional[int] = None, dtype=torch.bfloat16, device=None):
+        """`statics`: the backbone's statics (`backbone.statics_cls`); only
+        its `.arch` is read."""
         if tokenizer not in ("char", "byte"):
             raise ValueError(f"tokenizer {tokenizer!r} is not ported (char and byte are)")
         if tokenizer == "char" and vocab_char_map is None:
@@ -48,7 +52,8 @@ class Trainer:
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
         self.vocab_char_map = vocab_char_map
-        self.statics = dit.DiTStatics(statics.arch, self.device)
+        self.backbone = backbone
+        self.statics = backbone.statics_cls(statics.arch, self.device)
         warmup = train_cfg.num_warmup_updates
         self.hp = make_optimizer(train_cfg.learning_rate, warmup, total_updates or warmup * 10,
                                  train_cfg.max_grad_norm)
@@ -56,7 +61,8 @@ class Trainer:
         self.step_fn = make_train_step(
             self.statics, self.hp, cfm_cfg, ema_decay=train_cfg.ema_decay,
             ema_update_every=train_cfg.ema_update_every,
-            ema_update_after_step=train_cfg.ema_update_after_step, dtype=dtype)
+            ema_update_after_step=train_cfg.ema_update_after_step, dtype=dtype,
+            backbone=backbone)
         self.accum = max(train_cfg.grad_accumulation_steps, 1)
         self.ckpt = CheckpointManager(train_cfg.save_dir, train_cfg.keep_last_n_checkpoints)
 

@@ -2,9 +2,10 @@
 
 Each hand-written kernel against its plain PyTorch version at small shapes,
 including ragged lengths and an n that is no multiple of the tiles; the
-attention backward K4 alone and through autograd; K5 and K7 refusing inputs
-that require grad; one tiny DiT, UNetT and MMDiT forward and one tiny DiT
-training step through the kernels against the CPU plain path.
+attention backwards K4, K8 and K9 alone and through autograd (K3 -> K4,
+K5 -> K8, K7's lse mode -> K9); one tiny DiT, UNetT and MMDiT forward and
+one tiny training step of each backbone through the kernels against the CPU
+plain path.
 Run on a GPU machine with:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -17,9 +18,16 @@ import torch
 from f5tts_tpu_torch.ops import _build
 from f5tts_tpu_torch.ops.adaln_norm import adaln_norm, adaln_norm_ref, rms_norm, rms_norm_ref
 from f5tts_tpu_torch.ops.attention import (
+    NEG_INF,
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_ref,
+    flash_attention_fwd,
+    flash_attention_fwd_ref,
     fused_qkv_rope_attention,
     fused_qkv_rope_attention_bias,
+    fused_qkv_rope_attention_bias_bwd,
+    fused_qkv_rope_attention_bias_bwd_ref,
     fused_qkv_rope_attention_bias_ref,
     fused_qkv_rope_attention_bwd,
     fused_qkv_rope_attention_bwd_ref,
@@ -166,18 +174,103 @@ def test_flash_attention_kernel(dev, n, length):
     assert not out[1, :, -(-length // 64) * 64:].any()
 
 
-def test_forward_only_kernels_refuse_grad(dev):
-    """K5 and K7 have no backward kernel yet: no silent autograd on the card."""
-    qkv = torch.zeros(1, 64, 3 * 1024, dtype=torch.bfloat16, device=dev, requires_grad=True)
-    tab = torch.zeros(64, 1024, dtype=torch.bfloat16, device=dev)
-    with pytest.raises(NotImplementedError):
-        fused_qkv_rope_attention_bias(qkv, tab, tab, torch.ones(1, 64, dtype=torch.bool,
-                                                                device=dev), 16)
-    q = torch.zeros(1, 16, 64, 64, dtype=torch.bfloat16, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, torch.tensor([64], dtype=torch.int32, device=dev))
-    with torch.no_grad():
-        flash_attention(q, q, q, torch.tensor([64], dtype=torch.int32, device=dev))
+def _close(got, want, live=None):
+    """The backward tolerance: rel-L2 <= 1e-2 and max-abs <= 2e-2 of the
+    largest entry (over `live` entries when given)."""
+    a, b = got.float(), want.float()
+    if live is not None:
+        a, b = a[live], b[live]
+    assert float((a - b).norm() / b.norm()) <= 1e-2
+    assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())
+
+
+def _bias_case(rng, n, dev):
+    qkv = _bf16(rng, (2, n, 3 * 1024), dev)
+    cos, sin = rope_flat_tables(rope_freqs_interleaved(64, n).to(dev), n, 16)
+    kmask = torch.ones(2, n, dtype=torch.bool, device=dev)
+    kmask[0, n // 4: n // 2] = False
+    kmask[1, n - n // 3:] = False
+    if n >= 192:
+        kmask[1, 64:128] = False  # a whole dead 64-key tile
+    return qkv, cos, sin, kmask
+
+
+@pytest.mark.parametrize("n", [64, 200, 1152, 3200])
+def test_bias_attention_bwd_kernel(dev, n):
+    """K8 against its plain version on every row (dO unmasked: every row of
+    K5 is computed); dead keys' dk and dv exactly 0."""
+    rng = np.random.default_rng(n + 4)
+    qkv, cos, sin, kmask = _bias_case(rng, n, dev)
+    dout = _bf16(rng, (2, n, 1024), dev)
+    _build.reset_launches()
+    got = fused_qkv_rope_attention_bias_bwd(qkv, cos, sin, kmask, dout, 16)
+    assert _build.launches() == {"fused_qkv_rope_attention_bias_bwd": 1}
+    _close(got, fused_qkv_rope_attention_bias_bwd_ref(qkv, cos, sin, kmask, dout, 16))
+    assert not got[:, :, 1024:][~kmask].any()
+
+
+def test_bias_attention_autograd_launches_k8(dev):
+    rng = np.random.default_rng(5)
+    qkv, cos, sin, kmask = _bias_case(rng, 256, dev)
+    qkv.requires_grad_()
+    _build.reset_launches()
+    out = fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, 16)
+    out.float().sum().backward()
+    assert _build.launches() == {"fused_qkv_rope_attention_bias": 1,
+                                 "fused_qkv_rope_attention_bias_bwd": 1}
+    _close(qkv.grad, fused_qkv_rope_attention_bias_bwd_ref(qkv.detach(), cos, sin, kmask,
+                                                           torch.ones_like(out), 16))
+
+
+@pytest.mark.parametrize("n,length", [(64, 1), (100, 37), (1024, 777), (4224, 3001)])
+def test_flash_attention_lse_kernel(dev, n, length):
+    """K7's lse mode: the output as K7's, the lse within 1e-3 on live tiles
+    and exactly -1e30 on the tiles past the length."""
+    rng = np.random.default_rng(n + 6)
+    q, k, v = (_bf16(rng, (2, 16, n, 64), dev) for _ in range(3))
+    lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)
+    _build.reset_launches()
+    out, lse = flash_attention_fwd(q, k, v, lengths, return_lse=True)
+    assert _build.launches() == {"flash_attention_lse": 1}
+    assert torch.equal(out, flash_attention(q, k, v, lengths))
+    _, want = flash_attention_fwd_ref(q.float(), k.float(), v.float(), lengths, return_lse=True)
+    tile_end = -(-length // 64) * 64
+    assert float((lse[1, :, :tile_end] - want[1, :, :tile_end]).abs().max()) <= 1e-3
+    assert float((lse[0] - want[0]).abs().max()) <= 1e-3
+    assert bool((lse[1, :, tile_end:] == NEG_INF).all())
+
+
+@pytest.mark.parametrize("n,length", [(64, 1), (100, 37), (1024, 777), (4224, 3001)])
+def test_flash_attention_bwd_kernel(dev, n, length):
+    """K9 against its plain version from K7's saved output and lse, dO zero
+    on rows >= length; dq of dead tiles and dk, dv of dead keys exactly 0."""
+    rng = np.random.default_rng(n + 7)
+    q, k, v = (_bf16(rng, (2, 16, n, 64), dev) for _ in range(3))
+    lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)
+    live = (torch.arange(n, device=dev)[None, :] < lengths[:, None])[:, None, :, None]
+    dout = _bf16(rng, (2, 16, n, 64), dev) * live
+    o, lse = flash_attention_fwd(q, k, v, lengths, return_lse=True)
+    _build.reset_launches()
+    got = flash_attention_bwd(q, k, v, lengths, o, lse, dout)
+    assert _build.launches() == {"flash_attention_bwd": 1}
+    want = flash_attention_bwd_ref(q, k, v, lengths, o, lse, dout)
+    for g, w in zip(got, want):
+        _close(g, w)
+        assert not g[1, :, length:].any()
+
+
+def test_flash_attention_autograd_launches_k7_lse_and_k9(dev):
+    rng = np.random.default_rng(8)
+    q, k, v = (_bf16(rng, (1, 16, 192, 64), dev).requires_grad_() for _ in range(3))
+    lengths = torch.tensor([150], dtype=torch.int32, device=dev)
+    _build.reset_launches()
+    out = flash_attention(q, k, v, lengths)
+    (out.float() * (torch.arange(192, device=dev) < 150)[:, None]).sum().backward()
+    assert _build.launches() == {"flash_attention_lse": 1, "flash_attention_bwd": 1}
+    with torch.no_grad():  # inference keeps the mode without lse
+        _build.reset_launches()
+        flash_attention(q, k, v, lengths)
+        assert _build.launches() == {"flash_attention": 1}
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -255,20 +348,19 @@ def test_tiny_new_backbones_through_the_kernels(dev, backbone):
     assert float((a - b).norm() / b.norm()) <= 3e-2
 
 
-def test_tiny_dit_training_step_on_the_card(dev):
-    """One grad step of a depth-2 DiT on the card (bf16, the kernels) against
-    the CPU (f32, the plain versions) with the same draws: loss within 2e-2
-    relative, every gradient leaf's rel-L2 <= 1e-1; launch counts 2/2/5/1."""
-    from f5tts_tpu_torch.config import ModelArch
+def _tiny_training_step(dev, backbone: str, arch, expect: dict):
+    """One grad step of a depth-2 model on the card (bf16, the kernels)
+    against the CPU (f32, the plain versions) with the same draws: loss
+    within 2e-2 relative, every gradient leaf's rel-L2 <= 1e-1; launch
+    counts exact."""
     from f5tts_tpu_torch.models import dit
-    from f5tts_tpu_torch.models.cfm import make_draws
+    from f5tts_tpu_torch.models.cfm import BACKBONES, make_draws
     from f5tts_tpu_torch.models.modules import tree_cast, tree_leaves
     from f5tts_tpu_torch.train.step import make_optimizer, make_train_step
 
-    arch = ModelArch(dim=1024, depth=2, heads=16, dim_head=64, text_dim=64, conv_layers=1,
-                     text_num_embeds=32)
+    bdef = BACKBONES[backbone]
     gen = torch.Generator().manual_seed(0)
-    params = dit.activate_zero_init(dit.init_dit(gen, arch), gen)
+    params = dit.activate_zero_init(bdef.init(gen, arch), gen)
     rng = np.random.default_rng(0)
     b, n = 2, 200
     mel = torch.from_numpy(rng.standard_normal((b, n, 100)).astype(np.float32))
@@ -277,16 +369,47 @@ def test_tiny_dit_training_step_on_the_card(dev):
     draws = make_draws(torch.Generator().manual_seed(1), b, n, 100)
     out = {}
     for where, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
-        step = make_train_step(dit.DiTStatics(arch, where), make_optimizer(1e-4, 10, 100), dtype=dtype)
+        step = make_train_step(bdef.statics_cls(arch, where), make_optimizer(1e-4, 10, 100),
+                               dtype=dtype, backbone=bdef)
         _build.reset_launches()
         loss, grads = step.grad_step(tree_cast(params, torch.float32, where), mel.to(where),
                                      text.to(where), lens.to(where), draws=draws)
         if where.type == "cuda":
-            assert _build.launches() == {"fused_qkv_rope_attention": 2, "fused_qkv_rope_attention_bwd": 2,
-                                         "adaln_norm": 5, "conv_pos_embedding": 1}
+            assert _build.launches() == expect
         out[where.type] = (float(loss), [g.float().cpu() for g in tree_leaves(grads)])
     (la, ga), (lb, gb) = out["cuda"], out["cpu"]
     assert abs(la - lb) <= 2e-2 * abs(lb)
     for a, w in zip(ga, gb):
         if float(w.norm()) > 0:
             assert float((a - w).norm() / w.norm()) <= 1e-1
+
+
+def test_tiny_dit_training_step_on_the_card(dev):
+    from f5tts_tpu_torch.config import ModelArch
+
+    arch = ModelArch(dim=1024, depth=2, heads=16, dim_head=64, text_dim=64, conv_layers=1,
+                     text_num_embeds=32)
+    _tiny_training_step(dev, "DiT", arch, {
+        "fused_qkv_rope_attention": 2, "fused_qkv_rope_attention_bwd": 2, "adaln_norm": 5,
+        "conv_pos_embedding": 1})
+
+
+@pytest.mark.parametrize("backbone,gate", [("UNetT", "flat"), ("UNetT", "heads"),
+                                           ("MMDiT", "joint")])
+def test_tiny_new_backbone_training_steps_on_the_card(dev, backbone, gate, monkeypatch):
+    """The UNetT on both sides of the self-attention gate (K3/K4, or K7's lse
+    mode and K9 with FLAT_ATTN_MAX_N lowered) and the MMDiT (K5/K8)."""
+    from f5tts_tpu_torch.config import ModelArch
+    from f5tts_tpu_torch.models import modules
+
+    if gate == "heads":
+        monkeypatch.setattr(modules, "FLAT_ATTN_MAX_N", 128)
+    arch = ModelArch(dim=1024, depth=2, heads=16, dim_head=64, text_dim=None, conv_layers=0,
+                     text_num_embeds=32)
+    attn = {"flat": {"fused_qkv_rope_attention": 2, "fused_qkv_rope_attention_bwd": 2},
+            "heads": {"flash_attention_lse": 2, "flash_attention_bwd": 2},
+            "joint": {"fused_qkv_rope_attention_bias": 2,
+                      "fused_qkv_rope_attention_bias_bwd": 2}}[gate]
+    rest = ({"rms_norm": 5, "conv_pos_embedding": 1} if backbone == "UNetT"
+            else {"adaln_norm": 8, "conv_pos_embedding": 1})
+    _tiny_training_step(dev, backbone, arch, {**attn, **rest})
