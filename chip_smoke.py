@@ -24,6 +24,12 @@ Phases (any failure raises, and the script exits non-zero):
    saved output and lse (b = 2, h = 16, n = 1024, 4224, lengths [n, 777], dO
    zero on rows >= length: dq/dk/dv as K4's, exactly 0 on dead tiles and
    keys). Each backward is timed beside SDPA's backward on the same inputs.
+   K10, the generic grouped conv1d + bias ([2, 1024, 768] and [2, 4096, 768]
+   at 16 groups of 48, k = 31; [2, 1024, 384] at 16 groups of 24, k = 4:
+   max-abs in f32 against its plain version, F.conv1d(groups=16) through
+   cuDNN as the yardstick); K11, the key-masked head-layout attention (b = 2,
+   h = 16, joint n = 1152, 4352 with K5's masks, every row; SDPA with a
+   boolean mask as the yardstick).
 3. The main path: InferencePipeline.infer at F5TTS_v1_Base + Vocos, random
    weights from a seed (the zero-initialised AdaLN, norm_out and proj_out
    weights randomised), three requests, 16 NFE, CFG 2, sway -1. Every wav
@@ -59,9 +65,23 @@ Phases (any failure raises, and the script exits non-zero):
     (1536, 4096]: K5 / K8 / K1 / K2 22 / 22 / 88 / 1 an update).
 12. Phase 6 for the UNetT (n = 1023 frames, 1024 rows, once on the flat gate
     and once past it, FLAT_ATTN_MAX_N lowered) and the MMDiT (n = 512).
+13. InferencePipeline.infer at the dim-768 presets + Vocos, full width and
+    depth, 16 NFE: F5TTS_v1_Small (the 1024 bucket and the 4096 cap; K3 /
+    K1 / K10 18*16 / 37*16 / 4*16 a generate, K2 none) and E2TTS_Small (1024
+    rows: K3 / K6 / K10 20*16 / 41*16 / 4*16; the cap, 4224 rows: K7 in
+    K3's place); then one request at F5TTS_Base (RoPE on the first head
+    only: K3 / K1 / K2 352 / 720 / 32).
+14. InferencePipeline.infer at MMDiT_Base with qk_norm="rms_norm" (the
+    zero-initialised leaves and the four RMSNorm weights randomised), the
+    1024 bucket and the cap: K11 / K6 / K1 / K2 22*16 / 4*22*16 / 1408 / 32
+    a generate, K5 none.
+15. Phase 4 at depth 2 for F5TTS_v1_Small, E2TTS_Small, MMDiT_Base with
+    qk-norm, and the F5TTS_v1_Base DiT and E2TTS_Base UNetT with qk-norm
+    (K7 at every n): mel rel-L2 <= 3e-2, the card run's launches exact.
 
 Prints the `kernels` JSON line (launches: the inference and training paths
-of phases 3, 5, 7, 8, 10 and 11), the card's name and power limit, and as the last line
+of phases 3, 5, 7, 8, 10, 11, 13 and 14), the card's name and power limit,
+and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the repo's
 f5tts_tpu_torch package beside this file; imports nothing of JAX.
 """
@@ -86,7 +106,7 @@ F32_FLOPS_PER_S = 67e12      # f32 outside the tensor cores
 # max-abs error over live rows
 TOL = {"adaln_norm": 2e-2, "conv_pos_embedding": 3e-2, "fused_qkv_rope_attention": 2e-2,
        "fused_qkv_rope_attention_bias": 2e-2, "rms_norm": 2e-2, "flash_attention": 2e-2,
-       "flash_attention_lse": 2e-2}
+       "flash_attention_lse": 2e-2, "grouped_conv1d": 3e-2, "masked_flash_attention": 2e-2}
 LSE_TOL = 1e-3  # K7's lse mode: |lse - plain| on live q tiles
 # K4's dQKV over live rows: rel-L2, and max-abs against the largest entry of
 # the plain version's dQKV (whose scale grows with n)
@@ -103,6 +123,8 @@ REPLACES = {
     "flash_attention_lse": "f5tts_tpu/ops/attention.py:193 return_lse (lse_ref of :123 / :50)",
     "fused_qkv_rope_attention_bias_bwd": "f5tts_tpu/ops/attention.py:1503 (+ bias row of :970)",
     "flash_attention_bwd": "f5tts_tpu/ops/attention.py:357 (+ :249 / :300 split pair)",
+    "grouped_conv1d": "f5tts_tpu/ops/grouped_conv.py:27",
+    "masked_flash_attention": "f5tts_tpu/ops/attention.py:1653",
 }
 SOURCES = {
     "adaln_norm": "f5tts_tpu_torch/csrc/adaln_norm.cu",
@@ -115,6 +137,8 @@ SOURCES = {
     "flash_attention_lse": "f5tts_tpu_torch/csrc/attention.cu",
     "fused_qkv_rope_attention_bias_bwd": "f5tts_tpu_torch/csrc/attention_bwd.cu",
     "flash_attention_bwd": "f5tts_tpu_torch/csrc/attention_bwd.cu",
+    "grouped_conv1d": "f5tts_tpu_torch/csrc/grouped_conv.cu",
+    "masked_flash_attention": "f5tts_tpu_torch/csrc/attention.cu",
 }
 NFE = 16
 # phases 5, 10 and 11: (batch, frames, updates, launches an update)
@@ -674,6 +698,89 @@ def check_flash_bwd(rng, dev) -> dict:
     return out_row
 
 
+def check_grouped_conv(rng, dev) -> dict:
+    """K10 at the dim-768 presets' conv (16 groups of 48, k = 31) and at 16
+    groups of 24 with an even k (the zero-padded lanes, asymmetric padding)."""
+    import torch
+    import torch.nn.functional as F
+    from f5tts_tpu_torch.ops.grouped_conv import grouped_conv1d, grouped_conv1d_ref
+
+    out_row = None
+    for b, n, c, k in ((2, 1024, 768, 31), (2, 4096, 768, 31), (2, 1024, 384, 4)):
+        groups = 16
+        width = c // groups
+        x = torch.from_numpy(rng.standard_normal((b, n, c)).astype(np.float32)).to(dev, torch.bfloat16)
+        bound_w = 1.0 / math.sqrt(width * k)
+        w = torch.from_numpy(rng.uniform(-bound_w, bound_w, (k, width, c)).astype(np.float32))
+        w = w.to(dev, torch.bfloat16)
+        bias = torch.from_numpy(rng.uniform(-bound_w, bound_w, (c,)).astype(np.float32))
+        bias = bias.to(dev, torch.bfloat16)
+        out = grouped_conv1d(x, w, bias, groups)
+        ref = grouped_conv1d_ref(x.float(), w.float(), bias.float(), groups)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref).abs().max())
+        flops = 2 * b * n * k * width * c
+        nbytes = (2 * b * n * c + k * width * c + c) * 2
+        bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        ms = time_ms(lambda: grouped_conv1d(x, w, bias, groups))
+        wall = wall_ms(lambda: grouped_conv1d(x, w, bias, groups))
+        plain = time_ms(lambda: grouped_conv1d_ref(x, w, bias, groups), reps=2)
+        # yardstick: cuDNN's grouped conv on the [b, c, n] layout it takes
+        xt, wt = x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()
+        lib = time_ms(lambda: F.conv1d(xt, wt, bias, padding="same", groups=groups))
+        log(f"  grouped_conv1d [{b},{n},{c}] {groups} groups of {width}, k {k}: max_abs_err "
+            f"{err:.3e} (tol {TOL['grouped_conv1d']}), {ms:.4f} ms (eager call {wall:.4f} ms), "
+            f"bound {bound:.4f} ms (operations), plain {plain:.4f} ms, F.conv1d {lib:.4f} ms")
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+               "bound_by": "operations", "library_ms": lib}
+        if out_row is None:
+            out_row = row
+        out_row["max_abs_err"] = max(out_row["max_abs_err"], err)
+    return out_row
+
+
+def check_masked_flash(rng, dev) -> dict:
+    """K11 at the MMDiT phases' joint lengths with K5's masks, every row."""
+    import torch
+    import torch.nn.functional as F
+    from f5tts_tpu_torch.ops.attention import masked_flash_attention, mha_reference_masked
+
+    b, h, d = 2, 16, 64
+    out_row = None
+    for na, nt in ((1024, 128), (4096, 256)):  # joint 1152, 4352
+        n = na + nt
+        kmask = torch.zeros(b, n, dtype=torch.bool, device=dev)
+        kmask[0, :777 if na == 1024 else 3 * na // 4] = True
+        kmask[0, na:na + 100] = True
+        kmask[1, :na] = True
+        kmask[1, na:na + 120] = True
+        q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, d)).astype(np.float32))
+                   .to(dev, torch.bfloat16) for _ in range(3))
+        out = masked_flash_attention(q, k, v, kmask)
+        ref = mha_reference_masked(q.float(), k.float(), v.float(), kmask)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref).abs().max())
+        live_keys = [int(x) for x in kmask.sum(dim=1).tolist()]
+        flops = 4 * h * d * n * sum(live_keys)
+        nbytes = 4 * b * h * n * d * 2 + b * n
+        bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        ms = time_ms(lambda: masked_flash_attention(q, k, v, kmask))
+        wall = wall_ms(lambda: masked_flash_attention(q, k, v, kmask))
+        plain = time_ms(lambda: mha_reference_masked(q, k, v, kmask), reps=1, iters=5)
+        mask4 = kmask[:, None, None, :]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4))
+        log(f"  masked_flash_attention b=2 h=16 d=64 joint n={n} ({na} audio + {nt} text), live "
+            f"keys {live_keys}: max_abs_err over every row {err:.3e} (tol "
+            f"{TOL['masked_flash_attention']}), {ms:.4f} ms (eager call {wall:.4f} ms), bound "
+            f"{bound:.4f} ms (operations), plain {plain:.4f} ms, sdpa {lib:.4f} ms")
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+               "bound_by": "operations", "library_ms": lib}
+        if out_row is None:
+            out_row = row
+        out_row["max_abs_err"] = max(out_row["max_abs_err"], err)
+    return out_row
+
+
 def phase_kernels(dev) -> dict:
     import torch
 
@@ -687,7 +794,9 @@ def phase_kernels(dev) -> dict:
             "flash_attention": check_flash(rng, dev),
             "flash_attention_lse": check_flash_lse(rng, dev),
             "fused_qkv_rope_attention_bias_bwd": check_attention_bias_bwd(rng, dev),
-            "flash_attention_bwd": check_flash_bwd(rng, dev)}
+            "flash_attention_bwd": check_flash_bwd(rng, dev),
+            "grouped_conv1d": check_grouped_conv(rng, dev),
+            "masked_flash_attention": check_masked_flash(rng, dev)}
     torch.cuda.synchronize()
     for name, tol in TOL.items():
         if not rows[name]["max_abs_err"] <= tol:
@@ -783,6 +892,40 @@ def phase_mmdit(dev, arch, params, vocos_params, gpu: str) -> dict:
     return run_requests(pipe, [(REQUESTS[2], 1014, expect), (REQUESTS[1], 4096, expect)], gpu)
 
 
+def phase_small(dev, arch, params, vocos_params, gpu: str, backbone: str) -> dict:
+    """A dim-768 preset: the conv position module is two K10 launches an
+    input embedding (cond and uncond: 4 a step), K2 none. The DiT: K3 a
+    block, K1 two a block and the final norm; the UNetT: K3 (K7 at the cap's
+    4224 rows) a block, K6 two a block and the final norm."""
+    from f5tts_tpu_torch.scripts.common import REQUESTS
+
+    per_step = {"grouped_conv1d": 4}
+    if backbone == "DiT":
+        short = dict(per_step, fused_qkv_rope_attention=arch.depth, adaln_norm=2 * arch.depth + 1)
+        cases = ((REQUESTS[0], 1014, short), (REQUESTS[1], 4086, short))
+    else:
+        per_step["rms_norm"] = 2 * arch.depth + 1
+        cases = ((REQUESTS[0], 1013, dict(per_step, fused_qkv_rope_attention=arch.depth)),
+                 (REQUESTS[1], 4096, dict(per_step, flash_attention=arch.depth)))
+    pipe = make_pipeline(dev, backbone, arch, params, vocos_params)
+    return run_requests(pipe, [(text, frames, {k: v * NFE for k, v in expect.items()})
+                               for text, frames, expect in cases], gpu)
+
+
+def phase_mmdit_qk_norm(dev, arch, params, vocos_params, gpu: str) -> dict:
+    """MMDiT_Base with qk-norm: the head layout in every block, K11 for the
+    joint attention (K5 none), K6 on q and k of both streams (four a block),
+    K1 and K2 as in phase 8."""
+    from f5tts_tpu_torch.scripts.common import REQUESTS
+
+    expect = {k: v * NFE for k, v in {"masked_flash_attention": arch.depth,
+                                       "rms_norm": 4 * arch.depth,
+                                       "adaln_norm": 4 * (arch.depth - 1) + 3 + 1,
+                                       "conv_pos_embedding": 2}.items()}
+    pipe = make_pipeline(dev, "MMDiT", arch, params, vocos_params)
+    return run_requests(pipe, [(REQUESTS[2], 1014, expect), (REQUESTS[1], 4096, expect)], gpu)
+
+
 def cut_to_depth_2(backbone: str, params: dict) -> dict:
     if backbone == "UNetT":
         return dict(params, first_half=params["first_half"][:1],
@@ -792,10 +935,13 @@ def cut_to_depth_2(backbone: str, params: dict) -> dict:
     return dict(params, blocks=params["blocks"][:2])
 
 
-def phase_card_vs_cpu(dev, arch, params, vocos_params, backbone: str = "DiT") -> float:
+def phase_card_vs_cpu(dev, arch, params, vocos_params, backbone: str = "DiT",
+                      expect=None) -> float:
+    """`expect`: the launches of one step of the card's depth-2 sampler."""
     import torch
     from f5tts_tpu_torch.models import cfm
     from f5tts_tpu_torch.models.modules import fuse_backbone_qkv, tree_cast
+    from f5tts_tpu_torch.ops import _build
     from f5tts_tpu_torch.ops.mel import MelFrontend
     from f5tts_tpu_torch.scripts.common import synthetic_ref_wav
     from f5tts_tpu_torch.utils import make_time_grid
@@ -821,9 +967,15 @@ def phase_card_vs_cpu(dev, arch, params, vocos_params, backbone: str = "DiT") ->
         pw = tree_cast(p2, dtype, where)
         statics = bdef.statics_cls(arch2, where)
         t0 = time.perf_counter()
+        _build.reset_launches()
         mel = cfm.cfm_sample(pw, statics, cond.to(where), text.to(where), lens.to(where),
                              dur.to(where), grid.to(where), y0=y0.to(where), cfg_strength=2.0,
                              dtype=dtype, backbone=bdef)
+        if where.type == "cuda" and expect is not None:
+            torch.cuda.synchronize()
+            if _build.launches() != {k: v * nfe for k, v in expect.items()}:
+                raise AssertionError(f"{backbone} depth-2 sampler launches {_build.launches()}, "
+                                     f"expected {expect} a step")
         wav = Vocos(vocos_params, VocosConfig(), device=where)(mel.transpose(1, 2))
         mels[where.type], waves[where.type] = mel.float().cpu(), wav.float().cpu()
         log(f"  {backbone} {where.type} {str(dtype)[6:]}: depth 2, {nfe} NFE, n {n}: "
@@ -1016,7 +1168,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
-    from f5tts_tpu_torch.scripts.common import base_models, gpu_name_and_limit
+    from f5tts_tpu_torch.scripts.common import REQUESTS, base_models, gpu_name_and_limit
 
     gpu = gpu_name_and_limit()
 
@@ -1081,6 +1233,48 @@ def main() -> int:
     phase_train_card_vs_cpu(dev, arch_m, params_m, "MMDiT", 512, {
         "fused_qkv_rope_attention_bias": 2, "fused_qkv_rope_attention_bias_bwd": 2,
         "adaln_norm": 8, "conv_pos_embedding": 1})
+    torch.cuda.synchronize()
+
+    del new
+    torch.cuda.empty_cache()
+
+    small = {}
+    for model, backbone in (("F5TTS_v1_Small", "DiT"), ("E2TTS_Small", "UNetT")):
+        small[model] = base_models(model=model)
+        log(f"phase 13: InferencePipeline.infer at {model} ({backbone}, dim 768) + Vocos, bf16")
+        for name, count in phase_small(dev, *small[model], gpu, backbone).items():
+            launches[name] = launches.get(name, 0) + count
+        torch.cuda.empty_cache()
+    log("phase 13: InferencePipeline.infer at F5TTS_Base (RoPE on the first head) + Vocos, bf16")
+    arch_b, params_b, vocos_b = base_models(model="F5TTS_Base")
+    pipe = make_pipeline(dev, "DiT", arch_b, params_b, vocos_b)
+    expect = {"fused_qkv_rope_attention": arch_b.depth * NFE,
+              "adaln_norm": (2 * arch_b.depth + 1) * NFE, "conv_pos_embedding": 2 * NFE}
+    for name, count in run_requests(pipe, [(REQUESTS[0], 1014, expect)], gpu).items():
+        launches[name] = launches.get(name, 0) + count
+    del pipe, params_b
+    torch.cuda.empty_cache()
+
+    log("phase 14: InferencePipeline.infer at MMDiT_Base with qk_norm='rms_norm' + Vocos, bf16")
+    mmdit_qk = base_models(model="MMDiT_Base", qk_norm="rms_norm")
+    for name, count in phase_mmdit_qk_norm(dev, *mmdit_qk, gpu).items():
+        launches[name] = launches.get(name, 0) + count
+    torch.cuda.empty_cache()
+
+    log("phase 15: card bf16 against cpu f32, depth 2: the dim-768 presets and qk-norm")
+    per_step_768 = {"DiT": {"fused_qkv_rope_attention": 2, "adaln_norm": 5, "grouped_conv1d": 4},
+                    "UNetT": {"fused_qkv_rope_attention": 2, "rms_norm": 5, "grouped_conv1d": 4}}
+    for model, backbone in (("F5TTS_v1_Small", "DiT"), ("E2TTS_Small", "UNetT")):
+        phase_card_vs_cpu(dev, *small[model], backbone, per_step_768[backbone])
+    arch_q, params_q, vocos_q = mmdit_qk
+    phase_card_vs_cpu(dev, arch_q, params_q, vocos_q, "MMDiT", {
+        "masked_flash_attention": 2, "rms_norm": 8, "adaln_norm": 8, "conv_pos_embedding": 2})
+    del mmdit_qk, params_q
+    for model, backbone, rest in (("F5TTS_v1_Base", "DiT", {"adaln_norm": 5, "rms_norm": 4}),
+                                  ("E2TTS_Base", "UNetT", {"rms_norm": 9})):
+        arch_q, params_q, vocos_q = base_models(model=model, qk_norm="rms_norm", depth=2)
+        phase_card_vs_cpu(dev, arch_q, params_q, vocos_q, backbone, dict(
+            rest, flash_attention=2, conv_pos_embedding=2))
     torch.cuda.synchronize()
 
     idle = [name for name in rows if not launches.get(name)]

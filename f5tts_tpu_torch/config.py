@@ -2,8 +2,9 @@
 
 Own copies of the JAX package's dataclasses (f5tts_tpu/config.py) that the
 zero-shot inference and training paths read: the mel front end, the backbone
-arch, the CFM and sampler defaults, the training hyperparameters and the
-F5TTS_v1, E2TTS (UNetT) and MMDiT presets. The port imports nothing of the
+arch, the CFM and sampler defaults, the training hyperparameters and every
+preset of the JAX package: F5TTS_v1 / F5TTS (DiT) and E2TTS (UNetT) at the
+Base (dim 1024) and Small (dim 768) sizes, and MMDiT_Base. The port imports nothing of the
 JAX package, so the values are repeated here and the parity tests pin them.
 """
 
@@ -42,13 +43,12 @@ class ModelArch:
     conv_layers: int = 4
     conv_mult: int = 2
     pe_attn_head: Optional[int] = None  # partial RoPE: first N heads only
-    qk_norm: Optional[str] = None  # None | "rms_norm" (not ported: raises)
+    qk_norm: Optional[str] = None  # None | "rms_norm" (per-head RMSNorm of q and k)
     skip_connect_type: str = "concat"  # UNetT only: "add" | "concat" | "none"
 
     def __post_init__(self):
-        if self.qk_norm is not None:
-            raise NotImplementedError(
-                f"qk_norm={self.qk_norm!r}: the head-layout attention it needs is not ported")
+        if self.qk_norm not in (None, "rms_norm"):
+            raise ValueError(f"qk_norm {self.qk_norm!r}: None or 'rms_norm'")
         if self.skip_connect_type not in ("add", "concat", "none"):
             raise ValueError(f"skip_connect_type {self.skip_connect_type!r}")
 
@@ -132,9 +132,19 @@ PRESETS: dict[str, ModelConfig] = {
         "F5TTS_v1_Base", "DiT", dim=1024, depth=22, heads=16, ff_mult=2, text_dim=512,
         text_mask_padding=True, conv_layers=4, pe_attn_head=None,
     ),
+    # F5TTS_Base.yaml (the original published F5-TTS checkpoint): the same
+    # dims, text_mask_padding False, pe_attn_head 1 (RoPE on the first head)
+    "F5TTS_Base": _preset(
+        "F5TTS_Base", "DiT", dim=1024, depth=22, heads=16, ff_mult=2, text_dim=512,
+        text_mask_padding=False, conv_layers=4, pe_attn_head=1,
+    ),
     "F5TTS_v1_Small": _preset(
         "F5TTS_v1_Small", "DiT", dim=768, depth=18, heads=12, ff_mult=2, text_dim=512,
         text_mask_padding=True, conv_layers=4, pe_attn_head=None,
+    ),
+    "F5TTS_Small": _preset(
+        "F5TTS_Small", "DiT", dim=768, depth=18, heads=12, ff_mult=2, text_dim=512,
+        text_mask_padding=False, conv_layers=4, pe_attn_head=1,
     ),
     # E2TTS_Base.yaml: UNetT dim 1024, depth 24, heads 16, ff_mult 4, the mel
     # width as text width, no ConvNeXt text blocks

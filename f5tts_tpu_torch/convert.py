@@ -4,8 +4,10 @@
 `vocos_params_from_jax` take the JAX package's parameter pytree as numpy
 arrays (nested dicts and lists; blocks stacked on a leading depth axis:
 "blocks" of the DiT, MMDiT and Vocos, "first_half" / "second_half" of the
-UNetT; attention fused (`to_qkv`, `to_qkv_c`) or not) and return the port's
-parameters as CPU f32 tensors.
+UNetT; attention fused (`to_qkv`, `to_qkv_c`) or not, with qk-norm's
+`q_norm` / `k_norm` / `c_q_norm` / `c_k_norm` leaves or without) and return
+the port's parameters as CPU f32 tensors. The walk is generic: every leaf of
+the JAX tree comes across under its own key.
 `train_state_from_jax` takes a JAX `TrainState` with numpy leaves (params,
 the optax AdamW mu / nu / count, the EMA and the step) of any backbone
 ("DiT", "UNetT", "MMDiT") and returns the port's `TrainState`, so both sides

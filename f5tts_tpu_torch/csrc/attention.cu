@@ -1,5 +1,5 @@
-// Forward attention kernels K3, K5 and K7 (and K7's lse mode): one tile loop,
-// four entry points.
+// Forward attention kernels K3, K5, K7 (and K7's lse mode) and K11: one tile
+// loop, five entry points.
 //
 // K3 fused_qkv_rope_attn_kernel: fused QKV + interleaved RoPE + length-masked
 //    attention, flat layout. Replaces f5tts_tpu/ops/attention.py:567
@@ -29,6 +29,16 @@
 //    also writes lse [b, h, n] f32 = m + log(l) over the scaled scores, and
 //    -1e30 for the rows of q tiles wholly past the length, for the backward
 //    K9 (csrc/attention_bwd.cu).
+// K11 masked_flash_attn_kernel: head-layout attention under an arbitrary key
+//    mask. Replaces :1653 _flash_kernel_bias (behind :1706
+//    masked_flash_attention): MMDiT joint attention when the flat K5 cannot
+//    take it (qk-norm, whose per-head RMSNorm comes before RoPE, or unfused
+//    projections). K7's head layout in K5's key-mask mode.
+//    In:  q, k, v [b, h, n, 64] bf16 (already normed and roped), kmask [b, n]
+//         bool. Out: [b, h, n, 64] bf16, every row computed. A batch row with
+//         no live key gets zeros (l == 0); the JAX reference gives the
+//         uniform mean of v there. No model path makes such a row: the
+//         audio's first frame is always live.
 //
 // Bound: tensor-core operations. 4*b*h*n*live_keys*64 flops (8.6 GFLOP at
 // b=2, n=1024, h=16, ~9 us at 989 TFLOP/s) against ~12 MB of bytes. Design:
@@ -312,6 +322,16 @@ __global__ void __launch_bounds__(128) flash_attn_lse_kernel(
                                              out + rows * AT_D, AT_D, n, sm_scale, lse + rows);
 }
 
+__global__ void __launch_bounds__(128) masked_flash_attn_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const uint8_t* __restrict__ kmask, bf16* __restrict__ out, int n, int heads,
+    float sm_scale) {
+    const int h = blockIdx.y, b = blockIdx.z;
+    const size_t base = ((size_t)b * heads + h) * n * AT_D;
+    attn_fwd_tile<false, true, false>(q + base, k + base, v + base, AT_D, nullptr, nullptr, 0, n,
+                                      kmask + (size_t)b * n, out + base, AT_D, n, sm_scale);
+}
+
 extern "C" int f5_fused_qkv_rope_attn_bf16(const void* qkv, const void* cos_t,
                                            const void* sin_t, const void* lengths,
                                            void* out, int b, int n, int heads,
@@ -358,6 +378,18 @@ extern "C" int f5_flash_attn_lse_bf16(const void* q, const void* k, const void* 
         flash_attn_lse_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
             (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lengths,
             (bf16*)out, (float*)lse, n, heads, sm_scale);
+    }
+    return (int)cudaGetLastError();
+}
+
+extern "C" int f5_masked_flash_attn_bf16(const void* q, const void* k, const void* v,
+                                         const void* kmask, void* out, int b, int n, int heads,
+                                         float sm_scale, void* stream) {
+    if (b > 0 && n > 0) {
+        dim3 grid((n + AT_BQ - 1) / AT_BQ, heads, b);
+        masked_flash_attn_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
+            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const uint8_t*)kmask,
+            (bf16*)out, n, heads, sm_scale);
     }
     return (int)cudaGetLastError();
 }

@@ -3,10 +3,12 @@
 - text_embedding: +1 token shift (0 = filler), curtail/pad to the mel
   length, filler beyond each sample's length, freqs_cis added on valid
   positions only, ConvNeXt V2 stack with padding re-zeroed after each block.
-- input_embedding: Linear(concat(x, cond, text)) + ConvPositionEmbedding (K2).
+- input_embedding: Linear(concat(x, cond, text)) + ConvPositionEmbedding (K2;
+  two launches of K10 at the dim-768 presets' 48 channels a group).
   Both also serve the UNetT in its forms: no per-sample `lengths` (the text
   is neither cut nor masked per sample; the conv runs over every row).
-- dit_apply: the blocks (K1, K3) + final AdaLN (K1) + projection.
+- dit_apply: the blocks (K1, K3; K6 and K7 under qk-norm) + final AdaLN (K1)
+  + projection.
 - dit_forward(cfg_infer=True): cond rows then uncond rows in one 2b batch;
   the uncond rows drop both the audio cond and the text.
 - precompute_t_mods: every step's AdaLN modulation at once, before the loop;
@@ -58,8 +60,8 @@ def init_dit(generator: torch.Generator, arch: ModelArch) -> m.Params:
         "time_embed": m.init_timestep_embedding(g, arch.dim),
         "text_embed": init_text_embedding(g, arch),
         "input_embed": init_input_embedding(g, arch),
-        "blocks": [m.init_dit_block(g, arch.dim, arch.heads, arch.dim_head, arch.ff_mult)
-                   for _ in range(arch.depth)],
+        "blocks": [m.init_dit_block(g, arch.dim, arch.heads, arch.dim_head, arch.ff_mult,
+                                    arch.qk_norm) for _ in range(arch.depth)],
         "norm_out": m.init_adaln_final(g, arch.dim, zero=True),
         "proj_out": m.init_linear(g, arch.dim, arch.mel_dim, zero=True),
     }
@@ -153,7 +155,8 @@ def dit_apply(params: m.Params, statics: DiTStatics, x: torch.Tensor,
     rope_tabs = rope_flat_tables(statics.rope_angles, n, arch.heads, arch.pe_attn_head,
                                  dtype=x.dtype)
     for blk, mods in zip(params["blocks"], block_mods):
-        x = m.dit_block(blk, x, mods, arch.heads, rope_tabs, lengths)
+        x = m.dit_block(blk, x, mods, arch.heads, rope_tabs, lengths, statics.rope_angles,
+                        arch.pe_attn_head)
     x = m.adaln_final(x, final_mod)
     return m.linear(params["proj_out"], x)
 

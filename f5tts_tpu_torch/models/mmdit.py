@@ -9,8 +9,11 @@
   concatenated on the sequence axis, roped with the per-stream tables
   concatenated the same way, and attended under the joint key mask (audio
   padding leaves dead keys in the middle) by kernel K5; the output is split
-  back. The text stream is padded so the joint length is a multiple of 128,
-  its pad keys masked, as the JAX package pads it for its kernels.
+  back. Under qk-norm (`q_norm`, `k_norm`, `c_q_norm`, `c_k_norm` leaves) or
+  with unfused projections, the head layout instead: per-stream heads,
+  per-head RMSNorm (K6), per-stream RoPE, the joint sequence attended by
+  kernel K11. The text stream is padded so the joint length is a multiple of
+  128, its pad keys masked, as the JAX package pads it for its kernels.
 - AdaLN (K1) on both streams; the last block is context_pre_only: its text
   stream gets only a final AdaLN, no feed-forward and no to_out_c.
 - Every AdaLN modulation is computed before the block loop
@@ -33,8 +36,13 @@ import torch.nn.functional as F
 
 from f5tts_tpu_torch.config import ModelArch
 from f5tts_tpu_torch.models import modules as m
-from f5tts_tpu_torch.ops.attention import fused_qkv_rope_attention_bias
-from f5tts_tpu_torch.ops.rope import precompute_freqs_cis, rope_flat_tables, rope_freqs_interleaved
+from f5tts_tpu_torch.ops.attention import fused_qkv_rope_attention_bias, masked_flash_attention
+from f5tts_tpu_torch.ops.rope import (
+    apply_rotary,
+    precompute_freqs_cis,
+    rope_flat_tables,
+    rope_freqs_interleaved,
+)
 
 TEXT_PRECOMPUTE_MAX_POS = 1024  # reference mmdit.py:39
 ROPE_MAX_POS = 8192
@@ -62,6 +70,9 @@ def init_mmdit(generator: torch.Generator, arch: ModelArch) -> m.Params:
         p["to_out"] = m.init_linear(g, inner, arch.dim)
         if not context_pre_only:
             p["to_out_c"] = m.init_linear(g, inner, arch.dim)
+        if arch.qk_norm == "rms_norm":
+            for name in ("q_norm", "k_norm", "c_q_norm", "c_k_norm"):
+                p[name] = m.init_rms_norm(arch.dim_head)
         return p
 
     def block(context_pre_only: bool) -> m.Params:
@@ -120,17 +131,35 @@ def mmdit_text_embeds(params: m.Params, statics: MMDiTStatics, text: torch.Tenso
 
 
 def _joint_attention(p: m.Params, x: torch.Tensor, c: torch.Tensor, heads: int,
-                     kmask: torch.Tensor, joint_tabs: tuple) -> tuple:
-    """modules.py:581-705 on the fused path: concat the streams, attend (K5)
+                     kmask: torch.Tensor, joint_tabs: tuple, rope_angles: torch.Tensor) -> tuple:
+    """modules.py:581-705 / mmdit.py:120-222: attend the concatenated streams
     under the joint key mask kmask [b, n + nt], split; dead rows of each
-    stream zeroed after its to_out. The context_pre_only block has no
+    stream zeroed after its to_out. Fused params without qk-norm: the flat
+    qkv of both streams, roped from `joint_tabs`, by K5. Otherwise the head
+    layout: each stream's q/k/v split into heads, qk-norm, audio RoPE on the
+    audio rows and text RoPE on the text rows (`rope_angles`), the joint
+    sequence by K11, heads merged. The context_pre_only block has no
     to_out_c and returns no text stream."""
-    if "to_qkv" not in p:
-        raise ValueError("MMDiT joint attention takes fused to_qkv / to_qkv_c params: "
-                         "apply fuse_backbone_qkv")
     n = x.shape[1]
-    qkv = torch.cat([m.linear(p["to_qkv"], x), m.linear(p["to_qkv_c"], c)], dim=1)
-    o = fused_qkv_rope_attention_bias(qkv, joint_tabs[0], joint_tabs[1], kmask, heads)
+    if "to_qkv" in p and "q_norm" not in p:
+        qkv = torch.cat([m.linear(p["to_qkv"], x), m.linear(p["to_qkv_c"], c)], dim=1)
+        o = fused_qkv_rope_attention_bias(qkv, joint_tabs[0], joint_tabs[1], kmask, heads)
+    else:
+        if "to_qkv" in p:
+            qkv_x = m.linear(p["to_qkv"], x).chunk(3, dim=-1)
+            qkv_c = m.linear(p["to_qkv_c"], c).chunk(3, dim=-1)
+        else:
+            qkv_x = [m.linear(p[name], x) for name in ("to_q", "to_k", "to_v")]
+            qkv_c = [m.linear(p[name], c) for name in ("to_q_c", "to_k_c", "to_v_c")]
+        (q, k, v), (cq, ck, cv) = ([m.split_heads(t, heads) for t in stream]
+                                  for stream in (qkv_x, qkv_c))
+        if "q_norm" in p:
+            q, k = m.rms_norm(p["q_norm"], q), m.rms_norm(p["k_norm"], k)
+            cq, ck = m.rms_norm(p["c_q_norm"], cq), m.rms_norm(p["c_k_norm"], ck)
+        q, k, cq, ck = (apply_rotary(t, rope_angles) for t in (q, k, cq, ck))
+        o = m.merge_heads(masked_flash_attention(
+            torch.cat([q, cq], dim=2), torch.cat([k, ck], dim=2), torch.cat([v, cv], dim=2),
+            kmask))
     zero = torch.zeros((), dtype=o.dtype, device=o.device)
     xo = torch.where(kmask[:, :n, None], m.linear(p["to_out"], o[:, :n]), zero)
     if "to_out_c" not in p:
@@ -140,7 +169,7 @@ def _joint_attention(p: m.Params, x: torch.Tensor, c: torch.Tensor, heads: int,
 
 def _mmdit_block(blk: m.Params, x: torch.Tensor, c: torch.Tensor, mods_x: torch.Tensor,
                  mods_c: torch.Tensor, heads: int, kmask: torch.Tensor, joint_tabs: tuple,
-                 context_pre_only: bool = False) -> tuple:
+                 rope_angles: torch.Tensor, context_pre_only: bool = False) -> tuple:
     """modules.py:816-846. mods_x [b, 6*dim]; mods_c [b, 6*dim], or [b, 2*dim]
     for the context_pre_only last block."""
     if context_pre_only:
@@ -151,7 +180,8 @@ def _mmdit_block(blk: m.Params, x: torch.Tensor, c: torch.Tensor, mods_x: torch.
     x_sm, x_ss, x_gm, x_s2, x_sc2, x_g2 = mods_x.chunk(6, dim=-1)
     norm_x = m.adaln_pre(x, x_sm, x_ss)
 
-    x_attn, c_attn = _joint_attention(blk["attn"], norm_x, norm_c, heads, kmask, joint_tabs)
+    x_attn, c_attn = _joint_attention(blk["attn"], norm_x, norm_c, heads, kmask, joint_tabs,
+                                      rope_angles)
     if context_pre_only:
         c = None
     else:
@@ -205,8 +235,9 @@ def mmdit_forward(params: m.Params, statics: MMDiTStatics, x: torch.Tensor,
                   t_mods: Optional[dict] = None) -> torch.Tensor:
     """Flow prediction [b, n, mel] (f32); with cfg_infer, [2b, n, mel]: cond
     rows then uncond rows. `t_mods` (`mmdit_hoist_t_mods` of the packed
-    batch) replaces the timestep embedding. `params` must hold the fused
-    to_qkv / to_qkv_c (`fuse_backbone_qkv`)."""
+    batch) replaces the timestep embedding. Fused to_qkv / to_qkv_c
+    (`fuse_backbone_qkv`) without qk-norm run the flat K5; qk-norm or unfused
+    projections the head layout and K11."""
     arch = statics.arch
     b, n, _ = x.shape
     x = x.to(dtype)
@@ -266,8 +297,10 @@ def mmdit_forward(params: m.Params, statics: MMDiTStatics, x: torch.Tensor,
         t_mods = mmdit_hoist_t_mods(params, t_emb)
 
     for blk, mx, mc in zip(params["blocks"], t_mods["blocks_x"], t_mods["blocks_c"]):
-        h, c = _mmdit_block(blk, h, c, mx, mc, arch.heads, kmask, joint_tabs)
+        h, c = _mmdit_block(blk, h, c, mx, mc, arch.heads, kmask, joint_tabs,
+                            statics.rope_angles)
     h, _ = _mmdit_block(params["last_block"], h, c, t_mods["last_x"], t_mods["last_c"],
-                        arch.heads, kmask, joint_tabs, context_pre_only=True)
+                        arch.heads, kmask, joint_tabs, statics.rope_angles,
+                        context_pre_only=True)
     h = m.adaln_final(h, t_mods["final"])
     return m.linear(params["proj_out"], h).float()

@@ -23,7 +23,8 @@ from f5tts_tpu_torch.ops.adaln_norm import adaln_norm
 from f5tts_tpu_torch.ops.adaln_norm import rms_norm as rms_norm_kernel
 from f5tts_tpu_torch.ops.attention import FLAT_ATTN_MAX_N, attention, fused_qkv_rope_attention
 from f5tts_tpu_torch.ops.grouped_conv import conv_pos_embedding as conv_pos_kernel
-from f5tts_tpu_torch.ops.rope import apply_rotary_flat_tables
+from f5tts_tpu_torch.ops.grouped_conv import grouped_conv1d, mish, supports_fused_conv_pos
+from f5tts_tpu_torch.ops.rope import apply_rotary_flat, apply_rotary_partial_heads
 
 Params = dict
 
@@ -138,7 +139,7 @@ def timestep_embedding(p: Params, t: torch.Tensor, dtype=torch.float32,
 
 
 # ---------------------------------------------------------------------------
-# Conv position embedding -> kernel K2
+# Conv position embedding -> kernel K2, or two launches of K10
 # ---------------------------------------------------------------------------
 
 def init_conv_pos_embedding(gen, dim: int, kernel: int = 31, groups: int = 16) -> Params:
@@ -148,13 +149,30 @@ def init_conv_pos_embedding(gen, dim: int, kernel: int = 31, groups: int = 16) -
 
 def conv_pos_embedding(p: Params, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                        groups: int = 16) -> torch.Tensor:
-    """x [b, n, d]; rows >= lengths are zeroed before and after each conv."""
-    b, n, _ = x.shape
-    if lengths is None:
-        lengths = torch.full((b,), n, dtype=torch.int32, device=x.device)
-    return conv_pos_kernel(x, p["conv1"]["w"].to(x.dtype), p["conv1"]["b"].to(x.dtype),
-                           p["conv2"]["w"].to(x.dtype), p["conv2"]["b"].to(x.dtype),
-                           lengths.to(torch.int32), groups)
+    """x [b, n, d]; rows >= lengths are zeroed before and after each conv.
+
+    The JAX dispatch (modules.py:248-273): 64 channels a group with k = 31
+    goes to the fused kernel K2; any other width (the dim-768 presets: 48)
+    runs the unfused chain in the JAX rounding order: mask, conv + bias (K10,
+    out in x's dtype), mask, Mish in f32 cast back, K10, mask, Mish. Without
+    `lengths` nothing is masked."""
+    b, n, c = x.shape
+    w1, b1 = p["conv1"]["w"].to(x.dtype), p["conv1"]["b"].to(x.dtype)
+    w2, b2 = p["conv2"]["w"].to(x.dtype), p["conv2"]["b"].to(x.dtype)
+    if supports_fused_conv_pos(c, groups, w1.shape[0]):
+        if lengths is None:
+            lengths = torch.full((b,), n, dtype=torch.int32, device=x.device)
+        return conv_pos_kernel(x, w1, b1, w2, b2, lengths.to(torch.int32), groups)
+
+    def masked(h):
+        if lengths is None:
+            return h
+        valid = torch.arange(n, device=x.device)[None, :, None] < lengths[:, None, None]
+        return torch.where(valid, h, torch.zeros((), dtype=h.dtype, device=h.device))
+
+    h = grouped_conv1d(masked(x), w1, b1, groups)
+    h = grouped_conv1d(mish(masked(h)), w2, b2, groups)
+    return mish(masked(h))
 
 
 # ---------------------------------------------------------------------------
@@ -222,46 +240,71 @@ def feed_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Self-attention on the fused to_qkv path -> kernel K3, or K7 past 4096 rows
+# Self-attention: flat K3 (K7 past 4096 rows) on fused params without
+# qk-norm, else the head layout with K7 at every n
 # ---------------------------------------------------------------------------
 
-def init_attention(gen, dim: int, heads: int, dim_head: int) -> Params:
+def init_attention(gen, dim: int, heads: int, dim_head: int,
+                   qk_norm: Optional[str] = None) -> Params:
     inner = heads * dim_head
-    return {"to_q": init_linear(gen, dim, inner), "to_k": init_linear(gen, dim, inner),
-            "to_v": init_linear(gen, dim, inner), "to_out": init_linear(gen, inner, dim)}
+    p = {"to_q": init_linear(gen, dim, inner), "to_k": init_linear(gen, dim, inner),
+         "to_v": init_linear(gen, dim, inner), "to_out": init_linear(gen, inner, dim)}
+    if qk_norm == "rms_norm":
+        p["q_norm"] = init_rms_norm(dim_head)
+        p["k_norm"] = init_rms_norm(dim_head)
+    return p
+
+
+def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """[b, n, h*d] -> contiguous [b, h, n, d]."""
+    b, n, hd = t.shape
+    return t.reshape(b, n, heads, hd // heads).transpose(1, 2).contiguous()
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """[b, h, n, d] -> [b, n, h*d]."""
+    b, h, n, d = t.shape
+    return t.transpose(1, 2).reshape(b, n, h * d)
 
 
 def self_attention(p: Params, x: torch.Tensor, heads: int, rope_tabs: tuple,
-                   lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x [b, n, dim]; rope_tabs = flat (cos, sin) [>=n, h*d]; `p` holds the
-    fused to_qkv projection (`fuse_backbone_qkv`). Rows >= lengths of the
-    output are zeroed after to_out.
+                   lengths: Optional[torch.Tensor] = None,
+                   rope_angles: Optional[torch.Tensor] = None,
+                   pe_attn_head: Optional[int] = None) -> torch.Tensor:
+    """x [b, n, dim]; rope_tabs = flat (cos, sin) [>=n, h*d] for K3;
+    rope_angles [>=n, d] f32 with `pe_attn_head` for the head layout. Rows
+    >= lengths of the output are zeroed after to_out.
 
-    The JAX gate (modules.py:410-413): up to FLAT_ATTN_MAX_N rows the flat
-    kernel K3 takes the projection as it is; past it q/k/v are split, roped,
-    split into heads and go to the head-layout kernel K7 (UNetT at the
-    4096-frame cap: 4097 rows padded to 4224). Both branches are
-    differentiable: K4 is K3's backward; under grad the head-layout branch
-    runs K7's lse mode and K9 (without grad, K7 alone)."""
+    The JAX gate (modules.py:399-466). Fused to_qkv without qk-norm, up to
+    FLAT_ATTN_MAX_N rows: the flat kernel K3 takes the projection as it is.
+    Otherwise the head layout, and K7: past the gate (UNetT at the
+    4096-frame cap: 4097 rows padded to 4224), with unfused
+    to_q/to_k/to_v, or under qk-norm (`q_norm` / `k_norm` leaves, at every
+    n). RoPE goes on the flat projections before the head split, or under
+    qk-norm after the split and a per-head RMSNorm (K6, eps 1e-6), on the
+    first `pe_attn_head` heads. Both layouts are differentiable: K4 is K3's
+    backward; under grad the head layout runs K7's lse mode and K9 (without
+    grad, K7 alone)."""
     b, n, _ = x.shape
-    if "to_qkv" not in p:
-        raise ValueError("self_attention takes fused to_qkv params: apply fuse_backbone_qkv")
-    qkv = linear(p["to_qkv"], x)
     lens = (torch.full((b,), n, dtype=torch.int32, device=x.device) if lengths is None
             else lengths.to(torch.int32))
-    if n <= FLAT_ATTN_MAX_N:
+    if "to_qkv" in p and "q_norm" not in p and n <= FLAT_ATTN_MAX_N:
+        qkv = linear(p["to_qkv"], x)
         o = fused_qkv_rope_attention(qkv.contiguous(), rope_tabs[0], rope_tabs[1], lens, heads)
     else:
-        inner = qkv.shape[-1] // 3
-        cos, sin = rope_tabs[0][:n], rope_tabs[1][:n]
-        q, k, v = qkv.split(inner, dim=-1)
-        q, k = apply_rotary_flat_tables(q, cos, sin), apply_rotary_flat_tables(k, cos, sin)
-
-        def split_heads(t):
-            return t.reshape(b, n, heads, inner // heads).transpose(1, 2).contiguous()
-
-        o = attention(split_heads(q), split_heads(k), split_heads(v), lens)
-        o = o.transpose(1, 2).reshape(b, n, inner)
+        if "to_qkv" in p:
+            q, k, v = linear(p["to_qkv"], x).chunk(3, dim=-1)
+        else:
+            q, k, v = (linear(p[name], x) for name in ("to_q", "to_k", "to_v"))
+        if "q_norm" in p:
+            q, k = split_heads(q, heads), split_heads(k, heads)
+            q, k = rms_norm(p["q_norm"], q), rms_norm(p["k_norm"], k)
+            q = apply_rotary_partial_heads(q, rope_angles, pe_attn_head)
+            k = apply_rotary_partial_heads(k, rope_angles, pe_attn_head)
+        else:
+            q = split_heads(apply_rotary_flat(q, rope_angles, heads, pe_attn_head), heads)
+            k = split_heads(apply_rotary_flat(k, rope_angles, heads, pe_attn_head), heads)
+        o = merge_heads(attention(q, k, split_heads(v, heads), lens))
     o = linear(p["to_out"], o)
     if lengths is not None:
         mask = torch.arange(n, device=x.device)[None, :] < lengths[:, None]
@@ -273,20 +316,24 @@ def self_attention(p: Params, x: torch.Tensor, heads: int, rope_tabs: tuple,
 # DiT block
 # ---------------------------------------------------------------------------
 
-def init_dit_block(gen, dim: int, heads: int, dim_head: int, ff_mult: int) -> Params:
+def init_dit_block(gen, dim: int, heads: int, dim_head: int, ff_mult: int,
+                   qk_norm: Optional[str] = None) -> Params:
     return {
         "attn_norm": init_adaln(gen, dim, zero=True),  # AdaLN-zero
-        "attn": init_attention(gen, dim, heads, dim_head),
+        "attn": init_attention(gen, dim, heads, dim_head, qk_norm),
         "ff": init_feed_forward(gen, dim, ff_mult),
     }
 
 
 def dit_block(p: Params, x: torch.Tensor, mods: torch.Tensor, heads: int,
-              rope_tabs: tuple, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+              rope_tabs: tuple, lengths: Optional[torch.Tensor] = None,
+              rope_angles: Optional[torch.Tensor] = None,
+              pe_attn_head: Optional[int] = None) -> torch.Tensor:
     """mods [b, 6*dim]: shift_msa, scale_msa, gate_msa, shift/scale/gate_mlp."""
     shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods.chunk(6, dim=-1)
     norm = adaln_pre(x, shift_msa, scale_msa)
-    x = x + gate_msa[:, None, :] * self_attention(p["attn"], norm, heads, rope_tabs, lengths)
+    x = x + gate_msa[:, None, :] * self_attention(p["attn"], norm, heads, rope_tabs, lengths,
+                                                  rope_angles, pe_attn_head)
     norm = adaln_pre(x, shift_mlp, scale_mlp)
     return x + gate_mlp[:, None, :] * feed_forward(p["ff"], norm)
 

@@ -5,8 +5,8 @@ f5tts_tpu/models/unett.py:32-223).
   sequence is padded to a multiple of 128 rows; both are stripped at the
   end. Attention masks the pad rows through `lengths + 1`.
 - Pre-norm blocks with RMSNorm (eps 1e-8, kernel K6): x = attn(norm(x)) + x,
-  x = ff(norm(x)) + x. Attention is K3 up to 4096 rows and K7 past them
-  (`modules.self_attention`).
+  x = ff(norm(x)) + x. Attention is K3 up to 4096 rows and K7 past them,
+  and K7 at every n under qk-norm (`modules.self_attention`).
 - The first half's pre-block states are the skip stack; the second half
   reads them back in reverse and merges them: "concat" as
   x @ W[:d] + skip @ W[d:] (no [b, n, 2d] concat), "add", or "none".
@@ -46,7 +46,7 @@ def init_unett(generator: torch.Generator, arch: ModelArch) -> m.Params:
 
     def block(later_half: bool) -> m.Params:
         blk = {"attn_norm": m.init_rms_norm(arch.dim),
-               "attn": m.init_attention(g, arch.dim, arch.heads, arch.dim_head),
+               "attn": m.init_attention(g, arch.dim, arch.heads, arch.dim_head, arch.qk_norm),
                "ff_norm": m.init_rms_norm(arch.dim),
                "ff": m.init_feed_forward(g, arch.dim, arch.ff_mult)}
         if later_half and arch.skip_connect_type == "concat":
@@ -84,20 +84,21 @@ def unett_text_embeds(params: m.Params, statics: UNetTStatics, text: torch.Tenso
                                     drop_text=drop, dtype=dtype) for drop in (False, True))
 
 
-def _block(blk: m.Params, x: torch.Tensor, heads: int, rope_tabs: tuple,
-           lengths: torch.Tensor, skip: Optional[torch.Tensor] = None,
-           skip_type: str = "concat") -> torch.Tensor:
+def _block(blk: m.Params, x: torch.Tensor, statics: UNetTStatics, rope_tabs: tuple,
+           lengths: torch.Tensor, skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    arch = statics.arch
     if skip is not None:
-        if skip_type == "concat":
+        if arch.skip_connect_type == "concat":
             w = blk["skip_proj"]["w"]
             d = x.shape[-1]
             x = x @ w[:d].to(x.dtype) + skip @ w[d:].to(x.dtype)
             if "b" in blk["skip_proj"]:
                 x = x + blk["skip_proj"]["b"].to(x.dtype)
-        elif skip_type == "add":
+        elif arch.skip_connect_type == "add":
             x = x + skip
     h = m.rms_norm(blk["attn_norm"], x, eps=RMS_EPS)
-    x = m.self_attention(blk["attn"], h, heads, rope_tabs, lengths) + x
+    x = m.self_attention(blk["attn"], h, arch.heads, rope_tabs, lengths, statics.rope_angles,
+                         arch.pe_attn_head) + x
     h = m.rms_norm(blk["ff_norm"], x, eps=RMS_EPS)
     return m.feed_forward(blk["ff"], h) + x
 
@@ -149,10 +150,9 @@ def unett_forward(params: m.Params, statics: UNetTStatics, x: torch.Tensor,
     skips = []
     for blk in params["first_half"]:
         skips.append(h)  # the pre-block state is the skip
-        h = _block(blk, h, arch.heads, rope_tabs, lengths_tok)
+        h = _block(blk, h, statics, rope_tabs, lengths_tok)
     for blk, skip in zip(params["second_half"], reversed(skips)):
-        h = _block(blk, h, arch.heads, rope_tabs, lengths_tok, skip=skip,
-                   skip_type=arch.skip_connect_type)
+        h = _block(blk, h, statics, rope_tabs, lengths_tok, skip=skip)
 
     # strip the time token and the padding
     h = m.rms_norm(params["norm_out"], h, eps=RMS_EPS)[:, 1:n + 1]

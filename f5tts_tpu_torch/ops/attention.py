@@ -1,5 +1,5 @@
 """Attention (counterpart of f5tts_tpu/ops/attention.py:31-546, :777-1224,
-:1401-1641 and :1695-1790).
+:1401-1641 and :1653-1790).
 
 `fused_qkv_rope_attention` takes the fused QKV projection output flat
 [b, n, 3*h*d], rotates q and k with interleaved RoPE from flat cos/sin
@@ -39,6 +39,14 @@ runs K7's lse mode (the row log-sum-exp saved, as the Pallas forward's
 `return_lse`) and its backward is kernel K9 (csrc/attention_bwd.cu, replacing
 `_flash_bwd_fused_kernel` and the split `_flash_bwd_dq_kernel` /
 `_flash_bwd_dkv_kernel`), plain version `flash_attention_bwd_ref`.
+
+`masked_flash_attention` is head-layout attention [b, h, n, d] under an
+arbitrary [b, n] key mask on already-normed and roped q/k (MMDiT joint
+attention with qk-norm or unfused projections): kernel K11 (csrc/attention.cu,
+replacing the Pallas `_flash_kernel_bias`), plain version
+`mha_reference_masked` (the JAX function of that name). Every row is
+computed. It is differentiable through the plain formula's VJP, as the JAX
+custom_vjp (`_masked_bwd`) is: the JAX package has no backward kernel here.
 """
 
 from __future__ import annotations
@@ -484,3 +492,62 @@ def attention(q, k, v, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     if lengths is None:
         lengths = torch.full((q.shape[0],), q.shape[2], dtype=torch.int32, device=q.device)
     return flash_attention(q, k, v, lengths.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K11 forward: head-layout attention under a key mask
+# ---------------------------------------------------------------------------
+
+def mha_reference_masked(q, k, v, kmask) -> torch.Tensor:
+    """[b, h, n, d] attention under a [b, n] bool key mask (True = live):
+    f32 scores and softmax, probabilities in v's dtype. A batch row with no
+    live key gets the uniform mean of v (K11 writes zeros there)."""
+    d = q.shape[-1]
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    scores = torch.where(kmask[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.matmul(probs.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
+def masked_flash_attention_bwd(q, k, v, kmask, dout) -> tuple:
+    """(dq, dk, dv) of `mha_reference_masked` for dout (JAX `_masked_bwd`)."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(mha_reference_masked(*xs, kmask), xs, dout)
+
+
+class _MaskedFlashAttention(torch.autograd.Function):
+    """K11 forward (plain on the CPU), the plain formula's VJP backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kmask):
+        ctx.save_for_backward(q, k, v, kmask)
+        return _masked_forward(q, k, v, kmask)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (*masked_flash_attention_bwd(*ctx.saved_tensors, dout), None)
+
+
+def masked_flash_attention(q, k, v, kmask) -> torch.Tensor:
+    """q/k/v [b, h, n, d] (already roped), kmask [b, n] bool (True = live
+    key) -> [b, h, n, d], every row computed. Kernel K11 on CUDA,
+    `mha_reference_masked` on the CPU; differentiable in q, k and v."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _MaskedFlashAttention.apply(q, k, v, kmask)
+    return _masked_forward(q, k, v, kmask)
+
+
+def _masked_forward(q, k, v, kmask) -> torch.Tensor:
+    if _device("masked_flash_attention", q) == "cpu":
+        return mha_reference_masked(q, k, v, kmask)
+    _check_heads(q, k, v)
+    b, h, n, _ = q.shape
+    _check_kmask(kmask, b, n, q.device)
+    out = torch.empty_like(q)
+    err = _entry("attention", "f5_masked_flash_attn_bf16", 5)(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(kmask), _build.ptr(out),
+        b, n, h, 1.0 / math.sqrt(HEAD_DIM), _build.stream_ptr(q.device))
+    _build.check(err, "masked_flash_attention")
+    _build.count("masked_flash_attention")
+    return out

@@ -1,4 +1,5 @@
-"""Rotary position tables (counterpart of f5tts_tpu/ops/rope.py:23-153).
+"""Rotary position tables and rotations (counterpart of
+f5tts_tpu/ops/rope.py:23-153).
 
 Attention RoPE rotates INTERLEAVED pairs: out[2i] = x[2i]c - x[2i+1]s,
 out[2i+1] = x[2i+1]c + x[2i]s (x_transformers semantics, not rotate-half
@@ -25,6 +26,23 @@ def _rotate_pairs(xf: torch.Tensor) -> torch.Tensor:
     """(x0, x1, x2, x3, ...) -> (-x1, x0, -x3, x2, ...) over the last dim."""
     pairs = xf.unflatten(-1, (-1, 2))
     return torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).flatten(-2)
+
+
+def apply_rotary(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotate [..., n, d] by the angle table's first n rows [n, d] in f32,
+    cast back to x's dtype (the head layout [b, h, n, d])."""
+    ang = angles[:x.shape[-2]].float()
+    xf = x.float()
+    return (xf * torch.cos(ang) + _rotate_pairs(xf) * torch.sin(ang)).to(x.dtype)
+
+
+def apply_rotary_partial_heads(x: torch.Tensor, angles: torch.Tensor,
+                               pe_attn_head: Optional[int]) -> torch.Tensor:
+    """`apply_rotary` on the first `pe_attn_head` heads of [b, h, n, d] only
+    (all heads when None)."""
+    if pe_attn_head is None:
+        return apply_rotary(x, angles)
+    return torch.cat([apply_rotary(x[:, :pe_attn_head], angles), x[:, pe_attn_head:]], dim=1)
 
 
 def rope_flat_tables(angles: torch.Tensor, n: int, heads: int,

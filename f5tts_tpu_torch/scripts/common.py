@@ -1,10 +1,12 @@
 """Seeded models, requests, training text and trace helpers shared by
 chip_smoke.py and the profiling scripts.
 
-F5TTS_v1_Base, E2TTS_Base or MMDiT_Base (text_num_embeds 2545, as the JAX
-package's bench.py) and Vocos with random weights from fixed seeds; the
-zero-initialised AdaLN, norm_out, proj_out and GRN leaves are randomised so
-the backbone is no identity (the UNetT has none). No checkpoint is read.
+Any preset of `config.PRESETS` (text_num_embeds 2545, as the JAX package's
+bench.py; other arch fields may be overridden, e.g. qk_norm) and Vocos with
+random weights from fixed seeds; the zero-initialised AdaLN, norm_out,
+proj_out and GRN leaves are randomised so the backbone is no identity (the
+UNetT has none), and so are qk-norm's RMSNorm weights (1 + 0.1 N(0, 1)). No
+checkpoint is read.
 """
 
 from __future__ import annotations
@@ -48,13 +50,28 @@ def synthetic_text_ids(rng, lens, model: str, width: int = 256) -> np.ndarray:
     return ids
 
 
-def base_models(seed: int = 0, model: str = "F5TTS_v1_Base") -> tuple[ModelArch, dict, dict]:
-    """(arch, backbone params, Vocos params) of the preset `model`, f32 on the
-    CPU; its backbone is `PRESETS[model].backbone`."""
+QK_NORM_LEAVES = ("q_norm", "k_norm", "c_q_norm", "c_k_norm")
+
+
+def base_models(seed: int = 0, model: str = "F5TTS_v1_Base",
+                **arch_overrides) -> tuple[ModelArch, dict, dict]:
+    """(arch, backbone params, Vocos params) of the preset `model` with
+    `arch_overrides` (e.g. qk_norm="rms_norm", depth=2), f32 on the CPU; its
+    backbone is `PRESETS[model].backbone`."""
     cfg = PRESETS[model]
-    arch = dataclasses.replace(cfg.arch, text_num_embeds=2545)
+    arch = dataclasses.replace(cfg.arch, text_num_embeds=2545, **arch_overrides)
     gen = torch.Generator().manual_seed(seed)
     params = dit.activate_zero_init(BACKBONES[cfg.backbone].init(gen, arch), gen)
+
+    def randomise_qk_norm(tree):
+        if isinstance(tree, dict):
+            return {k: ({"w": 1.0 + 0.1 * torch.randn(v["w"].shape, generator=gen)}
+                        if k in QK_NORM_LEAVES else randomise_qk_norm(v)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [randomise_qk_norm(v) for v in tree]
+        return tree
+
+    params = randomise_qk_norm(params)
     vocos_params = init_vocos(torch.Generator().manual_seed(seed + 1), VocosConfig())
     return arch, params, vocos_params
 

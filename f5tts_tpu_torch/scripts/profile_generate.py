@@ -1,12 +1,15 @@
 """Where the time of one zero-shot request goes, on the card.
 
     python -m f5tts_tpu_torch.scripts.profile_generate [--model F5TTS_v1_Base]
-        [--out profile_generate.json]
+        [--qk-norm] [--out profile_generate.json]
 
-`--model` F5TTS_v1_Base (DiT), E2TTS_Base (UNetT) or MMDiT_Base, + Vocos
+`--model` any preset: F5TTS_v1_Base / F5TTS_Base / F5TTS_v1_Small /
+F5TTS_Small (DiT), E2TTS_Base / E2TTS_Small (UNetT) or MMDiT_Base;
+`--qk-norm` sets qk_norm="rms_norm" (its RMSNorm weights randomised); + Vocos
 (seeded random weights, bf16 backbone, f32 Vocos), 16 NFE, CFG 2, sway -1,
-through `InferencePipeline.infer` with a fixed duration per bucket (the DiT
-at 768, 1024 and the 4096 cap; the others at 1024 and the cap). For each
+through `InferencePipeline.infer` with a fixed duration per bucket (the
+F5TTS_v1_Base DiT at 768, 1024 and the 4096 cap; the others at 1024 and the
+cap). For each
 bucket: one warm-up request, 3 timed requests (host clock, ending in a
 device sync), then one request under torch.profiler. From the trace: device
 busy time (the union of kernel intervals) against the request's wall time,
@@ -28,16 +31,19 @@ import torch
 # total frames a request asks for, by model: each lands in the bucket it
 # names (the UNetT's 1013 + 1 time token in the 1024-row bucket; 4096 is the
 # cap, 4224 rows for the UNetT)
-FRAMES = {"F5TTS_v1_Base": (758, 1014, 4086), "E2TTS_Base": (1013, 4096),
-          "MMDiT_Base": (1014, 4086)}
+FRAMES = {"F5TTS_v1_Base": (758, 1014, 4086), "F5TTS_Base": (1014, 4086),
+          "F5TTS_v1_Small": (1014, 4086), "F5TTS_Small": (1014, 4086),
+          "E2TTS_Base": (1013, 4096), "E2TTS_Small": (1013, 4096), "MMDiT_Base": (1014, 4086)}
 REPS = 3
 CLASSES = (
     ("fused_qkv_rope_attention", ("fused_qkv_rope_attn_kernel",)),
     ("fused_qkv_rope_attention_bias", ("fused_qkv_rope_attn_bias_kernel",)),
+    ("masked_flash_attention", ("masked_flash_attn_kernel",)),  # before its substring
     ("flash_attention", ("flash_attn_kernel",)),
     ("adaln_norm", ("adaln_norm_kernel",)),
     ("rms_norm", ("rms_norm_kernel",)),
     ("conv_pos_embedding", ("conv_mish_kernel",)),
+    ("grouped_conv1d", ("grouped_conv1d_kernel",)),
     ("gemm", ("gemm", "Gemm", "cutlass", "xmma", "nvjet", "cublas")),
     ("fft", ("fft", "FFT")),
 )
@@ -81,6 +87,7 @@ def profile_bucket(pipe, ref, text: str, frames: int, reps: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="F5TTS_v1_Base", choices=sorted(FRAMES))
+    ap.add_argument("--qk-norm", action="store_true", help='qk_norm="rms_norm"')
     ap.add_argument("--out", default=None, help="also write the JSON result here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -97,7 +104,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     backbone = PRESETS[args.model].backbone
-    arch, params, vocos_params = base_models(model=args.model)
+    arch, params, vocos_params = base_models(
+        model=args.model, **({"qk_norm": "rms_norm"} if args.qk_norm else {}))
     pipe = InferencePipeline(params, BACKBONES[backbone].statics_cls(arch),
                              Vocos(vocos_params, VocosConfig(), device=dev),
                              vocab_char_map=VOCAB, sampling=SamplingConfig(nfe_steps=16),
@@ -105,7 +113,8 @@ def main(argv=None) -> int:
                              backbone=backbone)
     gpu = gpu_name_and_limit()
     ref = synthetic_ref_wav()
-    result = {"gpu": gpu, "torch": torch.__version__, "model": args.model, "buckets": []}
+    result = {"gpu": gpu, "torch": torch.__version__, "model": args.model,
+              "qk_norm": arch.qk_norm, "buckets": []}
     for frames in FRAMES[args.model]:
         row = profile_bucket(pipe, ref, REQUESTS[1], frames, REPS)
         result["buckets"].append(row)

@@ -3,9 +3,10 @@
 Each hand-written kernel against its plain PyTorch version at small shapes,
 including ragged lengths and an n that is no multiple of the tiles; the
 attention backwards K4, K8 and K9 alone and through autograd (K3 -> K4,
-K5 -> K8, K7's lse mode -> K9); one tiny DiT, UNetT and MMDiT forward and
-one tiny training step of each backbone through the kernels against the CPU
-plain path.
+K5 -> K8, K7's lse mode -> K9); the generic grouped conv1d K10 and the
+key-masked head-layout attention K11; one tiny DiT, UNetT and MMDiT forward
+(also at the dim-768 widths and with qk-norm) and one tiny training step of
+each backbone through the kernels against the CPU plain path.
 Run on a GPU machine with:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -32,9 +33,17 @@ from f5tts_tpu_torch.ops.attention import (
     fused_qkv_rope_attention_bwd,
     fused_qkv_rope_attention_bwd_ref,
     fused_qkv_rope_attention_ref,
+    masked_flash_attention,
+    masked_flash_attention_bwd,
     mha_reference,
+    mha_reference_masked,
 )
-from f5tts_tpu_torch.ops.grouped_conv import conv_pos_embedding, conv_pos_embedding_ref
+from f5tts_tpu_torch.ops.grouped_conv import (
+    conv_pos_embedding,
+    conv_pos_embedding_ref,
+    grouped_conv1d,
+    grouped_conv1d_ref,
+)
 from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
 
 pytestmark = pytest.mark.cuda
@@ -280,6 +289,83 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         fused_qkv_rope_attention(torch.zeros(1, 8, 3 * 1024, device=dev), x[0], x[0],
                                  torch.zeros(1, dtype=torch.int32, device=dev), 16)
+    xb = torch.zeros(1, 8, 320, dtype=torch.bfloat16, device=dev)
+    bias = torch.zeros(320, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):  # 16 groups of 20 channels
+        grouped_conv1d(xb, torch.zeros(31, 20, 320, dtype=torch.bfloat16, device=dev), bias, 16)
+    with pytest.raises(ValueError, match="k <= 31"):
+        grouped_conv1d(xb, torch.zeros(33, 40, 320, dtype=torch.bfloat16, device=dev), bias, 8)
+    with pytest.raises(ValueError):  # f32 x
+        grouped_conv1d(xb.float(), torch.zeros(31, 40, 320, dtype=torch.bfloat16, device=dev),
+                       bias, 8)
+    qh = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="key mask"):  # an int mask, not bool
+        masked_flash_attention(qh, qh, qh, torch.ones(1, 64, dtype=torch.int32, device=dev))
+    q128 = torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="64"):  # head width 128 is not ported
+        masked_flash_attention(q128, q128, q128, torch.ones(1, 64, dtype=torch.bool, device=dev))
+
+
+@pytest.mark.parametrize("n,width,k", [(64, 48, 31), (200, 48, 31), (1024, 48, 31), (100, 24, 4),
+                                       (77, 64, 7), (130, 128, 31), (50, 8, 1)])
+def test_grouped_conv1d_kernel(dev, n, width, k):
+    """K10 (16 groups of `width`, same padding, odd and even k) against its
+    plain version in f32: max-abs <= 3e-2, K2's tolerance."""
+    rng = np.random.default_rng(n + width + k)
+    c = 16 * width
+    x = _bf16(rng, (2, n, c), dev)
+    w = _bf16(rng, (k, width, c), dev, 1.0 / np.sqrt(width * k))
+    bias = _bf16(rng, (c,), dev, 0.1)
+    _build.reset_launches()
+    out = grouped_conv1d(x, w, bias, 16)
+    assert _build.launches() == {"grouped_conv1d": 1}
+    ref = grouped_conv1d_ref(x.float(), w.float(), bias.float(), 16)
+    assert _live_max(out, ref, torch.full((2,), n, device=dev)) <= 3e-2
+
+
+def test_grouped_conv1d_autograd_launches_k10(dev):
+    rng = np.random.default_rng(1)
+    x = _bf16(rng, (2, 96, 768), dev).requires_grad_()
+    w = _bf16(rng, (31, 48, 768), dev, 0.03).requires_grad_()
+    bias = _bf16(rng, (768,), dev, 0.1).requires_grad_()
+    _build.reset_launches()
+    grouped_conv1d(x, w, bias, 16).float().sum().backward()
+    assert _build.launches() == {"grouped_conv1d": 1}
+    xs = [t.detach().float().requires_grad_() for t in (x, w, bias)]
+    grouped_conv1d_ref(*xs, 16).sum().backward()
+    for got, want in zip((x, w, bias), xs):
+        _close(got.grad, want.grad)
+
+
+@pytest.mark.parametrize("n", [64, 200, 1152, 4352])
+def test_masked_flash_attention_kernel(dev, n):
+    """K11 on every row against its plain version (max-abs <= 2e-2), dead
+    keys mid-sequence, a whole dead 64-key tile and a dead tail."""
+    rng = np.random.default_rng(n + 9)
+    q, k, v = (_bf16(rng, (2, 16, n, 64), dev) for _ in range(3))
+    kmask = _bias_case(rng, n, dev)[3]
+    _build.reset_launches()
+    out = masked_flash_attention(q, k, v, kmask)
+    assert _build.launches() == {"masked_flash_attention": 1}
+    ref = mha_reference_masked(q.float(), k.float(), v.float(), kmask)
+    assert float((out.float() - ref).abs().max()) <= 2e-2
+
+
+def test_masked_flash_attention_autograd_launches_k11(dev):
+    """The forward is K11; the backward is the plain formula's VJP (as the
+    JAX package's), which launches no kernel of the port."""
+    rng = np.random.default_rng(10)
+    q, k, v = (_bf16(rng, (1, 16, 192, 64), dev).requires_grad_() for _ in range(3))
+    kmask = torch.ones(1, 192, dtype=torch.bool, device=dev)
+    kmask[0, 50:100] = False
+    _build.reset_launches()
+    out = masked_flash_attention(q, k, v, kmask)
+    out.float().sum().backward()
+    assert _build.launches() == {"masked_flash_attention": 1}
+    want = masked_flash_attention_bwd(q.detach(), k.detach(), v.detach(), kmask,
+                                      torch.ones_like(out))
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        _close(got, w)
 
 
 def test_tiny_dit_through_the_kernels(dev):
@@ -341,6 +427,57 @@ def test_tiny_new_backbones_through_the_kernels(dev, backbone):
             outs[where.type] = bdef.forward(
                 tree_cast(params, dtype, where), bdef.statics_cls(arch, where), x.to(where),
                 x.to(where), text.to(where), t.to(where), lengths=lens.to(where),
+                cfg_infer=True, dtype=dtype).cpu()
+        if where.type == "cuda":
+            assert _build.launches() == want
+    a, b = outs["cuda"][:, :201], outs["cpu"][:, :201]
+    assert float((a - b).norm() / b.norm()) <= 3e-2
+
+
+@pytest.mark.parametrize("case", ["DiT-768", "DiT-qk", "UNetT-768", "UNetT-qk", "MMDiT-qk",
+                                  "MMDiT-unfused"])
+def test_tiny_small_and_qk_norm_through_the_kernels(dev, case):
+    """Depth-2 forwards on the card in bf16 against the CPU in f32 (rel-L2
+    <= 3e-2, launch counts exact): the dim-768 widths (two K10 launches an
+    input embedding, K2 none), qk-norm (K6 per head, then K7 at every n,
+    or K11 for the MMDiT) and the MMDiT with unfused projections (K11)."""
+    from f5tts_tpu_torch.config import ModelArch
+    from f5tts_tpu_torch.models import dit
+    from f5tts_tpu_torch.models.cfm import BACKBONES
+    from f5tts_tpu_torch.models.modules import fuse_backbone_qkv, tree_cast
+
+    backbone, kind = case.split("-")
+    text = dict(text_dim=64, conv_layers=1) if backbone == "DiT" else dict(text_dim=None,
+                                                                           conv_layers=0)
+    width = dict(dim=768, heads=12) if kind == "768" else dict(dim=1024, heads=16)
+    arch = ModelArch(depth=2, dim_head=64, text_num_embeds=32,
+                     qk_norm="rms_norm" if kind == "qk" else None, **width, **text)
+    bdef = BACKBONES[backbone]
+    gen = torch.Generator().manual_seed(0)
+    params = dit.activate_zero_init(bdef.init(gen, arch), gen)
+    if kind != "unfused":
+        params = fuse_backbone_qkv(params)
+    conv = {"grouped_conv1d": 4} if kind == "768" else {"conv_pos_embedding": 2}
+    qk = int(kind == "qk")  # qk-norm: K6 on q and k, per stream, in each of the 2 blocks
+    want = {"DiT": {"adaln_norm": 5, "rms_norm": 4 * qk},
+            "UNetT": {"rms_norm": 5 + 4 * qk},
+            "MMDiT": {"adaln_norm": 8, "rms_norm": 8 * qk, "masked_flash_attention": 2}}[backbone]
+    if backbone != "MMDiT":
+        want["flash_attention" if kind == "qk" else "fused_qkv_rope_attention"] = 2
+    want = {k: v for k, v in {**want, **conv}.items() if v}
+    rng = np.random.default_rng(0)
+    n = 255
+    x = torch.from_numpy(rng.standard_normal((1, n, 100)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 32, (1, 40)).astype(np.int32))
+    lens = torch.tensor([201], dtype=torch.int32)
+    t = torch.tensor([0.4])
+    outs = {}
+    for where, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        _build.reset_launches()
+        with torch.no_grad():
+            outs[where.type] = bdef.forward(
+                tree_cast(params, dtype, where), bdef.statics_cls(arch, where), x.to(where),
+                x.to(where), ids.to(where), t.to(where), lengths=lens.to(where),
                 cfg_infer=True, dtype=dtype).cpu()
         if where.type == "cuda":
             assert _build.launches() == want

@@ -111,8 +111,15 @@ def test_converter_unstacks_and_keeps_layouts(model):
             np.testing.assert_array_equal(_np(fused_j["blocks"][i]["attn"]["to_qkv"][k]),
                                           _np(fused_t["blocks"][i]["attn"]["to_qkv"][k]))
     assert "to_q" not in fused_t["blocks"][0]["attn"]
-    with pytest.raises(ValueError, match="fuse_backbone_qkv"):
-        tm.self_attention(tp["blocks"][0]["attn"], torch.zeros(1, 8, 128), 2, (None, None))
+    # unfused params take the head layout (RoPE from the angles, K7's plain
+    # version) and agree with the fused flat path: f32 sum orders only
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((1, 64, 128)).astype(np.float32))
+    lens = torch.tensor([50], dtype=torch.int32)
+    statics = tdit.DiTStatics(jarch)
+    tabs = rope_flat_tables(statics.rope_angles, 64, 2, dtype=torch.float32)
+    unfused = tm.self_attention(tp["blocks"][0]["attn"], x, 2, tabs, lens, statics.rope_angles)
+    fused = tm.self_attention(fused_t["blocks"][0]["attn"], x, 2, tabs, lens)
+    np.testing.assert_allclose(_np(unfused), _np(fused), atol=1e-5)
 
 
 def test_modules_match_jax(model):

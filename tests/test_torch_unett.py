@@ -81,13 +81,17 @@ def test_init_unett_shapes_match_jax():
 def test_presets_match_jax():
     from f5tts_tpu.config import PRESETS as JPRESETS
 
-    for name in ("F5TTS_v1_Base", "F5TTS_v1_Small", "E2TTS_Base", "E2TTS_Small", "MMDiT_Base"):
+    names = ("F5TTS_v1_Base", "F5TTS_Base", "F5TTS_v1_Small", "F5TTS_Small", "E2TTS_Base",
+             "E2TTS_Small", "MMDiT_Base")
+    assert set(PRESETS) == set(names) <= set(JPRESETS)
+    for name in names:
         t, j = PRESETS[name], JPRESETS[name]
         assert t.backbone == j.backbone
         ja = dataclasses.asdict(j.arch)
         assert dataclasses.asdict(t.arch) == {k: ja[k] for k in dataclasses.asdict(t.arch)}
-    with pytest.raises(NotImplementedError):
-        TArch(qk_norm="rms_norm")
+    assert TArch(qk_norm="rms_norm").qk_norm == "rms_norm"
+    with pytest.raises(ValueError, match="qk_norm"):
+        TArch(qk_norm="layer_norm")
 
 
 def test_rms_norm_module_matches_jax(model):
@@ -117,8 +121,9 @@ def test_self_attention_gates_match_jax(model, gate, monkeypatch):
     statics = junett.UNetTStatics(jarch)
     want = np.asarray(jm.self_attention(attn_j, jnp.asarray(x), 2, statics.rope_angles[:n],
                                         jnp.asarray(lens), backend="xla"))
-    tabs = rope_flat_tables(tunett.UNetTStatics(tarch).rope_angles, n, 2, dtype=torch.float32)
-    got = _np(tm.self_attention(tp["first_half"][0]["attn"], _t(x), 2, tabs, _t(lens)))
+    angles = tunett.UNetTStatics(tarch).rope_angles
+    tabs = rope_flat_tables(angles, n, 2, dtype=torch.float32)
+    got = _np(tm.self_attention(tp["first_half"][0]["attn"], _t(x), 2, tabs, _t(lens), angles))
     assert len(calls) == (gate == "heads")
     np.testing.assert_allclose(_live(got, lens), _live(want, lens), atol=ATOL, rtol=1e-4)
     assert not got[1, 177:].any()
