@@ -9,18 +9,24 @@ Phases (any failure raises, and the script exits non-zero):
    paths' shapes, with seeded inputs: max-abs error over live rows against
    a stated tolerance, median time from CUDA-graph replays, the bound, the
    plain version's time and, for attention, F.scaled_dot_product_attention's
-   time as a yardstick (the port never calls it). The attention backward K4
-   (b = 2, h = 16, lengths [n, 777], n = 1024, 3072, 4096): dQKV rel-L2 and
-   max-abs over live rows, dead rows exactly 0, SDPA's backward (fwd+bwd
-   minus fwd on the same pre-roped inputs) as the yardstick. K5, the
+   time as a yardstick (the port never calls it). K3's lse mode (the
+   training forward) at K3's shapes: its output equal to K3's, its lse within
+   1e-3 of the plain version's on live q tiles and exactly -1e30 past them.
+   The attention backward K4 (b = 2, h = 16, lengths [n, 777], n = 1024,
+   3072, 4096) from K3's saved output and lse: dQKV rel-L2 and max-abs over
+   live rows against both plain versions (the from-lse one it computes, then
+   the recompute one of the JAX function), dead rows exactly 0, SDPA's
+   backward (fwd+bwd minus fwd on the same pre-roped inputs) as the
+   yardstick. K5's lse mode as K3's, every row. K5, the
    key-masked flat attention (joint n = 1152, 3200, 4352: audio + text rows,
    dead keys mid-sequence, SDPA with a boolean mask as yardstick); K6,
    RMSNorm ([2, 1024, 1024], F.rms_norm as yardstick); K7, head-layout
    attention (n = 1024, 4224, lengths [n, 777]; SDPA as yardstick). K7's lse
    mode (the same inputs: the output as K7's, the lse within 1e-3 on live q
    tiles and exactly -1e30 on dead ones); K8, the key-masked flat backward
-   (K5's joint shapes and masks, dO on every row: dQKV rel-L2 and max-abs as
-   K4's, dead keys' dk/dv exactly 0); K9, the head-layout backward from K7's
+   from K5's saved output and lse (K5's joint shapes and masks, dO on every
+   row: dQKV rel-L2 and max-abs against both plain versions as K4's, dead
+   keys' dk/dv exactly 0); K9, the head-layout backward from K7's
    saved output and lse (b = 2, h = 16, n = 1024, 4224, lengths [n, 777], dO
    zero on rows >= length: dq/dk/dv as K4's, exactly 0 on dead tiles and
    keys). Each backward is timed beside SDPA's backward on the same inputs.
@@ -43,7 +49,7 @@ Phases (any failure raises, and the script exits non-zero):
    b = 16, n = 1024 (lens in [512, 1024]) and 2 at b = 4, n = 3072. Loss and
    grad norm finite, every parameter leaf changed, the EMA on its cadence
    (every 2 updates: a copy at update 2, a decay at update 4), and each update
-   launches K3 / K4 / K1 / K2 exactly 22 / 22 / 45 / 1 times.
+   launches K3's lse mode / K4 / K1 / K2 exactly 22 / 22 / 45 / 1 times.
 6. One training step at depth 2 (b = 4, n = 512), the same draws, on the card
    in bf16 (the kernels) against the CPU in f32 (the plain versions): loss
    within 2e-2 relative, each gradient leaf's rel-L2 <= 1e-1.
@@ -57,12 +63,13 @@ Phases (any failure raises, and the script exits non-zero):
    352 / 1408 / 32 times a generate.
 9. Phase 4 for the two new backbones at depth 2: mel rel-L2 <= 3e-2.
 10. Trainer.train at E2TTS_Base (UNetT), as phase 5: 3 updates at b = 16,
-    n = 1024 (1152 rows: K3 / K4 / K6 / K2 24 / 24 / 49 / 1 an update) and 2
+    n = 1024 (1152 rows: K3's lse mode / K4 / K6 / K2 24 / 24 / 49 / 1 an
+    update) and 2
     at b = 4, n = 4096, the cap (4224 rows, past the flat gate: K7's lse mode
     / K9 / K6 / K2 24 / 24 / 49 / 1).
 11. Trainer.train at MMDiT_Base: 3 updates at b = 16, n = 1024 and 2 at
     b = 4, n = 3072, text of ceil(frames / 6) ids (joint <= 1536 rows and in
-    (1536, 4096]: K5 / K8 / K1 / K2 22 / 22 / 88 / 1 an update).
+    (1536, 4096]: K5's lse mode / K8 / K1 / K2 22 / 22 / 88 / 1 an update).
 12. Phase 6 for the UNetT (n = 1023 frames, 1024 rows, once on the flat gate
     and once past it, FLAT_ATTN_MAX_N lowered) and the MMDiT (n = 512).
 13. InferencePipeline.infer at the dim-768 presets + Vocos, full width and
@@ -105,9 +112,10 @@ F32_FLOPS_PER_S = 67e12      # f32 outside the tensor cores
 
 # max-abs error over live rows
 TOL = {"adaln_norm": 2e-2, "conv_pos_embedding": 3e-2, "fused_qkv_rope_attention": 2e-2,
-       "fused_qkv_rope_attention_bias": 2e-2, "rms_norm": 2e-2, "flash_attention": 2e-2,
+       "fused_qkv_rope_attention_lse": 2e-2, "fused_qkv_rope_attention_bias": 2e-2,
+       "fused_qkv_rope_attention_bias_lse": 2e-2, "rms_norm": 2e-2, "flash_attention": 2e-2,
        "flash_attention_lse": 2e-2, "grouped_conv1d": 3e-2, "masked_flash_attention": 2e-2}
-LSE_TOL = 1e-3  # K7's lse mode: |lse - plain| on live q tiles
+LSE_TOL = 1e-3  # the lse modes of K3, K5 and K7: |lse - plain| on live q tiles
 # K4's dQKV over live rows: rel-L2, and max-abs against the largest entry of
 # the plain version's dQKV (whose scale grows with n)
 BWD_REL_L2_TOL = 1e-2
@@ -116,8 +124,12 @@ REPLACES = {
     "adaln_norm": "f5tts_tpu/ops/adaln_norm.py:48",
     "conv_pos_embedding": "f5tts_tpu/ops/grouped_conv.py:168",
     "fused_qkv_rope_attention": "f5tts_tpu/ops/attention.py:567 (+ :659 stream twin)",
+    "fused_qkv_rope_attention_lse": "f5tts_tpu/ops/attention.py:567 (+ :659), with the row lse "
+                                    "that :886 / :970 recompute",
     "fused_qkv_rope_attention_bwd": "f5tts_tpu/ops/attention.py:886 (+ :970 long twin)",
     "fused_qkv_rope_attention_bias": "f5tts_tpu/ops/attention.py:1240 (+ :1307 stream twin)",
+    "fused_qkv_rope_attention_bias_lse": "f5tts_tpu/ops/attention.py:1240 (+ :1307), with the "
+                                         "row lse that :1503 recomputes",
     "rms_norm": "f5tts_tpu/ops/adaln_norm.py:97",
     "flash_attention": "f5tts_tpu/ops/attention.py:123 (+ :50 loop twin)",
     "flash_attention_lse": "f5tts_tpu/ops/attention.py:193 return_lse (lse_ref of :123 / :50)",
@@ -130,8 +142,10 @@ SOURCES = {
     "adaln_norm": "f5tts_tpu_torch/csrc/adaln_norm.cu",
     "conv_pos_embedding": "f5tts_tpu_torch/csrc/grouped_conv.cu",
     "fused_qkv_rope_attention": "f5tts_tpu_torch/csrc/attention.cu",
+    "fused_qkv_rope_attention_lse": "f5tts_tpu_torch/csrc/attention.cu",
     "fused_qkv_rope_attention_bwd": "f5tts_tpu_torch/csrc/attention_bwd.cu",
     "fused_qkv_rope_attention_bias": "f5tts_tpu_torch/csrc/attention.cu",
+    "fused_qkv_rope_attention_bias_lse": "f5tts_tpu_torch/csrc/attention.cu",
     "rms_norm": "f5tts_tpu_torch/csrc/adaln_norm.cu",
     "flash_attention": "f5tts_tpu_torch/csrc/attention.cu",
     "flash_attention_lse": "f5tts_tpu_torch/csrc/attention.cu",
@@ -142,15 +156,17 @@ SOURCES = {
 }
 NFE = 16
 # phases 5, 10 and 11: (batch, frames, updates, launches an update)
-_DIT_PER_UPDATE = {"fused_qkv_rope_attention": 22, "fused_qkv_rope_attention_bwd": 22,
+# (under grad K3 and K5 run their lse modes)
+_DIT_PER_UPDATE = {"fused_qkv_rope_attention_lse": 22, "fused_qkv_rope_attention_bwd": 22,
                    "adaln_norm": 45, "conv_pos_embedding": 1}
 DIT_TRAIN_CELLS = ((16, 1024, 4, _DIT_PER_UPDATE), (4, 3072, 2, _DIT_PER_UPDATE))
 UNETT_TRAIN_CELLS = (
-    (16, 1024, 3, {"fused_qkv_rope_attention": 24, "fused_qkv_rope_attention_bwd": 24,
+    (16, 1024, 3, {"fused_qkv_rope_attention_lse": 24, "fused_qkv_rope_attention_bwd": 24,
                    "rms_norm": 49, "conv_pos_embedding": 1}),
     (4, 4096, 2, {"flash_attention_lse": 24, "flash_attention_bwd": 24, "rms_norm": 49,
                   "conv_pos_embedding": 1}))
-_MMDIT_PER_UPDATE = {"fused_qkv_rope_attention_bias": 22, "fused_qkv_rope_attention_bias_bwd": 22,
+_MMDIT_PER_UPDATE = {"fused_qkv_rope_attention_bias_lse": 22,
+                     "fused_qkv_rope_attention_bias_bwd": 22,
                      "adaln_norm": 88, "conv_pos_embedding": 1}
 MMDIT_TRAIN_CELLS = ((16, 1024, 3, _MMDIT_PER_UPDATE), (4, 3072, 2, _MMDIT_PER_UPDATE))
 
@@ -195,6 +211,14 @@ def live_err(a, b, lengths) -> float:
     live = torch.arange(n, device=a.device)[None, :] < lengths.to(a.device)[:, None]
     diff = (a.float() - b.float()).abs()
     return float(diff[live].max())
+
+
+def merge_rows(out_row, row):
+    """The first shape's row with the largest error over all shapes."""
+    if out_row is None:
+        return row
+    out_row["max_abs_err"] = max(out_row["max_abs_err"], row["max_abs_err"])
+    return out_row
 
 
 # ---------------------------------------------------------------------------
@@ -292,11 +316,9 @@ def check_conv_pos(rng, dev) -> dict:
             f"bound {bound:.4f} ms (operations), plain {plain:.4f} ms")
         if dead != 0.0:
             raise AssertionError("conv_pos_embedding: rows >= length are not zero")
-        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
-               "bound_by": "operations", "library_ms": None}
-        if out_row is None:
-            out_row = row
-        out_row["max_abs_err"] = max(out_row["max_abs_err"], err)
+        out_row = merge_rows(out_row, {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                                        "bound_ms": bound, "bound_by": "operations",
+                                        "library_ms": None})
     return out_row
 
 
@@ -335,11 +357,9 @@ def check_attention(rng, dev) -> dict:
             f"plain {plain:.4f} ms, sdpa {lib:.4f} ms")
         if dead != 0.0:
             raise AssertionError("fused_qkv_rope_attention: rows >= length are not zero")
-        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
-               "bound_by": "operations", "library_ms": lib}
-        if out_row is None:
-            out_row = row
-        out_row["max_abs_err"] = max(out_row["max_abs_err"], err)
+        out_row = merge_rows(out_row, {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                                        "bound_ms": bound, "bound_by": "operations",
+                                        "library_ms": lib})
     return out_row
 
 
@@ -385,10 +405,108 @@ def check_bwd_tol(name: str, rel: float, err: float, top: float) -> None:
         raise AssertionError(f"{name}: rel-L2 {rel}, max_abs_err {err} against largest entry {top}")
 
 
+def flat_lse_row(name: str, n: int, live_rows, out, lse, ref, ref_lse, tile_end: int,
+                 timed, plain, lib: float, flops: float, nbytes: int, what: str) -> dict:
+    """Check and time a flat lse mode (K3's or K5's): the output equal to the
+    mode without lse, the lse within LSE_TOL of the plain version's on rows of
+    live q tiles and -1e30 past them (`tile_end` of batch row 1)."""
+    import torch
+    from f5tts_tpu_torch.ops.attention import NEG_INF
+
+    err = float((out.float() - ref.float()).abs()[live_rows].max())
+    lse_err = max(float((lse[0] - ref_lse[0]).abs().max()),
+                  float((lse[1, :, :tile_end] - ref_lse[1, :, :tile_end]).abs().max()))
+    dead_ok = bool((lse[1, :, tile_end:] == NEG_INF).all())
+    bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    ms = time_ms(timed)
+    plain_ms = time_ms(plain, reps=1, iters=5)
+    torch.cuda.synchronize()
+    log(f"  {name} b=2 h=16 d=64 {what}: max_abs_err {err:.3e} (tol {TOL[name]}), lse max err "
+        f"{lse_err:.3e} (tol {LSE_TOL}), dead tiles -1e30: {dead_ok}, {ms:.4f} ms, bound "
+        f"{bound:.4f} ms (operations), plain {plain_ms:.4f} ms, sdpa fwd (no lse out) {lib:.4f} ms")
+    if not (dead_ok and lse_err <= LSE_TOL):
+        raise AssertionError(f"{name} at n={n}: lse err {lse_err}, dead tiles {dead_ok}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations", "library_ms": lib}
+
+
+def check_attention_lse(rng, dev) -> dict:
+    """K3's lse mode (the training forward) at K3's shapes: its output equal
+    to K3's, its lse against the plain version's on the same bf16 inputs."""
+    import torch
+    import torch.nn.functional as F
+    from f5tts_tpu_torch.ops.attention import (fused_qkv_rope_attention,
+                                               fused_qkv_rope_attention_fwd,
+                                               fused_qkv_rope_attention_ref)
+    from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
+
+    b, h, d = 2, 16, 64
+    hd = h * d
+    out_row = None
+    for n in (1024, 3200, 4096):
+        lengths = torch.tensor([n, 777], dtype=torch.int32, device=dev)
+        qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * hd)).astype(np.float32)).to(dev, torch.bfloat16)
+        cos, sin = rope_flat_tables(rope_freqs_interleaved(d, n).to(dev), n, h, dtype=torch.bfloat16)
+        out, lse = fused_qkv_rope_attention_fwd(qkv, cos, sin, lengths, h, return_lse=True)
+        ref, ref_lse = fused_qkv_rope_attention_ref(qkv, cos, sin, lengths, h, return_lse=True)
+        if not torch.equal(out, fused_qkv_rope_attention(qkv, cos, sin, lengths, h)):
+            raise AssertionError("fused_qkv_rope_attention_lse: output differs from K3's")
+        live = torch.arange(n, device=dev)[None, :] < lengths[:, None]
+        qh, kh, vh = flat_to_heads(qkv, cos, sin, h)
+        mask4 = live[:, None, None, :]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask4))
+        sq = sum(int(v) ** 2 for v in lengths.tolist())
+        nbytes = (b * n * 3 * hd + 2 * n * hd + b * n * hd) * 2 + b * h * n * 4
+        out_row = merge_rows(out_row, flat_lse_row(
+            "fused_qkv_rope_attention_lse", n, live, out, lse, ref, ref_lse, -(-777 // 64) * 64,
+            lambda: fused_qkv_rope_attention_fwd(qkv, cos, sin, lengths, h, return_lse=True),
+            lambda: fused_qkv_rope_attention_ref(qkv, cos, sin, lengths, h, return_lse=True),
+            lib, 4 * h * d * sq, nbytes, f"n={n} lengths [{n}, 777]"))
+    return out_row
+
+
+def bwd_inputs(rng, dev, b: int, n: int, hd: int):
+    import torch
+
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+                 for shape in ((b, n, 3 * hd), (b, n, hd)))
+
+
+def check_flat_bwd(name: str, got, wants, live_rows, dead: float, timed, plain, lib: float,
+                   lib_fwd: float, flops: float, nbytes: int, what: str) -> dict:
+    """A flat backward (K4 or K8) against both plain versions: the from-lse
+    one (its function) and the recompute one (the JAX function); `dead` is the
+    largest entry that must be exactly 0."""
+    import torch
+
+    errs = []
+    for label, want in wants:
+        rel, err, top = bwd_errors(got[live_rows], want[live_rows])
+        log(f"  {name} {what} vs the {label} plain version: rel-L2 {rel:.3e} (tol "
+            f"{BWD_REL_L2_TOL}), max_abs_err {err:.3e} (tol {BWD_MAX_ABS_REL_TOL} x largest entry "
+            f"{top:.3e})")
+        check_bwd_tol(f"{name} {what} ({label})", rel, err, top)
+        errs.append(err)
+    bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    ms = time_ms(timed)
+    plain_ms = time_ms(plain, reps=1, iters=3)
+    torch.cuda.synchronize()
+    log(f"  {name} {what}: dead entries max {dead:.1e}, {ms:.4f} ms, bound {bound:.4f} ms "
+        f"(operations), plain (from lse) {plain_ms:.4f} ms, sdpa bwd {lib:.4f} ms (fwd "
+        f"{lib_fwd:.4f} ms)")
+    if dead != 0.0:
+        raise AssertionError(f"{name} {what}: dead rows or keys are not 0")
+    return {"max_abs_err": errs[0], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations", "library_ms": lib}
+
+
 def check_attention_bwd(rng, dev) -> dict:
+    """K4 from K3's saved output and lse (its lse mode), dO on every row."""
     import torch
     from f5tts_tpu_torch.ops.attention import (fused_qkv_rope_attention_bwd,
-                                               fused_qkv_rope_attention_bwd_ref)
+                                               fused_qkv_rope_attention_bwd_from_lse_ref,
+                                               fused_qkv_rope_attention_bwd_ref,
+                                               fused_qkv_rope_attention_fwd)
     from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
 
     b, h, d = 2, 16, 64
@@ -396,38 +514,23 @@ def check_attention_bwd(rng, dev) -> dict:
     out_row = None
     for n in (1024, 3072, 4096):
         lengths = torch.tensor([n, 777], dtype=torch.int32, device=dev)
-        qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * hd)).astype(np.float32)).to(dev, torch.bfloat16)
-        dout = torch.from_numpy(rng.standard_normal((b, n, hd)).astype(np.float32)).to(dev, torch.bfloat16)
+        qkv, dout = bwd_inputs(rng, dev, b, n, hd)
         cos, sin = rope_flat_tables(rope_freqs_interleaved(d, n).to(dev), n, h, dtype=torch.bfloat16)
-        got = fused_qkv_rope_attention_bwd(qkv, cos, sin, lengths, dout, h)
-        want = fused_qkv_rope_attention_bwd_ref(qkv, cos, sin, lengths, dout, h)
-        torch.cuda.synchronize()
+        out, lse = fused_qkv_rope_attention_fwd(qkv, cos, sin, lengths, h, return_lse=True)
+        args = (qkv, cos, sin, lengths, out, lse, dout, h)
+        got = fused_qkv_rope_attention_bwd(*args)
+        wants = (("from-lse", fused_qkv_rope_attention_bwd_from_lse_ref(*args)),
+                 ("recompute", fused_qkv_rope_attention_bwd_ref(qkv, cos, sin, lengths, dout, h)))
         kmask = torch.arange(n, device=dev)[None, :] < lengths[:, None]
-        rel, err, top = bwd_errors(got[kmask], want[kmask])
-        dead = float(got[1, 777:].abs().max())
         sq = sum(int(v) ** 2 for v in lengths.tolist())
-        flops = 10 * h * d * sq
-        nbytes = (2 * b * n * 3 * hd + b * n * hd + 2 * n * hd) * 2
-        bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-        ms = time_ms(lambda: fused_qkv_rope_attention_bwd(qkv, cos, sin, lengths, dout, h))
-        wall = wall_ms(lambda: fused_qkv_rope_attention_bwd(qkv, cos, sin, lengths, dout, h))
-        plain = time_ms(lambda: fused_qkv_rope_attention_bwd_ref(qkv, cos, sin, lengths, dout, h),
-                        reps=1, iters=3)
+        nbytes = (2 * b * n * 3 * hd + 2 * b * n * hd + 2 * n * hd) * 2 + b * h * n * 4
         # yardstick: SDPA's backward on pre-roped [b, h, n, d], the same key mask
         lib, lib_fwd = sdpa_bwd_ms(*flat_to_heads(qkv, cos, sin, h), dout, kmask)
-        log(f"  fused_qkv_rope_attention_bwd b=2 h=16 d=64 n={n} lengths [{n}, 777]: rel-L2 "
-            f"{rel:.3e} (tol {BWD_REL_L2_TOL}), max_abs_err {err:.3e} (tol {BWD_MAX_ABS_REL_TOL} x "
-            f"largest entry {top:.3e}), dead rows max {dead:.1e}, {ms:.4f} ms "
-            f"(eager call {wall:.4f} ms), bound {bound:.4f} ms (operations), plain {plain:.4f} ms, "
-            f"sdpa bwd {lib:.4f} ms (fwd {lib_fwd:.4f} ms)")
-        if dead != 0.0:
-            raise AssertionError("fused_qkv_rope_attention_bwd: dead rows are not zero")
-        check_bwd_tol(f"fused_qkv_rope_attention_bwd at n={n}", rel, err, top)
-        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
-               "bound_by": "operations", "library_ms": lib}
-        if out_row is None:
-            out_row = row
-        out_row["max_abs_err"] = max(out_row["max_abs_err"], err)
+        out_row = merge_rows(out_row, check_flat_bwd(
+            "fused_qkv_rope_attention_bwd", got, wants, kmask, float(got[1, 777:].abs().max()),
+            lambda: fused_qkv_rope_attention_bwd(*args),
+            lambda: fused_qkv_rope_attention_bwd_from_lse_ref(*args), lib, lib_fwd,
+            10 * h * d * sq, nbytes, f"b=2 h=16 d=64 n={n} lengths [{n}, 777]"))
     return out_row
 
 
@@ -436,25 +539,13 @@ def check_attention_bias(rng, dev) -> dict:
     import torch.nn.functional as F
     from f5tts_tpu_torch.ops.attention import (fused_qkv_rope_attention_bias,
                                                fused_qkv_rope_attention_bias_ref)
-    from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
 
     b, h, d = 2, 16, 64
     hd = h * d
     out_row = None
     for na, nt in ((1024, 128), (3072, 128), (4096, 256)):  # joint 1152, 3200, 4352
         n = na + nt
-        # row 0: audio live to 777 of 1024 (3/4 of longer buckets), text 100
-        # live; row 1: all audio live, text 120: dead keys mid-sequence
-        kmask = torch.zeros(b, n, dtype=torch.bool, device=dev)
-        kmask[0, :777 if na == 1024 else 3 * na // 4] = True
-        kmask[0, na:na + 100] = True
-        kmask[1, :na] = True
-        kmask[1, na:na + 120] = True
-        qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * hd)).astype(np.float32)).to(dev, torch.bfloat16)
-        ang = rope_freqs_interleaved(d, na).to(dev)
-        ca, sa = rope_flat_tables(ang, na, h, dtype=torch.bfloat16)
-        ct, st = rope_flat_tables(ang, nt, h, dtype=torch.bfloat16)
-        cos, sin = torch.cat([ca, ct]).contiguous(), torch.cat([sa, st]).contiguous()
+        qkv, cos, sin, kmask = joint_case(rng, dev, na, nt)
         out = fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, h)
         ref = fused_qkv_rope_attention_bias_ref(qkv.float(), cos.float(), sin.float(), kmask, h)
         torch.cuda.synchronize()
@@ -478,11 +569,9 @@ def check_attention_bias(rng, dev) -> dict:
             f"sdpa {lib:.4f} ms")
         if not dead <= TOL["fused_qkv_rope_attention_bias"]:
             raise AssertionError(f"fused_qkv_rope_attention_bias: dead rows differ by {dead}")
-        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
-               "bound_by": "operations", "library_ms": lib}
-        if out_row is None:
-            out_row = row
-        out_row["max_abs_err"] = max(out_row["max_abs_err"], err)
+        out_row = merge_rows(out_row, {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                                        "bound_ms": bound, "bound_by": "operations",
+                                        "library_ms": lib})
     return out_row
 
 
@@ -543,11 +632,9 @@ def check_flash(rng, dev) -> dict:
             f"sdpa {lib:.4f} ms")
         if dead != 0.0:
             raise AssertionError("flash_attention: q tiles past the length are not zero")
-        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
-               "bound_by": "operations", "library_ms": lib}
-        if out_row is None:
-            out_row = row
-        out_row["max_abs_err"] = max(out_row["max_abs_err"], err)
+        out_row = merge_rows(out_row, {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                                        "bound_ms": bound, "bound_by": "operations",
+                                        "library_ms": lib})
     return out_row
 
 
@@ -590,63 +677,99 @@ def check_flash_lse(rng, dev) -> dict:
         if not (dead_ok and lse_err <= LSE_TOL):
             raise AssertionError(f"flash_attention_lse at n={n}: lse err {lse_err}, dead tiles "
                                  f"{dead_ok}")
-        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
-               "bound_by": "operations", "library_ms": lib}
-        if out_row is None:
-            out_row = row
-        out_row["max_abs_err"] = max(out_row["max_abs_err"], err)
+        out_row = merge_rows(out_row, {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                                        "bound_ms": bound, "bound_by": "operations",
+                                        "library_ms": lib})
     return out_row
 
 
-def check_attention_bias_bwd(rng, dev) -> dict:
-    """K8 on K5's joint shapes and masks, dO on every row."""
+def joint_case(rng, dev, na: int, nt: int):
+    """K5's / K8's phase-2 inputs at joint n = na + nt: qkv, the joint rope
+    tables and the key mask (row 0: audio live to 777 of 1024, 3/4 of longer
+    buckets, text 100 live; row 1: all audio live, text 120: dead keys
+    mid-sequence)."""
     import torch
-    from f5tts_tpu_torch.ops.attention import (fused_qkv_rope_attention_bias_bwd,
-                                               fused_qkv_rope_attention_bias_bwd_ref)
     from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
+
+    b, h, d = 2, 16, 64
+    n = na + nt
+    kmask = torch.zeros(b, n, dtype=torch.bool, device=dev)
+    kmask[0, :777 if na == 1024 else 3 * na // 4] = True
+    kmask[0, na:na + 100] = True
+    kmask[1, :na] = True
+    kmask[1, na:na + 120] = True
+    qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d)).astype(np.float32)).to(dev, torch.bfloat16)
+    ang = rope_freqs_interleaved(d, na).to(dev)
+    ca, sa = rope_flat_tables(ang, na, h, dtype=torch.bfloat16)
+    ct, st = rope_flat_tables(ang, nt, h, dtype=torch.bfloat16)
+    return qkv, torch.cat([ca, ct]).contiguous(), torch.cat([sa, st]).contiguous(), kmask
+
+
+def check_attention_bias_lse(rng, dev) -> dict:
+    """K5's lse mode at K5's joint shapes and masks: its output equal to K5's,
+    its lse (every row) against the plain version's on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from f5tts_tpu_torch.ops.attention import (fused_qkv_rope_attention_bias,
+                                               fused_qkv_rope_attention_bias_fwd,
+                                               fused_qkv_rope_attention_bias_ref)
 
     b, h, d = 2, 16, 64
     hd = h * d
     out_row = None
     for na, nt in ((1024, 128), (3072, 128), (4096, 256)):  # joint 1152, 3200, 4352
         n = na + nt
-        kmask = torch.zeros(b, n, dtype=torch.bool, device=dev)
-        kmask[0, :777 if na == 1024 else 3 * na // 4] = True
-        kmask[0, na:na + 100] = True
-        kmask[1, :na] = True
-        kmask[1, na:na + 120] = True
-        qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * hd)).astype(np.float32)).to(dev, torch.bfloat16)
-        dout = torch.from_numpy(rng.standard_normal((b, n, hd)).astype(np.float32)).to(dev, torch.bfloat16)
-        ang = rope_freqs_interleaved(d, na).to(dev)
-        ca, sa = rope_flat_tables(ang, na, h, dtype=torch.bfloat16)
-        ct, st = rope_flat_tables(ang, nt, h, dtype=torch.bfloat16)
-        cos, sin = torch.cat([ca, ct]).contiguous(), torch.cat([sa, st]).contiguous()
-        got = fused_qkv_rope_attention_bias_bwd(qkv, cos, sin, kmask, dout, h)
-        want = fused_qkv_rope_attention_bias_bwd_ref(qkv, cos, sin, kmask, dout, h)
-        torch.cuda.synchronize()
-        rel, err, top = bwd_errors(got, want)
-        dead = float(got[:, :, hd:][~kmask].abs().max())
+        qkv, cos, sin, kmask = joint_case(rng, dev, na, nt)
+        out, lse = fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, h, return_lse=True)
+        ref, ref_lse = fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, h, return_lse=True)
+        if not torch.equal(out, fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, h)):
+            raise AssertionError("fused_qkv_rope_attention_bias_lse: output differs from K5's")
+        qh, kh, vh = flat_to_heads(qkv, cos, sin, h)
+        mask4 = kmask[:, None, None, :]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask4))
         live_keys = [int(v) for v in kmask.sum(dim=1).tolist()]
-        flops = 10 * h * d * n * sum(live_keys)
-        nbytes = (2 * b * n * 3 * hd + b * n * hd + 2 * n * hd) * 2 + b * n
-        bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-        ms = time_ms(lambda: fused_qkv_rope_attention_bias_bwd(qkv, cos, sin, kmask, dout, h))
-        plain = time_ms(lambda: fused_qkv_rope_attention_bias_bwd_ref(qkv, cos, sin, kmask, dout, h),
-                        reps=1, iters=3)
+        nbytes = (b * n * 3 * hd + 2 * n * hd + b * n * hd) * 2 + b * n + b * h * n * 4
+        out_row = merge_rows(out_row, flat_lse_row(
+            "fused_qkv_rope_attention_bias_lse", n, kmask, out, lse, ref, ref_lse, n,
+            lambda: fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, h, return_lse=True),
+            lambda: fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, h, return_lse=True),
+            lib, 4 * h * d * n * sum(live_keys), nbytes,
+            f"joint n={n} ({na} audio + {nt} text), live keys {live_keys}"))
+    return out_row
+
+
+def check_attention_bias_bwd(rng, dev) -> dict:
+    """K8 from K5's saved output and lse (its lse mode) on K5's joint shapes
+    and masks, dO on every row."""
+    import torch
+    from f5tts_tpu_torch.ops.attention import (fused_qkv_rope_attention_bias_bwd,
+                                               fused_qkv_rope_attention_bias_bwd_from_lse_ref,
+                                               fused_qkv_rope_attention_bias_bwd_ref,
+                                               fused_qkv_rope_attention_bias_fwd)
+
+    b, h, d = 2, 16, 64
+    hd = h * d
+    out_row = None
+    for na, nt in ((1024, 128), (3072, 128), (4096, 256)):  # joint 1152, 3200, 4352
+        n = na + nt
+        qkv, cos, sin, kmask = joint_case(rng, dev, na, nt)
+        dout = bwd_inputs(rng, dev, b, n, hd)[1]
+        out, lse = fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, h, return_lse=True)
+        args = (qkv, cos, sin, kmask, out, lse, dout, h)
+        got = fused_qkv_rope_attention_bias_bwd(*args)
+        wants = (("from-lse", fused_qkv_rope_attention_bias_bwd_from_lse_ref(*args)),
+                 ("recompute", fused_qkv_rope_attention_bias_bwd_ref(qkv, cos, sin, kmask, dout, h)))
+        live_keys = [int(v) for v in kmask.sum(dim=1).tolist()]
+        nbytes = (2 * b * n * 3 * hd + 2 * b * n * hd + 2 * n * hd) * 2 + b * n + b * h * n * 4
         lib, lib_fwd = sdpa_bwd_ms(*flat_to_heads(qkv, cos, sin, h), dout, kmask)
-        log(f"  fused_qkv_rope_attention_bias_bwd b=2 h=16 d=64 joint n={n} ({na} audio + {nt} "
-            f"text), live keys {live_keys}: rel-L2 {rel:.3e} (tol {BWD_REL_L2_TOL}), max_abs_err "
-            f"{err:.3e} (tol {BWD_MAX_ABS_REL_TOL} x largest entry {top:.3e}), dead keys' dk/dv "
-            f"max {dead:.1e}, {ms:.4f} ms, bound {bound:.4f} ms (operations), plain {plain:.4f} "
-            f"ms, sdpa bwd {lib:.4f} ms (fwd {lib_fwd:.4f} ms)")
-        if dead != 0.0:
-            raise AssertionError("fused_qkv_rope_attention_bias_bwd: dead keys' dk/dv not 0")
-        check_bwd_tol(f"fused_qkv_rope_attention_bias_bwd at n={n}", rel, err, top)
-        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
-               "bound_by": "operations", "library_ms": lib}
-        if out_row is None:
-            out_row = row
-        out_row["max_abs_err"] = max(out_row["max_abs_err"], err)
+        every_row = torch.ones_like(kmask)
+        out_row = merge_rows(out_row, check_flat_bwd(
+            "fused_qkv_rope_attention_bias_bwd", got, wants, every_row,
+            float(got[:, :, hd:][~kmask].abs().max()),
+            lambda: fused_qkv_rope_attention_bias_bwd(*args),
+            lambda: fused_qkv_rope_attention_bias_bwd_from_lse_ref(*args), lib, lib_fwd,
+            10 * h * d * n * sum(live_keys), nbytes,
+            f"b=2 h=16 d=64 joint n={n} ({na} audio + {nt} text), live keys {live_keys}"))
     return out_row
 
 
@@ -690,11 +813,9 @@ def check_flash_bwd(rng, dev) -> dict:
             raise AssertionError("flash_attention_bwd: dead tiles or keys are not 0")
         for name, (r, e, t) in zip(("dq", "dk", "dv"), stats):
             check_bwd_tol(f"flash_attention_bwd {name} at n={n}", r, e, t)
-        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
-               "bound_by": "operations", "library_ms": lib}
-        if out_row is None:
-            out_row = row
-        out_row["max_abs_err"] = max(out_row["max_abs_err"], err)
+        out_row = merge_rows(out_row, {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                                        "bound_ms": bound, "bound_by": "operations",
+                                        "library_ms": lib})
     return out_row
 
 
@@ -731,11 +852,9 @@ def check_grouped_conv(rng, dev) -> dict:
         log(f"  grouped_conv1d [{b},{n},{c}] {groups} groups of {width}, k {k}: max_abs_err "
             f"{err:.3e} (tol {TOL['grouped_conv1d']}), {ms:.4f} ms (eager call {wall:.4f} ms), "
             f"bound {bound:.4f} ms (operations), plain {plain:.4f} ms, F.conv1d {lib:.4f} ms")
-        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
-               "bound_by": "operations", "library_ms": lib}
-        if out_row is None:
-            out_row = row
-        out_row["max_abs_err"] = max(out_row["max_abs_err"], err)
+        out_row = merge_rows(out_row, {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                                        "bound_ms": bound, "bound_by": "operations",
+                                        "library_ms": lib})
     return out_row
 
 
@@ -773,11 +892,9 @@ def check_masked_flash(rng, dev) -> dict:
             f"keys {live_keys}: max_abs_err over every row {err:.3e} (tol "
             f"{TOL['masked_flash_attention']}), {ms:.4f} ms (eager call {wall:.4f} ms), bound "
             f"{bound:.4f} ms (operations), plain {plain:.4f} ms, sdpa {lib:.4f} ms")
-        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
-               "bound_by": "operations", "library_ms": lib}
-        if out_row is None:
-            out_row = row
-        out_row["max_abs_err"] = max(out_row["max_abs_err"], err)
+        out_row = merge_rows(out_row, {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                                        "bound_ms": bound, "bound_by": "operations",
+                                        "library_ms": lib})
     return out_row
 
 
@@ -788,8 +905,10 @@ def phase_kernels(dev) -> dict:
     rows = {"adaln_norm": check_adaln(rng, dev),
             "conv_pos_embedding": check_conv_pos(rng, dev),
             "fused_qkv_rope_attention": check_attention(rng, dev),
+            "fused_qkv_rope_attention_lse": check_attention_lse(rng, dev),
             "fused_qkv_rope_attention_bwd": check_attention_bwd(rng, dev),
             "fused_qkv_rope_attention_bias": check_attention_bias(rng, dev),
+            "fused_qkv_rope_attention_bias_lse": check_attention_bias_lse(rng, dev),
             "rms_norm": check_rms_norm(rng, dev),
             "flash_attention": check_flash(rng, dev),
             "flash_attention_lse": check_flash_lse(rng, dev),
@@ -1114,7 +1233,7 @@ def phase_train_card_vs_cpu(dev, arch, params, backbone: str = "DiT", n: int = 5
     bdef = BACKBONES[backbone]
     arch2 = dataclasses.replace(arch, depth=2)
     p2 = cut_to_depth_2(backbone, params)
-    expect = expect or {"fused_qkv_rope_attention": 2, "fused_qkv_rope_attention_bwd": 2,
+    expect = expect or {"fused_qkv_rope_attention_lse": 2, "fused_qkv_rope_attention_bwd": 2,
                         "adaln_norm": 5, "conv_pos_embedding": 1}
     b = 4
     rng = np.random.default_rng(12)
@@ -1226,12 +1345,12 @@ def main() -> int:
     arch_u, params_u, _ = new["UNetT"]
     rest = {"rms_norm": 5, "conv_pos_embedding": 1}
     phase_train_card_vs_cpu(dev, arch_u, params_u, "UNetT", 1023, dict(
-        rest, fused_qkv_rope_attention=2, fused_qkv_rope_attention_bwd=2))
+        rest, fused_qkv_rope_attention_lse=2, fused_qkv_rope_attention_bwd=2))
     phase_train_card_vs_cpu(dev, arch_u, params_u, "UNetT", 1023, dict(
         rest, flash_attention_lse=2, flash_attention_bwd=2), flat_max=512)
     arch_m, params_m, _ = new["MMDiT"]
     phase_train_card_vs_cpu(dev, arch_m, params_m, "MMDiT", 512, {
-        "fused_qkv_rope_attention_bias": 2, "fused_qkv_rope_attention_bias_bwd": 2,
+        "fused_qkv_rope_attention_bias_lse": 2, "fused_qkv_rope_attention_bias_bwd": 2,
         "adaln_norm": 8, "conv_pos_embedding": 1})
     torch.cuda.synchronize()
 

@@ -94,8 +94,8 @@ class TrainConfig:
     keep_last_n_checkpoints: int = -1
     last_per_updates: int = 5_000
     save_dir: str = "ckpts"
-    logger: Optional[str] = "tensorboard"  # only None is ported
-    log_samples: bool = False  # not ported
+    logger: Optional[str] = "tensorboard"  # "wandb" | "tensorboard" | None
+    log_samples: bool = False  # not ported: Trainer raises
 
 
 @dataclass(frozen=True)

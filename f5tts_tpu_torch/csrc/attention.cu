@@ -1,5 +1,5 @@
-// Forward attention kernels K3, K5, K7 (and K7's lse mode) and K11: one tile
-// loop, five entry points.
+// Forward attention kernels K3, K5, K7 (and the lse modes of K3, K5 and K7) and
+// K11: one tile loop, seven entry points.
 //
 // K3 fused_qkv_rope_attn_kernel: fused QKV + interleaved RoPE + length-masked
 //    attention, flat layout. Replaces f5tts_tpu/ops/attention.py:567
@@ -29,6 +29,11 @@
 //    also writes lse [b, h, n] f32 = m + log(l) over the scaled scores, and
 //    -1e30 for the rows of q tiles wholly past the length, for the backward
 //    K9 (csrc/attention_bwd.cu).
+//    fused_qkv_rope_attn_lse_kernel / fused_qkv_rope_attn_bias_lse_kernel:
+//    K3 and K5 in the same LSE mode under grad, for their backwards K4 / K8.
+//    The lse is of the scores of K3's pre-scaled bf16 q; the scale 1/8 is a
+//    power of two, so that q equals the backward's unscaled roped q times the
+//    scale exactly, and the lse is the statistic of the backward's scores.
 // K11 masked_flash_attn_kernel: head-layout attention under an arbitrary key
 //    mask. Replaces :1653 _flash_kernel_bias (behind :1706
 //    masked_flash_attention): MMDiT joint attention when the flat K5 cannot
@@ -299,6 +304,36 @@ __global__ void __launch_bounds__(128) fused_qkv_rope_attn_bias_kernel(
                                      out + (size_t)b * n * hd + h * AT_D, hd, n, sm_scale);
 }
 
+// K3 and K5 under grad: the same loops in their LSE mode (the training
+// forward saves the row lse for the backward K4 / K8).
+__global__ void __launch_bounds__(128) fused_qkv_rope_attn_lse_kernel(
+    const bf16* __restrict__ qkv, const bf16* __restrict__ cos_t,
+    const bf16* __restrict__ sin_t, const int* __restrict__ lengths,
+    bf16* __restrict__ out, float* __restrict__ lse, int n, int heads, float sm_scale) {
+    const int h = blockIdx.y, b = blockIdx.z;
+    const int hd = heads * AT_D;
+    const long long row3 = 3LL * hd;
+    const bf16* qb = qkv + (size_t)b * n * row3 + h * AT_D;
+    attn_fwd_tile<true, false, true, true>(qb, qb + hd, qb + 2 * hd, row3, cos_t + h * AT_D,
+                                           sin_t + h * AT_D, hd, min(max(lengths[b], 0), n),
+                                           nullptr, out + (size_t)b * n * hd + h * AT_D, hd, n,
+                                           sm_scale, lse + ((size_t)b * heads + h) * n);
+}
+
+__global__ void __launch_bounds__(128) fused_qkv_rope_attn_bias_lse_kernel(
+    const bf16* __restrict__ qkv, const bf16* __restrict__ cos_t,
+    const bf16* __restrict__ sin_t, const uint8_t* __restrict__ kmask,
+    bf16* __restrict__ out, float* __restrict__ lse, int n, int heads, float sm_scale) {
+    const int h = blockIdx.y, b = blockIdx.z;
+    const int hd = heads * AT_D;
+    const long long row3 = 3LL * hd;
+    const bf16* qb = qkv + (size_t)b * n * row3 + h * AT_D;
+    attn_fwd_tile<true, true, false, true>(qb, qb + hd, qb + 2 * hd, row3, cos_t + h * AT_D,
+                                           sin_t + h * AT_D, hd, n, kmask + (size_t)b * n,
+                                           out + (size_t)b * n * hd + h * AT_D, hd, n, sm_scale,
+                                           lse + ((size_t)b * heads + h) * n);
+}
+
 __global__ void __launch_bounds__(128) flash_attn_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const int* __restrict__ lengths, bf16* __restrict__ out, int n, int heads,
@@ -354,6 +389,32 @@ extern "C" int f5_fused_qkv_rope_attn_bias_bf16(const void* qkv, const void* cos
         fused_qkv_rope_attn_bias_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
             (const bf16*)qkv, (const bf16*)cos_t, (const bf16*)sin_t,
             (const uint8_t*)kmask, (bf16*)out, n, heads, sm_scale);
+    }
+    return (int)cudaGetLastError();
+}
+
+extern "C" int f5_fused_qkv_rope_attn_lse_bf16(const void* qkv, const void* cos_t,
+                                               const void* sin_t, const void* lengths,
+                                               void* out, void* lse, int b, int n, int heads,
+                                               float sm_scale, void* stream) {
+    if (b > 0 && n > 0) {
+        dim3 grid((n + AT_BQ - 1) / AT_BQ, heads, b);
+        fused_qkv_rope_attn_lse_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
+            (const bf16*)qkv, (const bf16*)cos_t, (const bf16*)sin_t, (const int*)lengths,
+            (bf16*)out, (float*)lse, n, heads, sm_scale);
+    }
+    return (int)cudaGetLastError();
+}
+
+extern "C" int f5_fused_qkv_rope_attn_bias_lse_bf16(const void* qkv, const void* cos_t,
+                                                    const void* sin_t, const void* kmask,
+                                                    void* out, void* lse, int b, int n,
+                                                    int heads, float sm_scale, void* stream) {
+    if (b > 0 && n > 0) {
+        dim3 grid((n + AT_BQ - 1) / AT_BQ, heads, b);
+        fused_qkv_rope_attn_bias_lse_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
+            (const bf16*)qkv, (const bf16*)cos_t, (const bf16*)sin_t, (const uint8_t*)kmask,
+            (bf16*)out, (float*)lse, n, heads, sm_scale);
     }
     return (int)cudaGetLastError();
 }

@@ -161,10 +161,18 @@ def _joint_attention(p: m.Params, x: torch.Tensor, c: torch.Tensor, heads: int,
             torch.cat([q, cq], dim=2), torch.cat([k, ck], dim=2), torch.cat([v, cv], dim=2),
             kmask))
     zero = torch.zeros((), dtype=o.dtype, device=o.device)
-    xo = torch.where(kmask[:, :n, None], m.linear(p["to_out"], o[:, :n]), zero)
+    # Both projections keep `o` itself for their backward (the tensor the
+    # attention saves under grad), not copies of its rows: to_out runs over
+    # the whole joint output and drops the text rows after; to_out_c is a
+    # batched product on the strided view of the text rows.
+    xo = torch.where(kmask[:, :n, None], m.linear(p["to_out"], o)[:, :n], zero)
     if "to_out_c" not in p:
         return xo, None
-    return xo, torch.where(kmask[:, n:, None], m.linear(p["to_out_c"], o[:, n:]), zero)
+    pc = p["to_out_c"]
+    co = torch.matmul(o[:, n:], pc["w"].to(o.dtype).expand(o.shape[0], -1, -1))
+    if "b" in pc:
+        co = co + pc["b"].to(o.dtype)
+    return xo, torch.where(kmask[:, n:, None], co, zero)
 
 
 def _mmdit_block(blk: m.Params, x: torch.Tensor, c: torch.Tensor, mods_x: torch.Tensor,

@@ -10,25 +10,30 @@ launches the hand-written kernel K3 (csrc/attention.cu, replacing the Pallas
 go to the plain version `fused_qkv_rope_attention_ref`. `mha_reference` is
 the plain [b, h, n, d] oracle.
 
-It is differentiable (`torch.autograd.Function`, as the JAX custom_vjp): the
-backward maps (qkv, dO) to the flat dQKV [b, n, 3*h*d] with the softmax
-recomputed, through the hand-written kernel K4 (csrc/attention_bwd.cu,
-replacing the Pallas `_fused_qkv_bwd_kernel` and `_fused_qkv_bwd_kernel_long`)
-for CUDA tensors and the plain version `fused_qkv_rope_attention_bwd_ref` for
-CPU tensors. Only (qkv, cos, sin, lengths) are saved for the backward, not the
-output: K4 takes delta = rowsum(p * dp) from the recomputed scores. Rows >=
-lengths[b] are zero in the forward, so their gradient is zero whatever dO
-holds there: both backwards read dO as 0 on those rows.
+It is differentiable (`torch.autograd.Function`, as the JAX custom_vjp).
+Under grad the forward runs K3's lse mode (`return_lse`: the row
+log-sum-exp of the scores is saved with the output), and the backward maps
+(qkv, out, lse, dO) to the flat dQKV [b, n, 3*h*d] through the hand-written
+kernel K4 (csrc/attention_bwd.cu, replacing the Pallas `_fused_qkv_bwd_kernel`
+and `_fused_qkv_bwd_kernel_long`) for CUDA tensors and the plain version
+`fused_qkv_rope_attention_bwd_from_lse_ref` for CPU tensors: p = exp(s *
+scale - lse), delta = rowsum(dO * O). `fused_qkv_rope_attention_bwd_ref` is
+the JAX function (softmax recomputed, delta = rowsum(p * dp)); the two are
+equal in exact arithmetic and differ by O's rounding. Rows >= lengths[b] are
+zero in the forward, so their gradient is zero whatever dO holds there:
+every backward reads dO as 0 on those rows.
 
 `fused_qkv_rope_attention_bias` is the same flat attention under an arbitrary
 [b, n] key mask (MMDiT's joint audio+text sequence, whose dead keys sit in
 the middle): kernel K5 (the Pallas `_fused_qkv_attn_bias_kernel` and its
 streaming twin), plain version `fused_qkv_rope_attention_bias_ref` (the
 function of the JAX `_bias_decomposed_ref`, at the kernel's rounding points).
-Every row is computed; the caller masks dead rows after to_out. Its backward
-is kernel K8 (K4's pair in its key-mask mode, replacing `_fused_bias_bwd_kernel`
-and the bias-row branch of `_fused_qkv_bwd_kernel_long`), plain version
-`fused_qkv_rope_attention_bias_bwd_ref`; dO is read as it is on every row.
+Every row is computed; the caller masks dead rows after to_out. Under grad it
+saves its lse too, and its backward is kernel K8 (K4 in its key-mask mode,
+replacing `_fused_bias_bwd_kernel` and the bias-row branch of
+`_fused_qkv_bwd_kernel_long`), plain version
+`fused_qkv_rope_attention_bias_bwd_from_lse_ref` (JAX function:
+`fused_qkv_rope_attention_bias_bwd_ref`); dO is read as it is on every row.
 
 `flash_attention` is head-layout attention [b, h, n, d] over keys <
 lengths[b] on already-roped q/k: kernel K7 (the Pallas `_flash_kernel_single`
@@ -84,10 +89,11 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(probs.to(v.dtype).float(), v.float()).to(v.dtype)
 
 
-def fused_qkv_rope_attention_ref(qkv, cos, sin, lengths, heads: int) -> torch.Tensor:
-    """Plain version with the kernel's rounding points: roped q * 1/sqrt(d)
-    and roped k in qkv's dtype, f32 scores and softmax, probabilities in
-    qkv's dtype, rows >= length zeroed."""
+def _flat_fwd_ref(qkv, cos, sin, kmask, heads: int):
+    """(o [b, n, h*d] in qkv's dtype, lse [b, h, n] f32) of the flat attention
+    under a [b, n] key mask, at the kernels' rounding points: roped q *
+    1/sqrt(d) and roped k in qkv's dtype, f32 scores and softmax,
+    probabilities in qkv's dtype."""
     b, n, hd3 = qkv.shape
     hd = hd3 // 3
     d = hd // heads
@@ -100,17 +106,29 @@ def fused_qkv_rope_attention_ref(qkv, cos, sin, lengths, heads: int) -> torch.Te
         return t.reshape(b, n, heads, d).transpose(1, 2)
 
     scores = torch.matmul(split_heads(q).float(), split_heads(k).float().transpose(-1, -2))
-    kmask = torch.arange(n, device=qkv.device)[None, :] < lengths[:, None]
     scores = scores + torch.where(kmask, 0.0, NEG_INF)[:, None, None, :]
     probs = torch.softmax(scores, dim=-1).to(qkv.dtype)
     o = torch.matmul(probs.float(), split_heads(v).float())
-    o = o.transpose(1, 2).reshape(b, n, hd)
-    return torch.where(kmask[:, :, None], o, 0.0).to(qkv.dtype)
+    return o.transpose(1, 2).reshape(b, n, hd), torch.logsumexp(scores, dim=-1)
+
+
+def fused_qkv_rope_attention_ref(qkv, cos, sin, lengths, heads: int, return_lse: bool = False):
+    """Plain version of K3 with the kernel's rounding points, rows >= length
+    zeroed; with `return_lse`, also the row lse [b, h, n] f32 of the scaled
+    scores over keys < length (K3's lse mode), NEG_INF on the q tiles wholly
+    past the length."""
+    n = qkv.shape[1]
+    kmask = torch.arange(n, device=qkv.device)[None, :] < lengths[:, None]
+    o, lse = _flat_fwd_ref(qkv, cos, sin, kmask, heads)
+    o = torch.where(kmask[:, :, None], o, 0.0).to(qkv.dtype)
+    if not return_lse:
+        return o
+    return o, torch.where(_live_tiles(lengths, n)[:, None, :], lse, NEG_INF)
 
 
 def fused_qkv_rope_attention_bwd_ref(qkv, cos, sin, lengths, dout, heads: int) -> torch.Tensor:
-    """Plain backward with the kernel's rounding points (the Pallas backward's,
-    attention.py:876-959): q and k roped in f32 and rounded to qkv's dtype
+    """Plain backward as the JAX package computes it (the Pallas backward's
+    rounding points, attention.py:876-959): q and k roped in f32 and rounded to qkv's dtype
     (q not pre-scaled), f32 scores and softmax, ds and p rounded to qkv's
     dtype before the three products, dq and dk scaled and un-roped (rope with
     -sin) in f32. dO is read as 0 on rows >= length. One head at a time, so
@@ -122,13 +140,41 @@ def fused_qkv_rope_attention_bwd_ref(qkv, cos, sin, lengths, dout, heads: int) -
 
 
 def fused_qkv_rope_attention_bias_bwd_ref(qkv, cos, sin, kmask, dout, heads: int) -> torch.Tensor:
-    """Plain backward of `fused_qkv_rope_attention_bias` (K8's function):
-    `fused_qkv_rope_attention_bwd_ref` with the key mask as the bias row and
-    dO read as it is on every row (the forward computes every row)."""
+    """Plain backward of `fused_qkv_rope_attention_bias` as the JAX package
+    computes it: `fused_qkv_rope_attention_bwd_ref` with the key mask as the
+    bias row and dO read as it is on every row (the forward computes every
+    row)."""
     return _flat_bwd_ref(qkv, cos, sin, kmask, dout.to(qkv.dtype), heads)
 
 
-def _flat_bwd_ref(qkv, cos, sin, kmask, do, heads: int) -> torch.Tensor:
+def fused_qkv_rope_attention_bwd_from_lse_ref(qkv, cos, sin, lengths, out, lse, dout,
+                                              heads: int) -> torch.Tensor:
+    """K4's function: dQKV from the forward's output and row lse (K3's lse
+    mode). q and k roped in f32 and rounded to qkv's dtype (q not pre-scaled);
+    p = exp(s * scale - lse) on rows and keys < length, else 0; delta =
+    rowsum(dO * O) in f32 with dO read as 0 on rows >= length; ds = p * (dp -
+    delta); ds and p rounded to qkv's dtype before the three products; dq and
+    dk scaled and un-roped in f32."""
+    live = torch.arange(qkv.shape[1], device=qkv.device)[None, :] < lengths[:, None]
+    do = torch.where(live[:, :, None], dout.to(qkv.dtype),
+                     torch.zeros((), dtype=qkv.dtype, device=qkv.device))
+    return _flat_bwd_ref(qkv, cos, sin, live, do, heads, saved=(live, out, lse))
+
+
+def fused_qkv_rope_attention_bias_bwd_from_lse_ref(qkv, cos, sin, kmask, out, lse, dout,
+                                                   heads: int) -> torch.Tensor:
+    """K8's function: `fused_qkv_rope_attention_bwd_from_lse_ref` with every
+    row live, dO read as it is, and keys live where kmask is set (K5's output
+    and lse)."""
+    return _flat_bwd_ref(qkv, cos, sin, kmask, dout.to(qkv.dtype), heads,
+                         saved=(torch.ones_like(kmask), out, lse))
+
+
+def _flat_bwd_ref(qkv, cos, sin, key_live, do, heads: int, saved=None) -> torch.Tensor:
+    """dQKV of the flat attention, one head at a time (no [b, h, n, n]
+    tensor). With `saved` = (row_live [b, n], out, lse): p from the saved lse
+    on live rows and keys and delta = rowsum(dO * O) (K4 / K8); without it
+    the softmax recomputed and delta = rowsum(p * dp) (the JAX function)."""
     b, n, hd3 = qkv.shape
     hd = hd3 // 3
     d = hd // heads
@@ -138,14 +184,24 @@ def _flat_bwd_ref(qkv, cos, sin, kmask, do, heads: int) -> torch.Tensor:
     cos, sin = cos[:n], sin[:n]
     qr = apply_rotary_flat_tables(q, cos, sin)
     kr = apply_rotary_flat_tables(k, cos, sin)
-    bias = torch.where(kmask, 0.0, NEG_INF)[:, None, :]
+    if saved is None:
+        bias = torch.where(key_live, 0.0, NEG_INF)[:, None, :]
+    else:
+        row_live, out, lse = saved
+        live = row_live[:, :, None] & key_live[:, None, :]
+        delta_o = (do.float() * out.float()).reshape(b, n, heads, d).sum(dim=-1)
     grads = [torch.empty(b, n, hd, dtype=torch.float32, device=qkv.device) for _ in range(3)]
     for i in range(heads):
         lanes = slice(i * d, (i + 1) * d)
         qh, kh, vh, doh = (t[..., lanes].float() for t in (qr, kr, v, do))
-        p = torch.softmax(torch.matmul(qh, kh.transpose(1, 2)) * scale + bias, dim=-1)
+        s = torch.matmul(qh, kh.transpose(1, 2)) * scale
         dp = torch.matmul(doh, vh.transpose(1, 2))
-        delta = (p * dp).sum(dim=-1, keepdim=True)
+        if saved is None:
+            p = torch.softmax(s + bias, dim=-1)
+            delta = (p * dp).sum(dim=-1, keepdim=True)
+        else:
+            p = torch.where(live, torch.exp(s - lse[:, i, :, None].float()), 0.0)
+            delta = delta_o[:, :, i, None]
         ds = (p * (dp - delta)).to(dt).float()
         grads[0][..., lanes] = torch.matmul(ds, kh) * scale
         grads[1][..., lanes] = torch.matmul(ds.transpose(1, 2), qh) * scale
@@ -207,21 +263,25 @@ def _device(name: str, t: torch.Tensor) -> str:
     return t.device.type
 
 
-def _flat_bwd(entry: str, name: str, qkv, cos, sin, mask, dout, heads: int) -> torch.Tensor:
-    """Launch a flat dQKV pair: K4 (`mask` = lengths) or K8 (`mask` = kmask)."""
+def _flat_bwd(entry: str, name: str, qkv, cos, sin, mask, out, lse, dout, heads: int) -> torch.Tensor:
+    """Launch a flat dQKV backward (prologue, dk/dv, dq): K4 (`mask` =
+    lengths) or K8 (`mask` = kmask), from the forward's out and lse."""
     b, n, hd3 = qkv.shape
     dout = dout.contiguous()
-    if (dout.shape != (b, n, hd3 // 3) or dout.dtype != qkv.dtype or dout.device != qkv.device
-            or dout.data_ptr() % 16):
-        raise ValueError("attention backward kernel takes a 16-byte aligned bf16 [b, n, h*d] "
-                         "gradient on qkv's device")
+    for t in (dout, out):
+        if (t.shape != (b, n, hd3 // 3) or t.dtype != qkv.dtype or t.device != qkv.device
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError("attention backward kernel takes a contiguous, 16-byte aligned bf16 "
+                             "[b, n, h*d] output and gradient on qkv's device")
+    if (lse.shape != (b, heads, n) or lse.dtype != torch.float32 or lse.device != qkv.device
+            or not lse.is_contiguous()):
+        raise ValueError("attention backward kernel takes a contiguous f32 [b, h, n] lse")
     dqkv = torch.empty_like(qkv)
-    lse = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
-    delta = torch.empty_like(lse)
-    err = _entry("attention_bwd", entry, 8)(
-        _build.ptr(qkv), _build.ptr(cos), _build.ptr(sin), _build.ptr(mask), _build.ptr(dout),
-        _build.ptr(dqkv), _build.ptr(lse), _build.ptr(delta), b, n, heads,
-        1.0 / math.sqrt(HEAD_DIM), _build.stream_ptr(qkv.device))
+    k_rot = torch.empty((b, heads, n, HEAD_DIM), dtype=qkv.dtype, device=qkv.device)
+    delta = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
+    err = _entry("attention_bwd", entry, 10)(
+        *(_build.ptr(t) for t in (qkv, cos, sin, mask, out, lse, dout, dqkv, k_rot, delta)),
+        b, n, heads, 1.0 / math.sqrt(HEAD_DIM), _build.stream_ptr(qkv.device))
     _build.check(err, name)
     _build.count(name)
     return dqkv
@@ -231,127 +291,131 @@ def _flat_bwd(entry: str, name: str, qkv, cos, sin, mask, dout, heads: int) -> t
 # K3 forward, K4 backward: flat fused QKV + RoPE attention over keys < lengths
 # ---------------------------------------------------------------------------
 
-def fused_qkv_rope_attention_bwd(qkv, cos, sin, lengths, dout, heads: int) -> torch.Tensor:
-    """dQKV [b, n, 3*h*d] of `fused_qkv_rope_attention` for the incoming
-    gradient dout [b, n, h*d]. Kernel K4 on CUDA, plain on the CPU."""
+def fused_qkv_rope_attention_bwd(qkv, cos, sin, lengths, out, lse, dout, heads: int) -> torch.Tensor:
+    """dQKV [b, n, 3*h*d] of `fused_qkv_rope_attention` from its output and
+    row lse (`return_lse`) for the incoming gradient dout [b, n, h*d].
+    Kernel K4 on CUDA, plain on the CPU."""
     if _device("fused_qkv_rope_attention_bwd", qkv) == "cpu":
-        return fused_qkv_rope_attention_bwd_ref(qkv, cos, sin, lengths, dout, heads)
+        return fused_qkv_rope_attention_bwd_from_lse_ref(qkv, cos, sin, lengths, out, lse, dout,
+                                                         heads)
     _check(qkv, cos, sin, lengths, heads)
     return _flat_bwd("f5_fused_qkv_rope_attn_bwd_bf16", "fused_qkv_rope_attention_bwd",
-                     qkv, cos, sin, lengths, dout, heads)
+                     qkv, cos, sin, lengths, out, lse, dout, heads)
 
 
 class _FusedQKVRopeAttention(torch.autograd.Function):
-    """K3 forward, K4 backward (plain versions on the CPU)."""
+    """K3 forward in its lse mode, K4 backward (plain versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, qkv, cos, sin, lengths, heads):
-        ctx.save_for_backward(qkv, cos, sin, lengths)
+        out, lse = fused_qkv_rope_attention_fwd(qkv, cos, sin, lengths, heads, return_lse=True)
+        ctx.save_for_backward(qkv, cos, sin, lengths, out, lse)
         ctx.heads = heads
-        return _forward(qkv, cos, sin, lengths, heads)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        qkv, cos, sin, lengths = ctx.saved_tensors
-        return fused_qkv_rope_attention_bwd(qkv, cos, sin, lengths, dout, ctx.heads), None, None, None, None
+        dqkv = fused_qkv_rope_attention_bwd(*ctx.saved_tensors, dout, ctx.heads)
+        return dqkv, None, None, None, None
 
 
 def fused_qkv_rope_attention(qkv, cos, sin, lengths, heads: int) -> torch.Tensor:
     """qkv [b, n, 3*h*d], cos/sin [>=n, h*d], lengths [b] int32 -> [b, n, h*d].
-    Kernel K3 on CUDA, plain on the CPU; differentiable in qkv (K4 on CUDA)."""
+    Kernel K3 on CUDA, plain on the CPU; differentiable in qkv (K3's lse mode
+    and K4 on CUDA)."""
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _FusedQKVRopeAttention.apply(qkv, cos, sin, lengths, heads)
-    return _forward(qkv, cos, sin, lengths, heads)
+    return fused_qkv_rope_attention_fwd(qkv, cos, sin, lengths, heads)
 
 
-def _forward(qkv, cos, sin, lengths, heads: int) -> torch.Tensor:
+def fused_qkv_rope_attention_fwd(qkv, cos, sin, lengths, heads: int, return_lse: bool = False):
+    """The forward of `fused_qkv_rope_attention`; with `return_lse` also the
+    row lse [b, h, n] f32 (K3's lse mode on CUDA)."""
     if _device("fused_qkv_rope_attention", qkv) == "cpu":
-        return fused_qkv_rope_attention_ref(qkv, cos, sin, lengths, heads)
+        return fused_qkv_rope_attention_ref(qkv, cos, sin, lengths, heads, return_lse)
     _check(qkv, cos, sin, lengths, heads)
+    return _flat_fwd("f5_fused_qkv_rope_attn", "fused_qkv_rope_attention", qkv, cos, sin,
+                     lengths, heads, return_lse)
+
+
+def _flat_fwd(entry: str, name: str, qkv, cos, sin, mask, heads: int, return_lse: bool):
+    """Launch K3 (`mask` = lengths) or K5 (`mask` = kmask), in the lse mode
+    (entry `<entry>_lse_bf16`, count `<name>_lse`) with `return_lse`."""
     b, n, hd3 = qkv.shape
     out = torch.empty((b, n, hd3 // 3), dtype=qkv.dtype, device=qkv.device)
-    err = _entry("attention", "f5_fused_qkv_rope_attn_bf16", 5)(
-        _build.ptr(qkv), _build.ptr(cos), _build.ptr(sin), _build.ptr(lengths), _build.ptr(out),
-        b, n, heads, 1.0 / math.sqrt(HEAD_DIM), _build.stream_ptr(qkv.device))
-    _build.check(err, "fused_qkv_rope_attention")
-    _build.count("fused_qkv_rope_attention")
-    return out
+    args = [_build.ptr(qkv), _build.ptr(cos), _build.ptr(sin), _build.ptr(mask), _build.ptr(out)]
+    if return_lse:
+        lse = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
+        args.append(_build.ptr(lse))
+        entry, name = entry + "_lse", name + "_lse"
+    err = _entry("attention", entry + "_bf16", len(args))(
+        *args, b, n, heads, 1.0 / math.sqrt(HEAD_DIM), _build.stream_ptr(qkv.device))
+    _build.check(err, name)
+    _build.count(name)
+    return (out, lse) if return_lse else out
 
 
 # ---------------------------------------------------------------------------
 # K5 forward, K8 backward: flat fused QKV + RoPE attention under a key mask
 # ---------------------------------------------------------------------------
 
-def fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, heads: int) -> torch.Tensor:
-    """Plain version: `fused_qkv_rope_attention_ref` with the key mask as an
-    additive 0 / -1e30 row and no row zeroed."""
-    b, n, hd3 = qkv.shape
-    hd = hd3 // 3
-    d = hd // heads
-    q, k, v = qkv.split(hd, dim=-1)
-    cos, sin = cos[:n], sin[:n]
-    q = (apply_rotary_flat_tables(q, cos, sin).float() * (1.0 / math.sqrt(d))).to(qkv.dtype)
-    k = apply_rotary_flat_tables(k, cos, sin)
-
-    def split_heads(t):
-        return t.reshape(b, n, heads, d).transpose(1, 2)
-
-    scores = torch.matmul(split_heads(q).float(), split_heads(k).float().transpose(-1, -2))
-    scores = scores + torch.where(kmask, 0.0, NEG_INF)[:, None, None, :]
-    probs = torch.softmax(scores, dim=-1).to(qkv.dtype)
-    o = torch.matmul(probs.float(), split_heads(v).float())
-    return o.transpose(1, 2).reshape(b, n, hd).to(qkv.dtype)
+def fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, heads: int, return_lse: bool = False):
+    """Plain version of K5: `fused_qkv_rope_attention_ref` with the key mask as
+    an additive 0 / -1e30 row and no row zeroed; with `return_lse`, also the
+    row lse [b, h, n] f32 of every row (K5's lse mode)."""
+    o, lse = _flat_fwd_ref(qkv, cos, sin, kmask, heads)
+    o = o.to(qkv.dtype)
+    return (o, lse) if return_lse else o
 
 
-def fused_qkv_rope_attention_bias_bwd(qkv, cos, sin, kmask, dout, heads: int) -> torch.Tensor:
-    """dQKV [b, n, 3*h*d] of `fused_qkv_rope_attention_bias` for the incoming
-    gradient dout [b, n, h*d]. Kernel K8 on CUDA, plain on the CPU."""
+def fused_qkv_rope_attention_bias_bwd(qkv, cos, sin, kmask, out, lse, dout,
+                                      heads: int) -> torch.Tensor:
+    """dQKV [b, n, 3*h*d] of `fused_qkv_rope_attention_bias` from its output
+    and row lse for the incoming gradient dout [b, n, h*d]. Kernel K8 on
+    CUDA, plain on the CPU."""
     if _device("fused_qkv_rope_attention_bias_bwd", qkv) == "cpu":
-        return fused_qkv_rope_attention_bias_bwd_ref(qkv, cos, sin, kmask, dout, heads)
+        return fused_qkv_rope_attention_bias_bwd_from_lse_ref(qkv, cos, sin, kmask, out, lse,
+                                                              dout, heads)
     _check_qkv(qkv, cos, sin, heads)
     _check_kmask(kmask, qkv.shape[0], qkv.shape[1], qkv.device)
     return _flat_bwd("f5_fused_qkv_rope_attn_bias_bwd_bf16", "fused_qkv_rope_attention_bias_bwd",
-                     qkv, cos, sin, kmask, dout, heads)
+                     qkv, cos, sin, kmask, out, lse, dout, heads)
 
 
 class _FusedQKVRopeAttentionBias(torch.autograd.Function):
-    """K5 forward, K8 backward (plain versions on the CPU)."""
+    """K5 forward in its lse mode, K8 backward (plain versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, qkv, cos, sin, kmask, heads):
-        ctx.save_for_backward(qkv, cos, sin, kmask)
+        out, lse = fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, heads, return_lse=True)
+        ctx.save_for_backward(qkv, cos, sin, kmask, out, lse)
         ctx.heads = heads
-        return _bias_forward(qkv, cos, sin, kmask, heads)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        qkv, cos, sin, kmask = ctx.saved_tensors
-        dqkv = fused_qkv_rope_attention_bias_bwd(qkv, cos, sin, kmask, dout, ctx.heads)
+        dqkv = fused_qkv_rope_attention_bias_bwd(*ctx.saved_tensors, dout, ctx.heads)
         return dqkv, None, None, None, None
 
 
 def fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, heads: int) -> torch.Tensor:
     """qkv [b, n, 3*h*d], joint cos/sin [>=n, h*d], kmask [b, n] bool (True =
     live key) -> [b, n, h*d]. Kernel K5 on CUDA, plain on the CPU;
-    differentiable in qkv (K8 on CUDA)."""
+    differentiable in qkv (K5's lse mode and K8 on CUDA)."""
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _FusedQKVRopeAttentionBias.apply(qkv, cos, sin, kmask, heads)
-    return _bias_forward(qkv, cos, sin, kmask, heads)
+    return fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, heads)
 
 
-def _bias_forward(qkv, cos, sin, kmask, heads: int) -> torch.Tensor:
+def fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, heads: int, return_lse: bool = False):
+    """The forward of `fused_qkv_rope_attention_bias`; with `return_lse` also
+    the row lse [b, h, n] f32 (K5's lse mode on CUDA)."""
     if _device("fused_qkv_rope_attention_bias", qkv) == "cpu":
-        return fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, heads)
+        return fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, heads, return_lse)
     _check_qkv(qkv, cos, sin, heads)
-    b, n, hd3 = qkv.shape
-    _check_kmask(kmask, b, n, qkv.device)
-    out = torch.empty((b, n, hd3 // 3), dtype=qkv.dtype, device=qkv.device)
-    err = _entry("attention", "f5_fused_qkv_rope_attn_bias_bf16", 5)(
-        _build.ptr(qkv), _build.ptr(cos), _build.ptr(sin), _build.ptr(kmask), _build.ptr(out),
-        b, n, heads, 1.0 / math.sqrt(HEAD_DIM), _build.stream_ptr(qkv.device))
-    _build.check(err, "fused_qkv_rope_attention_bias")
-    _build.count("fused_qkv_rope_attention_bias")
-    return out
+    _check_kmask(kmask, qkv.shape[0], qkv.shape[1], qkv.device)
+    return _flat_fwd("f5_fused_qkv_rope_attn_bias", "fused_qkv_rope_attention_bias", qkv, cos,
+                     sin, kmask, heads, return_lse)
 
 
 # ---------------------------------------------------------------------------

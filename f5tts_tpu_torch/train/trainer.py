@@ -15,8 +15,15 @@ f5tts_tpu/train/trainer.py:40-384).
 - Tokenizers "char" (vocab map) and "byte" (UTF-8).
 - Any backbone of `cfm.BACKBONES` (`backbone=`, the DiT by default): its
   statics are rebuilt on the device by its `statics_cls`.
+- Logging as the JAX trainer's (:150-167, :363): `logger` (or
+  `train_cfg.logger`) "tensorboard" writes the logged metrics (loss,
+  grad_norm, updates_per_s) as scalars with a `torch.utils.tensorboard`
+  SummaryWriter in `log_dir`, "wandb" logs them to wandb; where the package
+  does not import, nothing is written, as in the JAX trainer.
 Not ported yet: multi-device and multi-host data parallelism, ZeRO-1, the
-pinyin tokenizer (needs `pypinyin`), wandb/tensorboard logging, log_samples.
+pinyin tokenizer (the JAX package's bundled tables and tone sandhi, no
+`pypinyin` needed), `log_samples` (raises: it needs a sampler and a vocoder
+in the trainer; ROADMAP.md queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -41,13 +48,17 @@ class Trainer:
     def __init__(self, params: dict, statics, train_cfg: TrainConfig,
                  cfm_cfg: CFMConfig = CFMConfig(), backbone: BackboneDef = DIT,
                  vocab_char_map: Optional[dict] = None, tokenizer: str = "char",
-                 total_updates: Optional[int] = None, dtype=torch.bfloat16, device=None):
+                 total_updates: Optional[int] = None, dtype=torch.bfloat16, device=None,
+                 logger: Optional[str] = None, log_dir: str = "runs"):
         """`statics`: the backbone's statics (`backbone.statics_cls`); only
-        its `.arch` is read."""
+        its `.arch` is read. `logger` overrides `train_cfg.logger`."""
         if tokenizer not in ("char", "byte"):
             raise ValueError(f"tokenizer {tokenizer!r} is not ported (char and byte are)")
         if tokenizer == "char" and vocab_char_map is None:
             raise ValueError("the char tokenizer needs a vocab_char_map")
+        if train_cfg.log_samples:
+            raise NotImplementedError("log_samples is not ported: it needs a sampler and a "
+                                      "vocoder in the trainer (ROADMAP.md queue 1 item 11)")
         self.cfg = train_cfg
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
@@ -65,6 +76,33 @@ class Trainer:
             backbone=backbone)
         self.accum = max(train_cfg.grad_accumulation_steps, 1)
         self.ckpt = CheckpointManager(train_cfg.save_dir, train_cfg.keep_last_n_checkpoints)
+        self.writer = None
+        logger = logger if logger is not None else train_cfg.logger
+        if logger == "tensorboard":
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self.writer = SummaryWriter(log_dir=log_dir)
+            except Exception:
+                self.writer = None
+        elif logger == "wandb":
+            try:
+                import wandb
+
+                wandb.init(project="CFM-TTS", dir=log_dir)
+                self.writer = "wandb"
+            except Exception:
+                self.writer = None
+
+    def _log(self, metrics: dict, step: int) -> None:
+        if self.writer == "wandb":
+            import wandb
+
+            wandb.log(metrics, step=step)
+        elif self.writer is not None:
+            for k, v in metrics.items():
+                self.writer.add_scalar(k, v, step)
+            self.writer.flush()
 
     def tokenize(self, texts: list) -> np.ndarray:
         if self.tokenizer == "char":
@@ -134,6 +172,7 @@ class Trainer:
                     last_metrics = {k: float(v) for k, v in metrics.items()}
                     last_metrics["updates_per_s"] = log_every / max(time.time() - t0, 1e-9)
                     t0 = time.time()
+                    self._log(last_metrics, update)
 
                 if update % cfg.save_per_updates == 0:
                     self.ckpt.save(self.state)

@@ -13,8 +13,15 @@ they replace, in interpret mode, on the CPU.
   `_pick_block` that returns a non-divisor: `_flash_backward` never reaches
   them otherwise) and `jax.vjp(flash_attention)`, with the cotangent zero on
   rows >= length as the model's mask makes it;
+- K5's lse mode: the plain forward's row lse against the logsumexp of the JAX
+  scores on the same roped heads (tolerance 1e-5); K8's function from the
+  saved lse, `fused_qkv_rope_attention_bias_bwd_from_lse_ref`, fed the plain
+  forward's out and lse, against `jax.grad` through the JAX
+  `fused_qkv_rope_attention_bias` with the Pallas backward (FORCE_FLAT_BWD,
+  interpret mode) at joint n = 256 / 1152;
 - each plain backward is the autograd of its plain forward, and the
-  differentiable wrappers take them on the CPU without counting a launch.
+  differentiable wrappers take the from-lse ones on the CPU without counting
+  a launch.
 All f32 on numpy-seeded inputs: the differences are sum orders (tolerance
 3e-4, the JAX package's own for its long backward kernel).
 """
@@ -83,6 +90,41 @@ def test_bias_bwd_plain_matches_pallas(n, body):
     dead = ~kmask
     assert not got[:, :, hd:][dead].any()  # dead keys: dk = dv = 0 exactly
     assert np.abs(got[:, :, :hd][dead]).max() > 0  # dead rows still get their dq
+
+
+@pytest.mark.parametrize("n", [256, 384])
+def test_bias_lse_plain_matches_jax_scores(n):
+    heads, d = 2, 64
+    qkv, cos, sin, kmask, _ = _joint(n)
+    q, k, _v = jnp.split(jnp.asarray(qkv), 3, axis=-1)
+    qh, kh = (jrope.apply_rotary_flat_tables(t, jnp.asarray(cos), jnp.asarray(sin))
+              .reshape(2, n, heads, d).transpose(0, 2, 1, 3) for t in (q, k))
+    scores = jnp.einsum("bhqd,bhkd->bhqk", qh, kh) / np.sqrt(d)
+    scores = jnp.where(jnp.asarray(kmask)[:, None, None, :], scores, jatt.NEG_INF)
+    want = np.asarray(jax.nn.logsumexp(scores, axis=-1))
+    o, lse = tatt.fused_qkv_rope_attention_bias_ref(_t(qkv), _t(cos), _t(sin), _t(kmask), heads,
+                                                    return_lse=True)
+    assert lse.shape == (2, heads, n) and lse.dtype == torch.float32
+    np.testing.assert_allclose(_np(lse), want, atol=1e-5, rtol=1e-5)
+    np.testing.assert_array_equal(_np(o), _np(tatt.fused_qkv_rope_attention_bias_ref(
+        _t(qkv), _t(cos), _t(sin), _t(kmask), heads)))
+
+
+@pytest.mark.parametrize("n", [256, 1152])
+def test_bias_bwd_from_lse_matches_pallas_grad(n, monkeypatch):
+    monkeypatch.setattr(jatt, "FORCE_FLAT_BWD", True)
+    heads = 2
+    qkv, cos, sin, kmask, do = _joint(n)
+    jc, js, jk = jnp.asarray(cos), jnp.asarray(sin), jnp.asarray(kmask)
+    want = np.asarray(jax.grad(lambda x: jnp.sum(
+        jatt.fused_qkv_rope_attention_bias(x, jc, js, jk, heads) * jnp.asarray(do)))(
+            jnp.asarray(qkv)))
+    o, lse = tatt.fused_qkv_rope_attention_bias_ref(_t(qkv), _t(cos), _t(sin), _t(kmask), heads,
+                                                    return_lse=True)
+    got = _np(tatt.fused_qkv_rope_attention_bias_bwd_from_lse_ref(
+        _t(qkv), _t(cos), _t(sin), _t(kmask), o, lse, _t(do), heads))
+    np.testing.assert_allclose(got, want, **TOL)
+    assert not got[:, :, 2 * 64:][~kmask].any()  # dead keys: dk = dv = 0 exactly
 
 
 @pytest.mark.parametrize("body,n,lengths", [("single", 256, [256, 177]),
@@ -177,7 +219,7 @@ def test_plain_backwards_are_the_autograd_of_the_plain_forwards():
 
 def test_differentiable_wrappers_take_the_plain_versions_on_the_cpu(monkeypatch):
     calls = []
-    for name in ("fused_qkv_rope_attention_bias_bwd_ref", "flash_attention_bwd_ref"):
+    for name in ("fused_qkv_rope_attention_bias_bwd_from_lse_ref", "flash_attention_bwd_ref"):
         real = getattr(tatt, name)
         monkeypatch.setattr(tatt, name,
                             lambda *a, _r=real, _n=name: calls.append(_n) or _r(*a))
@@ -188,7 +230,7 @@ def test_differentiable_wrappers_take_the_plain_versions_on_the_cpu(monkeypatch)
     out.sum().backward()
     q = torch.randn(1, 2, 64, 64, requires_grad=True)
     tatt.attention(q, q, q, torch.tensor([40])).sum().backward()
-    assert calls == ["fused_qkv_rope_attention_bias_bwd_ref", "flash_attention_bwd_ref"]
+    assert calls == ["fused_qkv_rope_attention_bias_bwd_from_lse_ref", "flash_attention_bwd_ref"]
     assert qkv.grad.shape == qkv.shape and q.grad.shape == q.shape
     assert _build.launches() == {}
 
@@ -199,6 +241,8 @@ def test_backward_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         tatt.fused_qkv_rope_attention_bias_bwd(qkv, tab, tab,
                                                torch.empty(1, 64, dtype=torch.bool, **meta),
+                                               torch.empty(1, 64, 128, **meta),
+                                               torch.empty(1, 2, 64, **meta),
                                                torch.empty(1, 64, 128, **meta), 2)
     q = torch.empty(1, 2, 64, 64, **meta)
     lens = torch.empty(1, dtype=torch.int32, **meta)

@@ -2,8 +2,9 @@
 
 Each hand-written kernel against its plain PyTorch version at small shapes,
 including ragged lengths and an n that is no multiple of the tiles; the
-attention backwards K4, K8 and K9 alone and through autograd (K3 -> K4,
-K5 -> K8, K7's lse mode -> K9); the generic grouped conv1d K10 and the
+lse modes of K3 and K5; the attention backwards K4, K8 (each against both
+of its plain versions) and K9 alone and through autograd (K3's lse mode ->
+K4, K5's lse mode -> K8, K7's lse mode -> K9); the generic grouped conv1d K10 and the
 key-masked head-layout attention K11; one tiny DiT, UNetT and MMDiT forward
 (also at the dim-768 widths and with qk-norm) and one tiny training step of
 each backbone through the kernels against the CPU plain path.
@@ -28,10 +29,14 @@ from f5tts_tpu_torch.ops.attention import (
     fused_qkv_rope_attention,
     fused_qkv_rope_attention_bias,
     fused_qkv_rope_attention_bias_bwd,
+    fused_qkv_rope_attention_bias_bwd_from_lse_ref,
     fused_qkv_rope_attention_bias_bwd_ref,
+    fused_qkv_rope_attention_bias_fwd,
     fused_qkv_rope_attention_bias_ref,
     fused_qkv_rope_attention_bwd,
+    fused_qkv_rope_attention_bwd_from_lse_ref,
     fused_qkv_rope_attention_bwd_ref,
+    fused_qkv_rope_attention_fwd,
     fused_qkv_rope_attention_ref,
     masked_flash_attention,
     masked_flash_attention_bwd,
@@ -64,6 +69,16 @@ def _live_max(a, b, lengths):
     n = a.shape[1]
     live = torch.arange(n, device=a.device)[None, :] < lengths[:, None]
     return float((a.float() - b.float()).abs()[live].max())
+
+
+def _close(got, want, live=None):
+    """The backward tolerance: rel-L2 <= 1e-2 and max-abs <= 2e-2 of the
+    largest entry (over `live` entries when given)."""
+    a, b = got.float(), want.float()
+    if live is not None:
+        a, b = a[live], b[live]
+    assert float((a - b).norm() / b.norm()) <= 1e-2
+    assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())
 
 
 @pytest.mark.parametrize("n", [1, 100, 1024])
@@ -102,23 +117,46 @@ def test_attention_kernel(dev, n, length):
     assert not out[1, length:].any()
 
 
+@pytest.mark.parametrize("n,length", [(64, 1), (100, 37), (1024, 777), (3200, 3001)])
+def test_attention_lse_kernel(dev, n, length):
+    """K3's lse mode: the output as K3's, the lse within 1e-3 of the plain
+    version's (on the same bf16 inputs) on live q tiles and exactly -1e30 on
+    the tiles past the length."""
+    rng = np.random.default_rng(n + 9)
+    qkv = _bf16(rng, (2, n, 3 * 1024), dev)
+    cos, sin = rope_flat_tables(rope_freqs_interleaved(64, n).to(dev), n, 16)
+    lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)
+    _build.reset_launches()
+    out, lse = fused_qkv_rope_attention_fwd(qkv, cos, sin, lengths, 16, return_lse=True)
+    assert _build.launches() == {"fused_qkv_rope_attention_lse": 1}
+    assert torch.equal(out, fused_qkv_rope_attention(qkv, cos, sin, lengths, 16))
+    # the plain version on the same bf16 inputs rounds roped q and k where K3 does
+    _, want = fused_qkv_rope_attention_ref(qkv, cos, sin, lengths, 16, return_lse=True)
+    tile_end = -(-length // 64) * 64
+    assert float((lse[0] - want[0]).abs().max()) <= 1e-3
+    assert float((lse[1, :, :tile_end] - want[1, :, :tile_end]).abs().max()) <= 1e-3
+    assert bool((lse[1, :, tile_end:] == NEG_INF).all())
+
+
 @pytest.mark.parametrize("n,length", [(64, 1), (100, 37), (960, 960), (1024, 777), (3200, 3001)])
 def test_attention_bwd_kernel(dev, n, length):
-    """K4 against its plain version: dQKV over live rows by rel-L2 (<= 1e-2)
-    and max-abs (<= 2e-2 of the largest entry); dead rows exactly 0."""
+    """K4 from K3's saved output and lse against both plain versions (the
+    from-lse one it computes and the JAX function's recompute): dQKV over
+    live rows by rel-L2 (<= 1e-2) and max-abs (<= 2e-2 of the largest
+    entry); dead rows exactly 0."""
     rng = np.random.default_rng(n + 1)
     qkv = _bf16(rng, (2, n, 3 * 1024), dev)
     dout = _bf16(rng, (2, n, 1024), dev)  # not masked: K4 must ignore dead rows
     cos, sin = rope_flat_tables(rope_freqs_interleaved(64, n).to(dev), n, 16)
     lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)
+    out, lse = fused_qkv_rope_attention_fwd(qkv, cos, sin, lengths, 16, return_lse=True)
     _build.reset_launches()
-    got = fused_qkv_rope_attention_bwd(qkv, cos, sin, lengths, dout, 16)
+    got = fused_qkv_rope_attention_bwd(qkv, cos, sin, lengths, out, lse, dout, 16)
     assert _build.launches() == {"fused_qkv_rope_attention_bwd": 1}
-    want = fused_qkv_rope_attention_bwd_ref(qkv, cos, sin, lengths, dout, 16)
     live = torch.arange(n, device=dev)[None, :] < lengths[:, None]
-    a, b = got.float()[live], want.float()[live]
-    assert float((a - b).norm() / b.norm()) <= 1e-2
-    assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())
+    for want in (fused_qkv_rope_attention_bwd_from_lse_ref(qkv, cos, sin, lengths, out, lse, dout, 16),
+                 fused_qkv_rope_attention_bwd_ref(qkv, cos, sin, lengths, dout, 16)):
+        _close(got, want, live)
     assert not got[1, length:].any()
 
 
@@ -130,10 +168,15 @@ def test_attention_autograd_launches_k4(dev):
     _build.reset_launches()
     out = fused_qkv_rope_attention(qkv, cos, sin, lengths, 16)
     out.float().sum().backward()
-    assert _build.launches() == {"fused_qkv_rope_attention": 1, "fused_qkv_rope_attention_bwd": 1}
+    assert _build.launches() == {"fused_qkv_rope_attention_lse": 1,
+                                 "fused_qkv_rope_attention_bwd": 1}
     want = fused_qkv_rope_attention_bwd_ref(qkv.detach(), cos, sin, lengths,
                                             torch.ones_like(out), 16)
     assert float((qkv.grad.float() - want.float()).norm() / want.float().norm()) <= 1e-2
+    with torch.no_grad():  # inference keeps the mode without lse
+        _build.reset_launches()
+        fused_qkv_rope_attention(qkv, cos, sin, lengths, 16)
+        assert _build.launches() == {"fused_qkv_rope_attention": 1}
 
 
 @pytest.mark.parametrize("n,w_dtype", [(1, torch.float32), (100, torch.bfloat16),
@@ -183,16 +226,6 @@ def test_flash_attention_kernel(dev, n, length):
     assert not out[1, :, -(-length // 64) * 64:].any()
 
 
-def _close(got, want, live=None):
-    """The backward tolerance: rel-L2 <= 1e-2 and max-abs <= 2e-2 of the
-    largest entry (over `live` entries when given)."""
-    a, b = got.float(), want.float()
-    if live is not None:
-        a, b = a[live], b[live]
-    assert float((a - b).norm() / b.norm()) <= 1e-2
-    assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())
-
-
 def _bias_case(rng, n, dev):
     qkv = _bf16(rng, (2, n, 3 * 1024), dev)
     cos, sin = rope_flat_tables(rope_freqs_interleaved(64, n).to(dev), n, 16)
@@ -205,15 +238,32 @@ def _bias_case(rng, n, dev):
 
 
 @pytest.mark.parametrize("n", [64, 200, 1152, 3200])
+def test_bias_attention_lse_kernel(dev, n):
+    """K5's lse mode: the output as K5's, the lse of every row within 1e-3."""
+    rng = np.random.default_rng(n + 10)
+    qkv, cos, sin, kmask = _bias_case(rng, n, dev)
+    _build.reset_launches()
+    out, lse = fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, 16, return_lse=True)
+    assert _build.launches() == {"fused_qkv_rope_attention_bias_lse": 1}
+    assert torch.equal(out, fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, 16))
+    _, want = fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, 16, return_lse=True)
+    assert float((lse - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("n", [64, 200, 1152, 3200])
 def test_bias_attention_bwd_kernel(dev, n):
-    """K8 against its plain version on every row (dO unmasked: every row of
-    K5 is computed); dead keys' dk and dv exactly 0."""
+    """K8 from K5's saved output and lse against both plain versions on every
+    row (dO unmasked: every row of K5 is computed); dead keys' dk and dv
+    exactly 0."""
     rng = np.random.default_rng(n + 4)
     qkv, cos, sin, kmask = _bias_case(rng, n, dev)
     dout = _bf16(rng, (2, n, 1024), dev)
+    out, lse = fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, 16, return_lse=True)
     _build.reset_launches()
-    got = fused_qkv_rope_attention_bias_bwd(qkv, cos, sin, kmask, dout, 16)
+    got = fused_qkv_rope_attention_bias_bwd(qkv, cos, sin, kmask, out, lse, dout, 16)
     assert _build.launches() == {"fused_qkv_rope_attention_bias_bwd": 1}
+    _close(got, fused_qkv_rope_attention_bias_bwd_from_lse_ref(qkv, cos, sin, kmask, out, lse,
+                                                               dout, 16))
     _close(got, fused_qkv_rope_attention_bias_bwd_ref(qkv, cos, sin, kmask, dout, 16))
     assert not got[:, :, 1024:][~kmask].any()
 
@@ -225,7 +275,7 @@ def test_bias_attention_autograd_launches_k8(dev):
     _build.reset_launches()
     out = fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, 16)
     out.float().sum().backward()
-    assert _build.launches() == {"fused_qkv_rope_attention_bias": 1,
+    assert _build.launches() == {"fused_qkv_rope_attention_bias_lse": 1,
                                  "fused_qkv_rope_attention_bias_bwd": 1}
     _close(qkv.grad, fused_qkv_rope_attention_bias_bwd_ref(qkv.detach(), cos, sin, kmask,
                                                            torch.ones_like(out), 16))
@@ -527,15 +577,16 @@ def test_tiny_dit_training_step_on_the_card(dev):
     arch = ModelArch(dim=1024, depth=2, heads=16, dim_head=64, text_dim=64, conv_layers=1,
                      text_num_embeds=32)
     _tiny_training_step(dev, "DiT", arch, {
-        "fused_qkv_rope_attention": 2, "fused_qkv_rope_attention_bwd": 2, "adaln_norm": 5,
+        "fused_qkv_rope_attention_lse": 2, "fused_qkv_rope_attention_bwd": 2, "adaln_norm": 5,
         "conv_pos_embedding": 1})
 
 
 @pytest.mark.parametrize("backbone,gate", [("UNetT", "flat"), ("UNetT", "heads"),
                                            ("MMDiT", "joint")])
 def test_tiny_new_backbone_training_steps_on_the_card(dev, backbone, gate, monkeypatch):
-    """The UNetT on both sides of the self-attention gate (K3/K4, or K7's lse
-    mode and K9 with FLAT_ATTN_MAX_N lowered) and the MMDiT (K5/K8)."""
+    """The UNetT on both sides of the self-attention gate (K3's lse mode / K4,
+    or K7's lse mode and K9 with FLAT_ATTN_MAX_N lowered) and the MMDiT (K5's
+    lse mode / K8)."""
     from f5tts_tpu_torch.config import ModelArch
     from f5tts_tpu_torch.models import modules
 
@@ -543,9 +594,9 @@ def test_tiny_new_backbone_training_steps_on_the_card(dev, backbone, gate, monke
         monkeypatch.setattr(modules, "FLAT_ATTN_MAX_N", 128)
     arch = ModelArch(dim=1024, depth=2, heads=16, dim_head=64, text_dim=None, conv_layers=0,
                      text_num_embeds=32)
-    attn = {"flat": {"fused_qkv_rope_attention": 2, "fused_qkv_rope_attention_bwd": 2},
+    attn = {"flat": {"fused_qkv_rope_attention_lse": 2, "fused_qkv_rope_attention_bwd": 2},
             "heads": {"flash_attention_lse": 2, "flash_attention_bwd": 2},
-            "joint": {"fused_qkv_rope_attention_bias": 2,
+            "joint": {"fused_qkv_rope_attention_bias_lse": 2,
                       "fused_qkv_rope_attention_bias_bwd": 2}}[gate]
     rest = ({"rms_norm": 5, "conv_pos_embedding": 1} if backbone == "UNetT"
             else {"adaln_norm": 8, "conv_pos_embedding": 1})

@@ -306,3 +306,57 @@ def test_trainer_grad_accumulation_and_tokenizers(model, tmp_path):
     np.testing.assert_array_equal(trainer.tokenize(texts), list_str_to_tensor(texts))
     with pytest.raises(ValueError, match="not ported"):
         Trainer(model[3], tdit.DiTStatics(model[1]), TrainConfig(), tokenizer="pinyin", device="cpu")
+
+
+def _scalar_steps(log_dir) -> dict:
+    """{tag: [steps]} of the scalars in a tensorboard log directory."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    acc = EventAccumulator(str(log_dir))
+    acc.Reload()
+    return {tag: [e.step for e in acc.Scalars(tag)] for tag in acc.Tags()["scalars"]}
+
+
+def test_trainer_tensorboard_scalars_match_jax(model, tmp_path):
+    """logger="tensorboard": the port's Trainer writes the scalars the JAX
+    Trainer writes for the same run (tags and steps); logger=None writes
+    nothing; log_samples raises (not ported)."""
+    from f5tts_tpu.config import TrainConfig as JTrainConfig
+    from f5tts_tpu.train.trainer import Trainer as JTrainer
+
+    jarch, tarch, tree, tp = model
+    data = _tiny_dataset()
+    kw = dict(batch_size_per_device=400, num_warmup_updates=2, save_per_updates=1000,
+              last_per_updates=1000, ema_update_every=2, ema_update_after_step=1)
+
+    class JaxData:  # the same rows as the port's dataset
+        def __len__(self):
+            return len(data)
+
+        def get_frame_len(self, i):
+            return data.get_frame_len(i)
+
+        def __getitem__(self, i):
+            s = data[i]
+            return jds.Sample(mel=s.mel, text=s.text)
+
+    jtr = JTrainer(jax.tree.map(jnp.asarray, tree), jdit.DiTStatics(jarch),
+                   JTrainConfig(save_dir=str(tmp_path / "jck"), **kw), vocab_char_map=VOCAB,
+                   tokenizer="char", dtype=jnp.float32, backend="xla", logger="tensorboard",
+                   log_dir=str(tmp_path / "jtb"))
+    jtr.train(JaxData(), max_updates=2, log_every=1)
+    jtr.writer.flush()
+    port = Trainer(tp, tdit.DiTStatics(tarch), TrainConfig(save_dir=str(tmp_path / "tck"), **kw),
+                   vocab_char_map=VOCAB, device="cpu", dtype=torch.float32,
+                   log_dir=str(tmp_path / "ttb"))  # train_cfg.logger defaults to tensorboard
+    port.train(data, max_updates=2, log_every=1)
+    want = _scalar_steps(tmp_path / "jtb")
+    assert want == {"loss": [1, 2], "grad_norm": [1, 2], "updates_per_s": [1, 2]}
+    assert _scalar_steps(tmp_path / "ttb") == want
+
+    quiet = _trainer(model, tmp_path / "q")  # TrainConfig(logger=None)
+    assert quiet.writer is None
+    quiet.train(data, max_updates=1, log_every=1)
+    assert not list(tmp_path.glob("q/**/events.out.tfevents*"))
+    with pytest.raises(NotImplementedError, match="log_samples"):
+        _trainer(model, tmp_path / "s", log_samples=True)

@@ -115,8 +115,8 @@ def _jax_loss_and_grads(backbone: str):
 def test_cfm_loss_and_grads_match_jax(backbone, gate, monkeypatch):
     _, tarch, _, tp = _model(backbone)
     calls = []
-    for name in ("fused_qkv_rope_attention_bwd_ref", "fused_qkv_rope_attention_bias_bwd_ref",
-                 "flash_attention_bwd_ref"):
+    for name in ("fused_qkv_rope_attention_bwd_from_lse_ref",
+                 "fused_qkv_rope_attention_bias_bwd_from_lse_ref", "flash_attention_bwd_ref"):
         real = getattr(tatt, name)
         monkeypatch.setattr(tatt, name, lambda *a, _r=real, _n=name: calls.append(_n) or _r(*a))
     if gate == "heads":  # the 4096-row gate, lowered to reach it at 256 rows
@@ -131,8 +131,9 @@ def test_cfm_loss_and_grads_match_jax(backbone, gate, monkeypatch):
     loss, grads = step.grad_step(tp, torch.from_numpy(mel), torch.from_numpy(text),
                                  torch.from_numpy(lens), draws=draws)
     # the backward each gate runs, once an attention layer
-    expect = {"flat": "fused_qkv_rope_attention_bwd_ref", "heads": "flash_attention_bwd_ref",
-              "joint": "fused_qkv_rope_attention_bias_bwd_ref"}[gate]
+    expect = {"flat": "fused_qkv_rope_attention_bwd_from_lse_ref",
+              "heads": "flash_attention_bwd_ref",
+              "joint": "fused_qkv_rope_attention_bias_bwd_from_lse_ref"}[gate]
     assert calls == [expect] * tarch.depth
     want_loss, want_grads = _jax_loss_and_grads(backbone)
     np.testing.assert_allclose(float(loss), want_loss, rtol=1e-5)
