@@ -19,17 +19,20 @@ Phases (any failure raises, and the script exits non-zero):
    backward (fwd+bwd minus fwd on the same pre-roped inputs) as the
    yardstick. K5's lse mode as K3's, every row. K5, the
    key-masked flat attention (joint n = 1152, 3200, 4352: audio + text rows,
-   dead keys mid-sequence, SDPA with a boolean mask as yardstick); K6,
+   dead keys mid-sequence, SDPA with a boolean mask as yardstick; and, with
+   its lse mode, joint 1124, no multiple of 64, and 1152 with four
+   consecutive all-dead key tiles mid-row); K6,
    RMSNorm ([2, 1024, 1024], F.rms_norm as yardstick); K7, head-layout
    attention (n = 1024, 4224, lengths [n, 777]; SDPA as yardstick). K7's lse
    mode (the same inputs: the output as K7's, the lse within 1e-3 on live q
    tiles and exactly -1e30 on dead ones); K8, the key-masked flat backward
-   from K5's saved output and lse (K5's joint shapes and masks, dO on every
-   row: dQKV rel-L2 and max-abs against both plain versions as K4's, dead
-   keys' dk/dv exactly 0); K9, the head-layout backward from K7's
-   saved output and lse (b = 2, h = 16, n = 1024, 4224, lengths [n, 777], dO
-   zero on rows >= length: dq/dk/dv as K4's, exactly 0 on dead tiles and
-   keys). Each backward is timed beside SDPA's backward on the same inputs.
+   from K5's saved output and lse (K5's joint shapes and masks and joint
+   1124, dO on every row: dQKV rel-L2 and max-abs against both plain
+   versions as K4's, dead keys' dk/dv exactly 0); K9, the head-layout
+   backward from K7's saved output and lse (b = 2, h = 16, n = 1024, 4224,
+   lengths [n, 777], dO zero on rows >= length; and n = 1024 with dO on
+   every row, rows past the length inside the last live q tile included:
+   dq/dk/dv as K4's over all rows, exactly 0 on dead tiles and keys). Each backward is timed beside SDPA's backward on the same inputs.
    K10, the generic grouped conv1d + bias ([2, 1024, 768] and [2, 4096, 768]
    at 16 groups of 48, k = 31; [2, 1024, 384] at 16 groups of 24, k = 4:
    max-abs in f32 against its plain version, F.conv1d(groups=16) through
@@ -543,9 +546,9 @@ def check_attention_bias(rng, dev) -> dict:
     b, h, d = 2, 16, 64
     hd = h * d
     out_row = None
-    for na, nt in ((1024, 128), (3072, 128), (4096, 256)):  # joint 1152, 3200, 4352
+    for na, nt, gap in JOINT_CASES + JOINT_EDGE_CASES:  # joint 1152, 3200, 4352, 1124, 1152
         n = na + nt
-        qkv, cos, sin, kmask = joint_case(rng, dev, na, nt)
+        qkv, cos, sin, kmask = joint_case(rng, dev, na, nt, gap)
         out = fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, h)
         ref = fused_qkv_rope_attention_bias_ref(qkv.float(), cos.float(), sin.float(), kmask, h)
         torch.cuda.synchronize()
@@ -562,8 +565,8 @@ def check_attention_bias(rng, dev) -> dict:
         qh, kh, vh = flat_to_heads(qkv, cos, sin, h)
         mask4 = kmask[:, None, None, :]
         lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask4))
-        log(f"  fused_qkv_rope_attention_bias b=2 h=16 d=64 joint n={n} ({na} audio + {nt} text), "
-            f"live keys {live_keys}: max_abs_err over live rows {err:.3e} (tol "
+        log(f"  fused_qkv_rope_attention_bias b=2 h=16 d=64 joint n={n} ({na} audio + {nt} text"
+            f"{gap_text(gap)}), live keys {live_keys}: max_abs_err over live rows {err:.3e} (tol "
             f"{TOL['fused_qkv_rope_attention_bias']}), dead rows {dead:.3e}, {ms:.4f} ms (eager "
             f"call {wall:.4f} ms), bound {bound:.4f} ms (operations), plain {plain:.4f} ms, "
             f"sdpa {lib:.4f} ms")
@@ -683,11 +686,18 @@ def check_flash_lse(rng, dev) -> dict:
     return out_row
 
 
-def joint_case(rng, dev, na: int, nt: int):
+# K5 / K8's phase-2 shapes: (audio rows, text rows, a dead run of row 1's audio)
+JOINT_CASES = ((1024, 128, None), (3072, 128, None), (4096, 256, None))
+# and K5's edge cases: a joint n that is no multiple of 64 (1024 + 100), and
+# four consecutive all-dead key tiles in the middle of row 1
+JOINT_EDGE_CASES = ((1024, 100, None), (1024, 128, (192, 448)))
+
+
+def joint_case(rng, dev, na: int, nt: int, gap=None):
     """K5's / K8's phase-2 inputs at joint n = na + nt: qkv, the joint rope
     tables and the key mask (row 0: audio live to 777 of 1024, 3/4 of longer
-    buckets, text 100 live; row 1: all audio live, text 120: dead keys
-    mid-sequence)."""
+    buckets, text 100 live; row 1: all audio live but the keys of `gap`, text
+    120: dead keys mid-sequence)."""
     import torch
     from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
 
@@ -698,11 +708,17 @@ def joint_case(rng, dev, na: int, nt: int):
     kmask[0, na:na + 100] = True
     kmask[1, :na] = True
     kmask[1, na:na + 120] = True
+    if gap is not None:
+        kmask[1, gap[0]:gap[1]] = False
     qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d)).astype(np.float32)).to(dev, torch.bfloat16)
     ang = rope_freqs_interleaved(d, na).to(dev)
     ca, sa = rope_flat_tables(ang, na, h, dtype=torch.bfloat16)
     ct, st = rope_flat_tables(ang, nt, h, dtype=torch.bfloat16)
     return qkv, torch.cat([ca, ct]).contiguous(), torch.cat([sa, st]).contiguous(), kmask
+
+
+def gap_text(gap) -> str:
+    return "" if gap is None else f", row 1's keys {gap[0]}..{gap[1] - 1} dead"
 
 
 def check_attention_bias_lse(rng, dev) -> dict:
@@ -717,9 +733,9 @@ def check_attention_bias_lse(rng, dev) -> dict:
     b, h, d = 2, 16, 64
     hd = h * d
     out_row = None
-    for na, nt in ((1024, 128), (3072, 128), (4096, 256)):  # joint 1152, 3200, 4352
+    for na, nt, gap in JOINT_CASES + JOINT_EDGE_CASES:  # joint 1152, 3200, 4352, 1124, 1152
         n = na + nt
-        qkv, cos, sin, kmask = joint_case(rng, dev, na, nt)
+        qkv, cos, sin, kmask = joint_case(rng, dev, na, nt, gap)
         out, lse = fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, h, return_lse=True)
         ref, ref_lse = fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, h, return_lse=True)
         if not torch.equal(out, fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, h)):
@@ -734,7 +750,7 @@ def check_attention_bias_lse(rng, dev) -> dict:
             lambda: fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, h, return_lse=True),
             lambda: fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, h, return_lse=True),
             lib, 4 * h * d * n * sum(live_keys), nbytes,
-            f"joint n={n} ({na} audio + {nt} text), live keys {live_keys}"))
+            f"joint n={n} ({na} audio + {nt} text{gap_text(gap)}), live keys {live_keys}"))
     return out_row
 
 
@@ -750,9 +766,9 @@ def check_attention_bias_bwd(rng, dev) -> dict:
     b, h, d = 2, 16, 64
     hd = h * d
     out_row = None
-    for na, nt in ((1024, 128), (3072, 128), (4096, 256)):  # joint 1152, 3200, 4352
+    for na, nt, gap in JOINT_CASES + JOINT_EDGE_CASES[:1]:  # joint 1152, 3200, 4352, 1124
         n = na + nt
-        qkv, cos, sin, kmask = joint_case(rng, dev, na, nt)
+        qkv, cos, sin, kmask = joint_case(rng, dev, na, nt, gap)
         dout = bwd_inputs(rng, dev, b, n, hd)[1]
         out, lse = fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, h, return_lse=True)
         args = (qkv, cos, sin, kmask, out, lse, dout, h)
@@ -774,19 +790,24 @@ def check_attention_bias_bwd(rng, dev) -> dict:
 
 
 def check_flash_bwd(rng, dev) -> dict:
-    """K9 from K7's saved output and lse, dO zero on rows >= length."""
+    """K9 from K7's saved output and lse at n = 1024 and 4224, dO zero on rows
+    >= length; and at n = 1024 with dO nonzero on every row, so rows 777..831
+    of batch row 1 (past the length, inside the last live q tile) carry a
+    gradient. All rows compared; dq of the dead q tiles and dk, dv of the dead
+    keys exactly 0."""
     import torch
     from f5tts_tpu_torch.ops.attention import (flash_attention_bwd, flash_attention_bwd_ref,
                                                flash_attention_fwd)
 
     b, h, d = 2, 16, 64
     out_row = None
-    for n in (1024, 4224):
+    for n, row_masked in ((1024, True), (4224, True), (1024, False)):
         lengths = torch.tensor([n, 777], dtype=torch.int32, device=dev)
         q, k, v, dout = (torch.from_numpy(rng.standard_normal((b, h, n, d)).astype(np.float32))
                          .to(dev, torch.bfloat16) for _ in range(4))
         live = torch.arange(n, device=dev)[None, :] < lengths[:, None]
-        dout = dout * live[:, None, :, None]
+        if row_masked:
+            dout = dout * live[:, None, :, None]
         o, lse = flash_attention_fwd(q, k, v, lengths, return_lse=True)
         got = flash_attention_bwd(q, k, v, lengths, o, lse, dout)
         want = flash_attention_bwd_ref(q, k, v, lengths, o, lse, dout)
@@ -794,7 +815,10 @@ def check_flash_bwd(rng, dev) -> dict:
         stats = [bwd_errors(g, w) for g, w in zip(got, want)]
         rel, err = max(x[0] for x in stats), max(x[1] for x in stats)
         top = min(x[2] for x in stats)
-        dead = max(float(g[1, :, 777:].abs().max()) for g in got)
+        # dq: rows of the q tiles past the length; dk, dv: keys past it
+        tile_end = -(-777 // 64) * 64
+        dead = max(float(got[0][1, :, 777 if row_masked else tile_end:].abs().max()),
+                   *(float(g[1, :, 777:].abs().max()) for g in got[1:]))
         tile_rows = [-(-ln // 64) * 64 for ln in lengths.tolist()]  # rows of live q tiles
         pairs = sum(min(r, n) * ln for r, ln in zip(tile_rows, lengths.tolist()))
         flops = 10 * h * d * pairs
@@ -804,7 +828,8 @@ def check_flash_bwd(rng, dev) -> dict:
         plain = time_ms(lambda: flash_attention_bwd_ref(q, k, v, lengths, o, lse, dout),
                         reps=1, iters=3)
         lib, lib_fwd = sdpa_bwd_ms(q, k, v, dout, live)
-        log(f"  flash_attention_bwd b=2 h=16 d=64 n={n} lengths [{n}, 777]: dq/dk/dv rel-L2 "
+        log(f"  flash_attention_bwd b=2 h=16 d=64 n={n} lengths [{n}, 777], dO "
+            f"{'zero past the length' if row_masked else 'on every row'}: dq/dk/dv rel-L2 "
             f"max {rel:.3e} (tol {BWD_REL_L2_TOL}), max_abs_err {err:.3e} (tol "
             f"{BWD_MAX_ABS_REL_TOL} x smallest largest entry {top:.3e}), dead rows/keys max "
             f"{dead:.1e}, {ms:.4f} ms, bound {bound:.4f} ms (operations), plain {plain:.4f} ms, "
@@ -812,7 +837,8 @@ def check_flash_bwd(rng, dev) -> dict:
         if dead != 0.0:
             raise AssertionError("flash_attention_bwd: dead tiles or keys are not 0")
         for name, (r, e, t) in zip(("dq", "dk", "dv"), stats):
-            check_bwd_tol(f"flash_attention_bwd {name} at n={n}", r, e, t)
+            check_bwd_tol(f"flash_attention_bwd {name} at n={n} (dO row-masked: {row_masked})",
+                          r, e, t)
         out_row = merge_rows(out_row, {"max_abs_err": err, "ms": ms, "plain_ms": plain,
                                         "bound_ms": bound, "bound_by": "operations",
                                         "library_ms": lib})

@@ -60,14 +60,3 @@ __device__ __forceinline__ void rope8(float* x, const float* c, const float* s) 
         x[e + 1] = x1 * c[e + 1] + x0 * s[e + 1];
     }
 }
-
-// Four 8x8 bf16 matrices from shared memory, transposed (ldmatrix .trans).
-// For a row-major [k][n] tile, thread i passes the address of row k0 + (i & 15),
-// column n0 + (i >> 4) * 8; r0, r1 are then the mma_16816 B fragments (b0, b1)
-// of columns n0..n0+7 and r2, r3 those of columns n0+8..n0+15.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
-    const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(a));
-}

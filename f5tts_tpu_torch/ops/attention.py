@@ -338,8 +338,10 @@ def fused_qkv_rope_attention_fwd(qkv, cos, sin, lengths, heads: int, return_lse:
                      lengths, heads, return_lse)
 
 
-def _flat_fwd(entry: str, name: str, qkv, cos, sin, mask, heads: int, return_lse: bool):
-    """Launch K3 (`mask` = lengths) or K5 (`mask` = kmask), in the lse mode
+def _flat_fwd(entry: str, name: str, qkv, cos, sin, mask, heads: int, return_lse: bool,
+              k_rot: bool = False):
+    """Launch K3 (`mask` = lengths) or K5 (`mask` = kmask, `k_rot`: with its
+    roped-k scratch [b, h, n, d], freed after the call), in the lse mode
     (entry `<entry>_lse_bf16`, count `<name>_lse`) with `return_lse`."""
     b, n, hd3 = qkv.shape
     out = torch.empty((b, n, hd3 // 3), dtype=qkv.dtype, device=qkv.device)
@@ -348,6 +350,9 @@ def _flat_fwd(entry: str, name: str, qkv, cos, sin, mask, heads: int, return_lse
         lse = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
         args.append(_build.ptr(lse))
         entry, name = entry + "_lse", name + "_lse"
+    if k_rot:
+        scratch = torch.empty((b, heads, n, HEAD_DIM), dtype=qkv.dtype, device=qkv.device)
+        args.append(_build.ptr(scratch))
     err = _entry("attention", entry + "_bf16", len(args))(
         *args, b, n, heads, 1.0 / math.sqrt(HEAD_DIM), _build.stream_ptr(qkv.device))
     _build.check(err, name)
@@ -415,7 +420,7 @@ def fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, heads: int, return_l
     _check_qkv(qkv, cos, sin, heads)
     _check_kmask(kmask, qkv.shape[0], qkv.shape[1], qkv.device)
     return _flat_fwd("f5_fused_qkv_rope_attn_bias", "fused_qkv_rope_attention_bias", qkv, cos,
-                     sin, kmask, heads, return_lse)
+                     sin, kmask, heads, return_lse, k_rot=True)
 
 
 # ---------------------------------------------------------------------------

@@ -1,32 +1,37 @@
-"""Time kernel K3 (the flat fused QKV + RoPE attention), K4 (its dQKV
-backward) or K8 (the key-masked dQKV backward) of this checkout against the
-same kernel built from another checkout, in turns on one card.
+"""Time hand-written attention kernels of this checkout against the same
+kernels built from another checkout, in turns on one card.
 
-    python -m f5tts_tpu_torch.scripts.kernel_ab --other PATH [--kernel K3|K4|K8]
+    python -m f5tts_tpu_torch.scripts.kernel_ab --other PATH [--kernel K3|K4|K5|K5_lse|K8|K9 ...]
         [--define NAME=VALUE ...] [--out FILE]
 
-Both checkouts' source (`f5tts_tpu_torch/csrc/attention.cu` for K3,
-`attention_bwd.cu` for K4 and K8) are compiled with the port's nvcc flags
-into a temporary directory (this checkout's with `-D` of each `--define`, so
-`--other .` compares two builds of one source) and loaded with ctypes. Each
-build's C entry is called with the signature its own source declares: the
-pointer parameters are matched by name (qkv, cos_t, sin_t, lengths / kmask,
-out, lse, dout, dqkv, k_rot, delta), the const ones shared by both builds,
-the others (outputs and scratch) one set a build. So a K4 / K8 entry that
-takes the forward's `out` and `lse` (the prologue, dk/dv and dq kernels) is
-timed whole against one that recomputes the statistics (its pair). `out` and
-`lse` come from this checkout's K3 / K5 lse mode.
+Kernels: K3 (the flat fused QKV + RoPE attention), K4 (its dQKV backward),
+K5 and K5_lse (the key-masked flat attention and its lse mode), K8 (the
+key-masked dQKV backward) and K9 (the head-layout backward from a saved
+lse); `--kernel` may be given several times. Both checkouts' source
+(`f5tts_tpu_torch/csrc/attention.cu` for K3 and K5, `attention_bwd.cu` for
+K4, K8 and K9) are compiled with the port's nvcc flags into a temporary
+directory (this checkout's with `-D` of each `--define`, so `--other .`
+compares two builds of one source) and loaded with ctypes. Each build's C
+entry is called with the signature its own source declares: the pointer
+parameters are matched by name (qkv, cos_t, sin_t, lengths / kmask, q, k, v,
+o / out, lse, dout, dqkv, dq, dk, dv, k_rot, delta), the const ones shared
+by both builds, the others (outputs and scratch) one set a build. So an
+entry that takes a scratch the other does not (K5's k_rot) is timed whole
+against it. The saved `out` / `o` and `lse` of the backwards come from this
+checkout's K3 / K5 / K7 lse mode.
 
 Shapes: chip_smoke's phase 2, b = 2, h = 16, d = 64: K3 at n = 1024 and K4 at
-n = 1024, 3072, 4096 with lengths [n, 777]; K8 at joint n = 1152, 3200, 4352
-(1024 / 3072 / 4096 audio + 128 / 128 / 256 text rows, K5's masks). At each
-shape the entries are timed by CUDA-graph replay (`common.time_ms`) in the
-order other, this, this, other. The two outputs must agree: K3 within
-chip_smoke's 2e-2, K4 and K8 within its backward tolerance (rel-L2 <= 1e-2,
-max-abs <= 2e-2 of the largest entry; the two designs may take delta at
-different rounding points). Whether they are bit equal is reported, and each
-build's `-Xptxas -v` lines for the kernel's `__global__` functions
-(registers, shared memory, spills). Needs a CUDA device.
+n = 1024, 3072, 4096 with lengths [n, 777]; K5, K5_lse and K8 at joint n =
+1152, 3200, 4352 (1024 / 3072 / 4096 audio + 128 / 128 / 256 text rows, K5's
+masks); K9 at n = 1024 and 4224, lengths [n, 777], dO nonzero on every row.
+At each shape the entries are timed by CUDA-graph replay (`common.time_ms`)
+in the order other, this, this, other. The two outputs must agree: the
+forwards' within chip_smoke's 2e-2 (their lse within 1e-3), the backwards'
+within its backward tolerance (rel-L2 <= 1e-2, max-abs <= 2e-2 of the
+largest entry; two designs may take delta at different rounding points).
+Whether they are bit equal is reported, and each build's `-Xptxas -v` lines
+for the kernel's `__global__` functions (registers, shared memory, spills).
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -49,13 +54,22 @@ from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
 from f5tts_tpu_torch.scripts.common import gpu_name_and_limit, time_ms
 
 THIS = Path(__file__).resolve().parents[2]
-# kernel: (source, C entry, a substring of each of its __global__ names, shapes)
+JOINT = ((1024, 128), (3072, 128), (4096, 256))
+# kernel: (source, C entry, a substring of each of its __global__ names, shapes,
+# the outputs compared)
 KERNELS = {
-    "K3": ("attention.cu", "f5_fused_qkv_rope_attn_bf16", "fused_qkv_rope_attn_kernel", (1024,)),
+    "K3": ("attention.cu", "f5_fused_qkv_rope_attn_bf16", "fused_qkv_rope_attn_kernel", (1024,),
+           ("out",)),
     "K4": ("attention_bwd.cu", "f5_fused_qkv_rope_attn_bwd_bf16", "attn_bwd_",
-           (1024, 3072, 4096)),
-    "K8": ("attention_bwd.cu", "f5_fused_qkv_rope_attn_bias_bwd_bf16", "attn_bias_bwd_",
-           ((1024, 128), (3072, 128), (4096, 256))),
+           (1024, 3072, 4096), ("dqkv",)),
+    "K5": ("attention.cu", "f5_fused_qkv_rope_attn_bias_bf16", "fused_qkv_rope_attn_bias",
+           JOINT, ("out",)),
+    "K5_lse": ("attention.cu", "f5_fused_qkv_rope_attn_bias_lse_bf16",
+               "fused_qkv_rope_attn_bias", JOINT, ("out", "lse")),
+    "K8": ("attention_bwd.cu", "f5_fused_qkv_rope_attn_bias_bwd_bf16", "attn_bias_bwd_", JOINT,
+           ("dqkv",)),
+    "K9": ("attention_bwd.cu", "f5_flash_attn_bwd_bf16", "flash_bwd_", (1024, 4224),
+           ("dq", "dk", "dv")),
 }
 H = 16
 
@@ -63,7 +77,7 @@ H = 16
 def load(kernel: str, checkout: Path, out_dir: Path, tag: str, defines=()):
     """(the kernel's C entry, its pointer parameters as (name, const), ptxas'
     resource lines for its __global__ functions) of `checkout`."""
-    src_name, entry_name, global_key, _ = KERNELS[kernel]
+    src_name, entry_name, global_key = KERNELS[kernel][:3]
     so = out_dir / f"{kernel}_{tag}.so"
     src = checkout / "f5tts_tpu_torch" / "csrc" / src_name
     sig = re.search(r'extern "C" int ' + entry_name + r"\(([^)]*)\)", src.read_text())
@@ -76,8 +90,11 @@ def load(kernel: str, checkout: Path, out_dir: Path, tag: str, defines=()):
     for line in (log.stdout + log.stderr).splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1] if "'" in line else line
-        elif "registers" in line and global_key in entry:
-            usage[entry] = line.split("ptxas info    :")[-1].strip()
+        elif ("registers" in line or "spill" in line) and global_key in entry:
+            usage[entry] = "; ".join(filter(None, (usage.get(entry),
+                                                   line.split("ptxas info    :")[-1].strip())))
+        elif "Performance" in line or "warning" in line:  # e.g. serialised wgmma
+            usage.setdefault("notes", []).append(line.strip())
     fn = getattr(ctypes.CDLL(str(so)), entry_name)
     fn.argtypes = [ctypes.c_void_p] * len(params) + [ctypes.c_int] * 3 + [ctypes.c_float,
                                                                           ctypes.c_void_p]
@@ -86,16 +103,26 @@ def load(kernel: str, checkout: Path, out_dir: Path, tag: str, defines=()):
 
 
 def inputs(kernel: str, shape, dev) -> tuple[dict, str]:
-    """The shared tensors by parameter name, and the shape's description."""
+    """The tensors by parameter name, and the shape's description."""
     rng = np.random.default_rng(0)
     b, hd = 2, H * 64
-    n = shape if kernel != "K8" else sum(shape)
 
     def bf16(*s):
         return torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, torch.bfloat16)
 
+    if kernel == "K9":
+        n = shape
+        t = {name: bf16(b, H, n, 64) for name in ("q", "k", "v", "dout")}
+        t["lengths"] = torch.tensor([n, 777], dtype=torch.int32, device=dev)
+        t["o"], t["lse"] = att.flash_attention_fwd(t["q"], t["k"], t["v"], t["lengths"],
+                                                   return_lse=True)
+        for name in ("dq", "dk", "dv"):
+            t[name] = torch.empty_like(t["q"])
+        t["delta"] = torch.empty((b, H, n), dtype=torch.float32, device=dev)
+        return t, f"b=2 h=16 d=64 n={n} lengths [{n}, 777], dO on every row"
+    n = shape if kernel in ("K3", "K4") else sum(shape)
     t = {"qkv": bf16(b, n, 3 * hd), "dout": bf16(b, n, hd)}
-    if kernel == "K8":
+    if kernel in ("K5", "K5_lse", "K8"):
         na, nt = shape
         kmask = torch.zeros(b, n, dtype=torch.bool, device=dev)
         kmask[0, :777 if na == 1024 else 3 * na // 4] = True
@@ -121,10 +148,58 @@ def inputs(kernel: str, shape, dev) -> tuple[dict, str]:
     return t, what
 
 
+def agreement(name: str, a: torch.Tensor, w: torch.Tensor) -> dict:
+    """How `a` (this build's output `name`) agrees with `w` (the other's)."""
+    a, w = a.float(), w.float()
+    diff, top = float((a - w).abs().max()), float(w.abs().max())
+    rel = float((a - w).norm() / w.norm())
+    if name in ("out", "lse"):  # a forward's output and row lse
+        agree = diff <= (1e-3 if name == "lse" else 2e-2)
+    else:
+        agree = rel <= 1e-2 and diff <= 2e-2 * top
+    return {"bit_equal": bool(torch.equal(a, w)), "max_abs_diff": diff, "rel_l2": rel,
+            "largest_entry": top, "agree": agree}
+
+
+def run_kernel(kernel: str, other: Path, defines, tmp: Path, dev) -> tuple[dict, bool]:
+    """Both builds of `kernel` in turns at each of its shapes."""
+    built = {"other": load(kernel, other, tmp, "other"),
+             "this": load(kernel, THIS, tmp, "this", defines)}
+    result = {"kernel": kernel, "ptxas_other": built["other"][2],
+              "ptxas_this": built["this"][2], "shapes": []}
+    ok = True
+    for shape in KERNELS[kernel][3]:
+        shared, what = inputs(kernel, shape, dev)
+        n = shared["lse"].shape[-1]
+        own = {tag: {name: shared[name].clone() for name, const in params if not const}
+               for tag, (_, params, _) in built.items()}
+
+        def call(tag):
+            fn, params, _ = built[tag]
+            ptrs = [own[tag][name] if not const else shared[name] for name, const in params]
+            err = fn(*(_build.ptr(t) for t in ptrs), 2, n, H, 1.0 / math.sqrt(64),
+                     _build.stream_ptr(dev))
+            _build.check(err, f"{kernel} ({tag})")
+
+        times = {"other": [], "this": []}
+        for tag in ("other", "this", "this", "other"):
+            times[tag].append(time_ms(lambda: call(tag), reps=20, iters=25))
+        torch.cuda.synchronize()
+        row = {"kernel": kernel, "shape": what, "ms_other": times["other"],
+               "ms_this": times["this"]}
+        for name in KERNELS[kernel][4]:
+            row[name] = agreement(name, own["this"][name], own["other"][name])
+            ok &= row[name]["agree"]
+        result["shapes"].append(row)
+        print(json.dumps(row), flush=True)
+    return result, ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, help="root of the other checkout")
-    ap.add_argument("--kernel", default="K3", choices=sorted(KERNELS))
+    ap.add_argument("--kernel", action="append", choices=sorted(KERNELS),
+                    help="a kernel to time (default K3); may be repeated")
     ap.add_argument("--define", action="append", default=[],
                     help="NAME=VALUE for this checkout's build (e.g. BW_WG=1)")
     ap.add_argument("--out", default=None, help="also write the JSON result here")
@@ -132,42 +207,15 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a CUDA device")
     dev = torch.device("cuda")
-    result = {"gpu": gpu_name_and_limit(), "kernel": args.kernel, "defines": args.define,
-              "shapes": []}
+    result = {"gpu": gpu_name_and_limit(), "defines": args.define, "kernels": []}
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
-        built = {"other": load(args.kernel, Path(args.other).resolve(), Path(tmp), "other"),
-                 "this": load(args.kernel, THIS, Path(tmp), "this", args.define)}
-        result["ptxas_other"], result["ptxas_this"] = built["other"][2], built["this"][2]
-        out_name = "out" if args.kernel == "K3" else "dqkv"
-        for shape in KERNELS[args.kernel][3]:
-            shared, what = inputs(args.kernel, shape, dev)
-            n = shared["qkv"].shape[1]
-            own = {tag: {name: shared[name].clone() for name, const in params if not const}
-                   for tag, (_, params, _) in built.items()}
-
-            def call(tag):
-                fn, params, _ = built[tag]
-                ptrs = [own[tag][name] if not const else shared[name] for name, const in params]
-                err = fn(*(_build.ptr(t) for t in ptrs), 2, n, H, 1.0 / math.sqrt(64),
-                         _build.stream_ptr(dev))
-                _build.check(err, f"{args.kernel} ({tag})")
-
-            times = {"other": [], "this": []}
-            for tag in ("other", "this", "this", "other"):
-                times[tag].append(time_ms(lambda: call(tag), reps=20, iters=25))
-            torch.cuda.synchronize()
-            a, w = own["this"][out_name].float(), own["other"][out_name].float()
-            diff, top = float((a - w).abs().max()), float(w.abs().max())
-            rel = float((a - w).norm() / w.norm())
-            agree = diff <= 2e-2 if args.kernel == "K3" else (rel <= 1e-2 and diff <= 2e-2 * top)
-            ok &= agree
-            row = {"shape": what, "ms_other": times["other"], "ms_this": times["this"],
-                   "bit_equal": bool(torch.equal(a, w)), "max_abs_diff": diff, "rel_l2": rel,
-                   "largest_entry": top, "agree": agree}
-            result["shapes"].append(row)
-            print(json.dumps(row), flush=True)
-    print(json.dumps({k: v for k, v in result.items() if k != "shapes"}))
+        for kernel in args.kernel or ["K3"]:
+            res, good = run_kernel(kernel, Path(args.other).resolve(), args.define, Path(tmp), dev)
+            result["kernels"].append(res)
+            ok &= good
+            print(json.dumps({k: v for k, v in res.items() if k != "shapes"}), flush=True)
+    print(json.dumps({"gpu": result["gpu"], "defines": args.define, "agree": ok}))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

@@ -37,7 +37,8 @@ FRAMES = {"F5TTS_v1_Base": (758, 1014, 4086), "F5TTS_Base": (1014, 4086),
 REPS = 3
 CLASSES = (
     ("fused_qkv_rope_attention", ("fused_qkv_rope_attn_kernel",)),
-    ("fused_qkv_rope_attention_bias", ("fused_qkv_rope_attn_bias_kernel",)),
+    ("fused_qkv_rope_attention_bias", ("fused_qkv_rope_attn_bias_kernel",
+                                       "fused_qkv_rope_attn_bias_krot_kernel")),
     ("masked_flash_attention", ("masked_flash_attn_kernel",)),  # before its substring
     ("flash_attention", ("flash_attn_kernel",)),
     ("adaln_norm", ("adaln_norm_kernel",)),

@@ -46,11 +46,13 @@ CLASSES = (
     ("attention_bwd K4", ("attn_bwd_prologue_kernel", "attn_bwd_dq_kernel",
                           "attn_bwd_dkdv_kernel")),
     ("attention_fwd K5", ("fused_qkv_rope_attn_bias_kernel",
-                          "fused_qkv_rope_attn_bias_lse_kernel")),
+                          "fused_qkv_rope_attn_bias_lse_kernel",
+                          "fused_qkv_rope_attn_bias_krot_kernel")),
     ("attention_bwd K8", ("attn_bias_bwd_prologue_kernel", "attn_bias_bwd_dq_kernel",
                           "attn_bias_bwd_dkdv_kernel")),
     ("attention_fwd K7 lse", ("flash_attn_lse_kernel",)),
-    ("attention_bwd K9", ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")),
+    ("attention_bwd K9", ("flash_bwd_delta_kernel", "flash_bwd_dq_kernel",
+                          "flash_bwd_dkdv_kernel")),
     ("adaln_norm K1", ("adaln_norm_kernel",)),
     ("rms_norm K6", ("rms_norm_kernel",)),
     ("conv_pos K2", ("conv_mish_kernel",)),

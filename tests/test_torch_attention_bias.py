@@ -5,7 +5,9 @@ replace, in interpret mode, on the CPU.
   `fused_qkv_rope_attention_bias` forced onto its Pallas kernel
   (`FORCE_BIAS_KERNEL`), both bodies (`FLAT_SINGLE_PASS_MAX_N` lowered to
   force the streaming one at a small n), and against the JAX
-  `_bias_decomposed_ref`, with dead keys in the middle of the sequence;
+  `_bias_decomposed_ref`, with dead keys in the middle of the sequence; at
+  a ragged n with two consecutive all-dead 64-key tiles against
+  `_bias_decomposed_ref`, its lse against the JAX scores' logsumexp;
 - K7 `mha_reference` (the `flash_attention` plain version) against the JAX
   `flash_attention` in both bodies (`SINGLE_PASS_MAX_N` set to 0 for the
   online-softmax loop), live rows;
@@ -76,6 +78,41 @@ def test_bias_attention_plain_matches_pallas(body, n, monkeypatch):
     # every row is computed (dead rows too, as the Pallas kernel does)
     np.testing.assert_allclose(got, pallas, atol=2e-5)
     np.testing.assert_allclose(got, xla, atol=2e-5)
+
+
+@pytest.mark.parametrize("n", [200, 1124])
+def test_bias_attention_plain_at_a_ragged_n_with_dead_tiles(n):
+    """K5's plain version (and its lse mode) at an n that is no multiple of
+    64, with two consecutive all-dead 64-key tiles in the middle of row 1 and
+    a dead tail in the last, partial tile of row 0, against the JAX
+    `_bias_decomposed_ref` (the JAX wrapper takes its Pallas body only at n %
+    128 == 0) and the logsumexp of the JAX scores."""
+    heads, d, b = 2, 64, 2
+    hd = heads * d
+    rng = np.random.default_rng(n + 24)
+    qkv = rng.standard_normal((b, n, 3 * hd)).astype(np.float32)
+    kmask = np.ones((b, n), bool)
+    kmask[1, 64:192] = False              # tiles 1 and 2 dead
+    kmask[0, n - n // 5:] = False         # a dead tail
+    kmask[0, n // 3: n // 3 + 7] = False  # and a few keys mid-tile
+    split = n - 100
+    ang = jrope.rope_freqs_interleaved(d, n)
+    ca, sa = jrope.rope_flat_tables(ang, split, heads, dtype=jnp.float32)
+    ct, st = jrope.rope_flat_tables(ang, n - split, heads, dtype=jnp.float32)
+    cos, sin = jnp.concatenate([ca, ct]), jnp.concatenate([sa, st])
+    want = np.asarray(jatt._bias_decomposed_ref(jnp.asarray(qkv), cos, sin, jnp.asarray(kmask),
+                                                heads))
+    got, lse = tatt.fused_qkv_rope_attention_bias_ref(_t(qkv), _t(np.asarray(cos)),
+                                                      _t(np.asarray(sin)), _t(kmask), heads,
+                                                      return_lse=True)
+    np.testing.assert_allclose(_np(got), want, atol=2e-5)
+    q, k, _v = jnp.split(jnp.asarray(qkv), 3, axis=-1)
+    qh, kh = (jrope.apply_rotary_flat_tables(t, cos, sin).reshape(b, n, heads, d)
+              .transpose(0, 2, 1, 3) for t in (q, k))
+    scores = jnp.einsum("bhqd,bhkd->bhqk", qh, kh) / np.sqrt(d)
+    scores = jnp.where(jnp.asarray(kmask)[:, None, None, :], scores, jatt.NEG_INF)
+    np.testing.assert_allclose(_np(lse), np.asarray(jax.nn.logsumexp(scores, axis=-1)),
+                               atol=1e-5, rtol=1e-5)
 
 
 def test_bias_attention_equals_prefix_attention_on_a_prefix_mask():

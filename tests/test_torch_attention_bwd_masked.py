@@ -12,7 +12,10 @@ they replace, in interpret mode, on the CPU.
   `_flash_bwd_dq_kernel` + `_flash_bwd_dkv_kernel` (reached by a one-shot
   `_pick_block` that returns a non-divisor: `_flash_backward` never reaches
   them otherwise) and `jax.vjp(flash_attention)`, with the cotangent zero on
-  rows >= length as the model's mask makes it;
+  rows >= length as the model's mask makes it; and against
+  `_flash_backward_fused` with the cotangent nonzero on every row, from K7's
+  plain lse mode (rows past the length inside the last live q tile carry a
+  gradient);
 - K5's lse mode: the plain forward's row lse against the logsumexp of the JAX
   scores on the same roped heads (tolerance 1e-5); K8's function from the
   saved lse, `fused_qkv_rope_attention_bias_bwd_from_lse_ref`, fed the plain
@@ -186,6 +189,31 @@ def test_flash_bwd_plain_matches_pallas(route, n, lengths, monkeypatch):
         np.testing.assert_allclose(_np(g), np.asarray(w), **TOL)
     tile_end = -(-lengths[1] // 64) * 64
     assert not _np(got[0])[1, :, tile_end:].any()  # dq of dead tiles
+    for g in got[1:]:  # dk, dv of dead keys
+        assert not _np(g)[1, :, lengths[1]:].any()
+
+
+@pytest.mark.parametrize("n,lengths", [(256, [256, 177]), (384, [384, 70])])
+def test_flash_bwd_plain_with_do_past_the_length_matches_pallas(n, lengths):
+    """K9's function when dO is nonzero on every row: rows past the length
+    inside the last live 64-row q tile have a real lse (K7 computes them, as
+    Pallas does), so their dO carries a gradient. The plain version against
+    `_flash_backward_fused` on the same saved residuals: K7's plain lse mode
+    (those rows real, the q tiles past them -1e30)."""
+    rng = np.random.default_rng(n + 9)
+    q, k, v, do = (rng.standard_normal((2, 2, n, 64)).astype(np.float32) for _ in range(4))
+    lens = np.array(lengths, np.int32)
+    o, lse = tatt.flash_attention_fwd_ref(_t(q), _t(k), _t(v), _t(lens), return_lse=True)
+    lse_lanes = jnp.broadcast_to(jnp.asarray(_np(lse))[..., None], (*lse.shape, jatt.LSE_LANES))
+    want = jatt._flash_backward_fused(*(jnp.asarray(t) for t in (q, k, v, lens)),
+                                      jnp.asarray(_np(o)), lse_lanes, jnp.asarray(do))
+    got = tatt.flash_attention_bwd_ref(_t(q), _t(k), _t(v), _t(lens), o, lse, _t(do))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), np.asarray(w), **TOL)
+    tile_end = -(-lengths[1] // 64) * 64
+    dq = _np(got[0])[1]
+    assert dq[:, lengths[1]:tile_end].any()  # those rows' dq
+    assert not dq[:, tile_end:].any()  # dq of the dead tiles
     for g in got[1:]:  # dk, dv of dead keys
         assert not _np(g)[1, :, lengths[1]:].any()
 

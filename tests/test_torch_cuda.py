@@ -268,6 +268,29 @@ def test_bias_attention_bwd_kernel(dev, n):
     assert not got[:, :, 1024:][~kmask].any()
 
 
+@pytest.mark.parametrize("n", [200, 1124])
+def test_bias_attention_kernel_ragged_with_dead_tiles(dev, n):
+    """K5 and its lse mode at an n that is no multiple of 64, with two
+    consecutive all-dead 64-key tiles mid-row (row 1) and a dead tail in the
+    partial last tile (row 0): every row against the plain version, the lse
+    within 1e-3."""
+    rng = np.random.default_rng(n + 11)
+    qkv = _bf16(rng, (2, n, 3 * 1024), dev)
+    cos, sin = rope_flat_tables(rope_freqs_interleaved(64, n).to(dev), n, 16)
+    kmask = torch.ones(2, n, dtype=torch.bool, device=dev)
+    kmask[1, 64:192] = False
+    kmask[0, n - n // 5:] = False
+    _build.reset_launches()
+    out = fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, 16)
+    out_lse, lse = fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, 16, return_lse=True)
+    assert _build.launches() == {"fused_qkv_rope_attention_bias": 1,
+                                 "fused_qkv_rope_attention_bias_lse": 1}
+    ref, ref_lse = fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, 16, return_lse=True)
+    assert torch.equal(out, out_lse)
+    assert _live_max(out, ref, torch.full((2,), n, device=dev)) <= 2e-2
+    assert float((lse - ref_lse).abs().max()) <= 1e-3
+
+
 def test_bias_attention_autograd_launches_k8(dev):
     rng = np.random.default_rng(5)
     qkv, cos, sin, kmask = _bias_case(rng, 256, dev)
@@ -315,6 +338,26 @@ def test_flash_attention_bwd_kernel(dev, n, length):
     want = flash_attention_bwd_ref(q, k, v, lengths, o, lse, dout)
     for g, w in zip(got, want):
         _close(g, w)
+        assert not g[1, :, length:].any()
+
+
+@pytest.mark.parametrize("n,length", [(200, 77), (1024, 777)])
+def test_flash_attention_bwd_kernel_do_past_the_length(dev, n, length):
+    """K9 with dO nonzero on every row: the rows past the length inside the
+    last live q tile carry a gradient. All rows against the plain version;
+    dq of the dead q tiles and dk, dv of the dead keys exactly 0."""
+    rng = np.random.default_rng(n + 12)
+    q, k, v, dout = (_bf16(rng, (2, 16, n, 64), dev) for _ in range(4))
+    lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)
+    o, lse = flash_attention_fwd(q, k, v, lengths, return_lse=True)
+    got = flash_attention_bwd(q, k, v, lengths, o, lse, dout)
+    want = flash_attention_bwd_ref(q, k, v, lengths, o, lse, dout)
+    for g, w in zip(got, want):
+        _close(g, w)
+    tile_end = -(-length // 64) * 64
+    assert got[0][1, :, length:tile_end].any()
+    assert not got[0][1, :, tile_end:].any()
+    for g in got[1:]:
         assert not g[1, :, length:].any()
 
 
