@@ -9,9 +9,11 @@ Phases (any failure raises, and the script exits non-zero):
    paths' shapes, with seeded inputs: max-abs error over live rows against
    a stated tolerance, median time from CUDA-graph replays, the bound, the
    plain version's time and, for attention, F.scaled_dot_product_attention's
-   time as a yardstick (the port never calls it). K3's lse mode (the
-   training forward) at K3's shapes: its output equal to K3's, its lse within
-   1e-3 of the plain version's on live q tiles and exactly -1e30 past them.
+   time as a yardstick (the port never calls it; for the lse modes of K3,
+   K5 and K7, PyTorch's memory-efficient attention with
+   compute_log_sumexp=True). K3's lse mode (the training forward) at K3's
+   shapes: its output equal to K3's, its lse within 1e-3 of the plain
+   version's on live q tiles and exactly -1e30 past them.
    The attention backward K4 (b = 2, h = 16, lengths [n, 777], n = 1024,
    3072, 4096) from K3's saved output and lse: dQKV rel-L2 and max-abs over
    live rows against both plain versions (the from-lse one it computes, then
@@ -397,6 +399,23 @@ def sdpa_bwd_ms(qh, kh, vh, dout, kmask) -> tuple[float, float]:
     return time_ms(fwd_bwd) - fwd, fwd
 
 
+def sdpa_lse_ms(qh, kh, vh, kmask) -> float:
+    """ms of one call of PyTorch's memory-efficient attention that also
+    returns the row log-sum-exp (`compute_log_sumexp=True`) on pre-roped [b,
+    h, n, d], the [b, n] key mask as an additive 0 / -1e30 bias (its batch
+    stride padded to 16 elements, as SDPA pads it): the library time of an
+    lse mode."""
+    import torch
+    from f5tts_tpu_torch.ops.attention import NEG_INF
+
+    b, h, n, _ = qh.shape
+    bias = torch.full((b, 1, 1, -(-n // 16) * 16), NEG_INF, dtype=qh.dtype, device=qh.device)
+    bias[..., :n] = torch.where(kmask, 0.0, NEG_INF)[:, None, None, :]
+    bias = bias[..., :n].expand(b, h, n, n)
+    fn = torch.ops.aten._scaled_dot_product_efficient_attention
+    return time_ms(lambda: fn(qh, kh, vh, bias, True))
+
+
 def bwd_errors(got, want) -> tuple[float, float, float]:
     """(rel-L2, max-abs error, largest entry of want) of a backward."""
     a, w = got.float(), want.float()
@@ -426,7 +445,7 @@ def flat_lse_row(name: str, n: int, live_rows, out, lse, ref, ref_lse, tile_end:
     torch.cuda.synchronize()
     log(f"  {name} b=2 h=16 d=64 {what}: max_abs_err {err:.3e} (tol {TOL[name]}), lse max err "
         f"{lse_err:.3e} (tol {LSE_TOL}), dead tiles -1e30: {dead_ok}, {ms:.4f} ms, bound "
-        f"{bound:.4f} ms (operations), plain {plain_ms:.4f} ms, sdpa fwd (no lse out) {lib:.4f} ms")
+        f"{bound:.4f} ms (operations), plain {plain_ms:.4f} ms, sdpa efficient with lse {lib:.4f} ms")
     if not (dead_ok and lse_err <= LSE_TOL):
         raise AssertionError(f"{name} at n={n}: lse err {lse_err}, dead tiles {dead_ok}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -437,7 +456,6 @@ def check_attention_lse(rng, dev) -> dict:
     """K3's lse mode (the training forward) at K3's shapes: its output equal
     to K3's, its lse against the plain version's on the same bf16 inputs."""
     import torch
-    import torch.nn.functional as F
     from f5tts_tpu_torch.ops.attention import (fused_qkv_rope_attention,
                                                fused_qkv_rope_attention_fwd,
                                                fused_qkv_rope_attention_ref)
@@ -455,9 +473,7 @@ def check_attention_lse(rng, dev) -> dict:
         if not torch.equal(out, fused_qkv_rope_attention(qkv, cos, sin, lengths, h)):
             raise AssertionError("fused_qkv_rope_attention_lse: output differs from K3's")
         live = torch.arange(n, device=dev)[None, :] < lengths[:, None]
-        qh, kh, vh = flat_to_heads(qkv, cos, sin, h)
-        mask4 = live[:, None, None, :]
-        lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask4))
+        lib = sdpa_lse_ms(*flat_to_heads(qkv, cos, sin, h), live)
         sq = sum(int(v) ** 2 for v in lengths.tolist())
         nbytes = (b * n * 3 * hd + 2 * n * hd + b * n * hd) * 2 + b * h * n * 4
         out_row = merge_rows(out_row, flat_lse_row(
@@ -645,7 +661,6 @@ def check_flash_lse(rng, dev) -> dict:
     """K7's lse mode: the output as K7's, the lse on live q tiles within
     LSE_TOL of the plain version's, exactly -1e30 on the tiles past the length."""
     import torch
-    import torch.nn.functional as F
     from f5tts_tpu_torch.ops.attention import NEG_INF, flash_attention_fwd, flash_attention_fwd_ref
 
     b, h, d = 2, 16, 64
@@ -671,12 +686,11 @@ def check_flash_lse(rng, dev) -> dict:
         ms = time_ms(lambda: flash_attention_fwd(q, k, v, lengths, return_lse=True))
         plain = time_ms(lambda: flash_attention_fwd_ref(q, k, v, lengths, return_lse=True),
                         reps=1, iters=5)
-        kmask = (torch.arange(n, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
-        lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=kmask))
+        lib = sdpa_lse_ms(q, k, v, torch.arange(n, device=dev)[None, :] < lengths[:, None])
         log(f"  flash_attention_lse b=2 h=16 d=64 n={n} lengths [{n}, 777]: max_abs_err {err:.3e} "
             f"(tol {TOL['flash_attention_lse']}), lse max err {lse_err:.3e} (tol {LSE_TOL}) on live "
             f"tiles, dead tiles -1e30 and 0: {dead_ok}, {ms:.4f} ms, bound {bound:.4f} ms "
-            f"(operations), plain {plain:.4f} ms, sdpa fwd (no lse out) {lib:.4f} ms")
+            f"(operations), plain {plain:.4f} ms, sdpa efficient with lse {lib:.4f} ms")
         if not (dead_ok and lse_err <= LSE_TOL):
             raise AssertionError(f"flash_attention_lse at n={n}: lse err {lse_err}, dead tiles "
                                  f"{dead_ok}")
@@ -725,7 +739,6 @@ def check_attention_bias_lse(rng, dev) -> dict:
     """K5's lse mode at K5's joint shapes and masks: its output equal to K5's,
     its lse (every row) against the plain version's on the same inputs."""
     import torch
-    import torch.nn.functional as F
     from f5tts_tpu_torch.ops.attention import (fused_qkv_rope_attention_bias,
                                                fused_qkv_rope_attention_bias_fwd,
                                                fused_qkv_rope_attention_bias_ref)
@@ -740,9 +753,7 @@ def check_attention_bias_lse(rng, dev) -> dict:
         ref, ref_lse = fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, h, return_lse=True)
         if not torch.equal(out, fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, h)):
             raise AssertionError("fused_qkv_rope_attention_bias_lse: output differs from K5's")
-        qh, kh, vh = flat_to_heads(qkv, cos, sin, h)
-        mask4 = kmask[:, None, None, :]
-        lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask4))
+        lib = sdpa_lse_ms(*flat_to_heads(qkv, cos, sin, h), kmask)
         live_keys = [int(v) for v in kmask.sum(dim=1).tolist()]
         nbytes = (b * n * 3 * hd + 2 * n * hd + b * n * hd) * 2 + b * n + b * h * n * 4
         out_row = merge_rows(out_row, flat_lse_row(

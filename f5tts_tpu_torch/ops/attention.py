@@ -6,7 +6,8 @@
 tables, scales q by 1/sqrt(d), takes the softmax over keys < lengths[b] and
 writes flat [b, n, h*d] with rows >= lengths[b] zeroed. For CUDA tensors it
 launches the hand-written kernel K3 (csrc/attention.cu, replacing the Pallas
-`_fused_qkv_attn_kernel` and `_fused_qkv_attn_kernel_stream`); CPU tensors
+`_fused_qkv_attn_kernel` and `_fused_qkv_attn_kernel_stream`: a k-RoPE
+prologue and the FLAT + LENGTH mode of the wgmma forward core); CPU tensors
 go to the plain version `fused_qkv_rope_attention_ref`. `mha_reference` is
 the plain [b, h, n, d] oracle.
 
@@ -26,8 +27,9 @@ every backward reads dO as 0 on those rows.
 `fused_qkv_rope_attention_bias` is the same flat attention under an arbitrary
 [b, n] key mask (MMDiT's joint audio+text sequence, whose dead keys sit in
 the middle): kernel K5 (the Pallas `_fused_qkv_attn_bias_kernel` and its
-streaming twin), plain version `fused_qkv_rope_attention_bias_ref` (the
-function of the JAX `_bias_decomposed_ref`, at the kernel's rounding points).
+streaming twin; the core's FLAT + KMASK mode), plain version
+`fused_qkv_rope_attention_bias_ref` (the function of the JAX
+`_bias_decomposed_ref`, at the kernel's rounding points).
 Every row is computed; the caller masks dead rows after to_out. Under grad it
 saves its lse too, and its backward is kernel K8 (K4 in its key-mask mode,
 replacing `_fused_bias_bwd_kernel` and the bias-row branch of
@@ -48,7 +50,8 @@ runs K7's lse mode (the row log-sum-exp saved, as the Pallas forward's
 `masked_flash_attention` is head-layout attention [b, h, n, d] under an
 arbitrary [b, n] key mask on already-normed and roped q/k (MMDiT joint
 attention with qk-norm or unfused projections): kernel K11 (csrc/attention.cu,
-replacing the Pallas `_flash_kernel_bias`), plain version
+replacing the Pallas `_flash_kernel_bias`; the core's HEAD + KMASK mode),
+plain version
 `mha_reference_masked` (the JAX function of that name). Every row is
 computed. It is differentiable through the plain formula's VJP, as the JAX
 custom_vjp (`_masked_bwd`) is: the JAX package has no backward kernel here.
@@ -71,7 +74,7 @@ NEG_INF = -1e30
 # wholly past the length), as the Pallas backward tests lse > NEG_INF / 2
 DEAD_LSE = NEG_INF / 2
 HEAD_DIM = 64  # the kernels' head width
-Q_TILE = 64    # K7's q tile: tiles wholly past the length are dead
+Q_TILE = 64    # K3's and K7's q tile: tiles wholly past the length are dead
 # the longest sequence the JAX package sends through its flat kernels; past
 # it `self_attention` splits heads for K7, as the JAX gate does
 FLAT_ATTN_MAX_N = 4096
@@ -320,9 +323,10 @@ class _FusedQKVRopeAttention(torch.autograd.Function):
 
 
 def fused_qkv_rope_attention(qkv, cos, sin, lengths, heads: int) -> torch.Tensor:
-    """qkv [b, n, 3*h*d], cos/sin [>=n, h*d], lengths [b] int32 -> [b, n, h*d].
-    Kernel K3 on CUDA, plain on the CPU; differentiable in qkv (K3's lse mode
-    and K4 on CUDA)."""
+    """qkv [b, n, 3*h*d], cos/sin [>=n, h*d], lengths [b] int32 -> [b, n, h*d]
+    over keys < lengths[b], rows >= lengths[b] zero. Kernel K3 on CUDA (a
+    k-RoPE prologue and the wgmma core's FLAT + LENGTH mode), plain on the
+    CPU; differentiable in qkv (K3's lse mode and K4 on CUDA)."""
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _FusedQKVRopeAttention.apply(qkv, cos, sin, lengths, heads)
     return fused_qkv_rope_attention_fwd(qkv, cos, sin, lengths, heads)
@@ -338,11 +342,11 @@ def fused_qkv_rope_attention_fwd(qkv, cos, sin, lengths, heads: int, return_lse:
                      lengths, heads, return_lse)
 
 
-def _flat_fwd(entry: str, name: str, qkv, cos, sin, mask, heads: int, return_lse: bool,
-              k_rot: bool = False):
-    """Launch K3 (`mask` = lengths) or K5 (`mask` = kmask, `k_rot`: with its
-    roped-k scratch [b, h, n, d], freed after the call), in the lse mode
-    (entry `<entry>_lse_bf16`, count `<name>_lse`) with `return_lse`."""
+def _flat_fwd(entry: str, name: str, qkv, cos, sin, mask, heads: int, return_lse: bool):
+    """Launch K3 (`mask` = lengths) or K5 (`mask` = kmask) with their
+    roped-k scratch [b, h, n, d] (the prologue's output, freed after the
+    call), in the lse mode (entry `<entry>_lse_bf16`, count `<name>_lse`)
+    with `return_lse`."""
     b, n, hd3 = qkv.shape
     out = torch.empty((b, n, hd3 // 3), dtype=qkv.dtype, device=qkv.device)
     args = [_build.ptr(qkv), _build.ptr(cos), _build.ptr(sin), _build.ptr(mask), _build.ptr(out)]
@@ -350,9 +354,8 @@ def _flat_fwd(entry: str, name: str, qkv, cos, sin, mask, heads: int, return_lse
         lse = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
         args.append(_build.ptr(lse))
         entry, name = entry + "_lse", name + "_lse"
-    if k_rot:
-        scratch = torch.empty((b, heads, n, HEAD_DIM), dtype=qkv.dtype, device=qkv.device)
-        args.append(_build.ptr(scratch))
+    k_rot = torch.empty((b, heads, n, HEAD_DIM), dtype=qkv.dtype, device=qkv.device)
+    args.append(_build.ptr(k_rot))
     err = _entry("attention", entry + "_bf16", len(args))(
         *args, b, n, heads, 1.0 / math.sqrt(HEAD_DIM), _build.stream_ptr(qkv.device))
     _build.check(err, name)
@@ -420,7 +423,7 @@ def fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, heads: int, return_l
     _check_qkv(qkv, cos, sin, heads)
     _check_kmask(kmask, qkv.shape[0], qkv.shape[1], qkv.device)
     return _flat_fwd("f5_fused_qkv_rope_attn_bias", "fused_qkv_rope_attention_bias", qkv, cos,
-                     sin, kmask, heads, return_lse, k_rot=True)
+                     sin, kmask, heads, return_lse)
 
 
 # ---------------------------------------------------------------------------
@@ -599,9 +602,11 @@ class _MaskedFlashAttention(torch.autograd.Function):
 
 
 def masked_flash_attention(q, k, v, kmask) -> torch.Tensor:
-    """q/k/v [b, h, n, d] (already roped), kmask [b, n] bool (True = live
-    key) -> [b, h, n, d], every row computed. Kernel K11 on CUDA,
-    `mha_reference_masked` on the CPU; differentiable in q, k and v."""
+    """q/k/v [b, h, n, d] (already normed and roped), kmask [b, n] bool (True
+    = live key) -> [b, h, n, d], every row computed (a batch row with no live
+    key: zeros). Kernel K11 on CUDA (the wgmma core's HEAD + KMASK mode, one
+    launch), `mha_reference_masked` on the CPU; differentiable in q, k and v
+    (the plain formula's VJP)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _MaskedFlashAttention.apply(q, k, v, kmask)
     return _masked_forward(q, k, v, kmask)

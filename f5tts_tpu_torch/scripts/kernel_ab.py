@@ -1,36 +1,43 @@
 """Time hand-written attention kernels of this checkout against the same
 kernels built from another checkout, in turns on one card.
 
-    python -m f5tts_tpu_torch.scripts.kernel_ab --other PATH [--kernel K3|K4|K5|K5_lse|K8|K9 ...]
-        [--define NAME=VALUE ...] [--out FILE]
+    python -m f5tts_tpu_torch.scripts.kernel_ab --other PATH
+        [--kernel K3|K3_lse|K4|K5|K5_lse|K7|K7_lse|K8|K9|K11 ...] [--define NAME=VALUE ...]
+        [--out FILE]
 
-Kernels: K3 (the flat fused QKV + RoPE attention), K4 (its dQKV backward),
-K5 and K5_lse (the key-masked flat attention and its lse mode), K8 (the
-key-masked dQKV backward) and K9 (the head-layout backward from a saved
-lse); `--kernel` may be given several times. Both checkouts' source
-(`f5tts_tpu_torch/csrc/attention.cu` for K3 and K5, `attention_bwd.cu` for
-K4, K8 and K9) are compiled with the port's nvcc flags into a temporary
-directory (this checkout's with `-D` of each `--define`, so `--other .`
-compares two builds of one source) and loaded with ctypes. Each build's C
-entry is called with the signature its own source declares: the pointer
-parameters are matched by name (qkv, cos_t, sin_t, lengths / kmask, q, k, v,
-o / out, lse, dout, dqkv, dq, dk, dv, k_rot, delta), the const ones shared
-by both builds, the others (outputs and scratch) one set a build. So an
-entry that takes a scratch the other does not (K5's k_rot) is timed whole
-against it. The saved `out` / `o` and `lse` of the backwards come from this
-checkout's K3 / K5 / K7 lse mode.
+Kernels: K3 and K3_lse (the flat fused QKV + RoPE attention over keys <
+length, and its lse mode), K4 (its dQKV backward), K5 and K5_lse (the
+key-masked flat attention and its lse mode), K8 (the key-masked dQKV
+backward), K7 and K7_lse (the head-layout attention over keys < length,
+and its lse mode), K9 (the head-layout backward from a saved lse) and K11
+(the key-masked head-layout attention); `--kernel` may be given several
+times. Both checkouts' source (`f5tts_tpu_torch/csrc/attention.cu` for K3,
+K5, K7 and K11, `attention_bwd.cu` for K4, K8 and K9) are compiled with the
+port's nvcc flags into a temporary directory (this checkout's with `-D` of
+each `--define`, so `--other .` compares two builds of one source) and
+loaded with ctypes. Each build's C entry is called with the signature its
+own source declares: the pointer parameters are matched by name (qkv,
+cos_t, sin_t, lengths / kmask, q, k, v, o / out, lse, dout, dqkv, dq, dk,
+dv, k_rot, delta), the const ones shared by both builds, the others
+(outputs and scratch) one set a build. So an entry that takes a scratch the
+other does not (the k_rot of K3 and K5, which older sources lack) is timed
+whole against it. The saved `out` / `o` and `lse` of the backwards come
+from this checkout's K3 / K5 / K7 lse mode.
 
-Shapes: chip_smoke's phase 2, b = 2, h = 16, d = 64: K3 at n = 1024 and K4 at
-n = 1024, 3072, 4096 with lengths [n, 777]; K5, K5_lse and K8 at joint n =
-1152, 3200, 4352 (1024 / 3072 / 4096 audio + 128 / 128 / 256 text rows, K5's
-masks); K9 at n = 1024 and 4224, lengths [n, 777], dO nonzero on every row.
+Shapes: chip_smoke's phase 2, b = 2, h = 16, d = 64: K3 and K3_lse at n =
+1024, 3200, 4096 and K4 at n = 1024, 3072, 4096 with lengths [n, 777]; K5,
+K5_lse and K8 at joint n = 1152, 3200, 4352 (1024 / 3072 / 4096 audio + 128 /
+128 / 256 text rows, K5's masks); K7, K7_lse and K9 at n = 1024 and 4224,
+lengths [n, 777], K9's dO nonzero on every row; K11 on head-layout q, k, v
+at joint n = 1152 and 4352 with K5's masks.
 At each shape the entries are timed by CUDA-graph replay (`common.time_ms`)
 in the order other, this, this, other. The two outputs must agree: the
 forwards' within chip_smoke's 2e-2 (their lse within 1e-3), the backwards'
 within its backward tolerance (rel-L2 <= 1e-2, max-abs <= 2e-2 of the
 largest entry; two designs may take delta at different rounding points).
 Whether they are bit equal is reported, and each build's `-Xptxas -v` lines
-for the kernel's `__global__` functions (registers, shared memory, spills).
+for the kernel's `__global__` functions (registers, shared memory, spills)
+and the source's ptxas notes (such as C7520, serialised wgmma).
 Needs a CUDA device.
 """
 
@@ -55,11 +62,15 @@ from f5tts_tpu_torch.scripts.common import gpu_name_and_limit, time_ms
 
 THIS = Path(__file__).resolve().parents[2]
 JOINT = ((1024, 128), (3072, 128), (4096, 256))
-# kernel: (source, C entry, a substring of each of its __global__ names, shapes,
-# the outputs compared)
+K3_GLOBALS = r"fused_qkv_rope_attn_(kernel|lse_kernel|krot_kernel)"
+K7_GLOBALS = r"_Z\d+flash_attn_(lse_)?kernel"  # not masked_flash_attn_kernel
+# kernel: (source, C entry, a pattern found in each of its __global__ names,
+# shapes, the outputs compared)
 KERNELS = {
-    "K3": ("attention.cu", "f5_fused_qkv_rope_attn_bf16", "fused_qkv_rope_attn_kernel", (1024,),
+    "K3": ("attention.cu", "f5_fused_qkv_rope_attn_bf16", K3_GLOBALS, (1024, 3200, 4096),
            ("out",)),
+    "K3_lse": ("attention.cu", "f5_fused_qkv_rope_attn_lse_bf16", K3_GLOBALS, (1024, 3200, 4096),
+               ("out", "lse")),
     "K4": ("attention_bwd.cu", "f5_fused_qkv_rope_attn_bwd_bf16", "attn_bwd_",
            (1024, 3072, 4096), ("dqkv",)),
     "K5": ("attention.cu", "f5_fused_qkv_rope_attn_bias_bf16", "fused_qkv_rope_attn_bias",
@@ -68,8 +79,13 @@ KERNELS = {
                "fused_qkv_rope_attn_bias", JOINT, ("out", "lse")),
     "K8": ("attention_bwd.cu", "f5_fused_qkv_rope_attn_bias_bwd_bf16", "attn_bias_bwd_", JOINT,
            ("dqkv",)),
+    "K7": ("attention.cu", "f5_flash_attn_bf16", K7_GLOBALS, (1024, 4224), ("out",)),
+    "K7_lse": ("attention.cu", "f5_flash_attn_lse_bf16", K7_GLOBALS, (1024, 4224),
+               ("out", "lse")),
     "K9": ("attention_bwd.cu", "f5_flash_attn_bwd_bf16", "flash_bwd_", (1024, 4224),
            ("dq", "dk", "dv")),
+    "K11": ("attention.cu", "f5_masked_flash_attn_bf16", "masked_flash_attn_kernel",
+            JOINT[::2], ("out",)),
 }
 H = 16
 
@@ -90,7 +106,7 @@ def load(kernel: str, checkout: Path, out_dir: Path, tag: str, defines=()):
     for line in (log.stdout + log.stderr).splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1] if "'" in line else line
-        elif ("registers" in line or "spill" in line) and global_key in entry:
+        elif ("registers" in line or "spill" in line) and re.search(global_key, entry):
             usage[entry] = "; ".join(filter(None, (usage.get(entry),
                                                    line.split("ptxas info    :")[-1].strip())))
         elif "Performance" in line or "warning" in line:  # e.g. serialised wgmma
@@ -102,33 +118,52 @@ def load(kernel: str, checkout: Path, out_dir: Path, tag: str, defines=()):
     return fn, params, usage
 
 
-def inputs(kernel: str, shape, dev) -> tuple[dict, str]:
-    """The tensors by parameter name, and the shape's description."""
+def joint_kmask(na: int, n: int, dev) -> torch.Tensor:
+    """K5's phase-2 key mask at joint n = na audio + text rows: row 0's audio
+    live to 777 of 1024 (3/4 of longer buckets) and 100 text keys, row 1's
+    audio all live and 120 text keys."""
+    kmask = torch.zeros(2, n, dtype=torch.bool, device=dev)
+    kmask[0, :777 if na == 1024 else 3 * na // 4] = True
+    kmask[0, na:na + 100] = True
+    kmask[1, :na] = True
+    kmask[1, na:na + 120] = True
+    return kmask
+
+
+def inputs(kernel: str, shape, dev) -> tuple[dict, str, int]:
+    """The tensors by parameter name, the shape's description and n."""
     rng = np.random.default_rng(0)
     b, hd = 2, H * 64
 
     def bf16(*s):
         return torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, torch.bfloat16)
 
-    if kernel == "K9":
+    if kernel in ("K7", "K7_lse", "K9"):
         n = shape
         t = {name: bf16(b, H, n, 64) for name in ("q", "k", "v", "dout")}
         t["lengths"] = torch.tensor([n, 777], dtype=torch.int32, device=dev)
+        if kernel != "K9":
+            t["out"] = torch.empty_like(t["q"])
+            t["lse"] = torch.empty((b, H, n), dtype=torch.float32, device=dev)
+            return t, f"b=2 h=16 d=64 n={n} lengths [{n}, 777], head layout", n
         t["o"], t["lse"] = att.flash_attention_fwd(t["q"], t["k"], t["v"], t["lengths"],
                                                    return_lse=True)
         for name in ("dq", "dk", "dv"):
             t[name] = torch.empty_like(t["q"])
         t["delta"] = torch.empty((b, H, n), dtype=torch.float32, device=dev)
-        return t, f"b=2 h=16 d=64 n={n} lengths [{n}, 777], dO on every row"
-    n = shape if kernel in ("K3", "K4") else sum(shape)
+        return t, f"b=2 h=16 d=64 n={n} lengths [{n}, 777], dO on every row", n
+    if kernel == "K11":
+        na, nt = shape
+        n = na + nt
+        t = {name: bf16(b, H, n, 64) for name in ("q", "k", "v")}
+        t["kmask"] = joint_kmask(na, n, dev)
+        t["out"] = torch.empty_like(t["q"])
+        return t, f"b=2 h=16 d=64 joint n={n} ({na} audio + {nt} text), head layout", n
+    n = shape if kernel in ("K3", "K3_lse", "K4") else sum(shape)
     t = {"qkv": bf16(b, n, 3 * hd), "dout": bf16(b, n, hd)}
     if kernel in ("K5", "K5_lse", "K8"):
         na, nt = shape
-        kmask = torch.zeros(b, n, dtype=torch.bool, device=dev)
-        kmask[0, :777 if na == 1024 else 3 * na // 4] = True
-        kmask[0, na:na + 100] = True
-        kmask[1, :na] = True
-        kmask[1, na:na + 120] = True
+        kmask = joint_kmask(na, n, dev)
         ang = rope_freqs_interleaved(64, na).to(dev)
         (ca, sa), (ct, st) = (rope_flat_tables(ang, m, H) for m in (na, nt))
         t["cos_t"], t["sin_t"] = torch.cat([ca, ct]).contiguous(), torch.cat([sa, st]).contiguous()
@@ -145,7 +180,7 @@ def inputs(kernel: str, shape, dev) -> tuple[dict, str]:
     t["dqkv"] = torch.empty_like(t["qkv"])
     t["k_rot"] = torch.empty((b, H, n, 64), dtype=torch.bfloat16, device=dev)
     t["delta"] = torch.empty((b, H, n), dtype=torch.float32, device=dev)
-    return t, what
+    return t, what, n
 
 
 def agreement(name: str, a: torch.Tensor, w: torch.Tensor) -> dict:
@@ -169,8 +204,7 @@ def run_kernel(kernel: str, other: Path, defines, tmp: Path, dev) -> tuple[dict,
               "ptxas_this": built["this"][2], "shapes": []}
     ok = True
     for shape in KERNELS[kernel][3]:
-        shared, what = inputs(kernel, shape, dev)
-        n = shared["lse"].shape[-1]
+        shared, what, n = inputs(kernel, shape, dev)
         own = {tag: {name: shared[name].clone() for name, const in params if not const}
                for tag, (_, params, _) in built.items()}
 

@@ -36,7 +36,8 @@ FRAMES = {"F5TTS_v1_Base": (758, 1014, 4086), "F5TTS_Base": (1014, 4086),
           "E2TTS_Base": (1013, 4096), "E2TTS_Small": (1013, 4096), "MMDiT_Base": (1014, 4086)}
 REPS = 3
 CLASSES = (
-    ("fused_qkv_rope_attention", ("fused_qkv_rope_attn_kernel",)),
+    ("fused_qkv_rope_attention", ("fused_qkv_rope_attn_kernel",
+                                  "fused_qkv_rope_attn_krot_kernel")),
     ("fused_qkv_rope_attention_bias", ("fused_qkv_rope_attn_bias_kernel",
                                        "fused_qkv_rope_attn_bias_krot_kernel")),
     ("masked_flash_attention", ("masked_flash_attn_kernel",)),  # before its substring

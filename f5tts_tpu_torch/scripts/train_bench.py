@@ -42,7 +42,8 @@ import torch
 CELLS = {"F5TTS_v1_Base": "16x1024,4x3072,37x1024", "E2TTS_Base": "16x1024,4x4096,37x1024",
          "MMDiT_Base": "16x1024,4x3072,37x1024"}
 CLASSES = (
-    ("attention_fwd K3", ("fused_qkv_rope_attn_kernel", "fused_qkv_rope_attn_lse_kernel")),
+    ("attention_fwd K3", ("fused_qkv_rope_attn_kernel", "fused_qkv_rope_attn_lse_kernel",
+                          "fused_qkv_rope_attn_krot_kernel")),
     ("attention_bwd K4", ("attn_bwd_prologue_kernel", "attn_bwd_dq_kernel",
                           "attn_bwd_dkdv_kernel")),
     ("attention_fwd K5", ("fused_qkv_rope_attn_bias_kernel",

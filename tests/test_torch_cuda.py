@@ -2,8 +2,10 @@
 
 Each hand-written kernel against its plain PyTorch version at small shapes,
 including ragged lengths and an n that is no multiple of the tiles; the
-lse modes of K3 and K5; the attention backwards K4, K8 (each against both
-of its plain versions) and K9 alone and through autograd (K3's lse mode ->
+lse modes of K3 and K5 (K3 at lengths 0, 1, 64, 65 and n; K11 with
+all-dead key tiles between live ones and a row with no live key); the
+attention backwards K4, K8 (each against both of its plain versions; K4
+also at K3's edge lengths) and K9 alone and through autograd (K3's lse mode ->
 K4, K5's lse mode -> K8, K7's lse mode -> K9); the generic grouped conv1d K10 and the
 key-masked head-layout attention K11; one tiny DiT, UNetT and MMDiT forward
 (also at the dim-768 widths and with qk-norm) and one tiny training step of
@@ -105,7 +107,12 @@ def test_conv_pos_kernel(dev, n, length):
     assert not out[1, length:].any()
 
 
-@pytest.mark.parametrize("n,length", [(64, 1), (100, 37), (1024, 777), (3200, 3001)])
+# K3's edges: lengths 0, 1, 64 (a tile's end), 65 (one key in the next
+# tile) and n, at n no multiple of 64
+K3_EDGES = [(200, 0), (200, 1), (200, 64), (200, 65), (200, 200)]
+
+
+@pytest.mark.parametrize("n,length", [(64, 1), (100, 37), (1024, 777), (3200, 3001)] + K3_EDGES)
 def test_attention_kernel(dev, n, length):
     rng = np.random.default_rng(n)
     qkv = _bf16(rng, (2, n, 3 * 1024), dev)
@@ -117,7 +124,7 @@ def test_attention_kernel(dev, n, length):
     assert not out[1, length:].any()
 
 
-@pytest.mark.parametrize("n,length", [(64, 1), (100, 37), (1024, 777), (3200, 3001)])
+@pytest.mark.parametrize("n,length", [(64, 1), (100, 37), (1024, 777), (3200, 3001)] + K3_EDGES)
 def test_attention_lse_kernel(dev, n, length):
     """K3's lse mode: the output as K3's, the lse within 1e-3 of the plain
     version's (on the same bf16 inputs) on live q tiles and exactly -1e30 on
@@ -134,11 +141,13 @@ def test_attention_lse_kernel(dev, n, length):
     _, want = fused_qkv_rope_attention_ref(qkv, cos, sin, lengths, 16, return_lse=True)
     tile_end = -(-length // 64) * 64
     assert float((lse[0] - want[0]).abs().max()) <= 1e-3
-    assert float((lse[1, :, :tile_end] - want[1, :, :tile_end]).abs().max()) <= 1e-3
+    if length:
+        assert float((lse[1, :, :tile_end] - want[1, :, :tile_end]).abs().max()) <= 1e-3
     assert bool((lse[1, :, tile_end:] == NEG_INF).all())
 
 
-@pytest.mark.parametrize("n,length", [(64, 1), (100, 37), (960, 960), (1024, 777), (3200, 3001)])
+@pytest.mark.parametrize("n,length", [(64, 1), (100, 37), (960, 960), (1024, 777), (3200, 3001),
+                                      (200, 0), (200, 65), (130, 64)])
 def test_attention_bwd_kernel(dev, n, length):
     """K4 from K3's saved output and lse against both plain versions (the
     from-lse one it computes and the JAX function's recompute): dQKV over
@@ -459,6 +468,27 @@ def test_masked_flash_attention_autograd_launches_k11(dev):
                                       torch.ones_like(out))
     for got, w in zip((q.grad, k.grad, v.grad), want):
         _close(got, w)
+
+
+@pytest.mark.parametrize("n", [330, 1100])
+def test_masked_flash_attention_kernel_dead_tiles(dev, n):
+    """K11 at an n that is no multiple of 64: row 0 with two all-dead 64-key
+    tiles between live ones and a live key alone in the partial last tile,
+    row 1 with no live key at all (zeros, where the plain version gives the
+    uniform mean of v). Every row of row 0 against the plain version."""
+    rng = np.random.default_rng(n + 12)
+    q, k, v = (_bf16(rng, (2, 16, n, 64), dev) for _ in range(3))
+    kmask = torch.zeros(2, n, dtype=torch.bool, device=dev)
+    kmask[0, :64] = True
+    kmask[0, 192:256] = True
+    kmask[0, 260:n - n % 64] = True
+    kmask[0, n - 1] = True
+    _build.reset_launches()
+    out = masked_flash_attention(q, k, v, kmask)
+    assert _build.launches() == {"masked_flash_attention": 1}
+    ref = mha_reference_masked(q.float(), k.float(), v.float(), kmask)
+    assert float((out[0].float() - ref[0]).abs().max()) <= 2e-2
+    assert not out[1].any()
 
 
 def test_tiny_dit_through_the_kernels(dev):

@@ -165,7 +165,8 @@ def test_conv_pos_plain_bf16_matches_pallas_interpret():
 # K3: fused QKV + RoPE attention
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n,lengths", [(256, [256, 177]), (384, [300, 64])])
+@pytest.mark.parametrize("n,lengths", [(256, [256, 177]), (384, [300, 64]), (384, [130, 64]),
+                                       (384, [40, 384])])
 def test_attention_plain_matches_pallas_and_mha(n, lengths):
     heads, d, b = 2, 64, 2
     hd = heads * d
