@@ -24,8 +24,11 @@ Phases (any failure raises, and the script exits non-zero):
    dead keys mid-sequence, SDPA with a boolean mask as yardstick; and, with
    its lse mode, joint 1124, no multiple of 64, and 1152 with four
    consecutive all-dead key tiles mid-row); K6,
-   RMSNorm ([2, 1024, 1024], F.rms_norm as yardstick); K7, head-layout
-   attention (n = 1024, 4224, lengths [n, 777]; SDPA as yardstick). K7's lse
+   RMSNorm ([2, 1024, 1024], and qk-norm's per-head rows [2, 16, 4096, 64]
+   and [2, 16, 256, 64]; F.rms_norm as yardstick); K7, head-layout
+   attention (n = 1024, 4224, lengths [n, 777]: every row of a live q tile,
+   the rows past the length inside the last one included, against the plain
+   version, dead q tiles exactly 0; SDPA as yardstick). K7's lse
    mode (the same inputs: the output as K7's, the lse within 1e-3 on live q
    tiles and exactly -1e30 on dead ones); K8, the key-masked flat backward
    from K5's saved output and lse (K5's joint shapes and masks and joint
@@ -594,59 +597,73 @@ def check_attention_bias(rng, dev) -> dict:
     return out_row
 
 
+# K6's phase-2 shapes: the UNetT's pre-norm rows, and qk-norm's per-head rows
+# (b = 2 with CFG, 16 heads of 64) of the audio stream at the 4096 cap and of
+# the text stream, where most of K6's launches land (1408 a generate at the
+# qk-norm MMDiT), with the bf16 weight the inference params hold
+RMS_SHAPES = ((2, 1024, 1024), (2, 16, 4096, 64), (2, 16, 256, 64))
+
+
 def check_rms_norm(rng, dev) -> dict:
     import torch
     import torch.nn.functional as F
     from f5tts_tpu_torch.ops.adaln_norm import rms_norm, rms_norm_ref
 
-    b, n, d = 2, 1024, 1024
-    x = torch.from_numpy((2 * rng.standard_normal((b, n, d))).astype(np.float32)).to(dev, torch.bfloat16)
-    w = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(dev, torch.bfloat16)
-    out = rms_norm(x, w, 1e-8)
-    ref = rms_norm_ref(x.float(), w.float(), 1e-8)
-    torch.cuda.synchronize()
-    err = live_err(out, ref, torch.full((b,), n))
-    nbytes = 2 * b * n * d * 2 + d * 2
-    bound = max(nbytes / HBM_BYTES_PER_S, 4 * b * n * d / F32_FLOPS_PER_S) * 1e3
-    ms = time_ms(lambda: rms_norm(x, w, 1e-8))
-    wall = wall_ms(lambda: rms_norm(x, w, 1e-8))
-    plain = time_ms(lambda: rms_norm_ref(x, w, 1e-8), reps=2)
-    lib = time_ms(lambda: F.rms_norm(x, (d,), w, 1e-8))
-    log(f"  rms_norm [2,1024,1024] bf16, eps 1e-8: max_abs_err {err:.3e} (tol {TOL['rms_norm']}), "
-        f"{ms:.4f} ms (eager call {wall:.4f} ms), bound {bound:.4f} ms (bytes), plain "
-        f"{plain:.4f} ms, F.rms_norm {lib:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
-            "bound_by": "bytes", "library_ms": lib}
+    out_row = None
+    for shape in RMS_SHAPES:
+        d = shape[-1]
+        x = torch.from_numpy((2 * rng.standard_normal(shape)).astype(np.float32)).to(dev, torch.bfloat16)
+        w = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(dev, torch.bfloat16)
+        out = rms_norm(x, w, 1e-8)
+        ref = rms_norm_ref(x.float(), w.float(), 1e-8)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref).abs().max())
+        nbytes = 2 * x.numel() * 2 + d * 2
+        bound = max(nbytes / HBM_BYTES_PER_S, 4 * x.numel() / F32_FLOPS_PER_S) * 1e3
+        ms = time_ms(lambda: rms_norm(x, w, 1e-8))
+        wall = wall_ms(lambda: rms_norm(x, w, 1e-8))
+        plain = time_ms(lambda: rms_norm_ref(x, w, 1e-8), reps=2)
+        lib = time_ms(lambda: F.rms_norm(x, (d,), w, 1e-8))
+        log(f"  rms_norm {list(shape)} bf16, bf16 weight, eps 1e-8: max_abs_err {err:.3e} (tol "
+            f"{TOL['rms_norm']}), {ms:.4f} ms (eager call {wall:.4f} ms), bound {bound:.4f} ms "
+            f"(bytes), plain {plain:.4f} ms, F.rms_norm {lib:.4f} ms")
+        out_row = merge_rows(out_row, {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                                        "bound_ms": bound, "bound_by": "bytes", "library_ms": lib})
+    return out_row
 
 
 def check_flash(rng, dev) -> dict:
     import torch
     import torch.nn.functional as F
-    from f5tts_tpu_torch.ops.attention import flash_attention, mha_reference
+    from f5tts_tpu_torch.ops.attention import flash_attention, flash_attention_fwd_ref
 
     b, h, d = 2, 16, 64
     out_row = None
+    tile_end = -(-777 // 64) * 64
     for n in (1024, 4224):
         lengths = torch.tensor([n, 777], dtype=torch.int32, device=dev)
         q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, d)).astype(np.float32))
                    .to(dev, torch.bfloat16) for _ in range(3))
         out = flash_attention(q, k, v, lengths)
-        ref = mha_reference(q.float(), k.float(), v.float(), lengths)
+        ref = flash_attention_fwd_ref(q.float(), k.float(), v.float(), lengths)
         torch.cuda.synchronize()
-        err = max(float((out[i, :, :ln].float() - ref[i, :, :ln]).abs().max())
-                  for i, ln in enumerate(lengths.tolist()))
-        dead = float(out[1, :, -(-777 // 64) * 64:].abs().max())
+        # every row of a live q tile: the rows past the length inside the last
+        # one are computed over the live keys (K9 reads them)
+        err = max(float((out[i, :, :end].float() - ref[i, :, :end]).abs().max())
+                  for i, end in enumerate((n, tile_end)))
+        dead = float(out[1, :, tile_end:].abs().max())
         sq = sum(int(x) ** 2 for x in lengths.tolist())
         flops = 4 * h * d * sq
         nbytes = 4 * b * h * n * d * 2
         bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
         ms = time_ms(lambda: flash_attention(q, k, v, lengths))
         wall = wall_ms(lambda: flash_attention(q, k, v, lengths))
-        plain = time_ms(lambda: mha_reference(q, k, v, lengths), reps=1, iters=5)
+        plain = time_ms(lambda: flash_attention_fwd_ref(q, k, v, lengths), reps=1, iters=5)
         kmask = (torch.arange(n, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
         lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=kmask))
         log(f"  flash_attention b=2 h=16 d=64 n={n} lengths [{n}, 777]: max_abs_err {err:.3e} "
-            f"(tol {TOL['flash_attention']}), dead q tiles max {dead:.1e}, {ms:.4f} ms (eager call "
+            f"over live q tiles (tol {TOL['flash_attention']}), dead q tiles max {dead:.1e}, "
+            f"{ms:.4f} ms (eager call "
             f"{wall:.4f} ms), bound {bound:.4f} ms (operations), plain {plain:.4f} ms, "
             f"sdpa {lib:.4f} ms")
         if dead != 0.0:
@@ -674,8 +691,8 @@ def check_flash_lse(rng, dev) -> dict:
                                                return_lse=True)
         torch.cuda.synchronize()
         tile_end = -(-777 // 64) * 64
-        err = max(float((out[i, :, :ln].float() - ref[i, :, :ln]).abs().max())
-                  for i, ln in enumerate(lengths.tolist()))
+        err = max(float((out[i, :, :end].float() - ref[i, :, :end]).abs().max())
+                  for i, end in enumerate((n, tile_end)))
         lse_err = max(float((lse[0] - ref_lse[0]).abs().max()),
                       float((lse[1, :, :tile_end] - ref_lse[1, :, :tile_end]).abs().max()))
         dead_ok = bool((lse[1, :, tile_end:] == NEG_INF).all()) and not out[1, :, tile_end:].any()
@@ -688,7 +705,8 @@ def check_flash_lse(rng, dev) -> dict:
                         reps=1, iters=5)
         lib = sdpa_lse_ms(q, k, v, torch.arange(n, device=dev)[None, :] < lengths[:, None])
         log(f"  flash_attention_lse b=2 h=16 d=64 n={n} lengths [{n}, 777]: max_abs_err {err:.3e} "
-            f"(tol {TOL['flash_attention_lse']}), lse max err {lse_err:.3e} (tol {LSE_TOL}) on live "
+            f"over live q tiles (tol {TOL['flash_attention_lse']}), lse max err {lse_err:.3e} (tol "
+            f"{LSE_TOL}) on live "
             f"tiles, dead tiles -1e30 and 0: {dead_ok}, {ms:.4f} ms, bound {bound:.4f} ms "
             f"(operations), plain {plain:.4f} ms, sdpa efficient with lse {lib:.4f} ms")
         if not (dead_ok and lse_err <= LSE_TOL):

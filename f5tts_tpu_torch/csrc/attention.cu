@@ -1,8 +1,7 @@
-// Forward attention kernels, in two loops: a wgmma core over a cp.async ring
-// (K3, K5 and K11, with the lse modes of K3 and K5) and an mma.sync tile loop
-// (K7 and its lse mode).
+// Forward attention kernels: one wgmma core over a cp.async ring, in four
+// modes (K3, K5, K7 and K11, with the lse modes of K3, K5 and K7).
 //
-// The wgmma core has two template axes:
+// The core has two template axes:
 //  - layout: FLAT (qkv [b, n, 3*h*64], the fused to_qkv projection output,
 //    with flat cos/sin [>=n, h*64] bf16 tables: q and k are roped in the
 //    kernel) or HEAD (q, k, v [b, h, n, 64] bf16, already normed and roped);
@@ -33,6 +32,17 @@
 //    backward K8. Out: [b, n, h*64] bf16, every row computed (the caller masks
 //    dead rows after to_out); the LSE mode also lse [b, h, n] f32, -1e30
 //    where l == 0.
+// K7 (HEAD + LENGTH) flash_attn_kernel: head-layout prefix-length attention.
+//    Replaces :123 _flash_kernel_single and :50 _flash_kernel (the Pallas
+//    n <= 2048 / online-softmax split is a VMEM artefact; one loop here).
+//    Out: [b, h, n, 64] bf16; q tiles wholly past the length are zeros, rows
+//    past the length inside a live tile are computed (over the live keys), as
+//    in Pallas. flash_attn_lse_kernel, its LSE mode under grad (the Pallas
+//    bodies with their lse_ref, :115-120 and :161-164, behind :193
+//    _flash_forward(return_lse)): also lse [b, h, n] f32 = m + log(l) over the
+//    scaled scores, every row of a live q tile (K9 reads the rows past the
+//    length too), -1e30 on the q tiles wholly past the length, for the
+//    backward K9 (csrc/attention_bwd.cu).
 // K11 (HEAD + KMASK) masked_flash_attn_kernel: head-layout attention under a
 //    key mask. Replaces :1653 _flash_kernel_bias (behind :1706
 //    masked_flash_attention): MMDiT joint attention when the flat K5 cannot
@@ -48,7 +58,8 @@
 // Bound: tensor-core operations, 4*h*64 flops a live (query, key) pair: K3
 //    0.0068 ms at b = 2, n = 1024, lengths [1024, 777] (6.8 GFLOP at 989
 //    TFLOP/s) against ~21 MB of bytes (0.0063 ms); K5 0.133 ms at joint 4352
-//    (7,388 live keys, every query row) against ~89 MB (0.027 ms).
+//    (7,388 live keys, every query row) against ~89 MB (0.027 ms); K7 as K3
+//    (0.0764 ms at n = 4224, lengths [4224, 777]).
 // Design:
 //  - FLAT: a prologue ropes k once into a k_rot [b, h, n, 64] scratch (one
 //    thread per 8 lanes of a (row, head); LENGTH skips the rows past the
@@ -71,261 +82,14 @@
 //    wgmma of the kernel, note C7520). KMASK stages the block's key-mask row
 //    once as bits (one ballot a 32-key word) and walks only tiles with a live
 //    key. Only a tile with a dead key takes the select.
-//
-// The mma.sync tile loop, K7 flash_attn_kernel: head-layout prefix-length
-//    attention forward. Replaces :123 _flash_kernel_single and :50
-//    _flash_kernel (the Pallas n <= 2048 / online-softmax split is a VMEM
-//    artefact; one loop here).
-//    In:  q, k, v [b, h, n, 64] bf16 (already roped), lengths [b] int32.
-//    Out: [b, h, n, 64] bf16; q tiles wholly past the length are zeros, rows
-//         past the length inside a live tile are computed, as in Pallas.
-//    flash_attn_lse_kernel, the training mode (the Pallas bodies with their
-//    lse_ref, :115-120 and :161-164, behind :193 _flash_forward(return_lse)):
-//    also writes lse [b, h, n] f32 = m + log(l) over the scaled scores, and
-//    -1e30 for the rows of q tiles wholly past the length, for the backward
-//    K9 (csrc/attention_bwd.cu).
-//    Bound as the core's. Design: one 128-thread block per (64-row q tile,
-//    head, batch). Q is scaled by 1/sqrt(d) and kept as bf16 mma.sync A
-//    fragments in registers. The loop over 64-key tiles stops at the length
-//    (bucket padding costs no compute); each tile's K is stored into shared
-//    memory, V is stored transposed so the P@V B fragments are single 32-bit
-//    shared loads; scores and the running (max, sum, acc) stay in f32
-//    registers. Loads are synchronous.
+//  - the epilogue: K3 writes the rows past the length as zeros; K7 writes
+//    them as computed (its function, which K9 relies on); both write zeros
+//    and lse -1e30 on a q tile wholly past the length (l == 0).
 #include "wgmma.cuh"
 
-#define AT_D 64
-#define AT_BQ 64
-#define AT_BK 64
-#define AT_LDS 72  // padded shared row (bf16): conflict-free fragment loads
-#define AT_NEG -1e30f
-
 // ---------------------------------------------------------------------------
-// K7: head-layout prefix-length attention forward (mma.sync tile loop)
-// ---------------------------------------------------------------------------
-
-// LSE: write each row's lse to lseb. qb/kb/vb/outb point at row 0 of this
-// (batch, head), rows 64 elements apart; lseb at its n rows.
-template <bool LSE>
-__device__ __forceinline__ void attn_fwd_tile(const bf16* __restrict__ qb,
-                                              const bf16* __restrict__ kb,
-                                              const bf16* __restrict__ vb, int len,
-                                              bf16* __restrict__ outb, int n, float sm_scale,
-                                              float* __restrict__ lseb) {
-    const int q0 = blockIdx.x * AT_BQ;
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t4 = lane & 3;
-
-    if (q0 >= len) {  // whole q tile past the length: zeros
-        for (int i = tid; i < AT_BQ * 8; i += 128) {
-            const int row = q0 + (i >> 3);
-            if (row < n)
-                *reinterpret_cast<uint4*>(outb + row * AT_D + (i & 7) * 8) =
-                    make_uint4(0, 0, 0, 0);
-        }
-        if (LSE && tid < AT_BQ && q0 + tid < n) lseb[q0 + tid] = AT_NEG;
-        return;
-    }
-
-    __shared__ __align__(16) bf16 sQ[AT_BQ * AT_LDS];
-    __shared__ __align__(16) bf16 sK[AT_BK * AT_LDS];
-    __shared__ __align__(16) bf16 sVt[AT_D * AT_LDS];  // V transposed: [dim][key]
-
-    // q tile: * 1/sqrt(d), round to bf16
-    for (int i = tid; i < AT_BQ * 8; i += 128) {
-        const int r = i >> 3, c = (i & 7) * 8;
-        const int row = q0 + r;
-        float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        if (row < n) {
-            unpack8(*reinterpret_cast<const uint4*>(qb + row * AT_D + c), f);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) f[e] *= sm_scale;
-        }
-        *reinterpret_cast<uint4*>(sQ + r * AT_LDS + c) = pack8(f);
-    }
-    __syncthreads();
-
-    uint32_t qa[4][4];
-    {
-        const bf16* q_lo = sQ + (warp * 16 + g) * AT_LDS + t4 * 2;
-        const bf16* q_hi = q_lo + 8 * AT_LDS;
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-            qa[kk][0] = lds32(q_lo + kk * 16);
-            qa[kk][1] = lds32(q_hi + kk * 16);
-            qa[kk][2] = lds32(q_lo + kk * 16 + 8);
-            qa[kk][3] = lds32(q_hi + kk * 16 + 8);
-        }
-    }
-
-    float m_run[2] = {AT_NEG, AT_NEG};
-    float l_run[2] = {0.f, 0.f};
-    float acc[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-    const int n_tiles = (len + AT_BK - 1) / AT_BK;
-    for (int kt = 0; kt < n_tiles; ++kt) {
-        const int k0 = kt * AT_BK;
-        __syncthreads();  // previous tile's sK / sVt reads are done
-        // K tile
-        for (int i = tid; i < AT_BK * 8; i += 128) {
-            const int r = i >> 3, c = (i & 7) * 8;
-            const int key = k0 + r;
-            float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-            if (key < n) unpack8(*reinterpret_cast<const uint4*>(kb + key * AT_D + c), f);
-            *reinterpret_cast<uint4*>(sK + r * AT_LDS + c) = pack8(f);
-        }
-        // V tile, transposed: lane = dim pair, each thread 8 consecutive keys
-        for (int i = tid; i < 32 * (AT_BK / 8); i += 128) {
-            const int dp = i & 31, kg = (i >> 5) * 8;
-            uint32_t w[8];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-                const int key = k0 + kg + j;
-                w[j] = key < n ? *reinterpret_cast<const uint32_t*>(vb + key * AT_D + dp * 2)
-                               : 0u;
-            }
-            uint4 lo, hi;  // dim 2dp gets the low halves, dim 2dp+1 the high
-            uint32_t* plo = reinterpret_cast<uint32_t*>(&lo);
-            uint32_t* phi = reinterpret_cast<uint32_t*>(&hi);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                plo[j] = (w[2 * j] & 0xffffu) | (w[2 * j + 1] << 16);
-                phi[j] = (w[2 * j] >> 16) | (w[2 * j + 1] & 0xffff0000u);
-            }
-            *reinterpret_cast<uint4*>(sVt + (2 * dp) * AT_LDS + kg) = lo;
-            *reinterpret_cast<uint4*>(sVt + (2 * dp + 1) * AT_LDS + kg) = hi;
-        }
-        __syncthreads();
-
-        // S = Q K^T for this warp's 16 rows x 64 keys
-        float s[8][4];
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-            s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-            const bf16* kr = sK + (nt * 8 + g) * AT_LDS + t4 * 2;
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk)
-                mma_16816(s[nt], qa[kk], lds32(kr + kk * 16), lds32(kr + kk * 16 + 8));
-        }
-
-        // key mask + online softmax (rows g and g+8 of the warp's 16)
-        float mx[2] = {AT_NEG, AT_NEG};
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-            const int key = k0 + nt * 8 + t4 * 2;
-            if (key >= len) { s[nt][0] += AT_NEG; s[nt][2] += AT_NEG; }
-            if (key + 1 >= len) { s[nt][1] += AT_NEG; s[nt][3] += AT_NEG; }
-            mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-            mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
-        }
-        float alpha[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-            const float m_new = fmaxf(m_run[r], mx[r]);
-            alpha[r] = __expf(m_run[r] - m_new);
-            m_run[r] = m_new;
-            l_run[r] *= alpha[r];
-        }
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-            s[nt][0] = __expf(s[nt][0] - m_run[0]);
-            s[nt][1] = __expf(s[nt][1] - m_run[0]);
-            s[nt][2] = __expf(s[nt][2] - m_run[1]);
-            s[nt][3] = __expf(s[nt][3] - m_run[1]);
-            l_run[0] += s[nt][0] + s[nt][1];
-            l_run[1] += s[nt][2] + s[nt][3];
-            acc[nt][0] *= alpha[0];
-            acc[nt][1] *= alpha[0];
-            acc[nt][2] *= alpha[1];
-            acc[nt][3] *= alpha[1];
-        }
-
-        // acc += P V: P re-packed from the score fragments as bf16 A operands
-#pragma unroll
-        for (int kc = 0; kc < 4; ++kc) {
-            uint32_t pa[4];
-            pa[0] = pack_bf16x2(s[2 * kc][0], s[2 * kc][1]);
-            pa[1] = pack_bf16x2(s[2 * kc][2], s[2 * kc][3]);
-            pa[2] = pack_bf16x2(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-            pa[3] = pack_bf16x2(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-            for (int dt = 0; dt < 8; ++dt) {
-                const bf16* vr = sVt + (dt * 8 + g) * AT_LDS + kc * 16 + t4 * 2;
-                mma_16816(acc[dt], pa, lds32(vr), lds32(vr + 8));
-            }
-        }
-    }
-
-    // finish: quad-reduce l, normalise
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-        l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int row = q0 + warp * 16 + g + r * 8;
-        if (row >= n) continue;
-        const float inv = l_run[r] != 0.f ? 1.f / l_run[r] : 0.f;
-        if (LSE && t4 == 0) lseb[row] = l_run[r] > 0.f ? m_run[r] + logf(l_run[r]) : AT_NEG;
-        bf16* orow = outb + row * AT_D + t4 * 2;
-#pragma unroll
-        for (int dt = 0; dt < 8; ++dt)
-            *reinterpret_cast<uint32_t*>(orow + dt * 8) =
-                pack_bf16x2(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
-    }
-}
-
-__global__ void __launch_bounds__(128) flash_attn_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const int* __restrict__ lengths, bf16* __restrict__ out, int n, int heads,
-    float sm_scale) {
-    const int h = blockIdx.y, b = blockIdx.z;
-    const size_t base = ((size_t)b * heads + h) * n * AT_D;
-    attn_fwd_tile<false>(q + base, k + base, v + base, min(max(lengths[b], 0), n), out + base, n,
-                         sm_scale, nullptr);
-}
-
-__global__ void __launch_bounds__(128) flash_attn_lse_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const int* __restrict__ lengths, bf16* __restrict__ out, float* __restrict__ lse, int n,
-    int heads, float sm_scale) {
-    const int h = blockIdx.y, b = blockIdx.z;
-    const size_t rows = ((size_t)b * heads + h) * n;
-    attn_fwd_tile<true>(q + rows * AT_D, k + rows * AT_D, v + rows * AT_D,
-                        min(max(lengths[b], 0), n), out + rows * AT_D, n, sm_scale, lse + rows);
-}
-
-extern "C" int f5_flash_attn_bf16(const void* q, const void* k, const void* v,
-                                  const void* lengths, void* out, int b, int n, int heads,
-                                  float sm_scale, void* stream) {
-    if (b > 0 && n > 0) {
-        dim3 grid((n + AT_BQ - 1) / AT_BQ, heads, b);
-        flash_attn_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lengths,
-            (bf16*)out, n, heads, sm_scale);
-    }
-    return (int)cudaGetLastError();
-}
-
-extern "C" int f5_flash_attn_lse_bf16(const void* q, const void* k, const void* v,
-                                      const void* lengths, void* out, void* lse, int b, int n,
-                                      int heads, float sm_scale, void* stream) {
-    if (b > 0 && n > 0) {
-        dim3 grid((n + AT_BQ - 1) / AT_BQ, heads, b);
-        flash_attn_lse_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lengths,
-            (bf16*)out, (float*)lse, n, heads, sm_scale);
-    }
-    return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// The wgmma core: K3 (FLAT + LENGTH), K5 (FLAT + KMASK), K11 (HEAD + KMASK)
+// The wgmma core: K3 (FLAT + LENGTH), K5 (FLAT + KMASK), K7 (HEAD + LENGTH),
+// K11 (HEAD + KMASK)
 // ---------------------------------------------------------------------------
 
 // One warpgroup a block, at most 168 registers (three blocks an SM; the
@@ -336,6 +100,7 @@ extern "C" int f5_flash_attn_lse_bf16(const void* q, const void* k, const void* 
 #define FW_NT 128
 #define FW_MINB 3
 #define FW_LOG2E 1.4426950408889634f
+#define FW_NEG -1e30f
 #define FW_SMEM_MAX 232448  // the opt-in maximum of dynamic shared memory
 // Shared-memory plan (every tile 1024-aligned): the q tile, two stages of
 // (K tile, V tile), then (KMASK) the key mask, one 64-bit word a 64-key tile.
@@ -487,7 +252,7 @@ __device__ __forceinline__ void wg_fwd(const FwdArgs& a) {
     float o[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[i] = 0.f;
-    float m_run[2] = {AT_NEG, AT_NEG}, l_run[2] = {0.f, 0.f};
+    float m_run[2] = {FW_NEG, FW_NEG}, l_run[2] = {0.f, 0.f};
     for (int it = 0; kt < n_kt; ++it) {
         const int s = it & 1;
         cp_async_wait_all();
@@ -514,9 +279,9 @@ __device__ __forceinline__ void wg_fwd(const FwdArgs& a) {
             const uint64_t kbits = bits >> (t4 * 2);
 #pragma unroll
             for (int i = 0; i < 32; ++i)
-                if (!((kbits >> ((i >> 2) * 8 + (i & 1))) & 1)) sc[i] = AT_NEG;
+                if (!((kbits >> ((i >> 2) * 8 + (i & 1))) & 1)) sc[i] = FW_NEG;
         }
-        float mx[2] = {AT_NEG, AT_NEG};
+        float mx[2] = {FW_NEG, FW_NEG};
 #pragma unroll
         for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
         float alpha[2], m2[2];
@@ -551,8 +316,9 @@ __device__ __forceinline__ void wg_fwd(const FwdArgs& a) {
     }
     cp_async_wait_all();
 
-    // finish: quad-reduce l, normalise, write the rows (and the lse); LENGTH
-    // writes rows >= len as zeros and keeps their lse
+    // finish: quad-reduce l, normalise, write the rows (and the lse); K3
+    // (FLAT + LENGTH) writes rows >= len as zeros and keeps their lse
+    constexpr bool ZERO_PAST_LEN = LAYOUT == FW_FLAT && LIVE == FW_LENGTH;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
@@ -562,9 +328,9 @@ __device__ __forceinline__ void wg_fwd(const FwdArgs& a) {
     for (int r = 0; r < 2; ++r) {
         const int row = row_lo + r * 8;
         if (row >= n) continue;
-        const float inv = ((KMASK || row < len) && l_run[r] != 0.f) ? 1.f / l_run[r] : 0.f;
+        const float inv = ((!ZERO_PAST_LEN || row < len) && l_run[r] != 0.f) ? 1.f / l_run[r] : 0.f;
         if (LSE && t4 == 0)
-            a.lse[bh * n + row] = l_run[r] > 0.f ? m_run[r] + logf(l_run[r]) : AT_NEG;
+            a.lse[bh * n + row] = l_run[r] > 0.f ? m_run[r] + logf(l_run[r]) : FW_NEG;
         bf16* orow = t.out + row * t.os + t4 * 2;
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt)
@@ -593,6 +359,14 @@ __global__ void __launch_bounds__(FW_NT, FW_MINB) fused_qkv_rope_attn_bias_kerne
 }
 __global__ void __launch_bounds__(FW_NT, FW_MINB) fused_qkv_rope_attn_bias_lse_kernel(const FwdArgs a) {
     wg_fwd<FW_FLAT, FW_KMASK, true>(a);
+}
+
+// K7
+__global__ void __launch_bounds__(FW_NT, FW_MINB) flash_attn_kernel(const FwdArgs a) {
+    wg_fwd<FW_HEAD, FW_LENGTH, false>(a);
+}
+__global__ void __launch_bounds__(FW_NT, FW_MINB) flash_attn_lse_kernel(const FwdArgs a) {
+    wg_fwd<FW_HEAD, FW_LENGTH, true>(a);
 }
 
 // K11
@@ -686,18 +460,43 @@ extern "C" int f5_fused_qkv_rope_attn_bias_lse_bf16(const void* qkv, const void*
                       stream);
 }
 
-extern "C" int f5_masked_flash_attn_bf16(const void* q, const void* k, const void* v,
-                                         const void* kmask, void* out, int b, int n, int heads,
-                                         float sm_scale, void* stream) {
+static FwdArgs head_args(const void* q, const void* k, const void* v, const void* mask,
+                         bool kmask, void* out, void* lse, int b, int n, int heads, float scale) {
     FwdArgs a = {};
     a.q = (const bf16*)q;
     a.k = (const bf16*)k;
     a.v = (const bf16*)v;
-    a.kmask = (const uint8_t*)kmask;
+    if (kmask) a.kmask = (const uint8_t*)mask;
+    else a.lengths = (const int*)mask;
     a.out = (bf16*)out;
+    a.lse = (float*)lse;
     a.bsz = b;
     a.n = n;
     a.heads = heads;
-    a.scale = sm_scale;
-    return launch_fwd(nullptr, masked_flash_attn_kernel, a, stream);
+    a.scale = scale;
+    return a;
+}
+
+extern "C" int f5_flash_attn_bf16(const void* q, const void* k, const void* v,
+                                  const void* lengths, void* out, int b, int n, int heads,
+                                  float sm_scale, void* stream) {
+    return launch_fwd(nullptr, flash_attn_kernel,
+                      head_args(q, k, v, lengths, false, out, nullptr, b, n, heads, sm_scale),
+                      stream);
+}
+
+extern "C" int f5_flash_attn_lse_bf16(const void* q, const void* k, const void* v,
+                                      const void* lengths, void* out, void* lse, int b, int n,
+                                      int heads, float sm_scale, void* stream) {
+    return launch_fwd(nullptr, flash_attn_lse_kernel,
+                      head_args(q, k, v, lengths, false, out, lse, b, n, heads, sm_scale),
+                      stream);
+}
+
+extern "C" int f5_masked_flash_attn_bf16(const void* q, const void* k, const void* v,
+                                         const void* kmask, void* out, int b, int n, int heads,
+                                         float sm_scale, void* stream) {
+    return launch_fwd(nullptr, masked_flash_attn_kernel,
+                      head_args(q, k, v, kmask, true, out, nullptr, b, n, heads, sm_scale),
+                      stream);
 }

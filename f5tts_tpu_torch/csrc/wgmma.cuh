@@ -1,7 +1,7 @@
-// Hopper building blocks shared by the wgmma attention kernels (K3, K5 and
-// K11 in attention.cu; K4, K8 and K9 in attention_bwd.cu): cp.async copies into
-// 128-byte-swizzled shared tiles, the wgmma descriptors, fences and products
-// on 64 x 64 bf16 tiles, and the accumulator repack.
+// Hopper building blocks shared by the wgmma kernels (K3, K5, K7 and K11 in
+// attention.cu; K4, K8 and K9 in attention_bwd.cu; K10 in grouped_conv.cu):
+// cp.async copies into 128-byte-swizzled shared tiles, the wgmma descriptors,
+// fences and products on 64 x 64 bf16 tiles, and the accumulator repack.
 #pragma once
 
 #include "common.cuh"

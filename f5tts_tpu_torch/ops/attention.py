@@ -38,8 +38,9 @@ replacing `_fused_bias_bwd_kernel` and the bias-row branch of
 `fused_qkv_rope_attention_bias_bwd_ref`); dO is read as it is on every row.
 
 `flash_attention` is head-layout attention [b, h, n, d] over keys <
-lengths[b] on already-roped q/k: kernel K7 (the Pallas `_flash_kernel_single`
-and `_flash_kernel`), plain version `flash_attention_fwd_ref` (`mha_reference`
+lengths[b] on already-roped q/k: kernel K7 (csrc/attention.cu, replacing the
+Pallas `_flash_kernel_single` and `_flash_kernel`; the core's HEAD + LENGTH
+mode), plain version `flash_attention_fwd_ref` (`mha_reference`
 with K7's zero q tiles); `attention` is the dispatcher of the JAX package's
 attention.py:1766 without its mesh branch. When an input requires grad it
 runs K7's lse mode (the row log-sum-exp saved, as the Pallas forward's

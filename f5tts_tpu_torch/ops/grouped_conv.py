@@ -13,7 +13,9 @@ dim-768 presets: 16 groups of 48 channels) takes the unfused chain in
 `models/modules.py`, whose convs are `grouped_conv1d`: kernel K10 (the same
 file, replacing the Pallas `_grouped_conv_kernel` and its bias add) for CUDA
 tensors, `grouped_conv1d_ref` for CPU tensors. K10 takes W = c / groups
-channels a group with W % 8 == 0 and W <= 128, 1 <= k <= 31, any n.
+channels a group with W % 8 == 0 and W <= 128, 1 <= k <= 31, any n (a
+persistent wgmma pipeline: the group's taps resident in shared memory where
+they fit, else a ring of tap chunks).
 
 Weights keep the JAX package's WIO layout: w [k, c // groups, c].
 

@@ -1,40 +1,45 @@
-"""Time hand-written attention kernels of this checkout against the same
-kernels built from another checkout, in turns on one card.
+"""Time hand-written kernels of this checkout against the same kernels built
+from another checkout, in turns on one card.
 
     python -m f5tts_tpu_torch.scripts.kernel_ab --other PATH
-        [--kernel K3|K3_lse|K4|K5|K5_lse|K7|K7_lse|K8|K9|K11 ...] [--define NAME=VALUE ...]
-        [--out FILE]
+        [--kernel K3|K3_lse|K4|K5|K5_lse|K7|K7_lse|K8|K9|K10|K11 ...]
+        [--define NAME=VALUE ...] [--out FILE]
 
 Kernels: K3 and K3_lse (the flat fused QKV + RoPE attention over keys <
 length, and its lse mode), K4 (its dQKV backward), K5 and K5_lse (the
 key-masked flat attention and its lse mode), K8 (the key-masked dQKV
 backward), K7 and K7_lse (the head-layout attention over keys < length,
-and its lse mode), K9 (the head-layout backward from a saved lse) and K11
-(the key-masked head-layout attention); `--kernel` may be given several
-times. Both checkouts' source (`f5tts_tpu_torch/csrc/attention.cu` for K3,
-K5, K7 and K11, `attention_bwd.cu` for K4, K8 and K9) are compiled with the
-port's nvcc flags into a temporary directory (this checkout's with `-D` of
-each `--define`, so `--other .` compares two builds of one source) and
-loaded with ctypes. Each build's C entry is called with the signature its
-own source declares: the pointer parameters are matched by name (qkv,
-cos_t, sin_t, lengths / kmask, q, k, v, o / out, lse, dout, dqkv, dq, dk,
-dv, k_rot, delta), the const ones shared by both builds, the others
-(outputs and scratch) one set a build. So an entry that takes a scratch the
-other does not (the k_rot of K3 and K5, which older sources lack) is timed
-whole against it. The saved `out` / `o` and `lse` of the backwards come
-from this checkout's K3 / K5 / K7 lse mode.
+and its lse mode), K9 (the head-layout backward from a saved lse), K10 (the
+generic grouped conv1d + bias) and K11 (the key-masked head-layout
+attention); `--kernel` may be given several times. Both checkouts' source
+(`f5tts_tpu_torch/csrc/attention.cu` for K3, K5, K7 and K11,
+`attention_bwd.cu` for K4, K8 and K9, `grouped_conv.cu` for K10) are
+compiled with the port's nvcc flags into a temporary directory (this
+checkout's with `-D` of each `--define`, so `--other .` compares two builds
+of one source) and loaded with ctypes. Each build's C entry is called with
+the signature its own source declares: the pointer parameters are matched
+by name (qkv, cos_t, sin_t, lengths / kmask, q, k, v, o / out, lse, dout,
+dqkv, dq, dk, dv, k_rot, delta; x, w, bias, y), the const ones shared by
+both builds, the others (outputs and scratch) one set a build, and the int
+and float parameters by name too (b, n, heads, sm_scale / scale; c, width,
+ksize). So an entry that takes a scratch the other does not (the k_rot of
+K3 and K5, which older sources lack) is timed whole against it. The saved
+`out` / `o` and `lse` of the backwards come from this checkout's K3 / K5 /
+K7 lse mode.
 
 Shapes: chip_smoke's phase 2, b = 2, h = 16, d = 64: K3 and K3_lse at n =
 1024, 3200, 4096 and K4 at n = 1024, 3072, 4096 with lengths [n, 777]; K5,
 K5_lse and K8 at joint n = 1152, 3200, 4352 (1024 / 3072 / 4096 audio + 128 /
 128 / 256 text rows, K5's masks); K7, K7_lse and K9 at n = 1024 and 4224,
 lengths [n, 777], K9's dO nonzero on every row; K11 on head-layout q, k, v
-at joint n = 1152 and 4352 with K5's masks.
-At each shape the entries are timed by CUDA-graph replay (`common.time_ms`)
-in the order other, this, this, other. The two outputs must agree: the
-forwards' within chip_smoke's 2e-2 (their lse within 1e-3), the backwards'
-within its backward tolerance (rel-L2 <= 1e-2, max-abs <= 2e-2 of the
-largest entry; two designs may take delta at different rounding points).
+at joint n = 1152 and 4352 with K5's masks; K10 at [2, 1024, 768] and
+[2, 4096, 768] (16 groups of 48, k = 31) and [2, 1024, 384] (16 groups of
+24, k = 4). At each shape the entries are timed by CUDA-graph replay
+(`common.time_ms`) in the order other, this, this, other. The two outputs
+must agree: the forwards' within chip_smoke's 2e-2 (their lse within 1e-3;
+K10's output within 3e-2), the backwards' within its backward tolerance
+(rel-L2 <= 1e-2, max-abs <= 2e-2 of the largest entry; two designs may take
+delta at different rounding points).
 Whether they are bit equal is reported, and each build's `-Xptxas -v` lines
 for the kernel's `__global__` functions (registers, shared memory, spills)
 and the source's ptxas notes (such as C7520, serialised wgmma).
@@ -62,6 +67,7 @@ from f5tts_tpu_torch.scripts.common import gpu_name_and_limit, time_ms
 
 THIS = Path(__file__).resolve().parents[2]
 JOINT = ((1024, 128), (3072, 128), (4096, 256))
+CONV = ((2, 1024, 768, 31), (2, 4096, 768, 31), (2, 1024, 384, 4))  # b, n, c, k (16 groups)
 K3_GLOBALS = r"fused_qkv_rope_attn_(kernel|lse_kernel|krot_kernel)"
 K7_GLOBALS = r"_Z\d+flash_attn_(lse_)?kernel"  # not masked_flash_attn_kernel
 # kernel: (source, C entry, a pattern found in each of its __global__ names,
@@ -86,19 +92,26 @@ KERNELS = {
            ("dq", "dk", "dv")),
     "K11": ("attention.cu", "f5_masked_flash_attn_bf16", "masked_flash_attn_kernel",
             JOINT[::2], ("out",)),
+    "K10": ("grouped_conv.cu", "f5_grouped_conv1d_bf16", "grouped_conv1d_kernel", CONV,
+            ("y",)),
 }
+CTYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
 H = 16
 
 
 def load(kernel: str, checkout: Path, out_dir: Path, tag: str, defines=()):
-    """(the kernel's C entry, its pointer parameters as (name, const), ptxas'
+    """(the kernel's C entry, its parameters but the stream as (name, kind)
+    with kind "const" or "out" for a pointer, else "int" or "float", ptxas'
     resource lines for its __global__ functions) of `checkout`."""
     src_name, entry_name, global_key = KERNELS[kernel][:3]
     so = out_dir / f"{kernel}_{tag}.so"
     src = checkout / "f5tts_tpu_torch" / "csrc" / src_name
     sig = re.search(r'extern "C" int ' + entry_name + r"\(([^)]*)\)", src.read_text())
-    params = [(m.group(2), bool(m.group(1))) for m in
-              re.finditer(r"(const )?void\*\s*(\w+)", sig.group(1))][:-1]  # the last is the stream
+    params = []
+    for decl in sig.group(1).split(",")[:-1]:  # the last is the stream
+        name = decl.split()[-1].lstrip("*")
+        kind = ("const" if "const" in decl else "out") if "*" in decl else decl.split()[0]
+        params.append((name, kind))
     log = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
                           *(f"-D{d}" for d in defines), "-o", str(so), str(src)],
                          check=True, capture_output=True, text=True)
@@ -112,8 +125,7 @@ def load(kernel: str, checkout: Path, out_dir: Path, tag: str, defines=()):
         elif "Performance" in line or "warning" in line:  # e.g. serialised wgmma
             usage.setdefault("notes", []).append(line.strip())
     fn = getattr(ctypes.CDLL(str(so)), entry_name)
-    fn.argtypes = [ctypes.c_void_p] * len(params) + [ctypes.c_int] * 3 + [ctypes.c_float,
-                                                                          ctypes.c_void_p]
+    fn.argtypes = [CTYPES.get(kind, ctypes.c_void_p) for _, kind in params] + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn, params, usage
 
@@ -130,13 +142,31 @@ def joint_kmask(na: int, n: int, dev) -> torch.Tensor:
     return kmask
 
 
-def inputs(kernel: str, shape, dev) -> tuple[dict, str, int]:
-    """The tensors by parameter name, the shape's description and n."""
+def attn_scalars(n: int) -> dict:
+    """The int and float parameters of an attention entry (the forwards name
+    the scale sm_scale, the backwards scale)."""
+    scale = 1.0 / math.sqrt(64)
+    return {"b": 2, "n": n, "heads": H, "sm_scale": scale, "scale": scale}
+
+
+def inputs(kernel: str, shape, dev) -> tuple[dict, str]:
+    """The tensors and scalars by parameter name, and the shape's description."""
     rng = np.random.default_rng(0)
     b, hd = 2, H * 64
 
     def bf16(*s):
         return torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, torch.bfloat16)
+
+    if kernel == "K10":
+        b, n, c, k = shape
+        width = c // 16
+        lim = 1.0 / math.sqrt(width * k)
+        t = {"x": bf16(b, n, c), "b": b, "n": n, "c": c, "width": width, "ksize": k}
+        for name, s in (("w", (k, width, c)), ("bias", (c,))):
+            t[name] = torch.from_numpy(rng.uniform(-lim, lim, s).astype(np.float32)).to(
+                dev, torch.bfloat16)
+        t["y"] = torch.empty_like(t["x"])
+        return t, f"[{b}, {n}, {c}], 16 groups of {width}, k {k}"
 
     if kernel in ("K7", "K7_lse", "K9"):
         n = shape
@@ -145,20 +175,21 @@ def inputs(kernel: str, shape, dev) -> tuple[dict, str, int]:
         if kernel != "K9":
             t["out"] = torch.empty_like(t["q"])
             t["lse"] = torch.empty((b, H, n), dtype=torch.float32, device=dev)
-            return t, f"b=2 h=16 d=64 n={n} lengths [{n}, 777], head layout", n
+            return t | attn_scalars(n), f"b=2 h=16 d=64 n={n} lengths [{n}, 777], head layout"
         t["o"], t["lse"] = att.flash_attention_fwd(t["q"], t["k"], t["v"], t["lengths"],
                                                    return_lse=True)
         for name in ("dq", "dk", "dv"):
             t[name] = torch.empty_like(t["q"])
         t["delta"] = torch.empty((b, H, n), dtype=torch.float32, device=dev)
-        return t, f"b=2 h=16 d=64 n={n} lengths [{n}, 777], dO on every row", n
+        return t | attn_scalars(n), f"b=2 h=16 d=64 n={n} lengths [{n}, 777], dO on every row"
     if kernel == "K11":
         na, nt = shape
         n = na + nt
         t = {name: bf16(b, H, n, 64) for name in ("q", "k", "v")}
         t["kmask"] = joint_kmask(na, n, dev)
         t["out"] = torch.empty_like(t["q"])
-        return t, f"b=2 h=16 d=64 joint n={n} ({na} audio + {nt} text), head layout", n
+        what = f"b=2 h=16 d=64 joint n={n} ({na} audio + {nt} text), head layout"
+        return t | attn_scalars(n), what
     n = shape if kernel in ("K3", "K3_lse", "K4") else sum(shape)
     t = {"qkv": bf16(b, n, 3 * hd), "dout": bf16(b, n, hd)}
     if kernel in ("K5", "K5_lse", "K8"):
@@ -180,7 +211,7 @@ def inputs(kernel: str, shape, dev) -> tuple[dict, str, int]:
     t["dqkv"] = torch.empty_like(t["qkv"])
     t["k_rot"] = torch.empty((b, H, n, 64), dtype=torch.bfloat16, device=dev)
     t["delta"] = torch.empty((b, H, n), dtype=torch.float32, device=dev)
-    return t, what, n
+    return t | attn_scalars(n), what
 
 
 def agreement(name: str, a: torch.Tensor, w: torch.Tensor) -> dict:
@@ -188,8 +219,8 @@ def agreement(name: str, a: torch.Tensor, w: torch.Tensor) -> dict:
     a, w = a.float(), w.float()
     diff, top = float((a - w).abs().max()), float(w.abs().max())
     rel = float((a - w).norm() / w.norm())
-    if name in ("out", "lse"):  # a forward's output and row lse
-        agree = diff <= (1e-3 if name == "lse" else 2e-2)
+    if name in ("out", "lse", "y"):  # a forward's output and row lse, K10's output
+        agree = diff <= {"out": 2e-2, "lse": 1e-3, "y": 3e-2}[name]
     else:
         agree = rel <= 1e-2 and diff <= 2e-2 * top
     return {"bit_equal": bool(torch.equal(a, w)), "max_abs_diff": diff, "rel_l2": rel,
@@ -204,14 +235,14 @@ def run_kernel(kernel: str, other: Path, defines, tmp: Path, dev) -> tuple[dict,
               "ptxas_this": built["this"][2], "shapes": []}
     ok = True
     for shape in KERNELS[kernel][3]:
-        shared, what, n = inputs(kernel, shape, dev)
-        own = {tag: {name: shared[name].clone() for name, const in params if not const}
+        shared, what = inputs(kernel, shape, dev)
+        own = {tag: {name: shared[name].clone() for name, kind in params if kind == "out"}
                for tag, (_, params, _) in built.items()}
 
         def call(tag):
             fn, params, _ = built[tag]
-            ptrs = [own[tag][name] if not const else shared[name] for name, const in params]
-            err = fn(*(_build.ptr(t) for t in ptrs), 2, n, H, 1.0 / math.sqrt(64),
+            args = [own[tag][name] if kind == "out" else shared[name] for name, kind in params]
+            err = fn(*(_build.ptr(a) if isinstance(a, torch.Tensor) else a for a in args),
                      _build.stream_ptr(dev))
             _build.check(err, f"{kernel} ({tag})")
 

@@ -2,14 +2,15 @@
 
 Each hand-written kernel against its plain PyTorch version at small shapes,
 including ragged lengths and an n that is no multiple of the tiles; the
-lse modes of K3 and K5 (K3 at lengths 0, 1, 64, 65 and n; K11 with
-all-dead key tiles between live ones and a row with no live key); the
-attention backwards K4, K8 (each against both of its plain versions; K4
-also at K3's edge lengths) and K9 alone and through autograd (K3's lse mode ->
-K4, K5's lse mode -> K8, K7's lse mode -> K9); the generic grouped conv1d K10 and the
-key-masked head-layout attention K11; one tiny DiT, UNetT and MMDiT forward
-(also at the dim-768 widths and with qk-norm) and one tiny training step of
-each backbone through the kernels against the CPU plain path.
+lse modes of K3, K5 and K7 (K3 at lengths 0, 1, 64, 65 and n, K7 at 1, 63,
+64, 65, n - 1 and n; K11 with all-dead key tiles between live ones and a
+row with no live key); the attention backwards K4, K8 (each against both of
+its plain versions; K4 also at K3's edge lengths) and K9 alone and through
+autograd (K3's lse mode -> K4, K5's lse mode -> K8, K7's lse mode -> K9);
+the generic grouped conv1d K10 (every padded width at k 1, 2, 4 and 31) and
+the key-masked head-layout attention K11; one tiny DiT, UNetT and MMDiT
+forward (also at the dim-768 widths and with qk-norm) and one tiny training
+step of each backbone through the kernels against the CPU plain path.
 Run on a GPU machine with:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -331,6 +332,32 @@ def test_flash_attention_lse_kernel(dev, n, length):
     assert bool((lse[1, :, tile_end:] == NEG_INF).all())
 
 
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 199, 200])
+def test_flash_attention_kernel_edges(dev, length):
+    """K7 and its lse mode at n = 200 (no multiple of 64) and lengths at the
+    tile edges: every row of a live q tile against the plain version (the
+    rows past the length inside it are computed over the live keys, with
+    their real lse, which K9 reads), the q tiles wholly past the length
+    exactly 0 with lse -1e30."""
+    n = 200
+    rng = np.random.default_rng(length + 13)
+    q, k, v = (_bf16(rng, (2, 16, n, 64), dev) for _ in range(3))
+    lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)
+    _build.reset_launches()
+    out = flash_attention_fwd(q, k, v, lengths)
+    out_lse, lse = flash_attention_fwd(q, k, v, lengths, return_lse=True)
+    assert _build.launches() == {"flash_attention": 1, "flash_attention_lse": 1}
+    assert torch.equal(out, out_lse)
+    want, want_lse = flash_attention_fwd_ref(q.float(), k.float(), v.float(), lengths,
+                                             return_lse=True)
+    tile_end = -(-length // 64) * 64
+    for i, end in enumerate((n, tile_end)):
+        assert float((out[i, :, :end].float() - want[i, :, :end]).abs().max()) <= 2e-2
+        assert float((lse[i, :, :end] - want_lse[i, :, :end]).abs().max()) <= 1e-3
+    assert not out[1, :, tile_end:].any()
+    assert bool((lse[1, :, tile_end:] == NEG_INF).all())
+
+
 @pytest.mark.parametrize("n,length", [(64, 1), (100, 37), (1024, 777), (4224, 3001)])
 def test_flash_attention_bwd_kernel(dev, n, length):
     """K9 against its plain version from K7's saved output and lse, dO zero
@@ -423,6 +450,25 @@ def test_grouped_conv1d_kernel(dev, n, width, k):
     assert _build.launches() == {"grouped_conv1d": 1}
     ref = grouped_conv1d_ref(x.float(), w.float(), bias.float(), 16)
     assert _live_max(out, ref, torch.full((2,), n, device=dev)) <= 3e-2
+
+
+@pytest.mark.parametrize("width", [8, 16, 24, 48, 64, 120, 128])
+@pytest.mark.parametrize("k", [1, 2, 4, 31])
+def test_grouped_conv1d_kernel_widths(dev, width, k):
+    """K10 at every padded width (resident weights, and the ring of tap
+    chunks at W >= 64, k = 31), at an n below k (k > 2) and at an n that is
+    no multiple of the row tile: max-abs <= 3e-2 against the plain version."""
+    rng = np.random.default_rng(width * 32 + k)
+    c = 16 * width
+    w = _bf16(rng, (k, width, c), dev, 1.0 / np.sqrt(width * k))
+    bias = _bf16(rng, (c,), dev, 0.1)
+    for n in (max(1, k - 2), 200):
+        x = _bf16(rng, (2, n, c), dev)
+        _build.reset_launches()
+        out = grouped_conv1d(x, w, bias, 16)
+        assert _build.launches() == {"grouped_conv1d": 1}
+        ref = grouped_conv1d_ref(x.float(), w.float(), bias.float(), 16)
+        assert _live_max(out, ref, torch.full((2,), n, device=dev)) <= 3e-2
 
 
 def test_grouped_conv1d_autograd_launches_k10(dev):
