@@ -24,8 +24,9 @@ Phases (any failure raises, and the script exits non-zero):
    dead keys mid-sequence, SDPA with a boolean mask as yardstick; and, with
    its lse mode, joint 1124, no multiple of 64, and 1152 with four
    consecutive all-dead key tiles mid-row); K6,
-   RMSNorm ([2, 1024, 1024], and qk-norm's per-head rows [2, 16, 4096, 64]
-   and [2, 16, 256, 64]; F.rms_norm as yardstick); K7, head-layout
+   RMSNorm ([2, 1024, 1024], [2, 1024, 768], and qk-norm's per-head rows
+   [2, 16, 4096, 64], also read in place as the head view of q in a fused
+   qkv projection, and [2, 16, 256, 64]; F.rms_norm as yardstick); K7, head-layout
    attention (n = 1024, 4224, lengths [n, 777]: every row of a live q tile,
    the rows past the length inside the last one included, against the plain
    version, dead q tiles exactly 0; SDPA as yardstick). K7's lse
@@ -597,11 +598,14 @@ def check_attention_bias(rng, dev) -> dict:
     return out_row
 
 
-# K6's phase-2 shapes: the UNetT's pre-norm rows, and qk-norm's per-head rows
-# (b = 2 with CFG, 16 heads of 64) of the audio stream at the 4096 cap and of
-# the text stream, where most of K6's launches land (1408 a generate at the
-# qk-norm MMDiT), with the bf16 weight the inference params hold
-RMS_SHAPES = ((2, 1024, 1024), (2, 16, 4096, 64), (2, 16, 256, 64))
+# K6's phase-2 shapes: the UNetT's pre-norm rows, the dim-768 presets' rows,
+# and qk-norm's per-head rows (b = 2 with CFG, 16 heads of 64) of the audio
+# stream at the 4096 cap and of the text stream, where most of K6's launches
+# land (1408 a generate at the qk-norm MMDiT), with the bf16 weight the
+# inference params hold; the audio rows also as the model hands them to K6,
+# the head view of q inside the fused [2, 4096, 3 * 1024] projection
+RMS_SHAPES = (((2, 1024, 1024), False), ((2, 1024, 768), False), ((2, 16, 4096, 64), False),
+              ((2, 16, 4096, 64), True), ((2, 16, 256, 64), False))
 
 
 def check_rms_norm(rng, dev) -> dict:
@@ -610,9 +614,14 @@ def check_rms_norm(rng, dev) -> dict:
     from f5tts_tpu_torch.ops.adaln_norm import rms_norm, rms_norm_ref
 
     out_row = None
-    for shape in RMS_SHAPES:
+    for shape, view in RMS_SHAPES:
         d = shape[-1]
-        x = torch.from_numpy((2 * rng.standard_normal(shape)).astype(np.float32)).to(dev, torch.bfloat16)
+        if view:
+            b, h, n, _ = shape
+            proj = torch.from_numpy((2 * rng.standard_normal((b, n, 3 * h * d))).astype(np.float32))
+            x = proj.to(dev, torch.bfloat16)[..., :h * d].view(b, n, h, d).transpose(1, 2)
+        else:
+            x = torch.from_numpy((2 * rng.standard_normal(shape)).astype(np.float32)).to(dev, torch.bfloat16)
         w = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(dev, torch.bfloat16)
         out = rms_norm(x, w, 1e-8)
         ref = rms_norm_ref(x.float(), w.float(), 1e-8)
@@ -624,7 +633,8 @@ def check_rms_norm(rng, dev) -> dict:
         wall = wall_ms(lambda: rms_norm(x, w, 1e-8))
         plain = time_ms(lambda: rms_norm_ref(x, w, 1e-8), reps=2)
         lib = time_ms(lambda: F.rms_norm(x, (d,), w, 1e-8))
-        log(f"  rms_norm {list(shape)} bf16, bf16 weight, eps 1e-8: max_abs_err {err:.3e} (tol "
+        what = f"{list(shape)}{' (head view of q in a fused qkv projection)' if view else ''}"
+        log(f"  rms_norm {what} bf16, bf16 weight, eps 1e-8: max_abs_err {err:.3e} (tol "
             f"{TOL['rms_norm']}), {ms:.4f} ms (eager call {wall:.4f} ms), bound {bound:.4f} ms "
             f"(bytes), plain {plain:.4f} ms, F.rms_norm {lib:.4f} ms")
         out_row = merge_rows(out_row, {"max_abs_err": err, "ms": ms, "plain_ms": plain,

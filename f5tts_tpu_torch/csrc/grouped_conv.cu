@@ -1,22 +1,5 @@
-// K2: ConvPositionEmbedding, one same-padded grouped conv1d (64 channels a
-// group, k <= 31) + bias + length mask + Mish per launch.
-//
-// Replaces f5tts_tpu/ops/grouped_conv.py:168 _cpe_kernel. The module is two
-// launches of this kernel with the intermediate activation rounded to bf16 in
-// device memory between them, as the Pallas kernel rounds it
-// (grouped_conv.py:180-184); recomputing conv1 over a 15-row halo inside one
-// launch would cost 47% more conv1 work at 64-row tiles, against 4 MB of
-// round trip at n = 1024.
-//
-// Bound: tensor-core operations. 2 convs * 2*n*64*31*c flops (8.3 GFLOP at
-// n = 1024, c = 1024, ~8.4 us at 989 TFLOP/s) against ~6 MB of bytes.
-// Design: one 128-thread block per (64-row tile, group, batch). The tile's
-// input rows plus the 30-row halo sit in shared memory as bf16, with rows at
-// or past the length and outside [0, n) zeroed; each of the k taps is a
-// [64 x 64] @ [64 x 64] product on mma.sync with f32 accumulators in
-// registers, the tap's weights staged transposed through shared memory.
-// Weights stay in the JAX package's WIO layout (k, 64, c). Loads are
-// synchronous; a cp.async/TMA weight pipeline and wgmma are later work.
+// K10: the generic same-padded grouped conv1d + bias, and K2, the
+// ConvPositionEmbedding conv, as two modes of one persistent wgmma pipeline.
 //
 // K10: the generic same-padded grouped conv1d + bias, any W = c / groups
 // channels a group with W % 8 == 0 and W <= 128, 1 <= k <= 31, any n.
@@ -55,12 +38,35 @@
 //    (taking A from registers, ldmatrix at the shifted row, would write a
 //    wgmma's input registers while a group is in flight: ptxas then
 //    serialises every wgmma of the kernel, note C7513).
+//
+// K2: one same-padded grouped conv1d (64 channels a group, odd k <= 31) +
+// bias + length mask + Mish per launch: the LENGTH + MISH mode of K10's
+// pipeline below. Replaces f5tts_tpu/ops/grouped_conv.py:168 _cpe_kernel.
+// The module is two launches with the intermediate activation rounded to
+// bf16 in device memory between them, as the Pallas kernel rounds it
+// (grouped_conv.py:180-184). The mode adds to K10's walk:
+//  - the x-tile copy zero-fills rows at or past length[b] (the input mask),
+//    as it zero-fills rows outside [0, n);
+//  - the block walks only live tiles (first output row < length[b]),
+//    counted from the lengths; it stores zeros over its share of the dead
+//    tiles and issues no copy or product for them;
+//  - the epilogue takes the accumulator + bias in f32, gives 0 at rows at or
+//    past the length, applies Mish in f32 (softplus as jax.nn.softplus
+//    computes it) and rounds once to bf16: the Pallas body's arithmetic.
+// Bound: tensor-core operations. 2 convs * 2 * length * 64 * k * c flops
+// (8.3 GFLOP at length 1024, c = 1024, k = 31: 0.0084 ms at 989 TFLOP/s)
+// against ~6 MB of bytes. A group's 31 taps of 64 x 64 weights (253,952
+// bytes) do not fit beside two x buffers, so each block computes
+// GC_CPE_NP of the group's 64 output channels: 32 (m64n32k16 products, the
+// group split over two blocks that read the same x tiles) keeps its taps
+// resident (126,976 bytes); 64 streams them through K10's two-slot ring of
+// tap chunks (11 taps a chunk, 3 chunks a tile). The split measured 7-22%
+// faster than the ring (`scripts/kernel_ab.py --define GC_CPE_NP=64`), and
+// copying the resident taps in four groups, the first tile's products
+// starting as each lands, 1-3% slower than one group.
 #include "wgmma.cuh"
 
-#define CV_W 64     // channels per group
-#define CV_BM 64    // output rows per block
-#define CV_MAXK 31
-#define CV_LDS 72
+#define GC_MAXK 31
 
 __device__ __forceinline__ float mish_f32(float v) {
     // softplus as jax.nn.softplus computes it: max(v, 0) + log1p(exp(-|v|))
@@ -68,111 +74,8 @@ __device__ __forceinline__ float mish_f32(float v) {
     return v * tanhf(sp);
 }
 
-__global__ void __launch_bounds__(128) conv_mish_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ bias,
-    const int* __restrict__ lengths, bf16* __restrict__ y, int n, int c, int ksize) {
-    const int r0 = blockIdx.x * CV_BM;
-    const int gi = blockIdx.y;
-    const int b = blockIdx.z;
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t4 = lane & 3;
-    const int len = min(max(lengths[b], 0), n);
-    const int lead = (ksize - 1) / 2;
-    const int rows_in = CV_BM + ksize - 1;
-    const size_t cg = (size_t)gi * CV_W;
-
-    if (r0 >= len) {  // masked rows: mish(0) = 0
-        for (int i = tid; i < CV_BM * 8; i += 128) {
-            const int row = r0 + (i >> 3);
-            if (row < n)
-                *reinterpret_cast<uint4*>(y + ((size_t)b * n + row) * c + cg + (i & 7) * 8) =
-                    make_uint4(0, 0, 0, 0);
-        }
-        return;
-    }
-
-    __shared__ __align__(16) bf16 sX[(CV_BM + CV_MAXK - 1) * CV_LDS];
-    __shared__ __align__(16) bf16 sW[CV_W * CV_LDS];  // tap weights, [out][in]
-
-    for (int i = tid; i < rows_in * 8; i += 128) {
-        const int r = i >> 3, col = (i & 7) * 8;
-        const int src = r0 - lead + r;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (src >= 0 && src < len)
-            v = *reinterpret_cast<const uint4*>(x + ((size_t)b * n + src) * c + cg + col);
-        *reinterpret_cast<uint4*>(sX + r * CV_LDS + col) = v;
-    }
-
-    float acc[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-    for (int tap = 0; tap < ksize; ++tap) {
-        __syncthreads();  // sW of the previous tap is consumed (and sX is ready)
-        // w[tap, in, gi*64 + out] -> sW[out][in], input channels paired
-        const bf16* wt = w + (size_t)tap * CV_W * c + cg;
-        for (int i = tid; i < 32 * 8; i += 128) {
-            const int ip = i & 31, o0 = (i >> 5) * 8;
-            float a[8], bb[8];
-            unpack8(*reinterpret_cast<const uint4*>(wt + (size_t)(2 * ip) * c + o0), a);
-            unpack8(*reinterpret_cast<const uint4*>(wt + (size_t)(2 * ip + 1) * c + o0), bb);
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-                *reinterpret_cast<uint32_t*>(sW + (o0 + j) * CV_LDS + 2 * ip) =
-                    pack_bf16x2(a[j], bb[j]);
-        }
-        __syncthreads();
-
-        const bf16* x_lo = sX + (warp * 16 + g + tap) * CV_LDS + t4 * 2;
-        const bf16* x_hi = x_lo + 8 * CV_LDS;
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-            uint32_t a[4];
-            a[0] = lds32(x_lo + kk * 16);
-            a[1] = lds32(x_hi + kk * 16);
-            a[2] = lds32(x_lo + kk * 16 + 8);
-            a[3] = lds32(x_hi + kk * 16 + 8);
-#pragma unroll
-            for (int nt = 0; nt < 8; ++nt) {
-                const bf16* wr = sW + (nt * 8 + g) * CV_LDS + kk * 16 + t4 * 2;
-                mma_16816(acc[nt], a, lds32(wr), lds32(wr + 8));
-            }
-        }
-    }
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int row = r0 + warp * 16 + g + r * 8;
-        if (row >= n) continue;
-        bf16* yr = y + ((size_t)b * n + row) * c + cg + t4 * 2;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-            const int col = nt * 8 + t4 * 2;
-            float v0 = 0.f, v1 = 0.f;
-            if (row < len) {
-                v0 = mish_f32(acc[nt][2 * r] + __bfloat162float(bias[cg + col]));
-                v1 = mish_f32(acc[nt][2 * r + 1] + __bfloat162float(bias[cg + col + 1]));
-            }
-            *reinterpret_cast<uint32_t*>(yr + nt * 8) = pack_bf16x2(v0, v1);
-        }
-    }
-}
-
-extern "C" int f5_conv_mish_bf16(const void* x, const void* w, const void* bias,
-                                 const void* lengths, void* y, int b, int n, int c,
-                                 int ksize, void* stream) {
-    if (b > 0 && n > 0) {
-        dim3 grid((n + CV_BM - 1) / CV_BM, c / CV_W, b);
-        conv_mish_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-            (const bf16*)x, (const bf16*)w, (const bf16*)bias, (const int*)lengths,
-            (bf16*)y, n, c, ksize);
-    }
-    return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
-// K10: generic grouped conv1d + bias
+// The pipeline: K10's mode, and K2's LENGTH + MISH mode
 // ---------------------------------------------------------------------------
 
 #ifndef GC_NWG
@@ -189,6 +92,7 @@ struct GcPlan {
     int chunks;     // ceil(k / tc); 1: every tap stays resident
     int x_rows;     // rows of an x tile: 64 * warpgroups + k - 1, rounded up to 8
     int x_bytes;    // bytes of one x buffer: x_rows * WP * 2
+    int b;          // batch rows (K2 counts its live tiles from their lengths)
 };
 
 // d[64 x N] += A[64 x 16] B[16 x N], A K-major and B N-major in shared
@@ -332,22 +236,27 @@ __device__ __forceinline__ uint64_t gc_desc(uint32_t addr, uint32_t lbo) {
            ((uint64_t)(128 >> 4) << 32);
 }
 
-template <int WP>
+// WP: the group's input width rounded up to 16; NP: the output channels a
+// block computes (WP, or half of it where K2 splits a group over two
+// blocks); CPE: K2's LENGTH + MISH mode (lengths, dead tiles, Mish).
+template <int WP, int NP, bool CPE>
 __global__ void __launch_bounds__(GC_NWG * 128) grouped_conv1d_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ bias,
-    bf16* __restrict__ y, const GcPlan p) {
+    const int* __restrict__ lengths, bf16* __restrict__ y, const GcPlan p) {
     constexpr int NT = GC_NWG * 128, BM = GC_NWG * 64;
-    constexpr int KC = WP / 16;      // 16-deep slices of a tap
-    constexpr int CM = WP / 8;       // 8-channel groups (core matrices along a side)
-    constexpr int TAP = WP * WP * 2; // bytes of one tap's weights
-    constexpr int LBO = CM * 128;    // weights: bytes between 8-input-channel groups
+    constexpr int KC = WP / 16;       // 16-deep slices of a tap
+    constexpr int CM = WP / 8;        // 8-input-channel groups (core matrices along K)
+    constexpr int CN = NP / 8;        // 8-output-channel groups (core matrices along N)
+    constexpr int TAP = WP * NP * 2;  // bytes of one tap's weights
+    constexpr int LBO = CN * 128;     // weights: bytes between 8-input-channel groups
     extern __shared__ __align__(16) uint8_t gc_smem[];
     uint8_t* smem = align1024(gc_smem);
     const uint32_t sX = smem_u32(smem);  // two x buffers, then the weight slots
     const uint32_t sW = sX + 2 * p.x_bytes;
     const uint32_t x_lbo = p.x_rows * 16;  // x: bytes between 8-channel planes
 
-    const int gi = blockIdx.y;
+    const int gi = blockIdx.y / (WP / NP);
+    const int co = (blockIdx.y % (WP / NP)) * NP;  // this block's first output channel
     const int tid = threadIdx.x;
     const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
     const int g = lane >> 2, t4 = lane & 3;
@@ -355,47 +264,89 @@ __global__ void __launch_bounds__(GC_NWG * 128) grouped_conv1d_kernel(
     const size_t cg = (size_t)gi * p.width;
     const bool resident = p.chunks == 1;
 
+    // K2: rows [0, seq_len(b)) of batch row b are live
+    auto seq_len = [&](int bb) { return CPE ? min(max(lengths[bb], 0), p.n) : p.n; };
+    // tile t of the walk -> its batch row and first output row: K10 walks
+    // every tile, K2 only the live ones (those of batch row 0, then row 1, ...)
+    auto locate = [&](int t, int& bb, int& r0) {
+        if constexpr (CPE) {
+            bb = 0;
+            for (int lt; t >= (lt = (seq_len(bb) + BM - 1) / BM); ++bb) t -= lt;
+            r0 = t * BM;
+        } else {
+            bb = t / p.row_tiles;
+            r0 = (t - bb * p.row_tiles) * BM;
+        }
+    };
     // x rows [r0 - lead, r0 - lead + x_rows) of a tile as CM planes of 8
     // channels, row after row (16 bytes a row): rows tap .. tap + 63 of a
     // plane are whole core matrices at any tap, so a K-major descriptor
     // starting 16 * tap bytes in is the tap's shifted A; thread i copies row
-    // i % 8 of an 8-row group, 8 rows of 64 contiguous bytes a warp
+    // i % 8 of an 8-row group, 8 rows of 64 contiguous bytes a warp. Rows
+    // outside [0, n) (K2: outside [0, length)) are zero-filled.
     auto load_x = [&](int tile, int buf) {
-        const int bb = tile / p.row_tiles;
-        const int r0 = (tile - bb * p.row_tiles) * BM - lead;
+        int bb, r0;
+        locate(tile, bb, r0);
+        r0 -= lead;
+        const int lim = seq_len(bb);
         const bf16* xb = x + (size_t)bb * p.n * p.c + cg;
         const uint32_t dst = sX + buf * p.x_bytes;
         for (int i = tid; i < p.x_rows * CM; i += NT) {
             const int ch = (i >> 3) % CM, r = ((i >> 3) / CM) * 8 + (i & 7);
             const int row = r0 + r;
-            const bool ok = row >= 0 && row < p.n && ch * 8 < p.width;
+            const bool ok = row >= 0 && row < lim && ch * 8 < p.width;
             cp_async16(dst + ch * x_lbo + r * 16, xb + (ok ? (size_t)row * p.c + ch * 8 : 0), ok);
         }
     };
     // the taps of one chunk: byte 16 * i of a slot is input channel i % 8 of
-    // core matrix (i / 8) % (CM * CM) of tap i / (8 * CM * CM), that is 8
-    // output channels of w[tap, in, cg + ...]; zero lanes past the width
+    // core matrix (i / 8) % (CM * CN) of tap i / (8 * CM * CN), that is 8
+    // output channels of w[tap, in, cg + co + ...]; zero lanes past the width
     auto load_w = [&](int chunk, int slot) {
         const int t0 = chunk * p.tc, taps = min(p.tc, p.ksize - t0);
         const uint32_t dst = sW + slot * p.tc * TAP;
-        for (int i = tid; i < taps * CM * CM * 8; i += NT) {
-            const int r8 = i & 7, cm = (i >> 3) % (CM * CM), tap = (i >> 3) / (CM * CM);
-            const int in = (cm / CM) * 8 + r8, out = (cm % CM) * 8;
+        for (int i = tid; i < taps * CM * CN * 8; i += NT) {
+            const int r8 = i & 7, cm = (i >> 3) % (CM * CN), tap = (i >> 3) / (CM * CN);
+            const int in = (cm / CN) * 8 + r8, out = co + (cm % CN) * 8;
             const bool ok = in < p.width && out < p.width;
             cp_async16(dst + i * 16,
                        w + (ok ? ((size_t)(t0 + tap) * p.width + in) * p.c + cg + out : 0), ok);
         }
     };
 
-    // this block's tiles: blockIdx.x, + gridDim.x, ... (the host launches no
-    // more blocks than tiles, so every block has one and none returns early)
-    const int my_tiles = (p.tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+    // this block's tiles of the walk: blockIdx.x, + gridDim.x, ... (K10: the
+    // host launches no more blocks than tiles, so every block has one; a K2
+    // block past the live tiles has none). The first weights do not depend
+    // on the lengths, so K2 starts their copy before it reads them.
+    if constexpr (CPE) load_w(0, 0);
+    int walk = p.tiles;
+    if constexpr (CPE) {
+        walk = 0;
+        for (int bb = 0; bb < p.b; ++bb) walk += (seq_len(bb) + BM - 1) / BM;
+    }
+    const int my_tiles = blockIdx.x < walk ? (walk - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
     const int steps = my_tiles * p.chunks;
-    load_w(0, 0);
-    load_x(blockIdx.x, 0);
+    if (steps > 0) {
+        if constexpr (!CPE) load_w(0, 0);
+        load_x(blockIdx.x, 0);
+    }
     cp_async_commit();
+    if constexpr (CPE) {
+        // zeros over this block's share of the dead tiles (mish(0) = 0), while
+        // the first copies are in flight
+        for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+            const int bb = t / p.row_tiles, r0 = (t - bb * p.row_tiles) * BM;
+            if (r0 < seq_len(bb)) continue;
+            bf16* yb = y + (size_t)bb * p.n * p.c + cg + co;
+            for (int i = tid; i < BM * CN; i += NT) {
+                const int row = r0 + i / CN;
+                if (row < p.n)
+                    *reinterpret_cast<uint4*>(yb + (size_t)row * p.c + (i % CN) * 8) =
+                        make_uint4(0, 0, 0, 0);
+            }
+        }
+    }
 
-    float acc[WP / 2];
+    float acc[NP / 2];
     for (int s = 0; s < steps; ++s) {
         const int jt = s / p.chunks, chunk = s - jt * p.chunks;
         const int tile = blockIdx.x + jt * gridDim.x;
@@ -409,7 +360,7 @@ __global__ void __launch_bounds__(GC_NWG * 128) grouped_conv1d_kernel(
         cp_async_commit();
         if (chunk == 0) {
 #pragma unroll
-            for (int i = 0; i < WP / 2; ++i) acc[i] = 0.f;
+            for (int i = 0; i < NP / 2; ++i) acc[i] = 0.f;
         }
         // this warpgroup's 64 rows: A of tap t starts at row 64 * wg + t
         const uint32_t xa = sX + (jt & 1) * p.x_bytes + wg * 64 * 16;
@@ -420,7 +371,7 @@ __global__ void __launch_bounds__(GC_NWG * 128) grouped_conv1d_kernel(
         for (int tap = chunk * p.tc; tap < t1; ++tap) {
 #pragma unroll
             for (int kc = 0; kc < KC; ++kc)
-                gc_wgmma<WP>(acc, gc_desc(xa + tap * 16 + kc * 2 * x_lbo, x_lbo),
+                gc_wgmma<NP>(acc, gc_desc(xa + tap * 16 + kc * 2 * x_lbo, x_lbo),
                              gc_desc(ws + tap * TAP + kc * 2 * LBO, LBO));
         }
         wg_commit();
@@ -428,37 +379,47 @@ __global__ void __launch_bounds__(GC_NWG * 128) grouped_conv1d_kernel(
         fence_regs(acc);
         if (chunk + 1 < p.chunks) continue;
 
-        // epilogue: + bias in f32, rounded once; rows < n, lanes < width
-        const int bb = tile / p.row_tiles;
-        const int row0 = (tile - bb * p.row_tiles) * BM + wg * 64 + warp * 16 + g;
+        // epilogue: + bias in f32 (K2: 0 past the length, else Mish), rounded
+        // once; rows < n, lanes < width
+        int bb, row0;
+        locate(tile, bb, row0);
+        row0 += wg * 64 + warp * 16 + g;
+        const int len = seq_len(bb);
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
             const int row = row0 + r * 8;
             if (row >= p.n) continue;
-            bf16* yr = y + ((size_t)bb * p.n + row) * p.c + cg + t4 * 2;
+            bf16* yr = y + ((size_t)bb * p.n + row) * p.c + cg + co + t4 * 2;
 #pragma unroll
-            for (int i = 0; i < CM; ++i) {
-                const int col = i * 8 + t4 * 2;
-                if (i * 8 >= p.width) break;
-                const float v0 = acc[4 * i + 2 * r] + __bfloat162float(bias[cg + col]);
-                const float v1 = acc[4 * i + 2 * r + 1] + __bfloat162float(bias[cg + col + 1]);
+            for (int i = 0; i < CN; ++i) {
+                const int col = co + i * 8 + t4 * 2;
+                if (co + i * 8 >= p.width) break;
+                float v0 = acc[4 * i + 2 * r] + __bfloat162float(bias[cg + col]);
+                float v1 = acc[4 * i + 2 * r + 1] + __bfloat162float(bias[cg + col + 1]);
+                if constexpr (CPE) {
+                    v0 = row < len ? mish_f32(v0) : 0.f;
+                    v1 = row < len ? mish_f32(v1) : 0.f;
+                }
                 *reinterpret_cast<uint32_t*>(yr + i * 8) = pack_bf16x2(v0, v1);
             }
         }
     }
+    if constexpr (CPE) cp_async_wait_all();  // a block without live tiles drains its weight copy
 }
 
 // Plan the call (resident weights where they fit, else the ring), size the
 // grid to the blocks the card holds at once, and launch.
-template <int WP>
-static int launch_grouped_conv1d(const bf16* x, const bf16* w, const bf16* bias, bf16* y, int b,
-                                 int n, int c, int width, int ksize, cudaStream_t stream) {
-    constexpr int BM = GC_NWG * 64, TAP = WP * WP * 2;
+template <int WP, int NP, bool CPE>
+static int launch_grouped_conv1d(const bf16* x, const bf16* w, const bf16* bias,
+                                 const int* lengths, bf16* y, int b, int n, int c, int width,
+                                 int ksize, cudaStream_t stream) {
+    constexpr int BM = GC_NWG * 64, TAP = WP * NP * 2;
     GcPlan p;
     p.n = n;
     p.c = c;
     p.width = width;
     p.ksize = ksize;
+    p.b = b;
     p.row_tiles = (n + BM - 1) / BM;
     p.tiles = b * p.row_tiles;
     p.x_rows = (BM + ksize - 1 + 7) / 8 * 8;
@@ -472,7 +433,7 @@ static int launch_grouped_conv1d(const bf16* x, const bf16* w, const bf16* bias,
         p.chunks = (ksize + p.tc - 1) / p.tc;
     }
     const int smem = fixed + (p.chunks == 1 ? 1 : 2) * p.tc * TAP;
-    auto kernel = grouped_conv1d_kernel<WP>;
+    auto kernel = grouped_conv1d_kernel<WP, NP, CPE>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
@@ -481,28 +442,51 @@ static int launch_grouped_conv1d(const bf16* x, const bf16* w, const bf16* bias,
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, GC_NWG * 128, smem);
     if (err != cudaSuccess) return (int)err;
-    const int groups = c / width;
-    const int parts = max(1, min(p.tiles, max(1, per_sm) * sms / groups));
-    kernel<<<dim3(parts, groups), GC_NWG * 128, smem, stream>>>(x, w, bias, y, p);
+    const int blocks_y = c / width * (WP / NP);
+    const int parts = max(1, min(p.tiles, max(1, per_sm) * sms / blocks_y));
+    kernel<<<dim3(parts, blocks_y), GC_NWG * 128, smem, stream>>>(x, w, bias, lengths, y, p);
     return (int)cudaGetLastError();
 }
 
 extern "C" int f5_grouped_conv1d_bf16(const void* x, const void* w, const void* bias, void* y,
                                       int b, int n, int c, int width, int ksize, void* stream) {
-    if (width <= 0 || width % 8 || width > 128 || c % width || ksize < 1 || ksize > CV_MAXK)
+    if (width <= 0 || width % 8 || width > 128 || c % width || ksize < 1 || ksize > GC_MAXK)
         return (int)cudaErrorInvalidValue;
     if (b <= 0 || n <= 0) return (int)cudaGetLastError();
     const bf16 *xp = (const bf16*)x, *wp = (const bf16*)w, *bp = (const bf16*)bias;
     bf16* yp = (bf16*)y;
     cudaStream_t s = (cudaStream_t)stream;
+#define GC_CASE(WP) \
+    case WP: return launch_grouped_conv1d<WP, WP, false>(xp, wp, bp, nullptr, yp, b, n, c, width, ksize, s)
     switch ((width + 15) / 16 * 16) {
-        case 16: return launch_grouped_conv1d<16>(xp, wp, bp, yp, b, n, c, width, ksize, s);
-        case 32: return launch_grouped_conv1d<32>(xp, wp, bp, yp, b, n, c, width, ksize, s);
-        case 48: return launch_grouped_conv1d<48>(xp, wp, bp, yp, b, n, c, width, ksize, s);
-        case 64: return launch_grouped_conv1d<64>(xp, wp, bp, yp, b, n, c, width, ksize, s);
-        case 80: return launch_grouped_conv1d<80>(xp, wp, bp, yp, b, n, c, width, ksize, s);
-        case 96: return launch_grouped_conv1d<96>(xp, wp, bp, yp, b, n, c, width, ksize, s);
-        case 112: return launch_grouped_conv1d<112>(xp, wp, bp, yp, b, n, c, width, ksize, s);
-        default: return launch_grouped_conv1d<128>(xp, wp, bp, yp, b, n, c, width, ksize, s);
+        GC_CASE(16);
+        GC_CASE(32);
+        GC_CASE(48);
+        GC_CASE(64);
+        GC_CASE(80);
+        GC_CASE(96);
+        GC_CASE(112);
+        default: return launch_grouped_conv1d<128, 128, false>(xp, wp, bp, nullptr, yp, b, n, c, width, ksize, s);
     }
+#undef GC_CASE
+}
+
+// ---------------------------------------------------------------------------
+// K2: the LENGTH + MISH mode, 64 channels a group
+// ---------------------------------------------------------------------------
+
+#ifndef GC_CPE_NP
+#define GC_CPE_NP 32  // output channels a block: 32 keeps the taps resident, 64 takes the ring
+#endif
+
+// y = mish(mask(conv(mask(x)) + bias)), rows >= lengths[b] of y zero.
+extern "C" int f5_conv_mish_bf16(const void* x, const void* w, const void* bias,
+                                 const void* lengths, void* y, int b, int n, int c, int ksize,
+                                 void* stream) {
+    if (c % 64 || ksize < 1 || ksize > GC_MAXK || ksize % 2 == 0)
+        return (int)cudaErrorInvalidValue;
+    if (b <= 0 || n <= 0) return (int)cudaGetLastError();
+    return launch_grouped_conv1d<64, GC_CPE_NP, true>(
+        (const bf16*)x, (const bf16*)w, (const bf16*)bias, (const int*)lengths, (bf16*)y, b, n, c,
+        64, ksize, (cudaStream_t)stream);
 }

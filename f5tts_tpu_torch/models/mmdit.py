@@ -136,7 +136,8 @@ def _joint_attention(p: m.Params, x: torch.Tensor, c: torch.Tensor, heads: int,
     under the joint key mask kmask [b, n + nt], split; dead rows of each
     stream zeroed after its to_out. Fused params without qk-norm: the flat
     qkv of both streams, roped from `joint_tabs`, by K5. Otherwise the head
-    layout: each stream's q/k/v split into heads, qk-norm, audio RoPE on the
+    layout: each stream's q/k/v split into heads (under qk-norm K6 reads q
+    and k in place from the projections' head views), audio RoPE on the
     audio rows and text RoPE on the text rows (`rope_angles`), the joint
     sequence by K11, heads merged. The context_pre_only block has no
     to_out_c and returns no text stream."""
@@ -151,11 +152,13 @@ def _joint_attention(p: m.Params, x: torch.Tensor, c: torch.Tensor, heads: int,
         else:
             qkv_x = [m.linear(p[name], x) for name in ("to_q", "to_k", "to_v")]
             qkv_c = [m.linear(p[name], c) for name in ("to_q_c", "to_k_c", "to_v_c")]
-        (q, k, v), (cq, ck, cv) = ([m.split_heads(t, heads) for t in stream]
-                                  for stream in (qkv_x, qkv_c))
-        if "q_norm" in p:
-            q, k = m.rms_norm(p["q_norm"], q), m.rms_norm(p["k_norm"], k)
-            cq, ck = m.rms_norm(p["c_q_norm"], cq), m.rms_norm(p["c_k_norm"], ck)
+        qk = (qkv_x[0], qkv_x[1], qkv_c[0], qkv_c[1])
+        if "q_norm" in p:  # K6 reads q and k in place from the projections
+            q, k, cq, ck = (m.rms_norm(p[name], m.head_view(t, heads)) for name, t in
+                            zip(("q_norm", "k_norm", "c_q_norm", "c_k_norm"), qk))
+        else:
+            q, k, cq, ck = (m.split_heads(t, heads) for t in qk)
+        v, cv = m.split_heads(qkv_x[2], heads), m.split_heads(qkv_c[2], heads)
         q, k, cq, ck = (apply_rotary(t, rope_angles) for t in (q, k, cq, ck))
         o = m.merge_heads(masked_flash_attention(
             torch.cat([q, cq], dim=2), torch.cat([k, ck], dim=2), torch.cat([v, cv], dim=2),

@@ -261,6 +261,13 @@ def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
     return t.reshape(b, n, heads, hd // heads).transpose(1, 2).contiguous()
 
 
+def head_view(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """[b, n, h*d] (last dimension contiguous) -> its [b, h, n, d] view, no
+    copy: K6 reads qk-norm's q and k in place from the projection."""
+    b, n, hd = t.shape
+    return t.view(b, n, heads, hd // heads).transpose(1, 2)
+
+
 def merge_heads(t: torch.Tensor) -> torch.Tensor:
     """[b, h, n, d] -> [b, n, h*d]."""
     b, h, n, d = t.shape
@@ -281,10 +288,10 @@ def self_attention(p: Params, x: torch.Tensor, heads: int, rope_tabs: tuple,
     4096-frame cap: 4097 rows padded to 4224), with unfused
     to_q/to_k/to_v, or under qk-norm (`q_norm` / `k_norm` leaves, at every
     n). RoPE goes on the flat projections before the head split, or under
-    qk-norm after the split and a per-head RMSNorm (K6, eps 1e-6), on the
-    first `pe_attn_head` heads. Both layouts are differentiable: K4 is K3's
-    backward; under grad the head layout runs K7's lse mode and K9 (without
-    grad, K7 alone)."""
+    qk-norm after a per-head RMSNorm (K6, eps 1e-6, reading q and k in
+    place from the projection's head view), on the first `pe_attn_head`
+    heads. Both layouts are differentiable: K4 is K3's backward; under grad
+    the head layout runs K7's lse mode and K9 (without grad, K7 alone)."""
     b, n, _ = x.shape
     lens = (torch.full((b,), n, dtype=torch.int32, device=x.device) if lengths is None
             else lengths.to(torch.int32))
@@ -297,8 +304,8 @@ def self_attention(p: Params, x: torch.Tensor, heads: int, rope_tabs: tuple,
         else:
             q, k, v = (linear(p[name], x) for name in ("to_q", "to_k", "to_v"))
         if "q_norm" in p:
-            q, k = split_heads(q, heads), split_heads(k, heads)
-            q, k = rms_norm(p["q_norm"], q), rms_norm(p["k_norm"], k)
+            q = rms_norm(p["q_norm"], head_view(q, heads))
+            k = rms_norm(p["k_norm"], head_view(k, heads))
             q = apply_rotary_partial_heads(q, rope_angles, pe_attn_head)
             k = apply_rotary_partial_heads(k, rope_angles, pe_attn_head)
         else:

@@ -7,7 +7,10 @@ hand-written kernel K1 (csrc/adaln_norm.cu, replacing the Pallas
 `adaln_norm_ref` for CPU tensors only. The DiT runs it 2 * depth + 1 times
 per ODE step. `rms_norm` launches K6 (the same file, replacing the Pallas
 `_rms_norm_kernel`) for CUDA tensors and `rms_norm_ref` for CPU tensors: the
-UNetT runs it 2 * depth + 1 times per ODE step. The JAX package keeps its
+UNetT runs it 2 * depth + 1 times per ODE step, qk-norm on q and k of every
+attention. K6 reads x in place where its last dimension is contiguous and
+its rows lie at up to three leading strides (qk-norm's head view of a
+projection) and writes a contiguous result. The JAX package keeps its
 kernel behind a switch that is off by default, because XLA fuses the RMS
 passes on a TPU; eager PyTorch does not, so the port always runs K6.
 
@@ -121,10 +124,11 @@ def _forward(x, scale, shift, eps):
 # ---------------------------------------------------------------------------
 
 def rms_norm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """Plain version: f32 mean of squares, (x * rstd) * w in f32."""
+    """Plain version: f32 mean of squares, (x * rstd) * w in f32; the result
+    contiguous, as K6 writes it."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,23 +136,54 @@ def _rms_fn():
     lib = _build.load("adaln_norm")
     fn = lib.f5_rms_norm_bf16
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+_MAX_ROWS = 2**31 - 2**16  # the kernel counts rows in 32-bit ints
+
+
+def _rms_rows(x) -> tuple[int, int, int, int, int, int] | None:
+    """(rows, n1, n2, s0, s1, s2): x's leading dimensions merged where their
+    strides allow, as at most three (sizes n0 * n1 * n2 = rows, strides in
+    elements), or None when more than three remain."""
+    dims = []
+    for size, stride in zip(x.shape[:-1], x.stride()[:-1]):
+        if size == 1:
+            continue
+        if dims and dims[-1][1] == stride * size:
+            dims[-1] = (dims[-1][0] * size, stride)
+        else:
+            dims.append((size, stride))
+    if len(dims) > 3:
+        return None
+    dims = [(1, 0)] * (3 - len(dims)) + dims
+    (n0, s0), (n1, s1), (n2, s2) = dims
+    return n0 * n1 * n2, n1, n2, s0, s1, s2
+
+
 def _rms_check(x, w):
+    """Refuse what K6 does not take; return `_rms_rows(x)`."""
     if x.dtype != torch.bfloat16 or w.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("rms_norm kernel takes a bf16 x and an f32 or bf16 weight")
-    if x.dim() < 2 or not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("rms_norm kernel takes a contiguous, 16-byte aligned [..., d] x")
+    if x.dim() < 2 or x.stride(-1) != 1 or x.data_ptr() % 16:
+        raise ValueError("rms_norm kernel takes a 16-byte aligned [..., d] x whose last "
+                         "dimension is contiguous")
     d = x.shape[-1]
     if d % 8 or d > _MAX_D:
         raise ValueError(f"rms_norm kernel needs d % 8 == 0 and d <= {_MAX_D}, got {d}")
+    rows = _rms_rows(x)
+    if rows is None or rows[0] > _MAX_ROWS or any(s % 8 for s in rows[3:]):
+        raise ValueError("rms_norm kernel takes rows 16-byte aligned at up to three leading "
+                         f"strides, at most {_MAX_ROWS} of them")
     if (w.shape != (d,) or not w.is_contiguous() or w.device != x.device
             or w.data_ptr() % 16):
         raise ValueError("rms_norm kernel takes a contiguous, 16-byte aligned [d] weight "
                          "on x's device")
+    return rows
 
 
 def rms_norm_bwd(x, w, dy, eps: float = 1e-6):
@@ -171,8 +206,9 @@ class _RMSNorm(torch.autograd.Function):
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """x [..., d], w [d]. Kernel K6 on CUDA, plain on the CPU; differentiable
-    (`rms_norm_bwd`)."""
+    """x [..., d] (on the card: the last dimension contiguous, rows at up
+    to three leading strides), w [d]; a contiguous result. Kernel K6 on
+    CUDA, plain on the CPU; differentiable (`rms_norm_bwd`)."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _RMSNorm.apply(x, w, eps)
     return _rms_forward(x, w, eps)
@@ -183,10 +219,10 @@ def _rms_forward(x, w, eps):
         return rms_norm_ref(x, w, eps)
     if x.device.type != "cuda":
         raise ValueError(f"rms_norm: unsupported device {x.device}")
-    _rms_check(x, w)
-    out = torch.empty_like(x)
+    rows = _rms_check(x, w)
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
     err = _rms_fn()(_build.ptr(x), _build.ptr(w), int(w.dtype == torch.float32), _build.ptr(out),
-                    x.numel() // x.shape[-1], x.shape[-1], eps, _build.stream_ptr(x.device))
+                    *rows, x.shape[-1], eps, _build.stream_ptr(x.device))
     _build.check(err, "rms_norm")
     _build.count("rms_norm")
     return out

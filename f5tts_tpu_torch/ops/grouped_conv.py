@@ -15,7 +15,10 @@ file, replacing the Pallas `_grouped_conv_kernel` and its bias add) for CUDA
 tensors, `grouped_conv1d_ref` for CPU tensors. K10 takes W = c / groups
 channels a group with W % 8 == 0 and W <= 128, 1 <= k <= 31, any n (a
 persistent wgmma pipeline: the group's taps resident in shared memory where
-they fit, else a ring of tap chunks).
+they fit, else a ring of tap chunks). K2 is that pipeline's LENGTH + MISH
+mode: the input rows past the length zero-filled as they are copied, only
+the live row tiles walked (the dead ones stored as zeros), and the
+epilogue's bias, mask and Mish in f32 with one rounding.
 
 Weights keep the JAX package's WIO layout: w [k, c // groups, c].
 
@@ -122,12 +125,14 @@ def _check(x, ws, bs, lengths, groups):
     b, _, c = x.shape
     if c % groups or c // groups != GROUP_WIDTH:
         raise ValueError(f"conv_pos_embedding kernel needs {GROUP_WIDTH} channels a group")
+    if x.data_ptr() % 16:
+        raise ValueError("conv_pos_embedding kernel needs a 16-byte aligned x")
     for w, bias in zip(ws, bs):
         k = w.shape[0]
         if (w.shape != (k, GROUP_WIDTH, c) or k > MAX_K or k % 2 == 0
-                or not w.is_contiguous() or w.dtype != torch.bfloat16):
-            raise ValueError("conv_pos_embedding kernel takes contiguous bf16 WIO "
-                             f"weights [k <= {MAX_K} odd, {GROUP_WIDTH}, c]")
+                or not w.is_contiguous() or w.dtype != torch.bfloat16 or w.data_ptr() % 16):
+            raise ValueError("conv_pos_embedding kernel takes contiguous, 16-byte aligned bf16 "
+                             f"WIO weights [k <= {MAX_K} odd, {GROUP_WIDTH}, c]")
         if bias.shape != (c,) or not bias.is_contiguous() or bias.dtype != torch.bfloat16:
             raise ValueError("conv_pos_embedding kernel takes a contiguous bf16 [c] bias")
         if w.device != x.device or bias.device != x.device:

@@ -130,6 +130,11 @@ def union_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
+# K2's kernel as a trace names it: the LENGTH + MISH mode of K10's template,
+# 32 output channels a block (64 with -DGC_CPE_NP=64)
+K2_NAMES = ("grouped_conv1d_kernel<64, 32, true>", "grouped_conv1d_kernel<64, 64, true>")
+
+
 def device_time_by_class(prof, classes, top: int = 0) -> dict:
     """From a torch.profiler trace: device busy ms (union of kernel
     intervals), kernel count and {class: {ms, launches}} by the first class

@@ -2,7 +2,7 @@
 from another checkout, in turns on one card.
 
     python -m f5tts_tpu_torch.scripts.kernel_ab --other PATH
-        [--kernel K3|K3_lse|K4|K5|K5_lse|K7|K7_lse|K8|K9|K10|K11 ...]
+        [--kernel K1|K2|K3|K3_lse|K4|K5|K5_lse|K6|K7|K7_lse|K8|K9|K10|K11 ...]
         [--define NAME=VALUE ...] [--out FILE]
 
 Kernels: K3 and K3_lse (the flat fused QKV + RoPE attention over keys <
@@ -10,20 +10,26 @@ length, and its lse mode), K4 (its dQKV backward), K5 and K5_lse (the
 key-masked flat attention and its lse mode), K8 (the key-masked dQKV
 backward), K7 and K7_lse (the head-layout attention over keys < length,
 and its lse mode), K9 (the head-layout backward from a saved lse), K10 (the
-generic grouped conv1d + bias) and K11 (the key-masked head-layout
-attention); `--kernel` may be given several times. Both checkouts' source
-(`f5tts_tpu_torch/csrc/attention.cu` for K3, K5, K7 and K11,
-`attention_bwd.cu` for K4, K8 and K9, `grouped_conv.cu` for K10) are
+generic grouped conv1d + bias), K11 (the key-masked head-layout
+attention), K2 (one conv of the conv-position module: conv + bias, length
+mask, Mish), K6 (RMSNorm) and K1 (AdaLN norm); `--kernel` may be given
+several times. Both checkouts' source (`f5tts_tpu_torch/csrc/attention.cu`
+for K3, K5, K7 and K11, `attention_bwd.cu` for K4, K8 and K9,
+`grouped_conv.cu` for K10 and K2, `adaln_norm.cu` for K6 and K1) are
 compiled with the port's nvcc flags into a temporary directory (this
 checkout's with `-D` of each `--define`, so `--other .` compares two builds
 of one source) and loaded with ctypes. Each build's C entry is called with
 the signature its own source declares: the pointer parameters are matched
 by name (qkv, cos_t, sin_t, lengths / kmask, q, k, v, o / out, lse, dout,
-dqkv, dq, dk, dv, k_rot, delta; x, w, bias, y), the const ones shared by
-both builds, the others (outputs and scratch) one set a build, and the int
-and float parameters by name too (b, n, heads, sm_scale / scale; c, width,
-ksize). So an entry that takes a scratch the other does not (the k_rot of
-K3 and K5, which older sources lack) is timed whole against it. The saved
+dqkv, dq, dk, dv, k_rot, delta; x, w, bias, y, out, scale, shift), the const ones shared
+by both builds, the others (outputs and scratch) one set a build, and the
+int and float parameters by name too (b, n, heads, sm_scale / scale; c,
+width, ksize; rows, n1, n2, s0, s1, s2, d, eps, w_is_f32, scale_stride,
+shift_stride). So an entry
+that takes a scratch the other does not (the k_rot of K3 and K5, which
+older sources lack) is timed whole against it, and a K6 build that takes
+no strides (no `s0`) is given the contiguous copy of a strided view, made
+outside the timing. The saved
 `out` / `o` and `lse` of the backwards come from this checkout's K3 / K5 /
 K7 lse mode.
 
@@ -34,10 +40,17 @@ K5_lse and K8 at joint n = 1152, 3200, 4352 (1024 / 3072 / 4096 audio + 128 /
 lengths [n, 777], K9's dO nonzero on every row; K11 on head-layout q, k, v
 at joint n = 1152 and 4352 with K5's masks; K10 at [2, 1024, 768] and
 [2, 4096, 768] (16 groups of 48, k = 31) and [2, 1024, 384] (16 groups of
-24, k = 4). At each shape the entries are timed by CUDA-graph replay
+24, k = 4) and [1, 1024 / 4096, 1024] (16 groups of 64, k = 31: K2's conv
+without its mask and Mish); K2 at [1, 1024, 1024] with lengths 1024 and
+777, [2, 1024, 1024] (the CFG batch) and [1, 4096, 1024] with length 3001;
+K6 with a bf16 weight at [2, 16, 4096, 64], the same rows as the head view
+of q in a [2, 4096, 3072] projection, [2, 16, 256, 64], [2, 1024, 1024] and
+[2, 1024, 768]; K1 at [2, 1024 / 4096, 1024] with the scale and shift
+views of a [2, 6 * 1024] modulation. At each shape the entries are timed by
+CUDA-graph replay
 (`common.time_ms`) in the order other, this, this, other. The two outputs
 must agree: the forwards' within chip_smoke's 2e-2 (their lse within 1e-3;
-K10's output within 3e-2), the backwards' within its backward tolerance
+K10's and K2's output within 3e-2), the backwards' within its backward tolerance
 (rel-L2 <= 1e-2, max-abs <= 2e-2 of the largest entry; two designs may take
 delta at different rounding points).
 Whether they are bit equal is reported, and each build's `-Xptxas -v` lines
@@ -62,12 +75,17 @@ import torch
 
 from f5tts_tpu_torch.ops import _build
 from f5tts_tpu_torch.ops import attention as att
+from f5tts_tpu_torch.ops.adaln_norm import _rms_rows
 from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
 from f5tts_tpu_torch.scripts.common import gpu_name_and_limit, time_ms
 
 THIS = Path(__file__).resolve().parents[2]
 JOINT = ((1024, 128), (3072, 128), (4096, 256))
-CONV = ((2, 1024, 768, 31), (2, 4096, 768, 31), (2, 1024, 384, 4))  # b, n, c, k (16 groups)
+CONV = ((2, 1024, 768, 31), (2, 4096, 768, 31), (2, 1024, 384, 4),  # b, n, c, k (16 groups)
+        (1, 1024, 1024, 31), (1, 4096, 1024, 31))
+CPE = ((1, 1024, 1024, 1024), (1, 1024, 1024, 777), (2, 1024, 1024, 1024),  # b, n, c, length
+       (1, 4096, 1024, 3001))
+RMS = ((2, 16, 4096, 64), "view", (2, 16, 256, 64), (2, 1024, 1024), (2, 1024, 768))
 K3_GLOBALS = r"fused_qkv_rope_attn_(kernel|lse_kernel|krot_kernel)"
 K7_GLOBALS = r"_Z\d+flash_attn_(lse_)?kernel"  # not masked_flash_attn_kernel
 # kernel: (source, C entry, a pattern found in each of its __global__ names,
@@ -92,10 +110,14 @@ KERNELS = {
            ("dq", "dk", "dv")),
     "K11": ("attention.cu", "f5_masked_flash_attn_bf16", "masked_flash_attn_kernel",
             JOINT[::2], ("out",)),
-    "K10": ("grouped_conv.cu", "f5_grouped_conv1d_bf16", "grouped_conv1d_kernel", CONV,
-            ("y",)),
+    "K10": ("grouped_conv.cu", "f5_grouped_conv1d_bf16", r"grouped_conv1d_kernelILi\d+ELi\d+ELb0|"
+            r"_Z\d+grouped_conv1d_kernelILi\d+EEv", CONV, ("y",)),
+    "K2": ("grouped_conv.cu", "f5_conv_mish_bf16", r"conv_mish_kernel|grouped_conv1d_kernel\w+Lb1E",
+           CPE, ("y",)),
+    "K6": ("adaln_norm.cu", "f5_rms_norm_bf16", "rms_norm_kernel", RMS, ("out",)),
+    "K1": ("adaln_norm.cu", "f5_adaln_norm_bf16", "adaln_norm_kernel", (1024, 4096), ("out",)),
 }
-CTYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
+CTYPES = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong}
 H = 16
 
 
@@ -110,7 +132,8 @@ def load(kernel: str, checkout: Path, out_dir: Path, tag: str, defines=()):
     params = []
     for decl in sig.group(1).split(",")[:-1]:  # the last is the stream
         name = decl.split()[-1].lstrip("*")
-        kind = ("const" if "const" in decl else "out") if "*" in decl else decl.split()[0]
+        kind = ("const" if "const" in decl else "out") if "*" in decl else " ".join(
+            decl.split()[:-1])
         params.append((name, kind))
     log = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
                           *(f"-D{d}" for d in defines), "-o", str(so), str(src)],
@@ -157,6 +180,39 @@ def inputs(kernel: str, shape, dev) -> tuple[dict, str]:
     def bf16(*s):
         return torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, torch.bfloat16)
 
+    if kernel == "K1":
+        n, d = shape, 1024
+        mods = bf16(2, 6 * d) * 0.05
+        t = {"x": bf16(2, n, d), "scale": mods[:, d:2 * d], "shift": mods[:, :d], "b": 2, "n": n,
+             "d": d, "scale_stride": 6 * d, "shift_stride": 6 * d, "eps": 1e-6}
+        t["out"] = torch.empty_like(t["x"])
+        return t, f"[2, {n}, {d}], scale / shift views of a [2, {6 * d}] modulation"
+    if kernel == "K6":
+        view = shape == "view"
+        shape = (2, 16, 4096, 64) if view else shape
+        d = shape[-1]
+        if view:  # q's head view inside a fused [b, n, 3 * h * 64] projection
+            x = bf16(2, 4096, 3 * H * 64)[..., :H * 64].view(2, 4096, H, 64).transpose(1, 2)
+        else:
+            x = bf16(*shape)
+        w = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        t = {"x": x, "x_contig": x.contiguous(), "w": w, "w_is_f32": 0, "d": d, "eps": 1e-6,
+             "out": torch.empty(shape, dtype=torch.bfloat16, device=dev)}
+        t.update(zip(("rows", "n1", "n2", "s0", "s1", "s2"), _rms_rows(x)))
+        what = (f"{list(shape)} as the head view of q in [2, 4096, 3072]" if view
+                else f"{list(shape)}") + ", bf16 weight"
+        return t, what
+    if kernel == "K2":
+        b, n, c, length = shape
+        lim = 1.0 / math.sqrt(64 * 31)
+        t = {"x": bf16(b, n, c), "b": b, "n": n, "c": c, "ksize": 31,
+             "lengths": torch.tensor([length] + [n] * (b - 1), dtype=torch.int32, device=dev)}
+        for name, s in (("w", (31, 64, c)), ("bias", (c,))):
+            t[name] = torch.from_numpy(rng.uniform(-lim, lim, s).astype(np.float32)).to(
+                dev, torch.bfloat16)
+        t["y"] = torch.empty_like(t["x"])
+        return t, f"[{b}, {n}, {c}], 16 groups of 64, k 31, lengths {t['lengths'].tolist()}"
     if kernel == "K10":
         b, n, c, k = shape
         width = c // 16
@@ -219,7 +275,7 @@ def agreement(name: str, a: torch.Tensor, w: torch.Tensor) -> dict:
     a, w = a.float(), w.float()
     diff, top = float((a - w).abs().max()), float(w.abs().max())
     rel = float((a - w).norm() / w.norm())
-    if name in ("out", "lse", "y"):  # a forward's output and row lse, K10's output
+    if name in ("out", "lse", "y"):  # a forward's output and row lse, K10's and K2's output
         agree = diff <= {"out": 2e-2, "lse": 1e-3, "y": 3e-2}[name]
     else:
         agree = rel <= 1e-2 and diff <= 2e-2 * top
@@ -241,7 +297,10 @@ def run_kernel(kernel: str, other: Path, defines, tmp: Path, dev) -> tuple[dict,
 
         def call(tag):
             fn, params, _ = built[tag]
-            args = [own[tag][name] if kind == "out" else shared[name] for name, kind in params]
+            names = {name for name, _ in params}
+            args = [own[tag][name] if kind == "out" else
+                    shared["x_contig"] if name == "x" and "x_contig" in shared
+                    and "s0" not in names else shared[name] for name, kind in params]
             err = fn(*(_build.ptr(a) if isinstance(a, torch.Tensor) else a for a in args),
                      _build.stream_ptr(dev))
             _build.check(err, f"{kernel} ({tag})")

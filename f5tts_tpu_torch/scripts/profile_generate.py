@@ -28,6 +28,8 @@ from pathlib import Path
 
 import torch
 
+from f5tts_tpu_torch.scripts.common import K2_NAMES
+
 # total frames a request asks for, by model: each lands in the bucket it
 # names (the UNetT's 1013 + 1 time token in the 1024-row bucket; 4096 is the
 # cap, 4224 rows for the UNetT)
@@ -44,7 +46,7 @@ CLASSES = (
     ("flash_attention", ("flash_attn_kernel",)),
     ("adaln_norm", ("adaln_norm_kernel",)),
     ("rms_norm", ("rms_norm_kernel",)),
-    ("conv_pos_embedding", ("conv_mish_kernel",)),
+    ("conv_pos_embedding", K2_NAMES),  # before K10's, whose kernel it is a mode of
     ("grouped_conv1d", ("grouped_conv1d_kernel",)),
     ("gemm", ("gemm", "Gemm", "cutlass", "xmma", "nvjet", "cublas")),
     ("fft", ("fft", "FFT")),

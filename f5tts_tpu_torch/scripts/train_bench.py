@@ -39,6 +39,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from f5tts_tpu_torch.scripts.common import K2_NAMES
+
 CELLS = {"F5TTS_v1_Base": "16x1024,4x3072,37x1024", "E2TTS_Base": "16x1024,4x4096,37x1024",
          "MMDiT_Base": "16x1024,4x3072,37x1024"}
 CLASSES = (
@@ -56,7 +58,7 @@ CLASSES = (
                           "flash_bwd_dkdv_kernel")),
     ("adaln_norm K1", ("adaln_norm_kernel",)),
     ("rms_norm K6", ("rms_norm_kernel",)),
-    ("conv_pos K2", ("conv_mish_kernel",)),
+    ("conv_pos K2", K2_NAMES),
     ("gemm", ("gemm", "Gemm", "cutlass", "xmma", "nvjet", "cublas")),
     ("conv (cuDNN, K2/ConvNeXt backward)", ("conv", "Conv", "cudnn", "dgrad", "wgrad")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),

@@ -12,7 +12,9 @@ replace, in interpret mode, on the CPU.
   `flash_attention` in both bodies (`SINGLE_PASS_MAX_N` set to 0 for the
   online-softmax loop), live rows;
 - K6 `rms_norm_ref` against `_rms_norm_fwd_pallas` at eps 1e-8, and its
-  autograd against the JAX `rms_norm_fused` VJP;
+  autograd against the JAX `rms_norm_fused` VJP; at qk-norm's head width
+  in bf16 (one bf16 ulp); on the head view of a projection, bit-equal to
+  the `split_heads` copy; `_rms_check` on that view and on what it refuses;
 - the wrappers take the plain versions for CPU tensors and count no launch.
 All f32 on numpy-seeded inputs; differences are sum orders (atol 2e-5, as
 `tests/test_torch_ops.py` holds K3).
@@ -166,6 +168,44 @@ def test_rms_norm_plain_matches_pallas():
                                                                 1e-8)), atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("n", [37, 256])
+def test_rms_norm_head_rows_bf16_match_pallas(n):
+    """K6's plain version at qk-norm's head width (d = 64), bf16 x and a bf16
+    weight, against `_rms_norm_fwd_pallas` (interpret mode) and the JAX
+    `rms_norm_ref` on the [b * h, n, 64] rows: both round one f32 result
+    to bf16, so they may differ by one bf16 ulp (2 ** -7 relative)."""
+    rng = np.random.default_rng(n)
+    b, h, d = 2, 4, 64
+    xb = torch.from_numpy((2 * rng.standard_normal((b, h, n, d))).astype(np.float32)).bfloat16()
+    wb = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).bfloat16()
+    jx = jnp.asarray(xb.float().numpy(), jnp.bfloat16).reshape(b * h, n, d)
+    jw = jnp.asarray(wb.float().numpy(), jnp.bfloat16)
+    got = _np(tan.rms_norm(xb, wb, 1e-6).float()).reshape(b * h, n, d)
+    for want in (jan._rms_norm_fwd_pallas(jx, jw, 1e-6), jan.rms_norm_ref(jx, jw, 1e-6)):
+        np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)), rtol=2 ** -7,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_rms_norm_on_head_view_equals_split_heads_copy(fused):
+    """qk-norm hands K6 the [b, h, n, 64] view of the projection (q of a
+    fused qkv, or its own projection) instead of a `split_heads` copy: the
+    port's rms_norm gives the same bits on both, contiguous."""
+    from f5tts_tpu_torch.models import modules as tm
+
+    rng = np.random.default_rng(5)
+    b, n, h, d = 2, 37, 4, 64
+    proj = torch.from_numpy(rng.standard_normal((b, n, (3 if fused else 1) * h * d))
+                            .astype(np.float32)).bfloat16()
+    q = proj.chunk(3, dim=-1)[0] if fused else proj
+    w = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).bfloat16()
+    view = tm.head_view(q, h)
+    assert view.data_ptr() == q.data_ptr() and not view.is_contiguous()
+    got = tan.rms_norm(view, w, 1e-6)
+    assert got.is_contiguous()
+    assert torch.equal(got, tan.rms_norm(tm.split_heads(q, h), w, 1e-6))
+
+
 def test_rms_norm_gradients_match_jax():
     rng = np.random.default_rng(8)
     x = rng.standard_normal((2, 64, 128)).astype(np.float32)
@@ -215,6 +255,21 @@ def test_rms_norm_argument_checks():
         tan._rms_check(torch.zeros(1, 8, 100, dtype=bf), torch.ones(100))
     with pytest.raises(ValueError):  # weight of another width
         tan._rms_check(torch.zeros(1, 8, 128, dtype=bf), torch.ones(64))
+    with pytest.raises(ValueError):  # a strided last dimension
+        tan._rms_check(torch.zeros(1, 8, 256, dtype=bf)[..., ::2], torch.ones(128))
+    with pytest.raises(ValueError):  # rows 264 bytes apart: not 16-byte aligned
+        tan._rms_check(torch.zeros(1, 8, 132, dtype=bf)[..., :128], torch.ones(128))
+    with pytest.raises(ValueError):  # four leading strides that do not merge
+        tan._rms_check(torch.zeros(2, 3, 4, 5, 128, dtype=bf).permute(3, 2, 1, 0, 4),
+                       torch.ones(128))
     # what the UNetT passes is accepted: bf16 x, f32 or bf16 weight
     tan._rms_check(torch.zeros(2, 64, 1024, dtype=bf), torch.ones(1024))
     tan._rms_check(torch.zeros(2, 64, 1024, dtype=bf), torch.ones(1024, dtype=bf))
+    # and what qk-norm passes: the head view of a fused qkv projection, read
+    # in place at three leading strides
+    qkv = torch.zeros(2, 37, 3 * 4 * 64, dtype=bf)
+    view = qkv.chunk(3, dim=-1)[1].view(2, 37, 4, 64).transpose(1, 2)
+    assert tan._rms_check(view, torch.ones(64, dtype=bf)) == (2 * 4 * 37, 4, 37, 37 * 768, 64,
+                                                               768)
+    assert tan._rms_check(torch.zeros(2, 64, 1024, dtype=bf), torch.ones(1024)) == (
+        128, 1, 128, 0, 0, 1024)

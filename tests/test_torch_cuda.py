@@ -8,7 +8,9 @@ row with no live key); the attention backwards K4, K8 (each against both of
 its plain versions; K4 also at K3's edge lengths) and K9 alone and through
 autograd (K3's lse mode -> K4, K5's lse mode -> K8, K7's lse mode -> K9);
 the generic grouped conv1d K10 (every padded width at k 1, 2, 4 and 31) and
-the key-masked head-layout attention K11; one tiny DiT, UNetT and MMDiT
+the key-masked head-layout attention K11; K2's length edges (0, 1, 64, 65,
+128, 129, n) and K6 at qk-norm's head rows, at d = 768 and on the strided
+head view of a projection; one tiny DiT, UNetT and MMDiT
 forward (also at the dim-768 widths and with qk-norm) and one tiny training
 step of each backbone through the kernels against the CPU plain path.
 Run on a GPU machine with:
@@ -108,6 +110,30 @@ def test_conv_pos_kernel(dev, n, length):
     assert not out[1, length:].any()
 
 
+# K2's edges: lengths 0 (a wholly dead batch row), 1, 64, 65, 128 (a tile's
+# end), 129 (one row in the next tile) and n, at n no multiple of 64
+K2_EDGES = [0, 1, 64, 65, 128, 129, 200]
+
+
+@pytest.mark.parametrize("n,length", [(200, e) for e in K2_EDGES] + [(4096, 3001), (4096, 4096)])
+def test_conv_pos_kernel_length_edges(dev, n, length):
+    """K2's LENGTH + MISH mode at b = 2 (row 0 full, row 1 at the edge): live
+    rows within 3e-2 of the plain version, dead rows (and the dead tiles it
+    walks past) exactly 0, two launches of the one kernel counted once."""
+    rng = np.random.default_rng(n + length)
+    x = _bf16(rng, (2, n, 1024), dev)
+    w1, w2 = _bf16(rng, (31, 64, 1024), dev, 0.02), _bf16(rng, (31, 64, 1024), dev, 0.02)
+    b1, b2 = _bf16(rng, (1024,), dev, 0.02), _bf16(rng, (1024,), dev, 0.02)
+    lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)
+    _build.reset_launches()
+    out = conv_pos_embedding(x, w1, b1, w2, b2, lengths, 16)
+    assert _build.launches() == {"conv_pos_embedding": 1}
+    ref = conv_pos_embedding_ref(x.float(), w1.float(), b1.float(), w2.float(), b2.float(),
+                                 lengths, 16)
+    assert _live_max(out, ref, lengths) <= 3e-2
+    assert not out[1, length:].any()
+
+
 # K3's edges: lengths 0, 1, 64 (a tile's end), 65 (one key in the next
 # tile) and n, at n no multiple of 64
 K3_EDGES = [(200, 0), (200, 1), (200, 64), (200, 65), (200, 200)]
@@ -200,6 +226,45 @@ def test_rms_norm_kernel(dev, n, w_dtype):
     assert _build.launches() == {"rms_norm": 1}
     ref = rms_norm_ref(x.float(), w.float(), 1e-8)
     assert _live_max(out, ref, torch.full((2,), n, device=dev)) <= 2e-2
+
+
+@pytest.mark.parametrize("n", [1, 37, 4096])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_kernel_head_rows(dev, n, w_dtype):
+    """K6 at qk-norm's per-head rows [2, 16, n, 64]."""
+    rng = np.random.default_rng(n + 5)
+    x = _bf16(rng, (2, 16, n, 64), dev, 2.0)
+    w = (1.0 + 0.1 * torch.from_numpy(rng.standard_normal(64).astype(np.float32))).to(dev, w_dtype)
+    out = rms_norm(x, w, 1e-6)
+    ref = rms_norm_ref(x.float(), w.float(), 1e-6)
+    assert float((out.float() - ref).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("shape", [(2, 1024, 768), (3, 5, 768)])
+def test_rms_norm_kernel_d768(dev, shape):
+    """K6 at the dim-768 presets' rows (a warp a row, 3 vectors a lane)."""
+    rng = np.random.default_rng(shape[1])
+    x = _bf16(rng, shape, dev, 2.0)
+    w = _bf16(rng, (768,), dev, 0.1) + 1.0
+    out = rms_norm(x, w, 1e-8)
+    assert float((out.float() - rms_norm_ref(x.float(), w.float(), 1e-8)).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("n,fused", [(37, True), (4096, True), (200, False)])
+def test_rms_norm_kernel_strided_head_view(dev, n, fused):
+    """K6 reads the [b, h, n, 64] head view of a projection in place (q of a
+    fused [b, n, 3 * h * 64] qkv, or a [b, n, h * 64] one) and writes a
+    contiguous result bit-equal to K6 on the contiguous copy."""
+    rng = np.random.default_rng(n)
+    proj = _bf16(rng, (2, n, (3 if fused else 1) * 1024), dev, 2.0)
+    view = proj[..., :1024].view(2, n, 16, 64).transpose(1, 2)
+    w = _bf16(rng, (64,), dev, 0.1) + 1.0
+    _build.reset_launches()
+    out = rms_norm(view, w, 1e-6)
+    assert _build.launches() == {"rms_norm": 1}
+    assert out.is_contiguous() and out.shape == view.shape
+    assert torch.equal(out, rms_norm(view.contiguous(), w, 1e-6))
+    assert float((out.float() - rms_norm_ref(view.float(), w.float(), 1e-6)).abs().max()) <= 2e-2
 
 
 @pytest.mark.parametrize("n", [64, 200, 1152])

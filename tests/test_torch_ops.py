@@ -161,6 +161,28 @@ def test_conv_pos_plain_bf16_matches_pallas_interpret():
     np.testing.assert_allclose(_live(got, lengths), _live(want, lengths), atol=7e-2, rtol=1e-2)
 
 
+@pytest.mark.parametrize("length", [0, 1, 64, 65, 128, 129, 200])
+def test_conv_pos_plain_length_edges_match_pallas_and_xla(length):
+    """K2's LENGTH + MISH mode edges at n = 200 (no multiple of 64), b = 2:
+    row 0 full, row 1 live to `length` (0: a wholly dead row; 64 / 128 a
+    tile's end; 65 / 129 one row into the next). Live rows against the Pallas
+    body in interpret mode (bf16, tolerance as above) and `_xla_conv_pos`
+    (f32, 1e-4); dead rows exactly 0."""
+    x, w1, b1, w2, b2, _ = _cpe_inputs(n=200, seed=length)
+    lengths = np.array([200, length], np.int32)
+    got = _np(tgc.conv_pos_embedding(*map(_t, (x, w1, b1, w2, b2, lengths)), groups=2))
+    want = np.asarray(jgc._xla_conv_pos(*map(jnp.asarray, (x, w1, b1, w2, b2, lengths)), 2))
+    np.testing.assert_allclose(_live(got, lengths), _live(want, lengths), atol=1e-4, rtol=1e-5)
+    assert np.all(got[1, length:] == 0)
+    xb, w1b, w2b = (_t(a).to(torch.bfloat16) for a in (x, w1, w2))
+    got = _np(tgc.conv_pos_embedding(xb, w1b, _t(b1), w2b, _t(b2), _t(lengths), groups=2).float())
+    want = np.asarray(jgc.conv_pos_embedding_pallas(
+        *(jnp.asarray(np.asarray(a.float())) for a in (xb, w1b)), jnp.asarray(b1),
+        jnp.asarray(np.asarray(w2b.float())), jnp.asarray(b2), jnp.asarray(lengths), 2))
+    np.testing.assert_allclose(_live(got, lengths), _live(want, lengths), atol=7e-2, rtol=1e-2)
+    assert np.all(got[1, length:] == 0)
+
+
 # ---------------------------------------------------------------------------
 # K3: fused QKV + RoPE attention
 # ---------------------------------------------------------------------------
