@@ -11,9 +11,10 @@ Phases (any failure raises, and the script exits non-zero):
    plain version's time and, for attention, F.scaled_dot_product_attention's
    time as a yardstick (the port never calls it; for the lse modes of K3,
    K5 and K7, PyTorch's memory-efficient attention with
-   compute_log_sumexp=True). K3's lse mode (the training forward) at K3's
-   shapes: its output equal to K3's, its lse within 1e-3 of the plain
-   version's on live q tiles and exactly -1e30 past them.
+   compute_log_sumexp=True). K1 at [2, 1024, 1024] and the cap's [2, 4096,
+   1024]. K3's lse mode (the training forward) at K3's shapes: its output
+   equal to K3's, its lse within 1e-3 of the plain version's on live q
+   tiles and exactly -1e30 past them.
    The attention backward K4 (b = 2, h = 16, lengths [n, 777], n = 1024,
    3072, 4096) from K3's saved output and lse: dQKV rel-L2 and max-abs over
    live rows against both plain versions (the from-lse one it computes, then
@@ -47,9 +48,13 @@ Phases (any failure raises, and the script exits non-zero):
    boolean mask as the yardstick).
 3. The main path: InferencePipeline.infer at F5TTS_v1_Base + Vocos, random
    weights from a seed (the zero-initialised AdaLN, norm_out and proj_out
-   weights randomised), three requests, 16 NFE, CFG 2, sway -1. Every wav
-   must be finite and non-silent, and each 16-NFE generate must launch the
-   attention / AdaLN-norm / conv-position kernels 22*16 / 45*16 / 2*16 times.
+   weights randomised), three requests and the first again, 16 NFE, CFG 2,
+   sway -1. Every wav must be finite and non-silent. The pipeline replays
+   one CUDA graph a bucket: each capture must record the attention /
+   AdaLN-norm / conv-position kernels 22*16 / 45*16 / 2*16 times (one
+   generate), its eager warm-up launch as many, and a request in a captured
+   bucket add 0 to the host counter. The same holds in phases 7, 8, 13 and
+   14.
 4. The same weights cut to depth 2: cfm_sample (y0 given, 4 NFE, n = 1024)
    and Vocos on the card in bf16 (the kernels) against the CPU in f32 (the
    plain versions); the mel's rel-L2 over generated frames must be <= 3e-2.
@@ -94,9 +99,19 @@ Phases (any failure raises, and the script exits non-zero):
 15. Phase 4 at depth 2 for F5TTS_v1_Small, E2TTS_Small, MMDiT_Base with
     qk-norm, and the F5TTS_v1_Base DiT and E2TTS_Base UNetT with qk-norm
     (K7 at every n): mel rel-L2 <= 3e-2, the card run's launches exact.
+16. The graphed generate (`InferencePipeline.fused_generate`) against the
+    eager cfm_sample + Vocos on the same prepared request and seed, for
+    F5TTS_v1_Base, E2TTS_Base, MMDiT_Base and MMDiT_Base with qk-norm at
+    the 1024 bucket and the cap: bit-equal, or mel rel-L2 <= 1e-3 and wav
+    max-abs <= 1e-3; the capture's counts as phase 3 asks; the eager and
+    graphed walls (medians of 3 requests, in turns), the capture time and
+    the memory each graph's pool holds; then one
+    `f5tts_tpu_torch.eval.rtf_bench` line for F5TTS_v1_Base at 1024.
 
-Prints the `kernels` JSON line (launches: the inference and training paths
-of phases 3, 5, 7, 8, 10, 11, 13 and 14), the card's name and power limit,
+Prints the `kernels` JSON line (launches: what the card ran on the
+inference and training paths of phases 3, 5, 7, 8, 10, 11, 13 and 14, each
+graph replay counted with its capture's counts), the card's name and power
+limit,
 and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the repo's
 f5tts_tpu_torch package beside this file; imports nothing of JAX.
@@ -270,27 +285,35 @@ def phase_build() -> None:
 # ---------------------------------------------------------------------------
 
 def check_adaln(rng, dev) -> dict:
+    """K1 at the 1024 bucket's rows (the row of the kernels line) and at the
+    cap's, [2, 4096, 1024] (inputs from their own seed, so the later checks'
+    draws stay as they were)."""
     import torch
     from f5tts_tpu_torch.ops.adaln_norm import adaln_norm, adaln_norm_ref
 
-    b, n, d = 2, 1024, 1024
-    x = torch.from_numpy(rng.standard_normal((b, n, d)).astype(np.float32)).to(dev, torch.bfloat16)
-    mods = torch.from_numpy((0.05 * rng.standard_normal((b, 6 * d))).astype(np.float32))
-    mods = mods.to(dev, torch.bfloat16)
-    shift, scale = mods[:, :d], mods[:, d:2 * d]       # strided views, as in a block
-    out = adaln_norm(x, scale, shift)
-    ref = adaln_norm_ref(x.float(), scale.float(), shift.float())
-    torch.cuda.synchronize()
-    err = live_err(out, ref, torch.full((b,), n))
-    nbytes = 2 * b * n * d * 2 + 2 * b * d * 2
-    bound = max(nbytes / HBM_BYTES_PER_S, 8 * b * n * d / F32_FLOPS_PER_S) * 1e3
-    ms = time_ms(lambda: adaln_norm(x, scale, shift))
-    wall = wall_ms(lambda: adaln_norm(x, scale, shift))
-    plain = time_ms(lambda: adaln_norm_ref(x, scale, shift), reps=2)
-    log(f"  adaln_norm [2,1024,1024] bf16: max_abs_err {err:.3e} (tol {TOL['adaln_norm']}), "
-        f"{ms:.4f} ms (eager call {wall:.4f} ms), bound {bound:.4f} ms (bytes), plain {plain:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
-            "bound_by": "bytes", "library_ms": None}
+    out_row = None
+    for n, draw in ((1024, rng), (4096, np.random.default_rng(1))):
+        b, d = 2, 1024
+        x = torch.from_numpy(draw.standard_normal((b, n, d)).astype(np.float32))
+        x = x.to(dev, torch.bfloat16)
+        mods = torch.from_numpy((0.05 * draw.standard_normal((b, 6 * d))).astype(np.float32))
+        mods = mods.to(dev, torch.bfloat16)
+        shift, scale = mods[:, :d], mods[:, d:2 * d]       # strided views, as in a block
+        out = adaln_norm(x, scale, shift)
+        ref = adaln_norm_ref(x.float(), scale.float(), shift.float())
+        torch.cuda.synchronize()
+        err = live_err(out, ref, torch.full((b,), n))
+        nbytes = 2 * b * n * d * 2 + 2 * b * d * 2
+        bound = max(nbytes / HBM_BYTES_PER_S, 8 * b * n * d / F32_FLOPS_PER_S) * 1e3
+        ms = time_ms(lambda: adaln_norm(x, scale, shift))
+        wall = wall_ms(lambda: adaln_norm(x, scale, shift))
+        plain = time_ms(lambda: adaln_norm_ref(x, scale, shift), reps=2)
+        log(f"  adaln_norm [{b},{n},{d}] bf16: max_abs_err {err:.3e} (tol {TOL['adaln_norm']}), "
+            f"{ms:.4f} ms (eager call {wall:.4f} ms), bound {bound:.4f} ms (bytes), "
+            f"plain {plain:.4f} ms, {ms / bound:.2f}x the bound")
+        out_row = merge_rows(out_row, {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                                       "bound_ms": bound, "bound_by": "bytes", "library_ms": None})
+    return out_row
 
 
 def check_conv_pos(rng, dev) -> dict:
@@ -1006,10 +1029,48 @@ def make_pipeline(dev, backbone: str, arch, params, vocos_params):
                              dtype=torch.bfloat16, device=dev, backbone=backbone)
 
 
+def generate_launches(backbone: str, arch, flat: bool = True) -> dict:
+    """The kernel launches of one NFE-step generate at a dim-1024 preset;
+    `flat` False for the UNetT past the flat gate (the 4224-row cap: K7 in
+    K3's place). A step: the DiT's K3 a block, K1 two a block and the final
+    norm; the UNetT's K6 two a block and the final norm; the MMDiT's K1 four
+    a block, three in the context_pre_only last block and the final norm,
+    with qk-norm K11 in K5's place and K6 on q and k of both streams (four a
+    block); K2 once for cond and once for uncond."""
+    if backbone == "DiT":
+        step = {"fused_qkv_rope_attention": arch.depth, "adaln_norm": 2 * arch.depth + 1}
+    elif backbone == "UNetT":
+        attn = "fused_qkv_rope_attention" if flat else "flash_attention"
+        step = {attn: arch.depth, "rms_norm": 2 * arch.depth + 1}
+    else:
+        step = {"adaln_norm": 4 * (arch.depth - 1) + 3 + 1}
+        if arch.qk_norm:
+            step.update(masked_flash_attention=arch.depth, rms_norm=4 * arch.depth)
+        else:
+            step["fused_qkv_rope_attention_bias"] = arch.depth
+    step["conv_pos_embedding"] = 2
+    return {k: v * NFE for k, v in step.items()}
+
+
+def ran_launches(pipe, host: dict, replays_before: dict) -> dict:
+    """The launches the card ran since `replays_before` ({key: replays}):
+    the host counter's (eager calls, a capture's warm-up) and each graph
+    replay's, the counts its capture recorded."""
+    ran = dict(host)
+    for key, entry in pipe.graphs.items():
+        for name, c in entry.counts.items():
+            ran[name] = ran.get(name, 0) + c * (entry.replays - replays_before.get(key, 0))
+    return ran
+
+
 def run_requests(pipe, cases, gpu: str) -> dict:
     """Each case (text, total frames or None to estimate them, the launches
     one generate must make) through pipe.infer, every count set to 0 just
-    before the request and read just after; returns the summed launches."""
+    before the request and read just after. The pipeline replays one CUDA
+    graph a key: a request that needs a new one makes one eager warm-up
+    generate (its launches on the host counter) and records one generate's
+    launches on the new graph; a request in a captured key adds 0 to the
+    host counter. Returns the summed launches the card ran."""
     import torch
     from f5tts_tpu_torch.ops import _build
     from f5tts_tpu_torch.scripts.common import REF_TEXT, synthetic_ref_wav
@@ -1018,6 +1079,7 @@ def run_requests(pipe, cases, gpu: str) -> dict:
     total: dict[str, int] = {}
     for i, (text, frames, expect) in enumerate(cases):
         fix = None if frames is None else (frames + 0.5) * pipe.hop / pipe.sr
+        before = {key: entry.replays for key, entry in pipe.graphs.items()}
         torch.cuda.synchronize()
         _build.reset_launches()  # every count to 0 just before the request
         t0 = time.perf_counter()
@@ -1025,17 +1087,27 @@ def run_requests(pipe, cases, gpu: str) -> dict:
                                    cfg_strength=2.0, sway_sampling_coef=-1.0, fix_duration=fix)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = _build.launches()
+        host = _build.launches()
+        new = [(key, entry) for key, entry in pipe.graphs.items() if key not in before]
         secs = len(wave) / sr
         rms = float(np.sqrt(np.mean(np.square(wave)))) if wave.size else 0.0
+        captured = "; ".join(f"captured {key} in {entry.capture_s:.2f} s, pool "
+                             f"{entry.pool_bytes / 2**20:.1f} MiB, launches {entry.counts}"
+                             for key, entry in new) or "graph replayed"
         log(f"  request {i}: {secs:.3f} s of audio ({mel.shape[1]} frames), wall {wall:.4f} s, "
-            f"RTF {wall / max(secs, 1e-9):.5f}, rms {rms:.4f}, launches {counts} [{gpu}]")
+            f"RTF {wall / max(secs, 1e-9):.5f}, rms {rms:.4f}; host launches {host}; "
+            f"{captured} [{gpu}]")
         if not (wave.size and np.isfinite(wave).all() and np.isfinite(mel).all() and rms > 1e-4):
             raise AssertionError(f"request {i}: wav is empty, non-finite or silent")
-        if counts != expect:
-            raise AssertionError(f"request {i}: launches {counts}, expected {expect} for one "
-                                 f"{NFE}-NFE generate")
-        for name, c in counts.items():
+        for key, entry in new:
+            if entry.counts != expect:
+                raise AssertionError(f"request {i}: the capture of {key} recorded launches "
+                                     f"{entry.counts}, expected {expect} for one {NFE}-NFE "
+                                     "generate")
+        if host != ({k: v * len(new) for k, v in expect.items()} if new else {}):
+            raise AssertionError(f"request {i}: host launches {host}, expected one warm-up "
+                                 f"generate a new capture ({len(new)}) and 0 for a replay")
+        for name, c in ran_launches(pipe, host, before).items():
             total[name] = total.get(name, 0) + c
     return total
 
@@ -1043,35 +1115,29 @@ def run_requests(pipe, cases, gpu: str) -> dict:
 def phase_main_path(dev, arch, params, vocos_params, gpu: str) -> dict:
     from f5tts_tpu_torch.scripts.common import REQUESTS
 
-    expect = {"fused_qkv_rope_attention": arch.depth * NFE,
-              "adaln_norm": (2 * arch.depth + 1) * NFE, "conv_pos_embedding": 2 * NFE}
+    expect = generate_launches("DiT", arch)
     pipe = make_pipeline(dev, "DiT", arch, params, vocos_params)
-    return run_requests(pipe, [(text, None, expect) for text in REQUESTS], gpu)
+    # the first request again: a replay of its captured graph, 0 host launches
+    return run_requests(pipe, [(text, None, expect) for text in REQUESTS + REQUESTS[:1]], gpu)
 
 
 def phase_unett(dev, arch, params, vocos_params, gpu: str) -> dict:
     """E2TTS_Base: 1013 frames + the time token fill the 1024-row bucket (K3);
-    the 4096-frame cap is 4097 rows padded to 4224, past the flat gate (K7).
-    RMSNorm: two a block and the final norm, every step."""
+    the 4096-frame cap is 4097 rows padded to 4224, past the flat gate (K7)."""
     from f5tts_tpu_torch.scripts.common import REQUESTS
 
-    per_step = {"rms_norm": 2 * arch.depth + 1, "conv_pos_embedding": 2}
-    short = dict(per_step, fused_qkv_rope_attention=arch.depth)
-    cap = dict(per_step, flash_attention=arch.depth)
     pipe = make_pipeline(dev, "UNetT", arch, params, vocos_params)
-    return run_requests(pipe, [(REQUESTS[0], 1013, {k: v * NFE for k, v in short.items()}),
-                               (REQUESTS[1], 4096, {k: v * NFE for k, v in cap.items()})], gpu)
+    return run_requests(pipe, [(REQUESTS[0], 1013, generate_launches("UNetT", arch)),
+                               (REQUESTS[1], 4096, generate_launches("UNetT", arch, False))],
+                        gpu)
 
 
 def phase_mmdit(dev, arch, params, vocos_params, gpu: str) -> dict:
     """MMDiT_Base: the 1024 bucket with a short text (joint 1024 + 128 rows)
-    and the cap with a long one (joint 4096 + 256). AdaLN: four a block, three
-    in the context_pre_only last block, the final norm."""
+    and the cap with a long one (joint 4096 + 256)."""
     from f5tts_tpu_torch.scripts.common import REQUESTS
 
-    expect = {k: v * NFE for k, v in {"fused_qkv_rope_attention_bias": arch.depth,
-                                       "adaln_norm": 4 * (arch.depth - 1) + 3 + 1,
-                                       "conv_pos_embedding": 2}.items()}
+    expect = generate_launches("MMDiT", arch)
     pipe = make_pipeline(dev, "MMDiT", arch, params, vocos_params)
     return run_requests(pipe, [(REQUESTS[2], 1014, expect), (REQUESTS[1], 4096, expect)], gpu)
 
@@ -1102,10 +1168,7 @@ def phase_mmdit_qk_norm(dev, arch, params, vocos_params, gpu: str) -> dict:
     K1 and K2 as in phase 8."""
     from f5tts_tpu_torch.scripts.common import REQUESTS
 
-    expect = {k: v * NFE for k, v in {"masked_flash_attention": arch.depth,
-                                       "rms_norm": 4 * arch.depth,
-                                       "adaln_norm": 4 * (arch.depth - 1) + 3 + 1,
-                                       "conv_pos_embedding": 2}.items()}
+    expect = generate_launches("MMDiT", arch)
     pipe = make_pipeline(dev, "MMDiT", arch, params, vocos_params)
     return run_requests(pipe, [(REQUESTS[2], 1014, expect), (REQUESTS[1], 4096, expect)], gpu)
 
@@ -1173,6 +1236,124 @@ def phase_card_vs_cpu(dev, arch, params, vocos_params, backbone: str = "DiT",
     if not (np.isfinite(rel) and rel <= 3e-2):
         raise AssertionError(f"{backbone} card vs cpu mel rel-L2 {rel} > 3e-2")
     return rel
+
+
+# ---------------------------------------------------------------------------
+# phase 16
+# ---------------------------------------------------------------------------
+
+# (preset, backbone, arch overrides, total frames: the 1024 bucket and the cap)
+GRAPH_CASES = (("F5TTS_v1_Base", "DiT", {}, (1014, 4086)),
+               ("E2TTS_Base", "UNetT", {}, (1013, 4096)),
+               ("MMDiT_Base", "MMDiT", {}, (1014, 4086)),
+               ("MMDiT_Base", "MMDiT", {"qk_norm": "rms_norm"}, (1014, 4086)))
+WALL_REPS = 3
+GRAPH_MEL_REL_TOL = 1e-3   # graphed against eager, where not bit-equal
+GRAPH_WAV_ABS_TOL = 1e-3
+
+
+def compare_graph_eager(pipe, expect: dict, frames: int, gpu: str) -> dict:
+    """One bucket of `pipe`: the graphed generate (`fused_generate`, its
+    capture at the first request) against the eager cfm_sample + Vocos on
+    the same prepared request, seeds 0..WALL_REPS-1 in turns (eager,
+    graphed), each wall from the request's preparation (ref mel, ids, noise)
+    to a device sync; the capture's counts and the host counter of the
+    replays checked."""
+    import torch
+    from f5tts_tpu_torch.models import cfm
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.scripts.common import REF_TEXT, REQUESTS, synthetic_ref_wav
+
+    ref = synthetic_ref_wav()
+    fix = (frames + 0.5) * pipe.hop / pipe.sr
+
+    def prepare(seed: int) -> dict:
+        return pipe.prepare_chunk(ref, REF_TEXT + " ", REQUESTS[1], seed=seed, nfe_step=NFE,
+                                  cfg_strength=2.0, sway_sampling_coef=-1.0, fix_duration=fix)
+
+    def eager(seed: int):
+        req = prepare(seed)
+        mel = cfm.cfm_sample(pipe.params, pipe.statics, req["cond"], req["text"], req["lens"],
+                             req["duration"], req["t_grid"].to(pipe.device), y0=req["y0"],
+                             cfg_strength=req["cfg_strength"], dtype=pipe.dtype,
+                             backbone=pipe.bdef)
+        return req, mel, pipe.vocoder(mel.transpose(1, 2))
+
+    def graphed(seed: int):
+        req = prepare(seed)
+        return (req, *pipe.fused_generate(**{k: v for k, v in req.items()
+                                              if k not in ("ref_frames", "total")}))
+
+    def timed(fn, seed: int):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(seed)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    timed(eager, 100)  # the eager path's warm-up at this shape
+    captured = set(pipe.graphs)
+    _build.reset_launches()
+    first_wall, (req, _, _) = timed(graphed, 101)  # warm-up + capture + one replay
+    key = (*req["cond"].shape[:2], req["text"].shape[1], NFE)
+    entry = pipe.graphs[key]
+    if key in captured:
+        raise AssertionError(f"{key}: captured before this phase")
+    if entry.counts != expect or _build.launches() != expect:
+        raise AssertionError(f"{key}: capture recorded {entry.counts}, warm-up launched "
+                             f"{_build.launches()}, expected {expect} each")
+    walls = {"eager": [], "graphed": []}
+    worst = {"mel_rel_l2": 0.0, "wav_max_abs": 0.0}
+    equal = True
+    for seed in range(WALL_REPS):
+        t_e, (req, mel_e, wav_e) = timed(eager, seed)
+        _build.reset_launches()
+        t_g, (_, mel_g, wav_g) = timed(graphed, seed)
+        if _build.launches():
+            raise AssertionError(f"{key}: a replay added {_build.launches()} to the host counter")
+        walls["eager"].append(t_e)
+        walls["graphed"].append(t_g)
+        if not (torch.equal(mel_e, mel_g) and torch.equal(wav_e, wav_g)):
+            equal = False
+            worst["mel_rel_l2"] = max(worst["mel_rel_l2"],
+                                      float((mel_g - mel_e).norm() / mel_e.norm()))
+            worst["wav_max_abs"] = max(worst["wav_max_abs"], float((wav_g - wav_e).abs().max()))
+        if not (torch.isfinite(mel_g).all() and torch.isfinite(wav_g).all()):
+            raise AssertionError(f"{key}: the graphed generate is not finite")
+    audio_s = (req["total"] - req["ref_frames"]) * pipe.hop / pipe.sr
+    eager_s, graph_s = statistics.median(walls["eager"]), statistics.median(walls["graphed"])
+    row = {"key": list(key), "frames": req["total"], "audio_s": audio_s,
+           "eager_wall_s": eager_s, "graphed_wall_s": graph_s, "eager_rtf": eager_s / audio_s,
+           "graphed_rtf": graph_s / audio_s, "walls_s": walls, "first_request_s": first_wall,
+           "capture_s": entry.capture_s, "graph_pool_mib": entry.pool_bytes / 2**20,
+           "bit_equal": equal, **worst}
+    log(f"  {pipe.backbone} {key}: {'bit-equal' if equal else 'differs: ' + str(worst)}; "
+        f"wall eager {eager_s:.4f} s / graphed {graph_s:.4f} s (medians of {WALL_REPS}), RTF "
+        f"{row['eager_rtf']:.5f} / {row['graphed_rtf']:.5f}, capture {entry.capture_s:.2f} s "
+        f"(first request {first_wall:.2f} s), graph pool {row['graph_pool_mib']:.1f} MiB [{gpu}]")
+    if not equal and not (worst["mel_rel_l2"] <= GRAPH_MEL_REL_TOL
+                          and worst["wav_max_abs"] <= GRAPH_WAV_ABS_TOL):
+        raise AssertionError(f"{key}: graphed against eager {worst}, tolerances mel rel-L2 "
+                             f"{GRAPH_MEL_REL_TOL}, wav max-abs {GRAPH_WAV_ABS_TOL}")
+    return row
+
+
+def phase_graphs(dev, gpu: str) -> list[dict]:
+    import torch
+    from f5tts_tpu_torch.scripts.common import base_models
+
+    rows = []
+    for model, backbone, over, frames in GRAPH_CASES:
+        arch, params, vocos_params = base_models(model=model, **over)
+        pipe = make_pipeline(dev, backbone, arch, params, vocos_params)
+        del params
+        for total in frames:
+            flat = backbone != "UNetT" or total < 2048
+            row = compare_graph_eager(pipe, generate_launches(backbone, arch, flat), total, gpu)
+            rows.append({"model": model, "qk_norm": arch.qk_norm, **row})
+        del pipe
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1432,8 +1613,7 @@ def main() -> int:
     log("phase 13: InferencePipeline.infer at F5TTS_Base (RoPE on the first head) + Vocos, bf16")
     arch_b, params_b, vocos_b = base_models(model="F5TTS_Base")
     pipe = make_pipeline(dev, "DiT", arch_b, params_b, vocos_b)
-    expect = {"fused_qkv_rope_attention": arch_b.depth * NFE,
-              "adaln_norm": (2 * arch_b.depth + 1) * NFE, "conv_pos_embedding": 2 * NFE}
+    expect = generate_launches("DiT", arch_b)
     for name, count in run_requests(pipe, [(REQUESTS[0], 1014, expect)], gpu).items():
         launches[name] = launches.get(name, 0) + count
     del pipe, params_b
@@ -1460,6 +1640,16 @@ def main() -> int:
         phase_card_vs_cpu(dev, arch_q, params_q, vocos_q, backbone, dict(
             rest, flash_attention=2, conv_pos_embedding=2))
     torch.cuda.synchronize()
+    del small, arch_q, params_q, vocos_q
+    torch.cuda.empty_cache()
+
+    log("phase 16: the graphed generate against the eager cfm_sample + Vocos, the 1024 bucket "
+        "and the cap: DiT, E2TTS, MMDiT, MMDiT qk-norm")
+    graph_rows = phase_graphs(dev, gpu)
+    from f5tts_tpu_torch.eval.rtf_bench import bench_sampler
+
+    log(f"  rtf_bench: {json.dumps(bench_sampler('F5TTS_v1_Base', device=dev))}")
+    log(f"  graphs: {json.dumps(graph_rows)}")
 
     idle = [name for name in rows if not launches.get(name)]
     if idle:

@@ -218,19 +218,9 @@ static int launch_rms_norm(const bf16* x, const W* w, bf16* out, const RnRows& p
     auto kernel = rms_norm_kernel<W, L, V, R>;
     // the blocks a card holds at once, asked once a device (host time counts:
     // the qk-norm MMDiT launches K6 1408 times a generate)
-    static int resident[64] = {0};
-    int dev = 0;
-    cudaGetDevice(&dev);
-    int& most = resident[dev & 63];
-    if (most == 0) {
-        int per_sm = 0, sms = 0;
-        cudaError_t err =
-            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, RN_THREADS, 0);
-        if (err == cudaSuccess)
-            err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        if (err != cudaSuccess) return (int)err;
-        most = max(1, per_sm * sms);
-    }
+    int most = 0;
+    const cudaError_t err = resident_blocks((const void*)kernel, RN_THREADS, 0, &most);
+    if (err != cudaSuccess) return (int)err;
     const int need = (p.rows + ROWS_A_BLOCK - 1) / ROWS_A_BLOCK;
     const int blocks = min(need, most);
     kernel<<<blocks, RN_THREADS, 0, stream>>>(x, w, out, p, d, eps);

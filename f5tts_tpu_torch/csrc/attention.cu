@@ -393,7 +393,7 @@ static int launch_fwd(fwd_kernel_t prologue, fwd_kernel_t main_kernel, const Fwd
     }
     const int smem = 1024 + FW_FIXED + (a.kmask ? (a.n + 63) / 64 * 8 : 0);
     if (smem > FW_SMEM_MAX) return (int)cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(main_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = smem_limit_once((const void*)main_kernel, FW_SMEM_MAX);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((a.n + 63) / 64, a.heads, a.bsz);
     main_kernel<<<grid, FW_NT, smem, s>>>(a);

@@ -557,9 +557,9 @@ static int launch_bwd(bwd_kernel_t prologue, bwd_kernel_t dkdv, bwd_kernel_t dq,
     const int dkv_smem = 1024 + DKV_FIXED;
     const int dq_smem = 1024 + DQ_FIXED + (bias ? (a.n + 63) / 64 * 8 : 0);
     if (dq_smem > BW_SMEM_MAX) return (int)cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem);
+    err = smem_limit_once((const void*)dkdv, BW_SMEM_MAX);
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+    err = smem_limit_once((const void*)dq, BW_SMEM_MAX);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((a.n + 64 * BW_WG - 1) / (64 * BW_WG), a.heads, a.bsz);
     dkdv<<<grid, BW_NT, dkv_smem, s>>>(a);

@@ -5,7 +5,62 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <mutex>
+#include <vector>
+
 typedef __nv_bfloat16 bf16;
+
+// Host-side launch set-up, done once a device and kernel, not at every
+// launch: a launch may be recorded into a CUDA graph and replayed later, and
+// the first launches (a graph's warm-up) run eagerly before any capture.
+// Every CUDA error is returned.
+
+// Raise `kernel`'s dynamic shared memory limit to `bytes`, a fixed ceiling,
+// at its first launch on the current device. The limit is never lowered, so
+// no later launch can take it from under a launch a graph captured earlier.
+inline cudaError_t smem_limit_once(const void* kernel, int bytes) {
+    static std::mutex mu;
+    static std::vector<std::pair<const void*, int>> done;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    std::lock_guard<std::mutex> lock(mu);
+    for (const auto& d : done)
+        if (d.first == kernel && d.second == dev) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess) done.push_back({kernel, dev});
+    return err;
+}
+
+// The blocks of `kernel` the current device holds at once (blocks an SM x
+// SMs, at least one an SM) for `threads` a block and `smem` bytes of dynamic
+// shared memory; asked once a (kernel, device, threads, smem).
+inline cudaError_t resident_blocks(const void* kernel, int threads, int smem, int* blocks) {
+    struct Entry {
+        const void* kernel;
+        int dev, threads, smem, blocks;
+    };
+    static std::mutex mu;
+    static std::vector<Entry> seen;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    std::lock_guard<std::mutex> lock(mu);
+    for (const auto& e : seen) {
+        if (e.kernel == kernel && e.dev == dev && e.threads == threads && e.smem == smem) {
+            *blocks = e.blocks;
+            return cudaSuccess;
+        }
+    }
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    *blocks = std::max(1, per_sm) * sms;
+    seen.push_back({kernel, dev, threads, smem, *blocks});
+    return cudaSuccess;
+}
 
 // Pack two floats into one 32-bit register of bf16 (lo in the low half, the
 // element with the smaller index, as mma.sync fragments expect).

@@ -433,18 +433,15 @@ static int launch_grouped_conv1d(const bf16* x, const bf16* w, const bf16* bias,
         p.chunks = (ksize + p.tc - 1) / p.tc;
     }
     const int smem = fixed + (p.chunks == 1 ? 1 : 2) * p.tc * TAP;
-    auto kernel = grouped_conv1d_kernel<WP, NP, CPE>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, GC_NWG * 128, smem);
+    const void* kernel = (const void*)grouped_conv1d_kernel<WP, NP, CPE>;
+    cudaError_t err = smem_limit_once(kernel, GC_SMEM_MAX);
+    int resident = 0;
+    if (err == cudaSuccess) err = resident_blocks(kernel, GC_NWG * 128, smem, &resident);
     if (err != cudaSuccess) return (int)err;
     const int blocks_y = c / width * (WP / NP);
-    const int parts = max(1, min(p.tiles, max(1, per_sm) * sms / blocks_y));
-    kernel<<<dim3(parts, blocks_y), GC_NWG * 128, smem, stream>>>(x, w, bias, lengths, y, p);
+    const int parts = max(1, min(p.tiles, resident / blocks_y));
+    grouped_conv1d_kernel<WP, NP, CPE>
+        <<<dim3(parts, blocks_y), GC_NWG * 128, smem, stream>>>(x, w, bias, lengths, y, p);
     return (int)cudaGetLastError();
 }
 

@@ -6,11 +6,24 @@ chunk's duration, pad to a bucket, run `cfm_sample` (the backbone, DiT,
 UNetT or MMDiT, and its kernels) and Vocos, restore the RMS and cross-fade
 the chunks. Single requests only: batching, streaming, int8 and the low-TTFB
 path are not ported yet.
+
+`fused_generate` is the counterpart of the JAX pipeline's `_fused_generate`
+(sampler + vocoder under one jit, one executable per shape): on a CUDA
+device the sampler and Vocos run as one CUDA graph per key (batch, n
+bucket, text bucket, NFE), captured at the first request that needs it,
+after one eager warm-up pass on a side stream, and replayed from then on.
+The graph reads its inputs from static buffers that every request
+overwrites in full (cond, text ids, lens, duration, time grid, CFG
+strength, noise) and writes mel and wav into static outputs that are
+copied out before the call returns. The noise is drawn outside the graph
+from the request's generator. A failed capture raises. On the CPU (the
+tests) the same buffers feed the body directly.
 """
 
 from __future__ import annotations
 
 import re
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -21,6 +34,7 @@ from f5tts_tpu_torch.config import MelConfig, SamplingConfig
 from f5tts_tpu_torch.infer import audio_io
 from f5tts_tpu_torch.models import cfm
 from f5tts_tpu_torch.models.modules import fuse_backbone_qkv, tree_cast
+from f5tts_tpu_torch.ops import _build
 from f5tts_tpu_torch.ops.mel import MelFrontend
 from f5tts_tpu_torch.text.vocab import list_str_to_idx, list_str_to_tensor
 from f5tts_tpu_torch.utils import duration_bucket, make_time_grid, resolve_device
@@ -82,6 +96,22 @@ def cross_fade(waves: list[np.ndarray], sr: int, duration: float = 0.15) -> np.n
 
 
 @dataclass
+class GraphEntry:
+    """One key's static buffers and, on a CUDA device, its captured graph:
+    `counts` are the kernel launches the capture recorded (each replay
+    makes them again), `pool_bytes` the device memory its pool holds."""
+
+    inputs: dict
+    graph: Optional[torch.cuda.CUDAGraph] = None
+    mel: Optional[torch.Tensor] = None
+    wav: Optional[torch.Tensor] = None
+    counts: dict = field(default_factory=dict)
+    replays: int = 0
+    capture_s: float = 0.0
+    pool_bytes: int = 0
+
+
+@dataclass
 class InferencePipeline:
     """Zero-shot voice cloning on one device (the card unless `device` says
     otherwise). `backbone` names the model family (`ModelConfig.backbone`:
@@ -111,6 +141,7 @@ class InferencePipeline:
         self.bdef = cfm.BACKBONES[self.backbone]
         self.statics = self.bdef.statics_cls(self.statics.arch, self.device)
         self.params = fuse_backbone_qkv(tree_cast(self.params, self.dtype, self.device))
+        self.graphs: dict[tuple, GraphEntry] = {}  # (batch, n, nt, nfe) -> entry
 
     def ref_mel(self, wav: np.ndarray) -> np.ndarray:
         """ref wav -> mel [t, n_mels]. The wav is zero-padded to a 128-frame
@@ -132,13 +163,77 @@ class InferencePipeline:
         nt_bucket = max(((nt + 63) // 64) * 64, 64)
         return np.pad(ids, ((0, 0), (0, nt_bucket - nt)), constant_values=-1)
 
-    def generate_chunk(self, ref_wav: np.ndarray, ref_text: str, gen_text: str,
-                       seed: int = 0, speed: Optional[float] = None,
-                       fix_duration: Optional[float] = None, nfe_step: Optional[int] = None,
-                       cfg_strength: Optional[float] = None,
-                       sway_sampling_coef="default",
-                       target_rms: Optional[float] = None) -> tuple[np.ndarray, np.ndarray]:
-        """Returns (wave [n], generated mel [d, t]) for one text chunk."""
+    # -- the one-dispatch generate ------------------------------------------
+
+    def _body(self, inp: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        mel = cfm.cfm_sample(self.params, self.statics, inp["cond"], inp["text"], inp["lens"],
+                             inp["duration"], inp["t_grid"], y0=inp["y0"],
+                             cfg_strength=inp["cfg_strength"], dtype=self.dtype,
+                             backbone=self.bdef)
+        return mel, self.vocoder(mel.transpose(1, 2))
+
+    def _capture(self, entry: GraphEntry) -> None:
+        """Warm up on a side stream (cuBLAS handles, cuFFT plans, the
+        kernels' attributes), then capture the body into a graph with its
+        own memory pool."""
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._body(entry.inputs)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(self.device)
+        graph = torch.cuda.CUDAGraph()
+        with _build.capture_counts() as counts, torch.cuda.graph(graph):
+            entry.mel, entry.wav = self._body(entry.inputs)
+        torch.cuda.synchronize(self.device)
+        entry.graph, entry.counts = graph, counts
+        entry.pool_bytes = torch.cuda.memory_reserved(self.device) - before
+        entry.capture_s = time.perf_counter() - t0
+
+    def fused_generate(self, cond: torch.Tensor, text: torch.Tensor, lens: torch.Tensor,
+                       duration: torch.Tensor, t_grid: torch.Tensor, y0: torch.Tensor,
+                       cfg_strength: float) -> tuple[torch.Tensor, torch.Tensor]:
+        """(mel [b, n, d], wav [b, (n-1)*hop]) of `cfm_sample` + the vocoder
+        on these inputs (any device; y0 is the noise), on a CUDA device as
+        one replay of the graph of key (b, n, nt, nfe). The results are
+        copies, not the graph's buffers."""
+        b, n, _ = cond.shape
+        key = (b, n, text.shape[1], t_grid.shape[0] - 1)
+        entry = self.graphs.get(key)
+        if entry is None:
+            entry = GraphEntry({
+                name: torch.empty(t.shape, dtype=dt, device=self.device) for name, t, dt in (
+                    ("cond", cond, torch.float32), ("text", text, text.dtype),
+                    ("lens", lens, torch.int32), ("duration", duration, torch.int32),
+                    ("t_grid", t_grid, torch.float32), ("y0", y0, torch.float32))})
+            entry.inputs["cfg_strength"] = torch.empty((), device=self.device)
+        for name, value in (("cond", cond), ("text", text), ("lens", lens),
+                            ("duration", duration), ("t_grid", t_grid), ("y0", y0)):
+            entry.inputs[name].copy_(value)
+        entry.inputs["cfg_strength"].fill_(cfg_strength)
+        if self.device.type == "cuda" and entry.graph is None:
+            self._capture(entry)  # raises when the capture fails; the key is not kept
+        self.graphs[key] = entry
+        if entry.graph is None:  # the CPU: the body reads the static buffers
+            return self._body(entry.inputs)
+        entry.graph.replay()
+        entry.replays += 1
+        return entry.mel.clone(), entry.wav.clone()
+
+    # -- one chunk -------------------------------------------------------------
+
+    def prepare_chunk(self, ref_wav: np.ndarray, ref_text: str, gen_text: str,
+                      seed: int = 0, speed: Optional[float] = None,
+                      fix_duration: Optional[float] = None, nfe_step: Optional[int] = None,
+                      cfg_strength: Optional[float] = None, sway_sampling_coef="default",
+                      target_rms: Optional[float] = None) -> dict:
+        """The host side of one chunk: the reference mel at the request's
+        RMS, text ids, duration, bucket, time grid and the seed's noise.
+        Returns `fused_generate`'s arguments under their names, and
+        `ref_frames` and `total` (ints)."""
         s = self.sampling
         rms_target = s.target_rms if target_rms is None else target_rms
         speed = s.speed if speed is None else speed
@@ -164,18 +259,31 @@ class InferencePipeline:
         cond[0, :ref_frames] = ref_mel
 
         dev = self.device
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        mel = cfm.cfm_sample(
-            self.params, self.statics, torch.from_numpy(cond).to(dev),
-            torch.from_numpy(text_ids).to(dev),
-            torch.tensor([ref_frames], dtype=torch.int32, device=dev),
-            torch.tensor([total], dtype=torch.int32, device=dev),
-            make_time_grid(nfe, sway_sampling_coef=sway, use_epss=s.use_epss).to(dev),
-            generator=gen, cfg_strength=cfg_strength, dtype=self.dtype,
-            noise_max_len=s.max_duration, backbone=self.bdef)
-        wave_full = self.vocoder(mel.transpose(1, 2)).cpu().numpy()
+        duration = torch.tensor([total], dtype=torch.int32, device=dev)
+        y0 = cfm.make_noise(torch.Generator(device=dev).manual_seed(seed), 1, n_bucket,
+                            self.mel_cfg.n_mel_channels, duration, s.max_duration)
+        return {"cond": torch.from_numpy(cond).to(dev), "text": torch.from_numpy(text_ids).to(dev),
+                "lens": torch.tensor([ref_frames], dtype=torch.int32, device=dev),
+                "duration": duration,
+                "t_grid": make_time_grid(nfe, sway_sampling_coef=sway, use_epss=s.use_epss),
+                "y0": y0, "cfg_strength": cfg_strength, "ref_frames": ref_frames, "total": total}
+
+    def generate_chunk(self, ref_wav: np.ndarray, ref_text: str, gen_text: str,
+                       seed: int = 0, speed: Optional[float] = None,
+                       fix_duration: Optional[float] = None, nfe_step: Optional[int] = None,
+                       cfg_strength: Optional[float] = None,
+                       sway_sampling_coef="default",
+                       target_rms: Optional[float] = None) -> tuple[np.ndarray, np.ndarray]:
+        """Returns (wave [n], generated mel [d, t]) for one text chunk."""
+        rms_target = self.sampling.target_rms if target_rms is None else target_rms
+        req = self.prepare_chunk(ref_wav, ref_text, gen_text, seed, speed, fix_duration,
+                                 nfe_step, cfg_strength, sway_sampling_coef, rms_target)
+        ref_frames, total = req.pop("ref_frames"), req.pop("total")
+        mel, wave_full = self.fused_generate(**req)
+        wave_full = wave_full.cpu().numpy()
         gen_mel = mel[0, ref_frames:total].transpose(0, 1).cpu().numpy()
         wave = wave_full[0, ref_frames * self.hop: min(total * self.hop, wave_full.shape[1])]
+        ref_rms = audio_io.rms(ref_wav)
         if 0 < ref_rms < rms_target:
             wave = wave * (ref_rms / rms_target)
         return wave.astype(np.float32), gen_mel

@@ -151,15 +151,16 @@ def make_noise(generator: torch.Generator, batch: int, seq_len: int, num_channel
 
 def sample_euler(params, statics, y0: torch.Tensor, step_cond: torch.Tensor,
                  text: torch.Tensor, duration: torch.Tensor, t_grid: torch.Tensor,
-                 cfg_strength: float, dtype=torch.bfloat16,
+                 cfg: torch.Tensor, dtype=torch.bfloat16,
                  backbone: BackboneDef = DIT) -> torch.Tensor:
-    """Euler steps with CFG over `t_grid` [steps+1]; x stays f32."""
+    """Euler steps with CFG over `t_grid` [steps+1]; x stays f32. `cfg` is
+    the guidance strength as an f32 scalar tensor on y0's device: no host
+    value enters the loop, so a CUDA graph can capture it."""
     b, n, _ = y0.shape
     steps = t_grid.shape[0] - 1
     text_embeds = backbone.text_embeds(params, statics, text, n, duration, dtype)
     mods_at = (backbone.precompute_mods(params, t_grid[:steps], 2 * b, dtype)
                if backbone.precompute_mods is not None else None)
-    cfg = torch.tensor(cfg_strength, dtype=torch.float32, device=y0.device)
     x = y0
     for i in range(steps):
         kw = {"t_mods": mods_at(i)} if mods_at is not None else {}
@@ -176,13 +177,17 @@ def sample_euler(params, statics, y0: torch.Tensor, step_cond: torch.Tensor,
 def cfm_sample(params, statics, cond: torch.Tensor, text: torch.Tensor,
                lens: torch.Tensor, duration: torch.Tensor, t_grid: torch.Tensor, *,
                generator: Optional[torch.Generator] = None, y0: Optional[torch.Tensor] = None,
-               cfg_strength: float = 2.0, dtype=torch.bfloat16,
+               cfg_strength: float | torch.Tensor = 2.0, dtype=torch.bfloat16,
                noise_max_len: Optional[int] = None,
                backbone: BackboneDef = DIT) -> torch.Tensor:
     """cond [b, n, d] prompt mel zero-padded to the bucket n, text [b, nt]
     ids (-1 padded), lens [b] prompt frames, duration [b] total frames <= n.
     Returns the mel [b, n, d] (f32). Pass `y0` or a `generator` for noise.
-    `params` must hold the fused QKV projections (`fuse_backbone_qkv`)."""
+    `params` must hold the fused QKV projections (`fuse_backbone_qkv`).
+    `cfg_strength` is a float or an f32 scalar tensor on cond's device (a
+    CUDA graph's input, as the JAX pipeline traces it); given `y0`, t_grid
+    and cfg_strength on cond's device, the call does no host work that
+    depends on their values."""
     b, n, d = cond.shape
     cond_mask = lens_to_mask(lens, n)
     step_cond = torch.where(cond_mask[:, :, None], cond, 0.0)
@@ -190,8 +195,9 @@ def cfm_sample(params, statics, cond: torch.Tensor, text: torch.Tensor,
         if generator is None:
             raise ValueError("cfm_sample needs a generator or y0")
         y0 = make_noise(generator, b, n, d, duration, noise_max_len)
+    cfg = torch.as_tensor(cfg_strength, dtype=torch.float32, device=cond.device)
     sampled = sample_euler(params, statics, y0.float(), step_cond, text, duration,
-                           t_grid.float().to(cond.device), cfg_strength, dtype, backbone)
+                           t_grid.float().to(cond.device), cfg, dtype, backbone)
     return torch.where(cond_mask[:, :, None], cond, sampled)
 
 

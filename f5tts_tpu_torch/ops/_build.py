@@ -9,10 +9,14 @@ returns `cudaGetLastError()`; `check()` raises when that is not 0.
 
 Launch counts: each kernel wrapper calls `count(name)` where it launches its
 kernel and nowhere else, so a run can show which kernels it went through.
+Inside `capture_counts()` (a CUDA-graph capture) a call records a launch the
+graph will make: it goes to that capture's counts, not to the host counter,
+and a replay of the graph makes no host call and adds nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -31,10 +35,24 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 LAUNCHES: dict[str, int] = {}
+_capture: dict[str, int] | None = None  # the counts of the capture in progress
 
 
 def count(name: str) -> None:
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    target = LAUNCHES if _capture is None else _capture
+    target[name] = target.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def capture_counts():
+    """Counts the launches recorded while the block runs (a CUDA-graph
+    capture) into the dict it yields, instead of the host counter."""
+    global _capture
+    _capture = counts = {}
+    try:
+        yield counts
+    finally:
+        _capture = None
 
 
 def reset_launches() -> None:

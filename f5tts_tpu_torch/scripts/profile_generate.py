@@ -7,15 +7,18 @@
 F5TTS_Small (DiT), E2TTS_Base / E2TTS_Small (UNetT) or MMDiT_Base;
 `--qk-norm` sets qk_norm="rms_norm" (its RMSNorm weights randomised); + Vocos
 (seeded random weights, bf16 backbone, f32 Vocos), 16 NFE, CFG 2, sway -1,
-through `InferencePipeline.infer` with a fixed duration per bucket (the
-F5TTS_v1_Base DiT at 768, 1024 and the 4096 cap; the others at 1024 and the
-cap). For each
-bucket: one warm-up request, 3 timed requests (host clock, ending in a
-device sync), then one request under torch.profiler. From the trace: device
-busy time (the union of kernel intervals) against the request's wall time,
+with a fixed duration per bucket (the F5TTS_v1_Base DiT at 768, 1024 and
+the 4096 cap; the others at 1024 and the cap). For each bucket, two paths:
+- graphed: `InferencePipeline.infer`, the pipeline's only CUDA path (one
+  CUDA-graph replay of sampler + Vocos a request); the first request warms
+  up and captures (its wall and the capture time are reported apart);
+- eager: the same request's host preparation (`prepare_chunk`), then
+  `cfm_sample` and Vocos called directly, and the copies to the host.
+Each path: 3 timed requests after a warm-up (host clock, ending in a device
+sync), then one request under torch.profiler. From each trace: device busy
+time (the union of kernel intervals) against the traced request's wall,
 kernel time and launch count by class (the port's kernels, GEMM including
-cuDNN's implicit-GEMM convs, FFT, the rest), and the traced request's wall
-(the profiler's own cost). Needs a CUDA device.
+cuDNN's implicit-GEMM convs, FFT, the rest). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ CLASSES = (
 
 
 def profile_bucket(pipe, ref, text: str, frames: int, reps: int) -> dict:
+    from f5tts_tpu_torch.models import cfm
     from f5tts_tpu_torch.scripts.common import REF_TEXT, device_time_by_class
     from f5tts_tpu_torch.utils import duration_bucket
 
@@ -61,31 +65,52 @@ def profile_bucket(pipe, ref, text: str, frames: int, reps: int) -> dict:
     fix = (frames + 0.5) * hop / sr  # exactly `frames` total frames
     bucket = duration_bucket(frames, pipe.bucket_size, pipe.sampling.max_duration,
                              pipe.bdef.seq_extra_tokens)
+    kw = dict(seed=0, nfe_step=16, cfg_strength=2.0, sway_sampling_coef=-1.0, fix_duration=fix)
 
-    def request():
+    def graphed() -> float:
+        wave, _, _ = pipe.infer(ref, sr, REF_TEXT, text, **kw)
+        return len(wave) / sr
+
+    def eager() -> float:
+        req = pipe.prepare_chunk(ref, REF_TEXT + " ", text, **kw)  # infer's ref text
+        mel = cfm.cfm_sample(pipe.params, pipe.statics, req["cond"], req["text"], req["lens"],
+                             req["duration"], req["t_grid"].to(pipe.device), y0=req["y0"],
+                             cfg_strength=req["cfg_strength"], dtype=pipe.dtype,
+                             backbone=pipe.bdef)
+        pipe.vocoder(mel.transpose(1, 2)).cpu().numpy()
+        mel[0, req["ref_frames"]:req["total"]].cpu().numpy()
+        return (req["total"] - req["ref_frames"]) * hop / sr
+
+    def timed(fn) -> tuple[float, float]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        wave, _, _ = pipe.infer(ref, sr, REF_TEXT, text, seed=0, nfe_step=16,
-                                cfg_strength=2.0, sway_sampling_coef=-1.0, fix_duration=fix)
+        audio_s = fn()
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, len(wave) / sr
+        return time.perf_counter() - t0, audio_s
 
-    request()  # warm-up: cuBLAS/cuFFT plans for this shape
-    walls = []
-    for _ in range(reps):
-        wall, audio_s = request()
-        walls.append(wall)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        traced_wall, _ = request()
-    trace = device_time_by_class(prof, CLASSES)
-    busy_ms = trace["device_busy_ms"]
-    wall = statistics.median(walls)
-    return {
-        "bucket": bucket, "audio_s": audio_s, "wall_s": wall, "walls_s": walls,
-        "rtf": wall / audio_s, "traced_wall_s": traced_wall,
-        "device_busy_share_of_wall": busy_ms / (traced_wall * 1e3), **trace,
-    }
+    def measure(fn) -> dict:
+        first_wall, _ = timed(fn)  # warm-up: cuBLAS/cuFFT plans (graphed: and the capture)
+        walls = []
+        for _ in range(reps):
+            wall, audio_s = timed(fn)
+            walls.append(wall)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            traced_wall, _ = timed(fn)
+        trace = device_time_by_class(prof, CLASSES)
+        wall = statistics.median(walls)
+        return {"audio_s": audio_s, "wall_s": wall, "walls_s": walls, "rtf": wall / audio_s,
+                "first_request_s": first_wall, "traced_wall_s": traced_wall,
+                "device_busy_share_of_wall": trace["device_busy_ms"] / (traced_wall * 1e3),
+                **trace}
+
+    keys = set(pipe.graphs)
+    row = {"bucket": bucket, "graphed": measure(graphed)}
+    (entry,) = [e for k, e in pipe.graphs.items() if k not in keys]
+    row["graphed"].update(capture_s=entry.capture_s, graph_pool_mib=entry.pool_bytes / 2**20,
+                          launches_a_replay=entry.counts)
+    row["eager"] = measure(eager)
+    return row
 
 
 def main(argv=None) -> int:

@@ -79,7 +79,9 @@ def vocos_apply(params: m.Params, mel_bnd: torch.Tensor, window: torch.Tensor,
 
 class Vocos:
     """Callable vocoder on `device`: log-mel [b, n_mels, t] -> wav [b, (t-1)*hop].
-    `dtype` is the compute dtype (f32 by default, as in the JAX package)."""
+    `dtype` is the compute dtype (f32 by default, as in the JAX package).
+    For a mel on `device` a call does no host work (the window is made once,
+    the iSTFT is device ops), so the pipeline's CUDA graph captures it."""
 
     def __init__(self, params: m.Params, cfg: VocosConfig = VocosConfig(),
                  dtype=torch.float32, device=None):

@@ -12,7 +12,9 @@ the key-masked head-layout attention K11; K2's length edges (0, 1, 64, 65,
 128, 129, n) and K6 at qk-norm's head rows, at d = 768 and on the strided
 head view of a projection; one tiny DiT, UNetT and MMDiT
 forward (also at the dim-768 widths and with qk-norm) and one tiny training
-step of each backbone through the kernels against the CPU plain path.
+step of each backbone through the kernels against the CPU plain path; the
+pipeline's CUDA-graph replay against the eager generate (DiT, MMDiT), with
+each capture's launch counts and none on the host for a replay.
 Run on a GPU machine with:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -785,3 +787,61 @@ def test_tiny_new_backbone_training_steps_on_the_card(dev, backbone, gate, monke
     rest = ({"rms_norm": 5, "conv_pos_embedding": 1} if backbone == "UNetT"
             else {"adaln_norm": 8, "conv_pos_embedding": 1})
     _tiny_training_step(dev, backbone, arch, {**attn, **rest})
+
+
+@pytest.mark.parametrize("backbone", ["DiT", "MMDiT"])
+def test_pipeline_graph_replay_equals_eager(dev, backbone):
+    """`InferencePipeline.fused_generate` on the card: the first call warms up
+    (eager launches on the host counter) and captures (the capture's counts
+    on the graph entry: one generate's); a repeat in the captured key adds 0
+    to the host counter and equals the eager cfm_sample + Vocos on the same
+    inputs (the same kernels in the same order: bit-equal, or within mel
+    rel-L2 1e-3 and wav max-abs 1e-3)."""
+    from f5tts_tpu_torch.config import ModelArch
+    from f5tts_tpu_torch.infer.pipeline import InferencePipeline
+    from f5tts_tpu_torch.models import cfm, dit
+    from f5tts_tpu_torch.utils import make_time_grid
+    from f5tts_tpu_torch.vocoder.vocos import Vocos, VocosConfig, init_vocos
+
+    bdef = cfm.BACKBONES[backbone]
+    arch = ModelArch(dim=1024, depth=2, heads=16, dim_head=64, text_num_embeds=32,
+                     text_dim=64 if backbone == "DiT" else None,
+                     conv_layers=1 if backbone == "DiT" else 0)
+    gen = torch.Generator().manual_seed(0)
+    params = dit.activate_zero_init(bdef.init(gen, arch), gen)
+    vcfg = VocosConfig(dim=64, intermediate_dim=128, num_layers=2)
+    pipe = InferencePipeline(params, bdef.statics_cls(arch),
+                             Vocos(init_vocos(torch.Generator().manual_seed(1), vcfg), vcfg,
+                                   device=dev), device=dev, backbone=backbone)
+    rng = np.random.default_rng(0)
+    n, nfe = 256, 2
+    dur = torch.tensor([201], dtype=torch.int32, device=dev)
+    req = dict(cond=torch.from_numpy(rng.standard_normal((1, n, 100)).astype(np.float32)).to(dev),
+               text=torch.from_numpy(rng.integers(0, 32, (1, 64)).astype(np.int32)).to(dev),
+               lens=torch.tensor([50], dtype=torch.int32, device=dev), duration=dur,
+               t_grid=make_time_grid(nfe, sway_sampling_coef=-1.0))
+    per_step = ({"fused_qkv_rope_attention": 2, "adaln_norm": 5, "conv_pos_embedding": 2}
+                if backbone == "DiT" else
+                {"fused_qkv_rope_attention_bias": 2, "adaln_norm": 8, "conv_pos_embedding": 2})
+    expect = {k: v * nfe for k, v in per_step.items()}
+
+    def noise(seed):
+        return cfm.make_noise(torch.Generator(device=dev).manual_seed(seed), 1, n, 100, dur, 4096)
+
+    _build.reset_launches()
+    pipe.fused_generate(**req, y0=noise(0), cfg_strength=2.0)
+    torch.cuda.synchronize()
+    (entry,) = pipe.graphs.values()
+    assert _build.launches() == expect  # the warm-up
+    assert entry.counts == expect and entry.replays == 1
+    _build.reset_launches()
+    mel, wav = pipe.fused_generate(**req, y0=noise(1), cfg_strength=1.5)
+    torch.cuda.synchronize()
+    assert _build.launches() == {} and entry.replays == 2
+    want = cfm.cfm_sample(pipe.params, pipe.statics, req["cond"], req["text"], req["lens"], dur,
+                          req["t_grid"].to(dev), y0=noise(1), cfg_strength=1.5,
+                          dtype=torch.bfloat16, backbone=bdef)
+    want_wav = pipe.vocoder(want.transpose(1, 2))
+    if not (torch.equal(mel, want) and torch.equal(wav, want_wav)):
+        assert float((mel - want).norm() / want.norm()) <= 1e-3
+        assert float((wav - want_wav).abs().max()) <= 1e-3
