@@ -11,10 +11,11 @@ Phases (any failure raises, and the script exits non-zero):
    plain version's time and, for attention, F.scaled_dot_product_attention's
    time as a yardstick (the port never calls it; for the lse modes of K3,
    K5 and K7, PyTorch's memory-efficient attention with
-   compute_log_sumexp=True). K1 at [2, 1024, 1024] and the cap's [2, 4096,
-   1024]. K3's lse mode (the training forward) at K3's shapes: its output
-   equal to K3's, its lse within 1e-3 of the plain version's on live q
-   tiles and exactly -1e30 past them.
+   compute_log_sumexp=True). K1 at every shape the main paths give it:
+   [2, 1024 / 4096 / 256, 1024] and [2, 1024 / 4096, 768]. K3's lse mode
+   (the training forward) at K3's shapes: its output equal to K3's, its lse
+   within 1e-3 of the plain version's on live q tiles and exactly -1e30
+   past them.
    The attention backward K4 (b = 2, h = 16, lengths [n, 777], n = 1024,
    3072, 4096) from K3's saved output and lse: dQKV rel-L2 and max-abs over
    live rows against both plain versions (the from-lse one it computes, then
@@ -284,16 +285,23 @@ def phase_build() -> None:
 # phase 2
 # ---------------------------------------------------------------------------
 
+# K1's shapes on the main paths (b = 2: CFG packs cond and uncond): the 1024
+# bucket's rows (the row of the kernels line), the cap's, the MMDiT text
+# stream at 256 ids, and F5TTS_v1_Small's (dim 768) at the 1024 bucket and
+# the cap; (n, d, seed), each shape but the first from its own seed, so the
+# later checks' draws stay as they were
+K1_SHAPES = ((1024, 1024, None), (4096, 1024, 1), (256, 1024, 2), (1024, 768, 3), (4096, 768, 4))
+
+
 def check_adaln(rng, dev) -> dict:
-    """K1 at the 1024 bucket's rows (the row of the kernels line) and at the
-    cap's, [2, 4096, 1024] (inputs from their own seed, so the later checks'
-    draws stay as they were)."""
+    """K1 at every shape the main paths launch it at (`K1_SHAPES`)."""
     import torch
     from f5tts_tpu_torch.ops.adaln_norm import adaln_norm, adaln_norm_ref
 
     out_row = None
-    for n, draw in ((1024, rng), (4096, np.random.default_rng(1))):
-        b, d = 2, 1024
+    for n, d, seed in K1_SHAPES:
+        b = 2
+        draw = rng if seed is None else np.random.default_rng(seed)
         x = torch.from_numpy(draw.standard_normal((b, n, d)).astype(np.float32))
         x = x.to(dev, torch.bfloat16)
         mods = torch.from_numpy((0.05 * draw.standard_normal((b, 6 * d))).astype(np.float32))

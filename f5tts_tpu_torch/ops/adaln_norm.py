@@ -8,11 +8,12 @@ hand-written kernel K1 (csrc/adaln_norm.cu, replacing the Pallas
 per ODE step. `rms_norm` launches K6 (the same file, replacing the Pallas
 `_rms_norm_kernel`) for CUDA tensors and `rms_norm_ref` for CPU tensors: the
 UNetT runs it 2 * depth + 1 times per ODE step, qk-norm on q and k of every
-attention. K6 reads x in place where its last dimension is contiguous and
-its rows lie at up to three leading strides (qk-norm's head view of a
-projection) and writes a contiguous result. The JAX package keeps its
-kernel behind a switch that is off by default, because XLA fuses the RMS
-passes on a TPU; eager PyTorch does not, so the port always runs K6.
+attention. K1 and K6 are two epilogues of one row engine. K6 reads x in
+place where its last dimension is contiguous and its rows lie at up to
+three leading strides (qk-norm's head view of a projection) and writes a
+contiguous result. The JAX package keeps its kernel behind a switch that
+is off by default, because XLA fuses the RMS passes on a TPU; eager
+PyTorch does not, so the port always runs K6.
 
 It is differentiable (`torch.autograd.Function`). The JAX package has no
 backward kernel for it: its custom_vjp takes the VJP of the XLA formula
@@ -32,7 +33,8 @@ import torch
 
 from f5tts_tpu_torch.ops import _build
 
-_MAX_D = 4096  # the kernel keeps at most 4 16-byte vectors per thread
+_MAX_D = 4096  # the row engine gives a row at most 32 lanes of 16 16-byte vectors
+_MAX_ROWS = 2**31 - 2**16  # the row engine counts rows in 32-bit ints
 
 
 def adaln_norm_ref(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
@@ -61,9 +63,11 @@ def _check(x, scale, shift):
         raise TypeError("adaln_norm kernel takes bf16 x, scale and shift")
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("adaln_norm kernel takes a contiguous [b, n, d] x")
-    b, _, d = x.shape
+    b, n, d = x.shape
     if d % 8 or d > _MAX_D:
         raise ValueError(f"adaln_norm kernel needs d % 8 == 0 and d <= {_MAX_D}, got {d}")
+    if b * n > _MAX_ROWS:
+        raise ValueError(f"adaln_norm kernel takes at most {_MAX_ROWS} rows, got {b * n}")
     for t in (scale, shift):
         if t.device != x.device:
             raise ValueError("adaln_norm: scale/shift must be on x's device")
@@ -141,9 +145,6 @@ def _rms_fn():
                    ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-_MAX_ROWS = 2**31 - 2**16  # the kernel counts rows in 32-bit ints
 
 
 def _rms_rows(x) -> tuple[int, int, int, int, int, int] | None:

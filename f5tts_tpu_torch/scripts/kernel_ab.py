@@ -45,10 +45,10 @@ without its mask and Mish); K2 at [1, 1024, 1024] with lengths 1024 and
 777, [2, 1024, 1024] (the CFG batch) and [1, 4096, 1024] with length 3001;
 K6 with a bf16 weight at [2, 16, 4096, 64], the same rows as the head view
 of q in a [2, 4096, 3072] projection, [2, 16, 256, 64], [2, 1024, 1024] and
-[2, 1024, 768]; K1 at [2, 1024 / 4096, 1024] with the scale and shift
-views of a [2, 6 * 1024] modulation. At each shape the entries are timed by
-CUDA-graph replay
-(`common.time_ms`) in the order other, this, this, other. The two outputs
+[2, 1024, 768]; K1 at [2, 1024 / 4096 / 256, 1024] and [2, 1024 / 4096,
+768] with the scale and shift views of a [2, 6 * d] modulation. At each
+shape the entries are timed by CUDA-graph replay (`common.time_ms`) in the
+order other, this, this, other. The two outputs
 must agree: the forwards' within chip_smoke's 2e-2 (their lse within 1e-3;
 K10's and K2's output within 3e-2), the backwards' within its backward tolerance
 (rel-L2 <= 1e-2, max-abs <= 2e-2 of the largest entry; two designs may take
@@ -86,6 +86,7 @@ CONV = ((2, 1024, 768, 31), (2, 4096, 768, 31), (2, 1024, 384, 4),  # b, n, c, k
 CPE = ((1, 1024, 1024, 1024), (1, 1024, 1024, 777), (2, 1024, 1024, 1024),  # b, n, c, length
        (1, 4096, 1024, 3001))
 RMS = ((2, 16, 4096, 64), "view", (2, 16, 256, 64), (2, 1024, 1024), (2, 1024, 768))
+ADALN = ((1024, 1024), (4096, 1024), (256, 1024), (1024, 768), (4096, 768))  # n, d (b = 2)
 K3_GLOBALS = r"fused_qkv_rope_attn_(kernel|lse_kernel|krot_kernel)"
 K7_GLOBALS = r"_Z\d+flash_attn_(lse_)?kernel"  # not masked_flash_attn_kernel
 # kernel: (source, C entry, a pattern found in each of its __global__ names,
@@ -114,8 +115,8 @@ KERNELS = {
             r"_Z\d+grouped_conv1d_kernelILi\d+EEv", CONV, ("y",)),
     "K2": ("grouped_conv.cu", "f5_conv_mish_bf16", r"conv_mish_kernel|grouped_conv1d_kernel\w+Lb1E",
            CPE, ("y",)),
-    "K6": ("adaln_norm.cu", "f5_rms_norm_bf16", "rms_norm_kernel", RMS, ("out",)),
-    "K1": ("adaln_norm.cu", "f5_adaln_norm_bf16", "adaln_norm_kernel", (1024, 4096), ("out",)),
+    "K6": ("adaln_norm.cu", "f5_rms_norm_bf16", "rms_norm_kernel|RmsEpi", RMS, ("out",)),
+    "K1": ("adaln_norm.cu", "f5_adaln_norm_bf16", "adaln_norm_kernel|AdaLNEpi", ADALN, ("out",)),
 }
 CTYPES = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong}
 H = 16
@@ -181,7 +182,7 @@ def inputs(kernel: str, shape, dev) -> tuple[dict, str]:
         return torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, torch.bfloat16)
 
     if kernel == "K1":
-        n, d = shape, 1024
+        n, d = shape
         mods = bf16(2, 6 * d) * 0.05
         t = {"x": bf16(2, n, d), "scale": mods[:, d:2 * d], "shift": mods[:, :d], "b": 2, "n": n,
              "d": d, "scale_stride": 6 * d, "shift_stride": 6 * d, "eps": 1e-6}

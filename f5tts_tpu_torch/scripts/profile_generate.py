@@ -47,8 +47,8 @@ CLASSES = (
                                        "fused_qkv_rope_attn_bias_krot_kernel")),
     ("masked_flash_attention", ("masked_flash_attn_kernel",)),  # before its substring
     ("flash_attention", ("flash_attn_kernel",)),
-    ("adaln_norm", ("adaln_norm_kernel",)),
-    ("rms_norm", ("rms_norm_kernel",)),
+    ("adaln_norm", ("AdaLNEpi",)),
+    ("rms_norm", ("RmsEpi",)),
     ("conv_pos_embedding", K2_NAMES),  # before K10's, whose kernel it is a mode of
     ("grouped_conv1d", ("grouped_conv1d_kernel",)),
     ("gemm", ("gemm", "Gemm", "cutlass", "xmma", "nvjet", "cublas")),

@@ -56,8 +56,8 @@ CLASSES = (
     ("attention_fwd K7 lse", ("flash_attn_lse_kernel",)),
     ("attention_bwd K9", ("flash_bwd_delta_kernel", "flash_bwd_dq_kernel",
                           "flash_bwd_dkdv_kernel")),
-    ("adaln_norm K1", ("adaln_norm_kernel",)),
-    ("rms_norm K6", ("rms_norm_kernel",)),
+    ("adaln_norm K1", ("AdaLNEpi",)),
+    ("rms_norm K6", ("RmsEpi",)),
     ("conv_pos K2", K2_NAMES),
     ("gemm", ("gemm", "Gemm", "cutlass", "xmma", "nvjet", "cublas")),
     ("conv (cuDNN, K2/ConvNeXt backward)", ("conv", "Conv", "cudnn", "dgrad", "wgrad")),

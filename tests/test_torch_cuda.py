@@ -9,8 +9,10 @@ its plain versions; K4 also at K3's edge lengths) and K9 alone and through
 autograd (K3's lse mode -> K4, K5's lse mode -> K8, K7's lse mode -> K9);
 the generic grouped conv1d K10 (every padded width at k 1, 2, 4 and 31) and
 the key-masked head-layout attention K11; K2's length edges (0, 1, 64, 65,
-128, 129, n) and K6 at qk-norm's head rows, at d = 768 and on the strided
-head view of a projection; one tiny DiT, UNetT and MMDiT
+128, 129, n); K6 at qk-norm's head rows, at d = 768 and on the strided
+head view of a projection, and K1 at the main paths' shapes and at b = 3
+with n = 1 and 37 (d 64 to 4096: batch boundaries inside a block and a
+thread's rows); one tiny DiT, UNetT and MMDiT
 forward (also at the dim-768 widths and with qk-norm) and one tiny training
 step of each backbone through the kernels against the CPU plain path; the
 pipeline's CUDA-graph replay against the eager generate (DiT, MMDiT), with
@@ -88,14 +90,27 @@ def _close(got, want, live=None):
     assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())
 
 
-@pytest.mark.parametrize("n", [1, 100, 1024])
-def test_adaln_norm_kernel(dev, n):
-    rng = np.random.default_rng(n)
-    x = _bf16(rng, (2, n, 1024), dev)
-    mods = _bf16(rng, (2, 6 * 1024), dev, 0.05)
-    out = adaln_norm(x, mods[:, 1024:2048], mods[:, :1024])
-    ref = adaln_norm_ref(x.float(), mods[:, 1024:2048].float(), mods[:, :1024].float())
-    assert _live_max(out, ref, torch.full((2,), n, device=dev)) <= 2e-2
+# K1's (b, n, d): the main paths' shapes ([2, 1024 / 4096, 1024] DiT and
+# MMDiT audio, [2, 256, 1024] the MMDiT text stream, [2, 1024 / 4096, 768]
+# F5TTS_v1_Small), and b = 3 at n = 1 and 37 over every vector count a lane
+# can hold (d = 64: 8 lanes and 4 rows a thread, so a thread's rows cross a
+# batch boundary; d = 4096: scale and shift read at use, not kept)
+K1_SHAPES = ([(2, 1, 1024), (2, 100, 1024), (2, 1024, 1024), (2, 4096, 1024), (2, 256, 1024),
+              (2, 1024, 768), (2, 4096, 768)]
+             + [(3, n, d) for n in (1, 37) for d in (64, 768, 1024, 4096)])
+
+
+@pytest.mark.parametrize("b,n,d", K1_SHAPES)
+def test_adaln_norm_kernel(dev, b, n, d):
+    rng = np.random.default_rng(b * n + d)
+    x = _bf16(rng, (b, n, d), dev)
+    mods = _bf16(rng, (b, 6 * d), dev, 0.05)
+    scale, shift = mods[:, d:2 * d], mods[:, :d]  # strided views, as a block hands them over
+    _build.reset_launches()
+    out = adaln_norm(x, scale, shift)
+    assert _build.launches() == {"adaln_norm": 1}
+    ref = adaln_norm_ref(x.float(), scale.float(), shift.float())
+    assert _live_max(out, ref, torch.full((b,), n, device=dev)) <= 2e-2
 
 
 @pytest.mark.parametrize("n,length", [(64, 64), (200, 131), (1024, 777)])

@@ -106,12 +106,20 @@ def test_rope_rotates_interleaved_pairs():
 # K1: AdaLN norm
 # ---------------------------------------------------------------------------
 
-def test_adaln_norm_plain_matches_pallas_and_xla():
-    rng = np.random.default_rng(1)
-    x = (rng.standard_normal((2, 32, 128)) * 3 + 0.5).astype(np.float32)
-    scale = (rng.standard_normal((2, 128)) * 0.2).astype(np.float32)
-    shift = (rng.standard_normal((2, 128)) * 0.2).astype(np.float32)
-    got = _np(tan.adaln_norm(_t(x), _t(scale), _t(shift)))
+@pytest.mark.parametrize("d", [128, 768, 1024])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n", [32, 37])
+def test_adaln_norm_plain_matches_pallas_and_xla(d, b, n):
+    """At the model widths, one and three batch rows, and an n that no block
+    of 256 divides (the Pallas body then takes a block of n); scale and
+    shift are the strided row views of a [b, 6d] modulation, as a block
+    hands them over."""
+    rng = np.random.default_rng(d + 10 * b + n)
+    x = (rng.standard_normal((b, n, d)) * 3 + 0.5).astype(np.float32)
+    mods = (rng.standard_normal((b, 6 * d)) * 0.2).astype(np.float32)
+    shift, scale = mods[:, :d], mods[:, d:2 * d]
+    mods_t = _t(mods)
+    got = _np(tan.adaln_norm(_t(x), mods_t[:, d:2 * d], mods_t[:, :d]))
     pallas = np.asarray(jan._adaln_norm_fwd_pallas(jnp.asarray(x), jnp.asarray(scale),
                                                    jnp.asarray(shift), 1e-6))
     xla = np.asarray(jan.adaln_norm_ref(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(shift)))
