@@ -109,10 +109,27 @@ Phases (any failure raises, and the script exits non-zero):
     the memory each graph's pool holds; then one
     `f5tts_tpu_torch.eval.rtf_bench` line for F5TTS_v1_Base at 1024.
 
+17. int8 W8A8 and the pinyin tokenizer: K12 (the per-row int8 quantize) and
+    K13 (the int32 dequant + bias) bit-equal to their plain versions at the
+    int8 paths' shapes (an all-zero row in each, odd m, the MMDiT's text
+    rows read in place), timed as in phase 2; `torch._int_mm` at a DiT
+    block's shapes with both weight layouts beside the bf16 product; then
+    F5TTS_v1_Base through InferencePipeline.infer in bf16 and with
+    quantization="int8" (both with the default pinyin tokenizer and the
+    Emilia vocab) at the 1024 bucket and the cap, graphed: K12 / int8
+    product / K13 launched 88*16 times a generate beside K3 / K1 / K2's
+    352 / 720 / 32; walls (medians of 3 in turns) and device time of a
+    replay for both; one Chinese + English request whose graph's ids must
+    equal convert_char_to_pinyin + list_str_to_idx called directly; the
+    depth-2 DiT with int8 on the card against the CPU's int8 in f32 (mel
+    rel-L2 <= 3e-2) and against the card's bf16 (<= 2x phase 4's rel-L2);
+    an int8 `rtf_bench` line and bench.py's; E2TTS_Base and MMDiT_Base int8
+    at the 1024 bucket (96*16 and 173*16 of each int8 launch).
+
 Prints the `kernels` JSON line (launches: what the card ran on the
-inference and training paths of phases 3, 5, 7, 8, 10, 11, 13 and 14, each
-graph replay counted with its capture's counts), the card's name and power
-limit,
+inference and training paths of phases 3, 5, 7, 8, 10, 11, 13, 14 and 17,
+each graph replay counted with its capture's counts), the card's name and
+power limit,
 and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the repo's
 f5tts_tpu_torch package beside this file; imports nothing of JAX.
@@ -162,6 +179,9 @@ REPLACES = {
     "flash_attention_bwd": "f5tts_tpu/ops/attention.py:357 (+ :249 / :300 split pair)",
     "grouped_conv1d": "f5tts_tpu/ops/grouped_conv.py:27",
     "masked_flash_attention": "f5tts_tpu/ops/attention.py:1653",
+    "quantize_rows": "f5tts_tpu/ops/quant.py:42 quantize_rows (plain XLA, no Pallas body)",
+    "dequant_bias": "f5tts_tpu/ops/quant.py:96 int8_linear_pre's dequant (plain XLA, no "
+                    "Pallas body)",
 }
 SOURCES = {
     "adaln_norm": "f5tts_tpu_torch/csrc/adaln_norm.cu",
@@ -178,6 +198,8 @@ SOURCES = {
     "flash_attention_bwd": "f5tts_tpu_torch/csrc/attention_bwd.cu",
     "grouped_conv1d": "f5tts_tpu_torch/csrc/grouped_conv.cu",
     "masked_flash_attention": "f5tts_tpu_torch/csrc/attention.cu",
+    "quantize_rows": "f5tts_tpu_torch/csrc/adaln_norm.cu",
+    "dequant_bias": "f5tts_tpu_torch/csrc/quant.cu",
 }
 NFE = 16
 # phases 5, 10 and 11: (batch, frames, updates, launches an update)
@@ -1023,7 +1045,9 @@ def phase_kernels(dev) -> dict:
 # phases 3, 4, 7, 8 and 9
 # ---------------------------------------------------------------------------
 
-def make_pipeline(dev, backbone: str, arch, params, vocos_params):
+def make_pipeline(dev, backbone: str, arch, params, vocos_params, **kw):
+    """An InferencePipeline on the card; `kw` overrides the char tokenizer
+    (with `scripts.common.VOCAB`) and any other field."""
     import torch
     from f5tts_tpu_torch.config import SamplingConfig
     from f5tts_tpu_torch.infer.pipeline import InferencePipeline
@@ -1031,20 +1055,28 @@ def make_pipeline(dev, backbone: str, arch, params, vocos_params):
     from f5tts_tpu_torch.scripts.common import VOCAB
     from f5tts_tpu_torch.vocoder.vocos import Vocos, VocosConfig
 
+    kw = {"vocab_char_map": VOCAB, "tokenizer": "char", **kw}
     return InferencePipeline(params, BACKBONES[backbone].statics_cls(arch),
-                             Vocos(vocos_params, VocosConfig(), device=dev), vocab_char_map=VOCAB,
-                             sampling=SamplingConfig(nfe_steps=NFE), tokenizer="char",
-                             dtype=torch.bfloat16, device=dev, backbone=backbone)
+                             Vocos(vocos_params, VocosConfig(), device=dev),
+                             sampling=SamplingConfig(nfe_steps=NFE), dtype=torch.bfloat16,
+                             device=dev, backbone=backbone, **kw)
 
 
-def generate_launches(backbone: str, arch, flat: bool = True) -> dict:
+# the int8 path's launches, once each per quantized projection
+QUANT_KERNELS = ("quantize_rows", "int8_mm", "dequant_bias")
+
+
+def generate_launches(backbone: str, arch, flat: bool = True, int8: bool = False) -> dict:
     """The kernel launches of one NFE-step generate at a dim-1024 preset;
     `flat` False for the UNetT past the flat gate (the 4224-row cap: K7 in
     K3's place). A step: the DiT's K3 a block, K1 two a block and the final
     norm; the UNetT's K6 two a block and the final norm; the MMDiT's K1 four
     a block, three in the context_pre_only last block and the final norm,
     with qk-norm K11 in K5's place and K6 on q and k of both streams (four a
-    block); K2 once for cond and once for uncond."""
+    block); K2 once for cond and once for uncond. With `int8`, K12, the
+    int8 product and K13 once each per quantized projection: four a DiT or
+    UNetT block (to_qkv, to_out, ff.in, ff.out), eight an MMDiT block (both
+    streams' twins) and five in its last block (no to_out_c, no ff_c)."""
     if backbone == "DiT":
         step = {"fused_qkv_rope_attention": arch.depth, "adaln_norm": 2 * arch.depth + 1}
     elif backbone == "UNetT":
@@ -1057,6 +1089,9 @@ def generate_launches(backbone: str, arch, flat: bool = True) -> dict:
         else:
             step["fused_qkv_rope_attention_bias"] = arch.depth
     step["conv_pos_embedding"] = 2
+    if int8:
+        proj = 8 * (arch.depth - 1) + 5 if backbone == "MMDiT" else 4 * arch.depth
+        step.update({name: proj for name in QUANT_KERNELS})
     return {k: v * NFE for k, v in step.items()}
 
 
@@ -1191,13 +1226,17 @@ def cut_to_depth_2(backbone: str, params: dict) -> dict:
 
 
 def phase_card_vs_cpu(dev, arch, params, vocos_params, backbone: str = "DiT",
-                      expect=None) -> float:
-    """`expect`: the launches of one step of the card's depth-2 sampler."""
+                      expect=None, quantization: str = "none") -> tuple:
+    """`expect`: the launches of one step of the card's depth-2 sampler.
+    With `quantization="int8"` each side quantizes its cast params, as the
+    pipeline does (the CPU's int8 path in f32: the plain versions). Returns
+    (the mel rel-L2, the card's mel over the generated frames)."""
     import torch
     from f5tts_tpu_torch.models import cfm
     from f5tts_tpu_torch.models.modules import fuse_backbone_qkv, tree_cast
     from f5tts_tpu_torch.ops import _build
     from f5tts_tpu_torch.ops.mel import MelFrontend
+    from f5tts_tpu_torch.ops.quant import quantize_dit_params
     from f5tts_tpu_torch.scripts.common import synthetic_ref_wav
     from f5tts_tpu_torch.utils import make_time_grid
     from f5tts_tpu_torch.vocoder.vocos import Vocos, VocosConfig
@@ -1220,6 +1259,8 @@ def phase_card_vs_cpu(dev, arch, params, vocos_params, backbone: str = "DiT",
     mels, waves = {}, {}
     for where, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
         pw = tree_cast(p2, dtype, where)
+        if quantization == "int8":
+            pw = quantize_dit_params(pw)
         statics = bdef.statics_cls(arch2, where)
         t0 = time.perf_counter()
         _build.reset_launches()
@@ -1233,17 +1274,18 @@ def phase_card_vs_cpu(dev, arch, params, vocos_params, backbone: str = "DiT",
                                      f"expected {expect} a step")
         wav = Vocos(vocos_params, VocosConfig(), device=where)(mel.transpose(1, 2))
         mels[where.type], waves[where.type] = mel.float().cpu(), wav.float().cpu()
-        log(f"  {backbone} {where.type} {str(dtype)[6:]}: depth 2, {nfe} NFE, n {n}: "
-            f"{time.perf_counter() - t0:.2f} s")
+        log(f"  {backbone} {where.type} {str(dtype)[6:]}{' int8' if quantization == 'int8' else ''}:"
+            f" depth 2, {nfe} NFE, n {n}: {time.perf_counter() - t0:.2f} s")
     a, b = mels["cuda"][:, prompt:total], mels["cpu"][:, prompt:total]
     rel = float((a - b).norm() / b.norm())
     wa, wb = waves["cuda"], waves["cpu"]
     wrel = float((wa - wb).norm() / wb.norm())
-    log(f"  {backbone} card bf16 vs cpu f32: mel rel-L2 {rel:.4e} (tol 3e-2), "
+    what = "int8 " if quantization == "int8" else ""
+    log(f"  {backbone} card {what}bf16 vs cpu {what}f32: mel rel-L2 {rel:.4e} (tol 3e-2), "
         f"wav rel-L2 {wrel:.4e}")
     if not (np.isfinite(rel) and rel <= 3e-2):
         raise AssertionError(f"{backbone} card vs cpu mel rel-L2 {rel} > 3e-2")
-    return rel
+    return rel, a
 
 
 # ---------------------------------------------------------------------------
@@ -1362,6 +1404,274 @@ def phase_graphs(dev, gpu: str) -> list[dict]:
         del pipe
         torch.cuda.empty_cache()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 17
+# ---------------------------------------------------------------------------
+
+# K12's inputs on the int8 paths, [b, n, k]: to_qkv / to_out / ff.in at the
+# 1024 bucket and the cap (k 1024), ff.out at ff_mult 2 (k 2048) and the
+# UNetT's (ff_mult 4, k 4096); 37 rows (odd). Each has an all-zero row.
+K12_SHAPES = ((2, 1024, 1024), (2, 4096, 1024), (2, 1024, 2048), (2, 4096, 2048),
+              (2, 1024, 4096), (2, 4096, 4096), (1, 37, 1024))
+# K13's outputs, [m, n]: the DiT projections' (to_qkv 3072, to_out and
+# ff.out 1024, ff.in 2048) at the 1024 bucket (m 2048) and the cap (8192),
+# the UNetT's ff.in (4096), the MMDiT text stream (2 x 256 rows), odd m
+K13_SHAPES = ((2048, 3072), (2048, 1024), (2048, 2048), (8192, 3072), (8192, 1024),
+              (8192, 2048), (2048, 4096), (512, 3072), (37, 1024))
+# the int8 products of a DiT-1024 block, (m, k, n)
+INT8_MM_SHAPES = ((2048, 1024, 3072), (2048, 1024, 1024), (2048, 1024, 2048), (2048, 2048, 1024))
+PINYIN_TEXT = "我们今天一起去银行，然后在公园里散步。The weather was fine, 不是吗?"
+
+
+def check_quant_rows_case(x, what: str) -> dict:
+    """K12 on x against its plain version: bit-equal codes and scales, every
+    all-zero row at scale 1 and codes 0; timed as phase 2 times a kernel."""
+    import torch
+    from f5tts_tpu_torch.ops.quant import quantize_rows, quantize_rows_ref
+
+    codes, scale = quantize_rows(x)
+    ref_c, ref_s = quantize_rows_ref(x)
+    torch.cuda.synchronize()
+    err = max(float((codes.int() - ref_c.int()).abs().max()), float((scale - ref_s).abs().max()))
+    zero = (x == 0).all(dim=-1)
+    if not (torch.equal(codes, ref_c) and torch.equal(scale, ref_s)):
+        raise AssertionError(f"quantize_rows {what}: not bit-equal to its plain version ({err})")
+    if not (bool(zero.any()) and bool((codes[zero] == 0).all()) and bool((scale[zero] == 1).all())):
+        raise AssertionError(f"quantize_rows {what}: an all-zero row is not scale 1, codes 0")
+    elems, rows = x.numel(), x.numel() // x.shape[-1]
+    bound = max((3 * elems + 4 * rows) / HBM_BYTES_PER_S, 4 * elems / F32_FLOPS_PER_S) * 1e3
+    ms = time_ms(lambda: quantize_rows(x))
+    wall = wall_ms(lambda: quantize_rows(x))
+    plain = time_ms(lambda: quantize_rows_ref(x), reps=2)
+    log(f"  quantize_rows {what}: bit-equal, {ms:.4f} ms (eager call {wall:.4f} ms), bound "
+        f"{bound:.4f} ms (bytes), plain {plain:.4f} ms, {ms / bound:.2f}x the bound")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None}
+
+
+def check_quant_rows(rng, dev) -> dict:
+    """K12 at `K12_SHAPES` and on the MMDiT's text rows, read in place from
+    a joint [2, 1024 + 256, 1024] attention output (strided rows)."""
+    import torch
+
+    out_row = None
+    for b, n, k in K12_SHAPES:
+        x = torch.from_numpy(rng.standard_normal((b, n, k)).astype(np.float32)).to(dev, torch.bfloat16)
+        x[0, n // 2] = 0
+        out_row = merge_rows(out_row, check_quant_rows_case(x, f"[{b},{n},{k}] bf16"))
+    o = torch.from_numpy(rng.standard_normal((2, 1280, 1024)).astype(np.float32)).to(dev, torch.bfloat16)
+    o[1, 1100] = 0
+    return merge_rows(out_row, check_quant_rows_case(
+        o[:, 1024:], "[2,256,1024] bf16, the text rows of a joint [2,1280,1024] output in place"))
+
+
+def check_dequant(dev) -> dict:
+    """K13 at `K13_SHAPES`, with and without a bias: bit-equal (as int16
+    views) to its plain version."""
+    import torch
+    from f5tts_tpu_torch.ops.quant import dequant_bias, dequant_bias_ref
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out_row = None
+    for m, n in K13_SHAPES:
+        acc = torch.randint(-2**20, 2**20, (m, n), dtype=torch.int32, device=dev, generator=gen)
+        xs = torch.rand(m, device=dev, generator=gen) * 3e-2 + 1e-3
+        ws = torch.rand((1, n), device=dev, generator=gen) * 1e-3 + 1e-4
+        bias = torch.randn(n, device=dev, generator=gen).to(torch.bfloat16)
+        err = 0.0
+        for b in (bias, None):
+            y = dequant_bias(acc, xs, ws, b, torch.bfloat16)
+            ref = dequant_bias_ref(acc, xs, ws, b, torch.bfloat16)
+            torch.cuda.synchronize()
+            err = max(err, float((y.float() - ref.float()).abs().max()))
+            if not torch.equal(y.view(torch.int16), ref.view(torch.int16)):
+                raise AssertionError(f"dequant_bias [{m},{n}] (bias {b is not None}): not "
+                                     f"bit-equal to its plain version ({err})")
+        bound = max((6 * m * n + 4 * m + 6 * n) / HBM_BYTES_PER_S,
+                    3 * m * n / F32_FLOPS_PER_S) * 1e3
+        ms = time_ms(lambda: dequant_bias(acc, xs, ws, bias, torch.bfloat16))
+        wall = wall_ms(lambda: dequant_bias(acc, xs, ws, bias, torch.bfloat16))
+        plain = time_ms(lambda: dequant_bias_ref(acc, xs, ws, bias, torch.bfloat16), reps=2)
+        log(f"  dequant_bias [{m},{n}] int32 -> bf16 (+ bf16 bias; and without): bit-equal, "
+            f"{ms:.4f} ms (eager call {wall:.4f} ms), bound {bound:.4f} ms (bytes), plain "
+            f"{plain:.4f} ms, {ms / bound:.2f}x the bound")
+        out_row = merge_rows(out_row, {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                                        "bound_ms": bound, "bound_by": "bytes",
+                                        "library_ms": None})
+    return out_row
+
+
+def time_int8_products(dev, gpu: str) -> list[dict]:
+    """`torch._int_mm` at a DiT-1024 block's shapes with the weight as
+    [n, k] passed as `.t()` (the layout `quantize_dit_params` stores) and as
+    [k, n], beside the bf16 product of the same shape; both int8 layouts
+    exact and equal."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    rows = []
+    for m, k, n in INT8_MM_SHAPES:
+        xq = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev, generator=gen)
+        w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev, generator=gen)
+        w_kn = w.t().contiguous()
+        xb, wb = xq.to(torch.bfloat16), w_kn.to(torch.bfloat16)
+        exact = (xq.double() @ w_kn.double()).to(torch.int32)
+        if not (torch.equal(torch._int_mm(xq, w.t()), exact)
+                and torch.equal(torch._int_mm(xq, w_kn), exact)):
+            raise AssertionError(f"torch._int_mm [{m},{k}]x[{k},{n}] is not exact")
+        row = {"m": m, "k": k, "n": n, "int8_nk_t_ms": time_ms(lambda: torch._int_mm(xq, w.t())),
+               "int8_kn_ms": time_ms(lambda: torch._int_mm(xq, w_kn)),
+               "bf16_ms": time_ms(lambda: xb @ wb)}
+        rows.append(row)
+        log(f"  int8 product [{m},{k}]x[{k},{n}]: w [n,k].t() {row['int8_nk_t_ms']:.4f} ms, "
+            f"w [k,n] {row['int8_kn_ms']:.4f} ms; bf16 {row['bf16_ms']:.4f} ms [{gpu}]")
+    return rows
+
+
+def replay_ms(entry, reps: int = 5) -> float:
+    """Median device time of one replay of a pipeline's graph (CUDA events)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        entry.graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def int8_against_bf16(pipes: dict, cases, gpu: str) -> list[dict]:
+    """Each (text, frames) case through both pipelines ({"none": bf16,
+    "int8": int8}, their graphs captured): graphed walls of WALL_REPS
+    requests in turns (medians) and the device time of one replay of each
+    pipeline's graph."""
+    import torch
+    from f5tts_tpu_torch.scripts.common import REF_TEXT, synthetic_ref_wav
+
+    ref = synthetic_ref_wav()
+    rows = []
+    for text, frames in cases:
+        walls = {q: [] for q in pipes}
+        used = {}
+        for seed in range(WALL_REPS):
+            for q, pipe in pipes.items():
+                before = {key: e.replays for key, e in pipe.graphs.items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                wave, sr, _ = pipe.infer(ref, 24000, REF_TEXT, text, seed=seed, nfe_step=NFE,
+                                         cfg_strength=2.0, sway_sampling_coef=-1.0,
+                                         fix_duration=(frames + 0.5) * pipe.hop / pipe.sr)
+                torch.cuda.synchronize()
+                walls[q].append(time.perf_counter() - t0)
+                (used[q],) = [e for key, e in pipe.graphs.items()
+                              if e.replays > before.get(key, 0)]
+        audio_s = len(wave) / sr
+        row = {"frames": frames, "audio_s": audio_s}
+        for q in pipes:
+            wall = statistics.median(walls[q])
+            row[q] = {"wall_s": wall, "walls_s": walls[q], "rtf": wall / audio_s,
+                      "device_ms": replay_ms(used[q])}
+        rows.append(row)
+        log(f"  DiT {frames} frames ({audio_s:.3f} s of audio): graphed wall bf16 "
+            f"{row['none']['wall_s']:.4f} s / int8 {row['int8']['wall_s']:.4f} s (medians of "
+            f"{WALL_REPS}, in turns), RTF {row['none']['rtf']:.5f} / {row['int8']['rtf']:.5f}, "
+            f"device ms a replay {row['none']['device_ms']:.2f} / {row['int8']['device_ms']:.2f}"
+            f" [{gpu}]")
+    return rows
+
+
+def pinyin_request(pipe, vocab: dict, expect: dict, gpu: str) -> dict:
+    """One Chinese + English request through `pipe` (the pinyin tokenizer):
+    the ids its graph was fed must equal convert_char_to_pinyin +
+    list_str_to_idx of the same chunk called here."""
+    from f5tts_tpu_torch.infer.pipeline import chunk_text, max_chars_for_ref
+    from f5tts_tpu_torch.scripts.common import REF_TEXT, synthetic_ref_wav
+    from f5tts_tpu_torch.text.pinyin import convert_char_to_pinyin, segmenter_name
+    from f5tts_tpu_torch.text.vocab import list_str_to_idx
+
+    ref_text = REF_TEXT + " "  # `infer`'s completion of a reference ending in "."
+    ref_secs = len(synthetic_ref_wav()) / 24000
+    chunks = chunk_text(PINYIN_TEXT, max(max_chars_for_ref(ref_text, ref_secs,
+                                                           pipe.sampling.speed), 16))
+    if len(chunks) != 1:
+        raise AssertionError(f"the pinyin request splits into {len(chunks)} chunks")
+    want = list_str_to_idx(convert_char_to_pinyin([ref_text + chunks[0]]), vocab)
+    before = {key: e.replays for key, e in pipe.graphs.items()}
+    ran = run_requests(pipe, [(PINYIN_TEXT, None, expect)], gpu)
+    (entry,) = [e for key, e in pipe.graphs.items() if e.replays > before.get(key, 0)]
+    got = entry.inputs["text"].cpu().numpy()
+    want = np.pad(want, ((0, 0), (0, got.shape[1] - want.shape[1])), constant_values=-1)
+    tokens = int((want != -1).sum())
+    log(f"  pinyin request: {tokens} tokens ({segmenter_name()} segmenter); the graph's ids "
+        f"{'equal' if np.array_equal(got, want) else 'DIFFER from'} convert_char_to_pinyin + "
+        "list_str_to_idx called here")
+    if not np.array_equal(got, want):
+        raise AssertionError("the pinyin request's ids differ from the direct conversion")
+    return ran
+
+
+def phase_int8(dev, gpu: str, bf16_drift: tuple) -> tuple[dict, dict]:
+    """F5TTS_v1_Base int8 against bf16 (both with the pinyin tokenizer and
+    the Emilia vocab, the pipeline's default) at the 1024 bucket and the
+    cap, one pinyin request, E2TTS_Base and MMDiT_Base int8 at the 1024
+    bucket, the depth-2 gates. Returns (the launches the card ran, the
+    numbers)."""
+    import torch
+    from f5tts_tpu_torch.eval.rtf_bench import bench_line, bench_sampler
+    from f5tts_tpu_torch.scripts.common import REQUESTS, base_models
+    from f5tts_tpu_torch.text.vocab import EMILIA_VOCAB, load_vocab
+
+    vocab = load_vocab(EMILIA_VOCAB)
+    launches: dict[str, int] = {}
+
+    def add(ran):
+        for name, c in ran.items():
+            launches[name] = launches.get(name, 0) + c
+
+    arch, params, vocos_params = base_models()
+    pipes = {q: make_pipeline(dev, "DiT", arch, params, vocos_params, vocab_char_map=vocab,
+                              tokenizer="pinyin", quantization=q) for q in ("none", "int8")}
+    cases = ((REQUESTS[0], 1014), (REQUESTS[1], 4086))
+    for q, pipe in pipes.items():
+        expect = generate_launches("DiT", arch, int8=q == "int8")
+        add(run_requests(pipe, [(text, frames, expect) for text, frames in cases], gpu))
+    out = {"dit": int8_against_bf16(pipes, cases, gpu)}
+    add(pinyin_request(pipes["int8"], vocab, generate_launches("DiT", arch, int8=True), gpu))
+    del pipes
+    torch.cuda.empty_cache()
+
+    step = {"fused_qkv_rope_attention": 2, "adaln_norm": 5, "conv_pos_embedding": 2,
+            **{name: 8 for name in QUANT_KERNELS}}
+    rel_i8, mel_i8 = phase_card_vs_cpu(dev, arch, params, vocos_params, "DiT", step, "int8")
+    rel_bf, mel_bf = bf16_drift
+    drift = float((mel_i8 - mel_bf).norm() / mel_bf.norm())
+    log(f"  DiT depth 2: card int8 against card bf16 mel rel-L2 {drift:.4e} (tol 2 x the card "
+        f"bf16 against cpu f32 {rel_bf:.4e}: {2 * rel_bf:.4e}); card int8 against cpu f32 int8 "
+        f"{rel_i8:.4e}")
+    if not drift <= 2 * rel_bf:
+        raise AssertionError(f"card int8 against card bf16 rel-L2 {drift} > 2 x {rel_bf}")
+    out["depth2"] = {"int8_vs_bf16": drift, "bf16_vs_f32": rel_bf, "int8_vs_cpu_int8": rel_i8}
+    del params
+
+    stats = bench_sampler("F5TTS_v1_Base", device=dev, quantization="int8")
+    log(f"  rtf_bench int8: {json.dumps(stats)}")
+    log(f"  bench line int8: {json.dumps(bench_line(stats))}")
+
+    for model, backbone, frames in (("E2TTS_Base", "UNetT", 1013), ("MMDiT_Base", "MMDiT", 1014)):
+        arch_b, params_b, vocos_b = base_models(model=model)
+        pipe = make_pipeline(dev, backbone, arch_b, params_b, vocos_b, quantization="int8")
+        log(f"  {model} int8:")
+        add(run_requests(pipe, [(REQUESTS[0], frames,
+                                 generate_launches(backbone, arch_b, int8=True))], gpu))
+        del pipe, params_b
+        torch.cuda.empty_cache()
+    return launches, out
 
 
 # ---------------------------------------------------------------------------
@@ -1556,7 +1866,7 @@ def main() -> int:
     launches = phase_main_path(dev, arch, params, vocos_params, gpu)
 
     log("phase 4: card bf16 against cpu f32, depth 2")
-    phase_card_vs_cpu(dev, arch, params, vocos_params)
+    bf16_drift = phase_card_vs_cpu(dev, arch, params, vocos_params)
     torch.cuda.synchronize()
 
     log("phase 5: training path, Trainer.train at F5TTS_v1_Base, bf16 compute, f32 state")
@@ -1658,6 +1968,17 @@ def main() -> int:
 
     log(f"  rtf_bench: {json.dumps(bench_sampler('F5TTS_v1_Base', device=dev))}")
     log(f"  graphs: {json.dumps(graph_rows)}")
+
+    log("phase 17: int8 W8A8 (K12, the int8 product, K13) and the pinyin tokenizer")
+    rng17 = np.random.default_rng(17)
+    rows["quantize_rows"] = check_quant_rows(rng17, dev)
+    rows["dequant_bias"] = check_dequant(dev)
+    int8_mm_rows = time_int8_products(dev, gpu)
+    ran, int8_rows = phase_int8(dev, gpu, bf16_drift)
+    for name, count in ran.items():
+        launches[name] = launches.get(name, 0) + count
+    log(f"  int8: {json.dumps({'products': int8_mm_rows, **int8_rows})}")
+    torch.cuda.empty_cache()
 
     idle = [name for name in rows if not launches.get(name)]
     if idle:

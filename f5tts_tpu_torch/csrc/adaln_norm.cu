@@ -25,6 +25,22 @@
 //   a thread's grid-stride walk meets b in increasing order, so they cross L2
 //   at most b times a thread, not once a row.
 // Past V = 4 (d > 1024, no preset) w, scale and shift are read from L2 at use.
+//
+// K12: the per-row int8 quantize of the int8 W8A8 projections
+// (f5tts_tpu_torch/ops/quant.py quantize_rows): amax = max |x| over a row,
+// scale = amax / 127 (1 for an all-zero row), codes = clip(round(x / scale),
+// -127, 127), round half to even. It has no Pallas counterpart: the JAX
+// package leaves f5tts_tpu/ops/quant.py:42 quantize_rows to XLA. Bound:
+// memory, 2 bytes read and 1 written an element (6.3 MB at [2, 1024, 1024],
+// about 1.9 us at 3.35 TB/s). `quant_rows_kernel` is a sibling of the row
+// engine with its lane layout, grid and strided rows (MMDiT's to_out_c reads
+// the text rows of the joint attention output in place); its reduction is a
+// max, and its epilogue writes int8 codes and one f32 scale a row. The scale
+// and the division are IEEE divisions (`__fdiv_rn`), as the plain version's
+// `x.float() / scale`: multiplying by 127 / amax would move values across .5
+// boundaries and the codes would differ from the plain version's.
+#include <type_traits>
+
 #include "common.cuh"
 
 #ifndef RN_VEC
@@ -49,6 +65,14 @@ struct RnRows {
     int rows, n1, n2;
     long long s0, s1, s2;
 };
+
+// Row `row` of x and its batch index i0.
+__device__ __forceinline__ const bf16* rn_row(const bf16* x, const RnRows& p, unsigned row,
+                                              unsigned& batch) {
+    const unsigned i2 = row % p.n2, t = row / p.n2;
+    batch = p.n1 == 1 ? t : t / p.n1;  // K1's rows and merged ones: no division
+    return x + batch * p.s0 + (t - batch * p.n1) * p.s1 + i2 * p.s2;
+}
 
 // w[i..i+8) as floats, from an f32 or a bf16 weight row
 __device__ __forceinline__ void load_w8(const float* w, int i, float* f) {
@@ -123,9 +147,7 @@ __global__ void __launch_bounds__(rn_threads<L>()) norm_rows_kernel(
 #pragma unroll
         for (int j = 0; j < R; ++j) {
             const unsigned row = base + j * SLOTS + slot;
-            const unsigned i2 = row % p.n2, t = row / p.n2;
-            batch[j] = p.n1 == 1 ? t : t / p.n1;  // K1's rows and merged ones: no division
-            const bf16* xr = x + batch[j] * p.s0 + (t - batch[j] * p.n1) * p.s1 + i2 * p.s2;
+            const bf16* xr = rn_row(x, p, row, batch[j]);
 #pragma unroll
             for (int v = 0; v < V; ++v) {
                 const int vi = lane + v * L;
@@ -206,20 +228,121 @@ static int launch_norm_rows(const bf16* x, bf16* out, const RnRows& p, int d, fl
     return (int)cudaGetLastError();
 }
 
-template <class Epi>
-static int dispatch_norm_rows(const bf16* x, bf16* out, const RnRows& p, int d, float eps,
-                              const Epi& epi, cudaStream_t s) {
+// The lane layout (L, V) of a row of d values: `launch(L, V)` with both as
+// std::integral_constant, after the checks every kernel of the engine needs.
+template <class Launch>
+static int rn_dispatch(const RnRows& p, int d, Launch&& launch) {
+    using std::integral_constant;
     if (d <= 0 || d % 8 || d > 4096) return (int)cudaErrorInvalidValue;
     if (p.rows <= 0) return (int)cudaGetLastError();
     if (p.rows > RN_MAX_ROWS || p.n1 <= 0 || p.n2 <= 0) return (int)cudaErrorInvalidValue;
     const int nvec = d / 8;
-    if (nvec <= 8) return launch_norm_rows<Epi, 8, 1>(x, out, p, d, eps, epi, s);
-    if (nvec <= 16) return launch_norm_rows<Epi, 16, 1>(x, out, p, d, eps, epi, s);
-    if (nvec <= 32) return launch_norm_rows<Epi, 32, 1>(x, out, p, d, eps, epi, s);
-    if (nvec <= 64) return launch_norm_rows<Epi, 32, 2>(x, out, p, d, eps, epi, s);
-    if (nvec <= 128) return launch_norm_rows<Epi, 32, 4>(x, out, p, d, eps, epi, s);
-    if (nvec <= 256) return launch_norm_rows<Epi, 32, 8>(x, out, p, d, eps, epi, s);
-    return launch_norm_rows<Epi, 32, 16>(x, out, p, d, eps, epi, s);
+    if (nvec <= 8) return launch(integral_constant<int, 8>(), integral_constant<int, 1>());
+    if (nvec <= 16) return launch(integral_constant<int, 16>(), integral_constant<int, 1>());
+    if (nvec <= 32) return launch(integral_constant<int, 32>(), integral_constant<int, 1>());
+    if (nvec <= 64) return launch(integral_constant<int, 32>(), integral_constant<int, 2>());
+    if (nvec <= 128) return launch(integral_constant<int, 32>(), integral_constant<int, 4>());
+    if (nvec <= 256) return launch(integral_constant<int, 32>(), integral_constant<int, 8>());
+    return launch(integral_constant<int, 32>(), integral_constant<int, 16>());
+}
+
+template <class Epi>
+static int dispatch_norm_rows(const bf16* x, bf16* out, const RnRows& p, int d, float eps,
+                              const Epi& epi, cudaStream_t s) {
+    return rn_dispatch(p, d, [&](auto l, auto v) {
+        return launch_norm_rows<Epi, decltype(l)::value, decltype(v)::value>(x, out, p, d, eps,
+                                                                              epi, s);
+    });
+}
+
+// ---------------------------------------------------------------------------
+// K12
+// ---------------------------------------------------------------------------
+
+// 4 codes, clip(round_half_even(f / scale), -127, 127), in one 32-bit word
+__device__ __forceinline__ uint32_t quant4(const float* f, float scale) {
+    uint32_t w = 0u;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+        const int q = max(-127, min(127, __float2int_rn(__fdiv_rn(f[e], scale))));
+        w |= (uint32_t)(q & 0xff) << (8 * e);
+    }
+    return w;
+}
+
+template <int L, int V, int R>
+__global__ void __launch_bounds__(rn_threads<L>()) quant_rows_kernel(
+    const bf16* __restrict__ x, int8_t* __restrict__ codes, float* __restrict__ row_scale,
+    const RnRows p, int d) {
+    constexpr unsigned SLOTS = rn_threads<L>() / L;
+    const int lane = threadIdx.x % L;
+    const unsigned slot = threadIdx.x / L, rows = p.rows;
+    const int nvec = d / 8;
+    for (unsigned base = blockIdx.x * SLOTS * R; base < rows; base += gridDim.x * SLOTS * R) {
+        uint4 raw[R][V];
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+            const unsigned row = base + j * SLOTS + slot;
+            unsigned batch;
+            const bf16* xr = rn_row(x, p, row, batch);
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+                const int vi = lane + v * L;
+                raw[j][v] = row < rows && vi < nvec
+                                ? *reinterpret_cast<const uint4*>(xr + vi * 8)
+                                : make_uint4(0, 0, 0, 0);
+            }
+        }
+        float amax[R];
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+            amax[j] = 0.f;
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+                float f[8];
+                unpack8(raw[j][v], f);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) amax[j] = fmaxf(amax[j], fabsf(f[e]));
+            }
+        }
+#pragma unroll
+        for (int off = L / 2; off > 0; off >>= 1) {
+#pragma unroll
+            for (int j = 0; j < R; ++j)
+                amax[j] = fmaxf(amax[j], __shfl_xor_sync(0xffffffffu, amax[j], off));
+        }
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+            const unsigned row = base + j * SLOTS + slot;
+            if (row >= rows) continue;
+            const float scale = amax[j] > 0.f ? __fdiv_rn(amax[j], 127.f) : 1.f;
+            if (lane == 0) row_scale[row] = scale;
+            int8_t* crow = codes + (size_t)row * d;
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+                const int vi = lane + v * L;
+                if (vi >= nvec) continue;
+                float f[8];
+                unpack8(raw[j][v], f);
+                *reinterpret_cast<uint2*>(crow + vi * 8) =
+                    make_uint2(quant4(f, scale), quant4(f + 4, scale));
+            }
+        }
+    }
+}
+
+template <int L, int V>
+static int launch_quant_rows(const bf16* x, int8_t* codes, float* row_scale, const RnRows& p,
+                             int d, cudaStream_t stream) {
+    constexpr int R = V >= RN_VEC ? 1 : RN_VEC / V;
+    constexpr int THREADS = rn_threads<L>(), ROWS_A_BLOCK = THREADS / L * R;
+    auto kernel = quant_rows_kernel<L, V, R>;
+    int most = 0;
+    const cudaError_t err = resident_blocks((const void*)kernel, THREADS, 0, &most);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = min((p.rows + ROWS_A_BLOCK - 1) / ROWS_A_BLOCK, most);
+    kernel<<<blocks, THREADS, 0, stream>>>(x, codes, row_scale, p, d);
+    return (int)cudaGetLastError();
 }
 
 // x: contiguous [b, n, d]; scale / shift: [b, d] rows at scale_stride /
@@ -249,4 +372,17 @@ extern "C" int f5_rms_norm_bf16(const void* x, const void* w, int w_is_f32, void
                                   RmsEpi<float>{(const float*)w}, s);
     return dispatch_norm_rows((const bf16*)x, (bf16*)out, p, d, eps,
                               RmsEpi<bf16>{(const bf16*)w}, s);
+}
+
+// x: rows = n0 * n1 * n2 rows of d contiguous bf16 values at the strides s0,
+// s1, s2 (elements, multiples of 8); codes: contiguous [rows, d] int8;
+// row_scale: [rows] f32. d % 8 == 0, d <= 4096.
+extern "C" int f5_quant_rows_bf16(const void* x, void* codes, void* row_scale, int rows, int n1,
+                                  int n2, long long s0, long long s1, long long s2, int d,
+                                  void* stream) {
+    const RnRows p{rows, n1, n2, s0, s1, s2};
+    return rn_dispatch(p, d, [&](auto l, auto v) {
+        return launch_quant_rows<decltype(l)::value, decltype(v)::value>(
+            (const bf16*)x, (int8_t*)codes, (float*)row_scale, p, d, (cudaStream_t)stream);
+    });
 }

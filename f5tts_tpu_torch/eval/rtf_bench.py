@@ -2,15 +2,17 @@
 f5tts_tpu/eval/rtf_bench.py).
 
     python -m f5tts_tpu_torch.eval.rtf_bench [--model F5TTS_v1_Base] [--nfe 16]
-        [--seq_frames 1024] [--batch 1] [--runs 5] [--no_fused] [--bench_line]
-        [--output rtf.txt]
+        [--seq_frames 1024] [--batch 1] [--runs 5] [--quantization none|int8]
+        [--no_fused] [--bench_line] [--output rtf.txt]
 
 Any preset of the port's `PRESETS` (text_num_embeds 2545) with random
 weights from seeds (`scripts/common.base_models`: the zero-initialised
 leaves randomised) and Vocos, a bf16 backbone and f32 Vocos on the card,
 `seq_frames` less the backbone's prepended tokens (the UNetT's 1024 ->
 1023, the widths the pipeline's buckets take), a prompt of `prompt_frames`,
-128 text ids, CFG 2, sway -1. Two measurements:
+128 text ids, CFG 2, sway -1; `--quantization int8` runs the pipeline's
+int8 W8A8 params (`ops.quant.quantize_dit_params`), as the root bench.py
+does by default. Two measurements:
 - staged: `cfm_sample`, a device sync, the vocoder, a device sync: the
   sampler / vocoder split and the latency percentiles of their sum;
 - fused: `InferencePipeline.fused_generate`, the one-dispatch generate (one
@@ -51,9 +53,7 @@ def bench_sampler(model: str = "F5TTS_v1_Base", nfe: int = 16, seq_frames: int =
                   quantization: str = "none", fused: bool = True, device=None) -> dict:
     """The JAX `bench_sampler`'s measurement on `device` (the card unless
     the caller names one; on the CPU the plain versions run in f32)."""
-    if quantization == "int8":
-        raise NotImplementedError("int8 W8A8 is not ported to f5tts_tpu_torch yet")
-    if quantization != "none":
+    if quantization not in ("none", "int8"):
         raise ValueError(f"unknown quantization {quantization!r}")
     from f5tts_tpu_torch.config import PRESETS
     from f5tts_tpu_torch.infer.pipeline import InferencePipeline
@@ -71,7 +71,7 @@ def bench_sampler(model: str = "F5TTS_v1_Base", nfe: int = 16, seq_frames: int =
     arch, params, vocos_params = base_models(model=model)
     pipe = InferencePipeline(params, bdef.statics_cls(arch),
                              Vocos(vocos_params, VocosConfig(), device=dev), dtype=dtype,
-                             device=dev, backbone=backbone)
+                             device=dev, backbone=backbone, quantization=quantization)
 
     rng = np.random.default_rng(0)
     cond = torch.from_numpy((rng.standard_normal((batch, seq_frames, 100)) * 0.1)

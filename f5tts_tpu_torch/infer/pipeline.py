@@ -4,8 +4,11 @@
 reference, log-mel, chunk the text to a speech-rate budget, estimate each
 chunk's duration, pad to a bucket, run `cfm_sample` (the backbone, DiT,
 UNetT or MMDiT, and its kernels) and Vocos, restore the RMS and cross-fade
-the chunks. Single requests only: batching, streaming, int8 and the low-TTFB
-path are not ported yet.
+the chunks. Single requests only: batching, streaming and the low-TTFB path
+are not ported yet. The text goes through the pinyin tokenizer by default
+(`text.pinyin`, with a vocab such as `text.vocab.EMILIA_VOCAB`), as in the
+JAX package; `quantization="int8"` runs the backbone's per-token
+projections as int8 W8A8 (`ops.quant`: K12, the int8 product, K13).
 
 `fused_generate` is the counterpart of the JAX pipeline's `_fused_generate`
 (sampler + vocoder under one jit, one executable per shape): on a CUDA
@@ -36,6 +39,8 @@ from f5tts_tpu_torch.models import cfm
 from f5tts_tpu_torch.models.modules import fuse_backbone_qkv, tree_cast
 from f5tts_tpu_torch.ops import _build
 from f5tts_tpu_torch.ops.mel import MelFrontend
+from f5tts_tpu_torch.ops.quant import quantize_dit_params
+from f5tts_tpu_torch.text.pinyin import convert_char_to_pinyin
 from f5tts_tpu_torch.text.vocab import list_str_to_idx, list_str_to_tensor
 from f5tts_tpu_torch.utils import duration_bucket, make_time_grid, resolve_device
 
@@ -117,7 +122,10 @@ class InferencePipeline:
     otherwise). `backbone` names the model family (`ModelConfig.backbone`:
     "DiT", "UNetT" or "MMDiT"); `statics` carries its arch. At load the
     params are cast to `dtype` and their q/k/v projections fused, so
-    attention takes the flat-QKV kernels."""
+    attention takes the flat-QKV kernels, and with `quantization="int8"`
+    the block projections are then quantized (`quantize_dit_params`), in
+    the JAX package's order. `tokenizer` "pinyin" and "char" look tokens up
+    in `vocab_char_map`."""
 
     params: dict
     statics: object                     # the backbone's statics (its .arch is read)
@@ -125,22 +133,27 @@ class InferencePipeline:
     vocab_char_map: Optional[dict] = None
     mel_cfg: MelConfig = field(default_factory=MelConfig)
     sampling: SamplingConfig = field(default_factory=SamplingConfig)
-    tokenizer: str = "char"             # "char" | "byte"
+    tokenizer: str = "pinyin"           # "pinyin" | "char" | "byte"
     dtype: torch.dtype = torch.bfloat16
     bucket_size: int = 256
     device: Optional[object] = None
     backbone: str = "DiT"
+    quantization: str = "none"          # "none" | "int8" (W8A8 block projections)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.tokenizer not in ("char", "byte"):
-            raise ValueError(f"tokenizer {self.tokenizer!r} is not ported (char | byte)")
+        if self.tokenizer not in ("pinyin", "char", "byte"):
+            raise ValueError(f"unknown tokenizer {self.tokenizer!r} (pinyin | char | byte)")
+        if self.quantization not in ("none", "int8"):
+            raise ValueError(f"unknown quantization {self.quantization!r}")
         self.mel = MelFrontend(self.mel_cfg, device=self.device)
         self.hop = self.mel_cfg.hop_length
         self.sr = self.mel_cfg.target_sample_rate
         self.bdef = cfm.BACKBONES[self.backbone]
         self.statics = self.bdef.statics_cls(self.statics.arch, self.device)
         self.params = fuse_backbone_qkv(tree_cast(self.params, self.dtype, self.device))
+        if self.quantization == "int8":
+            self.params = quantize_dit_params(self.params)
         self.graphs: dict[tuple, GraphEntry] = {}  # (batch, n, nt, nfe) -> entry
 
     def ref_mel(self, wav: np.ndarray) -> np.ndarray:
@@ -155,7 +168,9 @@ class InferencePipeline:
         return mel[0, :true_frames].cpu().numpy()
 
     def tokenize(self, texts: list[str]) -> np.ndarray:
-        if self.tokenizer == "char":
+        if self.tokenizer == "pinyin":
+            ids = list_str_to_idx(convert_char_to_pinyin(texts), self.vocab_char_map)
+        elif self.tokenizer == "char":
             ids = list_str_to_idx(texts, self.vocab_char_map)
         else:
             ids = list_str_to_tensor(texts)

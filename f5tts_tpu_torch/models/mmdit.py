@@ -167,14 +167,18 @@ def _joint_attention(p: m.Params, x: torch.Tensor, c: torch.Tensor, heads: int,
     # Both projections keep `o` itself for their backward (the tensor the
     # attention saves under grad), not copies of its rows: to_out runs over
     # the whole joint output and drops the text rows after; to_out_c is a
-    # batched product on the strided view of the text rows.
+    # batched product on the strided view of the text rows (an int8 leaf:
+    # K12 reads that view in place, `modules.linear`).
     xo = torch.where(kmask[:, :n, None], m.linear(p["to_out"], o)[:, :n], zero)
     if "to_out_c" not in p:
         return xo, None
     pc = p["to_out_c"]
-    co = torch.matmul(o[:, n:], pc["w"].to(o.dtype).expand(o.shape[0], -1, -1))
-    if "b" in pc:
-        co = co + pc["b"].to(o.dtype)
+    if "w_i8" in pc:
+        co = m.linear(pc, o[:, n:])
+    else:
+        co = torch.matmul(o[:, n:], pc["w"].to(o.dtype).expand(o.shape[0], -1, -1))
+        if "b" in pc:
+            co = co + pc["b"].to(o.dtype)
     return xo, torch.where(kmask[:, n:, None], co, zero)
 
 

@@ -24,6 +24,7 @@ from f5tts_tpu_torch.ops.adaln_norm import rms_norm as rms_norm_kernel
 from f5tts_tpu_torch.ops.attention import FLAT_ATTN_MAX_N, attention, fused_qkv_rope_attention
 from f5tts_tpu_torch.ops.grouped_conv import conv_pos_embedding as conv_pos_kernel
 from f5tts_tpu_torch.ops.grouped_conv import grouped_conv1d, mish, supports_fused_conv_pos
+from f5tts_tpu_torch.ops.quant import int8_linear, int8_linear_pre, quantize_rows
 from f5tts_tpu_torch.ops.rope import apply_rotary_flat, apply_rotary_partial_heads
 
 Params = dict
@@ -62,6 +63,8 @@ def init_conv1d(gen, c_in: int, c_out: int, kernel: int, groups: int = 1) -> Par
 # ---------------------------------------------------------------------------
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    if "w_i8" in p:  # an int8 leaf (ops.quant.quantize_dit_params): K12, the product, K13
+        return int8_linear(p, x)
     y = torch.matmul(x, p["w"].to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(x.dtype)
@@ -290,7 +293,8 @@ def self_attention(p: Params, x: torch.Tensor, heads: int, rope_tabs: tuple,
     n). RoPE goes on the flat projections before the head split, or under
     qk-norm after a per-head RMSNorm (K6, eps 1e-6, reading q and k in
     place from the projection's head view), on the first `pe_attn_head`
-    heads. Both layouts are differentiable: K4 is K3's backward; under grad
+    heads. Unfused int8 q / k / v quantize their shared input once (K12),
+    as the JAX package does. Both layouts are differentiable: K4 is K3's backward; under grad
     the head layout runs K7's lse mode and K9 (without grad, K7 alone)."""
     b, n, _ = x.shape
     lens = (torch.full((b,), n, dtype=torch.int32, device=x.device) if lengths is None
@@ -299,10 +303,14 @@ def self_attention(p: Params, x: torch.Tensor, heads: int, rope_tabs: tuple,
         qkv = linear(p["to_qkv"], x)
         o = fused_qkv_rope_attention(qkv.contiguous(), rope_tabs[0], rope_tabs[1], lens, heads)
     else:
+        names = ("to_q", "to_k", "to_v")
         if "to_qkv" in p:
             q, k, v = linear(p["to_qkv"], x).chunk(3, dim=-1)
-        else:
-            q, k, v = (linear(p[name], x) for name in ("to_q", "to_k", "to_v"))
+        elif "w_i8" in p["to_q"] and "act_mask" not in p["to_q"]:
+            xq, xs = quantize_rows(x)  # the shared input quantized once for q, k and v
+            q, k, v = (int8_linear_pre(p[name], xq, xs, x.dtype) for name in names)
+        else:  # bf16 leaves, or int8 ones with the hedge (each its own masked quantize)
+            q, k, v = (linear(p[name], x) for name in names)
         if "q_norm" in p:
             q = rms_norm(p["q_norm"], head_view(q, heads))
             k = rms_norm(p["k_norm"], head_view(k, heads))

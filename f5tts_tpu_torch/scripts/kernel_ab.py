@@ -2,7 +2,7 @@
 from another checkout, in turns on one card.
 
     python -m f5tts_tpu_torch.scripts.kernel_ab --other PATH
-        [--kernel K1|K2|K3|K3_lse|K4|K5|K5_lse|K6|K7|K7_lse|K8|K9|K10|K11 ...]
+        [--kernel K1|K2|K3|K3_lse|K4|K5|K5_lse|K6|K7|K7_lse|K8|K9|K10|K11|K12|K13 ...]
         [--define NAME=VALUE ...] [--out FILE]
 
 Kernels: K3 and K3_lse (the flat fused QKV + RoPE attention over keys <
@@ -12,20 +12,23 @@ backward), K7 and K7_lse (the head-layout attention over keys < length,
 and its lse mode), K9 (the head-layout backward from a saved lse), K10 (the
 generic grouped conv1d + bias), K11 (the key-masked head-layout
 attention), K2 (one conv of the conv-position module: conv + bias, length
-mask, Mish), K6 (RMSNorm) and K1 (AdaLN norm); `--kernel` may be given
+mask, Mish), K6 (RMSNorm), K1 (AdaLN norm), K12 (the int8 path's per-row
+quantize) and K13 (its int32 dequant + bias); `--kernel` may be given
 several times. Both checkouts' source (`f5tts_tpu_torch/csrc/attention.cu`
 for K3, K5, K7 and K11, `attention_bwd.cu` for K4, K8 and K9,
-`grouped_conv.cu` for K10 and K2, `adaln_norm.cu` for K6 and K1) are
+`grouped_conv.cu` for K10 and K2, `adaln_norm.cu` for K6, K1 and K12,
+`quant.cu` for K13) are
 compiled with the port's nvcc flags into a temporary directory (this
 checkout's with `-D` of each `--define`, so `--other .` compares two builds
 of one source) and loaded with ctypes. Each build's C entry is called with
 the signature its own source declares: the pointer parameters are matched
 by name (qkv, cos_t, sin_t, lengths / kmask, q, k, v, o / out, lse, dout,
-dqkv, dq, dk, dv, k_rot, delta; x, w, bias, y, out, scale, shift), the const ones shared
+dqkv, dq, dk, dv, k_rot, delta; x, w, bias, y, out, scale, shift; codes,
+row_scale, acc, col_scale), the const ones shared
 by both builds, the others (outputs and scratch) one set a build, and the
 int and float parameters by name too (b, n, heads, sm_scale / scale; c,
 width, ksize; rows, n1, n2, s0, s1, s2, d, eps, w_is_f32, scale_stride,
-shift_stride). So an entry
+shift_stride; m). So an entry
 that takes a scratch the other does not (the k_rot of K3 and K5, which
 older sources lack) is timed whole against it, and a K6 build that takes
 no strides (no `s0`) is given the contiguous copy of a strided view, made
@@ -46,13 +49,17 @@ without its mask and Mish); K2 at [1, 1024, 1024] with lengths 1024 and
 K6 with a bf16 weight at [2, 16, 4096, 64], the same rows as the head view
 of q in a [2, 4096, 3072] projection, [2, 16, 256, 64], [2, 1024, 1024] and
 [2, 1024, 768]; K1 at [2, 1024 / 4096 / 256, 1024] and [2, 1024 / 4096,
-768] with the scale and shift views of a [2, 6 * d] modulation. At each
+768] with the scale and shift views of a [2, 6 * d] modulation; K12 at
+[2, 1024 / 4096, 1024], [2, 1024, 2048 / 4096] and the text rows of a
+joint [2, 1280, 1024] output in place; K13 at [2048, 3072 / 1024 / 2048]
+and [8192, 3072] with a bf16 bias. At each
 shape the entries are timed by CUDA-graph replay (`common.time_ms`) in the
 order other, this, this, other. The two outputs
 must agree: the forwards' within chip_smoke's 2e-2 (their lse within 1e-3;
 K10's and K2's output within 3e-2), the backwards' within its backward tolerance
 (rel-L2 <= 1e-2, max-abs <= 2e-2 of the largest entry; two designs may take
-delta at different rounding points).
+delta at different rounding points), K12's codes and scales and K13's
+output bit for bit.
 Whether they are bit equal is reported, and each build's `-Xptxas -v` lines
 for the kernel's `__global__` functions (registers, shared memory, spills)
 and the source's ptxas notes (such as C7520, serialised wgmma).
@@ -87,6 +94,9 @@ CPE = ((1, 1024, 1024, 1024), (1, 1024, 1024, 777), (2, 1024, 1024, 1024),  # b,
        (1, 4096, 1024, 3001))
 RMS = ((2, 16, 4096, 64), "view", (2, 16, 256, 64), (2, 1024, 1024), (2, 1024, 768))
 ADALN = ((1024, 1024), (4096, 1024), (256, 1024), (1024, 768), (4096, 768))  # n, d (b = 2)
+QUANT_ROWS = ((2, 1024, 1024), (2, 4096, 1024), (2, 1024, 2048), (2, 1024, 4096), "text")
+DEQUANT = ((2048, 3072), (2048, 1024), (2048, 2048), (8192, 3072))  # m, n
+EXACT = ("K12", "K13")  # bit-equal outputs, or the builds disagree
 K3_GLOBALS = r"fused_qkv_rope_attn_(kernel|lse_kernel|krot_kernel)"
 K7_GLOBALS = r"_Z\d+flash_attn_(lse_)?kernel"  # not masked_flash_attn_kernel
 # kernel: (source, C entry, a pattern found in each of its __global__ names,
@@ -117,6 +127,9 @@ KERNELS = {
            CPE, ("y",)),
     "K6": ("adaln_norm.cu", "f5_rms_norm_bf16", "rms_norm_kernel|RmsEpi", RMS, ("out",)),
     "K1": ("adaln_norm.cu", "f5_adaln_norm_bf16", "adaln_norm_kernel|AdaLNEpi", ADALN, ("out",)),
+    "K12": ("adaln_norm.cu", "f5_quant_rows_bf16", "quant_rows_kernel", QUANT_ROWS,
+            ("codes", "row_scale")),
+    "K13": ("quant.cu", "f5_dequant_bias_bf16", "dequant_bias_kernel", DEQUANT, ("out",)),
 }
 CTYPES = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong}
 H = 16
@@ -188,6 +201,27 @@ def inputs(kernel: str, shape, dev) -> tuple[dict, str]:
              "d": d, "scale_stride": 6 * d, "shift_stride": 6 * d, "eps": 1e-6}
         t["out"] = torch.empty_like(t["x"])
         return t, f"[2, {n}, {d}], scale / shift views of a [2, {6 * d}] modulation"
+    if kernel == "K12":
+        if shape == "text":  # the text rows of a joint attention output, in place
+            x = bf16(2, 1280, 1024)[:, 1024:]
+            what = "[2, 256, 1024], the text rows of a joint [2, 1280, 1024] output"
+        else:
+            x = bf16(*shape)
+            what = f"{list(shape)}"
+        t = {"x": x, "d": x.shape[-1], "codes": torch.empty(x.shape, dtype=torch.int8, device=dev),
+             "row_scale": torch.empty(x.shape[:-1], dtype=torch.float32, device=dev)}
+        t.update(zip(("rows", "n1", "n2", "s0", "s1", "s2"), _rms_rows(x)))
+        return t, what
+    if kernel == "K13":
+        m, n = shape
+        gen = torch.Generator(device=dev).manual_seed(m + n)
+        t = {"acc": torch.randint(-2**20, 2**20, (m, n), dtype=torch.int32, device=dev,
+                                  generator=gen),
+             "row_scale": torch.rand(m, device=dev, generator=gen) * 3e-2 + 1e-3,
+             "col_scale": torch.rand(n, device=dev, generator=gen) * 1e-3 + 1e-4,
+             "bias": bf16(n), "out": torch.empty((m, n), dtype=torch.bfloat16, device=dev),
+             "m": m, "n": n}
+        return t, f"[{m}, {n}] int32 -> bf16, bf16 bias"
     if kernel == "K6":
         view = shape == "view"
         shape = (2, 16, 4096, 64) if view else shape
@@ -271,16 +305,20 @@ def inputs(kernel: str, shape, dev) -> tuple[dict, str]:
     return t | attn_scalars(n), what
 
 
-def agreement(name: str, a: torch.Tensor, w: torch.Tensor) -> dict:
-    """How `a` (this build's output `name`) agrees with `w` (the other's)."""
+def agreement(name: str, a: torch.Tensor, w: torch.Tensor, exact: bool = False) -> dict:
+    """How `a` (this build's output `name`) agrees with `w` (the other's);
+    `exact`: only bit for bit."""
     a, w = a.float(), w.float()
     diff, top = float((a - w).abs().max()), float(w.abs().max())
     rel = float((a - w).norm() / w.norm())
-    if name in ("out", "lse", "y"):  # a forward's output and row lse, K10's and K2's output
+    bit_equal = bool(torch.equal(a, w))
+    if exact:
+        agree = bit_equal
+    elif name in ("out", "lse", "y"):  # a forward's output and row lse, K10's and K2's output
         agree = diff <= {"out": 2e-2, "lse": 1e-3, "y": 3e-2}[name]
     else:
         agree = rel <= 1e-2 and diff <= 2e-2 * top
-    return {"bit_equal": bool(torch.equal(a, w)), "max_abs_diff": diff, "rel_l2": rel,
+    return {"bit_equal": bit_equal, "max_abs_diff": diff, "rel_l2": rel,
             "largest_entry": top, "agree": agree}
 
 
@@ -313,7 +351,7 @@ def run_kernel(kernel: str, other: Path, defines, tmp: Path, dev) -> tuple[dict,
         row = {"kernel": kernel, "shape": what, "ms_other": times["other"],
                "ms_this": times["this"]}
         for name in KERNELS[kernel][4]:
-            row[name] = agreement(name, own["this"][name], own["other"][name])
+            row[name] = agreement(name, own["this"][name], own["other"][name], kernel in EXACT)
             ok &= row[name]["agree"]
         result["shapes"].append(row)
         print(json.dumps(row), flush=True)

@@ -1,11 +1,13 @@
 """Where the time of one zero-shot request goes, on the card.
 
     python -m f5tts_tpu_torch.scripts.profile_generate [--model F5TTS_v1_Base]
-        [--qk-norm] [--out profile_generate.json]
+        [--qk-norm] [--quantization none|int8] [--out profile_generate.json]
 
 `--model` any preset: F5TTS_v1_Base / F5TTS_Base / F5TTS_v1_Small /
 F5TTS_Small (DiT), E2TTS_Base / E2TTS_Small (UNetT) or MMDiT_Base;
-`--qk-norm` sets qk_norm="rms_norm" (its RMSNorm weights randomised); + Vocos
+`--qk-norm` sets qk_norm="rms_norm" (its RMSNorm weights randomised);
+`--quantization int8` runs the pipeline's int8 W8A8 params (K12, the int8
+product, K13: their device time is read by class); + Vocos
 (seeded random weights, bf16 backbone, f32 Vocos), 16 NFE, CFG 2, sway -1,
 with a fixed duration per bucket (the F5TTS_v1_Base DiT at 768, 1024 and
 the 4096 cap; the others at 1024 and the cap). For each bucket, two paths:
@@ -41,6 +43,8 @@ FRAMES = {"F5TTS_v1_Base": (758, 1014, 4086), "F5TTS_Base": (1014, 4086),
           "E2TTS_Base": (1013, 4096), "E2TTS_Small": (1013, 4096), "MMDiT_Base": (1014, 4086)}
 REPS = 3
 CLASSES = (
+    ("quantize_rows", ("quant_rows_kernel",)),
+    ("dequant_bias", ("dequant_bias_kernel",)),
     ("fused_qkv_rope_attention", ("fused_qkv_rope_attn_kernel",
                                   "fused_qkv_rope_attn_krot_kernel")),
     ("fused_qkv_rope_attention_bias", ("fused_qkv_rope_attn_bias_kernel",
@@ -117,6 +121,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="F5TTS_v1_Base", choices=sorted(FRAMES))
     ap.add_argument("--qk-norm", action="store_true", help='qk_norm="rms_norm"')
+    ap.add_argument("--quantization", default="none", choices=["none", "int8"])
     ap.add_argument("--out", default=None, help="also write the JSON result here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -139,11 +144,11 @@ def main(argv=None) -> int:
                              Vocos(vocos_params, VocosConfig(), device=dev),
                              vocab_char_map=VOCAB, sampling=SamplingConfig(nfe_steps=16),
                              tokenizer="char", dtype=torch.bfloat16, device=dev,
-                             backbone=backbone)
+                             backbone=backbone, quantization=args.quantization)
     gpu = gpu_name_and_limit()
     ref = synthetic_ref_wav()
     result = {"gpu": gpu, "torch": torch.__version__, "model": args.model,
-              "qk_norm": arch.qk_norm, "buckets": []}
+              "qk_norm": arch.qk_norm, "quantization": args.quantization, "buckets": []}
     for frames in FRAMES[args.model]:
         row = profile_bucket(pipe, ref, REQUESTS[1], frames, REPS)
         result["buckets"].append(row)

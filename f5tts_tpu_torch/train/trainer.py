@@ -12,7 +12,9 @@ f5tts_tpu/train/trainer.py:40-384).
   an uninterrupted one would.
 - Checkpoints: a milestone every `save_per_updates`, a heartbeat every
   `last_per_updates` and at the end (`CheckpointManager`).
-- Tokenizers "char" (vocab map) and "byte" (UTF-8).
+- Tokenizers "char" (vocab map, the default here), "pinyin" (the JAX
+  trainer's default: `text.pinyin` on strings, token lists looked up as they
+  are) and "byte" (UTF-8).
 - Any backbone of `cfm.BACKBONES` (`backbone=`, the DiT by default): its
   statics are rebuilt on the device by its `statics_cls`.
 - Logging as the JAX trainer's (:150-167, :363): `logger` (or
@@ -20,10 +22,9 @@ f5tts_tpu/train/trainer.py:40-384).
   grad_norm, updates_per_s) as scalars with a `torch.utils.tensorboard`
   SummaryWriter in `log_dir`, "wandb" logs them to wandb; where the package
   does not import, nothing is written, as in the JAX trainer.
-Not ported yet: multi-device and multi-host data parallelism, ZeRO-1, the
-pinyin tokenizer (the JAX package's bundled tables and tone sandhi, no
-`pypinyin` needed), `log_samples` (raises: it needs a sampler and a vocoder
-in the trainer; ROADMAP.md queue 1 item 11).
+Not ported yet: multi-device and multi-host data parallelism, ZeRO-1,
+`log_samples` (raises: it needs a sampler and a vocoder in the trainer;
+ROADMAP.md queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import torch
 from f5tts_tpu_torch.config import CFMConfig, TrainConfig
 from f5tts_tpu_torch.models.cfm import DIT, BackboneDef
 from f5tts_tpu_torch.models.modules import tree_leaves
+from f5tts_tpu_torch.text.pinyin import convert_char_to_pinyin
 from f5tts_tpu_torch.text.vocab import list_str_to_idx, list_str_to_tensor
 from f5tts_tpu_torch.train.checkpoint import CheckpointManager
 from f5tts_tpu_torch.train.dataset import DynamicBatchSampler, collate
@@ -52,10 +54,10 @@ class Trainer:
                  logger: Optional[str] = None, log_dir: str = "runs"):
         """`statics`: the backbone's statics (`backbone.statics_cls`); only
         its `.arch` is read. `logger` overrides `train_cfg.logger`."""
-        if tokenizer not in ("char", "byte"):
-            raise ValueError(f"tokenizer {tokenizer!r} is not ported (char and byte are)")
-        if tokenizer == "char" and vocab_char_map is None:
-            raise ValueError("the char tokenizer needs a vocab_char_map")
+        if tokenizer not in ("pinyin", "char", "byte"):
+            raise ValueError(f"unknown tokenizer {tokenizer!r} (pinyin | char | byte)")
+        if tokenizer != "byte" and vocab_char_map is None:
+            raise ValueError(f"the {tokenizer} tokenizer needs a vocab_char_map")
         if train_cfg.log_samples:
             raise NotImplementedError("log_samples is not ported: it needs a sampler and a "
                                       "vocoder in the trainer (ROADMAP.md queue 1 item 11)")
@@ -105,6 +107,12 @@ class Trainer:
             self.writer.flush()
 
     def tokenize(self, texts: list) -> np.ndarray:
+        if self.tokenizer == "pinyin":
+            # prepared datasets store pinyin token lists already; converting
+            # them again would split 'ni3' into its characters
+            if texts and isinstance(texts[0], (list, tuple)):
+                return list_str_to_idx(texts, self.vocab_char_map)
+            return list_str_to_idx(convert_char_to_pinyin(texts), self.vocab_char_map)
         if self.tokenizer == "char":
             return list_str_to_idx(texts, self.vocab_char_map)
         return list_str_to_tensor(texts)

@@ -15,8 +15,11 @@ with n = 1 and 37 (d 64 to 4096: batch boundaries inside a block and a
 thread's rows); one tiny DiT, UNetT and MMDiT
 forward (also at the dim-768 widths and with qk-norm) and one tiny training
 step of each backbone through the kernels against the CPU plain path; the
-pipeline's CUDA-graph replay against the eager generate (DiT, MMDiT), with
-each capture's launch counts and none on the host for a replay.
+pipeline's CUDA-graph replay against the eager generate (DiT, MMDiT; bf16
+and int8), with each capture's launch counts and none on the host for a
+replay; K12 and K13 bit-equal to their plain versions (m 17, 37, 2048; k and
+n 8 to 4096; zero rows; K12 on strided rows), one int8 projection and a
+depth-2 int8 forward of each backbone against the CPU's int8 path.
 Run on a GPU machine with:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -812,6 +815,18 @@ def test_pipeline_graph_replay_equals_eager(dev, backbone):
     to the host counter and equals the eager cfm_sample + Vocos on the same
     inputs (the same kernels in the same order: bit-equal, or within mel
     rel-L2 1e-3 and wav max-abs 1e-3)."""
+    _graph_replay_case(dev, backbone, "none")
+
+
+@pytest.mark.parametrize("backbone", ["DiT", "MMDiT"])
+def test_int8_pipeline_graph_replay_equals_eager(dev, backbone):
+    """As above with quantization="int8": the capture records K12, the int8
+    product and K13 once per quantized projection (4 a DiT block, 8 an
+    MMDiT block and 5 in its last block)."""
+    _graph_replay_case(dev, backbone, "int8")
+
+
+def _graph_replay_case(dev, backbone: str, quantization: str):
     from f5tts_tpu_torch.config import ModelArch
     from f5tts_tpu_torch.infer.pipeline import InferencePipeline
     from f5tts_tpu_torch.models import cfm, dit
@@ -827,7 +842,8 @@ def test_pipeline_graph_replay_equals_eager(dev, backbone):
     vcfg = VocosConfig(dim=64, intermediate_dim=128, num_layers=2)
     pipe = InferencePipeline(params, bdef.statics_cls(arch),
                              Vocos(init_vocos(torch.Generator().manual_seed(1), vcfg), vcfg,
-                                   device=dev), device=dev, backbone=backbone)
+                                   device=dev), device=dev, backbone=backbone,
+                             quantization=quantization)
     rng = np.random.default_rng(0)
     n, nfe = 256, 2
     dur = torch.tensor([201], dtype=torch.int32, device=dev)
@@ -838,6 +854,8 @@ def test_pipeline_graph_replay_equals_eager(dev, backbone):
     per_step = ({"fused_qkv_rope_attention": 2, "adaln_norm": 5, "conv_pos_embedding": 2}
                 if backbone == "DiT" else
                 {"fused_qkv_rope_attention_bias": 2, "adaln_norm": 8, "conv_pos_embedding": 2})
+    if quantization == "int8":
+        per_step.update({name: 8 if backbone == "DiT" else 13 for name in INT8_KERNELS})
     expect = {k: v * nfe for k, v in per_step.items()}
 
     def noise(seed):
@@ -860,3 +878,130 @@ def test_pipeline_graph_replay_equals_eager(dev, backbone):
     if not (torch.equal(mel, want) and torch.equal(wav, want_wav)):
         assert float((mel - want).norm() / want.norm()) <= 1e-3
         assert float((wav - want_wav).abs().max()) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# int8 W8A8: K12 (the row quantize), K13 (the dequant + bias), the int8 product
+# ---------------------------------------------------------------------------
+
+INT8_KERNELS = ("quantize_rows", "int8_mm", "dequant_bias")
+
+
+@pytest.mark.parametrize("m", [17, 37, 2048])
+@pytest.mark.parametrize("k", [8, 1024, 3072, 4096])
+def test_quantize_rows_kernel_bit_equal(dev, m, k):
+    """K12's codes and scales equal its plain version's bit for bit; an
+    all-zero row gets scale 1 and codes 0."""
+    from f5tts_tpu_torch.ops.quant import quantize_rows, quantize_rows_ref
+
+    rng = np.random.default_rng(m + k)
+    x = _bf16(rng, (m, k), dev, scale=3.0)
+    x[m // 2] = 0
+    _build.reset_launches()
+    codes, scale = quantize_rows(x)
+    assert _build.launches() == {"quantize_rows": 1}
+    ref_c, ref_s = quantize_rows_ref(x)
+    assert torch.equal(codes, ref_c) and torch.equal(scale, ref_s)
+    assert not codes[m // 2].any() and float(scale[m // 2]) == 1.0
+
+
+def test_quantize_rows_kernel_strided_rows(dev):
+    """K12 reads the MMDiT's text rows in place from a joint output (rows at
+    two strides) and writes them contiguous."""
+    from f5tts_tpu_torch.ops.quant import quantize_rows, quantize_rows_ref
+
+    o = _bf16(np.random.default_rng(3), (3, 200 + 56, 1024), dev)
+    view = o[:, 200:]
+    codes, scale = quantize_rows(view)
+    ref_c, ref_s = quantize_rows_ref(view)
+    assert codes.is_contiguous() and codes.shape == view.shape
+    assert torch.equal(codes, ref_c) and torch.equal(scale, ref_s)
+    with pytest.raises(TypeError):
+        quantize_rows(o.float())
+
+
+@pytest.mark.parametrize("m", [17, 37, 2048])
+@pytest.mark.parametrize("n", [8, 1024, 3072, 4096])
+def test_dequant_bias_kernel_bit_equal(dev, m, n):
+    """K13 equals its plain version bit for bit (as int16 views), with and
+    without a bias."""
+    from f5tts_tpu_torch.ops.quant import dequant_bias, dequant_bias_ref
+
+    gen = torch.Generator(device=dev).manual_seed(m * n)
+    acc = torch.randint(-2**24, 2**24, (m, n), dtype=torch.int32, device=dev, generator=gen)
+    acc[0] = 0
+    xs = torch.rand(m, device=dev, generator=gen) * 3e-2 + 1e-3
+    ws = torch.rand((1, n), device=dev, generator=gen) * 1e-3 + 1e-4
+    bias = torch.randn(n, device=dev, generator=gen).to(torch.bfloat16)
+    for b in (bias, None):
+        _build.reset_launches()
+        y = dequant_bias(acc, xs, ws, b, torch.bfloat16)
+        assert _build.launches() == {"dequant_bias": 1}
+        ref = dequant_bias_ref(acc, xs, ws, b, torch.bfloat16)
+        assert torch.equal(y.view(torch.int16), ref.view(torch.int16))
+
+
+def test_int8_linear_on_the_card(dev):
+    """One int8 projection (K12, `torch._int_mm`, K13) on bf16 against the
+    CPU's f32 plain path on the same int8 leaf: the codes may differ where
+    bf16 and f32 round x differently, so rel-L2 <= 1e-2; the int8 product
+    is exact (against an f64 product of the same codes)."""
+    from f5tts_tpu_torch.ops.quant import int8_linear, quantize_weight
+
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy((rng.standard_normal((1024, 3072)) / 32).astype(np.float32))
+    w_i8, scale = quantize_weight(w)
+    p = {"w_i8": w_i8.t().contiguous(), "w_scale": scale,
+         "b": torch.from_numpy((0.1 * rng.standard_normal(3072)).astype(np.float32))}
+    x = torch.from_numpy(rng.standard_normal((2, 300, 1024)).astype(np.float32))
+    pd = {"w_i8": p["w_i8"].to(dev), "w_scale": p["w_scale"].to(dev),
+          "b": p["b"].to(dev, torch.bfloat16)}
+    _build.reset_launches()
+    got = int8_linear(pd, x.to(dev, torch.bfloat16))
+    assert _build.launches() == {name: 1 for name in INT8_KERNELS}
+    want = int8_linear(p, x)
+    assert float((got.float().cpu() - want).norm() / want.norm()) <= 1e-2
+    xq = torch.randint(-127, 128, (600, 1024), dtype=torch.int8, device=dev)
+    exact = (xq.double() @ pd["w_i8"].double().t()).to(torch.int32)
+    assert torch.equal(torch._int_mm(xq, pd["w_i8"].t()), exact)
+
+
+@pytest.mark.parametrize("backbone", ["DiT", "UNetT", "MMDiT"])
+def test_tiny_int8_backbones_through_the_kernels(dev, backbone):
+    """A depth-2 int8 forward at dim 1024 on the card in bf16 against the
+    CPU's int8 plain path in f32: rel-L2 <= 3e-2, launch counts exact."""
+    from f5tts_tpu_torch.config import ModelArch
+    from f5tts_tpu_torch.models import dit
+    from f5tts_tpu_torch.models.cfm import BACKBONES
+    from f5tts_tpu_torch.models.modules import fuse_backbone_qkv, tree_cast
+    from f5tts_tpu_torch.ops.quant import quantize_dit_params
+
+    dit_like = backbone == "DiT"
+    arch = ModelArch(dim=1024, depth=2, heads=16, dim_head=64, text_num_embeds=32,
+                     text_dim=64 if dit_like else None, conv_layers=1 if dit_like else 0)
+    bdef = BACKBONES[backbone]
+    gen = torch.Generator().manual_seed(0)
+    params = fuse_backbone_qkv(dit.activate_zero_init(bdef.init(gen, arch), gen))
+    rng = np.random.default_rng(0)
+    n = 256 - bdef.seq_extra_tokens
+    x = torch.from_numpy(rng.standard_normal((1, n, 100)).astype(np.float32))
+    text = torch.from_numpy(rng.integers(0, 32, (1, 40)).astype(np.int32))
+    lens = torch.tensor([201], dtype=torch.int32)
+    t = torch.tensor([0.4])
+    want = {"DiT": {"fused_qkv_rope_attention": 2, "adaln_norm": 5},
+            "UNetT": {"fused_qkv_rope_attention": 2, "rms_norm": 5},
+            "MMDiT": {"fused_qkv_rope_attention_bias": 2, "adaln_norm": 8}}[backbone]
+    want.update(conv_pos_embedding=2, **{name: 13 if backbone == "MMDiT" else 8
+                                         for name in INT8_KERNELS})
+    outs = {}
+    for where, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        _build.reset_launches()
+        with torch.no_grad():
+            outs[where.type] = bdef.forward(
+                quantize_dit_params(tree_cast(params, dtype, where)),
+                bdef.statics_cls(arch, where), x.to(where), x.to(where), text.to(where),
+                t.to(where), lengths=lens.to(where), cfg_infer=True, dtype=dtype).cpu()
+        if where.type == "cuda":
+            assert _build.launches() == want
+    a, b = outs["cuda"][:, :201], outs["cpu"][:, :201]
+    assert float((a - b).norm() / b.norm()) <= 3e-2

@@ -49,8 +49,8 @@ def _pipeline(backbone: str, voc, nfe: int = 4):
     """(port pipeline on the CPU in f32, JAX arch, numpy JAX params)."""
     jarch, tarch, tree, tp = SMALL[backbone](seed=3)
     return tpipe.InferencePipeline(tp, tcfm.BACKBONES[backbone].statics_cls(tarch), voc, VOCAB,
-                                   sampling=SamplingConfig(nfe_steps=nfe), dtype=torch.float32,
-                                   device="cpu", backbone=backbone), jarch, tree
+                                   sampling=SamplingConfig(nfe_steps=nfe), tokenizer="char",
+                                   dtype=torch.float32, device="cpu", backbone=backbone), jarch, tree
 
 
 def _request(rng, b: int, n: int, nt: int, lens, dur, text_len):

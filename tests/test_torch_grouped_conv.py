@@ -212,8 +212,8 @@ def test_dit_768_pipeline_infer_on_cpu(dit768):
                                          tvocos.VocosConfig(**SMALL_VOCOS)),
                        tvocos.VocosConfig(**SMALL_VOCOS), device="cpu")
     pipe = tpipe.InferencePipeline(tp, tdit.DiTStatics(tarch), voc, VOCAB,
-                                   sampling=SamplingConfig(nfe_steps=2), dtype=torch.float32,
-                                   device="cpu")
+                                   sampling=SamplingConfig(nfe_steps=2), tokenizer="char",
+                                   dtype=torch.float32, device="cpu")
     wave, sr, mel = pipe.infer(_ref_wav(), 24000, "a quiet voice.", "hello there.",
                                nfe_step=2, fix_duration=2.0)
     assert sr == 24000 and np.isfinite(wave).all() and np.abs(wave).max() > 0

@@ -176,8 +176,8 @@ def test_mmdit_pipeline_infer_on_cpu(model):
                                          tvocos.VocosConfig(**SMALL_VOCOS)),
                        tvocos.VocosConfig(**SMALL_VOCOS), device="cpu")
     pipe = tpipe.InferencePipeline(tp, tmmdit.MMDiTStatics(tarch), voc, VOCAB,
-                                   sampling=SamplingConfig(nfe_steps=2), dtype=torch.float32,
-                                   device="cpu", backbone="MMDiT")
+                                   sampling=SamplingConfig(nfe_steps=2), tokenizer="char",
+                                   dtype=torch.float32, device="cpu", backbone="MMDiT")
     wave, sr, mel = pipe.infer(_ref_wav(), 24000, "a quiet voice.", "hello there.",
                                nfe_step=2, fix_duration=2.0)
     assert sr == 24000 and np.isfinite(wave).all() and np.abs(wave).max() > 0

@@ -47,7 +47,9 @@ def test_port_imports_no_jax():
             "f5tts_tpu_torch.train.step, f5tts_tpu_torch.train.dataset, "
             "f5tts_tpu_torch.train.checkpoint, f5tts_tpu_torch.train.trainer, "
             "f5tts_tpu_torch.scripts.train_bench, f5tts_tpu_torch.scripts.profile_generate, "
-            "f5tts_tpu_torch.scripts.kernel_ab, f5tts_tpu_torch.eval.rtf_bench\n"
+            "f5tts_tpu_torch.scripts.kernel_ab, f5tts_tpu_torch.eval.rtf_bench, "
+            "f5tts_tpu_torch.text.pinyin, f5tts_tpu_torch.ops.quant, "
+            "f5tts_tpu_torch.scripts.int8_quality_ab\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'f5tts_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -67,7 +69,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     voc = tvocos.Vocos(tvocos.init_vocos(torch.Generator(), tvocos.VocosConfig(**SMALL_VOCOS)),
                        tvocos.VocosConfig(**SMALL_VOCOS), device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        tpipe.InferencePipeline(tp, tdit.DiTStatics(tarch), voc, VOCAB)
+        tpipe.InferencePipeline(tp, tdit.DiTStatics(tarch), voc, VOCAB, tokenizer="char")
 
 
 def test_text_and_duration_helpers_match_jax():
@@ -100,8 +102,8 @@ def pipelines():
     tvoc = tvocos.Vocos(vocos_params_from_jax(vtree), tvocos.VocosConfig(**SMALL_VOCOS),
                         device="cpu")
     port = tpipe.InferencePipeline(tp, tdit.DiTStatics(tarch), tvoc, VOCAB,
-                                   sampling=SamplingConfig(nfe_steps=4), dtype=torch.float32,
-                                   device="cpu")
+                                   sampling=SamplingConfig(nfe_steps=4), tokenizer="char",
+                                   dtype=torch.float32, device="cpu")
     jax_pipe = jpipe.InferencePipeline(jx(tree), jdit.DiTStatics(jarch),
                                        jvocos.Vocos(jx(vtree), jvcfg), VOCAB, tokenizer="char",
                                        dtype=jnp.float32, backend="xla")

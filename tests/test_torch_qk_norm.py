@@ -296,8 +296,8 @@ def test_mmdit_qk_norm_pipeline_infer_on_cpu(mmdit_qk):
                                          tvocos.VocosConfig(**SMALL_VOCOS)),
                        tvocos.VocosConfig(**SMALL_VOCOS), device="cpu")
     pipe = tpipe.InferencePipeline(raw, tmmdit.MMDiTStatics(tarch), voc, VOCAB,
-                                   sampling=SamplingConfig(nfe_steps=2), dtype=torch.float32,
-                                   device="cpu", backbone="MMDiT")
+                                   sampling=SamplingConfig(nfe_steps=2), tokenizer="char",
+                                   dtype=torch.float32, device="cpu", backbone="MMDiT")
     assert "q_norm" in pipe.params["blocks"][0]["attn"]
     wave, sr, mel = pipe.infer(_ref_wav(), 24000, "a quiet voice.", "hello there.",
                                nfe_step=2, fix_duration=2.0)

@@ -7,7 +7,9 @@ package's (f5tts_tpu.eval.rtf_bench) on the CPU.
   its shape fields (the UNetT's bucket one frame short for its time token);
 - `bench_sampler(device="cpu")` also runs the fused path (the pipeline's
   static buffers), and `bench_line` gives the root bench.py's keys;
-- int8 raises: it is not ported.
+- int8 (`quantization="int8"`, the port's W8A8 params) gives the JAX int8
+  bench's keys, and `bench_line` carries `"quant": "int8"`; an unknown
+  quantization raises.
 The times themselves mean nothing here: the card gives them.
 """
 
@@ -69,8 +71,18 @@ def test_bench_sampler_fused_and_bench_line(tiny_presets):
         "rtf_f5ttsv1base_16nfe_bs1"
 
 
-def test_int8_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tbench.bench_sampler(quantization="int8", device="cpu")
+def test_int8_raises_until_ported(tiny_presets):
+    """int8 was not ported and raised; it runs now: its keys and shape fields
+    against the JAX int8 bench, its bench line's quant. An unknown
+    quantization still raises."""
+    kw = dict(nfe=2, seq_frames=64, prompt_frames=16, batch=1, runs=2, quantization="int8")
+    want = jbench.bench_sampler("TinyDiT", fused=False, **kw)
+    got = tbench.bench_sampler("TinyDiT", device="cpu", **kw)
+    fused = {"fused_total_s", "fused_rtf", "fused_audio_seconds_per_s", "fused_latency"}
+    assert _keys({k: v for k, v in got.items() if k not in fused}) == _keys(want)
+    for k in ("model", "nfe", "batch", "seq_frames", "audio_seconds_per_batch", "quantization"):
+        assert got[k] == want[k], k
+    assert got["quantization"] == "int8"
+    assert tbench.bench_line(got)["extra"]["quant"] == "int8"
     with pytest.raises(ValueError, match="unknown quantization"):
         tbench.bench_sampler(quantization="fp4", device="cpu")

@@ -304,7 +304,23 @@ def test_trainer_grad_accumulation_and_tokenizers(model, tmp_path):
     np.testing.assert_array_equal(trainer.tokenize(texts), list_str_to_idx(texts, VOCAB))
     trainer.tokenizer = "byte"
     np.testing.assert_array_equal(trainer.tokenize(texts), list_str_to_tensor(texts))
-    with pytest.raises(ValueError, match="not ported"):
+    # the pinyin tokenizer against the JAX trainer's `tokenize` (its method
+    # run on the same vocab and texts): strings are converted first, token
+    # lists (what prepared datasets store) are looked up as they are
+    from types import SimpleNamespace
+
+    from f5tts_tpu.text.vocab import load_vocab
+    from f5tts_tpu.train.trainer import Trainer as JTrainer
+    from f5tts_tpu_torch.text.vocab import EMILIA_VOCAB
+
+    vocab = load_vocab(EMILIA_VOCAB)
+    pinyin = Trainer(model[3], tdit.DiTStatics(model[1]), TrainConfig(), vocab_char_map=vocab,
+                     tokenizer="pinyin", device="cpu")
+    jax_side = SimpleNamespace(tokenizer="pinyin", vocab_char_map=vocab)
+    for batch in (["你好，世界。Hello there!", "一起去银行"], [["ni2", " ", "hao3"], ["a", "b"]],
+                  [("zhong1", "guo2")]):
+        np.testing.assert_array_equal(pinyin.tokenize(batch), JTrainer.tokenize(jax_side, batch))
+    with pytest.raises(ValueError, match="needs a vocab_char_map"):
         Trainer(model[3], tdit.DiTStatics(model[1]), TrainConfig(), tokenizer="pinyin", device="cpu")
 
 
