@@ -109,22 +109,36 @@ Phases (any failure raises, and the script exits non-zero):
     the memory each graph's pool holds; then one
     `f5tts_tpu_torch.eval.rtf_bench` line for F5TTS_v1_Base at 1024.
 
-17. int8 W8A8 and the pinyin tokenizer: K12 (the per-row int8 quantize) and
-    K13 (the int32 dequant + bias) bit-equal to their plain versions at the
-    int8 paths' shapes (an all-zero row in each, odd m, the MMDiT's text
-    rows read in place), timed as in phase 2; `torch._int_mm` at a DiT
-    block's shapes with both weight layouts beside the bf16 product; then
-    F5TTS_v1_Base through InferencePipeline.infer in bf16 and with
-    quantization="int8" (both with the default pinyin tokenizer and the
-    Emilia vocab) at the 1024 bucket and the cap, graphed: K12 / int8
-    product / K13 launched 88*16 times a generate beside K3 / K1 / K2's
-    352 / 720 / 32; walls (medians of 3 in turns) and device time of a
-    replay for both; one Chinese + English request whose graph's ids must
-    equal convert_char_to_pinyin + list_str_to_idx called directly; the
-    depth-2 DiT with int8 on the card against the CPU's int8 in f32 (mel
-    rel-L2 <= 3e-2) and against the card's bf16 (<= 2x phase 4's rel-L2);
-    an int8 `rtf_bench` line and bench.py's; E2TTS_Base and MMDiT_Base int8
-    at the 1024 bucket (96*16 and 173*16 of each int8 launch).
+17. int8 W8A8 and the pinyin tokenizer: K12 (the per-row int8 quantize,
+    rows as they lie) and K13 (the int32 dequant + bias) bit-equal to their
+    plain versions at the int8 paths' shapes (an all-zero row in each, odd
+    m, the MMDiT's text rows read in place), timed as in phase 2; K12's
+    fused modes: K1Q and K6Q (the row engine's quantize stage) bit-equal to
+    the card's K1 -> K12 and K6 -> K12 chains at [2, 1024 / 4096, 1024],
+    [2, 1024, 768] and [2, 256, 1024] (codes within 1 and scales within a
+    bf16 ulp of the row max / 127 against their plain versions), the GELU
+    mode against F.gelu + K12 at d = 2048 and 4096 (bit-equal, or codes
+    within 1 at <= 0.1% of the entries and scales within 2 f32 ulp, the
+    count printed), every all-zero row exactly scale 1 and codes 0, each
+    mode's time beside its bound and the chain it replaces;
+    `torch._int_mm` at a DiT block's shapes with both weight layouts beside
+    the bf16 product; then F5TTS_v1_Base through InferencePipeline.infer in
+    bf16 and with quantization="int8" (both with the default pinyin
+    tokenizer and the Emilia vocab) at the 1024 bucket and the cap,
+    graphed: a generate launches K1Q 44*16, K1 16 (the final norm), the
+    plain K12 and the GELU mode 22*16 each, the int8 product and K13 88*16
+    each, beside K3 / K2's 352 / 32; walls (medians of 3 in turns) and
+    device time of a replay for both; one Chinese + English request whose
+    graph's ids must equal convert_char_to_pinyin + list_str_to_idx called
+    directly; the depth-2 DiT with int8 on the card against the CPU's int8
+    in f32 (mel rel-L2 <= 3e-2) and against the card's bf16 (<= 2x phase
+    4's rel-L2); the graphed int8 generate against the eager one as phase
+    16 (F5TTS_v1_Base at the 1024 bucket and the cap); an int8 `rtf_bench`
+    line and bench.py's; E2TTS_Base int8 at the 1024 bucket (K6Q 48*16, K6
+    16, the plain K12 and the GELU mode 24*16, the product and K13 96*16)
+    and MMDiT_Base (K1Q 87*16, K1 16, the plain K12 and the GELU mode
+    43*16, the product and K13 173*16), and both graphed against eager at
+    the cap.
 
 Prints the `kernels` JSON line (launches: what the card ran on the
 inference and training paths of phases 3, 5, 7, 8, 10, 11, 13, 14 and 17,
@@ -182,6 +196,13 @@ REPLACES = {
     "quantize_rows": "f5tts_tpu/ops/quant.py:42 quantize_rows (plain XLA, no Pallas body)",
     "dequant_bias": "f5tts_tpu/ops/quant.py:96 int8_linear_pre's dequant (plain XLA, no "
                     "Pallas body)",
+    "adaln_norm_quant": "f5tts_tpu/ops/adaln_norm.py:48 _adaln_norm_kernel, then "
+                        "f5tts_tpu/ops/quant.py:42 quantize_rows (XLA fuses its max-reduce "
+                        "into the chain before it)",
+    "rms_norm_quant": "f5tts_tpu/ops/adaln_norm.py:97 _rms_norm_kernel, then "
+                      "f5tts_tpu/ops/quant.py:42 quantize_rows",
+    "gelu_quantize_rows": "f5tts_tpu/models/modules.py:190 gelu_tanh, then "
+                          "f5tts_tpu/ops/quant.py:42 quantize_rows (plain XLA, no Pallas body)",
 }
 SOURCES = {
     "adaln_norm": "f5tts_tpu_torch/csrc/adaln_norm.cu",
@@ -200,6 +221,9 @@ SOURCES = {
     "masked_flash_attention": "f5tts_tpu_torch/csrc/attention.cu",
     "quantize_rows": "f5tts_tpu_torch/csrc/adaln_norm.cu",
     "dequant_bias": "f5tts_tpu_torch/csrc/quant.cu",
+    "adaln_norm_quant": "f5tts_tpu_torch/csrc/adaln_norm.cu",
+    "rms_norm_quant": "f5tts_tpu_torch/csrc/adaln_norm.cu",
+    "gelu_quantize_rows": "f5tts_tpu_torch/csrc/adaln_norm.cu",
 }
 NFE = 16
 # phases 5, 10 and 11: (batch, frames, updates, launches an update)
@@ -1063,20 +1087,23 @@ def make_pipeline(dev, backbone: str, arch, params, vocos_params, **kw):
 
 
 # the int8 path's launches, once each per quantized projection
-QUANT_KERNELS = ("quantize_rows", "int8_mm", "dequant_bias")
+QUANT_KERNELS = ("int8_mm", "dequant_bias")
 
 
-def generate_launches(backbone: str, arch, flat: bool = True, int8: bool = False) -> dict:
-    """The kernel launches of one NFE-step generate at a dim-1024 preset;
-    `flat` False for the UNetT past the flat gate (the 4224-row cap: K7 in
-    K3's place). A step: the DiT's K3 a block, K1 two a block and the final
+def step_launches(backbone: str, arch, flat: bool = True, int8: bool = False) -> dict:
+    """The kernel launches of one ODE step at a dim-1024 preset; `flat`
+    False for the UNetT past the flat gate (the 4224-row cap: K7 in K3's
+    place). A step: the DiT's K3 a block, K1 two a block and the final
     norm; the UNetT's K6 two a block and the final norm; the MMDiT's K1 four
     a block, three in the context_pre_only last block and the final norm,
     with qk-norm K11 in K5's place and K6 on q and k of both streams (four a
-    block); K2 once for cond and once for uncond. With `int8`, K12, the
-    int8 product and K13 once each per quantized projection: four a DiT or
-    UNetT block (to_qkv, to_out, ff.in, ff.out), eight an MMDiT block (both
-    streams' twins) and five in its last block (no to_out_c, no ff_c)."""
+    block); K2 once for cond and once for uncond. With `int8`, the int8
+    product and K13 once each per quantized projection: four a DiT or UNetT
+    block (to_qkv, to_out, ff.in, ff.out), eight an MMDiT block (both
+    streams' twins) and five in its last block (no to_out_c, no ff_c); every
+    norm of a block hands its projections codes (K1Q / K6Q in K1's / K6's
+    place, the final norm stays K1 / K6), ff.out's input comes from K12's
+    GELU mode and to_out's (and to_out_c's) from the plain K12."""
     if backbone == "DiT":
         step = {"fused_qkv_rope_attention": arch.depth, "adaln_norm": 2 * arch.depth + 1}
     elif backbone == "UNetT":
@@ -1090,9 +1117,23 @@ def generate_launches(backbone: str, arch, flat: bool = True, int8: bool = False
             step["fused_qkv_rope_attention_bias"] = arch.depth
     step["conv_pos_embedding"] = 2
     if int8:
-        proj = 8 * (arch.depth - 1) + 5 if backbone == "MMDiT" else 4 * arch.depth
-        step.update({name: proj for name in QUANT_KERNELS})
-    return {k: v * NFE for k, v in step.items()}
+        mmdit = backbone == "MMDiT"
+        step.update({name: 8 * (arch.depth - 1) + 5 if mmdit else 4 * arch.depth
+                     for name in QUANT_KERNELS})
+        norm = "rms_norm" if backbone == "UNetT" else "adaln_norm"
+        block_norms = 4 * (arch.depth - 1) + 3 if mmdit else 2 * arch.depth
+        step[norm] -= block_norms
+        step[norm + "_quant"] = block_norms
+        # ff.out's input (the GELU mode) and to_out's (the plain K12), each
+        # stream's
+        step["gelu_quantize_rows"] = step["quantize_rows"] = (
+            2 * arch.depth - 1 if mmdit else arch.depth)
+    return step
+
+
+def generate_launches(backbone: str, arch, flat: bool = True, int8: bool = False) -> dict:
+    """The kernel launches of one NFE-step generate (`step_launches`)."""
+    return {k: v * NFE for k, v in step_launches(backbone, arch, flat, int8).items()}
 
 
 def ran_launches(pipe, host: dict, replays_before: dict) -> dict:
@@ -1467,6 +1508,137 @@ def check_quant_rows(rng, dev) -> dict:
         o[:, 1024:], "[2,256,1024] bf16, the text rows of a joint [2,1280,1024] output in place"))
 
 
+# K1Q / K6Q's inputs, [b, n, d]: the DiT / UNetT / MMDiT audio rows at the
+# 1024 bucket and the cap, F5TTS_v1_Small's width, the MMDiT text stream
+FUSED_NORM_SHAPES = ((2, 1024, 1024), (2, 4096, 1024), (2, 1024, 768), (2, 256, 1024))
+# the GELU mode's, ff.out's input at ff_mult 2 (DiT, MMDiT) and 4 (UNetT)
+GELU_SHAPES = ((2, 1024, 2048), (2, 4096, 2048), (2, 1024, 4096), (2, 4096, 4096))
+# the GELU mode against F.gelu + K12 where not bit-equal (the card's tanhf
+# may round apart from PyTorch's build): codes within 1 at no more than
+# this share of the entries, scales within 2 f32 ulp
+GELU_MOVED_SHARE = 1e-3
+GELU_SCALE_ULPS = 2
+
+
+def quant_against(codes, scale, want_c, want_s) -> tuple[int, int, float]:
+    """(codes that differ, the largest code difference, the largest scale
+    difference in ulps of the wanted scale)."""
+    import torch
+
+    dc = (codes.int() - want_c.int()).abs()
+    ulps = ((scale - want_s).abs() / (torch.nextafter(want_s, want_s + 1) - want_s)).max()
+    return int((dc > 0).sum()), int(dc.max()), float(ulps)
+
+
+def time_quant_mode(name: str, what: str, fn, chain, plain, nbytes: int, extra: str) -> dict:
+    """A K12 mode's time beside its bound, the two-launch chain it replaces
+    and its plain version; logged, and returned as a kernels-line row."""
+    ms = time_ms(fn)
+    chain_ms = time_ms(chain)
+    plain_ms = time_ms(plain, reps=2)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  {name} {what}: {extra}, {ms:.4f} ms, bound {bound:.4f} ms (bytes), "
+        f"{ms / bound:.2f}x the bound; the chain it replaces {chain_ms:.4f} ms; plain "
+        f"{plain_ms:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": None}
+
+
+def check_fused_norms(rng, dev) -> tuple[dict, dict]:
+    """K1Q and K6Q at `FUSED_NORM_SHAPES`: bit-equal to the two-kernel chain
+    on the card (K1 -> K12, K6 -> K12); against their plain versions (the
+    f32 norm rounded to bf16: K1 / K6 sit within half a bf16 ulp of it)
+    codes within 1 and scales within one bf16 ulp of the row's max / 127;
+    an all-zero row (a zero x row, in K1Q's a batch whose shift is 0)
+    exactly scale 1 and codes 0. Returns their kernels-line rows (the
+    largest code difference from the plain version as max_abs_err)."""
+    import torch
+    from f5tts_tpu_torch.ops.adaln_norm import (adaln_norm, adaln_norm_quant,
+                                                 adaln_norm_quant_ref, rms_norm, rms_norm_quant,
+                                                 rms_norm_quant_ref)
+    from f5tts_tpu_torch.ops.quant import quantize_rows
+
+    out = {"adaln_norm_quant": None, "rms_norm_quant": None}
+    for b, n, d in FUSED_NORM_SHAPES:
+        x = torch.from_numpy(rng.standard_normal((b, n, d)).astype(np.float32))
+        x = x.to(dev, torch.bfloat16)
+        x[0, n // 2] = 0
+        mods = torch.from_numpy((0.05 * rng.standard_normal((b, 6 * d))).astype(np.float32))
+        mods = mods.to(dev, torch.bfloat16)
+        mods[0, :d] = 0  # batch 0's shift: its zero x row comes out all zero
+        shift, scale = mods[:, :d], mods[:, d:2 * d]
+        w = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        cases = (("adaln_norm_quant", lambda: adaln_norm_quant(x, scale, shift),
+                  lambda: quantize_rows(adaln_norm(x, scale, shift)),
+                  lambda: adaln_norm_quant_ref(x, scale, shift), 4 * b * d),
+                 ("rms_norm_quant", lambda: rms_norm_quant(x, w, 1e-8),
+                  lambda: quantize_rows(rms_norm(x, w, 1e-8)),
+                  lambda: rms_norm_quant_ref(x, w, 1e-8), 2 * d))
+        for name, fn, chain, plain, operand_bytes in cases:
+            (codes, sc), (cc, cs), (pc, ps) = fn(), chain(), plain()
+            torch.cuda.synchronize()
+            what = f"[{b},{n},{d}] bf16"
+            if not (torch.equal(codes, cc) and torch.equal(sc, cs)):
+                raise AssertionError(f"{name} {what}: not bit-equal to the chain on the card "
+                                     f"{quant_against(codes, sc, cc, cs)}")
+            moved, worst, _ = quant_against(codes, sc, pc, ps)
+            rel = float(((sc - ps).abs() / ps).max())
+            if worst > 1 or rel > 2.0 ** -7:
+                raise AssertionError(f"{name} {what}: against its plain version codes within "
+                                     f"{worst}, scales within {rel:.3e} relative (tol 1, 2^-7)")
+            if not (bool((codes[0, n // 2] == 0).all()) and float(sc[0, n // 2]) == 1.0):
+                raise AssertionError(f"{name} {what}: the all-zero row is not scale 1, codes 0")
+            row = time_quant_mode(
+                name, what, fn, chain, plain, 3 * b * n * d + operand_bytes + 4 * b * n,
+                f"bit-equal to the chain; against the plain version {moved} codes moved (at "
+                f"most {worst}), scales within {rel:.2e} relative")
+            out[name] = merge_rows(out[name], {"max_abs_err": float(worst), **row})
+    return out["adaln_norm_quant"], out["rms_norm_quant"]
+
+
+def check_gelu_quant(rng, dev) -> dict:
+    """K12's GELU mode at `GELU_SHAPES` against `F.gelu(x, "tanh")` + K12 on
+    the card: bit-equal, or codes within 1 at no more than
+    GELU_MOVED_SHARE of the entries and scales within GELU_SCALE_ULPS f32
+    ulp (the count printed); an all-zero row scale 1, codes 0. Its plain
+    version (F.gelu + the plain quantize) is that chain's arithmetic."""
+    import torch
+    import torch.nn.functional as F
+    from f5tts_tpu_torch.ops.quant import (gelu_quantize_rows, gelu_quantize_rows_ref,
+                                           quantize_rows)
+
+    out_row = None
+    for b, n, d in GELU_SHAPES:
+        x = torch.from_numpy((2 * rng.standard_normal((b, n, d))).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        x[1, n // 3] = 0
+        fn = lambda: gelu_quantize_rows(x)  # noqa: E731
+        chain = lambda: quantize_rows(F.gelu(x, approximate="tanh"))  # noqa: E731
+        (codes, sc), (cc, cs), (pc, ps) = fn(), chain(), gelu_quantize_rows_ref(x)
+        torch.cuda.synchronize()
+        what = f"[{b},{n},{d}] bf16"
+        moved, worst, ulps = quant_against(codes, sc, cc, cs)
+        if worst > 1 or moved > GELU_MOVED_SHARE * codes.numel() or ulps > GELU_SCALE_ULPS:
+            raise AssertionError(f"gelu_quantize_rows {what}: against F.gelu + K12 {moved} codes "
+                                 f"moved (at most {worst}), scales within {ulps} ulp")
+        if not (bool((codes[1, n // 3] == 0).all()) and float(sc[1, n // 3]) == 1.0):
+            raise AssertionError(f"gelu_quantize_rows {what}: the all-zero row is not scale 1, "
+                                 "codes 0")
+        p_moved, p_worst, p_ulps = quant_against(codes, sc, pc, ps)
+        if p_worst > 1 or p_moved > GELU_MOVED_SHARE * codes.numel() or p_ulps > GELU_SCALE_ULPS:
+            raise AssertionError(f"gelu_quantize_rows {what}: against its plain version "
+                                 f"{p_moved} codes moved (at most {p_worst}), scales within "
+                                 f"{p_ulps} ulp")
+        equal = "bit-equal to F.gelu + K12" if moved == 0 and ulps == 0 else (
+            f"against F.gelu + K12 {moved} of {codes.numel()} codes moved by 1, scales within "
+            f"{ulps:.0f} ulp")
+        row = time_quant_mode("gelu_quantize_rows", what, fn, chain,
+                              lambda: gelu_quantize_rows_ref(x), 3 * b * n * d + 4 * b * n, equal)
+        out_row = merge_rows(out_row, {"max_abs_err": float(p_worst), **row})
+    return out_row
+
+
 def check_dequant(dev) -> dict:
     """K13 at `K13_SHAPES`, with and without a bias: bit-equal (as int16
     views) to its plain version."""
@@ -1619,8 +1791,10 @@ def pinyin_request(pipe, vocab: dict, expect: dict, gpu: str) -> dict:
 def phase_int8(dev, gpu: str, bf16_drift: tuple) -> tuple[dict, dict]:
     """F5TTS_v1_Base int8 against bf16 (both with the pinyin tokenizer and
     the Emilia vocab, the pipeline's default) at the 1024 bucket and the
-    cap, one pinyin request, E2TTS_Base and MMDiT_Base int8 at the 1024
-    bucket, the depth-2 gates. Returns (the launches the card ran, the
+    cap, one pinyin request, the depth-2 gates, the graphed int8 generate
+    against the eager one (F5TTS_v1_Base at the 1024 bucket and the cap,
+    E2TTS_Base and MMDiT_Base at the cap), E2TTS_Base and MMDiT_Base int8
+    at the 1024 bucket. Returns (the launches the card ran, the
     numbers)."""
     import torch
     from f5tts_tpu_torch.eval.rtf_bench import bench_line, bench_sampler
@@ -1646,8 +1820,7 @@ def phase_int8(dev, gpu: str, bf16_drift: tuple) -> tuple[dict, dict]:
     del pipes
     torch.cuda.empty_cache()
 
-    step = {"fused_qkv_rope_attention": 2, "adaln_norm": 5, "conv_pos_embedding": 2,
-            **{name: 8 for name in QUANT_KERNELS}}
+    step = step_launches("DiT", dataclasses.replace(arch, depth=2), int8=True)
     rel_i8, mel_i8 = phase_card_vs_cpu(dev, arch, params, vocos_params, "DiT", step, "int8")
     rel_bf, mel_bf = bf16_drift
     drift = float((mel_i8 - mel_bf).norm() / mel_bf.norm())
@@ -1657,18 +1830,27 @@ def phase_int8(dev, gpu: str, bf16_drift: tuple) -> tuple[dict, dict]:
     if not drift <= 2 * rel_bf:
         raise AssertionError(f"card int8 against card bf16 rel-L2 {drift} > 2 x {rel_bf}")
     out["depth2"] = {"int8_vs_bf16": drift, "bf16_vs_f32": rel_bf, "int8_vs_cpu_int8": rel_i8}
-    del params
+    log("  the graphed int8 generate against the eager one, F5TTS_v1_Base:")
+    pipe = make_pipeline(dev, "DiT", arch, params, vocos_params, quantization="int8")
+    out["graphs"] = [compare_graph_eager(pipe, generate_launches("DiT", arch, int8=True), frames,
+                                         gpu) for frames in (1014, 4086)]
+    del pipe, params
+    torch.cuda.empty_cache()
 
     stats = bench_sampler("F5TTS_v1_Base", device=dev, quantization="int8")
     log(f"  rtf_bench int8: {json.dumps(stats)}")
     log(f"  bench line int8: {json.dumps(bench_line(stats))}")
 
-    for model, backbone, frames in (("E2TTS_Base", "UNetT", 1013), ("MMDiT_Base", "MMDiT", 1014)):
+    for model, backbone, frames, cap in (("E2TTS_Base", "UNetT", 1013, 4096),
+                                         ("MMDiT_Base", "MMDiT", 1014, 4086)):
         arch_b, params_b, vocos_b = base_models(model=model)
         pipe = make_pipeline(dev, backbone, arch_b, params_b, vocos_b, quantization="int8")
         log(f"  {model} int8:")
         add(run_requests(pipe, [(REQUESTS[0], frames,
                                  generate_launches(backbone, arch_b, int8=True))], gpu))
+        # the cap (E2TTS: 4224 rows, past the flat gate), graphed against eager
+        out["graphs"].append(compare_graph_eager(
+            pipe, generate_launches(backbone, arch_b, backbone != "UNetT", int8=True), cap, gpu))
         del pipe, params_b
         torch.cuda.empty_cache()
     return launches, out
@@ -1972,6 +2154,8 @@ def main() -> int:
     log("phase 17: int8 W8A8 (K12, the int8 product, K13) and the pinyin tokenizer")
     rng17 = np.random.default_rng(17)
     rows["quantize_rows"] = check_quant_rows(rng17, dev)
+    rows["adaln_norm_quant"], rows["rms_norm_quant"] = check_fused_norms(rng17, dev)
+    rows["gelu_quantize_rows"] = check_gelu_quant(rng17, dev)
     rows["dequant_bias"] = check_dequant(dev)
     int8_mm_rows = time_int8_products(dev, gpu)
     ran, int8_rows = phase_int8(dev, gpu, bf16_drift)

@@ -30,15 +30,30 @@
 // (f5tts_tpu_torch/ops/quant.py quantize_rows): amax = max |x| over a row,
 // scale = amax / 127 (1 for an all-zero row), codes = clip(round(x / scale),
 // -127, 127), round half to even. It has no Pallas counterpart: the JAX
-// package leaves f5tts_tpu/ops/quant.py:42 quantize_rows to XLA. Bound:
-// memory, 2 bytes read and 1 written an element (6.3 MB at [2, 1024, 1024],
-// about 1.9 us at 3.35 TB/s). `quant_rows_kernel` is a sibling of the row
-// engine with its lane layout, grid and strided rows (MMDiT's to_out_c reads
-// the text rows of the joint attention output in place); its reduction is a
-// max, and its epilogue writes int8 codes and one f32 scale a row. The scale
-// and the division are IEEE divisions (`__fdiv_rn`), as the plain version's
-// `x.float() / scale`: multiplying by 127 / amax would move values across .5
-// boundaries and the codes would differ from the plain version's.
+// package leaves f5tts_tpu/ops/quant.py:42 quantize_rows to XLA, which fuses
+// the max-reduce into the elementwise chain before it (quant.py:12-14). The
+// port does the same where the producer of the rows is a kernel of this
+// file or a GELU, in three modes:
+// - the quantize stage of the row engine (`Quant<Epi>`, K1Q and K6Q): the
+//   norm's y is rounded to bf16 in registers as K1 / K6 would store it, the
+//   row's |max| taken over those values with the sums' segmented shuffle,
+//   and int8 codes and one f32 scale a row written in place of the bf16 row
+//   (4.19 MB in, 2.10 MB out at [2, 1024, 1024]: about 1.9 us at 3.35 TB/s,
+//   against 2.5 + 1.9 us for K1 then K12);
+// - `quant_rows_kernel<GeluTanhIn>`: PyTorch's tanh-GELU in f32, rounded to
+//   bf16, then quantized (ff.out's input: the bf16 GELU tensor is never
+//   written);
+// - `quant_rows_kernel<RowsIn>`: rows as they lie (to_out's input, and the
+//   MMDiT's to_out_c reading the text rows of the joint attention output in
+//   place), a sibling of the engine with its lane layout, grid and strided
+//   rows. Bound: memory, 2 bytes read and 1 written an element (6.3 MB at
+//   [2, 1024, 1024], about 1.9 us).
+// The codes equal round-half-even of the IEEE quotient x / scale, as the
+// plain version's `x.float() / scale`: multiplying by 127 / amax would move
+// values across .5 boundaries. A code is the rounded product with the
+// row's correctly rounded reciprocal, branch-free, which lies within 1.2e-5
+// of the quotient; only next to a .5 step do IEEE divisions (`__fdiv_rn`)
+// decide (`QuantRow`).
 #include <type_traits>
 
 #include "common.cuh"
@@ -86,6 +101,96 @@ __device__ __forceinline__ void load_w8(const bf16* w, int i, float* f) {
     unpack8(*reinterpret_cast<const uint4*>(w + i), f);
 }
 
+// ---------------------------------------------------------------------------
+// The quantize stage (K12's three modes)
+// ---------------------------------------------------------------------------
+
+// max |v| over 8 bf16 values, in bf16 pairs (exact: no rounding)
+__device__ __forceinline__ float absmax8(const uint4& v) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+    const __nv_bfloat162 m = __hmax2(__hmax2(__habs2(h[0]), __habs2(h[1])),
+                                     __hmax2(__habs2(h[2]), __habs2(h[3])));
+    return fmaxf(__low2float(m), __high2float(m));
+}
+
+// A row's scale and the codes of its values: clip(round_half_even(f /
+// scale), -127, 127). The exact product f * inv lies within 1.2e-5 of the
+// IEEE quotient's rounding for |f / scale| <= 127 (inv's rounding, 2^-24
+// relative, and half an ulp of the quotient); fma(f, inv, 1.5 * 2^23)
+// rounds it half to even in its low bits and lies in [2^23, 2^24), so its
+// low byte is the code's two's complement. Branch-free for 8 values; where
+// one of them lies within 4e-5 of a .5 step (about 1 vector in 1,500 on
+// Gaussian rows), or the scale is so small or large that its reciprocal may
+// not be exact, the 8 IEEE quotients decide.
+struct QuantRow {
+    float scale, inv;  // amax / 127 (1 for an all-zero row); its reciprocal, rounded
+    bool exact;        // divide every value
+    __device__ explicit QuantRow(float amax) {
+        scale = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
+        inv = __frcp_rn(scale);
+        exact = !(scale >= 0x1p-100f && scale <= 0x1p100f);
+    }
+    // the codes of 8 bf16 values, as 8 bytes
+    __device__ __forceinline__ uint2 codes8(const uint4& v) const {
+        constexpr float MAGIC = 12582912.f;  // 1.5 * 2^23
+        float f[8];
+        unpack8(v, f);
+        uint32_t c[8];
+        float worst = 0.f;  // the largest |f * inv - round(f * inv)|
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+            const float biased = __fmaf_rn(f[e], inv, MAGIC);
+            worst = fmaxf(worst, fabsf(__fmaf_rn(f[e], inv, -__fsub_rn(biased, MAGIC))));
+            c[e] = __float_as_uint(biased);
+        }
+        if (exact || worst > 0.49996f) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+                c[e] = (uint32_t)max(-127, min(127, __float2int_rn(__fdiv_rn(f[e], scale))));
+        }
+        // the low bytes of four codes as one word, code e in byte e
+        const auto pack4 = [](const uint32_t* w) {
+            return __byte_perm(__byte_perm(w[0], w[1], 0x0040), __byte_perm(w[2], w[3], 0x0040),
+                               0x5410);
+        };
+        return make_uint2(pack4(c), pack4(c + 4));
+    }
+};
+
+// The rows' maxima reduced over their L lanes, then each row's scale and
+// codes: raw[j][v] holds 8 bf16 values of row base + j * slots + slot (0
+// past the row), amax[j] the lane's |max| of them.
+template <int L, int V, int R>
+__device__ __forceinline__ void store_codes(const uint4 (&raw)[R][V], float (&amax)[R],
+                                            int8_t* __restrict__ codes,
+                                            float* __restrict__ row_scale, unsigned base,
+                                            unsigned slots, unsigned slot, unsigned rows,
+                                            int lane, int nvec, int d) {
+#pragma unroll
+    for (int off = L / 2; off > 0; off >>= 1) {
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+            amax[j] = fmaxf(amax[j], __shfl_xor_sync(0xffffffffu, amax[j], off));
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+        const unsigned row = base + j * slots + slot;
+        if (row >= rows) continue;
+        const QuantRow q(amax[j]);
+        if (lane == 0) row_scale[row] = q.scale;
+        int8_t* crow = codes + (size_t)row * d;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+            const int vi = lane + v * L;
+            if (vi < nvec) *reinterpret_cast<uint2*>(crow + vi * 8) = q.codes8(raw[j][v]);
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The row engine: K1, K6 and their quantize stage (K1Q, K6Q)
+// ---------------------------------------------------------------------------
+
 // An epilogue gives: kMean (whether the row's mean is taken), kPerBatch
 // (whether its column operands depend on the batch index), Cols (its
 // operands for 8 columns), load(cols, batch, i) for columns [i, i + 8) and
@@ -119,12 +224,25 @@ struct AdaLNEpi {
     }
 };
 
+// The quantize stage on an epilogue: the engine writes int8 codes [rows, d]
+// and one f32 scale a row in place of the bf16 rows (its `out` unused).
+template <class Epi>
+struct Quant : Epi {
+    int8_t* codes;
+    float* row_scale;
+};
+template <class Epi>
+struct is_quant : std::false_type {};
+template <class Epi>
+struct is_quant<Quant<Epi>> : std::true_type {};
+
 template <class Epi, int L, int V, int R>
 __global__ void __launch_bounds__(rn_threads<L>()) norm_rows_kernel(
     const bf16* __restrict__ x, bf16* __restrict__ out, const RnRows p, int d, float eps,
     const Epi epi) {
     constexpr unsigned SLOTS = rn_threads<L>() / L;  // rows a block holds at once
     constexpr bool REGS = V <= 4;  // the epilogue's columns stay in registers
+    constexpr bool QUANT = is_quant<Epi>::value;
     const int lane = threadIdx.x % L;
     const unsigned slot = threadIdx.x / L, rows = p.rows;
     const int nvec = d / 8;
@@ -185,8 +303,10 @@ __global__ void __launch_bounds__(rn_threads<L>()) norm_rows_kernel(
                 s2[j] += __shfl_xor_sync(0xffffffffu, s2[j], off);
             }
         }
+        float amax[R];  // the quantize stage: a lane's |max| of its bf16 outputs
 #pragma unroll
         for (int j = 0; j < R; ++j) {
+            amax[j] = 0.f;
             const unsigned row = base + j * SLOTS + slot;
             if (row >= rows) continue;
             const float mean = Epi::kMean ? s1[j] / d : 0.f;
@@ -203,9 +323,18 @@ __global__ void __launch_bounds__(rn_threads<L>()) norm_rows_kernel(
                 typename Epi::Cols c;
                 if constexpr (REGS) c = cols[v]; else epi.load(c, batch[j], vi * 8);
                 Epi::apply(c, f, mean, rstd, y);
-                *reinterpret_cast<uint4*>(orow + vi * 8) = pack8(y);
+                const uint4 yb = pack8(y);
+                if constexpr (QUANT) {  // y as K1 / K6 would store it, kept for the codes
+                    raw[j][v] = yb;
+                    amax[j] = fmaxf(amax[j], absmax8(yb));
+                } else {
+                    *reinterpret_cast<uint4*>(orow + vi * 8) = yb;
+                }
             }
         }
+        if constexpr (QUANT)
+            store_codes<L, V, R>(raw, amax, epi.codes, epi.row_scale, base, SLOTS, slot, rows,
+                                 lane, nvec, d);
     }
 }
 
@@ -256,21 +385,32 @@ static int dispatch_norm_rows(const bf16* x, bf16* out, const RnRows& p, int d, 
 }
 
 // ---------------------------------------------------------------------------
-// K12
+// K12: rows as they lie, or through a GELU
 // ---------------------------------------------------------------------------
 
-// 4 codes, clip(round_half_even(f / scale), -127, 127), in one 32-bit word
-__device__ __forceinline__ uint32_t quant4(const float* f, float scale) {
-    uint32_t w = 0u;
+// What K12 quantizes: the rows themselves, or PyTorch's tanh-GELU of them
+// (at::native GeluCUDAKernelImpl's formula in f32, the same constants and
+// order) rounded to bf16, as `F.gelu(x, approximate="tanh")` stores it.
+struct RowsIn {
+    __device__ static uint4 apply(const uint4& v) { return v; }
+};
+struct GeluTanhIn {
+    __device__ static uint4 apply(const uint4& v) {
+        constexpr float kBeta = (float)(1.41421356237309504880 * 1.12837916709551257390 * 0.5);
+        constexpr float kKappa = 0.044715f;
+        float f[8];
+        unpack8(v, f);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-        const int q = max(-127, min(127, __float2int_rn(__fdiv_rn(f[e], scale))));
-        w |= (uint32_t)(q & 0xff) << (8 * e);
+        for (int e = 0; e < 8; ++e) {
+            const float x = f[e], x_cube = x * x * x;
+            const float inner = kBeta * (x + kKappa * x_cube);
+            f[e] = 0.5f * x * (1.f + tanhf(inner));
+        }
+        return pack8(f);
     }
-    return w;
-}
+};
 
-template <int L, int V, int R>
+template <class In, int L, int V, int R>
 __global__ void __launch_bounds__(rn_threads<L>()) quant_rows_kernel(
     const bf16* __restrict__ x, int8_t* __restrict__ codes, float* __restrict__ row_scale,
     const RnRows p, int d) {
@@ -299,50 +439,35 @@ __global__ void __launch_bounds__(rn_threads<L>()) quant_rows_kernel(
             amax[j] = 0.f;
 #pragma unroll
             for (int v = 0; v < V; ++v) {
-                float f[8];
-                unpack8(raw[j][v], f);
-#pragma unroll
-                for (int e = 0; e < 8; ++e) amax[j] = fmaxf(amax[j], fabsf(f[e]));
+                raw[j][v] = In::apply(raw[j][v]);  // GELU(0) = 0: the padding stays 0
+                amax[j] = fmaxf(amax[j], absmax8(raw[j][v]));
             }
         }
-#pragma unroll
-        for (int off = L / 2; off > 0; off >>= 1) {
-#pragma unroll
-            for (int j = 0; j < R; ++j)
-                amax[j] = fmaxf(amax[j], __shfl_xor_sync(0xffffffffu, amax[j], off));
-        }
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-            const unsigned row = base + j * SLOTS + slot;
-            if (row >= rows) continue;
-            const float scale = amax[j] > 0.f ? __fdiv_rn(amax[j], 127.f) : 1.f;
-            if (lane == 0) row_scale[row] = scale;
-            int8_t* crow = codes + (size_t)row * d;
-#pragma unroll
-            for (int v = 0; v < V; ++v) {
-                const int vi = lane + v * L;
-                if (vi >= nvec) continue;
-                float f[8];
-                unpack8(raw[j][v], f);
-                *reinterpret_cast<uint2*>(crow + vi * 8) =
-                    make_uint2(quant4(f, scale), quant4(f + 4, scale));
-            }
-        }
+        store_codes<L, V, R>(raw, amax, codes, row_scale, base, SLOTS, slot, rows, lane, nvec, d);
     }
 }
 
-template <int L, int V>
+template <class In, int L, int V>
 static int launch_quant_rows(const bf16* x, int8_t* codes, float* row_scale, const RnRows& p,
                              int d, cudaStream_t stream) {
     constexpr int R = V >= RN_VEC ? 1 : RN_VEC / V;
     constexpr int THREADS = rn_threads<L>(), ROWS_A_BLOCK = THREADS / L * R;
-    auto kernel = quant_rows_kernel<L, V, R>;
+    auto kernel = quant_rows_kernel<In, L, V, R>;
     int most = 0;
     const cudaError_t err = resident_blocks((const void*)kernel, THREADS, 0, &most);
     if (err != cudaSuccess) return (int)err;
     const int blocks = min((p.rows + ROWS_A_BLOCK - 1) / ROWS_A_BLOCK, most);
     kernel<<<blocks, THREADS, 0, stream>>>(x, codes, row_scale, p, d);
     return (int)cudaGetLastError();
+}
+
+template <class In>
+static int dispatch_quant_rows(const void* x, void* codes, void* row_scale, const RnRows& p,
+                               int d, void* stream) {
+    return rn_dispatch(p, d, [&](auto l, auto v) {
+        return launch_quant_rows<In, decltype(l)::value, decltype(v)::value>(
+            (const bf16*)x, (int8_t*)codes, (float*)row_scale, p, d, (cudaStream_t)stream);
+    });
 }
 
 // x: contiguous [b, n, d]; scale / shift: [b, d] rows at scale_stride /
@@ -380,9 +505,46 @@ extern "C" int f5_rms_norm_bf16(const void* x, const void* w, int w_is_f32, void
 extern "C" int f5_quant_rows_bf16(const void* x, void* codes, void* row_scale, int rows, int n1,
                                   int n2, long long s0, long long s1, long long s2, int d,
                                   void* stream) {
+    return dispatch_quant_rows<RowsIn>(x, codes, row_scale, {rows, n1, n2, s0, s1, s2}, d,
+                                       stream);
+}
+
+// As f5_quant_rows_bf16, of GELU-tanh(x) rounded to bf16.
+extern "C" int f5_gelu_quant_rows_bf16(const void* x, void* codes, void* row_scale, int rows,
+                                       int n1, int n2, long long s0, long long s1, long long s2,
+                                       int d, void* stream) {
+    return dispatch_quant_rows<GeluTanhIn>(x, codes, row_scale, {rows, n1, n2, s0, s1, s2}, d,
+                                           stream);
+}
+
+// f5_adaln_norm_bf16's rows quantized: codes contiguous [b, n, d] int8,
+// row_scale [b * n] f32.
+extern "C" int f5_adaln_norm_quant_bf16(const void* x, const void* scale, const void* shift,
+                                        void* codes, void* row_scale, int b, int n, int d,
+                                        long long scale_stride, long long shift_stride,
+                                        float eps, void* stream) {
+    const long long rows = (long long)b * n;
+    if (rows > RN_MAX_ROWS) return (int)cudaErrorInvalidValue;
+    const RnRows p{(int)rows, 1, n, (long long)n * d, 0, d};
+    const Quant<AdaLNEpi> epi{{(const bf16*)scale, (const bf16*)shift, scale_stride, shift_stride},
+                              (int8_t*)codes, (float*)row_scale};
+    return dispatch_norm_rows((const bf16*)x, nullptr, p, d, eps, epi, (cudaStream_t)stream);
+}
+
+// f5_rms_norm_bf16's rows quantized: codes contiguous [rows, d] int8,
+// row_scale [rows] f32.
+extern "C" int f5_rms_norm_quant_bf16(const void* x, const void* w, int w_is_f32, void* codes,
+                                      void* row_scale, int rows, int n1, int n2, long long s0,
+                                      long long s1, long long s2, int d, float eps, void* stream) {
     const RnRows p{rows, n1, n2, s0, s1, s2};
-    return rn_dispatch(p, d, [&](auto l, auto v) {
-        return launch_quant_rows<decltype(l)::value, decltype(v)::value>(
-            (const bf16*)x, (int8_t*)codes, (float*)row_scale, p, d, (cudaStream_t)stream);
-    });
+    cudaStream_t s = (cudaStream_t)stream;
+    if (w_is_f32)
+        return dispatch_norm_rows((const bf16*)x, nullptr, p, d, eps,
+                                  Quant<RmsEpi<float>>{{(const float*)w}, (int8_t*)codes,
+                                                       (float*)row_scale},
+                                  s);
+    return dispatch_norm_rows((const bf16*)x, nullptr, p, d, eps,
+                              Quant<RmsEpi<bf16>>{{(const bf16*)w}, (int8_t*)codes,
+                                                  (float*)row_scale},
+                              s);
 }

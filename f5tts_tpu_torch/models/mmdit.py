@@ -130,11 +130,12 @@ def mmdit_text_embeds(params: m.Params, statics: MMDiTStatics, text: torch.Tenso
                  for drop in (False, True))
 
 
-def _joint_attention(p: m.Params, x: torch.Tensor, c: torch.Tensor, heads: int,
+def _joint_attention(p: m.Params, x, c, heads: int,
                      kmask: torch.Tensor, joint_tabs: tuple, rope_angles: torch.Tensor) -> tuple:
     """modules.py:581-705 / mmdit.py:120-222: attend the concatenated streams
     under the joint key mask kmask [b, n + nt], split; dead rows of each
-    stream zeroed after its to_out. Fused params without qk-norm: the flat
+    stream zeroed after its to_out. x and c may be `QuantRows` (int8
+    projections without the hedge). Fused params without qk-norm: the flat
     qkv of both streams, roped from `joint_tabs`, by K5. Otherwise the head
     layout: each stream's q/k/v split into heads (under qk-norm K6 reads q
     and k in place from the projections' head views), audio RoPE on the
@@ -186,24 +187,29 @@ def _mmdit_block(blk: m.Params, x: torch.Tensor, c: torch.Tensor, mods_x: torch.
                  mods_c: torch.Tensor, heads: int, kmask: torch.Tensor, joint_tabs: tuple,
                  rope_angles: torch.Tensor, context_pre_only: bool = False) -> tuple:
     """modules.py:816-846. mods_x [b, 6*dim]; mods_c [b, 6*dim], or [b, 2*dim]
-    for the context_pre_only last block."""
+    for the context_pre_only last block. Each norm is told which projections
+    read its rows (K1Q where they all take them quantized)."""
+    attn = blk["attn"]
+    readers_c = m.attention_inputs(attn, context=True)
     if context_pre_only:
-        norm_c = m.adaln_final(c, mods_c)
+        norm_c = m.adaln_final(c, mods_c, readers_c)
     else:
         c_sm, c_ss, c_gm, c_s2, c_sc2, c_g2 = mods_c.chunk(6, dim=-1)
-        norm_c = m.adaln_pre(c, c_sm, c_ss)
+        norm_c = m.adaln_pre(c, c_sm, c_ss, readers_c)
     x_sm, x_ss, x_gm, x_s2, x_sc2, x_g2 = mods_x.chunk(6, dim=-1)
-    norm_x = m.adaln_pre(x, x_sm, x_ss)
+    norm_x = m.adaln_pre(x, x_sm, x_ss, m.attention_inputs(attn))
 
-    x_attn, c_attn = _joint_attention(blk["attn"], norm_x, norm_c, heads, kmask, joint_tabs,
+    x_attn, c_attn = _joint_attention(attn, norm_x, norm_c, heads, kmask, joint_tabs,
                                       rope_angles)
     if context_pre_only:
         c = None
     else:
         c = c + c_gm[:, None, :] * c_attn
-        c = c + c_g2[:, None, :] * m.feed_forward(blk["ff_c"], m.adaln_pre(c, c_s2, c_sc2))
+        norm_c = m.adaln_pre(c, c_s2, c_sc2, [blk["ff_c"]["in"]])
+        c = c + c_g2[:, None, :] * m.feed_forward(blk["ff_c"], norm_c)
     x = x + x_gm[:, None, :] * x_attn
-    x = x + x_g2[:, None, :] * m.feed_forward(blk["ff_x"], m.adaln_pre(x, x_s2, x_sc2))
+    norm_x = m.adaln_pre(x, x_s2, x_sc2, [blk["ff_x"]["in"]])
+    x = x + x_g2[:, None, :] * m.feed_forward(blk["ff_x"], norm_x)
     return x, c
 
 

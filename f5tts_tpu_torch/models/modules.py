@@ -9,6 +9,14 @@ tensors with the JAX package's keys and layouts, which the port keeps:
   a leading depth axis; `convert.py` unstacks).
 Compute runs in the caller's dtype with LayerNorm, RMSNorm, GRN and softmax
 statistics in f32, as in the JAX package.
+
+On int8 params (`ops.quant.quantize_dit_params`) a block names the
+projections that read each norm's rows (`attention_inputs`, ff.in), and
+the norm writes codes and row scales (K1Q / K6Q) instead of bf16 rows where
+every one of them is an int8 leaf without the outlier hedge
+(`takes_quantized`); ff.out's input is quantized inside the GELU pass
+(K12's GELU mode) on the same rule. `linear` takes those `QuantRows`.
+bf16 leaves and leaves with the hedge get bf16 rows as before.
 """
 
 from __future__ import annotations
@@ -19,12 +27,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from f5tts_tpu_torch.ops.adaln_norm import adaln_norm
+from f5tts_tpu_torch.ops.adaln_norm import adaln_norm, adaln_norm_quant, rms_norm_quant
 from f5tts_tpu_torch.ops.adaln_norm import rms_norm as rms_norm_kernel
 from f5tts_tpu_torch.ops.attention import FLAT_ATTN_MAX_N, attention, fused_qkv_rope_attention
 from f5tts_tpu_torch.ops.grouped_conv import conv_pos_embedding as conv_pos_kernel
 from f5tts_tpu_torch.ops.grouped_conv import grouped_conv1d, mish, supports_fused_conv_pos
-from f5tts_tpu_torch.ops.quant import int8_linear, int8_linear_pre, quantize_rows
+from f5tts_tpu_torch.ops.quant import QuantRows, gelu_quantize_rows, int8_linear
 from f5tts_tpu_torch.ops.rope import apply_rotary_flat, apply_rotary_partial_heads
 
 Params = dict
@@ -62,9 +70,13 @@ def init_conv1d(gen, c_in: int, c_out: int, kernel: int, groups: int = 1) -> Par
 # Primitives
 # ---------------------------------------------------------------------------
 
-def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+def linear(p: Params, x) -> torch.Tensor:
+    """x @ w + b; x a tensor, or `QuantRows` for an int8 leaf without the
+    outlier hedge."""
     if "w_i8" in p:  # an int8 leaf (ops.quant.quantize_dit_params): K12, the product, K13
         return int8_linear(p, x)
+    if isinstance(x, QuantRows):
+        raise TypeError("pre-quantized rows need an int8 leaf")
     y = torch.matmul(x, p["w"].to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(x.dtype)
@@ -88,8 +100,17 @@ def init_rms_norm(dim: int) -> Params:
     return {"w": torch.ones(dim)}
 
 
-def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """x * rsqrt(mean(x^2) + eps) * w, f32 statistics -> kernel K6."""
+def takes_quantized(*leaves: Params) -> bool:
+    """Whether there are `leaves` and every one is an int8 leaf without the
+    outlier hedge: the projections a norm or GELU hands its rows quantized."""
+    return bool(leaves) and all("w_i8" in p and "act_mask" not in p for p in leaves)
+
+
+def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6, readers=()):
+    """x * rsqrt(mean(x^2) + eps) * w, f32 statistics -> kernel K6; as
+    `QuantRows` (K6Q) where the projection leaves `readers` all take them."""
+    if takes_quantized(*readers):
+        return QuantRows(*rms_norm_quant(x, p["w"], eps), x.dtype)
     return rms_norm_kernel(x, p["w"], eps)
 
 
@@ -222,24 +243,34 @@ def init_adaln_final(gen, dim: int, zero: bool = True) -> Params:
     return {"linear": init_linear(gen, dim, 2 * dim, zero=zero)}
 
 
-def adaln_pre(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """LayerNorm (no affine) * (1 + scale) + shift, broadcast over the sequence."""
+def adaln_pre(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor, readers=()):
+    """LayerNorm (no affine) * (1 + scale) + shift, broadcast over the
+    sequence -> K1; as `QuantRows` (K1Q) where the projection leaves
+    `readers` all take them."""
+    if takes_quantized(*readers):
+        return QuantRows(*adaln_norm_quant(x, scale, shift), x.dtype)
     return adaln_norm(x, scale, shift)
 
 
-def adaln_final(x: torch.Tensor, mod: torch.Tensor) -> torch.Tensor:
+def adaln_final(x: torch.Tensor, mod: torch.Tensor, readers=()):
     """Final AdaLN from a precomputed [b, 2*dim] modulation. NOTE the
     (scale, shift) order here against (shift, scale, gate, ...) in blocks."""
     scale, shift = mod.chunk(2, dim=-1)
-    return adaln_pre(x, shift, scale)
+    return adaln_pre(x, shift, scale, readers)
 
 
 def init_feed_forward(gen, dim: int, mult: int) -> Params:
     return {"in": init_linear(gen, dim, dim * mult), "out": init_linear(gen, dim * mult, dim)}
 
 
-def feed_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return linear(p["out"], gelu_tanh(linear(p["in"], x)))
+def feed_forward(p: Params, x) -> torch.Tensor:
+    """out(GELU-tanh(in(x))); x a tensor, or `QuantRows` for an int8 ff.in.
+    An int8 ff.out without the hedge takes its input quantized inside the
+    GELU pass (K12's GELU mode)."""
+    h = linear(p["in"], x)
+    if takes_quantized(p["out"]):
+        return linear(p["out"], QuantRows(*gelu_quantize_rows(h), h.dtype))
+    return linear(p["out"], gelu_tanh(h))
 
 
 # ---------------------------------------------------------------------------
@@ -256,6 +287,15 @@ def init_attention(gen, dim: int, heads: int, dim_head: int,
         p["q_norm"] = init_rms_norm(dim_head)
         p["k_norm"] = init_rms_norm(dim_head)
     return p
+
+
+def attention_inputs(p: Params, context: bool = False) -> list:
+    """The projection leaves that read an attention's input: to_qkv, or
+    to_q / to_k / to_v (with `context`, the MMDiT's text-stream twins)."""
+    suffix = "_c" if context else ""
+    names = (f"to_qkv{suffix}",) if f"to_qkv{suffix}" in p else tuple(
+        f"to_{t}{suffix}" for t in "qkv")
+    return [p[name] for name in names]
 
 
 def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -277,11 +317,12 @@ def merge_heads(t: torch.Tensor) -> torch.Tensor:
     return t.transpose(1, 2).reshape(b, n, h * d)
 
 
-def self_attention(p: Params, x: torch.Tensor, heads: int, rope_tabs: tuple,
+def self_attention(p: Params, x, heads: int, rope_tabs: tuple,
                    lengths: Optional[torch.Tensor] = None,
                    rope_angles: Optional[torch.Tensor] = None,
                    pe_attn_head: Optional[int] = None) -> torch.Tensor:
-    """x [b, n, dim]; rope_tabs = flat (cos, sin) [>=n, h*d] for K3;
+    """x [b, n, dim], or `QuantRows` when every projection of x takes them
+    (`takes_quantized`; the block's norm wrote them); rope_tabs = flat (cos, sin) [>=n, h*d] for K3;
     rope_angles [>=n, d] f32 with `pe_attn_head` for the head layout. Rows
     >= lengths of the output are zeroed after to_out.
 
@@ -293,9 +334,10 @@ def self_attention(p: Params, x: torch.Tensor, heads: int, rope_tabs: tuple,
     n). RoPE goes on the flat projections before the head split, or under
     qk-norm after a per-head RMSNorm (K6, eps 1e-6, reading q and k in
     place from the projection's head view), on the first `pe_attn_head`
-    heads. Unfused int8 q / k / v quantize their shared input once (K12),
-    as the JAX package does. Both layouts are differentiable: K4 is K3's backward; under grad
-    the head layout runs K7's lse mode and K9 (without grad, K7 alone)."""
+    heads. Unfused int8 q / k / v share one quantize of their input (the
+    norm's K1Q / K6Q before this), as the JAX package does. Both
+    layouts are differentiable: K4 is K3's backward; under grad the head
+    layout runs K7's lse mode and K9 (without grad, K7 alone)."""
     b, n, _ = x.shape
     lens = (torch.full((b,), n, dtype=torch.int32, device=x.device) if lengths is None
             else lengths.to(torch.int32))
@@ -303,14 +345,10 @@ def self_attention(p: Params, x: torch.Tensor, heads: int, rope_tabs: tuple,
         qkv = linear(p["to_qkv"], x)
         o = fused_qkv_rope_attention(qkv.contiguous(), rope_tabs[0], rope_tabs[1], lens, heads)
     else:
-        names = ("to_q", "to_k", "to_v")
         if "to_qkv" in p:
             q, k, v = linear(p["to_qkv"], x).chunk(3, dim=-1)
-        elif "w_i8" in p["to_q"] and "act_mask" not in p["to_q"]:
-            xq, xs = quantize_rows(x)  # the shared input quantized once for q, k and v
-            q, k, v = (int8_linear_pre(p[name], xq, xs, x.dtype) for name in names)
-        else:  # bf16 leaves, or int8 ones with the hedge (each its own masked quantize)
-            q, k, v = (linear(p[name], x) for name in names)
+        else:  # to_q / to_k / to_v; int8 ones with the hedge each quantize their masked rows
+            q, k, v = (linear(leaf, x) for leaf in attention_inputs(p))
         if "q_norm" in p:
             q = rms_norm(p["q_norm"], head_view(q, heads))
             k = rms_norm(p["k_norm"], head_view(k, heads))
@@ -346,10 +384,10 @@ def dit_block(p: Params, x: torch.Tensor, mods: torch.Tensor, heads: int,
               pe_attn_head: Optional[int] = None) -> torch.Tensor:
     """mods [b, 6*dim]: shift_msa, scale_msa, gate_msa, shift/scale/gate_mlp."""
     shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods.chunk(6, dim=-1)
-    norm = adaln_pre(x, shift_msa, scale_msa)
+    norm = adaln_pre(x, shift_msa, scale_msa, attention_inputs(p["attn"]))
     x = x + gate_msa[:, None, :] * self_attention(p["attn"], norm, heads, rope_tabs, lengths,
                                                   rope_angles, pe_attn_head)
-    norm = adaln_pre(x, shift_mlp, scale_mlp)
+    norm = adaln_pre(x, shift_mlp, scale_mlp, [p["ff"]["in"]])
     return x + gate_mlp[:, None, :] * feed_forward(p["ff"], norm)
 
 

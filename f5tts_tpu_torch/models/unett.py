@@ -4,7 +4,8 @@ f5tts_tpu/models/unett.py:32-223).
 - The time embedding is prepended to the sequence as a token, and the
   sequence is padded to a multiple of 128 rows; both are stripped at the
   end. Attention masks the pad rows through `lengths + 1`.
-- Pre-norm blocks with RMSNorm (eps 1e-8, kernel K6): x = attn(norm(x)) + x,
+- Pre-norm blocks with RMSNorm (eps 1e-8, kernel K6; K6Q hands int8
+  projections its rows quantized): x = attn(norm(x)) + x,
   x = ff(norm(x)) + x. Attention is K3 up to 4096 rows and K7 past them,
   and K7 at every n under qk-norm (`modules.self_attention`).
 - The first half's pre-block states are the skip stack; the second half
@@ -96,10 +97,10 @@ def _block(blk: m.Params, x: torch.Tensor, statics: UNetTStatics, rope_tabs: tup
                 x = x + blk["skip_proj"]["b"].to(x.dtype)
         elif arch.skip_connect_type == "add":
             x = x + skip
-    h = m.rms_norm(blk["attn_norm"], x, eps=RMS_EPS)
+    h = m.rms_norm(blk["attn_norm"], x, RMS_EPS, m.attention_inputs(blk["attn"]))
     x = m.self_attention(blk["attn"], h, arch.heads, rope_tabs, lengths, statics.rope_angles,
                          arch.pe_attn_head) + x
-    h = m.rms_norm(blk["ff_norm"], x, eps=RMS_EPS)
+    h = m.rms_norm(blk["ff_norm"], x, RMS_EPS, [blk["ff"]["in"]])
     return m.feed_forward(blk["ff"], h) + x
 
 

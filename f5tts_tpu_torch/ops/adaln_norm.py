@@ -15,6 +15,12 @@ contiguous result. The JAX package keeps its kernel behind a switch that
 is off by default, because XLA fuses the RMS passes on a TPU; eager
 PyTorch does not, so the port always runs K6.
 
+`adaln_norm_quant` and `rms_norm_quant` hand the int8 projections of a
+block their input quantized: the row engine's quantize stage (K1Q, K6Q)
+writes int8 codes and one f32 scale a row in place of the bf16 rows, as
+`quantize_rows` of K1's or K6's output would (`ops/quant.py`), in one pass.
+Their plain versions are exactly that composition. Inference only.
+
 It is differentiable (`torch.autograd.Function`). The JAX package has no
 backward kernel for it: its custom_vjp takes the VJP of the XLA formula
 `adaln_norm_ref` (f5tts_tpu/ops/adaln_norm.py:170-174). `adaln_norm_bwd` is
@@ -32,9 +38,8 @@ import functools
 import torch
 
 from f5tts_tpu_torch.ops import _build
-
-_MAX_D = 4096  # the row engine gives a row at most 32 lanes of 16 16-byte vectors
-_MAX_ROWS = 2**31 - 2**16  # the row engine counts rows in 32-bit ints
+from f5tts_tpu_torch.ops._rows import MAX_D, MAX_ROWS, check_rows
+from f5tts_tpu_torch.ops.quant import empty_codes, quantize_rows_ref
 
 
 def adaln_norm_ref(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
@@ -64,10 +69,10 @@ def _check(x, scale, shift):
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("adaln_norm kernel takes a contiguous [b, n, d] x")
     b, n, d = x.shape
-    if d % 8 or d > _MAX_D:
-        raise ValueError(f"adaln_norm kernel needs d % 8 == 0 and d <= {_MAX_D}, got {d}")
-    if b * n > _MAX_ROWS:
-        raise ValueError(f"adaln_norm kernel takes at most {_MAX_ROWS} rows, got {b * n}")
+    if d % 8 or d > MAX_D:
+        raise ValueError(f"adaln_norm kernel needs d % 8 == 0 and d <= {MAX_D}, got {d}")
+    if b * n > MAX_ROWS:
+        raise ValueError(f"adaln_norm kernel takes at most {MAX_ROWS} rows, got {b * n}")
     for t in (scale, shift):
         if t.device != x.device:
             raise ValueError("adaln_norm: scale/shift must be on x's device")
@@ -123,6 +128,40 @@ def _forward(x, scale, shift, eps):
     return out
 
 
+def adaln_norm_quant_ref(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                         eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K1Q: `quantize_rows_ref` of `adaln_norm_ref`."""
+    return quantize_rows_ref(adaln_norm_ref(x, scale, shift, eps))
+
+
+@functools.lru_cache(maxsize=None)
+def _quant_fn():
+    fn = _build.load("adaln_norm").f5_adaln_norm_quant_bf16
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def adaln_norm_quant(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                     eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """`quantize_rows(adaln_norm(x, scale, shift))` in one pass: (int8 codes
+    [b, n, d], f32 scale [b, n, 1]). Kernel K1Q on CUDA, plain on the CPU."""
+    if x.device.type == "cpu":
+        return adaln_norm_quant_ref(x, scale, shift, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"adaln_norm_quant: unsupported device {x.device}")
+    _check(x, scale, shift)
+    b, n, d = x.shape
+    codes, row_scale = empty_codes(x)
+    err = _quant_fn()(_build.ptr(x), _build.ptr(scale), _build.ptr(shift), _build.ptr(codes),
+                      _build.ptr(row_scale), b, n, d, scale.stride(0), shift.stride(0), eps,
+                      _build.stream_ptr(x.device))
+    _build.check(err, "adaln_norm_quant")
+    _build.count("adaln_norm_quant")
+    return codes, row_scale
+
+
 # ---------------------------------------------------------------------------
 # RMSNorm -> kernel K6
 # ---------------------------------------------------------------------------
@@ -147,40 +186,13 @@ def _rms_fn():
     return fn
 
 
-def _rms_rows(x) -> tuple[int, int, int, int, int, int] | None:
-    """(rows, n1, n2, s0, s1, s2): x's leading dimensions merged where their
-    strides allow, as at most three (sizes n0 * n1 * n2 = rows, strides in
-    elements), or None when more than three remain."""
-    dims = []
-    for size, stride in zip(x.shape[:-1], x.stride()[:-1]):
-        if size == 1:
-            continue
-        if dims and dims[-1][1] == stride * size:
-            dims[-1] = (dims[-1][0] * size, stride)
-        else:
-            dims.append((size, stride))
-    if len(dims) > 3:
-        return None
-    dims = [(1, 0)] * (3 - len(dims)) + dims
-    (n0, s0), (n1, s1), (n2, s2) = dims
-    return n0 * n1 * n2, n1, n2, s0, s1, s2
-
-
 def _rms_check(x, w):
-    """Refuse what K6 does not take; return `_rms_rows(x)`."""
-    if x.dtype != torch.bfloat16 or w.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError("rms_norm kernel takes a bf16 x and an f32 or bf16 weight")
-    if x.dim() < 2 or x.stride(-1) != 1 or x.data_ptr() % 16:
-        raise ValueError("rms_norm kernel takes a 16-byte aligned [..., d] x whose last "
-                         "dimension is contiguous")
-    d = x.shape[-1]
-    if d % 8 or d > _MAX_D:
-        raise ValueError(f"rms_norm kernel needs d % 8 == 0 and d <= {_MAX_D}, got {d}")
-    rows = _rms_rows(x)
-    if rows is None or rows[0] > _MAX_ROWS or any(s % 8 for s in rows[3:]):
-        raise ValueError("rms_norm kernel takes rows 16-byte aligned at up to three leading "
-                         f"strides, at most {_MAX_ROWS} of them")
-    if (w.shape != (d,) or not w.is_contiguous() or w.device != x.device
+    """Refuse what K6 does not take; return the rows' layout
+    (`_rows.row_layout`)."""
+    if w.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("rms_norm kernel takes an f32 or bf16 weight")
+    rows = check_rows(x, "rms_norm")
+    if (w.shape != (x.shape[-1],) or not w.is_contiguous() or w.device != x.device
             or w.data_ptr() % 16):
         raise ValueError("rms_norm kernel takes a contiguous, 16-byte aligned [d] weight "
                          "on x's device")
@@ -227,3 +239,39 @@ def _rms_forward(x, w, eps):
     _build.check(err, "rms_norm")
     _build.count("rms_norm")
     return out
+
+
+def rms_norm_quant_ref(x: torch.Tensor, w: torch.Tensor,
+                       eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K6Q: `quantize_rows_ref` of `rms_norm_ref`."""
+    return quantize_rows_ref(rms_norm_ref(x, w, eps))
+
+
+@functools.lru_cache(maxsize=None)
+def _rms_quant_fn():
+    fn = _build.load("adaln_norm").f5_rms_norm_quant_bf16
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rms_norm_quant(x: torch.Tensor, w: torch.Tensor,
+                   eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """`quantize_rows(rms_norm(x, w))` in one pass: (contiguous int8 codes
+    [..., d], f32 scale [..., 1]); x as `rms_norm` takes it. Kernel K6Q on
+    CUDA, plain on the CPU."""
+    if x.device.type == "cpu":
+        return rms_norm_quant_ref(x, w, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rms_norm_quant: unsupported device {x.device}")
+    rows = _rms_check(x, w)
+    codes, row_scale = empty_codes(x)
+    err = _rms_quant_fn()(_build.ptr(x), _build.ptr(w), int(w.dtype == torch.float32),
+                          _build.ptr(codes), _build.ptr(row_scale), *rows, x.shape[-1], eps,
+                          _build.stream_ptr(x.device))
+    _build.check(err, "rms_norm_quant")
+    _build.count("rms_norm_quant")
+    return codes, row_scale

@@ -7,8 +7,18 @@ products:
 - weights: symmetric per-output-channel int8, quantized once at load
   (`quantize_weight`, f32 amax over the contraction axis, amax / 127, round
   half to even, clip at +-127);
-- activations: symmetric per-row int8, scales computed on the fly
-  (`quantize_rows`, kernel K12 on the card: csrc/adaln_norm.cu);
+- activations: symmetric per-row int8, scales computed on the fly by kernel
+  K12 (csrc/adaln_norm.cu) in one of three modes. The JAX package leaves
+  the row quantize to XLA, which fuses its max-reduce into the elementwise
+  chain before it; the port fuses it into the pass that makes the rows:
+  - the norm before to_qkv and ff.in writes them quantized
+    (`ops.adaln_norm.adaln_norm_quant` / `rms_norm_quant`: K1Q / K6Q, the
+    row engine's quantize stage);
+  - ff.out's input is `gelu_quantize_rows` of ff.in's output (the tanh-GELU
+    inside K12: its bf16 output is never written);
+  - to_out's input, and rows that carry the outlier hedge, go through
+    `quantize_rows` as they lie;
+  `QuantRows` carries such pre-quantized rows to `modules.linear`;
 - the product: `torch._int_mm` (cuBLASLt s8 x s8 -> s32 on the card; exact
   integer arithmetic on the CPU), the counterpart of the plain XLA
   dot_general the JAX package leaves outside any Pallas kernel;
@@ -16,8 +26,9 @@ products:
   cast (`dequant_bias`, kernel K13 on the card: csrc/quant.cu).
 K12 and K13 have no Pallas counterpart: the JAX package computes both in
 XLA. Each wrapper launches its kernel for a CUDA tensor and runs the plain
-version (`quantize_rows_ref`, `dequant_bias_ref`) for a CPU tensor only;
-the kernels are bit-equal to the plain versions.
+version (`quantize_rows_ref`, `gelu_quantize_rows_ref`, `dequant_bias_ref`)
+for a CPU tensor only; the kernels are bit-equal to the plain versions
+(the GELU mode as far as the card's `tanhf` and PyTorch's agree).
 
 `quantize_dit_params` stores `w_i8` as [n, k] (the output channel's codes
 contiguous; the product takes its `.t()`), `w_scale` f32 [1, n] and the
@@ -28,13 +39,15 @@ package (`flag_outlier_channels`, the LLM.int8-style side product).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from f5tts_tpu_torch.ops import _build
-from f5tts_tpu_torch.ops.adaln_norm import _MAX_D, _MAX_ROWS, _rms_rows
+from f5tts_tpu_torch.ops._rows import check_rows
 
 Params = dict
 
@@ -60,13 +73,59 @@ def quantize_rows_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return _quantize(x, -1)
 
 
+def gelu_quantize_rows_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K12's GELU mode: `quantize_rows_ref` of the
+    tanh-GELU of x (in x's dtype, as `modules.gelu_tanh`)."""
+    return quantize_rows_ref(F.gelu(x, approximate="tanh"))
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantRows:
+    """Rows handed to int8 projections already quantized: int8 `codes`
+    [..., k], f32 `scale` [..., 1], and the `dtype` the rows were made in
+    (the projections' output dtype). `modules.linear` takes it for an int8
+    leaf without the outlier hedge."""
+
+    codes: torch.Tensor
+    scale: torch.Tensor
+    dtype: torch.dtype
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.codes.shape
+
+    @property
+    def device(self) -> torch.device:
+        return self.codes.device
+
+
 @functools.lru_cache(maxsize=None)
-def _quant_rows_fn():
-    fn = _build.load("adaln_norm").f5_quant_rows_bf16
+def _quant_rows_fn(entry: str):
+    fn = getattr(_build.load("adaln_norm"), entry)
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 3 + [
         ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def empty_codes(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Uninitialised outputs of a row quantize of x: (contiguous int8
+    codes like x, f32 scale [..., 1])."""
+    return (torch.empty(x.shape, dtype=torch.int8, device=x.device),
+            torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device))
+
+
+def _launch_quant_rows(x: torch.Tensor, entry: str, name: str):
+    """K12 in the mode of C entry `entry` on a CUDA x; counted as `name`."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    rows = check_rows(x, name)
+    codes, scale = empty_codes(x)
+    err = _quant_rows_fn(entry)(_build.ptr(x), _build.ptr(codes), _build.ptr(scale), *rows,
+                                x.shape[-1], _build.stream_ptr(x.device))
+    _build.check(err, name)
+    _build.count(name)
+    return codes, scale
 
 
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -76,25 +135,16 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     version for a CPU tensor."""
     if x.device.type == "cpu":
         return quantize_rows_ref(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"quantize_rows: unsupported device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError("quantize_rows kernel takes a bf16 x")
-    d = x.shape[-1]
-    if x.dim() < 2 or x.stride(-1) != 1 or x.data_ptr() % 16 or d % 8 or d > _MAX_D:
-        raise ValueError(f"quantize_rows kernel takes a 16-byte aligned [..., d] x whose last "
-                         f"dimension is contiguous, d % 8 == 0 and d <= {_MAX_D}")
-    rows = _rms_rows(x)
-    if rows is None or rows[0] > _MAX_ROWS or any(s % 8 for s in rows[3:]):
-        raise ValueError("quantize_rows kernel takes rows 16-byte aligned at up to three "
-                         f"leading strides, at most {_MAX_ROWS} of them")
-    codes = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    scale = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
-    err = _quant_rows_fn()(_build.ptr(x), _build.ptr(codes), _build.ptr(scale), *rows, d,
-                           _build.stream_ptr(x.device))
-    _build.check(err, "quantize_rows")
-    _build.count("quantize_rows")
-    return codes, scale
+    return _launch_quant_rows(x, "f5_quant_rows_bf16", "quantize_rows")
+
+
+def gelu_quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`quantize_rows(F.gelu(x, approximate="tanh"))` in one pass, the GELU
+    never written: K12's GELU mode for a CUDA tensor (as `quantize_rows`
+    takes it), the plain version for a CPU tensor."""
+    if x.device.type == "cpu":
+        return gelu_quantize_rows_ref(x)
+    return _launch_quant_rows(x, "f5_gelu_quant_rows_bf16", "gelu_quantize_rows")
 
 
 def dequant_bias_ref(acc: torch.Tensor, xs: torch.Tensor, w_scale: torch.Tensor,
@@ -163,14 +213,20 @@ def int8_linear_pre(p: Params, xq: torch.Tensor, xs: torch.Tensor, out_dtype) ->
     return y.reshape(*xq.shape[:-1], y.shape[-1])
 
 
-def int8_linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """`modules.linear` for a leaf holding {"w_i8", "w_scale"[, "b"]}.
+def int8_linear(p: Params, x) -> torch.Tensor:
+    """`modules.linear` for a leaf holding {"w_i8", "w_scale"[, "b"]}; x a
+    tensor, or `QuantRows` for a leaf without the hedge.
 
     A leaf carrying the outlier hedge ({"act_mask", "out_idx", "w_out"},
     `quantize_dit_params(smooth=True)`) runs the LLM.int8-style
     decomposition: the flagged channels are zeroed before the row quantize
     and contribute exactly through a small product over the saved original
     weight rows, y = int8(x * mask) + x[..., idx] @ w_out."""
+    if isinstance(x, QuantRows):
+        if "act_mask" in p:
+            raise ValueError("a leaf with the outlier hedge quantizes its own masked rows: it "
+                             "takes no pre-quantized rows")
+        return int8_linear_pre(p, x.codes, x.scale, x.dtype)
     if "act_mask" in p:
         xq, xs = quantize_rows(x * p["act_mask"].to(x.dtype))
         y = int8_linear_pre(p, xq, xs, x.dtype)

@@ -2,7 +2,7 @@
 from another checkout, in turns on one card.
 
     python -m f5tts_tpu_torch.scripts.kernel_ab --other PATH
-        [--kernel K1|K2|K3|K3_lse|K4|K5|K5_lse|K6|K7|K7_lse|K8|K9|K10|K11|K12|K13 ...]
+        [--kernel K1|K1Q|K2|K3|K3_lse|K4|K5|K5_lse|K6|K6Q|K7|K7_lse|K8|K9|K10|K11|K12|K12G|K13 ...]
         [--define NAME=VALUE ...] [--out FILE]
 
 Kernels: K3 and K3_lse (the flat fused QKV + RoPE attention over keys <
@@ -13,10 +13,13 @@ and its lse mode), K9 (the head-layout backward from a saved lse), K10 (the
 generic grouped conv1d + bias), K11 (the key-masked head-layout
 attention), K2 (one conv of the conv-position module: conv + bias, length
 mask, Mish), K6 (RMSNorm), K1 (AdaLN norm), K12 (the int8 path's per-row
-quantize) and K13 (its int32 dequant + bias); `--kernel` may be given
-several times. Both checkouts' source (`f5tts_tpu_torch/csrc/attention.cu`
-for K3, K5, K7 and K11, `attention_bwd.cu` for K4, K8 and K9,
-`grouped_conv.cu` for K10 and K2, `adaln_norm.cu` for K6, K1 and K12,
+quantize), K1Q / K6Q (K1 / K6 with K12 as their quantize stage), K12G
+(K12's GELU mode) and K13 (the int32 dequant + bias); `--kernel` may be
+given several times. K1Q, K6Q and K12G need an other checkout that has
+their entries (`--other .` with a `--define`). Both checkouts' source
+(`f5tts_tpu_torch/csrc/attention.cu` for K3, K5, K7 and K11,
+`attention_bwd.cu` for K4, K8 and K9, `grouped_conv.cu` for K10 and K2,
+`adaln_norm.cu` for K6, K1 and K12's modes,
 `quant.cu` for K13) are
 compiled with the port's nvcc flags into a temporary directory (this
 checkout's with `-D` of each `--define`, so `--other .` compares two builds
@@ -49,17 +52,18 @@ without its mask and Mish); K2 at [1, 1024, 1024] with lengths 1024 and
 K6 with a bf16 weight at [2, 16, 4096, 64], the same rows as the head view
 of q in a [2, 4096, 3072] projection, [2, 16, 256, 64], [2, 1024, 1024] and
 [2, 1024, 768]; K1 at [2, 1024 / 4096 / 256, 1024] and [2, 1024 / 4096,
-768] with the scale and shift views of a [2, 6 * d] modulation; K12 at
-[2, 1024 / 4096, 1024], [2, 1024, 2048 / 4096] and the text rows of a
-joint [2, 1280, 1024] output in place; K13 at [2048, 3072 / 1024 / 2048]
+768] with the scale and shift views of a [2, 6 * d] modulation (K1Q too);
+K6Q at K6's shapes; K12 at [2, 1024 / 4096, 1024], [2, 1024, 2048 / 4096]
+and the text rows of a joint [2, 1280, 1024] output in place; K12G at [2,
+1024 / 4096, 2048] and [2, 1024, 4096]; K13 at [2048, 3072 / 1024 / 2048]
 and [8192, 3072] with a bf16 bias. At each
 shape the entries are timed by CUDA-graph replay (`common.time_ms`) in the
 order other, this, this, other. The two outputs
 must agree: the forwards' within chip_smoke's 2e-2 (their lse within 1e-3;
 K10's and K2's output within 3e-2), the backwards' within its backward tolerance
 (rel-L2 <= 1e-2, max-abs <= 2e-2 of the largest entry; two designs may take
-delta at different rounding points), K12's codes and scales and K13's
-output bit for bit.
+delta at different rounding points), the codes and scales of K12's modes
+and K13's output bit for bit.
 Whether they are bit equal is reported, and each build's `-Xptxas -v` lines
 for the kernel's `__global__` functions (registers, shared memory, spills)
 and the source's ptxas notes (such as C7520, serialised wgmma).
@@ -82,7 +86,7 @@ import torch
 
 from f5tts_tpu_torch.ops import _build
 from f5tts_tpu_torch.ops import attention as att
-from f5tts_tpu_torch.ops.adaln_norm import _rms_rows
+from f5tts_tpu_torch.ops._rows import row_layout
 from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
 from f5tts_tpu_torch.scripts.common import gpu_name_and_limit, time_ms
 
@@ -95,8 +99,10 @@ CPE = ((1, 1024, 1024, 1024), (1, 1024, 1024, 777), (2, 1024, 1024, 1024),  # b,
 RMS = ((2, 16, 4096, 64), "view", (2, 16, 256, 64), (2, 1024, 1024), (2, 1024, 768))
 ADALN = ((1024, 1024), (4096, 1024), (256, 1024), (1024, 768), (4096, 768))  # n, d (b = 2)
 QUANT_ROWS = ((2, 1024, 1024), (2, 4096, 1024), (2, 1024, 2048), (2, 1024, 4096), "text")
+GELU_ROWS = ((2, 1024, 2048), (2, 4096, 2048), (2, 1024, 4096))
 DEQUANT = ((2048, 3072), (2048, 1024), (2048, 2048), (8192, 3072))  # m, n
-EXACT = ("K12", "K13")  # bit-equal outputs, or the builds disagree
+EXACT = ("K1Q", "K6Q", "K12", "K12G", "K13")  # bit-equal outputs, or the builds disagree
+CODES = ("codes", "row_scale")
 K3_GLOBALS = r"fused_qkv_rope_attn_(kernel|lse_kernel|krot_kernel)"
 K7_GLOBALS = r"_Z\d+flash_attn_(lse_)?kernel"  # not masked_flash_attn_kernel
 # kernel: (source, C entry, a pattern found in each of its __global__ names,
@@ -125,10 +131,16 @@ KERNELS = {
             r"_Z\d+grouped_conv1d_kernelILi\d+EEv", CONV, ("y",)),
     "K2": ("grouped_conv.cu", "f5_conv_mish_bf16", r"conv_mish_kernel|grouped_conv1d_kernel\w+Lb1E",
            CPE, ("y",)),
-    "K6": ("adaln_norm.cu", "f5_rms_norm_bf16", "rms_norm_kernel|RmsEpi", RMS, ("out",)),
-    "K1": ("adaln_norm.cu", "f5_adaln_norm_bf16", "adaln_norm_kernel|AdaLNEpi", ADALN, ("out",)),
-    "K12": ("adaln_norm.cu", "f5_quant_rows_bf16", "quant_rows_kernel", QUANT_ROWS,
-            ("codes", "row_scale")),
+    "K6": ("adaln_norm.cu", "f5_rms_norm_bf16", "rms_norm_kernel|norm_rows_kernelI6RmsEpi", RMS,
+           ("out",)),
+    "K1": ("adaln_norm.cu", "f5_adaln_norm_bf16", "adaln_norm_kernel|norm_rows_kernelI8AdaLNEpi",
+           ADALN, ("out",)),
+    "K6Q": ("adaln_norm.cu", "f5_rms_norm_quant_bf16", "QuantI6RmsEpi", RMS, CODES),
+    "K1Q": ("adaln_norm.cu", "f5_adaln_norm_quant_bf16", "QuantI8AdaLNEpi", ADALN, CODES),
+    "K12": ("adaln_norm.cu", "f5_quant_rows_bf16", r"quant_rows_kernelI(6RowsIn|Li)", QUANT_ROWS,
+            CODES),
+    "K12G": ("adaln_norm.cu", "f5_gelu_quant_rows_bf16", "quant_rows_kernelI10GeluTanhIn",
+             GELU_ROWS, CODES),
     "K13": ("quant.cu", "f5_dequant_bias_bf16", "dequant_bias_kernel", DEQUANT, ("out",)),
 }
 CTYPES = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong}
@@ -194,23 +206,28 @@ def inputs(kernel: str, shape, dev) -> tuple[dict, str]:
     def bf16(*s):
         return torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, torch.bfloat16)
 
-    if kernel == "K1":
+    def codes_for(t):  # the quantizing entries' outputs
+        x = t["x"]
+        t.update(codes=torch.empty(x.shape, dtype=torch.int8, device=dev),
+                 row_scale=torch.empty(x.shape[:-1], dtype=torch.float32, device=dev))
+        return t
+
+    if kernel in ("K1", "K1Q"):
         n, d = shape
         mods = bf16(2, 6 * d) * 0.05
         t = {"x": bf16(2, n, d), "scale": mods[:, d:2 * d], "shift": mods[:, :d], "b": 2, "n": n,
              "d": d, "scale_stride": 6 * d, "shift_stride": 6 * d, "eps": 1e-6}
         t["out"] = torch.empty_like(t["x"])
-        return t, f"[2, {n}, {d}], scale / shift views of a [2, {6 * d}] modulation"
-    if kernel == "K12":
+        return codes_for(t), f"[2, {n}, {d}], scale / shift views of a [2, {6 * d}] modulation"
+    if kernel in ("K12", "K12G"):
         if shape == "text":  # the text rows of a joint attention output, in place
             x = bf16(2, 1280, 1024)[:, 1024:]
             what = "[2, 256, 1024], the text rows of a joint [2, 1280, 1024] output"
         else:
             x = bf16(*shape)
             what = f"{list(shape)}"
-        t = {"x": x, "d": x.shape[-1], "codes": torch.empty(x.shape, dtype=torch.int8, device=dev),
-             "row_scale": torch.empty(x.shape[:-1], dtype=torch.float32, device=dev)}
-        t.update(zip(("rows", "n1", "n2", "s0", "s1", "s2"), _rms_rows(x)))
+        t = codes_for({"x": x, "d": x.shape[-1]})
+        t.update(zip(("rows", "n1", "n2", "s0", "s1", "s2"), row_layout(x)))
         return t, what
     if kernel == "K13":
         m, n = shape
@@ -222,7 +239,7 @@ def inputs(kernel: str, shape, dev) -> tuple[dict, str]:
              "bias": bf16(n), "out": torch.empty((m, n), dtype=torch.bfloat16, device=dev),
              "m": m, "n": n}
         return t, f"[{m}, {n}] int32 -> bf16, bf16 bias"
-    if kernel == "K6":
+    if kernel in ("K6", "K6Q"):
         view = shape == "view"
         shape = (2, 16, 4096, 64) if view else shape
         d = shape[-1]
@@ -234,10 +251,10 @@ def inputs(kernel: str, shape, dev) -> tuple[dict, str]:
             dev, torch.bfloat16)
         t = {"x": x, "x_contig": x.contiguous(), "w": w, "w_is_f32": 0, "d": d, "eps": 1e-6,
              "out": torch.empty(shape, dtype=torch.bfloat16, device=dev)}
-        t.update(zip(("rows", "n1", "n2", "s0", "s1", "s2"), _rms_rows(x)))
+        t.update(zip(("rows", "n1", "n2", "s0", "s1", "s2"), row_layout(x)))
         what = (f"{list(shape)} as the head view of q in [2, 4096, 3072]" if view
                 else f"{list(shape)}") + ", bf16 weight"
-        return t, what
+        return codes_for(t), what
     if kernel == "K2":
         b, n, c, length = shape
         lim = 1.0 / math.sqrt(64 * 31)

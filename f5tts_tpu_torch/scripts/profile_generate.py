@@ -6,8 +6,9 @@
 `--model` any preset: F5TTS_v1_Base / F5TTS_Base / F5TTS_v1_Small /
 F5TTS_Small (DiT), E2TTS_Base / E2TTS_Small (UNetT) or MMDiT_Base;
 `--qk-norm` sets qk_norm="rms_norm" (its RMSNorm weights randomised);
-`--quantization int8` runs the pipeline's int8 W8A8 params (K12, the int8
-product, K13: their device time is read by class); + Vocos
+`--quantization int8` runs the pipeline's int8 W8A8 params (K12's modes:
+K1Q / K6Q, the GELU mode, the plain K12; the int8 product, K13: their
+device time is read by class, and bf16's separate GELU pass too); + Vocos
 (seeded random weights, bf16 backbone, f32 Vocos), 16 NFE, CFG 2, sway -1,
 with a fixed duration per bucket (the F5TTS_v1_Base DiT at 768, 1024 and
 the 4096 cap; the others at 1024 and the cap). For each bucket, two paths:
@@ -43,6 +44,11 @@ FRAMES = {"F5TTS_v1_Base": (758, 1014, 4086), "F5TTS_Base": (1014, 4086),
           "E2TTS_Base": (1013, 4096), "E2TTS_Small": (1013, 4096), "MMDiT_Base": (1014, 4086)}
 REPS = 3
 CLASSES = (
+    # K12's modes, before the norms' classes (K1Q / K6Q's names hold their
+    # epilogue's) and K12's (whose kernel the GELU mode is)
+    ("adaln_norm_quant", ("Quant<AdaLNEpi",)),
+    ("rms_norm_quant", ("Quant<RmsEpi",)),
+    ("gelu_quantize_rows", ("quant_rows_kernel<GeluTanhIn",)),
     ("quantize_rows", ("quant_rows_kernel",)),
     ("dequant_bias", ("dequant_bias_kernel",)),
     ("fused_qkv_rope_attention", ("fused_qkv_rope_attn_kernel",
@@ -57,6 +63,7 @@ CLASSES = (
     ("grouped_conv1d", ("grouped_conv1d_kernel",)),
     ("gemm", ("gemm", "Gemm", "cutlass", "xmma", "nvjet", "cublas")),
     ("fft", ("fft", "FFT")),
+    ("gelu", ("GeluCUDAKernelImpl",)),  # PyTorch's tanh-GELU pass (bf16: ff.out's input)
 )
 
 

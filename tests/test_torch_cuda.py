@@ -18,8 +18,10 @@ step of each backbone through the kernels against the CPU plain path; the
 pipeline's CUDA-graph replay against the eager generate (DiT, MMDiT; bf16
 and int8), with each capture's launch counts and none on the host for a
 replay; K12 and K13 bit-equal to their plain versions (m 17, 37, 2048; k and
-n 8 to 4096; zero rows; K12 on strided rows), one int8 projection and a
-depth-2 int8 forward of each backbone against the CPU's int8 path.
+n 8 to 4096; zero rows; K12 on strided rows), K1Q and K6Q bit-equal to the
+K1 / K6 -> K12 chain (K6Q also on a strided head view), K12's GELU mode
+against F.gelu + K12, one int8 projection and a depth-2 int8 forward of
+each backbone against the CPU's int8 path.
 Run on a GPU machine with:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -820,9 +822,11 @@ def test_pipeline_graph_replay_equals_eager(dev, backbone):
 
 @pytest.mark.parametrize("backbone", ["DiT", "MMDiT"])
 def test_int8_pipeline_graph_replay_equals_eager(dev, backbone):
-    """As above with quantization="int8": the capture records K12, the int8
+    """As above with quantization="int8": the capture records the int8
     product and K13 once per quantized projection (4 a DiT block, 8 an
-    MMDiT block and 5 in its last block)."""
+    MMDiT block and 5 in its last block), K1Q for every norm of a block
+    (the final one stays K1), the GELU mode before each ff.out and the
+    plain K12 before each to_out (`_int8_step`)."""
     _graph_replay_case(dev, backbone, "int8")
 
 
@@ -855,7 +859,7 @@ def _graph_replay_case(dev, backbone: str, quantization: str):
                 if backbone == "DiT" else
                 {"fused_qkv_rope_attention_bias": 2, "adaln_norm": 8, "conv_pos_embedding": 2})
     if quantization == "int8":
-        per_step.update({name: 8 if backbone == "DiT" else 13 for name in INT8_KERNELS})
+        per_step.update(_int8_step(backbone))
     expect = {k: v * nfe for k, v in per_step.items()}
 
     def noise(seed):
@@ -885,6 +889,20 @@ def _graph_replay_case(dev, backbone: str, quantization: str):
 # ---------------------------------------------------------------------------
 
 INT8_KERNELS = ("quantize_rows", "int8_mm", "dequant_bias")
+
+
+def _int8_step(backbone: str) -> dict:
+    """A depth-2 int8 step's launches beside bf16's attention and conv
+    position: the product and K13 a projection; K1Q / K6Q for each norm of a
+    block (the final norm stays K1 / K6); the GELU mode before each ff.out
+    and the plain K12 before each to_out (the MMDiT: one block and its
+    context_pre_only last block)."""
+    if backbone == "MMDiT":
+        return {"int8_mm": 13, "dequant_bias": 13, "adaln_norm": 1, "adaln_norm_quant": 7,
+                "gelu_quantize_rows": 3, "quantize_rows": 3}
+    norm = "rms_norm" if backbone == "UNetT" else "adaln_norm"
+    return {"int8_mm": 8, "dequant_bias": 8, norm: 1, f"{norm}_quant": 4,
+            "gelu_quantize_rows": 2, "quantize_rows": 2}
 
 
 @pytest.mark.parametrize("m", [17, 37, 2048])
@@ -918,6 +936,81 @@ def test_quantize_rows_kernel_strided_rows(dev):
     assert torch.equal(codes, ref_c) and torch.equal(scale, ref_s)
     with pytest.raises(TypeError):
         quantize_rows(o.float())
+
+
+# K1Q / K6Q's (b, n, d): the main paths' rows, and b = 3 at n = 1 and 37
+# over the lane layouts (d = 64: 8 lanes and 4 rows a thread; 4096: the
+# epilogue's columns read at use)
+FUSED_NORM_SHAPES = [(2, 1024, 1024), (2, 256, 1024), (2, 100, 768)] + [
+    (3, n, d) for n in (1, 37) for d in (64, 1024, 4096)]
+
+
+@pytest.mark.parametrize("b,n,d", FUSED_NORM_SHAPES)
+@pytest.mark.parametrize("mode", ["adaln", "rms"])
+def test_fused_norm_quant_kernels_bit_equal(dev, mode, b, n, d):
+    """K1Q and K6Q (the row engine's quantize stage) equal K1 -> K12 and K6
+    -> K12 on the card bit for bit, one launch each; an all-zero row (in
+    K1Q a batch whose shift is 0) gets scale 1 and codes 0."""
+    from f5tts_tpu_torch.ops.adaln_norm import adaln_norm_quant, rms_norm_quant
+    from f5tts_tpu_torch.ops.quant import quantize_rows
+
+    rng = np.random.default_rng(b * n + d)
+    x = _bf16(rng, (b, n, d), dev, scale=2.0)
+    x[0, n // 2] = 0
+    if mode == "adaln":
+        mods = _bf16(rng, (b, 6 * d), dev, scale=0.2)
+        mods[0, :d] = 0
+        shift, scale = mods[:, :d], mods[:, d:2 * d]
+        _build.reset_launches()
+        codes, sc = adaln_norm_quant(x, scale, shift)
+        assert _build.launches() == {"adaln_norm_quant": 1}
+        want_c, want_s = quantize_rows(adaln_norm(x, scale, shift))
+    else:
+        w = _bf16(rng, (d,), dev, scale=0.1) + 1
+        _build.reset_launches()
+        codes, sc = rms_norm_quant(x, w, 1e-8)
+        assert _build.launches() == {"rms_norm_quant": 1}
+        want_c, want_s = quantize_rows(rms_norm(x, w, 1e-8))
+    assert codes.shape == x.shape and sc.shape == (b, n, 1)
+    assert torch.equal(codes, want_c) and torch.equal(sc, want_s)
+    assert not codes[0, n // 2].any() and float(sc[0, n // 2]) == 1.0
+
+
+def test_rms_norm_quant_kernel_strided_head_view(dev):
+    """K6Q reads a head view of a fused projection in place (three leading
+    strides), as K6 does, and writes contiguous codes."""
+    from f5tts_tpu_torch.ops.adaln_norm import rms_norm_quant
+    from f5tts_tpu_torch.ops.quant import quantize_rows
+
+    qkv = _bf16(np.random.default_rng(4), (2, 77, 3 * 4 * 64), dev)
+    view = qkv[..., 256:512].view(2, 77, 4, 64).transpose(1, 2)
+    w = torch.ones(64, device=dev)
+    codes, sc = rms_norm_quant(view, w)
+    want_c, want_s = quantize_rows(rms_norm(view, w))
+    assert codes.is_contiguous() and torch.equal(codes, want_c) and torch.equal(sc, want_s)
+
+
+@pytest.mark.parametrize("m", [17, 37, 2048])
+@pytest.mark.parametrize("k", [8, 1024, 2048, 4096])
+def test_gelu_quantize_rows_kernel(dev, m, k):
+    """K12's GELU mode against F.gelu(x, "tanh") + K12 on the card: bit-equal,
+    or codes within 1 at no more than 0.1% of the entries and scales within
+    2 f32 ulp (the card's tanhf may round apart from PyTorch's build); an
+    all-zero row gets scale 1 and codes 0; one launch."""
+    from f5tts_tpu_torch.ops.quant import gelu_quantize_rows, quantize_rows
+
+    rng = np.random.default_rng(m * k)
+    x = _bf16(rng, (m, k), dev, scale=2.0)
+    x[m // 2] = 0
+    _build.reset_launches()
+    codes, sc = gelu_quantize_rows(x)
+    assert _build.launches() == {"gelu_quantize_rows": 1}
+    want_c, want_s = quantize_rows(torch.nn.functional.gelu(x, approximate="tanh"))
+    dc = (codes.int() - want_c.int()).abs()
+    assert int(dc.max()) <= 1 and int((dc > 0).sum()) <= 1e-3 * dc.numel()
+    ulp = torch.nextafter(want_s, want_s + 1) - want_s
+    assert bool(((sc - want_s).abs() <= 2 * ulp).all())
+    assert not codes[m // 2].any() and float(sc[m // 2]) == 1.0
 
 
 @pytest.mark.parametrize("m", [17, 37, 2048])
@@ -988,11 +1081,9 @@ def test_tiny_int8_backbones_through_the_kernels(dev, backbone):
     text = torch.from_numpy(rng.integers(0, 32, (1, 40)).astype(np.int32))
     lens = torch.tensor([201], dtype=torch.int32)
     t = torch.tensor([0.4])
-    want = {"DiT": {"fused_qkv_rope_attention": 2, "adaln_norm": 5},
-            "UNetT": {"fused_qkv_rope_attention": 2, "rms_norm": 5},
-            "MMDiT": {"fused_qkv_rope_attention_bias": 2, "adaln_norm": 8}}[backbone]
-    want.update(conv_pos_embedding=2, **{name: 13 if backbone == "MMDiT" else 8
-                                         for name in INT8_KERNELS})
+    want = {"DiT": {"fused_qkv_rope_attention": 2}, "UNetT": {"fused_qkv_rope_attention": 2},
+            "MMDiT": {"fused_qkv_rope_attention_bias": 2}}[backbone]
+    want.update(conv_pos_embedding=2, **_int8_step(backbone))
     outs = {}
     for where, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
         _build.reset_launches()

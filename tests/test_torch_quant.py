@@ -20,6 +20,22 @@ Tolerances:
   half of int8's own drift from the f32 forward (4.5e-3 to 1.2e-2,
   asserted too); a 2-NFE CFG generate compounds the flips over its steps:
   mel and wav rel-L2 <= 1.5e-2 (measured 5.3e-3 / 8.4e-3).
+- the fused quantizes' plain versions (`adaln_norm_quant_ref`,
+  `rms_norm_quant_ref`, `gelu_quantize_rows_ref`) against the JAX chains
+  (`adaln_norm_ref` / `rms_norm_ref` / `jax.nn.gelu(approximate=True)`, then
+  `quantize_rows`): the JAX norm's or GELU's output fed to both quantizes
+  gives bit-equal codes and scales; where the two norms' or GELUs' outputs
+  are bit-equal (both norms in bf16), so are the chains'. Where they are
+  not (the norms in f32 agree to sum order, ~1e-6; XLA rounds a bf16 GELU
+  at other points than PyTorch's f32 formula), a code moves by at most 1
+  and only where its value or its row's scale differs, and a scale by at
+  most its row's largest difference / 127 plus an ulp. Measured at [2, 33,
+  256]: no code moved in f32 (26-33% of the values differ); the bf16 GELU
+  moved 294 of 16,896 codes (6,644 values differ by a bf16 ulp);
+- the int8 forwards with the fused modes against the same forwards with
+  them switched off (each norm writing bf16 rows, `quantize_rows` before
+  each projection): bit-identical, as the plain versions are those
+  compositions.
 Tiny dims (dim 128, depth 2, 2 x 64 heads), as the other port tests.
 """
 
@@ -36,6 +52,7 @@ from f5tts_tpu.models import dit as jdit
 from f5tts_tpu.models import mmdit as jmmdit
 from f5tts_tpu.models import modules as jm
 from f5tts_tpu.models import unett as junett
+from f5tts_tpu.ops import adaln_norm as jan
 from f5tts_tpu.ops import quant as jq
 from f5tts_tpu.ops import rope as jrope
 from f5tts_tpu_torch.config import ModelArch as TArch
@@ -44,6 +61,7 @@ from f5tts_tpu_torch.models import dit as tdit
 from f5tts_tpu_torch.models import mmdit as tmmdit
 from f5tts_tpu_torch.models import modules as tm
 from f5tts_tpu_torch.models import unett as tunett
+from f5tts_tpu_torch.ops import adaln_norm as tan
 from f5tts_tpu_torch.ops import quant as tq
 from f5tts_tpu_torch.ops import rope as trope
 from tests.test_torch_dit import SMALL, _live, _np, _t, jx, np_params, small_dit
@@ -225,12 +243,17 @@ def test_quantize_dit_params_bit_equal(backbone, smooth):
                                             ("MMDiT", False)])
 def test_int8_forward_matches_jax(backbone, fused, monkeypatch):
     """cfg_infer with ragged lengths. Every int8 projection of the port's
-    forward equals the JAX `int8_linear` on the input it was given (rtol
-    1e-6; the MMDiT's to_out_c on its strided text rows); the forward's
-    output against the JAX forward (`xla`, f32) on the JAX-quantized params:
-    rel-L2 <= FWD_REL_L2, and under half the int8-against-f32 drift. The
-    unfused MMDiT takes the head layout (the JAX one reads `w_i8` for the
-    head width there)."""
+    forward equals the JAX `int8_linear` on the input it was given, or
+    `int8_linear_pre` on the codes and scales a fused norm or the GELU mode
+    gave it (rtol 1e-6; the MMDiT's to_out_c on its strided text rows). The
+    per-projection check runs twice: with the fused modes, and with them
+    switched off, where every projection gets bf16 rows and so holds the
+    port's quantize against JAX `int8_linear`'s own (the two forwards are
+    bit-identical, `test_int8_forward_fused_modes_bit_identical`). The
+    forward's output against the JAX forward (`xla`, f32) on the
+    JAX-quantized params: rel-L2 <= FWD_REL_L2, and under half the
+    int8-against-f32 drift. The unfused MMDiT takes the head layout (the
+    JAX one reads `w_i8` for the head width there)."""
     _, jfwd, tfwd, tstat, jstat, n = BACKBONES[backbone]
     jarch, tarch, jp, tp = _quantized_pair(backbone, fused=fused)
     calls = []
@@ -242,6 +265,7 @@ def test_int8_forward_matches_jax(backbone, fused, monkeypatch):
         return y
 
     monkeypatch.setattr(tm, "int8_linear", recorded)
+    real_takes = tm.takes_quantized
     rng = np.random.default_rng(8)
     b = 2
     x = rng.standard_normal((b, n, 100)).astype(np.float32)
@@ -254,16 +278,28 @@ def test_int8_forward_matches_jax(backbone, fused, monkeypatch):
     fwd = jax.jit(functools.partial(jfwd, statics=jstat(jarch), cfg_infer=True, backend="xla"))
     want = np.asarray(fwd(jp, x=jnp.asarray(x), cond=jnp.asarray(cond), text=jnp.asarray(text),
                           time=jnp.asarray(time), lengths=jnp.asarray(lens)))
-    got = _np(tfwd(tp, tstat(tarch), _t(x), _t(cond), _t(text), _t(time), lengths=_t(lens),
-                   cfg_infer=True))
-    # four projections a block; the MMDiT's eight, five in its last block
-    # (unfused: twelve and nine)
-    assert len(calls) == {"DiT": 8, "UNetT": 8, "MMDiT": 13 if fused else 21}[backbone]
-    for p, xin, y in calls:
-        leaf = {k: jnp.asarray(_np(v.t() if k == "w_i8" else v)) for k, v in p.items()}
-        ref = np.asarray(jq.int8_linear(leaf, jnp.asarray(_np(xin))))
-        np.testing.assert_allclose(_np(y), ref, rtol=1e-6, atol=1e-6 * np.abs(ref).max())
+    for handed in (True, False):
+        monkeypatch.setattr(tm, "takes_quantized",
+                            real_takes if handed else lambda *leaves: False)
+        calls.clear()
+        out = _np(tfwd(tp, tstat(tarch), _t(x), _t(cond), _t(text), _t(time),
+                       lengths=_t(lens), cfg_infer=True))
+        if handed:
+            got = out
+        # four projections a block; the MMDiT's eight, five in its last block
+        # (unfused: twelve and nine)
+        assert len(calls) == {"DiT": 8, "UNetT": 8, "MMDiT": 13 if fused else 21}[backbone]
+        assert any(isinstance(xin, tq.QuantRows) for _, xin, _ in calls) == handed
+        for p, xin, y in calls:
+            leaf = {k: jnp.asarray(_np(v.t() if k == "w_i8" else v)) for k, v in p.items()}
+            if isinstance(xin, tq.QuantRows):  # the rows of a fused norm or the GELU mode
+                ref = np.asarray(jq.int8_linear_pre(leaf, jnp.asarray(_np(xin.codes)),
+                                                    jnp.asarray(_np(xin.scale)), jnp.float32))
+            else:
+                ref = np.asarray(jq.int8_linear(leaf, jnp.asarray(_np(xin))))
+            np.testing.assert_allclose(_np(y), ref, rtol=1e-6, atol=1e-6 * np.abs(ref).max())
     monkeypatch.setattr(tm, "int8_linear", real)
+    monkeypatch.setattr(tm, "takes_quantized", real_takes)
     _, _, _, tf = BACKBONES[backbone][0](seed=5)
     f32 = _np(tfwd(tf, tstat(tarch), _t(x), _t(cond), _t(text), _t(time), lengths=_t(lens),
                    cfg_infer=True))
@@ -276,24 +312,196 @@ def test_int8_forward_matches_jax(backbone, fused, monkeypatch):
 
 def test_self_attention_unfused_int8_quantizes_once(monkeypatch):
     """Unfused int8 q / k / v share one row quantize (the JAX package's
-    `self_attention`), to_out its own; the output as the JAX one's."""
+    `self_attention`): the rows a block's norm hands over quantized
+    (`QuantRows`) reach all three, and to_out quantizes its own input once;
+    the output as the JAX one's on the unquantized input."""
     tree = np_params(lambda: jm.init_attention(jax.random.PRNGKey(0), 128, 2, 64), 6)
     jp = jq.quantize_dit_params({"blocks": {"attn": jx(tree)}})["blocks"]["attn"]
     tp = tq.quantize_dit_params({"blocks": [{"attn": tm.tree_map(_t, tree)}]})["blocks"][0]["attn"]
-    calls = []
-    real = tm.quantize_rows
-    monkeypatch.setattr(tm, "quantize_rows", lambda x: calls.append(1) or real(x))
+    assert tm.takes_quantized(*tm.attention_inputs(tp))
     rng = np.random.default_rng(6)
     n = 128
     x = rng.standard_normal((2, n, 128)).astype(np.float32)
+    rows = tm.QuantRows(*tq.quantize_rows(_t(x)), torch.float32)
+    calls, inputs = [], []
+    real, real_linear = tq.quantize_rows, tm.int8_linear
+    monkeypatch.setattr(tq, "quantize_rows", lambda x: calls.append(1) or real(x))
+    monkeypatch.setattr(tm, "int8_linear", lambda p, x: inputs.append(x) or real_linear(p, x))
     lens = np.array([n, 77], np.int32)
     want = np.asarray(jm.self_attention(jp, jnp.asarray(x), 2, jrope.rope_freqs_interleaved(64, n),
                                         jnp.asarray(lens), backend="xla"))
     tang = trope.rope_freqs_interleaved(64, n)
     tabs = trope.rope_flat_tables(tang, n, 2, None, dtype=torch.float32)
-    got = _np(tm.self_attention(tp, _t(x), 2, tabs, _t(lens), tang))
-    assert calls == [1]
+    got = _np(tm.self_attention(tp, rows, 2, tabs, _t(lens), tang))
+    assert calls == [1] and len(inputs) == 4 and all(r is rows for r in inputs[:3])
     np.testing.assert_allclose(_live(got, lens), _live(want, lens), atol=FWD_TOL, rtol=FWD_TOL)
+
+
+# ---------------------------------------------------------------------------
+# K12's fused modes: K1Q, K6Q and the GELU mode (their plain versions here)
+# ---------------------------------------------------------------------------
+
+TIES = np.resize(np.arange(-60, 60) + 0.5, 256)  # .5 steps of a row whose scale is 1
+GELU_TIES = np.resize(np.arange(10, 70) + 0.5, 256)  # GELU(x) = x exactly for x >= 10
+
+
+def _fused_case(mode: str, dtype: str):
+    """(the JAX chain's rows before the quantize, its codes and scales, the
+    port's plain version's codes and scales, the port's rows before the
+    quantize) for x [2, 33, 256] from a seed. Row (0, 5) comes out all
+    zero; row (1, 7) exactly on .5 steps with scale 1: for the AdaLN a
+    constant x row is its batch's shift, for the RMSNorm a row of 1024s
+    (mean square 2^20, eps lost to rounding) is the weight, GELU(x) = x
+    for x >= 10."""
+    rng = np.random.default_rng({"adaln": 20, "rms": 21, "gelu": 22}[mode])
+    d = 256
+    x = (rng.standard_normal((2, 33, d)) * 2 + 0.3).astype(np.float32)
+    x[0, 5] = 0.0
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    if mode == "adaln":
+        mods = (0.2 * rng.standard_normal((2, 6 * d))).astype(np.float32)
+        mods[0, :d] = 0.0  # batch 0's shift: its zero row stays zero
+        mods[1, :d] = TIES
+        mods[1, 0] = 127.0
+        x[1, 7] = 0.0
+        shift, scale = mods[:, :d], mods[:, d:2 * d]
+        xj, scj, shj = (jnp.asarray(a).astype(jdt) for a in (x, scale, shift))
+        yj = jan.adaln_norm_ref(xj, scj, shj)
+        xt, sct, sht = (_t(a).to(tdt) for a in (x, scale, shift))
+        yt = tan.adaln_norm_ref(xt, sct, sht)
+        ct, st = tan.adaln_norm_quant(xt, sct, sht)
+    elif mode == "rms":
+        w = TIES.astype(np.float32).copy()
+        w[0] = 127.0
+        x[1, 7] = 1024.0
+        xj = jnp.asarray(x).astype(jdt)
+        yj = jan.rms_norm_ref(xj, jnp.asarray(w))
+        xt = _t(x).to(tdt)
+        yt = tan.rms_norm_ref(xt, _t(w))
+        ct, st = tan.rms_norm_quant(xt, _t(w))
+    else:
+        x[1, 7] = GELU_TIES
+        x[1, 7, 0] = 127.0
+        xj = jnp.asarray(x).astype(jdt)
+        yj = jax.nn.gelu(xj, approximate=True)
+        xt = _t(x).to(tdt)
+        yt = torch.nn.functional.gelu(xt, approximate="tanh")
+        ct, st = tq.gelu_quantize_rows(xt)
+    cj, sj = jq.quantize_rows(yj)
+    return yj, np.asarray(cj), np.asarray(sj), _np(ct), _np(st), yt
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["adaln", "rms", "gelu"])
+def test_fused_quantize_plain_matches_jax(mode, dtype):
+    """The plain versions of K1Q, K6Q and the GELU mode against the JAX
+    chains (the module docstring's tolerances)."""
+    yj, cj, sj, ct, st, yt = _fused_case(mode, dtype)
+    assert ct.dtype == np.int8 and st.dtype == np.float32 and st.shape == (2, 33, 1)
+    # the JAX rows through both quantizes: bit-equal
+    qc, qs = tq.quantize_rows(_t(np.asarray(yj.astype(jnp.float32))).to(getattr(torch, dtype)))
+    np.testing.assert_array_equal(_np(qc), cj)
+    np.testing.assert_array_equal(_np(qs), sj)
+    # the all-zero row and the row of .5 steps, exactly
+    for c, sc in ((ct, st), (cj, sj)):
+        assert not c[0, 5].any() and sc[0, 5, 0] == 1.0
+        assert sc[1, 7, 0] == 1.0
+        np.testing.assert_array_equal(c[1, 7, 1:], np.round(np.asarray(
+            (TIES if mode != "gelu" else GELU_TIES)[1:])).astype(np.int8))
+    yjf = np.asarray(yj.astype(jnp.float32))
+    ytf = _np(yt.float())
+    if np.array_equal(ytf, yjf):
+        np.testing.assert_array_equal(ct, cj)
+        np.testing.assert_array_equal(st, sj)
+        return
+    diff = np.abs(ytf - yjf).max(axis=-1, keepdims=True)
+    moved = ct.astype(np.int32) != cj.astype(np.int32)
+    print(f"{mode} {dtype}: {int((ytf != yjf).sum())} of {ytf.size} rows' values and "
+          f"{int((st != sj).sum())} of {st.size} scales differ, {int(moved.sum())} codes moved")
+    assert np.abs(ct.astype(np.int32) - cj.astype(np.int32)).max() <= 1
+    # a code moves only where its value or its row's scale differs
+    assert not (moved & (ytf == yjf) & (st == sj)).any()
+    assert (np.abs(st - sj) <= diff / 127 * (1 + 1e-6) + np.spacing(sj)).all()
+
+
+def _forward_case(backbone: str, smooth: bool = False, dtype=torch.float32):
+    """The backbone's int8 cfg_infer forward (port only) on seeded inputs."""
+    _, _, tfwd, tstat, _, n = BACKBONES[backbone]
+    _, tarch, _, tp = _quantized_pair(backbone, smooth)
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, n, 100)).astype(np.float32)
+    cond = rng.standard_normal((2, n, 100)).astype(np.float32)
+    text = rng.integers(0, 32, (2, 64)).astype(np.int32)
+    text[0, 50:] = -1
+    lens = np.array([n, 141], np.int32)
+    return lambda: tfwd(tm.tree_cast(tp, dtype), tstat(tarch), _t(x), _t(cond), _t(text),
+                        _t(np.array([0.3, 0.7], np.float32)), lengths=_t(lens), cfg_infer=True,
+                        dtype=dtype)
+
+
+FUSED = ("adaln_norm_quant", "rms_norm_quant", "gelu_quantize_rows")
+
+
+def _count_fused(monkeypatch) -> dict:
+    """Counts the calls `modules` makes to each fused quantize."""
+    calls = {name: 0 for name in FUSED}
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return call
+
+    for name in FUSED:
+        monkeypatch.setattr(tm, name, counted(name, getattr(tm, name)))
+    return calls
+
+
+@pytest.mark.parametrize("backbone,dtype", [("DiT", torch.float32), ("DiT", torch.bfloat16),
+                                            ("UNetT", torch.float32), ("MMDiT", torch.float32)])
+def test_int8_forward_fused_modes_bit_identical(backbone, dtype, monkeypatch):
+    """The rewired int8 forward (the norms before to_qkv and ff.in write
+    quantized rows, ff.out's input from the GELU mode) equals, bit for bit,
+    the same forward with every fused mode switched off (bf16 rows, then
+    `quantize_rows` before each projection: the path before the fused
+    modes), on the CPU where each mode runs its plain version."""
+    forward = _forward_case(backbone, dtype=dtype)
+    calls = _count_fused(monkeypatch)
+    fused = forward()
+    norm = "rms_norm_quant" if backbone == "UNetT" else "adaln_norm_quant"
+    # two norms a block, the MMDiT four (three in its last block); one GELU
+    # mode a feed-forward
+    want = {"DiT": (4, 2), "UNetT": (4, 2), "MMDiT": (7, 3)}[backbone]
+    assert (calls[norm], calls["gelu_quantize_rows"]) == want, calls
+    monkeypatch.setattr(tm, "takes_quantized", lambda *leaves: False)
+    assert torch.equal(fused, forward())
+
+
+def test_quantized_rows_dispatch(monkeypatch):
+    """The fused norms run only where every reader of the rows is an int8
+    leaf without the hedge: with smooth=True the norms write bf16 rows (the
+    hedged to_qkv and ff.in quantize their masked rows themselves) while
+    ff.out, which has no hedge, still takes the GELU mode; bf16 params run
+    none of them. Pre-quantized rows handed to a hedged leaf or a bf16 leaf
+    raise."""
+    calls = _count_fused(monkeypatch)
+    _forward_case("DiT", smooth=True)()
+    assert calls == {"adaln_norm_quant": 0, "rms_norm_quant": 0, "gelu_quantize_rows": 2}
+    calls.update({name: 0 for name in FUSED})
+    _, tarch, _, tp = small_dit(seed=5)
+    rng = np.random.default_rng(1)
+    x = _t(rng.standard_normal((1, 64, 100)).astype(np.float32))
+    tdit.dit_forward(tp, tdit.DiTStatics(tarch), x, x, _t(np.zeros((1, 8), np.int32)),
+                     _t(np.array([0.5], np.float32)))
+    assert calls == {name: 0 for name in FUSED}
+    _, _, _, hedged = _quantized_pair("DiT", smooth=True)
+    rows = tm.QuantRows(*tq.quantize_rows(_t(rng.standard_normal((1, 4, 128)).astype(
+        np.float32))), torch.float32)
+    with pytest.raises(ValueError, match="outlier hedge"):
+        tm.linear(hedged["blocks"][0]["attn"]["to_qkv"], rows)
+    with pytest.raises(TypeError, match="int8 leaf"):
+        tm.linear(tp["blocks"][0]["attn"]["to_qkv"], rows)
+    assert tm.linear(hedged["blocks"][0]["attn"]["to_out"], rows).shape == (1, 4, 128)
 
 
 @pytest.fixture(scope="module")
