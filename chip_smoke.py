@@ -139,11 +139,27 @@ Phases (any failure raises, and the script exits non-zero):
     and MMDiT_Base (K1Q 87*16, K1 16, the plain K12 and the GELU mode
     43*16, the product and K13 173*16), and both graphed against eager at
     the cap.
+18. The sampler's options, speech editing and BigVGAN: F5TTS_v1_Base at
+    the 1024 bucket, cfm_sample(method="midpoint") over 8 steps eagerly (16
+    passes: K3 / K1 / K2 352 / 720 / 32, the prompt rows equal cond
+    exactly); at depth 2 card bf16 against CPU f32 (mel rel-L2 <= 3e-2,
+    launches exact) for the midpoint, an edit_mask with two regenerated
+    spans inside the prompt (kept frames exact), no_ref_audio and a
+    duplicate_test_start restart at t_inter 0.1; edit_speech on an 8 s
+    reference with two spans and new lengths at 32 NFE (K3 / K1 / K2 704 /
+    1440 / 64), then its cond and mask through cfm_sample directly (kept
+    frames exactly the spliced original, regenerated ones finite and not
+    all zero); the full-size BigVGAN (v2 24 kHz 100-band, f32, TF32 off)
+    card against CPU on a 128-frame mel (wav rel-L2 <= 1e-3), its decode
+    time at 1024 and 4096 frames beside Vocos'; InferencePipeline.infer at
+    F5TTS_v1_Base with the bigvgan mel + BigVGAN at the 1024 bucket (phase
+    3's checks), its graphed generate against the eager one (phase 16's)
+    and a replay's device ms, and ref_mel's len // 256 frames.
 
 Prints the `kernels` JSON line (launches: what the card ran on the
-inference and training paths of phases 3, 5, 7, 8, 10, 11, 13, 14 and 17,
-each graph replay counted with its capture's counts), the card's name and
-power limit,
+inference and training paths of phases 3, 5, 7, 8, 10, 11, 13, 14, 17 and
+18, each graph replay counted with its capture's counts), the card's name
+and power limit,
 and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the repo's
 f5tts_tpu_torch package beside this file; imports nothing of JAX.
@@ -1070,8 +1086,9 @@ def phase_kernels(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 def make_pipeline(dev, backbone: str, arch, params, vocos_params, **kw):
-    """An InferencePipeline on the card; `kw` overrides the char tokenizer
-    (with `scripts.common.VOCAB`) and any other field."""
+    """An InferencePipeline on the card with Vocos; `kw` overrides the char
+    tokenizer (with `scripts.common.VOCAB`), the vocoder and any other
+    field."""
     import torch
     from f5tts_tpu_torch.config import SamplingConfig
     from f5tts_tpu_torch.infer.pipeline import InferencePipeline
@@ -1080,8 +1097,8 @@ def make_pipeline(dev, backbone: str, arch, params, vocos_params, **kw):
     from f5tts_tpu_torch.vocoder.vocos import Vocos, VocosConfig
 
     kw = {"vocab_char_map": VOCAB, "tokenizer": "char", **kw}
-    return InferencePipeline(params, BACKBONES[backbone].statics_cls(arch),
-                             Vocos(vocos_params, VocosConfig(), device=dev),
+    vocoder = kw.pop("vocoder", None) or Vocos(vocos_params, VocosConfig(), device=dev)
+    return InferencePipeline(params, BACKBONES[backbone].statics_cls(arch), vocoder,
                              sampling=SamplingConfig(nfe_steps=NFE), dtype=torch.bfloat16,
                              device=dev, backbone=backbone, **kw)
 
@@ -1267,11 +1284,15 @@ def cut_to_depth_2(backbone: str, params: dict) -> dict:
 
 
 def phase_card_vs_cpu(dev, arch, params, vocos_params, backbone: str = "DiT",
-                      expect=None, quantization: str = "none") -> tuple:
-    """`expect`: the launches of one step of the card's depth-2 sampler.
-    With `quantization="int8"` each side quantizes its cast params, as the
-    pipeline does (the CPU's int8 path in f32: the plain versions). Returns
-    (the mel rel-L2, the card's mel over the generated frames)."""
+                      expect=None, quantization: str = "none", option=None) -> tuple:
+    """`expect`: the launches of one backbone pass of the card's depth-2
+    sampler. With `quantization="int8"` each side quantizes its cast params,
+    as the pipeline does (the CPU's int8 path in f32: the plain versions).
+    `option` one of SAMPLER_OPTIONS: "midpoint" (two passes a step),
+    "edit_mask" (two regenerated spans inside the prompt), "no_ref_audio",
+    "restart" (`duplicate_test_start` from the reference mel at t_inter
+    0.1: 3 of 4 steps). Returns (the mel rel-L2, the card's mel over the
+    generated frames)."""
     import torch
     from f5tts_tpu_torch.models import cfm
     from f5tts_tpu_torch.models.modules import fuse_backbone_qkv, tree_cast
@@ -1296,6 +1317,18 @@ def phase_card_vs_cpu(dev, arch, params, vocos_params, backbone: str = "DiT",
     y0 = torch.from_numpy(rng.standard_normal((1, n, 100)).astype(np.float32))
     y0[:, total:] = 0
     grid = make_time_grid(nfe, sway_sampling_coef=-1.0)
+    kw, keep = {}, torch.arange(n)[None, :] < prompt
+    if option == "midpoint":
+        kw["method"] = "midpoint"
+    elif option == "edit_mask":
+        edit = torch.ones(1, n, dtype=torch.bool)
+        edit[:, 40:90] = edit[:, 150:200] = False
+        kw["edit_mask"], keep = edit, keep & edit
+    elif option == "no_ref_audio":
+        kw["no_ref_audio"] = True
+    elif option == "restart":
+        y0, grid, _ = cfm.duplicate_test_start(ref_mel, n, prompt, dur, nfe, 0.1, -1.0, noise=y0)
+    passes = (grid.shape[0] - 1) * (2 if option == "midpoint" else 1)
 
     mels, waves = {}, {}
     for where, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
@@ -1307,25 +1340,35 @@ def phase_card_vs_cpu(dev, arch, params, vocos_params, backbone: str = "DiT",
         _build.reset_launches()
         mel = cfm.cfm_sample(pw, statics, cond.to(where), text.to(where), lens.to(where),
                              dur.to(where), grid.to(where), y0=y0.to(where), cfg_strength=2.0,
-                             dtype=dtype, backbone=bdef)
+                             dtype=dtype, backbone=bdef,
+                             **{k: v.to(where) if torch.is_tensor(v) else v
+                                for k, v in kw.items()})
         if where.type == "cuda" and expect is not None:
             torch.cuda.synchronize()
-            if _build.launches() != {k: v * nfe for k, v in expect.items()}:
+            if _build.launches() != {k: v * passes for k, v in expect.items()}:
                 raise AssertionError(f"{backbone} depth-2 sampler launches {_build.launches()}, "
-                                     f"expected {expect} a step")
+                                     f"expected {expect} a pass, {passes} passes")
         wav = Vocos(vocos_params, VocosConfig(), device=where)(mel.transpose(1, 2))
         mels[where.type], waves[where.type] = mel.float().cpu(), wav.float().cpu()
-        log(f"  {backbone} {where.type} {str(dtype)[6:]}{' int8' if quantization == 'int8' else ''}:"
-            f" depth 2, {nfe} NFE, n {n}: {time.perf_counter() - t0:.2f} s")
-    a, b = mels["cuda"][:, prompt:total], mels["cpu"][:, prompt:total]
+        log(f"  {backbone} {where.type} {str(dtype)[6:]}{' int8' if quantization == 'int8' else ''}"
+            f"{' ' + option if option else ''}: depth 2, {passes} passes, n {n}: "
+            f"{time.perf_counter() - t0:.2f} s")
+    if option == "edit_mask":  # the regenerated frames: the holes and prompt..total
+        regen = ~keep[0] & (torch.arange(n) < total)
+        a, b = mels["cuda"][:, regen], mels["cpu"][:, regen]
+        if not (torch.equal(mels["cuda"][:, keep[0]], cond[:, keep[0]])
+                and torch.equal(mels["cpu"][:, keep[0]], cond[:, keep[0]])):
+            raise AssertionError("edit_mask: a kept frame is not the cond frame")
+    else:
+        a, b = mels["cuda"][:, prompt:total], mels["cpu"][:, prompt:total]
     rel = float((a - b).norm() / b.norm())
     wa, wb = waves["cuda"], waves["cpu"]
     wrel = float((wa - wb).norm() / wb.norm())
     what = "int8 " if quantization == "int8" else ""
-    log(f"  {backbone} card {what}bf16 vs cpu {what}f32: mel rel-L2 {rel:.4e} (tol 3e-2), "
-        f"wav rel-L2 {wrel:.4e}")
+    log(f"  {backbone}{' ' + option if option else ''} card {what}bf16 vs cpu {what}f32: mel "
+        f"rel-L2 {rel:.4e} (tol 3e-2), wav rel-L2 {wrel:.4e}")
     if not (np.isfinite(rel) and rel <= 3e-2):
-        raise AssertionError(f"{backbone} card vs cpu mel rel-L2 {rel} > 3e-2")
+        raise AssertionError(f"{backbone} {option or ''} card vs cpu mel rel-L2 {rel} > 3e-2")
     return rel, a
 
 
@@ -1857,6 +1900,198 @@ def phase_int8(dev, gpu: str, bf16_drift: tuple) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 18
+# ---------------------------------------------------------------------------
+
+SAMPLER_OPTIONS = ("midpoint", "edit_mask", "no_ref_audio", "restart")
+MIDPOINT_STEPS = 8          # 16 backbone passes, a 16-NFE Euler generate's launches
+EDIT_SECONDS = 8.0          # the reference to edit
+EDIT_SPANS = ((1.0, 1.8), (4.0, 5.2))
+EDIT_FIX = (1.2, 0.8)       # the spans' new lengths, s
+EDIT_NFE = 32               # the pipeline's default
+BIGVGAN_CHECK_FRAMES = 128  # card against the CPU
+BIGVGAN_TIME_FRAMES = (1024, 4096)
+BIGVGAN_FLOP_A_FRAME = 1.75e9  # the AMP convolutions of the six stages, from the config
+BIGVGAN_REL_TOL = 1e-3
+
+
+def midpoint_full_width(pipe, arch, gpu: str) -> dict:
+    """F5TTS_v1_Base at the 1024 bucket: cfm_sample(method="midpoint") over
+    MIDPOINT_STEPS steps, eagerly, the counts set to 0 just before and read
+    just after; the prompt rows equal cond exactly."""
+    import torch
+    from f5tts_tpu_torch.models import cfm
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.scripts.common import REF_TEXT, REQUESTS, synthetic_ref_wav
+
+    req = pipe.prepare_chunk(synthetic_ref_wav(), REF_TEXT + " ", REQUESTS[0], seed=0,
+                             nfe_step=MIDPOINT_STEPS, cfg_strength=2.0,
+                             sway_sampling_coef=-1.0, fix_duration=1014.5 * pipe.hop / pipe.sr)
+    expect = generate_launches("DiT", arch)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    mel = cfm.cfm_sample(pipe.params, pipe.statics, req["cond"], req["text"], req["lens"],
+                         req["duration"], req["t_grid"], y0=req["y0"], cfg_strength=2.0,
+                         dtype=pipe.dtype, backbone=pipe.bdef, method="midpoint")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ran = _build.launches()
+    p = req["ref_frames"]
+    log(f"  midpoint, {MIDPOINT_STEPS} steps at {tuple(req['cond'].shape[:2])}: eager wall "
+        f"{wall:.4f} s, launches {ran} [{gpu}]")
+    if ran != expect:
+        raise AssertionError(f"midpoint launches {ran}, expected {expect}")
+    if not (torch.isfinite(mel).all() and torch.equal(mel[0, :p], req["cond"][0, :p])):
+        raise AssertionError("midpoint: the mel is not finite or a prompt row is not cond")
+    return ran
+
+
+def speech_edit_full_width(pipe, arch, gpu: str) -> dict:
+    """`edit_speech` on an EDIT_SECONDS reference, two spans with new
+    lengths, EDIT_NFE NFE (the counts set to 0 just before and read just
+    after); then its cond and mask through cfm_sample directly: every kept
+    frame the spliced original exactly, the regenerated ones finite and
+    not all zero."""
+    import torch
+    from f5tts_tpu_torch.infer.speech_edit import edit_speech, prepare_edit
+    from f5tts_tpu_torch.models import cfm
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.scripts.common import REQUESTS, synthetic_ref_wav
+
+    ref = synthetic_ref_wav(EDIT_SECONDS)
+    args = (pipe, ref, 24000, REQUESTS[0], EDIT_SPANS, EDIT_FIX)
+    expect = {k: v * EDIT_NFE // NFE for k, v in generate_launches("DiT", arch).items()}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    wave, sr = edit_speech(*args, seed=0, nfe_step=EDIT_NFE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ran = _build.launches()
+    req = prepare_edit(*args, seed=0, nfe_step=EDIT_NFE)
+    total = req.pop("total")
+    req.pop("rms")
+    log(f"  edit_speech: {len(ref) / 24000:.2f} s in, {len(wave) / sr:.3f} s out ({total} frames, "
+        f"bucket {req['cond'].shape[1]}), wall {wall:.4f} s, launches {ran} [{gpu}]")
+    if ran != expect:
+        raise AssertionError(f"edit_speech launches {ran}, expected {expect}")
+    if not (np.isfinite(wave).all() and len(wave) == (total - 1) * pipe.hop):
+        raise AssertionError("edit_speech: the wav is not finite or not total frames long")
+    mel = cfm.cfm_sample(pipe.params, pipe.statics, dtype=pipe.dtype, backbone=pipe.bdef, **req)
+    kept = req["edit_mask"][0, :total]
+    got, cond = mel[0, :total], req["cond"][0, :total]
+    regen = got[~kept]
+    log(f"  edit cond through cfm_sample: {int(kept.sum())} kept frames, {int((~kept).sum())} "
+        f"regenerated, max |regenerated| {float(regen.abs().max()):.3f}")
+    if not torch.equal(got[kept], cond[kept]):
+        raise AssertionError("speech edit: a kept frame differs from the spliced original")
+    if not (torch.isfinite(regen).all() and regen.abs().max() > 0):
+        raise AssertionError("speech edit: the regenerated frames are not finite or all zero")
+    return ran
+
+
+def bigvgan_decode(dev, big_params, vocos_params, gpu: str) -> list[dict]:
+    """The full-size BigVGAN (f32, TF32 off): card against the CPU on a
+    BIGVGAN_CHECK_FRAMES mel (rel-L2), then its decode time (CUDA-graph
+    replays) at BIGVGAN_TIME_FRAMES beside Vocos' on the same mel."""
+    import torch
+    from f5tts_tpu_torch.vocoder.bigvgan import BigVGAN
+    from f5tts_tpu_torch.vocoder.vocos import Vocos, VocosConfig
+
+    card = BigVGAN(big_params, device=dev)
+    rng = np.random.default_rng(18)
+    mel = torch.from_numpy((rng.standard_normal((1, 100, BIGVGAN_CHECK_FRAMES)) * 2.0
+                            - 4.0).astype(np.float32))
+    t0 = time.perf_counter()
+    want = BigVGAN(big_params, device="cpu")(mel)
+    cpu_s = time.perf_counter() - t0
+    got = card(mel.to(dev)).cpu()
+    rel = float((got - want).norm() / want.norm())
+    log(f"  BigVGAN {BIGVGAN_CHECK_FRAMES} frames, card f32 against cpu f32: wav rel-L2 "
+        f"{rel:.3e} (tol {BIGVGAN_REL_TOL}), max-abs {float((got - want).abs().max()):.3e}, "
+        f"|wav| max {float(want.abs().max()):.3f}; cpu {cpu_s:.2f} s")
+    if not (np.isfinite(rel) and rel <= BIGVGAN_REL_TOL and got.shape == (1, 256 * mel.shape[2])):
+        raise AssertionError(f"BigVGAN card against cpu rel-L2 {rel} > {BIGVGAN_REL_TOL}")
+    vocos = Vocos(vocos_params, VocosConfig(), device=dev)
+    rows = []
+    for frames in BIGVGAN_TIME_FRAMES:
+        m = torch.from_numpy((rng.standard_normal((1, 100, frames)) * 2.0 - 4.0)
+                             .astype(np.float32)).to(dev)
+        big_ms = time_ms(lambda: card(m), reps=1, iters=3)
+        vocos_ms = time_ms(lambda: vocos(m), reps=3, iters=5)
+        tflops = BIGVGAN_FLOP_A_FRAME * frames / (big_ms * 1e-3) / 1e12
+        rows.append({"frames": frames, "bigvgan_ms": big_ms, "vocos_ms": vocos_ms,
+                     "bigvgan_tflop_s": tflops})
+        log(f"  decode {frames} frames ({frames * 256 / 24000:.2f} s): BigVGAN {big_ms:.2f} ms "
+            f"(~{tflops:.1f} TFLOP/s of the {BIGVGAN_FLOP_A_FRAME:.2e} FLOP a frame estimate), "
+            f"Vocos {vocos_ms:.3f} ms [{gpu}]")
+    del card, vocos
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bigvgan_pipeline(dev, arch, params, big_params, gpu: str) -> tuple[dict, dict]:
+    """F5TTS_v1_Base with the bigvgan mel and BigVGAN in the graph: one
+    request through `infer` at the 1024 bucket (run_requests' checks),
+    the graphed generate against the eager body (phase 16's), a replay's
+    device ms, `ref_mel`'s len // 256 frames. Returns (launches, numbers)."""
+    import torch
+    from f5tts_tpu_torch.config import MelConfig
+    from f5tts_tpu_torch.scripts.common import REQUESTS, synthetic_ref_wav
+    from f5tts_tpu_torch.vocoder.bigvgan import BigVGAN
+
+    pipe = make_pipeline(dev, "DiT", arch, params, None,
+                         vocoder=BigVGAN(big_params, device=dev),
+                         mel_cfg=MelConfig(mel_spec_type="bigvgan"))
+    ref = synthetic_ref_wav()
+    frames = pipe.ref_mel(ref).shape[0]
+    if frames != len(ref) // 256:
+        raise AssertionError(f"bigvgan ref_mel: {frames} frames, expected {len(ref) // 256}")
+    expect = generate_launches("DiT", arch)
+    ran = run_requests(pipe, [(REQUESTS[0], 1014, expect)], gpu)
+    row = compare_graph_eager(pipe, expect, 1014, gpu)
+    entry = pipe.graphs[tuple(row["key"])]
+    row["replay_device_ms"] = replay_ms(entry)
+    log(f"  BigVGAN pipeline: a replay {row['replay_device_ms']:.2f} ms on the card, ref_mel "
+        f"{frames} frames for {len(ref)} samples [{gpu}]")
+    del pipe
+    torch.cuda.empty_cache()
+    return ran, row
+
+
+def phase_sampler_options(dev, gpu: str) -> tuple[dict, dict]:
+    """Phase 18: the midpoint ODE, edit_mask, no_ref_audio and the restart
+    at full width and at depth 2 against the CPU, speech editing, and the
+    BigVGAN vocoder with its mel. Returns (the launches the card ran on
+    these paths, the numbers)."""
+    import torch
+    from f5tts_tpu_torch.scripts.common import base_models
+
+    launches: dict[str, int] = {}
+
+    def add(ran):
+        for name, c in ran.items():
+            launches[name] = launches.get(name, 0) + c
+
+    arch, params, vocos_params = base_models()
+    pipe = make_pipeline(dev, "DiT", arch, params, vocos_params)
+    add(midpoint_full_width(pipe, arch, gpu))
+    for option in SAMPLER_OPTIONS:
+        phase_card_vs_cpu(dev, arch, params, vocos_params, "DiT",
+                          step_launches("DiT", dataclasses.replace(arch, depth=2)),
+                          option=option)
+    add(speech_edit_full_width(pipe, arch, gpu))
+    del pipe
+    torch.cuda.empty_cache()
+    _, _, big_params = base_models(vocoder="bigvgan")
+    out = {"decode": bigvgan_decode(dev, big_params, vocos_params, gpu)}
+    ran, out["pipeline"] = bigvgan_pipeline(dev, arch, params, big_params, gpu)
+    add(ran)
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
 # phases 5, 6, 10, 11 and 12
 # ---------------------------------------------------------------------------
 
@@ -2162,6 +2397,14 @@ def main() -> int:
     for name, count in ran.items():
         launches[name] = launches.get(name, 0) + count
     log(f"  int8: {json.dumps({'products': int8_mm_rows, **int8_rows})}")
+    torch.cuda.empty_cache()
+
+    log("phase 18: the sampler's options (midpoint, edit_mask, no_ref_audio, restart), speech "
+        "editing, BigVGAN with the bigvgan mel")
+    ran, option_rows = phase_sampler_options(dev, gpu)
+    for name, count in ran.items():
+        launches[name] = launches.get(name, 0) + count
+    log(f"  phase 18: {json.dumps(option_rows)}")
     torch.cuda.empty_cache()
 
     idle = [name for name in rows if not launches.get(name)]

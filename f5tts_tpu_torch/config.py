@@ -24,7 +24,14 @@ class MelConfig:
     hop_length: int = 256
     win_length: int = 1024
     n_fft: int = 1024
-    mel_spec_type: str = "vocos"  # only "vocos" is ported
+    mel_spec_type: str = "vocos"  # "vocos" | "bigvgan" (the Slaney mel)
+
+    def frames_for_samples(self, num_samples: int) -> int:
+        """Mel frames of a clip: the vocos STFT is centred (len // hop + 1),
+        the bigvgan one pads (n_fft - hop) / 2 a side (len // hop)."""
+        if self.mel_spec_type == "vocos":
+            return num_samples // self.hop_length + 1
+        return num_samples // self.hop_length
 
 
 @dataclass(frozen=True)
@@ -65,7 +72,7 @@ class CFMConfig:
     cond_drop_prob: float = 0.2
     frac_lengths_mask: tuple = (0.7, 1.0)
     sigma: float = 0.0
-    ode_method: str = "euler"  # only "euler" is ported
+    ode_method: str = "euler"  # "euler" | "midpoint" (cfm_sample's method)
 
 
 @dataclass(frozen=True)

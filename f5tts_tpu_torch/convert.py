@@ -1,10 +1,11 @@
 """Weights from the JAX package into the port.
 
-`dit_params_from_jax`, `unett_params_from_jax`, `mmdit_params_from_jax` and
-`vocos_params_from_jax` take the JAX package's parameter pytree as numpy
-arrays (nested dicts and lists; blocks stacked on a leading depth axis:
-"blocks" of the DiT, MMDiT and Vocos, "first_half" / "second_half" of the
-UNetT; attention fused (`to_qkv`, `to_qkv_c`) or not, with qk-norm's
+`dit_params_from_jax`, `unett_params_from_jax`, `mmdit_params_from_jax`,
+`vocos_params_from_jax` and `bigvgan_params_from_jax` take the JAX
+package's parameter pytree as numpy arrays (nested dicts and lists; blocks
+stacked on a leading depth axis: "blocks" of the DiT, MMDiT and Vocos,
+"first_half" / "second_half" of the UNetT; BigVGAN's stages unstacked;
+attention fused (`to_qkv`, `to_qkv_c`) or not, with qk-norm's
 `q_norm` / `k_norm` / `c_q_norm` / `c_k_norm` leaves or without) and return
 the port's parameters as CPU f32 tensors. The walk is generic: every leaf of
 the JAX tree comes across under its own key.
@@ -76,6 +77,12 @@ def mmdit_params_from_jax(tree: dict) -> dict:
 def vocos_params_from_jax(tree: dict) -> dict:
     """JAX Vocos params (numpy leaves) -> the port's Vocos params."""
     return dit_params_from_jax(tree)
+
+
+def bigvgan_params_from_jax(tree: dict) -> dict:
+    """JAX BigVGAN params (numpy leaves; lists of per-stage and per-block
+    dicts, nothing stacked) -> the port's BigVGAN params."""
+    return _to_torch(tree)
 
 
 def _find_states(node, found: list) -> list:

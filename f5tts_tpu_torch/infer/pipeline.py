@@ -1,20 +1,23 @@
 """Zero-shot inference pipeline (counterpart of f5tts_tpu/infer/pipeline.py).
 
 (ref wav, ref text, gen text) -> waveform: resample, RMS-normalise the
-reference, log-mel, chunk the text to a speech-rate budget, estimate each
-chunk's duration, pad to a bucket, run `cfm_sample` (the backbone, DiT,
-UNetT or MMDiT, and its kernels) and Vocos, restore the RMS and cross-fade
-the chunks. Single requests only: batching, streaming and the low-TTFB path
-are not ported yet. The text goes through the pinyin tokenizer by default
+reference, log-mel (the vocos or the bigvgan mel, `mel_cfg`), chunk the
+text to a speech-rate budget, estimate each chunk's duration, pad to a
+bucket, run `cfm_sample` (the backbone, DiT, UNetT or MMDiT, and its
+kernels) and the vocoder (any callable: Vocos, BigVGAN), restore the RMS
+and cross-fade the chunks. Single requests only: batching, streaming and
+the low-TTFB path are not ported yet. The text goes through the pinyin
+tokenizer by default
 (`text.pinyin`, with a vocab such as `text.vocab.EMILIA_VOCAB`), as in the
 JAX package; `quantization="int8"` runs the backbone's per-token
 projections as int8 W8A8 (`ops.quant`: K12, the int8 product, K13).
 
 `fused_generate` is the counterpart of the JAX pipeline's `_fused_generate`
-(sampler + vocoder under one jit, one executable per shape): on a CUDA
-device the sampler and Vocos run as one CUDA graph per key (batch, n
-bucket, text bucket, NFE), captured at the first request that needs it,
-after one eager warm-up pass on a side stream, and replayed from then on.
+(sampler + vocoder under one jit, one executable per shape; Euler, as
+there): on a CUDA device the sampler and the vocoder run as one CUDA graph
+per key (batch, n bucket, text bucket, NFE), captured at the first request
+that needs it, after one eager warm-up pass on a side stream, and replayed
+from then on.
 The graph reads its inputs from static buffers that every request
 overwrites in full (cond, text ids, lens, duration, time grid, CFG
 strength, noise) and writes mel and wav into static outputs that are
@@ -159,8 +162,9 @@ class InferencePipeline:
     def ref_mel(self, wav: np.ndarray) -> np.ndarray:
         """ref wav -> mel [t, n_mels]. The wav is zero-padded to a 128-frame
         bucket first and the frames past the clip cut off, as in the JAX
-        package."""
-        true_frames = len(wav) // self.hop + 1
+        package: len // hop + 1 frames of the vocos mel, len // hop of the
+        bigvgan one."""
+        true_frames = self.mel_cfg.frames_for_samples(len(wav))
         bucket = max(-(-len(wav) // (128 * self.hop)) * 128 * self.hop, 128 * self.hop)
         if bucket > len(wav):
             wav = np.pad(wav, (0, bucket - len(wav)))

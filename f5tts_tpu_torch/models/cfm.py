@@ -11,13 +11,15 @@ audio), then the MSE over the span. Its random draws come from a
 `torch.Generator` or are passed in (`CFMDraws`): the JAX PRNG and torch's
 differ, so a test passes the JAX draws.
 
-`cfm_sample` runs the Euler ODE over a precomputed time grid (EPSS + sway)
-with CFG: cond and uncond rows go through the backbone as one 2b batch and
-combine as pred + (pred - null) * cfg. Text embeddings and every step's
-AdaLN modulation (DiT, MMDiT; the UNetT's time rides the sequence as a
-token) are computed once, before the step loop. The prompt frames are
-re-imposed on the result. `BACKBONES` describes each backbone as the JAX
-package's `BackboneDef` table does (cfm.py:37-103).
+`cfm_sample` runs the Euler or midpoint ODE over a precomputed time grid
+(EPSS + sway) with CFG: cond and uncond rows go through the backbone as
+one 2b batch and combine as pred + (pred - null) * cfg. Text embeddings
+and every evaluation's AdaLN modulation (DiT, MMDiT; the UNetT's time
+rides the sequence as a token) are computed once, before the step loop.
+The prompt frames, or with an `edit_mask` the frames it keeps, are
+re-imposed on the result. `duplicate_test_start` restarts a trajectory
+from a ground-truth mel at t_inter. `BACKBONES` describes each backbone as
+the JAX package's `BackboneDef` table does (cfm.py:37-103).
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import torch
 
 from f5tts_tpu_torch.config import CFMConfig
 from f5tts_tpu_torch.models import dit, mmdit, unett
-from f5tts_tpu_torch.utils import lens_to_mask, mask_from_frac_lengths
+from f5tts_tpu_torch.utils import (lens_to_mask, linspace_f32, mask_from_frac_lengths,
+                                   sway_timesteps)
 
 
 class BackboneDef(NamedTuple):
@@ -149,27 +152,43 @@ def make_noise(generator: torch.Generator, batch: int, seq_len: int, num_channel
     return torch.where(valid[:, :, None], noise, 0.0)
 
 
-def sample_euler(params, statics, y0: torch.Tensor, step_cond: torch.Tensor,
-                 text: torch.Tensor, duration: torch.Tensor, t_grid: torch.Tensor,
-                 cfg: torch.Tensor, dtype=torch.bfloat16,
-                 backbone: BackboneDef = DIT) -> torch.Tensor:
-    """Euler steps with CFG over `t_grid` [steps+1]; x stays f32. `cfg` is
-    the guidance strength as an f32 scalar tensor on y0's device: no host
-    value enters the loop, so a CUDA graph can capture it."""
+def sample_ode(params, statics, y0: torch.Tensor, step_cond: torch.Tensor,
+               text: torch.Tensor, duration: torch.Tensor, t_grid: torch.Tensor,
+               cfg: torch.Tensor, dtype=torch.bfloat16, backbone: BackboneDef = DIT,
+               method: str = "euler") -> torch.Tensor:
+    """Euler or midpoint steps with CFG over `t_grid` [steps+1]; x stays
+    f32. `cfg` is the guidance strength as an f32 scalar tensor on y0's
+    device: no host value enters the loop, so a CUDA graph can capture it.
+    Midpoint evaluates the flow at t and t + dt/2 (two backbone passes a
+    step); its modulations are precomputed at both, the second pass of step
+    i reading index steps + i, in the JAX package's f32 order."""
+    if method not in ("euler", "midpoint"):
+        raise ValueError(f"unknown ODE method {method!r} (euler | midpoint)")
     b, n, _ = y0.shape
     steps = t_grid.shape[0] - 1
     text_embeds = backbone.text_embeds(params, statics, text, n, duration, dtype)
-    mods_at = (backbone.precompute_mods(params, t_grid[:steps], 2 * b, dtype)
+    dts = t_grid[1:] - t_grid[:-1]
+    t_values = t_grid[:steps]
+    if method == "midpoint":  # the second pass of step i at index steps + i
+        half = t_grid[:steps] + 0.5 * dts
+        t_values = torch.cat([t_values, half])
+    mods_at = (backbone.precompute_mods(params, t_values, 2 * b, dtype)
                if backbone.precompute_mods is not None else None)
-    x = y0
-    for i in range(steps):
-        kw = {"t_mods": mods_at(i)} if mods_at is not None else {}
+
+    def flow(x, t, idx):
+        kw = {"t_mods": mods_at(idx)} if mods_at is not None else {}
         pred_cfg = backbone.forward(
-            params, statics, x, step_cond, text, t_grid[i], lengths=duration,
+            params, statics, x, step_cond, text, t, lengths=duration,
             cfg_infer=True, text_embeds=text_embeds, dtype=dtype, **kw)
         pred, null_pred = pred_cfg.chunk(2, dim=0)
-        v = pred + (pred - null_pred) * cfg
-        x = x + (t_grid[i + 1] - t_grid[i]) * v
+        return pred + (pred - null_pred) * cfg
+
+    x = y0
+    for i in range(steps):
+        v = flow(x, t_grid[i], i)
+        if method == "midpoint":
+            v = flow(x + 0.5 * dts[i] * v, half[i], steps + i)
+        x = x + dts[i] * v
     return x
 
 
@@ -178,7 +197,8 @@ def cfm_sample(params, statics, cond: torch.Tensor, text: torch.Tensor,
                lens: torch.Tensor, duration: torch.Tensor, t_grid: torch.Tensor, *,
                generator: Optional[torch.Generator] = None, y0: Optional[torch.Tensor] = None,
                cfg_strength: float | torch.Tensor = 2.0, dtype=torch.bfloat16,
-               noise_max_len: Optional[int] = None,
+               noise_max_len: Optional[int] = None, method: str = "euler",
+               edit_mask: Optional[torch.Tensor] = None, no_ref_audio: bool = False,
                backbone: BackboneDef = DIT) -> torch.Tensor:
     """cond [b, n, d] prompt mel zero-padded to the bucket n, text [b, nt]
     ids (-1 padded), lens [b] prompt frames, duration [b] total frames <= n.
@@ -187,18 +207,51 @@ def cfm_sample(params, statics, cond: torch.Tensor, text: torch.Tensor,
     `cfg_strength` is a float or an f32 scalar tensor on cond's device (a
     CUDA graph's input, as the JAX pipeline traces it); given `y0`, t_grid
     and cfg_strength on cond's device, the call does no host work that
-    depends on their values."""
+    depends on their values. `method` "euler" or "midpoint"; `edit_mask`
+    [b, n] bool keeps cond only where it holds (speech editing: False
+    frames are regenerated); `no_ref_audio` conditions on zeros. The cond
+    frames kept are re-imposed on the result."""
     b, n, d = cond.shape
     cond_mask = lens_to_mask(lens, n)
+    if edit_mask is not None:
+        cond_mask = cond_mask & edit_mask.to(cond_mask.device)
+    if no_ref_audio:
+        cond = torch.zeros_like(cond)
     step_cond = torch.where(cond_mask[:, :, None], cond, 0.0)
     if y0 is None:
         if generator is None:
             raise ValueError("cfm_sample needs a generator or y0")
         y0 = make_noise(generator, b, n, d, duration, noise_max_len)
     cfg = torch.as_tensor(cfg_strength, dtype=torch.float32, device=cond.device)
-    sampled = sample_euler(params, statics, y0.float(), step_cond, text, duration,
-                           t_grid.float().to(cond.device), cfg, dtype, backbone)
+    sampled = sample_ode(params, statics, y0.float(), step_cond, text, duration,
+                         t_grid.float().to(cond.device), cfg, dtype, backbone, method)
     return torch.where(cond_mask[:, :, None], cond, sampled)
+
+
+def duplicate_test_start(gt_mel: torch.Tensor, seq_len: int, cond_seq_len: int,
+                         duration: torch.Tensor, steps: int, t_inter: float = 0.1,
+                         sway_sampling_coef: Optional[float] = None, *,
+                         generator: Optional[torch.Generator] = None,
+                         noise: Optional[torch.Tensor] = None
+                         ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Mid-trajectory restart (JAX cfm.py:323-356): the ground-truth mel
+    [b, n_gt, d], shifted to start right after the prompt, is blended into
+    the noise at t = t_inter, and the remaining steps integrate from there.
+    The noise is `noise` ([b, seq_len, d], as `make_noise` gives it) or
+    drawn from `generator`. Returns (y0, t_grid, remaining steps) for
+    `cfm_sample(y0=..., t_grid=...)`."""
+    b, n_gt, d = gt_mel.shape
+    test_cond = gt_mel.new_zeros((b, seq_len, d))
+    take = min(n_gt, seq_len - cond_seq_len)
+    test_cond[:, cond_seq_len:cond_seq_len + take] = gt_mel[:, :take]
+    if noise is None:
+        if generator is None:
+            raise ValueError("duplicate_test_start needs a generator or noise")
+        noise = make_noise(generator, b, seq_len, d, duration)
+    y0 = (1.0 - t_inter) * noise.to(test_cond) + t_inter * test_cond
+    remaining = max(int(steps * (1.0 - t_inter)), 1)
+    t = sway_timesteps(linspace_f32(t_inter, 1.0, remaining + 1), sway_sampling_coef)
+    return y0, t, remaining
 
 
 def compute_duration(text_lens, prompt_lens, requested, max_duration: int):

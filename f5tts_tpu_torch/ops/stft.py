@@ -3,12 +3,16 @@
 No Pallas kernel is involved here, so the DFTs go to `torch.fft`.
 - `stft_magnitude`: center=True reflect-padded STFT magnitude, [b, l] ->
   [b, n_fft//2+1, t] (torch.stft/torchaudio semantics).
+- `stft_magnitude_eps`: the bigvgan mel's: a reflect pad of
+  (n_fft - hop) / 2, a center=False STFT, sqrt(re^2 + im^2 + eps).
 - `istft_center`: irfft per frame, window, overlap-add, divide by the
   squared-window envelope where it exceeds 1e-11, trim n_fft/2, keep
   (t-1)*hop samples (torch.istft(center=True) semantics).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,6 +40,18 @@ def stft_magnitude(x: torch.Tensor, window: torch.Tensor, n_fft: int = 1024,
     frames = frame_signal(x, n_fft, hop) * window[None, None, :]
     mag = torch.fft.rfft(frames, n=n_fft, dim=-1).abs()
     return mag.transpose(1, 2)
+
+
+def stft_magnitude_eps(x: torch.Tensor, window: torch.Tensor, n_fft: int = 1024,
+                       hop: int = 256, pad: Optional[int] = None,
+                       eps: float = 1e-9) -> torch.Tensor:
+    """sqrt(|STFT|^2 + eps) of [b, l] -> [b, n_fft//2+1, t] in f32, after a
+    reflect pad of `pad` ((n_fft - hop) // 2 by default) a side."""
+    if pad is None:
+        pad = (n_fft - hop) // 2
+    x = F.pad(x.float()[:, None, :], (pad, pad), mode="reflect")[:, 0]
+    spec = torch.fft.rfft(frame_signal(x, n_fft, hop) * window[None, None, :], n=n_fft, dim=-1)
+    return torch.sqrt(spec.real ** 2 + spec.imag ** 2 + eps).transpose(1, 2)
 
 
 def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:

@@ -2,8 +2,8 @@
 chip_smoke.py and the profiling scripts.
 
 Any preset of `config.PRESETS` (text_num_embeds 2545, as the JAX package's
-bench.py; other arch fields may be overridden, e.g. qk_norm) and Vocos with
-random weights from fixed seeds; the zero-initialised AdaLN, norm_out,
+bench.py; other arch fields may be overridden, e.g. qk_norm) and Vocos or
+BigVGAN with random weights from fixed seeds; the zero-initialised AdaLN, norm_out,
 proj_out and GRN leaves are randomised so the backbone is no identity (the
 UNetT has none), and so are qk-norm's RMSNorm weights (1 + 0.1 N(0, 1)). No
 checkpoint is read.
@@ -20,6 +20,7 @@ import torch
 from f5tts_tpu_torch.config import PRESETS, ModelArch
 from f5tts_tpu_torch.models import dit
 from f5tts_tpu_torch.models.cfm import BACKBONES
+from f5tts_tpu_torch.vocoder.bigvgan import BigVGANConfig, init_bigvgan
 from f5tts_tpu_torch.vocoder.vocos import VocosConfig, init_vocos
 
 REF_TEXT = "Some call me nature, others call me mother nature."
@@ -53,11 +54,12 @@ def synthetic_text_ids(rng, lens, model: str, width: int = 256) -> np.ndarray:
 QK_NORM_LEAVES = ("q_norm", "k_norm", "c_q_norm", "c_k_norm")
 
 
-def base_models(seed: int = 0, model: str = "F5TTS_v1_Base",
+def base_models(seed: int = 0, model: str = "F5TTS_v1_Base", vocoder: str = "vocos",
                 **arch_overrides) -> tuple[ModelArch, dict, dict]:
-    """(arch, backbone params, Vocos params) of the preset `model` with
+    """(arch, backbone params, vocoder params) of the preset `model` with
     `arch_overrides` (e.g. qk_norm="rms_norm", depth=2), f32 on the CPU; its
-    backbone is `PRESETS[model].backbone`."""
+    backbone is `PRESETS[model].backbone`. `vocoder` "vocos" or "bigvgan"
+    (the full-size v2 24 kHz 100-band generator, `BigVGANConfig()`)."""
     cfg = PRESETS[model]
     arch = dataclasses.replace(cfg.arch, text_num_embeds=2545, **arch_overrides)
     gen = torch.Generator().manual_seed(seed)
@@ -72,8 +74,12 @@ def base_models(seed: int = 0, model: str = "F5TTS_v1_Base",
         return tree
 
     params = randomise_qk_norm(params)
-    vocos_params = init_vocos(torch.Generator().manual_seed(seed + 1), VocosConfig())
-    return arch, params, vocos_params
+    vgen = torch.Generator().manual_seed(seed + 1)
+    if vocoder == "bigvgan":
+        return arch, params, init_bigvgan(vgen, BigVGANConfig())
+    if vocoder != "vocos":
+        raise ValueError(f"unknown vocoder {vocoder!r} (vocos | bigvgan)")
+    return arch, params, init_vocos(vgen, VocosConfig())
 
 
 def synthetic_ref_wav(seconds: float = 2.7, sr: int = 24000) -> np.ndarray:

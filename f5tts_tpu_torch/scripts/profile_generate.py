@@ -1,27 +1,31 @@
 """Where the time of one zero-shot request goes, on the card.
 
     python -m f5tts_tpu_torch.scripts.profile_generate [--model F5TTS_v1_Base]
-        [--qk-norm] [--quantization none|int8] [--out profile_generate.json]
+        [--qk-norm] [--quantization none|int8] [--vocoder vocos|bigvgan]
+        [--out profile_generate.json]
 
 `--model` any preset: F5TTS_v1_Base / F5TTS_Base / F5TTS_v1_Small /
 F5TTS_Small (DiT), E2TTS_Base / E2TTS_Small (UNetT) or MMDiT_Base;
 `--qk-norm` sets qk_norm="rms_norm" (its RMSNorm weights randomised);
 `--quantization int8` runs the pipeline's int8 W8A8 params (K12's modes:
 K1Q / K6Q, the GELU mode, the plain K12; the int8 product, K13: their
-device time is read by class, and bf16's separate GELU pass too); + Vocos
-(seeded random weights, bf16 backbone, f32 Vocos), 16 NFE, CFG 2, sway -1,
+device time is read by class, and bf16's separate GELU pass too);
+`--vocoder bigvgan` the full-size BigVGAN with the bigvgan (Slaney) mel in
+Vocos' place; + the vocoder (seeded random weights, bf16 backbone, f32
+vocoder), 16 NFE, CFG 2, sway -1,
 with a fixed duration per bucket (the F5TTS_v1_Base DiT at 768, 1024 and
 the 4096 cap; the others at 1024 and the cap). For each bucket, two paths:
 - graphed: `InferencePipeline.infer`, the pipeline's only CUDA path (one
-  CUDA-graph replay of sampler + Vocos a request); the first request warms
+  CUDA-graph replay of sampler + vocoder a request); the first request warms
   up and captures (its wall and the capture time are reported apart);
 - eager: the same request's host preparation (`prepare_chunk`), then
-  `cfm_sample` and Vocos called directly, and the copies to the host.
+  `cfm_sample` and the vocoder called directly, and the copies to the host.
 Each path: 3 timed requests after a warm-up (host clock, ending in a device
 sync), then one request under torch.profiler. From each trace: device busy
 time (the union of kernel intervals) against the traced request's wall,
 kernel time and launch count by class (the port's kernels, GEMM including
-cuDNN's implicit-GEMM convs, FFT, the rest). Needs a CUDA device.
+cuDNN's implicit-GEMM convs, cuDNN's other convs, FFT, the rest). Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ CLASSES = (
     ("gemm", ("gemm", "Gemm", "cutlass", "xmma", "nvjet", "cublas")),
     ("fft", ("fft", "FFT")),
     ("gelu", ("GeluCUDAKernelImpl",)),  # PyTorch's tanh-GELU pass (bf16: ff.out's input)
+    ("conv", ("conv", "Conv", "dgrad", "cudnn")),  # cuDNN's direct convolutions (BigVGAN)
 )
 
 
@@ -129,33 +134,40 @@ def main(argv=None) -> int:
     ap.add_argument("--model", default="F5TTS_v1_Base", choices=sorted(FRAMES))
     ap.add_argument("--qk-norm", action="store_true", help='qk_norm="rms_norm"')
     ap.add_argument("--quantization", default="none", choices=["none", "int8"])
+    ap.add_argument("--vocoder", default="vocos", choices=["vocos", "bigvgan"],
+                    help="bigvgan also selects the bigvgan (Slaney) mel")
     ap.add_argument("--out", default=None, help="also write the JSON result here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_generate needs a CUDA device")
 
-    from f5tts_tpu_torch.config import PRESETS, SamplingConfig
+    from f5tts_tpu_torch.config import PRESETS, MelConfig, SamplingConfig
     from f5tts_tpu_torch.infer.pipeline import InferencePipeline
     from f5tts_tpu_torch.models.cfm import BACKBONES
     from f5tts_tpu_torch.scripts.common import (REQUESTS, VOCAB, base_models, gpu_name_and_limit,
                                                 synthetic_ref_wav)
+    from f5tts_tpu_torch.vocoder.bigvgan import BigVGAN
     from f5tts_tpu_torch.vocoder.vocos import Vocos, VocosConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     backbone = PRESETS[args.model].backbone
-    arch, params, vocos_params = base_models(
-        model=args.model, **({"qk_norm": "rms_norm"} if args.qk_norm else {}))
-    pipe = InferencePipeline(params, BACKBONES[backbone].statics_cls(arch),
-                             Vocos(vocos_params, VocosConfig(), device=dev),
+    arch, params, vocoder_params = base_models(
+        model=args.model, vocoder=args.vocoder,
+        **({"qk_norm": "rms_norm"} if args.qk_norm else {}))
+    vocoder = (BigVGAN(vocoder_params, device=dev) if args.vocoder == "bigvgan"
+               else Vocos(vocoder_params, VocosConfig(), device=dev))
+    pipe = InferencePipeline(params, BACKBONES[backbone].statics_cls(arch), vocoder,
+                             mel_cfg=MelConfig(mel_spec_type=args.vocoder),
                              vocab_char_map=VOCAB, sampling=SamplingConfig(nfe_steps=16),
                              tokenizer="char", dtype=torch.bfloat16, device=dev,
                              backbone=backbone, quantization=args.quantization)
     gpu = gpu_name_and_limit()
     ref = synthetic_ref_wav()
     result = {"gpu": gpu, "torch": torch.__version__, "model": args.model,
-              "qk_norm": arch.qk_norm, "quantization": args.quantization, "buckets": []}
+              "qk_norm": arch.qk_norm, "quantization": args.quantization,
+              "vocoder": args.vocoder, "buckets": []}
     for frames in FRAMES[args.model]:
         row = profile_bucket(pipe, ref, REQUESTS[1], frames, REPS)
         result["buckets"].append(row)

@@ -1,7 +1,7 @@
 """Training data: host-side mel, datasets, frame-budget batching, collation
 (counterpart of f5tts_tpu/train/dataset.py:38-75 and :262-346).
 
-- NumpyMel: wav -> log-mel on the host in numpy (vocos variant).
+- NumpyMel: wav -> log-mel on the host in numpy (vocos or bigvgan variant).
 - InMemoryDataset: rows of (mel, text) held in memory, with the
   `get_frame_len` / `get_text` / `__getitem__` interface the Trainer reads.
   The arrow (CustomDataset) and HuggingFace loaders are not ported yet.
@@ -21,30 +21,32 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 
 from f5tts_tpu_torch.config import MelConfig
-from f5tts_tpu_torch.ops.mel import mel_filterbank_htk
+from f5tts_tpu_torch.ops.mel import filterbank_for
 from f5tts_tpu_torch.utils import round_up
 
 
 class NumpyMel:
-    """wav [l] -> log-mel [t, n_mels] (sequence-major), vocos variant:
-    reflect-padded STFT magnitude, HTK filterbank, log(clamp(1e-5))."""
+    """wav [l] -> log-mel [t, n_mels] (sequence-major) in numpy, as
+    `ops.mel.MelFrontend` computes it: vocos (reflect pad n_fft / 2,
+    |STFT|, HTK filterbank) or bigvgan (reflect pad (n_fft - hop) / 2,
+    sqrt(|STFT|^2 + 1e-9), Slaney filterbank), then log(clamp(1e-5))."""
 
     def __init__(self, cfg: MelConfig = MelConfig()):
-        if cfg.mel_spec_type != "vocos":
-            raise ValueError(f"mel_spec_type {cfg.mel_spec_type!r} is not ported")
         self.cfg = cfg
+        self.fb = filterbank_for(cfg)
         n = np.arange(cfg.win_length)
         self.window = (0.5 - 0.5 * np.cos(2 * np.pi * n / cfg.win_length)).astype(np.float64)
-        self.fb = mel_filterbank_htk(cfg.target_sample_rate, cfg.n_fft, cfg.n_mel_channels)
 
     def __call__(self, wav: np.ndarray) -> np.ndarray:
         c = self.cfg
-        pad = c.n_fft // 2
+        vocos = c.mel_spec_type == "vocos"
+        pad = c.n_fft // 2 if vocos else (c.n_fft - c.hop_length) // 2
         x = np.pad(wav, (pad, pad), mode="reflect")
         n_frames = (len(x) - c.n_fft) // c.hop_length + 1
         idx = np.arange(c.n_fft)[None, :] + c.hop_length * np.arange(n_frames)[:, None]
         spec = np.fft.rfft(x[idx] * self.window[None, :], axis=-1)
-        mel = np.abs(spec).astype(np.float32) @ self.fb.T
+        mag = np.abs(spec) if vocos else np.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
+        mel = mag.astype(np.float32) @ self.fb.T
         return np.log(np.clip(mel, 1e-5, None)).astype(np.float32)
 
 

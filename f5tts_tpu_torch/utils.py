@@ -65,18 +65,34 @@ _EPSS_TIMESTEPS: dict[int, list[int]] = {
 
 
 def linspace_f32(start: float, stop: float, num: int) -> torch.Tensor:
-    """f32 linspace with the arithmetic XLA compiles jnp.linspace to
-    (start * (1 - i*r) + i * (stop*r), r = f32(1/div), endpoint appended), so
-    the grids are bit-equal to the JAX package's."""
+    """f32 linspace bit-equal to jnp.linspace on the CPU for num <= 513.
+
+    XLA computes start * (1 - i*r) + i * (stop*r) with r = f32(1/div),
+    endpoint appended, in f32; its CPU backend unrolls the loop for these
+    sizes and contracts i * (stop*r) into an FMA with the rounded
+    start * (1 - i*r). At i = 1, where i * (stop*r) folds to stop*r, the
+    scalar code of a grid of <= 34 points contracts the other product:
+    start * (1 - r) + stop*r, rounded once. Each FMA is evaluated in float64
+    (exact at these magnitudes) and rounded to f32.
+
+    This copies XLA's CPU code generation as of jax / jaxlib 0.9.0, not what
+    jnp.linspace is defined to compute. The port's grids have at most
+    steps + 1 points; tests/test_torch_sampler_options.py holds every num up
+    to 65 (64 steps) and a few larger ones bit-equal, so a change in XLA's
+    unrolling shows there as a failure."""
     if num < 2:
         return torch.full((num,), start, dtype=torch.float32)
+    f32 = np.float32
     div = num - 1
-    r = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(float(div), dtype=torch.float32)
-    iota = torch.arange(div, dtype=torch.float32)
-    start_t = torch.tensor(start, dtype=torch.float32)
-    stop_t = torch.tensor(stop, dtype=torch.float32)
-    out = start_t * (1.0 - iota * r) + iota * (stop_t * r)
-    return torch.cat([out, stop_t[None]])
+    r = f32(1.0) / f32(div)
+    iota = np.arange(div, dtype=f32)
+    s, e = f32(start), f32(stop)
+    er = e * r
+    one_minus = f32(1.0) - iota * r
+    out = iota.astype(np.float64) * np.float64(er) + (s * one_minus).astype(np.float64)
+    if 2 <= div <= 33:
+        out[1] = np.float64(s) * np.float64(one_minus[1]) + np.float64(er)
+    return torch.from_numpy(np.append(out.astype(f32), e))
 
 
 def get_epss_timesteps(n: int) -> torch.Tensor:

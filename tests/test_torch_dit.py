@@ -62,6 +62,17 @@ def np_params(init_fn, seed: int):
     return jax.tree_util.tree_map_with_path(draw, jax.eval_shape(init_fn))
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One torch thread while a module runs: its shapes are small, and the
+    suite runs six workers on one machine, where more threads only spin
+    against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def small_dit(seed: int = 0):
     """(JAX arch, port arch, numpy JAX params, port params with fused QKV)."""
     jarch = JArch(**SMALL)

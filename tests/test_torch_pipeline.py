@@ -49,7 +49,8 @@ def test_port_imports_no_jax():
             "f5tts_tpu_torch.scripts.train_bench, f5tts_tpu_torch.scripts.profile_generate, "
             "f5tts_tpu_torch.scripts.kernel_ab, f5tts_tpu_torch.eval.rtf_bench, "
             "f5tts_tpu_torch.text.pinyin, f5tts_tpu_torch.ops.quant, "
-            "f5tts_tpu_torch.scripts.int8_quality_ab\n"
+            "f5tts_tpu_torch.scripts.int8_quality_ab, f5tts_tpu_torch.infer.speech_edit, "
+            "f5tts_tpu_torch.infer.align, f5tts_tpu_torch.vocoder.bigvgan\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'f5tts_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
