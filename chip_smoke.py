@@ -155,10 +155,46 @@ Phases (any failure raises, and the script exits non-zero):
     F5TTS_v1_Base with the bigvgan mel + BigVGAN at the 1024 bucket (phase
     3's checks), its graphed generate against the eager one (phase 16's)
     and a replay's device ms, and ref_mel's len // 256 frames.
+19. The last arch flags, the reference-key importer, activation
+    checkpointing, bf16 state and the training configurations that had not
+    run on the card. (a) F5TTS_v1_Base with long_skip_connection and
+    text_embedding_average_upsampling through InferencePipeline.infer at
+    the 1024 bucket and the cap (phase 3's checks, 352 / 720 / 32 a
+    generate), its graphed generate against the eager one (phase 16's), two
+    requests of 800 and 1000 frames in the captured 1024 bucket, each
+    graphed generate equal to the eager one on its own inputs and its text
+    spread over its own duration, and depth 2 card bf16 against CPU f32
+    (mel rel-L2 <= 3e-2). (b) A reference-layout state dict of
+    F5TTS_v1_Base with qk-norm and the long skip ("ema_model." keys, the
+    mel_spec / rotary_embed keys a checkpoint carries), written as
+    safetensors, read through the audited importer (no unread weight key),
+    loaded onto the card by utils_infer.load_checkpoint (the arch from
+    model_config_from_dict on a dict, as a YAML gives it), exported back by
+    to_reference_keys bit for bit, then one request through infer (K7 /
+    K6 / K1 / K2 352 / 704 / 720 / 32); the load time. (c) Activation
+    checkpointing at F5TTS_v1_Base, 37 x 1024 frames (lens in [512,
+    1024]), 2 updates without it and under each remat_policy from the same
+    weights, data and draws: peak allocated memory and ms an update, loss
+    and grad norm within 1e-3 of the run without checkpointing, K3-lse /
+    K4 / K1 / K2 per update 22 / 22 / 45 / 1 without, 44 / 22 / 89 / 1 under
+    "nothing" and "dots", 22 / 22 / 89 / 1 under "attn_out" and "attn";
+    one update at 64 x 1024 under "nothing"; E2TTS_Base (K3-lse / K4 / K6
+    / K2 48 / 24 / 97 / 1) and MMDiT_Base (K5-lse / K8 / K1 / K2 43 / 22 /
+    172 / 1: the context_pre_only last block is not checkpointed) under
+    "nothing", 2 updates at 16 x 1024; bf16_state at 16 x 1024: mu, nu
+    and the EMA stored in bf16 (their bytes), finite updates. (d) 3
+    updates at 16 x 1024 of F5TTS_v1_Small (K3-lse / K4 / K1 / K10 18 / 18
+    / 37 / 2; K10's backward is the plain VJP), the F5TTS_v1_Base DiT with
+    qk-norm (K7-lse / K9 / K6 / K1 / K2 22 / 22 / 44 / 45 / 1; and one
+    update at 4 x 4096), E2TTS_Base with qk-norm (K7-lse / K9 / K6 / K2 24
+    / 24 / 97 / 1), MMDiT_Base with qk-norm (K11 / K6 / K1 / K2 22 / 88 /
+    88 / 1, the plain VJP backward; its peak) and the DiT with
+    fuse_qkv=False (K7-lse / K9 / K1 / K2 22 / 22 / 45 / 1), each with its
+    peak and ms; then phase 6's depth-2 check for each of the five.
 
 Prints the `kernels` JSON line (launches: what the card ran on the
-inference and training paths of phases 3, 5, 7, 8, 10, 11, 13, 14, 17 and
-18, each graph replay counted with its capture's counts), the card's name
+inference and training paths of phases 3, 5, 7, 8, 10, 11, 13, 14, 17, 18
+and 19, each graph replay counted with its capture's counts), the card's name
 and power limit,
 and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the repo's
@@ -2092,6 +2128,397 @@ def phase_sampler_options(dev, gpu: str) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 19
+# ---------------------------------------------------------------------------
+
+ARCH_FLAGS = {"long_skip_connection": True, "text_embedding_average_upsampling": True}
+UPSAMPLE_TOTALS = (800, 1000)    # two requests in the 1024 bucket
+REMAT_BATCH = (37, 1024)         # the reference's 38,400-frame batch in whole rows
+REMAT_POLICIES = ("nothing", "attn_out", "attn", "dots")
+REMAT_REL_TOL = 1e-3             # loss and grad norm against the run without checkpointing
+
+
+def dit_update_launches(depth: int, policy=None) -> dict:
+    """The launches of one F5TTS_v1_Base-like training update: K3's lse mode
+    and K4 a block, K1 two a block and the final norm, K2 once; under
+    checkpointing every block's two norms again, and the attention forward
+    again where the policy keeps no attention output."""
+    lse = depth * (2 if policy in ("nothing", "dots") else 1)
+    norms = 2 * depth + 1 + (2 * depth if policy else 0)
+    return {"fused_qkv_rope_attention_lse": lse, "fused_qkv_rope_attention_bwd": depth,
+            "adaln_norm": norms, "conv_pos_embedding": 1}
+
+
+def train_batch(b: int, n: int, model: str, seed: int = 19) -> tuple:
+    """(mel [b, n, 100], text ids, lens) on the host: lens in [n/2, n], the
+    first n; text as `common.synthetic_text_ids` draws it for `model`."""
+    import torch
+    from f5tts_tpu_torch.scripts.common import synthetic_text_ids
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(n // 2, n + 1, b).astype(np.int32)
+    lens[0] = n
+    mel = (rng.standard_normal((b, n, 100)) * 0.3).astype(np.float32)
+    text = synthetic_text_ids(rng, lens, model)
+    return tuple(torch.from_numpy(a) for a in (mel, text, lens))
+
+
+def train_updates(dev, backbone: str, arch, params, batch, updates: int, expect: dict,
+                  label: str, gpu: str, fuse_qkv: bool = True, state_dtype=None) -> dict:
+    """`updates` TrainStep updates (loss, backward, clip + AdamW + EMA) from
+    a fresh state of `params` on the card, the counts set to 0 just before
+    each update and read just after (each must be `expect`). Returns the
+    run's numbers: ms of the last update, peak allocated memory (the state
+    included), the state's bytes, losses, grad norms, summed launches."""
+    import torch
+    from f5tts_tpu_torch.models.cfm import BACKBONES
+    from f5tts_tpu_torch.models.modules import tree_leaves
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.train.step import init_train_state, make_optimizer, make_train_step
+
+    bdef = BACKBONES[backbone]
+    mel, text, lens = (t.to(dev) for t in batch)
+    state = init_train_state(params, dev, moment_dtype=state_dtype, ema_dtype=state_dtype)
+    state_bytes = {name: sum(t.numel() * t.element_size() for t in tree_leaves(getattr(state, name)))
+                   for name in ("params", "mu", "nu", "ema")}
+    step = make_train_step(bdef.statics_cls(arch, dev), make_optimizer(7.5e-5, 1000, 10000),
+                           ema_update_every=1, ema_update_after_step=0, backbone=bdef,
+                           fuse_qkv=fuse_qkv)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows, total = [], {}
+    for u in range(updates):
+        gen = torch.Generator(device=dev).manual_seed(u)
+        torch.cuda.synchronize(dev)
+        _build.reset_launches()  # every count to 0 just before the update
+        t0 = time.perf_counter()
+        state, metrics = step(state, mel, text, lens, generator=gen)
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        ran = _build.launches()
+        rows.append((float(metrics["loss"]), float(metrics["grad_norm"]), wall))
+        if ran != expect:
+            raise AssertionError(f"{label}: update {u + 1} launched {ran}, expected {expect}")
+        for k, c in ran.items():
+            total[k] = total.get(k, 0) + c
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    bad = [leaf for name in ("params", "mu", "nu", "ema") for leaf in tree_leaves(getattr(state, name))
+           if not bool(torch.isfinite(leaf).all())]
+    del state, step
+    torch.cuda.empty_cache()
+    b, n = mel.shape[:2]
+    out = {"label": label, "batch": b, "frames": n, "ms_per_update": rows[-1][2],
+           "walls_ms": [r[2] for r in rows], "peak_gb": peak,
+           "state_gb": sum(state_bytes.values()) / 1e9,
+           "state_bytes": state_bytes, "losses": [r[0] for r in rows],
+           "grad_norms": [r[1] for r in rows], "launches_per_update": expect, "ran": total}
+    log(f"  {label} b={b} n={n}: {out['ms_per_update']:.1f} ms the last of {updates} updates "
+        f"({', '.join(f'{w:.1f}' for w in out['walls_ms'])}), peak {peak:.2f} GB allocated, "
+        f"state {out['state_gb']:.3f} GB, losses {out['losses']}, grad norms "
+        f"{out['grad_norms']}, launches an update {expect} [{gpu}]")
+    if bad or not all(np.isfinite(r[0]) and np.isfinite(r[1]) for r in rows):
+        raise AssertionError(f"{label}: a non-finite loss, grad norm or state leaf")
+    return out
+
+
+def upsample_two_lengths(pipe, gpu: str) -> None:
+    """Two requests in one captured bucket with durations UPSAMPLE_TOTALS:
+    each graphed generate equals the eager one on its inputs (bit-equal, or
+    phase 16's tolerances), 0 host launches; the text each graph read is
+    spread over that request's own duration."""
+    import torch
+    from f5tts_tpu_torch.models import cfm, dit
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.scripts.common import REF_TEXT, REQUESTS, synthetic_ref_wav
+
+    ref = synthetic_ref_wav()
+    keys = set()
+    for i, total in enumerate(UPSAMPLE_TOTALS):
+        req = pipe.prepare_chunk(ref, REF_TEXT + " ", REQUESTS[1], seed=i, nfe_step=NFE,
+                                 cfg_strength=2.0, sway_sampling_coef=-1.0,
+                                 fix_duration=(total + 0.5) * pipe.hop / pipe.sr)
+        req.pop("ref_frames")
+        if req.pop("total") != total:
+            raise AssertionError(f"upsampling check: the request is not {total} frames")
+        key = (*req["cond"].shape[:2], req["text"].shape[1], NFE)
+        if key not in pipe.graphs:
+            raise AssertionError(f"upsampling check: {key} was not captured before")
+        keys.add(key)
+        mel_e = cfm.cfm_sample(pipe.params, pipe.statics, req["cond"], req["text"], req["lens"],
+                               req["duration"], req["t_grid"].to(pipe.device), y0=req["y0"],
+                               cfg_strength=2.0, dtype=pipe.dtype, backbone=pipe.bdef)
+        wav_e = pipe.vocoder(mel_e.transpose(1, 2))
+        _build.reset_launches()
+        mel_g, wav_g = pipe.fused_generate(**req)
+        torch.cuda.synchronize()
+        if _build.launches():
+            raise AssertionError(f"upsampling check: a replay launched {_build.launches()}")
+        rel = float((mel_g - mel_e).norm() / mel_e.norm())
+        wmax = float((wav_g - wav_e).abs().max())
+        emb = dit.text_embedding(pipe.params["text_embed"], pipe.statics, req["text"],
+                                 key[1], lengths=req["duration"], dtype=pipe.dtype)
+        live = int(emb[0].abs().amax(dim=-1).gt(0).sum())
+        log(f"  upsampled request of {total} frames in bucket {key}: graphed vs eager mel "
+            f"rel-L2 {rel:.3e}, wav max-abs {wmax:.3e}; its text covers {live} frames [{gpu}]")
+        if not (rel <= GRAPH_MEL_REL_TOL and wmax <= GRAPH_WAV_ABS_TOL and live == total):
+            raise AssertionError(f"upsampling check at {total} frames: graphed against eager "
+                                 f"{rel} / {wmax}, text over {live} frames")
+    if len(keys) != 1:
+        raise AssertionError(f"upsampling check: the two requests took keys {keys}")
+
+
+def phase19_inference_flags(dev, gpu: str) -> tuple[dict, dict]:
+    """(a) F5TTS_v1_Base with the long skip and average upsampling through
+    the pipeline, graphed against eager, two lengths in one bucket, depth 2
+    card against CPU."""
+    import torch
+    from f5tts_tpu_torch.scripts.common import REQUESTS, base_models
+
+    arch, params, vocos_params = base_models(**ARCH_FLAGS)
+    expect = generate_launches("DiT", arch)
+    pipe = make_pipeline(dev, "DiT", arch, params, vocos_params)
+    ran = run_requests(pipe, [(REQUESTS[0], 1014, expect), (REQUESTS[1], 4086, expect)], gpu)
+    del pipe
+    torch.cuda.empty_cache()
+    pipe = make_pipeline(dev, "DiT", arch, params, vocos_params)
+    row = compare_graph_eager(pipe, expect, 1014, gpu)
+    upsample_two_lengths(pipe, gpu)
+    del pipe
+    torch.cuda.empty_cache()
+    rel, _ = phase_card_vs_cpu(dev, arch, params, vocos_params, "DiT",
+                               step_launches("DiT", dataclasses.replace(arch, depth=2)))
+    return ran, {"graph": row, "depth2_mel_rel_l2": rel}
+
+
+def reference_state_dict(params, extra_seed: int = 19) -> dict:
+    """The DiT params in the reference's key layout under "ema_model."
+    (`train.checkpoint.to_reference_keys`), numpy f32, with keys a reference
+    checkpoint carries that the importer ignores."""
+    from f5tts_tpu_torch.train.checkpoint import to_reference_keys
+
+    rng = np.random.default_rng(extra_seed)
+    sd = to_reference_keys(params, prefix="ema_model.")
+    sd["ema_model.mel_spec.mel_stft.mel_scale.fb"] = rng.standard_normal((513, 100)).astype(
+        np.float32)
+    sd["ema_model.transformer.rotary_embed.freqs"] = rng.standard_normal((32,)).astype(np.float32)
+    return sd
+
+
+def phase19_importer(dev, gpu: str) -> tuple[dict, dict]:
+    """(b) A reference-layout checkpoint of F5TTS_v1_Base with qk-norm and
+    the long skip, written as safetensors, read back through the audited
+    importer onto the card, exported again bit for bit, and one request."""
+    import shutil
+    import tempfile
+
+    import torch
+    from f5tts_tpu_torch.compat import convert_backbone_state_dict_audited, load_torch_checkpoint
+    from f5tts_tpu_torch.config import model_config_from_dict
+    from f5tts_tpu_torch.infer.utils_infer import load_checkpoint
+    from f5tts_tpu_torch.scripts.common import REQUESTS, base_models
+    from f5tts_tpu_torch.train.checkpoint import to_reference_keys, write_safetensors_f32
+
+    cfg = model_config_from_dict({"model": {"name": "F5TTS_v1_Base", "backbone": "DiT", "arch": {
+        "dim": 1024, "depth": 22, "heads": 16, "ff_mult": 2, "text_dim": 512,
+        "text_mask_padding": True, "qk_norm": "rms_norm", "conv_layers": 4, "pe_attn_head": None,
+        "long_skip_connection": True, "checkpoint_activations": False}}})
+    arch = dataclasses.replace(cfg.arch, text_num_embeds=2545)
+    _, params, vocos_params = base_models(qk_norm="rms_norm", long_skip_connection=True)
+    sd = reference_state_dict(params)
+    del params
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ref_")
+    try:
+        path = str(Path(tmp) / "model.safetensors")
+        t0 = time.perf_counter()
+        write_safetensors_f32(sd, path)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, unread = convert_backbone_state_dict_audited(load_torch_checkpoint(path), arch)
+        audit_s = time.perf_counter() - t0
+        if unread:
+            raise AssertionError(f"importer audit: unread weight keys {unread[:8]}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_checkpoint(arch, path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        size_gb = Path(path).stat().st_size / 1e9
+    finally:
+        shutil.rmtree(tmp)
+    back = to_reference_keys(loaded, prefix="ema_model.")
+    want = {k: v for k, v in sd.items() if "mel_spec." not in k and "rotary_embed" not in k}
+    if sorted(back) != sorted(want):
+        raise AssertionError(f"export: keys differ {sorted(set(back) ^ set(want))[:8]}")
+    differ = [k for k in want if not np.array_equal(back[k], want[k])]
+    n_norm = sum(1 for k in back if k.endswith(("q_norm.weight", "k_norm.weight")))
+    skip = any(k.endswith("long_skip_connection.weight") for k in back)
+    log(f"  reference checkpoint: {len(sd)} keys, {size_gb:.3f} GB written in {write_s:.2f} s; "
+        f"read + audited conversion {audit_s:.2f} s (0 unread weight keys); load_checkpoint onto "
+        f"the card {load_s:.2f} s; export back: {len(back)} tensors ({n_norm} qk-norm weights, "
+        f"long skip {skip}), {len(differ)} differ [{gpu}]")
+    if n_norm != 44 or not skip:
+        raise AssertionError(f"export: {n_norm} qk-norm weights, long skip {skip}")
+    if differ:
+        raise AssertionError(f"export: {len(differ)} tensors differ, e.g. {differ[:4]}")
+    expect = {"flash_attention": 22 * NFE, "rms_norm": 44 * NFE, "adaln_norm": 45 * NFE,
+              "conv_pos_embedding": 2 * NFE}
+    pipe = make_pipeline(dev, "DiT", arch, loaded, vocos_params)
+    del loaded
+    ran = run_requests(pipe, [(REQUESTS[0], 1014, expect)], gpu)
+    del pipe
+    torch.cuda.empty_cache()
+    return ran, {"keys": len(sd), "file_gb": size_gb, "write_s": write_s,
+                 "read_audit_s": audit_s, "load_checkpoint_s": load_s}
+
+
+def phase19_checkpointing(dev, gpu: str) -> tuple[dict, dict]:
+    """(c) F5TTS_v1_Base at REMAT_BATCH without checkpointing and under each
+    policy (2 updates each, the same weights, data and draws), b = 64 x 1024
+    under "nothing", E2TTS_Base and MMDiT_Base under "nothing", and
+    bf16_state."""
+    import torch
+    from f5tts_tpu_torch.scripts.common import base_models
+
+    ran: dict[str, int] = {}
+    out: dict = {"dit": []}
+
+    def add(row):
+        for k, c in row.pop("ran").items():
+            ran[k] = ran.get(k, 0) + c
+        return row
+
+    arch, params, _ = base_models()
+    batch = train_batch(*REMAT_BATCH, "F5TTS_v1_Base")
+    base = add(train_updates(dev, "DiT", arch, params, batch, 2, dit_update_launches(arch.depth),
+                             "DiT, no checkpointing", gpu))
+    out["dit"].append(base)
+    for policy in REMAT_POLICIES:
+        arch_p = dataclasses.replace(arch, checkpoint_activations=True, remat_policy=policy)
+        row = add(train_updates(dev, "DiT", arch_p, params, batch, 2,
+                                dit_update_launches(arch.depth, policy),
+                                f"DiT, checkpointing '{policy}'", gpu))
+        worst = max(abs(a - b) / abs(b) for a, b in zip(row["losses"] + row["grad_norms"],
+                                                        base["losses"] + base["grad_norms"]))
+        row["rel_to_plain"] = worst
+        log(f"  '{policy}': loss and grad norm within {worst:.3e} of the run without "
+            f"checkpointing (tol {REMAT_REL_TOL}); peak {row['peak_gb']:.2f} against "
+            f"{base['peak_gb']:.2f} GB, {row['ms_per_update']:.1f} against "
+            f"{base['ms_per_update']:.1f} ms an update")
+        if not worst <= REMAT_REL_TOL:
+            raise AssertionError(f"checkpointing '{policy}': loss / grad norm off by {worst}")
+        out["dit"].append(row)
+    arch_n = dataclasses.replace(arch, checkpoint_activations=True, remat_policy="nothing")
+    out["dit_64x1024"] = add(train_updates(dev, "DiT", arch_n, params,
+                                           train_batch(64, 1024, "F5TTS_v1_Base"), 1,
+                                           dit_update_launches(arch.depth, "nothing"),
+                                           "DiT, checkpointing 'nothing'", gpu))
+    out["bf16_state"] = add(train_updates(dev, "DiT", arch, params,
+                                          train_batch(16, 1024, "F5TTS_v1_Base"), 2,
+                                          dit_update_launches(arch.depth), "DiT, bf16_state",
+                                          gpu, state_dtype=torch.bfloat16))
+    sb = out["bf16_state"]["state_bytes"]
+    n_params = sb["params"] // 4
+    log(f"  bf16_state: params {sb['params'] / 1e9:.3f} GB f32, mu / nu / EMA "
+        f"{sb['mu'] / 1e9:.3f} / {sb['nu'] / 1e9:.3f} / {sb['ema'] / 1e9:.3f} GB in bf16 "
+        f"({n_params} parameters; f32 state {16 * n_params / 1e9:.3f} GB, saved "
+        f"{(16 * n_params - sum(sb.values())) / 1e9:.3f} GB)")
+    if not sb["mu"] == sb["nu"] == sb["ema"] == 2 * n_params:
+        raise AssertionError(f"bf16_state: state bytes {sb}")
+    del params
+    torch.cuda.empty_cache()
+    for model, backbone, expect in (
+            ("E2TTS_Base", "UNetT", {"fused_qkv_rope_attention_lse": 48,
+                                     "fused_qkv_rope_attention_bwd": 24, "rms_norm": 97,
+                                     "conv_pos_embedding": 1}),
+            ("MMDiT_Base", "MMDiT", {"fused_qkv_rope_attention_bias_lse": 43,
+                                     "fused_qkv_rope_attention_bias_bwd": 22, "adaln_norm": 172,
+                                     "conv_pos_embedding": 1})):
+        arch_b, params_b, _ = base_models(model=model, checkpoint_activations=True,
+                                          remat_policy="nothing")
+        out[model] = add(train_updates(dev, backbone, arch_b, params_b, train_batch(16, 1024, model),
+                                       2, expect, f"{model}, checkpointing 'nothing'", gpu))
+        del params_b
+        torch.cuda.empty_cache()
+    return ran, out
+
+
+# (label, preset, arch overrides, fuse_qkv, launches an update, the depth-2
+# check's frames and launches)
+NEW_TRAIN_CONFIGS = (
+    ("F5TTS_v1_Small", "F5TTS_v1_Small", {}, True,
+     {"fused_qkv_rope_attention_lse": 18, "fused_qkv_rope_attention_bwd": 18, "adaln_norm": 37,
+      "grouped_conv1d": 2},
+     (512, {"fused_qkv_rope_attention_lse": 2, "fused_qkv_rope_attention_bwd": 2,
+            "adaln_norm": 5, "grouped_conv1d": 2})),
+    ("F5TTS_v1_Base qk-norm", "F5TTS_v1_Base", {"qk_norm": "rms_norm"}, True,
+     {"flash_attention_lse": 22, "flash_attention_bwd": 22, "rms_norm": 44, "adaln_norm": 45,
+      "conv_pos_embedding": 1},
+     (512, {"flash_attention_lse": 2, "flash_attention_bwd": 2, "rms_norm": 4,
+            "adaln_norm": 5, "conv_pos_embedding": 1})),
+    ("E2TTS_Base qk-norm", "E2TTS_Base", {"qk_norm": "rms_norm"}, True,
+     {"flash_attention_lse": 24, "flash_attention_bwd": 24, "rms_norm": 97,
+      "conv_pos_embedding": 1},
+     (1023, {"flash_attention_lse": 2, "flash_attention_bwd": 2, "rms_norm": 9,
+             "conv_pos_embedding": 1})),
+    ("MMDiT_Base qk-norm", "MMDiT_Base", {"qk_norm": "rms_norm"}, True,
+     {"masked_flash_attention": 22, "rms_norm": 88, "adaln_norm": 88, "conv_pos_embedding": 1},
+     (512, {"masked_flash_attention": 2, "rms_norm": 8, "adaln_norm": 8,
+            "conv_pos_embedding": 1})),
+    ("F5TTS_v1_Base fuse_qkv=False", "F5TTS_v1_Base", {}, False,
+     {"flash_attention_lse": 22, "flash_attention_bwd": 22, "adaln_norm": 45,
+      "conv_pos_embedding": 1},
+     (512, {"flash_attention_lse": 2, "flash_attention_bwd": 2, "adaln_norm": 5,
+            "conv_pos_embedding": 1})),
+)
+
+
+def phase19_new_training(dev, gpu: str) -> tuple[dict, list]:
+    """(d) Training of the Small preset, the qk-norm DiT / UNetT / MMDiT and
+    the unfused-QKV DiT: 3 updates at 16 x 1024 (and the qk-norm DiT at
+    4 x 4096), then each at depth 2 card bf16 against CPU f32 (phase 6)."""
+    import torch
+    from f5tts_tpu_torch.config import PRESETS
+    from f5tts_tpu_torch.scripts.common import base_models
+
+    ran: dict[str, int] = {}
+    rows = []
+    for label, model, over, fuse, expect, (n2, expect2) in NEW_TRAIN_CONFIGS:
+        backbone = PRESETS[model].backbone
+        arch, params, _ = base_models(model=model, **over)
+        cells = [(16, 1024, 3)] + ([(4, 4096, 1)] if label == "F5TTS_v1_Base qk-norm" else [])
+        for b, n, updates in cells:
+            row = train_updates(dev, backbone, arch, params, train_batch(b, n, model), updates,
+                                expect, label, gpu, fuse_qkv=fuse)
+            for k, c in row.pop("ran").items():
+                ran[k] = ran.get(k, 0) + c
+            rows.append(row)
+        del params
+        torch.cuda.empty_cache()
+        arch2, params2, _ = base_models(model=model, depth=2, **over)
+        phase_train_card_vs_cpu(dev, arch2, params2, backbone, n2, expect2, fuse_qkv=fuse)
+    return ran, rows
+
+
+def phase_arch_flags(dev, gpu: str) -> tuple[dict, dict]:
+    """Phase 19. Returns (the launches the card ran on these paths, the numbers)."""
+    import torch
+
+    launches: dict[str, int] = {}
+    out = {}
+    for part, fn in (("inference_flags", phase19_inference_flags),
+                     ("importer", phase19_importer),
+                     ("checkpointing", phase19_checkpointing),
+                     ("new_training", phase19_new_training)):
+        t0 = time.perf_counter()
+        ran, out[part] = fn(dev, gpu)
+        for k, c in ran.items():
+            launches[k] = launches.get(k, 0) + c
+        log(f"  phase 19 {part}: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
 # phases 5, 6, 10, 11 and 12
 # ---------------------------------------------------------------------------
 
@@ -2199,11 +2626,12 @@ def phase_train(dev, arch, params, gpu: str, backbone: str = "DiT", cells=DIT_TR
 
 
 def phase_train_card_vs_cpu(dev, arch, params, backbone: str = "DiT", n: int = 512,
-                            expect=None, flat_max=None) -> None:
+                            expect=None, flat_max=None, fuse_qkv: bool = True) -> None:
     """One depth-2 grad step, the same draws, on the card in bf16 (the
     kernels, `expect` launches) and the CPU in f32 (the plain versions).
     `flat_max` lowers modules.FLAT_ATTN_MAX_N for the run (the head-layout
-    gate of the UNetT at n rows)."""
+    gate of the UNetT at n rows); `fuse_qkv` False trains the unfused
+    projections."""
     import torch
     from f5tts_tpu_torch.models import modules
     from f5tts_tpu_torch.models.cfm import BACKBONES, make_draws
@@ -2229,7 +2657,7 @@ def phase_train_card_vs_cpu(dev, arch, params, backbone: str = "DiT", n: int = 5
     try:
         for where, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
             step = make_train_step(bdef.statics_cls(arch2, where), make_optimizer(7.5e-5, 10, 100),
-                                   dtype=dtype, backbone=bdef)
+                                   dtype=dtype, backbone=bdef, fuse_qkv=fuse_qkv)
             _build.reset_launches()
             t0 = time.perf_counter()
             loss, grads = step.grad_step(tree_cast(p2, torch.float32, where), mel.to(where),
@@ -2405,6 +2833,15 @@ def main() -> int:
     for name, count in ran.items():
         launches[name] = launches.get(name, 0) + count
     log(f"  phase 18: {json.dumps(option_rows)}")
+    torch.cuda.empty_cache()
+
+    log("phase 19: the long skip and average upsampling, the reference-key importer, "
+        "activation checkpointing, bf16 state, training of the Small, qk-norm and unfused "
+        "configurations")
+    ran, flag_rows = phase_arch_flags(dev, gpu)
+    for name, count in ran.items():
+        launches[name] = launches.get(name, 0) + count
+    log(f"  phase 19: {json.dumps(flag_rows)}")
     torch.cuda.empty_cache()
 
     idle = [name for name in rows if not launches.get(name)]

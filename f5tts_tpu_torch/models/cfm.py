@@ -109,8 +109,9 @@ def cfm_loss(params, statics, mel: torch.Tensor, text: torch.Tensor, lens: torch
              backbone: BackboneDef = DIT) -> tuple[torch.Tensor, dict]:
     """(scalar f32 loss, aux) for target mel [b, n, d] (x1), text [b, nt] ids
     (-1 padded), lens [b] valid frames, through `backbone` (`statics` are
-    its `statics_cls`'s). `params` must hold the fused to_qkv
-    (`fuse_backbone_qkv`). Pass `draws` or a `generator`."""
+    its `statics_cls`'s). `params` hold the fused to_qkv
+    (`fuse_backbone_qkv`: the flat attention kernels) or the unfused to_q /
+    to_k / to_v (the head layout). Pass `draws` or a `generator`."""
     b, n, d = mel.shape
     if draws is None:
         if generator is None:

@@ -7,8 +7,13 @@
   two launches of K10 at the dim-768 presets' 48 channels a group).
   Both also serve the UNetT in its forms: no per-sample `lengths` (the text
   is neither cut nor masked per sample; the conv runs over every row).
-- dit_apply: the blocks (K1, K3; K6 and K7 under qk-norm) + final AdaLN (K1)
-  + projection.
+- text_embedding_average_upsampling: the live text tokens spread evenly
+  over each sample's frames (`average_upsample_text`, an integer gather on
+  the device, from the length the forward is given).
+- dit_apply: the blocks (K1, K3; K6 and K7 under qk-norm; checkpointed
+  under `arch.checkpoint_activations`, `models/remat.py`), the long skip
+  (`long_skip_connection`: Linear(cat[blocks' output, their input])),
+  final AdaLN (K1) + projection.
 - dit_forward(cfg_infer=True): cond rows then uncond rows in one 2b batch;
   the uncond rows drop both the audio cond and the text.
 - precompute_t_mods: every step's AdaLN modulation at once, before the loop;
@@ -26,6 +31,7 @@ import torch.nn.functional as F
 
 from f5tts_tpu_torch.config import ModelArch
 from f5tts_tpu_torch.models import modules as m
+from f5tts_tpu_torch.models import remat
 from f5tts_tpu_torch.ops.rope import (
     precompute_freqs_cis,
     rope_flat_tables,
@@ -56,7 +62,7 @@ def init_dit(generator: torch.Generator, arch: ModelArch) -> m.Params:
     package: such a DiT is an identity until those are trained or randomised
     (`activate_zero_init`)."""
     g = generator
-    return {
+    p = {
         "time_embed": m.init_timestep_embedding(g, arch.dim),
         "text_embed": init_text_embedding(g, arch),
         "input_embed": init_input_embedding(g, arch),
@@ -65,6 +71,9 @@ def init_dit(generator: torch.Generator, arch: ModelArch) -> m.Params:
         "norm_out": m.init_adaln_final(g, arch.dim, zero=True),
         "proj_out": m.init_linear(g, arch.dim, arch.mel_dim, zero=True),
     }
+    if arch.long_skip_connection:
+        p["long_skip"] = m.init_linear(g, arch.dim * 2, arch.dim, bias=False)
+    return p
 
 
 def activate_zero_init(params: m.Params, generator: torch.Generator,
@@ -130,7 +139,37 @@ def text_embedding(p: m.Params, statics: DiTStatics, text: torch.Tensor, seq_len
         else:
             for blk in p["blocks"]:
                 emb = m.convnext_v2_block(blk, emb)
+    if arch.text_embedding_average_upsampling:
+        target = lengths if lengths is not None else torch.full(
+            (b,), seq_len, dtype=torch.int32, device=text.device)
+        emb = average_upsample_text(emb, ~pad_mask, target)
     return emb
+
+
+def average_upsample_text(text: torch.Tensor, text_mask: torch.Tensor,
+                          target_lens: torch.Tensor) -> torch.Tensor:
+    """Zipvoice-style average upsampling (JAX dit.py:158-196): a row's
+    text_len live tokens [b, n, d] (text_mask [b, n]) are compacted to the
+    front, and token j covers audio_len // text_len frames, the last
+    audio_len % text_len tokens one more; frames >= target_lens[b] and rows
+    without a live token are zero. A gather: no host value, so a CUDA graph
+    can take target_lens from its input buffers."""
+    b, n, _ = text.shape
+    text_lens = text_mask.sum(dim=1)
+    order = torch.argsort((~text_mask).to(torch.int8), dim=1, stable=True)  # live ids first
+    compact = torch.gather(text, 1, order[:, :, None].expand_as(text))
+    pos = torch.arange(n, device=text.device)[None, :]
+    tl = torch.clamp(text_lens, min=1)[:, None]
+    al = torch.clamp(target_lens.long(), min=1)[:, None]
+    base, rem = al // tl, al % tl
+    cutoff = (tl - rem) * base
+    tok = torch.where(pos < cutoff, pos // torch.clamp(base, min=1),
+                      (tl - rem) + (pos - cutoff) // torch.clamp(base + 1, min=1))
+    tok = torch.clamp(tok, 0, n - 1)
+    out = torch.gather(compact, 1, tok[:, :, None].expand_as(text))
+    valid = (pos < target_lens[:, None]) & (text_lens[:, None] > 0)
+    return torch.where(valid[:, :, None], out, torch.zeros((), dtype=out.dtype,
+                                                           device=out.device))
 
 
 def input_embedding(p: m.Params, x: torch.Tensor, cond: torch.Tensor,
@@ -149,14 +188,18 @@ def input_embedding(p: m.Params, x: torch.Tensor, cond: torch.Tensor,
 def dit_apply(params: m.Params, statics: DiTStatics, x: torch.Tensor,
               block_mods, final_mod: torch.Tensor,
               lengths: Optional[torch.Tensor]) -> torch.Tensor:
-    """Blocks + final AdaLN + proj_out. block_mods[i] is block i's [b, 6*dim]."""
+    """Blocks (each checkpointed under `arch.checkpoint_activations`) + the
+    long skip + final AdaLN + proj_out. block_mods[i] is block i's [b, 6*dim]."""
     arch = statics.arch
     n = x.shape[1]
     rope_tabs = rope_flat_tables(statics.rope_angles, n, arch.heads, arch.pe_attn_head,
                                  dtype=x.dtype)
+    residual = x
     for blk, mods in zip(params["blocks"], block_mods):
-        x = m.dit_block(blk, x, mods, arch.heads, rope_tabs, lengths, statics.rope_angles,
-                        arch.pe_attn_head)
+        x = remat.run_block(arch, m.dit_block, blk, x, mods, arch.heads, rope_tabs, lengths,
+                            statics.rope_angles, arch.pe_attn_head)
+    if arch.long_skip_connection:
+        x = m.linear(params["long_skip"], torch.cat([x, residual], dim=-1))
     x = m.adaln_final(x, final_mod)
     return m.linear(params["proj_out"], x)
 

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from f5tts_tpu_torch.config import ModelArch
 from f5tts_tpu_torch.models import modules as m
+from f5tts_tpu_torch.models import remat
 from f5tts_tpu_torch.ops.attention import fused_qkv_rope_attention_bias, masked_flash_attention
 from f5tts_tpu_torch.ops.rope import (
     apply_rotary,
@@ -144,15 +145,18 @@ def _joint_attention(p: m.Params, x, c, heads: int,
     to_out_c and returns no text stream."""
     n = x.shape[1]
     if "to_qkv" in p and "q_norm" not in p:
-        qkv = torch.cat([m.linear(p["to_qkv"], x), m.linear(p["to_qkv_c"], c)], dim=1)
+        with remat.tagged("qkv"):
+            qkv_x, qkv_c = m.linear(p["to_qkv"], x), m.linear(p["to_qkv_c"], c)
+        qkv = torch.cat([qkv_x, qkv_c], dim=1)
         o = fused_qkv_rope_attention_bias(qkv, joint_tabs[0], joint_tabs[1], kmask, heads)
     else:
-        if "to_qkv" in p:
-            qkv_x = m.linear(p["to_qkv"], x).chunk(3, dim=-1)
-            qkv_c = m.linear(p["to_qkv_c"], c).chunk(3, dim=-1)
-        else:
-            qkv_x = [m.linear(p[name], x) for name in ("to_q", "to_k", "to_v")]
-            qkv_c = [m.linear(p[name], c) for name in ("to_q_c", "to_k_c", "to_v_c")]
+        with remat.tagged("qkv"):
+            if "to_qkv" in p:
+                qkv_x = m.linear(p["to_qkv"], x).chunk(3, dim=-1)
+                qkv_c = m.linear(p["to_qkv_c"], c).chunk(3, dim=-1)
+            else:
+                qkv_x = [m.linear(p[name], x) for name in ("to_q", "to_k", "to_v")]
+                qkv_c = [m.linear(p[name], c) for name in ("to_q_c", "to_k_c", "to_v_c")]
         qk = (qkv_x[0], qkv_x[1], qkv_c[0], qkv_c[1])
         if "q_norm" in p:  # K6 reads q and k in place from the projections
             q, k, cq, ck = (m.rms_norm(p[name], m.head_view(t, heads)) for name, t in
@@ -317,9 +321,11 @@ def mmdit_forward(params: m.Params, statics: MMDiTStatics, x: torch.Tensor,
             t_emb = torch.cat([t_emb, t_emb], dim=0)
         t_mods = mmdit_hoist_t_mods(params, t_emb)
 
+    # checkpoint_activations covers the depth - 1 uniform blocks, not the
+    # context_pre_only last one (JAX mmdit.py:415-428)
     for blk, mx, mc in zip(params["blocks"], t_mods["blocks_x"], t_mods["blocks_c"]):
-        h, c = _mmdit_block(blk, h, c, mx, mc, arch.heads, kmask, joint_tabs,
-                            statics.rope_angles)
+        h, c = remat.run_block(arch, _mmdit_block, blk, h, c, mx, mc, arch.heads, kmask,
+                               joint_tabs, statics.rope_angles)
     h, _ = _mmdit_block(params["last_block"], h, c, t_mods["last_x"], t_mods["last_c"],
                         arch.heads, kmask, joint_tabs, statics.rope_angles,
                         context_pre_only=True)

@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from f5tts_tpu_torch.models.remat import tagged
 from f5tts_tpu_torch.ops.adaln_norm import adaln_norm, adaln_norm_quant, rms_norm_quant
 from f5tts_tpu_torch.ops.adaln_norm import rms_norm as rms_norm_kernel
 from f5tts_tpu_torch.ops.attention import FLAT_ATTN_MAX_N, attention, fused_qkv_rope_attention
@@ -337,18 +338,21 @@ def self_attention(p: Params, x, heads: int, rope_tabs: tuple,
     heads. Unfused int8 q / k / v share one quantize of their input (the
     norm's K1Q / K6Q before this), as the JAX package does. Both
     layouts are differentiable: K4 is K3's backward; under grad the head
-    layout runs K7's lse mode and K9 (without grad, K7 alone)."""
+    layout runs K7's lse mode and K9 (without grad, K7 alone). The
+    projections run `tagged("qkv")` (what remat's "attn" policy keeps)."""
     b, n, _ = x.shape
     lens = (torch.full((b,), n, dtype=torch.int32, device=x.device) if lengths is None
             else lengths.to(torch.int32))
     if "to_qkv" in p and "q_norm" not in p and n <= FLAT_ATTN_MAX_N:
-        qkv = linear(p["to_qkv"], x)
+        with tagged("qkv"):
+            qkv = linear(p["to_qkv"], x)
         o = fused_qkv_rope_attention(qkv.contiguous(), rope_tabs[0], rope_tabs[1], lens, heads)
     else:
-        if "to_qkv" in p:
-            q, k, v = linear(p["to_qkv"], x).chunk(3, dim=-1)
-        else:  # to_q / to_k / to_v; int8 ones with the hedge each quantize their masked rows
-            q, k, v = (linear(leaf, x) for leaf in attention_inputs(p))
+        with tagged("qkv"):
+            if "to_qkv" in p:
+                q, k, v = linear(p["to_qkv"], x).chunk(3, dim=-1)
+            else:  # to_q / to_k / to_v; int8 ones with the hedge each quantize their masked rows
+                q, k, v = (linear(leaf, x) for leaf in attention_inputs(p))
         if "q_norm" in p:
             q = rms_norm(p["q_norm"], head_view(q, heads))
             k = rms_norm(p["k_norm"], head_view(k, heads))

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from f5tts_tpu_torch.config import ModelArch
 from f5tts_tpu_torch.models import dit
 from f5tts_tpu_torch.models import modules as m
+from f5tts_tpu_torch.models import remat
 from f5tts_tpu_torch.ops.rope import precompute_freqs_cis, rope_flat_tables, rope_freqs_interleaved
 
 TEXT_PRECOMPUTE_MAX_POS = 4096  # reference unett.py:46
@@ -148,12 +149,14 @@ def unett_forward(params: m.Params, statics: UNetTStatics, x: torch.Tensor,
     rope_tabs = rope_flat_tables(statics.rope_angles, n_pad, arch.heads, arch.pe_attn_head,
                                  dtype=h.dtype)
 
+    # under checkpoint_activations each block is checkpointed; the skip
+    # stack stays outside (the first half's block inputs, kept as they are)
     skips = []
     for blk in params["first_half"]:
         skips.append(h)  # the pre-block state is the skip
-        h = _block(blk, h, statics, rope_tabs, lengths_tok)
+        h = remat.run_block(arch, _block, blk, h, statics, rope_tabs, lengths_tok)
     for blk, skip in zip(params["second_half"], reversed(skips)):
-        h = _block(blk, h, statics, rope_tabs, lengths_tok, skip=skip)
+        h = remat.run_block(arch, _block, blk, h, statics, rope_tabs, lengths_tok, skip)
 
     # strip the time token and the padding
     h = m.rms_norm(params["norm_out"], h, eps=RMS_EPS)[:, 1:n + 1]

@@ -48,6 +48,11 @@ runs K7's lse mode (the row log-sum-exp saved, as the Pallas forward's
 `_flash_bwd_fused_kernel` and the split `_flash_bwd_dq_kernel` /
 `_flash_bwd_dkv_kernel`), plain version `flash_attention_bwd_ref`.
 
+Under grad the four forwards (K3's, K5's and K7's lse modes, K11) run as
+`torch.library` operators `f5tts::...` (`TRAINING_ATTENTION_OPS`) inside
+their autograd Functions, so activation checkpointing (`models/remat.py`)
+can name them and keep their outputs; inference calls the kernels directly.
+
 `masked_flash_attention` is head-layout attention [b, h, n, d] under an
 arbitrary [b, n] key mask on already-normed and roped q/k (MMDiT joint
 attention with qk-norm or unfused projections): kernel K11 (csrc/attention.cu,
@@ -307,12 +312,26 @@ def fused_qkv_rope_attention_bwd(qkv, cos, sin, lengths, out, lse, dout, heads: 
                      qkv, cos, sin, lengths, out, lse, dout, heads)
 
 
+def _attention_op(name: str, schema: str, fn):
+    """`fn` registered as the operator f5tts::`name`: what the training
+    forwards call under grad, so activation checkpointing
+    (`models/remat.py`) can name the attention and keep its outputs."""
+    return torch.library.custom_op(f"f5tts::{name}", fn, mutates_args=(), schema=schema)
+
+
+_flat_lse_op = _attention_op(
+    "fused_qkv_rope_attention_lse",
+    "(Tensor qkv, Tensor cos, Tensor sin, Tensor lengths, int heads) -> (Tensor, Tensor)",
+    lambda qkv, cos, sin, lengths, heads: fused_qkv_rope_attention_fwd(
+        qkv, cos, sin, lengths, heads, return_lse=True))
+
+
 class _FusedQKVRopeAttention(torch.autograd.Function):
     """K3 forward in its lse mode, K4 backward (plain versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, qkv, cos, sin, lengths, heads):
-        out, lse = fused_qkv_rope_attention_fwd(qkv, cos, sin, lengths, heads, return_lse=True)
+        out, lse = _flat_lse_op(qkv, cos, sin, lengths, heads)
         ctx.save_for_backward(qkv, cos, sin, lengths, out, lse)
         ctx.heads = heads
         return out
@@ -391,12 +410,19 @@ def fused_qkv_rope_attention_bias_bwd(qkv, cos, sin, kmask, out, lse, dout,
                      qkv, cos, sin, kmask, out, lse, dout, heads)
 
 
+_flat_bias_lse_op = _attention_op(
+    "fused_qkv_rope_attention_bias_lse",
+    "(Tensor qkv, Tensor cos, Tensor sin, Tensor kmask, int heads) -> (Tensor, Tensor)",
+    lambda qkv, cos, sin, kmask, heads: fused_qkv_rope_attention_bias_fwd(
+        qkv, cos, sin, kmask, heads, return_lse=True))
+
+
 class _FusedQKVRopeAttentionBias(torch.autograd.Function):
     """K5 forward in its lse mode, K8 backward (plain versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, qkv, cos, sin, kmask, heads):
-        out, lse = fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, heads, return_lse=True)
+        out, lse = _flat_bias_lse_op(qkv, cos, sin, kmask, heads)
         ctx.save_for_backward(qkv, cos, sin, kmask, out, lse)
         ctx.heads = heads
         return out
@@ -536,12 +562,18 @@ def flash_attention_bwd(q, k, v, lengths, o, lse, dout) -> tuple:
     return dq, dk, dv
 
 
+_flash_lse_op = _attention_op(
+    "flash_attention_lse",
+    "(Tensor q, Tensor k, Tensor v, Tensor lengths) -> (Tensor, Tensor)",
+    lambda q, k, v, lengths: flash_attention_fwd(q, k, v, lengths, return_lse=True))
+
+
 class _FlashAttention(torch.autograd.Function):
     """K7 forward in its lse mode, K9 backward (plain versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, lengths):
-        o, lse = flash_attention_fwd(q, k, v, lengths, return_lse=True)
+        o, lse = _flash_lse_op(q, k, v, lengths)
         ctx.save_for_backward(q, k, v, lengths, o, lse)
         return o
 
@@ -595,7 +627,7 @@ class _MaskedFlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, kmask):
         ctx.save_for_backward(q, k, v, kmask)
-        return _masked_forward(q, k, v, kmask)
+        return _masked_op(q, k, v, kmask)
 
     @staticmethod
     def backward(ctx, dout):
@@ -626,3 +658,10 @@ def _masked_forward(q, k, v, kmask) -> torch.Tensor:
     _build.check(err, "masked_flash_attention")
     _build.count("masked_flash_attention")
     return out
+
+
+_masked_op = _attention_op("masked_flash_attention",
+                           "(Tensor q, Tensor k, Tensor v, Tensor kmask) -> Tensor",
+                           lambda q, k, v, kmask: _masked_forward(q, k, v, kmask))
+# the operators the training forwards call: what remat's "attn_out" keeps
+TRAINING_ATTENTION_OPS = (_flat_lse_op, _flat_bias_lse_op, _flash_lse_op, _masked_op)

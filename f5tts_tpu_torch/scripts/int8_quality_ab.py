@@ -3,7 +3,7 @@ of f5tts_tpu/scripts/int8_quality_ab.py).
 
     python -m f5tts_tpu_torch.scripts.int8_quality_ab [--prompts 20] [--nfe 16 32]
         [--frames 1024] [--outlier-sim [--outlier-scale 100] [--outlier-channels 8]]
-        [--smooth]
+        [--smooth] [--ckpt model.safetensors]
 
 F5TTS_v1_Base on the card. Seeded prompts (prompt length in [128, 384)
 frames, a duration in [max(prompt + 256, 640), frames], a random cond and
@@ -20,8 +20,10 @@ randomised (`_activate_zero_init`: a raw AdaLN-zero DiT is the identity, and
 int8 against bf16 would compare 0 with 0); `--outlier-sim` scales a fixed
 set of residual channels in every block (`_inject_outlier_channels`), the
 heavy-tailed channels trained weights develop; `--smooth` quantizes with
-the outlier hedge. Reference checkpoints are not read. Prints one line per
-NFE and one JSON line.
+the outlier hedge. `--ckpt` reads a reference F5TTS_v1_Base checkpoint
+(.safetensors / .pt) instead, through the audited importer
+(`compat.convert_backbone_state_dict_audited`: a weight key left unread
+raises). Prints one line per NFE and one JSON line.
 """
 
 from __future__ import annotations
@@ -103,6 +105,8 @@ def main(argv=None) -> int:
     ap.add_argument("--outlier-scale", type=float, default=100.0)
     ap.add_argument("--outlier-channels", type=int, default=8)
     ap.add_argument("--smooth", action="store_true", help="quantize with the outlier hedge")
+    ap.add_argument("--ckpt", default=None,
+                    help="a reference checkpoint to read instead of random weights")
     args = ap.parse_args(argv)
 
     from f5tts_tpu_torch.config import PRESETS
@@ -117,9 +121,20 @@ def main(argv=None) -> int:
     cfg = PRESETS["F5TTS_v1_Base"]
     arch = dataclasses.replace(cfg.arch, text_num_embeds=2545)
     bdef = cfm.BACKBONES[cfg.backbone]
-    gen = torch.Generator().manual_seed(0)
-    params = _activate_zero_init(bdef.init(gen, arch), torch.Generator().manual_seed(42))
-    weights = "random-init (AdaLN activated)"
+    if args.ckpt:
+        from f5tts_tpu_torch.compat import (convert_backbone_state_dict_audited,
+                                            load_torch_checkpoint)
+
+        params, unread = convert_backbone_state_dict_audited(load_torch_checkpoint(args.ckpt),
+                                                             arch, cfg.backbone)
+        if unread:
+            raise SystemExit(f"{args.ckpt}: weight keys the converter does not read: "
+                             f"{unread[:5]}")
+        weights = "reference"
+    else:
+        gen = torch.Generator().manual_seed(0)
+        params = _activate_zero_init(bdef.init(gen, arch), torch.Generator().manual_seed(42))
+        weights = "random-init (AdaLN activated)"
     if args.outlier_sim:
         params = _inject_outlier_channels(params, torch.Generator().manual_seed(7),
                                           args.outlier_channels, args.outlier_scale)

@@ -2,6 +2,7 @@
 
     python -m f5tts_tpu_torch.scripts.train_bench [--model F5TTS_v1_Base]
         [--cells 16x1024,4x3072,37x1024] [--steps 5] [--out train_bench.json]
+        [--remat-policy none|nothing|attn_out|attn|dots] [--bf16-state]
 
 The counterpart of the JAX package's scripts/train_bench.py: the preset
 `--model` (F5TTS_v1_Base: DiT, dim 1024, depth 22, 16 x 64 heads, ff_mult 2,
@@ -11,8 +12,11 @@ weights (zero-init leaves randomised), bf16 compute, f32 params and optimizer
 state, one `TrainStep` (cfm_loss through the model's backbone -> backward ->
 clip + AdamW + EMA, the EMA update on every step) on b rows of n frames, lens
 uniform in [n/2, n]; text ids of width 256 (as the JAX bench draws them), or
-for MMDiT ceil(len / 6) ids a row (`common.synthetic_text_ids`). No
-activation checkpointing.
+for MMDiT ceil(len / 6) ids a row (`common.synthetic_text_ids`). No block is
+checkpointed by default (`--remat-policy none`, the yardstick of the
+training rows in PERF.md); any other `--remat-policy` checkpoints each block
+(`ModelArch.checkpoint_activations`) under that policy. `--bf16-state`
+stores mu / nu and the EMA in bf16.
 
 Cells (b x n), by default 16 x 1024 (the JAX bench default), the long band
 (4 x 3072: K4's and, for MMDiT, K8's long joint band; 4 x 4096 for E2TTS:
@@ -122,6 +126,11 @@ def main(argv=None) -> int:
     ap.add_argument("--cells", default=None, help="b x n cells (default: the model's)")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default=None, help="also write the JSON result here")
+    ap.add_argument("--remat-policy", default="none",
+                    choices=["none", "nothing", "attn_out", "attn", "dots"],
+                    help="checkpoint each block under this policy (none: no checkpointing)")
+    ap.add_argument("--bf16-state", action="store_true",
+                    help="store AdamW's mu / nu and the EMA in bf16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("train_bench needs a CUDA device")
@@ -136,15 +145,20 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     bdef = BACKBONES[PRESETS[args.model].backbone]
-    arch, params, _ = base_models(model=args.model)
-    state = init_train_state(params, dev)
+    remat = args.remat_policy != "none"
+    arch, params, _ = base_models(model=args.model, checkpoint_activations=remat,
+                                  remat_policy=args.remat_policy if remat else "nothing")
+    sdt = torch.bfloat16 if args.bf16_state else None
+    state = init_train_state(params, dev, moment_dtype=sdt, ema_dtype=sdt)
     n_params = sum(p.numel() for p in tree_leaves(state.params))
     del params
     step_fn = make_train_step(bdef.statics_cls(arch, dev), make_optimizer(7.5e-5, 1000, 10000),
                               ema_update_every=1, ema_update_after_step=0, backbone=bdef)
     gpu = gpu_name_and_limit()
     result = {"gpu": gpu, "torch": torch.__version__, "model": args.model,
-              "parameters": n_params, "cells": []}
+              "parameters": n_params, "cells": [],
+              "remat_policy": args.remat_policy if remat else None,
+              "bf16_state": args.bf16_state}
     for cell in (args.cells or CELLS[args.model]).split(","):
         b, n = (int(v) for v in cell.split("x"))
         row = run_cell(step_fn, state, b, n, args.steps, dev, args.model)

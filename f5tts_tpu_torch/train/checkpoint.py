@@ -103,8 +103,10 @@ def load_params(ckpt_dir: str, use_ema: bool = True, step: Optional[int] = None)
 
 def to_reference_keys(params: dict, prefix: str = "") -> dict:
     """The port's DiT params -> the reference state-dict key schema (numpy,
-    torch layouts: Linear (out, in), Conv1d (out, in/groups, k)). Other
-    backbones raise: the JAX package maps only the DiT's keys."""
+    torch layouts: Linear (out, in), Conv1d (out, in/groups, k)), qk-norm's
+    per-head weights and the long skip included (the inverse of
+    `compat.convert_f5tts_state_dict`). Other backbones raise: the JAX
+    package maps only the DiT's keys."""
     if "blocks" not in params or "last_block" in params:
         raise ValueError("the reference-key export covers the DiT only (as the JAX "
                          "_to_reference_keys); this tree is a UNetT or an MMDiT")
@@ -144,10 +146,15 @@ def to_reference_keys(params: dict, prefix: str = "") -> dict:
         for name in ("to_q", "to_k", "to_v"):
             lin(blk["attn"][name], f"{b}.attn.{name}")
         lin(blk["attn"]["to_out"], f"{b}.attn.to_out.0")
+        if "q_norm" in blk["attn"]:
+            sd[f"{b}.attn.q_norm.weight"] = arr(blk["attn"]["q_norm"]["w"])
+            sd[f"{b}.attn.k_norm.weight"] = arr(blk["attn"]["k_norm"]["w"])
         lin(blk["ff"]["in"], f"{b}.ff.ff.0.0")
         lin(blk["ff"]["out"], f"{b}.ff.ff.2")
     lin(params["norm_out"]["linear"], f"{t}.norm_out.linear")
     lin(params["proj_out"], f"{t}.proj_out")
+    if "long_skip" in params:
+        sd[f"{t}.long_skip_connection.weight"] = arr(params["long_skip"]["w"]).T
     return {prefix + k: v for k, v in sd.items()}
 
 

@@ -15,11 +15,21 @@ XLA computes them. The update runs with `torch._foreach_*` ops and updates
 the state's tensors IN PLACE (params, mu, nu, ema): the state of F5TTS_v1_Base
 is 5.4 GB in f32 and is never double-buffered.
 
-The optimizer state is kept on the unfused to_q / to_k / to_v tree; the loss
-fuses a per-step to_qkv view (`fuse_backbone_qkv(params, dtype)`), and
-autograd carries the gradient back through the concatenation. The loss runs
-through any backbone of `cfm.BACKBONES` (`backbone=`, as the JAX
-make_train_step's `backbone`): the DiT, the UNetT or the MMDiT.
+`init_train_state(moment_dtype=, ema_dtype=)` stores mu / nu and the EMA in
+a reduced dtype (bf16), as the JAX package's init_train_state: the update
+then computes each group of leaves in f32 (f32 copies of the stored ones)
+and casts the new moments and EMA back once (the JAX package computes the
+EMA in its stored dtype; here it is rounded once from f32). The params
+stay f32.
+
+The optimizer state is kept on the unfused to_q / to_k / to_v tree. With
+`fuse_qkv=True` (the default) the loss fuses a per-step to_qkv view
+(`fuse_backbone_qkv(params, dtype)`), and autograd carries the gradient back
+through the concatenation; with `fuse_qkv=False` it runs on the unfused
+projections (the head layout: RoPE on the flat q / k, then K7's lse mode
+and K9), as the JAX make_train_step(fuse_qkv=False). The loss runs through
+any backbone of `cfm.BACKBONES` (`backbone=`, as the JAX make_train_step's
+`backbone`): the DiT, the UNetT or the MMDiT.
 """
 
 from __future__ import annotations
@@ -88,12 +98,29 @@ def ema_alpha(step: int, decay: float, update_every: int, update_after_step: int
     return np.float32(decay) if step > update_after_step else np.float32(0.0)
 
 
-def init_train_state(params: dict, device=None) -> TrainState:
-    """Fresh state: f32 copies of `params` on `device`, zero moments, EMA = params."""
+def init_train_state(params: dict, device=None, moment_dtype=None, ema_dtype=None) -> TrainState:
+    """Fresh state: f32 copies of `params` on `device`, zero moments, EMA =
+    params; mu / nu stored in `moment_dtype` and the EMA in `ema_dtype`
+    (f32 when None)."""
     p = m.tree_map(lambda a: a.detach().to(device=device, dtype=torch.float32).clone(), params)
-    zeros = m.tree_map(torch.zeros_like, p)
-    return TrainState(params=p, mu=zeros, nu=m.tree_map(torch.zeros_like, p), count=0,
-                      ema=m.tree_map(torch.clone, p), step=0)
+    mdt, edt = moment_dtype or torch.float32, ema_dtype or torch.float32
+    return TrainState(params=p, mu=m.tree_map(lambda a: torch.zeros_like(a, dtype=mdt), p),
+                      nu=m.tree_map(lambda a: torch.zeros_like(a, dtype=mdt), p), count=0,
+                      ema=m.tree_map(lambda a: a.to(edt, copy=True), p), step=0)
+
+
+def _groups(leaves: list, limit: Optional[int] = 1 << 25):
+    """(start, end) of consecutive runs of `leaves` holding at most `limit`
+    elements (one leaf at least; all of them when `limit` is None): a
+    reduced-dtype state's f32 copies are a run's size, not the model's."""
+    start, size = 0, 0
+    for i, t in enumerate(leaves):
+        if limit is not None and i > start and size + t.numel() > limit:
+            yield start, i
+            start, size = i, 0
+        size += t.numel()
+    if leaves:
+        yield start, len(leaves)
 
 
 class TrainStep:
@@ -103,17 +130,19 @@ class TrainStep:
     def __init__(self, statics, hp: OptHParams, cfg: CFMConfig = CFMConfig(),
                  ema_decay: float = 0.999, ema_update_every: int = 10,
                  ema_update_after_step: int = 100, dtype=torch.bfloat16,
-                 backbone: cfm.BackboneDef = cfm.DIT):
+                 backbone: cfm.BackboneDef = cfm.DIT, fuse_qkv: bool = True):
         self.statics = statics
         self.hp = hp
         self.cfg = cfg
         self.ema = (ema_decay, ema_update_every, ema_update_after_step)
         self.dtype = dtype
         self.backbone = backbone
+        self.fuse_qkv = fuse_qkv
 
     def loss_fn(self, params, mel, text, lens, generator=None, draws=None) -> torch.Tensor:
-        fused = m.fuse_backbone_qkv(params, dtype=self.dtype)
-        loss, _ = cfm.cfm_loss(fused, self.statics, mel, text, lens, self.cfg, self.dtype,
+        if self.fuse_qkv:
+            params = m.fuse_backbone_qkv(params, dtype=self.dtype)
+        loss, _ = cfm.cfm_loss(params, self.statics, mel, text, lens, self.cfg, self.dtype,
                                generator=generator, draws=draws, backbone=self.backbone)
         return loss
 
@@ -142,11 +171,32 @@ class TrainStep:
         alpha = ema_alpha(step, *self.ema)
 
         torch._foreach_mul_(g, gscale)
+        # f32 leaves are updated in place, a reduced-dtype leaf (bf16_state)
+        # in an f32 copy cast back once. Only copies need bounding: an f32
+        # state is one group, as 2^25-element groups cost it 17.1 ms of
+        # AdamW + EMA a step against 14.2 (PERF.md: DiT, 16 x 1024, one H100)
+        reduced = any(t.dtype != torch.float32 for t in mu + nu + ema)
+        for a, b in _groups(p, 1 << 25 if reduced else None):
+            stored = (mu[a:b], nu[a:b]) + ((ema[a:b],) if alpha != 1.0 else ())
+            work = [[t if t.dtype == torch.float32 else t.float() for t in ts] for ts in stored]
+            self._update(p[a:b], g[a:b], work[0], work[1], work[2] if alpha != 1.0 else None,
+                         lr, bc1, bc2, alpha)
+            for ts, ws in zip(stored, work):
+                back = [(t, w) for t, w in zip(ts, ws) if w is not t]
+                if back:
+                    torch._foreach_copy_([t for t, _ in back], [w for _, w in back])
+        state.count, state.step = count_inc, step
+        return state, {"loss": loss, "grad_norm": gnorm}
+
+    def _update(self, p, g, mu, nu, ema, lr, bc1, bc2, alpha) -> None:
+        """AdamW then the EMA (none when alpha is 1), in place on lists of f32
+        leaves; `g` is emptied once the moments have read it."""
+        hp = self.hp
         torch._foreach_mul_(mu, hp.b1)
         torch._foreach_add_(mu, g, alpha=1.0 - hp.b1)
         torch._foreach_mul_(nu, hp.b2)
         torch._foreach_addcmul_(nu, g, g, value=1.0 - hp.b2)
-        del g
+        g.clear()
         upd = torch._foreach_div(mu, bc1)
         denom = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(denom)
@@ -161,8 +211,6 @@ class TrainStep:
         elif alpha != 1.0:
             torch._foreach_mul_(ema, float(alpha))
             torch._foreach_add_(ema, p, alpha=float(np.float32(1.0) - alpha))
-        state.count, state.step = count_inc, step
-        return state, {"loss": loss, "grad_norm": gnorm}
 
     def __call__(self, state: TrainState, mel, text, lens, *, generator=None, draws=None):
         loss, grads = self.grad_step(state.params, mel, text, lens, generator=generator, draws=draws)
@@ -172,6 +220,6 @@ class TrainStep:
 def make_train_step(statics, hp: OptHParams, cfg: CFMConfig = CFMConfig(),
                     ema_decay: float = 0.999, ema_update_every: int = 10,
                     ema_update_after_step: int = 100, dtype=torch.bfloat16,
-                    backbone: cfm.BackboneDef = cfm.DIT) -> TrainStep:
+                    backbone: cfm.BackboneDef = cfm.DIT, fuse_qkv: bool = True) -> TrainStep:
     return TrainStep(statics, hp, cfg, ema_decay, ema_update_every, ema_update_after_step, dtype,
-                     backbone)
+                     backbone, fuse_qkv)

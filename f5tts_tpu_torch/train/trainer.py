@@ -22,9 +22,15 @@ f5tts_tpu/train/trainer.py:40-384).
   grad_norm, updates_per_s) as scalars with a `torch.utils.tensorboard`
   SummaryWriter in `log_dir`, "wandb" logs them to wandb; where the package
   does not import, nothing is written, as in the JAX trainer.
+- `bf16_state=True` stores AdamW's mu / nu and the EMA in bf16 (the update
+  computes in f32; `train.step.init_train_state`), as the JAX trainer's
+  `bf16_state`; checkpoints keep the stored dtypes, so a resume restores
+  the state bit for bit. The JAX trainer's buffer donation
+  (`F5TTS_DONATE_STATE`) is an XLA matter with no counterpart here: the
+  port's update already runs in place.
 Not ported yet: multi-device and multi-host data parallelism, ZeRO-1,
 `log_samples` (raises: it needs a sampler and a vocoder in the trainer;
-ROADMAP.md queue 1 item 11).
+ROADMAP.md queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ class Trainer:
                  cfm_cfg: CFMConfig = CFMConfig(), backbone: BackboneDef = DIT,
                  vocab_char_map: Optional[dict] = None, tokenizer: str = "char",
                  total_updates: Optional[int] = None, dtype=torch.bfloat16, device=None,
-                 logger: Optional[str] = None, log_dir: str = "runs"):
+                 logger: Optional[str] = None, log_dir: str = "runs", bf16_state: bool = False):
         """`statics`: the backbone's statics (`backbone.statics_cls`); only
         its `.arch` is read. `logger` overrides `train_cfg.logger`."""
         if tokenizer not in ("pinyin", "char", "byte"):
@@ -60,7 +66,7 @@ class Trainer:
             raise ValueError(f"the {tokenizer} tokenizer needs a vocab_char_map")
         if train_cfg.log_samples:
             raise NotImplementedError("log_samples is not ported: it needs a sampler and a "
-                                      "vocoder in the trainer (ROADMAP.md queue 1 item 11)")
+                                      "vocoder in the trainer (ROADMAP.md queue 1 item 13)")
         self.cfg = train_cfg
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
@@ -70,7 +76,8 @@ class Trainer:
         warmup = train_cfg.num_warmup_updates
         self.hp = make_optimizer(train_cfg.learning_rate, warmup, total_updates or warmup * 10,
                                  train_cfg.max_grad_norm)
-        self.state = init_train_state(params, self.device)
+        sdt = torch.bfloat16 if bf16_state else None
+        self.state = init_train_state(params, self.device, moment_dtype=sdt, ema_dtype=sdt)
         self.step_fn = make_train_step(
             self.statics, self.hp, cfm_cfg, ema_decay=train_cfg.ema_decay,
             ema_update_every=train_cfg.ema_update_every,

@@ -32,6 +32,9 @@ from f5tts_tpu.ops import rope as jrope
 from f5tts_tpu_torch.ops import _build
 from f5tts_tpu_torch.ops import adaln_norm as tan
 from f5tts_tpu_torch.ops import attention as tatt
+from tests.test_torch_dit import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _t(a):

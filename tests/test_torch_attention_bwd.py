@@ -43,6 +43,9 @@ from f5tts_tpu_torch.ops.attention import (
 )
 from f5tts_tpu_torch.ops.grouped_conv import conv_pos_embedding
 from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
+from tests.test_torch_dit import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _t(a):

@@ -40,6 +40,9 @@ from f5tts_tpu.ops import rope as jrope
 from f5tts_tpu_torch.ops import _build
 from f5tts_tpu_torch.ops import attention as tatt
 from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
+from tests.test_torch_dit import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = dict(atol=3e-4, rtol=3e-4)
 

@@ -73,6 +73,9 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+
 def small_dit(seed: int = 0):
     """(JAX arch, port arch, numpy JAX params, port params with fused QKV)."""
     jarch = JArch(**SMALL)

@@ -12,6 +12,8 @@ against the eager path).
   strength or sway reuses it, and the new values still take effect.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +34,9 @@ from tests.test_torch_mmdit import small_mmdit
 from tests.test_torch_pipeline import VOCAB, _ref_wav
 from tests.test_torch_unett import small_unett
 from tests.test_torch_vocos_mel import SMALL_VOCOS
+from tests.test_torch_dit import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SMALL = {"DiT": small_dit, "UNetT": small_unett, "MMDiT": small_mmdit}
 
@@ -45,9 +50,11 @@ def vocoders():
                          device="cpu"))
 
 
-def _pipeline(backbone: str, voc, nfe: int = 4):
-    """(port pipeline on the CPU in f32, JAX arch, numpy JAX params)."""
+def _pipeline(backbone: str, voc, nfe: int = 4, **arch_over):
+    """(port pipeline on the CPU in f32, JAX arch, numpy JAX params); the
+    port's arch with `arch_over`."""
     jarch, tarch, tree, tp = SMALL[backbone](seed=3)
+    tarch = dataclasses.replace(tarch, **arch_over)
     return tpipe.InferencePipeline(tp, tcfm.BACKBONES[backbone].statics_cls(tarch), voc, VOCAB,
                                    sampling=SamplingConfig(nfe_steps=nfe), tokenizer="char",
                                    dtype=torch.float32, device="cpu", backbone=backbone), jarch, tree
@@ -103,9 +110,12 @@ def _eager(pipe, cond, text, lens, dur, grid, y0, cfg):
     return _np(mel), _np(pipe.vocoder(mel.transpose(1, 2)))
 
 
-@pytest.mark.parametrize("backbone", ["DiT", "MMDiT"])
-def test_shorter_request_in_a_bucket_leaves_no_stale_rows(backbone, vocoders):
-    pipe, _, _ = _pipeline(backbone, vocoders[1])
+@pytest.mark.parametrize("backbone,upsample", [("DiT", False), ("MMDiT", False), ("DiT", True)])
+def test_shorter_request_in_a_bucket_leaves_no_stale_rows(backbone, upsample, vocoders):
+    # with text_embedding_average_upsampling the text spreads over each
+    # request's own duration, which the body reads from the static buffers
+    pipe, _, _ = _pipeline(backbone, vocoders[1],
+                           **({"text_embedding_average_upsampling": True} if upsample else {}))
     rng = np.random.default_rng(5)
     grid = make_time_grid(3, sway_sampling_coef=-1.0)
     long = _request(rng, 1, 256, 128, [120], [256], [128])
@@ -119,6 +129,13 @@ def test_shorter_request_in_a_bucket_leaves_no_stale_rows(backbone, vocoders):
     # the short request's rows past its duration hold its own noise-free
     # sample, not the long one's
     assert np.abs(_np(outs[1][0])[0, 140:] - _np(outs[0][0])[0, 140:]).max() > 1e-3
+    if upsample:  # each request's text spread over its own duration
+        from f5tts_tpu_torch.models import dit as tdit
+
+        embeds = [tdit.text_embedding(pipe.params["text_embed"], pipe.statics, _t(req[1]), 256,
+                                      lengths=_t(req[3])) for req in (long, short)]
+        assert embeds[0][0, 255].any() and not embeds[1][0, 140:].any()
+        assert embeds[1][0, 139].any()
 
 
 def test_keys_follow_buckets_and_nfe_not_cfg_or_sway(vocoders):

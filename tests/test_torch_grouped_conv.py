@@ -35,6 +35,9 @@ from f5tts_tpu_torch.models import unett as tunett
 from f5tts_tpu_torch.ops import _build
 from f5tts_tpu_torch.ops import grouped_conv as tgc
 from tests.test_torch_dit import _live, _np, _t, jx, np_params
+from tests.test_torch_dit import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # the dim-768 presets' shape: 12 heads of 64, 16 conv groups of 48 channels
 SMALL768 = dict(dim=768, depth=2, heads=12, dim_head=64, ff_mult=2, text_dim=64,

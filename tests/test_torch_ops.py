@@ -23,6 +23,9 @@ from f5tts_tpu_torch.ops import adaln_norm as tan
 from f5tts_tpu_torch.ops import attention as tatt
 from f5tts_tpu_torch.ops import grouped_conv as tgc
 from f5tts_tpu_torch.ops import rope as trope
+from tests.test_torch_dit import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _t(a):

@@ -23,6 +23,9 @@ from f5tts_tpu.text import pinyin as jp
 from f5tts_tpu.text import vocab as jv
 from f5tts_tpu_torch.text import pinyin as tp
 from f5tts_tpu_torch.text import vocab as tv
+from tests.test_torch_dit import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # 不 before tone 4 and not; 一 before tones 1-4, in 看一看 and 第一; chains of

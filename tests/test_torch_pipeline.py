@@ -35,6 +35,9 @@ from f5tts_tpu_torch.text import vocab as tvocab
 from f5tts_tpu_torch.vocoder import vocos as tvocos
 from tests.test_torch_dit import _np, jx, np_params, small_dit
 from tests.test_torch_vocos_mel import SMALL_VOCOS
+from tests.test_torch_dit import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB = {c: i for i, c in enumerate(" abcdefghijklmnopqrstuvwxyz.,'!?")}  # 32 ids
@@ -50,7 +53,10 @@ def test_port_imports_no_jax():
             "f5tts_tpu_torch.scripts.kernel_ab, f5tts_tpu_torch.eval.rtf_bench, "
             "f5tts_tpu_torch.text.pinyin, f5tts_tpu_torch.ops.quant, "
             "f5tts_tpu_torch.scripts.int8_quality_ab, f5tts_tpu_torch.infer.speech_edit, "
-            "f5tts_tpu_torch.infer.align, f5tts_tpu_torch.vocoder.bigvgan\n"
+            "f5tts_tpu_torch.infer.align, f5tts_tpu_torch.vocoder.bigvgan, "
+            "f5tts_tpu_torch.compat, f5tts_tpu_torch.infer.utils_infer, "
+            "f5tts_tpu_torch.models.remat\n"
+            "from f5tts_tpu_torch.config import load_model_config, model_config_from_dict\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'f5tts_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

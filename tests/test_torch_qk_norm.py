@@ -46,6 +46,9 @@ from f5tts_tpu_torch.ops import rope as trope
 from f5tts_tpu_torch.ops.rope import rope_flat_tables
 from f5tts_tpu_torch.utils import make_time_grid
 from tests.test_torch_dit import _live, _np, _t, jx, np_params
+from tests.test_torch_dit import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 BASE = dict(dim=128, depth=2, heads=2, dim_head=64, ff_mult=2, text_num_embeds=32,
             qk_norm="rms_norm")

@@ -67,6 +67,9 @@ from f5tts_tpu_torch.ops import rope as trope
 from tests.test_torch_dit import SMALL, _live, _np, _t, jx, np_params, small_dit
 from tests.test_torch_mmdit import small_mmdit
 from tests.test_torch_unett import small_unett
+from tests.test_torch_dit import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FWD_TOL = 1e-3  # one self-attention on int8 leaves: max-abs and relative
 FWD_REL_L2 = 3e-3  # a forward's output after code flips (the module docstring)

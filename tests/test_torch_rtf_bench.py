@@ -20,6 +20,9 @@ from f5tts_tpu import config as jconfig
 from f5tts_tpu.eval import rtf_bench as jbench
 from f5tts_tpu_torch import config as tconfig
 from f5tts_tpu_torch.eval import rtf_bench as tbench
+from tests.test_torch_dit import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TINY = dict(dim=128, depth=2, heads=2, dim_head=64, ff_mult=2, text_dim=64, conv_layers=1)
 

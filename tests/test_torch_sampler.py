@@ -18,6 +18,9 @@ from f5tts_tpu_torch.models import cfm as tcfm
 from f5tts_tpu_torch.models import dit as tdit
 from f5tts_tpu_torch.utils import make_time_grid
 from tests.test_torch_dit import _live, _np, _t, jx, small_dit
+from tests.test_torch_dit import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")

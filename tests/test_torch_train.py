@@ -39,6 +39,9 @@ from f5tts_tpu_torch.train import dataset as tds
 from f5tts_tpu_torch.train import step as tstep
 from f5tts_tpu_torch.train.trainer import Trainer
 from tests.test_torch_dit import SMALL, jx, np_params
+from tests.test_torch_dit import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 VOCAB = {c: i for i, c in enumerate(" abcdefghijklmnopqrstuvwxyz.,'!?")}  # 32 ids
 
@@ -208,8 +211,16 @@ def test_sampler_collate_and_mel_match_jax():
     np.testing.assert_allclose(tds.NumpyMel()(wav), jds.NumpyMel(jds.MelConfig())(wav), atol=1e-5)
 
 
-def test_checkpoints_and_safetensors(model, tmp_path):
+@pytest.mark.parametrize("qk_norm,long_skip", [(None, False), ("rms_norm", False),
+                                                ("rms_norm", True)])
+def test_checkpoints_and_safetensors(model, tmp_path, qk_norm, long_skip):
     _, _, tree, tp = model
+    if qk_norm or long_skip:  # the export carries qk-norm's weights and the long skip's
+        from f5tts_tpu.config import ModelArch as JArch
+
+        jarch = JArch(**SMALL, qk_norm=qk_norm, long_skip_connection=long_skip)
+        tree = np_params(lambda: jdit.init_dit(jax.random.PRNGKey(0), jarch), 11)
+        tp = dit_params_from_jax(tree)
     state = tstep.init_train_state(tp)
     mgr = tckpt.CheckpointManager(str(tmp_path / "ck"), keep_last_n=1)
     for step in (2, 4):
@@ -248,6 +259,8 @@ def test_checkpoints_and_safetensors(model, tmp_path):
     np.testing.assert_array_equal(back[w], tree["blocks"]["attn"]["to_q"]["w"][1].T)
     jckpt.save_safetensors_ema(tree, str(tmp_path / "jax_export.safetensors"))
     assert load_file(str(tmp_path / "jax_export.safetensors")).keys() == back.keys()
+    assert ("ema_model.transformer.transformer_blocks.0.attn.q_norm.weight" in back) == bool(qk_norm)
+    assert ("ema_model.transformer.long_skip_connection.weight" in back) == long_skip
 
 
 def _tiny_dataset(seed=0, count=12):

@@ -44,6 +44,9 @@ from f5tts_tpu_torch.train import step as tstep
 from f5tts_tpu_torch.train.trainer import Trainer
 from tests.test_torch_dit import jx, np_params
 from tests.test_torch_train import VOCAB, _tiny_dataset
+from tests.test_torch_dit import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ARCHS = {
     "UNetT": dict(dim=128, depth=4, heads=2, dim_head=64, ff_mult=2, text_dim=None,

@@ -32,6 +32,9 @@ from f5tts_tpu_torch.models import unett as tunett
 from f5tts_tpu_torch.ops.rope import rope_flat_tables
 from f5tts_tpu_torch.utils import make_time_grid
 from tests.test_torch_dit import _live, _np, _t, jx, np_params
+from tests.test_torch_dit import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SMALL = dict(dim=128, depth=2, heads=2, dim_head=64, ff_mult=2, text_dim=None,
              conv_layers=0, text_num_embeds=32, text_mask_padding=False)

@@ -16,6 +16,9 @@ from f5tts_tpu_torch.ops import mel as tmel
 from f5tts_tpu_torch.ops import stft as tstft
 from f5tts_tpu_torch.vocoder import vocos as tvocos
 from tests.test_torch_dit import _np, _t, jx, np_params
+from tests.test_torch_dit import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SMALL_VOCOS = dict(dim=64, intermediate_dim=128, num_layers=2)
 
