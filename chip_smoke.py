@@ -191,10 +191,27 @@ Phases (any failure raises, and the script exits non-zero):
     88 / 1, the plain VJP backward; its peak) and the DiT with
     fuse_qkv=False (K7-lse / K9 / K1 / K2 22 / 22 / 45 / 1), each with its
     peak and ms; then phase 6's depth-2 check for each of the five.
+20. Batched serving at F5TTS_v1_Base + Vocos, bf16, the pinyin tokenizer
+    and the Emilia vocab, full width and depth: (a) `serve.warmup` over the
+    512 / 1024 buckets and b = 1, 2, 4, each capture recording one
+    generate's launches (K3 / K1 / K2 352 / 720 / 32) whatever b is, each
+    key's capture seconds and pool, their sum and memory_reserved; (b) 3
+    requests with different reference lengths (padded to 4) through
+    `generate_batch`, graphed against the eager serve body on the same
+    static inputs (bit-equal, else int16 max-abs <= 1e-3 * 32767 over live
+    samples); (c) each row against the same request alone at b = 1 in the
+    same n, wav and text buckets (wav rel-L2 <= 3e-2); (d)
+    `eval/serve_bench.py`'s main in-process (16 requests, concurrency 4, a
+    1 ms window, 4 streams): zero errors, no cold shape after its warm-up,
+    RTF, latency, occupancy and TTFB printed with its JSON line; (e) a
+    fine_autowarm capture while a DynamicBatcher serves 4 clients: no
+    error, each served wav bit-equal to the same request afterwards; (f)
+    one b = 2 batch at E2TTS_Base and MMDiT_Base cut to depth 2, graphed
+    against eager with exact launches.
 
 Prints the `kernels` JSON line (launches: what the card ran on the
-inference and training paths of phases 3, 5, 7, 8, 10, 11, 13, 14, 17, 18
-and 19, each graph replay counted with its capture's counts), the card's name
+inference and training paths of phases 3, 5, 7, 8, 10, 11, 13, 14, 17, 18,
+19 and 20, each graph replay counted with its capture's counts), the card's name
 and power limit,
 and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the repo's
@@ -2680,6 +2697,303 @@ def phase_train_card_vs_cpu(dev, arch, params, backbone: str = "DiT", n: int = 5
         raise AssertionError(f"{backbone} training step: card bf16 and cpu f32 disagree")
 
 
+# ---------------------------------------------------------------------------
+# phase 20
+# ---------------------------------------------------------------------------
+
+SERVE_WARM_BUCKETS = (512, 1024)
+SERVE_WARM_BATCHES = (1, 2, 4)
+SERVE_GRAPH_TOL = 1e-3 * 32767   # graphed against eager, int16 max-abs where not bit-equal
+SERVE_ROW_REL_TOL = 3e-2         # a batch row against the same request alone, wav rel-L2
+# three texts whose ids (with REF_TEXT) share one 64-id bucket, three
+# references in one 128-frame wav bucket, totals in the 1024 bucket
+SERVE_TEXTS = (
+    "I have been here for billions of years, and I will be here long after you are gone.",
+    "Every morning the light returns, and the birds begin again. The day is long and bright.",
+    "The river keeps its course through the valley, carrying the snow down to the sea.",
+)
+SERVE_REF_SECS = (2.0, 2.3, 2.6)
+SERVE_TOTALS = (900, 950, 1000)
+
+
+def serve_requests(ref) -> list[dict]:
+    from f5tts_tpu_torch.scripts.common import REF_TEXT
+
+    return [{"ref_wav": ref[:int(secs * 24000)], "ref_text": REF_TEXT + " ", "gen_text": text,
+             "fix_duration": (total + 0.5) * 256 / 24000}
+            for secs, text, total in zip(SERVE_REF_SECS, SERVE_TEXTS, SERVE_TOTALS)]
+
+
+def serve_ran(pipe, host: dict, before: dict) -> dict:
+    """The launches of the serve path since `before` ({key: replays} of
+    `pipe.serve_graphs`): the host counter's and each replay's counts."""
+    ran = dict(host)
+    for key, entry in pipe.serve_graphs.items():
+        for name, c in entry.counts.items():
+            ran[name] = ran.get(name, 0) + c * (entry.replays - before.get(key, 0))
+    return ran
+
+
+def check_captures(pipe, expect: dict, what: str) -> None:
+    for key, entry in pipe.serve_graphs.items():
+        if entry.counts != expect:
+            raise AssertionError(f"{what}: the capture of {key} recorded {entry.counts}, "
+                                 f"expected {expect}")
+
+
+def serve_graphed_vs_eager(pipe, pending, expect: dict, gpu: str, what: str) -> tuple:
+    """Finalize `pending` and compare its live samples with the eager serve
+    body on the same static inputs (the replay's key, before any other
+    batch): bit-equal or int16 max-abs <= SERVE_GRAPH_TOL."""
+    import torch
+
+    meta = pending[1]
+    waves = pipe.finalize_batch(pending)
+    key = (*meta[4], pipe.sampling.nfe_steps)
+    entry = pipe.serve_graphs[key]
+    if entry.counts != expect:
+        raise AssertionError(f"{what} {key}: capture counts {entry.counts}, expected {expect}")
+    eager = pipe._serve_body(entry.inputs)[1].cpu().numpy()
+    torch.cuda.synchronize()
+    worst, equal = 0.0, True
+    for i, w in enumerate(waves):
+        lo, hi = meta[0][i] * pipe.hop, min(int(meta[1][i]), meta[2]) * pipe.hop
+        got = np.round(w * 32767).astype(np.int32)
+        want = eager[i, lo:hi].astype(np.int32)
+        if got.shape != want.shape or not np.isfinite(w).all():
+            raise AssertionError(f"{what}: row {i} has {got.shape} samples, eager {want.shape}")
+        d = float(np.abs(got - want).max()) if got.size else 0.0
+        equal &= d == 0.0
+        worst = max(worst, d)
+    log(f"  {what} {key}: graphed against the eager serve body "
+        f"{'bit-equal' if equal else f'int16 max-abs {worst:.0f}'} over {len(waves)} rows "
+        f"(tol {SERVE_GRAPH_TOL:.1f}); capture {entry.capture_s:.2f} s, pool "
+        f"{entry.pool_bytes / 2**20:.1f} MiB [{gpu}]")
+    if worst > SERVE_GRAPH_TOL:
+        raise AssertionError(f"{what}: graphed against eager int16 max-abs {worst}")
+    return waves, {"key": list(key), "bit_equal": equal, "int16_max_abs": worst}
+
+
+def serve_warmup(pipe, gpu: str) -> dict:
+    """(a) `serve.warmup` over SERVE_WARM_BUCKETS x SERVE_WARM_BATCHES: each
+    key's capture seconds and pool, their sum and memory_reserved."""
+    import torch
+    from f5tts_tpu_torch.infer import serve
+
+    t0 = time.perf_counter()
+    rows = serve.warmup(pipe, list(SERVE_WARM_BUCKETS), list(SERVE_WARM_BATCHES))
+    wall = time.perf_counter() - t0
+    for row in rows:
+        log(f"  warm-up key {row['key']}: {row['seconds']:.2f} s, capture "
+            f"{row['capture_s']:.2f} s, pool {row['pool_bytes'] / 2**20:.1f} MiB [{gpu}]")
+    pools = sum(r["pool_bytes"] for r in rows)
+    log(f"  warm-up: {len(rows)} keys in {wall:.2f} s, pools {pools / 2**20:.1f} MiB, "
+        f"memory_reserved {torch.cuda.memory_reserved() / 2**20:.1f} MiB [{gpu}]")
+    if len(rows) != len(SERVE_WARM_BUCKETS) * len(SERVE_WARM_BATCHES) or \
+            any("key" not in r for r in rows):
+        raise AssertionError(f"warm-up: {rows}")
+    return {"keys": rows, "wall_s": wall, "pools_mib": pools / 2**20}
+
+
+def serve_rows_alone(pipe, reqs, batch_waves, gpu: str) -> list[dict]:
+    """(c) Each row of the batch against the same request through
+    generate_batch at b = 1, in the same n, wav and text buckets: wav rel-L2
+    over the row's live samples <= SERVE_ROW_REL_TOL."""
+    out = []
+    # rows do not leak into each other: row 0 beside other requests equals
+    # row 0 beside copies of itself in the same key, bit for bit
+    beside_itself = pipe.generate_batch([reqs[0]] * len(reqs))[0]
+    if not np.array_equal(beside_itself, batch_waves[0]):
+        raise AssertionError("row 0 differs beside other requests and beside itself")
+    log(f"  row 0 beside the other requests = row 0 beside copies of itself, bit for bit [{gpu}]")
+    for i, (req, row) in enumerate(zip(reqs, batch_waves)):
+        handle, meta = pipe.generate_batch_async([req])
+        alone = pipe.finalize_batch((handle, meta))[0]
+        if alone.shape != row.shape:
+            raise AssertionError(f"row {i}: {row.shape} samples in the batch, {alone.shape} alone")
+        rel = float(np.linalg.norm(row - alone) / max(np.linalg.norm(alone), 1e-12))
+        equal = bool(np.array_equal(row, alone))
+        log(f"  row {i} against the request alone (key {meta[4]}): wav rel-L2 {rel:.3e}"
+            f"{' (bit-equal)' if equal else ''} (tol {SERVE_ROW_REL_TOL}) [{gpu}]")
+        if not rel <= SERVE_ROW_REL_TOL:
+            raise AssertionError(f"row {i}: rel-L2 {rel} against the request alone")
+        out.append({"row": i, "wav_rel_l2": rel, "bit_equal": equal, "key": list(meta[4])})
+    return out
+
+
+def serve_bench_in_process(pipe, gpu: str) -> dict:
+    """(d) eval/serve_bench.py's main on this pipeline: 16 requests at
+    concurrency 4, a 1 ms window, 4 streams; zero errors and no cold shape
+    after its warm-up."""
+    import contextlib
+    import io
+
+    from f5tts_tpu_torch.eval import serve_bench
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        line = serve_bench.main(["--requests", "16", "--concurrency", "4", "--window_ms", "1",
+                                 "--stream", "4"], pipe=pipe)
+    extra = line["extra"]
+    stats = extra["server_stats"]
+    log(f"  serve_bench: RTF {line['value']}, latency p50 {extra['latency_p50_ms']} ms / p99 "
+        f"{extra['latency_p99_ms']} ms, occupancy {stats['batch_occupancy']}, execute p50 "
+        f"{stats['exec_p50_ms']} ms, queue delay p50 {stats['queue_delay_p50_ms']} ms; "
+        f"TTFB p50 {extra['ttfb_p50_ms']} ms / p90 {extra['ttfb_p90_ms']} ms on the fine "
+        f"first-chunk bucket, stream cold shapes "
+        f"{extra['stream_server_stats']['cold_shape_events']} [{gpu}]")
+    log(f"  serve_bench line: {json.dumps(line)}")
+    if extra["errors"] or extra["requests"] != 16 or stats["error_count"]:
+        raise AssertionError(f"serve_bench: {extra['errors']} errors, {extra['requests']} served")
+    if stats["cold_shape_events"]:
+        raise AssertionError(f"serve_bench: cold shapes after its warm-up "
+                             f"{stats['cold_shape_events']}")
+    if extra["stream_requests"] != 4 or extra["stream_server_stats"]["error_count"]:
+        raise AssertionError("serve_bench: a stream failed")
+    return line
+
+
+def serve_capture_while_serving(pipe, ref, gpu: str) -> dict:
+    """(e) A fine_autowarm capture runs in the background while a
+    DynamicBatcher serves 12 requests from 4 clients in warm keys; no error,
+    and each served wav bit-equal to the same request served afterwards."""
+    import threading
+
+    from f5tts_tpu_torch.infer.serve import DynamicBatcher
+
+    reqs = serve_requests(ref)
+    fine = dict(reqs[0], fix_duration=(600 + 0.5) * 256 / 24000, fine_bucket=True)
+    pipe.generate_batch([dict(fine, fine_bucket=False)])  # its coarse key (768), warm
+    pipe.fine_autowarm = True
+    batcher = DynamicBatcher(pipe, max_batch_size=1, max_queue_delay_s=0.001)
+    served, errors = {}, []
+    before = {key: e.replays for key, e in pipe.serve_graphs.items()}
+
+    def client(j):
+        for k in range(3):
+            i = (j + k) % 3
+            try:
+                served[(j, k)] = (i, batcher.submit(reqs[i], timeout=300))
+            except Exception as e:  # noqa: BLE001 - counted as a failure below
+                errors.append(f"{type(e).__name__}: {e}")
+
+    try:
+        coarse = batcher.submit(fine, timeout=300)  # the gate is shut: coarse, warm starts
+        threads = [threading.Thread(target=client, args=(j,)) for j in range(4)]
+        for t in threads:
+            t.start()
+        replays_during = 0
+        while pipe._fine_warms_inflight:
+            time.sleep(0.005)
+            replays_during = sum(e.replays - before.get(k, 0)
+                                 for k, e in list(pipe.serve_graphs.items()))
+        for t in threads:
+            t.join(600)
+    finally:
+        batcher.close()
+        pipe.fine_autowarm = False
+    fine_keys = [k for k in pipe.serve_graphs if k[3] == 640]
+    if errors or len(served) != 12 or not fine_keys:
+        raise AssertionError(f"capture during serving: errors {errors}, {len(served)} served, "
+                             f"fine keys {fine_keys}")
+    again = [pipe.generate_batch([r])[0] for r in reqs]
+    unequal = [jk for jk, (i, w) in served.items() if not np.array_equal(w, again[i])]
+    coarse_again = pipe.generate_batch([dict(fine, fine_bucket=False)])[0]
+    if unequal or not np.array_equal(coarse, coarse_again):
+        raise AssertionError(f"capture during serving: served wavs differ afterwards: {unequal}")
+    entry = pipe.serve_graphs[fine_keys[0]]
+    log(f"  capture during serving: fine key {fine_keys[0]} captured in {entry.capture_s:.2f} s "
+        f"while the batcher served (replays by then {replays_during}); 12 + 1 served, each "
+        f"bit-equal to the same request afterwards [{gpu}]")
+    return {"fine_key": list(fine_keys[0]), "capture_s": entry.capture_s,
+            "replays_while_capturing": replays_during}
+
+
+def serve_other_backbones(dev, ref, gpu: str) -> tuple[dict, list]:
+    """(f) One b = 2 serve batch at E2TTS_Base and MMDiT_Base cut to depth 2:
+    graphed against the eager body, exact launches."""
+    import torch
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.scripts.common import base_models
+
+    launches, rows = {}, []
+    for model, backbone in (("E2TTS_Base", "UNetT"), ("MMDiT_Base", "MMDiT")):
+        arch, params, vocos_params = base_models(model=model, depth=2)
+        pipe = make_pipeline(dev, backbone, arch, params, vocos_params)
+        expect = generate_launches(backbone, arch)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        pending = pipe.generate_batch_async(serve_requests(ref)[:2])
+        _, row = serve_graphed_vs_eager(pipe, pending, expect, gpu, f"{model} depth 2")
+        torch.cuda.synchronize()
+        host = _build.launches()
+        if host != {k: 2 * v for k, v in expect.items()}:  # the warm-up and the eager body
+            raise AssertionError(f"{model}: host launches {host}, expected twice {expect}")
+        for name, c in serve_ran(pipe, host, {}).items():
+            launches[name] = launches.get(name, 0) + c
+        rows.append({"model": model, **row})
+        del pipe, params
+        torch.cuda.empty_cache()
+    return launches, rows
+
+
+def phase_serving(dev, gpu: str) -> tuple[dict, dict]:
+    """Phase 20: batched serving at F5TTS_v1_Base + Vocos, bf16, pinyin."""
+    import torch
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.scripts.common import base_models, synthetic_ref_wav
+    from f5tts_tpu_torch.text.pinyin import convert_char_to_pinyin
+    from f5tts_tpu_torch.text.vocab import EMILIA_VOCAB, list_str_to_idx, load_vocab
+
+    t_phase = time.perf_counter()
+    vocab = load_vocab(EMILIA_VOCAB)
+    arch, params, vocos_params = base_models()
+    pipe = make_pipeline(dev, "DiT", arch, params, vocos_params, vocab_char_map=vocab,
+                         tokenizer="pinyin")
+    del params
+    expect = generate_launches("DiT", arch)
+    ref = synthetic_ref_wav(seconds=3.0)
+    reqs = serve_requests(ref)
+    texts = [r["ref_text"] + r["gen_text"] for r in reqs]
+    if len({pipe.tokenize([t]).shape[1] for t in texts}) != 1:
+        raise AssertionError("SERVE_TEXTS fall in different text buckets")
+    ids = pipe.tokenize(texts[:1])
+    want = list_str_to_idx(convert_char_to_pinyin(texts[:1]), vocab)
+    if not np.array_equal(ids[:, :want.shape[1]], want):
+        raise AssertionError("the serve path's ids differ from convert_char_to_pinyin's")
+    torch.cuda.synchronize()
+    _build.reset_launches()  # every count to 0 just before the serving path
+
+    out = {"warmup": serve_warmup(pipe, gpu)}
+    log("  (b) a batch of 3 (padded to 4) graphed against the eager serve body:")
+    pending = pipe.generate_batch_async(reqs)
+    waves, out["graphed_vs_eager"] = serve_graphed_vs_eager(pipe, pending, expect, gpu,
+                                                            "F5TTS_v1_Base b=4")
+    log("  (c) each row against the same request alone:")
+    out["rows_alone"] = serve_rows_alone(pipe, reqs, waves, gpu)
+    log("  (d) eval/serve_bench.py in-process:")
+    out["serve_bench"] = serve_bench_in_process(pipe, gpu)
+    log("  (e) a fine_autowarm capture while the batcher serves:")
+    out["capture_while_serving"] = serve_capture_while_serving(pipe, ref, gpu)
+    torch.cuda.synchronize()
+    launches = serve_ran(pipe, _build.launches(), {})
+    check_captures(pipe, expect, "phase 20")
+    pools = {str(k): e.pool_bytes / 2**20 for k, e in pipe.serve_graphs.items()}
+    log(f"  {len(pools)} serve graphs, pools MiB {json.dumps(pools)}, sum "
+        f"{sum(pools.values()):.1f} MiB, memory_reserved "
+        f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB; launches {launches} [{gpu}]")
+    out["pools_mib"] = pools
+    del pipe
+    torch.cuda.empty_cache()
+    log("  (f) E2TTS_Base and MMDiT_Base at depth 2, one b = 2 batch each:")
+    more, out["other_backbones"] = serve_other_backbones(dev, ref, gpu)
+    for name, c in more.items():
+        launches[name] = launches.get(name, 0) + c
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 20: {out['phase_s']:.1f} s")
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -2842,6 +3156,14 @@ def main() -> int:
     for name, count in ran.items():
         launches[name] = launches.get(name, 0) + count
     log(f"  phase 19: {json.dumps(flag_rows)}")
+    torch.cuda.empty_cache()
+
+    log("phase 20: batched serving, F5TTS_v1_Base + Vocos, bf16: the serve graph a key, "
+        "DynamicBatcher, HTTP, serve_bench")
+    ran, serve_rows = phase_serving(dev, gpu)
+    for name, count in ran.items():
+        launches[name] = launches.get(name, 0) + count
+    log(f"  phase 20: {json.dumps(serve_rows)}")
     torch.cuda.empty_cache()
 
     idle = [name for name in rows if not launches.get(name)]

@@ -10,8 +10,8 @@ text (counterpart of f5tts_tpu/infer/speech_edit.py:32-145).
    synthesized from the target text. Then the pipeline's vocoder.
 
 The spans come in seconds (`edit_speech`) or as text, aligned by the CTC
-forced aligner of `infer/align.py` (`edit_speech_by_text`). The speech-edit
-CLI waits for the port of the JAX package's `infer/api.py`.
+forced aligner of `infer/align.py` (`edit_speech_by_text`). `main` is the
+speech-edit CLI (`f5tts-tpu-torch-speech-edit`), over `api.F5TTS`.
 """
 
 from __future__ import annotations
@@ -134,3 +134,42 @@ def edit_speech_by_text(pipeline, wav: np.ndarray, sr: int, original_text: str,
     parts = spans_for_edits(char_spans, edits, text=original_text)
     return edit_speech(pipeline, wav, sr, target_text, parts, fix_durations=fix_durations,
                        **kwargs)
+
+
+def main(argv=None):
+    """The speech-edit CLI: spans given in seconds as start:end."""
+    import argparse
+    import os
+
+    p = argparse.ArgumentParser(description="Regenerate spans of an utterance on the card")
+    p.add_argument("--model", default="F5TTS_v1_Base")
+    p.add_argument("--ckpt_file", default="")
+    p.add_argument("--vocab_file", default="")
+    p.add_argument("--audio", required=True, help="audio to edit")
+    p.add_argument("--target_text", required=True)
+    p.add_argument("--parts", nargs="+", required=True,
+                   help="edit spans as start:end seconds, e.g. 1.42:2.44 4.04:4.9")
+    p.add_argument("--fix_durations", nargs="*", type=float, default=None,
+                   help="each span's new duration, seconds")
+    p.add_argument("--nfe_step", type=int, default=32)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--output", default="tests/speech_edit_out.wav")
+    p.add_argument("--device", default=None, help="the card unless named (e.g. 'cpu')")
+    args = p.parse_args(argv)
+
+    from f5tts_tpu_torch.infer.api import F5TTS
+
+    tts = F5TTS(model=args.model, ckpt_file=args.ckpt_file, vocab_file=args.vocab_file,
+                device=args.device)
+    wav, sr = audio_io.read_wav(args.audio)
+    parts = [tuple(map(float, s.split(":"))) for s in args.parts]
+    out, out_sr = edit_speech(tts.pipeline, wav, sr, args.target_text, parts,
+                              fix_durations=args.fix_durations, seed=args.seed,
+                              nfe_step=args.nfe_step)
+    os.makedirs(os.path.dirname(args.output) or ".", exist_ok=True)
+    audio_io.write_wav(args.output, out, out_sr)
+    print(args.output)
+
+
+if __name__ == "__main__":
+    main()

@@ -13,25 +13,48 @@ load_model).
   checkpoint or random weights; `LoadedModel.pipeline(vocoder)` builds the
   `InferencePipeline`.
 Every loader takes `device=None`, which is the card (`utils.resolve_device`).
-The one-call inference API (`infer_process`, `infer_batch_process`,
-`remove_silence_for_generated_wav`) is not ported yet.
+
+The one-call inference API (the reference's `infer_process`,
+`infer_batch_process` with and without streaming,
+`remove_silence_for_generated_wav`) runs through `LoadedModel.pipeline`;
+`preprocess_ref_audio_text` clips, trims and caches a reference and fixes
+its text's final punctuation. Audio rides as (float32 array, sample rate).
+Transcribing a reference (an empty `ref_text`) needs ASR weights the
+repository does not hold: it raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from f5tts_tpu_torch.config import PRESETS, ModelConfig, load_model_config
+from f5tts_tpu_torch.infer import audio_io
 from f5tts_tpu_torch.models.cfm import BACKBONES
 from f5tts_tpu_torch.models.modules import tree_cast
 from f5tts_tpu_torch.text.vocab import EMILIA_VOCAB, load_vocab
 from f5tts_tpu_torch.utils import resolve_device
 
 REFERENCE_SUFFIXES = (".pt", ".pth", ".bin", ".safetensors")
+
+# the reference's defaults (its utils_infer.py:40-57)
+target_sample_rate = 24000
+hop_length = 256
+target_rms = 0.1
+cross_fade_duration = 0.15
+ode_method = "euler"
+nfe_step = 32
+cfg_strength = 2.0
+sway_sampling_coef = -1.0
+speed = 1.0
+fix_duration = None
+
+remove_silence_edges = audio_io.remove_silence_edges
 
 
 def load_vocoder(vocoder_name: str = "vocos", is_local: bool = False, local_path: str = "",
@@ -138,3 +161,88 @@ def load_model(model: str = "F5TTS_v1_Base", ckpt_path: str = "", vocab_file: st
         params = tree_cast(BACKBONES[cfg.backbone].init(gen, arch), None, dev)
     return LoadedModel(params=params, config=dataclasses.replace(cfg, arch=arch), vocab=vocab,
                        dtype=dtype, device=dev)
+
+
+_ref_audio_cache: dict = {}
+
+
+def preprocess_ref_audio_text(ref_audio_path: str, ref_text: str,
+                              show_info: Callable = print) -> tuple[np.ndarray, int, str]:
+    """(clipped wav, sample rate, ref text) of a reference file: the clip
+    policy of `audio_io.clip_ref_audio` (cut at silences to <= 12 s, edges
+    trimmed, 50 ms of silence appended), cached by the file's MD5, and the
+    text ending in ". " or "。". An empty `ref_text` would be transcribed by
+    ASR, which needs weights the repository does not hold: it raises."""
+    with open(ref_audio_path, "rb") as f:
+        audio_hash = hashlib.md5(f.read()).hexdigest()
+    if audio_hash in _ref_audio_cache:
+        show_info("Using cached preprocessed reference audio...")
+        wav, sr = _ref_audio_cache[audio_hash]
+    else:
+        wav, sr = audio_io.read_wav(ref_audio_path)
+        wav = audio_io.clip_ref_audio(wav, sr)
+        _ref_audio_cache[audio_hash] = (wav, sr)
+    if not ref_text.strip():
+        raise RuntimeError("no reference text: transcribing the reference needs ASR weights, "
+                           "which are not in the repository; pass ref_text")
+    show_info("Using custom reference text...")
+    if not ref_text.endswith(". ") and not ref_text.endswith("。"):
+        ref_text = ref_text + " " if ref_text.endswith(".") else ref_text + ". "
+    return wav, sr, ref_text
+
+
+def _ref_audio(ref_audio) -> tuple[np.ndarray, int]:
+    if isinstance(ref_audio, str):
+        return audio_io.read_wav(ref_audio)
+    wav, sr = ref_audio
+    return np.asarray(wav, np.float32), sr
+
+
+def infer_process(ref_audio, ref_text: str, gen_text: str, model_obj: LoadedModel,
+                  vocoder: Callable, show_info: Callable = print, target_rms: float = target_rms,
+                  cross_fade_duration: float = cross_fade_duration, nfe_step: int = nfe_step,
+                  cfg_strength: float = cfg_strength,
+                  sway_sampling_coef: float = sway_sampling_coef, speed: float = speed,
+                  fix_duration: Optional[float] = fix_duration, seed: int = 0):
+    """One-call TTS: the text chunked by the reference's speech rate, each
+    chunk generated, cross-faded. `ref_audio` is a WAV path or (array,
+    sample rate). Returns (wave, sample rate, mel [d, t])."""
+    wav, sr = _ref_audio(ref_audio)
+    show_info(f"Generating audio for {len(gen_text)} chars...")
+    return model_obj.pipeline(vocoder).infer(
+        wav, sr, ref_text, gen_text, seed=seed, speed=speed, fix_duration=fix_duration,
+        nfe_step=nfe_step, cfg_strength=cfg_strength, sway_sampling_coef=sway_sampling_coef,
+        cross_fade_duration=cross_fade_duration, target_rms=target_rms)
+
+
+def infer_batch_process(ref_audio, ref_text: str, gen_text_batches: list[str],
+                        model_obj: LoadedModel, vocoder: Callable, streaming: bool = False,
+                        chunk_size: int = 2048, seed: int = 0, **kw):
+    """The given text chunks, each generated (`generate_chunk`, keywords as
+    there). Without streaming: (cross-faded wave, sample rate, mel [d, t]);
+    streaming: a generator of (wave piece of `chunk_size` samples, sample
+    rate), not cross-faded."""
+    from f5tts_tpu_torch.infer.pipeline import cross_fade
+
+    wav, sr = _ref_audio(ref_audio)
+    pipe = model_obj.pipeline(vocoder)
+    xf = kw.pop("cross_fade_duration", cross_fade_duration)
+    if streaming:
+        return pipe.infer_stream(wav, sr, ref_text, gen_text_batches, chunk_size=chunk_size,
+                                 seed=seed, **kw)
+    ref = audio_io.resample(wav, sr, pipe.sr)
+    waves, mels = [], []
+    for chunk in gen_text_batches:
+        w, m = pipe.generate_chunk(ref, ref_text, chunk, seed=seed, **kw)
+        waves.append(w)
+        mels.append(m)
+    return cross_fade(waves, pipe.sr, xf), pipe.sr, np.concatenate(mels, axis=1)
+
+
+def remove_silence_for_generated_wav(filename: str) -> None:
+    """Cut the silences of >= 1 s (-50 dB) out of a WAV file, keeping 500 ms
+    on either side, in place."""
+    wav, sr = audio_io.read_wav(filename)
+    segs = audio_io.split_on_silence(wav, sr, min_silence_len_ms=1000, silence_thresh_db=-50.0,
+                                     keep_silence_ms=500)
+    audio_io.write_wav(filename, np.concatenate(segs) if segs else wav[:0], sr)

@@ -69,8 +69,13 @@ def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
 
 def istft_center(real: torch.Tensor, imag: torch.Tensor, window: torch.Tensor,
                  n_fft: int = 1024, hop: int = 256) -> torch.Tensor:
-    """real/imag [b, n_fft//2+1, t] -> wav [b, (t-1)*hop]."""
-    spec = torch.complex(real.float(), imag.float()).transpose(1, 2)  # [b, t, f]
+    """real/imag [b, n_fft//2+1, t] -> wav [b, (t-1)*hop]. The imaginary
+    parts of the DC and Nyquist bins are dropped, as a C2R transform on the
+    CPU drops them: cuFFT's C2R leaves them undefined, and on the card its
+    result then depended on the batch size (one mel decoded alone and beside
+    a copy of itself differed)."""
+    imag = F.pad(imag.float()[:, 1:-1], (0, 0, 1, 1))
+    spec = torch.complex(real.float(), imag).transpose(1, 2)  # [b, t, f]
     frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * window[None, None, :]
     wav = overlap_add(frames, hop)
     t = real.shape[-1]

@@ -2,7 +2,7 @@
 
     python -m f5tts_tpu_torch.scripts.profile_generate [--model F5TTS_v1_Base]
         [--qk-norm] [--quantization none|int8] [--vocoder vocos|bigvgan]
-        [--out profile_generate.json]
+        [--serve] [--out profile_generate.json]
 
 `--model` any preset: F5TTS_v1_Base / F5TTS_Base / F5TTS_v1_Small /
 F5TTS_Small (DiT), E2TTS_Base / E2TTS_Small (UNetT) or MMDiT_Base;
@@ -24,8 +24,12 @@ Each path: 3 timed requests after a warm-up (host clock, ending in a device
 sync), then one request under torch.profiler. From each trace: device busy
 time (the union of kernel intervals) against the traced request's wall,
 kernel time and launch count by class (the port's kernels, GEMM including
-cuDNN's implicit-GEMM convs, cuDNN's other convs, FFT, the rest). Needs a
-CUDA device.
+cuDNN's implicit-GEMM convs, cuDNN's other convs, FFT, the rest).
+`--serve` measures the serving path instead: `generate_batch` (one replay
+of the serve graph a batch) of b = 1, 2 and 4 requests (references of 2.0 to
+2.6 s in one wav bucket, the same text) at the 512 and 1024 buckets, the
+same statistics a batch, the device time a request (busy / b), the graph's
+capture time and pool. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -129,6 +133,45 @@ def profile_bucket(pipe, ref, text: str, frames: int, reps: int) -> dict:
     return row
 
 
+SERVE_FRAMES = (506, 1014)
+SERVE_BATCHES = (1, 2, 4)
+
+
+def profile_serve(pipe, ref, text: str, frames: int, b: int, reps: int) -> dict:
+    """One (bucket, b) cell of the serving path: `generate_batch` of b
+    requests, timed and traced as `profile_bucket` times a request."""
+    from f5tts_tpu_torch.scripts.common import REF_TEXT, device_time_by_class
+
+    fix = (frames + 0.5) * pipe.hop / pipe.sr
+    reqs = [{"ref_wav": ref[:int((2.0 + 0.2 * i) * pipe.sr)], "ref_text": REF_TEXT + " ",
+             "gen_text": text, "fix_duration": fix} for i in range(b)]
+
+    def timed() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.generate_batch(reqs)
+        return time.perf_counter() - t0
+
+    keys = set(pipe.serve_graphs)
+    first = timed()  # warm-up and capture
+    walls = [timed() for _ in range(reps)]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        traced = timed()
+    trace = device_time_by_class(prof, CLASSES)
+    (key,) = [k for k in pipe.serve_graphs if k not in keys]
+    entry = pipe.serve_graphs[key]
+    audio_s = sum(frames - pipe.mel_cfg.frames_for_samples(len(r["ref_wav"]))
+                  for r in reqs) * pipe.hop / pipe.sr
+    wall = statistics.median(walls)
+    return {"key": list(key), "batch": b, "audio_s": audio_s, "wall_s": wall, "walls_s": walls,
+            "rtf": wall / audio_s, "first_batch_s": first, "traced_wall_s": traced,
+            "device_busy_share_of_wall": trace["device_busy_ms"] / (traced * 1e3),
+            "device_ms_a_request": trace["device_busy_ms"] / b,
+            "capture_s": entry.capture_s, "graph_pool_mib": entry.pool_bytes / 2**20,
+            "launches_a_replay": entry.counts, **trace}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="F5TTS_v1_Base", choices=sorted(FRAMES))
@@ -136,6 +179,8 @@ def main(argv=None) -> int:
     ap.add_argument("--quantization", default="none", choices=["none", "int8"])
     ap.add_argument("--vocoder", default="vocos", choices=["vocos", "bigvgan"],
                     help="bigvgan also selects the bigvgan (Slaney) mel")
+    ap.add_argument("--serve", action="store_true",
+                    help="the serving path: generate_batch at b = 1, 2, 4, buckets 512 / 1024")
     ap.add_argument("--out", default=None, help="also write the JSON result here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -168,7 +213,14 @@ def main(argv=None) -> int:
     result = {"gpu": gpu, "torch": torch.__version__, "model": args.model,
               "qk_norm": arch.qk_norm, "quantization": args.quantization,
               "vocoder": args.vocoder, "buckets": []}
-    for frames in FRAMES[args.model]:
+    if args.serve:
+        ref = synthetic_ref_wav(seconds=3.0)
+        cells = [(f, b) for f in SERVE_FRAMES for b in SERVE_BATCHES]
+        for frames, b in cells:
+            row = profile_serve(pipe, ref, REQUESTS[1], frames, b, REPS)
+            result["buckets"].append(row)
+            print(json.dumps(row), flush=True)
+    for frames in () if args.serve else FRAMES[args.model]:
         row = profile_bucket(pipe, ref, REQUESTS[1], frames, REPS)
         result["buckets"].append(row)
         print(json.dumps(row), flush=True)

@@ -17,7 +17,9 @@ forward (also at the dim-768 widths and with qk-norm) and one tiny training
 step of each backbone through the kernels against the CPU plain path; the
 pipeline's CUDA-graph replay against the eager generate (DiT, MMDiT; bf16
 and int8), with each capture's launch counts and none on the host for a
-replay; K12 and K13 bit-equal to their plain versions (m 17, 37, 2048; k and
+replay; the serve graph (`generate_batch_async`) at b = 1-4 against the
+eager serve body, and a capture from another thread while a DynamicBatcher
+replays; K12 and K13 bit-equal to their plain versions (m 17, 37, 2048; k and
 n 8 to 4096; zero rows; K12 on strided rows), K1Q and K6Q bit-equal to the
 K1 / K6 -> K12 chain (K6Q also on a strided head view), K12's GELU mode
 against F.gelu + K12, one int8 projection and a depth-2 int8 forward of
@@ -26,6 +28,8 @@ Run on a GPU machine with:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -882,6 +886,109 @@ def _graph_replay_case(dev, backbone: str, quantization: str):
     if not (torch.equal(mel, want) and torch.equal(wav, want_wav)):
         assert float((mel - want).norm() / want.norm()) <= 1e-3
         assert float((wav - want_wav).abs().max()) <= 1e-3
+
+
+def test_istft_does_not_depend_on_the_batch(dev):
+    """cuFFT's C2R leaves the imaginary parts of the DC and Nyquist bins
+    undefined; `istft_center` drops them, so one spectrum decodes the same
+    alone, beside a copy of itself and on the CPU."""
+    from f5tts_tpu_torch.ops.stft import hann_window, istft_center
+
+    g = torch.Generator().manual_seed(0)
+    re, im = (torch.randn(1, 513, 300, generator=g) for _ in range(2))
+    win = hann_window(1024)
+    want = istft_center(re, im, win)[0]
+    alone = istft_center(re.to(dev), im.to(dev), win.to(dev))[0].cpu()
+    pair = istft_center(re.expand(2, -1, -1).contiguous().to(dev),
+                        im.expand(2, -1, -1).contiguous().to(dev), win.to(dev))[0].cpu()
+    for got in (alone, pair):
+        assert float((got - want).norm() / want.norm()) <= 1e-5
+
+
+def _serve_pipeline(dev):
+    """A depth-2 DiT at full width (dim 1024, 16 heads) with a small Vocos,
+    the char vocab of `scripts.common`, 2 NFE, on the card in bf16."""
+    from f5tts_tpu_torch.config import ModelArch, SamplingConfig
+    from f5tts_tpu_torch.infer.pipeline import InferencePipeline
+    from f5tts_tpu_torch.models import cfm, dit
+    from f5tts_tpu_torch.scripts.common import VOCAB
+    from f5tts_tpu_torch.vocoder.vocos import Vocos, VocosConfig, init_vocos
+
+    arch = ModelArch(dim=1024, depth=2, heads=16, dim_head=64, text_num_embeds=100,
+                     text_dim=64, conv_layers=1)
+    gen = torch.Generator().manual_seed(0)
+    params = dit.activate_zero_init(cfm.BACKBONES["DiT"].init(gen, arch), gen)
+    vcfg = VocosConfig(dim=64, intermediate_dim=128, num_layers=2)
+    return InferencePipeline(params, cfm.BACKBONES["DiT"].statics_cls(arch),
+                             Vocos(init_vocos(torch.Generator().manual_seed(1), vcfg), vcfg,
+                                   device=dev), VOCAB, tokenizer="char",
+                             sampling=SamplingConfig(nfe_steps=2), device=dev)
+
+
+def _serve_requests(n: int, seed: int = 0) -> list[dict]:
+    rng = np.random.default_rng(seed)
+    texts = ["Hello there.", "A rather longer text to speak, with a comma.", "Ok!"]
+    return [{"ref_wav": (rng.standard_normal(int(rng.integers(12000, 30000))) * 0.05)
+             .astype(np.float32), "ref_text": "A voice. ", "gen_text": texts[i % 3],
+             "fix_duration": 2.5 if i == 0 else None} for i in range(n)]
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 4])
+def test_serve_replay_equals_eager(dev, b):
+    """`generate_batch_async` on the card: the first batch of a key warms up
+    and captures (one generate's launches, rows of different lengths in
+    the packed 2b batch); a second batch in the key adds 0 to the host
+    counter, and its int16 panel equals the eager serve body on the same
+    static inputs (bit-equal or within 1e-3 * 32767)."""
+    pipe = _serve_pipeline(dev)
+    expect = {"fused_qkv_rope_attention": 4, "adaln_norm": 10, "conv_pos_embedding": 4}
+    _build.reset_launches()
+    pipe.finalize_batch(pipe.generate_batch_async(_serve_requests(b, 0), seed=1))
+    (entry,) = pipe.serve_graphs.values()
+    assert entry.counts == expect and _build.launches() == expect
+    _build.reset_launches()
+    handle, meta = pipe.generate_batch_async(_serve_requests(b, 0), seed=2, cfg_strength=1.5)
+    assert meta[3] is False
+    got = pipe.finalize_batch((handle, meta))
+    assert _build.launches() == {} and entry.replays == 2
+    want = pipe._serve_body(entry.inputs)[1].cpu().numpy()
+    for i, w in enumerate(got):
+        lo, hi = meta[0][i] * 256, min(int(meta[1][i]), meta[2]) * 256
+        d = np.abs(np.round(w * 32767) - want[i, lo:hi].astype(np.float32))
+        assert d.max() <= 1e-3 * 32767, (i, d.max())
+
+
+def test_serve_capture_beside_concurrent_replays(dev):
+    """A capture (a new n bucket) from one thread while a DynamicBatcher
+    replays another key's graph for four clients: no error, and each served
+    wav equals the same request served afterwards."""
+    from f5tts_tpu_torch.infer.serve import DynamicBatcher
+
+    pipe = _serve_pipeline(dev)
+    reqs = _serve_requests(4, 3)
+    for r in reqs:
+        r["fix_duration"] = 3.0
+    pipe.generate_batch(reqs[:1])  # the batcher's key, captured before serving
+    batcher = DynamicBatcher(pipe, max_batch_size=1, max_queue_delay_s=0.001)
+    served, errors = [None] * 8, []
+
+    def client(i):
+        try:
+            served[i] = batcher.submit(reqs[i % 4], timeout=120)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    capture = pipe.generate_batch([dict(reqs[0], fix_duration=7.0)], bucket_size=512)
+    for t in threads:
+        t.join(120)
+    batcher.close()
+    assert not errors and all(w is not None for w in served)
+    assert len(pipe.serve_graphs) >= 2 and np.isfinite(capture[0]).all()
+    for i, w in enumerate(served):
+        np.testing.assert_array_equal(w, pipe.generate_batch([reqs[i % 4]])[0])
 
 
 # ---------------------------------------------------------------------------

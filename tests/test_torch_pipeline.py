@@ -55,7 +55,10 @@ def test_port_imports_no_jax():
             "f5tts_tpu_torch.scripts.int8_quality_ab, f5tts_tpu_torch.infer.speech_edit, "
             "f5tts_tpu_torch.infer.align, f5tts_tpu_torch.vocoder.bigvgan, "
             "f5tts_tpu_torch.compat, f5tts_tpu_torch.infer.utils_infer, "
-            "f5tts_tpu_torch.models.remat\n"
+            "f5tts_tpu_torch.models.remat, f5tts_tpu_torch.infer.serve, "
+            "f5tts_tpu_torch.infer.client_http, f5tts_tpu_torch.infer.api, "
+            "f5tts_tpu_torch.infer.cli, f5tts_tpu_torch.infer.socket_server, "
+            "f5tts_tpu_torch.infer.socket_client, f5tts_tpu_torch.eval.serve_bench\n"
             "from f5tts_tpu_torch.config import load_model_config, model_config_from_dict\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'f5tts_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)\n")
