@@ -208,10 +208,33 @@ Phases (any failure raises, and the script exits non-zero):
     error, each served wav bit-equal to the same request afterwards; (f)
     one b = 2 batch at E2TTS_Base and MMDiT_Base cut to depth 2, graphed
     against eager with exact launches.
+21. Training from data on disk at F5TTS_v1_Base, bf16, the pinyin
+    tokenizer, full width and depth: (a) 24 seeded clips of 2-11 s (half
+    at 16 kHz, so the resampler runs) through a `CustomDataset` over a
+    list of dicts (no arrow on the card): each mel as long as its audio;
+    one 16 x 1024 update's host data work (mel, resample, collate,
+    tokenize) from 24 kHz wavs, 16 kHz wavs and preprocessed mels, beside
+    the step alone (printed, no gate); (b) `finetune_cli` from a
+    reference-key safetensors with the Emilia vocab grown by 8 tokens (the
+    new embedding rows exactly 0), 2 updates of 16 x 1024 through
+    `Trainer` (K3-lse / K4 / K1 / K2 22 / 22 / 45 / 1 each, a finite loss
+    and grad norm) with log_samples and Vocos: the milestone sample at
+    update 2 launches K3 / K1 / K2 704 / 1440 / 64 (32 NFE) and writes both
+    wavs (finite, non-silent), its wall; the milestone checkpoint restores
+    bit for bit; the update with its data and the step alone, the peak;
+    `train_cli.train` on a config dict, one update; (c) `finetune_cli
+    --lora` (rank 8, alpha 16) from the same base, 3 updates (22 / 22 / 45
+    / 1 each): every base tensor bit-unchanged, every adapter moved, the
+    adapter pickle round-trips bit for bit, ms and peak beside (b)'s; then
+    `merge_for_serving` (and its int8 tree) and one `InferencePipeline.infer`
+    request at the 1024 bucket in bf16 (352 / 720 / 32) and in int8
+    (phase 17's counts); (d) the LoRA loss and adapter gradients at depth
+    2, card bf16 against CPU f32 on the same weights, adapters and draws
+    (loss within 2e-2 relative, each gradient's rel-L2 <= 1e-1).
 
 Prints the `kernels` JSON line (launches: what the card ran on the
 inference and training paths of phases 3, 5, 7, 8, 10, 11, 13, 14, 17, 18,
-19 and 20, each graph replay counted with its capture's counts), the card's name
+19, 20 and 21, each graph replay counted with its capture's counts), the card's name
 and power limit,
 and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the repo's
@@ -2583,7 +2606,7 @@ def phase_train(dev, arch, params, gpu: str, backbone: str = "DiT", cells=DIT_TR
                           save_dir=save_dir, save_per_updates=10 ** 9, last_per_updates=10 ** 9,
                           logger=None)
         trainer = Trainer(params, bdef.statics_cls(arch), cfg, backbone=bdef,
-                          vocab_char_map=VOCAB, device=dev)
+                          vocab_char_map=VOCAB, tokenizer="char", device=dev)
         leaf = lambda tree: tree["proj_out"]["b"].detach().float().cpu().clone()  # noqa: E731
         emas, ps, rows = [leaf(trainer.state.ema)], [leaf(trainer.state.params)], []
         torch.cuda.synchronize()
@@ -2994,6 +3017,508 @@ def phase_serving(dev, gpu: str) -> tuple[dict, dict]:
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 21
+# ---------------------------------------------------------------------------
+
+DATA_CLIPS = 24                 # (a): 2-11 s, half at 24 kHz, half at 16 kHz
+BATCH_ROWS, BATCH_FRAMES = 16, 1024
+CLIP_SAMPLES = (BATCH_FRAMES - 1) * 256   # 10.912 s at 24 kHz: 1024 frames
+SAMPLE_LAUNCHES = {"fused_qkv_rope_attention": 22 * 32, "adaln_norm": 45 * 32,
+                   "conv_pos_embedding": 2 * 32}   # a 32-NFE milestone sample
+NEW_TOKENS = 8                  # (b): the vocab grown past Emilia's
+
+
+def voiced_clip(samples: int, sr: int, seed: int) -> np.ndarray:
+    """A seeded voiced-like clip: harmonics of a wobbling pitch and noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(samples) / sr
+    f0 = 120.0 + 10.0 * seed % 60 + 20.0 * np.sin(2 * np.pi * 2.5 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    wav = sum(np.sin(k * phase) / k for k in range(1, 8))
+    wav = wav * (0.5 + 0.5 * np.sin(2 * np.pi * 1.3 * t) ** 2)
+    return (0.1 * wav / np.abs(wav).max() + 0.003 * rng.standard_normal(samples)).astype(
+        np.float32)
+
+
+def pinyin_tokens(seconds: float, seed: int) -> list:
+    """A prepared dataset's text: a pinyin token list, ~12 tokens a second."""
+    from f5tts_tpu_torch.text.pinyin import convert_char_to_pinyin
+
+    base = convert_char_to_pinyin(["今天天气很好，我们一起去公园散步。The weather is nice today, "
+                                   "so we walk in the park."])[0]
+    n = max(int(seconds * 12), 4)
+    return [base[(seed + i) % len(base)] for i in range(n)]
+
+
+def data_timing(rows_by_source: dict, root: str, device_ms: float, gpu: str) -> dict:
+    """(a) One update's host data work (mel, resample, collate, tokenize)
+    for the same 16-row batch from each source, the warm time of two,
+    against the device step of (b)."""
+    from f5tts_tpu_torch.text.vocab import EMILIA_VOCAB, load_vocab
+    from f5tts_tpu_torch.train.dataset import CustomDataset, collate
+    from f5tts_tpu_torch.train.trainer import tokenize
+
+    vocab = load_vocab(EMILIA_VOCAB)
+    out = {}
+    for source, rows in rows_by_source.items():
+        ds = CustomDataset(rows, preprocessed_mel=source == "preprocessed_mel", audio_root=root)
+        walls, batch = [], None
+        for _ in range(2):
+            t0 = time.perf_counter()
+            batch = collate([ds[i] for i in range(len(rows))])
+            ids = tokenize(batch["text"], "pinyin", vocab)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        if batch["mel"].shape != (BATCH_ROWS, BATCH_FRAMES, 100) or ids.shape[0] != BATCH_ROWS \
+                or not np.isfinite(batch["mel"]).all():
+            raise AssertionError(f"(a) {source}: batch {batch['mel'].shape}, ids {ids.shape}")
+        out[source] = {"host_ms": walls[-1], "host_ms_first": walls[0],
+                       "host_over_device": walls[-1] / device_ms}
+        log(f"  (a) host data of one {BATCH_ROWS} x {BATCH_FRAMES} update from {source}: "
+            f"{walls[-1]:.1f} ms (first {walls[0]:.1f}), {walls[-1] / device_ms:.2f}x the "
+            f"device step's {device_ms:.1f} ms [{gpu}]")
+    return out
+
+
+def phase21_data(tmp: Path, gpu: str) -> tuple:
+    """(a) 24 clips of 2-11 s, half at 16 kHz, through a CustomDataset over
+    a list of dicts; the three 16-row sources of the timed batch."""
+    from f5tts_tpu_torch.infer import audio_io
+    from f5tts_tpu_torch.train.dataset import CustomDataset, DynamicBatchSampler, NumpyMel
+
+    rng = np.random.default_rng(21)
+    secs = rng.permutation(np.linspace(2.0, 11.0, DATA_CLIPS))
+    rows = []
+    for i, sec in enumerate(secs):
+        sr = 24000 if i % 2 == 0 else 16000
+        wav = voiced_clip(int(sec * sr), sr, i)
+        audio_io.write_wav(str(tmp / f"clip{i}.wav"), wav, sr)
+        rows.append({"audio_path": f"clip{i}.wav", "text": pinyin_tokens(sec, i),
+                     "duration": len(wav) / sr})
+    ds = CustomDataset(rows, durations=[r["duration"] for r in rows], audio_root=str(tmp))
+    t0 = time.perf_counter()
+    for i, row in enumerate(rows):
+        s = ds[i]
+        samples = int(round(row["duration"] * 24000))
+        if s.mel.shape != (samples // 256 + 1, 100) or not np.isfinite(s.mel).all():
+            raise AssertionError(f"(a) clip {i}: mel {s.mel.shape}, expected "
+                                 f"{(samples // 256 + 1, 100)}")
+        if (abs(ds.get_frame_len(i) - row["duration"] * 93.75) > 1e-6
+                or ds.get_text(i) != row["text"]):
+            raise AssertionError(f"(a) clip {i}: frame length or text")
+    read_s = time.perf_counter() - t0
+    batches = DynamicBatchSampler([ds.get_frame_len(i) for i in range(len(ds))], 4096,
+                                  random_seed=666).batches
+    log(f"  (a) {DATA_CLIPS} clips of {secs.min():.1f}-{secs.max():.1f} s (half at 16 kHz) "
+        f"through a CustomDataset over a list of dicts: every mel as long as its audio, read "
+        f"and converted in {read_s:.2f} s; {len(batches)} batches at 4096 frames [{gpu}]")
+    # the timed batch: 16 clips of 1024 frames at 24 kHz, the same at 16 kHz,
+    # and their mels preprocessed; the 24 kHz clips twice over are (b)'s data
+    sources = {"wav_24k": [], "wav_16k": [], "preprocessed_mel": []}
+    mel_fn = NumpyMel()
+    for i in range(BATCH_ROWS):
+        wav = voiced_clip(CLIP_SAMPLES, 24000, 100 + i)
+        audio_io.write_wav(str(tmp / f"long{i}_24k.wav"), wav, 24000)
+        audio_io.write_wav(str(tmp / f"long{i}_16k.wav"),
+                           audio_io.resample(wav, 24000, 16000), 16000)
+        text = pinyin_tokens(CLIP_SAMPLES / 24000, i)
+        for source, path in (("wav_24k", f"long{i}_24k.wav"), ("wav_16k", f"long{i}_16k.wav")):
+            sources[source].append({"audio_path": path, "text": text,
+                                    "duration": CLIP_SAMPLES / 24000})
+        sources["preprocessed_mel"].append({"mel_spec": mel_fn(audio_io.read_wav(
+            str(tmp / f"long{i}_24k.wav"))[0]), "text": text, "duration": CLIP_SAMPLES / 24000})
+    return {"clips": DATA_CLIPS, "read_s": read_s, "batches_4096": len(batches)}, sources
+
+
+def phase21_finetune(dev, tmp: Path, vocab_dir: Path, ckpt: str, rows: list, vocos,
+                     gpu: str) -> tuple:
+    """(b) The finetune path from a reference safetensors with the vocab
+    grown by NEW_TOKENS, 2 updates through Trainer with log_samples and the
+    milestone at update 2; the milestone checkpoint restored."""
+    import torch
+    from f5tts_tpu_torch.models.modules import tree_leaves
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.train import finetune_cli
+    from f5tts_tpu_torch.train.checkpoint import CheckpointManager
+    from f5tts_tpu_torch.train.dataset import CustomDataset
+
+    save = tmp / "full"
+    args = finetune_cli.parse_args([
+        "--exp_name", "F5TTS_v1_Base", "--pretrain", ckpt, "--dataset_name", "smoke",
+        "--data_root", str(vocab_dir), "--batch_size_per_gpu", str(BATCH_ROWS * BATCH_FRAMES),
+        "--max_samples", str(BATCH_ROWS), "--max_updates", "2", "--save_per_updates", "2",
+        "--num_warmup_updates", "2", "--logger", "none", "--save_dir", str(save)])
+    t0 = time.perf_counter()
+    vocab, vocab_size, _, arch, _, params = finetune_cli.setup(args)
+    setup_s = time.perf_counter() - t0
+    emb = params["text_embed"]["embed"]["w"]
+    if vocab_size != 2545 + NEW_TOKENS or emb.shape[0] != vocab_size + 1 or emb[2546:].any():
+        raise AssertionError(f"(b) vocab {vocab_size}, embedding {tuple(emb.shape)}: the "
+                             f"{NEW_TOKENS} new rows must be exactly 0")
+    ds = CustomDataset(rows, audio_root=str(tmp))
+    updates, marks = [], {}
+
+    def on_update(update, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        updates.append({"update": update, "wall_ms": (now - marks.get("t", t_train)) * 1e3,
+                        "loss": float(metrics["loss"]),
+                        "grad_norm": float(metrics["grad_norm"]), "launches": _build.launches()})
+        _build.reset_launches()
+        marks["t"] = time.perf_counter()
+
+    def sample_fn(ema, update):
+        torch.cuda.synchronize()
+        _build.reset_launches()  # the milestone sample's counts alone
+        marks["sample"] = time.perf_counter()
+
+    def vocoder(mel):
+        wav = vocos(mel)
+        torch.cuda.synchronize()
+        marks["vocoded"] = time.perf_counter()
+        return wav
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before_gb = torch.cuda.memory_allocated(dev) / 1e9
+    _build.reset_launches()  # every count to 0 just before the finetune path
+    t_train = time.perf_counter()
+    out = finetune_cli.finetune(args, params, ds, vocab, device=dev, vocoder=vocoder,
+                                log_samples=True, sample_fn=sample_fn, on_update=on_update)
+    torch.cuda.synchronize()
+    sample_ran = _build.launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 - before_gb
+    trainer = out["trainer"]
+    sample_s = marks["vocoded"] - marks["sample"]
+    for r in updates:
+        log(f"  (b) update {r['update']}: loss {r['loss']:.5f}, grad norm {r['grad_norm']:.4f}, "
+            f"wall {r['wall_ms']:.1f} ms, launches {r['launches']}")
+        if r["launches"] != _DIT_PER_UPDATE:
+            raise AssertionError(f"(b) update {r['update']}: launches {r['launches']}, expected "
+                                 f"{_DIT_PER_UPDATE}")
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+            raise AssertionError("(b) a non-finite loss or grad norm")
+    if sample_ran != SAMPLE_LAUNCHES:
+        raise AssertionError(f"(b) milestone sample launched {sample_ran}, expected "
+                             f"{SAMPLE_LAUNCHES}")
+    from f5tts_tpu_torch.infer import audio_io
+
+    rms = {}
+    for kind in ("gen", "ref"):
+        wav, sr = audio_io.read_wav(str(save / "samples" / f"update_2_{kind}.wav"))
+        rms[kind] = float(np.sqrt(np.mean(np.square(wav)))) if wav.size else 0.0
+        if sr != 24000 or not (wav.size and np.isfinite(wav).all() and rms[kind] > 1e-4):
+            raise AssertionError(f"(b) update_2_{kind}.wav is empty, non-finite or silent")
+    t0 = time.perf_counter()
+    restored = CheckpointManager(str(save)).restore(step=2, device=dev)
+    restore_s = time.perf_counter() - t0
+    differ = [name for name in ("params", "mu", "nu", "ema")
+              if not all(torch.equal(a, b) for a, b in zip(
+                  tree_leaves(getattr(restored, name)),
+                  tree_leaves(getattr(trainer.state, name))))]
+    if restored.step != 2 or differ:
+        raise AssertionError(f"(b) the milestone checkpoint restores step {restored.step}, "
+                             f"differs in {differ}")
+    del restored
+    step_ms = step_alone_ms(
+        lambda mel, text, lens, gen: trainer.step_fn(trainer.state, mel, text, lens,
+                                                     generator=gen),
+        rows, str(tmp), dev, "(b)")
+    ms = updates[-1]["wall_ms"]
+    ref_frames = trainer._last_sample[0].shape[0]
+    del out, trainer
+    torch.cuda.empty_cache()
+    log(f"  (b) F5TTS_v1_Base finetune from the reference safetensors (vocab {vocab_size}, "
+        f"setup {setup_s:.2f} s): {ms:.1f} ms the second update with its data read on the fly, "
+        f"{step_ms:.1f} ms the step alone, peak {peak:.2f} GB allocated above what was before; "
+        f"the milestone sample (32 NFE, twice a {ref_frames}-frame reference) {sample_s:.2f} s, "
+        f"launches {sample_ran}, wav rms gen {rms['gen']:.4f} / ref "
+        f"{rms['ref']:.4f}; milestone checkpoint restored bit for bit in {restore_s:.2f} s "
+        f"[{gpu}]")
+    total = {}
+    for r in updates:
+        for k, c in r["launches"].items():
+            total[k] = total.get(k, 0) + c
+    for k, c in sample_ran.items():
+        total[k] = total.get(k, 0) + c
+    row = {"ms_per_update": ms, "step_ms": step_ms, "walls_ms": [r["wall_ms"] for r in updates],
+           "peak_gb": peak,
+           "sample_s": sample_s, "restore_s": restore_s, "setup_s": setup_s,
+           "losses": [r["loss"] for r in updates]}
+    return total, row, vocab, arch, params
+
+
+def step_alone_ms(step, rows: list, root: str, dev, what: str) -> float:
+    """The update without its data: `step(mel, text, lens, generator)` twice
+    on one pre-collated 16-row batch, each launching one update's kernels;
+    the wall of the second (its host launches included)."""
+    import torch
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.text.vocab import EMILIA_VOCAB, load_vocab
+    from f5tts_tpu_torch.train.dataset import CustomDataset, collate
+    from f5tts_tpu_torch.train.trainer import tokenize
+
+    ds = CustomDataset(rows[:BATCH_ROWS], audio_root=root)
+    batch = collate([ds[i] for i in range(BATCH_ROWS)])
+    mel, text, lens = (torch.from_numpy(a).to(dev) for a in (
+        batch["mel"], tokenize(batch["text"], "pinyin", load_vocab(EMILIA_VOCAB)),
+        batch["mel_lengths"]))
+    walls = []
+    for i in range(2):
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        step(mel, text, lens, gen)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if _build.launches() != _DIT_PER_UPDATE:
+            raise AssertionError(f"{what}: a step alone launched {_build.launches()}")
+    log(f"  {what} the step alone on one pre-collated {BATCH_ROWS} x {BATCH_FRAMES} batch "
+        f"{walls[1]:.1f} ms (first {walls[0]:.1f})")
+    return walls[1]
+
+
+def phase21_train_cli(dev, tmp: Path, vocab_dir: Path, arch, params, rows: list,
+                      gpu: str) -> tuple:
+    """train_cli.train on a config dict in the reference YAML layout (no
+    PyYAML on the card) for `arch`: one update."""
+    import torch
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.train import train_cli
+    from f5tts_tpu_torch.train.dataset import CustomDataset
+
+    keys = ("dim", "depth", "heads", "ff_mult", "text_dim", "text_mask_padding", "conv_layers",
+            "pe_attn_head")
+    raw = {"model": {"name": "F5TTS_v1_Base", "tokenizer": "pinyin", "backbone": "DiT",
+                     "arch": {k: getattr(arch, k) for k in keys}},
+           "datasets": {"name": "smoke", "batch_size_per_gpu": BATCH_ROWS * BATCH_FRAMES,
+                        "max_samples": BATCH_ROWS},
+           "optim": {"num_warmup_updates": 2},
+           "ckpts": {"logger": None, "save_dir": str(tmp / "cli"), "save_per_updates": 10 ** 9,
+                     "last_per_updates": 10 ** 9}}
+    ran = []
+
+    def on_update(update, metrics):
+        torch.cuda.synchronize()
+        ran.append((_build.launches(), float(metrics["loss"])))
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    trainer, _ = train_cli.train(raw, CustomDataset(rows, audio_root=str(tmp)), max_updates=1,
+                                 data_root=str(vocab_dir), device=dev, params=params,
+                                 on_update=on_update)
+    wall = time.perf_counter() - t0
+    (counts, loss), = ran
+    log(f"  train_cli.train: 1 update, loss {loss:.5f}, launches {counts}, {wall:.2f} s with the "
+        f"state's set-up and its heartbeat checkpoint [{gpu}]")
+    if counts != _DIT_PER_UPDATE or not np.isfinite(loss) or trainer.state.step != 1:
+        raise AssertionError(f"train_cli.train: launches {counts}, loss {loss}")
+    del trainer
+    torch.cuda.empty_cache()
+    return counts, {"wall_s": wall, "loss": loss}
+
+
+def phase21_lora(dev, tmp: Path, vocab_dir: Path, ckpt: str, rows: list, params, vocab, arch,
+                 vocos_params, gpu: str) -> tuple:
+    """(c) rank 8, alpha 16, 3 updates through the LoRA step from the same
+    base; the merged weights served in bf16 and int8."""
+    import torch
+    from f5tts_tpu_torch.models.modules import tree_leaves
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.scripts.common import REQUESTS
+    from f5tts_tpu_torch.train import finetune_cli
+    from f5tts_tpu_torch.train.dataset import CustomDataset
+    from f5tts_tpu_torch.train.lora import LoRAConfig, init_lora, load_lora, merge_for_serving
+
+    save = tmp / "lora"
+    args = finetune_cli.parse_args([
+        "--exp_name", "F5TTS_v1_Base", "--pretrain", ckpt, "--dataset_name", "smoke",
+        "--data_root", str(vocab_dir), "--batch_size_per_gpu", str(BATCH_ROWS * BATCH_FRAMES),
+        "--max_samples", str(BATCH_ROWS), "--max_updates", "3", "--save_per_updates", "3",
+        "--lora", "--lora_rank", "8", "--lora_alpha", "16", "--logger", "none",
+        "--save_dir", str(save)])
+    updates, marks = [], {}
+
+    def on_update(update, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        updates.append({"update": update, "wall_ms": (now - marks.get("t", t_train)) * 1e3,
+                        "loss": float(metrics["loss"]),
+                        "grad_norm": float(metrics["grad_norm"]), "launches": _build.launches()})
+        _build.reset_launches()
+        marks["t"] = time.perf_counter()
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before_gb = torch.cuda.memory_allocated(dev) / 1e9
+    _build.reset_launches()  # every count to 0 just before the LoRA path
+    t_train = time.perf_counter()
+    out = finetune_cli.finetune(args, params, CustomDataset(rows, audio_root=str(tmp)), vocab,
+                                device=dev, on_update=on_update)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 - before_gb
+    lora, step = out["lora"], out["step"]
+    total = {}
+    for r in updates:
+        log(f"  (c) LoRA update {r['update']}: loss {r['loss']:.5f}, grad norm "
+            f"{r['grad_norm']:.4f}, wall {r['wall_ms']:.1f} ms, launches {r['launches']}")
+        if r["launches"] != _DIT_PER_UPDATE or not np.isfinite(r["loss"]):
+            raise AssertionError(f"(c) LoRA update {r['update']}: launches {r['launches']}, "
+                                 f"loss {r['loss']}")
+        for k, c in r["launches"].items():
+            total[k] = total.get(k, 0) + c
+    init = init_lora(torch.Generator(device=dev).manual_seed(1), step.base, LoRAConfig(8, 16.0))
+    still = [f"{g}.{n}.{k}" for g, sub in lora.items() for n, ab in sub.items() for k in ab
+             if torch.equal(ab[k], init[g][n][k])]
+    if still:
+        raise AssertionError(f"(c) adapters that did not change: {still}")
+    base_changed = [i for i, (a, b) in enumerate(zip(tree_leaves(step.base),
+                                                     tree_leaves(params)))
+                    if not torch.equal(a, b.to(dev))]
+    if base_changed:
+        raise AssertionError(f"(c) {len(base_changed)} base tensors changed under LoRA")
+    back = load_lora(str(save / "lora_3.pkl"), device=dev)
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(back), tree_leaves(lora))):
+        raise AssertionError("(c) the adapter pickle does not round-trip bit for bit")
+    opt = out["opt_state"]
+    step_ms = step_alone_ms(lambda mel, text, lens, gen: step(lora, opt, mel, text, lens,
+                                                              generator=gen),
+                            rows, str(tmp), dev, "(c)")
+    n_adapter = sum(t.numel() for t in tree_leaves(lora))
+    ms = statistics.median(r["wall_ms"] for r in updates[1:])
+    log(f"  (c) LoRA rank 8, alpha 16: {n_adapter} adapter parameters, {ms:.1f} ms an update "
+        f"with its data (median of updates 2-3), {step_ms:.1f} ms the step alone, peak "
+        f"{peak:.2f} GB allocated above what was before; base bit-unchanged, every "
+        f"adapter moved, lora_3.pkl round-trips bit for bit [{gpu}]")
+    t0 = time.perf_counter()
+    merged = merge_for_serving(step.base, lora, LoRAConfig(8, 16.0))
+    q = merge_for_serving(step.base, lora, LoRAConfig(8, 16.0), quantization="int8")
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    if not all("w_i8" in blk[g][n] for blk in q["blocks"]
+               for g, n in (("attn", "to_qkv"), ("attn", "to_out"), ("ff", "in"), ("ff", "out"))):
+        raise AssertionError("(c) merge_for_serving(int8) left a projection unquantized")
+    del q, out, step
+    served = {}
+    for quant in ("none", "int8"):
+        pipe = make_pipeline(dev, "DiT", arch, merged, vocos_params, vocab_char_map=vocab,
+                             tokenizer="pinyin", quantization=quant)
+        expect = generate_launches("DiT", arch, int8=quant == "int8")
+        log(f"  (c) the merged weights served, quantization {quant}:")
+        for k, c in run_requests(pipe, [(REQUESTS[0], 1014, expect)], gpu).items():
+            total[k] = total.get(k, 0) + c
+            served[k] = served.get(k, 0) + c
+        del pipe
+        torch.cuda.empty_cache()
+    return total, {"ms_per_update": ms, "step_ms": step_ms,
+                   "walls_ms": [r["wall_ms"] for r in updates],
+                   "peak_gb": peak, "adapter_params": n_adapter, "merge_s": merge_s,
+                   "losses": [r["loss"] for r in updates]}, lora
+
+
+def phase21_depth2(dev, arch, params) -> None:
+    """(d) LoRA loss and adapter gradients at depth 2, card bf16 against CPU
+    f32 on the same weights, adapters and draws (phase 6's tolerances)."""
+    import torch
+    from f5tts_tpu_torch.models.cfm import make_draws
+    from f5tts_tpu_torch.models.dit import DiTStatics
+    from f5tts_tpu_torch.models.modules import tree_cast, tree_leaves
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.train.lora import AdamWHParams, LoRAConfig, init_lora, make_lora_train_step
+
+    arch2 = dataclasses.replace(arch, depth=2)
+    p2 = cut_to_depth_2("DiT", params)
+    cfg = LoRAConfig(8, 16.0)
+    gen = torch.Generator().manual_seed(3)
+    lora = init_lora(gen, p2, cfg)
+    for sub in lora.values():  # a random b, so that a has a gradient too
+        for ab in sub.values():
+            ab["b"] = torch.randn(ab["b"].shape, generator=gen) * 0.02
+    b, n = 4, 512
+    rng = np.random.default_rng(12)
+    mel = torch.from_numpy(rng.standard_normal((b, n, 100)).astype(np.float32))
+    text = torch.from_numpy(rng.integers(1, 2545, (b, 128)).astype(np.int32))
+    lens = torch.tensor([n, n * 25 // 32, n * 19 // 32, n * 7 // 8], dtype=torch.int32)
+    draws = make_draws(torch.Generator().manual_seed(5), b, n, 100)
+    expect = {"fused_qkv_rope_attention_lse": 2, "fused_qkv_rope_attention_bwd": 2,
+              "adaln_norm": 5, "conv_pos_embedding": 1}
+    out = {}
+    for where, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        step = make_lora_train_step(tree_cast(p2, torch.float32, where), DiTStatics(arch2, where),
+                                    AdamWHParams(1e-5), cfg, dtype=dtype)
+        _build.reset_launches()
+        loss, grads = step.loss_and_grads(tree_cast(lora, torch.float32, where), mel.to(where),
+                                          text.to(where), lens.to(where), draws=draws)
+        out[where.type] = (float(loss), [g.float().cpu() for g in tree_leaves(grads)])
+        if where.type == "cuda" and _build.launches() != expect:
+            raise AssertionError(f"(d) depth-2 LoRA step launches {_build.launches()}, "
+                                 f"expected {expect}")
+    (la, ga), (lb, gb) = out["cuda"], out["cpu"]
+    rels = [float((x - w).norm() / w.norm()) for x, w in zip(ga, gb)]
+    loss_rel = abs(la - lb) / abs(lb)
+    log(f"  (d) LoRA depth 2, card bf16 vs cpu f32: loss {la:.6f} / {lb:.6f}, rel {loss_rel:.3e} "
+        f"(tol 2e-2); adapter gradient rel-L2 over {len(rels)} leaves: median "
+        f"{statistics.median(rels):.3e}, max {max(rels):.3e} (tol 1e-1)")
+    if not (loss_rel <= 2e-2 and max(rels) <= 1e-1):
+        raise AssertionError("(d) LoRA step: card bf16 and cpu f32 disagree")
+    return {"loss_rel": loss_rel, "grad_rel_max": max(rels)}
+
+
+def phase_training_data(dev, gpu: str) -> tuple[dict, dict]:
+    """Phase 21: training from data on disk at F5TTS_v1_Base, bf16, pinyin."""
+    import shutil
+    import tempfile
+
+    import torch
+    from f5tts_tpu_torch.scripts.common import base_models
+    from f5tts_tpu_torch.text.vocab import EMILIA_VOCAB
+    from f5tts_tpu_torch.train.checkpoint import write_safetensors_f32
+    from f5tts_tpu_torch.vocoder.vocos import Vocos, VocosConfig
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_data_"))
+    launches, out = {}, {}
+    try:
+        out["data"], sources = phase21_data(tmp, gpu)
+        vocab_dir = tmp / "data"
+        (vocab_dir / "smoke_pinyin").mkdir(parents=True)
+        with open(EMILIA_VOCAB, encoding="utf-8") as f:
+            lines = f.read()
+        (vocab_dir / "smoke_pinyin" / "vocab.txt").write_text(
+            lines + "".join(f"newtok{i}\n" for i in range(NEW_TOKENS)), encoding="utf-8")
+        arch, params, vocos_params = base_models()
+        ckpt = str(tmp / "F5TTS_v1_Base.safetensors")
+        t0 = time.perf_counter()
+        write_safetensors_f32(reference_state_dict(params), ckpt)
+        log(f"  reference safetensors of F5TTS_v1_Base: {Path(ckpt).stat().st_size / 1e9:.3f} GB "
+            f"in {time.perf_counter() - t0:.2f} s")
+        del params
+        rows = sources["wav_24k"] * 2   # two 16-row batches of 1024 frames
+        vocos = Vocos(vocos_params, VocosConfig(), device=dev)
+        ran, out["finetune"], vocab, arch_v, params = phase21_finetune(
+            dev, tmp, vocab_dir, ckpt, rows, vocos, gpu)
+        for k, c in ran.items():
+            launches[k] = launches.get(k, 0) + c
+        torch.cuda.empty_cache()
+        out["data"]["timing"] = data_timing(sources, str(tmp), out["finetune"]["step_ms"], gpu)
+        ran, out["train_cli"] = phase21_train_cli(dev, tmp, vocab_dir, arch, params, rows, gpu)
+        for k, c in ran.items():
+            launches[k] = launches.get(k, 0) + c
+        ran, out["lora"], _ = phase21_lora(dev, tmp, vocab_dir, ckpt, rows, params, vocab,
+                                           arch_v, vocos_params, gpu)
+        for k, c in ran.items():
+            launches[k] = launches.get(k, 0) + c
+        out["depth2"] = phase21_depth2(dev, arch_v, params)
+    finally:
+        shutil.rmtree(tmp)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 21: {out['phase_s']:.1f} s")
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -3164,6 +3689,14 @@ def main() -> int:
     for name, count in ran.items():
         launches[name] = launches.get(name, 0) + count
     log(f"  phase 20: {json.dumps(serve_rows)}")
+    torch.cuda.empty_cache()
+
+    log("phase 21: training from data on disk, F5TTS_v1_Base, bf16, pinyin: CustomDataset, "
+        "finetune_cli (full with milestone samples, LoRA), train_cli")
+    ran, data_rows = phase_training_data(dev, gpu)
+    for name, count in ran.items():
+        launches[name] = launches.get(name, 0) + count
+    log(f"  phase 21: {json.dumps(data_rows)}")
     torch.cuda.empty_cache()
 
     idle = [name for name in rows if not launches.get(name)]

@@ -115,6 +115,27 @@ def read_safetensors(path: str) -> dict:
     return out
 
 
+def write_safetensors(tensors: Mapping, path: str) -> None:
+    """Write {name: tensor} as a safetensors file, each tensor in its own
+    dtype (`read_safetensors`' inverse)."""
+    names = {v: k for k, v in _ST_DTYPES.items()}
+    header, blobs, offset = {}, [], 0
+    for name in sorted(tensors):
+        t = tensors[name].detach().cpu().contiguous()
+        blob = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for blob in blobs:
+            f.write(blob)
+
+
 def load_torch_checkpoint(path: str) -> dict:
     """A reference checkpoint (.safetensors, or .pt / .pth / .bin) as a flat
     state dict through `extract_ema_state_dict`, its float tensors in f32 on

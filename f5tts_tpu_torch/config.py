@@ -124,7 +124,7 @@ class TrainConfig:
     last_per_updates: int = 5_000
     save_dir: str = "ckpts"
     logger: Optional[str] = "tensorboard"  # "wandb" | "tensorboard" | None
-    log_samples: bool = False  # not ported: Trainer raises
+    log_samples: bool = False  # milestone samples (needs a vocoder in the Trainer)
 
 
 @dataclass(frozen=True)

@@ -20,10 +20,8 @@
 
 from __future__ import annotations
 
-import json
 import os
 import re
-import struct
 from typing import Optional
 
 import numpy as np
@@ -160,20 +158,10 @@ def to_reference_keys(params: dict, prefix: str = "") -> dict:
 
 def write_safetensors_f32(tensors: dict, path: str) -> None:
     """Write {name: array} as a safetensors file of little-endian f32."""
-    header, blobs, offset = {}, [], 0
-    for name in sorted(tensors):
-        a = np.ascontiguousarray(tensors[name], dtype="<f4")
-        header[name] = {"dtype": "F32", "shape": list(a.shape),
-                        "data_offsets": [offset, offset + a.nbytes]}
-        blobs.append(a.tobytes())
-        offset += a.nbytes
-    head = json.dumps(header, separators=(",", ":")).encode()
-    head += b" " * (-len(head) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(head)))
-        f.write(head)
-        for blob in blobs:
-            f.write(blob)
+    from f5tts_tpu_torch.compat.torch_import import write_safetensors
+
+    write_safetensors({k: torch.from_numpy(np.array(v, dtype="<f4")) for k, v in tensors.items()},
+                      path)
 
 
 def save_safetensors_ema(params: dict, path: str) -> None:

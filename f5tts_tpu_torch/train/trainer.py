@@ -12,9 +12,11 @@ f5tts_tpu/train/trainer.py:40-384).
   an uninterrupted one would.
 - Checkpoints: a milestone every `save_per_updates`, a heartbeat every
   `last_per_updates` and at the end (`CheckpointManager`).
-- Tokenizers "char" (vocab map, the default here), "pinyin" (the JAX
-  trainer's default: `text.pinyin` on strings, token lists looked up as they
-  are) and "byte" (UTF-8).
+- Tokenizers "pinyin" (the default, as the JAX trainer's: `text.pinyin` on
+  strings, token lists looked up as they are), "char" and "custom" (vocab
+  map) and "byte" (UTF-8). The JAX trainer byte-encodes under "custom"
+  (its `tokenize` knows only pinyin and char), which ignores the custom
+  vocab `finetune_cli --tokenizer custom` loads; the port looks it up.
 - Any backbone of `cfm.BACKBONES` (`backbone=`, the DiT by default): its
   statics are rebuilt on the device by its `statics_cls`.
 - Logging as the JAX trainer's (:150-167, :363): `logger` (or
@@ -28,13 +30,22 @@ f5tts_tpu/train/trainer.py:40-384).
   the state bit for bit. The JAX trainer's buffer donation
   (`F5TTS_DONATE_STATE`) is an XLA matter with no counterpart here: the
   port's update already runs in place.
-Not ported yet: multi-device and multi-host data parallelism, ZeRO-1,
-`log_samples` (raises: it needs a sampler and a vocoder in the trainer;
-ROADMAP.md queue 1 item 13).
+- At each milestone `sample_fn(ema_params, update)` is called, and with
+  `log_samples` and a `vocoder` (mel [b, d, t] -> wav [b, l]) the first row
+  of the latest batch is cloned with the EMA weights, as the JAX trainer's
+  `_log_sample` does: the doubled text, 32 Euler steps with sway -1, CFG 2,
+  noise from a generator seeded by the update on the trainer's device;
+  `update_<n>_gen.wav` / `update_<n>_ref.wav` under `save_dir/samples`.
+  Known difference: JAX samples in f32 through its XLA path; the port's
+  kernels take bf16 only, so on the card the sample runs in the trainer's
+  dtype (bf16, through K3 / K1 / K2), on the CPU in f32 (plain versions).
+Not ported yet: multi-device and multi-host data parallelism and ZeRO-1
+(`mesh` / `zero1` raise; ROADMAP.md queue 1 item 16).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Optional
 
@@ -42,37 +53,61 @@ import numpy as np
 import torch
 
 from f5tts_tpu_torch.config import CFMConfig, TrainConfig
+from f5tts_tpu_torch.models import cfm
+from f5tts_tpu_torch.models import modules as m
 from f5tts_tpu_torch.models.cfm import DIT, BackboneDef
-from f5tts_tpu_torch.models.modules import tree_leaves
 from f5tts_tpu_torch.text.pinyin import convert_char_to_pinyin
 from f5tts_tpu_torch.text.vocab import list_str_to_idx, list_str_to_tensor
 from f5tts_tpu_torch.train.checkpoint import CheckpointManager
 from f5tts_tpu_torch.train.dataset import DynamicBatchSampler, collate
 from f5tts_tpu_torch.train.step import init_train_state, make_optimizer, make_train_step
-from f5tts_tpu_torch.utils import resolve_device
+from f5tts_tpu_torch.utils import duration_bucket, make_time_grid, resolve_device
+
+
+def tokenize(texts: list, tokenizer: str, vocab_char_map: Optional[dict],
+             pad_to: Optional[int] = None) -> np.ndarray:
+    """[b] texts -> [b, nt] int32 ids (-1 padded) by `tokenizer` ("pinyin",
+    "char" or "custom" through `vocab_char_map`, "byte")."""
+    if tokenizer == "pinyin":
+        # prepared datasets store pinyin token lists already; converting
+        # them again would split 'ni3' into its characters
+        if texts and isinstance(texts[0], (list, tuple)):
+            return list_str_to_idx(texts, vocab_char_map, pad_to=pad_to)
+        return list_str_to_idx(convert_char_to_pinyin(texts), vocab_char_map, pad_to=pad_to)
+    if tokenizer in ("char", "custom"):
+        return list_str_to_idx(texts, vocab_char_map, pad_to=pad_to)
+    return list_str_to_tensor(texts, pad_to=pad_to)
 
 
 class Trainer:
     def __init__(self, params: dict, statics, train_cfg: TrainConfig,
                  cfm_cfg: CFMConfig = CFMConfig(), backbone: BackboneDef = DIT,
-                 vocab_char_map: Optional[dict] = None, tokenizer: str = "char",
+                 vocab_char_map: Optional[dict] = None, tokenizer: str = "pinyin",
                  total_updates: Optional[int] = None, dtype=torch.bfloat16, device=None,
-                 logger: Optional[str] = None, log_dir: str = "runs", bf16_state: bool = False):
+                 logger: Optional[str] = None, log_dir: str = "runs", bf16_state: bool = False,
+                 sample_fn: Optional[Callable] = None, vocoder: Optional[Callable] = None,
+                 mesh=None, zero1: bool = False):
         """`statics`: the backbone's statics (`backbone.statics_cls`); only
-        its `.arch` is read. `logger` overrides `train_cfg.logger`."""
-        if tokenizer not in ("pinyin", "char", "byte"):
-            raise ValueError(f"unknown tokenizer {tokenizer!r} (pinyin | char | byte)")
+        its `.arch` is read. `logger` overrides `train_cfg.logger`.
+        `sample_fn(ema_params, update)` runs at each milestone; `vocoder`
+        (mel [b, d, t] -> wav) enables `train_cfg.log_samples`."""
+        if tokenizer not in ("pinyin", "char", "custom", "byte"):
+            raise ValueError(f"unknown tokenizer {tokenizer!r} (pinyin | char | custom | byte)")
         if tokenizer != "byte" and vocab_char_map is None:
             raise ValueError(f"the {tokenizer} tokenizer needs a vocab_char_map")
-        if train_cfg.log_samples:
-            raise NotImplementedError("log_samples is not ported: it needs a sampler and a "
-                                      "vocoder in the trainer (ROADMAP.md queue 1 item 13)")
+        if mesh is not None or zero1:
+            raise NotImplementedError("multi-device training (mesh, zero1) is not ported "
+                                      "(ROADMAP.md queue 1 item 16)")
         self.cfg = train_cfg
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
         self.vocab_char_map = vocab_char_map
         self.backbone = backbone
         self.statics = backbone.statics_cls(statics.arch, self.device)
+        self.dtype = dtype
+        self.sample_fn = sample_fn
+        self.vocoder = vocoder
+        self._last_sample = None  # (mel [t, d], text) of the latest batch's first row
         warmup = train_cfg.num_warmup_updates
         self.hp = make_optimizer(train_cfg.learning_rate, warmup, total_updates or warmup * 10,
                                  train_cfg.max_grad_norm)
@@ -113,16 +148,52 @@ class Trainer:
                 self.writer.add_scalar(k, v, step)
             self.writer.flush()
 
-    def tokenize(self, texts: list) -> np.ndarray:
-        if self.tokenizer == "pinyin":
-            # prepared datasets store pinyin token lists already; converting
-            # them again would split 'ni3' into its characters
-            if texts and isinstance(texts[0], (list, tuple)):
-                return list_str_to_idx(texts, self.vocab_char_map)
-            return list_str_to_idx(convert_char_to_pinyin(texts), self.vocab_char_map)
-        if self.tokenizer == "char":
-            return list_str_to_idx(texts, self.vocab_char_map)
-        return list_str_to_tensor(texts)
+    def tokenize(self, texts: list, pad_to: Optional[int] = None) -> np.ndarray:
+        return tokenize(texts, self.tokenizer, self.vocab_char_map, pad_to)
+
+    @torch.no_grad()
+    def _log_sample(self, update: int) -> Optional[dict]:
+        """Clone the first row of the latest batch with the EMA weights
+        (reference trainer.py:408-438) and write the generated and the
+        reference wav under save_dir/samples. Returns the sampled mel [1,
+        n, d] and the two paths, or None without a vocoder or a batch."""
+        if self.vocoder is None or self._last_sample is None:
+            return None
+        from f5tts_tpu_torch.infer import audio_io
+
+        mel_ref, text = self._last_sample
+        ref_frames = mel_ref.shape[0]
+        total = min(ref_frames * 2, 4096)
+        n_bucket = duration_bucket(total, 256, 4096, self.backbone.seq_extra_tokens)
+        cond = np.zeros((1, n_bucket, mel_ref.shape[1]), np.float32)
+        cond[0, :ref_frames] = mel_ref
+        # doubled text (reference trainer.py:411): token lists get [" "]
+        # spliced between, strings a space
+        doubled = (list(text) + [" "] + list(text) if isinstance(text, (list, tuple))
+                   else text + " " + text)
+        dev = self.device
+        # the kernels take bf16 only: the trainer's dtype on the card, f32 on
+        # the CPU (the JAX trainer samples in f32)
+        dtype = self.dtype if dev.type == "cuda" else torch.float32
+        params = m.fuse_backbone_qkv(m.tree_cast(self.state.ema, dtype), dtype=dtype)
+        out = cfm.cfm_sample(
+            params, self.statics, torch.from_numpy(cond).to(dev),
+            torch.from_numpy(self.tokenize([doubled])).to(dev),
+            torch.tensor([ref_frames], dtype=torch.int32, device=dev),
+            torch.tensor([total], dtype=torch.int32, device=dev),
+            make_time_grid(32, sway_sampling_coef=-1.0),
+            generator=torch.Generator(device=dev).manual_seed(update), cfg_strength=2.0,
+            dtype=dtype, backbone=self.backbone)
+        gen = out[:, ref_frames:total, :].transpose(1, 2)
+        ref = torch.from_numpy(mel_ref[None]).to(dev).transpose(1, 2)
+        sample_dir = os.path.join(self.cfg.save_dir, "samples")
+        os.makedirs(sample_dir, exist_ok=True)
+        paths = []
+        for kind, mel in (("gen", gen), ("ref", ref)):
+            wav = self.vocoder(mel)[0].float().cpu().numpy()
+            paths.append(os.path.join(sample_dir, f"update_{update}_{kind}.wav"))
+            audio_io.write_wav(paths[-1], wav, 24000)
+        return {"mel": out, "gen_wav": paths[0], "ref_wav": paths[1]}
 
     def maybe_resume(self) -> int:
         restored = self.ckpt.restore(device=self.device)
@@ -160,6 +231,9 @@ class Trainer:
                 if epoch == start_epoch and bi < skip_batches:
                     continue
                 batch = collate([dataset[i] for i in batch_idx])
+                if cfg.log_samples:
+                    t0_len = int(batch["mel_lengths"][0])
+                    self._last_sample = (batch["mel"][0, :t0_len].copy(), batch["text"][0])
                 mel = torch.from_numpy(batch["mel"]).to(self.device)
                 text = torch.from_numpy(self.tokenize(batch["text"])).to(self.device)
                 lens = torch.from_numpy(batch["mel_lengths"]).to(self.device)
@@ -170,12 +244,12 @@ class Trainer:
                     if accum_grads is None:
                         accum_grads = grads
                     else:
-                        torch._foreach_add_(tree_leaves(accum_grads), tree_leaves(grads))
+                        torch._foreach_add_(m.tree_leaves(accum_grads), m.tree_leaves(grads))
                     accum_loss = accum_loss + loss
                     accum_count += 1
                     if accum_count < self.accum:
                         continue
-                    torch._foreach_div_(tree_leaves(accum_grads), float(self.accum))
+                    torch._foreach_div_(m.tree_leaves(accum_grads), float(self.accum))
                     loss, grads = accum_loss / self.accum, accum_grads
                     accum_grads, accum_loss, accum_count = None, 0.0, 0
                 self.state, metrics = self.step_fn.apply_step(self.state, loss, grads)
@@ -191,6 +265,10 @@ class Trainer:
 
                 if update % cfg.save_per_updates == 0:
                     self.ckpt.save(self.state)
+                    if self.sample_fn is not None:
+                        self.sample_fn(self.state.ema, update)
+                    if cfg.log_samples:
+                        self._log_sample(update)
                 elif update % cfg.last_per_updates == 0:
                     self.ckpt.save(self.state, heartbeat=True)
 

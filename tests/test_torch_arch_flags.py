@@ -282,8 +282,8 @@ def test_trainer_bf16_state_dtypes_and_resume(tmp_path):
         cfg = TrainConfig(batch_size_per_device=400, num_warmup_updates=2, save_dir=str(save_dir),
                           save_per_updates=1000, last_per_updates=1000, logger=None,
                           ema_update_every=1, ema_update_after_step=0)
-        return Trainer(tp, tdit.DiTStatics(tarch), cfg, vocab_char_map=VOCAB, device="cpu",
-                       dtype=torch.float32, bf16_state=True)
+        return Trainer(tp, tdit.DiTStatics(tarch), cfg, vocab_char_map=VOCAB, tokenizer="char",
+                       device="cpu", dtype=torch.float32, bf16_state=True)
 
     first = trainer(tmp_path)
     first.train(data, max_updates=2)

@@ -58,7 +58,16 @@ def test_port_imports_no_jax():
             "f5tts_tpu_torch.models.remat, f5tts_tpu_torch.infer.serve, "
             "f5tts_tpu_torch.infer.client_http, f5tts_tpu_torch.infer.api, "
             "f5tts_tpu_torch.infer.cli, f5tts_tpu_torch.infer.socket_server, "
-            "f5tts_tpu_torch.infer.socket_client, f5tts_tpu_torch.eval.serve_bench\n"
+            "f5tts_tpu_torch.infer.socket_client, f5tts_tpu_torch.eval.serve_bench, "
+            "f5tts_tpu_torch.train.lora, f5tts_tpu_torch.train.train_cli, "
+            "f5tts_tpu_torch.train.finetune_cli, f5tts_tpu_torch.train.workbench, "
+            "f5tts_tpu_torch.train.datasets.common, f5tts_tpu_torch.train.datasets.prepare_csv_wavs, "
+            "f5tts_tpu_torch.train.datasets.prepare_ljspeech, "
+            "f5tts_tpu_torch.train.datasets.prepare_libritts, "
+            "f5tts_tpu_torch.train.datasets.prepare_emilia, "
+            "f5tts_tpu_torch.train.datasets.prepare_emilia_v2, "
+            "f5tts_tpu_torch.train.datasets.prepare_wenetspeech4tts, "
+            "f5tts_tpu_torch.scripts.count_max_epoch\n"
             "from f5tts_tpu_torch.config import load_model_config, model_config_from_dict\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'f5tts_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)\n")

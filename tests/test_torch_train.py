@@ -275,8 +275,8 @@ def _trainer(model, save_dir, **cfg_kw):
     cfg = TrainConfig(batch_size_per_device=400, num_warmup_updates=2, save_dir=str(save_dir),
                       save_per_updates=1000, last_per_updates=1000, logger=None,
                       ema_update_every=2, ema_update_after_step=1, **cfg_kw)
-    return Trainer(tp, tdit.DiTStatics(tarch), cfg, vocab_char_map=VOCAB, device="cpu",
-                   dtype=torch.float32)
+    return Trainer(tp, tdit.DiTStatics(tarch), cfg, vocab_char_map=VOCAB, tokenizer="char",
+                   device="cpu", dtype=torch.float32)
 
 
 def test_trainer_three_updates_and_resume(model, tmp_path):
@@ -337,6 +337,28 @@ def test_trainer_grad_accumulation_and_tokenizers(model, tmp_path):
         Trainer(model[3], tdit.DiTStatics(model[1]), TrainConfig(), tokenizer="pinyin", device="cpu")
 
 
+def test_trainer_default_tokenizer_is_pinyin_as_jax(model):
+    """Trainer() with no tokenizer= tokenizes as the JAX Trainer() does."""
+    from f5tts_tpu.config import TrainConfig as JTrainConfig
+    from f5tts_tpu.text.vocab import load_vocab
+    from f5tts_tpu.train.trainer import Trainer as JTrainer
+    from f5tts_tpu_torch.text.vocab import EMILIA_VOCAB
+
+    jarch, tarch, tree, tp = model
+    vocab = load_vocab(EMILIA_VOCAB)
+    port = Trainer(tp, tdit.DiTStatics(tarch), TrainConfig(logger=None), vocab_char_map=vocab,
+                   device="cpu")
+    jax_side = JTrainer(jx(tree), jdit.DiTStatics(jarch), JTrainConfig(logger=None),
+                        vocab_char_map=vocab, dtype=jnp.float32, backend="xla")
+    assert port.tokenizer == jax_side.tokenizer == "pinyin"
+    for texts in (["今天天气很好，我们去公园。"], ["Hello there, general Kenobi!"],
+                  ["你好 world", "银行"]):
+        np.testing.assert_array_equal(port.tokenize(texts), jax_side.tokenize(texts))
+        np.testing.assert_array_equal(port.tokenize(texts, pad_to=40),
+                                      jax_side.tokenize(texts, pad_to=40))
+    assert port.tokenize(["银行"], pad_to=12).shape == (1, 12)
+
+
 def _scalar_steps(log_dir) -> dict:
     """{tag: [steps]} of the scalars in a tensorboard log directory."""
     from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
@@ -349,7 +371,7 @@ def _scalar_steps(log_dir) -> dict:
 def test_trainer_tensorboard_scalars_match_jax(model, tmp_path):
     """logger="tensorboard": the port's Trainer writes the scalars the JAX
     Trainer writes for the same run (tags and steps); logger=None writes
-    nothing; log_samples raises (not ported)."""
+    nothing; log_samples without a vocoder writes no sample."""
     from f5tts_tpu.config import TrainConfig as JTrainConfig
     from f5tts_tpu.train.trainer import Trainer as JTrainer
 
@@ -376,7 +398,7 @@ def test_trainer_tensorboard_scalars_match_jax(model, tmp_path):
     jtr.train(JaxData(), max_updates=2, log_every=1)
     jtr.writer.flush()
     port = Trainer(tp, tdit.DiTStatics(tarch), TrainConfig(save_dir=str(tmp_path / "tck"), **kw),
-                   vocab_char_map=VOCAB, device="cpu", dtype=torch.float32,
+                   vocab_char_map=VOCAB, tokenizer="char", device="cpu", dtype=torch.float32,
                    log_dir=str(tmp_path / "ttb"))  # train_cfg.logger defaults to tensorboard
     port.train(data, max_updates=2, log_every=1)
     want = _scalar_steps(tmp_path / "jtb")
@@ -387,5 +409,8 @@ def test_trainer_tensorboard_scalars_match_jax(model, tmp_path):
     assert quiet.writer is None
     quiet.train(data, max_updates=1, log_every=1)
     assert not list(tmp_path.glob("q/**/events.out.tfevents*"))
-    with pytest.raises(NotImplementedError, match="log_samples"):
-        _trainer(model, tmp_path / "s", log_samples=True)
+    # log_samples without a vocoder writes no sample, as the JAX trainer
+    silent = _trainer(model, tmp_path / "s", log_samples=True)
+    silent.train(data, max_updates=1)
+    assert silent._last_sample is not None and silent._log_sample(1) is None
+    assert not (tmp_path / "s" / "samples").exists()

@@ -181,7 +181,7 @@ def _trainer(backbone, save_dir):
                       save_per_updates=1000, last_per_updates=1000, logger=None,
                       ema_update_every=2, ema_update_after_step=1)
     return Trainer(tp, bdef.statics_cls(tarch), cfg, backbone=bdef, vocab_char_map=VOCAB,
-                   device="cpu", dtype=torch.float32)
+                   tokenizer="char", device="cpu", dtype=torch.float32)
 
 
 @pytest.mark.parametrize("backbone", ["UNetT", "MMDiT"])
