@@ -231,10 +231,29 @@ Phases (any failure raises, and the script exits non-zero):
     (phase 17's counts); (d) the LoRA loss and adapter gradients at depth
     2, card bf16 against CPU f32 on the same weights, adapters and draws
     (loss within 2e-2 relative, each gradient's rel-L2 <= 1e-1).
+22. Multi-GPU at F5TTS_v1_Base (`parallel/`): (a) the attention kernels
+    at the heads a rank runs under tensor parallelism (K3, K3-lse, K4 at 8
+    and 4 heads; K5, K5-lse, K8, K11, K7, K7-lse, K9 at 8), b = 2, n = 1024,
+    against their plain versions at phase 2's gates, timed beside h = 16;
+    (b) one process, an NCCL group of world 1: the plain Trainer, then
+    `Trainer(mesh=make_mesh(1, 1))` replicated and with zero1, four 16 x
+    1024 updates each (22 / 22 / 45 / 1 an update; loss, params and EMA
+    after update 2 within 1e-5 of the plain Trainer's; ms, peak, the
+    profiler's NCCL and copy ms); (c) two processes on the card over gloo
+    (its all_reduce takes CUDA tensors; checked first): a TP-2 CFG-packed
+    forward and 16-NFE generate at the 1024 bucket (rel-L2 <= 3e-2 against
+    one process; 352 / 720 / 32 a rank), a TP-2 int8 forward (rel-L2 <=
+    3e-2 against the one-process int8 forward; K12 2 a block, none in its
+    GELU mode), TP-2 and DP-2 first updates at the peak lr on 8 x 1024
+    (loss and grad norm within 1e-3, TP gradients rel-L2 <= 3e-2; the
+    params: AdamW's first step from the rank's own gradient within 1e-6 x
+    (1 + |p|), moved by the one-process update's mean |dp| ~ lr within 2%,
+    the update's rel-L2 from the one-process update <= 0.25). gloo's times
+    are no measure of NCCL.
 
 Prints the `kernels` JSON line (launches: what the card ran on the
 inference and training paths of phases 3, 5, 7, 8, 10, 11, 13, 14, 17, 18,
-19, 20 and 21, each graph replay counted with its capture's counts), the card's name
+19, 20, 21 and 22 (b), each graph replay counted with its capture's counts), the card's name
 and power limit,
 and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the repo's
@@ -904,15 +923,15 @@ JOINT_CASES = ((1024, 128, None), (3072, 128, None), (4096, 256, None))
 JOINT_EDGE_CASES = ((1024, 100, None), (1024, 128, (192, 448)))
 
 
-def joint_case(rng, dev, na: int, nt: int, gap=None):
+def joint_case(rng, dev, na: int, nt: int, gap=None, h: int = 16):
     """K5's / K8's phase-2 inputs at joint n = na + nt: qkv, the joint rope
     tables and the key mask (row 0: audio live to 777 of 1024, 3/4 of longer
     buckets, text 100 live; row 1: all audio live but the keys of `gap`, text
-    120: dead keys mid-sequence)."""
+    120: dead keys mid-sequence); `h` heads of 64."""
     import torch
     from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
 
-    b, h, d = 2, 16, 64
+    b, d = 2, 64
     n = na + nt
     kmask = torch.zeros(b, n, dtype=torch.bool, device=dev)
     kmask[0, :777 if na == 1024 else 3 * na // 4] = True
@@ -3519,6 +3538,601 @@ def phase_training_data(dev, gpu: str) -> tuple[dict, dict]:
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 22
+# ---------------------------------------------------------------------------
+
+TP_HEADS = (8, 4)  # the Base presets' 16 heads a rank at TP 2 and TP 4
+# (c): the one-process update's batch (a rank's rows x 2), the 1024 bucket
+TWO_PROC_BATCH, TWO_PROC_FRAMES = 8, 1024
+# (c)'s peak lr, reached at the first update (no warm-up): Adam's first
+# step moves each weight by about lr
+TWO_PROC_LR = 7.5e-5
+CARD_GATE = 3e-2  # card-vs-card bf16 rel-L2 (phase 20's batch row against alone)
+# (c)'s update: the applied step against AdamW's first step recomputed from
+# the rank's own gradient, |gap| / (1 + |p|) (f32 rounding of the same
+# arithmetic); its rel-L2 from the one-process update (a first Adam step is
+# about lr sign(g): it flips where g is within the bf16 gradients' noise of
+# 0; an update not applied, or not gathered on half the weights, reads 1 or
+# 0.7)
+ADAM_GAP = 1e-6
+UPDATE_GATE = 0.25
+
+
+def _tp_kernel_row(rows, name: str, h: int, ms: float, err: float, extra: str = "") -> dict:
+    base = rows[name]["ms"]
+    log(f"  {name} b=2 h={h} d=64: max_abs_err {err:.3e}{extra}, {ms:.4f} ms against "
+        f"{base:.4f} ms at h=16 ({ms / base:.2f} x)")
+    return {"name": name, "heads": h, "ms": ms, "ms_h16": base, "max_abs_err": err}
+
+
+def phase22_kernels(rng, dev, rows) -> list:
+    """(a) The attention kernels at the heads a rank runs under tensor
+    parallelism (h = 8; K3, K3-lse, K4 also h = 4), b = 2, n = 1024 with
+    lengths [1024, 777] (K5 / K8 / K11: joint 1024 + 128 with K5's masks),
+    against their plain versions at phase 2's gates, each timed beside
+    phase 2's h = 16 time at n = 1024."""
+    import torch
+    from f5tts_tpu_torch.ops import attention as at
+    from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
+
+    b, d, n = 2, 64, 1024
+    lengths = torch.tensor([n, 777], dtype=torch.int32, device=dev)
+    live = torch.arange(n, device=dev)[None, :] < lengths[:, None]
+    tile_end = -(-777 // 64) * 64
+    out = []
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            dev, torch.bfloat16)
+
+    def lse_gap(lse, ref_lse, end):
+        return max(float((lse[0] - ref_lse[0]).abs().max()),
+                   float((lse[1, :, :end] - ref_lse[1, :, :end]).abs().max()))
+
+    def check(ok: bool, what: str):
+        if not ok:
+            raise AssertionError(f"phase 22 (a): {what}")
+
+    for h in TP_HEADS:
+        qkv, dout = randn(b, n, 3 * h * d), randn(b, n, h * d)
+        cos, sin = rope_flat_tables(rope_freqs_interleaved(d, n).to(dev), n, h,
+                                    dtype=torch.bfloat16)
+        o = at.fused_qkv_rope_attention(qkv, cos, sin, lengths, h)
+        err = live_err(o, at.fused_qkv_rope_attention_ref(qkv, cos, sin, lengths, h), lengths)
+        check(err <= TOL["fused_qkv_rope_attention"] and not o[1, 777:].any(), f"K3 h={h}")
+        out.append(_tp_kernel_row(rows, "fused_qkv_rope_attention", h, time_ms(
+            lambda: at.fused_qkv_rope_attention(qkv, cos, sin, lengths, h)), err))
+        o2, lse = at.fused_qkv_rope_attention_fwd(qkv, cos, sin, lengths, h, return_lse=True)
+        _, ref_lse = at.fused_qkv_rope_attention_ref(qkv, cos, sin, lengths, h, return_lse=True)
+        gap = lse_gap(lse, ref_lse, tile_end)
+        check(torch.equal(o2, o) and gap <= LSE_TOL
+              and bool((lse[1, :, tile_end:] == at.NEG_INF).all()), f"K3-lse h={h}")
+        out.append(_tp_kernel_row(rows, "fused_qkv_rope_attention_lse", h, time_ms(
+            lambda: at.fused_qkv_rope_attention_fwd(qkv, cos, sin, lengths, h, return_lse=True)),
+            err, f", lse {gap:.3e}"))
+        args = (qkv, cos, sin, lengths, o2, lse, dout, h)
+        got = at.fused_qkv_rope_attention_bwd(*args)
+        want = at.fused_qkv_rope_attention_bwd_from_lse_ref(*args)
+        rel, err, top = bwd_errors(got[live], want[live])
+        check_bwd_tol(f"phase 22 K4 h={h}", rel, err, top)
+        check(not got[1, 777:].any(), f"K4 h={h}: dead rows")
+        out.append(_tp_kernel_row(rows, "fused_qkv_rope_attention_bwd", h, time_ms(
+            lambda: at.fused_qkv_rope_attention_bwd(*args)), err, f", rel-L2 {rel:.3e}"))
+        if h != 8:
+            continue
+        # K5, its lse mode and K8 on the MMDiT's joint 1024 + 128
+        jq, jc, js, kmask = joint_case(rng, dev, 1024, 128, None, h)
+        jdout = randn(b, jq.shape[1], h * d)
+        o = at.fused_qkv_rope_attention_bias(jq, jc, js, kmask, h)
+        ref, ref_lse = at.fused_qkv_rope_attention_bias_ref(jq, jc, js, kmask, h, return_lse=True)
+        err = float((o.float() - ref.float()).abs()[kmask].max())
+        check(err <= TOL["fused_qkv_rope_attention_bias"], "K5 h=8")
+        out.append(_tp_kernel_row(rows, "fused_qkv_rope_attention_bias", h, time_ms(
+            lambda: at.fused_qkv_rope_attention_bias(jq, jc, js, kmask, h)), err))
+        o2, lse = at.fused_qkv_rope_attention_bias_fwd(jq, jc, js, kmask, h, return_lse=True)
+        gap = float((lse - ref_lse).abs().max())
+        check(torch.equal(o2, o) and gap <= LSE_TOL, "K5-lse h=8")
+        out.append(_tp_kernel_row(rows, "fused_qkv_rope_attention_bias_lse", h, time_ms(
+            lambda: at.fused_qkv_rope_attention_bias_fwd(jq, jc, js, kmask, h, return_lse=True)),
+            err, f", lse {gap:.3e}"))
+        args = (jq, jc, js, kmask, o2, lse, jdout, h)
+        got = at.fused_qkv_rope_attention_bias_bwd(*args)
+        rel, err, top = bwd_errors(got, at.fused_qkv_rope_attention_bias_bwd_from_lse_ref(*args))
+        check_bwd_tol("phase 22 K8 h=8", rel, err, top)
+        out.append(_tp_kernel_row(rows, "fused_qkv_rope_attention_bias_bwd", h, time_ms(
+            lambda: at.fused_qkv_rope_attention_bias_bwd(*args)), err, f", rel-L2 {rel:.3e}"))
+        # K11 on the same joint mask, head layout
+        mq, mk, mv = (randn(b, h, jq.shape[1], d) for _ in range(3))
+        o = at.masked_flash_attention(mq, mk, mv, kmask)
+        err = float((o.float() - at.mha_reference_masked(mq, mk, mv, kmask).float()).abs().max())
+        check(err <= TOL["masked_flash_attention"], "K11 h=8")
+        out.append(_tp_kernel_row(rows, "masked_flash_attention", h, time_ms(
+            lambda: at.masked_flash_attention(mq, mk, mv, kmask)), err))
+        # K7, its lse mode and K9: head layout, the UNetT's past the flat gate
+        q, k, v, hdout = (randn(b, h, n, d) for _ in range(4))
+        hdout = hdout * live[:, None, :, None]
+        o = at.flash_attention(q, k, v, lengths)
+        ref, ref_lse = at.flash_attention_fwd_ref(q, k, v, lengths, return_lse=True)
+        err = max(float((o[i, :, :end].float() - ref[i, :, :end].float()).abs().max())
+                  for i, end in enumerate((n, tile_end)))
+        check(err <= TOL["flash_attention"] and not o[1, :, tile_end:].any(), "K7 h=8")
+        out.append(_tp_kernel_row(rows, "flash_attention", h, time_ms(
+            lambda: at.flash_attention(q, k, v, lengths)), err))
+        o2, lse = at.flash_attention_fwd(q, k, v, lengths, return_lse=True)
+        gap = lse_gap(lse, ref_lse, tile_end)
+        check(torch.equal(o2, o) and gap <= LSE_TOL
+              and bool((lse[1, :, tile_end:] == at.NEG_INF).all()), "K7-lse h=8")
+        out.append(_tp_kernel_row(rows, "flash_attention_lse", h, time_ms(
+            lambda: at.flash_attention_fwd(q, k, v, lengths, return_lse=True)), err,
+            f", lse {gap:.3e}"))
+        got = at.flash_attention_bwd(q, k, v, lengths, o2, lse, hdout)
+        want = at.flash_attention_bwd_ref(q, k, v, lengths, o2, lse, hdout)
+        stats = [bwd_errors(g, w) for g, w in zip(got, want)]
+        for grad, (rel, err, top) in zip(("dq", "dk", "dv"), stats):
+            check_bwd_tol(f"phase 22 K9 {grad} h=8", rel, err, top)
+        out.append(_tp_kernel_row(rows, "flash_attention_bwd", h, time_ms(
+            lambda: at.flash_attention_bwd(q, k, v, lengths, o2, lse, hdout)),
+            max(s[1] for s in stats), f", rel-L2 {max(s[0] for s in stats):.3e}"))
+    return out
+
+
+def _device_ms(prof, match) -> float:
+    """Device ms of the profiled events whose name `match` accepts."""
+    total = 0.0
+    for e in prof.key_averages():
+        if match(e.key):
+            total += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+    return total / 1e3
+
+
+def phase22_nccl_trainer(dev, gpu: str) -> tuple[dict, dict]:
+    """(b) One process, an NCCL group of world 1 (a FileStore): the plain
+    Trainer, then Trainer(mesh=make_mesh(1, 1)) and with zero1, each four
+    F5TTS_v1_Base 16 x 1024 updates: the launches of every update, loss /
+    params / EMA after update 2 against the plain Trainer's, ms an update
+    (median of updates 2 and 3), peak memory over the updates and over the
+    run (its closing checkpoint included), and from the profiler the device
+    ms of update 4 (NCCL kernels, copies, all)."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from f5tts_tpu_torch.config import TrainConfig
+    from f5tts_tpu_torch.models import modules as m
+    from f5tts_tpu_torch.models.dit import DiTStatics
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.parallel.mesh import make_mesh
+    from f5tts_tpu_torch.scripts.common import VOCAB, base_models
+    from f5tts_tpu_torch.train.trainer import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1)
+    total: dict[str, int] = {}
+    result = {}
+    try:
+        mesh = make_mesh(1, 1)
+        arch, params, _ = base_models()
+        data, _ = _train_dataset(np.random.default_rng(22), 16, 1024)
+        expect = dit_update_launches(arch.depth)
+        stash = {}
+        for name, kw in (("plain", {}), ("mesh", {"mesh": mesh}),
+                         ("mesh_zero1", {"mesh": mesh, "zero1": True})):
+            cfg = TrainConfig(batch_size_per_device=16 * 1024, max_samples=16, epochs=4,
+                              num_warmup_updates=2, ema_update_every=1, ema_update_after_step=0,
+                              save_dir=os.path.join(tmp, name), save_per_updates=10 ** 9,
+                              last_per_updates=10 ** 9, logger=None)
+            trainer = Trainer(params, DiTStatics(arch), cfg, vocab_char_map=VOCAB,
+                              tokenizer="char", device=dev, **kw)
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            rec = {"walls_ms": [], "losses": []}
+            t_last = [0.0]
+
+            def on_update(update, metrics):
+                torch.cuda.synchronize(dev)
+                rec["walls_ms"].append((time.perf_counter() - t_last[0]) * 1e3)
+                rec["losses"].append(float(metrics["loss"]))
+                ran = _build.launches()
+                if ran != expect:
+                    raise AssertionError(f"phase 22 (b) {name} update {update}: launched {ran}, "
+                                         f"expected {expect}")
+                for k, c in ran.items():
+                    total[k] = total.get(k, 0) + c
+                if update == 2:  # the plain Trainer's params and EMA, kept on the host
+                    trees = {"params": trainer.state.params, "ema": trainer.ema_params()}
+                    if name == "plain":
+                        stash.update({k: [t.to("cpu", copy=True) for t in m.tree_leaves(v)]
+                                      for k, v in trees.items()})
+                        stash["loss"] = rec["losses"][-1]
+                    else:
+                        for k, v in trees.items():
+                            pairs = [(a.cpu(), b) for a, b in zip(m.tree_leaves(v), stash[k])]
+                            rec[f"{k}_bit_equal"] = all(torch.equal(a, b) for a, b in pairs)
+                            rec[f"{k}_max_abs"] = max(float((a - b).abs().max()) for a, b in pairs)
+                        rec["loss_equal"] = rec["losses"][-1] == stash["loss"]
+                    del trees
+                elif update == 4:
+                    rec["peak_updates_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+                    prof.stop()
+                if update == 3:
+                    prof.start()
+                _build.reset_launches()
+                t_last[0] = time.perf_counter()
+
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            rec["allocated_at_start_gb"] = torch.cuda.memory_allocated(dev) / 1e9
+            _build.reset_launches()  # every count to 0 just before the run
+            t_last[0] = time.perf_counter()
+            trainer.train(data, max_updates=4, on_update=on_update)
+            rec["ms_update"] = statistics.median(rec["walls_ms"][1:3])
+            rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            rec["nccl_ms"] = _device_ms(prof, lambda k: "nccl" in k.lower())
+            rec["memcpy_ms"] = _device_ms(prof, lambda k: "memcpy" in k.lower())
+            rec["device_ms_update_4"] = _device_ms(prof, lambda k: True)
+            if name != "plain":
+                st = trainer.state
+                rec["state_gb"] = sum(t.numel() * t.element_size() for t in
+                                      m.tree_leaves([st.params, st.mu, st.nu, st.ema])) / 1e9
+                del st  # the next variant's memory must not hold this one's state
+                if not (rec["loss_equal"] and rec["params_max_abs"] <= 1e-5
+                        and rec["ema_max_abs"] <= 1e-5):
+                    raise AssertionError(f"phase 22 (b) {name}: not the plain Trainer's result "
+                                         f"{rec}")
+            log(f"  (b) {name}: {rec['ms_update']:.1f} ms an update (walls "
+                f"{', '.join(f'{w:.1f}' for w in rec['walls_ms'])}), peak "
+                f"{rec['peak_updates_gb']:.2f} GB over the updates, {rec['peak_gb']:.2f} GB with "
+                f"the checkpoint, {json.dumps({k: v for k, v in rec.items() if k != 'walls_ms'})} "
+                f"[{gpu}]")
+            result[name] = rec
+            del trainer, prof
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total, result
+
+
+def _two_proc_inputs(dev, arch):
+    """(c)'s inputs from seed 22: the generate's (cond, text, lens,
+    duration, y0, t_grid) at the 1024 bucket and the update's 8 x 1024 batch."""
+    import torch
+    from f5tts_tpu_torch.utils import make_time_grid
+
+    rng = np.random.default_rng(22)
+    gen = {"cond": (rng.standard_normal((1, 1024, 100)) * 0.3).astype(np.float32),
+           "text": rng.integers(1, 2545, (1, 200)).astype(np.int32),
+           "lens": np.asarray([300], np.int32), "duration": np.asarray([1000], np.int32),
+           "y0": rng.standard_normal((1, 1024, 100)).astype(np.float32)}
+    gen = {k: torch.from_numpy(v).to(dev) for k, v in gen.items()}
+    gen["cond"][:, 300:] = 0
+    gen["t_grid"] = make_time_grid(NFE, sway_sampling_coef=-1.0)
+    batch = tuple(t.to(dev) for t in train_batch(TWO_PROC_BATCH, TWO_PROC_FRAMES,
+                                                 "F5TTS_v1_Base", seed=22))
+    return gen, batch
+
+
+def _two_proc_step(arch, dev, mesh=None):
+    import torch
+    from f5tts_tpu_torch.models.dit import DiTStatics
+    from f5tts_tpu_torch.train.step import make_optimizer, make_train_step
+
+    return make_train_step(DiTStatics(arch, dev, tp=None if mesh is None else mesh.tp),
+                           make_optimizer(TWO_PROC_LR, 0, 10), ema_update_every=1,
+                           ema_update_after_step=0, dtype=torch.bfloat16, mesh=mesh)
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def tp_int8_step_launches(arch) -> dict:
+    """A TP rank's launches of one int8 DiT step (`step_launches(int8=True)`)
+    but for the row-parallel projections: ff.out takes bf16 rows under tp,
+    so to_out and ff.out both quantize their slices with the plain K12
+    (`ops.quant.int8_linear_partial_tp`), and K12's GELU mode runs none."""
+    step = step_launches("DiT", arch, int8=True)
+    step["quantize_rows"] += step.pop("gelu_quantize_rows")
+    return step
+
+
+def adam_first_gap(p0, p1, g, gnorm: float, hp) -> float:
+    """max |p1 - p1'| / (1 + |p0|) over leaves, p1' the first AdamW step
+    from p0 on the gradient g clipped by gnorm, as `train.step` computes it:
+    mu / bc1 = g', nu / bc2 = g'^2, p1' = p0 - lr (g' / (|g'| + eps) + wd p0)."""
+    scale = 1.0 if gnorm < hp.max_grad_norm else hp.max_grad_norm / gnorm
+    gap = 0.0
+    for a, b, d in zip(p0, p1, g):
+        gs = d.float() * scale
+        want = a - hp.learning_rate * (gs / (gs.abs() + hp.eps) + hp.weight_decay * a)
+        gap = max(gap, float(((b - want).abs() / (1.0 + a.abs())).max()))
+    return gap
+
+
+def mean_move(p0, p1, lr: float) -> float:
+    """mean |p1 - p0| / lr over the leaves' elements: how far an update
+    moved the weights."""
+    return (sum(float((b - a).abs().sum()) for a, b in zip(p0, p1))
+            / sum(b.numel() for b in p1) / lr)
+
+
+def update_rel(p0, p1, ref1) -> float:
+    """||p1 - ref1|| / ||ref1 - p0|| over the leaves: an update's rel-L2
+    from the one-process update (ref1 the one-process params after it)."""
+    num = sum(float((b - r).norm()) ** 2 for b, r in zip(p1, ref1))
+    return (num / sum(float((r - a).norm()) ** 2 for a, r in zip(p0, ref1))) ** 0.5
+
+
+def phase22_child(rank: int, tmp: str) -> None:
+    """(c) One of two processes on the one card, a gloo group: a TP-2
+    forward and 16-NFE generate, a TP-2 int8 forward, a TP-2 update and a
+    DP-2 update, each against the one-process results in `tmp`; writes
+    child<rank>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from f5tts_tpu_torch.models import cfm
+    from f5tts_tpu_torch.models import modules as m
+    from f5tts_tpu_torch.models.dit import DiTStatics, dit_forward
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.ops.quant import quantize_dit_params
+    from f5tts_tpu_torch.parallel.collectives import all_reduce_flat
+    from f5tts_tpu_torch.parallel.mesh import (batch_sharding, dit_param_specs, make_mesh,
+                                               shard_params, shard_train_state, shard_tree)
+    from f5tts_tpu_torch.scripts.common import base_models
+    from f5tts_tpu_torch.train.step import init_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(str(Path(tmp) / "store"), 2),
+                            rank=rank, world_size=2)
+    res = {"rank": rank}
+    probe = torch.full((4,), float(rank + 1), device=dev)
+    try:  # the capability this part rests on: gloo's all_reduce of CUDA tensors
+        dist.all_reduce(probe)
+        res["gloo_cuda_all_reduce"] = probe.tolist() == [3.0] * 4
+    except RuntimeError as e:
+        res["gloo_cuda_all_reduce"] = False
+        res["gloo_error"] = str(e)[:500]
+    if not res["gloo_cuda_all_reduce"]:
+        (Path(tmp) / f"child{rank}.json").write_text(json.dumps(res))
+        dist.destroy_process_group()
+        return
+    ref = torch.load(Path(tmp) / "ref.pt", map_location=dev, weights_only=True)
+    arch, params, _ = base_models()
+    gen, batch = _two_proc_inputs(dev, arch)
+    tp, dp = make_mesh(1, 2), make_mesh(2, 1)
+
+    # TP-2: the CFG-packed forward and a 16-NFE generate at the 1024 bucket
+    fused = shard_params(m.fuse_backbone_qkv(m.tree_cast(params, torch.bfloat16, dev)), tp)
+    statics = DiTStatics(arch, dev, tp=tp.tp)
+    torch.cuda.synchronize(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        fwd = dit_forward(fused, statics, gen["y0"], gen["cond"], gen["text"],
+                          torch.tensor([0.3], device=dev), lengths=gen["duration"],
+                          cfg_infer=True, dtype=torch.bfloat16)
+    torch.cuda.synchronize(dev)
+    res["tp_forward_s"] = time.perf_counter() - t0
+    res["tp_forward_launches"] = _build.launches()
+    live = int(gen["duration"][0])
+    res["tp_forward_rel"] = _rel_l2(fwd[:, :live], ref["forward"][:, :live])
+    # int8 under TP: this rank's shards quantized (row leaves' scales over
+    # the whole contraction axis), the row-parallel products' slices
+    # quantized at the whole row's scale
+    q_fused = quantize_dit_params(fused, tp=tp.tp)
+    torch.cuda.synchronize(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        fwd = dit_forward(q_fused, statics, gen["y0"], gen["cond"], gen["text"],
+                          torch.tensor([0.3], device=dev), lengths=gen["duration"],
+                          cfg_infer=True, dtype=torch.bfloat16)
+    torch.cuda.synchronize(dev)
+    res["tp_int8_forward_s"] = time.perf_counter() - t0
+    res["tp_int8_forward_launches"] = _build.launches()
+    res["tp_int8_forward_rel"] = _rel_l2(fwd[:, :live], ref["forward_int8"][:, :live])
+    del q_fused
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    mel = cfm.cfm_sample(fused, statics, gen["cond"], gen["text"], gen["lens"], gen["duration"],
+                         gen["t_grid"], y0=gen["y0"], dtype=torch.bfloat16)
+    torch.cuda.synchronize(dev)
+    res["tp_generate_s"] = time.perf_counter() - t0
+    res["tp_generate_launches"] = _build.launches()
+    res["tp_mel_rel"] = _rel_l2(mel[:, 300:live], ref["mel"][:, 300:live])
+    del fused, statics
+    torch.cuda.empty_cache()
+
+    # TP-2 and DP-2 updates on the 8 x 1024 batch (DP: 4 rows a rank)
+    mel8, text8, lens8 = batch
+    specs = dit_param_specs(params)
+    for name, mesh in (("tp", tp), ("dp", dp)):
+        step = _two_proc_step(arch, dev, mesh)
+        state = shard_train_state(init_train_state(params, dev), mesh, zero1=False)
+        rows = batch_sharding(mesh, TWO_PROC_BATCH)
+        torch.cuda.synchronize(dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        loss, grads = step.grad_step(state.params, mel8[rows], text8[rows], lens8[rows],
+                                     generator=torch.Generator(device=dev).manual_seed(0))
+        if name == "tp":  # this rank's gradient shards against the one-process gradients
+            want = m.tree_leaves(shard_tree(ref["grads"], specs, mesh))
+            got = m.tree_leaves(grads)
+            num = sum(float((a.float() - b.float()).norm()) ** 2 for a, b in zip(got, want))
+            res["tp_grads_rel"] = (num / sum(float(b.float().norm()) ** 2 for b in want)) ** 0.5
+        torch.cuda.synchronize(dev)
+        t_grad = time.perf_counter() - t0
+        launches = _build.launches()
+        # outside the timed update: the initial params, and the gradient
+        # the update applies (this rank's shard of it; over "data" summed)
+        p0 = [t.clone() for t in m.tree_leaves(state.params)]
+        g = [t.float() for t in m.tree_leaves(grads)]
+        if name == "dp":
+            flat = all_reduce_flat(torch.cat([t.reshape(-1) for t in g]), mesh.data_group)
+            g = list(flat.split([t.numel() for t in g]))
+            g = [a.view(t.shape) for a, t in zip(g, p0)]
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, metrics = step.apply_step(state, loss, grads)
+        torch.cuda.synchronize(dev)
+        res[f"{name}_update_s"] = t_grad + time.perf_counter() - t0
+        res[f"{name}_update_launches"] = launches
+        res[f"{name}_loss_rel"] = abs(float(metrics["loss"]) / ref["loss"] - 1.0)
+        res[f"{name}_grad_norm_rel"] = abs(float(metrics["grad_norm"]) / ref["grad_norm"] - 1.0)
+        p1 = m.tree_leaves(state.params)
+        res[f"{name}_adam_gap"] = adam_first_gap(p0, p1, g, float(metrics["grad_norm"]),
+                                                 step.hp)
+        del g
+        want = [t.to(dev) for t in m.tree_leaves(
+            shard_tree(ref["params"], specs, mesh) if name == "tp" else ref["params"])]
+        res[f"{name}_moved"] = mean_move(p0, p1, TWO_PROC_LR)
+        res[f"{name}_update_rel"] = update_rel(p0, p1, want)
+        del step, state, grads, p0, want
+        torch.cuda.empty_cache()
+    (Path(tmp) / f"child{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def phase22_two_processes(dev, gpu: str) -> dict:
+    """(c) The one-process references (the bf16 and int8 forwards and the
+    generate at the 1024 bucket, one update on 8 x 1024), then two processes
+    on the one card over gloo (`phase22_child`) held to them: forwards and
+    mel rel-L2 <= CARD_GATE, TP gradients rel-L2 <= CARD_GATE, loss and
+    grad norm rel <= 1e-3; the update applied as AdamW's first step on the
+    rank's gradient (ADAM_GAP), moving the weights as far as the
+    one-process update (which moves them by about lr) and within
+    UPDATE_GATE of it. gloo stages through the host: its times are no
+    measure of NCCL."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from f5tts_tpu_torch.models import cfm
+    from f5tts_tpu_torch.models import modules as m
+    from f5tts_tpu_torch.models.dit import DiTStatics, dit_forward
+    from f5tts_tpu_torch.ops.quant import quantize_dit_params
+    from f5tts_tpu_torch.scripts.common import base_models
+    from f5tts_tpu_torch.train.step import init_train_state
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    procs = []
+    try:
+        arch, params, _ = base_models()
+        gen, (mel8, text8, lens8) = _two_proc_inputs(dev, arch)
+        fused = m.fuse_backbone_qkv(m.tree_cast(params, torch.bfloat16, dev))
+        statics = DiTStatics(arch, dev)
+        with torch.no_grad():
+            fwd = dit_forward(fused, statics, gen["y0"], gen["cond"], gen["text"],
+                              torch.tensor([0.3], device=dev), lengths=gen["duration"],
+                              cfg_infer=True, dtype=torch.bfloat16)
+        mel = cfm.cfm_sample(fused, statics, gen["cond"], gen["text"], gen["lens"],
+                             gen["duration"], gen["t_grid"], y0=gen["y0"], dtype=torch.bfloat16)
+        with torch.no_grad():
+            fwd_i8 = dit_forward(quantize_dit_params(fused), statics, gen["y0"], gen["cond"],
+                                 gen["text"], torch.tensor([0.3], device=dev),
+                                 lengths=gen["duration"], cfg_infer=True, dtype=torch.bfloat16)
+        del fused
+        step = _two_proc_step(arch, dev)
+        state = init_train_state(params, dev)
+        p0 = [t.clone() for t in m.tree_leaves(state.params)]
+        loss, grads = step.grad_step(state.params, mel8, text8, lens8,
+                                     generator=torch.Generator(device=dev).manual_seed(0))
+        grads_cpu = m.tree_map(lambda t: t.detach().to("cpu", copy=True), grads)
+        state, metrics = step.apply_step(state, loss, grads)
+        ref_moved = mean_move(p0, m.tree_leaves(state.params), TWO_PROC_LR)
+        del p0
+        torch.save({"forward": fwd.cpu(), "forward_int8": fwd_i8.cpu(), "mel": mel.cpu(),
+                    "grads": grads_cpu,
+                    "params": m.tree_map(lambda t: t.cpu(), state.params),
+                    "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])},
+                   os.path.join(tmp, "ref.pt"))
+        del state, step, grads, grads_cpu
+        torch.cuda.empty_cache()
+        repo = str(Path(__file__).resolve().parent)
+        for rank in range(2):
+            log_file = open(os.path.join(tmp, f"child{rank}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", f"import sys; sys.path.insert(0, {repo!r}); import "
+                 f"chip_smoke; chip_smoke.phase22_child({rank}, {tmp!r})"],
+                cwd=repo, stdout=log_file, stderr=subprocess.STDOUT), log_file))
+        for p, log_file in procs:
+            p.wait(timeout=400)
+            log_file.close()
+        for rank, (p, _) in enumerate(procs):
+            if p.returncode != 0:
+                tail = Path(tmp, f"child{rank}.log").read_text()[-4000:]
+                raise AssertionError(f"phase 22 (c) rank {rank} exited {p.returncode}:\n{tail}")
+        res = [json.loads(Path(tmp, f"child{r}.json").read_text()) for r in range(2)]
+        if not all(r["gloo_cuda_all_reduce"] for r in res):
+            log(f"  (c) gloo's all_reduce does not take CUDA tensors here: {res} [{gpu}]")
+            return {"gloo_cuda_all_reduce": False, "ranks": res}
+        one = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+               "moved": ref_moved}
+        if not 0.5 <= ref_moved <= 1.05:
+            raise AssertionError(f"phase 22 (c): the one-process update moved the weights by "
+                                 f"{ref_moved} x lr on average, not about lr")
+        expect = {"tp_forward_launches": step_launches("DiT", arch),
+                  "tp_int8_forward_launches": tp_int8_step_launches(arch),
+                  "tp_generate_launches": generate_launches("DiT", arch),
+                  "tp_update_launches": dit_update_launches(arch.depth),
+                  "dp_update_launches": dit_update_launches(arch.depth)}
+        for r in res:
+            log(f"  (c) rank {r['rank']} (gloo, staged through the host): {json.dumps(r)}")
+            wrong = {k: r[k] for k, v in expect.items() if r[k] != v}
+            if wrong:
+                raise AssertionError(f"phase 22 (c) rank {r['rank']}: launches {wrong}, "
+                                     f"expected {expect}")
+            bad = [k for k in ("tp_forward_rel", "tp_int8_forward_rel", "tp_mel_rel",
+                               "tp_grads_rel") if r[k] > CARD_GATE]
+            bad += [k for k in ("tp_loss_rel", "dp_loss_rel", "tp_grad_norm_rel",
+                                "dp_grad_norm_rel") if r[k] > 1e-3]
+            bad += [k for k in ("tp_adam_gap", "dp_adam_gap") if r[k] > ADAM_GAP]
+            bad += [k for k in ("tp_moved", "dp_moved") if abs(r[k] / ref_moved - 1.0) > 0.02]
+            bad += [k for k in ("tp_update_rel", "dp_update_rel") if r[k] > UPDATE_GATE]
+            if bad:
+                raise AssertionError(f"phase 22 (c) rank {r['rank']}: {bad} off the gates")
+        return {"gloo_cuda_all_reduce": True, "one_process": one, "ranks": res}
+    finally:
+        for p, log_file in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_multi_gpu(dev, gpu: str, rows: dict) -> tuple[dict, dict]:
+    """Phase 22: (a) the kernels at the TP head counts, (b) the Trainer over
+    an NCCL mesh of world 1, (c) TP-2 / DP-2 as two processes on the card."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"kernels": phase22_kernels(np.random.default_rng(22), dev, rows)}
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ran, out["trainer"] = phase22_nccl_trainer(dev, gpu)
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    out["two_processes"] = phase22_two_processes(dev, gpu)
+    t3 = time.perf_counter()
+    out["seconds"] = t3 - t0
+    out["seconds_abc"] = [t1 - t0, t2 - t1, t3 - t2]
+    return ran, out
+
+
 def main() -> int:
     import torch
 
@@ -3697,6 +4311,14 @@ def main() -> int:
     for name, count in ran.items():
         launches[name] = launches.get(name, 0) + count
     log(f"  phase 21: {json.dumps(data_rows)}")
+    torch.cuda.empty_cache()
+
+    log("phase 22: multi-GPU at F5TTS_v1_Base: the kernels at 8 / 4 heads, the Trainer over "
+        "an NCCL mesh of world 1 (replicated, ZeRO-1), TP-2 / DP-2 as two processes over gloo")
+    ran, multi_rows = phase_multi_gpu(dev, gpu, rows)
+    for name, count in ran.items():
+        launches[name] = launches.get(name, 0) + count
+    log(f"  phase 22 ({multi_rows['seconds']:.1f} s): {json.dumps(multi_rows)}")
     torch.cuda.empty_cache()
 
     idle = [name for name in rows if not launches.get(name)]

@@ -98,6 +98,15 @@ class CFMConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Process mesh layout (`parallel.mesh.make_mesh`): data axis DP, model
+    axis TP (head-sharded attention, column / row-parallel projections)."""
+
+    data: int = 1
+    model: int = 1
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters (reference configs/*.yaml optim + datasets + ckpts)."""
 

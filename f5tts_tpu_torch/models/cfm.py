@@ -106,12 +106,18 @@ def cfm_loss(params, statics, mel: torch.Tensor, text: torch.Tensor, lens: torch
              cfg: CFMConfig = CFMConfig(), dtype=torch.bfloat16, *,
              generator: Optional[torch.Generator] = None,
              draws: Optional[CFMDraws] = None,
-             backbone: BackboneDef = DIT) -> tuple[torch.Tensor, dict]:
+             backbone: BackboneDef = DIT, dp_group=None) -> tuple[torch.Tensor, dict]:
     """(scalar f32 loss, aux) for target mel [b, n, d] (x1), text [b, nt] ids
     (-1 padded), lens [b] valid frames, through `backbone` (`statics` are
     its `statics_cls`'s). `params` hold the fused to_qkv
     (`fuse_backbone_qkv`: the flat attention kernels) or the unfused to_q /
-    to_k / to_v (the head layout). Pass `draws` or a `generator`."""
+    to_k / to_v (the head layout). Pass `draws` or a `generator`.
+
+    With `dp_group` (data parallelism: this rank's rows of a global batch)
+    the span count is all-reduced over the group before the division, so
+    the ranks' losses (and gradients) SUM to the global batch's span-weighted
+    mean, as JAX's one mean over the sharded batch; averaging per-rank means
+    would weigh a row by its rank's span count."""
     b, n, d = mel.shape
     if draws is None:
         if generator is None:
@@ -135,7 +141,12 @@ def cfm_loss(params, statics, mel: torch.Tensor, text: torch.Tensor, lens: torch
 
     se = (pred.float() - flow) ** 2
     spanf = span[:, :, None].float()
-    loss = (se * spanf).sum() / torch.clamp(spanf.sum() * d, min=1.0)
+    count = spanf.sum()
+    if dp_group is not None:
+        from f5tts_tpu_torch.parallel.collectives import all_reduce_sum
+
+        count = all_reduce_sum(count, dp_group)
+    loss = (se * spanf).sum() / torch.clamp(count * d, min=1.0)
     return loss, {"pred": pred, "cond": cond, "rand_span_mask": span}
 
 

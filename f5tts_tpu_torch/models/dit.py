@@ -20,6 +20,10 @@
   hoist_t_mods: its one-step counterpart, which the training forward uses.
 - drop_audio_cond / drop_text: a bool (the sampler's CFG packing) or a [b]
   bool tensor (training's per-sample CFG dropout).
+- Tensor parallelism: statics made with `tp` (`parallel.mesh.Mesh.tp`)
+  run the blocks on this rank's shards (`parallel.mesh.shard_params`) and
+  heads; the embeddings, AdaLN modulations, long skip and proj_out stay
+  whole on every rank, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -90,10 +94,13 @@ def activate_zero_init(params: m.Params, generator: torch.Generator,
 
 
 class DiTStatics:
-    """Constant tables (text position table, RoPE angles) on `device`."""
+    """Constant tables (text position table, RoPE angles) on `device`, and
+    the tensor-parallel group `tp` the forward runs over (None: one rank)."""
 
-    def __init__(self, arch: ModelArch, device=None):
+    def __init__(self, arch: ModelArch, device=None, tp=None):
         self.arch = arch
+        self.tp = tp
+        m.local_heads(arch.heads, arch.pe_attn_head, tp)  # a mesh must divide the heads
         text_dim = arch.text_dim or arch.mel_dim
         self.text_freqs_cis = precompute_freqs_cis(text_dim, TEXT_PRECOMPUTE_MAX_POS).to(device)
         self.rope_angles = rope_freqs_interleaved(arch.dim_head, TEXT_PRECOMPUTE_MAX_POS).to(device)
@@ -192,12 +199,12 @@ def dit_apply(params: m.Params, statics: DiTStatics, x: torch.Tensor,
     long skip + final AdaLN + proj_out. block_mods[i] is block i's [b, 6*dim]."""
     arch = statics.arch
     n = x.shape[1]
-    rope_tabs = rope_flat_tables(statics.rope_angles, n, arch.heads, arch.pe_attn_head,
-                                 dtype=x.dtype)
+    heads, pe = m.local_heads(arch.heads, arch.pe_attn_head, statics.tp)
+    rope_tabs = rope_flat_tables(statics.rope_angles, n, heads, pe, dtype=x.dtype)
     residual = x
     for blk, mods in zip(params["blocks"], block_mods):
-        x = remat.run_block(arch, m.dit_block, blk, x, mods, arch.heads, rope_tabs, lengths,
-                            statics.rope_angles, arch.pe_attn_head)
+        x = remat.run_block(arch, m.dit_block, blk, x, mods, heads, rope_tabs, lengths,
+                            statics.rope_angles, pe, statics.tp)
     if arch.long_skip_connection:
         x = m.linear(params["long_skip"], torch.cat([x, residual], dim=-1))
     x = m.adaln_final(x, final_mod)

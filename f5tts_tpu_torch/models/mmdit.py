@@ -23,6 +23,11 @@
   backward is kernel K8, which reads the joint dO on every row (dead rows
   get a zero dO from the masks after to_out / to_out_c, and the last
   block's text rows from its unused text output).
+- Tensor parallelism as the DiT's (`MMDiTStatics(tp=)`): both streams'
+  q / k / v and FF-in column-parallel, to_out / to_out_c and FF-out
+  row-parallel (`parallel.mesh._COL` / `_ROW`), the joint attention on this
+  rank's heads; embeddings, AdaLN and proj_out whole; the qk-norm
+  weights whole, their gradient summed over the group (`modules.tp_whole`).
 The JAX package stacks the depth - 1 uniform blocks for `lax.scan`; here
 they are a Python list of block dicts (`convert.py` unstacks).
 """
@@ -50,10 +55,13 @@ ROPE_MAX_POS = 8192
 
 
 class MMDiTStatics:
-    """Constant tables (text position table, RoPE angles) on `device`."""
+    """Constant tables (text position table, RoPE angles) on `device`, and
+    the tensor-parallel group `tp` (None: one rank)."""
 
-    def __init__(self, arch: ModelArch, device=None):
+    def __init__(self, arch: ModelArch, device=None, tp=None):
         self.arch = arch
+        self.tp = tp
+        m.local_heads(arch.heads, None, tp)
         self.text_freqs_cis = precompute_freqs_cis(arch.dim, TEXT_PRECOMPUTE_MAX_POS).to(device)
         self.rope_angles = rope_freqs_interleaved(arch.dim_head, ROPE_MAX_POS).to(device)
 
@@ -132,7 +140,8 @@ def mmdit_text_embeds(params: m.Params, statics: MMDiTStatics, text: torch.Tenso
 
 
 def _joint_attention(p: m.Params, x, c, heads: int,
-                     kmask: torch.Tensor, joint_tabs: tuple, rope_angles: torch.Tensor) -> tuple:
+                     kmask: torch.Tensor, joint_tabs: tuple, rope_angles: torch.Tensor,
+                     tp=None) -> tuple:
     """modules.py:581-705 / mmdit.py:120-222: attend the concatenated streams
     under the joint key mask kmask [b, n + nt], split; dead rows of each
     stream zeroed after its to_out. x and c may be `QuantRows` (int8
@@ -142,8 +151,11 @@ def _joint_attention(p: m.Params, x, c, heads: int,
     and k in place from the projections' head views), audio RoPE on the
     audio rows and text RoPE on the text rows (`rope_angles`), the joint
     sequence by K11, heads merged. The context_pre_only block has no
-    to_out_c and returns no text stream."""
+    to_out_c and returns no text stream. With `tp`: this rank's heads
+    (`heads` and `joint_tabs` its own), to_out / to_out_c reduced."""
     n = x.shape[1]
+    if tp is not None:
+        x, c = (t if isinstance(t, m.QuantRows) else m.copy_to_tp(t, tp) for t in (x, c))
     if "to_qkv" in p and "q_norm" not in p:
         with remat.tagged("qkv"):
             qkv_x, qkv_c = m.linear(p["to_qkv"], x), m.linear(p["to_qkv_c"], c)
@@ -159,8 +171,8 @@ def _joint_attention(p: m.Params, x, c, heads: int,
                 qkv_c = [m.linear(p[name], c) for name in ("to_q_c", "to_k_c", "to_v_c")]
         qk = (qkv_x[0], qkv_x[1], qkv_c[0], qkv_c[1])
         if "q_norm" in p:  # K6 reads q and k in place from the projections
-            q, k, cq, ck = (m.rms_norm(p[name], m.head_view(t, heads)) for name, t in
-                            zip(("q_norm", "k_norm", "c_q_norm", "c_k_norm"), qk))
+            q, k, cq, ck = (m.rms_norm(m.tp_whole(p[name], tp), m.head_view(t, heads))
+                            for name, t in zip(("q_norm", "k_norm", "c_q_norm", "c_k_norm"), qk))
         else:
             q, k, cq, ck = (m.split_heads(t, heads) for t in qk)
         v, cv = m.split_heads(qkv_x[2], heads), m.split_heads(qkv_c[2], heads)
@@ -174,14 +186,16 @@ def _joint_attention(p: m.Params, x, c, heads: int,
     # the whole joint output and drops the text rows after; to_out_c is a
     # batched product on the strided view of the text rows (an int8 leaf:
     # K12 reads that view in place, `modules.linear`).
-    xo = torch.where(kmask[:, :n, None], m.linear(p["to_out"], o)[:, :n], zero)
+    xo = torch.where(kmask[:, :n, None], m.linear(p["to_out"], o, tp)[:, :n], zero)
     if "to_out_c" not in p:
         return xo, None
     pc = p["to_out_c"]
     if "w_i8" in pc:
-        co = m.linear(pc, o[:, n:])
+        co = m.linear(pc, o[:, n:], tp)
     else:
         co = torch.matmul(o[:, n:], pc["w"].to(o.dtype).expand(o.shape[0], -1, -1))
+        if tp is not None:
+            co = m.reduce_from_tp(co, tp)
         if "b" in pc:
             co = co + pc["b"].to(o.dtype)
     return xo, torch.where(kmask[:, n:, None], co, zero)
@@ -189,7 +203,8 @@ def _joint_attention(p: m.Params, x, c, heads: int,
 
 def _mmdit_block(blk: m.Params, x: torch.Tensor, c: torch.Tensor, mods_x: torch.Tensor,
                  mods_c: torch.Tensor, heads: int, kmask: torch.Tensor, joint_tabs: tuple,
-                 rope_angles: torch.Tensor, context_pre_only: bool = False) -> tuple:
+                 rope_angles: torch.Tensor, context_pre_only: bool = False,
+                 tp=None) -> tuple:
     """modules.py:816-846. mods_x [b, 6*dim]; mods_c [b, 6*dim], or [b, 2*dim]
     for the context_pre_only last block. Each norm is told which projections
     read its rows (K1Q where they all take them quantized)."""
@@ -204,16 +219,16 @@ def _mmdit_block(blk: m.Params, x: torch.Tensor, c: torch.Tensor, mods_x: torch.
     norm_x = m.adaln_pre(x, x_sm, x_ss, m.attention_inputs(attn))
 
     x_attn, c_attn = _joint_attention(attn, norm_x, norm_c, heads, kmask, joint_tabs,
-                                      rope_angles)
+                                      rope_angles, tp)
     if context_pre_only:
         c = None
     else:
         c = c + c_gm[:, None, :] * c_attn
         norm_c = m.adaln_pre(c, c_s2, c_sc2, [blk["ff_c"]["in"]])
-        c = c + c_g2[:, None, :] * m.feed_forward(blk["ff_c"], norm_c)
+        c = c + c_g2[:, None, :] * m.feed_forward(blk["ff_c"], norm_c, tp)
     x = x + x_gm[:, None, :] * x_attn
     norm_x = m.adaln_pre(x, x_s2, x_sc2, [blk["ff_x"]["in"]])
-    x = x + x_g2[:, None, :] * m.feed_forward(blk["ff_x"], norm_x)
+    x = x + x_g2[:, None, :] * m.feed_forward(blk["ff_x"], norm_x, tp)
     return x, c
 
 
@@ -309,8 +324,9 @@ def mmdit_forward(params: m.Params, statics: MMDiTStatics, x: torch.Tensor,
 
     # joint rope tables: audio rows rotate with audio positions, text rows
     # with text positions
-    ca, sa = rope_flat_tables(statics.rope_angles, n, arch.heads, None, dtype=dtype)
-    ct, st = rope_flat_tables(statics.rope_angles, nt_pad, arch.heads, None, dtype=dtype)
+    heads, _ = m.local_heads(arch.heads, None, statics.tp)
+    ca, sa = rope_flat_tables(statics.rope_angles, n, heads, None, dtype=dtype)
+    ct, st = rope_flat_tables(statics.rope_angles, nt_pad, heads, None, dtype=dtype)
     joint_tabs = (torch.cat([ca, ct]), torch.cat([sa, st]))
 
     if t_mods is None:
@@ -324,10 +340,10 @@ def mmdit_forward(params: m.Params, statics: MMDiTStatics, x: torch.Tensor,
     # checkpoint_activations covers the depth - 1 uniform blocks, not the
     # context_pre_only last one (JAX mmdit.py:415-428)
     for blk, mx, mc in zip(params["blocks"], t_mods["blocks_x"], t_mods["blocks_c"]):
-        h, c = remat.run_block(arch, _mmdit_block, blk, h, c, mx, mc, arch.heads, kmask,
-                               joint_tabs, statics.rope_angles)
+        h, c = remat.run_block(arch, _mmdit_block, blk, h, c, mx, mc, heads, kmask,
+                               joint_tabs, statics.rope_angles, False, statics.tp)
     h, _ = _mmdit_block(params["last_block"], h, c, t_mods["last_x"], t_mods["last_c"],
-                        arch.heads, kmask, joint_tabs, statics.rope_angles,
-                        context_pre_only=True)
+                        heads, kmask, joint_tabs, statics.rope_angles,
+                        context_pre_only=True, tp=statics.tp)
     h = m.adaln_final(h, t_mods["final"])
     return m.linear(params["proj_out"], h).float()

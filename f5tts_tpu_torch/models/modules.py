@@ -17,6 +17,18 @@ every one of them is an int8 leaf without the outlier hedge
 (`takes_quantized`); ff.out's input is quantized inside the GELU pass
 (K12's GELU mode) on the same rule. `linear` takes those `QuantRows`.
 bf16 leaves and leaves with the hedge get bf16 rows as before.
+
+Tensor parallelism (`parallel.mesh`): given a `tp` group (`parallel.
+collectives.TP`), the block functions take this rank's shards of the
+column-parallel leaves (q / k / v, FF-in) and row-parallel leaves (attn-out,
+FF-out): the input of the column projections passes `copy_to_tp` (its
+gradient is summed over the group), the attention runs `local_heads`, and a
+row projection's partial product is summed over the group before its bias
+(`linear(..., tp)`). A whole weight that acts on this rank's heads only
+(the qk-norm weights) passes `copy_to_tp` as well (`tp_whole`), so its
+gradient is the sum over the group, as every rank's copy must be updated
+alike. Under tp an int8 FF-out takes bf16 rows (no GELU quantize mode): its
+row scale must be the whole row's (`ops.quant.int8_linear_partial_tp`).
 """
 
 from __future__ import annotations
@@ -33,8 +45,10 @@ from f5tts_tpu_torch.ops.adaln_norm import rms_norm as rms_norm_kernel
 from f5tts_tpu_torch.ops.attention import FLAT_ATTN_MAX_N, attention, fused_qkv_rope_attention
 from f5tts_tpu_torch.ops.grouped_conv import conv_pos_embedding as conv_pos_kernel
 from f5tts_tpu_torch.ops.grouped_conv import grouped_conv1d, mish, supports_fused_conv_pos
-from f5tts_tpu_torch.ops.quant import QuantRows, gelu_quantize_rows, int8_linear
+from f5tts_tpu_torch.ops.quant import (QuantRows, gelu_quantize_rows, int8_linear,
+                                       int8_linear_partial_tp)
 from f5tts_tpu_torch.ops.rope import apply_rotary_flat, apply_rotary_partial_heads
+from f5tts_tpu_torch.parallel.collectives import copy_to_tp, reduce_from_tp
 
 Params = dict
 
@@ -71,9 +85,16 @@ def init_conv1d(gen, c_in: int, c_out: int, kernel: int, groups: int = 1) -> Par
 # Primitives
 # ---------------------------------------------------------------------------
 
-def linear(p: Params, x) -> torch.Tensor:
+def linear(p: Params, x, tp=None) -> torch.Tensor:
     """x @ w + b; x a tensor, or `QuantRows` for an int8 leaf without the
-    outlier hedge."""
+    outlier hedge. With `tp`, p is this rank's shard of a row-parallel leaf
+    and x its slice of the input: the partial products are summed over the
+    group, then the bias is added once."""
+    if tp is not None:
+        y = (int8_linear_partial_tp(p, x, tp) if "w_i8" in p
+             else torch.matmul(x, p["w"].to(x.dtype)))
+        y = reduce_from_tp(y, tp)
+        return y + p["b"].to(y.dtype) if "b" in p else y
     if "w_i8" in p:  # an int8 leaf (ops.quant.quantize_dit_params): K12, the product, K13
         return int8_linear(p, x)
     if isinstance(x, QuantRows):
@@ -105,6 +126,12 @@ def takes_quantized(*leaves: Params) -> bool:
     """Whether there are `leaves` and every one is an int8 leaf without the
     outlier hedge: the projections a norm or GELU hands its rows quantized."""
     return bool(leaves) and all("w_i8" in p and "act_mask" not in p for p in leaves)
+
+
+def tp_whole(p: Params, tp) -> Params:
+    """p with its weight through `copy_to_tp` under `tp`: a replicated leaf
+    applied to this rank's heads only, its gradient summed over the group."""
+    return p if tp is None else {**p, "w": copy_to_tp(p["w"], tp)}
 
 
 def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6, readers=()):
@@ -264,10 +291,14 @@ def init_feed_forward(gen, dim: int, mult: int) -> Params:
     return {"in": init_linear(gen, dim, dim * mult), "out": init_linear(gen, dim * mult, dim)}
 
 
-def feed_forward(p: Params, x) -> torch.Tensor:
+def feed_forward(p: Params, x, tp=None) -> torch.Tensor:
     """out(GELU-tanh(in(x))); x a tensor, or `QuantRows` for an int8 ff.in.
     An int8 ff.out without the hedge takes its input quantized inside the
-    GELU pass (K12's GELU mode)."""
+    GELU pass (K12's GELU mode). With `tp`: this rank's FF columns, ff.out
+    reduced over the group."""
+    if tp is not None:
+        h = linear(p["in"], x if isinstance(x, QuantRows) else copy_to_tp(x, tp))
+        return linear(p["out"], gelu_tanh(h), tp)
     h = linear(p["in"], x)
     if takes_quantized(p["out"]):
         return linear(p["out"], QuantRows(*gelu_quantize_rows(h), h.dtype))
@@ -318,10 +349,24 @@ def merge_heads(t: torch.Tensor) -> torch.Tensor:
     return t.transpose(1, 2).reshape(b, n, h * d)
 
 
+def local_heads(heads: int, pe_attn_head: Optional[int], tp=None) -> tuple:
+    """(heads, pe_attn_head) of this rank under `tp`: heads // tp of them,
+    global heads [rank h, (rank + 1) h); of the first `pe_attn_head` global
+    heads that RoPE rotates, those among this rank's. A model axis that does
+    not divide the heads raises (the JAX attention falls back to XLA)."""
+    if tp is None:
+        return heads, pe_attn_head
+    if heads % tp.size:
+        raise ValueError(f"{heads} heads do not split over a model axis of {tp.size}")
+    h = heads // tp.size
+    pe = None if pe_attn_head is None else min(max(pe_attn_head - tp.rank * h, 0), h)
+    return h, pe
+
+
 def self_attention(p: Params, x, heads: int, rope_tabs: tuple,
                    lengths: Optional[torch.Tensor] = None,
                    rope_angles: Optional[torch.Tensor] = None,
-                   pe_attn_head: Optional[int] = None) -> torch.Tensor:
+                   pe_attn_head: Optional[int] = None, tp=None) -> torch.Tensor:
     """x [b, n, dim], or `QuantRows` when every projection of x takes them
     (`takes_quantized`; the block's norm wrote them); rope_tabs = flat (cos, sin) [>=n, h*d] for K3;
     rope_angles [>=n, d] f32 with `pe_attn_head` for the head layout. Rows
@@ -339,8 +384,12 @@ def self_attention(p: Params, x, heads: int, rope_tabs: tuple,
     norm's K1Q / K6Q before this), as the JAX package does. Both
     layouts are differentiable: K4 is K3's backward; under grad the head
     layout runs K7's lse mode and K9 (without grad, K7 alone). The
-    projections run `tagged("qkv")` (what remat's "attn" policy keeps)."""
+    projections run `tagged("qkv")` (what remat's "attn" policy keeps).
+    With `tp`, `heads` / `pe_attn_head` / `rope_tabs` are this rank's
+    (`local_heads`) and to_out is reduced over the group."""
     b, n, _ = x.shape
+    if tp is not None and not isinstance(x, QuantRows):
+        x = copy_to_tp(x, tp)
     lens = (torch.full((b,), n, dtype=torch.int32, device=x.device) if lengths is None
             else lengths.to(torch.int32))
     if "to_qkv" in p and "q_norm" not in p and n <= FLAT_ATTN_MAX_N:
@@ -354,15 +403,15 @@ def self_attention(p: Params, x, heads: int, rope_tabs: tuple,
             else:  # to_q / to_k / to_v; int8 ones with the hedge each quantize their masked rows
                 q, k, v = (linear(leaf, x) for leaf in attention_inputs(p))
         if "q_norm" in p:
-            q = rms_norm(p["q_norm"], head_view(q, heads))
-            k = rms_norm(p["k_norm"], head_view(k, heads))
+            q = rms_norm(tp_whole(p["q_norm"], tp), head_view(q, heads))
+            k = rms_norm(tp_whole(p["k_norm"], tp), head_view(k, heads))
             q = apply_rotary_partial_heads(q, rope_angles, pe_attn_head)
             k = apply_rotary_partial_heads(k, rope_angles, pe_attn_head)
         else:
             q = split_heads(apply_rotary_flat(q, rope_angles, heads, pe_attn_head), heads)
             k = split_heads(apply_rotary_flat(k, rope_angles, heads, pe_attn_head), heads)
         o = merge_heads(attention(q, k, split_heads(v, heads), lens))
-    o = linear(p["to_out"], o)
+    o = linear(p["to_out"], o, tp)
     if lengths is not None:
         mask = torch.arange(n, device=x.device)[None, :] < lengths[:, None]
         o = torch.where(mask[:, :, None], o, torch.zeros((), dtype=o.dtype, device=o.device))
@@ -385,14 +434,16 @@ def init_dit_block(gen, dim: int, heads: int, dim_head: int, ff_mult: int,
 def dit_block(p: Params, x: torch.Tensor, mods: torch.Tensor, heads: int,
               rope_tabs: tuple, lengths: Optional[torch.Tensor] = None,
               rope_angles: Optional[torch.Tensor] = None,
-              pe_attn_head: Optional[int] = None) -> torch.Tensor:
-    """mods [b, 6*dim]: shift_msa, scale_msa, gate_msa, shift/scale/gate_mlp."""
+              pe_attn_head: Optional[int] = None, tp=None) -> torch.Tensor:
+    """mods [b, 6*dim]: shift_msa, scale_msa, gate_msa, shift/scale/gate_mlp.
+    With `tp`, p holds this rank's shards and heads / pe_attn_head /
+    rope_tabs are its own (`local_heads`)."""
     shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods.chunk(6, dim=-1)
     norm = adaln_pre(x, shift_msa, scale_msa, attention_inputs(p["attn"]))
     x = x + gate_msa[:, None, :] * self_attention(p["attn"], norm, heads, rope_tabs, lengths,
-                                                  rope_angles, pe_attn_head)
+                                                  rope_angles, pe_attn_head, tp)
     norm = adaln_pre(x, shift_mlp, scale_mlp, [p["ff"]["in"]])
-    return x + gate_mlp[:, None, :] * feed_forward(p["ff"], norm)
+    return x + gate_mlp[:, None, :] * feed_forward(p["ff"], norm, tp)
 
 
 def fuse_attention_qkv(attn: Params, dtype=None) -> Params:

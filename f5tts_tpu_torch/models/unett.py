@@ -16,6 +16,9 @@ f5tts_tpu/models/unett.py:32-223).
 - Training (`cfm_loss`) passes per-sample [b] bool `drop_audio_cond` /
   `drop_text`; autograd runs through the attention kernels' backwards (K4,
   or K9 past the flat gate), K6's f32 formula and the split skip matmul.
+- Tensor parallelism as the DiT's (`dit.DiTStatics(tp=)`): the blocks'
+  attention and FF on this rank's shards; the norms, skip_proj and
+  proj_out whole.
 The JAX package stacks each half on a leading depth axis for `lax.scan`;
 here each half is a Python list of block dicts (`convert.py` unstacks).
 """
@@ -68,12 +71,15 @@ def init_unett(generator: torch.Generator, arch: ModelArch) -> m.Params:
 
 
 class UNetTStatics:
-    """Constant tables (text position table, RoPE angles) on `device`."""
+    """Constant tables (text position table, RoPE angles) on `device`, and
+    the tensor-parallel group `tp` (None: one rank)."""
 
-    def __init__(self, arch: ModelArch, device=None):
+    def __init__(self, arch: ModelArch, device=None, tp=None):
         if arch.depth % 2:
             raise ValueError("UNetT depth must be even")
         self.arch = arch
+        self.tp = tp
+        m.local_heads(arch.heads, arch.pe_attn_head, tp)
         text_dim = arch.text_dim or arch.mel_dim
         self.text_freqs_cis = precompute_freqs_cis(text_dim, TEXT_PRECOMPUTE_MAX_POS).to(device)
         self.rope_angles = rope_freqs_interleaved(arch.dim_head, ROPE_MAX_POS).to(device)
@@ -89,6 +95,7 @@ def unett_text_embeds(params: m.Params, statics: UNetTStatics, text: torch.Tenso
 def _block(blk: m.Params, x: torch.Tensor, statics: UNetTStatics, rope_tabs: tuple,
            lengths: torch.Tensor, skip: Optional[torch.Tensor] = None) -> torch.Tensor:
     arch = statics.arch
+    heads, pe = m.local_heads(arch.heads, arch.pe_attn_head, statics.tp)
     if skip is not None:
         if arch.skip_connect_type == "concat":
             w = blk["skip_proj"]["w"]
@@ -99,10 +106,10 @@ def _block(blk: m.Params, x: torch.Tensor, statics: UNetTStatics, rope_tabs: tup
         elif arch.skip_connect_type == "add":
             x = x + skip
     h = m.rms_norm(blk["attn_norm"], x, RMS_EPS, m.attention_inputs(blk["attn"]))
-    x = m.self_attention(blk["attn"], h, arch.heads, rope_tabs, lengths, statics.rope_angles,
-                         arch.pe_attn_head) + x
+    x = m.self_attention(blk["attn"], h, heads, rope_tabs, lengths, statics.rope_angles,
+                         pe, statics.tp) + x
     h = m.rms_norm(blk["ff_norm"], x, RMS_EPS, [blk["ff"]["in"]])
-    return m.feed_forward(blk["ff"], h) + x
+    return m.feed_forward(blk["ff"], h, statics.tp) + x
 
 
 def unett_forward(params: m.Params, statics: UNetTStatics, x: torch.Tensor,
@@ -146,8 +153,8 @@ def unett_forward(params: m.Params, statics: UNetTStatics, x: torch.Tensor,
                    else torch.full((bb,), n + 1, dtype=torch.int32, device=h.device))
     n_pad = -(-(n + 1) // 128) * 128
     h = F.pad(h, (0, 0, 0, n_pad - n - 1))
-    rope_tabs = rope_flat_tables(statics.rope_angles, n_pad, arch.heads, arch.pe_attn_head,
-                                 dtype=h.dtype)
+    heads, pe = m.local_heads(arch.heads, arch.pe_attn_head, statics.tp)
+    rope_tabs = rope_flat_tables(statics.rope_angles, n_pad, heads, pe, dtype=h.dtype)
 
     # under checkpoint_activations each block is checkpointed; the skip
     # stack stays outside (the first half's block inputs, kept as they are)

@@ -592,6 +592,23 @@ def flash_attention(q, k, v, lengths) -> torch.Tensor:
     return flash_attention_fwd(q, k, v, lengths)
 
 
+def flash_attention_sharded(q, k, v, lengths, mesh) -> torch.Tensor:
+    """The counterpart of the JAX `flash_attention_sharded` (its shard_map
+    of the flash kernel): of the global q / k / v [B, H, n, d] and lengths
+    [B], this rank's batch rows (its "data" index) and heads (its "model"
+    index) through `flash_attention` (K7; K3 / K5 / K11 run local heads
+    through their callers the same way). No collective: the row-parallel
+    to_out that follows reduces. Needs B % data == 0 and H % model == 0."""
+    b, h = q.shape[:2]
+    if b % mesh.data or h % mesh.model:
+        raise ValueError(f"[{b}, {h}, ...] does not split over a {mesh.data} x {mesh.model} mesh")
+    rb, hb = b // mesh.data, h // mesh.model
+    rows = slice(mesh.data_rank * rb, (mesh.data_rank + 1) * rb)
+    heads = slice(mesh.model_rank * hb, (mesh.model_rank + 1) * hb)
+    return flash_attention(*(t[rows, heads].contiguous() for t in (q, k, v)),
+                           lengths[rows].to(torch.int32).contiguous())
+
+
 def attention(q, k, v, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[b, h, n, d] attention over keys < lengths (all keys when None)."""
     if lengths is None:

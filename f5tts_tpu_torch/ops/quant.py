@@ -52,20 +52,27 @@ from f5tts_tpu_torch.ops._rows import check_rows
 Params = dict
 
 
-def _quantize(x: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _quantize(x: torch.Tensor, dim: int, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 over `dim`: (codes, f32 scale with `dim` kept as 1).
     Both divisions are IEEE divisions on every device (a divisor that is a
-    CPU scalar would become a product with its reciprocal on the card)."""
+    CPU scalar would become a product with its reciprocal on the card).
+    With `group`, x is one rank's slice of `dim`: the abs max is the whole's
+    (all-reduced over the group)."""
     xf = x.float()
     amax = xf.abs().amax(dim=dim, keepdim=True)
+    if group is not None:
+        from f5tts_tpu_torch.parallel.collectives import all_reduce_max
+
+        amax = all_reduce_max(amax, group)
     scale = torch.where(amax > 0, amax / amax.new_full((), 127.0), amax.new_ones(()))
     return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
 
 
-def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_weight(w: torch.Tensor, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """[..., k, n] -> (int8 [..., k, n], f32 scale [..., 1, n]): symmetric
-    per output channel over the contraction axis (-2)."""
-    return _quantize(w, -2)
+    per output channel over the contraction axis (-2); with `group`, w is a
+    row-parallel slice of k and the scale is the whole column's."""
+    return _quantize(w, -2, group)
 
 
 def quantize_rows_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -235,6 +242,27 @@ def int8_linear(p: Params, x) -> torch.Tensor:
     return int8_linear_pre(p, xq, xs, x.dtype)
 
 
+def int8_linear_partial_tp(p: Params, x: torch.Tensor, tp) -> torch.Tensor:
+    """This rank's partial product of a row-parallel int8 leaf under tensor
+    parallelism, without the bias (`modules.linear` reduces and adds it):
+    x [..., k / tp] is this rank's slice of the rows, quantized with the
+    scale of the WHOLE row, as the single-device leaf quantizes it (the
+    row's abs max all-reduced over the model group). K12 takes the slice
+    with 8 more columns holding that max, so its scale is the whole row's;
+    the extra codes are dropped. The dequant is linear, so the reduced
+    partials are the single-device output up to the f32 sum's order."""
+    from f5tts_tpu_torch.parallel.collectives import all_reduce_max
+
+    k = x.shape[-1]
+    amax = all_reduce_max(x.abs().amax(dim=-1, keepdim=True).float(), tp.group)
+    padded = x.new_zeros((*x.shape[:-1], k + 8))
+    padded[..., :k] = x
+    padded[..., k:k + 1] = amax.to(x.dtype)  # a row's value: exact in x's dtype
+    codes, scale = quantize_rows(padded)
+    return int8_linear_pre({"w_i8": p["w_i8"], "w_scale": p["w_scale"]},
+                           codes[..., :k].contiguous(), scale, x.dtype)
+
+
 _QUANT_LEAVES = (
     ("attn", "to_qkv"), ("attn", "to_qkv_c"),  # inference-fused (modules.fuse_attention_qkv)
     ("attn", "to_q"), ("attn", "to_k"), ("attn", "to_v"), ("attn", "to_out"),
@@ -319,7 +347,7 @@ def _copy_containers(tree):
 
 
 def quantize_dit_params(params: Params, smooth: bool = False,
-                        smooth_threshold: float = 4.0) -> Params:
+                        smooth_threshold: float = 4.0, tp=None) -> Params:
     """Rewrite the per-token projections of every block (`_QUANT_LEAVES`)
     to int8, on the DiT, UNetT (first_half / second_half) and MMDiT (blocks
     + last_block) trees; every other leaf stays as it is. Returns a new tree
@@ -330,14 +358,24 @@ def quantize_dit_params(params: Params, smooth: bool = False,
     residual-consumer leaf and masked out of its activations before the row
     quantize, and contribute through a product over the saved original
     rows (`w_out`). Nothing changes where no channel passes the
-    threshold."""
+    threshold.
+
+    With `tp` (`parallel.collectives.TP`), params are this rank's
+    tensor-parallel shards (`parallel.mesh.shard_params`): a row-parallel
+    leaf's scales are taken over the whole contraction axis, so the result
+    equals `shard_params` of the quantized whole tree. The hedge is not
+    taken under tp (its channel statistics span the shards)."""
+    if tp is not None and smooth:
+        raise ValueError("quantize_dit_params: smooth=True takes the whole tree, not tp shards")
+    from f5tts_tpu_torch.parallel.mesh import _ROW
+
     params = _copy_containers(params)
     empty = np.zeros((0,), np.int32)
     stream_idx = {s: (flag_outlier_channels(params, smooth_threshold,
                                             writers=_RESIDUAL_WRITERS[s]) if smooth else empty)
                   for s in _RESIDUAL_WRITERS}
 
-    def quantize_leaf(d: Params, stream) -> Params:
+    def quantize_leaf(d: Params, stream, row: bool) -> Params:
         w = d["w"]
         out = {}
         out_idx = stream_idx[stream] if stream else empty
@@ -348,7 +386,7 @@ def quantize_dit_params(params: Params, smooth: bool = False,
             out.update(out_idx=idx, act_mask=torch.from_numpy(mask).to(w.device),
                        w_out=w.index_select(-2, idx))
             w = w * torch.from_numpy(mask)[:, None].to(w.device, w.dtype)
-        w_i8, scale = quantize_weight(w)
+        w_i8, scale = quantize_weight(w, tp.group if tp is not None and row else None)
         out.update(w_i8=w_i8.t().contiguous(), w_scale=scale)
         if "b" in d:
             out["b"] = d["b"]
@@ -357,5 +395,6 @@ def quantize_dit_params(params: Params, smooth: bool = False,
     for blk in _blocks(params):
         for mod, name in _QUANT_LEAVES:
             if mod in blk and name in blk[mod] and "w" in blk[mod][name]:
-                blk[mod][name] = quantize_leaf(blk[mod][name], _SMOOTH_LEAVES.get((mod, name)))
+                blk[mod][name] = quantize_leaf(blk[mod][name], _SMOOTH_LEAVES.get((mod, name)),
+                                               (mod, name) in _ROW)
     return params

@@ -8,7 +8,9 @@
   written to a temporary file and renamed, so a cut run leaves no torn file.
   Any backbone's tree is saved as it is: the DiT's and MMDiT's "blocks"
   lists (and MMDiT's "last_block" dict), the UNetT's "first_half" /
-  "second_half".
+  "second_half". A state sharded over a mesh (tensor parallel, ZeRO-1) is
+  gathered first and written by rank 0 alone: the single-device trainer's
+  file, which `restore(mesh=)` shards again at any mesh, 1 x 1 included.
 - load_params: the (EMA) params of the newest checkpoint across both.
 - save_safetensors_ema: the EMA weights of a DiT (the one backbone the JAX
   package exports, as its `_to_reference_keys`) in the reference's state-dict key
@@ -59,7 +61,17 @@ class CheckpointManager:
         self.keep_last_n = keep_last_n
         os.makedirs(self.save_dir, exist_ok=True)
 
-    def save(self, state: TrainState, step: Optional[int] = None, heartbeat: bool = False) -> str:
+    def save(self, state: TrainState, step: Optional[int] = None,
+             heartbeat: bool = False) -> Optional[str]:
+        """Write `state`; a sharded one is gathered (every rank must call)
+        and written by rank 0, which gets the path (the others None)."""
+        if state.shard is not None:
+            from f5tts_tpu_torch.parallel.mesh import gather_train_state
+
+            rank = state.shard.mesh.rank
+            state = gather_train_state(state)
+            if rank != 0:
+                return None
         step = state.step if step is None else step
         d = self.last_dir if heartbeat else self.save_dir
         os.makedirs(d, exist_ok=True)
@@ -80,14 +92,21 @@ class CheckpointManager:
         steps = _steps(self.save_dir) + _steps(self.last_dir)
         return max(steps) if steps else None
 
-    def restore(self, step: Optional[int] = None, device=None) -> Optional[TrainState]:
+    def restore(self, step: Optional[int] = None, device=None, mesh=None,
+                zero1: bool = False) -> Optional[TrainState]:
         """The state at `step` (default: the newest across heartbeat and
-        milestones), with its tensors on `device`."""
+        milestones), with its tensors on `device`; over a `mesh` this rank's
+        shard of it (`parallel.mesh.shard_train_state`)."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None
         d = self.save_dir if step in _steps(self.save_dir) else self.last_dir
-        return dict_to_state(torch.load(_path(d, step), map_location=device, weights_only=True))
+        state = dict_to_state(torch.load(_path(d, step), map_location=device, weights_only=True))
+        if mesh is None:
+            return state
+        from f5tts_tpu_torch.parallel.mesh import shard_train_state
+
+        return shard_train_state(state, mesh, zero1)
 
 
 def load_params(ckpt_dir: str, use_ema: bool = True, step: Optional[int] = None) -> dict:

@@ -21,8 +21,17 @@ weights:
   over `torch._foreach_*` in optax's order;
 - serving (`merge_for_serving`): merge, fuse q / k / v, optionally int8.
 The UNetT (first_half / second_half) has no `blocks`: the JAX package fails
-there with a KeyError, the port raises a ValueError. `lora_param_specs`
-(tensor-parallel sharding) waits for multi-GPU (ROADMAP.md queue 1 item 16).
+there with a KeyError, the port raises a ValueError.
+
+Over a mesh (`make_lora_train_step(mesh=)`, `shard_lora_state`): the base
+weights are this rank's tensor-parallel shards and `lora_param_specs` shards
+the adapters as the JAX package does (B follows a column base's output
+axis, A a row base's input axis). The other factor is whole on every rank
+but meets a sharded one inside the product, so the merge passes it through
+`copy_to_tp`: its gradient is summed over the model group. Gradients are
+reduced over "data" once an update (all-reduced, or reduce-scattered under
+ZeRO-1, where AdamW runs on this rank's flat shard of mu / nu), as in
+`train.step`.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ import torch
 from f5tts_tpu_torch.config import CFMConfig
 from f5tts_tpu_torch.models import cfm
 from f5tts_tpu_torch.models import modules as m
+from f5tts_tpu_torch.parallel.collectives import all_reduce_sum
 from f5tts_tpu_torch.utils import resolve_device
 
 # block projections that receive adapters (names under blocks' attn / ff)
@@ -86,10 +96,30 @@ def init_lora(generator: torch.Generator, params: dict, cfg: LoRAConfig = LoRACo
     return lora
 
 
-def apply_lora(params: dict, lora: dict, cfg: LoRAConfig = LoRAConfig()) -> dict:
+def lora_param_specs(lora: dict, base_specs: dict) -> dict:
+    """Tensor-parallel specs of the adapters (`parallel.mesh.Spec`): B
+    takes a column base's sharded output axis, A a row base's sharded input
+    axis (JAX lora.py:85-99); `base_specs` is `dit_param_specs(base)`."""
+    from f5tts_tpu_torch.parallel.mesh import Spec
+
+    block = base_specs["blocks"][0]
+    out: dict = {}
+    for group, subs in lora.items():
+        for name in subs:
+            d_in, d_out = block[group][name]["w"].axes
+            out.setdefault(group, {})[name] = {"a": Spec((None, d_in, None)),
+                                               "b": Spec((None, None, d_out))}
+    return out
+
+
+def apply_lora(params: dict, lora: dict, cfg: LoRAConfig = LoRAConfig(), tp=None) -> dict:
     """`params` with each adapted weight w + (alpha / rank) * A @ B (cast to
     w's dtype); every other leaf is the base's own tensor. Differentiable in
-    the adapters."""
+    the adapters. With `tp`, params and adapters are this rank's shards: the
+    whole factor of each product passes `copy_to_tp`."""
+    from f5tts_tpu_torch.parallel.collectives import copy_to_tp
+    from f5tts_tpu_torch.parallel.mesh import _COL
+
     scale = cfg.alpha / cfg.rank
     out = dict(params)
     blocks = [dict(blk) for blk in _blocks(params)]
@@ -97,7 +127,13 @@ def apply_lora(params: dict, lora: dict, cfg: LoRAConfig = LoRAConfig()) -> dict
         for blk in blocks:
             blk[group] = dict(blk[group])
         for name, ab in subs.items():
-            delta = torch.einsum("lir,lro->lio", ab["a"].float(), ab["b"].float()) * scale
+            a, b = ab["a"], ab["b"]
+            if tp is not None:  # the whole factor (A of a column base, B of a row one)
+                if (group, name) in _COL:
+                    a = copy_to_tp(a, tp)
+                else:
+                    b = copy_to_tp(b, tp)
+            delta = torch.einsum("lir,lro->lio", a.float(), b.float()) * scale
             for i, blk in enumerate(blocks):
                 base = blk[group][name]
                 w = base["w"]
@@ -129,11 +165,36 @@ class LoRAOptState:
     mu: dict     # first moment, a tree like the adapters
     nu: dict     # second moment
     count: int   # optax's `count`
+    # over a mesh, how adapters and moments lie (`parallel.mesh.ShardInfo`);
+    # under ZeRO-1 mu / nu are this rank's 1-D flat shards
+    shard: Optional[object] = None
 
 
 def init_lora_opt_state(lora: dict) -> LoRAOptState:
     zeros = lambda t: torch.zeros_like(t)  # noqa: E731
     return LoRAOptState(mu=m.tree_map(zeros, lora), nu=m.tree_map(zeros, lora), count=0)
+
+
+def shard_lora_state(lora: dict, opt: LoRAOptState, base_specs: dict, mesh,
+                     zero1: bool = False) -> tuple[dict, LoRAOptState]:
+    """(this rank's adapters, its optimizer state) from whole ones:
+    `lora_param_specs` slices, and under ZeRO-1 the adapters become views
+    into one flat buffer and mu / nu this rank's shards of it."""
+    from f5tts_tpu_torch.parallel.mesh import shard_state_trees
+
+    specs = lora_param_specs(lora, base_specs)
+    lora, mu, nu, _, info = shard_state_trees(lora, opt.mu, opt.nu, None, specs, mesh, zero1)
+    return lora, LoRAOptState(mu=mu, nu=nu, count=opt.count, shard=info)
+
+
+def gather_lora_state(lora: dict, opt: LoRAOptState) -> tuple[dict, LoRAOptState]:
+    """The whole adapters and optimizer state of sharded ones, on every rank
+    (collectives over both groups)."""
+    info = opt.shard
+    if info is None:
+        return lora, opt
+    full = [info.full_tree(t, lora) for t in (lora, opt.mu, opt.nu)]
+    return full[0], LoRAOptState(mu=full[1], nu=full[2], count=opt.count)
 
 
 class LoRATrainStep:
@@ -144,8 +205,9 @@ class LoRATrainStep:
 
     def __init__(self, base_params: dict, statics, tx: AdamWHParams,
                  cfg: LoRAConfig = LoRAConfig(), cfm_cfg: Optional[CFMConfig] = None,
-                 dtype=torch.bfloat16, backbone: cfm.BackboneDef = cfm.DIT):
+                 dtype=torch.bfloat16, backbone: cfm.BackboneDef = cfm.DIT, mesh=None):
         _blocks(base_params)
+        self.mesh = mesh
         self.base = m.tree_map(lambda t: t.detach().requires_grad_(False), base_params)
         self.statics = statics
         self.tx = tx
@@ -155,9 +217,17 @@ class LoRATrainStep:
         self.backbone = backbone
 
     def loss_fn(self, lora: dict, mel, text, lens, generator=None, draws=None) -> torch.Tensor:
-        merged = m.fuse_backbone_qkv(apply_lora(self.base, lora, self.cfg), dtype=self.dtype)
+        mesh = self.mesh
+        merged = m.fuse_backbone_qkv(apply_lora(self.base, lora, self.cfg,
+                                                None if mesh is None else mesh.tp),
+                                     dtype=self.dtype)
+        if mesh is not None and draws is None and generator is not None:
+            from f5tts_tpu_torch.train.step import mesh_draws
+
+            draws = mesh_draws(generator, mel, mesh, self.cfm_cfg)
         loss, _ = cfm.cfm_loss(merged, self.statics, mel, text, lens, self.cfm_cfg, self.dtype,
-                               generator=generator, draws=draws, backbone=self.backbone)
+                               generator=generator, draws=draws, backbone=self.backbone,
+                               dp_group=None if mesh is None else mesh.data_group)
         return loss
 
     def loss_and_grads(self, lora: dict, mel, text, lens, *,
@@ -171,11 +241,15 @@ class LoRATrainStep:
 
     def apply(self, lora: dict, opt: LoRAOptState, grads: dict) -> torch.Tensor:
         """optax's clip_by_global_norm then adamw on `lora` in place; returns
-        the global norm before clipping."""
+        the global norm before clipping. Over a mesh the gradients are this
+        rank's, reduced here (`opt.shard`)."""
         tx = self.tx
-        p, mu, nu = (m.tree_leaves(t) for t in (lora, opt.mu, opt.nu))
-        g = [x.float() for x in m.tree_leaves(grads)]
-        gnorm = torch.sqrt(sum(torch.sum(x * x) for x in g))
+        if opt.shard is None:
+            p, mu, nu = (m.tree_leaves(t) for t in (lora, opt.mu, opt.nu))
+            g = [x.float() for x in m.tree_leaves(grads)]
+            gnorm = torch.sqrt(sum(torch.sum(x * x) for x in g))
+        else:
+            p, g, mu, nu, _, gnorm = opt.shard.reduce(grads, lora, opt.mu, opt.nu, None)
         # where(g_norm < max_norm, g, g / g_norm * max_norm)
         clip = gnorm >= tx.max_grad_norm
         gc = torch._foreach_div(g, gnorm)
@@ -198,6 +272,8 @@ class LoRATrainStep:
         torch._foreach_add_(upd, torch._foreach_mul(p, tx.weight_decay))
         torch._foreach_mul_(upd, -tx.learning_rate)
         torch._foreach_add_(p, upd)
+        if opt.shard is not None:
+            opt.shard.finish()
         opt.count = count_inc
         return gnorm
 
@@ -206,16 +282,21 @@ class LoRATrainStep:
                  draws: Optional[cfm.CFMDraws] = None) -> tuple[dict, LoRAOptState, dict]:
         loss, grads = self.loss_and_grads(lora, mel, text, lens, generator=generator, draws=draws)
         gnorm = self.apply(lora, opt, grads)
+        if opt.shard is not None:
+            loss = all_reduce_sum(loss, opt.shard.mesh.data_group)
         return lora, opt, {"loss": loss, "grad_norm": gnorm}
 
 
 def make_lora_train_step(base_params: dict, statics, tx: AdamWHParams,
                          cfg: LoRAConfig = LoRAConfig(), cfm_cfg: Optional[CFMConfig] = None,
-                         dtype=torch.bfloat16,
-                         backbone: cfm.BackboneDef = cfm.DIT) -> LoRATrainStep:
+                         dtype=torch.bfloat16, backbone: cfm.BackboneDef = cfm.DIT,
+                         mesh=None) -> LoRATrainStep:
     """step(lora, opt_state, mel, text, lens, generator= | draws=) ->
-    (lora, opt_state, metrics); only the adapters are optimized."""
-    return LoRATrainStep(base_params, statics, tx, cfg, cfm_cfg, dtype, backbone)
+    (lora, opt_state, metrics); only the adapters are optimized. Over a
+    `mesh`: base_params this rank's shards (`parallel.mesh.shard_params`),
+    statics made with `tp=mesh.tp`, lora / opt_state from
+    `shard_lora_state`."""
+    return LoRATrainStep(base_params, statics, tx, cfg, cfm_cfg, dtype, backbone, mesh)
 
 
 def count_lora_params(lora: dict) -> int:

@@ -30,6 +30,18 @@ projections (the head layout: RoPE on the flat q / k, then K7's lse mode
 and K9), as the JAX make_train_step(fuse_qkv=False). The loss runs through
 any backbone of `cfm.BACKBONES` (`backbone=`, as the JAX make_train_step's
 `backbone`): the DiT, the UNetT or the MMDiT.
+
+Over a mesh (`parallel.mesh`, `make_train_step(mesh=)`), each rank takes its
+rows of the global batch and of the global batch's draws (`grad_step`
+draws B x data rows from the generator and keeps its own, so any data size
+computes what one rank does on the whole batch); the loss divides by the
+global span count (`cfm_loss(dp_group=)`). Gradients stay local through
+micro-batches and are reduced once an update, in `apply_step`, by the
+state's `ShardInfo` (`parallel.mesh.shard_train_state`): all-reduced over
+"data", or reduce-scattered under ZeRO-1, where AdamW and the EMA run on
+this rank's flat shard and the parameters are all-gathered after. The
+global gradient norm sums TP-sharded leaves over "model" and counts
+replicated leaves once.
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ import torch
 from f5tts_tpu_torch.config import CFMConfig
 from f5tts_tpu_torch.models import cfm
 from f5tts_tpu_torch.models import modules as m
+from f5tts_tpu_torch.parallel.collectives import all_reduce_sum
 
 
 @dataclasses.dataclass
@@ -53,6 +66,9 @@ class TrainState:
     count: int       # AdamW / schedule update count (optax's `count`)
     ema: dict        # EMA of params
     step: int        # update counter (JAX TrainState.step)
+    # over a mesh, how the state lies (`parallel.mesh.ShardInfo`); under
+    # ZeRO-1 mu / nu / ema are this rank's 1-D flat shards
+    shard: Optional[object] = None
 
 
 class OptHParams(NamedTuple):
@@ -109,6 +125,16 @@ def init_train_state(params: dict, device=None, moment_dtype=None, ema_dtype=Non
                       ema=m.tree_map(lambda a: a.to(edt, copy=True), p), step=0)
 
 
+def mesh_draws(generator: torch.Generator, mel, mesh, cfg: CFMConfig) -> cfm.CFMDraws:
+    """This rank's rows of the draws of the global batch (its rows x the
+    data size), as one rank drawing the whole batch gets them."""
+    from f5tts_tpu_torch.parallel.mesh import batch_sharding
+
+    b, n, d = mel.shape
+    full = cfm.make_draws(generator, b * mesh.data, n, d, cfg)
+    return cfm.CFMDraws(*(t[batch_sharding(mesh, b * mesh.data)] for t in full))
+
+
 def _groups(leaves: list, limit: Optional[int] = 1 << 25):
     """(start, end) of consecutive runs of `leaves` holding at most `limit`
     elements (one leaf at least; all of them when `limit` is None): a
@@ -130,8 +156,9 @@ class TrainStep:
     def __init__(self, statics, hp: OptHParams, cfg: CFMConfig = CFMConfig(),
                  ema_decay: float = 0.999, ema_update_every: int = 10,
                  ema_update_after_step: int = 100, dtype=torch.bfloat16,
-                 backbone: cfm.BackboneDef = cfm.DIT, fuse_qkv: bool = True):
+                 backbone: cfm.BackboneDef = cfm.DIT, fuse_qkv: bool = True, mesh=None):
         self.statics = statics
+        self.mesh = mesh
         self.hp = hp
         self.cfg = cfg
         self.ema = (ema_decay, ema_update_every, ema_update_after_step)
@@ -143,12 +170,17 @@ class TrainStep:
         if self.fuse_qkv:
             params = m.fuse_backbone_qkv(params, dtype=self.dtype)
         loss, _ = cfm.cfm_loss(params, self.statics, mel, text, lens, self.cfg, self.dtype,
-                               generator=generator, draws=draws, backbone=self.backbone)
+                               generator=generator, draws=draws, backbone=self.backbone,
+                               dp_group=None if self.mesh is None else self.mesh.data_group)
         return loss
 
     def grad_step(self, params, mel, text, lens, *, generator: Optional[torch.Generator] = None,
                   draws: Optional[cfm.CFMDraws] = None) -> tuple[torch.Tensor, dict]:
-        """(loss, grads) of one micro-batch; grads is a tree like params."""
+        """(loss, grads) of one micro-batch; grads is a tree like params.
+        Over a mesh: this rank's rows, its share of the loss and its local
+        gradients (`draws`, when given, are this rank's rows)."""
+        if self.mesh is not None and draws is None and generator is not None:
+            draws = mesh_draws(generator, mel, self.mesh, self.cfg)
         with torch.enable_grad():
             leaves = [p.detach().requires_grad_() for p in m.tree_leaves(params)]
             loss = self.loss_fn(m.tree_unflatten(params, leaves), mel, text, lens, generator, draws)
@@ -156,11 +188,20 @@ class TrainStep:
         return loss.detach(), m.tree_unflatten(params, grads)
 
     def apply_step(self, state: TrainState, loss, grads: dict) -> tuple[TrainState, dict]:
-        """Clip + AdamW + EMA on `state` in place (`grads` are consumed)."""
+        """Clip + AdamW + EMA on `state` in place (`grads` are consumed).
+        Over a mesh the loss and gradients are this rank's (`grad_step`),
+        reduced here."""
         hp = self.hp
-        p, mu, nu, ema = (m.tree_leaves(t) for t in (state.params, state.mu, state.nu, state.ema))
-        g = [x.float() for x in m.tree_leaves(grads)]
-        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        if state.shard is None:
+            p, mu, nu, ema = (m.tree_leaves(t) for t in (state.params, state.mu, state.nu,
+                                                         state.ema))
+            g = [x.float() for x in m.tree_leaves(grads)]
+            gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        else:
+            loss = all_reduce_sum(loss, state.shard.mesh.data_group)
+            p, g, mu, nu, ema, gnorm = state.shard.reduce(grads, state.params, state.mu, state.nu,
+                                                          state.ema)
+        del grads
         gscale = torch.where(gnorm < hp.max_grad_norm, torch.ones_like(gnorm),
                              hp.max_grad_norm / gnorm)
         count_inc = state.count + 1
@@ -185,6 +226,8 @@ class TrainStep:
                 back = [(t, w) for t, w in zip(ts, ws) if w is not t]
                 if back:
                     torch._foreach_copy_([t for t, _ in back], [w for _, w in back])
+        if state.shard is not None:
+            state.shard.finish()
         state.count, state.step = count_inc, step
         return state, {"loss": loss, "grad_norm": gnorm}
 
@@ -220,6 +263,9 @@ class TrainStep:
 def make_train_step(statics, hp: OptHParams, cfg: CFMConfig = CFMConfig(),
                     ema_decay: float = 0.999, ema_update_every: int = 10,
                     ema_update_after_step: int = 100, dtype=torch.bfloat16,
-                    backbone: cfm.BackboneDef = cfm.DIT, fuse_qkv: bool = True) -> TrainStep:
+                    backbone: cfm.BackboneDef = cfm.DIT, fuse_qkv: bool = True,
+                    mesh=None) -> TrainStep:
+    """`mesh` (`parallel.mesh.Mesh`): data / tensor parallel; pass statics
+    made with `tp=mesh.tp` and a state from `shard_train_state`."""
     return TrainStep(statics, hp, cfg, ema_decay, ema_update_every, ema_update_after_step, dtype,
-                     backbone, fuse_qkv)
+                     backbone, fuse_qkv, mesh)

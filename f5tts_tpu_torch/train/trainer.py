@@ -39,8 +39,19 @@ f5tts_tpu/train/trainer.py:40-384).
   Known difference: JAX samples in f32 through its XLA path; the port's
   kernels take bf16 only, so on the card the sample runs in the trainer's
   dtype (bf16, through K3 / K1 / K2), on the CPU in f32 (plain versions).
-Not ported yet: multi-device and multi-host data parallelism and ZeRO-1
-(`mesh` / `zero1` raise; ROADMAP.md queue 1 item 16).
+- Multi-GPU (`mesh=parallel.mesh.make_mesh(data, model)`, as the JAX
+  trainer's `mesh` / `zero1`): the state is sharded
+  (`parallel.mesh.shard_train_state`: TP slices over "model", with `zero1`
+  mu / nu / EMA flat shards over "data"); warm-up is
+  `num_warmup_updates` x data and the frame budget
+  `batch_size_per_device` x data (per device, as the reference's); a
+  batch's rows are cut to a multiple of data; at data > 1 each rank loads
+  only its rows, padded to the width the sampler's estimates agree on
+  (`train.multihost`), tokenizes the whole batch and keeps its rows, and
+  draws its rows of the global batch's noise. Only rank 0 logs, writes
+  checkpoints (gathered: the single-device trainer's file, so a run
+  resumes at any mesh) and runs the milestone sample (on the gathered
+  EMA).
 """
 
 from __future__ import annotations
@@ -59,6 +70,7 @@ from f5tts_tpu_torch.models.cfm import DIT, BackboneDef
 from f5tts_tpu_torch.text.pinyin import convert_char_to_pinyin
 from f5tts_tpu_torch.text.vocab import list_str_to_idx, list_str_to_tensor
 from f5tts_tpu_torch.train.checkpoint import CheckpointManager
+from f5tts_tpu_torch.train import multihost
 from f5tts_tpu_torch.train.dataset import DynamicBatchSampler, collate
 from f5tts_tpu_torch.train.step import init_train_state, make_optimizer, make_train_step
 from f5tts_tpu_torch.utils import duration_bucket, make_time_grid, resolve_device
@@ -90,38 +102,50 @@ class Trainer:
         """`statics`: the backbone's statics (`backbone.statics_cls`); only
         its `.arch` is read. `logger` overrides `train_cfg.logger`.
         `sample_fn(ema_params, update)` runs at each milestone; `vocoder`
-        (mel [b, d, t] -> wav) enables `train_cfg.log_samples`."""
+        (mel [b, d, t] -> wav) enables `train_cfg.log_samples`. `mesh` (a
+        `parallel.mesh.Mesh`) trains data / tensor parallel, `zero1` shards
+        the moments and EMA over its data axis; `params` are the whole
+        tree on every rank."""
         if tokenizer not in ("pinyin", "char", "custom", "byte"):
             raise ValueError(f"unknown tokenizer {tokenizer!r} (pinyin | char | custom | byte)")
         if tokenizer != "byte" and vocab_char_map is None:
             raise ValueError(f"the {tokenizer} tokenizer needs a vocab_char_map")
-        if mesh is not None or zero1:
-            raise NotImplementedError("multi-device training (mesh, zero1) is not ported "
-                                      "(ROADMAP.md queue 1 item 16)")
+        if zero1 and mesh is None:
+            raise ValueError("zero1 shards the state over a mesh's data axis: pass mesh")
         self.cfg = train_cfg
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
         self.vocab_char_map = vocab_char_map
         self.backbone = backbone
-        self.statics = backbone.statics_cls(statics.arch, self.device)
+        self.mesh, self.zero1 = mesh, zero1
+        self.dp = 1 if mesh is None else mesh.data
+        self.rank0 = mesh is None or mesh.rank == 0
+        tp = None if mesh is None else mesh.tp
+        self.statics = backbone.statics_cls(statics.arch, self.device, tp=tp)
+        # the milestone sample runs the whole (gathered) EMA on rank 0
+        self._sample_statics = (self.statics if tp is None
+                                else backbone.statics_cls(statics.arch, self.device))
         self.dtype = dtype
         self.sample_fn = sample_fn
         self.vocoder = vocoder
         self._last_sample = None  # (mel [t, d], text) of the latest batch's first row
-        warmup = train_cfg.num_warmup_updates
+        warmup = train_cfg.num_warmup_updates * self.dp
         self.hp = make_optimizer(train_cfg.learning_rate, warmup, total_updates or warmup * 10,
                                  train_cfg.max_grad_norm)
         sdt = torch.bfloat16 if bf16_state else None
-        self.state = init_train_state(params, self.device, moment_dtype=sdt, ema_dtype=sdt)
+        self.state = self._shard(init_train_state(params, self.device, moment_dtype=sdt,
+                                                  ema_dtype=sdt))
         self.step_fn = make_train_step(
             self.statics, self.hp, cfm_cfg, ema_decay=train_cfg.ema_decay,
             ema_update_every=train_cfg.ema_update_every,
             ema_update_after_step=train_cfg.ema_update_after_step, dtype=dtype,
-            backbone=backbone)
+            backbone=backbone, mesh=mesh)
         self.accum = max(train_cfg.grad_accumulation_steps, 1)
         self.ckpt = CheckpointManager(train_cfg.save_dir, train_cfg.keep_last_n_checkpoints)
         self.writer = None
         logger = logger if logger is not None else train_cfg.logger
+        if not self.rank0:  # one writer, as the reference's main process
+            logger = None
         if logger == "tensorboard":
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -138,6 +162,19 @@ class Trainer:
             except Exception:
                 self.writer = None
 
+    def _shard(self, state):
+        if self.mesh is None:
+            return state
+        from f5tts_tpu_torch.parallel.mesh import shard_train_state
+
+        return shard_train_state(state, self.mesh, self.zero1)
+
+    def ema_params(self) -> dict:
+        """The whole EMA tree (gathered over the mesh; every rank must call)."""
+        from f5tts_tpu_torch.parallel.mesh import gather_ema
+
+        return gather_ema(self.state)
+
     def _log(self, metrics: dict, step: int) -> None:
         if self.writer == "wandb":
             import wandb
@@ -152,13 +189,15 @@ class Trainer:
         return tokenize(texts, self.tokenizer, self.vocab_char_map, pad_to)
 
     @torch.no_grad()
-    def _log_sample(self, update: int) -> Optional[dict]:
+    def _log_sample(self, update: int, ema: Optional[dict] = None) -> Optional[dict]:
         """Clone the first row of the latest batch with the EMA weights
-        (reference trainer.py:408-438) and write the generated and the
-        reference wav under save_dir/samples. Returns the sampled mel [1,
-        n, d] and the two paths, or None without a vocoder or a batch."""
+        (`ema`, the whole tree; the state's by default) (reference
+        trainer.py:408-438) and write the generated and the reference wav
+        under save_dir/samples. Returns the sampled mel [1, n, d] and the
+        two paths, or None without a vocoder or a batch."""
         if self.vocoder is None or self._last_sample is None:
             return None
+        ema = self.state.ema if ema is None else ema
         from f5tts_tpu_torch.infer import audio_io
 
         mel_ref, text = self._last_sample
@@ -175,9 +214,9 @@ class Trainer:
         # the kernels take bf16 only: the trainer's dtype on the card, f32 on
         # the CPU (the JAX trainer samples in f32)
         dtype = self.dtype if dev.type == "cuda" else torch.float32
-        params = m.fuse_backbone_qkv(m.tree_cast(self.state.ema, dtype), dtype=dtype)
+        params = m.fuse_backbone_qkv(m.tree_cast(ema, dtype), dtype=dtype)
         out = cfm.cfm_sample(
-            params, self.statics, torch.from_numpy(cond).to(dev),
+            params, self._sample_statics, torch.from_numpy(cond).to(dev),
             torch.from_numpy(self.tokenize([doubled])).to(dev),
             torch.tensor([ref_frames], dtype=torch.int32, device=dev),
             torch.tensor([total], dtype=torch.int32, device=dev),
@@ -196,7 +235,7 @@ class Trainer:
         return {"mel": out, "gen_wav": paths[0], "ref_wav": paths[1]}
 
     def maybe_resume(self) -> int:
-        restored = self.ckpt.restore(device=self.device)
+        restored = self.ckpt.restore(device=self.device, mesh=self.mesh, zero1=self.zero1)
         if restored is None:
             return 0
         self.state = restored
@@ -215,7 +254,8 @@ class Trainer:
         start_update = self.maybe_resume()
         seed = resumable_with_seed or 0
         frame_lens = [dataset.get_frame_len(i) for i in range(len(dataset))]
-        sampler = DynamicBatchSampler(frame_lens, frames_threshold=cfg.batch_size_per_device,
+        sampler = DynamicBatchSampler(frame_lens,
+                                      frames_threshold=cfg.batch_size_per_device * self.dp,
                                       max_samples=cfg.max_samples, random_seed=resumable_with_seed)
         updates_per_epoch = max(len(sampler) // self.accum, 1)
         start_epoch = start_update // updates_per_epoch
@@ -230,12 +270,26 @@ class Trainer:
             for bi, batch_idx in enumerate(sampler):
                 if epoch == start_epoch and bi < skip_batches:
                     continue
-                batch = collate([dataset[i] for i in batch_idx])
+                # the rows must split over the data axis
+                batch_idx = list(batch_idx)[:len(batch_idx) // self.dp * self.dp]
+                if not batch_idx:
+                    continue
+                if self.dp > 1:
+                    # every rank walks the same sampler sequence, loads only
+                    # its rows, pads to the width the estimates agree on and
+                    # tokenizes the whole batch (train/multihost.py)
+                    rows = multihost.process_local_rows(self.mesh, len(batch_idx))
+                    width = multihost.global_pad_width([frame_lens[i] for i in batch_idx])
+                    text_np = self.tokenize([dataset.get_text(i) for i in batch_idx])[rows]
+                    batch = collate([dataset[i] for i in batch_idx[rows]], pad_to=width)
+                else:
+                    batch = collate([dataset[i] for i in batch_idx])
+                    text_np = self.tokenize(batch["text"])
                 if cfg.log_samples:
                     t0_len = int(batch["mel_lengths"][0])
                     self._last_sample = (batch["mel"][0, :t0_len].copy(), batch["text"][0])
                 mel = torch.from_numpy(batch["mel"]).to(self.device)
-                text = torch.from_numpy(self.tokenize(batch["text"])).to(self.device)
+                text = torch.from_numpy(np.ascontiguousarray(text_np)).to(self.device)
                 lens = torch.from_numpy(batch["mel_lengths"]).to(self.device)
                 gen = self._generator(seed, update * self.accum + accum_count)
                 loss, grads = self.step_fn.grad_step(self.state.params, mel, text, lens,
@@ -261,14 +315,17 @@ class Trainer:
                     last_metrics = {k: float(v) for k, v in metrics.items()}
                     last_metrics["updates_per_s"] = log_every / max(time.time() - t0, 1e-9)
                     t0 = time.time()
-                    self._log(last_metrics, update)
+                    if self.rank0:
+                        self._log(last_metrics, update)
 
                 if update % cfg.save_per_updates == 0:
                     self.ckpt.save(self.state)
-                    if self.sample_fn is not None:
-                        self.sample_fn(self.state.ema, update)
-                    if cfg.log_samples:
-                        self._log_sample(update)
+                    if self.sample_fn is not None or cfg.log_samples:
+                        ema = self.ema_params()  # every rank takes part in the gather
+                        if self.rank0 and self.sample_fn is not None:
+                            self.sample_fn(ema, update)
+                        if self.rank0 and cfg.log_samples:
+                            self._log_sample(update, ema)
                 elif update % cfg.last_per_updates == 0:
                     self.ckpt.save(self.state, heartbeat=True)
 

@@ -9,6 +9,7 @@ computes it (float64 table, f32 result).
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import numpy as np
@@ -17,15 +18,17 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card unless the caller names
-    one. Without a card and without an explicit device this raises; the port
-    never moves to the CPU on its own."""
+    one; under torchrun (`LOCAL_RANK` set) this process's card,
+    cuda:LOCAL_RANK. Without a card and without an explicit device this
+    raises; the port never moves to the CPU on its own."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the plain "
             "PyTorch versions on the CPU")
-    return torch.device("cuda")
+    local = os.environ.get("LOCAL_RANK")
+    return torch.device("cuda", int(local)) if local is not None else torch.device("cuda")
 
 
 def lens_to_mask(lens: torch.Tensor, length: int) -> torch.Tensor:

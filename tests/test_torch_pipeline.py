@@ -67,7 +67,9 @@ def test_port_imports_no_jax():
             "f5tts_tpu_torch.train.datasets.prepare_emilia, "
             "f5tts_tpu_torch.train.datasets.prepare_emilia_v2, "
             "f5tts_tpu_torch.train.datasets.prepare_wenetspeech4tts, "
-            "f5tts_tpu_torch.scripts.count_max_epoch\n"
+            "f5tts_tpu_torch.scripts.count_max_epoch, f5tts_tpu_torch.parallel.mesh, "
+            "f5tts_tpu_torch.parallel.collectives, f5tts_tpu_torch.train.multihost, "
+            "f5tts_tpu_torch.scripts.multihost_sim, f5tts_tpu_torch.eval.scaling_bench\n"
             "from f5tts_tpu_torch.config import load_model_config, model_config_from_dict\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'f5tts_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)\n")

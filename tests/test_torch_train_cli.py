@@ -163,17 +163,36 @@ def test_train_cli_main_end_to_end_and_matches_jax(data_root, tmp_path, monkeypa
 
 
 def test_cli_flags_for_more_than_one_device_raise(tmp_path):
+    """The mesh flags parse and build the mesh (a one-process group here);
+    a mesh larger than the processes raises; Trainer(mesh, zero1=True)
+    constructs on it, and zero1 without a mesh raises."""
+    import torch.distributed as dist
+
     cfg = _yaml(tmp_path / "tiny.yaml", tmp_path / "ckpt")
-    for extra in (["--zero1"], ["--mesh_data", "2"], ["--mesh_model", "2"]):
-        with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-            train_cli.parse_args(["--config", cfg] + extra)
-    assert train_cli.parse_args(["--config", cfg, "--mesh_data", "1"]).mesh_data == 1
+    args = train_cli.parse_args(["--config", cfg, "--zero1", "--mesh_data", "1", "--mesh_model",
+                                 "1", "--device", "cpu"])
+    assert (args.zero1, args.mesh_data, args.mesh_model) == (True, 1, 1)
+    assert train_cli.setup_mesh(train_cli.parse_args(["--config", cfg]), "cpu") is None
     tp = dit_params_from_jax(np_params(lambda: jdit.init_dit(
         jax.random.PRNGKey(0), jconfig.ModelArch(**SMALL)), 1))
-    for kw in (dict(mesh=object()), dict(zero1=True)):
-        with pytest.raises(NotImplementedError, match="mesh, zero1"):
-            Trainer(tp, tdit.DiTStatics(tconfig.ModelArch(**SMALL)), tconfig.TrainConfig(),
-                    vocab_char_map={" ": 0}, device="cpu", **kw)
+    statics = tdit.DiTStatics(tconfig.ModelArch(**SMALL))
+    with pytest.raises(ValueError, match="pass mesh"):
+        Trainer(tp, statics, tconfig.TrainConfig(), vocab_char_map={" ": 0}, device="cpu",
+                zero1=True)
+    assert not dist.is_initialized()
+    try:
+        mesh = train_cli.setup_mesh(args, "cpu")
+        assert mesh.shape == {"data": 1, "model": 1} and mesh.tp is None
+        assert dist.get_backend() == "gloo" and dist.get_world_size() == 1
+        tr = Trainer(tp, statics, tconfig.TrainConfig(save_dir=str(tmp_path / "z")),
+                     vocab_char_map={" ": 0}, device="cpu", mesh=mesh, zero1=True)
+        total = sum(t.numel() for t in tm.tree_leaves(tp))
+        assert tr.state.shard.zero1 and tr.state.mu.shape == (total,)
+        for extra in (["--mesh_data", "2"], ["--mesh_model", "2"]):
+            with pytest.raises(ValueError, match="processes"):
+                train_cli.setup_mesh(train_cli.parse_args(["--config", cfg] + extra), "cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def test_entry_points_need_the_card_unless_told(data_root, tmp_path, monkeypatch):
