@@ -250,10 +250,32 @@ Phases (any failure raises, and the script exits non-zero):
     (1 + |p|), moved by the one-process update's mean |dp| ~ lr within 2%,
     the update's rel-L2 from the one-process update <= 0.25). gloo's times
     are no measure of NCCL.
+23. Evaluation at F5TTS_v1_Base + Vocos, bf16, pinyin, full width and
+    depth: (a) eight seeded 24 kHz prompts of 2-5 s and a Seed-TTS
+    meta.lst in a temp directory, `get_inference_prompt(infer_batch_size=4)`
+    (one 4-row batch, each row its own prompt and total length in one
+    bucket, and four single rows), `generate_batches` at 32 NFE a batch at
+    a time: K3 / K1 / K2 704 / 1440 / 64 a batch exactly, every wav finite
+    and not silent, walls and RTF, the b = 1 and b = 4 batches again under
+    the profiler (device-busy share of the traced wall); a row of the
+    4-row batch against the same row sampled alone with the same noise
+    (mel rel-L2 <= 3e-2 over its generated frames, max-abs printed);
+    (d) a two-style, three-segment text through `synthesize_multistyle`
+    over the pipeline's `infer` (16 NFE, graphed: 352 / 720 / 32 a chunk,
+    each replay counted with its capture's counts; the output as long as
+    its segments together); (b) the port's WavLM-large + ECAPA-TDNN in f32
+    with numpy-seeded weights: a 3 s clip's embedding on the card against
+    the CPU (rel-L2 <= 1e-3), ms an embedding at 3 and 10 s and the peak,
+    the weights written as a UniSpeech checkpoint and scored by `run_sim`
+    on the card over (a)'s wavs against their prompts (the loader's frac
+    1.0; the first score within 1e-4 of the written module's on the CPU);
+    (c) UTMOS22-strong in f32 with numpy-seeded weights: a 5 s clip's MOS
+    on the card against the CPU (|dMOS| <= 1e-3), ms an utterance, then
+    `eval_utmos` over (a)'s wavs from a checkpoint written there.
 
 Prints the `kernels` JSON line (launches: what the card ran on the
 inference and training paths of phases 3, 5, 7, 8, 10, 11, 13, 14, 17, 18,
-19, 20, 21 and 22 (b), each graph replay counted with its capture's counts), the card's name
+19, 20, 21, 22 (b) and 23, each graph replay counted with its capture's counts), the card's name
 and power limit,
 and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the repo's
@@ -4133,6 +4155,384 @@ def phase_multi_gpu(dev, gpu: str, rows: dict) -> tuple[dict, dict]:
     return ran, out
 
 
+# ---------------------------------------------------------------------------
+# phase 23
+# ---------------------------------------------------------------------------
+
+EVAL_NFE = 32                   # eval_infer_batch's default, the evaluation protocol's
+EVAL_BATCH = 4                  # get_inference_prompt's infer_batch_size
+EVAL_REF_TEXT = "Some call me nature, others call me mother nature."
+# (seconds, prompt text, target text), 24 kHz prompts of 2-5 s: rows 0-3
+# fall into one duration bucket of get_inference_prompt (totals 612-627
+# frames: a 4-row batch, each row its own prompt and total length), the
+# others into buckets of their own (b = 1)
+EVAL_PROMPTS = (
+    (3.04, EVAL_REF_TEXT, "Every morning the light returns, and the birds begin again."),
+    (3.06, EVAL_REF_TEXT, "Every evening the light retreats, and the birds fall silent."),
+    (3.08, EVAL_REF_TEXT, "The river keeps its course through the valley to the sea."),
+    (3.10, EVAL_REF_TEXT, "I have been here for billions of years, and I will stay on."),
+    (2.0, "A short prompt.", "The forests grow slowly on either bank of the river."),
+    (2.5, EVAL_REF_TEXT, "Hello there."),
+    (4.2, "我们今天一起去银行，然后在公园里散步。", "天气很好，不是吗？我们明天再来。"),
+    (5.0, EVAL_REF_TEXT, ("I have been here for billions of years, and I will be here long "
+                          "after you are gone.")),
+)
+EVAL_ROW = 1                    # the batch row sampled again alone
+SIM_SECONDS = (3.0, 10.0)       # an embedding's time at 16 kHz
+SIM_REL_TOL = 1e-3              # card against the CPU, f32 (BigVGAN's gate, phase 18)
+SIM_RUN_TOL = 1e-4              # run_sim's score against the module it was written from
+UTMOS_SECONDS = 5.0
+UTMOS_ABS_TOL = 1e-3            # |MOS card - MOS CPU|, f32
+MULTISTYLE_TEXT = ("{Regular} The river keeps its course through the valley. {Whisper} and "
+                   "the forests grow slowly on either bank. {Regular} Every morning the light "
+                   "returns.")
+MULTISTYLE_NFE = 16
+
+
+def eval_prompt_set(root: Path) -> str:
+    """EVAL_PROMPTS' wavs and a Seed-TTS meta.lst ("utt|prompt text|prompt
+    wav|target text") under `root`; returns the list's path."""
+    from f5tts_tpu_torch.infer import audio_io
+
+    lines = []
+    for i, (secs, prompt, target) in enumerate(EVAL_PROMPTS):
+        audio_io.write_wav(str(root / f"prompt{i}.wav"),
+                           voiced_clip(int(secs * 24000), 24000, 230 + i), 24000)
+        lines.append(f"utt{i}|{prompt}|prompt{i}.wav|{target}")
+    (root / "meta.lst").write_text("\n".join(lines) + "\n", encoding="utf-8")
+    return str(root / "meta.lst")
+
+
+def eval_sample_rows(pipe, vocab: dict, batch: dict, rows) -> tuple:
+    """`rows` of `batch` through generate_batches' sampler call
+    (`sample_batch`: the rows' bucket, cond, ids and the seed-0 noise):
+    (mel [len(rows), n, d], n)."""
+    from f5tts_tpu_torch.eval.eval_infer_batch import sample_batch
+
+    idx = list(rows)
+    sub = {k: [v[i] for i in idx] if isinstance(v, list) else v[idx] for k, v in batch.items()}
+    return sample_batch(pipe.params, pipe.statics, vocab, sub, EVAL_NFE, dtype=pipe.dtype,
+                        bucket_size=pipe.bucket_size, max_duration=pipe.sampling.max_duration,
+                        backbone=pipe.bdef, device=pipe.device)
+
+
+def phase23_generation(pipe, vocab: dict, meta: str, out_dir: str, gpu: str) -> tuple:
+    """(a) get_inference_prompt(infer_batch_size=4) and generate_batches at
+    32 NFE, a batch at a time, every count set to 0 just before a batch and
+    read just after: K3 / K1 / K2 704 / 1440 / 64 a batch; each wav finite
+    and not silent; walls and RTF a batch; the b = 4 batch and a b = 1
+    batch again under the profiler (device-busy share of the traced wall);
+    row EVAL_ROW of the 4-row batch against the same row sampled alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from f5tts_tpu_torch.eval.eval_infer_batch import generate_batches
+    from f5tts_tpu_torch.eval.utils_eval import (get_inference_prompt,
+                                                 get_seedtts_testset_metainfo)
+    from f5tts_tpu_torch.infer import audio_io
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.scripts.common import device_time_by_class
+
+    t0 = time.perf_counter()
+    batches = get_inference_prompt(get_seedtts_testset_metainfo(meta),
+                                   infer_batch_size=EVAL_BATCH)
+    prep_s = time.perf_counter() - t0
+    sizes = sorted(len(b["utts"]) for b in batches)
+    if sizes != [1] * (len(EVAL_PROMPTS) - EVAL_BATCH) + [EVAL_BATCH]:
+        raise AssertionError(f"EVAL_PROMPTS gave batches of {sizes}, expected one of "
+                             f"{EVAL_BATCH} and singles")
+    expect = {k: v * EVAL_NFE // NFE for k, v in generate_launches("DiT", pipe.statics.arch).items()}
+
+    def run(batch):
+        return generate_batches(pipe.params, pipe.statics, pipe.vocoder, vocab, [batch], out_dir,
+                                nfe_step=EVAL_NFE, seed=0, dtype=pipe.dtype,
+                                bucket_size=pipe.bucket_size,
+                                max_duration=pipe.sampling.max_duration, backbone=pipe.bdef,
+                                device=pipe.device)
+
+    ran, rows = {}, []
+    for batch in batches:
+        torch.cuda.synchronize()
+        _build.reset_launches()  # every count to 0 just before the batch
+        t1 = time.perf_counter()
+        stats = run(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        got = _build.launches()
+        if got != expect:
+            raise AssertionError(f"generate_batches b={len(batch['utts'])}: launches {got}, "
+                                 f"expected {expect} ({EVAL_NFE} NFE)")
+        for name, c in got.items():
+            ran[name] = ran.get(name, 0) + c
+        for utt in batch["utts"]:
+            wav, sr = audio_io.read_wav(str(Path(out_dir) / f"{utt}.wav"))
+            rms = float(np.sqrt(np.mean(np.square(wav)))) if wav.size else 0.0
+            if not (sr == 24000 and wav.size and np.isfinite(wav).all() and rms > 1e-4):
+                raise AssertionError(f"{utt}.wav is empty, non-finite or silent")
+        row = {"b": len(batch["utts"]), "totals": batch["total_mel_lens"].tolist(),
+               "wall_s": wall, "audio_s": stats["audio_seconds"],
+               "rtf": wall / stats["audio_seconds"]}
+        rows.append(row)
+        log(f"  generate_batches b={row['b']}, totals {row['totals']}: wall {wall:.4f} s, "
+            f"{row['audio_s']:.3f} s of audio, RTF {row['rtf']:.5f}, launches {got} [{gpu}]")
+
+    four = next(b for b in batches if len(b["utts"]) == EVAL_BATCH)
+    one = next(b for b in batches if len(b["utts"]) == 1)
+    traced = {}
+    for batch in (one, four):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            run(batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        busy = device_time_by_class(prof, ())["device_busy_ms"]
+        traced[f"b{len(batch['utts'])}"] = {"traced_wall_s": wall, "device_busy_ms": busy,
+                                            "busy_share": busy / (wall * 1e3)}
+        log(f"  traced b={len(batch['utts'])}: wall {wall:.4f} s, device busy {busy:.1f} ms, "
+            f"share {busy / (wall * 1e3):.3f} [{gpu}]")
+
+    mel4, n4 = eval_sample_rows(pipe, vocab, four, range(EVAL_BATCH))
+    mel1, n1 = eval_sample_rows(pipe, vocab, four, [EVAL_ROW])
+    if n1 != n4:
+        raise AssertionError(f"row {EVAL_ROW} alone lands in bucket {n1}, the batch in {n4}")
+    ref, tot = int(four["ref_mel_lens"][EVAL_ROW]), int(four["total_mel_lens"][EVAL_ROW])
+    a, b = mel4[EVAL_ROW, ref:tot].float(), mel1[0, ref:tot].float()
+    rel = float((a - b).norm() / b.norm().clamp_min(1e-12))
+    max_abs = float((a - b).abs().max())
+    log(f"  row {EVAL_ROW} of the 4-row batch against it alone (n {n4}, frames {ref}:{tot}): mel "
+        f"rel-L2 {rel:.3e}, max-abs {max_abs:.3e}{' (bit-equal)' if max_abs == 0 else ''} "
+        f"(rel-L2 tol {CARD_GATE}) [{gpu}]")
+    if not rel <= CARD_GATE:
+        raise AssertionError(f"batch row {EVAL_ROW} against it alone: mel rel-L2 {rel}")
+    return ran, {"prompt_prep_s": prep_s, "batches": rows, "traced": traced,
+                 "row_alone": {"rel_l2": rel, "max_abs": max_abs, "n": n4}}
+
+
+def phase23_sim(dev, pairs: list, tmp: Path, gpu: str) -> dict:
+    """(b) WavLM-large + ECAPA-TDNN, f32, numpy-seeded weights: a 3 s clip's
+    embedding on the card against the same weights on the CPU (rel-L2 <=
+    SIM_REL_TOL); ms an embedding at 3 and 10 s and the peak; the weights
+    written as a UniSpeech checkpoint and scored by run_sim on the card
+    over (a)'s wavs against their prompts (the loader's frac 1.0)."""
+    import copy
+    import torch
+    from f5tts_tpu_torch.eval import ecapa_tdnn
+    from f5tts_tpu_torch.eval.utils_eval import run_sim
+    from f5tts_tpu_torch.scripts.common import seeded_state_dict
+
+    t0 = time.perf_counter()
+    cpu_model = ecapa_tdnn.ECAPA_TDNN_SMALL()
+    cpu_model.load_state_dict(seeded_state_dict(cpu_model, 23))
+    cpu_model.eval()
+    card = copy.deepcopy(cpu_model).to(dev)
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in cpu_model.parameters())
+    clip = torch.from_numpy(voiced_clip(int(SIM_SECONDS[0] * 16000), 16000, 231))[None]
+    with torch.no_grad():
+        want = cpu_model(clip)
+        got = card(clip.to(dev)).cpu()
+    rel = float((got - want).norm() / want.norm())
+    log(f"  SIM model: {n_params / 1e6:.1f} M f32 parameters, built and drawn in {build_s:.1f} s; "
+        f"{SIM_SECONDS[0]:.0f} s clip card vs cpu embedding rel-L2 {rel:.3e} (tol {SIM_REL_TOL}) "
+        f"[{gpu}]")
+    if not rel <= SIM_REL_TOL:
+        raise AssertionError(f"SIM embedding card vs cpu rel-L2 {rel}")
+    ms = {}
+    for secs in SIM_SECONDS:
+        wav = torch.from_numpy(voiced_clip(int(secs * 16000), 16000, 232)).to(dev)[None]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            ms[f"{secs:.0f}s"] = wall_ms(lambda: card(wav), iters=5)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  SIM embedding at {secs:.0f} s ({wav.shape[1]} samples): {ms[f'{secs:.0f}s']:.2f} "
+            f"ms, peak {peak:.2f} GB allocated [{gpu}]")
+    del card
+    torch.cuda.empty_cache()
+
+    ckpt = tmp / "wavlm_large_finetune.pth"
+    torch.save({"model": ecapa_tdnn.to_reference_state_dict(cpu_model)}, ckpt)
+    loads = []
+    real_load = ecapa_tdnn.load_reference_checkpoint
+
+    def spy(model, path, **kw):
+        loads.append(real_load(model, path, **kw))
+        return loads[-1]
+
+    ecapa_tdnn.load_reference_checkpoint = spy
+    try:
+        t0 = time.perf_counter()
+        results = run_sim(pairs, str(ckpt), device=dev)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        ecapa_tdnn.load_reference_checkpoint = real_load
+    stats = loads[0]
+    sims = [r["sim"] for r in results]
+    log(f"  run_sim on the card: checkpoint {ckpt.stat().st_size / 1e9:.2f} GB, loader consumed "
+        f"{stats['consumed']}/{stats['total']} (frac {stats['frac']}), {len(sims)} pairs in "
+        f"{run_s:.1f} s, sims {[round(s, 4) for s in sims]} [{gpu}]")
+    if stats["frac"] != 1.0 or len(sims) != len(pairs) or not np.isfinite(sims).all():
+        raise AssertionError(f"run_sim: frac {stats['frac']}, sims {sims}")
+    # the first pair scored by the module the checkpoint was written from
+    from f5tts_tpu_torch.infer import audio_io
+
+    with torch.no_grad():
+        embs = []
+        for p in pairs[0]:
+            wav, sr = audio_io.read_wav(p)
+            e = cpu_model(torch.from_numpy(audio_io.resample(wav, sr, 16000))[None])
+            embs.append(torch.nn.functional.normalize(e, dim=-1))
+    direct = float((embs[0] * embs[1]).sum())
+    if not abs(direct - sims[0]) <= SIM_RUN_TOL:
+        raise AssertionError(f"run_sim {sims[0]} against the written module's {direct} (cpu)")
+    ckpt.unlink()
+    return {"params_m": n_params / 1e6, "card_vs_cpu_rel_l2": rel, "embedding_ms": ms,
+            "peak_gb": peak, "frac": stats["frac"], "sims": sims, "run_sim_s": run_s,
+            "cpu_sim_gap": abs(direct - sims[0])}
+
+
+def phase23_utmos(dev, out_dir: str, tmp: Path, gpu: str) -> dict:
+    """(c) UTMOS22-strong, f32, numpy-seeded weights: one clip's MOS on the
+    card against the CPU (|dMOS| <= UTMOS_ABS_TOL), ms a 5 s utterance, then
+    eval_utmos over (a)'s wavs from a checkpoint written here."""
+    import copy
+    import torch
+    from f5tts_tpu_torch.eval.eval_utmos import eval_utmos
+    from f5tts_tpu_torch.eval.utmos22 import UTMOS22Strong
+    from f5tts_tpu_torch.scripts.common import seeded_state_dict
+
+    cpu_model = UTMOS22Strong().eval()
+    cpu_model.load_state_dict(seeded_state_dict(cpu_model, 24))
+    card = copy.deepcopy(cpu_model).to(dev)
+    wave = torch.from_numpy(voiced_clip(int(UTMOS_SECONDS * 16000), 16000, 233))[None]
+    want = float(cpu_model(wave, 16000)[0])
+    got = float(card(wave.to(dev), 16000)[0])
+    wave_d = wave.to(dev)
+    ms = wall_ms(lambda: card(wave_d, 16000), iters=5)
+    log(f"  UTMOS {UTMOS_SECONDS:.0f} s clip: MOS card {got:.6f}, cpu {want:.6f}, |d| "
+        f"{abs(got - want):.2e} (tol {UTMOS_ABS_TOL}); {ms:.2f} ms an utterance [{gpu}]")
+    if not abs(got - want) <= UTMOS_ABS_TOL:
+        raise AssertionError(f"UTMOS card {got} vs cpu {want}")
+    ckpt = tmp / "utmos22_strong.pt"
+    torch.save(cpu_model.state_dict(), ckpt)
+    del card
+    t0 = time.perf_counter()
+    res = eval_utmos(out_dir, device=dev, ckpt=str(ckpt))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    lines = (Path(out_dir) / "_utmos_results.jsonl").read_text().strip().splitlines()
+    log(f"  eval_utmos over {res['n']} wavs on the card in {secs:.1f} s: mean "
+        f"{res['utmos_mean']:.4f} [{gpu}]")
+    if res["n"] != len(EVAL_PROMPTS) or len(lines) != res["n"] + 1 or not math.isfinite(
+            res["utmos_mean"]):
+        raise AssertionError(f"eval_utmos: {res}, {len(lines)} lines")
+    ckpt.unlink()
+    return {"card_vs_cpu_abs": abs(got - want), "ms_5s": ms, "eval_utmos": res,
+            "eval_utmos_s": secs}
+
+
+def phase23_multistyle(pipe, prompt_dir: Path, gpu: str) -> tuple[dict, dict]:
+    """(d) A two-style, three-segment text through synthesize_multistyle with
+    the pipeline's infer (graphed, 16 NFE): the counts set to 0 just before
+    and read just after, each graph replay counted with its capture's counts
+    (352 / 720 / 32 a chunk) and each new capture's eager warm-up on the
+    host counter; the output as long as its segments together."""
+    import torch
+    from f5tts_tpu_torch.infer import audio_io
+    from f5tts_tpu_torch.infer.multistyle import collect_speech_types, synthesize_multistyle
+    from f5tts_tpu_torch.ops import _build
+
+    expect = generate_launches("DiT", pipe.statics.arch)
+    pieces = []
+
+    def infer_fn(audio, ref_text, text, seed, speed):
+        wav, sr = audio_io.read_wav(audio)
+        wave, out_sr, _ = pipe.infer(wav, sr, ref_text, text, seed=seed, speed=speed,
+                                     nfe_step=MULTISTYLE_NFE)
+        pieces.append(len(wave))
+        return out_sr, wave, ref_text, seed
+
+    types = collect_speech_types(["Regular", "Whisper"],
+                                 [str(prompt_dir / "prompt0.wav"), str(prompt_dir / "prompt5.wav")],
+                                 [EVAL_PROMPTS[0][1], EVAL_PROMPTS[5][1]])
+    before = {key: entry.replays for key, entry in pipe.graphs.items()}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = synthesize_multistyle(MULTISTYLE_TEXT, types, infer_fn, rng=np.random.default_rng(23))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    host = _build.launches()
+    new = [key for key in pipe.graphs if key not in before]
+    chunks = sum(e.replays - before.get(k, 0) for k, e in pipe.graphs.items())
+    ran = ran_launches(pipe, host, before)
+    for key in new:
+        if pipe.graphs[key].counts != expect:
+            raise AssertionError(f"multistyle: the capture of {key} recorded "
+                                 f"{pipe.graphs[key].counts}, expected {expect}")
+    want_ran = {k: v * (chunks + len(new)) for k, v in expect.items()}
+    log(f"  multistyle: {len(pieces)} segments, {chunks} chunks ({len(new)} new captures), "
+        f"{len(res.wave) / res.sample_rate:.3f} s of audio in {wall:.3f} s, launches {ran} "
+        f"(host {host}), warnings {res.warnings} [{gpu}]")
+    if ran != want_ran or host != {k: v * len(new) for k, v in expect.items()}:
+        raise AssertionError(f"multistyle launches {ran} (host {host}), expected {want_ran}")
+    if not (len(pieces) == 3 and chunks >= 3 and not res.warnings
+            and len(res.wave) == sum(pieces) and np.isfinite(res.wave).all()):
+        raise AssertionError(f"multistyle: {len(pieces)} segments, {len(res.wave)} samples "
+                             f"against {sum(pieces)}, warnings {res.warnings}")
+    return ran, {"segments": len(pieces), "chunks": chunks, "wall_s": wall,
+                 "audio_s": len(res.wave) / res.sample_rate}
+
+
+def phase_evaluation(dev, gpu: str) -> tuple[dict, dict]:
+    """Phase 23: test-set generation at F5TTS_v1_Base (bf16, pinyin, Vocos),
+    SIM (WavLM-large + ECAPA-TDNN) and UTMOS22 at full size, multistyle."""
+    import tempfile
+    import torch
+    from f5tts_tpu_torch.scripts.common import base_models
+    from f5tts_tpu_torch.text.vocab import EMILIA_VOCAB, load_vocab
+
+    t_phase = time.perf_counter()
+    vocab = load_vocab(EMILIA_VOCAB)
+    arch, params, vocos_params = base_models()
+    pipe = make_pipeline(dev, "DiT", arch, params, vocos_params, vocab_char_map=vocab,
+                         tokenizer="pinyin")
+    del params
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        (tmp / "prompts").mkdir()
+        meta = eval_prompt_set(tmp / "prompts")
+        out_dir = str(tmp / "gen")
+        log("  (a) get_inference_prompt + generate_batches, 32 NFE:")
+        t0 = time.perf_counter()
+        ran, out["generation"] = phase23_generation(pipe, vocab, meta, out_dir, gpu)
+        out["generation"]["seconds"] = time.perf_counter() - t0
+        log("  (d) multistyle through the pipeline's infer:")
+        t0 = time.perf_counter()
+        more, out["multistyle"] = phase23_multistyle(pipe, tmp / "prompts", gpu)
+        out["multistyle"]["seconds"] = time.perf_counter() - t0
+        for name, c in more.items():
+            ran[name] = ran.get(name, 0) + c
+        del pipe
+        torch.cuda.empty_cache()
+        pairs = [(str(tmp / "gen" / f"utt{i}.wav"), str(tmp / "prompts" / f"prompt{i}.wav"))
+                 for i in range(len(EVAL_PROMPTS))]
+        log("  (b) SIM: WavLM-large + ECAPA-TDNN, f32:")
+        t0 = time.perf_counter()
+        out["sim"] = phase23_sim(dev, pairs, tmp, gpu)
+        out["sim"]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        log("  (c) UTMOS22-strong, f32:")
+        t0 = time.perf_counter()
+        out["utmos"] = phase23_utmos(dev, out_dir, tmp, gpu)
+        out["utmos"]["seconds"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 23: {out['phase_s']:.1f} s")
+    return ran, out
+
+
 def main() -> int:
     import torch
 
@@ -4319,6 +4719,14 @@ def main() -> int:
     for name, count in ran.items():
         launches[name] = launches.get(name, 0) + count
     log(f"  phase 22 ({multi_rows['seconds']:.1f} s): {json.dumps(multi_rows)}")
+    torch.cuda.empty_cache()
+
+    log("phase 23: evaluation at F5TTS_v1_Base: test-set generation (get_inference_prompt, "
+        "generate_batches at 32 NFE), SIM and UTMOS22 at full size, multistyle")
+    ran, eval_rows = phase_evaluation(dev, gpu)
+    for name, count in ran.items():
+        launches[name] = launches.get(name, 0) + count
+    log(f"  phase 23: {json.dumps(eval_rows)}")
     torch.cuda.empty_cache()
 
     idle = [name for name in rows if not launches.get(name)]

@@ -13,7 +13,8 @@ Nothing is downloaded: without `ckpt_file` the constructor raises and names
 the reference's repository and file for the model. The vocoder is the one
 of the config's mel type (Vocos or BigVGAN), from `vocoder_ckpt` or with
 random weights. Everything runs on the card unless `device` names another.
-`export_spectrogram` waits for the port of `viz.py`.
+`export_spectrogram` (and `infer(file_spec=)`) writes the mel as a PNG
+through `viz.py` (matplotlib, imported when called).
 """
 
 from __future__ import annotations
@@ -76,15 +77,21 @@ class F5TTS:
               file_wave: Optional[str] = None, file_spec: Optional[str] = None,
               seed: Optional[int] = None, **kw):
         """(wave, sample rate, mel [d, t]) of `InferencePipeline.infer` on
-        the reference file; keywords as there. Writes `file_wave` if given."""
-        if file_spec:
-            raise NotImplementedError("export_spectrogram waits for the port of viz.py")
+        the reference file; keywords as there. Writes `file_wave` and the
+        mel's PNG `file_spec` if given."""
         seed = seed if seed is not None else (self.seed if self.seed is not None else 0)
         wav, sr = audio_io.read_wav(ref_file)
         wave, out_sr, mel = self.pipeline.infer(wav, sr, ref_text, gen_text, seed=seed, **kw)
         if file_wave:
             self.export_wav(wave, file_wave)
+        if file_spec:
+            self.export_spectrogram(mel, file_spec)
         return wave, out_sr, mel
 
     def export_wav(self, wav: np.ndarray, file_wave: str) -> None:
         audio_io.write_wav(file_wave, wav, self.mel_cfg.target_sample_rate)
+
+    def export_spectrogram(self, mel: np.ndarray, file_spec: str) -> None:
+        from f5tts_tpu_torch.infer.viz import save_spectrogram
+
+        save_spectrogram(mel, file_spec)

@@ -19,8 +19,8 @@ The one-call inference API (the reference's `infer_process`,
 `remove_silence_for_generated_wav`) runs through `LoadedModel.pipeline`;
 `preprocess_ref_audio_text` clips, trims and caches a reference and fixes
 its text's final punctuation. Audio rides as (float32 array, sample rate).
-Transcribing a reference (an empty `ref_text`) needs ASR weights the
-repository does not hold: it raises.
+An empty `ref_text` is transcribed by `asr.transcribe`, which needs
+whisper weights the repository does not hold: without them it raises.
 """
 
 from __future__ import annotations
@@ -164,15 +164,18 @@ def load_model(model: str = "F5TTS_v1_Base", ckpt_path: str = "", vocab_file: st
 
 
 _ref_audio_cache: dict = {}
+_ref_text_cache: dict = {}
 
 
 def preprocess_ref_audio_text(ref_audio_path: str, ref_text: str,
-                              show_info: Callable = print) -> tuple[np.ndarray, int, str]:
+                              show_info: Callable = print,
+                              language: Optional[str] = None) -> tuple[np.ndarray, int, str]:
     """(clipped wav, sample rate, ref text) of a reference file: the clip
     policy of `audio_io.clip_ref_audio` (cut at silences to <= 12 s, edges
     trimmed, 50 ms of silence appended), cached by the file's MD5, and the
-    text ending in ". " or "。". An empty `ref_text` would be transcribed by
-    ASR, which needs weights the repository does not hold: it raises."""
+    text ending in ". " or "。". An empty `ref_text` is transcribed
+    (`asr.transcribe`, cached by the MD5); without the whisper weights that
+    raises RuntimeError."""
     with open(ref_audio_path, "rb") as f:
         audio_hash = hashlib.md5(f.read()).hexdigest()
     if audio_hash in _ref_audio_cache:
@@ -183,9 +186,17 @@ def preprocess_ref_audio_text(ref_audio_path: str, ref_text: str,
         wav = audio_io.clip_ref_audio(wav, sr)
         _ref_audio_cache[audio_hash] = (wav, sr)
     if not ref_text.strip():
-        raise RuntimeError("no reference text: transcribing the reference needs ASR weights, "
-                           "which are not in the repository; pass ref_text")
-    show_info("Using custom reference text...")
+        if audio_hash in _ref_text_cache:
+            show_info("Using cached reference text...")
+            ref_text = _ref_text_cache[audio_hash]
+        else:
+            from f5tts_tpu_torch.infer.asr import transcribe
+
+            show_info("No reference text provided, transcribing reference audio...")
+            ref_text = transcribe(wav, sr, language)
+            _ref_text_cache[audio_hash] = ref_text
+    else:
+        show_info("Using custom reference text...")
     if not ref_text.endswith(". ") and not ref_text.endswith("。"):
         ref_text = ref_text + " " if ref_text.endswith(".") else ref_text + ". "
     return wav, sr, ref_text

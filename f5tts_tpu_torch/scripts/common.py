@@ -1,5 +1,5 @@
-"""Seeded models, requests, training text and trace helpers shared by
-chip_smoke.py and the profiling scripts.
+"""Seeded models, requests, training text, the scorers' seeded weights and
+trace helpers shared by chip_smoke.py, the profiling scripts and tests.
 
 Any preset of `config.PRESETS` (text_num_embeds 2545, as the JAX package's
 bench.py; other arch fields may be overridden, e.g. qk_norm) and Vocos or
@@ -80,6 +80,31 @@ def base_models(seed: int = 0, model: str = "F5TTS_v1_Base", vocoder: str = "voc
     if vocoder != "vocos":
         raise ValueError(f"unknown vocoder {vocoder!r} (vocos | bigvgan)")
     return arch, params, init_vocos(vgen, VocosConfig())
+
+
+def seeded_state_dict(module: torch.nn.Module, seed: int) -> dict:
+    """Numpy-drawn f32 values for every floating tensor of `module`'s state
+    dict, in its order (the integer ones as they are): matrices and conv
+    kernels N(0, 1 / fan_in), 1-D weights (norms) 1 + 0.1 N(0, 1), running
+    variances 1 + 0.5 |N(0, 1)|, every other vector 0.05 N(0, 1). The
+    scorers' random weights (`eval/ecapa_tdnn.py`, `eval/utmos22.py`)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, t in module.state_dict().items():
+        if not t.is_floating_point():
+            out[name] = t.clone()
+            continue
+        z = rng.standard_normal(tuple(t.shape), dtype=np.float32)
+        if t.dim() >= 2:
+            z *= np.float32(1.0 / np.sqrt(max(t[0].numel(), 1)))
+        elif name.endswith("running_var"):
+            z = 1.0 + 0.5 * np.abs(z)
+        elif name.endswith("weight"):
+            z = 1.0 + 0.1 * z
+        else:
+            z *= np.float32(0.05)
+        out[name] = torch.from_numpy(z.astype(np.float32))
+    return out
 
 
 def synthetic_ref_wav(seconds: float = 2.7, sr: int = 24000) -> np.ndarray:

@@ -222,8 +222,9 @@ def test_f5tts_and_one_call_api_at_a_tiny_preset(tiny_preset, tmp_path):
     wav, ref_sr = taudio.read_wav(ref)
     np.testing.assert_array_equal(
         wave, tts.pipeline.infer(wav, ref_sr, "a voice.", "hello there, friend.", seed=2)[0])
-    with pytest.raises(NotImplementedError, match="viz.py"):
-        tts.infer(ref, "a voice.", "hi there.", file_spec=str(tmp_path / "spec.png"))
+    spec = tmp_path / "spec.png"
+    tts.infer(ref, "a voice.", "hi there.", file_spec=str(spec), show_info=lambda *_: None)
+    assert spec.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
 
     model = tui.load_model(tiny_preset, device="cpu")
     voc = tui.load_vocoder(device="cpu")

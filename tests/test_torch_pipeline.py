@@ -69,9 +69,17 @@ def test_port_imports_no_jax():
             "f5tts_tpu_torch.train.datasets.prepare_wenetspeech4tts, "
             "f5tts_tpu_torch.scripts.count_max_epoch, f5tts_tpu_torch.parallel.mesh, "
             "f5tts_tpu_torch.parallel.collectives, f5tts_tpu_torch.train.multihost, "
-            "f5tts_tpu_torch.scripts.multihost_sim, f5tts_tpu_torch.eval.scaling_bench\n"
+            "f5tts_tpu_torch.scripts.multihost_sim, f5tts_tpu_torch.eval.scaling_bench, "
+            "f5tts_tpu_torch.eval.utils_eval, f5tts_tpu_torch.eval.wavlm, "
+            "f5tts_tpu_torch.eval.ecapa_tdnn, f5tts_tpu_torch.eval.utmos22, "
+            "f5tts_tpu_torch.eval.eval_utmos, f5tts_tpu_torch.eval.eval_infer_batch, "
+            "f5tts_tpu_torch.eval.eval_runner, f5tts_tpu_torch.eval.eval_seedtts_testset, "
+            "f5tts_tpu_torch.eval.eval_librispeech_test_clean, f5tts_tpu_torch.infer.viz, "
+            "f5tts_tpu_torch.infer.asr, f5tts_tpu_torch.infer.multistyle, "
+            "f5tts_tpu_torch.infer.voice_chat\n"
             "from f5tts_tpu_torch.config import load_model_config, model_config_from_dict\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'f5tts_tpu')]\n"
+            "bad = [m for m in sys.modules\n"
+            "       if m.split('.')[0] in ('jax', 'jaxlib', 'f5tts_tpu', 'transformers')]\n"
             "print(bad); sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
