@@ -240,9 +240,10 @@ Phases (any failure raises, and the script exits non-zero):
     1024 updates each (22 / 22 / 45 / 1 an update; loss, params and EMA
     after update 2 within 1e-5 of the plain Trainer's; ms, peak, the
     profiler's NCCL and copy ms); (c) two processes on the card over gloo
-    (its all_reduce takes CUDA tensors; checked first): a TP-2 CFG-packed
+    (its all_reduce takes CUDA tensors; checked first), F5TTS_v1_Base's
+    width at depth TWO_PROC_DEPTH (4 of 22 blocks): a TP-2 CFG-packed
     forward and 16-NFE generate at the 1024 bucket (rel-L2 <= 3e-2 against
-    one process; 352 / 720 / 32 a rank), a TP-2 int8 forward (rel-L2 <=
+    one process; 64 / 144 / 32 a rank), a TP-2 int8 forward (rel-L2 <=
     3e-2 against the one-process int8 forward; K12 2 a block, none in its
     GELU mode), TP-2 and DP-2 first updates at the peak lr on 8 x 1024
     (loss and grad norm within 1e-3, TP gradients rel-L2 <= 3e-2; the
@@ -272,11 +273,32 @@ Phases (any failure raises, and the script exits non-zero):
     (c) UTMOS22-strong in f32 with numpy-seeded weights: a 5 s clip's MOS
     on the card against the CPU (|dMOS| <= 1e-3), ms an utterance, then
     `eval_utmos` over (a)'s wavs from a checkpoint written there.
+24. The last modules, F5TTS_v1_Base + Vocos, full width and depth: (a)
+    the 1024 bucket's graphed generate against eager (phase 16's walls,
+    now with every kernel behind its `f5tts::` operator); the sampler
+    exported with torch.export at EXPORT_NFE (a 16-NFE export takes over
+    a minute), saved, loaded and run against the eager cfm_sample on the
+    same y0 (max-abs <= 1e-3; K3 / K1 / K2 22 / 45 / 2 a step exactly), its
+    export, save and load seconds, file MB and both walls; Vocos exported
+    against the eager decode (<= 1e-5); E2TTS_Base and MMDiT_Base at depth
+    2 the same way; (f) device_trace + summarize_trace over one graphed
+    request, K3's, K1's and K2's kernels among the top PROFILE_TOP (20)
+    rows by kernel; (b) with both TF32 flags on globally against off:
+    Vocos and BigVGAN decode, a WavLM-large + ECAPA-TDNN embedding, a
+    UTMOS22 score and a DynamicBatcher request's wav (rel-L2 <= 1e-6); (c)
+    the segmenter is "native" and cuts SEGMENTER_CUTS; (d)
+    count_params_gflops at F5TTS_v1_Base and E2TTS_Base, the card's
+    parameters and FLOPs by operator equal to the CPU's, counted on fake
+    CPU tensors; (e) parity_check on a reference-key
+    safetensors written from the seeded weights: the audit, 16 and 32 NFE,
+    --write-golden then --golden (exit 0, launches exact), the vocoder leg
+    on a reference-key Vocos. Every phase runs at torch's default TF32
+    flags, as users run.
 
 Prints the `kernels` JSON line (launches: what the card ran on the
 inference and training paths of phases 3, 5, 7, 8, 10, 11, 13, 14, 17, 18,
-19, 20, 21, 22 (b) and 23, each graph replay counted with its capture's counts), the card's name
-and power limit,
+19, 20, 21, 22 (b), 23 and 24, each graph replay counted with its capture's
+counts), the card's name and power limit,
 and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the repo's
 f5tts_tpu_torch package beside this file; imports nothing of JAX.
@@ -375,7 +397,12 @@ _MMDIT_PER_UPDATE = {"fused_qkv_rope_attention_bias_lse": 22,
 MMDIT_TRAIN_CELLS = ((16, 1024, 3, _MMDIT_PER_UPDATE), (4, 3072, 2, _MMDIT_PER_UPDATE))
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    if msg.startswith("phase "):  # a phase's header: the seconds since the script started
+        msg = f"{msg} [{time.perf_counter() - _START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -3570,6 +3597,10 @@ TWO_PROC_BATCH, TWO_PROC_FRAMES = 8, 1024
 # (c)'s peak lr, reached at the first update (no warm-up): Adam's first
 # step moves each weight by about lr
 TWO_PROC_LR = 7.5e-5
+# (c)'s depth: F5TTS_v1_Base's width and heads, 4 of its 22 blocks (gloo
+# stages each all-reduce through the host: the full depth adds ~35 s, and
+# the whole script took 906.3 s with it, past the 800 s it is held to)
+TWO_PROC_DEPTH = 4
 CARD_GATE = 3e-2  # card-vs-card bf16 rel-L2 (phase 20's batch row against alone)
 # (c)'s update: the applied step against AdamW's first step recomputed from
 # the rank's own gradient, |gap| / (1 + |p|) (f32 rounding of the same
@@ -3913,8 +3944,6 @@ def phase22_child(rank: int, tmp: str) -> None:
     from f5tts_tpu_torch.scripts.common import base_models
     from f5tts_tpu_torch.train.step import init_train_state
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     dist.init_process_group("gloo", store=dist.FileStore(str(Path(tmp) / "store"), 2),
@@ -3932,7 +3961,7 @@ def phase22_child(rank: int, tmp: str) -> None:
         dist.destroy_process_group()
         return
     ref = torch.load(Path(tmp) / "ref.pt", map_location=dev, weights_only=True)
-    arch, params, _ = base_models()
+    arch, params, _ = base_models(depth=TWO_PROC_DEPTH)
     gen, batch = _two_proc_inputs(dev, arch)
     tp, dp = make_mesh(1, 2), make_mesh(2, 1)
 
@@ -4053,7 +4082,7 @@ def phase22_two_processes(dev, gpu: str) -> dict:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
     procs = []
     try:
-        arch, params, _ = base_models()
+        arch, params, _ = base_models(depth=TWO_PROC_DEPTH)
         gen, (mel8, text8, lens8) = _two_proc_inputs(dev, arch)
         fused = m.fuse_backbone_qkv(m.tree_cast(params, torch.bfloat16, dev))
         statics = DiTStatics(arch, dev)
@@ -4533,6 +4562,397 @@ def phase_evaluation(dev, gpu: str) -> tuple[dict, dict]:
     return ran, out
 
 
+# ---------------------------------------------------------------------------
+# phase 24
+# ---------------------------------------------------------------------------
+
+# tests/test_segmenter.py's texts as jieba 0.42.1 cuts them (jieba.cut, HMM
+# on); tests/test_torch_segmenter.py holds these literals against jieba.cut
+SEGMENTER_CUTS = {
+    "我来到北京清华大学": ["我", "来到", "北京", "清华大学"],
+    "这是一个分词测试": ["这是", "一个", "分词", "测试"],
+    "对万人敬仰的太乙真人": ["对万人", "敬仰", "的", "太", "乙", "真人"],
+    "他来到了网易杭研大厦": ["他", "来到", "了", "网易", "杭研", "大厦"],
+    "小明硕士毕业于中国科学院计算所": ["小明", "硕士", "毕业", "于", "中国科学院", "计算所"],
+    "这是一个伸手不见五指的黑夜": ["这是", "一个", "伸手不见五指", "的", "黑夜"],
+}
+EXPORT_NFE = 4            # the full-width exports' NFE (a 16-NFE export takes > 60 s)
+EXPORT_TOL = 1e-3         # the exported sampler against the eager one, max-abs
+VOCOS_EXPORT_TOL = 1e-5   # the exported Vocos against the eager decode, max-abs
+TF32_REL_TOL = 1e-6       # a module with TF32 on globally against off, rel-L2
+EXPORT_FRAMES = 1014      # a request in the 1024 bucket
+PROFILE_TOP = 20          # K3's, K1's and K2's kernels among the trace's top rows
+
+
+def set_tf32(on: bool) -> None:
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+
+
+def phase24_prepare(pipe, nfe: int, seed: int = 0) -> dict:
+    from f5tts_tpu_torch.scripts.common import REF_TEXT, REQUESTS, synthetic_ref_wav
+
+    return pipe.prepare_chunk(synthetic_ref_wav(), REF_TEXT + " ", REQUESTS[1], seed=seed,
+                              nfe_step=nfe, cfg_strength=2.0, sway_sampling_coef=-1.0,
+                              fix_duration=(EXPORT_FRAMES + 0.5) * pipe.hop / pipe.sr)
+
+
+def phase24_export_one(pipe, arch, backbone: str, tmp: Path, gpu: str, walls: bool) -> dict:
+    """Export `pipe`'s sampler at EXPORT_NFE on a prepared request's shapes,
+    save, load, and run the loaded program against the eager cfm_sample on
+    the same y0: max-abs <= EXPORT_TOL and the launches of EXPORT_NFE
+    steps exactly; with `walls`, both walls (medians of 3, in turns)."""
+    import os
+    import torch
+    from f5tts_tpu_torch.compat.export import load_exported, run_exported, sampler_program
+    from f5tts_tpu_torch.models import cfm
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.utils import make_time_grid
+
+    req = phase24_prepare(pipe, EXPORT_NFE)
+    args = (req["cond"], req["text"], req["lens"], req["duration"], req["y0"])
+    t0 = time.perf_counter()
+    program = sampler_program(pipe.params, pipe.statics, 1, req["cond"].shape[1],
+                              req["text"].shape[1], EXPORT_NFE, dtype=pipe.dtype,
+                              backbone=backbone)
+    t1 = time.perf_counter()
+    path = tmp / f"sampler_{backbone}.pt2"
+    torch.export.save(program, str(path))
+    t2 = time.perf_counter()
+    loaded = load_exported(str(path))
+    t3 = time.perf_counter()
+    t_grid = make_time_grid(EXPORT_NFE, sway_sampling_coef=-1.0).to(pipe.device)
+
+    def eager():
+        return cfm.cfm_sample(pipe.params, pipe.statics, *args[:4], t_grid, y0=args[4],
+                              cfg_strength=2.0, dtype=pipe.dtype, backbone=pipe.bdef)
+
+    module = loaded.module()
+    want = eager()
+    torch.cuda.synchronize()
+    _build.reset_launches()  # every count to 0 just before the exported run
+    got = run_exported(module, *args)
+    torch.cuda.synchronize()
+    ran = _build.launches()
+    expect = {k: v * EXPORT_NFE for k, v in step_launches(backbone, arch).items()}
+    err = float((got - want).abs().max())
+    row = {"backbone": backbone, "depth": arch.depth, "nfe": EXPORT_NFE,
+           "n": req["cond"].shape[1], "text_len": req["text"].shape[1], "export_s": t1 - t0,
+           "save_s": t2 - t1, "load_s": t3 - t2, "file_mb": os.path.getsize(path) / 1e6,
+           "max_abs_err": err, "launches": ran}
+    if walls:
+        times = {"eager": [], "exported": []}
+        for _ in range(3):
+            for name, fn in (("eager", eager), ("exported", lambda: run_exported(module, *args))):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[name].append(time.perf_counter() - t)
+        row.update(eager_wall_s=statistics.median(times["eager"]),
+                   exported_wall_s=statistics.median(times["exported"]))
+    log(f"  export {backbone} depth {arch.depth}, {EXPORT_NFE} NFE, n {row['n']}: export "
+        f"{row['export_s']:.2f} s, save {row['save_s']:.2f} s, load {row['load_s']:.2f} s, "
+        f"{row['file_mb']:.1f} MB; exported vs eager max-abs {err:.3e} (tol {EXPORT_TOL}); "
+        f"launches {ran}" + (f"; wall eager {row['eager_wall_s']:.4f} s, exported "
+                             f"{row['exported_wall_s']:.4f} s" if walls else "") + f" [{gpu}]")
+    if ran != expect:
+        raise AssertionError(f"exported {backbone}: launches {ran}, expected {expect}")
+    if not (torch.isfinite(got).all() and err <= EXPORT_TOL):
+        raise AssertionError(f"exported {backbone}: max-abs {err} against the eager sampler")
+    path.unlink()
+    return row
+
+
+def phase24_export(dev, pipe, arch, vocos_params, tmp: Path, gpu: str) -> tuple[dict, dict]:
+    """(a) F5TTS_v1_Base's sampler and Vocos exported, saved, loaded and run
+    against the eager path; the 16-NFE eager and graphed walls beside;
+    E2TTS_Base and MMDiT_Base at depth 2."""
+    import os
+    import torch
+    from f5tts_tpu_torch.compat.export import load_exported, run_exported, vocoder_program
+    from f5tts_tpu_torch.scripts.common import base_models
+
+    out = {"graphed_vs_eager": compare_graph_eager(pipe, generate_launches("DiT", arch),
+                                                   EXPORT_FRAMES, gpu)}
+    launches: dict[str, int] = {}
+    row = phase24_export_one(pipe, arch, "DiT", tmp, gpu, walls=True)
+    out["sampler"] = row
+    for name, c in row["launches"].items():
+        launches[name] = launches.get(name, 0) + c
+
+    mel = torch.randn((1, 100, 1024), generator=torch.Generator().manual_seed(24)).to(dev)
+    t0 = time.perf_counter()
+    program = vocoder_program(vocos_params, 1, 1024, device=dev)
+    t1 = time.perf_counter()
+    path = tmp / "vocos.pt2"
+    torch.export.save(program, str(path))
+    t2 = time.perf_counter()
+    loaded = load_exported(str(path))
+    t3 = time.perf_counter()
+    got = run_exported(loaded, mel)
+    want = pipe.vocoder(mel)
+    err = float((got - want).abs().max())
+    out["vocos"] = {"export_s": t1 - t0, "save_s": t2 - t1, "load_s": t3 - t2,
+                    "file_mb": os.path.getsize(path) / 1e6, "max_abs_err": err}
+    log(f"  export Vocos [1, 100, 1024]: export {t1 - t0:.2f} s, save {t2 - t1:.2f} s, load "
+        f"{t3 - t2:.2f} s, {out['vocos']['file_mb']:.1f} MB; exported vs eager max-abs "
+        f"{err:.3e} (tol {VOCOS_EXPORT_TOL}) [{gpu}]")
+    if not (torch.isfinite(got).all() and err <= VOCOS_EXPORT_TOL):
+        raise AssertionError(f"exported Vocos: max-abs {err} against the eager decode")
+    path.unlink()
+
+    out["depth2"] = []
+    for model, backbone in (("E2TTS_Base", "UNetT"), ("MMDiT_Base", "MMDiT")):
+        arch_b, params_b, vocos_b = base_models(model=model, depth=2)
+        pipe_b = make_pipeline(dev, backbone, arch_b, params_b, vocos_b)
+        row = phase24_export_one(pipe_b, arch_b, backbone, tmp, gpu, walls=False)
+        out["depth2"].append({"model": model, **row})
+        for name, c in row["launches"].items():
+            launches[name] = launches.get(name, 0) + c
+        del pipe_b, params_b
+        torch.cuda.empty_cache()
+    return launches, out
+
+
+def phase24_tf32(dev, arch, params, vocos_params, gpu: str) -> dict:
+    """(b) Each f32 module's output with TF32 on globally against the same
+    call with it off: Vocos and the full-size BigVGAN decode, a WavLM-large
+    + ECAPA-TDNN embedding and a UTMOS22 score (numpy-seeded weights), and
+    a DynamicBatcher request's wav at F5TTS_v1_Base (each setting captures
+    its own serve graph). rel-L2 <= TF32_REL_TOL, every module logged before
+    the gate; each module's eager call timed at both settings (CUDA events,
+    median of 5); torch's default flags restored after."""
+    import torch
+    from f5tts_tpu_torch.eval.ecapa_tdnn import ECAPA_TDNN_SMALL
+    from f5tts_tpu_torch.eval.utmos22 import UTMOS22Strong
+    from f5tts_tpu_torch.infer.serve import DynamicBatcher
+    from f5tts_tpu_torch.scripts.common import seeded_state_dict, synthetic_ref_wav
+    from f5tts_tpu_torch.vocoder.bigvgan import BigVGAN, BigVGANConfig, init_bigvgan
+    from f5tts_tpu_torch.vocoder.vocos import Vocos, VocosConfig
+
+    defaults = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    gen = torch.Generator().manual_seed(24)
+    clip = torch.from_numpy(voiced_clip(3 * 16000, 16000, 241))[None].to(dev)
+    mel_vocos = torch.randn((1, 100, 1024), generator=gen).to(dev)
+    mel_bigvgan = torch.randn((1, 100, 256), generator=gen).to(dev)
+
+    def module(m, seed):
+        m.load_state_dict(seeded_state_dict(m, seed))
+        return m.eval().to(dev)
+
+    def served():
+        pipe = make_pipeline(dev, "DiT", arch, params, vocos_params)
+        batcher = DynamicBatcher(pipe, max_batch_size=1, max_queue_delay_s=0.001)
+        try:
+            return torch.from_numpy(batcher.submit(serve_requests(synthetic_ref_wav())[0],
+                                                   timeout=300).astype(np.float32))
+        finally:
+            batcher.close()
+
+    cases = (
+        ("vocos", lambda: Vocos(vocos_params, VocosConfig(), device=dev),
+         lambda m: m(mel_vocos)),
+        ("bigvgan", lambda: BigVGAN(init_bigvgan(torch.Generator().manual_seed(5),
+                                                 BigVGANConfig()), device=dev),
+         lambda m: m(mel_bigvgan)),
+        ("wavlm_ecapa", lambda: module(ECAPA_TDNN_SMALL(), 23), lambda m: m(clip)),
+        ("utmos22", lambda: module(UTMOS22Strong(), 24), lambda m: m(clip, 16000)),
+        ("dynamic_batcher", lambda: None, lambda m: served()),
+    )
+    rows = {}
+    try:
+        for name, build, call in cases:
+            m = build()
+            outs, ms = [], []
+            for on in (True, False):
+                set_tf32(on)
+                with torch.no_grad():
+                    outs.append(call(m).float().cpu())
+                    # the batcher's request is a capture and a replay: not timed
+                    ms.append(None if m is None else wall_ms(lambda: call(m), iters=5))
+            on, off = outs
+            rel = float((on - off).norm() / off.norm())
+            rows[name] = {"rel_l2": rel, "max_abs": float((on - off).abs().max()),
+                          "ms_tf32_on": ms[0], "ms_tf32_off": ms[1]}
+            log(f"  TF32 on globally against off, {name}: rel-L2 {rel:.3e}, max-abs "
+                f"{rows[name]['max_abs']:.3e} (tol {TF32_REL_TOL}); a call {ms[0]} / {ms[1]} ms "
+                f"[{gpu}]")
+            del m
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults
+    bad = {k: v for k, v in rows.items() if not v["rel_l2"] <= TF32_REL_TOL}
+    if bad:
+        raise AssertionError(f"TF32 reaches the f32 modules: {bad}")
+    return rows
+
+
+def phase24_counter(dev, gpu: str) -> list:
+    """(d) count_params_gflops at F5TTS_v1_Base and E2TTS_Base on the card
+    and on the CPU at the same shapes: the same parameters and FLOPs by
+    operator. The CPU's count runs on fake tensors (FakeTensorMode: the same
+    operators, their fakes and FLOP formulas, no arithmetic), as a real one
+    would take tens of seconds of f32 work on the host."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from f5tts_tpu_torch.scripts.count_params_gflops import REFERENCE, attention_flops, count
+
+    rows = []
+    for model in ("F5TTS_v1_Base", "E2TTS_Base"):
+        t0 = time.perf_counter()
+        card = count(model, device=dev)
+        t1 = time.perf_counter()
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            cpu = count(model, device="cpu")
+        t2 = time.perf_counter()
+        n_params, flops, frames = card
+        total = sum(flops.values())
+        attn = attention_flops(flops)
+        ref_name, ref_params, ref_gflops = REFERENCE[model]
+        row = {"model": model, "params_M": n_params / 1e6, "gflops_fwd": total / 1e9,
+               "gflops_attention": attn / 1e9, "gmacs_outside_attention": (total - attn) / 2e9,
+               "frames": frames, "flops_by_op": flops, "card_s": t1 - t0, "cpu_s": t2 - t1,
+               "reference": {"model": ref_name, "params_M": ref_params,
+                             "thop_gflops_20s": ref_gflops}}
+        log(f"  {model}: {row['params_M']:.3f} M params, {row['gflops_fwd']:.2f} GFLOPs a "
+            f"forward of {frames} frames ({row['gflops_attention']:.2f} in attention; "
+            f"{row['gmacs_outside_attention']:.2f} GMACs outside it), card {t1 - t0:.1f} s, "
+            f"CPU (fake tensors) {t2 - t1:.1f} s; the reference's {ref_name}: {ref_params} M, "
+            f"{ref_gflops} (thop) [{gpu}]")
+        if cpu != card:
+            raise AssertionError(f"{model}: the card's count {card} differs from the CPU's {cpu}")
+        rows.append(row)
+    return rows
+
+
+def phase24_parity(dev, arch, params, vocos_params, tmp: Path, gpu: str) -> tuple[dict, dict]:
+    """(e) parity_check on a reference-key F5TTS_v1_Base safetensors written
+    from the seeded weights: the audit, 16 and 32 NFE, --write-golden then
+    --golden, and the vocoder leg on a reference-key Vocos."""
+    import torch
+    from f5tts_tpu_torch.compat.torch_import import to_vocos_reference_keys, write_safetensors
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.scripts import parity_check
+    from f5tts_tpu_torch.train.checkpoint import to_reference_keys
+
+    ckpt, golden, vocos_ckpt = tmp / "model.safetensors", tmp / "golden.npz", tmp / "vocos.pt"
+    write_safetensors({k: torch.from_numpy(v) for k, v in to_reference_keys(params).items()},
+                      str(ckpt))
+    torch.save(to_vocos_reference_keys(vocos_params), str(vocos_ckpt))
+    base = ["--ckpt", str(ckpt), "--model", "F5TTS_v1_Base", "--device", str(dev)]
+    _build.reset_launches()  # every count to 0 just before the two runs
+    t0 = time.perf_counter()
+    parity_check.main(base + ["--write-golden", str(golden)])
+    t1 = time.perf_counter()
+    try:
+        parity_check.main(base + ["--golden", str(golden)])
+        code = None
+    except SystemExit as e:
+        code = e.code
+    t2 = time.perf_counter()
+    ran = _build.launches()
+    if code != 0:
+        raise AssertionError(f"parity_check --golden exited {code}")
+    expect = {k: 2 * v * (16 + 32) for k, v in step_launches("DiT", arch).items()}
+    if ran != expect:
+        raise AssertionError(f"parity_check: launches {ran}, expected {expect}")
+    status, detail = parity_check.leg_vocoder_decode(dict(np.load(golden)), "vocos",
+                                                     str(vocos_ckpt), device=dev)
+    log(f"  parity_check: --write-golden {t1 - t0:.1f} s, --golden {t2 - t1:.1f} s (exit 0); "
+        f"vocoder leg {status}: {detail}; checkpoint {ckpt.stat().st_size / 1e9:.2f} GB [{gpu}]")
+    if status != "OK":
+        raise AssertionError(f"parity_check vocoder leg: {detail}")
+    for p in (ckpt, golden, vocos_ckpt):
+        p.unlink()
+    return ran, {"write_golden_s": t1 - t0, "golden_s": t2 - t1, "vocoder_leg": detail}
+
+
+def phase24_profile(pipe, tmp: Path, gpu: str) -> dict:
+    """(f) device_trace + summarize_trace over one graphed request (16 NFE,
+    the 1024 bucket, captured in (a)) inside a StageTimer stage: K3's,
+    K1's and K2's kernels among the top rows by kernel."""
+    import torch
+    from f5tts_tpu_torch.profiling import StageTimer, device_trace, summarize_trace
+    from f5tts_tpu_torch.scripts.common import K2_NAMES, REF_TEXT, REQUESTS, synthetic_ref_wav
+
+    timer = StageTimer()
+    ref = synthetic_ref_wav()
+    fix = (EXPORT_FRAMES + 0.5) * pipe.hop / pipe.sr
+    with device_trace(str(tmp / "trace")) as logdir:
+        with timer.stage("request", sync=True):
+            pipe.infer(ref, 24000, REF_TEXT, REQUESTS[1], seed=0, nfe_step=NFE, cfg_strength=2.0,
+                       sway_sampling_coef=-1.0, fix_duration=fix)
+    torch.cuda.synchronize()
+    rows = summarize_trace(logdir, top=PROFILE_TOP, key="op")
+    top = [name for name, _, _ in rows[:PROFILE_TOP]]
+    found = {"K3": next((i for i, n in enumerate(top) if "fused_qkv_rope_attn" in n), None),
+             "K1": next((i for i, n in enumerate(top) if "AdaLNEpi" in n), None),
+             "K2": next((i for i, n in enumerate(top) if any(k in n for k in K2_NAMES)), None)}
+    log(f"  profile of one graphed request: stages {timer.report()}; rows of K3 / K1 / K2 "
+        f"{found}; top kernels {rows[:PROFILE_TOP]} [{gpu}]")
+    if None in found.values():
+        raise AssertionError(f"the trace's top {PROFILE_TOP} rows lack {found}: {top}")
+    return {"stages": timer.report(), "rows": found, "top": rows[:PROFILE_TOP]}
+
+
+def phase_last_modules(dev, gpu: str) -> tuple[dict, dict]:
+    """Phase 24: export, the TF32 hold on the f32 modules, the native
+    segmenter, the FLOP counter, the parity gate and profiling."""
+    import tempfile
+    import torch
+    from f5tts_tpu_torch.scripts.common import base_models
+    from f5tts_tpu_torch.text.pinyin import segment, segmenter_name
+
+    t_phase = time.perf_counter()
+    launches: dict[str, int] = {}
+    out, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        arch, params, vocos_params = base_models()
+        pipe = make_pipeline(dev, "DiT", arch, params, vocos_params)
+        log(f"  (a) export, F5TTS_v1_Base at {EXPORT_NFE} NFE and Vocos; E2TTS / MMDiT depth 2:")
+        t0 = time.perf_counter()
+        ran, out["export"] = phase24_export(dev, pipe, arch, vocos_params, tmp, gpu)
+        seconds["export"] = time.perf_counter() - t0
+        for name, c in ran.items():
+            launches[name] = launches.get(name, 0) + c
+        log("  (f) profiling one graphed request:")
+        t0 = time.perf_counter()
+        out["profile"] = phase24_profile(pipe, tmp, gpu)
+        seconds["profile"] = time.perf_counter() - t0
+        del pipe
+        torch.cuda.empty_cache()
+        log("  (b) TF32 on globally against off:")
+        t0 = time.perf_counter()
+        out["tf32"] = phase24_tf32(dev, arch, params, vocos_params, gpu)
+        seconds["tf32"] = time.perf_counter() - t0
+        log("  (c) the native segmenter:")
+        t0 = time.perf_counter()
+        name = segmenter_name()
+        cuts = {text: list(segment(text)) for text in SEGMENTER_CUTS}
+        seconds["segmenter"] = time.perf_counter() - t0
+        log(f"  segmenter {name!r} (built and loaded in {seconds['segmenter']:.2f} s): {cuts}")
+        if name != "native" or cuts != SEGMENTER_CUTS:
+            raise AssertionError(f"segmenter {name!r} cut {cuts}, expected {SEGMENTER_CUTS}")
+        log("  (d) count_params_gflops, card and CPU:")
+        t0 = time.perf_counter()
+        out["counter"] = phase24_counter(dev, gpu)
+        seconds["counter"] = time.perf_counter() - t0
+        log("  (e) parity_check on a written reference-key checkpoint:")
+        t0 = time.perf_counter()
+        ran, out["parity"] = phase24_parity(dev, arch, params, vocos_params, tmp, gpu)
+        seconds["parity"] = time.perf_counter() - t0
+        for name, c in ran.items():
+            launches[name] = launches.get(name, 0) + c
+    out["seconds"] = seconds
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 24: {out['phase_s']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in seconds.items())})")
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -4544,8 +4964,6 @@ def main() -> int:
         print("chip_smoke: f5tts_tpu_torch is not beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(repo))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
@@ -4727,6 +5145,15 @@ def main() -> int:
     for name, count in ran.items():
         launches[name] = launches.get(name, 0) + count
     log(f"  phase 23: {json.dumps(eval_rows)}")
+    torch.cuda.empty_cache()
+
+    log("phase 24: the last modules: torch.export of the sampler and Vocos over the kernels' "
+        "operators, TF32 held off the f32 modules, the native segmenter, the FLOP counter, "
+        "parity_check, profiling")
+    ran, last_rows = phase_last_modules(dev, gpu)
+    for name, count in ran.items():
+        launches[name] = launches.get(name, 0) + count
+    log(f"  phase 24: {json.dumps(last_rows)}")
     torch.cuda.empty_cache()
 
     idle = [name for name in rows if not launches.get(name)]

@@ -291,3 +291,32 @@ def convert_vocos_state_dict(sd: Mapping, num_layers: int = 8) -> dict:
         "final_norm_b": _t(sd["backbone.final_layer_norm.bias"]),
         "head": _lin(sd, "head.out"),
     }
+
+
+def to_vocos_reference_keys(params: dict) -> dict:
+    """The port's Vocos params -> charactr/vocos-mel-24khz keys and layouts
+    (f32 CPU tensors): the inverse of `convert_vocos_state_dict`."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def lin(name, p):
+        sd[f"{name}.weight"] = _t(p["w"]).T.contiguous()
+        sd[f"{name}.bias"] = _t(p["b"])
+
+    def conv(name, p):
+        sd[f"{name}.weight"] = _t(p["w"]).permute(2, 1, 0).contiguous()
+        sd[f"{name}.bias"] = _t(p["b"])
+
+    conv("backbone.embed", params["embed"])
+    sd["backbone.norm.weight"], sd["backbone.norm.bias"] = (_t(params["in_norm_w"]),
+                                                            _t(params["in_norm_b"]))
+    for i, blk in enumerate(params["blocks"]):
+        p = f"backbone.convnext.{i}"
+        conv(f"{p}.dwconv", blk["dwconv"])
+        sd[f"{p}.norm.weight"], sd[f"{p}.norm.bias"] = _t(blk["norm_w"]), _t(blk["norm_b"])
+        lin(f"{p}.pwconv1", blk["pw1"])
+        lin(f"{p}.pwconv2", blk["pw2"])
+        sd[f"{p}.gamma"] = _t(blk["gamma"])
+    sd["backbone.final_layer_norm.weight"] = _t(params["final_norm_w"])
+    sd["backbone.final_layer_norm.bias"] = _t(params["final_norm_b"])
+    lin("head.out", params["head"])
+    return sd

@@ -29,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from f5tts_tpu_torch.eval.wavlm import WavLM, WavLMConfig
+from f5tts_tpu_torch.precision import f32_call
 
 
 class _ConvReluBn(nn.Module):
@@ -147,6 +148,7 @@ class ECAPA_TDNN(nn.Module):
         feat = (states * w).sum(dim=0)
         return feat.transpose(1, 2) + 1e-6
 
+    @f32_call
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
         x = self.instance_norm(self._features(wav))
         x1 = self.layer1(x)

@@ -26,6 +26,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from f5tts_tpu_torch.precision import f32_call
+
 SSL_DIM = 768
 EMB_DIM = 128
 LSTM_HIDDEN = 512
@@ -152,6 +154,7 @@ class UTMOS22Strong(nn.Module):
             nn.Linear(2 * LSTM_HIDDEN, 2048), nn.ReLU(), nn.Linear(2048, 1))
 
     @torch.no_grad()
+    @f32_call
     def forward(self, wave: torch.Tensor, sr: int) -> torch.Tensor:
         if sr != 16000:
             from scipy.signal import resample_poly

@@ -33,6 +33,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from f5tts_tpu_torch.precision import f32_call
+
 
 @dataclass(frozen=True)
 class WavLMConfig:
@@ -220,6 +222,7 @@ class WavLM(nn.Module):
         self.masked_spec_embed = nn.Parameter(torch.zeros(cfg.hidden_size))
         self.encoder = _Encoder(cfg)
 
+    @f32_call
     def forward(self, wav: torch.Tensor) -> list[torch.Tensor]:
         feats = self.feature_extractor(wav).transpose(1, 2)
         return self.encoder(self.feature_projection(feats))

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from f5tts_tpu_torch.infer import audio_io
+from f5tts_tpu_torch.precision import full_f32
 from f5tts_tpu_torch.utils import resolve_device
 
 NEG = -1.0e30
@@ -223,7 +224,7 @@ def align_text(
     dev = resolve_device(device)
     model, vocab, blank = load_alignment_model(model_name, dev)
     wav16 = audio_io.resample(np.asarray(wav, np.float32), sr, 16000)
-    with torch.no_grad():
+    with torch.no_grad(), full_f32():
         logits = model(torch.from_numpy(wav16)[None].to(dev)).logits[0]
         log_probs = torch.log_softmax(logits.float(), dim=-1).cpu().numpy()
     frame_sec = (len(wav16) / 16000.0) / log_probs.shape[0]

@@ -64,6 +64,7 @@ from f5tts_tpu_torch.models.modules import fuse_backbone_qkv, tree_cast
 from f5tts_tpu_torch.ops import _build
 from f5tts_tpu_torch.ops.mel import MelFrontend
 from f5tts_tpu_torch.ops.quant import quantize_dit_params
+from f5tts_tpu_torch.precision import full_f32
 from f5tts_tpu_torch.text.pinyin import convert_char_to_pinyin
 from f5tts_tpu_torch.text.vocab import list_str_to_idx, list_str_to_tensor
 from f5tts_tpu_torch.utils import duration_bucket, make_time_grid, resolve_device
@@ -306,24 +307,26 @@ class InferencePipeline:
     def _capture(self, entry: GraphEntry, body) -> None:
         """Warm up on a side stream (cuBLAS handles, cuFFT plans, the
         kernels' attributes), then capture `body` (inputs -> (mel, wav))
-        into a graph with its own memory pool. The caller holds
-        `device_lock` exclusively."""
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            body(entry.inputs)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
-        before = torch.cuda.memory_reserved(self.device)
-        graph = torch.cuda.CUDAGraph()
-        with _build.capture_counts() as counts, torch.cuda.graph(graph):
-            entry.mel, entry.wav = body(entry.inputs)
-        torch.cuda.synchronize(self.device)
-        entry.graph, entry.counts = graph, counts
-        entry.pool_bytes = torch.cuda.memory_reserved(self.device) - before
-        entry.capture_s = time.perf_counter() - t0
+        into a graph with its own memory pool, both in full f32 (the
+        vocoder's convolutions, whatever the caller's TF32 flags). The
+        caller holds `device_lock` exclusively."""
+        with full_f32():
+            t0 = time.perf_counter()
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                body(entry.inputs)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_reserved(self.device)
+            graph = torch.cuda.CUDAGraph()
+            with _build.capture_counts() as counts, torch.cuda.graph(graph):
+                entry.mel, entry.wav = body(entry.inputs)
+            torch.cuda.synchronize(self.device)
+            entry.graph, entry.counts = graph, counts
+            entry.pool_bytes = torch.cuda.memory_reserved(self.device) - before
+            entry.capture_s = time.perf_counter() - t0
 
     def fused_generate(self, cond: torch.Tensor, text: torch.Tensor, lens: torch.Tensor,
                        duration: torch.Tensor, t_grid: torch.Tensor, y0: torch.Tensor,

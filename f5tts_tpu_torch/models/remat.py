@@ -39,7 +39,7 @@ from f5tts_tpu_torch.ops.attention import TRAINING_ATTENTION_OPS
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
             torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
-_ATTENTION = tuple(op._opoverload for op in TRAINING_ATTENTION_OPS)
+_ATTENTION = TRAINING_ATTENTION_OPS
 _tag = threading.local()
 
 

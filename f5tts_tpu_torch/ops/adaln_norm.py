@@ -28,6 +28,10 @@ that VJP in PyTorch ops (autograd through `adaln_norm_ref`, in f32, cast back
 to the inputs' dtypes), so a PyTorch backward is the faithful port here, not
 a fallback; the forward on the card stays the kernel. `rms_norm` is
 differentiable the same way (the JAX `_rms_bwd`, adaln_norm.py:145).
+
+Both forwards run as the operators f5tts::adaln_norm and f5tts::rms_norm
+(`ops/_operators.py`): the models, the autograd Functions and a
+`torch.export` program all reach K1 and K6 through them.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import functools
 import torch
 
 from f5tts_tpu_torch.ops import _build
+from f5tts_tpu_torch.ops._operators import contiguous_like, no_flops, operator
 from f5tts_tpu_torch.ops._rows import MAX_D, MAX_ROWS, check_rows
 from f5tts_tpu_torch.ops.quant import empty_codes, quantize_rows_ref
 
@@ -97,7 +102,7 @@ class _AdaLNNorm(torch.autograd.Function):
     def forward(ctx, x, scale, shift, eps):
         ctx.save_for_backward(x, scale, shift)
         ctx.eps = eps
-        return _forward(x, scale, shift, eps)
+        return _adaln_op(x, scale, shift, eps)
 
     @staticmethod
     def backward(ctx, dy):
@@ -110,12 +115,12 @@ def adaln_norm(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     differentiable (`adaln_norm_bwd`)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, shift)):
         return _AdaLNNorm.apply(x, scale, shift, eps)
-    return _forward(x, scale, shift, eps)
+    return _adaln_op(x, scale, shift, eps)
 
 
 def _forward(x, scale, shift, eps):
     if x.device.type == "cpu":
-        return adaln_norm_ref(x, scale, shift, eps)
+        return adaln_norm_ref(x, scale, shift, eps).contiguous()
     if x.device.type != "cuda":
         raise ValueError(f"adaln_norm: unsupported device {x.device}")
     _check(x, scale, shift)
@@ -126,6 +131,11 @@ def _forward(x, scale, shift, eps):
     _build.check(err, "adaln_norm")
     _build.count("adaln_norm")
     return out
+
+
+_adaln_op = operator(
+    "adaln_norm", "(Tensor x, Tensor scale, Tensor shift, float eps) -> Tensor", _forward,
+    lambda x, scale, shift, eps: contiguous_like(x), no_flops)
 
 
 def adaln_norm_quant_ref(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
@@ -211,7 +221,7 @@ class _RMSNorm(torch.autograd.Function):
     def forward(ctx, x, w, eps):
         ctx.save_for_backward(x, w)
         ctx.eps = eps
-        return _rms_forward(x, w, eps)
+        return _rms_op(x, w, eps)
 
     @staticmethod
     def backward(ctx, dy):
@@ -224,7 +234,7 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     CUDA, plain on the CPU; differentiable (`rms_norm_bwd`)."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _RMSNorm.apply(x, w, eps)
-    return _rms_forward(x, w, eps)
+    return _rms_op(x, w, eps)
 
 
 def _rms_forward(x, w, eps):
@@ -239,6 +249,11 @@ def _rms_forward(x, w, eps):
     _build.check(err, "rms_norm")
     _build.count("rms_norm")
     return out
+
+
+# the result is contiguous whatever x's strides (qk-norm's head view)
+_rms_op = operator("rms_norm", "(Tensor x, Tensor w, float eps) -> Tensor", _rms_forward,
+                   lambda x, w, eps: contiguous_like(x), no_flops)
 
 
 def rms_norm_quant_ref(x: torch.Tensor, w: torch.Tensor,

@@ -48,10 +48,13 @@ runs K7's lse mode (the row log-sum-exp saved, as the Pallas forward's
 `_flash_bwd_fused_kernel` and the split `_flash_bwd_dq_kernel` /
 `_flash_bwd_dkv_kernel`), plain version `flash_attention_bwd_ref`.
 
-Under grad the four forwards (K3's, K5's and K7's lse modes, K11) run as
-`torch.library` operators `f5tts::...` (`TRAINING_ATTENTION_OPS`) inside
-their autograd Functions, so activation checkpointing (`models/remat.py`)
-can name them and keep their outputs; inference calls the kernels directly.
+Every forward runs as a `torch.library` operator `f5tts::...`
+(`ops/_operators.py`, with a fake and a FLOP formula): K3, K5 and K7 as
+f5tts::fused_qkv_rope_attention, ::fused_qkv_rope_attention_bias and
+::flash_attention without grad, their lse modes (`..._lse`) inside the
+autograd Functions under grad, K11 as f5tts::masked_flash_attention in
+both. The training ones (`TRAINING_ATTENTION_OPS`) are what activation
+checkpointing (`models/remat.py`) names to keep their outputs.
 
 `masked_flash_attention` is head-layout attention [b, h, n, d] under an
 arbitrary [b, n] key mask on already-normed and roped q/k (MMDiT joint
@@ -73,6 +76,7 @@ from typing import Optional
 import torch
 
 from f5tts_tpu_torch.ops import _build
+from f5tts_tpu_torch.ops._operators import attention_flops, contiguous_like, operator
 from f5tts_tpu_torch.ops.rope import apply_rotary_flat_tables
 
 NEG_INF = -1e30
@@ -312,18 +316,36 @@ def fused_qkv_rope_attention_bwd(qkv, cos, sin, lengths, out, lse, dout, heads: 
                      qkv, cos, sin, lengths, out, lse, dout, heads)
 
 
-def _attention_op(name: str, schema: str, fn):
-    """`fn` registered as the operator f5tts::`name`: what the training
-    forwards call under grad, so activation checkpointing
-    (`models/remat.py`) can name the attention and keep its outputs."""
-    return torch.library.custom_op(f"f5tts::{name}", fn, mutates_args=(), schema=schema)
+def _flat_out(qkv):
+    """The flat attention's output [b, n, h*d] as the kernels write it."""
+    b, n, hd3 = qkv.shape
+    return qkv.new_empty((b, n, hd3 // 3))
 
 
-_flat_lse_op = _attention_op(
-    "fused_qkv_rope_attention_lse",
-    "(Tensor qkv, Tensor cos, Tensor sin, Tensor lengths, int heads) -> (Tensor, Tensor)",
+def _flat_lse(qkv, heads: int):
+    return qkv.new_empty((qkv.shape[0], heads, qkv.shape[1]), dtype=torch.float32)
+
+
+def _flat_flops(qkv, cos, sin, mask, heads, out_shape=None):
+    b, n, hd3 = qkv
+    return attention_flops(b, heads, n, hd3 // (3 * heads))
+
+
+def _head_flops(q, k, v, mask, out_shape=None):
+    return attention_flops(*q)
+
+
+_FLAT_SCHEMA = "(Tensor qkv, Tensor cos, Tensor sin, Tensor {mask}, int heads) -> {out}"
+_flat_op = operator(
+    "fused_qkv_rope_attention", _FLAT_SCHEMA.format(mask="lengths", out="Tensor"),
+    lambda qkv, cos, sin, lengths, heads: fused_qkv_rope_attention_fwd(qkv, cos, sin, lengths,
+                                                                       heads),
+    lambda qkv, cos, sin, lengths, heads: _flat_out(qkv), _flat_flops)
+_flat_lse_op = operator(
+    "fused_qkv_rope_attention_lse", _FLAT_SCHEMA.format(mask="lengths", out="(Tensor, Tensor)"),
     lambda qkv, cos, sin, lengths, heads: fused_qkv_rope_attention_fwd(
-        qkv, cos, sin, lengths, heads, return_lse=True))
+        qkv, cos, sin, lengths, heads, return_lse=True),
+    lambda qkv, cos, sin, lengths, heads: (_flat_out(qkv), _flat_lse(qkv, heads)), _flat_flops)
 
 
 class _FusedQKVRopeAttention(torch.autograd.Function):
@@ -349,7 +371,7 @@ def fused_qkv_rope_attention(qkv, cos, sin, lengths, heads: int) -> torch.Tensor
     CPU; differentiable in qkv (K3's lse mode and K4 on CUDA)."""
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _FusedQKVRopeAttention.apply(qkv, cos, sin, lengths, heads)
-    return fused_qkv_rope_attention_fwd(qkv, cos, sin, lengths, heads)
+    return _flat_op(qkv, cos, sin, lengths, heads)
 
 
 def fused_qkv_rope_attention_fwd(qkv, cos, sin, lengths, heads: int, return_lse: bool = False):
@@ -410,11 +432,16 @@ def fused_qkv_rope_attention_bias_bwd(qkv, cos, sin, kmask, out, lse, dout,
                      qkv, cos, sin, kmask, out, lse, dout, heads)
 
 
-_flat_bias_lse_op = _attention_op(
-    "fused_qkv_rope_attention_bias_lse",
-    "(Tensor qkv, Tensor cos, Tensor sin, Tensor kmask, int heads) -> (Tensor, Tensor)",
+_flat_bias_op = operator(
+    "fused_qkv_rope_attention_bias", _FLAT_SCHEMA.format(mask="kmask", out="Tensor"),
+    lambda qkv, cos, sin, kmask, heads: fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask,
+                                                                         heads),
+    lambda qkv, cos, sin, kmask, heads: _flat_out(qkv), _flat_flops)
+_flat_bias_lse_op = operator(
+    "fused_qkv_rope_attention_bias_lse", _FLAT_SCHEMA.format(mask="kmask", out="(Tensor, Tensor)"),
     lambda qkv, cos, sin, kmask, heads: fused_qkv_rope_attention_bias_fwd(
-        qkv, cos, sin, kmask, heads, return_lse=True))
+        qkv, cos, sin, kmask, heads, return_lse=True),
+    lambda qkv, cos, sin, kmask, heads: (_flat_out(qkv), _flat_lse(qkv, heads)), _flat_flops)
 
 
 class _FusedQKVRopeAttentionBias(torch.autograd.Function):
@@ -439,7 +466,7 @@ def fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, heads: int) -> torch.Ten
     differentiable in qkv (K5's lse mode and K8 on CUDA)."""
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _FusedQKVRopeAttentionBias.apply(qkv, cos, sin, kmask, heads)
-    return fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, heads)
+    return _flat_bias_op(qkv, cos, sin, kmask, heads)
 
 
 def fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, heads: int, return_lse: bool = False):
@@ -562,10 +589,15 @@ def flash_attention_bwd(q, k, v, lengths, o, lse, dout) -> tuple:
     return dq, dk, dv
 
 
-_flash_lse_op = _attention_op(
-    "flash_attention_lse",
-    "(Tensor q, Tensor k, Tensor v, Tensor lengths) -> (Tensor, Tensor)",
-    lambda q, k, v, lengths: flash_attention_fwd(q, k, v, lengths, return_lse=True))
+_flash_op = operator(
+    "flash_attention", "(Tensor q, Tensor k, Tensor v, Tensor lengths) -> Tensor",
+    lambda q, k, v, lengths: flash_attention_fwd(q, k, v, lengths),
+    lambda q, k, v, lengths: contiguous_like(q), _head_flops)
+_flash_lse_op = operator(
+    "flash_attention_lse", "(Tensor q, Tensor k, Tensor v, Tensor lengths) -> (Tensor, Tensor)",
+    lambda q, k, v, lengths: flash_attention_fwd(q, k, v, lengths, return_lse=True),
+    lambda q, k, v, lengths: (contiguous_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)),
+    _head_flops)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -589,7 +621,7 @@ def flash_attention(q, k, v, lengths) -> torch.Tensor:
     in q, k and v (K7's lse mode and K9 on CUDA)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, lengths)
-    return flash_attention_fwd(q, k, v, lengths)
+    return _flash_op(q, k, v, lengths)
 
 
 def flash_attention_sharded(q, k, v, lengths, mesh) -> torch.Tensor:
@@ -659,7 +691,7 @@ def masked_flash_attention(q, k, v, kmask) -> torch.Tensor:
     (the plain formula's VJP)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _MaskedFlashAttention.apply(q, k, v, kmask)
-    return _masked_forward(q, k, v, kmask)
+    return _masked_op(q, k, v, kmask)
 
 
 def _masked_forward(q, k, v, kmask) -> torch.Tensor:
@@ -677,8 +709,8 @@ def _masked_forward(q, k, v, kmask) -> torch.Tensor:
     return out
 
 
-_masked_op = _attention_op("masked_flash_attention",
-                           "(Tensor q, Tensor k, Tensor v, Tensor kmask) -> Tensor",
-                           lambda q, k, v, kmask: _masked_forward(q, k, v, kmask))
+_masked_op = operator("masked_flash_attention",
+                      "(Tensor q, Tensor k, Tensor v, Tensor kmask) -> Tensor", _masked_forward,
+                      lambda q, k, v, kmask: contiguous_like(q), _head_flops)
 # the operators the training forwards call: what remat's "attn_out" keeps
 TRAINING_ATTENTION_OPS = (_flat_lse_op, _flat_bias_lse_op, _flash_lse_op, _masked_op)

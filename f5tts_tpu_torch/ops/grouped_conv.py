@@ -30,6 +30,9 @@ backward kernel for either: its custom_vjps take the VJP of the XLA formulas
 ops (autograd through the same formulas), so a PyTorch backward is the
 faithful port here, not a fallback; the forwards on the card stay the
 kernels.
+
+Both forwards run as the operators f5tts::conv_pos_embedding and
+f5tts::grouped_conv1d (`ops/_operators.py`).
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from f5tts_tpu_torch.ops import _build
+from f5tts_tpu_torch.ops._operators import contiguous_like, conv_flops, operator
+from f5tts_tpu_torch.precision import full_f32
 
 GROUP_WIDTH = 64  # channels per group K2 takes
 MAX_K = 31
@@ -57,11 +62,12 @@ def mish(x: torch.Tensor) -> torch.Tensor:
 def grouped_conv1d_ref(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                        groups: int, dtype=torch.float32) -> torch.Tensor:
     """Same-padded grouped conv of x [b, n, c] with WIO w [k, c/g, c], in
-    `dtype` (lead padding (k - 1) // 2, the rest trailing)."""
+    `dtype` (lead padding (k - 1) // 2, the rest trailing), TF32 off."""
     k = w.shape[0]
     lead = (k - 1) // 2
     xt = F.pad(x.to(dtype).transpose(1, 2), (lead, k - 1 - lead))
-    y = F.conv1d(xt, w.to(dtype).permute(2, 1, 0), groups=groups)
+    with full_f32():  # an f32 plain version on the card is the kernels' reference
+        y = F.conv1d(xt, w.to(dtype).permute(2, 1, 0), groups=groups)
     return y.transpose(1, 2) + bias.to(dtype)
 
 
@@ -102,7 +108,7 @@ class _ConvPosEmbedding(torch.autograd.Function):
     def forward(ctx, x, w1, b1, w2, b2, lengths, groups):
         ctx.save_for_backward(x, w1, b1, w2, b2, lengths)
         ctx.groups = groups
-        return _forward(x, w1, b1, w2, b2, lengths, groups)
+        return _cpe_op(x, w1, b1, w2, b2, lengths, groups)
 
     @staticmethod
     def backward(ctx, dy):
@@ -147,12 +153,12 @@ def conv_pos_embedding(x, w1, b1, w2, b2, lengths, groups: int = 16) -> torch.Te
     Kernel K2 on CUDA, plain on the CPU; differentiable (`conv_pos_embedding_bwd`)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2)):
         return _ConvPosEmbedding.apply(x, w1, b1, w2, b2, lengths, groups)
-    return _forward(x, w1, b1, w2, b2, lengths, groups)
+    return _cpe_op(x, w1, b1, w2, b2, lengths, groups)
 
 
 def _forward(x, w1, b1, w2, b2, lengths, groups):
     if x.device.type == "cpu":
-        return conv_pos_embedding_ref(x, w1, b1, w2, b2, lengths, groups)
+        return conv_pos_embedding_ref(x, w1, b1, w2, b2, lengths, groups).contiguous()
     if x.device.type != "cuda":
         raise ValueError(f"conv_pos_embedding: unsupported device {x.device}")
     _check(x, (w1, w2), (b1, b2), lengths, groups)
@@ -167,6 +173,13 @@ def _forward(x, w1, b1, w2, b2, lengths, groups):
         _build.check(err, "conv_pos_embedding")
     _build.count("conv_pos_embedding")
     return y
+
+
+_cpe_op = operator(
+    "conv_pos_embedding",
+    "(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, Tensor lengths, int groups) -> Tensor",
+    _forward, lambda x, w1, b1, w2, b2, lengths, groups: contiguous_like(x),
+    lambda x, w1, b1, w2, b2, lengths, groups, out_shape=None: conv_flops(x, w1) + conv_flops(x, w2))
 
 
 def supports_fused_conv_pos(c: int, groups: int, k: int) -> bool:
@@ -193,7 +206,7 @@ class _GroupedConv1d(torch.autograd.Function):
     def forward(ctx, x, w, bias, groups):
         ctx.save_for_backward(x, w, bias)
         ctx.groups = groups
-        return _gc_forward(x, w, bias, groups)
+        return _gc_op(x, w, bias, groups)
 
     @staticmethod
     def backward(ctx, dy):
@@ -235,12 +248,12 @@ def grouped_conv1d(x, w, bias, groups: int) -> torch.Tensor:
     `grouped_conv1d_ref` on the CPU; differentiable (`grouped_conv1d_bwd`)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, bias)):
         return _GroupedConv1d.apply(x, w, bias, groups)
-    return _gc_forward(x, w, bias, groups)
+    return _gc_op(x, w, bias, groups)
 
 
 def _gc_forward(x, w, bias, groups):
     if x.device.type == "cpu":
-        return grouped_conv1d_ref(x, w, bias, groups).to(x.dtype)
+        return grouped_conv1d_ref(x, w, bias, groups).to(x.dtype).contiguous()
     if x.device.type != "cuda":
         raise ValueError(f"grouped_conv1d: unsupported device {x.device}")
     _gc_check(x, w, bias, groups)
@@ -251,3 +264,9 @@ def _gc_forward(x, w, bias, groups):
     _build.check(err, "grouped_conv1d")
     _build.count("grouped_conv1d")
     return y
+
+
+_gc_op = operator(
+    "grouped_conv1d", "(Tensor x, Tensor w, Tensor bias, int groups) -> Tensor", _gc_forward,
+    lambda x, w, bias, groups: contiguous_like(x),
+    lambda x, w, bias, groups, out_shape=None: conv_flops(x, w))

@@ -18,6 +18,7 @@ import torch
 
 from f5tts_tpu_torch.config import MelConfig
 from f5tts_tpu_torch.ops.stft import hann_window, stft_magnitude, stft_magnitude_eps
+from f5tts_tpu_torch.precision import f32_call
 from f5tts_tpu_torch.utils import resolve_device
 
 _F_SP = 200.0 / 3.0          # Slaney: Hz per mel below 1 kHz
@@ -94,6 +95,7 @@ class MelFrontend:
         self.window = hann_window(self.cfg.win_length, self.device)
         self.fb = torch.from_numpy(fb).to(self.device)
 
+    @f32_call
     def __call__(self, wav: torch.Tensor) -> torch.Tensor:
         if wav.dim() == 1:
             wav = wav[None, :]

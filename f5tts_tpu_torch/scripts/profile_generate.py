@@ -194,8 +194,6 @@ def main(argv=None) -> int:
     from f5tts_tpu_torch.vocoder.bigvgan import BigVGAN
     from f5tts_tpu_torch.vocoder.vocos import Vocos, VocosConfig
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     backbone = PRESETS[args.model].backbone
     arch, params, vocoder_params = base_models(

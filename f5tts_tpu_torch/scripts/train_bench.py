@@ -141,8 +141,6 @@ def main(argv=None) -> int:
     from f5tts_tpu_torch.scripts.common import base_models, gpu_name_and_limit
     from f5tts_tpu_torch.train.step import init_train_state, make_optimizer, make_train_step
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     bdef = BACKBONES[PRESETS[args.model].backbone]
     remat = args.remat_policy != "none"

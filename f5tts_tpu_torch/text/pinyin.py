@@ -2,10 +2,11 @@
 f5tts_tpu/text/pinyin.py, the names and behaviour kept).
 
 - custom punctuation translation (; -> , and CJK quote normalisation);
-- word segmentation: python `jieba` if it imports, else one character at a
-  time. (The JAX package tries its native C++ copy of jieba first; it cuts
-  exactly as jieba does and needs jieba's dictionary, so it is no other
-  result.) `segmenter_name()` says which one runs;
+- word segmentation, in the JAX package's order: the native C++ segmenter
+  (`native/segmenter.py`: jieba's algorithm with the port's own copy of
+  jieba's dictionary and HMM tables, so it runs where jieba is not
+  installed), else python `jieba` if it imports, else one character at a
+  time. `segmenter_name()` says which one runs;
 - three branches per segment: pure ASCII (a space between words), pure CJK
   (pinyin per char, a space before each), mixed (char by char);
 - pinyin style TONE3 with tone sandhi.
@@ -21,6 +22,7 @@ Neutral tone is the bare syllable ("de", not "de5"); u-umlaut is "v".
 
 from __future__ import annotations
 
+import importlib
 import os
 from functools import lru_cache
 from typing import Iterable, Optional
@@ -155,7 +157,16 @@ def g2p(segment: str) -> list[str]:
 
 @lru_cache(maxsize=1)
 def _segmenter():
-    """(name, cut): python jieba if it imports, else one char at a time."""
+    """(name, cut), in the JAX package's order: the native C++ segmenter
+    ("native", `native/segmenter.py`, with its own jieba dictionary) if it
+    builds and loads, else python jieba if it imports, else one char at a
+    time."""
+    try:
+        native = importlib.import_module("f5tts_tpu_torch.native.segmenter")
+        native.load()
+        return "native", native.cut
+    except ImportError:
+        pass
     try:
         import jieba
     except ImportError:

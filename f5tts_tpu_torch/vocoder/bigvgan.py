@@ -10,7 +10,8 @@ to [-1, 1]. Every activation is anti-aliased: a 2x kaiser-sinc upsample
 x + 1 / (exp(beta) + eps) * sin^2(exp(alpha) x), a 2x kaiser-sinc
 downsample (a depthwise strided `F.conv1d`). No Pallas kernel computes
 any of this, so the convolutions go to PyTorch (cuDNN on the card). It
-runs in f32, as the reference forces.
+runs in f32, as the reference forces, with TF32 off whatever the caller's
+flags (`precision.full_f32`).
 
 Parameters keep the JAX package's tree: conv weights [out, in, k],
 transposed-conv weights [in, out, k] (PyTorch's own layouts), per-channel
@@ -28,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from f5tts_tpu_torch.models import modules as m
+from f5tts_tpu_torch.precision import f32_call
 from f5tts_tpu_torch.utils import resolve_device
 
 
@@ -164,6 +166,7 @@ def _amp_block(blk: m.Params, x: torch.Tensor, dils, filt: torch.Tensor) -> torc
     return x
 
 
+@f32_call
 def bigvgan_apply(params: m.Params, mel: torch.Tensor, filt: torch.Tensor,
                   cfg: BigVGANConfig = BigVGANConfig()) -> torch.Tensor:
     """log-mel [b, n_mels, t] -> wav [b, t * prod(upsample_rates)] in f32."""

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from f5tts_tpu_torch.models import modules as m
 from f5tts_tpu_torch.ops.stft import hann_window, istft_center
+from f5tts_tpu_torch.precision import f32_call
 from f5tts_tpu_torch.utils import resolve_device
 
 
@@ -57,9 +58,11 @@ def _convnext_v1_block(p: m.Params, x: torch.Tensor) -> torch.Tensor:
     return x + p["gamma"].to(h.dtype) * h
 
 
+@f32_call
 def vocos_apply(params: m.Params, mel_bnd: torch.Tensor, window: torch.Tensor,
                 n_fft: int = 1024, hop: int = 256, dtype=torch.float32) -> torch.Tensor:
-    """mel [b, t, n_mels] -> wav [b, (t-1)*hop] (f32)."""
+    """mel [b, t, n_mels] -> wav [b, (t-1)*hop] (f32), TF32 off
+    (`precision.full_f32`)."""
     x = mel_bnd.to(dtype)
     w = params["embed"]["w"].to(dtype)                  # [k, in, out] WIO
     k = w.shape[0]

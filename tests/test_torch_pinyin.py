@@ -4,11 +4,11 @@ against the JAX package's (f5tts_tpu.text.pinyin, text.vocab) on the CPU.
 Exact equality throughout: token lists, ids, vocab maps and data bytes.
 Both sides run their bundled tables (pypinyin pinned absent on both, as
 tests/test_pinyin_bundled.py pins it for the JAX module). The segmenter:
-both defaults (here jieba on the port's side; the JAX package's native
-segmenter cuts as jieba does, tests/test_segmenter.py), and both forced to
-one character at a time, the port's fallback where jieba is missing (the
-card's machine): the port's by hiding `jieba`, the JAX module's by a
-monkeypatched `segment`.
+both defaults (the native C++ segmenter on both sides, each cutting as
+jieba does on these texts: tests/test_segmenter.py,
+tests/test_torch_segmenter.py), and both forced to one character at a
+time, the last fallback: the port's by hiding `jieba` and its native
+segmenter, the JAX module's by a monkeypatched `segment`.
 """
 
 import filecmp
@@ -59,7 +59,10 @@ def test_g2p_matches_jax(segment):
 
 
 def test_convert_char_to_pinyin_default_segmenters_match_jax():
-    assert tp.segmenter_name() in ("jieba", "per-char")
+    assert tp.segmenter_name() in ("native", "jieba", "per-char")
+    if tp.segmenter_name() == "native":  # the port's C++ copy of jieba's cut
+        assert list(tp.segment(TEXTS[1])) == ["今天天气", "很", "好", "我们", "一起", "去",
+                                              "公园", "散步"]
     assert tp.convert_char_to_pinyin(TEXTS) == jp.convert_char_to_pinyin(TEXTS)
     assert tp.convert_char_to_pinyin(TEXTS, polyphone=False) == \
         jp.convert_char_to_pinyin(TEXTS, polyphone=False)
@@ -67,6 +70,8 @@ def test_convert_char_to_pinyin_default_segmenters_match_jax():
 
 def test_convert_char_to_pinyin_per_char_matches_jax(monkeypatch):
     monkeypatch.setitem(sys.modules, "jieba", None)  # `import jieba` raises ImportError
+    # and the native segmenter's import too: the card's fallback when its build fails
+    monkeypatch.setitem(sys.modules, "f5tts_tpu_torch.native.segmenter", None)
     tp._segmenter.cache_clear()
     try:
         assert tp.segmenter_name() == "per-char"

@@ -76,7 +76,10 @@ def test_port_imports_no_jax():
             "f5tts_tpu_torch.eval.eval_runner, f5tts_tpu_torch.eval.eval_seedtts_testset, "
             "f5tts_tpu_torch.eval.eval_librispeech_test_clean, f5tts_tpu_torch.infer.viz, "
             "f5tts_tpu_torch.infer.asr, f5tts_tpu_torch.infer.multistyle, "
-            "f5tts_tpu_torch.infer.voice_chat\n"
+            "f5tts_tpu_torch.infer.voice_chat, f5tts_tpu_torch.compat.export, "
+            "f5tts_tpu_torch.native.segmenter, f5tts_tpu_torch.profiling, "
+            "f5tts_tpu_torch.precision, f5tts_tpu_torch.scripts.count_params_gflops, "
+            "f5tts_tpu_torch.scripts.parity_check, f5tts_tpu_torch.scripts.op_call_cost\n"
             "from f5tts_tpu_torch.config import load_model_config, model_config_from_dict\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'jaxlib', 'f5tts_tpu', 'transformers')]\n"
