@@ -294,10 +294,30 @@ Phases (any failure raises, and the script exits non-zero):
     --write-golden then --golden (exit 0, launches exact), the vocoder leg
     on a reference-key Vocos. Every phase runs at torch's default TF32
     flags, as users run.
+25. Head width 128 and K10's range (`phase_head_width`). Phase 2 also
+    holds every attention mode at 8 heads of 128 (`phase_kernels_d128`:
+    K3 / K3-lse at n = 1024 / 3200 / 4096, K4 at 1024 / 3072 / 4096, K5 /
+    K5-lse / K8 and K11 at joint 1024 + 128 and 4096 + 256, K7 / K7-lse /
+    K9 at 1024 and 4224, K7 / K9 also at d = 96, zero-padded to 128, K6 on
+    [2, 8, 4096, 128]) and K10 at `K10_RANGE_CASES` (16 groups of 160 and
+    192, one group of 1024, k 63, 30 and 301) under the same tolerances;
+    their rows are the `@d128` / `@W>128,k>31` entries of the kernels line,
+    whose launches are this phase's. (a) DiT d128, F5TTS_v1_Base at 8
+    heads of 128, full width and depth, through InferencePipeline.infer at
+    the 1024 bucket and the cap (K3 / K1 / K2 352 / 720 / 32 a generate),
+    then the graphed generate against the eager one at both; (b) Trainer
+    updates at 16 x 1024 and 4 x 3072 (22 / 22 / 45 / 1 an update), ms and
+    peak; (c) depth 2 card bf16 against CPU f32, a generate (mel <= 3e-2)
+    and a training step (phase 6's gate); (d) E2TTS_Base, MMDiT_Base and
+    the qk-norm MMDiT at 8 x 128 and depth D128_OTHER_DEPTH through infer
+    at 1024 and the cap (K3 / K7, K5, K11 and K6 on [b, 8, n, 128] rows),
+    E2TTS's 4 x 4096 update (K7-lse / K9) and the MMDiT's 16 x 1024 update
+    (K5-lse / K8); (e) the conv-position module at dim 2560 (16 groups of
+    160: two K10 launches) against the f32 plain chain.
 
 Prints the `kernels` JSON line (launches: what the card ran on the
 inference and training paths of phases 3, 5, 7, 8, 10, 11, 13, 14, 17, 18,
-19, 20, 21, 22 (b), 23 and 24, each graph replay counted with its capture's
+19, 20, 21, 22 (b), 23, 24 and 25, each graph replay counted with its capture's
 counts), the card's name and power limit,
 and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the repo's
@@ -568,16 +588,16 @@ def check_conv_pos(rng, dev) -> dict:
     return out_row
 
 
-def check_attention(rng, dev) -> dict:
+def check_attention(rng, dev, h: int = 16, d: int = 64, ns=(1024, 3200, 4096)) -> dict:
     import torch
     import torch.nn.functional as F
     from f5tts_tpu_torch.ops.attention import fused_qkv_rope_attention, fused_qkv_rope_attention_ref
     from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
 
-    b, h, d = 2, 16, 64
+    b = 2
     hd = h * d
     out_row = None
-    for n in (1024, 3200, 4096):
+    for n in ns:
         lengths = torch.tensor([n, 777], dtype=torch.int32, device=dev)
         qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * hd)).astype(np.float32)).to(dev, torch.bfloat16)
         cos, sin = rope_flat_tables(rope_freqs_interleaved(d, n).to(dev), n, h, dtype=torch.bfloat16)
@@ -597,7 +617,7 @@ def check_attention(rng, dev) -> dict:
         qh, kh, vh = flat_to_heads(qkv, cos, sin, h)
         kmask = (torch.arange(n, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
         lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=kmask))
-        log(f"  fused_qkv_rope_attention b=2 h=16 d=64 n={n} lengths [{n}, 777]: max_abs_err "
+        log(f"  fused_qkv_rope_attention b=2 h={h} d={d} n={n} lengths [{n}, 777]: max_abs_err "
             f"{err:.3e} (tol {TOL['fused_qkv_rope_attention']}), dead rows max {dead:.1e}, "
             f"{ms:.4f} ms (eager call {wall:.4f} ms), bound {bound:.4f} ms (operations), "
             f"plain {plain:.4f} ms, sdpa {lib:.4f} ms")
@@ -684,7 +704,7 @@ def flat_lse_row(name: str, n: int, live_rows, out, lse, ref, ref_lse, tile_end:
     ms = time_ms(timed)
     plain_ms = time_ms(plain, reps=1, iters=5)
     torch.cuda.synchronize()
-    log(f"  {name} b=2 h=16 d=64 {what}: max_abs_err {err:.3e} (tol {TOL[name]}), lse max err "
+    log(f"  {name} {what}: max_abs_err {err:.3e} (tol {TOL[name]}), lse max err "
         f"{lse_err:.3e} (tol {LSE_TOL}), dead tiles -1e30: {dead_ok}, {ms:.4f} ms, bound "
         f"{bound:.4f} ms (operations), plain {plain_ms:.4f} ms, sdpa efficient with lse {lib:.4f} ms")
     if not (dead_ok and lse_err <= LSE_TOL):
@@ -693,7 +713,7 @@ def flat_lse_row(name: str, n: int, live_rows, out, lse, ref, ref_lse, tile_end:
             "bound_by": "operations", "library_ms": lib}
 
 
-def check_attention_lse(rng, dev) -> dict:
+def check_attention_lse(rng, dev, h: int = 16, d: int = 64, ns=(1024, 3200, 4096)) -> dict:
     """K3's lse mode (the training forward) at K3's shapes: its output equal
     to K3's, its lse against the plain version's on the same bf16 inputs."""
     import torch
@@ -702,10 +722,10 @@ def check_attention_lse(rng, dev) -> dict:
                                                fused_qkv_rope_attention_ref)
     from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
 
-    b, h, d = 2, 16, 64
+    b = 2
     hd = h * d
     out_row = None
-    for n in (1024, 3200, 4096):
+    for n in ns:
         lengths = torch.tensor([n, 777], dtype=torch.int32, device=dev)
         qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * hd)).astype(np.float32)).to(dev, torch.bfloat16)
         cos, sin = rope_flat_tables(rope_freqs_interleaved(d, n).to(dev), n, h, dtype=torch.bfloat16)
@@ -721,7 +741,7 @@ def check_attention_lse(rng, dev) -> dict:
             "fused_qkv_rope_attention_lse", n, live, out, lse, ref, ref_lse, -(-777 // 64) * 64,
             lambda: fused_qkv_rope_attention_fwd(qkv, cos, sin, lengths, h, return_lse=True),
             lambda: fused_qkv_rope_attention_ref(qkv, cos, sin, lengths, h, return_lse=True),
-            lib, 4 * h * d * sq, nbytes, f"n={n} lengths [{n}, 777]"))
+            lib, 4 * h * d * sq, nbytes, f"b=2 h={h} d={d} n={n} lengths [{n}, 777]"))
     return out_row
 
 
@@ -760,7 +780,7 @@ def check_flat_bwd(name: str, got, wants, live_rows, dead: float, timed, plain, 
             "bound_by": "operations", "library_ms": lib}
 
 
-def check_attention_bwd(rng, dev) -> dict:
+def check_attention_bwd(rng, dev, h: int = 16, d: int = 64, ns=(1024, 3072, 4096)) -> dict:
     """K4 from K3's saved output and lse (its lse mode), dO on every row."""
     import torch
     from f5tts_tpu_torch.ops.attention import (fused_qkv_rope_attention_bwd,
@@ -769,10 +789,10 @@ def check_attention_bwd(rng, dev) -> dict:
                                                fused_qkv_rope_attention_fwd)
     from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
 
-    b, h, d = 2, 16, 64
+    b = 2
     hd = h * d
     out_row = None
-    for n in (1024, 3072, 4096):
+    for n in ns:
         lengths = torch.tensor([n, 777], dtype=torch.int32, device=dev)
         qkv, dout = bwd_inputs(rng, dev, b, n, hd)
         cos, sin = rope_flat_tables(rope_freqs_interleaved(d, n).to(dev), n, h, dtype=torch.bfloat16)
@@ -790,22 +810,23 @@ def check_attention_bwd(rng, dev) -> dict:
             "fused_qkv_rope_attention_bwd", got, wants, kmask, float(got[1, 777:].abs().max()),
             lambda: fused_qkv_rope_attention_bwd(*args),
             lambda: fused_qkv_rope_attention_bwd_from_lse_ref(*args), lib, lib_fwd,
-            10 * h * d * sq, nbytes, f"b=2 h=16 d=64 n={n} lengths [{n}, 777]"))
+            10 * h * d * sq, nbytes, f"b=2 h={h} d={d} n={n} lengths [{n}, 777]"))
     return out_row
 
 
-def check_attention_bias(rng, dev) -> dict:
+def check_attention_bias(rng, dev, h: int = 16, d: int = 64, cases=None) -> dict:
     import torch
     import torch.nn.functional as F
     from f5tts_tpu_torch.ops.attention import (fused_qkv_rope_attention_bias,
                                                fused_qkv_rope_attention_bias_ref)
 
-    b, h, d = 2, 16, 64
+    b = 2
     hd = h * d
     out_row = None
-    for na, nt, gap in JOINT_CASES + JOINT_EDGE_CASES:  # joint 1152, 3200, 4352, 1124, 1152
+    # joint 1152, 3200, 4352, 1124, 1152
+    for na, nt, gap in cases or JOINT_CASES + JOINT_EDGE_CASES:
         n = na + nt
-        qkv, cos, sin, kmask = joint_case(rng, dev, na, nt, gap)
+        qkv, cos, sin, kmask = joint_case(rng, dev, na, nt, gap, h, d)
         out = fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, h)
         ref = fused_qkv_rope_attention_bias_ref(qkv.float(), cos.float(), sin.float(), kmask, h)
         torch.cuda.synchronize()
@@ -822,7 +843,7 @@ def check_attention_bias(rng, dev) -> dict:
         qh, kh, vh = flat_to_heads(qkv, cos, sin, h)
         mask4 = kmask[:, None, None, :]
         lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask4))
-        log(f"  fused_qkv_rope_attention_bias b=2 h=16 d=64 joint n={n} ({na} audio + {nt} text"
+        log(f"  fused_qkv_rope_attention_bias b=2 h={h} d={d} joint n={n} ({na} audio + {nt} text"
             f"{gap_text(gap)}), live keys {live_keys}: max_abs_err over live rows {err:.3e} (tol "
             f"{TOL['fused_qkv_rope_attention_bias']}), dead rows {dead:.3e}, {ms:.4f} ms (eager "
             f"call {wall:.4f} ms), bound {bound:.4f} ms (operations), plain {plain:.4f} ms, "
@@ -845,13 +866,13 @@ RMS_SHAPES = (((2, 1024, 1024), False), ((2, 1024, 768), False), ((2, 16, 4096, 
               ((2, 16, 4096, 64), True), ((2, 16, 256, 64), False))
 
 
-def check_rms_norm(rng, dev) -> dict:
+def check_rms_norm(rng, dev, shapes=RMS_SHAPES) -> dict:
     import torch
     import torch.nn.functional as F
     from f5tts_tpu_torch.ops.adaln_norm import rms_norm, rms_norm_ref
 
     out_row = None
-    for shape, view in RMS_SHAPES:
+    for shape, view in shapes:
         d = shape[-1]
         if view:
             b, h, n, _ = shape
@@ -879,15 +900,15 @@ def check_rms_norm(rng, dev) -> dict:
     return out_row
 
 
-def check_flash(rng, dev) -> dict:
+def check_flash(rng, dev, h: int = 16, d: int = 64, ns=(1024, 4224)) -> dict:
     import torch
     import torch.nn.functional as F
     from f5tts_tpu_torch.ops.attention import flash_attention, flash_attention_fwd_ref
 
-    b, h, d = 2, 16, 64
+    b = 2
     out_row = None
     tile_end = -(-777 // 64) * 64
-    for n in (1024, 4224):
+    for n in ns:
         lengths = torch.tensor([n, 777], dtype=torch.int32, device=dev)
         q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, d)).astype(np.float32))
                    .to(dev, torch.bfloat16) for _ in range(3))
@@ -908,7 +929,7 @@ def check_flash(rng, dev) -> dict:
         plain = time_ms(lambda: flash_attention_fwd_ref(q, k, v, lengths), reps=1, iters=5)
         kmask = (torch.arange(n, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
         lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=kmask))
-        log(f"  flash_attention b=2 h=16 d=64 n={n} lengths [{n}, 777]: max_abs_err {err:.3e} "
+        log(f"  flash_attention b=2 h={h} d={d} n={n} lengths [{n}, 777]: max_abs_err {err:.3e} "
             f"over live q tiles (tol {TOL['flash_attention']}), dead q tiles max {dead:.1e}, "
             f"{ms:.4f} ms (eager call "
             f"{wall:.4f} ms), bound {bound:.4f} ms (operations), plain {plain:.4f} ms, "
@@ -921,15 +942,15 @@ def check_flash(rng, dev) -> dict:
     return out_row
 
 
-def check_flash_lse(rng, dev) -> dict:
+def check_flash_lse(rng, dev, h: int = 16, d: int = 64, ns=(1024, 4224)) -> dict:
     """K7's lse mode: the output as K7's, the lse on live q tiles within
     LSE_TOL of the plain version's, exactly -1e30 on the tiles past the length."""
     import torch
     from f5tts_tpu_torch.ops.attention import NEG_INF, flash_attention_fwd, flash_attention_fwd_ref
 
-    b, h, d = 2, 16, 64
+    b = 2
     out_row = None
-    for n in (1024, 4224):
+    for n in ns:
         lengths = torch.tensor([n, 777], dtype=torch.int32, device=dev)
         q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, d)).astype(np.float32))
                    .to(dev, torch.bfloat16) for _ in range(3))
@@ -951,7 +972,7 @@ def check_flash_lse(rng, dev) -> dict:
         plain = time_ms(lambda: flash_attention_fwd_ref(q, k, v, lengths, return_lse=True),
                         reps=1, iters=5)
         lib = sdpa_lse_ms(q, k, v, torch.arange(n, device=dev)[None, :] < lengths[:, None])
-        log(f"  flash_attention_lse b=2 h=16 d=64 n={n} lengths [{n}, 777]: max_abs_err {err:.3e} "
+        log(f"  flash_attention_lse b=2 h={h} d={d} n={n} lengths [{n}, 777]: max_abs_err {err:.3e} "
             f"over live q tiles (tol {TOL['flash_attention_lse']}), lse max err {lse_err:.3e} (tol "
             f"{LSE_TOL}) on live "
             f"tiles, dead tiles -1e30 and 0: {dead_ok}, {ms:.4f} ms, bound {bound:.4f} ms "
@@ -972,15 +993,15 @@ JOINT_CASES = ((1024, 128, None), (3072, 128, None), (4096, 256, None))
 JOINT_EDGE_CASES = ((1024, 100, None), (1024, 128, (192, 448)))
 
 
-def joint_case(rng, dev, na: int, nt: int, gap=None, h: int = 16):
+def joint_case(rng, dev, na: int, nt: int, gap=None, h: int = 16, d: int = 64):
     """K5's / K8's phase-2 inputs at joint n = na + nt: qkv, the joint rope
     tables and the key mask (row 0: audio live to 777 of 1024, 3/4 of longer
     buckets, text 100 live; row 1: all audio live but the keys of `gap`, text
-    120: dead keys mid-sequence); `h` heads of 64."""
+    120: dead keys mid-sequence); `h` heads of `d`."""
     import torch
     from f5tts_tpu_torch.ops.rope import rope_flat_tables, rope_freqs_interleaved
 
-    b, d = 2, 64
+    b = 2
     n = na + nt
     kmask = torch.zeros(b, n, dtype=torch.bool, device=dev)
     kmask[0, :777 if na == 1024 else 3 * na // 4] = True
@@ -1000,7 +1021,7 @@ def gap_text(gap) -> str:
     return "" if gap is None else f", row 1's keys {gap[0]}..{gap[1] - 1} dead"
 
 
-def check_attention_bias_lse(rng, dev) -> dict:
+def check_attention_bias_lse(rng, dev, h: int = 16, d: int = 64, cases=None) -> dict:
     """K5's lse mode at K5's joint shapes and masks: its output equal to K5's,
     its lse (every row) against the plain version's on the same inputs."""
     import torch
@@ -1008,12 +1029,13 @@ def check_attention_bias_lse(rng, dev) -> dict:
                                                fused_qkv_rope_attention_bias_fwd,
                                                fused_qkv_rope_attention_bias_ref)
 
-    b, h, d = 2, 16, 64
+    b = 2
     hd = h * d
     out_row = None
-    for na, nt, gap in JOINT_CASES + JOINT_EDGE_CASES:  # joint 1152, 3200, 4352, 1124, 1152
+    # joint 1152, 3200, 4352, 1124, 1152
+    for na, nt, gap in cases or JOINT_CASES + JOINT_EDGE_CASES:
         n = na + nt
-        qkv, cos, sin, kmask = joint_case(rng, dev, na, nt, gap)
+        qkv, cos, sin, kmask = joint_case(rng, dev, na, nt, gap, h, d)
         out, lse = fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, h, return_lse=True)
         ref, ref_lse = fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, h, return_lse=True)
         if not torch.equal(out, fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, h)):
@@ -1026,11 +1048,12 @@ def check_attention_bias_lse(rng, dev) -> dict:
             lambda: fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, h, return_lse=True),
             lambda: fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, h, return_lse=True),
             lib, 4 * h * d * n * sum(live_keys), nbytes,
-            f"joint n={n} ({na} audio + {nt} text{gap_text(gap)}), live keys {live_keys}"))
+            f"b=2 h={h} d={d} joint n={n} ({na} audio + {nt} text{gap_text(gap)}), live keys "
+            f"{live_keys}"))
     return out_row
 
 
-def check_attention_bias_bwd(rng, dev) -> dict:
+def check_attention_bias_bwd(rng, dev, h: int = 16, d: int = 64, cases=None) -> dict:
     """K8 from K5's saved output and lse (its lse mode) on K5's joint shapes
     and masks, dO on every row."""
     import torch
@@ -1039,12 +1062,13 @@ def check_attention_bias_bwd(rng, dev) -> dict:
                                                fused_qkv_rope_attention_bias_bwd_ref,
                                                fused_qkv_rope_attention_bias_fwd)
 
-    b, h, d = 2, 16, 64
+    b = 2
     hd = h * d
     out_row = None
-    for na, nt, gap in JOINT_CASES + JOINT_EDGE_CASES[:1]:  # joint 1152, 3200, 4352, 1124
+    # joint 1152, 3200, 4352, 1124
+    for na, nt, gap in cases or JOINT_CASES + JOINT_EDGE_CASES[:1]:
         n = na + nt
-        qkv, cos, sin, kmask = joint_case(rng, dev, na, nt, gap)
+        qkv, cos, sin, kmask = joint_case(rng, dev, na, nt, gap, h, d)
         dout = bwd_inputs(rng, dev, b, n, hd)[1]
         out, lse = fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, h, return_lse=True)
         args = (qkv, cos, sin, kmask, out, lse, dout, h)
@@ -1061,11 +1085,12 @@ def check_attention_bias_bwd(rng, dev) -> dict:
             lambda: fused_qkv_rope_attention_bias_bwd(*args),
             lambda: fused_qkv_rope_attention_bias_bwd_from_lse_ref(*args), lib, lib_fwd,
             10 * h * d * n * sum(live_keys), nbytes,
-            f"b=2 h=16 d=64 joint n={n} ({na} audio + {nt} text), live keys {live_keys}"))
+            f"b=2 h={h} d={d} joint n={n} ({na} audio + {nt} text), live keys {live_keys}"))
     return out_row
 
 
-def check_flash_bwd(rng, dev) -> dict:
+def check_flash_bwd(rng, dev, h: int = 16, d: int = 64,
+                    cases=((1024, True), (4224, True), (1024, False))) -> dict:
     """K9 from K7's saved output and lse at n = 1024 and 4224, dO zero on rows
     >= length; and at n = 1024 with dO nonzero on every row, so rows 777..831
     of batch row 1 (past the length, inside the last live q tile) carry a
@@ -1075,9 +1100,9 @@ def check_flash_bwd(rng, dev) -> dict:
     from f5tts_tpu_torch.ops.attention import (flash_attention_bwd, flash_attention_bwd_ref,
                                                flash_attention_fwd)
 
-    b, h, d = 2, 16, 64
+    b = 2
     out_row = None
-    for n, row_masked in ((1024, True), (4224, True), (1024, False)):
+    for n, row_masked in cases:
         lengths = torch.tensor([n, 777], dtype=torch.int32, device=dev)
         q, k, v, dout = (torch.from_numpy(rng.standard_normal((b, h, n, d)).astype(np.float32))
                          .to(dev, torch.bfloat16) for _ in range(4))
@@ -1104,7 +1129,7 @@ def check_flash_bwd(rng, dev) -> dict:
         plain = time_ms(lambda: flash_attention_bwd_ref(q, k, v, lengths, o, lse, dout),
                         reps=1, iters=3)
         lib, lib_fwd = sdpa_bwd_ms(q, k, v, dout, live)
-        log(f"  flash_attention_bwd b=2 h=16 d=64 n={n} lengths [{n}, 777], dO "
+        log(f"  flash_attention_bwd b=2 h={h} d={d} n={n} lengths [{n}, 777], dO "
             f"{'zero past the length' if row_masked else 'on every row'}: dq/dk/dv rel-L2 "
             f"max {rel:.3e} (tol {BWD_REL_L2_TOL}), max_abs_err {err:.3e} (tol "
             f"{BWD_MAX_ABS_REL_TOL} x smallest largest entry {top:.3e}), dead rows/keys max "
@@ -1121,16 +1146,25 @@ def check_flash_bwd(rng, dev) -> dict:
     return out_row
 
 
-def check_grouped_conv(rng, dev) -> dict:
-    """K10 at the dim-768 presets' conv (16 groups of 48, k = 31) and at 16
-    groups of 24 with an even k (the zero-padded lanes, asymmetric padding)."""
+# K10's phase-2 shapes (b, n, c, k, groups): the dim-768 presets' conv (16
+# groups of 48, k = 31) and 16 groups of 24 with an even k (the zero-padded
+# lanes, asymmetric padding)
+K10_CASES = ((2, 1024, 768, 31, 16), (2, 4096, 768, 31, 16), (2, 1024, 384, 4, 16))
+# and the Pallas body's range past the old limits: groups wider than 128 (dim
+# 2560 and 3072 at 16 groups, a dense conv of 1024 channels), k 63 and an
+# even k 30, and x in the ring (k 301)
+K10_RANGE_CASES = ((2, 1024, 2560, 31, 16), (2, 1024, 768, 63, 16), (2, 1024, 768, 30, 16),
+                   (2, 4096, 3072, 31, 16), (2, 1024, 1024, 31, 1), (2, 1024, 768, 301, 16))
+
+
+def check_grouped_conv(rng, dev, cases=K10_CASES) -> dict:
+    """K10 at each case of `cases` (b, n, c, k, groups)."""
     import torch
     import torch.nn.functional as F
     from f5tts_tpu_torch.ops.grouped_conv import grouped_conv1d, grouped_conv1d_ref
 
     out_row = None
-    for b, n, c, k in ((2, 1024, 768, 31), (2, 4096, 768, 31), (2, 1024, 384, 4)):
-        groups = 16
+    for b, n, c, k, groups in cases:
         width = c // groups
         x = torch.from_numpy(rng.standard_normal((b, n, c)).astype(np.float32)).to(dev, torch.bfloat16)
         bound_w = 1.0 / math.sqrt(width * k)
@@ -1160,13 +1194,13 @@ def check_grouped_conv(rng, dev) -> dict:
     return out_row
 
 
-def check_masked_flash(rng, dev) -> dict:
+def check_masked_flash(rng, dev, h: int = 16, d: int = 64) -> dict:
     """K11 at the MMDiT phases' joint lengths with K5's masks, every row."""
     import torch
     import torch.nn.functional as F
     from f5tts_tpu_torch.ops.attention import masked_flash_attention, mha_reference_masked
 
-    b, h, d = 2, 16, 64
+    b = 2
     out_row = None
     for na, nt in ((1024, 128), (4096, 256)):  # joint 1152, 4352
         n = na + nt
@@ -1190,7 +1224,7 @@ def check_masked_flash(rng, dev) -> dict:
         plain = time_ms(lambda: mha_reference_masked(q, k, v, kmask), reps=1, iters=5)
         mask4 = kmask[:, None, None, :]
         lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4))
-        log(f"  masked_flash_attention b=2 h=16 d=64 joint n={n} ({na} audio + {nt} text), live "
+        log(f"  masked_flash_attention b=2 h={h} d={d} joint n={n} ({na} audio + {nt} text), live "
             f"keys {live_keys}: max_abs_err over every row {err:.3e} (tol "
             f"{TOL['masked_flash_attention']}), {ms:.4f} ms (eager call {wall:.4f} ms), bound "
             f"{bound:.4f} ms (operations), plain {plain:.4f} ms, sdpa {lib:.4f} ms")
@@ -1219,9 +1253,54 @@ def phase_kernels(dev) -> dict:
             "grouped_conv1d": check_grouped_conv(rng, dev),
             "masked_flash_attention": check_masked_flash(rng, dev)}
     torch.cuda.synchronize()
-    for name, tol in TOL.items():
-        if not rows[name]["max_abs_err"] <= tol:
-            raise AssertionError(f"{name}: max_abs_err {rows[name]['max_abs_err']} > {tol}")
+    log("  head width 128 (8 heads of 128, h*d 1024 as at 16 x 64) and K10's range:")
+    rows.update(phase_kernels_d128(dev))
+    for name, row in rows.items():
+        tol = TOL.get(base_name(name))
+        if tol is not None and not row["max_abs_err"] <= tol:
+            raise AssertionError(f"{name}: max_abs_err {row['max_abs_err']} > {tol}")
+    return rows
+
+
+# the rows of the kernels line that phase 25 launches: the d = 128
+# instantiations and K10 past its old range, "<counter>@<what>"
+D128 = "@d128"
+K10_RANGE = "@W>128,k>31"
+JOINT_D128 = ((1024, 128, None), (4096, 256, None))
+
+
+def base_name(row: str) -> str:
+    """The launch counter (and TOL / SOURCES / REPLACES key) of a row."""
+    return row.split("@")[0]
+
+
+def phase_kernels_d128(dev) -> dict:
+    """Every attention mode at 8 heads of 128 (the DiT d128 / E2TTS /
+    MMDiT widths at dim_head 128) against its plain version at phase 2's
+    shapes and tolerances; K7 / K9 also at a padded width (d = 96, merged
+    into their d = 128 rows, whose kernel runs it); K6 on [2, 8, 4096, 128]
+    head rows; K10 at `K10_RANGE_CASES`."""
+    rng = np.random.default_rng(22)
+    h, d = 8, 128
+    rows = {
+        "fused_qkv_rope_attention" + D128: check_attention(rng, dev, h, d),
+        "fused_qkv_rope_attention_lse" + D128: check_attention_lse(rng, dev, h, d),
+        "fused_qkv_rope_attention_bwd" + D128: check_attention_bwd(rng, dev, h, d),
+        "fused_qkv_rope_attention_bias" + D128: check_attention_bias(rng, dev, h, d, JOINT_D128),
+        "fused_qkv_rope_attention_bias_lse" + D128: check_attention_bias_lse(rng, dev, h, d,
+                                                                            JOINT_D128),
+        "fused_qkv_rope_attention_bias_bwd" + D128: check_attention_bias_bwd(rng, dev, h, d,
+                                                                            JOINT_D128),
+        "rms_norm" + D128: check_rms_norm(rng, dev, (((2, 8, 4096, 128), False),)),
+        "flash_attention" + D128: merge_rows(check_flash(rng, dev, h, d),
+                                             check_flash(rng, dev, h, 96, (1024,))),
+        "flash_attention_lse" + D128: check_flash_lse(rng, dev, h, d),
+        "flash_attention_bwd" + D128: merge_rows(
+            check_flash_bwd(rng, dev, h, d, ((1024, True), (4224, True))),
+            check_flash_bwd(rng, dev, h, 96, ((1024, False),))),
+        "masked_flash_attention" + D128: check_masked_flash(rng, dev, h, d),
+        "grouped_conv1d" + K10_RANGE: check_grouped_conv(rng, dev, K10_RANGE_CASES),
+    }
     return rows
 
 
@@ -4576,7 +4655,8 @@ SEGMENTER_CUTS = {
     "小明硕士毕业于中国科学院计算所": ["小明", "硕士", "毕业", "于", "中国科学院", "计算所"],
     "这是一个伸手不见五指的黑夜": ["这是", "一个", "伸手不见五指", "的", "黑夜"],
 }
-EXPORT_NFE = 4            # the full-width exports' NFE (a 16-NFE export takes > 60 s)
+EXPORT_NFE = 2            # the full-width exports' NFE (a 16-NFE export takes > 60 s; 4 NFE
+                          # took 62-84 s of phase 24, cut to keep the script's time)
 EXPORT_TOL = 1e-3         # the exported sampler against the eager one, max-abs
 VOCOS_EXPORT_TOL = 1e-5   # the exported Vocos against the eager decode, max-abs
 TF32_REL_TOL = 1e-6       # a module with TF32 on globally against off, rel-L2
@@ -4953,6 +5033,151 @@ def phase_last_modules(dev, gpu: str) -> tuple[dict, dict]:
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 25
+# ---------------------------------------------------------------------------
+
+D128_HEADS = {"heads": 8, "dim_head": 128}  # a Base preset's inner width at 8 heads of 128
+# (batch, frames, updates, launches an update) of DiT d128's Trainer cells
+D128_TRAIN_CELLS = ((16, 1024, 2, _DIT_PER_UPDATE), (4, 3072, 2, _DIT_PER_UPDATE))
+D128_OTHER_DEPTH = 4  # the E2TTS / MMDiT / qk-norm MMDiT depth at 8 x 128, cut to keep time
+CONV_DIM = 2560       # the conv-position module at 16 groups of 160 (K10 past W = 128)
+
+
+def phase25_conv_pos(dev, gpu: str) -> dict:
+    """One `conv_pos_embedding` module call at dim 2560 (16 groups of 160:
+    the unfused chain, two K10 launches) in bf16 against the plain version
+    of the same chain in f32 on the same inputs (`conv_pos_embedding_ref`,
+    the convs `grouped_conv1d_ref`), max-abs over live rows <=
+    TOL["conv_pos_embedding"]."""
+    import torch
+    from f5tts_tpu_torch.models import modules
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.ops.grouped_conv import conv_pos_embedding_ref
+
+    p = modules.init_conv_pos_embedding(torch.Generator().manual_seed(25), CONV_DIM)
+    p = modules.tree_map(lambda t: t.to(dev, torch.bfloat16), p)
+    rng = np.random.default_rng(25)
+    x = torch.from_numpy(rng.standard_normal((2, 1024, CONV_DIM)).astype(np.float32))
+    x = x.to(dev, torch.bfloat16)
+    lengths = torch.tensor([1024, 777], dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    got = modules.conv_pos_embedding(p, x, lengths)
+    torch.cuda.synchronize()
+    ran = _build.launches()
+    want = conv_pos_embedding_ref(x.float(), *(p[c][k].float() for c in ("conv1", "conv2")
+                                               for k in ("w", "b")), lengths, 16)
+    err = live_err(got, want, lengths)
+    ms = time_ms(lambda: modules.conv_pos_embedding(p, x, lengths))
+    log(f"  conv_pos_embedding [2, 1024, {CONV_DIM}] (16 groups of {CONV_DIM // 16}, k 31), bf16 "
+        f"vs the f32 plain chain: max_abs_err {err:.3e} (tol {TOL['conv_pos_embedding']}), "
+        f"{ms:.4f} ms the module, launches {ran} [{gpu}]")
+    if not (err <= TOL["conv_pos_embedding"] and ran == {"grouped_conv1d": 2}):
+        raise AssertionError(f"conv_pos_embedding at dim {CONV_DIM}: err {err}, launches {ran}")
+    return ran
+
+
+def phase_head_width(dev, gpu: str) -> tuple[dict, dict]:
+    """Phase 25: head width 128 and K10's range through the entry points.
+    (a) DiT d128 (F5TTS_v1_Base at 8 heads of 128, full width and depth)
+    through `InferencePipeline.infer` at the 1024 bucket and the cap (K3 /
+    K1 / K2 exact a generate), then the graphed generate against the eager
+    one at both on a second pipeline; (b) `Trainer` updates at 16 x 1024 and
+    4 x 3072 (K3-lse / K4 / K1 / K2 22 / 22 / 45 / 1 an update); (c) card
+    bf16 against CPU f32 at depth 2, inference and a training step; (d)
+    E2TTS, MMDiT and the qk-norm MMDiT at 8 x 128, depth D128_OTHER_DEPTH,
+    through `infer` at the 1024 bucket and the cap (K3 / K7, K5, K11 / K6),
+    E2TTS's 4 x 4096 update (K7-lse / K9) and the MMDiT's 16 x 1024 update
+    (K5-lse / K8); (e) the conv-position module at dim 2560. Returns the
+    phase's launches (every count set to 0 before each run, read after) and
+    its rows."""
+    import torch
+    from f5tts_tpu_torch.scripts.common import REQUESTS, base_models
+
+    t_phase = time.perf_counter()
+    launches: dict[str, int] = {}
+    seconds: dict[str, float] = {}
+    out: dict = {}
+
+    def add(ran: dict) -> None:
+        for name, c in ran.items():
+            launches[name] = launches.get(name, 0) + c
+
+    t0 = time.perf_counter()
+    arch, params, vocos_params = base_models(**D128_HEADS)
+    log(f"  (a) DiT d128: dim {arch.dim}, depth {arch.depth}, {arch.heads} heads of "
+        f"{arch.dim_head}, through InferencePipeline.infer")
+    expect = generate_launches("DiT", arch)
+    pipe = make_pipeline(dev, "DiT", arch, params, vocos_params)
+    add(run_requests(pipe, [(REQUESTS[0], 1014, expect), (REQUESTS[1], 4086, expect)], gpu))
+    del pipe
+    pipe = make_pipeline(dev, "DiT", arch, params, vocos_params)
+    out["graphs"] = [compare_graph_eager(pipe, expect, total, gpu) for total in (1014, 4086)]
+    del pipe
+    torch.cuda.empty_cache()
+    seconds["serving"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log("  (b) DiT d128: Trainer.train at 16 x 1024 and 4 x 3072")
+    add(phase_train(dev, arch, params, gpu, "DiT", D128_TRAIN_CELLS))
+    seconds["training"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log("  (c) DiT d128 at depth 2, card bf16 against cpu f32: inference, a training step")
+    out["mel_rel_l2"] = phase_card_vs_cpu(dev, arch, params, vocos_params, "DiT", {
+        "fused_qkv_rope_attention": 2, "adaln_norm": 5, "conv_pos_embedding": 2})[0]
+    phase_train_card_vs_cpu(dev, arch, params)
+    del params
+    torch.cuda.empty_cache()
+    seconds["card_vs_cpu"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    depth = {"depth": D128_OTHER_DEPTH, **D128_HEADS}
+    for model, backbone, over in (("E2TTS_Base", "UNetT", {}), ("MMDiT_Base", "MMDiT", {}),
+                                  ("MMDiT_Base", "MMDiT", {"qk_norm": "rms_norm"})):
+        arch_b, params_b, vocos_b = base_models(model=model, **depth, **over)
+        log(f"  (d) {model}{' qk-norm' if over else ''} at {arch_b.heads} x {arch_b.dim_head}, "
+            f"depth {arch_b.depth}, through InferencePipeline.infer")
+        pipe = make_pipeline(dev, backbone, arch_b, params_b, vocos_b)
+        if backbone == "UNetT":
+            cases = [(REQUESTS[0], 1013, generate_launches("UNetT", arch_b)),
+                     (REQUESTS[1], 4096, generate_launches("UNetT", arch_b, False))]
+        else:
+            cases = [(REQUESTS[2], 1014, generate_launches("MMDiT", arch_b)),
+                     (REQUESTS[1], 4096, generate_launches("MMDiT", arch_b))]
+        add(run_requests(pipe, cases, gpu))
+        del pipe
+        if backbone == "UNetT":
+            cells = ((4, 4096, 2, {"flash_attention_lse": arch_b.depth,
+                                   "flash_attention_bwd": arch_b.depth,
+                                   "rms_norm": 2 * arch_b.depth + 1, "conv_pos_embedding": 1}),)
+        elif not over:
+            cells = ((16, 1024, 2, {"fused_qkv_rope_attention_bias_lse": arch_b.depth,
+                                    "fused_qkv_rope_attention_bias_bwd": arch_b.depth,
+                                    "adaln_norm": 4 * (arch_b.depth - 1) + 4,
+                                    "conv_pos_embedding": 1}),)
+        else:
+            cells = ()
+        if cells:
+            from f5tts_tpu_torch.scripts.common import MMDIT_FRAMES_PER_ID
+
+            add(phase_train(dev, arch_b, params_b, gpu, backbone, cells,
+                            4 if backbone == "UNetT" else MMDIT_FRAMES_PER_ID))
+        del params_b
+        torch.cuda.empty_cache()
+    seconds["other_backbones"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log(f"  (e) the conv-position module at dim {CONV_DIM}")
+    add(phase25_conv_pos(dev, gpu))
+    seconds["conv_pos"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 25: {out['phase_s']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in seconds.items())})")
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -5156,13 +5381,26 @@ def main() -> int:
     log(f"  phase 24: {json.dumps(last_rows)}")
     torch.cuda.empty_cache()
 
-    idle = [name for name in rows if not launches.get(name)]
+    log("phase 25: head width 128 and K10's range: DiT d128 (F5TTS_v1_Base at 8 heads of 128) "
+        "served and trained, E2TTS / MMDiT / qk-norm MMDiT at 8 x 128, the conv-position "
+        "module at dim 2560")
+    launches25, width_rows = phase_head_width(dev, gpu)
+    log(f"  phase 25: {json.dumps(width_rows)}")
+    torch.cuda.empty_cache()
+
+    # a "<counter>@..." row's launches are phase 25's, every other row's the
+    # other phases'
+    def row_launches(name: str) -> int:
+        return launches25.get(base_name(name), 0) if "@" in name else launches.get(name, 0)
+
+    idle = [name for name in rows if not row_launches(name)]
     if idle:
         raise AssertionError(f"kernels never launched on the main paths: {idle}")
     kernels = []
     for name, row in rows.items():
-        kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                        "replaces": REPLACES[name], "launches": launches.get(name, 0), **row})
+        kernels.append({"name": name, "route": "cuda", "source": SOURCES[base_name(name)],
+                        "replaces": REPLACES[base_name(name)], "launches": row_launches(name),
+                        **row})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -1,10 +1,13 @@
 // Forward attention kernels: one wgmma core over a cp.async ring, in four
 // modes (K3, K5, K7 and K11, with the lse modes of K3, K5 and K7).
 //
-// The core has two template axes:
-//  - layout: FLAT (qkv [b, n, 3*h*64], the fused to_qkv projection output,
-//    with flat cos/sin [>=n, h*64] bf16 tables: q and k are roped in the
-//    kernel) or HEAD (q, k, v [b, h, n, 64] bf16, already normed and roped);
+// The core has three template axes:
+//  - the head width D, 64 or 128 (every mode at both; the JAX bodies take d
+//    in {64, 128}, attention.py:1189 / :1498 / :1714; the head layout's other
+//    widths are zero-padded to one of them by the wrapper);
+//  - layout: FLAT (qkv [b, n, 3*h*D], the fused to_qkv projection output,
+//    with flat cos/sin [>=n, h*D] bf16 tables: q and k are roped in the
+//    kernel) or HEAD (q, k, v [b, h, n, D] bf16, already normed and roped);
 //  - key liveness: LENGTH (keys < lengths[b], int32 [b]) or KMASK (where a
 //    [b, n] bool key mask is set).
 // Its modes:
@@ -14,14 +17,16 @@
 //    _fused_qkv_attn_kernel_stream with ONE kernel: the online softmax over
 //    64-key tiles covers every n, so there is no single-pass/streaming split
 //    and no VMEM-driven dispatch threshold.
-//    Out: [b, n, h*64] bf16; rows >= lengths[b] are written as zeros.
+//    Out: [b, n, h*D] bf16; rows >= lengths[b] are written as zeros.
 //    fused_qkv_rope_attn_lse_kernel, its LSE mode under grad for the backward
 //    K4 (csrc/attention_bwd.cu): also lse [b, h, n] f32 = m + log(l) over the
 //    scaled scores, -1e30 on the q tiles wholly past the length; rows past the
 //    length inside a live q tile keep their real lse (K4 reads dO as 0 there).
-//    The lse is of the scores of K3's pre-scaled bf16 q; the scale 1/8 is a
-//    power of two, so that q equals the backward's unscaled roped q times the
-//    scale exactly, and the lse is the statistic of the backward's scores.
+//    The lse is of the scores of K3's pre-scaled bf16 q. At D = 64 the scale
+//    1/8 is a power of two, so that q equals the backward's unscaled roped q
+//    times the scale exactly, and the lse is the statistic of the backward's
+//    scores; at D = 128 (scale 1/sqrt(128)) the two differ by q's bf16
+//    rounding, and K4's p = exp(s * scale - lse) sum to 1 within it.
 // K5 (FLAT + KMASK) fused_qkv_rope_attn_bias_kernel: the same attention under
 //    an arbitrary key mask. Replaces :1240 _fused_qkv_attn_bias_kernel and
 //    :1307 _fused_qkv_attn_bias_kernel_stream (MMDiT joint attention: audio
@@ -29,13 +34,13 @@
 //    so no prefix length can express it; the joint cos/sin rotate audio rows
 //    with audio positions, text rows with text positions).
 //    fused_qkv_rope_attn_bias_lse_kernel is its LSE mode under grad, for the
-//    backward K8. Out: [b, n, h*64] bf16, every row computed (the caller masks
+//    backward K8. Out: [b, n, h*D] bf16, every row computed (the caller masks
 //    dead rows after to_out); the LSE mode also lse [b, h, n] f32, -1e30
 //    where l == 0.
 // K7 (HEAD + LENGTH) flash_attn_kernel: head-layout prefix-length attention.
 //    Replaces :123 _flash_kernel_single and :50 _flash_kernel (the Pallas
 //    n <= 2048 / online-softmax split is a VMEM artefact; one loop here).
-//    Out: [b, h, n, 64] bf16; q tiles wholly past the length are zeros, rows
+//    Out: [b, h, n, D] bf16; q tiles wholly past the length are zeros, rows
 //    past the length inside a live tile are computed (over the live keys), as
 //    in Pallas. flash_attn_lse_kernel, its LSE mode under grad (the Pallas
 //    bodies with their lse_ref, :115-120 and :161-164, behind :193
@@ -47,33 +52,43 @@
 //    key mask. Replaces :1653 _flash_kernel_bias (behind :1706
 //    masked_flash_attention): MMDiT joint attention when the flat K5 cannot
 //    take it (qk-norm, whose per-head RMSNorm comes before RoPE, or unfused
-//    projections). Out: [b, h, n, 64] bf16, every row computed. A batch row
+//    projections). Out: [b, h, n, D] bf16, every row computed. A batch row
 //    with no live key gets zeros (l == 0); the JAX reference gives the
 //    uniform mean of v there. No model path makes such a row: the audio's
 //    first frame is always live.
-// Function (every mode): q (FLAT: roped in f32) multiplied by 1/sqrt(d) and
-//    rounded to bf16 once; k (FLAT: roped in f32) rounded to bf16 once; dead
-//    keys add -1e30 (not -inf, which makes dead rows NaN); f32 online
-//    softmax; p rounded to bf16 before P V; l == 0 guarded.
-// Bound: tensor-core operations, 4*h*64 flops a live (query, key) pair: K3
+// Function (every mode): FLAT: q roped in f32, multiplied by 1/sqrt(d) and
+//    rounded to bf16 once (the Pallas bodies' rounding point), k roped in f32
+//    and rounded to bf16 once; HEAD: q and k as given, the f32 scores
+//    multiplied by the scale (the plain versions' function; at D = 64 the
+//    two are the same numbers, the scale a power of two); dead keys add
+//    -1e30 (not -inf, which makes dead rows NaN); f32 online softmax; p
+//    rounded to bf16 before P V; l == 0 guarded.
+// Bound: tensor-core operations, 4*h*d flops a live (query, key) pair: K3
 //    0.0068 ms at b = 2, n = 1024, lengths [1024, 777] (6.8 GFLOP at 989
 //    TFLOP/s) against ~21 MB of bytes (0.0063 ms); K5 0.133 ms at joint 4352
 //    (7,388 live keys, every query row) against ~89 MB (0.027 ms); K7 as K3
-//    (0.0764 ms at n = 4224, lengths [4224, 777]).
+//    (0.0764 ms at n = 4224, lengths [4224, 777]); the same at 8 heads of
+//    128, since the flops depend on h*d alone.
 // Design:
-//  - FLAT: a prologue ropes k once into a k_rot [b, h, n, 64] scratch (one
+//  - FLAT: a prologue ropes k once into a k_rot [b, h, n, D] scratch (one
 //    thread per 8 lanes of a (row, head); LENGTH skips the rows past the
 //    length, which no block reads); the main loop never ropes a key tile.
 //    HEAD: one launch, K and V read as they are.
 //  - the main kernel, one warpgroup a block per (64 q rows, head, batch): the
 //    block ropes (FLAT) and scales its 64 q rows once into a 128-byte-swizzled
-//    shared tile; K (k_rot or k) and V (FLAT: 128 contiguous bytes a row of
-//    qkv, no transpose) tiles stream through a two-stage ring filled by
-//    cp.async, so the next tile's copy overlaps this tile's products; S = Q
-//    K^T is wgmma with both operands in shared memory (K K-major), O += P V
-//    wgmma with P from registers (the f32 scores repacked as bf16) and V the
-//    N-major B; the online softmax runs in f32 on the accumulator layout with
-//    exp2f, log2(e) folded into one FMA; no barrier a tile but the ring's.
+//    shared tile (D = 128: two 64-column halves); K (k_rot or k) and V (FLAT:
+//    2*D contiguous bytes a row of qkv, no transpose) tiles stream through a
+//    two-stage ring filled by cp.async, so the next tile's copy overlaps this
+//    tile's products; S = Q K^T is wgmma with both operands in shared memory
+//    (K K-major, D / 16 k-steps, the descriptor stepping across the halves),
+//    O += P V wgmma m64nDk16 with P from registers (the f32 scores repacked
+//    as bf16) and V the N-major B (at D = 128 its descriptor's leading offset
+//    spans the halves); the online softmax runs in f32 on the accumulator
+//    layout with exp2f, log2(e) (HEAD: times the scale) folded into one FMA;
+//    no barrier a tile but the ring's.
+//  - D = 128: the O accumulator is 64 registers a thread (beside S's 32 and
+//    P's 16) and the shared plan 80 KB, so two blocks an SM (255 registers a
+//    thread at most); D = 64 keeps three (168).
 //  - the keys walked: each 64-key tile's live keys are one 64-bit word.
 //    LENGTH walks tiles 0 .. ceil(len / 64) - 1, the word all ones below the
 //    last tile; a q tile wholly past the length walks none, so its rows are
@@ -98,14 +113,15 @@
 // and issuing the next tile's S beside this tile's P V (a three-stage or a
 // split K / V ring, the softmax overlapping P V) were no faster for K5.
 #define FW_NT 128
-#define FW_MINB 3
+#define FW_MINB(D) ((D) == 64 ? 3 : 2)
 #define FW_LOG2E 1.4426950408889634f
 #define FW_NEG -1e30f
 #define FW_SMEM_MAX 232448  // the opt-in maximum of dynamic shared memory
 // Shared-memory plan (every tile 1024-aligned): the q tile, two stages of
-// (K tile, V tile), then (KMASK) the key mask, one 64-bit word a 64-key tile.
-#define FW_STAGE (2 * WG_TILE)
-#define FW_FIXED (WG_TILE + 2 * FW_STAGE)
+// (K tile, V tile), then (KMASK) the key mask, one 64-bit word a 64-key tile;
+// a [64][D] tile is FW_TILE(D) bytes.
+#define FW_TILE(D) ((D) / 64 * WG_TILE)
+#define FW_FIXED(D) (5 * FW_TILE(D))
 
 enum FwdLayout { FW_FLAT = 0, FW_HEAD = 1 };
 enum FwdLive { FW_LENGTH = 0, FW_KMASK = 1 };
@@ -116,7 +132,7 @@ struct FwdArgs {
     const bf16 *q, *k, *v;            // HEAD: normed and roped q and k, and v
     const int* lengths;               // LENGTH
     const uint8_t* kmask;             // KMASK
-    bf16* krot;                       // FLAT: roped k scratch [b, h, n, 64]
+    bf16* krot;                       // FLAT: roped k scratch [b, h, n, D]
     bf16* out;
     float* lse;                       // the LSE modes
     int bsz, n, heads;
@@ -124,9 +140,9 @@ struct FwdArgs {
 };
 
 // Row 0 of one (batch, head) of q, k, v and the output, and their row strides
-// (elements; k's is 64): FLAT reads q and v from qkv, k from k_rot, and writes
-// the flat output; HEAD reads and writes [b, h, n, 64].
-template <int LAYOUT>
+// (elements; k's is D): FLAT reads q and v from qkv, k from k_rot, and writes
+// the flat output; HEAD reads and writes [b, h, n, D].
+template <int LAYOUT, int D>
 struct FwdView {
     const bf16 *q, *k, *v;
     bf16* out;
@@ -134,17 +150,17 @@ struct FwdView {
     __device__ __forceinline__ FwdView(const FwdArgs& a, int b, int h) {
         const size_t bh = (size_t)b * a.heads + h, n = a.n;
         if constexpr (LAYOUT == FW_HEAD) {
-            q = a.q + bh * n * 64;
-            k = a.k + bh * n * 64;
-            v = a.v + bh * n * 64;
-            out = a.out + bh * n * 64;
-            qs = vs = os = 64;
+            q = a.q + bh * n * D;
+            k = a.k + bh * n * D;
+            v = a.v + bh * n * D;
+            out = a.out + bh * n * D;
+            qs = vs = os = D;
         } else {
-            const size_t hd = (size_t)a.heads * 64, row3 = 3 * hd;
-            q = a.qkv + b * n * row3 + h * 64;
-            k = a.krot + bh * n * 64;
+            const size_t hd = (size_t)a.heads * D, row3 = 3 * hd;
+            q = a.qkv + b * n * row3 + h * D;
+            k = a.krot + bh * n * D;
             v = q + 2 * hd;
-            out = a.out + b * n * hd + h * 64;
+            out = a.out + b * n * hd + h * D;
             qs = vs = row3;
             os = hd;
         }
@@ -153,31 +169,36 @@ struct FwdView {
 
 extern __shared__ __align__(16) uint8_t fw_smem[];
 
-// FLAT prologue: k roped in f32 and rounded to bf16 into krot [b, h, n, 64],
+// FLAT prologue: k roped in f32 and rounded to bf16 into krot [b, h, n, D],
 // one thread per 8 lanes of a (row, head); LENGTH skips the rows past the
 // length, which no block reads.
-template <int LIVE>
+template <int LIVE, int D>
 __device__ __forceinline__ void krot_prologue(const FwdArgs& a) {
     const int n = a.n, heads = a.heads;
-    const long long pair = (long long)blockIdx.x * 32 + (threadIdx.x >> 3);
+    constexpr int SH = D == 64 ? 3 : 4;  // a (row, head) is D / 8 threads of a 256-thread block
+    const long long pair = (long long)blockIdx.x * (256 >> SH) + (threadIdx.x >> SH);
     if (pair >= (long long)a.bsz * n * heads) return;
-    const int c = (threadIdx.x & 7) * 8;
-    const int hd = heads * 64;
+    const int c = (threadIdx.x & (D / 8 - 1)) * 8;
+    const int hd = heads * D;
     const long long row = pair / heads;  // b * n + i
     const int hh = (int)(pair - row * heads);
     const int bb = (int)(row / n), i = (int)(row - (long long)bb * n);
     if (LIVE == FW_LENGTH && i >= a.lengths[bb]) return;
     float k[8], cs[8], sn[8];
-    unpack8(*reinterpret_cast<const uint4*>(a.qkv + row * 3 * hd + hd + hh * 64 + c), k);
-    unpack8(*reinterpret_cast<const uint4*>(a.cos_t + (size_t)i * hd + hh * 64 + c), cs);
-    unpack8(*reinterpret_cast<const uint4*>(a.sin_t + (size_t)i * hd + hh * 64 + c), sn);
+    unpack8(*reinterpret_cast<const uint4*>(a.qkv + row * 3 * hd + hd + hh * D + c), k);
+    unpack8(*reinterpret_cast<const uint4*>(a.cos_t + (size_t)i * hd + hh * D + c), cs);
+    unpack8(*reinterpret_cast<const uint4*>(a.sin_t + (size_t)i * hd + hh * D + c), sn);
     rope8(k, cs, sn);
-    *reinterpret_cast<uint4*>(a.krot + (((size_t)bb * heads + hh) * n + i) * 64 + c) = pack8(k);
+    *reinterpret_cast<uint4*>(a.krot + (((size_t)bb * heads + hh) * n + i) * D + c) = pack8(k);
 }
 
-template <int LAYOUT, int LIVE, bool LSE>
+template <int LAYOUT, int LIVE, bool LSE, int D>
 __device__ __forceinline__ void wg_fwd(const FwdArgs& a) {
     constexpr bool KMASK = LIVE == FW_KMASK;
+    constexpr int TILE = FW_TILE(D), DC = D / 8, SH = D == 64 ? 3 : 4;
+    // FLAT pre-scales q in bf16; HEAD folds the scale into the softmax's FMA
+    constexpr bool PRESCALE = LAYOUT == FW_FLAT;
+    const float to_log2 = PRESCALE ? FW_LOG2E : a.scale * FW_LOG2E;
     const int n = a.n;
     const int q0 = blockIdx.x * 64;
     const int h = blockIdx.y, b = blockIdx.z;
@@ -185,7 +206,7 @@ __device__ __forceinline__ void wg_fwd(const FwdArgs& a) {
     const int warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t4 = lane & 3;
     const size_t bh = (size_t)b * a.heads + h;
-    const FwdView<LAYOUT> t(a, b, h);
+    const FwdView<LAYOUT, D> t(a, b, h);
     // LENGTH: keys < len are live, and a q tile wholly past the length walks
     // no key tile (its rows are written as zeros, its lse as -1e30); KMASK:
     // the mask decides, len = n
@@ -195,8 +216,8 @@ __device__ __forceinline__ void wg_fwd(const FwdArgs& a) {
 
     uint8_t* smem = align1024(fw_smem);
     const uint32_t sQ = smem_u32(smem);
-    const uint32_t sStage = sQ + WG_TILE;
-    uint32_t* sBits = reinterpret_cast<uint32_t*>(smem + FW_FIXED);  // KMASK: key j is bit j
+    const uint32_t sStage = sQ + TILE;
+    uint32_t* sBits = reinterpret_cast<uint32_t*>(smem + FW_FIXED(D));  // KMASK: key j is bit j
     if constexpr (KMASK) {
         mask_bits<FW_NT>(sBits, a.kmask + (size_t)b * n, n, n_kt * 64, tid);
         __syncthreads();
@@ -215,43 +236,47 @@ __device__ __forceinline__ void wg_fwd(const FwdArgs& a) {
         return kt;
     };
     auto load_stage = [&](int k0, int s) {  // keys >= len zero-filled
-        const uint32_t st = sStage + s * FW_STAGE;
-        tile_async<FW_NT>(st, t.k, 64, k0, len, tid);
-        tile_async<FW_NT>(st + WG_TILE, t.v, t.vs, k0, len, tid);
+        const uint32_t st = sStage + s * 2 * TILE;
+        tile_async<FW_NT, D>(st, t.k, D, k0, len, tid);
+        tile_async<FW_NT, D>(st + TILE, t.v, t.vs, k0, len, tid);
         cp_async_commit();
     };
     int kt = next_tile(0);
     if (kt < n_kt) load_stage(kt * 64, 0);
     else cp_async_commit();
 
-    // q rows (FLAT: roped in f32) * 1/sqrt(d), rounded to bf16, into the
-    // swizzled q tile (while the first K / V copy is in flight); rows >= n are 0
+    // q rows (FLAT: roped in f32 and times 1/sqrt(d), rounded to bf16) into
+    // the swizzled q tile (while the first K / V copy is in flight); rows >= n
+    // are 0
     if (live_tile) {
-        for (int i = tid; i < 64 * 8; i += FW_NT) {
-            const int r = i >> 3, c = i & 7;
+        for (int i = tid; i < 64 * DC; i += FW_NT) {
+            const int r = i >> SH, c = i & (DC - 1);
             const int row = q0 + r;
-            float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+            uint4 v = make_uint4(0, 0, 0, 0);
             if (row < n) {
-                unpack8(*reinterpret_cast<const uint4*>(t.q + row * t.qs + c * 8), f);
-                if constexpr (LAYOUT == FW_FLAT) {
-                    const int hd = a.heads * 64;
-                    float cs[8], sn[8];
-                    unpack8(*reinterpret_cast<const uint4*>(a.cos_t + (size_t)row * hd + h * 64 + c * 8), cs);
-                    unpack8(*reinterpret_cast<const uint4*>(a.sin_t + (size_t)row * hd + h * 64 + c * 8), sn);
+                v = *reinterpret_cast<const uint4*>(t.q + row * t.qs + c * 8);
+                if constexpr (PRESCALE) {
+                    const int hd = a.heads * D;
+                    float f[8], cs[8], sn[8];
+                    unpack8(v, f);
+                    unpack8(*reinterpret_cast<const uint4*>(a.cos_t + (size_t)row * hd + h * D + c * 8), cs);
+                    unpack8(*reinterpret_cast<const uint4*>(a.sin_t + (size_t)row * hd + h * D + c * 8), sn);
                     rope8(f, cs, sn);
-                }
 #pragma unroll
-                for (int e = 0; e < 8; ++e) f[e] *= a.scale;
+                    for (int e = 0; e < 8; ++e) f[e] *= a.scale;
+                    v = pack8(f);
+                }
             }
-            *reinterpret_cast<uint4*>(smem + sw128_off(r, c)) = pack8(f);
+            *reinterpret_cast<uint4*>(smem + tile_off(r, c)) = v;
         }
     }
 
     // this thread's two accumulator rows are queries row_lo and row_lo + 8
+    constexpr int NO = D / 2;  // O's accumulator registers
     const int row_lo = q0 + warp * 16 + g;
-    float o[32];
+    float o[NO];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    for (int i = 0; i < NO; ++i) o[i] = 0.f;
     float m_run[2] = {FW_NEG, FW_NEG}, l_run[2] = {0.f, 0.f};
     for (int it = 0; kt < n_kt; ++it) {
         const int s = it & 1;
@@ -259,14 +284,14 @@ __device__ __forceinline__ void wg_fwd(const FwdArgs& a) {
         __syncthreads();  // stage s (and the q tile) landed; every thread is done with stage s ^ 1
         const int nxt = next_tile(kt + 1);
         if (nxt < n_kt) load_stage(nxt * 64, s ^ 1);
-        const uint32_t sK = sStage + s * FW_STAGE, sV = sK + WG_TILE;
+        const uint32_t sK = sStage + s * 2 * TILE, sV = sK + TILE;
         const uint64_t bits = tile_bits(kt);
 
         float sc[32];
         wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)  // S = Q K^T: 64 queries x 64 keys (q pre-scaled)
-            wgmma_ss<0>(sc, sw128_desc(sQ + kk * 32), sw128_desc(sK + kk * 32), kk);
+        for (int kk = 0; kk < D / 16; ++kk)  // S = Q K^T: 64 queries x 64 keys
+            wgmma_ss<0>(sc, sw128_desc(kslice(sQ, kk)), sw128_desc(kslice(sK, kk)), kk);
         wg_commit();
         wg_wait0();
         fence_regs(sc);
@@ -290,25 +315,27 @@ __device__ __forceinline__ void wg_fwd(const FwdArgs& a) {
             mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
             mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
             const float m_new = fmaxf(m_run[r], mx[r]);
-            alpha[r] = exp2f((m_run[r] - m_new) * FW_LOG2E);
+            alpha[r] = exp2f((m_run[r] - m_new) * to_log2);
             m_run[r] = m_new;
-            m2[r] = m_new * FW_LOG2E;
+            m2[r] = m_new * to_log2;
             l_run[r] *= alpha[r];
         }
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
-            const float p = exp2f(fmaf(sc[i], FW_LOG2E, -m2[(i >> 1) & 1]));
+            const float p = exp2f(fmaf(sc[i], to_log2, -m2[(i >> 1) & 1]));
             sc[i] = p;
             l_run[(i >> 1) & 1] += p;
             o[i] *= alpha[(i >> 1) & 1];
         }
+#pragma unroll
+        for (int i = 32; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];  // D = 128's other half
         uint32_t pa[4][4];
 #pragma unroll
         for (int kc = 0; kc < 4; ++kc) acc_to_a(pa[kc], sc, kc);
         wg_fence();
 #pragma unroll
         for (int kc = 0; kc < 4; ++kc)  // O += P V (V N-major: 16 keys a step)
-            wgmma_rs<1>(o, pa[kc], sw128_desc(sV + kc * 2048), 1);
+            wgmma_rs<1>(o, pa[kc], mn_desc<D>(sV + kc * 2048), 1);
         wg_commit();
         wg_wait0();
         fence_regs(o);
@@ -329,49 +356,59 @@ __device__ __forceinline__ void wg_fwd(const FwdArgs& a) {
         const int row = row_lo + r * 8;
         if (row >= n) continue;
         const float inv = ((!ZERO_PAST_LEN || row < len) && l_run[r] != 0.f) ? 1.f / l_run[r] : 0.f;
-        if (LSE && t4 == 0)
-            a.lse[bh * n + row] = l_run[r] > 0.f ? m_run[r] + logf(l_run[r]) : FW_NEG;
+        if (LSE && t4 == 0)  // the lse of the scaled scores (HEAD: m_run is unscaled)
+            a.lse[bh * n + row] =
+                l_run[r] > 0.f ? m_run[r] * (PRESCALE ? 1.f : a.scale) + logf(l_run[r]) : FW_NEG;
         bf16* orow = t.out + row * t.os + t4 * 2;
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
+        for (int nt = 0; nt < D / 8; ++nt)
             *reinterpret_cast<uint32_t*>(orow + nt * 8) =
                 pack_bf16x2(o[4 * nt + 2 * r] * inv, o[4 * nt + 2 * r + 1] * inv);
     }
 }
 
 // K3
+template <int D>
 __global__ void __launch_bounds__(256) fused_qkv_rope_attn_krot_kernel(const FwdArgs a) {
-    krot_prologue<FW_LENGTH>(a);
+    krot_prologue<FW_LENGTH, D>(a);
 }
-__global__ void __launch_bounds__(FW_NT, FW_MINB) fused_qkv_rope_attn_kernel(const FwdArgs a) {
-    wg_fwd<FW_FLAT, FW_LENGTH, false>(a);
+template <int D>
+__global__ void __launch_bounds__(FW_NT, FW_MINB(D)) fused_qkv_rope_attn_kernel(const FwdArgs a) {
+    wg_fwd<FW_FLAT, FW_LENGTH, false, D>(a);
 }
-__global__ void __launch_bounds__(FW_NT, FW_MINB) fused_qkv_rope_attn_lse_kernel(const FwdArgs a) {
-    wg_fwd<FW_FLAT, FW_LENGTH, true>(a);
+template <int D>
+__global__ void __launch_bounds__(FW_NT, FW_MINB(D)) fused_qkv_rope_attn_lse_kernel(const FwdArgs a) {
+    wg_fwd<FW_FLAT, FW_LENGTH, true, D>(a);
 }
 
 // K5
+template <int D>
 __global__ void __launch_bounds__(256) fused_qkv_rope_attn_bias_krot_kernel(const FwdArgs a) {
-    krot_prologue<FW_KMASK>(a);
+    krot_prologue<FW_KMASK, D>(a);
 }
-__global__ void __launch_bounds__(FW_NT, FW_MINB) fused_qkv_rope_attn_bias_kernel(const FwdArgs a) {
-    wg_fwd<FW_FLAT, FW_KMASK, false>(a);
+template <int D>
+__global__ void __launch_bounds__(FW_NT, FW_MINB(D)) fused_qkv_rope_attn_bias_kernel(const FwdArgs a) {
+    wg_fwd<FW_FLAT, FW_KMASK, false, D>(a);
 }
-__global__ void __launch_bounds__(FW_NT, FW_MINB) fused_qkv_rope_attn_bias_lse_kernel(const FwdArgs a) {
-    wg_fwd<FW_FLAT, FW_KMASK, true>(a);
+template <int D>
+__global__ void __launch_bounds__(FW_NT, FW_MINB(D)) fused_qkv_rope_attn_bias_lse_kernel(const FwdArgs a) {
+    wg_fwd<FW_FLAT, FW_KMASK, true, D>(a);
 }
 
 // K7
-__global__ void __launch_bounds__(FW_NT, FW_MINB) flash_attn_kernel(const FwdArgs a) {
-    wg_fwd<FW_HEAD, FW_LENGTH, false>(a);
+template <int D>
+__global__ void __launch_bounds__(FW_NT, FW_MINB(D)) flash_attn_kernel(const FwdArgs a) {
+    wg_fwd<FW_HEAD, FW_LENGTH, false, D>(a);
 }
-__global__ void __launch_bounds__(FW_NT, FW_MINB) flash_attn_lse_kernel(const FwdArgs a) {
-    wg_fwd<FW_HEAD, FW_LENGTH, true>(a);
+template <int D>
+__global__ void __launch_bounds__(FW_NT, FW_MINB(D)) flash_attn_lse_kernel(const FwdArgs a) {
+    wg_fwd<FW_HEAD, FW_LENGTH, true, D>(a);
 }
 
 // K11
-__global__ void __launch_bounds__(FW_NT, FW_MINB) masked_flash_attn_kernel(const FwdArgs a) {
-    wg_fwd<FW_HEAD, FW_KMASK, false>(a);
+template <int D>
+__global__ void __launch_bounds__(FW_NT, FW_MINB(D)) masked_flash_attn_kernel(const FwdArgs a) {
+    wg_fwd<FW_HEAD, FW_KMASK, false, D>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -380,23 +417,35 @@ __global__ void __launch_bounds__(FW_NT, FW_MINB) masked_flash_attn_kernel(const
 
 typedef void (*fwd_kernel_t)(const FwdArgs);
 
-static int launch_fwd(fwd_kernel_t prologue, fwd_kernel_t main_kernel, const FwdArgs& a,
-                      void* stream) {
+// The prologue (null for HEAD) and main kernel of a mode at the head width d.
+struct FwdKernels {
+    fwd_kernel_t prologue, main;
+};
+#define FW_PICK(d, pro, main)                                                           \
+    ((d) == 64    ? FwdKernels{pro<64>, main<64>}                                      \
+     : (d) == 128 ? FwdKernels{pro<128>, main<128>}                                    \
+                  : FwdKernels{nullptr, nullptr})
+#define FW_PICK_HEAD(d, main)                                                           \
+    ((d) == 64 ? FwdKernels{nullptr, main<64>}                                          \
+     : (d) == 128 ? FwdKernels{nullptr, main<128>} : FwdKernels{nullptr, nullptr})
+
+static int launch_fwd(FwdKernels k, const FwdArgs& a, int d, void* stream) {
+    if (!k.main) return (int)cudaErrorInvalidValue;  // a head width of neither instantiation
     if (a.bsz <= 0 || a.n <= 0) return (int)cudaGetLastError();
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
-    if (prologue) {
-        const size_t rows = (size_t)a.bsz * a.n * a.heads;
-        prologue<<<(unsigned)((rows + 31) / 32), 256, 0, s>>>(a);
+    if (k.prologue) {
+        const size_t threads = (size_t)a.bsz * a.n * a.heads * (d / 8);
+        k.prologue<<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(a);
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }
-    const int smem = 1024 + FW_FIXED + (a.kmask ? (a.n + 63) / 64 * 8 : 0);
+    const int smem = 1024 + FW_FIXED(d) + (a.kmask ? (a.n + 63) / 64 * 8 : 0);
     if (smem > FW_SMEM_MAX) return (int)cudaErrorInvalidValue;
-    err = smem_limit_once((const void*)main_kernel, FW_SMEM_MAX);
+    err = smem_limit_once((const void*)k.main, FW_SMEM_MAX);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((a.n + 63) / 64, a.heads, a.bsz);
-    main_kernel<<<grid, FW_NT, smem, s>>>(a);
+    k.main<<<grid, FW_NT, smem, s>>>(a);
     return (int)cudaGetLastError();
 }
 
@@ -419,45 +468,49 @@ static FwdArgs flat_args(const void* qkv, const void* cos_t, const void* sin_t, 
     return a;
 }
 
+// Every entry takes the head width (64 or 128; any other returns
+// cudaErrorInvalidValue) after the head count.
 extern "C" int f5_fused_qkv_rope_attn_bf16(const void* qkv, const void* cos_t,
                                            const void* sin_t, const void* lengths, void* out,
-                                           void* k_rot, int b, int n, int heads, float sm_scale,
-                                           void* stream) {
-    return launch_fwd(fused_qkv_rope_attn_krot_kernel, fused_qkv_rope_attn_kernel,
+                                           void* k_rot, int b, int n, int heads, int head_dim,
+                                           float sm_scale, void* stream) {
+    return launch_fwd(FW_PICK(head_dim, fused_qkv_rope_attn_krot_kernel, fused_qkv_rope_attn_kernel),
                       flat_args(qkv, cos_t, sin_t, lengths, false, out, nullptr, k_rot, b, n,
                                 heads, sm_scale),
-                      stream);
+                      head_dim, stream);
 }
 
 extern "C" int f5_fused_qkv_rope_attn_lse_bf16(const void* qkv, const void* cos_t,
                                                const void* sin_t, const void* lengths,
                                                void* out, void* lse, void* k_rot, int b, int n,
-                                               int heads, float sm_scale, void* stream) {
-    return launch_fwd(fused_qkv_rope_attn_krot_kernel, fused_qkv_rope_attn_lse_kernel,
-                      flat_args(qkv, cos_t, sin_t, lengths, false, out, lse, k_rot, b, n, heads,
-                                sm_scale),
-                      stream);
+                                               int heads, int head_dim, float sm_scale,
+                                               void* stream) {
+    return launch_fwd(
+        FW_PICK(head_dim, fused_qkv_rope_attn_krot_kernel, fused_qkv_rope_attn_lse_kernel),
+        flat_args(qkv, cos_t, sin_t, lengths, false, out, lse, k_rot, b, n, heads, sm_scale),
+        head_dim, stream);
 }
 
 extern "C" int f5_fused_qkv_rope_attn_bias_bf16(const void* qkv, const void* cos_t,
                                                 const void* sin_t, const void* kmask, void* out,
                                                 void* k_rot, int b, int n, int heads,
-                                                float sm_scale, void* stream) {
-    return launch_fwd(fused_qkv_rope_attn_bias_krot_kernel, fused_qkv_rope_attn_bias_kernel,
-                      flat_args(qkv, cos_t, sin_t, kmask, true, out, nullptr, k_rot, b, n, heads,
-                                sm_scale),
-                      stream);
+                                                int head_dim, float sm_scale, void* stream) {
+    return launch_fwd(
+        FW_PICK(head_dim, fused_qkv_rope_attn_bias_krot_kernel, fused_qkv_rope_attn_bias_kernel),
+        flat_args(qkv, cos_t, sin_t, kmask, true, out, nullptr, k_rot, b, n, heads, sm_scale),
+        head_dim, stream);
 }
 
 extern "C" int f5_fused_qkv_rope_attn_bias_lse_bf16(const void* qkv, const void* cos_t,
                                                     const void* sin_t, const void* kmask,
                                                     void* out, void* lse, void* k_rot, int b,
-                                                    int n, int heads, float sm_scale,
-                                                    void* stream) {
-    return launch_fwd(fused_qkv_rope_attn_bias_krot_kernel, fused_qkv_rope_attn_bias_lse_kernel,
+                                                    int n, int heads, int head_dim,
+                                                    float sm_scale, void* stream) {
+    return launch_fwd(FW_PICK(head_dim, fused_qkv_rope_attn_bias_krot_kernel,
+                              fused_qkv_rope_attn_bias_lse_kernel),
                       flat_args(qkv, cos_t, sin_t, kmask, true, out, lse, k_rot, b, n, heads,
                                 sm_scale),
-                      stream);
+                      head_dim, stream);
 }
 
 static FwdArgs head_args(const void* q, const void* k, const void* v, const void* mask,
@@ -479,24 +532,24 @@ static FwdArgs head_args(const void* q, const void* k, const void* v, const void
 
 extern "C" int f5_flash_attn_bf16(const void* q, const void* k, const void* v,
                                   const void* lengths, void* out, int b, int n, int heads,
-                                  float sm_scale, void* stream) {
-    return launch_fwd(nullptr, flash_attn_kernel,
+                                  int head_dim, float sm_scale, void* stream) {
+    return launch_fwd(FW_PICK_HEAD(head_dim, flash_attn_kernel),
                       head_args(q, k, v, lengths, false, out, nullptr, b, n, heads, sm_scale),
-                      stream);
+                      head_dim, stream);
 }
 
 extern "C" int f5_flash_attn_lse_bf16(const void* q, const void* k, const void* v,
                                       const void* lengths, void* out, void* lse, int b, int n,
-                                      int heads, float sm_scale, void* stream) {
-    return launch_fwd(nullptr, flash_attn_lse_kernel,
+                                      int heads, int head_dim, float sm_scale, void* stream) {
+    return launch_fwd(FW_PICK_HEAD(head_dim, flash_attn_lse_kernel),
                       head_args(q, k, v, lengths, false, out, lse, b, n, heads, sm_scale),
-                      stream);
+                      head_dim, stream);
 }
 
 extern "C" int f5_masked_flash_attn_bf16(const void* q, const void* k, const void* v,
                                          const void* kmask, void* out, int b, int n, int heads,
-                                         float sm_scale, void* stream) {
-    return launch_fwd(nullptr, masked_flash_attn_kernel,
+                                         int head_dim, float sm_scale, void* stream) {
+    return launch_fwd(FW_PICK_HEAD(head_dim, masked_flash_attn_kernel),
                       head_args(q, k, v, kmask, true, out, nullptr, b, n, heads, sm_scale),
-                      stream);
+                      head_dim, stream);
 }

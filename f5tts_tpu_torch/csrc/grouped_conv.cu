@@ -2,27 +2,39 @@
 // ConvPositionEmbedding conv, as two modes of one persistent wgmma pipeline.
 //
 // K10: the generic same-padded grouped conv1d + bias, any W = c / groups
-// channels a group with W % 8 == 0 and W <= 128, 1 <= k <= 31, any n.
+// channels a group with W % 8 == 0, any k >= 1 (lead padding (k - 1) / 2, the
+// rest trailing, even k too), any n: the Pallas body's whole range
+// (supports_pallas_grouped_conv, grouped_conv.py:114-121).
 // Replaces f5tts_tpu/ops/grouped_conv.py:27 _grouped_conv_kernel (+ its bias
 // add, :80): the conv-position module of the dim-768 presets (48 channels a
-// group), whose mask and Mish stay PyTorch elementwise ops between two
-// launches, as the JAX package leaves them to XLA. The epilogue adds the bias
+// group) and of every width off K2's gate, whose mask and Mish stay PyTorch
+// elementwise ops between two launches, as the JAX package leaves them to
+// XLA. The epilogue adds the bias
 // in f32 and rounds once to bf16 (the Pallas path rounds the conv, then adds
 // a bf16 bias: at most one bf16 ulp apart). No length mask, no activation.
 // Bound: tensor-core operations, 2 * k * W flops an output value (18.7 GFLOP,
 // 0.0189 ms at [2, 4096, 768], 16 groups of 48, k = 31) against 12.6 MB of x
 // and y (0.0038 ms).
-// Design: a persistent block of GC_NWG warpgroups per (group, part of the
-// rows): it walks tiles of GC_NWG * 64 output rows (of every batch row),
-// each warpgroup 64 of them, and is one wgmma product per (tap, 16 input
-// channels): D[64 x WP] += X[rows + tap, 16] W[tap][16 x WP], WP the width
-// rounded up to 16 (zero lanes in x and the weights).
+// Design: a persistent block of GC_NWG warpgroups per (group, tile of NP
+// output channels, part of the rows): it walks tiles of GC_NWG * 64 output
+// rows (of every batch row), each warpgroup 64 of them, and is one wgmma
+// product per (tap, 16 input channels): D[64 x NP] += X[rows + tap, 16]
+// W[tap][16 x NP].
+//  - W <= 128: one input chunk of WP channels (the width rounded up to 16,
+//    zero lanes in x and the weights) and NP = WP. W > 128: input chunks of
+//    WP = 64 channels, and the group's outputs in ceil(W / 128) tiles of NP
+//    (at most 128, a multiple of 16) channels, a block each: the reduction
+//    walks (input chunk, tap chunk) slices of the WIO weights.
 //  - the weights reach shared memory by cp.async once a block when every
-//    tap fits (142,848 bytes at W = 48, k = 31), else through a two-slot
-//    ring of tap chunks (W = 64 or 128 at k = 31), the next chunk's copy
-//    overlapping this one's products; the next tile's x rows (with their
-//    k - 1 halo rows, zero outside [0, n)) are copied during this tile's
-//    products; one barrier a tile (a chunk in the ring).
+//    tap fits in one input chunk (142,848 bytes at W = 48, k = 31), else
+//    through a two-slot ring of (input chunk, tap chunk) slices (W = 64 or
+//    128 at k = 31, every W > 128), the next slice's copy overlapping this
+//    one's products; the x rows of the next (tile, input chunk), with their
+//    k - 1 halo rows, zero outside [0, n), are copied during this one's
+//    products; one barrier a slice. Where that halo does not fit (k in the
+//    hundreds), x takes the ring too: each slice copies the 64 * warpgroups
+//    + tc - 1 rows its tc taps read (`x_step`), so the shared footprint is
+//    bounded for any k.
 //  - B is one tap's [W_in x W_out] slice of the WIO weights as it lies in
 //    memory, N-major (no transpose), in wgmma's interleaved (unswizzled)
 //    canonical layout: 128-byte core matrices of 8 input x 8 output channels,
@@ -66,8 +78,6 @@
 // starting as each lands, 1-3% slower than one group.
 #include "wgmma.cuh"
 
-#define GC_MAXK 31
-
 __device__ __forceinline__ float mish_f32(float v) {
     // softplus as jax.nn.softplus computes it: max(v, 0) + log1p(exp(-|v|))
     const float sp = fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
@@ -88,9 +98,12 @@ struct GcPlan {
     int n, c, width, ksize;
     int row_tiles;  // tiles of a batch row: ceil(n / (64 * warpgroups))
     int tiles;      // b * row_tiles
+    int ntiles;     // output-channel tiles of a group: blocks along y a group
+    int n_ic;       // input chunks of WP channels: ceil(W / WP)
     int tc;         // taps a chunk of weights
-    int chunks;     // ceil(k / tc); 1: every tap stays resident
-    int x_rows;     // rows of an x tile: 64 * warpgroups + k - 1, rounded up to 8
+    int chunks;     // tap chunks an input chunk: ceil(k / tc); 1 with n_ic 1: resident
+    int x_step;     // 1: each slice copies its own x rows; 0: once a (tile, input chunk)
+    int x_rows;     // rows of an x buffer: 64 * warpgroups + (x_step ? tc : k) - 1, rounded to 8
     int x_bytes;    // bytes of one x buffer: x_rows * WP * 2
     int b;          // batch rows (K2 counts its live tiles from their lengths)
 };
@@ -236,9 +249,10 @@ __device__ __forceinline__ uint64_t gc_desc(uint32_t addr, uint32_t lbo) {
            ((uint64_t)(128 >> 4) << 32);
 }
 
-// WP: the group's input width rounded up to 16; NP: the output channels a
-// block computes (WP, or half of it where K2 splits a group over two
-// blocks); CPE: K2's LENGTH + MISH mode (lengths, dead tiles, Mish).
+// WP: the input channels of a chunk (W <= 128: the group's width rounded up
+// to 16; else 64); NP: the output channels a block computes (WP, half of it
+// where K2 splits a group over two blocks, or a tile of a group wider than
+// 128); CPE: K2's LENGTH + MISH mode (lengths, dead tiles, Mish).
 template <int WP, int NP, bool CPE>
 __global__ void __launch_bounds__(GC_NWG * 128) grouped_conv1d_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ bias,
@@ -255,14 +269,14 @@ __global__ void __launch_bounds__(GC_NWG * 128) grouped_conv1d_kernel(
     const uint32_t sW = sX + 2 * p.x_bytes;
     const uint32_t x_lbo = p.x_rows * 16;  // x: bytes between 8-channel planes
 
-    const int gi = blockIdx.y / (WP / NP);
-    const int co = (blockIdx.y % (WP / NP)) * NP;  // this block's first output channel
+    const int gi = blockIdx.y / p.ntiles;
+    const int co = (blockIdx.y % p.ntiles) * NP;  // this block's first output channel
     const int tid = threadIdx.x;
     const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
     const int g = lane >> 2, t4 = lane & 3;
     const int lead = (p.ksize - 1) / 2;
     const size_t cg = (size_t)gi * p.width;
-    const bool resident = p.chunks == 1;
+    const bool resident = p.chunks == 1 && p.n_ic == 1;
 
     // K2: rows [0, seq_len(b)) of batch row b are live
     auto seq_len = [&](int bb) { return CPE ? min(max(lengths[bb], 0), p.n) : p.n; };
@@ -278,35 +292,37 @@ __global__ void __launch_bounds__(GC_NWG * 128) grouped_conv1d_kernel(
             r0 = (t - bb * p.row_tiles) * BM;
         }
     };
-    // x rows [r0 - lead, r0 - lead + x_rows) of a tile as CM planes of 8
-    // channels, row after row (16 bytes a row): rows tap .. tap + 63 of a
-    // plane are whole core matrices at any tap, so a K-major descriptor
-    // starting 16 * tap bytes in is the tap's shifted A; thread i copies row
-    // i % 8 of an 8-row group, 8 rows of 64 contiguous bytes a warp. Rows
-    // outside [0, n) (K2: outside [0, length)) are zero-filled.
-    auto load_x = [&](int tile, int buf) {
+    // x rows [r0 - lead + roff, + x_rows) and input channels [ci * WP, + WP)
+    // of a tile as CM planes of 8 channels, row after row (16 bytes a row):
+    // rows tap .. tap + 63 of a plane are whole core matrices at any tap, so
+    // a K-major descriptor starting 16 * tap bytes in is the tap's shifted A;
+    // thread i copies row i % 8 of an 8-row group, 8 rows of 64 contiguous
+    // bytes a warp. Rows outside [0, n) (K2: outside [0, length)) and
+    // channels past the width are zero-filled.
+    auto load_x = [&](int tile, int ci, int roff, int buf) {
         int bb, r0;
         locate(tile, bb, r0);
-        r0 -= lead;
+        r0 += roff - lead;
         const int lim = seq_len(bb);
-        const bf16* xb = x + (size_t)bb * p.n * p.c + cg;
+        const bf16* xb = x + (size_t)bb * p.n * p.c + cg + ci * WP;
         const uint32_t dst = sX + buf * p.x_bytes;
         for (int i = tid; i < p.x_rows * CM; i += NT) {
             const int ch = (i >> 3) % CM, r = ((i >> 3) / CM) * 8 + (i & 7);
             const int row = r0 + r;
-            const bool ok = row >= 0 && row < lim && ch * 8 < p.width;
+            const bool ok = row >= 0 && row < lim && ci * WP + ch * 8 < p.width;
             cp_async16(dst + ch * x_lbo + r * 16, xb + (ok ? (size_t)row * p.c + ch * 8 : 0), ok);
         }
     };
-    // the taps of one chunk: byte 16 * i of a slot is input channel i % 8 of
+    // the taps of one slice: byte 16 * i of a slot is input channel i % 8 of
     // core matrix (i / 8) % (CM * CN) of tap i / (8 * CM * CN), that is 8
-    // output channels of w[tap, in, cg + co + ...]; zero lanes past the width
-    auto load_w = [&](int chunk, int slot) {
+    // output channels of w[tap, ci * WP + in, cg + co + ...]; zero lanes past
+    // the width
+    auto load_w = [&](int ci, int chunk, int slot) {
         const int t0 = chunk * p.tc, taps = min(p.tc, p.ksize - t0);
         const uint32_t dst = sW + slot * p.tc * TAP;
         for (int i = tid; i < taps * CM * CN * 8; i += NT) {
             const int r8 = i & 7, cm = (i >> 3) % (CM * CN), tap = (i >> 3) / (CM * CN);
-            const int in = (cm / CN) * 8 + r8, out = co + (cm % CN) * 8;
+            const int in = ci * WP + (cm / CN) * 8 + r8, out = co + (cm % CN) * 8;
             const bool ok = in < p.width && out < p.width;
             cp_async16(dst + i * 16,
                        w + (ok ? ((size_t)(t0 + tap) * p.width + in) * p.c + cg + out : 0), ok);
@@ -317,17 +333,17 @@ __global__ void __launch_bounds__(GC_NWG * 128) grouped_conv1d_kernel(
     // host launches no more blocks than tiles, so every block has one; a K2
     // block past the live tiles has none). The first weights do not depend
     // on the lengths, so K2 starts their copy before it reads them.
-    if constexpr (CPE) load_w(0, 0);
+    if constexpr (CPE) load_w(0, 0, 0);
     int walk = p.tiles;
     if constexpr (CPE) {
         walk = 0;
         for (int bb = 0; bb < p.b; ++bb) walk += (seq_len(bb) + BM - 1) / BM;
     }
     const int my_tiles = blockIdx.x < walk ? (walk - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
-    const int steps = my_tiles * p.chunks;
+    const int steps = my_tiles * p.n_ic * p.chunks;  // slices
     if (steps > 0) {
-        if constexpr (!CPE) load_w(0, 0);
-        load_x(blockIdx.x, 0);
+        if constexpr (!CPE) load_w(0, 0, 0);
+        load_x(blockIdx.x, 0, 0, 0);
     }
     cp_async_commit();
     if constexpr (CPE) {
@@ -346,29 +362,38 @@ __global__ void __launch_bounds__(GC_NWG * 128) grouped_conv1d_kernel(
         }
     }
 
+    // the walk's slices in order: tile jt of this block, input chunk ci, tap
+    // chunk `chunk`; x buffer xb (one a (tile, input chunk), or one a slice)
     float acc[NP / 2];
+    int jt = 0, ci = 0, chunk = 0, xb = 0;
     for (int s = 0; s < steps; ++s) {
-        const int jt = s / p.chunks, chunk = s - jt * p.chunks;
+        int jn = jt, cn = ci, hn = chunk + 1;  // the next slice
+        if (hn == p.chunks) {
+            hn = 0;
+            if (++cn == p.n_ic) cn = 0, ++jn;
+        }
+        const bool x_next = p.x_step || hn == 0;  // the next slice starts its own x
         const int tile = blockIdx.x + jt * gridDim.x;
         cp_async_wait_all();
-        __syncthreads();  // this step's x and weights landed; the other buffers are free
+        __syncthreads();  // this slice's x and weights landed; the other buffers are free
         if (s + 1 < steps) {
-            const int next = chunk + 1 == p.chunks ? 0 : chunk + 1;
-            if (next == 0) load_x(tile + gridDim.x, (jt + 1) & 1);
-            if (!resident) load_w(next, (s + 1) & 1);
+            if (x_next)
+                load_x(blockIdx.x + jn * gridDim.x, cn, p.x_step ? hn * p.tc : 0, xb ^ 1);
+            if (!resident) load_w(cn, hn, (s + 1) & 1);
         }
         cp_async_commit();
-        if (chunk == 0) {
+        if (ci == 0 && chunk == 0) {
 #pragma unroll
             for (int i = 0; i < NP / 2; ++i) acc[i] = 0.f;
         }
-        // this warpgroup's 64 rows: A of tap t starts at row 64 * wg + t
-        const uint32_t xa = sX + (jt & 1) * p.x_bytes + wg * 64 * 16;
-        const uint32_t ws = sW + (resident ? 0 : (s & 1) * p.tc * TAP) - chunk * p.tc * TAP;
-        const int t1 = min(p.ksize, (chunk + 1) * p.tc);
-        // the chunk's taps * KC products as one wgmma group
+        // this warpgroup's 64 rows: A of tap t starts at row 64 * wg + t (of
+        // the buffer's first tap when each slice copies its own rows)
+        const int t0 = chunk * p.tc, t1 = min(p.ksize, t0 + p.tc);
+        const uint32_t xa = sX + xb * p.x_bytes + wg * 64 * 16 - (p.x_step ? t0 * 16 : 0);
+        const uint32_t ws = sW + (resident ? 0 : (s & 1) * p.tc * TAP) - t0 * TAP;
+        // the slice's taps * KC products as one wgmma group
         wg_fence();
-        for (int tap = chunk * p.tc; tap < t1; ++tap) {
+        for (int tap = t0; tap < t1; ++tap) {
 #pragma unroll
             for (int kc = 0; kc < KC; ++kc)
                 gc_wgmma<NP>(acc, gc_desc(xa + tap * 16 + kc * 2 * x_lbo, x_lbo),
@@ -377,7 +402,9 @@ __global__ void __launch_bounds__(GC_NWG * 128) grouped_conv1d_kernel(
         wg_commit();
         wg_wait0();
         fence_regs(acc);
-        if (chunk + 1 < p.chunks) continue;
+        const bool last = ci + 1 == p.n_ic && chunk + 1 == p.chunks;
+        jt = jn, ci = cn, chunk = hn, xb ^= x_next;
+        if (!last) continue;
 
         // epilogue: + bias in f32 (K2: 0 past the length, else Mish), rounded
         // once; rows < n, lanes < width
@@ -407,13 +434,15 @@ __global__ void __launch_bounds__(GC_NWG * 128) grouped_conv1d_kernel(
     if constexpr (CPE) cp_async_wait_all();  // a block without live tiles drains its weight copy
 }
 
-// Plan the call (resident weights where they fit, else the ring), size the
-// grid to the blocks the card holds at once, and launch.
+// Plan the call (resident weights where they fit, else the ring of slices,
+// x in the ring too where its whole halo does not fit), size the grid to the
+// blocks the card holds at once, and launch.
 template <int WP, int NP, bool CPE>
 static int launch_grouped_conv1d(const bf16* x, const bf16* w, const bf16* bias,
                                  const int* lengths, bf16* y, int b, int n, int c, int width,
-                                 int ksize, cudaStream_t stream) {
+                                 int ksize, int ntiles, cudaStream_t stream) {
     constexpr int BM = GC_NWG * 64, TAP = WP * NP * 2;
+    auto x_bytes = [](int taps) { return (BM + taps - 1 + 7) / 8 * 8 * WP * 2; };
     GcPlan p;
     p.n = n;
     p.c = c;
@@ -422,23 +451,33 @@ static int launch_grouped_conv1d(const bf16* x, const bf16* w, const bf16* bias,
     p.b = b;
     p.row_tiles = (n + BM - 1) / BM;
     p.tiles = b * p.row_tiles;
-    p.x_rows = (BM + ksize - 1 + 7) / 8 * 8;
-    p.x_bytes = p.x_rows * WP * 2;
-    const int fixed = 1024 + 2 * p.x_bytes;
-    if (fixed + ksize * TAP <= GC_SMEM_MAX) {
+    p.ntiles = ntiles;
+    p.n_ic = (width + WP - 1) / WP;
+    p.x_step = 0;
+    const int fixed = 1024 + 2 * x_bytes(ksize);
+    if (p.n_ic == 1 && fixed + ksize * TAP <= GC_SMEM_MAX) {
         p.tc = ksize;
         p.chunks = 1;
-    } else {
-        p.tc = (GC_SMEM_MAX - fixed) / (2 * TAP);
+    } else if (fixed + 2 * TAP <= GC_SMEM_MAX) {
+        p.tc = std::min(ksize, (GC_SMEM_MAX - fixed) / (2 * TAP));
+        p.chunks = (ksize + p.tc - 1) / p.tc;
+    } else {  // x in the ring: each slice's x buffer holds 64 * warpgroups + tc - 1 rows
+        p.x_step = 1;
+        p.tc = std::min(ksize, (GC_SMEM_MAX - 1024 - 2 * x_bytes(8)) / (2 * TAP + 4 * WP));
+        while (p.tc > 1 && 1024 + 2 * x_bytes(p.tc) + 2 * p.tc * TAP > GC_SMEM_MAX) --p.tc;
         p.chunks = (ksize + p.tc - 1) / p.tc;
     }
-    const int smem = fixed + (p.chunks == 1 ? 1 : 2) * p.tc * TAP;
+    p.x_rows = (BM + (p.x_step ? p.tc : ksize) - 1 + 7) / 8 * 8;
+    p.x_bytes = p.x_rows * WP * 2;
+    const bool weights_resident = p.chunks == 1 && p.n_ic == 1;
+    const int smem = 1024 + 2 * p.x_bytes + (weights_resident ? 1 : 2) * p.tc * TAP;
+    if (smem > GC_SMEM_MAX) return (int)cudaErrorInvalidValue;
     const void* kernel = (const void*)grouped_conv1d_kernel<WP, NP, CPE>;
     cudaError_t err = smem_limit_once(kernel, GC_SMEM_MAX);
     int resident = 0;
     if (err == cudaSuccess) err = resident_blocks(kernel, GC_NWG * 128, smem, &resident);
     if (err != cudaSuccess) return (int)err;
-    const int blocks_y = c / width * (WP / NP);
+    const int blocks_y = c / width * ntiles;
     const int parts = max(1, min(p.tiles, resident / blocks_y));
     grouped_conv1d_kernel<WP, NP, CPE>
         <<<dim3(parts, blocks_y), GC_NWG * 128, smem, stream>>>(x, w, bias, lengths, y, p);
@@ -447,25 +486,40 @@ static int launch_grouped_conv1d(const bf16* x, const bf16* w, const bf16* bias,
 
 extern "C" int f5_grouped_conv1d_bf16(const void* x, const void* w, const void* bias, void* y,
                                       int b, int n, int c, int width, int ksize, void* stream) {
-    if (width <= 0 || width % 8 || width > 128 || c % width || ksize < 1 || ksize > GC_MAXK)
-        return (int)cudaErrorInvalidValue;
+    if (width <= 0 || width % 8 || c % width || ksize < 1) return (int)cudaErrorInvalidValue;
     if (b <= 0 || n <= 0) return (int)cudaGetLastError();
     const bf16 *xp = (const bf16*)x, *wp = (const bf16*)w, *bp = (const bf16*)bias;
     bf16* yp = (bf16*)y;
     cudaStream_t s = (cudaStream_t)stream;
+    if (width <= 128) {  // one input chunk, one output tile: the width rounded up to 16
 #define GC_CASE(WP) \
-    case WP: return launch_grouped_conv1d<WP, WP, false>(xp, wp, bp, nullptr, yp, b, n, c, width, ksize, s)
-    switch ((width + 15) / 16 * 16) {
-        GC_CASE(16);
-        GC_CASE(32);
-        GC_CASE(48);
-        GC_CASE(64);
-        GC_CASE(80);
-        GC_CASE(96);
-        GC_CASE(112);
-        default: return launch_grouped_conv1d<128, 128, false>(xp, wp, bp, nullptr, yp, b, n, c, width, ksize, s);
-    }
+    case WP: return launch_grouped_conv1d<WP, WP, false>(xp, wp, bp, nullptr, yp, b, n, c, width, ksize, 1, s)
+        switch ((width + 15) / 16 * 16) {
+            GC_CASE(16);
+            GC_CASE(32);
+            GC_CASE(48);
+            GC_CASE(64);
+            GC_CASE(80);
+            GC_CASE(96);
+            GC_CASE(112);
+            default: return launch_grouped_conv1d<128, 128, false>(xp, wp, bp, nullptr, yp, b, n, c, width, ksize, 1, s);
+        }
 #undef GC_CASE
+    }
+    // wider groups: input chunks of 64 channels, the outputs in ceil(W / 128)
+    // tiles of np channels (a multiple of 16, at most 128)
+    const int parts = (width + 127) / 128;
+    const int np = ((width + parts - 1) / parts + 15) / 16 * 16;
+    const int ntiles = (width + np - 1) / np;
+#define GC_WIDE(NP) \
+    case NP: return launch_grouped_conv1d<64, NP, false>(xp, wp, bp, nullptr, yp, b, n, c, width, ksize, ntiles, s)
+    switch (np) {
+        GC_WIDE(80);
+        GC_WIDE(96);
+        GC_WIDE(112);
+        default: return launch_grouped_conv1d<64, 128, false>(xp, wp, bp, nullptr, yp, b, n, c, width, ksize, ntiles, s);
+    }
+#undef GC_WIDE
 }
 
 // ---------------------------------------------------------------------------
@@ -480,10 +534,9 @@ extern "C" int f5_grouped_conv1d_bf16(const void* x, const void* w, const void* 
 extern "C" int f5_conv_mish_bf16(const void* x, const void* w, const void* bias,
                                  const void* lengths, void* y, int b, int n, int c, int ksize,
                                  void* stream) {
-    if (c % 64 || ksize < 1 || ksize > GC_MAXK || ksize % 2 == 0)
-        return (int)cudaErrorInvalidValue;
+    if (c % 64 || ksize < 1 || ksize > 31 || ksize % 2 == 0) return (int)cudaErrorInvalidValue;
     if (b <= 0 || n <= 0) return (int)cudaGetLastError();
     return launch_grouped_conv1d<64, GC_CPE_NP, true>(
         (const bf16*)x, (const bf16*)w, (const bf16*)bias, (const int*)lengths, (bf16*)y, b, n, c,
-        64, ksize, (cudaStream_t)stream);
+        64, ksize, 64 / GC_CPE_NP, (cudaStream_t)stream);
 }

@@ -1,7 +1,14 @@
 // Hopper building blocks shared by the wgmma kernels (K3, K5, K7 and K11 in
 // attention.cu; K4, K8 and K9 in attention_bwd.cu; K10 in grouped_conv.cu):
 // cp.async copies into 128-byte-swizzled shared tiles, the wgmma descriptors,
-// fences and products on 64 x 64 bf16 tiles, and the accumulator repack.
+// fences and products on 64 x 64 and 64 x 128 bf16 tiles, and the
+// accumulator repack.
+//
+// A [64][D] bf16 tile of the head width D (64 or 128) lies as D / 64 halves
+// of 64 columns, WG_TILE bytes apart, each 128-byte swizzled (a 256-byte row
+// fits no swizzle atom): 16-byte chunk c of row r is at (c / 8) * WG_TILE +
+// sw128_off(r, c % 8). A K-major operand's 16-deep slice kk is `kslice`; an
+// N-major operand spans the halves through its descriptor's leading offset.
 #pragma once
 
 #include "common.cuh"
@@ -42,29 +49,37 @@ __device__ __forceinline__ uint32_t sw128_off(int r, int c) {
     return r * 128 + ((c ^ (r & 7)) << 4);
 }
 
-// Rows [r0, r0 + 64) of a bf16 matrix (64 lanes from src, row stride `stride`
-// elements) into a 128-byte-swizzled tile at shared address dst, by the NT
-// threads of the block; rows >= lim are zero-filled.
-template <int NT>
+// Offset of 16-byte chunk c (of D / 8) of row r in a [64][D] tile.
+__device__ __forceinline__ uint32_t tile_off(int r, int c) {
+    return (c >> 3) * WG_TILE + sw128_off(r, c & 7);
+}
+
+// Rows [r0, r0 + 64) of a bf16 matrix (D lanes from src, row stride `stride`
+// elements) into a [64][D] tile at shared address dst, by the NT threads of
+// the block; rows >= lim are zero-filled.
+template <int NT, int D>
 __device__ __forceinline__ void tile_async(uint32_t dst, const bf16* src, size_t stride, int r0,
                                            int lim, int tid) {
+    constexpr int DC = D / 8, SH = D == 64 ? 3 : 4;  // chunks a row, log2 of it
 #pragma unroll
-    for (int i = tid; i < 512; i += NT) {
-        const int r = i >> 3, c = i & 7;
+    for (int i = tid; i < 64 * DC; i += NT) {
+        const int r = i >> SH, c = i & (DC - 1);
         const int row = r0 + r;
         const bool ok = row < lim;
-        cp_async16(dst + sw128_off(r, c), src + (size_t)(ok ? row : 0) * stride + c * 8, ok);
+        cp_async16(dst + tile_off(r, c), src + (size_t)(ok ? row : 0) * stride + c * 8, ok);
     }
 }
 
-// Zero 64 lanes of rows [r0, min(r0 + rows, n)) of dst (row stride `stride`).
-template <int NT>
+// Zero D lanes of rows [r0, min(r0 + rows, n)) of dst (row stride `stride`).
+template <int NT, int D>
 __device__ __forceinline__ void zero_span(bf16* dst, size_t stride, int r0, int rows, int n,
                                           int tid) {
-    for (int i = tid; i < rows * 8; i += NT) {
-        const int row = r0 + (i >> 3);
+    constexpr int DC = D / 8, SH = D == 64 ? 3 : 4;
+    for (int i = tid; i < rows * DC; i += NT) {
+        const int row = r0 + (i >> SH);
         if (row < n)
-            *reinterpret_cast<uint4*>(dst + row * stride + (i & 7) * 8) = make_uint4(0, 0, 0, 0);
+            *reinterpret_cast<uint4*>(dst + row * stride + (i & (DC - 1)) * 8) =
+                make_uint4(0, 0, 0, 0);
     }
 }
 
@@ -76,6 +91,21 @@ __device__ __forceinline__ void zero_span(bf16* dst, size_t stride, int r0, int 
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
     return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)64 << 16) | ((uint64_t)64 << 32) |
            ((uint64_t)1 << 62);
+}
+
+// The descriptor of an N-major B operand of a [64][D] tile (its rows the K
+// dimension): at D = 64 `sw128_desc`; at D = 128 the leading offset is the
+// WG_TILE bytes between the two 64-column halves, the swizzle atoms along N.
+template <int D>
+__device__ __forceinline__ uint64_t mn_desc(uint32_t addr) {
+    if constexpr (D == 64) return sw128_desc(addr);
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(WG_TILE >> 4) << 16) |
+           ((uint64_t)64 << 32) | ((uint64_t)1 << 62);
+}
+
+// Shared address of the 16-deep K slice kk of a K-major [64][D] tile.
+__device__ __forceinline__ uint32_t kslice(uint32_t base, int kk) {
+    return base + (kk >> 2) * WG_TILE + (kk & 3) * 32;
 }
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -128,6 +158,33 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
         ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : WG_OUT32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+#define WG_D64                                                                                    \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "  \
+    "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "   \
+    "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "    \
+    "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define WG_OUT64(d)                                                                              \
+    WG_OUT32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), \
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),          \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),          \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),          \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),          \
+        "+f"(d[62]), "+f"(d[63])
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], A from registers as above, B in
+// shared memory (its descriptor `mn_desc<128>` for an N-major [64][128]
+// tile). The accumulator layout of the 64-wide product, 16 column groups.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : WG_OUT64(d)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 

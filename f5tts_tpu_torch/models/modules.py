@@ -42,9 +42,11 @@ import torch.nn.functional as F
 from f5tts_tpu_torch.models.remat import tagged
 from f5tts_tpu_torch.ops.adaln_norm import adaln_norm, adaln_norm_quant, rms_norm_quant
 from f5tts_tpu_torch.ops.adaln_norm import rms_norm as rms_norm_kernel
-from f5tts_tpu_torch.ops.attention import FLAT_ATTN_MAX_N, attention, fused_qkv_rope_attention
+from f5tts_tpu_torch.ops.attention import (FLAT_ATTN_MAX_N, attention, flat_width_supported,
+                                           fused_qkv_rope_attention)
 from f5tts_tpu_torch.ops.grouped_conv import conv_pos_embedding as conv_pos_kernel
-from f5tts_tpu_torch.ops.grouped_conv import grouped_conv1d, mish, supports_fused_conv_pos
+from f5tts_tpu_torch.ops.grouped_conv import (grouped_conv1d, grouped_conv1d_ref, mish,
+                                              supports_fused_conv_pos, supports_grouped_conv)
 from f5tts_tpu_torch.ops.quant import (QuantRows, gelu_quantize_rows, int8_linear,
                                        int8_linear_partial_tp)
 from f5tts_tpu_torch.ops.rope import apply_rotary_flat, apply_rotary_partial_heads
@@ -205,9 +207,12 @@ def conv_pos_embedding(p: Params, x: torch.Tensor, lengths: Optional[torch.Tenso
 
     The JAX dispatch (modules.py:248-273): 64 channels a group with k = 31
     goes to the fused kernel K2; any other width (the dim-768 presets: 48)
-    runs the unfused chain in the JAX rounding order: mask, conv + bias (K10,
-    out in x's dtype), mask, Mish in f32 cast back, K10, mask, Mish. Without
-    `lengths` nothing is masked."""
+    or k runs the unfused chain in the JAX rounding order: mask, conv + bias
+    (out in x's dtype), mask, Mish in f32 cast back, conv, mask, Mish. Its
+    convs are K10 where c / groups is a multiple of 8 (JAX's
+    `supports_pallas_grouped_conv` on the width; K10 takes any n), else
+    JAX's XLA `conv1d` in x's dtype. Without `lengths` nothing is
+    masked."""
     b, n, c = x.shape
     w1, b1 = p["conv1"]["w"].to(x.dtype), p["conv1"]["b"].to(x.dtype)
     w2, b2 = p["conv2"]["w"].to(x.dtype), p["conv2"]["b"].to(x.dtype)
@@ -222,8 +227,13 @@ def conv_pos_embedding(p: Params, x: torch.Tensor, lengths: Optional[torch.Tenso
         valid = torch.arange(n, device=x.device)[None, :, None] < lengths[:, None, None]
         return torch.where(valid, h, torch.zeros((), dtype=h.dtype, device=h.device))
 
-    h = grouped_conv1d(masked(x), w1, b1, groups)
-    h = grouped_conv1d(mish(masked(h)), w2, b2, groups)
+    if supports_grouped_conv(c, groups):
+        conv = grouped_conv1d
+    else:
+        def conv(h, w, bias, g):
+            return grouped_conv1d_ref(h, w, bias, g, h.dtype)
+    h = conv(masked(x), w1, b1, groups)
+    h = conv(mish(masked(h)), w2, b2, groups)
     return mish(masked(h))
 
 
@@ -372,12 +382,14 @@ def self_attention(p: Params, x, heads: int, rope_tabs: tuple,
     rope_angles [>=n, d] f32 with `pe_attn_head` for the head layout. Rows
     >= lengths of the output are zeroed after to_out.
 
-    The JAX gate (modules.py:399-466). Fused to_qkv without qk-norm, up to
-    FLAT_ATTN_MAX_N rows: the flat kernel K3 takes the projection as it is.
-    Otherwise the head layout, and K7: past the gate (UNetT at the
-    4096-frame cap: 4097 rows padded to 4224), with unfused
-    to_q/to_k/to_v, or under qk-norm (`q_norm` / `k_norm` leaves, at every
-    n). RoPE goes on the flat projections before the head split, or under
+    The JAX gate (modules.py:399-466). Fused to_qkv without qk-norm, head
+    width 64 or 128 with h*d % 128 == 0 (`flat_width_supported`) and up to
+    FLAT_ATTN_MAX_N rows (K3 takes any n, where JAX's Pallas body also asks
+    n % 128 == 0 and its head-layout branch computes the same function):
+    the flat kernel K3 takes the projection as it is. Otherwise the head layout, and K7: past
+    the gate (UNetT at the 4096-frame cap: 4097 rows padded to 4224; any
+    other head width), with unfused to_q/to_k/to_v, or under qk-norm
+    (`q_norm` / `k_norm` leaves, at every n). RoPE goes on the flat projections before the head split, or under
     qk-norm after a per-head RMSNorm (K6, eps 1e-6, reading q and k in
     place from the projection's head view), on the first `pe_attn_head`
     heads. Unfused int8 q / k / v share one quantize of their input (the
@@ -392,15 +404,18 @@ def self_attention(p: Params, x, heads: int, rope_tabs: tuple,
         x = copy_to_tp(x, tp)
     lens = (torch.full((b,), n, dtype=torch.int32, device=x.device) if lengths is None
             else lengths.to(torch.int32))
-    if "to_qkv" in p and "q_norm" not in p and n <= FLAT_ATTN_MAX_N:
+    qkv = None
+    if "to_qkv" in p:
         with tagged("qkv"):
             qkv = linear(p["to_qkv"], x)
+    if (qkv is not None and "q_norm" not in p and n <= FLAT_ATTN_MAX_N
+            and flat_width_supported(heads, qkv.shape[-1] // (3 * heads))):
         o = fused_qkv_rope_attention(qkv.contiguous(), rope_tabs[0], rope_tabs[1], lens, heads)
     else:
-        with tagged("qkv"):
-            if "to_qkv" in p:
-                q, k, v = linear(p["to_qkv"], x).chunk(3, dim=-1)
-            else:  # to_q / to_k / to_v; int8 ones with the hedge each quantize their masked rows
+        if qkv is not None:
+            q, k, v = qkv.chunk(3, dim=-1)
+        else:
+            with tagged("qkv"):  # int8 to_q / to_k / to_v with the hedge each quantize their rows
                 q, k, v = (linear(leaf, x) for leaf in attention_inputs(p))
         if "q_norm" in p:
             q = rms_norm(tp_whole(p["q_norm"], tp), head_view(q, heads))

@@ -64,6 +64,22 @@ plain version
 `mha_reference_masked` (the JAX function of that name). Every row is
 computed. It is differentiable through the plain formula's VJP, as the JAX
 custom_vjp (`_masked_bwd`) is: the JAX package has no backward kernel here.
+
+Head widths. Every kernel has a d = 64 and a d = 128 instantiation (the
+Pallas bodies' range: the flat ones and `_flash_kernel_bias` take d in {64,
+128}). The gates mirror the JAX package's on the head width: the flat
+kernels K3 / K4 and K5 / K8 take d in {64, 128} with h*d % 128 == 0
+(`flat_width_supported`; the DiT / UNetT gate in `models/modules.py`
+adds n <= FLAT_ATTN_MAX_N); `fused_qkv_rope_attention_bias` computes JAX's
+XLA branch `bias_decomposed_ref` at any other width, and
+`masked_flash_attention` JAX's `mha_reference_masked` at any d but 64 and
+128 (no Pallas body stands behind either branch). On n the port's kernels
+take more than the Pallas bodies: K3 any n up to FLAT_ATTN_MAX_N, K5 and
+K11 every n (JAX asks n % 128 == 0, and n <= FLAT_ATTN_MAX_N of K5 / K11,
+and takes its XLA formulas of the same function elsewhere). The head
+layout K7 / K9, whose Pallas body takes any d, takes every d <=
+HEAD_LAYOUT_MAX_D: 64 and 128 natively, any other width zero-padded to the
+next of them (`_head_pad`); d > 128 raises on the card.
 """
 
 from __future__ import annotations
@@ -83,11 +99,26 @@ NEG_INF = -1e30
 # a row whose saved lse is below this is dead (K7 writes NEG_INF on q tiles
 # wholly past the length), as the Pallas backward tests lse > NEG_INF / 2
 DEAD_LSE = NEG_INF / 2
-HEAD_DIM = 64  # the kernels' head width
+HEAD_DIMS = (64, 128)  # the head widths the kernels are instantiated at
+HEAD_LAYOUT_MAX_D = 128  # K7 / K9 zero-pad a narrower head to the next of HEAD_DIMS
 Q_TILE = 64    # K3's and K7's q tile: tiles wholly past the length are dead
 # the longest sequence the JAX package sends through its flat kernels; past
 # it `self_attention` splits heads for K7, as the JAX gate does
 FLAT_ATTN_MAX_N = 4096
+
+
+def flat_width_supported(heads: int, d: int) -> bool:
+    """The head widths of the flat kernels K3 / K4 and K5 / K8: the JAX
+    gates' `d in (64, 128) and hd % 128 == 0` (attention.py:1189 / :1498 /
+    :1628)."""
+    return d in HEAD_DIMS and heads * d % 128 == 0
+
+
+def masked_flash_supported(d: int) -> bool:
+    """The head widths of K11, as JAX's `masked_flash_attention` gate
+    (attention.py:1714: d in (64, 128)); any other width computes
+    `mha_reference_masked`, JAX's XLA branch."""
+    return d in HEAD_DIMS
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -104,15 +135,16 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _flat_fwd_ref(qkv, cos, sin, kmask, heads: int):
     """(o [b, n, h*d] in qkv's dtype, lse [b, h, n] f32) of the flat attention
-    under a [b, n] key mask, at the kernels' rounding points: roped q *
-    1/sqrt(d) and roped k in qkv's dtype, f32 scores and softmax,
-    probabilities in qkv's dtype."""
+    under a [b, n] key mask, at the kernels' rounding points: q roped and
+    times 1/sqrt(d) in f32 and rounded to qkv's dtype once (as the Pallas
+    body), roped k in qkv's dtype, f32 scores and softmax, probabilities in
+    qkv's dtype."""
     b, n, hd3 = qkv.shape
     hd = hd3 // 3
     d = hd // heads
     q, k, v = qkv.split(hd, dim=-1)
     cos, sin = cos[:n], sin[:n]
-    q = (apply_rotary_flat_tables(q, cos, sin).float() * (1.0 / math.sqrt(d))).to(qkv.dtype)
+    q = (apply_rotary_flat_tables(q.float(), cos, sin) * (1.0 / math.sqrt(d))).to(qkv.dtype)
     k = apply_rotary_flat_tables(k, cos, sin)
 
     def split_heads(t):
@@ -226,9 +258,10 @@ def _flat_bwd_ref(qkv, cos, sin, key_live, do, heads: int, saved=None) -> torch.
 
 @functools.lru_cache(maxsize=None)
 def _entry(lib: str, name: str, n_ptrs: int):
-    """`name` of csrc/<lib>.cu: n_ptrs pointers, then (b, n, heads, scale, stream)."""
+    """`name` of csrc/<lib>.cu: n_ptrs pointers, then (b, n, heads, head_dim,
+    scale, stream)."""
     fn = getattr(_build.load(lib), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3 + [ctypes.c_float,
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                                      ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -258,10 +291,10 @@ def _check_qkv(qkv, cos, sin, heads):
         raise ValueError("attention kernel takes a contiguous, 16-byte aligned bf16 "
                          "[b, n, 3*h*d] qkv")
     b, n, hd3 = qkv.shape
-    if hd3 != 3 * heads * HEAD_DIM:
-        raise ValueError(f"attention kernel takes head width {HEAD_DIM}: "
-                         f"qkv width {hd3} with {heads} heads")
-    hd = heads * HEAD_DIM
+    if hd3 % (3 * heads) or not flat_width_supported(heads, hd3 // (3 * heads)):
+        raise ValueError(f"flat attention kernel takes head widths {HEAD_DIMS} with h*d % 128 "
+                         f"== 0: qkv width {hd3} with {heads} heads")
+    hd = hd3 // 3
     for t in (cos, sin):
         if (t.dim() != 2 or t.shape[0] < n or t.shape[1] != hd or not t.is_contiguous()
                 or t.dtype != torch.bfloat16 or t.device != qkv.device):
@@ -289,12 +322,13 @@ def _flat_bwd(entry: str, name: str, qkv, cos, sin, mask, out, lse, dout, heads:
     if (lse.shape != (b, heads, n) or lse.dtype != torch.float32 or lse.device != qkv.device
             or not lse.is_contiguous()):
         raise ValueError("attention backward kernel takes a contiguous f32 [b, h, n] lse")
+    d = hd3 // (3 * heads)
     dqkv = torch.empty_like(qkv)
-    k_rot = torch.empty((b, heads, n, HEAD_DIM), dtype=qkv.dtype, device=qkv.device)
+    k_rot = torch.empty((b, heads, n, d), dtype=qkv.dtype, device=qkv.device)
     delta = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
     err = _entry("attention_bwd", entry, 10)(
         *(_build.ptr(t) for t in (qkv, cos, sin, mask, out, lse, dout, dqkv, k_rot, delta)),
-        b, n, heads, 1.0 / math.sqrt(HEAD_DIM), _build.stream_ptr(qkv.device))
+        b, n, heads, d, 1.0 / math.sqrt(d), _build.stream_ptr(qkv.device))
     _build.check(err, name)
     _build.count(name)
     return dqkv
@@ -390,16 +424,17 @@ def _flat_fwd(entry: str, name: str, qkv, cos, sin, mask, heads: int, return_lse
     call), in the lse mode (entry `<entry>_lse_bf16`, count `<name>_lse`)
     with `return_lse`."""
     b, n, hd3 = qkv.shape
+    d = hd3 // (3 * heads)
     out = torch.empty((b, n, hd3 // 3), dtype=qkv.dtype, device=qkv.device)
     args = [_build.ptr(qkv), _build.ptr(cos), _build.ptr(sin), _build.ptr(mask), _build.ptr(out)]
     if return_lse:
         lse = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
         args.append(_build.ptr(lse))
         entry, name = entry + "_lse", name + "_lse"
-    k_rot = torch.empty((b, heads, n, HEAD_DIM), dtype=qkv.dtype, device=qkv.device)
+    k_rot = torch.empty((b, heads, n, d), dtype=qkv.dtype, device=qkv.device)
     args.append(_build.ptr(k_rot))
     err = _entry("attention", entry + "_bf16", len(args))(
-        *args, b, n, heads, 1.0 / math.sqrt(HEAD_DIM), _build.stream_ptr(qkv.device))
+        *args, b, n, heads, d, 1.0 / math.sqrt(d), _build.stream_ptr(qkv.device))
     _build.check(err, name)
     _build.count(name)
     return (out, lse) if return_lse else out
@@ -460,10 +495,33 @@ class _FusedQKVRopeAttentionBias(torch.autograd.Function):
         return dqkv, None, None, None, None
 
 
+def bias_decomposed_ref(qkv, cos, sin, kmask, heads: int) -> torch.Tensor:
+    """JAX's `_bias_decomposed_ref` (attention.py:1458), its XLA branch of
+    `fused_qkv_rope_attention_bias`: flat RoPE in qkv's dtype, the head
+    split, `mha_reference_masked`, the merge. Differentiable through PyTorch's
+    autograd, as JAX takes its VJP."""
+    b, n, hd3 = qkv.shape
+    hd = hd3 // 3
+    q, k, v = qkv.split(hd, dim=-1)
+    cos, sin = cos[:n], sin[:n]
+
+    def split(t):
+        return t.reshape(b, n, heads, hd // heads).transpose(1, 2)
+
+    o = mha_reference_masked(split(apply_rotary_flat_tables(q, cos, sin)),
+                             split(apply_rotary_flat_tables(k, cos, sin)), split(v), kmask)
+    return o.transpose(1, 2).reshape(b, n, hd)
+
+
 def fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, heads: int) -> torch.Tensor:
     """qkv [b, n, 3*h*d], joint cos/sin [>=n, h*d], kmask [b, n] bool (True =
     live key) -> [b, n, h*d]. Kernel K5 on CUDA, plain on the CPU;
-    differentiable in qkv (K5's lse mode and K8 on CUDA)."""
+    differentiable in qkv (K5's lse mode and K8 on CUDA). Widths off the flat
+    kernels' gate (`flat_width_supported`) compute `bias_decomposed_ref`, as
+    the JAX function does."""
+    if qkv.shape[-1] % (3 * heads) or not flat_width_supported(heads,
+                                                               qkv.shape[-1] // (3 * heads)):
+        return bias_decomposed_ref(qkv, cos, sin, kmask, heads)
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _FusedQKVRopeAttentionBias.apply(qkv, cos, sin, kmask, heads)
     return _flat_bias_op(qkv, cos, sin, kmask, heads)
@@ -534,21 +592,48 @@ def flash_attention_bwd_ref(q, k, v, lengths, o, lse, dout) -> tuple:
     return tuple(g.to(dt) for g in grads)
 
 
-def _check_heads(*tensors):
+def _check_heads(*tensors, widths=HEAD_DIMS):
     q = tensors[0]
     for t in tensors:
-        if (t.dim() != 4 or t.shape != q.shape or t.shape[-1] != HEAD_DIM or not t.is_contiguous()
-                or t.dtype != torch.bfloat16 or t.device != q.device or t.data_ptr() % 16):
-            raise ValueError(f"flash attention kernel takes contiguous, 16-byte aligned bf16 "
-                             f"[b, h, n, {HEAD_DIM}] tensors of one shape")
+        if (t.dim() != 4 or t.shape != q.shape or t.shape[-1] not in widths
+                or not t.is_contiguous() or t.dtype != torch.bfloat16 or t.device != q.device
+                or t.data_ptr() % 16):
+            raise ValueError(f"attention kernel takes contiguous, 16-byte aligned bf16 "
+                             f"[b, h, n, d] tensors of one shape, d in {widths}")
+
+
+def _head_pad(d: int) -> int:
+    """The instantiated width K7 / K9 run a head of width d at: d itself for
+    64 and 128, else the next of them; d > HEAD_LAYOUT_MAX_D raises."""
+    if not 0 < d <= HEAD_LAYOUT_MAX_D:
+        raise ValueError(f"flash attention kernel takes head widths up to {HEAD_LAYOUT_MAX_D}: "
+                         f"d = {d} (the Pallas head layout's wider heads are not ported)")
+    return next(w for w in HEAD_DIMS if d <= w)
+
+
+def _pad_heads(width: int, *tensors) -> list:
+    """Each [b, h, n, d] tensor, contiguous, its last dimension zero-padded to
+    `width`."""
+    return [t.contiguous() if t.shape[-1] == width
+            else torch.nn.functional.pad(t, (0, width - t.shape[-1])) for t in tensors]
 
 
 def flash_attention_fwd(q, k, v, lengths, return_lse: bool = False):
     """[b, h, n, d] q/k/v (already roped), lengths [b] int32 -> out [b, h, n, d]
     (and with `return_lse` the row lse [b, h, n] f32). Kernel K7 on CUDA (its
-    lse mode with `return_lse`), `flash_attention_fwd_ref` on the CPU."""
+    lse mode with `return_lse`), `flash_attention_fwd_ref` on the CPU.
+
+    K7 is instantiated at d = 64 and 128. Any other d <= 128 runs at the next
+    of them: q, k and v zero-padded on the way in, the output sliced on the
+    way out, the scale still 1/sqrt(d) of the true d. The padded lanes of q
+    and k add exact zeros to every score and those of v give output lanes
+    that are dropped, so the scores, the softmax, the lse and the kept
+    output are the unpadded ones. d > 128 raises."""
     if _device("flash_attention", q) == "cpu":
         return flash_attention_fwd_ref(q, k, v, lengths, return_lse)
+    d = q.shape[-1]
+    width = _head_pad(d)
+    q, k, v = _pad_heads(width, q, k, v)
     _check_heads(q, k, v)
     b, h, n, _ = q.shape
     _check_lengths(lengths, b, q.device)
@@ -560,19 +645,25 @@ def flash_attention_fwd(q, k, v, lengths, return_lse: bool = False):
         args.append(_build.ptr(lse))
     else:
         name, fn = "flash_attention", _entry("attention", "f5_flash_attn_bf16", 5)
-    err = fn(*args, b, n, h, 1.0 / math.sqrt(HEAD_DIM), _build.stream_ptr(q.device))
+    err = fn(*args, b, n, h, width, 1.0 / math.sqrt(d), _build.stream_ptr(q.device))
     _build.check(err, name)
     _build.count(name)
+    if width != d:
+        out = out[..., :d].contiguous()
     return (out, lse) if return_lse else out
 
 
 def flash_attention_bwd(q, k, v, lengths, o, lse, dout) -> tuple:
     """(dq, dk, dv) [b, h, n, d] of `flash_attention` from its saved output o
     and row lse, for the incoming gradient dout. Kernel K9 on CUDA, plain on
-    the CPU."""
+    the CPU. A width other than 64 and 128 runs zero-padded as the forward
+    does: the padded lanes of q, k, v, o and dO are zeros, so delta, p and ds
+    are the unpadded ones, and the kept lanes of dq, dk and dv too."""
     if _device("flash_attention_bwd", q) == "cpu":
         return flash_attention_bwd_ref(q, k, v, lengths, o, lse, dout)
-    dout = dout.contiguous()
+    d = q.shape[-1]
+    width = _head_pad(d)
+    q, k, v, o, dout = _pad_heads(width, q, k, v, o, dout)
     _check_heads(q, k, v, o, dout)
     b, h, n, _ = q.shape
     _check_lengths(lengths, b, q.device)
@@ -583,9 +674,11 @@ def flash_attention_bwd(q, k, v, lengths, o, lse, dout) -> tuple:
     delta = torch.empty_like(lse)
     err = _entry("attention_bwd", "f5_flash_attn_bwd_bf16", 11)(
         *(_build.ptr(t) for t in (q, k, v, lengths, o, lse, dout, dq, dk, dv, delta)),
-        b, n, h, 1.0 / math.sqrt(HEAD_DIM), _build.stream_ptr(q.device))
+        b, n, h, width, 1.0 / math.sqrt(d), _build.stream_ptr(q.device))
     _build.check(err, "flash_attention_bwd")
     _build.count("flash_attention_bwd")
+    if width != d:
+        return tuple(g[..., :d].contiguous() for g in (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -687,23 +780,25 @@ def masked_flash_attention(q, k, v, kmask) -> torch.Tensor:
     """q/k/v [b, h, n, d] (already normed and roped), kmask [b, n] bool (True
     = live key) -> [b, h, n, d], every row computed (a batch row with no live
     key: zeros). Kernel K11 on CUDA (the wgmma core's HEAD + KMASK mode, one
-    launch), `mha_reference_masked` on the CPU; differentiable in q, k and v
-    (the plain formula's VJP)."""
+    launch) at d = 64 and 128, `mha_reference_masked` on the CPU and at any
+    other d (JAX's gate); differentiable in q, k and v (the plain formula's
+    VJP)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _MaskedFlashAttention.apply(q, k, v, kmask)
     return _masked_op(q, k, v, kmask)
 
 
 def _masked_forward(q, k, v, kmask) -> torch.Tensor:
-    if _device("masked_flash_attention", q) == "cpu":
+    # JAX's gate (attention.py:1714): d off K11's widths is its XLA branch
+    if _device("masked_flash_attention", q) == "cpu" or not masked_flash_supported(q.shape[-1]):
         return mha_reference_masked(q, k, v, kmask)
     _check_heads(q, k, v)
-    b, h, n, _ = q.shape
+    b, h, n, d = q.shape
     _check_kmask(kmask, b, n, q.device)
     out = torch.empty_like(q)
     err = _entry("attention", "f5_masked_flash_attn_bf16", 5)(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(kmask), _build.ptr(out),
-        b, n, h, 1.0 / math.sqrt(HEAD_DIM), _build.stream_ptr(q.device))
+        b, n, h, d, 1.0 / math.sqrt(d), _build.stream_ptr(q.device))
     _build.check(err, "masked_flash_attention")
     _build.count("masked_flash_attention")
     return out

@@ -13,9 +13,13 @@ dim-768 presets: 16 groups of 48 channels) takes the unfused chain in
 `models/modules.py`, whose convs are `grouped_conv1d`: kernel K10 (the same
 file, replacing the Pallas `_grouped_conv_kernel` and its bias add) for CUDA
 tensors, `grouped_conv1d_ref` for CPU tensors. K10 takes W = c / groups
-channels a group with W % 8 == 0 and W <= 128, 1 <= k <= 31, any n (a
+channels a group with W % 8 == 0, any k >= 1 (lead padding (k - 1) // 2, as
+the Pallas body's, even k too) and any n: the Pallas body's whole range (a
 persistent wgmma pipeline: the group's taps resident in shared memory where
-they fit, else a ring of tap chunks). K2 is that pipeline's LENGTH + MISH
+they fit, else a ring of (input chunk, tap chunk) slices; a group wider than
+128 in output tiles of at most 128 channels). The model sends it every
+width JAX's `supports_pallas_grouped_conv` sends Pallas (`supports_grouped_conv`:
+W a multiple of 8) and JAX's XLA conv the rest. K2 is that pipeline's LENGTH + MISH
 mode: the input rows past the length zero-filled as they are copied, only
 the live row tiles walked (the dead ones stored as zeros), and the
 epilogue's bias, mask and Mish in f32 with one rounding.
@@ -48,8 +52,7 @@ from f5tts_tpu_torch.ops._operators import contiguous_like, conv_flops, operator
 from f5tts_tpu_torch.precision import full_f32
 
 GROUP_WIDTH = 64  # channels per group K2 takes
-MAX_K = 31
-MAX_WIDTH = 128   # channels per group K10 takes, a multiple of 8
+MAX_K = 31        # K2's largest k (odd)
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -182,6 +185,14 @@ _cpe_op = operator(
     lambda x, w1, b1, w2, b2, lengths, groups, out_shape=None: conv_flops(x, w1) + conv_flops(x, w2))
 
 
+def supports_grouped_conv(c: int, groups: int) -> bool:
+    """The widths K10 takes: c / groups a multiple of 8, as the JAX
+    package's gate of its Pallas grouped conv (grouped_conv.py:114-121,
+    without its backend test). JAX also asks n % 8 == 0, its tiling's; K10
+    takes any n and computes there what JAX's XLA conv computes."""
+    return c % groups == 0 and (c // groups) % 8 == 0
+
+
 def supports_fused_conv_pos(c: int, groups: int, k: int) -> bool:
     """The shapes K2 (the fused conv-position kernel) serves: 64 channels a
     group and k = 31, as the JAX gate (grouped_conv.py:289-297) without its
@@ -228,14 +239,14 @@ def _gc_check(x, w, bias, groups):
                          "[b, n, c] x")
     c = x.shape[2]
     width = c // groups if groups > 0 and c % groups == 0 else 0
-    if width == 0 or width % 8 or width > MAX_WIDTH:
-        raise ValueError(f"grouped_conv1d kernel needs c / groups a multiple of 8 and <= "
-                         f"{MAX_WIDTH}: c {c}, groups {groups}")
+    if width == 0 or width % 8:
+        raise ValueError(f"grouped_conv1d kernel needs c / groups a multiple of 8: c {c}, "
+                         f"groups {groups}")
     k = w.shape[0]
-    if (w.shape != (k, width, c) or not 1 <= k <= MAX_K or not w.is_contiguous()
+    if (w.dim() != 3 or w.shape != (k, width, c) or k < 1 or not w.is_contiguous()
             or w.dtype != torch.bfloat16 or w.data_ptr() % 16):
-        raise ValueError(f"grouped_conv1d kernel takes contiguous, 16-byte aligned bf16 WIO "
-                         f"weights [1 <= k <= {MAX_K}, c / groups, c]")
+        raise ValueError("grouped_conv1d kernel takes contiguous, 16-byte aligned bf16 WIO "
+                         "weights [k >= 1, c / groups, c]")
     if bias.shape != (c,) or not bias.is_contiguous() or bias.dtype != torch.bfloat16:
         raise ValueError("grouped_conv1d kernel takes a contiguous bf16 [c] bias")
     if w.device != x.device or bias.device != x.device:

@@ -193,9 +193,10 @@ def joint_kmask(na: int, n: int, dev) -> torch.Tensor:
 
 def attn_scalars(n: int) -> dict:
     """The int and float parameters of an attention entry (the forwards name
-    the scale sm_scale, the backwards scale)."""
+    the scale sm_scale, the backwards scale; a source without the head_dim
+    parameter ignores it)."""
     scale = 1.0 / math.sqrt(64)
-    return {"b": 2, "n": n, "heads": H, "sm_scale": scale, "scale": scale}
+    return {"b": 2, "n": n, "heads": H, "head_dim": 64, "sm_scale": scale, "scale": scale}
 
 
 def inputs(kernel: str, shape, dev) -> tuple[dict, str]:

@@ -53,12 +53,14 @@ def _live(a, lengths):
 # K5: key-masked flat fused QKV + RoPE attention
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("body,n", [("single", 256), ("stream", 1152)])
-def test_bias_attention_plain_matches_pallas(body, n, monkeypatch):
+@pytest.mark.parametrize("body,n,d", [("single", 256, 64), ("stream", 1152, 64),
+                                      ("single", 256, 128)],
+                         ids=["single-256", "stream-1152", "d128-single-256"])
+def test_bias_attention_plain_matches_pallas(body, n, d, monkeypatch):
     monkeypatch.setattr(jatt, "FORCE_BIAS_KERNEL", True)
     if body == "stream":  # the online-softmax body, over one 1024-key block and a tail
         monkeypatch.setattr(jatt, "FLAT_SINGLE_PASS_MAX_N", 128)
-    heads, d, b = 2, 64, 2
+    heads, b = 2, 2
     hd = heads * d
     rng = np.random.default_rng(21)
     qkv = rng.standard_normal((b, n, 3 * hd)).astype(np.float32)
@@ -138,13 +140,21 @@ def test_bias_attention_equals_prefix_attention_on_a_prefix_mask():
 # K7: head-layout attention over keys < lengths
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("body,n,lengths", [("single", 256, [256, 177]),
-                                            ("loop", 384, [384, 200])])
-def test_flash_plain_matches_pallas(body, n, lengths, monkeypatch):
+@pytest.mark.parametrize("body,n,lengths,d", [("single", 256, [256, 177], 64),
+                                              ("loop", 384, [384, 200], 64),
+                                              ("single", 256, [256, 177], 128),
+                                              ("loop", 384, [384, 200], 128),
+                                              ("single", 256, [256, 177], 96)],
+                         ids=["single-256-lengths0", "loop-384-lengths1",
+                              "d128-single-256-lengths0", "d128-loop-384-lengths1",
+                              "d96-single-256-lengths0"])
+def test_flash_plain_matches_pallas(body, n, lengths, d, monkeypatch):
+    """K7's plain version against the Pallas head layout, which takes any d
+    (K7 runs d = 96 zero-padded to 128 on the card)."""
     if body == "loop":  # the online-softmax body over three 128-key blocks
         monkeypatch.setattr(jatt, "SINGLE_PASS_MAX_N", 0)
     rng = np.random.default_rng(23)
-    q, k, v = (rng.standard_normal((2, 2, n, 64)).astype(np.float32) for _ in range(3))
+    q, k, v = (rng.standard_normal((2, 2, n, d)).astype(np.float32) for _ in range(3))
     lens = np.array(lengths, np.int32)
     pallas = np.asarray(jatt.flash_attention(*(jnp.asarray(t) for t in (q, k, v)),
                                              jnp.asarray(lens)))

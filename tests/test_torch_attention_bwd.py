@@ -56,11 +56,11 @@ def _rel(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def _pallas_bwd_case(n, monkeypatch):
+def _pallas_bwd_case(n, monkeypatch, d=64):
     """qkv, rope tables, lengths [n, n - 79], the masked cotangent and the
-    JAX dQKV through the Pallas backward (interpret mode)."""
+    JAX dQKV through the Pallas backward (interpret mode), 2 heads of d."""
     monkeypatch.setattr(jatt, "FORCE_FLAT_BWD", True)
-    heads, d, b = 2, 64, 2
+    heads, b = 2, 2
     hd = heads * d
     rng = np.random.default_rng(n)
     qkv = (0.5 * rng.standard_normal((b, n, 3 * hd))).astype(np.float32)
@@ -77,10 +77,11 @@ def _pallas_bwd_case(n, monkeypatch):
     return qkv, cos, sin, lengths, ct, rowmask, want
 
 
-@pytest.mark.parametrize("n", [256, 1152])  # whole-n kernel, q-block-looped long kernel
-def test_plain_attention_bwd_matches_pallas_bwd(n, monkeypatch):
+# whole-n kernel, q-block-looped long kernel
+@pytest.mark.parametrize("n,d", [(256, 64), (1152, 64), (256, 128)], ids=["256", "1152", "d128-256"])
+def test_plain_attention_bwd_matches_pallas_bwd(n, d, monkeypatch):
     heads = 2
-    qkv, cos, sin, lengths, ct, rowmask, want = _pallas_bwd_case(n, monkeypatch)
+    qkv, cos, sin, lengths, ct, rowmask, want = _pallas_bwd_case(n, monkeypatch, d)
     # the same inputs on both sides, the rope tables included
     got = fused_qkv_rope_attention_bwd_ref(_t(qkv), _t(cos), _t(sin), _t(lengths),
                                            _t(ct * rowmask), heads).numpy()
@@ -111,12 +112,14 @@ def test_plain_attention_bwd_ignores_dead_rows_of_the_cotangent():
     assert not via_fn[1, 1:].any()
 
 
-@pytest.mark.parametrize("n,lengths", [(256, [256, 177]), (384, [384, 70])])
-def test_plain_lse_matches_pallas_flash_forward(n, lengths):
+@pytest.mark.parametrize("n,lengths,d", [(256, [256, 177], 64), (384, [384, 70], 64),
+                                        (256, [256, 177], 128)],
+                         ids=["256-lengths0", "384-lengths1", "d128-256-lengths0"])
+def test_plain_lse_matches_pallas_flash_forward(n, lengths, d):
     """K3's lse mode: the plain forward's row lse against `_flash_forward(
     return_lse=True)` (interpret mode) on the same roped, split heads; NEG_INF
     on the q tiles wholly past the length."""
-    heads, d = 2, 64
+    heads = 2
     rng = np.random.default_rng(n + 11)
     qkv = rng.standard_normal((2, n, 3 * heads * d)).astype(np.float32)
     cos, sin = j_rope_flat_tables(j_rope_freqs(d, n), n, heads, dtype=jnp.float32)
@@ -140,12 +143,12 @@ def test_plain_lse_matches_pallas_flash_forward(n, lengths):
         assert (lse[i, :, tile_end:] == tatt.NEG_INF).all()
 
 
-@pytest.mark.parametrize("n", [256, 1152])
-def test_from_lse_bwd_matches_pallas_bwd(n, monkeypatch):
+@pytest.mark.parametrize("n,d", [(256, 64), (1152, 64), (256, 128)], ids=["256", "1152", "d128-256"])
+def test_from_lse_bwd_matches_pallas_bwd(n, d, monkeypatch):
     """K4's function, fed the plain forward's out and lse, against jax.grad
     through the Pallas backward; dead rows and keys exactly 0."""
     heads = 2
-    qkv, cos, sin, lengths, ct, rowmask, want = _pallas_bwd_case(n, monkeypatch)
+    qkv, cos, sin, lengths, ct, rowmask, want = _pallas_bwd_case(n, monkeypatch, d)
     o, lse = fused_qkv_rope_attention_ref(_t(qkv), _t(cos), _t(sin), _t(lengths), heads,
                                           return_lse=True)
     got = fused_qkv_rope_attention_bwd_from_lse_ref(_t(qkv), _t(cos), _t(sin), _t(lengths), o, lse,

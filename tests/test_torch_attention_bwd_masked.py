@@ -74,11 +74,12 @@ def _joint(n, heads=2, d=64, b=2, seed=0):
     return qkv, cos, sin, kmask, ct_
 
 
-@pytest.mark.parametrize("body", ["whole", "long"])
-@pytest.mark.parametrize("n", [256, 384])
-def test_bias_bwd_plain_matches_pallas(n, body):
+@pytest.mark.parametrize("n,body,d", [(256, "whole", 64), (256, "long", 64), (384, "whole", 64),
+                                      (384, "long", 64), (256, "whole", 128)],
+                         ids=["256-whole", "256-long", "384-whole", "384-long", "d128-256-whole"])
+def test_bias_bwd_plain_matches_pallas(n, body, d):
     heads = 2
-    qkv, cos, sin, kmask, do = _joint(n)
+    qkv, cos, sin, kmask, do = _joint(n, d=d)
     args = [jnp.asarray(a) for a in (qkv, cos, sin)]
     if body == "whole":
         pallas = jatt._fused_bias_bwd_pallas(*args, jnp.asarray(kmask), jnp.asarray(do), heads)
@@ -92,16 +93,16 @@ def test_bias_bwd_plain_matches_pallas(n, body):
                                                          _t(do), heads))
     np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
     np.testing.assert_allclose(got, np.asarray(xla), **TOL)
-    hd = heads * 64
+    hd = heads * d
     dead = ~kmask
     assert not got[:, :, hd:][dead].any()  # dead keys: dk = dv = 0 exactly
     assert np.abs(got[:, :, :hd][dead]).max() > 0  # dead rows still get their dq
 
 
-@pytest.mark.parametrize("n", [256, 384])
-def test_bias_lse_plain_matches_jax_scores(n):
-    heads, d = 2, 64
-    qkv, cos, sin, kmask, _ = _joint(n)
+@pytest.mark.parametrize("n,d", [(256, 64), (384, 64), (256, 128)], ids=["256", "384", "d128-256"])
+def test_bias_lse_plain_matches_jax_scores(n, d):
+    heads = 2
+    qkv, cos, sin, kmask, _ = _joint(n, d=d)
     q, k, _v = jnp.split(jnp.asarray(qkv), 3, axis=-1)
     qh, kh = (jrope.apply_rotary_flat_tables(t, jnp.asarray(cos), jnp.asarray(sin))
               .reshape(2, n, heads, d).transpose(0, 2, 1, 3) for t in (q, k))
@@ -116,11 +117,12 @@ def test_bias_lse_plain_matches_jax_scores(n):
         _t(qkv), _t(cos), _t(sin), _t(kmask), heads)))
 
 
-@pytest.mark.parametrize("n", [256, 1152])
-def test_bias_bwd_from_lse_matches_pallas_grad(n, monkeypatch):
+@pytest.mark.parametrize("n,d", [(256, 64), (1152, 64), (256, 128)],
+                         ids=["256", "1152", "d128-256"])
+def test_bias_bwd_from_lse_matches_pallas_grad(n, d, monkeypatch):
     monkeypatch.setattr(jatt, "FORCE_FLAT_BWD", True)
     heads = 2
-    qkv, cos, sin, kmask, do = _joint(n)
+    qkv, cos, sin, kmask, do = _joint(n, d=d)
     jc, js, jk = jnp.asarray(cos), jnp.asarray(sin), jnp.asarray(kmask)
     want = np.asarray(jax.grad(lambda x: jnp.sum(
         jatt.fused_qkv_rope_attention_bias(x, jc, js, jk, heads) * jnp.asarray(do)))(
@@ -130,16 +132,19 @@ def test_bias_bwd_from_lse_matches_pallas_grad(n, monkeypatch):
     got = _np(tatt.fused_qkv_rope_attention_bias_bwd_from_lse_ref(
         _t(qkv), _t(cos), _t(sin), _t(kmask), o, lse, _t(do), heads))
     np.testing.assert_allclose(got, want, **TOL)
-    assert not got[:, :, 2 * 64:][~kmask].any()  # dead keys: dk = dv = 0 exactly
+    assert not got[:, :, 2 * d:][~kmask].any()  # dead keys: dk = dv = 0 exactly
 
 
-@pytest.mark.parametrize("body,n,lengths", [("single", 256, [256, 177]),
-                                            ("loop", 384, [384, 70])])
-def test_flash_lse_plain_matches_pallas(body, n, lengths, monkeypatch):
+@pytest.mark.parametrize("body,n,lengths,d", [("single", 256, [256, 177], 64),
+                                              ("loop", 384, [384, 70], 64),
+                                              ("single", 256, [256, 177], 128)],
+                         ids=["single-256-lengths0", "loop-384-lengths1",
+                              "d128-single-256-lengths0"])
+def test_flash_lse_plain_matches_pallas(body, n, lengths, d, monkeypatch):
     if body == "loop":  # the online-softmax body over three 128-key blocks
         monkeypatch.setattr(jatt, "SINGLE_PASS_MAX_N", 0)
     rng = np.random.default_rng(n + 1)
-    q, k, v = (rng.standard_normal((2, 2, n, 64)).astype(np.float32) for _ in range(3))
+    q, k, v = (rng.standard_normal((2, 2, n, d)).astype(np.float32) for _ in range(3))
     lens = np.array(lengths, np.int32)
     o_j, lse_j = jatt._flash_forward(*(jnp.asarray(t) for t in (q, k, v)), jnp.asarray(lens),
                                      return_lse=True)
@@ -154,19 +159,25 @@ def test_flash_lse_plain_matches_pallas(body, n, lengths, monkeypatch):
         assert np.isfinite(lse[i, :, :tile_end]).all()
 
 
-def _flash_case(n, lengths, seed=3):
+def _flash_case(n, lengths, seed=3, d=64):
     rng = np.random.default_rng(seed + n)
-    q, k, v = (rng.standard_normal((2, 2, n, 64)).astype(np.float32) for _ in range(3))
+    q, k, v = (rng.standard_normal((2, 2, n, d)).astype(np.float32) for _ in range(3))
     lens = np.array(lengths, np.int32)
-    do = rng.standard_normal((2, 2, n, 64)).astype(np.float32)
+    do = rng.standard_normal((2, 2, n, d)).astype(np.float32)
     do *= (np.arange(n)[None, :] < lens[:, None])[:, None, :, None]  # the model's row mask
     return q, k, v, lens, do
 
 
-@pytest.mark.parametrize("route", ["fused", "split", "vjp"])
-@pytest.mark.parametrize("n,lengths", [(256, [256, 177]), (384, [384, 70])])
-def test_flash_bwd_plain_matches_pallas(route, n, lengths, monkeypatch):
-    q, k, v, lens, do = _flash_case(n, lengths)
+_FLASH_BWD = [(n, ln, route, 64) for n, ln in ((256, [256, 177]), (384, [384, 70]))
+              for route in ("fused", "split", "vjp")]
+
+
+@pytest.mark.parametrize(
+    "n,lengths,route,d", _FLASH_BWD + [(256, [256, 177], "fused", 128)],
+    ids=[f"{n}-lengths{i // 3}-{r}" for i, (n, _, r, _) in enumerate(_FLASH_BWD)]
+    + ["d128-256-lengths0-fused"])
+def test_flash_bwd_plain_matches_pallas(route, n, lengths, d, monkeypatch):
+    q, k, v, lens, do = _flash_case(n, lengths, d=d)
     jq, jk, jv, jl, jdo = (jnp.asarray(t) for t in (q, k, v, lens, do))
     o_j, lse_j = jatt._flash_forward(jq, jk, jv, jl, return_lse=True)
     if route == "vjp":  # the custom_vjp as training reaches it

@@ -513,17 +513,22 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     bias = torch.zeros(320, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="multiple of 8"):  # 16 groups of 20 channels
         grouped_conv1d(xb, torch.zeros(31, 20, 320, dtype=torch.bfloat16, device=dev), bias, 16)
-    with pytest.raises(ValueError, match="k <= 31"):
-        grouped_conv1d(xb, torch.zeros(33, 40, 320, dtype=torch.bfloat16, device=dev), bias, 8)
+    with pytest.raises(ValueError, match="k >= 1"):
+        grouped_conv1d(xb, torch.zeros(0, 40, 320, dtype=torch.bfloat16, device=dev), bias, 8)
     with pytest.raises(ValueError):  # f32 x
         grouped_conv1d(xb.float(), torch.zeros(31, 40, 320, dtype=torch.bfloat16, device=dev),
                        bias, 8)
     qh = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="key mask"):  # an int mask, not bool
         masked_flash_attention(qh, qh, qh, torch.ones(1, 64, dtype=torch.int32, device=dev))
-    q128 = torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError, match="64"):  # head width 128 is not ported
-        masked_flash_attention(q128, q128, q128, torch.ones(1, 64, dtype=torch.bool, device=dev))
+    q192 = torch.zeros(1, 2, 64, 192, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="up to 128"):  # the head layout past 128 is not ported
+        flash_attention(q192, q192, q192, torch.ones(1, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="head widths"):  # 2 heads of 96: off the flat gate
+        fused_qkv_rope_attention(torch.zeros(1, 8, 3 * 192, dtype=torch.bfloat16, device=dev),
+                                 torch.zeros(8, 192, dtype=torch.bfloat16, device=dev),
+                                 torch.zeros(8, 192, dtype=torch.bfloat16, device=dev),
+                                 torch.zeros(1, dtype=torch.int32, device=dev), 2)
 
 
 @pytest.mark.parametrize("n,width,k", [(64, 48, 31), (200, 48, 31), (1024, 48, 31), (100, 24, 4),
@@ -1203,3 +1208,141 @@ def test_tiny_int8_backbones_through_the_kernels(dev, backbone):
             assert _build.launches() == want
     a, b = outs["cuda"][:, :201], outs["cpu"][:, :201]
     assert float((a - b).norm() / b.norm()) <= 3e-2
+
+
+# ---------------------------------------------------------------------------
+# head width 128 (8 heads of 128) in every attention mode, the head layout's
+# padded widths, and K10 past its old range
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,length", [(64, 1), (200, 65), (1024, 777), (3200, 3001)])
+def test_attention_kernels_d128(dev, n, length):
+    """K3 and its lse mode, and K4 from them, at 8 heads of 128 against their
+    plain versions (K4 against both), K3's dead rows and K4's exactly 0."""
+    rng = np.random.default_rng(n + 128)
+    h, d = 8, 128
+    qkv = _bf16(rng, (2, n, 3 * h * d), dev)
+    dout = _bf16(rng, (2, n, h * d), dev)
+    cos, sin = rope_flat_tables(rope_freqs_interleaved(d, n).to(dev), n, h)
+    lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)
+    _build.reset_launches()
+    out = fused_qkv_rope_attention(qkv, cos, sin, lengths, h)
+    out2, lse = fused_qkv_rope_attention_fwd(qkv, cos, sin, lengths, h, return_lse=True)
+    assert _build.launches() == {"fused_qkv_rope_attention": 1, "fused_qkv_rope_attention_lse": 1}
+    assert torch.equal(out, out2) and not out[1, length:].any()
+    ref, want_lse = fused_qkv_rope_attention_ref(qkv, cos, sin, lengths, h, return_lse=True)
+    assert _live_max(out, ref, lengths) <= 2e-2
+    tile_end = -(-length // 64) * 64
+    assert float((lse[0] - want_lse[0]).abs().max()) <= 1e-3
+    assert float((lse[1, :, :tile_end] - want_lse[1, :, :tile_end]).abs().max()) <= 1e-3
+    got = fused_qkv_rope_attention_bwd(qkv, cos, sin, lengths, out, lse, dout, h)
+    live = torch.arange(n, device=dev)[None, :] < lengths[:, None]
+    for want in (fused_qkv_rope_attention_bwd_from_lse_ref(qkv, cos, sin, lengths, out, lse, dout,
+                                                           h),
+                 fused_qkv_rope_attention_bwd_ref(qkv, cos, sin, lengths, dout, h)):
+        _close(got, want, live)
+    assert not got[1, length:].any()
+
+
+@pytest.mark.parametrize("n", [200, 1152, 4352])
+def test_bias_attention_kernels_d128(dev, n):
+    """K5, its lse mode and K8 at 8 heads of 128: dead keys mid-sequence, a
+    whole dead tile, a dead tail."""
+    rng = np.random.default_rng(n + 129)
+    h, d = 8, 128
+    qkv = _bf16(rng, (2, n, 3 * h * d), dev)
+    dout = _bf16(rng, (2, n, h * d), dev)
+    cos, sin = rope_flat_tables(rope_freqs_interleaved(d, n).to(dev), n, h)
+    kmask = torch.ones(2, n, dtype=torch.bool, device=dev)
+    kmask[0, n // 4: n // 2] = False
+    kmask[1, n - n // 3:] = False
+    kmask[1, 64:128] = False
+    out = fused_qkv_rope_attention_bias(qkv, cos, sin, kmask, h)
+    out2, lse = fused_qkv_rope_attention_bias_fwd(qkv, cos, sin, kmask, h, return_lse=True)
+    assert torch.equal(out, out2)
+    ref, want_lse = fused_qkv_rope_attention_bias_ref(qkv, cos, sin, kmask, h, return_lse=True)
+    assert _live_max(out, ref, torch.full((2,), n, device=dev)) <= 2e-2
+    assert float((lse - want_lse).abs().max()) <= 1e-3
+    got = fused_qkv_rope_attention_bias_bwd(qkv, cos, sin, kmask, out, lse, dout, h)
+    for want in (fused_qkv_rope_attention_bias_bwd_from_lse_ref(qkv, cos, sin, kmask, out, lse,
+                                                                dout, h),
+                 fused_qkv_rope_attention_bias_bwd_ref(qkv, cos, sin, kmask, dout, h)):
+        _close(got, want)
+    assert not got[:, :, h * d:][~kmask].any()
+
+
+@pytest.mark.parametrize("d", [128, 96, 32])
+@pytest.mark.parametrize("n,length", [(64, 1), (200, 65), (1024, 777), (4224, 3001)])
+def test_flash_attention_kernels_head_widths(dev, n, length, d):
+    """K7, its lse mode and K9 at 8 heads of d: 128 natively, 96 and 32
+    zero-padded to the next instantiated width; outputs, lse and gradients
+    of the true width against the plain versions at d."""
+    rng = np.random.default_rng(n + d)
+    q, k, v, dout = (_bf16(rng, (2, 8, n, d), dev) for _ in range(4))
+    lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)
+    _build.reset_launches()
+    out = flash_attention(q, k, v, lengths)
+    o, lse = flash_attention_fwd(q, k, v, lengths, return_lse=True)
+    assert _build.launches() == {"flash_attention": 1, "flash_attention_lse": 1}
+    assert out.shape == q.shape and torch.equal(out, o)
+    ref, want_lse = flash_attention_fwd_ref(q, k, v, lengths, return_lse=True)
+    tile_end = -(-length // 64) * 64
+    for i, end in enumerate((n, tile_end)):
+        assert float((out[i, :, :end].float() - ref[i, :, :end].float()).abs().max()) <= 2e-2
+        assert float((lse[i, :, :end] - want_lse[i, :, :end]).abs().max()) <= 1e-3
+    assert bool((lse[1, :, tile_end:] == NEG_INF).all()) and not out[1, :, tile_end:].any()
+    got = flash_attention_bwd(q, k, v, lengths, o, lse, dout)
+    want = flash_attention_bwd_ref(q, k, v, lengths, o, lse, dout)
+    for g, w in zip(got, want):
+        assert g.shape == q.shape
+        _close(g, w)
+
+
+@pytest.mark.parametrize("n", [200, 1152, 4352])
+def test_masked_flash_attention_kernel_d128(dev, n):
+    """K11 at 8 heads of 128 on every row; d = 96 takes JAX's XLA branch
+    (`mha_reference_masked`) and launches nothing."""
+    rng = np.random.default_rng(n + 130)
+    q, k, v = (_bf16(rng, (2, 8, n, 128), dev) for _ in range(3))
+    kmask = _bias_case(rng, n, dev)[3]
+    _build.reset_launches()
+    out = masked_flash_attention(q, k, v, kmask)
+    assert _build.launches() == {"masked_flash_attention": 1}
+    ref = mha_reference_masked(q.float(), k.float(), v.float(), kmask)
+    assert float((out.float() - ref).abs().max()) <= 2e-2
+    q96 = q[..., :96].contiguous()
+    _build.reset_launches()
+    out96 = masked_flash_attention(q96, q96, q96, kmask)
+    assert _build.launches() == {}
+    assert torch.equal(out96, mha_reference_masked(q96, q96, q96, kmask))
+
+
+@pytest.mark.parametrize("n", [37, 4096])
+def test_rms_norm_kernel_head_rows_d128(dev, n):
+    """K6 on qk-norm's [2, 8, n, 128] head rows, bf16 weight."""
+    rng = np.random.default_rng(n + 131)
+    x = _bf16(rng, (2, 8, n, 128), dev, 2.0)
+    w = _bf16(rng, (128,), dev, 0.1) + 1
+    out = rms_norm(x, w, 1e-6)
+    assert float((out.float() - rms_norm_ref(x.float(), w.float(), 1e-6)).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("n,c,groups,k", [(200, 2560, 16, 31), (1024, 2560, 16, 31),
+                                          (200, 3072, 16, 31), (77, 2176, 16, 7),
+                                          (200, 4096, 16, 2), (200, 1024, 1, 31),
+                                          (200, 768, 16, 63), (200, 768, 16, 30),
+                                          (300, 768, 16, 301), (130, 2048, 16, 301)])
+def test_grouped_conv1d_kernel_range(dev, n, c, groups, k):
+    """K10 past its old range: groups wider than 128 (160, 192, 136, 256 and
+    a dense 1024), k 63, an even k 30 and x in the ring (k 301), against its
+    plain version in f32: max-abs <= 3e-2."""
+    rng = np.random.default_rng(n + c + k)
+    width = c // groups
+    x = _bf16(rng, (2, n, c), dev)
+    w = _bf16(rng, (k, width, c), dev, 1.0 / np.sqrt(width * k))
+    bias = _bf16(rng, (c,), dev, 0.1)
+    _build.reset_launches()
+    out = grouped_conv1d(x, w, bias, groups)
+    assert _build.launches() == {"grouped_conv1d": 1}
+    ref = grouped_conv1d_ref(x.float(), w.float(), bias.float(), groups)
+    assert _live_max(out, ref, torch.full((2,), n, device=dev)) <= 3e-2

@@ -53,8 +53,15 @@ def _conv_inputs(width, k, groups=2, b=2, n=40, seed=0):
     return x, w, bias, groups
 
 
-@pytest.mark.parametrize("width", [48, 64, 24])
-@pytest.mark.parametrize("k", [31, 7, 4])
+_OLD_RANGE = [(width, k) for k in (31, 7, 4) for width in (48, 64, 24)]
+# past K10's old limits (W <= 128, k <= 31): groups wider than 128, k 63 and
+# an even k 30
+_NEW_RANGE = [(160, 31), (256, 7), (48, 63), (48, 30), (160, 30)]
+
+
+@pytest.mark.parametrize("width,k", _OLD_RANGE + _NEW_RANGE,
+                         ids=[f"{k}-{w}" for w, k in _OLD_RANGE]
+                         + [f"W{w}-k{k}" for w, k in _NEW_RANGE])
 def test_grouped_conv1d_plain_matches_pallas_and_xla(width, k):
     x, w, bias, groups = _conv_inputs(width, k)
     pallas = np.asarray(jgc.grouped_conv1d_pallas(jnp.asarray(x), jnp.asarray(w),
@@ -70,7 +77,8 @@ def test_grouped_conv1d_plain_matches_pallas_and_xla(width, k):
     np.testing.assert_array_equal(got, ref)
 
 
-@pytest.mark.parametrize("width,k", [(48, 31), (24, 4)])
+@pytest.mark.parametrize("width,k", [(48, 31), (24, 4), (160, 31), (48, 63), (48, 30)],
+                         ids=["48-31", "24-4", "W160-k31", "W48-k63", "W48-k30"])
 def test_grouped_conv1d_bf16_within_one_ulp_of_pallas(width, k):
     """bf16 in: the wrapper adds the bias in f32 and rounds once (K10's
     rounding); the Pallas path rounds the conv, then the sum with a bf16
@@ -87,7 +95,8 @@ def test_grouped_conv1d_bf16_within_one_ulp_of_pallas(width, k):
     assert np.all(np.abs(got - want) <= 1.5 * ulp + 1e-6)
 
 
-@pytest.mark.parametrize("width,k", [(48, 31), (24, 4)])
+@pytest.mark.parametrize("width,k", [(48, 31), (24, 4), (160, 31), (48, 30)],
+                         ids=["48-31", "24-4", "W160-k31", "W48-k30"])
 def test_grouped_conv1d_grad_matches_jax_vjp(width, k):
     x, w, bias, groups = _conv_inputs(width, k, seed=2)
     dy = np.random.default_rng(3).standard_normal(x.shape).astype(np.float32)
@@ -108,6 +117,62 @@ def test_supports_fused_conv_pos_mirrors_jax(c, groups, k, monkeypatch):
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     assert tgc.supports_fused_conv_pos(c, groups, k) == jgc.supports_fused_conv_pos(c, groups,
                                                                                     1024, k)
+
+
+@pytest.mark.parametrize("k", [30, 31, 2, 63])
+def test_grouped_conv1d_lead_padding_matches_xla(k):
+    """Same padding puts (k - 1) // 2 rows before and the rest after, even k
+    too: an impulse at row r lands tap j's weight on row r + lead - j."""
+    width, groups, n, r = 8, 2, 80, 40
+    c = width * groups
+    x = np.zeros((1, n, c), np.float32)
+    x[0, r, :] = 1.0
+    w = np.random.default_rng(k).standard_normal((k, width, c)).astype(np.float32)
+    bias = np.zeros(c, np.float32)
+    got = _np(tgc.grouped_conv1d_ref(_t(x), _t(w), _t(bias), groups))
+    want = np.asarray(jgc._xla_grouped_conv(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias),
+                                            groups))
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    lead = (k - 1) // 2
+    for j in (0, k - 1):  # the first and last tap
+        np.testing.assert_allclose(got[0, r + lead - j, :width], w[j, :, :width].sum(axis=0),
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("c,groups", [(768, 16), (2560, 16), (1024, 1), (1000, 16), (768, 5),
+                                      (96, 12), (100, 10)])
+@pytest.mark.parametrize("n", [1024, 1020, 1021])
+def test_supports_grouped_conv_mirrors_jax(c, groups, n, monkeypatch):
+    """K10's gate (the widths the conv-position chain sends it) against
+    JAX's `supports_pallas_grouped_conv` as it decides on a TPU: equal where
+    n is a multiple of 8; elsewhere JAX takes XLA's conv for any width and
+    K10, which takes any n, keeps its width gate."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    jax_gate = jgc.supports_pallas_grouped_conv(c, groups, n)
+    if n % 8 == 0:
+        assert tgc.supports_grouped_conv(c, groups) == jax_gate
+    else:
+        assert not jax_gate
+        assert tgc.supports_grouped_conv(c, groups) == jgc.supports_pallas_grouped_conv(
+            c, groups, 1024)
+
+
+def test_conv_pos_embedding_off_the_gate_takes_the_xla_conv(monkeypatch):
+    """c / groups not a multiple of 8 (dim 192: 16 groups of 12): the
+    chain's convs are JAX's XLA conv1d in x's dtype, not K10 (whose wrapper
+    is never called), and the module matches the JAX module."""
+    tree = np_params(lambda: jm.init_conv_pos_embedding(jax.random.PRNGKey(1), 192), 4)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 96, 192)).astype(np.float32)
+    lens = np.array([96, 50], np.int32)
+    called = []
+    monkeypatch.setattr(tm, "grouped_conv1d", lambda *a: called.append(a))
+    got = _np(tm.conv_pos_embedding(tm.tree_map(_t, tree), _t(x), _t(lens)))
+    want = np.asarray(jm.conv_pos_embedding(jx(tree), jnp.asarray(x),
+                                            jnp.arange(96)[None, :] < jnp.asarray(lens)[:, None]))
+    assert not called
+    # f32, |y| < ~3: sum orders of two 372-term convs
+    np.testing.assert_allclose(got, want, atol=5e-5)
 
 
 def test_grouped_conv1d_wrapper_cpu_plain_and_refuses_other_devices():
@@ -197,7 +262,7 @@ def test_small_presets_take_the_generic_conv():
     for name in ("F5TTS_v1_Small", "F5TTS_Small", "E2TTS_Small"):
         arch = PRESETS[name].arch
         assert not tgc.supports_fused_conv_pos(arch.dim, 16, 31)
-        assert (arch.dim // 16) % 8 == 0 and arch.dim // 16 <= tgc.MAX_WIDTH
+        assert tgc.supports_grouped_conv(arch.dim, 16)
     for name in ("F5TTS_v1_Base", "F5TTS_Base", "E2TTS_Base", "MMDiT_Base"):
         assert tgc.supports_fused_conv_pos(PRESETS[name].arch.dim, 16, 31)
 

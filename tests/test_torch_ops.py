@@ -13,11 +13,13 @@ import pytest
 import torch
 
 from f5tts_tpu import utils as jutils
+from f5tts_tpu.models import modules as jm
 from f5tts_tpu.ops import adaln_norm as jan
 from f5tts_tpu.ops import attention as jatt
 from f5tts_tpu.ops import grouped_conv as jgc
 from f5tts_tpu.ops import rope as jrope
 from f5tts_tpu_torch import utils as tutils
+from f5tts_tpu_torch.models import modules as tm
 from f5tts_tpu_torch.ops import _build
 from f5tts_tpu_torch.ops import adaln_norm as tan
 from f5tts_tpu_torch.ops import attention as tatt
@@ -198,10 +200,14 @@ def test_conv_pos_plain_length_edges_match_pallas_and_xla(length):
 # K3: fused QKV + RoPE attention
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n,lengths", [(256, [256, 177]), (384, [300, 64]), (384, [130, 64]),
-                                       (384, [40, 384])])
-def test_attention_plain_matches_pallas_and_mha(n, lengths):
-    heads, d, b = 2, 64, 2
+@pytest.mark.parametrize(
+    "n,lengths,d",
+    [(256, [256, 177], 64), (384, [300, 64], 64), (384, [130, 64], 64), (384, [40, 384], 64),
+     (256, [256, 177], 128), (384, [300, 64], 128)],
+    ids=["256-lengths0", "384-lengths1", "384-lengths2", "384-lengths3", "d128-256-lengths0",
+         "d128-384-lengths1"])
+def test_attention_plain_matches_pallas_and_mha(n, lengths, d):
+    heads, b = 2, 2
     hd = heads * d
     rng = np.random.default_rng(3)
     qkv = rng.standard_normal((b, n, 3 * hd)).astype(np.float32)
@@ -229,6 +235,102 @@ def test_attention_plain_matches_pallas_and_mha(n, lengths):
     tm = _np(tatt.mha_reference(*(_t(sh(t)) for t in (qr, kr, v)),
                                 _t(lens))).transpose(0, 2, 1, 3).reshape(b, n, hd)
     np.testing.assert_allclose(_live(tm, lens), _live(mha, lens), atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the attention gates against the JAX package's, as it decides on a TPU
+# ---------------------------------------------------------------------------
+
+class _Took(Exception):
+    """Raised by a spy: the branch a JAX function took while tracing."""
+
+
+def _spy(name):
+    def took(*args, **kwargs):
+        raise _Took(name)
+    return took
+
+
+def _jax_branch(fn, *args) -> str:
+    """The spy `fn` reached, traced on abstract args (nothing is computed)."""
+    try:
+        jax.eval_shape(fn, *args)
+    except _Took as took:
+        return took.args[0]
+    raise AssertionError("the JAX function reached no spy")
+
+
+GATE_NS = (128, 200, 1024, 4096, 4224)
+
+
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("heads", [1, 2, 3, 8])
+def test_attention_gates_mirror_jax(heads, d, monkeypatch):
+    """On a grid of (d, heads, n): the port's gates against the branch the
+    JAX functions take on a TPU (spies on each branch, traced with
+    `jax.eval_shape`). Wherever JAX's n conditions hold (n % 128 == 0, n <=
+    FLAT_ATTN_MAX_N) the DiT / UNetT flat gate (`flat_width_supported` and
+    n <= FLAT_ATTN_MAX_N, what `modules.self_attention` asks) equals the
+    branch JAX's `self_attention` takes (its flat kernel or the head
+    layout), and the K5 / K11 gates (`flat_width_supported`,
+    `masked_flash_supported`) equal the branch of JAX's
+    `fused_qkv_rope_attention_bias` / `masked_flash_attention` (Pallas or
+    their XLA formulas). Elsewhere JAX takes its head layout or XLA formulas
+    for any width; the port's kernels, which take those n, keep the width
+    gates (and the DiT's n <= FLAT_ATTN_MAX_N)."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jm, "fused_qkv_rope_attention", _spy("flat"))
+    monkeypatch.setattr(jm, "attention_op", _spy("head"))
+    monkeypatch.setattr(jatt, "_fused_qkv_bias_impl", _spy("kernel"))
+    monkeypatch.setattr(jatt, "_bias_decomposed_ref", _spy("xla"))
+    monkeypatch.setattr(jatt, "_masked_flash_forward", _spy("kernel"))
+    monkeypatch.setattr(jatt, "mha_reference_masked", _spy("xla"))
+    dim, hd = 64, heads * d
+    f32 = jnp.float32
+    p = {"to_qkv": {"w": jax.ShapeDtypeStruct((dim, 3 * hd), f32)},
+         "to_out": {"w": jax.ShapeDtypeStruct((hd, dim), f32)}}
+    for n in GATE_NS:
+        x = jax.ShapeDtypeStruct((1, n, dim), f32)
+        ang = jax.ShapeDtypeStruct((n, d), f32)
+        tab = jax.ShapeDtypeStruct((n, hd), f32)
+        flat = _jax_branch(lambda p_, x_, a_, c_, s_: jm.self_attention(
+            p_, x_, heads, a_, rope_tabs=(c_, s_)), p, x, ang, tab, tab)
+        bias = _jax_branch(lambda q_, c_, s_, m_: jatt.fused_qkv_rope_attention_bias(
+            q_, c_, s_, m_, heads), jax.ShapeDtypeStruct((1, n, 3 * hd), f32), tab, tab,
+            jax.ShapeDtypeStruct((1, n), jnp.bool_))
+        heads_ = jax.ShapeDtypeStruct((1, heads, n, d), f32)
+        masked = _jax_branch(jatt.masked_flash_attention, heads_, heads_, heads_,
+                             jax.ShapeDtypeStruct((1, n), jnp.bool_))
+        width = tatt.flat_width_supported(heads, d)
+        port_flat = width and n <= tm.FLAT_ATTN_MAX_N
+        if n % 128 == 0 and n <= jatt.FLAT_ATTN_MAX_N:
+            assert port_flat == (flat == "flat"), (heads, d, n)
+            assert width == (bias == "kernel"), (heads, d, n)
+            assert tatt.masked_flash_supported(d) == (masked == "kernel"), (heads, d, n)
+        else:
+            assert flat == "head" and bias == masked == "xla", (heads, d, n)
+
+
+@pytest.mark.parametrize("heads,d", [(2, 64), (2, 128), (4, 96), (2, 32), (1, 64)])
+def test_bias_attention_takes_the_xla_branch_off_the_gate(heads, d, monkeypatch):
+    """The port's `fused_qkv_rope_attention_bias` computes JAX's XLA branch
+    (`bias_decomposed_ref`) exactly where the flat width gate fails, and
+    matches JAX's function there (f32)."""
+    n, b = 128, 2
+    rng = np.random.default_rng(heads * d)
+    qkv = rng.standard_normal((b, n, 3 * heads * d)).astype(np.float32)
+    kmask = np.ones((b, n), bool)
+    kmask[1, 40:90] = False
+    cos, sin = jrope.rope_flat_tables(jrope.rope_freqs_interleaved(d, n), n, heads,
+                                      dtype=jnp.float32)
+    want = np.asarray(jatt._bias_decomposed_ref(jnp.asarray(qkv), cos, sin, jnp.asarray(kmask),
+                                                heads))
+    real, taken = tatt.bias_decomposed_ref, []
+    monkeypatch.setattr(tatt, "bias_decomposed_ref", lambda *a: taken.append(1) or real(*a))
+    got = _np(tatt.fused_qkv_rope_attention_bias(_t(qkv), _t(np.asarray(cos)),
+                                                 _t(np.asarray(sin)), _t(kmask), heads))
+    assert bool(taken) == (not tatt.flat_width_supported(heads, d))
+    np.testing.assert_allclose(got, want, atol=2e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -266,17 +368,20 @@ def test_kernel_argument_checks():
     with pytest.raises(ValueError):  # d not a multiple of 8
         tan._check(torch.zeros(1, 8, 100, dtype=bf), torch.zeros(1, 100, dtype=bf),
                    torch.zeros(1, 100, dtype=bf))
-    with pytest.raises(ValueError):  # head width 128 is not the kernel's
-        tatt._check(torch.zeros(1, 8, 3 * 256, dtype=bf), torch.zeros(8, 256, dtype=bf),
-                    torch.zeros(8, 256, dtype=bf), torch.zeros(1, dtype=torch.int32), 2)
+    for heads, d in ((2, 256), (4, 96), (1, 64)):  # widths off the flat kernels' gate
+        with pytest.raises(ValueError):
+            tatt._check(torch.zeros(1, 8, 3 * heads * d, dtype=bf),
+                        torch.zeros(8, heads * d, dtype=bf), torch.zeros(8, heads * d, dtype=bf),
+                        torch.zeros(1, dtype=torch.int32), heads)
     with pytest.raises(ValueError):  # 8 channels a group
         x = torch.zeros(1, 8, 128, dtype=bf)
         w = torch.zeros(31, 8, 128, dtype=bf)
         tgc._check(x, (w, w), (torch.zeros(128, dtype=bf),) * 2,
                    torch.zeros(1, dtype=torch.int32), 16)
     # what the main path passes is accepted
-    tatt._check(torch.zeros(2, 64, 3 * 1024, dtype=bf), torch.zeros(64, 1024, dtype=bf),
-                torch.zeros(64, 1024, dtype=bf), torch.zeros(2, dtype=torch.int32), 16)
+    for heads in (16, 8):  # 16 heads of 64, 8 of 128
+        tatt._check(torch.zeros(2, 64, 3 * 1024, dtype=bf), torch.zeros(64, 1024, dtype=bf),
+                    torch.zeros(64, 1024, dtype=bf), torch.zeros(2, dtype=torch.int32), heads)
     mods = torch.zeros(2, 6 * 1024, dtype=bf)
     tan._check(torch.zeros(2, 64, 1024, dtype=bf), mods[:, 1024:2048], mods[:, :1024])
 

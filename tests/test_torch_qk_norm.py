@@ -70,10 +70,10 @@ def _kmask(b, n):
     return kmask
 
 
-@pytest.mark.parametrize("n", [128, 256])
-def test_masked_attention_plain_matches_pallas_and_jax(n):
+@pytest.mark.parametrize("n,d", [(128, 64), (256, 64), (128, 128)], ids=["128", "256", "d128-128"])
+def test_masked_attention_plain_matches_pallas_and_jax(n, d):
     rng = np.random.default_rng(n)
-    q, k, v = (rng.standard_normal((2, 2, n, 64)).astype(np.float32) for _ in range(3))
+    q, k, v = (rng.standard_normal((2, 2, n, d)).astype(np.float32) for _ in range(3))
     kmask = _kmask(2, n)
     pallas = np.asarray(jatt._masked_flash_forward(*map(jnp.asarray, (q, k, v, kmask))))
     xla = np.asarray(jatt.mha_reference_masked(*map(jnp.asarray, (q, k, v, kmask))))

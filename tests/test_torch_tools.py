@@ -170,14 +170,16 @@ def test_analyze_params_equal_the_jax_count(tiny_preset):
     assert (got["params"], got["frames"], got["model"]) == (want["params"], want["frames"],
                                                            want["model"])
     # one forward of 93 frames: the projections' 2 x multiply-adds, the
-    # attention's 4 b h n^2 d, the grouped convs' 2 b n c (c / g) k
+    # attention's 4 b h n^2 d, the grouped convs' 2 b n c (c / g) k. Tiny's
+    # 2 heads of 32 take the head layout and its 4 channels a group XLA's
+    # conv, as the JAX package's gates send them
     n_params, flops, frames = tcount.count(tiny_preset, secs=1.0, vocab=100, device="cpu")
     assert frames == 93 and n_params == got["params"]
-    assert flops["f5tts.fused_qkv_rope_attention"] == 2 * 4 * 2 * frames ** 2 * 32
-    assert flops["f5tts.grouped_conv1d"] == 2 * 2 * frames * 64 * 4 * 31  # two convs
+    assert flops["f5tts.flash_attention"] == 2 * 4 * 2 * frames ** 2 * 32
+    assert flops["aten.convolution"] == 2 * 2 * frames * 64 * 4 * 31  # two convs
     assert flops["f5tts.adaln_norm"] == 0
     assert got["gflops_fwd"] == pytest.approx(sum(flops.values()) / 1e9)
-    assert tcount.attention_flops(flops) == flops["f5tts.fused_qkv_rope_attention"]
+    assert tcount.attention_flops(flops) == flops["f5tts.flash_attention"]
 
 
 def test_count_main_prints_the_reference_beside(tiny_preset, capsys):
