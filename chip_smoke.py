@@ -31,9 +31,9 @@ Phases (any failure raises, and the script exits non-zero):
    qkv projection, and [2, 16, 256, 64]; F.rms_norm as yardstick); K7, head-layout
    attention (n = 1024, 4224, lengths [n, 777]: every row of a live q tile,
    the rows past the length inside the last one included, against the plain
-   version, dead q tiles exactly 0; SDPA as yardstick). K7's lse
-   mode (the same inputs: the output as K7's, the lse within 1e-3 on live q
-   tiles and exactly -1e30 on dead ones); K8, the key-masked flat backward
+   version: max-abs 2e-2 and rel-L2 1e-2, dead q tiles exactly 0; SDPA as
+   yardstick). K7's lse mode (the same inputs: the output as K7's, the lse
+   within 1e-3 on live q tiles and exactly -1e30 on dead ones); K8, the key-masked flat backward
    from K5's saved output and lse (K5's joint shapes and masks and joint
    1124, dO on every row: dQKV rel-L2 and max-abs against both plain
    versions as K4's, dead keys' dk/dv exactly 0); K9, the head-layout
@@ -314,10 +314,27 @@ Phases (any failure raises, and the script exits non-zero):
     E2TTS's 4 x 4096 update (K7-lse / K9) and the MMDiT's 16 x 1024 update
     (K5-lse / K8); (e) the conv-position module at dim 2560 (16 groups of
     160: two K10 launches) against the f32 plain chain.
+26. Head widths past 128 (`phase_head_width_wide`). Phase 2 also holds K7,
+    K7-lse and K9 in their wide mode (`check_flash_wide`: d 256, 160, 192,
+    200, 320 and 512 at 4 heads, n = 1024 / 4224 / 64 with row 1's length
+    777 / 3001 / 1, dO on every row; output, lse, dead q tiles and dq / dk
+    / dv under phase 2's tolerances, K7's rel-L2 included; d 256 timed at n = 1024 and 4224, 192
+    and 512 at 1024; one call of each under torch.profiler names
+    flash_attn_wide_kernel, flash_attn_wide_lse_kernel and
+    flash_bwd_wide_{delta,dkdv,dq}_kernel once each); their rows are the `@d>128` entries of the kernels line,
+    whose launches are this phase's. (a) DiT d256, F5TTS_v1_Base at 4 heads
+    of 256, full width and depth, through InferencePipeline.infer at the
+    1024 bucket and the cap (K7 / K1 / K2 352 / 720 / 32 a generate, K3
+    none), then the graphed generate against the eager one at both; (b)
+    Trainer updates at 16 x 1024 and 4 x 3072 (K7-lse / K9 / K1 / K2 22 /
+    22 / 45 / 1 an update); (c) depth 2 card bf16 against CPU f32, a
+    generate (mel <= 3e-2) and a training step (phase 6's gate); (d)
+    E2TTS_Base at 4 x 256 and depth D256_OTHER_DEPTH through infer at 1024
+    rows and the cap (K7 at both), and its 4 x 4096 update (K7-lse / K9).
 
 Prints the `kernels` JSON line (launches: what the card ran on the
 inference and training paths of phases 3, 5, 7, 8, 10, 11, 13, 14, 17, 18,
-19, 20, 21, 22 (b), 23, 24 and 25, each graph replay counted with its capture's
+19, 20, 21, 22 (b), 23, 24, 25 and 26, each graph replay counted with its capture's
 counts), the card's name and power limit,
 and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the repo's
@@ -351,6 +368,10 @@ LSE_TOL = 1e-3  # the lse modes of K3, K5 and K7: |lse - plain| on live q tiles
 # the plain version's dQKV (whose scale grows with n)
 BWD_REL_L2_TOL = 1e-2
 BWD_MAX_ABS_REL_TOL = 2e-2
+# K7 / K7-lse's output over live q tiles also by rel-L2: its entries shrink
+# as 1/sqrt(n) (~0.025 at 4224 rows), so the max-abs limit alone would pass
+# a wrong slice of a wide head
+FWD_REL_L2_TOL = 1e-2
 REPLACES = {
     "adaln_norm": "f5tts_tpu/ops/adaln_norm.py:48",
     "conv_pos_embedding": "f5tts_tpu/ops/grouped_conv.py:168",
@@ -462,6 +483,21 @@ def live_err(a, b, lengths) -> float:
     live = torch.arange(n, device=a.device)[None, :] < lengths.to(a.device)[:, None]
     diff = (a.float() - b.float()).abs()
     return float(diff[live].max())
+
+
+def randn_bf16(gen, shape, dev):
+    """bf16 standard normals on `dev` from the torch.Generator `gen` on the
+    card (K7 / K7-lse / K9's inputs: numpy's draws of the wide mode's large
+    inputs would take most of the checks' time)."""
+    import torch
+
+    return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+
+def abs_max(t) -> float:
+    """max |t|, 0 for an empty tensor (the rows past a length that fills the
+    last tile)."""
+    return float(t.abs().max()) if t.numel() else 0.0
 
 
 def merge_rows(out_row, row):
@@ -900,89 +936,125 @@ def check_rms_norm(rng, dev, shapes=RMS_SHAPES) -> dict:
     return out_row
 
 
-def check_flash(rng, dev, h: int = 16, d: int = 64, ns=(1024, 4224)) -> dict:
+# K7 / K7-lse / K9's phase-2 cases: (n, row 1's length)
+FLASH_CASES = ((1024, 777), (4224, 777))
+
+
+def flash_fwd_errors(out, ref, n: int, tile_end: int) -> tuple[float, float]:
+    """(max-abs error, rel-L2) of a [2, h, n, d] K7 output over its live q
+    tiles: every row of batch row 0, rows < `tile_end` of row 1 (the rows
+    past the length inside the last live tile are computed over the live
+    keys: K9 reads them)."""
+    import torch
+
+    a = torch.cat([out[0, :, :n].flatten(), out[1, :, :tile_end].flatten()]).float()
+    w = torch.cat([ref[0, :, :n].flatten(), ref[1, :, :tile_end].flatten()]).float()
+    return float((a - w).abs().max()), float((a - w).norm() / w.norm())
+
+
+def flash_row(err: float, bound: float, timed: bool, kernel, plain, lib,
+              plain_iters: int = 5) -> dict:
+    """A K7 / K7-lse / K9 row: `err` and `bound`, and where `timed` the times
+    of `kernel`, `plain` and `lib` (a callable giving the library call's ms,
+    or None where there is none); the times None where not."""
+    row = {"max_abs_err": err, "ms": None, "plain_ms": None, "bound_ms": bound,
+           "bound_by": "operations", "library_ms": None}
+    if timed:
+        row.update(ms=time_ms(kernel), plain_ms=time_ms(plain, reps=1, iters=plain_iters),
+                   library_ms=lib() if lib is not None else None)
+    return row
+
+
+def row_times(row: dict, lib_name: str) -> str:
+    """A flash_row's times for the log."""
+    if row["ms"] is None:
+        return "not timed"
+    lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+    return (f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms (operations), plain "
+            f"{row['plain_ms']:.4f} ms, {lib_name} {lib}")
+
+
+def check_flash(gen, dev, h: int = 16, d: int = 64, cases=FLASH_CASES,
+                n_timed: int | None = None) -> dict:
+    """K7 at each (n, row 1's length) of `cases` against its plain version:
+    max-abs and rel-L2 over live q tiles, the q tiles past the length 0;
+    the first `n_timed` cases (all by default) timed."""
     import torch
     import torch.nn.functional as F
     from f5tts_tpu_torch.ops.attention import flash_attention, flash_attention_fwd_ref
 
     b = 2
+    n_timed = len(cases) if n_timed is None else n_timed
     out_row = None
-    tile_end = -(-777 // 64) * 64
-    for n in ns:
-        lengths = torch.tensor([n, 777], dtype=torch.int32, device=dev)
-        q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, d)).astype(np.float32))
-                   .to(dev, torch.bfloat16) for _ in range(3))
+    for i, (n, length) in enumerate(cases):
+        tile_end = -(-length // 64) * 64
+        lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)
+        q, k, v = (randn_bf16(gen, (b, h, n, d), dev) for _ in range(3))
         out = flash_attention(q, k, v, lengths)
         ref = flash_attention_fwd_ref(q.float(), k.float(), v.float(), lengths)
         torch.cuda.synchronize()
-        # every row of a live q tile: the rows past the length inside the last
-        # one are computed over the live keys (K9 reads them)
-        err = max(float((out[i, :, :end].float() - ref[i, :, :end]).abs().max())
-                  for i, end in enumerate((n, tile_end)))
-        dead = float(out[1, :, tile_end:].abs().max())
+        err, rel = flash_fwd_errors(out, ref, n, tile_end)
+        if abs_max(out[1, :, tile_end:]) != 0.0 or not rel <= FWD_REL_L2_TOL:
+            raise AssertionError(f"flash_attention at d={d} n={n}: rel-L2 {rel}, or q tiles "
+                                 "past the length not zero")
         sq = sum(int(x) ** 2 for x in lengths.tolist())
-        flops = 4 * h * d * sq
-        nbytes = 4 * b * h * n * d * 2
-        bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-        ms = time_ms(lambda: flash_attention(q, k, v, lengths))
-        wall = wall_ms(lambda: flash_attention(q, k, v, lengths))
-        plain = time_ms(lambda: flash_attention_fwd_ref(q, k, v, lengths), reps=1, iters=5)
+        bound = max(4 * h * d * sq / BF16_FLOPS_PER_S, 4 * b * h * n * d * 2 / HBM_BYTES_PER_S) * 1e3
         kmask = (torch.arange(n, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
-        lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=kmask))
-        log(f"  flash_attention b=2 h={h} d={d} n={n} lengths [{n}, 777]: max_abs_err {err:.3e} "
-            f"over live q tiles (tol {TOL['flash_attention']}), dead q tiles max {dead:.1e}, "
-            f"{ms:.4f} ms (eager call "
-            f"{wall:.4f} ms), bound {bound:.4f} ms (operations), plain {plain:.4f} ms, "
-            f"sdpa {lib:.4f} ms")
-        if dead != 0.0:
-            raise AssertionError("flash_attention: q tiles past the length are not zero")
-        out_row = merge_rows(out_row, {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                                        "bound_ms": bound, "bound_by": "operations",
-                                        "library_ms": lib})
+        row = flash_row(err, bound, i < n_timed, lambda: flash_attention(q, k, v, lengths),
+                        lambda: flash_attention_fwd_ref(q, k, v, lengths),
+                        lambda: time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                               attn_mask=kmask)))
+        log(f"  flash_attention b=2 h={h} d={d} n={n} lengths [{n}, {length}]: max_abs_err "
+            f"{err:.3e} (tol {TOL['flash_attention']}), rel-L2 {rel:.3e} (tol {FWD_REL_L2_TOL}) "
+            f"over live q tiles, dead q tiles 0, {row_times(row, 'sdpa')}")
+        out_row = merge_rows(out_row, row)
     return out_row
 
 
-def check_flash_lse(rng, dev, h: int = 16, d: int = 64, ns=(1024, 4224)) -> dict:
-    """K7's lse mode: the output as K7's, the lse on live q tiles within
-    LSE_TOL of the plain version's, exactly -1e30 on the tiles past the length."""
+def check_flash_lse(gen, dev, h: int = 16, d: int = 64, cases=FLASH_CASES,
+                    n_timed: int | None = None) -> dict:
+    """K7's lse mode: the output equal to K7's and within check_flash's
+    limits, the lse on live q tiles within LSE_TOL of the plain version's,
+    exactly -1e30 on the tiles past the length; the first `n_timed` cases
+    (all by default) timed."""
     import torch
-    from f5tts_tpu_torch.ops.attention import NEG_INF, flash_attention_fwd, flash_attention_fwd_ref
+    from f5tts_tpu_torch.ops.attention import (NEG_INF, flash_attention, flash_attention_fwd,
+                                               flash_attention_fwd_ref)
 
     b = 2
+    n_timed = len(cases) if n_timed is None else n_timed
     out_row = None
-    for n in ns:
-        lengths = torch.tensor([n, 777], dtype=torch.int32, device=dev)
-        q, k, v = (torch.from_numpy(rng.standard_normal((b, h, n, d)).astype(np.float32))
-                   .to(dev, torch.bfloat16) for _ in range(3))
+    for i, (n, length) in enumerate(cases):
+        lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)
+        q, k, v = (randn_bf16(gen, (b, h, n, d), dev) for _ in range(3))
         out, lse = flash_attention_fwd(q, k, v, lengths, return_lse=True)
         ref, ref_lse = flash_attention_fwd_ref(q.float(), k.float(), v.float(), lengths,
                                                return_lse=True)
         torch.cuda.synchronize()
-        tile_end = -(-777 // 64) * 64
-        err = max(float((out[i, :, :end].float() - ref[i, :, :end]).abs().max())
-                  for i, end in enumerate((n, tile_end)))
+        tile_end = -(-length // 64) * 64
+        err, rel = flash_fwd_errors(out, ref, n, tile_end)
         lse_err = max(float((lse[0] - ref_lse[0]).abs().max()),
                       float((lse[1, :, :tile_end] - ref_lse[1, :, :tile_end]).abs().max()))
         dead_ok = bool((lse[1, :, tile_end:] == NEG_INF).all()) and not out[1, :, tile_end:].any()
+        if not (dead_ok and lse_err <= LSE_TOL and rel <= FWD_REL_L2_TOL
+                and torch.equal(out, flash_attention(q, k, v, lengths))):
+            raise AssertionError(f"flash_attention_lse at d={d} n={n}: lse err {lse_err}, rel-L2 "
+                                 f"{rel}, dead tiles {dead_ok}, or its output differs from K7's")
         sq = sum(int(x) ** 2 for x in lengths.tolist())
-        flops = 4 * h * d * sq
         nbytes = 4 * b * h * n * d * 2 + b * h * n * 4
-        bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-        ms = time_ms(lambda: flash_attention_fwd(q, k, v, lengths, return_lse=True))
-        plain = time_ms(lambda: flash_attention_fwd_ref(q, k, v, lengths, return_lse=True),
-                        reps=1, iters=5)
-        lib = sdpa_lse_ms(q, k, v, torch.arange(n, device=dev)[None, :] < lengths[:, None])
-        log(f"  flash_attention_lse b=2 h={h} d={d} n={n} lengths [{n}, 777]: max_abs_err {err:.3e} "
-            f"over live q tiles (tol {TOL['flash_attention_lse']}), lse max err {lse_err:.3e} (tol "
-            f"{LSE_TOL}) on live "
-            f"tiles, dead tiles -1e30 and 0: {dead_ok}, {ms:.4f} ms, bound {bound:.4f} ms "
-            f"(operations), plain {plain:.4f} ms, sdpa efficient with lse {lib:.4f} ms")
-        if not (dead_ok and lse_err <= LSE_TOL):
-            raise AssertionError(f"flash_attention_lse at n={n}: lse err {lse_err}, dead tiles "
-                                 f"{dead_ok}")
-        out_row = merge_rows(out_row, {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                                        "bound_ms": bound, "bound_by": "operations",
-                                        "library_ms": lib})
+        bound = max(4 * h * d * sq / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        live = torch.arange(n, device=dev)[None, :] < lengths[:, None]
+        # PyTorch's efficient attention takes the lse mode up to d = 256 only
+        row = flash_row(err, bound, i < n_timed,
+                        lambda: flash_attention_fwd(q, k, v, lengths, return_lse=True),
+                        lambda: flash_attention_fwd_ref(q, k, v, lengths, return_lse=True),
+                        (lambda: sdpa_lse_ms(q, k, v, live)) if d <= 256 else None)
+        log(f"  flash_attention_lse b=2 h={h} d={d} n={n} lengths [{n}, {length}]: max_abs_err "
+            f"{err:.3e} (tol {TOL['flash_attention_lse']}), rel-L2 {rel:.3e} (tol "
+            f"{FWD_REL_L2_TOL}) over live q tiles, lse max err {lse_err:.3e} (tol {LSE_TOL}) on "
+            f"live tiles, dead tiles -1e30 and 0, output equal to K7's, "
+            f"{row_times(row, 'sdpa efficient with lse')}")
+        out_row = merge_rows(out_row, row)
     return out_row
 
 
@@ -1089,23 +1161,25 @@ def check_attention_bias_bwd(rng, dev, h: int = 16, d: int = 64, cases=None) -> 
     return out_row
 
 
-def check_flash_bwd(rng, dev, h: int = 16, d: int = 64,
-                    cases=((1024, True), (4224, True), (1024, False))) -> dict:
-    """K9 from K7's saved output and lse at n = 1024 and 4224, dO zero on rows
-    >= length; and at n = 1024 with dO nonzero on every row, so rows 777..831
+def check_flash_bwd(gen, dev, h: int = 16, d: int = 64,
+                    cases=((1024, 777, True), (4224, 777, True), (1024, 777, False)),
+                    n_timed: int | None = None) -> dict:
+    """K9 from K7's saved output and lse at each (n, row 1's length, dO
+    zero on rows >= length) of `cases`: by default n = 1024 and 4224 with dO
+    row-masked, and n = 1024 with dO nonzero on every row, so rows 777..831
     of batch row 1 (past the length, inside the last live q tile) carry a
     gradient. All rows compared; dq of the dead q tiles and dk, dv of the dead
-    keys exactly 0."""
+    keys exactly 0. The first `n_timed` cases (all by default) timed."""
     import torch
     from f5tts_tpu_torch.ops.attention import (flash_attention_bwd, flash_attention_bwd_ref,
                                                flash_attention_fwd)
 
     b = 2
+    n_timed = len(cases) if n_timed is None else n_timed
     out_row = None
-    for n, row_masked in cases:
-        lengths = torch.tensor([n, 777], dtype=torch.int32, device=dev)
-        q, k, v, dout = (torch.from_numpy(rng.standard_normal((b, h, n, d)).astype(np.float32))
-                         .to(dev, torch.bfloat16) for _ in range(4))
+    for i, (n, length, row_masked) in enumerate(cases):
+        lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)
+        q, k, v, dout = (randn_bf16(gen, (b, h, n, d), dev) for _ in range(4))
         live = torch.arange(n, device=dev)[None, :] < lengths[:, None]
         if row_masked:
             dout = dout * live[:, None, :, None]
@@ -1117,32 +1191,28 @@ def check_flash_bwd(rng, dev, h: int = 16, d: int = 64,
         rel, err = max(x[0] for x in stats), max(x[1] for x in stats)
         top = min(x[2] for x in stats)
         # dq: rows of the q tiles past the length; dk, dv: keys past it
-        tile_end = -(-777 // 64) * 64
-        dead = max(float(got[0][1, :, 777 if row_masked else tile_end:].abs().max()),
-                   *(float(g[1, :, 777:].abs().max()) for g in got[1:]))
-        tile_rows = [-(-ln // 64) * 64 for ln in lengths.tolist()]  # rows of live q tiles
-        pairs = sum(min(r, n) * ln for r, ln in zip(tile_rows, lengths.tolist()))
-        flops = 10 * h * d * pairs
-        nbytes = 8 * b * h * n * d * 2 + b * h * n * 4
-        bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-        ms = time_ms(lambda: flash_attention_bwd(q, k, v, lengths, o, lse, dout))
-        plain = time_ms(lambda: flash_attention_bwd_ref(q, k, v, lengths, o, lse, dout),
-                        reps=1, iters=3)
-        lib, lib_fwd = sdpa_bwd_ms(q, k, v, dout, live)
-        log(f"  flash_attention_bwd b=2 h={h} d={d} n={n} lengths [{n}, 777], dO "
-            f"{'zero past the length' if row_masked else 'on every row'}: dq/dk/dv rel-L2 "
-            f"max {rel:.3e} (tol {BWD_REL_L2_TOL}), max_abs_err {err:.3e} (tol "
-            f"{BWD_MAX_ABS_REL_TOL} x smallest largest entry {top:.3e}), dead rows/keys max "
-            f"{dead:.1e}, {ms:.4f} ms, bound {bound:.4f} ms (operations), plain {plain:.4f} ms, "
-            f"sdpa bwd {lib:.4f} ms (fwd {lib_fwd:.4f} ms)")
+        tile_end = -(-length // 64) * 64
+        dead = max(abs_max(got[0][1, :, length if row_masked else tile_end:]),
+                   *(abs_max(g[1, :, length:]) for g in got[1:]))
         if dead != 0.0:
             raise AssertionError("flash_attention_bwd: dead tiles or keys are not 0")
         for name, (r, e, t) in zip(("dq", "dk", "dv"), stats):
-            check_bwd_tol(f"flash_attention_bwd {name} at n={n} (dO row-masked: {row_masked})",
-                          r, e, t)
-        out_row = merge_rows(out_row, {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                                        "bound_ms": bound, "bound_by": "operations",
-                                        "library_ms": lib})
+            check_bwd_tol(f"flash_attention_bwd {name} at d={d} n={n} (dO row-masked: "
+                          f"{row_masked})", r, e, t)
+        tile_rows = [-(-ln // 64) * 64 for ln in lengths.tolist()]  # rows of live q tiles
+        pairs = sum(min(r, n) * ln for r, ln in zip(tile_rows, lengths.tolist()))
+        nbytes = 8 * b * h * n * d * 2 + b * h * n * 4
+        bound = max(10 * h * d * pairs / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        row = flash_row(err, bound, i < n_timed,
+                        lambda: flash_attention_bwd(q, k, v, lengths, o, lse, dout),
+                        lambda: flash_attention_bwd_ref(q, k, v, lengths, o, lse, dout),
+                        lambda: sdpa_bwd_ms(q, k, v, dout, live)[0], plain_iters=3)
+        log(f"  flash_attention_bwd b=2 h={h} d={d} n={n} lengths [{n}, {length}], dO "
+            f"{'zero past the length' if row_masked else 'on every row'}: dq/dk/dv rel-L2 "
+            f"max {rel:.3e} (tol {BWD_REL_L2_TOL}), max_abs_err {err:.3e} (tol "
+            f"{BWD_MAX_ABS_REL_TOL} x smallest largest entry {top:.3e}), dead rows/keys 0, "
+            f"{row_times(row, 'sdpa bwd')}")
+        out_row = merge_rows(out_row, row)
     return out_row
 
 
@@ -1238,6 +1308,7 @@ def phase_kernels(dev) -> dict:
     import torch
 
     rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(0)  # K7 / K7-lse / K9's inputs
     rows = {"adaln_norm": check_adaln(rng, dev),
             "conv_pos_embedding": check_conv_pos(rng, dev),
             "fused_qkv_rope_attention": check_attention(rng, dev),
@@ -1246,15 +1317,17 @@ def phase_kernels(dev) -> dict:
             "fused_qkv_rope_attention_bias": check_attention_bias(rng, dev),
             "fused_qkv_rope_attention_bias_lse": check_attention_bias_lse(rng, dev),
             "rms_norm": check_rms_norm(rng, dev),
-            "flash_attention": check_flash(rng, dev),
-            "flash_attention_lse": check_flash_lse(rng, dev),
+            "flash_attention": check_flash(gen, dev),
+            "flash_attention_lse": check_flash_lse(gen, dev),
             "fused_qkv_rope_attention_bias_bwd": check_attention_bias_bwd(rng, dev),
-            "flash_attention_bwd": check_flash_bwd(rng, dev),
+            "flash_attention_bwd": check_flash_bwd(gen, dev),
             "grouped_conv1d": check_grouped_conv(rng, dev),
             "masked_flash_attention": check_masked_flash(rng, dev)}
     torch.cuda.synchronize()
     log("  head width 128 (8 heads of 128, h*d 1024 as at 16 x 64) and K10's range:")
     rows.update(phase_kernels_d128(dev))
+    log("  head widths past 128 (K7 / K7-lse / K9's wide mode, 4 heads of 256 as DiT d256):")
+    rows.update(check_flash_wide(dev))
     for name, row in rows.items():
         tol = TOL.get(base_name(name))
         if tol is not None and not row["max_abs_err"] <= tol:
@@ -1274,13 +1347,92 @@ def base_name(row: str) -> str:
     return row.split("@")[0]
 
 
+# the rows of the kernels line that phase 26 launches: K7, its lse mode and
+# K9 past d = 128 (their wide mode)
+WIDE = "@d>128"
+# the widths held against the plain versions (the first gives the rows'
+# times), (n, row 1's length) at each, and how many leading cases of a
+# width are timed
+WIDE_WIDTHS = (256, 160, 192, 200, 320, 512)
+WIDE_CASES = ((1024, 777), (4224, 3001), (64, 1))
+WIDE_TIMED = {256: 2, 192: 1, 512: 1}
+# one call of each at [2, 4, 1024, 256]: its kernels by name in a profiler
+# trace, each launched once (K7's one launch a forward, K9's three a backward)
+WIDE_KERNELS = {"flash_attn_wide_kernel": 1, "flash_attn_wide_lse_kernel": 1,
+                "flash_bwd_wide_delta_kernel": 1, "flash_bwd_wide_dkdv_kernel": 1,
+                "flash_bwd_wide_dq_kernel": 1}
+
+
+def wide_kernel_launches(dev) -> tuple[dict, dict]:
+    """(wrapper counts, {kernel name: launches in a profiler trace}) of one
+    K7, one K7-lse and one K9 call at [2, 4, 1024, 256], lengths [1024, 777]
+    (the trace's CUDA kernels named by WIDE_KERNELS)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.ops.attention import flash_attention_bwd, flash_attention_fwd
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    q, k, v, dout = (randn_bf16(gen, (2, 4, 1024, 256), dev) for _ in range(4))
+    lengths = torch.tensor([1024, 777], dtype=torch.int32, device=dev)
+    o, lse = flash_attention_fwd(q, k, v, lengths, return_lse=True)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        flash_attention_fwd(q, k, v, lengths)
+        flash_attention_fwd(q, k, v, lengths, return_lse=True)
+        flash_attention_bwd(q, k, v, lengths, o, lse, dout)
+        torch.cuda.synchronize()
+    seen: dict[str, int] = {}
+    for ev in prof.events():
+        for name in WIDE_KERNELS:
+            if name in ev.name and ev.device_type == torch.autograd.DeviceType.CUDA:
+                seen[name] = seen.get(name, 0) + 1
+    return _build.launches(), seen
+
+
+def check_flash_wide(dev, h: int = 4) -> dict:
+    """K7, its lse mode and K9 in their wide mode: at each head width of
+    WIDE_WIDTHS (4 heads, b = 2) and each (n, row 1's length) of WIDE_CASES
+    (K9 with dO on every row), `check_flash` / `check_flash_lse` /
+    `check_flash_bwd` under phase 2's tolerances, the cases WIDE_TIMED
+    names timed; then one call of each under torch.profiler: one wrapper
+    count each, and each kernel of WIDE_KERNELS launched once (K7's one
+    launch a forward, K9's three a backward). Returns the three `@d>128`
+    rows (the errors the largest over every width, the times d = 256 and n
+    = 1024's)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    bwd_cases = tuple((n, length, False) for n, length in WIDE_CASES)
+    rows: dict = {}
+    for d in WIDE_WIDTHS:
+        for name, check, cases in (("flash_attention", check_flash, WIDE_CASES),
+                                   ("flash_attention_lse", check_flash_lse, WIDE_CASES),
+                                   ("flash_attention_bwd", check_flash_bwd, bwd_cases)):
+            rows[name + WIDE] = merge_rows(rows.get(name + WIDE),
+                                           check(gen, dev, h, d, cases, WIDE_TIMED.get(d, 0)))
+    counts, seen = wide_kernel_launches(dev)
+    log(f"  one K7, K7-lse and K9 call at [2, 4, 1024, 256]: wrapper counts {counts}, kernels "
+        f"in a profiler trace {seen}")
+    if counts != {"flash_attention": 1, "flash_attention_lse": 1,
+                  "flash_attention_bwd": 1} or seen != WIDE_KERNELS:
+        raise AssertionError(f"wide mode launched {counts} / {seen}, expected one each of "
+                             f"{WIDE_KERNELS}")
+    return rows
+
+
 def phase_kernels_d128(dev) -> dict:
     """Every attention mode at 8 heads of 128 (the DiT d128 / E2TTS /
     MMDiT widths at dim_head 128) against its plain version at phase 2's
     shapes and tolerances; K7 / K9 also at a padded width (d = 96, merged
     into their d = 128 rows, whose kernel runs it); K6 on [2, 8, 4096, 128]
     head rows; K10 at `K10_RANGE_CASES`."""
+    import torch
+
     rng = np.random.default_rng(22)
+    gen = torch.Generator(device=dev).manual_seed(22)  # K7 / K7-lse / K9's inputs
     h, d = 8, 128
     rows = {
         "fused_qkv_rope_attention" + D128: check_attention(rng, dev, h, d),
@@ -1292,12 +1444,12 @@ def phase_kernels_d128(dev) -> dict:
         "fused_qkv_rope_attention_bias_bwd" + D128: check_attention_bias_bwd(rng, dev, h, d,
                                                                             JOINT_D128),
         "rms_norm" + D128: check_rms_norm(rng, dev, (((2, 8, 4096, 128), False),)),
-        "flash_attention" + D128: merge_rows(check_flash(rng, dev, h, d),
-                                             check_flash(rng, dev, h, 96, (1024,))),
-        "flash_attention_lse" + D128: check_flash_lse(rng, dev, h, d),
+        "flash_attention" + D128: merge_rows(check_flash(gen, dev, h, d),
+                                             check_flash(gen, dev, h, 96, FLASH_CASES[:1])),
+        "flash_attention_lse" + D128: check_flash_lse(gen, dev, h, d),
         "flash_attention_bwd" + D128: merge_rows(
-            check_flash_bwd(rng, dev, h, d, ((1024, True), (4224, True))),
-            check_flash_bwd(rng, dev, h, 96, ((1024, False),))),
+            check_flash_bwd(gen, dev, h, d, ((1024, 777, True), (4224, 777, True))),
+            check_flash_bwd(gen, dev, h, 96, ((1024, 777, False),))),
         "masked_flash_attention" + D128: check_masked_flash(rng, dev, h, d),
         "grouped_conv1d" + K10_RANGE: check_grouped_conv(rng, dev, K10_RANGE_CASES),
     }
@@ -1333,7 +1485,8 @@ QUANT_KERNELS = ("int8_mm", "dequant_bias")
 def step_launches(backbone: str, arch, flat: bool = True, int8: bool = False) -> dict:
     """The kernel launches of one ODE step at a dim-1024 preset; `flat`
     False for the UNetT past the flat gate (the 4224-row cap: K7 in K3's
-    place). A step: the DiT's K3 a block, K1 two a block and the final
+    place), and K7 at every n where the head width is off the flat
+    kernels' gate (d > 128). A step: the DiT's K3 a block, K1 two a block and the final
     norm; the UNetT's K6 two a block and the final norm; the MMDiT's K1 four
     a block, three in the context_pre_only last block and the final norm,
     with qk-norm K11 in K5's place and K6 on q and k of both streams (four a
@@ -1344,10 +1497,14 @@ def step_launches(backbone: str, arch, flat: bool = True, int8: bool = False) ->
     norm of a block hands its projections codes (K1Q / K6Q in K1's / K6's
     place, the final norm stays K1 / K6), ff.out's input comes from K12's
     GELU mode and to_out's (and to_out_c's) from the plain K12."""
+    from f5tts_tpu_torch.ops.attention import flat_width_supported
+
+    # off the flat kernels' width gate (d > 128: DiT / UNetT d256) K7 at every n
+    attn = ("fused_qkv_rope_attention" if flat and flat_width_supported(arch.heads, arch.dim_head)
+            else "flash_attention")
     if backbone == "DiT":
-        step = {"fused_qkv_rope_attention": arch.depth, "adaln_norm": 2 * arch.depth + 1}
+        step = {attn: arch.depth, "adaln_norm": 2 * arch.depth + 1}
     elif backbone == "UNetT":
-        attn = "fused_qkv_rope_attention" if flat else "flash_attention"
         step = {attn: arch.depth, "rms_norm": 2 * arch.depth + 1}
     else:
         step = {"adaln_norm": 4 * (arch.depth - 1) + 3 + 1}
@@ -5178,6 +5335,97 @@ def phase_head_width(dev, gpu: str) -> tuple[dict, dict]:
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 26
+# ---------------------------------------------------------------------------
+
+D256_HEADS = {"heads": 4, "dim_head": 256}  # a Base preset's inner width at 4 heads of 256
+_D256_PER_UPDATE = {"flash_attention_lse": 22, "flash_attention_bwd": 22, "adaln_norm": 45,
+                    "conv_pos_embedding": 1}
+# (batch, frames, updates, launches an update) of DiT d256's Trainer cells
+D256_TRAIN_CELLS = ((16, 1024, 2, _D256_PER_UPDATE), (4, 3072, 2, _D256_PER_UPDATE))
+D256_OTHER_DEPTH = 4  # E2TTS's depth at 4 x 256, cut to keep time
+
+
+def phase_head_width_wide(dev, gpu: str) -> tuple[dict, dict]:
+    """Phase 26: head widths past 128 through the entry points, every
+    attention on K7's wide mode (its lse mode and K9 under grad). (a) DiT
+    d256 (F5TTS_v1_Base at 4 heads of 256, full width and depth) through
+    `InferencePipeline.infer` at the 1024 bucket and the cap (K7 / K1 / K2
+    352 / 720 / 32 a generate, K3 none), then the graphed generate against
+    the eager one at both on a second pipeline; (b) `Trainer` updates at 16
+    x 1024 and 4 x 3072 (K7-lse / K9 / K1 / K2 22 / 22 / 45 / 1 an update);
+    (c) card bf16 against CPU f32 at depth 2, inference and a training step;
+    (d) E2TTS_Base at 4 x 256, depth D256_OTHER_DEPTH, through `infer` at
+    1024 rows and the cap (K7 / K6 / K2) and its 4 x 4096 update (K7-lse /
+    K9). The MMDiT at 4 x 256 takes JAX's XLA branches (no kernel) and is
+    held against JAX on the CPU only. Returns the phase's launches (every
+    count set to 0 before each run, read after) and its rows."""
+    import torch
+    from f5tts_tpu_torch.scripts.common import REQUESTS, base_models
+
+    t_phase = time.perf_counter()
+    launches: dict[str, int] = {}
+    seconds: dict[str, float] = {}
+    out: dict = {}
+
+    def add(ran: dict) -> None:
+        for name, c in ran.items():
+            launches[name] = launches.get(name, 0) + c
+
+    t0 = time.perf_counter()
+    arch, params, vocos_params = base_models(**D256_HEADS)
+    log(f"  (a) DiT d256: dim {arch.dim}, depth {arch.depth}, {arch.heads} heads of "
+        f"{arch.dim_head}, through InferencePipeline.infer")
+    expect = generate_launches("DiT", arch)
+    if expect.get("flash_attention") != 16 * arch.depth or "fused_qkv_rope_attention" in expect:
+        raise AssertionError(f"DiT d256's generate should take K7 at every n: {expect}")
+    pipe = make_pipeline(dev, "DiT", arch, params, vocos_params)
+    add(run_requests(pipe, [(REQUESTS[0], 1014, expect), (REQUESTS[1], 4086, expect)], gpu))
+    del pipe
+    pipe = make_pipeline(dev, "DiT", arch, params, vocos_params)
+    out["graphs"] = [compare_graph_eager(pipe, expect, total, gpu) for total in (1014, 4086)]
+    del pipe
+    torch.cuda.empty_cache()
+    seconds["serving"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log("  (b) DiT d256: Trainer.train at 16 x 1024 and 4 x 3072")
+    add(phase_train(dev, arch, params, gpu, "DiT", D256_TRAIN_CELLS))
+    seconds["training"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log("  (c) DiT d256 at depth 2, card bf16 against cpu f32: inference, a training step")
+    out["mel_rel_l2"] = phase_card_vs_cpu(dev, arch, params, vocos_params, "DiT", {
+        "flash_attention": 2, "adaln_norm": 5, "conv_pos_embedding": 2})[0]
+    phase_train_card_vs_cpu(dev, arch, params, expect={
+        "flash_attention_lse": 2, "flash_attention_bwd": 2, "adaln_norm": 5,
+        "conv_pos_embedding": 1})
+    del params
+    torch.cuda.empty_cache()
+    seconds["card_vs_cpu"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    arch_b, params_b, vocos_b = base_models(model="E2TTS_Base", depth=D256_OTHER_DEPTH,
+                                            **D256_HEADS)
+    log(f"  (d) E2TTS_Base at {arch_b.heads} x {arch_b.dim_head}, depth {arch_b.depth}, through "
+        "InferencePipeline.infer")
+    pipe = make_pipeline(dev, "UNetT", arch_b, params_b, vocos_b)
+    each = generate_launches("UNetT", arch_b)
+    add(run_requests(pipe, [(REQUESTS[0], 1013, each), (REQUESTS[1], 4096, each)], gpu))
+    del pipe
+    add(phase_train(dev, arch_b, params_b, gpu, "UNetT", (
+        (4, 4096, 2, {"flash_attention_lse": arch_b.depth, "flash_attention_bwd": arch_b.depth,
+                      "rms_norm": 2 * arch_b.depth + 1, "conv_pos_embedding": 1}),)))
+    del params_b
+    torch.cuda.empty_cache()
+    seconds["e2tts"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 26: {out['phase_s']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in seconds.items())})")
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -5388,10 +5636,18 @@ def main() -> int:
     log(f"  phase 25: {json.dumps(width_rows)}")
     torch.cuda.empty_cache()
 
-    # a "<counter>@..." row's launches are phase 25's, every other row's the
-    # other phases'
+    log("phase 26: head widths past 128: DiT d256 (F5TTS_v1_Base at 4 heads of 256) served "
+        "and trained, E2TTS at 4 x 256, every attention on K7 / K9's wide mode")
+    launches26, wide_rows = phase_head_width_wide(dev, gpu)
+    log(f"  phase 26: {json.dumps(wide_rows)}")
+    torch.cuda.empty_cache()
+
+    # a "<counter>@d>128" row's launches are phase 26's, any other
+    # "<counter>@..." row's phase 25's, every other row's the other phases'
     def row_launches(name: str) -> int:
-        return launches25.get(base_name(name), 0) if "@" in name else launches.get(name, 0)
+        if "@" not in name:
+            return launches.get(name, 0)
+        return (launches26 if name.endswith(WIDE) else launches25).get(base_name(name), 0)
 
     idle = [name for name in rows if not row_launches(name)]
     if idle:

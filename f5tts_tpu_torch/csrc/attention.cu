@@ -4,7 +4,8 @@
 // The core has three template axes:
 //  - the head width D, 64 or 128 (every mode at both; the JAX bodies take d
 //    in {64, 128}, attention.py:1189 / :1498 / :1714; the head layout's other
-//    widths are zero-padded to one of them by the wrapper);
+//    widths up to 128 are zero-padded to one of them by the wrapper, and K7
+//    takes any d > 128 in its wide mode, below);
 //  - layout: FLAT (qkv [b, n, 3*h*D], the fused to_qkv projection output,
 //    with flat cos/sin [>=n, h*D] bf16 tables: q and k are roped in the
 //    kernel) or HEAD (q, k, v [b, h, n, D] bf16, already normed and roped);
@@ -48,6 +49,12 @@
 //    scaled scores, every row of a live q tile (K9 reads the rows past the
 //    length too), -1e30 on the q tiles wholly past the length, for the
 //    backward K9 (csrc/attention_bwd.cu).
+//    flash_attn_wide_kernel and flash_attn_wide_lse_kernel: the same function
+//    at a head width d > 128 (d % 8 == 0; the Pallas bodies take any d), one
+//    launch. A block computes one slice of at most 128 output columns, its
+//    scores over the whole width (m = ceil(d / 64) sub-tile products), every
+//    operand streamed through one ring of 16 KB units, so shared memory does
+//    not grow with d (`wg_fwd_wide`).
 // K11 (HEAD + KMASK) masked_flash_attn_kernel: head-layout attention under a
 //    key mask. Replaces :1653 _flash_kernel_bias (behind :1706
 //    masked_flash_attention): MMDiT joint attention when the flat K5 cannot
@@ -192,6 +199,43 @@ __device__ __forceinline__ void krot_prologue(const FwdArgs& a) {
     *reinterpret_cast<uint4*>(a.krot + (((size_t)bb * heads + hh) * n + i) * D + c) = pack8(k);
 }
 
+// One key tile of the online softmax over this thread's 64 x 64 scores sc
+// (its rows (i >> 1) & 1; its keys nt * 8 + t4 * 2 + {0, 1} are bits nt * 8
+// + {0, 1} of bits >> (t4 * 2)). Dead keys get -1e30 (the plain version's
+// additive row), selected only in a tile with a dead key; the tile holds a
+// live key, so every row's max is finite and their p is 0. The running max
+// and sum move on, sc becomes p, and alpha is the factor O is rescaled by.
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], uint64_t bits, int t4,
+                                             float to_log2, float (&m_run)[2], float (&l_run)[2],
+                                             float (&alpha)[2]) {
+    if (bits != ~0ull) {
+        const uint64_t kbits = bits >> (t4 * 2);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+            if (!((kbits >> ((i >> 2) * 8 + (i & 1))) & 1)) sc[i] = FW_NEG;
+    }
+    float mx[2] = {FW_NEG, FW_NEG};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float m2[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_run[r], mx[r]);
+        alpha[r] = exp2f((m_run[r] - m_new) * to_log2);
+        m_run[r] = m_new;
+        m2[r] = m_new * to_log2;
+        l_run[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+        const float p = exp2f(fmaf(sc[i], to_log2, -m2[(i >> 1) & 1]));
+        sc[i] = p;
+        l_run[(i >> 1) & 1] += p;
+    }
+}
+
 template <int LAYOUT, int LIVE, bool LSE, int D>
 __device__ __forceinline__ void wg_fwd(const FwdArgs& a) {
     constexpr bool KMASK = LIVE == FW_KMASK;
@@ -296,39 +340,10 @@ __device__ __forceinline__ void wg_fwd(const FwdArgs& a) {
         wg_wait0();
         fence_regs(sc);
 
-        // dead keys: -1e30 (the plain version's additive row), selected only
-        // in a tile with a dead key; the tile holds a live key, so every
-        // row's max is finite and their p is 0. This thread's keys nt * 8 +
-        // t4 * 2 + {0, 1} are bits nt * 8 + {0, 1} of bits >> (t4 * 2).
-        if (bits != ~0ull) {
-            const uint64_t kbits = bits >> (t4 * 2);
+        float alpha[2];
+        softmax_tile(sc, bits, t4, to_log2, m_run, l_run, alpha);
 #pragma unroll
-            for (int i = 0; i < 32; ++i)
-                if (!((kbits >> ((i >> 2) * 8 + (i & 1))) & 1)) sc[i] = FW_NEG;
-        }
-        float mx[2] = {FW_NEG, FW_NEG};
-#pragma unroll
-        for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-        float alpha[2], m2[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-            const float m_new = fmaxf(m_run[r], mx[r]);
-            alpha[r] = exp2f((m_run[r] - m_new) * to_log2);
-            m_run[r] = m_new;
-            m2[r] = m_new * to_log2;
-            l_run[r] *= alpha[r];
-        }
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-            const float p = exp2f(fmaf(sc[i], to_log2, -m2[(i >> 1) & 1]));
-            sc[i] = p;
-            l_run[(i >> 1) & 1] += p;
-            o[i] *= alpha[(i >> 1) & 1];
-        }
-#pragma unroll
-        for (int i = 32; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];  // D = 128's other half
+        for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
         uint32_t pa[4][4];
 #pragma unroll
         for (int kc = 0; kc < 4; ++kc) acc_to_a(pa[kc], sc, kc);
@@ -359,11 +374,7 @@ __device__ __forceinline__ void wg_fwd(const FwdArgs& a) {
         if (LSE && t4 == 0)  // the lse of the scaled scores (HEAD: m_run is unscaled)
             a.lse[bh * n + row] =
                 l_run[r] > 0.f ? m_run[r] * (PRESCALE ? 1.f : a.scale) + logf(l_run[r]) : FW_NEG;
-        bf16* orow = t.out + row * t.os + t4 * 2;
-#pragma unroll
-        for (int nt = 0; nt < D / 8; ++nt)
-            *reinterpret_cast<uint32_t*>(orow + nt * 8) =
-                pack_bf16x2(o[4 * nt + 2 * r] * inv, o[4 * nt + 2 * r + 1] * inv);
+        store_acc_row(t.out + row * t.os + t4 * 2, o, r, inv, D);
     }
 }
 
@@ -412,10 +423,117 @@ __global__ void __launch_bounds__(FW_NT, FW_MINB(D)) masked_flash_attn_kernel(co
 }
 
 // ---------------------------------------------------------------------------
+// K7 wide: HEAD + LENGTH at a head width d > 128 (d % 8 == 0)
+// ---------------------------------------------------------------------------
+
+// A block computes the output columns [c0, c0 + 128) of its 64 q rows (one
+// slice: blockIdx.y = head * slices + slice), so its O accumulator is D =
+// 128's. Its scores are the whole width's: S = Q K^T sums m = ceil(d / 64)
+// products of 64-column sub-tiles. Every operand streams through one ring
+// of FWW_STAGES 16 KB stages, a unit a stage: for each key tile, the m
+// (q sub-tile, k sub-tile) pairs, then the tile's 64 keys of v at the
+// slice's 128 columns. Columns at or past d are zero-filled as they are
+// copied (the padded lanes add exact zeros to every score; those of v give
+// output columns that are not stored), so shared memory does not grow
+// with d. Every slice recomputes the scores: at d = 256 the block's tensor
+// work is 1.5x the function's.
+#define FWW_STAGES 4
+#define FWW_UNIT (2 * WG_TILE)  // a stage: two [64][64] tiles, or one [64][128]
+#define FWW_SLICE 128           // output columns a block
+#define FWW_SMEM (1024 + FWW_STAGES * FWW_UNIT)
+
+struct FwdWideArgs {
+    const bf16 *q, *k, *v;  // [b, h, n, d], normed and roped q and k
+    const int* lengths;
+    bf16* out;
+    float* lse;             // the LSE mode
+    int bsz, n, heads, d;
+    float scale;
+};
+
+template <bool LSE>
+__device__ __forceinline__ void wg_fwd_wide(const FwdWideArgs& a) {
+    const int n = a.n, d = a.d;
+    const int m = (d + 63) / 64;  // the 64-column sub-tiles of the scores' contraction
+    const int slices = (d + FWW_SLICE - 1) / FWW_SLICE;
+    const int q0 = blockIdx.x * 64;
+    const int h = blockIdx.y / slices, j = blockIdx.y - h * slices, b = blockIdx.z;
+    const int c0 = j * FWW_SLICE;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const size_t bh = (size_t)b * a.heads + h;
+    const bf16* Q = a.q + bh * n * d;
+    const bf16* K = a.k + bh * n * d;
+    const bf16* V = a.v + bh * n * d;
+    const float to_log2 = a.scale * FW_LOG2E;
+    // keys < len are live; a q tile wholly past the length walks no key tile
+    const int len = min(max(a.lengths[b], 0), n);
+    const int n_kt = q0 < len ? (len + 63) / 64 : 0;
+    const int per_kt = m + 1;  // units a key tile
+
+    UnitRing<FWW_STAGES, FWW_UNIT> ring{smem_u32(align1024(fw_smem)), n_kt * per_kt};
+    auto load = [&](int unit, uint32_t st) {
+        const int kt = unit / per_kt, u = unit - kt * per_kt;
+        if (u < m) {
+            cols_async<FW_NT, 8>(st, Q, d, q0, n, u * 64, d, tid);
+            cols_async<FW_NT, 8>(st + WG_TILE, K, d, kt * 64, len, u * 64, d, tid);
+        } else {
+            cols_async<FW_NT, 16>(st, V, d, kt * 64, len, c0, d, tid);
+        }
+    };
+    ring.fill(load);
+
+    const int row_lo = q0 + warp * 16 + g;
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float m_run[2] = {FW_NEG, FW_NEG}, l_run[2] = {0.f, 0.f};
+    for (int kt = 0; kt < n_kt; ++kt) {
+        float sc[32];
+        ring_scores(sc, ring, load, m);  // S = Q K^T over the whole width
+        const int rem = len - kt * 64;  // key kt * 64 + j is bit j
+        const uint64_t bits = rem >= 64 ? ~0ull : (1ull << rem) - 1;
+        float alpha[2];
+        softmax_tile(sc, bits, t4, to_log2, m_run, l_run, alpha);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) acc_to_a(pa[kc], sc, kc);
+        ring_slice_mma(o, pa, ring, load);  // O += P V_slice
+    }
+    cp_async_wait_all();
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+        l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = row_lo + r * 8;
+        if (row >= n) continue;
+        const float inv = l_run[r] != 0.f ? 1.f / l_run[r] : 0.f;
+        if (LSE && j == 0 && t4 == 0)  // every slice has the same scores: slice 0 writes
+            a.lse[bh * n + row] = l_run[r] > 0.f ? m_run[r] * a.scale + logf(l_run[r]) : FW_NEG;
+        store_acc_row(a.out + (bh * n + row) * d + c0 + t4 * 2, o, r, inv, d - c0);
+    }
+}
+
+__global__ void __launch_bounds__(FW_NT, 2) flash_attn_wide_kernel(const FwdWideArgs a) {
+    wg_fwd_wide<false>(a);
+}
+__global__ void __launch_bounds__(FW_NT, 2) flash_attn_wide_lse_kernel(const FwdWideArgs a) {
+    wg_fwd_wide<true>(a);
+}
+
+// ---------------------------------------------------------------------------
 // Launch: (FLAT) prologue, then the main kernel, on the caller's stream
 // ---------------------------------------------------------------------------
 
 typedef void (*fwd_kernel_t)(const FwdArgs);
+typedef void (*fwd_wide_kernel_t)(const FwdWideArgs);
 
 // The prologue (null for HEAD) and main kernel of a mode at the head width d.
 struct FwdKernels {
@@ -530,9 +648,29 @@ static FwdArgs head_args(const void* q, const void* k, const void* v, const void
     return a;
 }
 
+// K7's wide mode: one launch, a block a (64 q rows, head x slice, batch).
+static int launch_fwd_wide(fwd_wide_kernel_t kernel, const void* q, const void* k,
+                           const void* v, const void* lengths, void* out, void* lse, int b,
+                           int n, int heads, int d, float scale, void* stream) {
+    if (d <= 128 || d % 8) return (int)cudaErrorInvalidValue;
+    if (b <= 0 || n <= 0) return (int)cudaGetLastError();
+    const FwdWideArgs a = {(const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lengths,
+                           (bf16*)out, (float*)lse, b, n, heads, d, scale};
+    cudaError_t err = smem_limit_once((const void*)kernel, FW_SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((n + 63) / 64, heads * ((d + FWW_SLICE - 1) / FWW_SLICE), b);
+    kernel<<<grid, FW_NT, FWW_SMEM, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// K7 and its lse mode take any head width: 64 and 128 natively, d > 128
+// (d % 8 == 0) in the wide mode; any other returns cudaErrorInvalidValue.
 extern "C" int f5_flash_attn_bf16(const void* q, const void* k, const void* v,
                                   const void* lengths, void* out, int b, int n, int heads,
                                   int head_dim, float sm_scale, void* stream) {
+    if (head_dim > 128)
+        return launch_fwd_wide(flash_attn_wide_kernel, q, k, v, lengths, out, nullptr, b, n,
+                               heads, head_dim, sm_scale, stream);
     return launch_fwd(FW_PICK_HEAD(head_dim, flash_attn_kernel),
                       head_args(q, k, v, lengths, false, out, nullptr, b, n, heads, sm_scale),
                       head_dim, stream);
@@ -541,6 +679,9 @@ extern "C" int f5_flash_attn_bf16(const void* q, const void* k, const void* v,
 extern "C" int f5_flash_attn_lse_bf16(const void* q, const void* k, const void* v,
                                       const void* lengths, void* out, void* lse, int b, int n,
                                       int heads, int head_dim, float sm_scale, void* stream) {
+    if (head_dim > 128)
+        return launch_fwd_wide(flash_attn_wide_lse_kernel, q, k, v, lengths, out, lse, b, n,
+                               heads, head_dim, sm_scale, stream);
     return launch_fwd(FW_PICK_HEAD(head_dim, flash_attn_lse_kernel),
                       head_args(q, k, v, lengths, false, out, lse, b, n, heads, sm_scale),
                       head_dim, stream);

@@ -1,8 +1,10 @@
 // Attention backward kernels: K4 and its key-mask mode K8 (flat dQKV), and K9
 // (head-layout dq/dk/dv from a saved row lse), three modes of one core, each
 // at the head width D = 64 and 128 (the JAX bodies' d in {64, 128},
-// attention.py:1189 / :1628; K9's other widths are zero-padded by the
-// wrapper).
+// attention.py:1189 / :1628; K9's other widths up to 128 are zero-padded by
+// the wrapper). K9 takes any d > 128 in its wide mode (the kernels
+// flash_bwd_wide_*, at the end of this file): one 128-column output slice a
+// block, the scores over the whole width, every operand streamed.
 //
 // K4: dQKV of K3 (fused QKV + interleaved RoPE + length-masked attention), flat layout.
 // Replaces f5tts_tpu/ops/attention.py:886 _fused_qkv_bwd_kernel (n <= 1024) and
@@ -101,7 +103,8 @@
 #define BW_MINB 3  // the blocks an SM must hold at once (__launch_bounds__) at D = 64
 #endif
 // at D = 128 two: a 255-register cap for the dk/dv kernel's 192 accumulator
-// registers, and 2 x 97 KB of its shared plan
+// registers, and 2 x 97 KB of its shared plan. The wide mode (d > 128) keeps
+// D = 128's accumulators a block (one 128-column slice) and its two blocks.
 #define BW_MINB_OF(D) ((D) == 64 ? BW_MINB : 2)
 #define BW_LOG2E 1.4426950408889634f
 #define BW_DEAD -5e29f                // K9: a row whose lse is below this is dead
@@ -577,6 +580,232 @@ __global__ void __launch_bounds__(BW_NT, BW_MINB_OF(D)) flash_bwd_dq_kernel(cons
 }
 
 // ---------------------------------------------------------------------------
+// K9 wide: the head-layout backward at a head width d > 128 (d % 8 == 0)
+// ---------------------------------------------------------------------------
+
+// The function of K9 at d > 128. A block computes one slice of at most 128
+// output columns [c0, c0 + 128) of its 64 rows (blockIdx.y = head * slices
+// + slice), so its accumulators are D = 128's; S^T / dP^T (S / dP in the dq
+// kernel) contract the whole width, m = ceil(d / 64) products of 64-column
+// sub-tiles. Every operand streams through one ring of BWW_STAGES 16 KB
+// stages, a unit a stage, columns at or past d zero-filled as they are
+// copied, so shared memory does not grow with d. Three launches, no
+// atomics: delta, dk/dv, dq. Every slice recomputes the scores: at d = 256
+// the tensor work is ~1.57x the function's.
+#define BWW_NT 128
+#define BWW_STAGES 4
+#define BWW_UNIT (2 * WG_TILE)
+#define BWW_SLICE 128
+#define BWW_SMEM (1024 + BWW_STAGES * BWW_UNIT + 2 * 512)  // the ring, then two lse / delta slots
+
+struct BwdWideArgs {
+    const bf16 *q, *k, *v;  // [b, h, n, d], roped q and k
+    const int* lengths;
+    const bf16 *out, *dout;
+    const float* lse;
+    float* delta;           // scratch [b, h, n]
+    bf16 *dq, *dk, *dv;
+    int bsz, n, heads, d;
+    float scale;
+};
+
+// delta [b, h, n] = rowsum(dO * O) in f32, a warp a row.
+__global__ void __launch_bounds__(256) flash_bwd_wide_delta_kernel(const BwdWideArgs a) {
+    const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (row >= (long long)a.bsz * a.heads * a.n) return;
+    float acc = 0.f;
+    for (int c = lane * 8; c < a.d; c += 256) {
+        float o[8], g[8];
+        unpack8(*reinterpret_cast<const uint4*>(a.out + row * a.d + c), o);
+        unpack8(*reinterpret_cast<const uint4*>(a.dout + row * a.d + c), g);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc += o[e] * g[e];
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) a.delta[row] = acc;
+}
+
+// Scale and store this thread's rows of a 64 x 128 accumulator slice (row0
+// = the row of acc[0]) as bf16 columns [c0, min(c0 + 128, d)) of dst [n, d].
+__device__ __forceinline__ void store_slice(bf16* dst, const float (&acc)[64], int row0, int n,
+                                            int d, int c0, float scale, int t4) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+        if (row0 + r * 8 < n)
+            store_acc_row(dst + (size_t)(row0 + r * 8) * d + c0 + t4 * 2, acc, r, scale, d - c0);
+}
+
+// dk / dv of 64 keys at one slice. Units a q tile: m (k_u, q_u) pairs, m
+// (v_u, dO_u) pairs, then the q tile's dO and q at the slice's columns
+// (the B operands of dv += p^T dO and dk += ds^T q). The q tile's lse and
+// delta ride with its first unit into one of two slots (a q tile has at
+// least 8 units, more than the ring's lookahead, so a slot is rewritten
+// only after its tile's softmax). A key block wholly past the length walks
+// no q tile: its dk and dv are written as zeros.
+__global__ void __launch_bounds__(BWW_NT, 2) flash_bwd_wide_dkdv_kernel(const BwdWideArgs a) {
+    const int n = a.n, d = a.d;
+    const int m = (d + 63) / 64;
+    const int slices = (d + BWW_SLICE - 1) / BWW_SLICE;
+    const int k0 = blockIdx.x * 64;
+    const int h = blockIdx.y / slices, j = blockIdx.y - h * slices, b = blockIdx.z;
+    const int c0 = j * BWW_SLICE;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const size_t bh = (size_t)b * a.heads + h, off = bh * n * d;
+    const bf16 *Q = a.q + off, *K = a.k + off, *V = a.v + off, *dO = a.dout + off;
+    const float* lseb = a.lse + bh * n;
+    const float* deltab = a.delta + bh * n;
+    const int len = min(max(a.lengths[b], 0), n);
+    const int n_qt = k0 < len ? (len + 63) / 64 : 0;  // the q tiles up to the length
+    const int per_qt = 2 * m + 2;
+
+    uint8_t* smem = align1024(bw_smem);
+    const uint32_t sLDs = smem_u32(smem) + BWW_STAGES * BWW_UNIT;
+    const float* sLD = reinterpret_cast<const float*>(smem + BWW_STAGES * BWW_UNIT);
+    UnitRing<BWW_STAGES, BWW_UNIT> ring{smem_u32(smem), n_qt * per_qt};
+    auto load = [&](int unit, uint32_t st) {
+        const int qt = unit / per_qt, u = unit - qt * per_qt, q0 = qt * 64;
+        if (u < m) {
+            cols_async<BWW_NT, 8>(st, K, d, k0, n, u * 64, d, tid);
+            cols_async<BWW_NT, 8>(st + WG_TILE, Q, d, q0, n, u * 64, d, tid);
+            if (u == 0)
+                for (int i = tid; i < 128; i += BWW_NT) {
+                    const int row = q0 + (i & 63);
+                    const bool ok = row < n;
+                    cp_async4(sLDs + (qt & 1) * 512 + i * 4,
+                              (i < 64 ? lseb : deltab) + (ok ? row : 0), ok);
+                }
+        } else if (u < 2 * m) {
+            cols_async<BWW_NT, 8>(st, V, d, k0, n, (u - m) * 64, d, tid);
+            cols_async<BWW_NT, 8>(st + WG_TILE, dO, d, q0, n, (u - m) * 64, d, tid);
+        } else {
+            cols_async<BWW_NT, 16>(st, u == 2 * m ? dO : Q, d, q0, n, c0, d, tid);
+        }
+    };
+    ring.fill(load);
+
+    // this thread's two accumulator rows are keys
+    const int key_lo = k0 + warp * 16 + g;
+    const bool key_live[2] = {key_lo < len, key_lo + 8 < len};
+    const float scale2 = a.scale * BW_LOG2E;
+    float dk[64], dv[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+    for (int qt = 0; qt < n_qt; ++qt) {
+        float st[32], dpt[32];
+        ring_scores(st, ring, load, m);   // s^T = K q^T: 64 keys x 64 queries
+        ring_scores(dpt, ring, load, m);  // dp^T = V dO^T
+        const float* sL = sLD + (qt & 1) * 128;
+        const float* sD = sL + 64;
+        const int q0 = qt * 64;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int qi = nt * 8 + t4 * 2 + (e & 1);
+                // a row past n, or of a q tile K7 wrote dead, adds nothing
+                const bool live = key_live[e >> 1] && q0 + qi < n && sL[qi] > BW_DEAD;
+                const float p =
+                    live ? exp2f(fmaf(st[4 * nt + e], scale2, -sL[qi] * BW_LOG2E)) : 0.f;
+                st[4 * nt + e] = p;
+                dpt[4 * nt + e] = p * (dpt[4 * nt + e] - sD[qi]);
+            }
+        }
+        uint32_t pa[4][4], da[4][4];
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) {
+            acc_to_a(pa[kc], st, kc);
+            acc_to_a(da[kc], dpt, kc);
+        }
+        ring_slice_mma(dv, pa, ring, load);  // dv += p^T dO_slice
+        ring_slice_mma(dk, da, ring, load);  // dk += ds^T q_slice
+    }
+    cp_async_wait_all();
+    store_slice(a.dk + off, dk, key_lo, n, d, c0, a.scale, t4);
+    store_slice(a.dv + off, dv, key_lo, n, d, c0, 1.f, t4);
+}
+
+// dq of 64 q rows at one slice. Units a key tile: m (q_u, k_u) pairs, m
+// (dO_u, v_u) pairs, then the key tile's k at the slice's columns (the B
+// operand of dq += ds k). A q tile wholly past the length (K7 wrote its lse
+// dead) walks no key tile: its dq is written as zeros.
+__global__ void __launch_bounds__(BWW_NT, 2) flash_bwd_wide_dq_kernel(const BwdWideArgs a) {
+    const int n = a.n, d = a.d;
+    const int m = (d + 63) / 64;
+    const int slices = (d + BWW_SLICE - 1) / BWW_SLICE;
+    const int q0 = blockIdx.x * 64;
+    const int h = blockIdx.y / slices, j = blockIdx.y - h * slices, b = blockIdx.z;
+    const int c0 = j * BWW_SLICE;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const size_t bh = (size_t)b * a.heads + h, off = bh * n * d;
+    const bf16 *Q = a.q + off, *K = a.k + off, *V = a.v + off, *dO = a.dout + off;
+    const int len = min(max(a.lengths[b], 0), n);
+    const int n_kt = q0 < len ? (len + 63) / 64 : 0;
+    const int per_kt = 2 * m + 1;
+
+    UnitRing<BWW_STAGES, BWW_UNIT> ring{smem_u32(align1024(bw_smem)), n_kt * per_kt};
+    auto load = [&](int unit, uint32_t st) {
+        const int kt = unit / per_kt, u = unit - kt * per_kt, kb = kt * 64;
+        if (u < m) {
+            cols_async<BWW_NT, 8>(st, Q, d, q0, n, u * 64, d, tid);
+            cols_async<BWW_NT, 8>(st + WG_TILE, K, d, kb, n, u * 64, d, tid);
+        } else if (u < 2 * m) {
+            cols_async<BWW_NT, 8>(st, dO, d, q0, n, (u - m) * 64, d, tid);
+            cols_async<BWW_NT, 8>(st + WG_TILE, V, d, kb, n, (u - m) * 64, d, tid);
+        } else {
+            cols_async<BWW_NT, 16>(st, K, d, kb, n, c0, d, tid);
+        }
+    };
+    ring.fill(load);
+
+    // this thread's two accumulator rows are queries
+    const int row_lo = q0 + warp * 16 + g;
+    const float scale2 = a.scale * BW_LOG2E;
+    float lse2[2], dlt[2];
+    bool row_live[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = row_lo + r * 8;
+        const float l = row < n ? a.lse[bh * n + row] : 0.f;
+        row_live[r] = row < n && l > BW_DEAD;
+        lse2[r] = row_live[r] ? l * BW_LOG2E : 0.f;
+        dlt[r] = row_live[r] ? a.delta[bh * n + row] : 0.f;
+    }
+    float dq[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    for (int kt = 0; kt < n_kt; ++kt) {
+        float sc[32], dp[32];
+        ring_scores(sc, ring, load, m);  // s = q K^T: 64 queries x 64 keys
+        ring_scores(dp, ring, load, m);  // dp = dO V^T
+        const int k0 = kt * 64;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int key = k0 + nt * 8 + t4 * 2 + (e & 1);
+                const int r = e >> 1;
+                const float p = (key < len && row_live[r])
+                                    ? exp2f(fmaf(sc[4 * nt + e], scale2, -lse2[r]))
+                                    : 0.f;
+                sc[4 * nt + e] = p * (dp[4 * nt + e] - dlt[r]);
+            }
+        }
+        uint32_t da[4][4];
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) acc_to_a(da[kc], sc, kc);
+        ring_slice_mma(dq, da, ring, load);  // dq += ds K_slice
+    }
+    cp_async_wait_all();
+    store_slice(a.dq + off, dq, row_lo, n, d, c0, a.scale, t4);
+}
+
+// ---------------------------------------------------------------------------
 // Launch: prologue, dk/dv, dq on the caller's stream
 // ---------------------------------------------------------------------------
 
@@ -665,11 +894,42 @@ extern "C" int f5_fused_qkv_rope_attn_bias_bwd_bf16(const void* qkv, const void*
                       head_dim, stream);
 }
 
+// K9's wide mode: delta, dk/dv, dq; a block a (64 rows, head x slice, batch).
+static int launch_bwd_wide(const void* q, const void* k, const void* v, const void* lengths,
+                           const void* o, const void* lse, const void* dout, void* dq, void* dk,
+                           void* dv, void* delta, int b, int n, int heads, int d, float scale,
+                           void* stream) {
+    if (d <= 128 || d % 8) return (int)cudaErrorInvalidValue;
+    if (b <= 0 || n <= 0) return (int)cudaGetLastError();
+    const BwdWideArgs a = {(const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lengths,
+                           (const bf16*)o, (const bf16*)dout, (const float*)lse, (float*)delta,
+                           (bf16*)dq, (bf16*)dk, (bf16*)dv, b, n, heads, d, scale};
+    cudaStream_t s = (cudaStream_t)stream;
+    const long long rows = (long long)b * heads * n;
+    flash_bwd_wide_delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(a);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = smem_limit_once((const void*)flash_bwd_wide_dkdv_kernel, BW_SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    err = smem_limit_once((const void*)flash_bwd_wide_dq_kernel, BW_SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((n + 63) / 64, heads * ((d + BWW_SLICE - 1) / BWW_SLICE), b);
+    flash_bwd_wide_dkdv_kernel<<<grid, BWW_NT, BWW_SMEM, s>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_wide_dq_kernel<<<grid, BWW_NT, BWW_SMEM, s>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// K9 takes any head width: 64 and 128 natively, d > 128 (d % 8 == 0) in the
+// wide mode; any other returns cudaErrorInvalidValue.
 extern "C" int f5_flash_attn_bwd_bf16(const void* q, const void* k, const void* v,
                                       const void* lengths, const void* o, const void* lse,
                                       const void* dout, void* dq, void* dk, void* dv,
                                       void* delta, int b, int n, int heads, int head_dim,
                                       float scale, void* stream) {
+    if (head_dim > 128) return launch_bwd_wide(q, k, v, lengths, o, lse, dout, dq, dk, dv, delta,
+                                               b, n, heads, head_dim, scale, stream);
     BwdArgs a = {};
     a.q = (const bf16*)q;
     a.k = (const bf16*)k;

@@ -43,6 +43,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// As cp_async_wait_all, but N of this thread's committed groups may still be
+// pending (a ring of N + 2 stages: the oldest one landed).
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Offset of 16-byte chunk c of row r in a 128-byte-swizzled tile (1024-aligned):
 // r * 128 + ((c ^ (r % 8)) * 16), the layout of wgmma's 128B swizzle.
 __device__ __forceinline__ uint32_t sw128_off(int r, int c) {
@@ -69,6 +77,53 @@ __device__ __forceinline__ void tile_async(uint32_t dst, const bf16* src, size_t
         cp_async16(dst + tile_off(r, c), src + (size_t)(ok ? row : 0) * stride + c * 8, ok);
     }
 }
+
+// Rows [r0, r0 + 64) and the CH 16-byte chunks from column c0 of a bf16
+// matrix of `cols` columns (row stride `stride` elements) into chunks 0 ..
+// CH - 1 of a [64][8 * CH] tile at dst (`tile_off`), by the NT threads of the
+// block; rows >= lim and chunks at or past `cols` are zero-filled (the
+// head-layout kernels' wide mode: sub-tiles of a head wider than 128).
+template <int NT, int CH>
+__device__ __forceinline__ void cols_async(uint32_t dst, const bf16* src, size_t stride, int r0,
+                                           int lim, int c0, int cols, int tid) {
+#pragma unroll
+    for (int i = tid; i < 64 * CH; i += NT) {
+        const int r = i / CH, c = i % CH;
+        const int row = r0 + r, col = c0 + c * 8;
+        const bool ok = row < lim && col < cols;
+        cp_async16(dst + tile_off(r, c), src + (ok ? (size_t)row * stride + col : 0), ok);
+    }
+}
+
+// A ring of STAGES shared-memory stages of UNIT bytes from `base`, fed one
+// unit a stage in order (the wide mode's operands): `issue` copies the next
+// unit (its `load(unit, stage address)`) as one commit group, empty past
+// `total`; `next` waits until the oldest unit has landed in every thread,
+// frees the stage of the unit before it (whose products the caller waited
+// on) for the unit STAGES - 1 on, and returns the oldest unit's stage.
+template <int STAGES, int UNIT>
+struct UnitRing {
+    uint32_t base;
+    int total, issued = 0, used = 0;
+    __device__ __forceinline__ uint32_t stage(int i) const { return base + (i % STAGES) * UNIT; }
+    template <class Load>
+    __device__ __forceinline__ void issue(Load&& load) {
+        if (issued < total) load(issued, stage(issued));
+        cp_async_commit();
+        ++issued;
+    }
+    template <class Load>
+    __device__ __forceinline__ void fill(Load&& load) {  // the first STAGES - 1 units
+        for (int s = 0; s < STAGES - 1; ++s) issue(load);
+    }
+    template <class Load>
+    __device__ __forceinline__ uint32_t next(Load&& load) {
+        cp_async_wait<STAGES - 2>();
+        __syncthreads();
+        issue(load);
+        return stage(used++);
+    }
+};
 
 // Zero D lanes of rows [r0, min(r0 + rows, n)) of dst (row stride `stride`).
 template <int NT, int D>
@@ -194,6 +249,53 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[32],
     a[1] = pack_bf16x2(d[8 * kc + 2], d[8 * kc + 3]);
     a[2] = pack_bf16x2(d[8 * kc + 4], d[8 * kc + 5]);
     a[3] = pack_bf16x2(d[8 * kc + 6], d[8 * kc + 7]);
+}
+
+// Row r (0: the thread's row 16w + g, 1: that + 8) of its part of a 64 x 2N
+// accumulator, times `scale`, as bf16 at dst (the row's column 2t): columns
+// 8i + 2t, 8i + 2t + 1 of each group i with 8i < cols.
+template <int N>
+__device__ __forceinline__ void store_acc_row(bf16* dst, const float (&acc)[N], int r, float scale,
+                                              int cols) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i)
+        if (i * 8 < cols)
+            *reinterpret_cast<uint32_t*>(dst + i * 8) =
+                pack_bf16x2(acc[4 * i + 2 * r] * scale, acc[4 * i + 2 * r + 1] * scale);
+}
+
+// The wide mode's two products over a UnitRing, each unit waited on before
+// the next `ring.next` frees its stage. acc (+)= A B^T over m units, a
+// unit A's [64][64] sub-tile then B's (K-major): the scores S, S^T, dP or
+// dP^T over the whole width.
+template <class Ring, class Load>
+__device__ __forceinline__ void ring_scores(float (&acc)[32], Ring& ring, Load& load, int m) {
+    for (int u = 0; u < m; ++u) {
+        const uint32_t st = ring.next(load);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss<0>(acc, sw128_desc(st + kk * 32), sw128_desc(st + WG_TILE + kk * 32),
+                        u | kk);
+        wg_commit();
+        wg_wait0();
+    }
+    fence_regs(acc);
+}
+
+// acc += A B over one unit, B an N-major [64][128] tile (16 rows a step), A
+// a 64 x 64 bf16 operand in registers: O += P V, dv += p^T dO, dk += ds^T q
+// or dq += ds k at one 128-column slice.
+template <class Ring, class Load>
+__device__ __forceinline__ void ring_slice_mma(float (&acc)[64], const uint32_t (&a)[4][4],
+                                               Ring& ring, Load& load) {
+    const uint32_t st = ring.next(load);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(acc, a[kc], mn_desc<128>(st + kc * 2048), 1);
+    wg_commit();
+    wg_wait0();
+    fence_regs(acc);
 }
 
 // One bit a key of a [n] bool key mask row into words[0 .. span / 32): key j

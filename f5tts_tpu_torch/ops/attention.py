@@ -77,9 +77,12 @@ XLA branch `bias_decomposed_ref` at any other width, and
 take more than the Pallas bodies: K3 any n up to FLAT_ATTN_MAX_N, K5 and
 K11 every n (JAX asks n % 128 == 0, and n <= FLAT_ATTN_MAX_N of K5 / K11,
 and takes its XLA formulas of the same function elsewhere). The head
-layout K7 / K9, whose Pallas body takes any d, takes every d <=
-HEAD_LAYOUT_MAX_D: 64 and 128 natively, any other width zero-padded to the
-next of them (`_head_pad`); d > 128 raises on the card.
+layout K7 / K9, whose Pallas body takes any d, takes any d too: 64 and 128
+natively, any other width up to 128 zero-padded to the next of them, and d
+> 128 in their wide mode (`flash_attn_wide_*` / `flash_bwd_wide_*`: a block
+a 128-column slice of the output, the scores over the whole width; a width
+that is no multiple of WIDE_ALIGN is zero-padded to one), all through
+`_kernel_width`.
 """
 
 from __future__ import annotations
@@ -100,7 +103,7 @@ NEG_INF = -1e30
 # wholly past the length), as the Pallas backward tests lse > NEG_INF / 2
 DEAD_LSE = NEG_INF / 2
 HEAD_DIMS = (64, 128)  # the head widths the kernels are instantiated at
-HEAD_LAYOUT_MAX_D = 128  # K7 / K9 zero-pad a narrower head to the next of HEAD_DIMS
+WIDE_ALIGN = 8  # K7 / K9's wide mode (d > 128) takes a multiple of 8 (16-byte rows)
 Q_TILE = 64    # K3's and K7's q tile: tiles wholly past the length are dead
 # the longest sequence the JAX package sends through its flat kernels; past
 # it `self_attention` splits heads for K7, as the JAX gate does
@@ -602,12 +605,14 @@ def _check_heads(*tensors, widths=HEAD_DIMS):
                              f"[b, h, n, d] tensors of one shape, d in {widths}")
 
 
-def _head_pad(d: int) -> int:
-    """The instantiated width K7 / K9 run a head of width d at: d itself for
-    64 and 128, else the next of them; d > HEAD_LAYOUT_MAX_D raises."""
-    if not 0 < d <= HEAD_LAYOUT_MAX_D:
-        raise ValueError(f"flash attention kernel takes head widths up to {HEAD_LAYOUT_MAX_D}: "
-                         f"d = {d} (the Pallas head layout's wider heads are not ported)")
+def _kernel_width(d: int) -> int:
+    """The width K7 / K9 run a head of width d at: d itself for 64 and 128,
+    the next of them for any other d up to 128, and past 128 (the wide mode)
+    d rounded up to a multiple of WIDE_ALIGN."""
+    if d <= 0:
+        raise ValueError(f"flash attention kernel takes a positive head width: d = {d}")
+    if d > HEAD_DIMS[-1]:
+        return -(-d // WIDE_ALIGN) * WIDE_ALIGN
     return next(w for w in HEAD_DIMS if d <= w)
 
 
@@ -623,18 +628,18 @@ def flash_attention_fwd(q, k, v, lengths, return_lse: bool = False):
     (and with `return_lse` the row lse [b, h, n] f32). Kernel K7 on CUDA (its
     lse mode with `return_lse`), `flash_attention_fwd_ref` on the CPU.
 
-    K7 is instantiated at d = 64 and 128. Any other d <= 128 runs at the next
-    of them: q, k and v zero-padded on the way in, the output sliced on the
-    way out, the scale still 1/sqrt(d) of the true d. The padded lanes of q
-    and k add exact zeros to every score and those of v give output lanes
-    that are dropped, so the scores, the softmax, the lse and the kept
-    output are the unpadded ones. d > 128 raises."""
+    K7 is instantiated at d = 64 and 128; d > 128 runs its wide mode. Any
+    other width runs at `_kernel_width(d)`: q, k and v zero-padded on the
+    way in, the output sliced on the way out, the scale still 1/sqrt(d) of
+    the true d. The padded lanes of q and k add exact zeros to every score
+    and those of v give output lanes that are dropped, so the scores, the
+    softmax, the lse and the kept output are the unpadded ones."""
     if _device("flash_attention", q) == "cpu":
         return flash_attention_fwd_ref(q, k, v, lengths, return_lse)
     d = q.shape[-1]
-    width = _head_pad(d)
+    width = _kernel_width(d)
     q, k, v = _pad_heads(width, q, k, v)
-    _check_heads(q, k, v)
+    _check_heads(q, k, v, widths=(width,))
     b, h, n, _ = q.shape
     _check_lengths(lengths, b, q.device)
     out = torch.empty_like(q)
@@ -656,15 +661,16 @@ def flash_attention_fwd(q, k, v, lengths, return_lse: bool = False):
 def flash_attention_bwd(q, k, v, lengths, o, lse, dout) -> tuple:
     """(dq, dk, dv) [b, h, n, d] of `flash_attention` from its saved output o
     and row lse, for the incoming gradient dout. Kernel K9 on CUDA, plain on
-    the CPU. A width other than 64 and 128 runs zero-padded as the forward
-    does: the padded lanes of q, k, v, o and dO are zeros, so delta, p and ds
-    are the unpadded ones, and the kept lanes of dq, dk and dv too."""
+    the CPU; d > 128 runs K9's wide mode. A width the kernel does not take
+    as it is runs zero-padded as the forward does (`_kernel_width`): the
+    padded lanes of q, k, v, o and dO are zeros, so delta, p and ds are the
+    unpadded ones, and the kept lanes of dq, dk and dv too."""
     if _device("flash_attention_bwd", q) == "cpu":
         return flash_attention_bwd_ref(q, k, v, lengths, o, lse, dout)
     d = q.shape[-1]
-    width = _head_pad(d)
+    width = _kernel_width(d)
     q, k, v, o, dout = _pad_heads(width, q, k, v, o, dout)
-    _check_heads(q, k, v, o, dout)
+    _check_heads(q, k, v, o, dout, widths=(width,))
     b, h, n, _ = q.shape
     _check_lengths(lengths, b, q.device)
     if (lse.shape != (b, h, n) or lse.dtype != torch.float32 or lse.device != q.device

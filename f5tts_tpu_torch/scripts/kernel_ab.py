@@ -3,7 +3,7 @@ from another checkout, in turns on one card.
 
     python -m f5tts_tpu_torch.scripts.kernel_ab --other PATH
         [--kernel K1|K1Q|K2|K3|K3_lse|K4|K5|K5_lse|K6|K6Q|K7|K7_lse|K8|K9|K10|K11|K12|K12G|K13 ...]
-        [--define NAME=VALUE ...] [--out FILE]
+        [--head-dim 64|128|D ...] [--define NAME=VALUE ...] [--out FILE]
 
 Kernels: K3 and K3_lse (the flat fused QKV + RoPE attention over keys <
 length, and its lse mode), K4 (its dQKV backward), K5 and K5_lse (the
@@ -23,7 +23,8 @@ their entries (`--other .` with a `--define`). Both checkouts' source
 `quant.cu` for K13) are
 compiled with the port's nvcc flags into a temporary directory (this
 checkout's with `-D` of each `--define`, so `--other .` compares two builds
-of one source) and loaded with ctypes. Each build's C entry is called with
+of one source; each source once a build, however many of its kernels are
+timed) and loaded with ctypes. Each build's C entry is called with
 the signature its own source declares: the pointer parameters are matched
 by name (qkv, cos_t, sin_t, lengths / kmask, q, k, v, o / out, lse, dout,
 dqkv, dq, dk, dv, k_rot, delta; x, w, bias, y, out, scale, shift; codes,
@@ -39,7 +40,11 @@ outside the timing. The saved
 `out` / `o` and `lse` of the backwards come from this checkout's K3 / K5 /
 K7 lse mode.
 
-Shapes: chip_smoke's phase 2, b = 2, h = 16, d = 64: K3 and K3_lse at n =
+Shapes: chip_smoke's phase 2, b = 2, h = 16, d = 64 (with `--head-dim`,
+repeatable, each attention kernel at each width d and 1024 / d heads, the
+same h*d: 8 x 128 is DiT d128's, 4 x 256 DiT d256's; past 128 only the head
+layout K7, K7_lse and K9 take it, in their wide mode, which a source before
+it refuses): K3 and K3_lse at n =
 1024, 3200, 4096 and K4 at n = 1024, 3072, 4096 with lengths [n, 777]; K5,
 K5_lse and K8 at joint n = 1152, 3200, 4352 (1024 / 3072 / 4096 audio + 128 /
 128 / 256 text rows, K5's masks); K7, K7_lse and K9 at n = 1024 and 4224,
@@ -104,7 +109,7 @@ DEQUANT = ((2048, 3072), (2048, 1024), (2048, 2048), (8192, 3072))  # m, n
 EXACT = ("K1Q", "K6Q", "K12", "K12G", "K13")  # bit-equal outputs, or the builds disagree
 CODES = ("codes", "row_scale")
 K3_GLOBALS = r"fused_qkv_rope_attn_(kernel|lse_kernel|krot_kernel)"
-K7_GLOBALS = r"_Z\d+flash_attn_(lse_)?kernel"  # not masked_flash_attn_kernel
+K7_GLOBALS = r"_Z\d+flash_attn_(wide_)?(lse_)?kernel"  # not masked_flash_attn_kernel
 # kernel: (source, C entry, a pattern found in each of its __global__ names,
 # shapes, the outputs compared)
 KERNELS = {
@@ -144,7 +149,22 @@ KERNELS = {
     "K13": ("quant.cu", "f5_dequant_bias_bf16", "dequant_bias_kernel", DEQUANT, ("out",)),
 }
 CTYPES = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong}
-H = 16
+ATTENTION = ("K3", "K3_lse", "K4", "K5", "K5_lse", "K8", "K7", "K7_lse", "K9", "K11")
+HEAD_LAYOUT = ("K7", "K7_lse", "K9")  # the kernels that take d > 128 (their wide mode)
+HD = 1024  # h * d of every attention shape: 16 x 64, 8 x 128, 4 x 256
+_BUILDS: dict = {}  # (source, tag) -> (.so path, nvcc's output)
+
+
+def build(src: Path, out_dir: Path, tag: str, defines=()) -> tuple:
+    """(the .so, nvcc's -Xptxas -v output) of one source, compiled once a tag."""
+    key = (str(src), tag)
+    if key not in _BUILDS:
+        so = out_dir / f"{src.stem}_{tag}.so"
+        log = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+                              *(f"-D{d}" for d in defines), "-o", str(so), str(src)],
+                             check=True, capture_output=True, text=True)
+        _BUILDS[key] = (so, log.stdout + log.stderr)
+    return _BUILDS[key]
 
 
 def load(kernel: str, checkout: Path, out_dir: Path, tag: str, defines=()):
@@ -152,7 +172,6 @@ def load(kernel: str, checkout: Path, out_dir: Path, tag: str, defines=()):
     with kind "const" or "out" for a pointer, else "int" or "float", ptxas'
     resource lines for its __global__ functions) of `checkout`."""
     src_name, entry_name, global_key = KERNELS[kernel][:3]
-    so = out_dir / f"{kernel}_{tag}.so"
     src = checkout / "f5tts_tpu_torch" / "csrc" / src_name
     sig = re.search(r'extern "C" int ' + entry_name + r"\(([^)]*)\)", src.read_text())
     params = []
@@ -161,11 +180,9 @@ def load(kernel: str, checkout: Path, out_dir: Path, tag: str, defines=()):
         kind = ("const" if "const" in decl else "out") if "*" in decl else " ".join(
             decl.split()[:-1])
         params.append((name, kind))
-    log = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
-                          *(f"-D{d}" for d in defines), "-o", str(so), str(src)],
-                         check=True, capture_output=True, text=True)
+    so, text = build(src, out_dir, tag, defines)
     entry, usage = "", {}
-    for line in (log.stdout + log.stderr).splitlines():
+    for line in text.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1] if "'" in line else line
         elif ("registers" in line or "spill" in line) and re.search(global_key, entry):
@@ -191,18 +208,20 @@ def joint_kmask(na: int, n: int, dev) -> torch.Tensor:
     return kmask
 
 
-def attn_scalars(n: int) -> dict:
-    """The int and float parameters of an attention entry (the forwards name
-    the scale sm_scale, the backwards scale; a source without the head_dim
-    parameter ignores it)."""
-    scale = 1.0 / math.sqrt(64)
-    return {"b": 2, "n": n, "heads": H, "head_dim": 64, "sm_scale": scale, "scale": scale}
+def attn_scalars(n: int, d: int = 64) -> dict:
+    """The int and float parameters of an attention entry at HD / d heads of
+    d (the forwards name the scale sm_scale, the backwards scale; a source
+    without the head_dim parameter ignores it)."""
+    scale = 1.0 / math.sqrt(d)
+    return {"b": 2, "n": n, "heads": HD // d, "head_dim": d, "sm_scale": scale, "scale": scale}
 
 
-def inputs(kernel: str, shape, dev) -> tuple[dict, str]:
-    """The tensors and scalars by parameter name, and the shape's description."""
+def inputs(kernel: str, shape, dev, d: int = 64) -> tuple[dict, str]:
+    """The tensors and scalars by parameter name, and the shape's description
+    (an attention kernel's at HD / d heads of d)."""
     rng = np.random.default_rng(0)
-    b, hd = 2, H * 64
+    b, hd = 2, HD
+    H = HD // d
 
     def bf16(*s):
         return torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, torch.bfloat16)
@@ -277,50 +296,51 @@ def inputs(kernel: str, shape, dev) -> tuple[dict, str]:
         t["y"] = torch.empty_like(t["x"])
         return t, f"[{b}, {n}, {c}], 16 groups of {width}, k {k}"
 
+    hw = f"b=2 h={H} d={d}"
     if kernel in ("K7", "K7_lse", "K9"):
         n = shape
-        t = {name: bf16(b, H, n, 64) for name in ("q", "k", "v", "dout")}
+        t = {name: bf16(b, H, n, d) for name in ("q", "k", "v", "dout")}
         t["lengths"] = torch.tensor([n, 777], dtype=torch.int32, device=dev)
         if kernel != "K9":
             t["out"] = torch.empty_like(t["q"])
             t["lse"] = torch.empty((b, H, n), dtype=torch.float32, device=dev)
-            return t | attn_scalars(n), f"b=2 h=16 d=64 n={n} lengths [{n}, 777], head layout"
+            return t | attn_scalars(n, d), f"{hw} n={n} lengths [{n}, 777], head layout"
         t["o"], t["lse"] = att.flash_attention_fwd(t["q"], t["k"], t["v"], t["lengths"],
                                                    return_lse=True)
         for name in ("dq", "dk", "dv"):
             t[name] = torch.empty_like(t["q"])
         t["delta"] = torch.empty((b, H, n), dtype=torch.float32, device=dev)
-        return t | attn_scalars(n), f"b=2 h=16 d=64 n={n} lengths [{n}, 777], dO on every row"
+        return t | attn_scalars(n, d), f"{hw} n={n} lengths [{n}, 777], dO on every row"
     if kernel == "K11":
         na, nt = shape
         n = na + nt
-        t = {name: bf16(b, H, n, 64) for name in ("q", "k", "v")}
+        t = {name: bf16(b, H, n, d) for name in ("q", "k", "v")}
         t["kmask"] = joint_kmask(na, n, dev)
         t["out"] = torch.empty_like(t["q"])
-        what = f"b=2 h=16 d=64 joint n={n} ({na} audio + {nt} text), head layout"
-        return t | attn_scalars(n), what
+        what = f"{hw} joint n={n} ({na} audio + {nt} text), head layout"
+        return t | attn_scalars(n, d), what
     n = shape if kernel in ("K3", "K3_lse", "K4") else sum(shape)
     t = {"qkv": bf16(b, n, 3 * hd), "dout": bf16(b, n, hd)}
     if kernel in ("K5", "K5_lse", "K8"):
         na, nt = shape
         kmask = joint_kmask(na, n, dev)
-        ang = rope_freqs_interleaved(64, na).to(dev)
+        ang = rope_freqs_interleaved(d, na).to(dev)
         (ca, sa), (ct, st) = (rope_flat_tables(ang, m, H) for m in (na, nt))
         t["cos_t"], t["sin_t"] = torch.cat([ca, ct]).contiguous(), torch.cat([sa, st]).contiguous()
         t["kmask"] = kmask
         t["out"], t["lse"] = att.fused_qkv_rope_attention_bias_fwd(
             t["qkv"], t["cos_t"], t["sin_t"], kmask, H, return_lse=True)
-        what = f"b=2 h=16 d=64 joint n={n} ({na} audio + {nt} text)"
+        what = f"{hw} joint n={n} ({na} audio + {nt} text)"
     else:
-        t["cos_t"], t["sin_t"] = rope_flat_tables(rope_freqs_interleaved(64, n).to(dev), n, H)
+        t["cos_t"], t["sin_t"] = rope_flat_tables(rope_freqs_interleaved(d, n).to(dev), n, H)
         t["lengths"] = torch.tensor([n, 777], dtype=torch.int32, device=dev)
         t["out"], t["lse"] = att.fused_qkv_rope_attention_fwd(
             t["qkv"], t["cos_t"], t["sin_t"], t["lengths"], H, return_lse=True)
-        what = f"b=2 h=16 d=64 n={n} lengths [{n}, 777]"
+        what = f"{hw} n={n} lengths [{n}, 777]"
     t["dqkv"] = torch.empty_like(t["qkv"])
-    t["k_rot"] = torch.empty((b, H, n, 64), dtype=torch.bfloat16, device=dev)
+    t["k_rot"] = torch.empty((b, H, n, d), dtype=torch.bfloat16, device=dev)
     t["delta"] = torch.empty((b, H, n), dtype=torch.float32, device=dev)
-    return t | attn_scalars(n), what
+    return t | attn_scalars(n, d), what
 
 
 def agreement(name: str, a: torch.Tensor, w: torch.Tensor, exact: bool = False) -> dict:
@@ -340,15 +360,18 @@ def agreement(name: str, a: torch.Tensor, w: torch.Tensor, exact: bool = False) 
             "largest_entry": top, "agree": agree}
 
 
-def run_kernel(kernel: str, other: Path, defines, tmp: Path, dev) -> tuple[dict, bool]:
-    """Both builds of `kernel` in turns at each of its shapes."""
+def run_kernel(kernel: str, other: Path, defines, tmp: Path, dev,
+               head_dims=(64,)) -> tuple[dict, bool]:
+    """Both builds of `kernel` in turns at each of its shapes (an attention
+    kernel's at each of `head_dims`)."""
     built = {"other": load(kernel, other, tmp, "other"),
              "this": load(kernel, THIS, tmp, "this", defines)}
     result = {"kernel": kernel, "ptxas_other": built["other"][2],
               "ptxas_this": built["this"][2], "shapes": []}
     ok = True
-    for shape in KERNELS[kernel][3]:
-        shared, what = inputs(kernel, shape, dev)
+    dims = head_dims if kernel in ATTENTION else (64,)
+    for d, shape in ((d, shape) for d in dims for shape in KERNELS[kernel][3]):
+        shared, what = inputs(kernel, shape, dev, d)
         own = {tag: {name: shared[name].clone() for name, kind in params if kind == "out"}
                for tag, (_, params, _) in built.items()}
 
@@ -381,18 +404,30 @@ def main(argv=None) -> int:
     ap.add_argument("--other", required=True, help="root of the other checkout")
     ap.add_argument("--kernel", action="append", choices=sorted(KERNELS),
                     help="a kernel to time (default K3); may be repeated")
+    ap.add_argument("--head-dim", action="append", type=int, default=None,
+                    help="an attention kernel's head width (default 64; 128; past 128 K7, "
+                         "K7_lse and K9 only); may be repeated")
     ap.add_argument("--define", action="append", default=[],
                     help="NAME=VALUE for this checkout's build (e.g. BW_WG=1)")
     ap.add_argument("--out", default=None, help="also write the JSON result here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a CUDA device")
+    head_dims = args.head_dim or [64]
+    kernels = args.kernel or ["K3"]
+    wide = [d for d in head_dims if d not in (64, 128)]
+    off = [k for k in kernels if k in ATTENTION and k not in HEAD_LAYOUT]
+    if wide and off or any(d <= 128 and d not in (64, 128) or d % 8 for d in wide):
+        raise SystemExit(f"head widths {wide}: only K7, K7_lse and K9 take d > 128 (d % 8 "
+                         f"== 0), and no kernel another d below 128, not {off}")
     dev = torch.device("cuda")
-    result = {"gpu": gpu_name_and_limit(), "defines": args.define, "kernels": []}
+    result = {"gpu": gpu_name_and_limit(), "defines": args.define, "head_dims": head_dims,
+              "kernels": []}
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
-        for kernel in args.kernel or ["K3"]:
-            res, good = run_kernel(kernel, Path(args.other).resolve(), args.define, Path(tmp), dev)
+        for kernel in kernels:
+            res, good = run_kernel(kernel, Path(args.other).resolve(), args.define, Path(tmp), dev,
+                                   head_dims)
             result["kernels"].append(res)
             ok &= good
             print(json.dumps({k: v for k, v in res.items() if k != "shapes"}), flush=True)

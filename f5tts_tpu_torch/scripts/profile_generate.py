@@ -2,11 +2,13 @@
 
     python -m f5tts_tpu_torch.scripts.profile_generate [--model F5TTS_v1_Base]
         [--qk-norm] [--quantization none|int8] [--vocoder vocos|bigvgan]
-        [--serve] [--out profile_generate.json]
+        [--serve] [--heads H --dim-head D] [--out profile_generate.json]
 
 `--model` any preset: F5TTS_v1_Base / F5TTS_Base / F5TTS_v1_Small /
 F5TTS_Small (DiT), E2TTS_Base / E2TTS_Small (UNetT) or MMDiT_Base;
 `--qk-norm` sets qk_norm="rms_norm" (its RMSNorm weights randomised);
+`--heads` / `--dim-head` replace the preset's head split (e.g. 4 x 256 at
+the same inner width: the head layout, K7's wide mode, at every n);
 `--quantization int8` runs the pipeline's int8 W8A8 params (K12's modes:
 K1Q / K6Q, the GELU mode, the plain K12; the int8 product, K13: their
 device time is read by class, and bf16's separate GELU pass too);
@@ -64,7 +66,7 @@ CLASSES = (
     ("fused_qkv_rope_attention_bias", ("fused_qkv_rope_attn_bias_kernel",
                                        "fused_qkv_rope_attn_bias_krot_kernel")),
     ("masked_flash_attention", ("masked_flash_attn_kernel",)),  # before its substring
-    ("flash_attention", ("flash_attn_kernel",)),
+    ("flash_attention", ("flash_attn_kernel", "flash_attn_wide_kernel")),
     ("adaln_norm", ("AdaLNEpi",)),
     ("rms_norm", ("RmsEpi",)),
     ("conv_pos_embedding", K2_NAMES),  # before K10's, whose kernel it is a mode of
@@ -181,6 +183,8 @@ def main(argv=None) -> int:
                     help="bigvgan also selects the bigvgan (Slaney) mel")
     ap.add_argument("--serve", action="store_true",
                     help="the serving path: generate_batch at b = 1, 2, 4, buckets 512 / 1024")
+    ap.add_argument("--heads", type=int, default=None, help="replace the preset's heads")
+    ap.add_argument("--dim-head", type=int, default=None, help="replace the preset's dim_head")
     ap.add_argument("--out", default=None, help="also write the JSON result here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -196,9 +200,11 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     backbone = PRESETS[args.model].backbone
+    split = {k: v for k, v in (("heads", args.heads), ("dim_head", args.dim_head))
+             if v is not None}
     arch, params, vocoder_params = base_models(
         model=args.model, vocoder=args.vocoder,
-        **({"qk_norm": "rms_norm"} if args.qk_norm else {}))
+        **({"qk_norm": "rms_norm"} if args.qk_norm else {}), **split)
     vocoder = (BigVGAN(vocoder_params, device=dev) if args.vocoder == "bigvgan"
                else Vocos(vocoder_params, VocosConfig(), device=dev))
     pipe = InferencePipeline(params, BACKBONES[backbone].statics_cls(arch), vocoder,
@@ -209,6 +215,7 @@ def main(argv=None) -> int:
     gpu = gpu_name_and_limit()
     ref = synthetic_ref_wav()
     result = {"gpu": gpu, "torch": torch.__version__, "model": args.model,
+              "heads": arch.heads, "dim_head": arch.dim_head,
               "qk_norm": arch.qk_norm, "quantization": args.quantization,
               "vocoder": args.vocoder, "buckets": []}
     if args.serve:

@@ -3,6 +3,7 @@
     python -m f5tts_tpu_torch.scripts.train_bench [--model F5TTS_v1_Base]
         [--cells 16x1024,4x3072,37x1024] [--steps 5] [--out train_bench.json]
         [--remat-policy none|nothing|attn_out|attn|dots] [--bf16-state]
+        [--heads H --dim-head D]
 
 The counterpart of the JAX package's scripts/train_bench.py: the preset
 `--model` (F5TTS_v1_Base: DiT, dim 1024, depth 22, 16 x 64 heads, ff_mult 2,
@@ -16,7 +17,9 @@ for MMDiT ceil(len / 6) ids a row (`common.synthetic_text_ids`). No block is
 checkpointed by default (`--remat-policy none`, the yardstick of the
 training rows in PERF.md); any other `--remat-policy` checkpoints each block
 (`ModelArch.checkpoint_activations`) under that policy. `--bf16-state`
-stores mu / nu and the EMA in bf16.
+stores mu / nu and the EMA in bf16. `--heads` / `--dim-head` replace the
+preset's head split (e.g. 4 x 256 at the same inner width: every attention
+on the head layout, K7-lse / K9 in their wide mode).
 
 Cells (b x n), by default 16 x 1024 (the JAX bench default), the long band
 (4 x 3072: K4's and, for MMDiT, K8's long joint band; 4 x 4096 for E2TTS:
@@ -57,9 +60,9 @@ CLASSES = (
                           "fused_qkv_rope_attn_bias_krot_kernel")),
     ("attention_bwd K8", ("attn_bias_bwd_prologue_kernel", "attn_bias_bwd_dq_kernel",
                           "attn_bias_bwd_dkdv_kernel")),
-    ("attention_fwd K7 lse", ("flash_attn_lse_kernel",)),
+    ("attention_fwd K7 lse", ("flash_attn_lse_kernel", "flash_attn_wide_lse_kernel")),
     ("attention_bwd K9", ("flash_bwd_delta_kernel", "flash_bwd_dq_kernel",
-                          "flash_bwd_dkdv_kernel")),
+                          "flash_bwd_dkdv_kernel", "flash_bwd_wide_")),
     ("adaln_norm K1", ("AdaLNEpi",)),
     ("rms_norm K6", ("RmsEpi",)),
     ("conv_pos K2", K2_NAMES),
@@ -131,6 +134,8 @@ def main(argv=None) -> int:
                     help="checkpoint each block under this policy (none: no checkpointing)")
     ap.add_argument("--bf16-state", action="store_true",
                     help="store AdamW's mu / nu and the EMA in bf16")
+    ap.add_argument("--heads", type=int, default=None, help="replace the preset's heads")
+    ap.add_argument("--dim-head", type=int, default=None, help="replace the preset's dim_head")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("train_bench needs a CUDA device")
@@ -144,8 +149,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     bdef = BACKBONES[PRESETS[args.model].backbone]
     remat = args.remat_policy != "none"
+    split = {k: v for k, v in (("heads", args.heads), ("dim_head", args.dim_head))
+             if v is not None}
     arch, params, _ = base_models(model=args.model, checkpoint_activations=remat,
-                                  remat_policy=args.remat_policy if remat else "nothing")
+                                  remat_policy=args.remat_policy if remat else "nothing",
+                                  **split)
     sdt = torch.bfloat16 if args.bf16_state else None
     state = init_train_state(params, dev, moment_dtype=sdt, ema_dtype=sdt)
     n_params = sum(p.numel() for p in tree_leaves(state.params))
@@ -154,7 +162,7 @@ def main(argv=None) -> int:
                               ema_update_every=1, ema_update_after_step=0, backbone=bdef)
     gpu = gpu_name_and_limit()
     result = {"gpu": gpu, "torch": torch.__version__, "model": args.model,
-              "parameters": n_params, "cells": [],
+              "heads": arch.heads, "dim_head": arch.dim_head, "parameters": n_params, "cells": [],
               "remat_policy": args.remat_policy if remat else None,
               "bf16_state": args.bf16_state}
     for cell in (args.cells or CELLS[args.model]).split(","):

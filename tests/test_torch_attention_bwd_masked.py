@@ -7,7 +7,9 @@ they replace, in interpret mode, on the CPU.
   joint 256 and 384 with dead keys mid-sequence and an unmasked cotangent,
   and both against `jax.vjp` of `_bias_decomposed_ref`;
 - K7's lse `flash_attention_fwd_ref(..., return_lse=True)` against
-  `_flash_forward(..., return_lse=True)` over live rows, both Pallas bodies;
+  `_flash_forward(..., return_lse=True)` over live rows, both Pallas bodies,
+  at d = 64 and 128 and at the wide mode's 160, 256 and 320 (K9 below too:
+  the fused body at 160 / 256 / 320, the split pair at 256);
 - K9 `flash_attention_bwd_ref` against `_flash_backward_fused`, the split
   `_flash_bwd_dq_kernel` + `_flash_bwd_dkv_kernel` (reached by a one-shot
   `_pick_block` that returns a non-divisor: `_flash_backward` never reaches
@@ -137,9 +139,13 @@ def test_bias_bwd_from_lse_matches_pallas_grad(n, d, monkeypatch):
 
 @pytest.mark.parametrize("body,n,lengths,d", [("single", 256, [256, 177], 64),
                                               ("loop", 384, [384, 70], 64),
-                                              ("single", 256, [256, 177], 128)],
+                                              ("single", 256, [256, 177], 128),
+                                              ("single", 256, [256, 177], 256),
+                                              ("loop", 384, [384, 70], 160),
+                                              ("single", 256, [256, 177], 320)],
                          ids=["single-256-lengths0", "loop-384-lengths1",
-                              "d128-single-256-lengths0"])
+                              "d128-single-256-lengths0", "d256-single-256-lengths0",
+                              "d160-loop-384-lengths1", "d320-single-256-lengths0"])
 def test_flash_lse_plain_matches_pallas(body, n, lengths, d, monkeypatch):
     if body == "loop":  # the online-softmax body over three 128-key blocks
         monkeypatch.setattr(jatt, "SINGLE_PASS_MAX_N", 0)
@@ -172,10 +178,17 @@ _FLASH_BWD = [(n, ln, route, 64) for n, ln in ((256, [256, 177]), (384, [384, 70
               for route in ("fused", "split", "vjp")]
 
 
+# head widths past 128 (K9's wide mode on the card): the fused body and the
+# split pair
+_FLASH_BWD_WIDE = [(256, [256, 177], "fused", 256), (384, [384, 70], "split", 256),
+                   (256, [256, 177], "fused", 160), (384, [384, 70], "fused", 320)]
+
+
 @pytest.mark.parametrize(
-    "n,lengths,route,d", _FLASH_BWD + [(256, [256, 177], "fused", 128)],
+    "n,lengths,route,d", _FLASH_BWD + [(256, [256, 177], "fused", 128)] + _FLASH_BWD_WIDE,
     ids=[f"{n}-lengths{i // 3}-{r}" for i, (n, _, r, _) in enumerate(_FLASH_BWD)]
-    + ["d128-256-lengths0-fused"])
+    + ["d128-256-lengths0-fused"]
+    + [f"d{d}-{n}-lengths{int(n == 384)}-{r}" for n, _, r, d in _FLASH_BWD_WIDE])
 def test_flash_bwd_plain_matches_pallas(route, n, lengths, d, monkeypatch):
     q, k, v, lens, do = _flash_case(n, lengths, d=d)
     jq, jk, jv, jl, jdo = (jnp.asarray(t) for t in (q, k, v, lens, do))

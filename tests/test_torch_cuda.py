@@ -3,7 +3,8 @@
 Each hand-written kernel against its plain PyTorch version at small shapes,
 including ragged lengths and an n that is no multiple of the tiles; the
 lse modes of K3, K5 and K7 (K3 at lengths 0, 1, 64, 65 and n, K7 at 1, 63,
-64, 65, n - 1 and n; K11 with all-dead key tiles between live ones and a
+64, 65, n - 1 and n; K7, its lse mode and K9 at head widths 32 to 512, past
+128 in their wide mode; K11 with all-dead key tiles between live ones and a
 row with no live key); the attention backwards K4, K8 (each against both of
 its plain versions; K4 also at K3's edge lengths) and K9 alone and through
 autograd (K3's lse mode -> K4, K5's lse mode -> K8, K7's lse mode -> K9);
@@ -521,9 +522,6 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     qh = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="key mask"):  # an int mask, not bool
         masked_flash_attention(qh, qh, qh, torch.ones(1, 64, dtype=torch.int32, device=dev))
-    q192 = torch.zeros(1, 2, 64, 192, dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError, match="up to 128"):  # the head layout past 128 is not ported
-        flash_attention(q192, q192, q192, torch.ones(1, dtype=torch.int32, device=dev))
     with pytest.raises(ValueError, match="head widths"):  # 2 heads of 96: off the flat gate
         fused_qkv_rope_attention(torch.zeros(1, 8, 3 * 192, dtype=torch.bfloat16, device=dev),
                                  torch.zeros(8, 192, dtype=torch.bfloat16, device=dev),
@@ -1271,12 +1269,14 @@ def test_bias_attention_kernels_d128(dev, n):
     assert not got[:, :, h * d:][~kmask].any()
 
 
-@pytest.mark.parametrize("d", [128, 96, 32])
+@pytest.mark.parametrize("d", [128, 96, 32, 160, 192, 200, 256, 320, 512])
 @pytest.mark.parametrize("n,length", [(64, 1), (200, 65), (1024, 777), (4224, 3001)])
 def test_flash_attention_kernels_head_widths(dev, n, length, d):
     """K7, its lse mode and K9 at 8 heads of d: 128 natively, 96 and 32
-    zero-padded to the next instantiated width; outputs, lse and gradients
-    of the true width against the plain versions at d."""
+    zero-padded to the next instantiated width, d > 128 in their wide mode
+    (a 128-column output slice a block, the scores over the whole width);
+    outputs, lse and gradients of the true width against the plain versions
+    at d."""
     rng = np.random.default_rng(n + d)
     q, k, v, dout = (_bf16(rng, (2, 8, n, d), dev) for _ in range(4))
     lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)

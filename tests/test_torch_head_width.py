@@ -2,16 +2,18 @@
 on the CPU.
 
 Each backbone (DiT, UNetT, MMDiT) at dim 256, depth 2 and 2 heads of 128
-(the flat kernels' second instantiated width: K3 / K5's plain versions here)
-and of 96 (off the flat gate: the DiT and UNetT take the head layout, K7's
-plain version; the MMDiT computes JAX's XLA branch `bias_decomposed_ref`).
+(the flat kernels' second instantiated width: K3 / K5's plain versions here),
+of 96 and of 256 (off the flat gate: the DiT and UNetT take the head layout,
+K7's plain version, on the card K7 zero-padded at 96 and in its wide mode at
+256; the MMDiT computes JAX's XLA branch `bias_decomposed_ref`).
 Weights are numpy-seeded in the JAX tree layout and carried across by
 `convert.*_params_from_jax`; the JAX side runs its XLA path in f32
 (`backend="xla"`), the port its plain versions in f32. Also: the converter
 carries a dim_head-128 tree leaf for leaf, one `cfm_loss` gradient check of
-the DiT at 2 x 128 against `jax.value_and_grad`, one
-`InferencePipeline.infer` of the DiT at 2 x 128, and the operators' fakes
-and FLOP formulas at d = 128 and K10's new range.
+the DiT at 2 x 128 and at 2 x 256 (K7-lse / K9's plain versions) against
+`jax.value_and_grad`, one `InferencePipeline.infer` of the DiT at 2 x 128
+and at 2 x 256, and the operators' fakes and FLOP formulas at d = 128, 256
+and K10's new range.
 """
 
 import functools
@@ -77,7 +79,12 @@ def dit128():
     return _model("DiT", 128)
 
 
-@pytest.mark.parametrize("dim_head", [128, 96])
+@pytest.fixture(scope="module")
+def dit256():
+    return _model("DiT", 256)
+
+
+@pytest.mark.parametrize("dim_head", [128, 96, 256])
 @pytest.mark.parametrize("backbone", ["DiT", "UNetT", "MMDiT"])
 def test_forward_at_head_width_matches_jax(backbone, dim_head):
     """The whole forward with CFG packing, ragged lengths and padded text."""
@@ -109,14 +116,16 @@ def test_forward_at_head_width_matches_jax(backbone, dim_head):
 
 def test_self_attention_routes_by_head_width(monkeypatch):
     """The DiT block's attention takes the flat K3 at 2 x 128 and the head
-    layout (K7) at 2 x 96, whose plain versions the CPU runs: spies on the
-    forwards the two operators call."""
+    layout (K7) at 2 x 96 and 2 x 256 (its wide mode on the card), whose
+    plain versions the CPU runs: spies on the forwards the two operators
+    call."""
     taken = []
     for name in ("fused_qkv_rope_attention_fwd", "flash_attention_fwd"):
         real = getattr(tatt, name)
         monkeypatch.setattr(tatt, name, lambda *a, _n=name, _r=real, **k: taken.append(_n)
                             or _r(*a, **k))
-    for dim_head, want in ((128, "fused_qkv_rope_attention_fwd"), (96, "flash_attention_fwd")):
+    for dim_head, want in ((128, "fused_qkv_rope_attention_fwd"), (96, "flash_attention_fwd"),
+                           (256, "flash_attention_fwd")):
         _, tarch, _, tp = _model("DiT", dim_head)
         statics = tdit.DiTStatics(tarch)
         x = torch.randn(1, 128, 256, generator=torch.Generator().manual_seed(dim_head))
@@ -124,6 +133,16 @@ def test_self_attention_routes_by_head_width(monkeypatch):
         taken.clear()
         tm.self_attention(tp["blocks"][0]["attn"], x, 2, tabs, None, statics.rope_angles)
         assert taken == [want], (dim_head, taken)
+
+
+@pytest.mark.parametrize("d,width", [(64, 64), (128, 128), (96, 128), (32, 64), (1, 64),
+                                     (160, 160), (200, 200), (256, 256), (130, 136),
+                                     (512, 512)])
+def test_kernel_width_covers_every_head_width(d, width):
+    """The width K7 / K9 run a head of d at on the card: 64 and 128 as they
+    are, any other d up to 128 zero-padded to the next of them, d > 128 in
+    the wide mode at the next multiple of 8 (16-byte rows)."""
+    assert tatt._kernel_width(d) == width
 
 
 def test_converter_carries_a_dim_head_128_tree(dit128):
@@ -150,7 +169,17 @@ def test_cfm_loss_and_grads_at_dim_head_128_match_jax(dit128):
     """cfm_loss and every gradient leaf of the DiT at 2 x 128 (K3's lse mode
     and K4's plain versions) against jax.value_and_grad, the JAX key's draws
     handed to the port: loss 1e-5 relative, leaves rel-L2 <= 1e-4."""
-    jarch, tarch, tree, tp = dit128
+    _check_loss_and_grads(dit128)
+
+
+def test_cfm_loss_and_grads_at_dim_head_256_match_jax(dit256):
+    """The same at 2 x 256: the head layout, K7's lse mode and K9's plain
+    versions (their wide mode on the card)."""
+    _check_loss_and_grads(dit256)
+
+
+def _check_loss_and_grads(model):
+    jarch, tarch, tree, tp = model
     b, n, d = 4, 128, 100
     rng = np.random.default_rng(4)
     mel = rng.standard_normal((b, n, d)).astype(np.float32)
@@ -187,13 +216,22 @@ def test_cfm_loss_and_grads_at_dim_head_128_match_jax(dit128):
 
 def test_dit_128_pipeline_infer_on_cpu(dit128):
     """One InferencePipeline.infer at the DiT of 2 heads of 128 (depth 2)."""
+    _pipeline_smoke(dit128)
+
+
+def test_dit_256_pipeline_infer_on_cpu(dit256):
+    """One InferencePipeline.infer at the DiT of 2 heads of 256 (depth 2)."""
+    _pipeline_smoke(dit256)
+
+
+def _pipeline_smoke(model):
     from f5tts_tpu_torch.config import SamplingConfig
     from f5tts_tpu_torch.infer import pipeline as tpipe
     from f5tts_tpu_torch.vocoder import vocos as tvocos
     from tests.test_torch_pipeline import VOCAB, _ref_wav
     from tests.test_torch_vocos_mel import SMALL_VOCOS
 
-    _, tarch, _, tp = dit128
+    _, tarch, _, tp = model
     voc = tvocos.Vocos(tvocos.init_vocos(torch.Generator().manual_seed(0),
                                          tvocos.VocosConfig(**SMALL_VOCOS)),
                        tvocos.VocosConfig(**SMALL_VOCOS), device="cpu")
@@ -231,11 +269,17 @@ def _cases():
                             torch.randn(320), 2)),
         ("grouped_conv1d", (torch.randn(2, 64, 256), torch.randn(30, 256, 256),
                             torch.randn(256), 1)),
+        ("flash_attention", (*(torch.randn(2, 2, 128, 256, dtype=bf) for _ in range(3)),
+                             torch.tensor([128, 90], dtype=i32))),
+        ("flash_attention_lse", (*(torch.randn(2, 2, 128, 256, dtype=bf) for _ in range(3)),
+                                 torch.tensor([128, 90], dtype=i32))),
+        ("masked_flash_attention", (*(torch.randn(2, 2, 128, 256) for _ in range(3)),
+                                    torch.ones(2, 128, dtype=torch.bool))),
     ]
 
 
 CASE_IDS = ["K3-d128", "K3lse-d128", "K5-d128", "K7-d128", "K7lse-d96", "K11-d128",
-            "K10-W160-k63", "K10-W256-k30"]
+            "K10-W160-k63", "K10-W256-k30", "K7-d256", "K7lse-d256", "K11-d256"]
 
 
 @pytest.mark.parametrize("case", range(len(CASE_IDS)), ids=CASE_IDS)
