@@ -318,10 +318,13 @@ Phases (any failure raises, and the script exits non-zero):
     K7-lse and K9 in their wide mode (`check_flash_wide`: d 256, 160, 192,
     200, 320 and 512 at 4 heads, n = 1024 / 4224 / 64 with row 1's length
     777 / 3001 / 1, dO on every row; output, lse, dead q tiles and dq / dk
-    / dv under phase 2's tolerances, K7's rel-L2 included; d 256 timed at n = 1024 and 4224, 192
-    and 512 at 1024; one call of each under torch.profiler names
-    flash_attn_wide_kernel, flash_attn_wide_lse_kernel and
-    flash_bwd_wide_{delta,dkdv,dq}_kernel once each); their rows are the `@d>128` entries of the kernels line,
+    / dv under phase 2's tolerances, K7's rel-L2 included; d 256 and 192
+    timed at n = 1024 and 4224, 512 at 1024; one call of each under
+    torch.profiler at d = 256 names flash_attn_native_kernel,
+    flash_attn_native_lse_kernel, flash_bwd_wide_delta_kernel and
+    flash_bwd_native_{dkdv,dq}_kernel once each, at d = 320 the slice
+    mode's flash_attn_wide_kernel, flash_attn_wide_lse_kernel and
+    flash_bwd_wide_{delta,dkdv,dq}_kernel); their rows are the `@d>128` entries of the kernels line,
     whose launches are this phase's. (a) DiT d256, F5TTS_v1_Base at 4 heads
     of 256, full width and depth, through InferencePipeline.infer at the
     1024 bucket and the cap (K7 / K1 / K2 352 / 720 / 32 a generate, K3
@@ -1355,18 +1358,24 @@ WIDE = "@d>128"
 # width are timed
 WIDE_WIDTHS = (256, 160, 192, 200, 320, 512)
 WIDE_CASES = ((1024, 777), (4224, 3001), (64, 1))
-WIDE_TIMED = {256: 2, 192: 1, 512: 1}
-# one call of each at [2, 4, 1024, 256]: its kernels by name in a profiler
-# trace, each launched once (K7's one launch a forward, K9's three a backward)
-WIDE_KERNELS = {"flash_attn_wide_kernel": 1, "flash_attn_wide_lse_kernel": 1,
-                "flash_bwd_wide_delta_kernel": 1, "flash_bwd_wide_dkdv_kernel": 1,
-                "flash_bwd_wide_dq_kernel": 1}
+WIDE_TIMED = {256: 2, 192: 2, 512: 1}
+# one call of each at [2, 4, 1024, d]: the kernels by name in a profiler
+# trace, each launched once (K7's one launch a forward, K9's three a
+# backward); d = 256 runs the native wide kernels, 320 the slice mode
+WIDE_KERNELS = {
+    256: {"flash_attn_native_kernel": 1, "flash_attn_native_lse_kernel": 1,
+          "flash_bwd_wide_delta_kernel": 1, "flash_bwd_native_dkdv_kernel": 1,
+          "flash_bwd_native_dq_kernel": 1},
+    320: {"flash_attn_wide_kernel": 1, "flash_attn_wide_lse_kernel": 1,
+          "flash_bwd_wide_delta_kernel": 1, "flash_bwd_wide_dkdv_kernel": 1,
+          "flash_bwd_wide_dq_kernel": 1},
+}
 
 
-def wide_kernel_launches(dev) -> tuple[dict, dict]:
+def wide_kernel_launches(dev, d: int) -> tuple[dict, dict]:
     """(wrapper counts, {kernel name: launches in a profiler trace}) of one
-    K7, one K7-lse and one K9 call at [2, 4, 1024, 256], lengths [1024, 777]
-    (the trace's CUDA kernels named by WIDE_KERNELS)."""
+    K7, one K7-lse and one K9 call at [2, 4, 1024, d], lengths [1024, 777]
+    (the trace's CUDA kernels named by any width's WIDE_KERNELS)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1374,7 +1383,7 @@ def wide_kernel_launches(dev) -> tuple[dict, dict]:
     from f5tts_tpu_torch.ops.attention import flash_attention_bwd, flash_attention_fwd
 
     gen = torch.Generator(device=dev).manual_seed(26)
-    q, k, v, dout = (randn_bf16(gen, (2, 4, 1024, 256), dev) for _ in range(4))
+    q, k, v, dout = (randn_bf16(gen, (2, 4, 1024, d), dev) for _ in range(4))
     lengths = torch.tensor([1024, 777], dtype=torch.int32, device=dev)
     o, lse = flash_attention_fwd(q, k, v, lengths, return_lse=True)
     torch.cuda.synchronize()
@@ -1385,8 +1394,9 @@ def wide_kernel_launches(dev) -> tuple[dict, dict]:
         flash_attention_bwd(q, k, v, lengths, o, lse, dout)
         torch.cuda.synchronize()
     seen: dict[str, int] = {}
+    names = {name for kernels in WIDE_KERNELS.values() for name in kernels}
     for ev in prof.events():
-        for name in WIDE_KERNELS:
+        for name in names:
             if name in ev.name and ev.device_type == torch.autograd.DeviceType.CUDA:
                 seen[name] = seen.get(name, 0) + 1
     return _build.launches(), seen
@@ -1397,11 +1407,12 @@ def check_flash_wide(dev, h: int = 4) -> dict:
     WIDE_WIDTHS (4 heads, b = 2) and each (n, row 1's length) of WIDE_CASES
     (K9 with dO on every row), `check_flash` / `check_flash_lse` /
     `check_flash_bwd` under phase 2's tolerances, the cases WIDE_TIMED
-    names timed; then one call of each under torch.profiler: one wrapper
-    count each, and each kernel of WIDE_KERNELS launched once (K7's one
-    launch a forward, K9's three a backward). Returns the three `@d>128`
-    rows (the errors the largest over every width, the times d = 256 and n
-    = 1024's)."""
+    names timed; then one call of each under torch.profiler at d = 256 and
+    at 320: one wrapper count each, and each kernel of the width's
+    WIDE_KERNELS launched once and no other (K7's one launch a forward,
+    K9's three a backward: the native wide kernels at 256, the slice mode
+    at 320). Returns the three `@d>128` rows (the errors the largest over
+    every width, the times d = 256 and n = 1024's)."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(23)
@@ -1413,13 +1424,14 @@ def check_flash_wide(dev, h: int = 4) -> dict:
                                    ("flash_attention_bwd", check_flash_bwd, bwd_cases)):
             rows[name + WIDE] = merge_rows(rows.get(name + WIDE),
                                            check(gen, dev, h, d, cases, WIDE_TIMED.get(d, 0)))
-    counts, seen = wide_kernel_launches(dev)
-    log(f"  one K7, K7-lse and K9 call at [2, 4, 1024, 256]: wrapper counts {counts}, kernels "
-        f"in a profiler trace {seen}")
-    if counts != {"flash_attention": 1, "flash_attention_lse": 1,
-                  "flash_attention_bwd": 1} or seen != WIDE_KERNELS:
-        raise AssertionError(f"wide mode launched {counts} / {seen}, expected one each of "
-                             f"{WIDE_KERNELS}")
+    for d, want in WIDE_KERNELS.items():
+        counts, seen = wide_kernel_launches(dev, d)
+        log(f"  one K7, K7-lse and K9 call at [2, 4, 1024, {d}]: wrapper counts {counts}, "
+            f"kernels in a profiler trace {seen}")
+        if counts != {"flash_attention": 1, "flash_attention_lse": 1,
+                      "flash_attention_bwd": 1} or seen != want:
+            raise AssertionError(f"d = {d} launched {counts} / {seen}, expected one each of "
+                                 f"{want}")
     return rows
 
 
@@ -5349,7 +5361,8 @@ D256_OTHER_DEPTH = 4  # E2TTS's depth at 4 x 256, cut to keep time
 
 def phase_head_width_wide(dev, gpu: str) -> tuple[dict, dict]:
     """Phase 26: head widths past 128 through the entry points, every
-    attention on K7's wide mode (its lse mode and K9 under grad). (a) DiT
+    attention on K7's wide mode, its native D = 256 kernel (its lse mode and
+    K9 under grad). (a) DiT
     d256 (F5TTS_v1_Base at 4 heads of 256, full width and depth) through
     `InferencePipeline.infer` at the 1024 bucket and the cap (K7 / K1 / K2
     352 / 720 / 32 a generate, K3 none), then the graphed generate against
@@ -5637,7 +5650,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("phase 26: head widths past 128: DiT d256 (F5TTS_v1_Base at 4 heads of 256) served "
-        "and trained, E2TTS at 4 x 256, every attention on K7 / K9's wide mode")
+        "and trained, E2TTS at 4 x 256, every attention on K7 / K9's native wide kernels")
     launches26, wide_rows = phase_head_width_wide(dev, gpu)
     log(f"  phase 26: {json.dumps(wide_rows)}")
     torch.cuda.empty_cache()

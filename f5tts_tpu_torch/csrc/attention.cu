@@ -5,7 +5,8 @@
 //  - the head width D, 64 or 128 (every mode at both; the JAX bodies take d
 //    in {64, 128}, attention.py:1189 / :1498 / :1714; the head layout's other
 //    widths up to 128 are zero-padded to one of them by the wrapper, and K7
-//    takes any d > 128 in its wide mode, below);
+//    takes d = 192 / 256 in its native wide kernels and any d > 128 in its
+//    slice mode, below);
 //  - layout: FLAT (qkv [b, n, 3*h*D], the fused to_qkv projection output,
 //    with flat cos/sin [>=n, h*D] bf16 tables: q and k are roped in the
 //    kernel) or HEAD (q, k, v [b, h, n, D] bf16, already normed and roped);
@@ -49,12 +50,17 @@
 //    scaled scores, every row of a live q tile (K9 reads the rows past the
 //    length too), -1e30 on the q tiles wholly past the length, for the
 //    backward K9 (csrc/attention_bwd.cu).
-//    flash_attn_wide_kernel and flash_attn_wide_lse_kernel: the same function
-//    at a head width d > 128 (d % 8 == 0; the Pallas bodies take any d), one
-//    launch. A block computes one slice of at most 128 output columns, its
-//    scores over the whole width (m = ceil(d / 64) sub-tile products), every
-//    operand streamed through one ring of 16 KB units, so shared memory does
-//    not grow with d (`wg_fwd_wide`).
+//    flash_attn_native_kernel and flash_attn_native_lse_kernel: the same
+//    function at D = 192 and 256 (the wrapper zero-pads d in (128, 256] to
+//    one of them), one launch: the q tile resident, K and V tiles through
+//    TMA stages, the scores of a tile computed once over the whole width
+//    (`fwd_native`). flash_attn_wide_kernel and flash_attn_wide_lse_kernel,
+//    the slice mode: any head width d > 128 (d % 8 == 0; the Pallas bodies
+//    take any d; the wrapper sends it d > 256), one launch. A block computes
+//    one slice of at most 128 output columns, its scores over the whole
+//    width (m = ceil(d / 64) sub-tile products), every operand streamed
+//    through one ring of 16 KB units, so shared memory does not grow with d
+//    (`wg_fwd_wide`).
 // K11 (HEAD + KMASK) masked_flash_attn_kernel: head-layout attention under a
 //    key mask. Replaces :1653 _flash_kernel_bias (behind :1706
 //    masked_flash_attention): MMDiT joint attention when the flat K5 cannot
@@ -423,7 +429,7 @@ __global__ void __launch_bounds__(FW_NT, FW_MINB(D)) masked_flash_attn_kernel(co
 }
 
 // ---------------------------------------------------------------------------
-// K7 wide: HEAD + LENGTH at a head width d > 128 (d % 8 == 0)
+// K7's slice mode: HEAD + LENGTH at a head width d > 128 (d % 8 == 0)
 // ---------------------------------------------------------------------------
 
 // A block computes the output columns [c0, c0 + 128) of its 64 q rows (one
@@ -526,6 +532,146 @@ __global__ void __launch_bounds__(FW_NT, 2) flash_attn_wide_kernel(const FwdWide
 }
 __global__ void __launch_bounds__(FW_NT, 2) flash_attn_wide_lse_kernel(const FwdWideArgs a) {
     wg_fwd_wide<true>(a);
+}
+
+// ---------------------------------------------------------------------------
+// K7 native wide: HEAD + LENGTH at D = 192 and 256
+// ---------------------------------------------------------------------------
+
+// The function of K7 at D = 192 and 256 (the wrapper zero-pads any d in
+// (128, 256] to one of them; d > 256 takes the slice mode above). A block
+// takes 64 q rows of one head, as the D <= 128 core does: its q tile is
+// copied once and stays resident, the scores of each (q tile, key tile) are
+// computed once over the whole width (S = Q K^T, D / 16 k-steps) and the
+// output as P V at the full width (m64nDk16), so the tensor work is the
+// function's. Warp-specialised: one consumer warpgroup and a producer warp,
+// whose lane 0 copies the q tile, then each key tile's K and V ([64][D]
+// each) into one of FWN_STAGES stages, by TMA ([64][64] boxes from the
+// tensors' maps, rows past n zero), completing on the stage's "full"
+// mbarrier; the consumer waits there once a tile and releases the stage on
+// its "empty" barrier after the tile's two products. One block an SM (~225
+// KB of shared memory at D = 256): [2, 4, 1024, 256] makes 128 blocks for
+// 132 SMs, where 128-row blocks would make 64. Measured (PERF.md §6): this
+// design (a) against (b), two consumer warpgroups taking alternate key
+// tiles of the same rows, merged at the end (a producer warp beside them
+// made a 288-thread block, which ptxas caps at 168 registers a thread, as a
+// 384-thread one: O spilled and the wgmma were serialised, note C7512, and
+// `setmaxnreg` did not lift the cap; with the consumers refilling their own
+// stages it was 3-4% slower at D = 256), and against the consumer refilling
+// each stage itself (20-30% slower: the copies' issue stalls its warp 0).
+#define FWN_NT 160  // the consumer warpgroup, then the producer warp
+#define FWN_STAGES(D) ((D) == 256 ? 3 : 4)
+#define FWN_TILE(D) ((D) / 64 * WG_TILE)
+// shared plan: the q tile, the stages of (K tile, V tile), the barriers (q,
+// then full and empty a stage)
+#define FWN_SMEM(D) \
+    (1024 + FWN_TILE(D) * (1 + 2 * FWN_STAGES(D)) + 8 * (1 + 2 * FWN_STAGES(D)))
+
+struct FwdNativeArgs {
+    CUtensorMap q, k, v;  // [b * h][n][D] bf16, normed and roped q and k (`head_tensor_map`)
+    const int* lengths;
+    bf16* out;
+    float* lse;  // the LSE mode
+    int n, heads;
+    float scale;
+};
+
+template <int D, bool LSE>
+__device__ __forceinline__ void fwd_native(const FwdNativeArgs& a) {
+    constexpr int TILE = FWN_TILE(D), STAGES = FWN_STAGES(D), NO = D / 2;
+    const int n = a.n;
+    const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
+    const int bh = b * a.heads + h;
+    // keys < len are live; a q tile wholly past the length walks no key tile
+    const int len = min(max(a.lengths[b], 0), n);
+    const int n_kt = q0 < len ? (len + 63) / 64 : 0;
+    uint8_t* smem = align1024(fw_smem);
+    const uint32_t sQ = smem_u32(smem), sStage = sQ + TILE;
+    const uint32_t bQ = sStage + 2 * STAGES * TILE, bFull = bQ + 8, bEmpty = bFull + 8 * STAGES;
+    init_stage_bars<STAGES>(bQ, 128);
+    // warp-uniform to ptxas: wgmma under a role branch it cannot prove
+    // uniform would be serialised (note C7520)
+    const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+    if (warp == 4) {  // the producer
+        if ((threadIdx.x & 31) == 0 && n_kt > 0) {
+            mbar_expect_tx(bQ, TILE);
+            tma_rows<D>(sQ, &a.q, q0, bh, bQ);
+            for (int kt = 0; kt < n_kt; ++kt) {
+                const int s = kt % STAGES, use = kt / STAGES;
+                if (use) mbar_wait(bEmpty + 8 * s, (use - 1) & 1);
+                mbar_expect_tx(bFull + 8 * s, 2 * TILE);
+                tma_rows<D>(sStage + 2 * s * TILE, &a.k, kt * 64, bh, bFull + 8 * s);
+                tma_rows<D>(sStage + (2 * s + 1) * TILE, &a.v, kt * 64, bh, bFull + 8 * s);
+            }
+        }
+        return;
+    }
+    const int tid = threadIdx.x, g = (tid & 31) >> 2, t4 = tid & 3;
+    const float to_log2 = a.scale * FW_LOG2E;
+    float o[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] = 0.f;
+    float m_run[2] = {FW_NEG, FW_NEG}, l_run[2] = {0.f, 0.f};
+    if (n_kt > 0) mbar_wait(bQ, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(bFull + 8 * s, (kt / STAGES) & 1);
+        const uint32_t sK = sStage + 2 * s * TILE, sV = sK + TILE;
+        float sc[32];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)  // S = Q K^T over the whole width
+            wgmma_ss<0>(sc, sw128_desc(kslice(sQ, kk)), sw128_desc(kslice(sK, kk)), kk);
+        wg_commit();
+        wg_wait0();
+        fence_regs(sc);
+        const int rem = len - kt * 64;  // key kt * 64 + i is bit i
+        const uint64_t bits = rem >= 64 ? ~0ull : (1ull << rem) - 1;
+        float alpha[2];
+        softmax_tile(sc, bits, t4, to_log2, m_run, l_run, alpha);
+#pragma unroll
+        for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) acc_to_a(pa[kc], sc, kc);
+        wg_fence();
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc)  // O += P V (V N-major: 16 keys a step)
+            wgmma_rs<1>(o, pa[kc], mn_desc<D>(sV + kc * 2048), 1);
+        wg_commit();
+        wg_wait0();
+        fence_regs(o);
+        mbar_arrive(bEmpty + 8 * s);
+    }
+
+    // quad-reduce l, normalise, write the rows (and the lse)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+        l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    }
+    const int row_lo = q0 + warp * 16 + g;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = row_lo + r * 8;
+        if (row >= n) continue;
+        const float inv = l_run[r] != 0.f ? 1.f / l_run[r] : 0.f;
+        if (LSE && t4 == 0)
+            a.lse[(size_t)bh * n + row] =
+                l_run[r] > 0.f ? m_run[r] * a.scale + logf(l_run[r]) : FW_NEG;
+        store_acc_row(a.out + ((size_t)bh * n + row) * D + t4 * 2, o, r, inv, D);
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(FWN_NT, 1)
+    flash_attn_native_kernel(const __grid_constant__ FwdNativeArgs a) {
+    fwd_native<D, false>(a);
+}
+template <int D>
+__global__ void __launch_bounds__(FWN_NT, 1)
+    flash_attn_native_lse_kernel(const __grid_constant__ FwdNativeArgs a) {
+    fwd_native<D, true>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -648,7 +794,7 @@ static FwdArgs head_args(const void* q, const void* k, const void* v, const void
     return a;
 }
 
-// K7's wide mode: one launch, a block a (64 q rows, head x slice, batch).
+// K7's slice mode: one launch, a block a (64 q rows, head x slice, batch).
 static int launch_fwd_wide(fwd_wide_kernel_t kernel, const void* q, const void* k,
                            const void* v, const void* lengths, void* out, void* lse, int b,
                            int n, int heads, int d, float scale, void* stream) {
@@ -663,11 +809,43 @@ static int launch_fwd_wide(fwd_wide_kernel_t kernel, const void* q, const void* 
     return (int)cudaGetLastError();
 }
 
-// K7 and its lse mode take any head width: 64 and 128 natively, d > 128
-// (d % 8 == 0) in the wide mode; any other returns cudaErrorInvalidValue.
+// K7's native wide kernels at D = 192 / 256: one launch, a block a (64 q
+// rows, head, batch), the tensor maps made here.
+template <int D>
+static int launch_fwd_native(bool lse_mode, const void* q, const void* k, const void* v,
+                             const void* lengths, void* out, void* lse, int b, int n, int heads,
+                             float scale, void* stream) {
+    if (b <= 0 || n <= 0) return (int)cudaGetLastError();
+    FwdNativeArgs a;
+    cudaError_t err;
+    if ((err = head_tensor_map(&a.q, q, b * heads, n, D)) != cudaSuccess ||
+        (err = head_tensor_map(&a.k, k, b * heads, n, D)) != cudaSuccess ||
+        (err = head_tensor_map(&a.v, v, b * heads, n, D)) != cudaSuccess)
+        return (int)err;
+    a.lengths = (const int*)lengths;
+    a.out = (bf16*)out;
+    a.lse = (float*)lse;
+    a.n = n;
+    a.heads = heads;
+    a.scale = scale;
+    void (*kernel)(FwdNativeArgs) =
+        lse_mode ? flash_attn_native_lse_kernel<D> : flash_attn_native_kernel<D>;
+    err = smem_limit_once((const void*)kernel, FW_SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((n + 63) / 64, heads, b);
+    kernel<<<grid, FWN_NT, FWN_SMEM(D), (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// K7 and its lse mode take any head width: 64 and 128 natively (the core),
+// 192 and 256 natively (the native wide kernels), any other d > 128 (d % 8
+// == 0) in the slice mode; any other returns cudaErrorInvalidValue.
 extern "C" int f5_flash_attn_bf16(const void* q, const void* k, const void* v,
                                   const void* lengths, void* out, int b, int n, int heads,
                                   int head_dim, float sm_scale, void* stream) {
+    if (head_dim == 256 || head_dim == 192)
+        return (head_dim == 256 ? launch_fwd_native<256> : launch_fwd_native<192>)(
+            false, q, k, v, lengths, out, nullptr, b, n, heads, sm_scale, stream);
     if (head_dim > 128)
         return launch_fwd_wide(flash_attn_wide_kernel, q, k, v, lengths, out, nullptr, b, n,
                                heads, head_dim, sm_scale, stream);
@@ -679,6 +857,9 @@ extern "C" int f5_flash_attn_bf16(const void* q, const void* k, const void* v,
 extern "C" int f5_flash_attn_lse_bf16(const void* q, const void* k, const void* v,
                                       const void* lengths, void* out, void* lse, int b, int n,
                                       int heads, int head_dim, float sm_scale, void* stream) {
+    if (head_dim == 256 || head_dim == 192)
+        return (head_dim == 256 ? launch_fwd_native<256> : launch_fwd_native<192>)(
+            true, q, k, v, lengths, out, lse, b, n, heads, sm_scale, stream);
     if (head_dim > 128)
         return launch_fwd_wide(flash_attn_wide_lse_kernel, q, k, v, lengths, out, lse, b, n,
                                heads, head_dim, sm_scale, stream);

@@ -2,9 +2,13 @@
 // (head-layout dq/dk/dv from a saved row lse), three modes of one core, each
 // at the head width D = 64 and 128 (the JAX bodies' d in {64, 128},
 // attention.py:1189 / :1628; K9's other widths up to 128 are zero-padded by
-// the wrapper). K9 takes any d > 128 in its wide mode (the kernels
-// flash_bwd_wide_*, at the end of this file): one 128-column output slice a
-// block, the scores over the whole width, every operand streamed.
+// the wrapper). K9 takes d = 192 / 256 in its native wide kernels
+// (flash_bwd_native_*: the scores of a tile computed once over the whole
+// width, the resident tiles copied once, the streamed ones through TMA
+// stages; the wrapper zero-pads d in (128, 256] to one of them) and any d >
+// 128 in its slice mode (flash_bwd_wide_*: one 128-column output slice a
+// block, the scores over the whole width, every operand streamed), both at
+// the end of this file.
 //
 // K4: dQKV of K3 (fused QKV + interleaved RoPE + length-masked attention), flat layout.
 // Replaces f5tts_tpu/ops/attention.py:886 _fused_qkv_bwd_kernel (n <= 1024) and
@@ -580,7 +584,7 @@ __global__ void __launch_bounds__(BW_NT, BW_MINB_OF(D)) flash_bwd_dq_kernel(cons
 }
 
 // ---------------------------------------------------------------------------
-// K9 wide: the head-layout backward at a head width d > 128 (d % 8 == 0)
+// K9's slice mode: the head-layout backward at a head width d > 128 (d % 8 == 0)
 // ---------------------------------------------------------------------------
 
 // The function of K9 at d > 128. A block computes one slice of at most 128
@@ -806,6 +810,259 @@ __global__ void __launch_bounds__(BWW_NT, 2) flash_bwd_wide_dq_kernel(const BwdW
 }
 
 // ---------------------------------------------------------------------------
+// K9 native wide: the head-layout backward at D = 192 and 256
+// ---------------------------------------------------------------------------
+
+// The function of K9 at D = 192 and 256 (the wrapper zero-pads any d in
+// (128, 256] to one of them; d > 256 takes the slice mode above). Three
+// launches, no atomics: delta (`flash_bwd_wide_delta_kernel`), dk/dv and dq,
+// each product of the two kernels computed once over the whole width. The
+// copies are TMA copies through stages with "full" / "empty" mbarriers, as
+// K7's native kernel makes them: a warpgroup waits once a tile.
+//  - dk/dv: a block 64 keys, K and V resident; each q tile (q and dO) streams
+//    in once through BWN_DKV_STAGES stages. dk and dv [64][D] f32 together
+//    pass a thread's registers, so two warpgroups split them: A computes
+//    s^T = K q^T, p^T and dv += p^T dO; B computes dp^T = V dO^T, takes A's
+//    p^T (f32, in the accumulator layout) through shared memory under two
+//    named barriers, forms ds^T and dk += ds^T q, and refills the stage
+//    once both are done with it (its thread 0: no producer warp, since
+//    beside two warpgroups one makes a 288-thread block, which ptxas caps
+//    at 168 registers a thread: dk and dv spilled). Each thread reads its
+//    16 q columns' lse (A) or delta (B) from global memory while its first
+//    product runs.
+//  - dq: a block 64 q rows, q and dO resident; each key tile (K, V) streams
+//    in once through BWN_DQ_STAGES stages, copied by a producer warp as
+//    K7's; one warpgroup computes s = q K^T, dp = dO V^T and dq += ds K.
+// One block an SM (~210 / ~193 KB of shared memory at D = 256).
+#define BWN_TILE(D) ((D) / 64 * WG_TILE)
+#define BWN_DKV_STAGES(D) ((D) == 256 ? 2 : 3)
+#define BWN_DQ_STAGES(D) ((D) == 256 ? 2 : 3)
+#define BWN_DKV_NT 256              // warpgroups A and B
+#define BWN_DQ_NT 160               // the consumer warpgroup, then the producer warp
+#define BWN_P_BYTES (128 * 32 * 4)  // p^T from warpgroup A to B: 32 f32 a thread
+#define BWN_P_FULL 1                // named barriers of the p^T hand-over
+#define BWN_P_FREE 2
+// dk/dv: K, V, the stages of (q, dO), p^T, the barriers (K / V, then full
+// and empty a stage); dq: q, dO, the stages of (K, V), the barriers
+#define BWN_DKV_SMEM(D)                                                  \
+    (1024 + BWN_TILE(D) * (2 + 2 * BWN_DKV_STAGES(D)) + BWN_P_BYTES + \
+     8 * (1 + 2 * BWN_DKV_STAGES(D)))
+#define BWN_DQ_SMEM(D) \
+    (1024 + BWN_TILE(D) * (2 + 2 * BWN_DQ_STAGES(D)) + 8 * (1 + 2 * BWN_DQ_STAGES(D)))
+
+struct BwdNativeArgs {
+    CUtensorMap q, k, v, dout;  // [b * h][n][D] bf16 (`head_tensor_map`), roped q and k
+    const int* lengths;
+    const float *lse, *delta;
+    bf16 *dq, *dk, *dv;
+    int n, heads;
+    float scale;
+};
+
+template <int D>
+__global__ void __launch_bounds__(BWN_DKV_NT, 1)
+    flash_bwd_native_dkdv_kernel(const __grid_constant__ BwdNativeArgs a) {
+    constexpr int TILE = BWN_TILE(D), STAGES = BWN_DKV_STAGES(D), NA = D / 2;
+    const int n = a.n;
+    const int k0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
+    const int bh = b * a.heads + h;
+    const int len = min(max(a.lengths[b], 0), n);
+    // the q tiles up to the length (those past it are dead by K7's lse); a
+    // key block wholly past the length walks none: its dk and dv are zeros
+    const int n_qt = k0 < len ? (len + 63) / 64 : 0;
+    uint8_t* smem = align1024(bw_smem);
+    const uint32_t sK = smem_u32(smem), sV = sK + TILE, sStage = sV + TILE;
+    float* sP = reinterpret_cast<float*>(smem + (2 + 2 * STAGES) * TILE);
+    const uint32_t bKV = smem_u32(sP) + BWN_P_BYTES, bFull = bKV + 8, bEmpty = bFull + 8 * STAGES;
+    init_stage_bars<STAGES>(bKV, 256);  // both warpgroups read every stage
+    // warpgroup 0 (A): s^T, p^T, dv; warpgroup 1 (B): dp^T, ds^T, dk. The two
+    // accumulators of a thread hold the same (key, query) entries.
+    const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);  // uniform to ptxas
+    const int tid = threadIdx.x & 127;
+    const int g = (tid & 31) >> 2, t4 = tid & 3;
+    auto load_q = [&](int qt, int s) {
+        mbar_expect_tx(bFull + 8 * s, 2 * TILE);
+        tma_rows<D>(sStage + 2 * s * TILE, &a.q, qt * 64, bh, bFull + 8 * s);
+        tma_rows<D>(sStage + (2 * s + 1) * TILE, &a.dout, qt * 64, bh, bFull + 8 * s);
+    };
+    if (threadIdx.x == 0 && n_qt > 0) {
+        mbar_expect_tx(bKV, 2 * TILE);
+        tma_rows<D>(sK, &a.k, k0, bh, bKV);
+        tma_rows<D>(sV, &a.v, k0, bh, bKV);
+        for (int qt = 0; qt < STAGES && qt < n_qt; ++qt) load_q(qt, qt);
+    }
+
+    const int key_lo = k0 + (tid >> 5) * 16 + g;  // this thread's rows are keys
+    const bool key_live[2] = {key_lo < len, key_lo + 8 < len};
+    const float scale2 = a.scale * BW_LOG2E;  // p = 2^(s * scale * log2(e) - lse * log2(e))
+    const uint32_t aS = wg == 0 ? sK : sV;     // A of the scores product
+    // A reads the q rows' lse, B their delta; a row past n is dead (lse
+    // -1e30) and adds nothing
+    const float* rowv = (wg == 0 ? a.lse : a.delta) + (size_t)bh * n;
+    const float past_n = wg == 0 ? -1e30f : 0.f;
+    float acc[NA];
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+    if (n_qt > 0) {
+        mbar_wait(bKV, 0);
+        if (wg == 1) bar_arrive(BWN_P_FREE, 256);  // p^T's buffer starts free
+    }
+    for (int qt = 0; qt < n_qt; ++qt) {
+        const int s = qt % STAGES, parity = (qt / STAGES) & 1, q0 = qt * 64;
+        mbar_wait(bFull + 8 * s, parity);
+        const uint32_t sQ = sStage + 2 * s * TILE, sO = sQ + TILE;
+        float t[32];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)  // A: s^T = K q^T; B: dp^T = V dO^T
+            wgmma_ss<0>(t, sw128_desc(kslice(aS, kk)), sw128_desc(kslice(wg == 0 ? sQ : sO, kk)),
+                        kk);
+        wg_commit();
+        float rv[16];  // at this thread's q columns (i >> 1) * 8 + t4 * 2 + (i & 1)
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+            const int row = q0 + (i >> 1) * 8 + t4 * 2 + (i & 1);
+            rv[i] = row < n ? rowv[row] : past_n;
+        }
+        wg_wait0();
+        fence_regs(t);
+        if (wg == 0) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+                const float l = rv[(i >> 2) * 2 + (i & 1)];
+                t[i] = key_live[(i >> 1) & 1] && l > BW_DEAD
+                           ? exp2f(fmaf(t[i], scale2, -l * BW_LOG2E))
+                           : 0.f;
+            }
+            bar_sync(BWN_P_FREE, 256);
+#pragma unroll
+            for (int i = 0; i < 32; ++i) sP[i * 128 + tid] = t[i];
+            bar_arrive(BWN_P_FULL, 256);
+        } else {
+            bar_sync(BWN_P_FULL, 256);
+#pragma unroll
+            for (int i = 0; i < 32; ++i)
+                t[i] = sP[i * 128 + tid] * (t[i] - rv[(i >> 2) * 2 + (i & 1)]);
+            if (qt + 1 < n_qt) bar_arrive(BWN_P_FREE, 256);
+        }
+        uint32_t fa[4][4];
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) acc_to_a(fa[kc], t, kc);
+        const uint32_t bM = wg == 0 ? sO : sQ;  // A: dv += p^T dO; B: dk += ds^T q
+        wg_fence();
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(acc, fa[kc], mn_desc<D>(bM + kc * 2048), 1);
+        wg_commit();
+        wg_wait0();
+        fence_regs(acc);
+        mbar_arrive(bEmpty + 8 * s);
+        if (wg == 1 && tid == 0 && qt + STAGES < n_qt) {  // B, the later reader, refills
+            mbar_wait(bEmpty + 8 * s, parity);
+            load_q(qt + STAGES, s);
+        }
+    }
+    bf16* dst = (wg == 0 ? a.dv : a.dk) + (size_t)bh * n * D;
+    const float sc = wg == 0 ? 1.f : a.scale;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = key_lo + r * 8;
+        if (row < n) store_acc_row(dst + (size_t)row * D + t4 * 2, acc, r, sc, D);
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(BWN_DQ_NT, 1)
+    flash_bwd_native_dq_kernel(const __grid_constant__ BwdNativeArgs a) {
+    constexpr int TILE = BWN_TILE(D), STAGES = BWN_DQ_STAGES(D), NA = D / 2;
+    const int n = a.n;
+    const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
+    const int bh = b * a.heads + h;
+    const int len = min(max(a.lengths[b], 0), n);
+    // a q tile wholly past the length (K7 wrote its lse dead) walks no key
+    // tile: its dq is written as zeros
+    const int n_kt = q0 < len ? (len + 63) / 64 : 0;
+    uint8_t* smem = align1024(bw_smem);
+    const uint32_t sQ = smem_u32(smem), sO = sQ + TILE, sStage = sO + TILE;
+    const uint32_t bQO = sStage + 2 * STAGES * TILE, bFull = bQO + 8, bEmpty = bFull + 8 * STAGES;
+    init_stage_bars<STAGES>(bQO, 128);
+    const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);  // uniform to ptxas
+    if (warp == 4) {  // the producer
+        if ((threadIdx.x & 31) == 0 && n_kt > 0) {
+            mbar_expect_tx(bQO, 2 * TILE);
+            tma_rows<D>(sQ, &a.q, q0, bh, bQO);
+            tma_rows<D>(sO, &a.dout, q0, bh, bQO);
+            for (int kt = 0; kt < n_kt; ++kt) {
+                const int s = kt % STAGES, use = kt / STAGES;
+                if (use) mbar_wait(bEmpty + 8 * s, (use - 1) & 1);
+                mbar_expect_tx(bFull + 8 * s, 2 * TILE);
+                tma_rows<D>(sStage + 2 * s * TILE, &a.k, kt * 64, bh, bFull + 8 * s);
+                tma_rows<D>(sStage + (2 * s + 1) * TILE, &a.v, kt * 64, bh, bFull + 8 * s);
+            }
+        }
+        return;
+    }
+    const int tid = threadIdx.x, g = (tid & 31) >> 2, t4 = tid & 3;
+    const int row_lo = q0 + warp * 16 + g;  // this thread's rows are queries
+    const float scale2 = a.scale * BW_LOG2E;
+    float lse2[2], dlt[2];
+    bool row_live[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = row_lo + r * 8;
+        const float l = row < n ? a.lse[(size_t)bh * n + row] : 0.f;
+        row_live[r] = row < n && l > BW_DEAD;
+        lse2[r] = row_live[r] ? l * BW_LOG2E : 0.f;
+        dlt[r] = row_live[r] ? a.delta[(size_t)bh * n + row] : 0.f;
+    }
+    float dq[NA];
+#pragma unroll
+    for (int i = 0; i < NA; ++i) dq[i] = 0.f;
+    if (n_kt > 0) mbar_wait(bQO, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(bFull + 8 * s, (kt / STAGES) & 1);
+        const uint32_t sK = sStage + 2 * s * TILE, sV = sK + TILE;
+        float sc[32], dp[32];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)  // s = q K^T: 64 queries x 64 keys
+            wgmma_ss<0>(sc, sw128_desc(kslice(sQ, kk)), sw128_desc(kslice(sK, kk)), kk);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)  // dp = dO V^T
+            wgmma_ss<0>(dp, sw128_desc(kslice(sO, kk)), sw128_desc(kslice(sV, kk)), kk);
+        wg_commit();
+        wg_wait0();
+        fence_regs(sc);
+        fence_regs(dp);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            const int key = kt * 64 + (i >> 2) * 8 + t4 * 2 + (i & 1);
+            const int r = (i >> 1) & 1;
+            const float p =
+                (key < len && row_live[r]) ? exp2f(fmaf(sc[i], scale2, -lse2[r])) : 0.f;
+            sc[i] = p * (dp[i] - dlt[r]);
+        }
+        uint32_t da[4][4];
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) acc_to_a(da[kc], sc, kc);
+        wg_fence();
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc)  // dq += ds K (K N-major: 16 keys a step)
+            wgmma_rs<1>(dq, da[kc], mn_desc<D>(sK + kc * 2048), 1);
+        wg_commit();
+        wg_wait0();
+        fence_regs(dq);
+        mbar_arrive(bEmpty + 8 * s);
+    }
+    bf16* dst = a.dq + (size_t)bh * n * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = row_lo + r * 8;
+        if (row < n) store_acc_row(dst + (size_t)row * D + t4 * 2, dq, r, a.scale, D);
+    }
+}
+
+// ---------------------------------------------------------------------------
 // Launch: prologue, dk/dv, dq on the caller's stream
 // ---------------------------------------------------------------------------
 
@@ -894,7 +1151,7 @@ extern "C" int f5_fused_qkv_rope_attn_bias_bwd_bf16(const void* qkv, const void*
                       head_dim, stream);
 }
 
-// K9's wide mode: delta, dk/dv, dq; a block a (64 rows, head x slice, batch).
+// K9's slice mode: delta, dk/dv, dq; a block a (64 rows, head x slice, batch).
 static int launch_bwd_wide(const void* q, const void* k, const void* v, const void* lengths,
                            const void* o, const void* lse, const void* dout, void* dq, void* dk,
                            void* dv, void* delta, int b, int n, int heads, int d, float scale,
@@ -921,13 +1178,61 @@ static int launch_bwd_wide(const void* q, const void* k, const void* v, const vo
     return (int)cudaGetLastError();
 }
 
-// K9 takes any head width: 64 and 128 natively, d > 128 (d % 8 == 0) in the
-// wide mode; any other returns cudaErrorInvalidValue.
+// K9's native wide kernels at D = 192 / 256: delta (the slice mode's
+// kernel), dk/dv, dq; a block a (64 rows, head, batch).
+template <int D>
+static int launch_bwd_native(const void* q, const void* k, const void* v, const void* lengths,
+                             const void* o, const void* lse, const void* dout, void* dq,
+                             void* dk, void* dv, void* delta, int b, int n, int heads,
+                             float scale, void* stream) {
+    if (b <= 0 || n <= 0) return (int)cudaGetLastError();
+    cudaStream_t s = (cudaStream_t)stream;
+    const BwdWideArgs w = {(const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lengths,
+                           (const bf16*)o, (const bf16*)dout, (const float*)lse, (float*)delta,
+                           (bf16*)dq, (bf16*)dk, (bf16*)dv, b, n, heads, D, scale};
+    const long long rows = (long long)b * heads * n;
+    flash_bwd_wide_delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(w);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    BwdNativeArgs a;
+    if ((err = head_tensor_map(&a.q, q, b * heads, n, D)) != cudaSuccess ||
+        (err = head_tensor_map(&a.k, k, b * heads, n, D)) != cudaSuccess ||
+        (err = head_tensor_map(&a.v, v, b * heads, n, D)) != cudaSuccess ||
+        (err = head_tensor_map(&a.dout, dout, b * heads, n, D)) != cudaSuccess)
+        return (int)err;
+    a.lengths = (const int*)lengths;
+    a.lse = (const float*)lse;
+    a.delta = (const float*)delta;
+    a.dq = (bf16*)dq;
+    a.dk = (bf16*)dk;
+    a.dv = (bf16*)dv;
+    a.n = n;
+    a.heads = heads;
+    a.scale = scale;
+    if ((err = smem_limit_once((const void*)flash_bwd_native_dkdv_kernel<D>, BW_SMEM_MAX)) !=
+            cudaSuccess ||
+        (err = smem_limit_once((const void*)flash_bwd_native_dq_kernel<D>, BW_SMEM_MAX)) !=
+            cudaSuccess)
+        return (int)err;
+    dim3 grid((n + 63) / 64, heads, b);
+    flash_bwd_native_dkdv_kernel<D><<<grid, BWN_DKV_NT, BWN_DKV_SMEM(D), s>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_native_dq_kernel<D><<<grid, BWN_DQ_NT, BWN_DQ_SMEM(D), s>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// K9 takes any head width: 64 and 128 natively (the core), 192 and 256
+// natively (the native wide kernels), any other d > 128 (d % 8 == 0) in the
+// slice mode; any other returns cudaErrorInvalidValue.
 extern "C" int f5_flash_attn_bwd_bf16(const void* q, const void* k, const void* v,
                                       const void* lengths, const void* o, const void* lse,
                                       const void* dout, void* dq, void* dk, void* dv,
                                       void* delta, int b, int n, int heads, int head_dim,
                                       float scale, void* stream) {
+    if (head_dim == 256 || head_dim == 192)
+        return (head_dim == 256 ? launch_bwd_native<256> : launch_bwd_native<192>)(
+            q, k, v, lengths, o, lse, dout, dq, dk, dv, delta, b, n, heads, scale, stream);
     if (head_dim > 128) return launch_bwd_wide(q, k, v, lengths, o, lse, dout, dq, dk, dv, delta,
                                                b, n, heads, head_dim, scale, stream);
     BwdArgs a = {};

@@ -1,15 +1,18 @@
 // Hopper building blocks shared by the wgmma kernels (K3, K5, K7 and K11 in
 // attention.cu; K4, K8 and K9 in attention_bwd.cu; K10 in grouped_conv.cu):
-// cp.async copies into 128-byte-swizzled shared tiles, the wgmma descriptors,
-// fences and products on 64 x 64 and 64 x 128 bf16 tiles, and the
-// accumulator repack.
+// cp.async and TMA copies into 128-byte-swizzled shared tiles, mbarriers and
+// named barriers, the wgmma descriptors, fences and products on 64 x 64 to
+// 64 x 256 bf16 tiles, and the accumulator repack.
 //
-// A [64][D] bf16 tile of the head width D (64 or 128) lies as D / 64 halves
-// of 64 columns, WG_TILE bytes apart, each 128-byte swizzled (a 256-byte row
-// fits no swizzle atom): 16-byte chunk c of row r is at (c / 8) * WG_TILE +
-// sw128_off(r, c % 8). A K-major operand's 16-deep slice kk is `kslice`; an
-// N-major operand spans the halves through its descriptor's leading offset.
+// A [64][D] bf16 tile of the head width D (64, 128, 192 or 256) lies as D /
+// 64 halves of 64 columns, WG_TILE bytes apart, each 128-byte swizzled (a
+// row of more than 128 bytes fits no swizzle atom): 16-byte chunk c of row r
+// is at (c / 8) * WG_TILE + sw128_off(r, c % 8). A K-major operand's 16-deep
+// slice kk is `kslice`; an N-major operand spans the halves through its
+// descriptor's leading offset.
 #pragma once
+
+#include <cuda.h>
 
 #include "common.cuh"
 
@@ -149,8 +152,8 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
 }
 
 // The descriptor of an N-major B operand of a [64][D] tile (its rows the K
-// dimension): at D = 64 `sw128_desc`; at D = 128 the leading offset is the
-// WG_TILE bytes between the two 64-column halves, the swizzle atoms along N.
+// dimension): at D = 64 `sw128_desc`; at D >= 128 the leading offset is the
+// WG_TILE bytes between the 64-column halves, the swizzle atoms along N.
 template <int D>
 __device__ __forceinline__ uint64_t mn_desc(uint32_t addr) {
     if constexpr (D == 64) return sw128_desc(addr);
@@ -243,6 +246,68 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
+#define WG_D96 \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+    "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, " \
+    "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+    "%55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, " \
+    "%73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, " \
+    "%91, %92, %93, %94, %95}"
+#define WG_OUT96(d) \
+    WG_OUT64(d), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), \
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), \
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), \
+        "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), \
+        "+f"(d[94]), "+f"(d[95])
+#define WG_D128 \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+    "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, " \
+    "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+    "%55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, " \
+    "%73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, " \
+    "%91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, " \
+    "%107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, " \
+    "%122, %123, %124, %125, %126, %127}"
+#define WG_OUT128(d) \
+    WG_OUT64(d), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), \
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), \
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), \
+        "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), \
+        "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), \
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), \
+        "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), \
+        "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), \
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+
+// d[64 x 192] and d[64 x 256] (+)= A[64 x 16] B[16 x N], A from registers,
+// B an N-major [64][N] tile (`mn_desc<N>`: its leading offset spans the N /
+// 64 halves): the native wide kernels' O += P V, dv, dk and dq products at
+// the head width N. The accumulator layout of the 64-wide product, N / 8
+// column groups.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " WG_D96
+        ", {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+        : WG_OUT96(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WG_D128
+        ", {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+        : WG_OUT128(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
 // Columns 16kc .. 16kc + 15 of a 64 x 64 accumulator as bf16 A fragments.
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[32], int kc) {
     a[0] = pack_bf16x2(d[8 * kc], d[8 * kc + 1]);
@@ -311,4 +376,116 @@ __device__ __forceinline__ void mask_bits(uint32_t* words, const uint8_t* km, in
         const unsigned bits = __ballot_sync(0xffffffffu, key < n && km[key]);
         if (lane == 0) words[base >> 5] = bits;
     }
+}
+
+// ---------------------------------------------------------------------------
+// TMA, mbarriers and named barriers: the native wide kernels (K7 / K9 at D =
+// 192 and 256). One thread copies a whole tile (`tma_rows`, completion
+// counted in bytes on a stage's "full" mbarrier); the warpgroups wait on it
+// once a tile, and arrive on the stage's "empty" barrier when done with it,
+// where the thread that refills the stage waits.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// After the inits, before any thread or copy uses the barriers.
+__device__ __forceinline__ void mbar_init_fence() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// One arrival that also expects `bytes` of copies to complete on the barrier.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait until the barrier's phase of parity `parity` has completed. A wait
+// that outlasts ~2^28 polls (seconds) traps: a kernel fault the launch
+// reports, not a card that never finishes.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+    uint32_t done, polls = 0;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+        if (++polls == (1u << 28)) __trap();
+    } while (!done);
+}
+
+// The barriers of a native kernel's plan at `bar`: one for its resident
+// tiles (count 1), then STAGES "full" (count 1) and STAGES "empty" (count
+// `readers`), initialised by thread 0 before the block's first barrier.
+template <int STAGES>
+__device__ __forceinline__ void init_stage_bars(uint32_t bar, int readers) {
+    if (threadIdx.x == 0) {
+        mbar_init(bar, 1);
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(bar + 8 + 8 * s, 1);
+            mbar_init(bar + 8 + 8 * (STAGES + s), readers);
+        }
+        mbar_init_fence();
+    }
+    __syncthreads();
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads') over `threads` threads:
+// `bar_sync` waits for them, `bar_arrive` counts this thread's arrival
+// (its earlier shared-memory writes visible to the waiters) and goes on.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Rows [row0, row0 + 64) of slice `bh` of a [b * h][n][D] bf16 tensor (its
+// `head_tensor_map`) into a [64][D] tile at dst (the D / 64 swizzled halves of
+// `tile_off`: TMA's 128-byte swizzle is wgmma's), D / 64 copies of a [64][64]
+// box completing on `bar`; rows at or past n arrive as zeros.
+template <int D>
+__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map, int row0, int bh,
+                                         uint32_t bar) {
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+        asm volatile(
+            "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+            "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst + c * WG_TILE),
+            "l"(reinterpret_cast<uint64_t>(map)), "r"(c * 64), "r"(row0), "r"(bh), "r"(bar)
+            : "memory");
+}
+
+// Host: the TMA map of a contiguous [bh][n][d] bf16 tensor at `base` (d % 64
+// == 0): [64][64] boxes, 128-byte swizzle, rows past n read as zeros.
+// cuTensorMapEncodeTiled is the driver's; its address is asked of the
+// runtime once.
+inline cudaError_t head_tensor_map(CUtensorMap* map, const void* base, int bh, int n, int d) {
+    typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                               CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+    static Encode encode = nullptr;
+    static std::once_flag once;
+    std::call_once(once, [] {
+        void* fn = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) ==
+                cudaSuccess &&
+            found == cudaDriverEntryPointSuccess)
+            encode = (Encode)fn;
+    });
+    if (!encode) return cudaErrorNotSupported;
+    const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh};
+    const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};
+    const cuuint32_t box[3] = {64, 64, 1}, step[3] = {1, 1, 1};
+    const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                              dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

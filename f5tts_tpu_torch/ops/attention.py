@@ -78,9 +78,12 @@ take more than the Pallas bodies: K3 any n up to FLAT_ATTN_MAX_N, K5 and
 K11 every n (JAX asks n % 128 == 0, and n <= FLAT_ATTN_MAX_N of K5 / K11,
 and takes its XLA formulas of the same function elsewhere). The head
 layout K7 / K9, whose Pallas body takes any d, takes any d too: 64 and 128
-natively, any other width up to 128 zero-padded to the next of them, and d
-> 128 in their wide mode (`flash_attn_wide_*` / `flash_bwd_wide_*`: a block
-a 128-column slice of the output, the scores over the whole width; a width
+natively, any other width up to 128 zero-padded to the next of them, 192
+and 256 natively in their native wide kernels (`flash_attn_native_*` /
+`flash_bwd_native_*`: the scores of a tile computed once over the whole
+width), any other width up to 256 zero-padded to the next of those, and d >
+256 in their slice mode (`flash_attn_wide_*` / `flash_bwd_wide_*`: a block a
+128-column slice of the output, the scores over the whole width; a width
 that is no multiple of WIDE_ALIGN is zero-padded to one), all through
 `_kernel_width`.
 """
@@ -103,7 +106,8 @@ NEG_INF = -1e30
 # wholly past the length), as the Pallas backward tests lse > NEG_INF / 2
 DEAD_LSE = NEG_INF / 2
 HEAD_DIMS = (64, 128)  # the head widths the kernels are instantiated at
-WIDE_ALIGN = 8  # K7 / K9's wide mode (d > 128) takes a multiple of 8 (16-byte rows)
+NATIVE_WIDE_DIMS = (192, 256)  # K7 / K9's native wide kernels
+WIDE_ALIGN = 8  # K7 / K9's slice mode (d > 256) takes a multiple of 8 (16-byte rows)
 Q_TILE = 64    # K3's and K7's q tile: tiles wholly past the length are dead
 # the longest sequence the JAX package sends through its flat kernels; past
 # it `self_attention` splits heads for K7, as the JAX gate does
@@ -552,12 +556,15 @@ def _live_tiles(lengths, n: int) -> torch.Tensor:
     return tile0[None, :] < lengths[:, None]
 
 
-def flash_attention_fwd_ref(q, k, v, lengths, return_lse: bool = False):
+def flash_attention_fwd_ref(q, k, v, lengths, return_lse: bool = False,
+                            scale: Optional[float] = None):
     """K7's function: `mha_reference` with the q tiles wholly past the length
     written as 0; with `return_lse`, also the row lse [b, h, n] f32 of the
-    scaled scores (log-sum-exp over keys < length), NEG_INF on those tiles."""
+    scaled scores (log-sum-exp over keys < length), NEG_INF on those tiles.
+    `scale` is 1/sqrt(d) unless given (the true d's, at a padded width)."""
     n, d = q.shape[-2], q.shape[-1]
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     kmask = torch.arange(n, device=q.device)[None, :] < lengths[:, None]
     scores = torch.where(kmask[:, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
@@ -569,15 +576,17 @@ def flash_attention_fwd_ref(q, k, v, lengths, return_lse: bool = False):
     return o, torch.where(live, torch.logsumexp(scores, dim=-1), NEG_INF)
 
 
-def flash_attention_bwd_ref(q, k, v, lengths, o, lse, dout) -> tuple:
+def flash_attention_bwd_ref(q, k, v, lengths, o, lse, dout,
+                            scale: Optional[float] = None) -> tuple:
     """(dq, dk, dv) of the head-layout attention from the saved row lse (K9's
     function, the Pallas backward bodies'): rows with lse <= DEAD_LSE and keys
     >= length get p = 0, else p = exp(s * scale - lse); delta = rowsum(dO *
     O) in f32; ds = p * (dp - delta); p and ds rounded to q's dtype before
     dv = p^T dO, dk = ds^T q * scale and dq = ds k * scale. One head at a
-    time, so no [b, h, n, n] tensor exists."""
+    time, so no [b, h, n, n] tensor exists. `scale` is 1/sqrt(d) unless
+    given (the true d's, at a padded width)."""
     b, h, n, d = q.shape
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     dt = q.dtype
     delta = (dout.float() * o.float()).sum(dim=-1, keepdim=True)
     key_live = (torch.arange(n, device=q.device)[None, :] < lengths[:, None])[:, None, :]
@@ -606,14 +615,16 @@ def _check_heads(*tensors, widths=HEAD_DIMS):
 
 
 def _kernel_width(d: int) -> int:
-    """The width K7 / K9 run a head of width d at: d itself for 64 and 128,
-    the next of them for any other d up to 128, and past 128 (the wide mode)
-    d rounded up to a multiple of WIDE_ALIGN."""
+    """The width K7 / K9 run a head of width d at: d itself for 64, 128, 192
+    and 256, the next of them for any other d up to 256 (d in (128, 256]
+    runs the native wide kernels: padded to 192 or 256 they are faster than
+    the slice mode at d itself, `PERF.md` §6), and past 256 (the slice
+    mode) d rounded up to a multiple of WIDE_ALIGN."""
     if d <= 0:
         raise ValueError(f"flash attention kernel takes a positive head width: d = {d}")
-    if d > HEAD_DIMS[-1]:
+    if d > NATIVE_WIDE_DIMS[-1]:
         return -(-d // WIDE_ALIGN) * WIDE_ALIGN
-    return next(w for w in HEAD_DIMS if d <= w)
+    return next(w for w in HEAD_DIMS + NATIVE_WIDE_DIMS if d <= w)
 
 
 def _pad_heads(width: int, *tensors) -> list:
@@ -628,12 +639,13 @@ def flash_attention_fwd(q, k, v, lengths, return_lse: bool = False):
     (and with `return_lse` the row lse [b, h, n] f32). Kernel K7 on CUDA (its
     lse mode with `return_lse`), `flash_attention_fwd_ref` on the CPU.
 
-    K7 is instantiated at d = 64 and 128; d > 128 runs its wide mode. Any
-    other width runs at `_kernel_width(d)`: q, k and v zero-padded on the
-    way in, the output sliced on the way out, the scale still 1/sqrt(d) of
-    the true d. The padded lanes of q and k add exact zeros to every score
-    and those of v give output lanes that are dropped, so the scores, the
-    softmax, the lse and the kept output are the unpadded ones."""
+    K7 is instantiated at d = 64, 128, 192 and 256 (the last two its native
+    wide kernels); d > 256 runs its slice mode. Any other width runs at
+    `_kernel_width(d)`: q, k and v zero-padded on the way in, the output
+    sliced on the way out, the scale still 1/sqrt(d) of the true d. The
+    padded lanes of q and k add exact zeros to every score and those of v
+    give output lanes that are dropped, so the scores, the softmax, the lse
+    and the kept output are the unpadded ones."""
     if _device("flash_attention", q) == "cpu":
         return flash_attention_fwd_ref(q, k, v, lengths, return_lse)
     d = q.shape[-1]
@@ -661,8 +673,9 @@ def flash_attention_fwd(q, k, v, lengths, return_lse: bool = False):
 def flash_attention_bwd(q, k, v, lengths, o, lse, dout) -> tuple:
     """(dq, dk, dv) [b, h, n, d] of `flash_attention` from its saved output o
     and row lse, for the incoming gradient dout. Kernel K9 on CUDA, plain on
-    the CPU; d > 128 runs K9's wide mode. A width the kernel does not take
-    as it is runs zero-padded as the forward does (`_kernel_width`): the
+    the CPU; d = 192 / 256 run K9's native wide kernels, d > 256 its slice
+    mode. A width the kernel does not take as it is runs zero-padded as the
+    forward does (`_kernel_width`): the
     padded lanes of q, k, v, o and dO are zeros, so delta, p and ds are the
     unpadded ones, and the kept lanes of dq, dk and dv too."""
     if _device("flash_attention_bwd", q) == "cpu":

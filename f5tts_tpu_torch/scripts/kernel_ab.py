@@ -43,8 +43,10 @@ K7 lse mode.
 Shapes: chip_smoke's phase 2, b = 2, h = 16, d = 64 (with `--head-dim`,
 repeatable, each attention kernel at each width d and 1024 / d heads, the
 same h*d: 8 x 128 is DiT d128's, 4 x 256 DiT d256's; past 128 only the head
-layout K7, K7_lse and K9 take it, in their wide mode, which a source before
-it refuses): K3 and K3_lse at n =
+layout K7, K7_lse and K9 take it, in their wide modes, which an older
+source refuses; this checkout's build runs a d its wrapper pads, d in (128,
+256] off 192 / 256, zero-padded as `ops.attention._kernel_width` routes it,
+the pad and the slice inside its timing, the other build at d as it is): K3 and K3_lse at n =
 1024, 3200, 4096 and K4 at n = 1024, 3072, 4096 with lengths [n, 777]; K5,
 K5_lse and K8 at joint n = 1152, 3200, 4352 (1024 / 3072 / 4096 audio + 128 /
 128 / 256 text rows, K5's masks); K7, K7_lse and K9 at n = 1024 and 4224,
@@ -109,7 +111,7 @@ DEQUANT = ((2048, 3072), (2048, 1024), (2048, 2048), (8192, 3072))  # m, n
 EXACT = ("K1Q", "K6Q", "K12", "K12G", "K13")  # bit-equal outputs, or the builds disagree
 CODES = ("codes", "row_scale")
 K3_GLOBALS = r"fused_qkv_rope_attn_(kernel|lse_kernel|krot_kernel)"
-K7_GLOBALS = r"_Z\d+flash_attn_(wide_)?(lse_)?kernel"  # not masked_flash_attn_kernel
+K7_GLOBALS = r"_Z\d+flash_attn_(wide_|native_)?(lse_)?kernel"  # not masked_flash_attn_kernel
 # kernel: (source, C entry, a pattern found in each of its __global__ names,
 # shapes, the outputs compared)
 KERNELS = {
@@ -375,15 +377,33 @@ def run_kernel(kernel: str, other: Path, defines, tmp: Path, dev,
         own = {tag: {name: shared[name].clone() for name, kind in params if kind == "out"}
                for tag, (_, params, _) in built.items()}
 
+        # this build runs a head width as the port routes it: d in (128, 256]
+        # zero-padded to its native wide width, the pad and slice timed too
+        width = att._kernel_width(d) if kernel in HEAD_LAYOUT and d > 128 else d
+        if width != d:
+            what += f", this build at d = {width} (zero-padded, the pad and slice timed)"
+
         def call(tag):
             fn, params, _ = built[tag]
             names = {name for name, _ in params}
             args = [own[tag][name] if kind == "out" else
                     shared["x_contig"] if name == "x" and "x_contig" in shared
                     and "s0" not in names else shared[name] for name, kind in params]
+            padded = {}
+            if tag == "this" and width != d:
+                for i, (name, kind) in enumerate(params):
+                    a = args[i]
+                    if name == "head_dim":
+                        args[i] = width
+                    elif isinstance(a, torch.Tensor) and a.dim() == 4:
+                        args[i] = torch.nn.functional.pad(a, (0, width - d))
+                        if kind == "out":
+                            padded[name] = args[i]
             err = fn(*(_build.ptr(a) if isinstance(a, torch.Tensor) else a for a in args),
                      _build.stream_ptr(dev))
             _build.check(err, f"{kernel} ({tag})")
+            for name, t in padded.items():
+                own[tag][name].copy_(t[..., :d])
 
         times = {"other": [], "this": []}
         for tag in ("other", "this", "this", "other"):

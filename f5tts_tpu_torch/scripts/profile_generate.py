@@ -8,7 +8,7 @@
 F5TTS_Small (DiT), E2TTS_Base / E2TTS_Small (UNetT) or MMDiT_Base;
 `--qk-norm` sets qk_norm="rms_norm" (its RMSNorm weights randomised);
 `--heads` / `--dim-head` replace the preset's head split (e.g. 4 x 256 at
-the same inner width: the head layout, K7's wide mode, at every n);
+the same inner width: the head layout, K7's native wide kernel, at every n);
 `--quantization int8` runs the pipeline's int8 W8A8 params (K12's modes:
 K1Q / K6Q, the GELU mode, the plain K12; the int8 product, K13: their
 device time is read by class, and bf16's separate GELU pass too);
@@ -66,7 +66,8 @@ CLASSES = (
     ("fused_qkv_rope_attention_bias", ("fused_qkv_rope_attn_bias_kernel",
                                        "fused_qkv_rope_attn_bias_krot_kernel")),
     ("masked_flash_attention", ("masked_flash_attn_kernel",)),  # before its substring
-    ("flash_attention", ("flash_attn_kernel", "flash_attn_wide_kernel")),
+    ("flash_attention", ("flash_attn_kernel", "flash_attn_wide_kernel",
+                         "flash_attn_native_kernel")),
     ("adaln_norm", ("AdaLNEpi",)),
     ("rms_norm", ("RmsEpi",)),
     ("conv_pos_embedding", K2_NAMES),  # before K10's, whose kernel it is a mode of

@@ -17,6 +17,7 @@ and K10's new range.
 """
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,7 @@ from f5tts_tpu.models import dit as jdit
 from f5tts_tpu.models import mmdit as jmmdit
 from f5tts_tpu.models import modules as jm
 from f5tts_tpu.models import unett as junett
+from f5tts_tpu.ops import attention as jatt
 from f5tts_tpu_torch import convert
 from f5tts_tpu_torch.config import CFMConfig
 from f5tts_tpu_torch.config import ModelArch as TArch
@@ -136,13 +138,56 @@ def test_self_attention_routes_by_head_width(monkeypatch):
 
 
 @pytest.mark.parametrize("d,width", [(64, 64), (128, 128), (96, 128), (32, 64), (1, 64),
-                                     (160, 160), (200, 200), (256, 256), (130, 136),
-                                     (512, 512)])
+                                     (160, 192), (200, 256), (256, 256), (130, 192),
+                                     (512, 512), (192, 192), (264, 264)])
 def test_kernel_width_covers_every_head_width(d, width):
-    """The width K7 / K9 run a head of d at on the card: 64 and 128 as they
-    are, any other d up to 128 zero-padded to the next of them, d > 128 in
-    the wide mode at the next multiple of 8 (16-byte rows)."""
+    """The width K7 / K9 run a head of d at on the card: 64, 128, 192 and
+    256 as they are (192 / 256 the native wide kernels), any other d up to
+    256 zero-padded to the next of them, d > 256 in the slice mode at the
+    next multiple of 8 (16-byte rows)."""
     assert tatt._kernel_width(d) == width
+
+
+@pytest.mark.parametrize("d", [160, 200])
+def test_padded_native_width_matches_jax(d):
+    """The padding the card applies to a head of d in (128, 256]: q, k, v, o
+    and dO zero-padded to `_kernel_width(d)` (192 / 256, K7 / K9's native
+    wide kernels) by `_pad_heads`, the plain versions at that width with
+    the scale of the true d, the lanes past d dropped. Against JAX's
+    `_flash_forward(return_lse=True)` and `_flash_backward_fused` (Pallas,
+    interpret mode) at n = 128, lengths [128, 77], f32 on both sides, on
+    live rows (forward rows and dq rows < length, dk / dv keys < length):
+    3e-4, the sum orders of the Pallas backward's own tolerance; the padded
+    lanes exactly 0."""
+    n, lengths = 128, [128, 77]
+    rng = np.random.default_rng(d)
+    q, k, v, do = (rng.standard_normal((2, 2, n, d)).astype(np.float32) for _ in range(4))
+    lens = np.array(lengths, np.int32)
+    do *= (np.arange(n)[None, :] < lens[:, None])[:, None, :, None]  # the model's row mask
+    width = tatt._kernel_width(d)
+    assert width in tatt.NATIVE_WIDE_DIMS and width > d
+    scale = 1.0 / math.sqrt(d)
+    qp, kp, vp, dop = tatt._pad_heads(width, *(_t(x) for x in (q, k, v, do)))
+    jq, jk, jv, jl, jdo = (jnp.asarray(x) for x in (q, k, v, lens, do))
+    o_j, lse_j = jatt._flash_forward(jq, jk, jv, jl, return_lse=True)
+    o, lse = tatt.flash_attention_fwd_ref(qp, kp, vp, _t(lens), return_lse=True, scale=scale)
+    assert o.shape[-1] == width and not o[..., d:].any()
+    o, lse = _np(o), _np(lse)
+    for i, ln in enumerate(lengths):
+        np.testing.assert_allclose(o[i, :, :ln, :d], np.asarray(o_j)[i, :, :ln], atol=3e-4,
+                                   rtol=3e-4)
+        np.testing.assert_allclose(lse[i, :, :ln], np.asarray(lse_j)[i, :, :ln, 0], atol=3e-4,
+                                   rtol=3e-4)
+    want = jatt._flash_backward_fused(jq, jk, jv, jl, o_j, lse_j, jdo)
+    (op,) = tatt._pad_heads(width, _t(o_j))
+    got = tatt.flash_attention_bwd_ref(qp, kp, vp, _t(lens), op, _t(np.asarray(lse_j)[..., 0]),
+                                       dop, scale=scale)
+    for g, w in zip(got, want):
+        g = _np(g)
+        assert g.shape[-1] == width and not g[..., d:].any()
+        for i, ln in enumerate(lengths):
+            np.testing.assert_allclose(g[i, :, :ln, :d], np.asarray(w)[i, :, :ln], atol=3e-4,
+                                       rtol=3e-4)
 
 
 def test_converter_carries_a_dim_head_128_tree(dit128):
