@@ -140,14 +140,14 @@ Phases (any failure raises, and the script exits non-zero):
     43*16, the product and K13 173*16), and both graphed against eager at
     the cap.
 18. The sampler's options, speech editing and BigVGAN: F5TTS_v1_Base at
-    the 1024 bucket, cfm_sample(method="midpoint") over 8 steps eagerly (16
-    passes: K3 / K1 / K2 352 / 720 / 32, the prompt rows equal cond
+    depth CUT_DEPTH, the 1024 bucket, cfm_sample(method="midpoint") over 8
+    steps eagerly (16 passes: K3 / K1 / K2 64 / 144 / 32, the prompt rows equal cond
     exactly); at depth 2 card bf16 against CPU f32 (mel rel-L2 <= 3e-2,
     launches exact) for the midpoint, an edit_mask with two regenerated
     spans inside the prompt (kept frames exact), no_ref_audio and a
     duplicate_test_start restart at t_inter 0.1; edit_speech on an 8 s
-    reference with two spans and new lengths at 32 NFE (K3 / K1 / K2 704 /
-    1440 / 64), then its cond and mask through cfm_sample directly (kept
+    reference with two spans and new lengths at 32 NFE (K3 / K1 / K2 128 /
+    288 / 64), then its cond and mask through cfm_sample directly (kept
     frames exactly the spliced original, regenerated ones finite and not
     all zero); the full-size BigVGAN (v2 24 kHz 100-band, f32, TF32 off)
     card against CPU on a 128-frame mel (wav rel-L2 <= 1e-3), its decode
@@ -157,10 +157,10 @@ Phases (any failure raises, and the script exits non-zero):
     and a replay's device ms, and ref_mel's len // 256 frames.
 19. The last arch flags, the reference-key importer, activation
     checkpointing, bf16 state and the training configurations that had not
-    run on the card. (a) F5TTS_v1_Base with long_skip_connection and
-    text_embedding_average_upsampling through InferencePipeline.infer at
-    the 1024 bucket and the cap (phase 3's checks, 352 / 720 / 32 a
-    generate), its graphed generate against the eager one (phase 16's), two
+    run on the card. (a) F5TTS_v1_Base at depth CUT_DEPTH with
+    long_skip_connection and text_embedding_average_upsampling through
+    InferencePipeline.infer at the 1024 bucket and the cap (phase 3's
+    checks, 64 / 144 / 32 a generate), its graphed generate against the eager one (phase 16's), two
     requests of 800 and 1000 frames in the captured 1024 bucket, each
     graphed generate equal to the eager one on its own inputs and its text
     spread over its own duration, and depth 2 card bf16 against CPU f32
@@ -172,12 +172,13 @@ Phases (any failure raises, and the script exits non-zero):
     model_config_from_dict on a dict, as a YAML gives it), exported back by
     to_reference_keys bit for bit, then one request through infer (K7 /
     K6 / K1 / K2 352 / 704 / 720 / 32); the load time. (c) Activation
-    checkpointing at F5TTS_v1_Base, 37 x 1024 frames (lens in [512,
-    1024]), 2 updates without it and under each remat_policy from the same
-    weights, data and draws: peak allocated memory and ms an update, loss
-    and grad norm within 1e-3 of the run without checkpointing, K3-lse /
-    K4 / K1 / K2 per update 22 / 22 / 45 / 1 without, 44 / 22 / 89 / 1 under
-    "nothing" and "dots", 22 / 22 / 89 / 1 under "attn_out" and "attn";
+    checkpointing at F5TTS_v1_Base cut to CUT_DEPTH (4) blocks, 37 x 1024
+    frames (lens in [512, 1024]), 2 updates without it and under each
+    remat_policy from the same weights, data and draws: peak allocated
+    memory and ms an update, loss and grad norm within 1e-3 of the run
+    without checkpointing, K3-lse / K4 / K1 / K2 per update L / L / 2L + 1
+    / 1 without (L the depth), 2L / L / 4L + 1 / 1 under "nothing" and
+    "dots", L / L / 4L + 1 / 1 under "attn_out" and "attn";
     one update at 64 x 1024 under "nothing"; E2TTS_Base (K3-lse / K4 / K6
     / K2 48 / 24 / 97 / 1) and MMDiT_Base (K5-lse / K8 / K1 / K2 43 / 22 /
     172 / 1: the context_pre_only last block is not checkpointed) under
@@ -192,9 +193,9 @@ Phases (any failure raises, and the script exits non-zero):
     fuse_qkv=False (K7-lse / K9 / K1 / K2 22 / 22 / 45 / 1), each with its
     peak and ms; then phase 6's depth-2 check for each of the five.
 20. Batched serving at F5TTS_v1_Base + Vocos, bf16, the pinyin tokenizer
-    and the Emilia vocab, full width and depth: (a) `serve.warmup` over the
-    512 / 1024 buckets and b = 1, 2, 4, each capture recording one
-    generate's launches (K3 / K1 / K2 352 / 720 / 32) whatever b is, each
+    and the Emilia vocab, full width, depth CUT_DEPTH: (a) `serve.warmup`
+    over the 512 / 1024 buckets and b = 1, 2, 4, each capture recording one
+    generate's launches (K3 / K1 / K2 64 / 144 / 32) whatever b is, each
     key's capture seconds and pool, their sum and memory_reserved; (b) 3
     requests with different reference lengths (padded to 4) through
     `generate_batch`, graphed against the eager serve body on the same
@@ -235,9 +236,10 @@ Phases (any failure raises, and the script exits non-zero):
     at the heads a rank runs under tensor parallelism (K3, K3-lse, K4 at 8
     and 4 heads; K5, K5-lse, K8, K11, K7, K7-lse, K9 at 8), b = 2, n = 1024,
     against their plain versions at phase 2's gates, timed beside h = 16;
-    (b) one process, an NCCL group of world 1: the plain Trainer, then
-    `Trainer(mesh=make_mesh(1, 1))` replicated and with zero1, four 16 x
-    1024 updates each (22 / 22 / 45 / 1 an update; loss, params and EMA
+    (b) one process, an NCCL group of world 1, F5TTS_v1_Base at depth
+    CUT_DEPTH: the plain Trainer, then `Trainer(mesh=make_mesh(1, 1))`
+    replicated and with zero1, four 16 x 1024 updates each (4 / 4 / 9 / 1
+    an update; loss, params and EMA
     after update 2 within 1e-5 of the plain Trainer's; ms, peak, the
     profiler's NCCL and copy ms); (c) two processes on the card over gloo
     (its all_reduce takes CUDA tensors; checked first), F5TTS_v1_Base's
@@ -251,18 +253,18 @@ Phases (any failure raises, and the script exits non-zero):
     (1 + |p|), moved by the one-process update's mean |dp| ~ lr within 2%,
     the update's rel-L2 from the one-process update <= 0.25). gloo's times
     are no measure of NCCL.
-23. Evaluation at F5TTS_v1_Base + Vocos, bf16, pinyin, full width and
-    depth: (a) eight seeded 24 kHz prompts of 2-5 s and a Seed-TTS
+23. Evaluation at F5TTS_v1_Base + Vocos, bf16, pinyin, full width, depth
+    CUT_DEPTH: (a) eight seeded 24 kHz prompts of 2-5 s and a Seed-TTS
     meta.lst in a temp directory, `get_inference_prompt(infer_batch_size=4)`
     (one 4-row batch, each row its own prompt and total length in one
     bucket, and four single rows), `generate_batches` at 32 NFE a batch at
-    a time: K3 / K1 / K2 704 / 1440 / 64 a batch exactly, every wav finite
+    a time: K3 / K1 / K2 128 / 288 / 64 a batch exactly, every wav finite
     and not silent, walls and RTF, the b = 1 and b = 4 batches again under
     the profiler (device-busy share of the traced wall); a row of the
     4-row batch against the same row sampled alone with the same noise
     (mel rel-L2 <= 3e-2 over its generated frames, max-abs printed);
     (d) a two-style, three-segment text through `synthesize_multistyle`
-    over the pipeline's `infer` (16 NFE, graphed: 352 / 720 / 32 a chunk,
+    over the pipeline's `infer` (16 NFE, graphed: 64 / 144 / 32 a chunk,
     each replay counted with its capture's counts; the output as long as
     its segments together); (b) the port's WavLM-large + ECAPA-TDNN in f32
     with numpy-seeded weights: a 3 s clip's embedding on the card against
@@ -273,16 +275,17 @@ Phases (any failure raises, and the script exits non-zero):
     (c) UTMOS22-strong in f32 with numpy-seeded weights: a 5 s clip's MOS
     on the card against the CPU (|dMOS| <= 1e-3), ms an utterance, then
     `eval_utmos` over (a)'s wavs from a checkpoint written there.
-24. The last modules, F5TTS_v1_Base + Vocos, full width and depth: (a)
-    the 1024 bucket's graphed generate against eager (phase 16's walls,
-    now with every kernel behind its `f5tts::` operator); the sampler
-    exported with torch.export at EXPORT_NFE (a 16-NFE export takes over
-    a minute), saved, loaded and run against the eager cfm_sample on the
-    same y0 (max-abs <= 1e-3; K3 / K1 / K2 22 / 45 / 2 a step exactly), its
+24. The last modules, F5TTS_v1_Base + Vocos, full width: (a) at depth
+    CUT_DEPTH, the 1024 bucket's graphed generate against eager (phase
+    16's walls, now with every kernel behind its `f5tts::` operator); the
+    sampler exported with torch.export at EXPORT_NFE (a 16-NFE export
+    takes over a minute), saved, loaded and run against the eager
+    cfm_sample on the same y0 (max-abs <= 1e-3; K3 / K1 / K2 4 / 9 / 2 a
+    step exactly), its
     export, save and load seconds, file MB and both walls; Vocos exported
     against the eager decode (<= 1e-5); E2TTS_Base and MMDiT_Base at depth
-    2 the same way; (f) device_trace + summarize_trace over one graphed
-    request, K3's, K1's and K2's kernels among the top PROFILE_TOP (20)
+    2 the same way; (f) at full depth, device_trace + summarize_trace over
+    one graphed request, K3's, K1's and K2's kernels among the top PROFILE_TOP (20)
     rows by kernel; (b) with both TF32 flags on globally against off:
     Vocos and BigVGAN decode, a WavLM-large + ECAPA-TDNN embedding, a
     UTMOS22 score and a DynamicBatcher request's wav (rel-L2 <= 1e-6); (c)
@@ -298,15 +301,16 @@ Phases (any failure raises, and the script exits non-zero):
     holds every attention mode at 8 heads of 128 (`phase_kernels_d128`:
     K3 / K3-lse at n = 1024 / 3200 / 4096, K4 at 1024 / 3072 / 4096, K5 /
     K5-lse / K8 and K11 at joint 1024 + 128 and 4096 + 256, K7 / K7-lse /
-    K9 at 1024 and 4224, K7 / K9 also at d = 96, zero-padded to 128, K6 on
-    [2, 8, 4096, 128]) and K10 at `K10_RANGE_CASES` (16 groups of 160 and
+    K9 at 1024 and 4224, K6 on [2, 8, 4096, 128]) and K10 at
+    `K10_RANGE_CASES` (16 groups of 160 and
     192, one group of 1024, k 63, 30 and 301) under the same tolerances;
     their rows are the `@d128` / `@W>128,k>31` entries of the kernels line,
     whose launches are this phase's. (a) DiT d128, F5TTS_v1_Base at 8
-    heads of 128, full width and depth, through InferencePipeline.infer at
-    the 1024 bucket and the cap (K3 / K1 / K2 352 / 720 / 32 a generate),
-    then the graphed generate against the eager one at both; (b) Trainer
-    updates at 16 x 1024 and 4 x 3072 (22 / 22 / 45 / 1 an update), ms and
+    heads of 128, full width, depth CUT_DEPTH, through
+    InferencePipeline.infer at the 1024 bucket and the cap (K3 / K1 / K2
+    64 / 144 / 32 a generate), then the graphed generate against the eager
+    one at both; (b) Trainer updates at 16 x 1024 and 4 x 3072 (4 / 4 / 9
+    / 1 an update), ms and
     peak; (c) depth 2 card bf16 against CPU f32, a generate (mel <= 3e-2)
     and a training step (phase 6's gate); (d) E2TTS_Base, MMDiT_Base and
     the qk-norm MMDiT at 8 x 128 and depth D128_OTHER_DEPTH through infer
@@ -315,8 +319,8 @@ Phases (any failure raises, and the script exits non-zero):
     (K5-lse / K8); (e) the conv-position module at dim 2560 (16 groups of
     160: two K10 launches) against the f32 plain chain.
 26. Head widths past 128 (`phase_head_width_wide`). Phase 2 also holds K7,
-    K7-lse and K9 in their wide mode (`check_flash_wide`: d 256, 160, 192,
-    200, 320 and 512 at 4 heads, n = 1024 / 4224 / 64 with row 1's length
+    K7-lse and K9 in their wide mode (`check_flash_wide`: d 256, 192, 320
+    and 512 at 4 heads, n = 1024 / 4224 / 64 with row 1's length
     777 / 3001 / 1, dO on every row; output, lse, dead q tiles and dq / dk
     / dv under phase 2's tolerances, K7's rel-L2 included; d 256 and 192
     timed at n = 1024 and 4224, 512 at 1024; one call of each under
@@ -326,18 +330,42 @@ Phases (any failure raises, and the script exits non-zero):
     mode's flash_attn_wide_kernel, flash_attn_wide_lse_kernel and
     flash_bwd_wide_{delta,dkdv,dq}_kernel); their rows are the `@d>128` entries of the kernels line,
     whose launches are this phase's. (a) DiT d256, F5TTS_v1_Base at 4 heads
-    of 256, full width and depth, through InferencePipeline.infer at the
-    1024 bucket and the cap (K7 / K1 / K2 352 / 720 / 32 a generate, K3
+    of 256, full width, depth CUT_DEPTH, through InferencePipeline.infer at
+    the 1024 bucket and the cap (K7 / K1 / K2 64 / 144 / 32 a generate, K3
     none), then the graphed generate against the eager one at both; (b)
-    Trainer updates at 16 x 1024 and 4 x 3072 (K7-lse / K9 / K1 / K2 22 /
-    22 / 45 / 1 an update); (c) depth 2 card bf16 against CPU f32, a
+    Trainer updates at 16 x 1024 and 4 x 3072 (K7-lse / K9 / K1 / K2 4 /
+    4 / 9 / 1 an update); (c) depth 2 card bf16 against CPU f32, a
     generate (mel <= 3e-2) and a training step (phase 6's gate); (d)
     E2TTS_Base at 4 x 256 and depth D256_OTHER_DEPTH through infer at 1024
     rows and the cap (K7 at both), and its 4 x 4096 update (K7-lse / K9).
+27. Head width 96 read in place (`phase_head_width_d96`). Phase 2 also
+    holds K7, K7-lse and K9 on rows of widths off their tile widths
+    (`check_flash_in_place`: DiT d96's [2, 8, 1024, 96], then d 96, 104,
+    136, 160, 200 and 248 at 4 heads and n = 1024 / 4224 / 64, and 130,
+    the one width the route pads, to 136) under phase 2's tolerances, each
+    case bit-equal to the route that zero-pads to the tile width and
+    slices (its time beside the kernel's), and at each width one call of
+    each under torch.profiler: the kernels' own launches and no other CUDA
+    kernel; their rows are the `@d96` entries of the kernels line, whose
+    launches are this phase's. (a) DiT d96, F5TTS_v1_Small at 8 heads of
+    96 (dim 768, depth 18: the flat gate refuses 96), through
+    InferencePipeline.infer at the 1024 bucket and the cap (K7 / K1 / K10
+    288 / 592 / 64 a generate, K3 none), then the graphed generate against
+    the eager one at both (<= 1e-3); (b) one eager backbone forward traced
+    in place and by the zero-padded route: the same K7 launches, at least
+    four more kernels a K7 padded; (c) Trainer updates at 16 x 1024
+    (K7-lse / K9 / K1 / K10 18 / 18 / 37 / 2 an update); (d) depth 2 card
+    bf16 against CPU f32, a generate (mel <= 3e-2) and a training step.
+
+Phases 16 (E2TTS / MMDiT / qk-norm MMDiT), 18, 19 (a, c), 20, 22 (b), 23,
+24 (a), 25 and 26 run at CUT_DEPTH (4) blocks: phases 3, 5, 7, 8 and 14 run the
+same kernels at full width and depth, and the whole stays within its time
+limit. The script prints each phase's seconds (`phase seconds`) before its
+total.
 
 Prints the `kernels` JSON line (launches: what the card ran on the
 inference and training paths of phases 3, 5, 7, 8, 10, 11, 13, 14, 17, 18,
-19, 20, 21, 22 (b), 23, 24, 25 and 26, each graph replay counted with its capture's
+19, 20, 21, 22 (b), 23, 24, 25, 26 and 27, each graph replay counted with its capture's
 counts), the card's name and power limit,
 and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the repo's
@@ -425,6 +453,11 @@ SOURCES = {
     "gelu_quantize_rows": "f5tts_tpu_torch/csrc/adaln_norm.cu",
 }
 NFE = 16
+# the depth of a path that an earlier phase already runs at full width and
+# depth (phases 3 / 5 / 7 / 8 / 14: every kernel it launches on the main
+# path), cut so that the whole script stays within its time limit; its
+# launch gates scale with the depth and stay exact
+CUT_DEPTH = 4
 # phases 5, 10 and 11: (batch, frames, updates, launches an update)
 # (under grad K3 and K5 run their lse modes)
 _DIT_PER_UPDATE = {"fused_qkv_rope_attention_lse": 22, "fused_qkv_rope_attention_bwd": 22,
@@ -442,12 +475,25 @@ MMDIT_TRAIN_CELLS = ((16, 1024, 3, _MMDIT_PER_UPDATE), (4, 3072, 2, _MMDIT_PER_U
 
 
 _START = time.perf_counter()
+_HEADERS: list[tuple[str, float]] = []  # (phase number, seconds since the start) a header
 
 
 def log(msg: str) -> None:
     if msg.startswith("phase "):  # a phase's header: the seconds since the script started
-        msg = f"{msg} [{time.perf_counter() - _START:.1f} s]"
+        now = time.perf_counter() - _START
+        _HEADERS.append((msg.split(":")[0].split()[1], now))
+        msg = f"{msg} [{now:.1f} s]"
     print(msg, flush=True)
+
+
+def phase_seconds() -> dict:
+    """Each phase's seconds, from its headers' times to the next header's
+    (a phase with several headers summed), the last up to now."""
+    out: dict[str, float] = {}
+    marks = _HEADERS + [("end", time.perf_counter() - _START)]
+    for (phase, t0), (_, t1) in zip(marks, marks[1:]):
+        out[phase] = round(out.get(phase, 0.0) + t1 - t0, 1)
+    return out
 
 
 def time_ms(fn, reps: int = 10, iters: int = 15) -> float:
@@ -1331,6 +1377,8 @@ def phase_kernels(dev) -> dict:
     rows.update(phase_kernels_d128(dev))
     log("  head widths past 128 (K7 / K7-lse / K9's wide mode, 4 heads of 256 as DiT d256):")
     rows.update(check_flash_wide(dev))
+    log("  K7 / K7-lse / K9 on rows of other widths, read in place (8 heads of 96 as DiT d96):")
+    rows.update(check_flash_in_place(dev))
     for name, row in rows.items():
         tol = TOL.get(base_name(name))
         if tol is not None and not row["max_abs_err"] <= tol:
@@ -1356,7 +1404,7 @@ WIDE = "@d>128"
 # the widths held against the plain versions (the first gives the rows'
 # times), (n, row 1's length) at each, and how many leading cases of a
 # width are timed
-WIDE_WIDTHS = (256, 160, 192, 200, 320, 512)
+WIDE_WIDTHS = (256, 192, 320, 512)
 WIDE_CASES = ((1024, 777), (4224, 3001), (64, 1))
 WIDE_TIMED = {256: 2, 192: 2, 512: 1}
 # one call of each at [2, 4, 1024, d]: the kernels by name in a profiler
@@ -1372,33 +1420,52 @@ WIDE_KERNELS = {
 }
 
 
-def wide_kernel_launches(dev, d: int) -> tuple[dict, dict]:
-    """(wrapper counts, {kernel name: launches in a profiler trace}) of one
-    K7, one K7-lse and one K9 call at [2, 4, 1024, d], lengths [1024, 777]
-    (the trace's CUDA kernels named by any width's WIDE_KERNELS)."""
+# K7's one launch a forward and K9's three a backward at a tile width of
+# 64 / 128: the wgmma core's HEAD mode
+CORE_KERNELS = {"flash_attn_kernel": 1, "flash_attn_lse_kernel": 1, "flash_bwd_delta_kernel": 1,
+                "flash_bwd_dkdv_kernel": 1, "flash_bwd_dq_kernel": 1}
+
+
+def head_kernel_launches(dev, d: int, h: int = 4) -> tuple[dict, dict]:
+    """(wrapper counts, {name: launches} of every CUDA kernel in a profiler
+    trace) of one K7, one K7-lse and one K9 call at [2, h, 1024, d],
+    lengths [1024, 777]: a kernel named in CORE_KERNELS or WIDE_KERNELS
+    under that name (the longest that its trace name holds), any other
+    under its trace name. The three calls run twice, the first time as the
+    profiler's warm-up (a trace without one dropped a kernel's event), the
+    counts and the trace the second time's; a trace that holds no CUDA
+    event at all (the profiler lost it: seen once in ten traces of a run)
+    is taken again, up to three times."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from f5tts_tpu_torch.ops import _build
     from f5tts_tpu_torch.ops.attention import flash_attention_bwd, flash_attention_fwd
 
     gen = torch.Generator(device=dev).manual_seed(26)
-    q, k, v, dout = (randn_bf16(gen, (2, 4, 1024, d), dev) for _ in range(4))
+    q, k, v, dout = (randn_bf16(gen, (2, h, 1024, d), dev) for _ in range(4))
     lengths = torch.tensor([1024, 777], dtype=torch.int32, device=dev)
     o, lse = flash_attention_fwd(q, k, v, lengths, return_lse=True)
     torch.cuda.synchronize()
-    _build.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        flash_attention_fwd(q, k, v, lengths)
-        flash_attention_fwd(q, k, v, lengths, return_lse=True)
-        flash_attention_bwd(q, k, v, lengths, o, lse, dout)
-        torch.cuda.synchronize()
-    seen: dict[str, int] = {}
-    names = {name for kernels in WIDE_KERNELS.values() for name in kernels}
-    for ev in prof.events():
-        for name in names:
-            if name in ev.name and ev.device_type == torch.autograd.DeviceType.CUDA:
+    names = set(CORE_KERNELS) | {name for kernels in WIDE_KERNELS.values() for name in kernels}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                _build.reset_launches()
+                flash_attention_fwd(q, k, v, lengths)
+                flash_attention_fwd(q, k, v, lengths, return_lse=True)
+                flash_attention_bwd(q, k, v, lengths, o, lse, dout)
+                torch.cuda.synchronize()
+                prof.step()
+        seen: dict[str, int] = {}
+        for ev in prof.events():
+            if (ev.device_type == torch.autograd.DeviceType.CUDA
+                    and not ev.name.startswith("ProfilerStep")):  # the step's own annotation
+                name = max((n for n in names if n in ev.name), key=len, default=ev.name)
                 seen[name] = seen.get(name, 0) + 1
+        if seen:
+            break
     return _build.launches(), seen
 
 
@@ -1409,7 +1476,7 @@ def check_flash_wide(dev, h: int = 4) -> dict:
     `check_flash_bwd` under phase 2's tolerances, the cases WIDE_TIMED
     names timed; then one call of each under torch.profiler at d = 256 and
     at 320: one wrapper count each, and each kernel of the width's
-    WIDE_KERNELS launched once and no other (K7's one launch a forward,
+    WIDE_KERNELS launched once and no other CUDA kernel (K7's one launch a forward,
     K9's three a backward: the native wide kernels at 256, the slice mode
     at 320). Returns the three `@d>128` rows (the errors the largest over
     every width, the times d = 256 and n = 1024's)."""
@@ -1425,7 +1492,7 @@ def check_flash_wide(dev, h: int = 4) -> dict:
             rows[name + WIDE] = merge_rows(rows.get(name + WIDE),
                                            check(gen, dev, h, d, cases, WIDE_TIMED.get(d, 0)))
     for d, want in WIDE_KERNELS.items():
-        counts, seen = wide_kernel_launches(dev, d)
+        counts, seen = head_kernel_launches(dev, d)
         log(f"  one K7, K7-lse and K9 call at [2, 4, 1024, {d}]: wrapper counts {counts}, "
             f"kernels in a profiler trace {seen}")
         if counts != {"flash_attention": 1, "flash_attention_lse": 1,
@@ -1435,12 +1502,101 @@ def check_flash_wide(dev, h: int = 4) -> dict:
     return rows
 
 
+# the rows of the kernels line that phase 27 launches: K7, its lse mode and
+# K9 reading rows of a width off 64 / 128 / 192 / 256 in place (DiT d96's)
+IN_PLACE = "@d96"
+# the widths held against the plain versions at 4 heads and WIDE_CASES (136:
+# a head of 130 rounded up to 8), after DiT d96's [2, 8, 1024, 96] (the
+# rows' times); then 130 itself, the one width the route pads (to 136)
+IN_PLACE_WIDTHS = (96, 104, 136, 160, 200, 248)
+
+
+def padded_route_check(dev, h: int, d: int, cases, timed: bool) -> dict:
+    """K7, its lse mode and K9 at [2, h, n, d] for each (n, row 1's length)
+    of `cases` (dO on every row), bit-equal to the route that zero-pads q,
+    k, v, o and dO to the tile width and slices the outputs
+    (`common.flash_padded_fwd` / `_bwd`, launches not counted); with
+    `timed` the padded route's ms at the first case, {counter: ms}."""
+    import torch
+    from f5tts_tpu_torch.ops.attention import flash_attention_bwd, flash_attention_fwd
+    from f5tts_tpu_torch.scripts.common import flash_padded_bwd, flash_padded_fwd
+
+    gen = torch.Generator(device=dev).manual_seed(d)
+    times: dict[str, float] = {}
+    for i, (n, length) in enumerate(cases):
+        q, k, v, dout = (randn_bf16(gen, (2, h, n, d), dev) for _ in range(4))
+        lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)
+        out = flash_attention_fwd(q, k, v, lengths)
+        o, lse = flash_attention_fwd(q, k, v, lengths, return_lse=True)
+        got = flash_attention_bwd(q, k, v, lengths, o, lse, dout)
+        o_p, lse_p = flash_padded_fwd(q, k, v, lengths, return_lse=True)
+        same = (torch.equal(out, flash_padded_fwd(q, k, v, lengths)) and torch.equal(o, o_p)
+                and torch.equal(lse, lse_p)
+                and all(torch.equal(g, w) for g, w in
+                        zip(got, flash_padded_bwd(q, k, v, lengths, o, lse, dout))))
+        if not same:
+            raise AssertionError(f"K7 / K7-lse / K9 at [2, {h}, {n}, {d}] in place differ from "
+                                 "the zero-padded route")
+        if timed and i == 0:
+            times = {"flash_attention": time_ms(lambda: flash_padded_fwd(q, k, v, lengths)),
+                     "flash_attention_lse": time_ms(
+                         lambda: flash_padded_fwd(q, k, v, lengths, return_lse=True)),
+                     "flash_attention_bwd": time_ms(
+                         lambda: flash_padded_bwd(q, k, v, lengths, o, lse, dout))}
+    return times
+
+
+def check_flash_in_place(dev) -> dict:
+    """K7, its lse mode and K9 on rows of a width off their tile widths,
+    read and written in place: DiT d96's [2, 8, 1024, 96] (lengths [1024,
+    777]; the rows' times), then each width of IN_PLACE_WIDTHS at 4 heads
+    and WIDE_CASES (K9 with dO on every row), then 130 (padded to 136) at
+    n = 1024: `check_flash` / `check_flash_lse` / `check_flash_bwd` under
+    phase 2's tolerances (dead tiles and keys exactly 0), n = 1024 timed;
+    every case bit-equal to the zero-padded route (`padded_route_check`,
+    its time beside the kernel's); and at each width one call of each under
+    the profiler: one wrapper count each, and K7's and K9's own kernels
+    (CORE_KERNELS at a tile width of 128, WIDE_KERNELS[256]'s at 192 / 256)
+    launched once and no other CUDA kernel: no pad, no slice copy. Returns
+    the three `@d96` rows (the errors the largest over every width)."""
+    import torch
+    from f5tts_tpu_torch.ops.attention import _kernel_width
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    rows: dict = {}
+    widths = [(8, 96, FLASH_CASES[:1])] + [(4, d, WIDE_CASES) for d in IN_PLACE_WIDTHS]
+    for h, d, cases in widths + [(4, 130, WIDE_CASES[:1])]:
+        bwd_cases = tuple((n, length, False) for n, length in cases)
+        timed = d % 8 == 0  # 130: PyTorch's efficient attention refuses unaligned rows
+        got = {}
+        for name, check, cs in (("flash_attention", check_flash, cases),
+                                ("flash_attention_lse", check_flash_lse, cases),
+                                ("flash_attention_bwd", check_flash_bwd, bwd_cases)):
+            got[name] = check(gen, dev, h, d, cs, int(timed))
+            rows[name + IN_PLACE] = merge_rows(rows.get(name + IN_PLACE), got[name])
+        padded = padded_route_check(dev, h, d, cases, timed)
+        log(f"  [2, {h}, 1024, {d}] in place (tile width {_kernel_width(d)}) against the "
+            f"zero-padded route: bit-equal at {[n for n, _ in cases]}; ms in place / padded: "
+            + (", ".join(f"{name} {got[name]['ms']:.4f} / {padded[name]:.4f}" for name in padded)
+               or "not timed"))
+        if not timed:
+            continue
+        want = WIDE_KERNELS[256] if _kernel_width(d) > 128 else CORE_KERNELS
+        counts, seen = head_kernel_launches(dev, d, h)
+        log(f"  one K7, K7-lse and K9 call at [2, {h}, 1024, {d}]: wrapper counts {counts}, "
+            f"CUDA kernels in a profiler trace {seen}")
+        if counts != {"flash_attention": 1, "flash_attention_lse": 1,
+                      "flash_attention_bwd": 1} or seen != want:
+            raise AssertionError(f"d = {d} launched {counts} / {seen}, expected one each of "
+                                 f"{want} and no other kernel")
+    return rows
+
+
 def phase_kernels_d128(dev) -> dict:
     """Every attention mode at 8 heads of 128 (the DiT d128 / E2TTS /
     MMDiT widths at dim_head 128) against its plain version at phase 2's
-    shapes and tolerances; K7 / K9 also at a padded width (d = 96, merged
-    into their d = 128 rows, whose kernel runs it); K6 on [2, 8, 4096, 128]
-    head rows; K10 at `K10_RANGE_CASES`."""
+    shapes and tolerances (K7 / K9 at narrower widths: `check_flash_in_place`);
+    K6 on [2, 8, 4096, 128] head rows; K10 at `K10_RANGE_CASES`."""
     import torch
 
     rng = np.random.default_rng(22)
@@ -1456,12 +1612,10 @@ def phase_kernels_d128(dev) -> dict:
         "fused_qkv_rope_attention_bias_bwd" + D128: check_attention_bias_bwd(rng, dev, h, d,
                                                                             JOINT_D128),
         "rms_norm" + D128: check_rms_norm(rng, dev, (((2, 8, 4096, 128), False),)),
-        "flash_attention" + D128: merge_rows(check_flash(gen, dev, h, d),
-                                             check_flash(gen, dev, h, 96, FLASH_CASES[:1])),
+        "flash_attention" + D128: check_flash(gen, dev, h, d),
         "flash_attention_lse" + D128: check_flash_lse(gen, dev, h, d),
-        "flash_attention_bwd" + D128: merge_rows(
-            check_flash_bwd(gen, dev, h, d, ((1024, 777, True), (4224, 777, True))),
-            check_flash_bwd(gen, dev, h, 96, ((1024, 777, False),))),
+        "flash_attention_bwd" + D128: check_flash_bwd(gen, dev, h, d,
+                                                      ((1024, 777, True), (4224, 777, True))),
         "masked_flash_attention" + D128: check_masked_flash(rng, dev, h, d),
         "grouped_conv1d" + K10_RANGE: check_grouped_conv(rng, dev, K10_RANGE_CASES),
     }
@@ -1770,9 +1924,10 @@ def phase_card_vs_cpu(dev, arch, params, vocos_params, backbone: str = "DiT",
 
 # (preset, backbone, arch overrides, total frames: the 1024 bucket and the cap)
 GRAPH_CASES = (("F5TTS_v1_Base", "DiT", {}, (1014, 4086)),
-               ("E2TTS_Base", "UNetT", {}, (1013, 4096)),
-               ("MMDiT_Base", "MMDiT", {}, (1014, 4086)),
-               ("MMDiT_Base", "MMDiT", {"qk_norm": "rms_norm"}, (1014, 4086)))
+               ("E2TTS_Base", "UNetT", {"depth": CUT_DEPTH}, (1013, 4096)),
+               ("MMDiT_Base", "MMDiT", {"depth": CUT_DEPTH}, (1014, 4086)),
+               ("MMDiT_Base", "MMDiT", {"qk_norm": "rms_norm", "depth": CUT_DEPTH},
+                (1014, 4086)))
 WALL_REPS = 3
 GRAPH_MEL_REL_TOL = 1e-3   # graphed against eager, where not bit-equal
 GRAPH_WAV_ABS_TOL = 1e-3
@@ -1876,7 +2031,7 @@ def phase_graphs(dev, gpu: str) -> list[dict]:
         for total in frames:
             flat = backbone != "UNetT" or total < 2048
             row = compare_graph_eager(pipe, generate_launches(backbone, arch, flat), total, gpu)
-            rows.append({"model": model, "qk_norm": arch.qk_norm, **row})
+            rows.append({"model": model, "qk_norm": arch.qk_norm, "depth": arch.depth, **row})
         del pipe
         torch.cuda.empty_cache()
     return rows
@@ -2466,7 +2621,7 @@ def phase_sampler_options(dev, gpu: str) -> tuple[dict, dict]:
         for name, c in ran.items():
             launches[name] = launches.get(name, 0) + c
 
-    arch, params, vocos_params = base_models()
+    arch, params, vocos_params = base_models(depth=CUT_DEPTH)
     pipe = make_pipeline(dev, "DiT", arch, params, vocos_params)
     add(midpoint_full_width(pipe, arch, gpu))
     for option in SAMPLER_OPTIONS:
@@ -2630,7 +2785,7 @@ def phase19_inference_flags(dev, gpu: str) -> tuple[dict, dict]:
     import torch
     from f5tts_tpu_torch.scripts.common import REQUESTS, base_models
 
-    arch, params, vocos_params = base_models(**ARCH_FLAGS)
+    arch, params, vocos_params = base_models(depth=CUT_DEPTH, **ARCH_FLAGS)
     expect = generate_launches("DiT", arch)
     pipe = make_pipeline(dev, "DiT", arch, params, vocos_params)
     ran = run_requests(pipe, [(REQUESTS[0], 1014, expect), (REQUESTS[1], 4086, expect)], gpu)
@@ -2743,7 +2898,7 @@ def phase19_checkpointing(dev, gpu: str) -> tuple[dict, dict]:
             ran[k] = ran.get(k, 0) + c
         return row
 
-    arch, params, _ = base_models()
+    arch, params, _ = base_models(depth=CUT_DEPTH)
     batch = train_batch(*REMAT_BATCH, "F5TTS_v1_Base")
     base = add(train_updates(dev, "DiT", arch, params, batch, 2, dit_update_launches(arch.depth),
                              "DiT, no checkpointing", gpu))
@@ -3286,7 +3441,7 @@ def phase_serving(dev, gpu: str) -> tuple[dict, dict]:
 
     t_phase = time.perf_counter()
     vocab = load_vocab(EMILIA_VOCAB)
-    arch, params, vocos_params = base_models()
+    arch, params, vocos_params = base_models(depth=CUT_DEPTH)
     pipe = make_pipeline(dev, "DiT", arch, params, vocos_params, vocab_char_map=vocab,
                          tokenizer="pinyin")
     del params
@@ -4020,7 +4175,7 @@ def phase22_nccl_trainer(dev, gpu: str) -> tuple[dict, dict]:
     result = {}
     try:
         mesh = make_mesh(1, 1)
-        arch, params, _ = base_models()
+        arch, params, _ = base_models(depth=CUT_DEPTH)
         data, _ = _train_dataset(np.random.default_rng(22), 16, 1024)
         expect = dit_update_launches(arch.depth)
         stash = {}
@@ -4772,7 +4927,7 @@ def phase_evaluation(dev, gpu: str) -> tuple[dict, dict]:
 
     t_phase = time.perf_counter()
     vocab = load_vocab(EMILIA_VOCAB)
-    arch, params, vocos_params = base_models()
+    arch, params, vocos_params = base_models(depth=CUT_DEPTH)
     pipe = make_pipeline(dev, "DiT", arch, params, vocos_params, vocab_char_map=vocab,
                          tokenizer="pinyin")
     del params
@@ -5121,8 +5276,8 @@ def phase24_parity(dev, arch, params, vocos_params, tmp: Path, gpu: str) -> tupl
 
 def phase24_profile(pipe, tmp: Path, gpu: str) -> dict:
     """(f) device_trace + summarize_trace over one graphed request (16 NFE,
-    the 1024 bucket, captured in (a)) inside a StageTimer stage: K3's,
-    K1's and K2's kernels among the top rows by kernel."""
+    the 1024 bucket, captured by a request before it) inside a StageTimer
+    stage: K3's, K1's and K2's kernels among the top rows by kernel."""
     import torch
     from f5tts_tpu_torch.profiling import StageTimer, device_trace, summarize_trace
     from f5tts_tpu_torch.scripts.common import K2_NAMES, REF_TEXT, REQUESTS, synthetic_ref_wav
@@ -5130,10 +5285,12 @@ def phase24_profile(pipe, tmp: Path, gpu: str) -> dict:
     timer = StageTimer()
     ref = synthetic_ref_wav()
     fix = (EXPORT_FRAMES + 0.5) * pipe.hop / pipe.sr
+    kw = dict(seed=0, nfe_step=NFE, cfg_strength=2.0, sway_sampling_coef=-1.0, fix_duration=fix)
+    pipe.infer(ref, 24000, REF_TEXT, REQUESTS[1], **kw)  # the bucket's capture
+    torch.cuda.synchronize()
     with device_trace(str(tmp / "trace")) as logdir:
         with timer.stage("request", sync=True):
-            pipe.infer(ref, 24000, REF_TEXT, REQUESTS[1], seed=0, nfe_step=NFE, cfg_strength=2.0,
-                       sway_sampling_coef=-1.0, fix_duration=fix)
+            pipe.infer(ref, 24000, REF_TEXT, REQUESTS[1], **kw)
     torch.cuda.synchronize()
     rows = summarize_trace(logdir, top=PROFILE_TOP, key="op")
     top = [name for name, _, _ in rows[:PROFILE_TOP]]
@@ -5160,14 +5317,19 @@ def phase_last_modules(dev, gpu: str) -> tuple[dict, dict]:
     out, seconds = {}, {}
     with tempfile.TemporaryDirectory() as tmp_dir:
         tmp = Path(tmp_dir)
-        arch, params, vocos_params = base_models()
-        pipe = make_pipeline(dev, "DiT", arch, params, vocos_params)
-        log(f"  (a) export, F5TTS_v1_Base at {EXPORT_NFE} NFE and Vocos; E2TTS / MMDiT depth 2:")
+        arch_c, params_c, vocos_params = base_models(depth=CUT_DEPTH)
+        pipe = make_pipeline(dev, "DiT", arch_c, params_c, vocos_params)
+        del params_c
+        log(f"  (a) export, F5TTS_v1_Base at depth {CUT_DEPTH} at {EXPORT_NFE} NFE and Vocos; "
+            "E2TTS / MMDiT depth 2:")
         t0 = time.perf_counter()
-        ran, out["export"] = phase24_export(dev, pipe, arch, vocos_params, tmp, gpu)
+        ran, out["export"] = phase24_export(dev, pipe, arch_c, vocos_params, tmp, gpu)
         seconds["export"] = time.perf_counter() - t0
         for name, c in ran.items():
             launches[name] = launches.get(name, 0) + c
+        del pipe
+        arch, params, _ = base_models()
+        pipe = make_pipeline(dev, "DiT", arch, params, vocos_params)
         log("  (f) profiling one graphed request:")
         t0 = time.perf_counter()
         out["profile"] = phase24_profile(pipe, tmp, gpu)
@@ -5208,7 +5370,10 @@ def phase_last_modules(dev, gpu: str) -> tuple[dict, dict]:
 
 D128_HEADS = {"heads": 8, "dim_head": 128}  # a Base preset's inner width at 8 heads of 128
 # (batch, frames, updates, launches an update) of DiT d128's Trainer cells
-D128_TRAIN_CELLS = ((16, 1024, 2, _DIT_PER_UPDATE), (4, 3072, 2, _DIT_PER_UPDATE))
+# (at CUT_DEPTH: phase 2 holds its kernels at 8 x 128, phases 3 / 5 run them
+# at 16 x 64 at full depth)
+D128_TRAIN_CELLS = ((16, 1024, 2, dit_update_launches(CUT_DEPTH)),
+                    (4, 3072, 2, dit_update_launches(CUT_DEPTH)))
 D128_OTHER_DEPTH = 4  # the E2TTS / MMDiT / qk-norm MMDiT depth at 8 x 128, cut to keep time
 CONV_DIM = 2560       # the conv-position module at 16 groups of 160 (K10 past W = 128)
 
@@ -5249,11 +5414,11 @@ def phase25_conv_pos(dev, gpu: str) -> dict:
 
 def phase_head_width(dev, gpu: str) -> tuple[dict, dict]:
     """Phase 25: head width 128 and K10's range through the entry points.
-    (a) DiT d128 (F5TTS_v1_Base at 8 heads of 128, full width and depth)
-    through `InferencePipeline.infer` at the 1024 bucket and the cap (K3 /
-    K1 / K2 exact a generate), then the graphed generate against the eager
-    one at both on a second pipeline; (b) `Trainer` updates at 16 x 1024 and
-    4 x 3072 (K3-lse / K4 / K1 / K2 22 / 22 / 45 / 1 an update); (c) card
+    (a) DiT d128 (F5TTS_v1_Base at 8 heads of 128, full width, depth
+    CUT_DEPTH) through `InferencePipeline.infer` at the 1024 bucket and the
+    cap (K3 / K1 / K2 exact a generate), then the graphed generate against
+    the eager one at both on a second pipeline; (b) `Trainer` updates at 16
+    x 1024 and 4 x 3072 (K3-lse / K4 / K1 / K2 4 / 4 / 9 / 1 an update); (c) card
     bf16 against CPU f32 at depth 2, inference and a training step; (d)
     E2TTS, MMDiT and the qk-norm MMDiT at 8 x 128, depth D128_OTHER_DEPTH,
     through `infer` at the 1024 bucket and the cap (K3 / K7, K5, K11 / K6),
@@ -5274,7 +5439,7 @@ def phase_head_width(dev, gpu: str) -> tuple[dict, dict]:
             launches[name] = launches.get(name, 0) + c
 
     t0 = time.perf_counter()
-    arch, params, vocos_params = base_models(**D128_HEADS)
+    arch, params, vocos_params = base_models(depth=CUT_DEPTH, **D128_HEADS)
     log(f"  (a) DiT d128: dim {arch.dim}, depth {arch.depth}, {arch.heads} heads of "
         f"{arch.dim_head}, through InferencePipeline.infer")
     expect = generate_launches("DiT", arch)
@@ -5352,8 +5517,9 @@ def phase_head_width(dev, gpu: str) -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 D256_HEADS = {"heads": 4, "dim_head": 256}  # a Base preset's inner width at 4 heads of 256
-_D256_PER_UPDATE = {"flash_attention_lse": 22, "flash_attention_bwd": 22, "adaln_norm": 45,
-                    "conv_pos_embedding": 1}
+# an update of DiT d256 at CUT_DEPTH (phase 2 holds its kernels at 4 x 256)
+_D256_PER_UPDATE = {"flash_attention_lse": CUT_DEPTH, "flash_attention_bwd": CUT_DEPTH,
+                    "adaln_norm": 2 * CUT_DEPTH + 1, "conv_pos_embedding": 1}
 # (batch, frames, updates, launches an update) of DiT d256's Trainer cells
 D256_TRAIN_CELLS = ((16, 1024, 2, _D256_PER_UPDATE), (4, 3072, 2, _D256_PER_UPDATE))
 D256_OTHER_DEPTH = 4  # E2TTS's depth at 4 x 256, cut to keep time
@@ -5363,11 +5529,12 @@ def phase_head_width_wide(dev, gpu: str) -> tuple[dict, dict]:
     """Phase 26: head widths past 128 through the entry points, every
     attention on K7's wide mode, its native D = 256 kernel (its lse mode and
     K9 under grad). (a) DiT
-    d256 (F5TTS_v1_Base at 4 heads of 256, full width and depth) through
-    `InferencePipeline.infer` at the 1024 bucket and the cap (K7 / K1 / K2
-    352 / 720 / 32 a generate, K3 none), then the graphed generate against
-    the eager one at both on a second pipeline; (b) `Trainer` updates at 16
-    x 1024 and 4 x 3072 (K7-lse / K9 / K1 / K2 22 / 22 / 45 / 1 an update);
+    d256 (F5TTS_v1_Base at 4 heads of 256, full width, depth CUT_DEPTH)
+    through `InferencePipeline.infer` at the 1024 bucket and the cap (K7 /
+    K1 / K2 64 / 144 / 32 a generate, K3 none), then the graphed generate
+    against the eager one at both on a second pipeline; (b) `Trainer`
+    updates at 16 x 1024 and 4 x 3072 (K7-lse / K9 / K1 / K2 4 / 4 / 9 / 1
+    an update);
     (c) card bf16 against CPU f32 at depth 2, inference and a training step;
     (d) E2TTS_Base at 4 x 256, depth D256_OTHER_DEPTH, through `infer` at
     1024 rows and the cap (K7 / K6 / K2) and its 4 x 4096 update (K7-lse /
@@ -5387,7 +5554,7 @@ def phase_head_width_wide(dev, gpu: str) -> tuple[dict, dict]:
             launches[name] = launches.get(name, 0) + c
 
     t0 = time.perf_counter()
-    arch, params, vocos_params = base_models(**D256_HEADS)
+    arch, params, vocos_params = base_models(depth=CUT_DEPTH, **D256_HEADS)
     log(f"  (a) DiT d256: dim {arch.dim}, depth {arch.depth}, {arch.heads} heads of "
         f"{arch.dim_head}, through InferencePipeline.infer")
     expect = generate_launches("DiT", arch)
@@ -5436,6 +5603,154 @@ def phase_head_width_wide(dev, gpu: str) -> tuple[dict, dict]:
     out["seconds"] = seconds
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 26: {out['phase_s']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in seconds.items())})")
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
+# phase 27
+# ---------------------------------------------------------------------------
+
+D96 = {"model": "F5TTS_v1_Small", "heads": 8, "dim_head": 96}  # dim 768 at 8 heads of 96
+# a generate's step and an update: K7 (K7-lse / K9) a block, K1 two a block
+# and the final norm, the dim-768 conv position's two K10 launches an input
+_D96_STEP = {"flash_attention": 18, "adaln_norm": 37, "grouped_conv1d": 4}
+_D96_PER_UPDATE = {"flash_attention_lse": 18, "flash_attention_bwd": 18, "adaln_norm": 37,
+                   "grouped_conv1d": 2}
+D96_TRAIN_CELLS = ((16, 1024, 2, _D96_PER_UPDATE),)
+
+
+def phase27_trace(dev, arch, params, gpu: str) -> dict:
+    """One eager bf16 backbone forward of DiT d96 (CFG packed, [2, 1024]
+    rows, lengths [1024, 777]) under the profiler, in place and again with
+    the route that zero-pads q, k and v to 128 and slices the output
+    (`attention._to_row_width` swapped for the padded one): the same K7
+    launches in both, every CUDA kernel of the in-place trace in the padded
+    one, and at least four more a K7 launch there (three pads, one slice
+    copy). Returns {route: CUDA kernels}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from f5tts_tpu_torch.models import dit
+    from f5tts_tpu_torch.models.modules import fuse_backbone_qkv, tree_cast
+    from f5tts_tpu_torch.ops import attention as att
+
+    p = fuse_backbone_qkv(tree_cast(params, torch.bfloat16, dev))
+    statics = dit.DiTStatics(arch, dev)
+    rng = np.random.default_rng(27)
+    x, cond = (torch.from_numpy(rng.standard_normal((1, 1024, 100)).astype(np.float32)).to(dev)
+               for _ in range(2))
+    text = torch.from_numpy(rng.integers(1, 2545, (1, 256)).astype(np.int32)).to(dev)
+    time_t = torch.tensor([0.4], device=dev)
+    lens = torch.tensor([777], dtype=torch.int32, device=dev)
+
+    def kernels() -> dict:
+        """The second of two forwards, the first the profiler's warm-up; a
+        trace with no CUDA event taken again (`head_kernel_launches`)."""
+        for _ in range(3):
+            with torch.no_grad(), profile(
+                    activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                    schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+                for _ in range(2):
+                    dit.dit_forward(p, statics, x, cond, text, time_t, lengths=lens,
+                                    cfg_infer=True, dtype=torch.bfloat16)
+                    torch.cuda.synchronize()
+                    prof.step()
+            seen: dict[str, int] = {}
+            for ev in prof.events():
+                if (ev.device_type == torch.autograd.DeviceType.CUDA
+                        and not ev.name.startswith("ProfilerStep")):
+                    # K7 under one name: the padded route runs its full-width
+                    # instantiation, the in-place one its NARROW one
+                    name = "flash_attn_kernel" if "flash_attn_kernel" in ev.name else ev.name
+                    seen[name] = seen.get(name, 0) + 1
+            if seen:
+                return seen
+        return seen
+
+    in_place = kernels()
+    real = att._to_row_width
+    att._to_row_width = lambda *ts: att._pad_heads(att._kernel_width(ts[0].shape[-1]), *ts)
+    try:
+        padded = kernels()
+    finally:
+        att._to_row_width = real
+    k7 = [run.get("flash_attn_kernel", 0) for run in (in_place, padded)]
+    extra = {name: padded.get(name, 0) - c for name, c in in_place.items()}
+    more = sum(padded.values()) - sum(in_place.values())
+    log(f"  (b) one eager backbone forward, CFG packed, under the profiler: {sum(in_place.values())} "
+        f"CUDA kernels in place, {sum(padded.values())} by the zero-padded route; K7 launches "
+        f"{k7[0]} / {k7[1]}; kernels only the padded route launches: "
+        f"{ {n: c - in_place.get(n, 0) for n, c in padded.items() if c > in_place.get(n, 0)} } "
+        f"[{gpu}]")
+    if not (k7[0] == k7[1] == arch.depth and min(extra.values()) >= 0
+            and more >= 4 * arch.depth):
+        raise AssertionError(f"DiT d96's trace: K7 {k7}, {more} more kernels padded, or an "
+                             "in-place kernel the padded route lacks")
+    return {"in_place": sum(in_place.values()), "padded": sum(padded.values())}
+
+
+def phase_head_width_d96(dev, gpu: str) -> tuple[dict, dict]:
+    """Phase 27: DiT d96 (F5TTS_v1_Small at 8 heads of 96, full width and
+    depth), every attention on K7 reading its rows of 96 in place at its D =
+    128 tile (its lse mode and K9 under grad): the flat gate refuses d = 96,
+    so K3 never runs. (a) through `InferencePipeline.infer` at the 1024
+    bucket and the cap (K7 / K1 / K10 288 / 592 / 64 a generate, K3 none),
+    then the graphed generate against the eager one at both on a second
+    pipeline; (b) `phase27_trace`; (c) `Trainer` updates at 16 x 1024
+    (K7-lse / K9 / K1 / K10 18 / 18 / 37 / 2 an update); (d) card bf16
+    against CPU f32 at depth 2, inference and a training step. Returns the
+    phase's launches (every count set to 0 before each run, read after) and
+    its rows."""
+    import torch
+    from f5tts_tpu_torch.scripts.common import REQUESTS, base_models
+
+    t_phase = time.perf_counter()
+    launches: dict[str, int] = {}
+    seconds: dict[str, float] = {}
+    out: dict = {}
+
+    def add(ran: dict) -> None:
+        for name, c in ran.items():
+            launches[name] = launches.get(name, 0) + c
+
+    t0 = time.perf_counter()
+    arch, params, vocos_params = base_models(**D96)
+    log(f"  (a) DiT d96: dim {arch.dim}, depth {arch.depth}, {arch.heads} heads of "
+        f"{arch.dim_head}, through InferencePipeline.infer")
+    expect = {k: v * NFE for k, v in _D96_STEP.items()}
+    if expect["flash_attention"] != 288 or arch.depth != 18:
+        raise AssertionError(f"DiT d96's generate should take K7 288 times: {expect}")
+    pipe = make_pipeline(dev, "DiT", arch, params, vocos_params)
+    add(run_requests(pipe, [(REQUESTS[0], 1014, expect), (REQUESTS[1], 4086, expect)], gpu))
+    del pipe
+    pipe = make_pipeline(dev, "DiT", arch, params, vocos_params)
+    out["graphs"] = [compare_graph_eager(pipe, expect, total, gpu) for total in (1014, 4086)]
+    del pipe
+    torch.cuda.empty_cache()
+    seconds["serving"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out["trace_kernels"] = phase27_trace(dev, arch, params, gpu)
+    seconds["trace"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log("  (c) DiT d96: Trainer.train at 16 x 1024")
+    add(phase_train(dev, arch, params, gpu, "DiT", D96_TRAIN_CELLS))
+    seconds["training"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log("  (d) DiT d96 at depth 2, card bf16 against cpu f32: inference, a training step")
+    out["mel_rel_l2"] = phase_card_vs_cpu(dev, arch, params, vocos_params, "DiT", {
+        "flash_attention": 2, "adaln_norm": 5, "grouped_conv1d": 4})[0]
+    phase_train_card_vs_cpu(dev, arch, params, expect={
+        "flash_attention_lse": 2, "flash_attention_bwd": 2, "adaln_norm": 5,
+        "grouped_conv1d": 2})
+    del params
+    torch.cuda.empty_cache()
+    seconds["card_vs_cpu"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 27: {out['phase_s']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in seconds.items())})")
     return launches, out
 
 
@@ -5655,12 +5970,21 @@ def main() -> int:
     log(f"  phase 26: {json.dumps(wide_rows)}")
     torch.cuda.empty_cache()
 
-    # a "<counter>@d>128" row's launches are phase 26's, any other
-    # "<counter>@..." row's phase 25's, every other row's the other phases'
+    log("phase 27: head width 96 read in place: DiT d96 (F5TTS_v1_Small at 8 heads of 96) "
+        "served and trained, every attention on K7 / K9 at their D = 128 tile, no pad or slice")
+    launches27, d96_rows = phase_head_width_d96(dev, gpu)
+    log(f"  phase 27: {json.dumps(d96_rows)}")
+    torch.cuda.empty_cache()
+
+    # a "<counter>@d>128" row's launches are phase 26's, a "<counter>@d96"
+    # row's phase 27's, any other "<counter>@..." row's phase 25's, every
+    # other row's the other phases'
     def row_launches(name: str) -> int:
         if "@" not in name:
             return launches.get(name, 0)
-        return (launches26 if name.endswith(WIDE) else launches25).get(base_name(name), 0)
+        phase = {WIDE: launches26, IN_PLACE: launches27}.get("@" + name.split("@")[1],
+                                                            launches25)
+        return phase.get(base_name(name), 0)
 
     idle = [name for name in rows if not row_launches(name)]
     if idle:
@@ -5670,6 +5994,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[base_name(name)],
                         "replaces": REPLACES[base_name(name)], "launches": row_launches(name),
                         **row})
+    log(f"phase seconds: {json.dumps(phase_seconds())}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu)

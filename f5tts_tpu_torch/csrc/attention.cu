@@ -3,10 +3,14 @@
 //
 // The core has three template axes:
 //  - the head width D, 64 or 128 (every mode at both; the JAX bodies take d
-//    in {64, 128}, attention.py:1189 / :1498 / :1714; the head layout's other
-//    widths up to 128 are zero-padded to one of them by the wrapper, and K7
-//    takes d = 192 / 256 in its native wide kernels and any d > 128 in its
-//    slice mode, below);
+//    in {64, 128}, attention.py:1189 / :1498 / :1714). K7 reads and writes
+//    rows of any width d <= D (d % 8 == 0) in place: D is the tiles' width,
+//    d the rows' stride; the tiles' lanes at or past d are zero-filled as
+//    they are copied and the output's are not stored, so the scores, the
+//    softmax and the kept lanes are those of a zero-padded head (its NARROW
+//    instantiations; d = D runs the others, whose strides are constants). K7 takes d
+//    in (128, 256] the same way in its native wide kernels at D = 192 / 256
+//    and d > 256 in its slice mode, below;
 //  - layout: FLAT (qkv [b, n, 3*h*D], the fused to_qkv projection output,
 //    with flat cos/sin [>=n, h*D] bf16 tables: q and k are roped in the
 //    kernel) or HEAD (q, k, v [b, h, n, D] bf16, already normed and roped);
@@ -51,10 +55,10 @@
 //    length too), -1e30 on the q tiles wholly past the length, for the
 //    backward K9 (csrc/attention_bwd.cu).
 //    flash_attn_native_kernel and flash_attn_native_lse_kernel: the same
-//    function at D = 192 and 256 (the wrapper zero-pads d in (128, 256] to
-//    one of them), one launch: the q tile resident, K and V tiles through
-//    TMA stages, the scores of a tile computed once over the whole width
-//    (`fwd_native`). flash_attn_wide_kernel and flash_attn_wide_lse_kernel,
+//    function at D = 192 and 256 (rows of any d in (128, 256] in place, TMA
+//    reading the columns past d as zeros), one launch: the q tile resident,
+//    K and V tiles through TMA stages, the scores of a tile computed once
+//    over the whole width (`fwd_native`). flash_attn_wide_kernel and flash_attn_wide_lse_kernel,
 //    the slice mode: any head width d > 128 (d % 8 == 0; the Pallas bodies
 //    take any d; the wrapper sends it d > 256), one launch. A block computes
 //    one slice of at most 128 output columns, its scores over the whole
@@ -149,25 +153,34 @@ struct FwdArgs {
     bf16* out;
     float* lse;                       // the LSE modes
     int bsz, n, heads;
+    int d;                            // HEAD: the width of q, k, v and out's rows (<= D)
     float scale;
 };
 
-// Row 0 of one (batch, head) of q, k, v and the output, and their row strides
-// (elements; k's is D): FLAT reads q and v from qkv, k from k_rot, and writes
-// the flat output; HEAD reads and writes [b, h, n, D].
-template <int LAYOUT, int D>
+// Row 0 of one (batch, head) of q, k, v and the output, their row strides
+// (elements) and the lanes a row holds: FLAT reads q and v from qkv, k from
+// k_rot, and writes the flat output, D lanes a row; HEAD reads and writes
+// the caller's [b, h, n, d] in place: with NARROW d < D lanes a row (the
+// tiles' lanes at or past d are zero-filled, the output's not stored),
+// else d = D, every stride and limit a constant (the code of a full-width
+// head is not slowed by the narrow case: measured 5-10% when it was one
+// instantiation with run-time strides, PERF.md §6).
+template <int LAYOUT, int D, bool NARROW = false>
 struct FwdView {
     const bf16 *q, *k, *v;
     bf16* out;
-    size_t qs, vs, os;
+    size_t qs, ks, vs, os;
+    int cols;
     __device__ __forceinline__ FwdView(const FwdArgs& a, int b, int h) {
         const size_t bh = (size_t)b * a.heads + h, n = a.n;
         if constexpr (LAYOUT == FW_HEAD) {
-            q = a.q + bh * n * D;
-            k = a.k + bh * n * D;
-            v = a.v + bh * n * D;
-            out = a.out + bh * n * D;
-            qs = vs = os = D;
+            const int d = NARROW ? a.d : D;
+            q = a.q + bh * n * d;
+            k = a.k + bh * n * d;
+            v = a.v + bh * n * d;
+            out = a.out + bh * n * d;
+            qs = ks = vs = os = d;
+            cols = d;
         } else {
             const size_t hd = (size_t)a.heads * D, row3 = 3 * hd;
             q = a.qkv + b * n * row3 + h * D;
@@ -175,7 +188,9 @@ struct FwdView {
             v = q + 2 * hd;
             out = a.out + b * n * hd + h * D;
             qs = vs = row3;
+            ks = D;
             os = hd;
+            cols = D;
         }
     }
 };
@@ -242,7 +257,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], uint64_t bits, int
     }
 }
 
-template <int LAYOUT, int LIVE, bool LSE, int D>
+template <int LAYOUT, int LIVE, bool LSE, int D, bool NARROW = false>
 __device__ __forceinline__ void wg_fwd(const FwdArgs& a) {
     constexpr bool KMASK = LIVE == FW_KMASK;
     constexpr int TILE = FW_TILE(D), DC = D / 8, SH = D == 64 ? 3 : 4;
@@ -256,7 +271,7 @@ __device__ __forceinline__ void wg_fwd(const FwdArgs& a) {
     const int warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t4 = lane & 3;
     const size_t bh = (size_t)b * a.heads + h;
-    const FwdView<LAYOUT, D> t(a, b, h);
+    const FwdView<LAYOUT, D, NARROW> t(a, b, h);
     // LENGTH: keys < len are live, and a q tile wholly past the length walks
     // no key tile (its rows are written as zeros, its lse as -1e30); KMASK:
     // the mask decides, len = n
@@ -287,8 +302,8 @@ __device__ __forceinline__ void wg_fwd(const FwdArgs& a) {
     };
     auto load_stage = [&](int k0, int s) {  // keys >= len zero-filled
         const uint32_t st = sStage + s * 2 * TILE;
-        tile_async<FW_NT, D>(st, t.k, D, k0, len, tid);
-        tile_async<FW_NT, D>(st + TILE, t.v, t.vs, k0, len, tid);
+        tile_async<FW_NT, D>(st, t.k, t.ks, k0, len, tid, t.cols);
+        tile_async<FW_NT, D>(st + TILE, t.v, t.vs, k0, len, tid, t.cols);
         cp_async_commit();
     };
     int kt = next_tile(0);
@@ -297,13 +312,13 @@ __device__ __forceinline__ void wg_fwd(const FwdArgs& a) {
 
     // q rows (FLAT: roped in f32 and times 1/sqrt(d), rounded to bf16) into
     // the swizzled q tile (while the first K / V copy is in flight); rows >= n
-    // are 0
+    // and lanes >= cols are 0
     if (live_tile) {
         for (int i = tid; i < 64 * DC; i += FW_NT) {
             const int r = i >> SH, c = i & (DC - 1);
             const int row = q0 + r;
             uint4 v = make_uint4(0, 0, 0, 0);
-            if (row < n) {
+            if (row < n && c * 8 < t.cols) {
                 v = *reinterpret_cast<const uint4*>(t.q + row * t.qs + c * 8);
                 if constexpr (PRESCALE) {
                     const int hd = a.heads * D;
@@ -380,7 +395,7 @@ __device__ __forceinline__ void wg_fwd(const FwdArgs& a) {
         if (LSE && t4 == 0)  // the lse of the scaled scores (HEAD: m_run is unscaled)
             a.lse[bh * n + row] =
                 l_run[r] > 0.f ? m_run[r] * (PRESCALE ? 1.f : a.scale) + logf(l_run[r]) : FW_NEG;
-        store_acc_row(t.out + row * t.os + t4 * 2, o, r, inv, D);
+        store_acc_row(t.out + row * t.os + t4 * 2, o, r, inv, t.cols);
     }
 }
 
@@ -412,14 +427,14 @@ __global__ void __launch_bounds__(FW_NT, FW_MINB(D)) fused_qkv_rope_attn_bias_ls
     wg_fwd<FW_FLAT, FW_KMASK, true, D>(a);
 }
 
-// K7
-template <int D>
+// K7 (NARROW: rows of d < D)
+template <int D, bool NARROW>
 __global__ void __launch_bounds__(FW_NT, FW_MINB(D)) flash_attn_kernel(const FwdArgs a) {
-    wg_fwd<FW_HEAD, FW_LENGTH, false, D>(a);
+    wg_fwd<FW_HEAD, FW_LENGTH, false, D, NARROW>(a);
 }
-template <int D>
+template <int D, bool NARROW>
 __global__ void __launch_bounds__(FW_NT, FW_MINB(D)) flash_attn_lse_kernel(const FwdArgs a) {
-    wg_fwd<FW_HEAD, FW_LENGTH, true, D>(a);
+    wg_fwd<FW_HEAD, FW_LENGTH, true, D, NARROW>(a);
 }
 
 // K11
@@ -538,9 +553,11 @@ __global__ void __launch_bounds__(FW_NT, 2) flash_attn_wide_lse_kernel(const Fwd
 // K7 native wide: HEAD + LENGTH at D = 192 and 256
 // ---------------------------------------------------------------------------
 
-// The function of K7 at D = 192 and 256 (the wrapper zero-pads any d in
-// (128, 256] to one of them; d > 256 takes the slice mode above). A block
-// takes 64 q rows of one head, as the D <= 128 core does: its q tile is
+// The function of K7 at D = 192 and 256, on rows of any width d in (128,
+// 256] (d % 8 == 0) read and written in place: the tensor maps' rows are d
+// wide, so TMA fills a box's columns at or past d with zeros as it does its
+// rows past n, and the epilogue stores columns < d (d > 256 takes the slice
+// mode above). A block takes 64 q rows of one head, as the D <= 128 core does: its q tile is
 // copied once and stays resident, the scores of each (q tile, key tile) are
 // computed once over the whole width (S = Q K^T, D / 16 k-steps) and the
 // output as P V at the full width (m64nDk16), so the tensor work is the
@@ -568,11 +585,11 @@ __global__ void __launch_bounds__(FW_NT, 2) flash_attn_wide_lse_kernel(const Fwd
     (1024 + FWN_TILE(D) * (1 + 2 * FWN_STAGES(D)) + 8 * (1 + 2 * FWN_STAGES(D)))
 
 struct FwdNativeArgs {
-    CUtensorMap q, k, v;  // [b * h][n][D] bf16, normed and roped q and k (`head_tensor_map`)
+    CUtensorMap q, k, v;  // [b * h][n][d] bf16, normed and roped q and k (`head_tensor_map`)
     const int* lengths;
-    bf16* out;
-    float* lse;  // the LSE mode
-    int n, heads;
+    bf16* out;            // [b, h, n, d]
+    float* lse;           // the LSE mode
+    int n, heads, d;      // d <= D, a multiple of 8: the rows' width in place
     float scale;
 };
 
@@ -659,7 +676,7 @@ __device__ __forceinline__ void fwd_native(const FwdNativeArgs& a) {
         if (LSE && t4 == 0)
             a.lse[(size_t)bh * n + row] =
                 l_run[r] > 0.f ? m_run[r] * a.scale + logf(l_run[r]) : FW_NEG;
-        store_acc_row(a.out + ((size_t)bh * n + row) * D + t4 * 2, o, r, inv, D);
+        store_acc_row(a.out + ((size_t)bh * n + row) * a.d + t4 * 2, o, r, inv, a.d);
     }
 }
 
@@ -778,7 +795,8 @@ extern "C" int f5_fused_qkv_rope_attn_bias_lse_bf16(const void* qkv, const void*
 }
 
 static FwdArgs head_args(const void* q, const void* k, const void* v, const void* mask,
-                         bool kmask, void* out, void* lse, int b, int n, int heads, float scale) {
+                         bool kmask, void* out, void* lse, int b, int n, int heads, int d,
+                         float scale) {
     FwdArgs a = {};
     a.q = (const bf16*)q;
     a.k = (const bf16*)k;
@@ -790,6 +808,7 @@ static FwdArgs head_args(const void* q, const void* k, const void* v, const void
     a.bsz = b;
     a.n = n;
     a.heads = heads;
+    a.d = d;
     a.scale = scale;
     return a;
 }
@@ -809,24 +828,25 @@ static int launch_fwd_wide(fwd_wide_kernel_t kernel, const void* q, const void* 
     return (int)cudaGetLastError();
 }
 
-// K7's native wide kernels at D = 192 / 256: one launch, a block a (64 q
-// rows, head, batch), the tensor maps made here.
+// K7's native wide kernels at D = 192 / 256 on rows of width d <= D: one
+// launch, a block a (64 q rows, head, batch), the tensor maps made here.
 template <int D>
 static int launch_fwd_native(bool lse_mode, const void* q, const void* k, const void* v,
                              const void* lengths, void* out, void* lse, int b, int n, int heads,
-                             float scale, void* stream) {
+                             int d, float scale, void* stream) {
     if (b <= 0 || n <= 0) return (int)cudaGetLastError();
     FwdNativeArgs a;
     cudaError_t err;
-    if ((err = head_tensor_map(&a.q, q, b * heads, n, D)) != cudaSuccess ||
-        (err = head_tensor_map(&a.k, k, b * heads, n, D)) != cudaSuccess ||
-        (err = head_tensor_map(&a.v, v, b * heads, n, D)) != cudaSuccess)
+    if ((err = head_tensor_map(&a.q, q, b * heads, n, d)) != cudaSuccess ||
+        (err = head_tensor_map(&a.k, k, b * heads, n, d)) != cudaSuccess ||
+        (err = head_tensor_map(&a.v, v, b * heads, n, d)) != cudaSuccess)
         return (int)err;
     a.lengths = (const int*)lengths;
     a.out = (bf16*)out;
     a.lse = (float*)lse;
     a.n = n;
     a.heads = heads;
+    a.d = d;
     a.scale = scale;
     void (*kernel)(FwdNativeArgs) =
         lse_mode ? flash_attn_native_lse_kernel<D> : flash_attn_native_kernel<D>;
@@ -837,41 +857,48 @@ static int launch_fwd_native(bool lse_mode, const void* q, const void* k, const 
     return (int)cudaGetLastError();
 }
 
-// K7 and its lse mode take any head width: 64 and 128 natively (the core),
-// 192 and 256 natively (the native wide kernels), any other d > 128 (d % 8
-// == 0) in the slice mode; any other returns cudaErrorInvalidValue.
+// K7 and its lse mode take any head width d % 8 == 0 and read and write the
+// rows of [b, h, n, d] in place: d <= 128 the core at D = 64 / 128, d in
+// (128, 256] the native wide kernels at D = 192 / 256, d > 256 the slice
+// mode; any other d returns cudaErrorInvalidValue.
+static int flash_fwd(bool lse_mode, const void* q, const void* k, const void* v,
+                     const void* lengths, void* out, void* lse, int b, int n, int heads, int d,
+                     float scale, void* stream) {
+    const int D = head_tile_width(d);
+    if (D == 256 || D == 192)
+        return (D == 256 ? launch_fwd_native<256> : launch_fwd_native<192>)(
+            lse_mode, q, k, v, lengths, out, lse, b, n, heads, d, scale, stream);
+    if (D == 0)
+        return launch_fwd_wide(lse_mode ? flash_attn_wide_lse_kernel : flash_attn_wide_kernel, q,
+                               k, v, lengths, out, lse, b, n, heads, d, scale, stream);
+#define K7_PICK(main, narrow)                                                  \
+    (D == 64 ? (narrow ? main<64, true> : main<64, false>)                     \
+             : (narrow ? main<128, true> : main<128, false>))
+    const FwdKernels kern = {nullptr, lse_mode ? K7_PICK(flash_attn_lse_kernel, d != D)
+                                               : K7_PICK(flash_attn_kernel, d != D)};
+#undef K7_PICK
+    return launch_fwd(kern, head_args(q, k, v, lengths, false, out, lse, b, n, heads, d, scale),
+                      D, stream);
+}
+
 extern "C" int f5_flash_attn_bf16(const void* q, const void* k, const void* v,
                                   const void* lengths, void* out, int b, int n, int heads,
                                   int head_dim, float sm_scale, void* stream) {
-    if (head_dim == 256 || head_dim == 192)
-        return (head_dim == 256 ? launch_fwd_native<256> : launch_fwd_native<192>)(
-            false, q, k, v, lengths, out, nullptr, b, n, heads, sm_scale, stream);
-    if (head_dim > 128)
-        return launch_fwd_wide(flash_attn_wide_kernel, q, k, v, lengths, out, nullptr, b, n,
-                               heads, head_dim, sm_scale, stream);
-    return launch_fwd(FW_PICK_HEAD(head_dim, flash_attn_kernel),
-                      head_args(q, k, v, lengths, false, out, nullptr, b, n, heads, sm_scale),
-                      head_dim, stream);
+    return flash_fwd(false, q, k, v, lengths, out, nullptr, b, n, heads, head_dim, sm_scale,
+                     stream);
 }
 
 extern "C" int f5_flash_attn_lse_bf16(const void* q, const void* k, const void* v,
                                       const void* lengths, void* out, void* lse, int b, int n,
                                       int heads, int head_dim, float sm_scale, void* stream) {
-    if (head_dim == 256 || head_dim == 192)
-        return (head_dim == 256 ? launch_fwd_native<256> : launch_fwd_native<192>)(
-            true, q, k, v, lengths, out, lse, b, n, heads, sm_scale, stream);
-    if (head_dim > 128)
-        return launch_fwd_wide(flash_attn_wide_lse_kernel, q, k, v, lengths, out, lse, b, n,
-                               heads, head_dim, sm_scale, stream);
-    return launch_fwd(FW_PICK_HEAD(head_dim, flash_attn_lse_kernel),
-                      head_args(q, k, v, lengths, false, out, lse, b, n, heads, sm_scale),
-                      head_dim, stream);
+    return flash_fwd(true, q, k, v, lengths, out, lse, b, n, heads, head_dim, sm_scale, stream);
 }
 
 extern "C" int f5_masked_flash_attn_bf16(const void* q, const void* k, const void* v,
                                          const void* kmask, void* out, int b, int n, int heads,
                                          int head_dim, float sm_scale, void* stream) {
     return launch_fwd(FW_PICK_HEAD(head_dim, masked_flash_attn_kernel),
-                      head_args(q, k, v, kmask, true, out, nullptr, b, n, heads, sm_scale),
+                      head_args(q, k, v, kmask, true, out, nullptr, b, n, heads, head_dim,
+                                sm_scale),
                       head_dim, stream);
 }

@@ -1,12 +1,15 @@
 // Attention backward kernels: K4 and its key-mask mode K8 (flat dQKV), and K9
 // (head-layout dq/dk/dv from a saved row lse), three modes of one core, each
 // at the head width D = 64 and 128 (the JAX bodies' d in {64, 128},
-// attention.py:1189 / :1628; K9's other widths up to 128 are zero-padded by
-// the wrapper). K9 takes d = 192 / 256 in its native wide kernels
+// attention.py:1189 / :1628; K9 reads and writes rows of any width d <= D,
+// d % 8 == 0, in place: the tiles' lanes at or past d zero-filled as they
+// are copied, the gradients' not stored, in its NARROW instantiations; d =
+// D runs the others, whose strides are constants). K9 takes d in (128, 256] the same
+// way in its native wide kernels at D = 192 / 256
 // (flash_bwd_native_*: the scores of a tile computed once over the whole
 // width, the resident tiles copied once, the streamed ones through TMA
-// stages; the wrapper zero-pads d in (128, 256] to one of them) and any d >
-// 128 in its slice mode (flash_bwd_wide_*: one 128-column output slice a
+// stages, whose maps read the columns past d as zeros) and any d >
+// 256 in its slice mode (flash_bwd_wide_*: one 128-column output slice a
 // block, the scores over the whole width, every operand streamed), both at
 // the end of this file.
 //
@@ -51,9 +54,10 @@
 // _flash_bwd_dq_kernel + :300 _flash_bwd_dkv_kernel (all three compute one
 // function; `_flash_backward` (:462) always takes the fused body). It is the
 // HEAD mode of the same core.
-// In:  q, k, v [b, h, n, D] bf16 (already roped), lengths [b] int32, O (K7's
-//      output) and dO [b, h, n, D] bf16, lse [b, h, n] f32 (K7's lse mode).
-// Out: dq, dk, dv [b, h, n, D] bf16; scratch delta [b, h, n] f32.
+// In:  q, k, v [b, h, n, d] bf16 (already roped; d <= D), lengths [b] int32,
+//      O (K7's output) and dO [b, h, n, d] bf16, lse [b, h, n] f32 (K7's lse
+//      mode).
+// Out: dq, dk, dv [b, h, n, d] bf16; scratch delta [b, h, n] f32.
 // Function (the Pallas bodies'): a row is live where lse > -5e29 (K7 writes
 // -1e30 on q tiles wholly past the length, so those tiles are skipped); a key
 // is live where key < length; p = exp(s * scale - lse) on live pairs, else 0;
@@ -130,28 +134,35 @@ struct BwdArgs {
     bf16* dqkv;                       // flat modes: the output
     bf16 *dq, *dk, *dv;               // HEAD: the outputs
     int bsz, n, heads;
+    int d;                            // HEAD: the width of every operand's rows (<= D)
     float scale;
 };
 
-// Row 0 of one (batch, head) of every operand, and their row strides
-// (elements): the flat modes read q_rot from dQKV's dq lanes, k_rot from the
-// scratch, v from qkv and dO flat; HEAD reads [b, h, n, D] throughout.
-template <int MODE, int D>
+// Row 0 of one (batch, head) of every operand, their row strides (elements)
+// and the lanes a row holds: the flat modes read q_rot from dQKV's dq lanes,
+// k_rot from the scratch, v from qkv and dO flat, D lanes a row; HEAD reads
+// and writes the caller's [b, h, n, d] throughout, with NARROW d < D lanes
+// a row, else d = D and every stride and limit a constant (as K7's
+// `FwdView`).
+template <int MODE, int D, bool NARROW = false>
 struct BwdView {
     const bf16 *q, *k, *v, *dO;
     bf16 *dq, *dk, *dv;
-    size_t qs, vs, os, gs;  // q / dq, v, dO, dk / dv (k's is D)
+    size_t qs, ks, vs, os, gs;  // q / dq, k, v, dO, dk / dv
+    int cols;
     __device__ __forceinline__ BwdView(const BwdArgs& a, int b, int h) {
         const size_t bh = (size_t)b * a.heads + h, n = a.n;
         if constexpr (MODE == MODE_HEAD) {
-            q = a.q + bh * n * D;
-            k = a.k + bh * n * D;
-            v = a.v + bh * n * D;
-            dO = a.dout + bh * n * D;
-            dq = a.dq + bh * n * D;
-            dk = a.dk + bh * n * D;
-            dv = a.dv + bh * n * D;
-            qs = vs = os = gs = D;
+            const int d = NARROW ? a.d : D;
+            q = a.q + bh * n * d;
+            k = a.k + bh * n * d;
+            v = a.v + bh * n * d;
+            dO = a.dout + bh * n * d;
+            dq = a.dq + bh * n * d;
+            dk = a.dk + bh * n * d;
+            dv = a.dv + bh * n * d;
+            qs = ks = vs = os = gs = d;
+            cols = d;
         } else {
             const size_t hd = (size_t)a.heads * D, row3 = 3 * hd;
             bf16* base = a.dqkv + b * n * row3 + h * D;
@@ -162,25 +173,28 @@ struct BwdView {
             v = a.qkv + b * n * row3 + 2 * hd + h * D;
             dO = a.dout + b * n * hd + h * D;
             qs = vs = gs = row3;
+            ks = D;
             os = hd;
+            cols = D;
         }
     }
 };
 
 // Scale, optionally un-rope (rope with -sin), and store this thread's rows of a
-// 64 x D accumulator (row0 = the row of d[0]) as bf16 lanes 0..D-1 of dst
+// 64 x D accumulator (row0 = the row of d[0]) as bf16 lanes 0..cols-1 of dst
 // (dst at row 0, row stride `stride`; the rope tables' lanes are h*D..).
 template <int D>
 __device__ __forceinline__ void store_acc(bf16* dst, size_t stride, const float (&d)[D / 2],
                                           int row0, int n, int h, int hd, float scale,
                                           bool unrope, const bf16* cos_t, const bf16* sin_t,
-                                          int t4) {
+                                          int t4, int cols) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int row = row0 + r * 8;
         if (row >= n) continue;
 #pragma unroll
         for (int nt = 0; nt < D / 8; ++nt) {
+            if (nt * 8 >= cols) continue;
             const int lane_d = h * D + nt * 8 + t4 * 2;
             float x0 = d[4 * nt + 2 * r] * scale, x1 = d[4 * nt + 2 * r + 1] * scale;
             if (unrope) {
@@ -249,18 +263,20 @@ __device__ __forceinline__ void flat_bwd_prologue(const BwdArgs& a) {
 }
 
 // HEAD prologue: delta [b, h, n] = rowsum(dO * O) in f32 over every row, one
-// thread per 8 lanes of a [b * h * n, D] row.
-template <int D>
+// thread per 8 of the D lanes of a [b * h * n, d] row (the lanes at or past
+// d add 0, as a zero-padded row's).
+template <int D, bool NARROW>
 __device__ __forceinline__ void head_bwd_prologue(const BwdArgs& a) {
     constexpr int SH = D == 64 ? 3 : 4;  // a row is D / 8 threads of a 256-thread block
     const long long row = (long long)blockIdx.x * (256 >> SH) + (threadIdx.x >> SH);
     const int c = (threadIdx.x & (D / 8 - 1)) * 8;
+    const int d = NARROW ? a.d : D;
     const bool valid = row < (long long)a.bsz * a.heads * a.n;
     float acc = 0.f;
-    if (valid) {
+    if (valid && c < d) {
         float o[8], g[8];
-        unpack8(*reinterpret_cast<const uint4*>(a.out + row * D + c), o);
-        unpack8(*reinterpret_cast<const uint4*>(a.dout + row * D + c), g);
+        unpack8(*reinterpret_cast<const uint4*>(a.out + row * d + c), o);
+        unpack8(*reinterpret_cast<const uint4*>(a.dout + row * d + c), g);
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc += o[j] * g[j];
     }
@@ -275,7 +291,7 @@ __device__ __forceinline__ void head_bwd_prologue(const BwdArgs& a) {
 #define DKV_LD(D) (2 * BW_WG * BW_TILE(D) + 4 * BW_TILE(D))
 #define DKV_FIXED(D) (DKV_LD(D) + 2 * 512)
 
-template <int MODE, int D>
+template <int MODE, int D, bool NARROW = false>
 __device__ __forceinline__ void bwd_dkdv(const BwdArgs& a) {
     constexpr bool BIAS = MODE == MODE_BIAS;
     constexpr int TILE = BW_TILE(D), NA = D / 2;  // NA: a 64 x D accumulator's registers
@@ -289,7 +305,7 @@ __device__ __forceinline__ void bwd_dkdv(const BwdArgs& a) {
     const size_t bh = (size_t)b * a.heads + h;
     const int len = BIAS ? n : min(max(a.lengths[b], 0), n);
     const uint8_t* km = BIAS ? a.kmask + (size_t)b * n : nullptr;
-    const BwdView<MODE, D> t(a, b, h);
+    const BwdView<MODE, D, NARROW> t(a, b, h);
 
     bool dead;
     if constexpr (BIAS) {
@@ -300,8 +316,8 @@ __device__ __forceinline__ void bwd_dkdv(const BwdArgs& a) {
         dead = k0 >= len;
     }
     if (dead) {  // every key of the block is dead: dk = dv = 0
-        zero_span<BW_NT, D>(t.dk, t.gs, k0, 64 * BW_WG, n, tid);
-        zero_span<BW_NT, D>(t.dv, t.gs, k0, 64 * BW_WG, n, tid);
+        zero_span<BW_NT, D>(t.dk, t.gs, k0, 64 * BW_WG, n, tid, t.cols);
+        zero_span<BW_NT, D>(t.dv, t.gs, k0, 64 * BW_WG, n, tid, t.cols);
         return;
     }
 
@@ -317,13 +333,13 @@ __device__ __forceinline__ void bwd_dkdv(const BwdArgs& a) {
     const float* lseb = a.lse + bh * n;
     const float* deltab = a.delta + bh * n;
     for (int j = 0; j < BW_WG; ++j) {
-        tile_async<BW_NT, D>(sK + j * TILE, t.k, D, k0 + 64 * j, n, tid);
-        tile_async<BW_NT, D>(sV + j * TILE, t.v, t.vs, k0 + 64 * j, n, tid);
+        tile_async<BW_NT, D>(sK + j * TILE, t.k, t.ks, k0 + 64 * j, n, tid, t.cols);
+        tile_async<BW_NT, D>(sV + j * TILE, t.v, t.vs, k0 + 64 * j, n, tid, t.cols);
     }
     auto load_stage = [&](int q0, int s) {
         const uint32_t st = sStage + s * 2 * TILE;
-        tile_async<BW_NT, D>(st, t.q, t.qs, q0, n, tid);
-        tile_async<BW_NT, D>(st + TILE, t.dO, t.os, q0, row_lim, tid);
+        tile_async<BW_NT, D>(st, t.q, t.qs, q0, n, tid, t.cols);
+        tile_async<BW_NT, D>(st + TILE, t.dO, t.os, q0, row_lim, tid, t.cols);
         for (int i = tid; i < 128; i += BW_NT) {
             const int row = q0 + (i & 63);
             const bool ok = row < row_lim;
@@ -407,8 +423,8 @@ __device__ __forceinline__ void bwd_dkdv(const BwdArgs& a) {
     }
     cp_async_wait_all();
     constexpr bool FLAT = MODE != MODE_HEAD;
-    store_acc<D>(t.dk, t.gs, dk, key_lo, n, h, hd, a.scale, FLAT, a.cos_t, a.sin_t, t4);
-    store_acc<D>(t.dv, t.gs, dv, key_lo, n, h, hd, 1.f, false, a.cos_t, a.sin_t, t4);
+    store_acc<D>(t.dk, t.gs, dk, key_lo, n, h, hd, a.scale, FLAT, a.cos_t, a.sin_t, t4, t.cols);
+    store_acc<D>(t.dv, t.gs, dv, key_lo, n, h, hd, 1.f, false, a.cos_t, a.sin_t, t4, t.cols);
 }
 
 // Shared-memory plan of the dq kernel: q and dO tiles (BW_WG each), then
@@ -416,7 +432,7 @@ __device__ __forceinline__ void bwd_dkdv(const BwdArgs& a) {
 // word a 64-key tile.
 #define DQ_FIXED(D) (2 * BW_WG * BW_TILE(D) + 4 * BW_TILE(D))
 
-template <int MODE, int D>
+template <int MODE, int D, bool NARROW = false>
 __device__ __forceinline__ void bwd_dq(const BwdArgs& a) {
     constexpr bool BIAS = MODE == MODE_BIAS;
     constexpr int TILE = BW_TILE(D), NA = D / 2;
@@ -429,12 +445,12 @@ __device__ __forceinline__ void bwd_dq(const BwdArgs& a) {
     const int g = lane >> 2, t4 = lane & 3;
     const size_t bh = (size_t)b * a.heads + h;
     const int len = BIAS ? n : min(max(a.lengths[b], 0), n);
-    const BwdView<MODE, D> t(a, b, h);
+    const BwdView<MODE, D, NARROW> t(a, b, h);
 
     // no live row (K4: past the length; K9: q tiles past the length, whose
     // lse K7 writes as -1e30): dq = 0
     if (!BIAS && q0 >= len) {
-        zero_span<BW_NT, D>(t.dq, t.qs, q0, 64 * BW_WG, n, tid);
+        zero_span<BW_NT, D>(t.dq, t.qs, q0, 64 * BW_WG, n, tid, t.cols);
         return;
     }
 
@@ -446,9 +462,10 @@ __device__ __forceinline__ void bwd_dq(const BwdArgs& a) {
     const int n_kt = (len + 63) / 64;
 
     for (int j = 0; j < BW_WG; ++j) {
-        tile_async<BW_NT, D>(sQ + j * TILE, t.q, t.qs, q0 + 64 * j, n, tid);  // flat: q_rot, then dq
+        tile_async<BW_NT, D>(sQ + j * TILE, t.q, t.qs, q0 + 64 * j, n, tid,
+                             t.cols);  // flat: q_rot, then dq
         tile_async<BW_NT, D>(sO + j * TILE, t.dO, t.os, q0 + 64 * j,
-                             MODE == MODE_LEN ? len : n, tid);
+                             MODE == MODE_LEN ? len : n, tid, t.cols);
     }
     if constexpr (BIAS) {
         mask_bits<BW_NT>(sBits, a.kmask + (size_t)b * n, n, n_kt * 64, tid);
@@ -464,8 +481,8 @@ __device__ __forceinline__ void bwd_dq(const BwdArgs& a) {
     };
     auto load_stage = [&](int k0, int s) {
         const uint32_t st = sStage + s * 2 * TILE;
-        tile_async<BW_NT, D>(st, t.k, D, k0, n, tid);
-        tile_async<BW_NT, D>(st + TILE, t.v, t.vs, k0, n, tid);
+        tile_async<BW_NT, D>(st, t.k, t.ks, k0, n, tid, t.cols);
+        tile_async<BW_NT, D>(st + TILE, t.v, t.vs, k0, n, tid, t.cols);
         cp_async_commit();
     };
 
@@ -538,7 +555,7 @@ __device__ __forceinline__ void bwd_dq(const BwdArgs& a) {
     }
     cp_async_wait_all();
     store_acc<D>(t.dq, t.qs, dq, row_lo, n, h, hd, a.scale, MODE != MODE_HEAD, a.cos_t, a.sin_t,
-                 t4);
+                 t4, t.cols);
 }
 
 // K4
@@ -569,18 +586,18 @@ __global__ void __launch_bounds__(BW_NT, BW_MINB_OF(D)) attn_bias_bwd_dq_kernel(
     bwd_dq<MODE_BIAS, D>(a);
 }
 
-// K9
-template <int D>
+// K9 (NARROW: rows of d < D)
+template <int D, bool NARROW>
 __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(const BwdArgs a) {
-    head_bwd_prologue<D>(a);
+    head_bwd_prologue<D, NARROW>(a);
 }
-template <int D>
+template <int D, bool NARROW>
 __global__ void __launch_bounds__(BW_NT, BW_MINB_OF(D)) flash_bwd_dkdv_kernel(const BwdArgs a) {
-    bwd_dkdv<MODE_HEAD, D>(a);
+    bwd_dkdv<MODE_HEAD, D, NARROW>(a);
 }
-template <int D>
+template <int D, bool NARROW>
 __global__ void __launch_bounds__(BW_NT, BW_MINB_OF(D)) flash_bwd_dq_kernel(const BwdArgs a) {
-    bwd_dq<MODE_HEAD, D>(a);
+    bwd_dq<MODE_HEAD, D, NARROW>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -813,8 +830,10 @@ __global__ void __launch_bounds__(BWW_NT, 2) flash_bwd_wide_dq_kernel(const BwdW
 // K9 native wide: the head-layout backward at D = 192 and 256
 // ---------------------------------------------------------------------------
 
-// The function of K9 at D = 192 and 256 (the wrapper zero-pads any d in
-// (128, 256] to one of them; d > 256 takes the slice mode above). Three
+// The function of K9 at D = 192 and 256, on rows of any width d in (128,
+// 256] (d % 8 == 0) read and written in place: the tensor maps' rows are d
+// wide (TMA fills the columns at or past d with zeros), the epilogues store
+// columns < d, delta sums over d (d > 256 takes the slice mode above). Three
 // launches, no atomics: delta (`flash_bwd_wide_delta_kernel`), dk/dv and dq,
 // each product of the two kernels computed once over the whole width. The
 // copies are TMA copies through stages with "full" / "empty" mbarriers, as
@@ -851,11 +870,11 @@ __global__ void __launch_bounds__(BWW_NT, 2) flash_bwd_wide_dq_kernel(const BwdW
     (1024 + BWN_TILE(D) * (2 + 2 * BWN_DQ_STAGES(D)) + 8 * (1 + 2 * BWN_DQ_STAGES(D)))
 
 struct BwdNativeArgs {
-    CUtensorMap q, k, v, dout;  // [b * h][n][D] bf16 (`head_tensor_map`), roped q and k
+    CUtensorMap q, k, v, dout;  // [b * h][n][d] bf16 (`head_tensor_map`), roped q and k
     const int* lengths;
     const float *lse, *delta;
-    bf16 *dq, *dk, *dv;
-    int n, heads;
+    bf16 *dq, *dk, *dv;         // [b, h, n, d]
+    int n, heads, d;            // d <= D, a multiple of 8: the rows' width in place
     float scale;
 };
 
@@ -961,12 +980,12 @@ __global__ void __launch_bounds__(BWN_DKV_NT, 1)
             load_q(qt + STAGES, s);
         }
     }
-    bf16* dst = (wg == 0 ? a.dv : a.dk) + (size_t)bh * n * D;
+    bf16* dst = (wg == 0 ? a.dv : a.dk) + (size_t)bh * n * a.d;
     const float sc = wg == 0 ? 1.f : a.scale;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int row = key_lo + r * 8;
-        if (row < n) store_acc_row(dst + (size_t)row * D + t4 * 2, acc, r, sc, D);
+        if (row < n) store_acc_row(dst + (size_t)row * a.d + t4 * 2, acc, r, sc, a.d);
     }
 }
 
@@ -1054,11 +1073,11 @@ __global__ void __launch_bounds__(BWN_DQ_NT, 1)
         fence_regs(dq);
         mbar_arrive(bEmpty + 8 * s);
     }
-    bf16* dst = a.dq + (size_t)bh * n * D;
+    bf16* dst = a.dq + (size_t)bh * n * a.d;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int row = row_lo + r * 8;
-        if (row < n) store_acc_row(dst + (size_t)row * D + t4 * 2, dq, r, a.scale, D);
+        if (row < n) store_acc_row(dst + (size_t)row * a.d + t4 * 2, dq, r, a.scale, a.d);
     }
 }
 
@@ -1178,27 +1197,28 @@ static int launch_bwd_wide(const void* q, const void* k, const void* v, const vo
     return (int)cudaGetLastError();
 }
 
-// K9's native wide kernels at D = 192 / 256: delta (the slice mode's
-// kernel), dk/dv, dq; a block a (64 rows, head, batch).
+// K9's native wide kernels at D = 192 / 256 on rows of width d <= D: delta
+// (the slice mode's kernel, over d), dk/dv, dq; a block a (64 rows, head,
+// batch).
 template <int D>
 static int launch_bwd_native(const void* q, const void* k, const void* v, const void* lengths,
                              const void* o, const void* lse, const void* dout, void* dq,
-                             void* dk, void* dv, void* delta, int b, int n, int heads,
+                             void* dk, void* dv, void* delta, int b, int n, int heads, int d,
                              float scale, void* stream) {
     if (b <= 0 || n <= 0) return (int)cudaGetLastError();
     cudaStream_t s = (cudaStream_t)stream;
     const BwdWideArgs w = {(const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lengths,
                            (const bf16*)o, (const bf16*)dout, (const float*)lse, (float*)delta,
-                           (bf16*)dq, (bf16*)dk, (bf16*)dv, b, n, heads, D, scale};
+                           (bf16*)dq, (bf16*)dk, (bf16*)dv, b, n, heads, d, scale};
     const long long rows = (long long)b * heads * n;
     flash_bwd_wide_delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(w);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     BwdNativeArgs a;
-    if ((err = head_tensor_map(&a.q, q, b * heads, n, D)) != cudaSuccess ||
-        (err = head_tensor_map(&a.k, k, b * heads, n, D)) != cudaSuccess ||
-        (err = head_tensor_map(&a.v, v, b * heads, n, D)) != cudaSuccess ||
-        (err = head_tensor_map(&a.dout, dout, b * heads, n, D)) != cudaSuccess)
+    if ((err = head_tensor_map(&a.q, q, b * heads, n, d)) != cudaSuccess ||
+        (err = head_tensor_map(&a.k, k, b * heads, n, d)) != cudaSuccess ||
+        (err = head_tensor_map(&a.v, v, b * heads, n, d)) != cudaSuccess ||
+        (err = head_tensor_map(&a.dout, dout, b * heads, n, d)) != cudaSuccess)
         return (int)err;
     a.lengths = (const int*)lengths;
     a.lse = (const float*)lse;
@@ -1208,6 +1228,7 @@ static int launch_bwd_native(const void* q, const void* k, const void* v, const 
     a.dv = (bf16*)dv;
     a.n = n;
     a.heads = heads;
+    a.d = d;
     a.scale = scale;
     if ((err = smem_limit_once((const void*)flash_bwd_native_dkdv_kernel<D>, BW_SMEM_MAX)) !=
             cudaSuccess ||
@@ -1222,19 +1243,21 @@ static int launch_bwd_native(const void* q, const void* k, const void* v, const 
     return (int)cudaGetLastError();
 }
 
-// K9 takes any head width: 64 and 128 natively (the core), 192 and 256
-// natively (the native wide kernels), any other d > 128 (d % 8 == 0) in the
-// slice mode; any other returns cudaErrorInvalidValue.
+// K9 takes any head width d % 8 == 0 and reads and writes the rows of [b,
+// h, n, d] in place: d <= 128 the core at D = 64 / 128, d in (128, 256] the
+// native wide kernels at D = 192 / 256, d > 256 the slice mode; any other d
+// returns cudaErrorInvalidValue.
 extern "C" int f5_flash_attn_bwd_bf16(const void* q, const void* k, const void* v,
                                       const void* lengths, const void* o, const void* lse,
                                       const void* dout, void* dq, void* dk, void* dv,
                                       void* delta, int b, int n, int heads, int head_dim,
                                       float scale, void* stream) {
-    if (head_dim == 256 || head_dim == 192)
-        return (head_dim == 256 ? launch_bwd_native<256> : launch_bwd_native<192>)(
-            q, k, v, lengths, o, lse, dout, dq, dk, dv, delta, b, n, heads, scale, stream);
-    if (head_dim > 128) return launch_bwd_wide(q, k, v, lengths, o, lse, dout, dq, dk, dv, delta,
-                                               b, n, heads, head_dim, scale, stream);
+    const int d = head_dim, D = head_tile_width(d);
+    if (D == 256 || D == 192)
+        return (D == 256 ? launch_bwd_native<256> : launch_bwd_native<192>)(
+            q, k, v, lengths, o, lse, dout, dq, dk, dv, delta, b, n, heads, d, scale, stream);
+    if (D == 0) return launch_bwd_wide(q, k, v, lengths, o, lse, dout, dq, dk, dv, delta, b, n,
+                                       heads, d, scale, stream);
     BwdArgs a = {};
     a.q = (const bf16*)q;
     a.k = (const bf16*)k;
@@ -1250,8 +1273,13 @@ extern "C" int f5_flash_attn_bwd_bf16(const void* q, const void* k, const void* 
     a.bsz = b;
     a.n = n;
     a.heads = heads;
+    a.d = d;
     a.scale = scale;
-    return launch_bwd(
-        BW_PICK(head_dim, flash_bwd_delta_kernel, flash_bwd_dkdv_kernel, flash_bwd_dq_kernel),
-        false, a, head_dim, stream);
+#define K9_PICK(D, N) \
+    BwdKernels{flash_bwd_delta_kernel<D, N>, flash_bwd_dkdv_kernel<D, N>, flash_bwd_dq_kernel<D, N>}
+    const bool narrow = d != D;
+    const BwdKernels kern = D == 64 ? (narrow ? K9_PICK(64, true) : K9_PICK(64, false))
+                                    : (narrow ? K9_PICK(128, true) : K9_PICK(128, false));
+#undef K9_PICK
+    return launch_bwd(kern, false, a, D, stream);
 }

@@ -67,16 +67,17 @@ __device__ __forceinline__ uint32_t tile_off(int r, int c) {
 
 // Rows [r0, r0 + 64) of a bf16 matrix (D lanes from src, row stride `stride`
 // elements) into a [64][D] tile at shared address dst, by the NT threads of
-// the block; rows >= lim are zero-filled.
+// the block; rows >= lim and the lanes at or past `cols` (a multiple of 8:
+// the head layout's rows of a width d < D, read in place) are zero-filled.
 template <int NT, int D>
 __device__ __forceinline__ void tile_async(uint32_t dst, const bf16* src, size_t stride, int r0,
-                                           int lim, int tid) {
+                                           int lim, int tid, int cols = D) {
     constexpr int DC = D / 8, SH = D == 64 ? 3 : 4;  // chunks a row, log2 of it
 #pragma unroll
     for (int i = tid; i < 64 * DC; i += NT) {
         const int r = i >> SH, c = i & (DC - 1);
         const int row = r0 + r;
-        const bool ok = row < lim;
+        const bool ok = row < lim && c * 8 < cols;
         cp_async16(dst + tile_off(r, c), src + (size_t)(ok ? row : 0) * stride + c * 8, ok);
     }
 }
@@ -128,16 +129,16 @@ struct UnitRing {
     }
 };
 
-// Zero D lanes of rows [r0, min(r0 + rows, n)) of dst (row stride `stride`).
+// Zero the lanes < cols (<= D, a multiple of 8) of rows [r0, min(r0 + rows,
+// n)) of dst (row stride `stride`).
 template <int NT, int D>
 __device__ __forceinline__ void zero_span(bf16* dst, size_t stride, int r0, int rows, int n,
-                                          int tid) {
+                                          int tid, int cols = D) {
     constexpr int DC = D / 8, SH = D == 64 ? 3 : 4;
     for (int i = tid; i < rows * DC; i += NT) {
-        const int row = r0 + (i >> SH);
-        if (row < n)
-            *reinterpret_cast<uint4*>(dst + row * stride + (i & (DC - 1)) * 8) =
-                make_uint4(0, 0, 0, 0);
+        const int row = r0 + (i >> SH), c = i & (DC - 1);
+        if (row < n && c * 8 < cols)
+            *reinterpret_cast<uint4*>(dst + row * stride + c * 8) = make_uint4(0, 0, 0, 0);
     }
 }
 
@@ -444,10 +445,11 @@ __device__ __forceinline__ void bar_arrive(int id, int threads) {
     asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// Rows [row0, row0 + 64) of slice `bh` of a [b * h][n][D] bf16 tensor (its
-// `head_tensor_map`) into a [64][D] tile at dst (the D / 64 swizzled halves of
-// `tile_off`: TMA's 128-byte swizzle is wgmma's), D / 64 copies of a [64][64]
-// box completing on `bar`; rows at or past n arrive as zeros.
+// Rows [row0, row0 + 64) of slice `bh` of a [b * h][n][d] bf16 tensor (its
+// `head_tensor_map`, d <= D) into a [64][D] tile at dst (the D / 64 swizzled
+// halves of `tile_off`: TMA's 128-byte swizzle is wgmma's), D / 64 copies of
+// a [64][64] box completing on `bar` (each box's bytes in full); rows at or
+// past n and columns at or past d arrive as zeros.
 template <int D>
 __device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map, int row0, int bh,
                                          uint32_t bar) {
@@ -460,8 +462,17 @@ __device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map, i
             : "memory");
 }
 
-// Host: the TMA map of a contiguous [bh][n][d] bf16 tensor at `base` (d % 64
-// == 0): [64][64] boxes, 128-byte swizzle, rows past n read as zeros.
+// Host: the tile width D at which K7 / K9 read and write head-layout rows of
+// width d in place: the least of 64, 128, 192 and 256 that holds d (d % 8
+// == 0: 16-byte rows); 0 past 256 (their slice mode) or for any other d.
+inline int head_tile_width(int d) {
+    if (d <= 0 || d % 8 || d > 256) return 0;
+    return d <= 64 ? 64 : d <= 128 ? 128 : d <= 192 ? 192 : 256;
+}
+
+// Host: the TMA map of a contiguous [bh][n][d] bf16 tensor at `base` (d % 8
+// == 0: TMA's global strides are multiples of 16 bytes): [64][64] boxes,
+// 128-byte swizzle, rows past n and columns past d read as zeros.
 // cuTensorMapEncodeTiled is the driver's; its address is asked of the
 // runtime once.
 inline cudaError_t head_tensor_map(CUtensorMap* map, const void* base, int bh, int n, int d) {

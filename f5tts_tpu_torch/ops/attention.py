@@ -77,15 +77,17 @@ XLA branch `bias_decomposed_ref` at any other width, and
 take more than the Pallas bodies: K3 any n up to FLAT_ATTN_MAX_N, K5 and
 K11 every n (JAX asks n % 128 == 0, and n <= FLAT_ATTN_MAX_N of K5 / K11,
 and takes its XLA formulas of the same function elsewhere). The head
-layout K7 / K9, whose Pallas body takes any d, takes any d too: 64 and 128
-natively, any other width up to 128 zero-padded to the next of them, 192
-and 256 natively in their native wide kernels (`flash_attn_native_*` /
-`flash_bwd_native_*`: the scores of a tile computed once over the whole
-width), any other width up to 256 zero-padded to the next of those, and d >
-256 in their slice mode (`flash_attn_wide_*` / `flash_bwd_wide_*`: a block a
-128-column slice of the output, the scores over the whole width; a width
-that is no multiple of WIDE_ALIGN is zero-padded to one), all through
-`_kernel_width`.
+layout K7 / K9, whose Pallas body takes any d, takes any d too: the wgmma
+core at D = 64 and 128, their native wide kernels at D = 192 and 256
+(`flash_attn_native_*` / `flash_bwd_native_*`: the scores of a tile
+computed once over the whole width), and d > 256 in their slice mode (`flash_attn_wide_*` /
+`flash_bwd_wide_*`: a block a 128-column slice of the output, the scores
+over the whole width). Up to 256 a head of width d runs at the tile width
+`_kernel_width(d)`, the least of 64 / 128 / 192 / 256 that holds it, and
+the kernels read and write the caller's [b, h, n, d] rows in place (the
+tiles' lanes past d zero-filled in shared memory, no copy in the route).
+Only a width that is no multiple of WIDE_ALIGN is zero-padded, to
+`_row_width(d)` (`_to_row_width`), and its output sliced back.
 """
 
 from __future__ import annotations
@@ -107,7 +109,7 @@ NEG_INF = -1e30
 DEAD_LSE = NEG_INF / 2
 HEAD_DIMS = (64, 128)  # the head widths the kernels are instantiated at
 NATIVE_WIDE_DIMS = (192, 256)  # K7 / K9's native wide kernels
-WIDE_ALIGN = 8  # K7 / K9's slice mode (d > 256) takes a multiple of 8 (16-byte rows)
+WIDE_ALIGN = 8  # K7 / K9 read rows of a multiple of 8 lanes (16 bytes) in place
 Q_TILE = 64    # K3's and K7's q tile: tiles wholly past the length are dead
 # the longest sequence the JAX package sends through its flat kernels; past
 # it `self_attention` splits heads for K7, as the JAX gate does
@@ -614,17 +616,25 @@ def _check_heads(*tensors, widths=HEAD_DIMS):
                              f"[b, h, n, d] tensors of one shape, d in {widths}")
 
 
-def _kernel_width(d: int) -> int:
-    """The width K7 / K9 run a head of width d at: d itself for 64, 128, 192
-    and 256, the next of them for any other d up to 256 (d in (128, 256]
-    runs the native wide kernels: padded to 192 or 256 they are faster than
-    the slice mode at d itself, `PERF.md` §6), and past 256 (the slice
-    mode) d rounded up to a multiple of WIDE_ALIGN."""
+def _row_width(d: int) -> int:
+    """The row width K7 / K9 read and write a head of width d at: d itself
+    where it is a multiple of WIDE_ALIGN (16-byte rows), else d rounded up
+    to one (the one case the route pads)."""
     if d <= 0:
         raise ValueError(f"flash attention kernel takes a positive head width: d = {d}")
-    if d > NATIVE_WIDE_DIMS[-1]:
-        return -(-d // WIDE_ALIGN) * WIDE_ALIGN
-    return next(w for w in HEAD_DIMS + NATIVE_WIDE_DIMS if d <= w)
+    return -(-d // WIDE_ALIGN) * WIDE_ALIGN
+
+
+def _kernel_width(d: int) -> int:
+    """The tile width D K7 / K9 run a head of width d at: the least of 64,
+    128, 192 and 256 that holds it (192 / 256 the native wide kernels, faster
+    there than the slice mode at d itself, `PERF.md` §6), the rows read and
+    written in place at `_row_width(d)`; past 256 (the slice mode, 128-column
+    output slices) the row width itself."""
+    row = _row_width(d)
+    if row > NATIVE_WIDE_DIMS[-1]:
+        return row
+    return next(w for w in HEAD_DIMS + NATIVE_WIDE_DIMS if row <= w)
 
 
 def _pad_heads(width: int, *tensors) -> list:
@@ -634,24 +644,34 @@ def _pad_heads(width: int, *tensors) -> list:
             else torch.nn.functional.pad(t, (0, width - t.shape[-1])) for t in tensors]
 
 
+def _to_row_width(*tensors) -> list:
+    """The [b, h, n, d] tensors as K7 / K9 take them: as they are (contiguous)
+    where d is its own row width, else zero-padded to `_row_width(d)`."""
+    d = tensors[0].shape[-1]
+    row = _row_width(d)
+    if row == d:
+        return [t.contiguous() for t in tensors]
+    return _pad_heads(row, *tensors)
+
+
 def flash_attention_fwd(q, k, v, lengths, return_lse: bool = False):
     """[b, h, n, d] q/k/v (already roped), lengths [b] int32 -> out [b, h, n, d]
     (and with `return_lse` the row lse [b, h, n] f32). Kernel K7 on CUDA (its
     lse mode with `return_lse`), `flash_attention_fwd_ref` on the CPU.
 
-    K7 is instantiated at d = 64, 128, 192 and 256 (the last two its native
-    wide kernels); d > 256 runs its slice mode. Any other width runs at
-    `_kernel_width(d)`: q, k and v zero-padded on the way in, the output
-    sliced on the way out, the scale still 1/sqrt(d) of the true d. The
-    padded lanes of q and k add exact zeros to every score and those of v
-    give output lanes that are dropped, so the scores, the softmax, the lse
-    and the kept output are the unpadded ones."""
+    K7 is instantiated at D = 64, 128, 192 and 256 (the last two its native
+    wide kernels) and reads and writes rows of any width d % 8 == 0 up to
+    256 in place at the tile width `_kernel_width(d)`: the tiles' lanes past
+    d are zero-filled in shared memory, so they add exact zeros to every
+    score and give output lanes that are not stored; d > 256 runs its slice
+    mode. A width that is no multiple of 8 is zero-padded to `_row_width(d)`
+    and its output sliced back. The scale is 1/sqrt(d) of the true d."""
     if _device("flash_attention", q) == "cpu":
         return flash_attention_fwd_ref(q, k, v, lengths, return_lse)
     d = q.shape[-1]
-    width = _kernel_width(d)
-    q, k, v = _pad_heads(width, q, k, v)
-    _check_heads(q, k, v, widths=(width,))
+    q, k, v = _to_row_width(q, k, v)
+    row = q.shape[-1]
+    _check_heads(q, k, v, widths=(row,))
     b, h, n, _ = q.shape
     _check_lengths(lengths, b, q.device)
     out = torch.empty_like(q)
@@ -662,10 +682,10 @@ def flash_attention_fwd(q, k, v, lengths, return_lse: bool = False):
         args.append(_build.ptr(lse))
     else:
         name, fn = "flash_attention", _entry("attention", "f5_flash_attn_bf16", 5)
-    err = fn(*args, b, n, h, width, 1.0 / math.sqrt(d), _build.stream_ptr(q.device))
+    err = fn(*args, b, n, h, row, 1.0 / math.sqrt(d), _build.stream_ptr(q.device))
     _build.check(err, name)
     _build.count(name)
-    if width != d:
+    if row != d:
         out = out[..., :d].contiguous()
     return (out, lse) if return_lse else out
 
@@ -673,17 +693,17 @@ def flash_attention_fwd(q, k, v, lengths, return_lse: bool = False):
 def flash_attention_bwd(q, k, v, lengths, o, lse, dout) -> tuple:
     """(dq, dk, dv) [b, h, n, d] of `flash_attention` from its saved output o
     and row lse, for the incoming gradient dout. Kernel K9 on CUDA, plain on
-    the CPU; d = 192 / 256 run K9's native wide kernels, d > 256 its slice
-    mode. A width the kernel does not take as it is runs zero-padded as the
-    forward does (`_kernel_width`): the
-    padded lanes of q, k, v, o and dO are zeros, so delta, p and ds are the
-    unpadded ones, and the kept lanes of dq, dk and dv too."""
+    the CPU; d in (128, 256] runs K9's native wide kernels, d > 256 its
+    slice mode. It reads and writes rows of width d in place as the forward
+    does (the tiles' lanes past d zero-filled, so delta, p and ds are those
+    of a zero-padded head and dq, dk and dv its kept lanes); a width that is
+    no multiple of 8 is zero-padded to `_row_width(d)` and sliced back."""
     if _device("flash_attention_bwd", q) == "cpu":
         return flash_attention_bwd_ref(q, k, v, lengths, o, lse, dout)
     d = q.shape[-1]
-    width = _kernel_width(d)
-    q, k, v, o, dout = _pad_heads(width, q, k, v, o, dout)
-    _check_heads(q, k, v, o, dout, widths=(width,))
+    q, k, v, o, dout = _to_row_width(q, k, v, o, dout)
+    row = q.shape[-1]
+    _check_heads(q, k, v, o, dout, widths=(row,))
     b, h, n, _ = q.shape
     _check_lengths(lengths, b, q.device)
     if (lse.shape != (b, h, n) or lse.dtype != torch.float32 or lse.device != q.device
@@ -693,10 +713,10 @@ def flash_attention_bwd(q, k, v, lengths, o, lse, dout) -> tuple:
     delta = torch.empty_like(lse)
     err = _entry("attention_bwd", "f5_flash_attn_bwd_bf16", 11)(
         *(_build.ptr(t) for t in (q, k, v, lengths, o, lse, dout, dq, dk, dv, delta)),
-        b, n, h, width, 1.0 / math.sqrt(d), _build.stream_ptr(q.device))
+        b, n, h, row, 1.0 / math.sqrt(d), _build.stream_ptr(q.device))
     _build.check(err, "flash_attention_bwd")
     _build.count("flash_attention_bwd")
-    if width != d:
+    if row != d:
         return tuple(g[..., :d].contiguous() for g in (dq, dk, dv))
     return dq, dk, dv
 

@@ -1,5 +1,6 @@
-"""Seeded models, requests, training text, the scorers' seeded weights and
-trace helpers shared by chip_smoke.py, the profiling scripts and tests.
+"""Seeded models, requests, training text, the scorers' seeded weights,
+trace helpers and the padded route of K7 / K9 (a yardstick for their
+in-place route) shared by chip_smoke.py, the profiling scripts and tests.
 
 Any preset of `config.PRESETS` (text_num_embeds 2545, as the JAX package's
 bench.py; other arch fields may be overridden, e.g. qk_norm) and Vocos or
@@ -80,6 +81,59 @@ def base_models(seed: int = 0, model: str = "F5TTS_v1_Base", vocoder: str = "voc
     if vocoder != "vocos":
         raise ValueError(f"unknown vocoder {vocoder!r} (vocos | bigvgan)")
     return arch, params, init_vocos(vgen, VocosConfig())
+
+
+def flash_padded_fwd(q, k, v, lengths, return_lse: bool = False):
+    """K7 (its lse mode with `return_lse`) on CUDA tensors by the route it
+    took before it read rows of any width in place: q, k and v zero-padded
+    to the tile width `_kernel_width(d)`, the kernel at that width with the
+    scale of the true d, the output sliced back. The same zeros reach
+    shared memory as in place, so the two routes are bit-equal. Counts no
+    launch."""
+    import math
+
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.ops import attention as att
+
+    d = q.shape[-1]
+    width = att._kernel_width(d)
+    q, k, v = att._pad_heads(width, q, k, v)
+    b, h, n, _ = q.shape
+    out = torch.empty_like(q)
+    ptrs = [q, k, v, lengths, out]
+    if return_lse:
+        lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+        ptrs.append(lse)
+        fn = att._entry("attention", "f5_flash_attn_lse_bf16", 6)
+    else:
+        fn = att._entry("attention", "f5_flash_attn_bf16", 5)
+    err = fn(*(_build.ptr(t) for t in ptrs), b, n, h, width, 1.0 / math.sqrt(d),
+             _build.stream_ptr(q.device))
+    _build.check(err, "flash_padded_fwd")
+    out = out[..., :d].contiguous()
+    return (out, lse) if return_lse else out
+
+
+def flash_padded_bwd(q, k, v, lengths, o, lse, dout) -> tuple:
+    """K9 by the padded route (`flash_padded_fwd`): q, k, v, o and dO
+    zero-padded to `_kernel_width(d)`, the kernel at that width with the
+    scale of the true d, dq, dk and dv sliced back. Counts no launch."""
+    import math
+
+    from f5tts_tpu_torch.ops import _build
+    from f5tts_tpu_torch.ops import attention as att
+
+    d = q.shape[-1]
+    width = att._kernel_width(d)
+    q, k, v, o, dout = att._pad_heads(width, q, k, v, o, dout)
+    b, h, n, _ = q.shape
+    grads = [torch.empty_like(q) for _ in range(3)]
+    delta = torch.empty_like(lse)
+    err = att._entry("attention_bwd", "f5_flash_attn_bwd_bf16", 11)(
+        *(_build.ptr(t) for t in (q, k, v, lengths, o, lse, dout, *grads, delta)),
+        b, n, h, width, 1.0 / math.sqrt(d), _build.stream_ptr(q.device))
+    _build.check(err, "flash_padded_bwd")
+    return tuple(g[..., :d].contiguous() for g in grads)
 
 
 def seeded_state_dict(module: torch.nn.Module, seed: int) -> dict:

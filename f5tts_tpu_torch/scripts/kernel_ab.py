@@ -41,12 +41,14 @@ outside the timing. The saved
 K7 lse mode.
 
 Shapes: chip_smoke's phase 2, b = 2, h = 16, d = 64 (with `--head-dim`,
-repeatable, each attention kernel at each width d and 1024 / d heads, the
-same h*d: 8 x 128 is DiT d128's, 4 x 256 DiT d256's; past 128 only the head
-layout K7, K7_lse and K9 take it, in their wide modes, which an older
-source refuses; this checkout's build runs a d its wrapper pads, d in (128,
-256] off 192 / 256, zero-padded as `ops.attention._kernel_width` routes it,
-the pad and the slice inside its timing, the other build at d as it is): K3 and K3_lse at n =
+repeatable, each attention kernel at each width d and 1024 // d heads,
+about the same h*d: 8 x 128 is DiT d128's, 4 x 256 DiT d256's; a width
+other than 64 and 128 only the head layout K7, K7_lse and K9 take, any d %
+8 == 0. A build whose source reads rows of width d in place (it has
+`head_tile_width`) runs d as it is; an older one runs a d up to 256 its
+kernels were not instantiated at as its wrapper did, zero-padded to the
+next of 64 / 128 / 192 / 256 (`ops.attention._kernel_width`), the pad and
+the slice inside its timing; a source without the wide mode refuses d > 128): K3 and K3_lse at n =
 1024, 3200, 4096 and K4 at n = 1024, 3072, 4096 with lengths [n, 777]; K5,
 K5_lse and K8 at joint n = 1152, 3200, 4352 (1024 / 3072 / 4096 audio + 128 /
 128 / 256 text rows, K5's masks); K7, K7_lse and K9 at n = 1024 and 4224,
@@ -172,7 +174,8 @@ def build(src: Path, out_dir: Path, tag: str, defines=()) -> tuple:
 def load(kernel: str, checkout: Path, out_dir: Path, tag: str, defines=()):
     """(the kernel's C entry, its parameters but the stream as (name, kind)
     with kind "const" or "out" for a pointer, else "int" or "float", ptxas'
-    resource lines for its __global__ functions) of `checkout`."""
+    resource lines for its __global__ functions, whether its source reads
+    head-layout rows of any width in place) of `checkout`."""
     src_name, entry_name, global_key = KERNELS[kernel][:3]
     src = checkout / "f5tts_tpu_torch" / "csrc" / src_name
     sig = re.search(r'extern "C" int ' + entry_name + r"\(([^)]*)\)", src.read_text())
@@ -195,7 +198,16 @@ def load(kernel: str, checkout: Path, out_dir: Path, tag: str, defines=()):
     fn = getattr(ctypes.CDLL(str(so)), entry_name)
     fn.argtypes = [CTYPES.get(kind, ctypes.c_void_p) for _, kind in params] + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn, params, usage
+    return fn, params, usage, "head_tile_width" in src.read_text()
+
+
+def run_width(kernel: str, d: int, in_place: bool) -> int:
+    """The width a build runs a head of d at: d itself where its source reads
+    rows of d in place, or at a width its kernels are instantiated at, or
+    past 256 (the slice mode); else the width its wrapper zero-padded d to."""
+    if kernel not in HEAD_LAYOUT or in_place or d in (64, 128, 192, 256) or d > 256:
+        return d
+    return att._kernel_width(d)
 
 
 def joint_kmask(na: int, n: int, dev) -> torch.Tensor:
@@ -375,22 +387,22 @@ def run_kernel(kernel: str, other: Path, defines, tmp: Path, dev,
     for d, shape in ((d, shape) for d in dims for shape in KERNELS[kernel][3]):
         shared, what = inputs(kernel, shape, dev, d)
         own = {tag: {name: shared[name].clone() for name, kind in params if kind == "out"}
-               for tag, (_, params, _) in built.items()}
+               for tag, (_, params, *_) in built.items()}
 
-        # this build runs a head width as the port routes it: d in (128, 256]
-        # zero-padded to its native wide width, the pad and slice timed too
-        width = att._kernel_width(d) if kernel in HEAD_LAYOUT and d > 128 else d
-        if width != d:
-            what += f", this build at d = {width} (zero-padded, the pad and slice timed)"
+        # each build runs a head width as its own wrapper routed it
+        widths = {tag: run_width(kernel, d, b[3]) for tag, b in built.items()}
+        for tag, width in widths.items():
+            if width != d:
+                what += f", the {tag} build at d = {width} (zero-padded, the pad and slice timed)"
 
         def call(tag):
-            fn, params, _ = built[tag]
+            fn, params, *_ = built[tag]
             names = {name for name, _ in params}
             args = [own[tag][name] if kind == "out" else
                     shared["x_contig"] if name == "x" and "x_contig" in shared
                     and "s0" not in names else shared[name] for name, kind in params]
-            padded = {}
-            if tag == "this" and width != d:
+            padded, width = {}, widths[tag]
+            if width != d:
                 for i, (name, kind) in enumerate(params):
                     a = args[i]
                     if name == "head_dim":
@@ -425,8 +437,8 @@ def main(argv=None) -> int:
     ap.add_argument("--kernel", action="append", choices=sorted(KERNELS),
                     help="a kernel to time (default K3); may be repeated")
     ap.add_argument("--head-dim", action="append", type=int, default=None,
-                    help="an attention kernel's head width (default 64; 128; past 128 K7, "
-                         "K7_lse and K9 only); may be repeated")
+                    help="an attention kernel's head width (default 64; 128; any other d % 8 "
+                         "== 0 K7, K7_lse and K9 only); may be repeated")
     ap.add_argument("--define", action="append", default=[],
                     help="NAME=VALUE for this checkout's build (e.g. BW_WG=1)")
     ap.add_argument("--out", default=None, help="also write the JSON result here")
@@ -437,9 +449,9 @@ def main(argv=None) -> int:
     kernels = args.kernel or ["K3"]
     wide = [d for d in head_dims if d not in (64, 128)]
     off = [k for k in kernels if k in ATTENTION and k not in HEAD_LAYOUT]
-    if wide and off or any(d <= 128 and d not in (64, 128) or d % 8 for d in wide):
-        raise SystemExit(f"head widths {wide}: only K7, K7_lse and K9 take d > 128 (d % 8 "
-                         f"== 0), and no kernel another d below 128, not {off}")
+    if wide and off or any(d <= 0 or d % 8 for d in wide):
+        raise SystemExit(f"head widths {wide}: only K7, K7_lse and K9 take a d other than 64 "
+                         f"and 128 (d % 8 == 0), not {off}")
     dev = torch.device("cuda")
     result = {"gpu": gpu_name_and_limit(), "defines": args.define, "head_dims": head_dims,
               "kernels": []}

@@ -1,4 +1,4 @@
-"""Training-step throughput of F5TTS_v1_Base, E2TTS_Base or MMDiT_Base on the card.
+"""Training-step throughput of F5TTS_v1_Base, F5TTS_v1_Small, E2TTS_Base or MMDiT_Base on the card.
 
     python -m f5tts_tpu_torch.scripts.train_bench [--model F5TTS_v1_Base]
         [--cells 16x1024,4x3072,37x1024] [--steps 5] [--out train_bench.json]
@@ -7,7 +7,8 @@
 
 The counterpart of the JAX package's scripts/train_bench.py: the preset
 `--model` (F5TTS_v1_Base: DiT, dim 1024, depth 22, 16 x 64 heads, ff_mult 2,
-text_dim 512, conv_layers 4; E2TTS_Base: UNetT, depth 24, ff_mult 4, concat
+text_dim 512, conv_layers 4; F5TTS_v1_Small: the DiT at dim 768, depth 18,
+12 x 64 heads, its conv position on K10; E2TTS_Base: UNetT, depth 24, ff_mult 4, concat
 skips; MMDiT_Base: depth 22, ff_mult 2), text_num_embeds 2545, seeded random
 weights (zero-init leaves randomised), bf16 compute, f32 params and optimizer
 state, one `TrainStep` (cfm_loss through the model's backbone -> backward ->
@@ -19,7 +20,8 @@ training rows in PERF.md); any other `--remat-policy` checkpoints each block
 (`ModelArch.checkpoint_activations`) under that policy. `--bf16-state`
 stores mu / nu and the EMA in bf16. `--heads` / `--dim-head` replace the
 preset's head split (e.g. 4 x 256 at the same inner width: every attention
-on the head layout, K7-lse / K9 in their native wide kernels).
+on the head layout, K7-lse / K9 in their native wide kernels; F5TTS_v1_Small
+at 8 x 96: K7-lse / K9 reading rows of 96 in place).
 
 Cells (b x n), by default 16 x 1024 (the JAX bench default), the long band
 (4 x 3072: K4's and, for MMDiT, K8's long joint band; 4 x 4096 for E2TTS:
@@ -48,8 +50,8 @@ import torch
 
 from f5tts_tpu_torch.scripts.common import K2_NAMES
 
-CELLS = {"F5TTS_v1_Base": "16x1024,4x3072,37x1024", "E2TTS_Base": "16x1024,4x4096,37x1024",
-         "MMDiT_Base": "16x1024,4x3072,37x1024"}
+CELLS = {"F5TTS_v1_Base": "16x1024,4x3072,37x1024", "F5TTS_v1_Small": "16x1024,4x3072,37x1024",
+         "E2TTS_Base": "16x1024,4x4096,37x1024", "MMDiT_Base": "16x1024,4x3072,37x1024"}
 CLASSES = (
     ("attention_fwd K3", ("fused_qkv_rope_attn_kernel", "fused_qkv_rope_attn_lse_kernel",
                           "fused_qkv_rope_attn_krot_kernel")),
@@ -67,6 +69,7 @@ CLASSES = (
     ("adaln_norm K1", ("AdaLNEpi",)),
     ("rms_norm K6", ("RmsEpi",)),
     ("conv_pos K2", K2_NAMES),
+    ("grouped_conv1d K10", ("grouped_conv1d_kernel",)),  # after K2, a mode of its kernel
     ("gemm", ("gemm", "Gemm", "cutlass", "xmma", "nvjet", "cublas")),
     ("conv (cuDNN, K2/ConvNeXt backward)", ("conv", "Conv", "cudnn", "dgrad", "wgrad")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),

@@ -4,7 +4,8 @@ Each hand-written kernel against its plain PyTorch version at small shapes,
 including ragged lengths and an n that is no multiple of the tiles; the
 lse modes of K3, K5 and K7 (K3 at lengths 0, 1, 64, 65 and n, K7 at 1, 63,
 64, 65, n - 1 and n; K7, its lse mode and K9 at head widths 32 to 512, past
-128 in their wide mode; K11 with all-dead key tiles between live ones and a
+128 in their wide mode, and at 96 / 160 / 200 read in place bit-equal to
+the zero-padded route; K11 with all-dead key tiles between live ones and a
 row with no live key); the attention backwards K4, K8 (each against both of
 its plain versions; K4 also at K3's edge lengths) and K9 alone and through
 autograd (K3's lse mode -> K4, K5's lse mode -> K8, K7's lse mode -> K9);
@@ -1272,11 +1273,11 @@ def test_bias_attention_kernels_d128(dev, n):
 @pytest.mark.parametrize("d", [128, 96, 32, 160, 192, 200, 256, 320, 512])
 @pytest.mark.parametrize("n,length", [(64, 1), (200, 65), (1024, 777), (4224, 3001)])
 def test_flash_attention_kernels_head_widths(dev, n, length, d):
-    """K7, its lse mode and K9 at 8 heads of d: 128 natively, 96 and 32
-    zero-padded to the next instantiated width, d > 128 in their wide mode
-    (a 128-column output slice a block, the scores over the whole width);
-    outputs, lse and gradients of the true width against the plain versions
-    at d."""
+    """K7, its lse mode and K9 at 8 heads of d: 128 natively, 96 and 32 read
+    in place at the next tile width, d in (128, 256] on the native wide
+    kernels, d > 256 in the slice mode (a 128-column output slice a block,
+    the scores over the whole width); outputs, lse and gradients of the
+    true width against the plain versions at d."""
     rng = np.random.default_rng(n + d)
     q, k, v, dout = (_bf16(rng, (2, 8, n, d), dev) for _ in range(4))
     lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)
@@ -1296,6 +1297,31 @@ def test_flash_attention_kernels_head_widths(dev, n, length, d):
     for g, w in zip(got, want):
         assert g.shape == q.shape
         _close(g, w)
+
+
+@pytest.mark.parametrize("d", [96, 160, 200])
+@pytest.mark.parametrize("n,length", [(200, 65), (1024, 777)])
+def test_flash_attention_in_place_equals_padded_route(dev, n, length, d):
+    """K7, its lse mode and K9 read and write rows of d in place at the tile
+    width 128 / 192 / 256: bit-equal to the route that zero-pads q, k, v, o
+    and dO to that width and slices the outputs (`scripts.common`'s
+    `flash_padded_fwd` / `flash_padded_bwd`), one wrapper launch each."""
+    from f5tts_tpu_torch.scripts.common import flash_padded_bwd, flash_padded_fwd
+
+    rng = np.random.default_rng(n + d + 1)
+    q, k, v, dout = (_bf16(rng, (2, 8, n, d), dev) for _ in range(4))
+    lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)
+    _build.reset_launches()
+    out = flash_attention_fwd(q, k, v, lengths)
+    o, lse = flash_attention_fwd(q, k, v, lengths, return_lse=True)
+    got = flash_attention_bwd(q, k, v, lengths, o, lse, dout)
+    assert _build.launches() == {"flash_attention": 1, "flash_attention_lse": 1,
+                                 "flash_attention_bwd": 1}
+    assert torch.equal(out, flash_padded_fwd(q, k, v, lengths))
+    o_p, lse_p = flash_padded_fwd(q, k, v, lengths, return_lse=True)
+    assert torch.equal(o, o_p) and torch.equal(lse, lse_p)
+    for g, w in zip(got, flash_padded_bwd(q, k, v, lengths, o, lse, dout)):
+        assert g.shape == q.shape and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("n", [200, 1152, 4352])

@@ -4,16 +4,19 @@ on the CPU.
 Each backbone (DiT, UNetT, MMDiT) at dim 256, depth 2 and 2 heads of 128
 (the flat kernels' second instantiated width: K3 / K5's plain versions here),
 of 96 and of 256 (off the flat gate: the DiT and UNetT take the head layout,
-K7's plain version, on the card K7 zero-padded at 96 and in its wide mode at
-256; the MMDiT computes JAX's XLA branch `bias_decomposed_ref`).
+K7's plain version, on the card K7 reading rows of 96 in place at its D = 128
+tile and its native D = 256 kernel at 256; the MMDiT computes JAX's XLA
+branch `bias_decomposed_ref`).
 Weights are numpy-seeded in the JAX tree layout and carried across by
 `convert.*_params_from_jax`; the JAX side runs its XLA path in f32
 (`backend="xla"`), the port its plain versions in f32. Also: the converter
-carries a dim_head-128 tree leaf for leaf, one `cfm_loss` gradient check of
-the DiT at 2 x 128 and at 2 x 256 (K7-lse / K9's plain versions) against
-`jax.value_and_grad`, one `InferencePipeline.infer` of the DiT at 2 x 128
-and at 2 x 256, and the operators' fakes and FLOP formulas at d = 128, 256
-and K10's new range.
+carries a dim_head-128 and a dim_head-96 tree leaf for leaf, one `cfm_loss`
+gradient check of the DiT at 2 x 128, 2 x 96 and 2 x 256 (K7-lse / K9's
+plain versions at 96 and 256) against `jax.value_and_grad`, one
+`InferencePipeline.infer` of the DiT at 2 x 128, 2 x 96 and 2 x 256, the
+width routing of K7 / K9 (the tile width D and the row width read in
+place), and the operators' fakes and FLOP formulas at d = 128, 256 and
+K10's new range.
 """
 
 import functools
@@ -86,6 +89,11 @@ def dit256():
     return _model("DiT", 256)
 
 
+@pytest.fixture(scope="module")
+def dit96():
+    return _model("DiT", 96)
+
+
 @pytest.mark.parametrize("dim_head", [128, 96, 256])
 @pytest.mark.parametrize("backbone", ["DiT", "UNetT", "MMDiT"])
 def test_forward_at_head_width_matches_jax(backbone, dim_head):
@@ -137,23 +145,78 @@ def test_self_attention_routes_by_head_width(monkeypatch):
         assert taken == [want], (dim_head, taken)
 
 
-@pytest.mark.parametrize("d,width", [(64, 64), (128, 128), (96, 128), (32, 64), (1, 64),
-                                     (160, 192), (200, 256), (256, 256), (130, 192),
-                                     (512, 512), (192, 192), (264, 264)])
-def test_kernel_width_covers_every_head_width(d, width):
-    """The width K7 / K9 run a head of d at on the card: 64, 128, 192 and
-    256 as they are (192 / 256 the native wide kernels), any other d up to
-    256 zero-padded to the next of them, d > 256 in the slice mode at the
-    next multiple of 8 (16-byte rows)."""
+@pytest.mark.parametrize("d,width,row", [(64, 64, 64), (128, 128, 128), (96, 128, 96),
+                                         (32, 64, 32), (1, 64, 8), (160, 192, 160),
+                                         (200, 256, 200), (256, 256, 256), (130, 192, 136),
+                                         (512, 512, 512), (192, 192, 192), (264, 264, 264)])
+def test_kernel_width_covers_every_head_width(d, width, row):
+    """The widths K7 / K9 run a head of d at on the card: the tile width D
+    (64, 128, 192 or 256, the least that holds d; 192 / 256 the native wide
+    kernels; past 256 the slice mode at the row width) and the row width
+    they read and write in place (d itself where it is a multiple of 8,
+    16-byte rows, else d rounded up to one)."""
     assert tatt._kernel_width(d) == width
+    assert tatt._row_width(d) == row
+
+
+@pytest.mark.parametrize("d", [1, 8, 96, 100, 104, 130, 160, 200, 248, 256, 264, 512])
+def test_row_width_rule(d, monkeypatch):
+    """`_to_row_width`, the one place K7 / K9's route may copy: a head whose
+    width is a multiple of 8 goes to the kernel as it is (the same tensors,
+    `_pad_heads` not called); any other is zero-padded to the next multiple
+    of 8, its lanes past d exactly 0 and the rest unchanged, and the route's
+    function there (the plain versions at the row width with the scale of
+    the true d, the lanes past d dropped) matches JAX's
+    `_flash_forward(return_lse=True)` and `_flash_backward_fused` (Pallas,
+    interpret mode) at d on live rows, f32, 3e-4 as
+    `test_padded_native_width_matches_jax`; the padded lanes exactly 0."""
+    calls = []
+    real = tatt._pad_heads
+    monkeypatch.setattr(tatt, "_pad_heads", lambda *a: calls.append(a[0]) or real(*a))
+    n, lengths = 128, [128, 77]
+    rng = np.random.default_rng(d)
+    q, k, v, do = (rng.standard_normal((2, 2, n, d)).astype(np.float32) for _ in range(4))
+    lens = np.array(lengths, np.int32)
+    do *= (np.arange(n)[None, :] < lens[:, None])[:, None, :, None]
+    ts = tuple(_t(x) for x in (q, k, v, do))
+    row = -(-d // 8) * 8
+    got = tatt._to_row_width(*ts)
+    if row == d:
+        assert all(g is t for g, t in zip(got, ts)) and calls == []
+        return
+    assert calls == [row]
+    for g, t in zip(got, ts):
+        assert g.shape == (2, 2, n, row) and g.is_contiguous()
+        assert torch.equal(g[..., :d], t) and not g[..., d:].any()
+    scale = 1.0 / math.sqrt(d)
+    jq, jk, jv, jl, jdo = (jnp.asarray(x) for x in (q, k, v, lens, do))
+    o_j, lse_j = jatt._flash_forward(jq, jk, jv, jl, return_lse=True)
+    o, lse = tatt.flash_attention_fwd_ref(*got[:3], _t(lens), return_lse=True, scale=scale)
+    assert not o[..., d:].any()
+    for i, ln in enumerate(lengths):
+        np.testing.assert_allclose(_np(o)[i, :, :ln, :d], np.asarray(o_j)[i, :, :ln], atol=3e-4,
+                                   rtol=3e-4)
+        np.testing.assert_allclose(_np(lse)[i, :, :ln], np.asarray(lse_j)[i, :, :ln, 0],
+                                   atol=3e-4, rtol=3e-4)
+    want = jatt._flash_backward_fused(jq, jk, jv, jl, o_j, lse_j, jdo)
+    (op,) = tatt._to_row_width(_t(np.asarray(o_j)))
+    grads = tatt.flash_attention_bwd_ref(*got[:3], _t(lens), op, _t(np.asarray(lse_j)[..., 0]),
+                                         got[3], scale=scale)
+    for g, w in zip(grads, want):
+        g = _np(g)
+        assert not g[..., d:].any()
+        for i, ln in enumerate(lengths):
+            np.testing.assert_allclose(g[i, :, :ln, :d], np.asarray(w)[i, :, :ln], atol=3e-4,
+                                       rtol=3e-4)
 
 
 @pytest.mark.parametrize("d", [160, 200])
 def test_padded_native_width_matches_jax(d):
-    """The padding the card applies to a head of d in (128, 256]: q, k, v, o
+    """What the card's tiles hold for a head of d in (128, 256]: q, k, v, o
     and dO zero-padded to `_kernel_width(d)` (192 / 256, K7 / K9's native
-    wide kernels) by `_pad_heads`, the plain versions at that width with
-    the scale of the true d, the lanes past d dropped. Against JAX's
+    wide kernels, whose TMA copies fill the lanes past d with zeros) by
+    `_pad_heads`, the plain versions at that width with the scale of the
+    true d, the lanes past d dropped. Against JAX's
     `_flash_forward(return_lse=True)` and `_flash_backward_fused` (Pallas,
     interpret mode) at n = 128, lengths [128, 77], f32 on both sides, on
     live rows (forward rows and dq rows < length, dk / dv keys < length):
@@ -194,7 +257,17 @@ def test_converter_carries_a_dim_head_128_tree(dit128):
     """Every leaf of the JAX tree comes across under its own key, unchanged:
     the attention leaves at [256, 256] (2 heads of 128), a block's own slice
     of the stacked arrays."""
-    jarch, _, tree, _ = dit128
+    _check_converter(dit128)
+
+
+def test_converter_carries_a_dim_head_96_tree(dit96):
+    """The same at 2 heads of 96: the attention leaves at [256, 192]."""
+    _check_converter(dit96)
+
+
+def _check_converter(model):
+    jarch, _, tree, _ = model
+    inner = jarch.heads * jarch.dim_head
     tp = convert.dit_params_from_jax(tree)
     assert len(tp["blocks"]) == jarch.depth
     for i in range(jarch.depth):
@@ -202,7 +275,7 @@ def test_converter_carries_a_dim_head_128_tree(dit128):
             for leaf in ("w", "b"):
                 got = _np(tp["blocks"][i]["attn"][name][leaf])
                 np.testing.assert_array_equal(got, tree["blocks"]["attn"][name][leaf][i])
-        assert tuple(tp["blocks"][i]["attn"]["to_q"]["w"].shape) == (256, 2 * 128)
+        assert tuple(tp["blocks"][i]["attn"]["to_q"]["w"].shape) == (256, inner)
     fused_j = convert.dit_params_from_jax(jax.tree.map(np.asarray, jm.fuse_backbone_qkv(tree)))
     fused_t = tm.fuse_backbone_qkv(tp)
     for leaf in ("w", "b"):
@@ -215,6 +288,13 @@ def test_cfm_loss_and_grads_at_dim_head_128_match_jax(dit128):
     and K4's plain versions) against jax.value_and_grad, the JAX key's draws
     handed to the port: loss 1e-5 relative, leaves rel-L2 <= 1e-4."""
     _check_loss_and_grads(dit128)
+
+
+def test_cfm_loss_and_grads_at_dim_head_96_match_jax(dit96):
+    """The same at 2 x 96: the head layout (off the flat gate), K7's lse mode
+    and K9's plain versions (K7 / K9 reading rows of 96 in place at their D =
+    128 tile on the card)."""
+    _check_loss_and_grads(dit96)
 
 
 def test_cfm_loss_and_grads_at_dim_head_256_match_jax(dit256):
@@ -262,6 +342,11 @@ def _check_loss_and_grads(model):
 def test_dit_128_pipeline_infer_on_cpu(dit128):
     """One InferencePipeline.infer at the DiT of 2 heads of 128 (depth 2)."""
     _pipeline_smoke(dit128)
+
+
+def test_dit_96_pipeline_infer_on_cpu(dit96):
+    """One InferencePipeline.infer at the DiT of 2 heads of 96 (depth 2)."""
+    _pipeline_smoke(dit96)
 
 
 def test_dit_256_pipeline_infer_on_cpu(dit256):
