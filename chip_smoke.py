@@ -323,11 +323,12 @@ Phases (any failure raises, and the script exits non-zero):
     and 512 at 4 heads, n = 1024 / 4224 / 64 with row 1's length
     777 / 3001 / 1, dO on every row; output, lse, dead q tiles and dq / dk
     / dv under phase 2's tolerances, K7's rel-L2 included; d 256 and 192
-    timed at n = 1024 and 4224, 512 at 1024; one call of each under
-    torch.profiler at d = 256 names flash_attn_native_kernel,
+    timed at n = 1024 and 4224, 512 at 1024; one call of each captured in
+    a CUDA graph holds at d = 256 flash_attn_native_kernel,
     flash_attn_native_lse_kernel, flash_bwd_wide_delta_kernel and
-    flash_bwd_native_{dkdv,dq}_kernel once each, at d = 320 the slice
-    mode's flash_attn_wide_kernel, flash_attn_wide_lse_kernel and
+    flash_bwd_native_{dkdv,dq}_kernel once each and no other node, at d =
+    320 and 512 the pair kernels, at 640 the slice mode's
+    flash_attn_wide_kernel, flash_attn_wide_lse_kernel and
     flash_bwd_wide_{delta,dkdv,dq}_kernel); their rows are the `@d>128` entries of the kernels line,
     whose launches are this phase's. (a) DiT d256, F5TTS_v1_Base at 4 heads
     of 256, full width, depth CUT_DEPTH, through InferencePipeline.infer at
@@ -345,8 +346,8 @@ Phases (any failure raises, and the script exits non-zero):
     the one width the route pads, to 136) under phase 2's tolerances, each
     case bit-equal to the route that zero-pads to the tile width and
     slices (its time beside the kernel's), and at each width one call of
-    each under torch.profiler: the kernels' own launches and no other CUDA
-    kernel; their rows are the `@d96` entries of the kernels line, whose
+    each captured in a CUDA graph: the kernels' own launches and no other
+    node; their rows are the `@d96` entries of the kernels line, whose
     launches are this phase's. (a) DiT d96, F5TTS_v1_Small at 8 heads of
     96 (dim 768, depth 18: the flat gate refuses 96), through
     InferencePipeline.infer at the 1024 bucket and the cap (K7 / K1 / K10
@@ -1377,6 +1378,8 @@ def phase_kernels(dev) -> dict:
     rows.update(phase_kernels_d128(dev))
     log("  head widths past 128 (K7 / K7-lse / K9's wide mode, 4 heads of 256 as DiT d256):")
     rows.update(check_flash_wide(dev))
+    log("  head width 512 at DiT d512's shapes (K7 / K7-lse / K9's pair kernels, 2 heads):")
+    rows.update(check_flash_d512(dev))
     log("  K7 / K7-lse / K9 on rows of other widths, read in place (8 heads of 96 as DiT d96):")
     rows.update(check_flash_in_place(dev))
     for name, row in rows.items():
@@ -1404,20 +1407,33 @@ WIDE = "@d>128"
 # the widths held against the plain versions (the first gives the rows'
 # times), (n, row 1's length) at each, and how many leading cases of a
 # width are timed
-WIDE_WIDTHS = (256, 192, 320, 512)
+WIDE_WIDTHS = (256, 192, 320, 384, 448, 512, 640)
 WIDE_CASES = ((1024, 777), (4224, 3001), (64, 1))
-WIDE_TIMED = {256: 2, 192: 2, 512: 1}
+WIDE_TIMED = {256: 2, 192: 2, 320: 1, 384: 1, 448: 1, 512: 2}
+# K7, its lse mode and K9 on the pair kernels at D = 384 / 512 (clusters of two
+# blocks, each owning half of the width)
+PAIR_KERNELS = {"flash_attn_pair_kernel": 1, "flash_attn_pair_lse_kernel": 1,
+                 "flash_bwd_wide_delta_kernel": 1, "flash_bwd_pair_dkdv_kernel": 1,
+                 "flash_bwd_pair_dq_kernel": 1}
 # one call of each at [2, 4, 1024, d]: the kernels by name in a profiler
 # trace, each launched once (K7's one launch a forward, K9's three a
-# backward); d = 256 runs the native wide kernels, 320 the slice mode
+# backward); d = 256 runs the native wide kernels, 320 and 512 the pair
+# kernels (at D = 384 and 512), 640 the slice mode
 WIDE_KERNELS = {
     256: {"flash_attn_native_kernel": 1, "flash_attn_native_lse_kernel": 1,
           "flash_bwd_wide_delta_kernel": 1, "flash_bwd_native_dkdv_kernel": 1,
           "flash_bwd_native_dq_kernel": 1},
-    320: {"flash_attn_wide_kernel": 1, "flash_attn_wide_lse_kernel": 1,
+    320: PAIR_KERNELS,
+    512: PAIR_KERNELS,
+    640: {"flash_attn_wide_kernel": 1, "flash_attn_wide_lse_kernel": 1,
           "flash_bwd_wide_delta_kernel": 1, "flash_bwd_wide_dkdv_kernel": 1,
           "flash_bwd_wide_dq_kernel": 1},
 }
+# the rows of the kernels line that phase 28 launches: K7, its lse mode and
+# K9 at DiT d512's shapes, [2, 2, n, 512] (CFG packs b = 2; 2 heads of 512),
+# n = 1024 (the rows' times) and the cap's 4224, each (n, row 1's length)
+D512 = "@d512"
+D512_CASES = ((1024, 777), (4224, 3001))
 
 
 # K7's one launch a forward and K9's three a backward at a tile width of
@@ -1426,18 +1442,106 @@ CORE_KERNELS = {"flash_attn_kernel": 1, "flash_attn_lse_kernel": 1, "flash_bwd_d
                 "flash_bwd_dkdv_kernel": 1, "flash_bwd_dq_kernel": 1}
 
 
-def head_kernel_launches(dev, d: int, h: int = 4) -> tuple[dict, dict]:
-    """(wrapper counts, {name: launches} of every CUDA kernel in a profiler
-    trace) of one K7, one K7-lse and one K9 call at [2, h, 1024, d],
-    lengths [1024, 777]: a kernel named in CORE_KERNELS or WIDE_KERNELS
-    under that name (the longest that its trace name holds), any other
-    under its trace name. The three calls run twice, the first time as the
-    profiler's warm-up (a trace without one dropped a kernel's event), the
-    counts and the trace the second time's; a trace that holds no CUDA
-    event at all (the profiler lost it: seen once in ten traces of a run)
-    is taken again, up to three times."""
+# every CUDA kernel of K7 / K9 by name: the core's, the native wide ones, the
+# pair ones and the slice mode's
+HEAD_KERNEL_NAMES = tuple(sorted(set(CORE_KERNELS) | {
+    name for kernels in WIDE_KERNELS.values() for name in kernels}))
+
+
+def dot_nodes(text: str) -> dict:
+    """{name: count} of the nodes of a CUDA graph's DOT file
+    (`cudaGraphDebugDotPrint`, verbose): a kernel under its function's name
+    (HEAD_KERNEL_NAMES' longest that it holds, else the whole), a copy or a
+    memset under its node type; empty nodes skipped."""
+    import re
+
+    seen: dict[str, int] = {}
+    # a node: "graph_1_node_0"[... label="{KERNEL | {ID | 0 (topoId: 1) |
+    # <function>\<\<\<grid, block, smem\>\>\>} | ..."]; a copy or memset
+    # "{MEMCPY | ...", "{MEMSET | ..."; edges carry no label
+    for node in re.split(r'(?m)^\s*"graph_\d+_node_\d+"\s*\[', text)[1:]:
+        label = re.search(r'label="(.*?)"\]', node, re.S)
+        label = " ".join((label.group(1) if label else node).split())
+        kind = re.match(r"\{\s*(\w+)", label)
+        name = kind.group(1) if kind else label[:40]
+        if name == "EMPTY":
+            continue
+        if name == "KERNEL":
+            func = re.search(r"\{ID \|[^|]*\| (.*?)(?:\\<\\<\\<|\})", label)
+            name = func.group(1).strip() if func else name
+            name = max((n for n in HEAD_KERNEL_NAMES if n in name), key=len, default=name)
+        seen[name] = seen.get(name, 0) + 1
+    if not seen:
+        raise AssertionError(f"the DOT file names no node: {text[:400]!r}")
+    return seen
+
+
+def graph_kernels(fn) -> dict:
+    """{name: launches} of every node of a CUDA graph that captures one fn()
+    call (after three warm-up calls on a side stream, as `time_ms`), named
+    as `dot_nodes` names them. Read from the graph itself
+    (`CUDAGraph.debug_dump`'s DOT file), so it sees every kernel, copy and
+    memset fn() enqueues; torch.profiler on an H100 returned traces that held
+    no CUDA event at all (about one in a hundred, three in a row once)."""
+    import tempfile
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept, uninstantiated, for debug_dump
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as tmp:
+        path = Path(tmp) / "graph.dot"
+        graph.debug_dump(str(path))
+        text = path.read_text()
+    del graph
+    return dot_nodes(text)
+
+
+def traced_kernels(fn) -> dict:
+    """{name: launches} of every CUDA kernel of the second of two fn() calls
+    under the profiler (the first its warm-up: a trace without one dropped a
+    kernel's event), a kernel of HEAD_KERNEL_NAMES under that name (the
+    longest its trace name holds), any other under its trace name. A trace
+    that holds no CUDA event at all (the profiler lost it) is logged and
+    taken again; after three such, the nodes of a captured graph of fn()
+    (`graph_kernels`) stand in for the trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
+
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        seen: dict[str, int] = {}
+        for ev in prof.events():
+            if (ev.device_type == torch.autograd.DeviceType.CUDA
+                    and not ev.name.startswith("ProfilerStep")):  # the step's own annotation
+                name = max((n for n in HEAD_KERNEL_NAMES if n in ev.name), key=len,
+                           default=ev.name)
+                seen[name] = seen.get(name, 0) + 1
+        if seen:
+            return seen
+        log(f"  the profiler's trace {attempt + 1} held no CUDA event")
+    log("  the kernels read from a captured graph instead")
+    return graph_kernels(fn)
+
+
+def head_kernel_launches(dev, d: int, h: int = 4) -> tuple[dict, dict]:
+    """(wrapper counts, `graph_kernels`) of one K7, one K7-lse and one K9
+    call at [2, h, 1024, d], lengths [1024, 777]: the counts those of the
+    captured call."""
+    import torch
 
     from f5tts_tpu_torch.ops import _build
     from f5tts_tpu_torch.ops.attention import flash_attention_bwd, flash_attention_fwd
@@ -1447,39 +1551,29 @@ def head_kernel_launches(dev, d: int, h: int = 4) -> tuple[dict, dict]:
     lengths = torch.tensor([1024, 777], dtype=torch.int32, device=dev)
     o, lse = flash_attention_fwd(q, k, v, lengths, return_lse=True)
     torch.cuda.synchronize()
-    names = set(CORE_KERNELS) | {name for kernels in WIDE_KERNELS.values() for name in kernels}
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for _ in range(2):
-                _build.reset_launches()
-                flash_attention_fwd(q, k, v, lengths)
-                flash_attention_fwd(q, k, v, lengths, return_lse=True)
-                flash_attention_bwd(q, k, v, lengths, o, lse, dout)
-                torch.cuda.synchronize()
-                prof.step()
-        seen: dict[str, int] = {}
-        for ev in prof.events():
-            if (ev.device_type == torch.autograd.DeviceType.CUDA
-                    and not ev.name.startswith("ProfilerStep")):  # the step's own annotation
-                name = max((n for n in names if n in ev.name), key=len, default=ev.name)
-                seen[name] = seen.get(name, 0) + 1
-        if seen:
-            break
+
+    def calls():
+        _build.reset_launches()
+        flash_attention_fwd(q, k, v, lengths)
+        flash_attention_fwd(q, k, v, lengths, return_lse=True)
+        flash_attention_bwd(q, k, v, lengths, o, lse, dout)
+
+    seen = graph_kernels(calls)
     return _build.launches(), seen
 
 
 def check_flash_wide(dev, h: int = 4) -> dict:
-    """K7, its lse mode and K9 in their wide mode: at each head width of
+    """K7, its lse mode and K9 past d = 128: at each head width of
     WIDE_WIDTHS (4 heads, b = 2) and each (n, row 1's length) of WIDE_CASES
     (K9 with dO on every row), `check_flash` / `check_flash_lse` /
     `check_flash_bwd` under phase 2's tolerances, the cases WIDE_TIMED
-    names timed; then one call of each under torch.profiler at d = 256 and
-    at 320: one wrapper count each, and each kernel of the width's
-    WIDE_KERNELS launched once and no other CUDA kernel (K7's one launch a forward,
-    K9's three a backward: the native wide kernels at 256, the slice mode
-    at 320). Returns the three `@d>128` rows (the errors the largest over
-    every width, the times d = 256 and n = 1024's)."""
+    names timed; then one call of each captured in a CUDA graph at each
+    width of WIDE_KERNELS: one wrapper count each, and each kernel of the
+    width's WIDE_KERNELS launched once and no other node (K7's one launch a
+    forward, K9's three a backward: the native wide kernels at 256, the
+    pair kernels at 320 and 512, the slice mode at 640). Returns the three
+    `@d>128` rows (the errors the largest over every width, the times d =
+    256 and n = 1024's)."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(23)
@@ -1494,11 +1588,30 @@ def check_flash_wide(dev, h: int = 4) -> dict:
     for d, want in WIDE_KERNELS.items():
         counts, seen = head_kernel_launches(dev, d)
         log(f"  one K7, K7-lse and K9 call at [2, 4, 1024, {d}]: wrapper counts {counts}, "
-            f"kernels in a profiler trace {seen}")
+            f"nodes of its captured graph {seen}")
         if counts != {"flash_attention": 1, "flash_attention_lse": 1,
                       "flash_attention_bwd": 1} or seen != want:
             raise AssertionError(f"d = {d} launched {counts} / {seen}, expected one each of "
                                  f"{want}")
+    return rows
+
+
+def check_flash_d512(dev) -> dict:
+    """K7, its lse mode and K9 on their pair kernels at DiT d512's shapes
+    [2, 2, n, 512], each (n, row 1's length) of D512_CASES timed, against
+    the plain versions under phase 2's tolerances (the plain versions and
+    SDPA timed beside them; PyTorch's efficient attention with an lse takes
+    d <= 256, so the lse mode has no library time). Returns the three
+    `@d512` rows (the times n = 1024's)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    rows: dict = {}
+    for name, check, cases in (("flash_attention", check_flash, D512_CASES),
+                               ("flash_attention_lse", check_flash_lse, D512_CASES),
+                               ("flash_attention_bwd", check_flash_bwd,
+                                tuple((n, ln, False) for n, ln in D512_CASES))):
+        rows[name + D512] = check(gen, dev, 2, 512, cases)
     return rows
 
 
@@ -1554,10 +1667,10 @@ def check_flash_in_place(dev) -> dict:
     n = 1024: `check_flash` / `check_flash_lse` / `check_flash_bwd` under
     phase 2's tolerances (dead tiles and keys exactly 0), n = 1024 timed;
     every case bit-equal to the zero-padded route (`padded_route_check`,
-    its time beside the kernel's); and at each width one call of each under
-    the profiler: one wrapper count each, and K7's and K9's own kernels
-    (CORE_KERNELS at a tile width of 128, WIDE_KERNELS[256]'s at 192 / 256)
-    launched once and no other CUDA kernel: no pad, no slice copy. Returns
+    its time beside the kernel's); and at each width one call of each
+    captured in a CUDA graph: one wrapper count each, and K7's and K9's own
+    kernels (CORE_KERNELS at a tile width of 128, WIDE_KERNELS[256]'s at 192
+    / 256) launched once and no other node: no pad, no slice copy. Returns
     the three `@d96` rows (the errors the largest over every width)."""
     import torch
     from f5tts_tpu_torch.ops.attention import _kernel_width
@@ -1584,7 +1697,7 @@ def check_flash_in_place(dev) -> dict:
         want = WIDE_KERNELS[256] if _kernel_width(d) > 128 else CORE_KERNELS
         counts, seen = head_kernel_launches(dev, d, h)
         log(f"  one K7, K7-lse and K9 call at [2, {h}, 1024, {d}]: wrapper counts {counts}, "
-            f"CUDA kernels in a profiler trace {seen}")
+            f"nodes of its captured graph {seen}")
         if counts != {"flash_attention": 1, "flash_attention_lse": 1,
                       "flash_attention_bwd": 1} or seen != want:
             raise AssertionError(f"d = {d} launched {counts} / {seen}, expected one each of "
@@ -5628,7 +5741,6 @@ def phase27_trace(dev, arch, params, gpu: str) -> dict:
     one, and at least four more a K7 launch there (three pads, one slice
     copy). Returns {route: CUDA kernels}."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
 
     from f5tts_tpu_torch.models import dit
     from f5tts_tpu_torch.models.modules import fuse_backbone_qkv, tree_cast
@@ -5643,35 +5755,18 @@ def phase27_trace(dev, arch, params, gpu: str) -> dict:
     time_t = torch.tensor([0.4], device=dev)
     lens = torch.tensor([777], dtype=torch.int32, device=dev)
 
-    def kernels() -> dict:
-        """The second of two forwards, the first the profiler's warm-up; a
-        trace with no CUDA event taken again (`head_kernel_launches`)."""
-        for _ in range(3):
-            with torch.no_grad(), profile(
-                    activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                    schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-                for _ in range(2):
-                    dit.dit_forward(p, statics, x, cond, text, time_t, lengths=lens,
-                                    cfg_infer=True, dtype=torch.bfloat16)
-                    torch.cuda.synchronize()
-                    prof.step()
-            seen: dict[str, int] = {}
-            for ev in prof.events():
-                if (ev.device_type == torch.autograd.DeviceType.CUDA
-                        and not ev.name.startswith("ProfilerStep")):
-                    # K7 under one name: the padded route runs its full-width
-                    # instantiation, the in-place one its NARROW one
-                    name = "flash_attn_kernel" if "flash_attn_kernel" in ev.name else ev.name
-                    seen[name] = seen.get(name, 0) + 1
-            if seen:
-                return seen
-        return seen
+    def forward():
+        with torch.no_grad():
+            dit.dit_forward(p, statics, x, cond, text, time_t, lengths=lens, cfg_infer=True,
+                            dtype=torch.bfloat16)
 
-    in_place = kernels()
+    # K7 under one name in both: the padded route's full-width
+    # instantiation, the in-place route's NARROW one
+    in_place = traced_kernels(forward)
     real = att._to_row_width
     att._to_row_width = lambda *ts: att._pad_heads(att._kernel_width(ts[0].shape[-1]), *ts)
     try:
-        padded = kernels()
+        padded = traced_kernels(forward)
     finally:
         att._to_row_width = real
     k7 = [run.get("flash_attn_kernel", 0) for run in (in_place, padded)]
@@ -5751,6 +5846,142 @@ def phase_head_width_d96(dev, gpu: str) -> tuple[dict, dict]:
     out["seconds"] = seconds
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 27: {out['phase_s']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in seconds.items())})")
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
+# phase 28
+# ---------------------------------------------------------------------------
+
+D512_HEADS = {"heads": 2, "dim_head": 512}  # F5TTS_v1_Base's inner width 1024 at 2 heads of 512
+# an update of DiT d512: K7-lse and K9 a block, K1 two a block and the final
+# norm, K2 once
+D512_TRAIN_CELLS = ((16, 1024, 2, {"flash_attention_lse": 22, "flash_attention_bwd": 22,
+                                   "adaln_norm": 45, "conv_pos_embedding": 1}),)
+def phase28_trace(dev, arch, params, gpu: str) -> dict:
+    """DiT d512's attention under the profiler: one eager bf16 backbone
+    forward (CFG packed: [2, 1024] rows at length 777) and one forward and
+    backward in training ([2, 1024] rows, lengths [1024, 777], x requiring
+    grad):
+    K7 / K7-lse / K9 on their pair kernels at D = 512 only, a launch a
+    block (the forward's `flash_attn_pair_kernel`; training's
+    `flash_attn_pair_lse_kernel`, `flash_bwd_wide_delta_kernel`,
+    `flash_bwd_pair_dkdv_kernel`, `flash_bwd_pair_dq_kernel`), no other
+    K7 / K9 kernel (the slice mode's, the native ones', the core's), and no
+    pad (`attention._pad_heads` never called). Returns {what: CUDA
+    kernels}."""
+    import torch
+
+    from f5tts_tpu_torch.models import dit
+    from f5tts_tpu_torch.models.modules import fuse_backbone_qkv, tree_cast
+    from f5tts_tpu_torch.ops import attention as att
+
+    p = fuse_backbone_qkv(tree_cast(params, torch.bfloat16, dev))
+    statics = dit.DiTStatics(arch, dev)
+    rng = np.random.default_rng(28)
+    x, cond = (torch.from_numpy(rng.standard_normal((2, 1024, 100)).astype(np.float32)).to(dev)
+               for _ in range(2))
+    text = torch.from_numpy(rng.integers(1, 2545, (2, 256)).astype(np.int32)).to(dev)
+    time_t = torch.tensor([0.4, 0.6], device=dev)
+    lens = torch.tensor([1024, 777], dtype=torch.int32, device=dev)
+
+    def infer():
+        with torch.no_grad():
+            dit.dit_forward(p, statics, x[:1], cond[:1], text[:1], time_t[:1], lengths=lens[1:],
+                            cfg_infer=True, dtype=torch.bfloat16)
+
+    def train():
+        xg = x.clone().requires_grad_()
+        out = dit.dit_forward(p, statics, xg, cond, text, time_t, lengths=lens,
+                              dtype=torch.bfloat16)
+        out.float().square().mean().backward()
+
+    pads = []
+    real = att._pad_heads
+    att._pad_heads = lambda *ts: pads.append(ts[0]) or real(*ts)
+    try:
+        runs = {"inference": traced_kernels(infer), "training": traced_kernels(train)}
+    finally:
+        att._pad_heads = real
+    want = {"inference": {"flash_attn_pair_kernel": arch.depth},
+            "training": {"flash_attn_pair_lse_kernel": arch.depth,
+                         "flash_bwd_wide_delta_kernel": arch.depth,
+                         "flash_bwd_pair_dkdv_kernel": arch.depth,
+                         "flash_bwd_pair_dq_kernel": arch.depth}}
+    for what, seen in runs.items():
+        head = {name: c for name, c in seen.items() if name in HEAD_KERNEL_NAMES}
+        log(f"  (b) {what}: {sum(seen.values())} CUDA kernels, K7 / K9's {head}, pads "
+            f"{len(pads)} [{gpu}]")
+        if head != want[what] or pads:
+            raise AssertionError(f"DiT d512's {what} trace launched {head} (expected "
+                                 f"{want[what]}), or padded {len(pads)} times")
+    return {what: sum(seen.values()) for what, seen in runs.items()}
+
+
+def phase_head_width_d512(dev, gpu: str) -> tuple[dict, dict]:
+    """Phase 28: DiT d512 (F5TTS_v1_Base at 2 heads of 512, full width and
+    depth), every attention on K7's pair kernel at D = 512 (its lse mode
+    and K9's pair kernels under grad): the flat gate refuses d = 512, so
+    K3 never runs. (a) through `InferencePipeline.infer` at the 1024 bucket
+    and the cap (K7 / K1 / K2 352 / 720 / 32 a generate, K3 none), then the
+    graphed generate against the eager one at both on a second pipeline;
+    (b) `phase28_trace`; (c) `Trainer` updates at 16 x 1024 (K7-lse / K9 /
+    K1 / K2 22 / 22 / 45 / 1 an update); (d) card bf16 against CPU f32 at
+    depth 2, inference and a training step. Returns the phase's launches
+    (every count set to 0 before each run, read after) and its rows."""
+    import torch
+    from f5tts_tpu_torch.scripts.common import REQUESTS, base_models
+
+    t_phase = time.perf_counter()
+    launches: dict[str, int] = {}
+    seconds: dict[str, float] = {}
+    out: dict = {}
+
+    def add(ran: dict) -> None:
+        for name, c in ran.items():
+            launches[name] = launches.get(name, 0) + c
+
+    t0 = time.perf_counter()
+    arch, params, vocos_params = base_models(**D512_HEADS)
+    log(f"  (a) DiT d512: dim {arch.dim}, depth {arch.depth}, {arch.heads} heads of "
+        f"{arch.dim_head}, through InferencePipeline.infer")
+    expect = generate_launches("DiT", arch)
+    if (expect.get("flash_attention") != 352 or expect.get("adaln_norm") != 720
+            or expect.get("conv_pos_embedding") != 32 or "fused_qkv_rope_attention" in expect):
+        raise AssertionError(f"DiT d512's generate should take K7 / K1 / K2 352 / 720 / 32 "
+                             f"times: {expect}")
+    pipe = make_pipeline(dev, "DiT", arch, params, vocos_params)
+    add(run_requests(pipe, [(REQUESTS[0], 1014, expect), (REQUESTS[1], 4086, expect)], gpu))
+    del pipe
+    pipe = make_pipeline(dev, "DiT", arch, params, vocos_params)
+    out["graphs"] = [compare_graph_eager(pipe, expect, total, gpu) for total in (1014, 4086)]
+    del pipe
+    torch.cuda.empty_cache()
+    seconds["serving"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out["trace_kernels"] = phase28_trace(dev, arch, params, gpu)
+    torch.cuda.empty_cache()
+    seconds["trace"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log("  (c) DiT d512: Trainer.train at 16 x 1024")
+    add(phase_train(dev, arch, params, gpu, "DiT", D512_TRAIN_CELLS))
+    seconds["training"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log("  (d) DiT d512 at depth 2, card bf16 against cpu f32: inference, a training step")
+    out["mel_rel_l2"] = phase_card_vs_cpu(dev, arch, params, vocos_params, "DiT", {
+        "flash_attention": 2, "adaln_norm": 5, "conv_pos_embedding": 2})[0]
+    phase_train_card_vs_cpu(dev, arch, params, expect={
+        "flash_attention_lse": 2, "flash_attention_bwd": 2, "adaln_norm": 5,
+        "conv_pos_embedding": 1})
+    del params
+    torch.cuda.empty_cache()
+    seconds["card_vs_cpu"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 28: {out['phase_s']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in seconds.items())})")
     return launches, out
 
 
@@ -5976,14 +6207,20 @@ def main() -> int:
     log(f"  phase 27: {json.dumps(d96_rows)}")
     torch.cuda.empty_cache()
 
+    log("phase 28: head width 512: DiT d512 (F5TTS_v1_Base at 2 heads of 512) served and "
+        "trained, every attention on K7 / K9's pair kernels at D = 512, no slice mode or pad")
+    launches28, d512_rows = phase_head_width_d512(dev, gpu)
+    log(f"  phase 28: {json.dumps(d512_rows)}")
+    torch.cuda.empty_cache()
+
     # a "<counter>@d>128" row's launches are phase 26's, a "<counter>@d96"
-    # row's phase 27's, any other "<counter>@..." row's phase 25's, every
-    # other row's the other phases'
+    # row's phase 27's, a "<counter>@d512" row's phase 28's, any other
+    # "<counter>@..." row's phase 25's, every other row's the other phases'
     def row_launches(name: str) -> int:
         if "@" not in name:
             return launches.get(name, 0)
-        phase = {WIDE: launches26, IN_PLACE: launches27}.get("@" + name.split("@")[1],
-                                                            launches25)
+        phase = {WIDE: launches26, IN_PLACE: launches27, D512: launches28}.get(
+            "@" + name.split("@")[1], launches25)
         return phase.get(base_name(name), 0)
 
     idle = [name for name in rows if not row_launches(name)]

@@ -9,8 +9,9 @@
 //    they are copied and the output's are not stored, so the scores, the
 //    softmax and the kept lanes are those of a zero-padded head (its NARROW
 //    instantiations; d = D runs the others, whose strides are constants). K7 takes d
-//    in (128, 256] the same way in its native wide kernels at D = 192 / 256
-//    and d > 256 in its slice mode, below;
+//    in (128, 256] the same way in its native wide kernels at D = 192 / 256,
+//    d in (256, 512] in its pair kernels at D = 384 / 512 and d > 512 in its
+//    slice mode, below;
 //  - layout: FLAT (qkv [b, n, 3*h*D], the fused to_qkv projection output,
 //    with flat cos/sin [>=n, h*D] bf16 tables: q and k are roped in the
 //    kernel) or HEAD (q, k, v [b, h, n, D] bf16, already normed and roped);
@@ -58,9 +59,13 @@
 //    function at D = 192 and 256 (rows of any d in (128, 256] in place, TMA
 //    reading the columns past d as zeros), one launch: the q tile resident,
 //    K and V tiles through TMA stages, the scores of a tile computed once
-//    over the whole width (`fwd_native`). flash_attn_wide_kernel and flash_attn_wide_lse_kernel,
-//    the slice mode: any head width d > 128 (d % 8 == 0; the Pallas bodies
-//    take any d; the wrapper sends it d > 256), one launch. A block computes
+//    over the whole width (`fwd_native`). flash_attn_pair_kernel and
+//    flash_attn_pair_lse_kernel: the same at D = 384 and 512 (d in (256,
+//    512]), one launch of clusters of two blocks on the same q rows, each
+//    owning half of the width and trading partial scores (`fwd_pair`).
+//    flash_attn_wide_kernel and flash_attn_wide_lse_kernel, the slice mode:
+//    any head width d > 128 (d % 8 == 0; the Pallas bodies take any d; the
+//    wrapper sends it d > 512), one launch. A block computes
 //    one slice of at most 128 output columns, its scores over the whole
 //    width (m = ceil(d / 64) sub-tile products), every operand streamed
 //    through one ring of 16 KB units, so shared memory does not grow with d
@@ -556,8 +561,8 @@ __global__ void __launch_bounds__(FW_NT, 2) flash_attn_wide_lse_kernel(const Fwd
 // The function of K7 at D = 192 and 256, on rows of any width d in (128,
 // 256] (d % 8 == 0) read and written in place: the tensor maps' rows are d
 // wide, so TMA fills a box's columns at or past d with zeros as it does its
-// rows past n, and the epilogue stores columns < d (d > 256 takes the slice
-// mode above). A block takes 64 q rows of one head, as the D <= 128 core does: its q tile is
+// rows past n, and the epilogue stores columns < d (d in (256, 512] takes
+// the pair kernels below, d > 512 the slice mode above). A block takes 64 q rows of one head, as the D <= 128 core does: its q tile is
 // copied once and stays resident, the scores of each (q tile, key tile) are
 // computed once over the whole width (S = Q K^T, D / 16 k-steps) and the
 // output as P V at the full width (m64nDk16), so the tensor work is the
@@ -689,6 +694,208 @@ template <int D>
 __global__ void __launch_bounds__(FWN_NT, 1)
     flash_attn_native_lse_kernel(const __grid_constant__ FwdNativeArgs a) {
     fwd_native<D, true>(a);
+}
+
+// ---------------------------------------------------------------------------
+// K7 pair: HEAD + LENGTH at D = 384 and 512, the width over a cluster of two
+// blocks
+// ---------------------------------------------------------------------------
+
+// The function of K7 at D = 384 and 512 as a cluster of two blocks on the
+// same 64 q rows: block r owns O's columns [r D / 2, (r + 1) D / 2) and
+// half r of the contraction, copying by TMA only its halves (its q half
+// once, resident). No producer warp: two consumer warpgroups, warpgroup w
+// taking the key tiles w, w + 2, ... through its own stage (the tile's K and
+// V halves, copied by its thread 0), with its own O (128 f32 registers a
+// thread at D = 512), m and l; the two merge at the end by (O, m, l). Each
+// key tile costs one more step than the D = 256 kernel: the partial scores
+// Q[:, r] K[:, r]^T go to the same warpgroup of the other block (`st.async`
+// into that block's shared memory, counted on its barrier) and the other's
+// come back, so both form S = S_0 + S_1 (the same bits: IEEE addition
+// commutes), the same softmax, and O_r += P V[:, r]. The tensor work is the
+// function's, a block's K / V copies are half a tile's, and the grid has two
+// blocks a q tile (DiT d512's 2 heads at the 1024 bucket: 128 blocks for
+// 132 SMs, where one block a q tile made 64). The partials go through two
+// buffers a warpgroup by the tile's parity: a block writes the other's
+// buffer of a parity again only after that block's next partial has reached
+// it, which it sends after reading that buffer. Shared memory ~225 KB at D =
+// 512 (the q half 32 KB, a 64 KB stage a warpgroup, the partials 4 x 16 KB),
+// ~185 KB at 384; 216 registers a thread at 512 (218 the lse mode), 188 at
+// 384, no spill. Measured in turns (`kernel_ab.py`, PERF.md §6): 1.11x
+// faster at [2, 2, 1024 / 4224, 512] (1.15x at 384) than the same pair with
+// one consumer warpgroup and a producer warp through two stages (itself
+// 1.71x / 1.02x
+// faster than one block a q tile whose two warpgroups split the width (the
+// partials traded in its shared memory, one K and one V slot of 64 KB; its
+// copies multicast to a cluster of two q tiles 5-12% faster than without);
+// 32-key steps through two stages were slower still).
+#define FWP_NT 256  // two consumer warpgroups
+#define FWP_HTILE(D) ((D) / 128 * WG_TILE)  // a [64][D / 2] half tile
+#define FWP_X_BYTES (128 * 32 * 4)          // a partial S: 32 f32 a thread
+#define FWP_MERGE 1                         // the named barrier of the final merge
+// shared plan: the q half, a stage of (K half, V half) a warpgroup, the
+// partials' buffers ([warpgroup][parity]), the barriers (q, then full and
+// empty a stage, then a partial's a (warpgroup, parity))
+#define FWP_SMEM(D) (1024 + 5 * FWP_HTILE(D) + 4 * FWP_X_BYTES + 8 * (1 + 4 + 4))
+
+struct FwdPairArgs {
+    CUtensorMap q, k, v;  // [b * h][n][d] bf16, normed and roped q and k (`head_tensor_map`)
+    const int* lengths;
+    bf16* out;            // [b, h, n, d]
+    float* lse;           // the LSE mode
+    int n, heads, d;      // d <= D, a multiple of 8: the rows' width in place
+    float scale;
+};
+
+template <int D, bool LSE>
+__device__ __forceinline__ void fwd_pair(const FwdPairArgs& a) {
+    constexpr int HALF = D / 2, HT = HALF / 64, HTILE = FWP_HTILE(D), NO = HALF / 2;
+    const int n = a.n;
+    const int r = cluster_rank();  // this block's column half
+    const int q0 = (blockIdx.x >> 1) * 64, h = blockIdx.y, b = blockIdx.z;
+    const int bh = b * a.heads + h;
+    // keys < len are live; a q tile wholly past the length walks no key tile
+    const int len = min(max(a.lengths[b], 0), n);
+    const int n_kt = q0 < len ? (len + 63) / 64 : 0;
+    const int hbox = min(max((a.d - r * HALF + 63) / 64, 0), HT);  // this half's boxes < d
+    uint8_t* smem = align1024(fw_smem);
+    const uint32_t sQ = smem_u32(smem), sStage = sQ + HTILE;
+    float* sX = reinterpret_cast<float*>(smem + 5 * HTILE);  // [warpgroup][parity]
+    const uint32_t bQ = smem_u32(sX) + 4 * FWP_X_BYTES, bFull = bQ + 8, bEmpty = bFull + 16,
+                   bX = bEmpty + 16;
+    zero_subtiles<FWP_NT>(smem, 5, HTILE, hbox, HT, WG_TILE);
+    if (threadIdx.x == 0) {
+        mbar_init(bQ, 1);
+        for (int i = 0; i < 2; ++i) {
+            mbar_init(bFull + 8 * i, 1);
+            mbar_init(bEmpty + 8 * i, 128);
+        }
+        for (int i = 0; i < 4; ++i) mbar_init(bX + 8 * i, 1);
+        mbar_init_fence();
+    }
+    cluster_sync();  // both blocks' barriers ready before any hand-over
+    // warpgroup w takes the key tiles w, w + 2, ... through its own stage,
+    // keeps its own O, m and l over them, and trades its partials with the
+    // other block's warpgroup w; the two merge at the end. Warp-uniform to
+    // ptxas: no wgmma below sits under a branch on it (note C7520)
+    const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+    const int tid = threadIdx.x & 127, g = (tid & 31) >> 2, t4 = tid & 3;
+    const uint32_t sK = sStage + 2 * wg * HTILE, sV = sK + HTILE;
+    const uint32_t full = bFull + 8 * wg, empty = bEmpty + 8 * wg;
+    // K and V halves of key tile kt into this warpgroup's stage (its thread 0)
+    auto load_kv = [&](int kt) {
+        mbar_expect_tx(full, 2 * hbox * WG_TILE);
+        tma_boxes(sK, &a.k, kt * 64, bh, full, hbox, WG_TILE, r * HALF);
+        tma_boxes(sV, &a.v, kt * 64, bh, full, hbox, WG_TILE, r * HALF);
+    };
+    if (tid == 0 && wg < n_kt) {
+        if (wg == 0) {
+            mbar_expect_tx(bQ, hbox * WG_TILE);
+            tma_boxes(sQ, &a.q, q0, bh, bQ, hbox, WG_TILE, r * HALF);
+        }
+        load_kv(wg);
+    }
+    const float to_log2 = a.scale * FW_LOG2E;
+    float o[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] = 0.f;
+    float m_run[2] = {FW_NEG, FW_NEG}, l_run[2] = {0.f, 0.f};
+    if (n_kt > 0) mbar_wait(bQ, 0);
+    for (int kt = wg, i = 0; kt < n_kt; kt += 2, ++i) {
+        const int xi = wg * 2 + (i & 1);  // this warpgroup's partial buffer of the tile
+        mbar_wait(full, i & 1);
+        float sc[32];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < HALF / 16; ++kk)  // this half's partial of S = Q K^T
+            wgmma_ss<0>(sc, sw128_desc(kslice(sQ, kk)), sw128_desc(kslice(sK, kk)), kk);
+        wg_commit();
+        wg_wait0();
+        fence_regs(sc);
+        if (tid == 0) mbar_expect_tx(bX + 8 * xi, FWP_X_BYTES);  // the other's partial
+        send_partial(sc, smem_u32(sX) + xi * FWP_X_BYTES, bX + 8 * xi, r ^ 1, tid);
+        recv_partial(sc, sX + xi * (FWP_X_BYTES / 4), bX + 8 * xi, (i >> 1) & 1, tid);
+        const int rem = len - kt * 64;  // key kt * 64 + j is bit j
+        const uint64_t bits = rem >= 64 ? ~0ull : (1ull << rem) - 1;
+        float alpha[2];
+        softmax_tile(sc, bits, t4, to_log2, m_run, l_run, alpha);
+#pragma unroll
+        for (int j = 0; j < NO; ++j) o[j] *= alpha[(j >> 1) & 1];
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) acc_to_a(pa[kc], sc, kc);
+        wg_fence();
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc)  // O_r += P V[:, r] (V N-major: 16 keys a step)
+            wgmma_rs<1>(o, pa[kc], mn_desc<D>(sV + kc * 2048), 1);
+        wg_commit();
+        wg_wait0();
+        fence_regs(o);
+        mbar_arrive(empty);
+        if (tid == 0 && kt + 2 < n_kt) {
+            mbar_wait(empty, i & 1);
+            load_kv(kt + 2);
+        }
+    }
+
+    // merge: warpgroup 1 leaves its O (in its stage, free now), m and l (in
+    // its partials' buffers); warpgroup 0 rescales both to the common max,
+    // sums, quad-reduces l, normalises and writes this half's columns (and
+    // the lse)
+    float* spill = reinterpret_cast<float*>(smem + 3 * HTILE);  // warpgroup 1's stage
+    float* sml = sX + 2 * (FWP_X_BYTES / 4);                    // its partials' buffers
+    if (wg == 1) {
+        // the async proxy's last reads of the stage before these stores
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#pragma unroll
+        for (int j = 0; j < NO; ++j) spill[j * 128 + tid] = o[j];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+            sml[j * 128 + tid] = m_run[j];
+            sml[(2 + j) * 128 + tid] = l_run[j];
+        }
+    }
+    bar_sync(FWP_MERGE, FWP_NT);
+    if (wg == 0) {
+        float a0[2], a1[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+            const float m1 = sml[j * 128 + tid], m = fmaxf(m_run[j], m1);
+            a0[j] = exp2f((m_run[j] - m) * to_log2);
+            a1[j] = exp2f((m1 - m) * to_log2);
+            m_run[j] = m;
+            l_run[j] = l_run[j] * a0[j] + sml[(2 + j) * 128 + tid] * a1[j];
+            l_run[j] += __shfl_xor_sync(0xffffffffu, l_run[j], 1);
+            l_run[j] += __shfl_xor_sync(0xffffffffu, l_run[j], 2);
+        }
+#pragma unroll
+        for (int j = 0; j < NO; ++j)
+            o[j] = o[j] * a0[(j >> 1) & 1] + spill[j * 128 + tid] * a1[(j >> 1) & 1];
+        const int row_lo = q0 + (tid >> 5) * 16 + g;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+            const int row = row_lo + j * 8;
+            if (row >= n) continue;
+            const float inv = l_run[j] != 0.f ? 1.f / l_run[j] : 0.f;
+            if (LSE && r == 0 && t4 == 0)
+                a.lse[(size_t)bh * n + row] =
+                    l_run[j] > 0.f ? m_run[j] * a.scale + logf(l_run[j]) : FW_NEG;
+            store_acc_row(a.out + ((size_t)bh * n + row) * a.d + r * HALF + t4 * 2, o, j, inv,
+                          a.d - r * HALF);
+        }
+    }
+    cluster_sync();  // no block leaves while the other may still hand it a partial
+}
+
+template <int D>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(FWP_NT, 1)
+    flash_attn_pair_kernel(const __grid_constant__ FwdPairArgs a) {
+    fwd_pair<D, false>(a);
+}
+template <int D>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(FWP_NT, 1)
+    flash_attn_pair_lse_kernel(const __grid_constant__ FwdPairArgs a) {
+    fwd_pair<D, true>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -857,14 +1064,47 @@ static int launch_fwd_native(bool lse_mode, const void* q, const void* k, const 
     return (int)cudaGetLastError();
 }
 
+// K7's pair kernels at D = 384 / 512 on rows of width d <= D: one launch,
+// a cluster of two blocks a (64 q rows, head, batch).
+template <int D>
+static int launch_fwd_pair(bool lse_mode, const void* q, const void* k, const void* v,
+                           const void* lengths, void* out, void* lse, int b, int n, int heads,
+                           int d, float scale, void* stream) {
+    if (b <= 0 || n <= 0) return (int)cudaGetLastError();
+    FwdPairArgs a;
+    cudaError_t err;
+    if ((err = head_tensor_map(&a.q, q, b * heads, n, d)) != cudaSuccess ||
+        (err = head_tensor_map(&a.k, k, b * heads, n, d)) != cudaSuccess ||
+        (err = head_tensor_map(&a.v, v, b * heads, n, d)) != cudaSuccess)
+        return (int)err;
+    a.lengths = (const int*)lengths;
+    a.out = (bf16*)out;
+    a.lse = (float*)lse;
+    a.n = n;
+    a.heads = heads;
+    a.d = d;
+    a.scale = scale;
+    void (*kernel)(FwdPairArgs) =
+        lse_mode ? flash_attn_pair_lse_kernel<D> : flash_attn_pair_kernel<D>;
+    err = smem_limit_once((const void*)kernel, FW_SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(2 * ((n + 63) / 64), heads, b);
+    kernel<<<grid, FWP_NT, FWP_SMEM(D), (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
 // K7 and its lse mode take any head width d % 8 == 0 and read and write the
 // rows of [b, h, n, d] in place: d <= 128 the core at D = 64 / 128, d in
-// (128, 256] the native wide kernels at D = 192 / 256, d > 256 the slice
-// mode; any other d returns cudaErrorInvalidValue.
+// (128, 256] the native wide kernels at D = 192 / 256, d in (256, 512] the
+// pair kernels at D = 384 / 512, d > 512 the slice mode; any other d
+// returns cudaErrorInvalidValue.
 static int flash_fwd(bool lse_mode, const void* q, const void* k, const void* v,
                      const void* lengths, void* out, void* lse, int b, int n, int heads, int d,
                      float scale, void* stream) {
     const int D = head_tile_width(d);
+    if (D == 512 || D == 384)
+        return (D == 512 ? launch_fwd_pair<512> : launch_fwd_pair<384>)(
+            lse_mode, q, k, v, lengths, out, lse, b, n, heads, d, scale, stream);
     if (D == 256 || D == 192)
         return (D == 256 ? launch_fwd_native<256> : launch_fwd_native<192>)(
             lse_mode, q, k, v, lengths, out, lse, b, n, heads, d, scale, stream);

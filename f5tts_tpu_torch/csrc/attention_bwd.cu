@@ -4,13 +4,15 @@
 // attention.py:1189 / :1628; K9 reads and writes rows of any width d <= D,
 // d % 8 == 0, in place: the tiles' lanes at or past d zero-filled as they
 // are copied, the gradients' not stored, in its NARROW instantiations; d =
-// D runs the others, whose strides are constants). K9 takes d in (128, 256] the same
-// way in its native wide kernels at D = 192 / 256
+// D runs the others, whose strides are constants). K9 takes d in (128, 256]
+// the same way in its native wide kernels at D = 192 / 256
 // (flash_bwd_native_*: the scores of a tile computed once over the whole
 // width, the resident tiles copied once, the streamed ones through TMA
-// stages, whose maps read the columns past d as zeros) and any d >
-// 256 in its slice mode (flash_bwd_wide_*: one 128-column output slice a
-// block, the scores over the whole width, every operand streamed), both at
+// stages, whose maps read the columns past d as zeros), d in (256, 512] in
+// its pair kernels at D = 384 / 512 (flash_bwd_pair_*: clusters of two
+// blocks each owning half of the width, trading partial scores) and any d >
+// 512 in its slice mode (flash_bwd_wide_*: one 128-column output slice a
+// block, the scores over the whole width, every operand streamed), all at
 // the end of this file.
 //
 // K4: dQKV of K3 (fused QKV + interleaved RoPE + length-masked attention), flat layout.
@@ -604,7 +606,8 @@ __global__ void __launch_bounds__(BW_NT, BW_MINB_OF(D)) flash_bwd_dq_kernel(cons
 // K9's slice mode: the head-layout backward at a head width d > 128 (d % 8 == 0)
 // ---------------------------------------------------------------------------
 
-// The function of K9 at d > 128. A block computes one slice of at most 128
+// The function of K9 at d > 128 (the wrapper sends it d > 512). A block
+// computes one slice of at most 128
 // output columns [c0, c0 + 128) of its 64 rows (blockIdx.y = head * slices
 // + slice), so its accumulators are D = 128's; S^T / dP^T (S / dP in the dq
 // kernel) contract the whole width, m = ceil(d / 64) products of 64-column
@@ -833,7 +836,8 @@ __global__ void __launch_bounds__(BWW_NT, 2) flash_bwd_wide_dq_kernel(const BwdW
 // The function of K9 at D = 192 and 256, on rows of any width d in (128,
 // 256] (d % 8 == 0) read and written in place: the tensor maps' rows are d
 // wide (TMA fills the columns at or past d with zeros), the epilogues store
-// columns < d, delta sums over d (d > 256 takes the slice mode above). Three
+// columns < d, delta sums over d (d in (256, 512] takes the pair kernels
+// below, d > 512 the slice mode above). Three
 // launches, no atomics: delta (`flash_bwd_wide_delta_kernel`), dk/dv and dq,
 // each product of the two kernels computed once over the whole width. The
 // copies are TMA copies through stages with "full" / "empty" mbarriers, as
@@ -1082,6 +1086,337 @@ __global__ void __launch_bounds__(BWN_DQ_NT, 1)
 }
 
 // ---------------------------------------------------------------------------
+// K9 pair: the head-layout backward at D = 384 and 512, the width over a
+// cluster of two blocks
+// ---------------------------------------------------------------------------
+
+// The function of K9 at D = 384 and 512 as clusters of two blocks, block r
+// owning column half r of the gradients and half r of every contraction;
+// each block copies only its halves (TMA boxes from column r D / 2), and
+// the two hand their partial scores to each other (`send_partial`:
+// `st.async` into the other block's shared memory, counted on its barrier;
+// `recv_partial`), so each score is computed once: the tensor work is the
+// function's. Three launches, no atomics: delta, dk/dv, dq.
+//  - dk/dv: a cluster a 64-key block. Warpgroup A holds dv[:, r] (128 f32
+//    registers a thread at D = 512) and computes the partial s^T = K[:, r]
+//    q[:, r]^T; B holds dk[:, r] and computes the partial dp^T = V[:, r]
+//    dO[:, r]^T; each trades its partial with the same warpgroup of the
+//    other block and forms the whole product; A hands p^T to B in shared
+//    memory (two named barriers), A adds p^T dO[:, r] to dv, B ds^T q[:, r]
+//    to dk. K and V halves resident (64 KB at D = 512); 32-row q tiles (q
+//    and dO halves, 32 KB) through BWP_DKV_STAGES stages (three at D = 512,
+//    four at 384), refilled by B's thread 0 once both warpgroups are done.
+//  - dq: a cluster 64 q rows, q and dO halves resident; 32-key steps of K
+//    and V halves through BWP_DQ_STAGES stages fed by a producer warp; one
+//    consumer warpgroup computes the partial s and dp, trades both, forms
+//    ds and adds ds K[:, r] to dq[:, r] (128 registers at D = 512).
+// Each partial goes through two buffers by the step's parity: a block writes
+// the other's buffer of a parity again only after that block's next partial
+// has reached it, which it sends after reading that buffer.
+// At D = 512: dk/dv 197 registers a thread, ~201 KB of shared memory; dq 194
+// and ~225 KB; one block an SM, two a cluster. Measured in turns
+// (`kernel_ab.py`, PERF.md §6) against two warpgroups of one block
+// splitting the width (dk/dv a block per (64 keys, column half) computing
+// s^T and dp^T in both, 1.5x the function's tensor work, one q stage at D
+// = 512; dq the split as here inside one block, the partials traded in its
+// shared memory): 1.39x faster at [2, 2, 1024, 512], 1.19x at 4224. That
+// block's dq beside this dk/dv was 7% faster than this dq at [2, 2, 4224,
+// 512] (a full card) and 18% slower at [2, 2, 1024, 512]; one design is
+// kept for the three kernels.
+#define BWP_QR 32                                 // dk/dv: q rows a step; dq: keys a step
+#define BWP_HT(D) ((D) / 128)                     // 64-column sub-tiles of a half
+#define BWP_RES(D) (BWP_HT(D) * WG_TILE)          // a [64][D / 2] half tile
+#define BWP_STEP(D) (BWP_HT(D) * WG_SUB32)        // a [32][D / 2] half tile
+#define BWP_PART (128 * 16 * 4)                   // a partial of a step: 16 f32 a thread
+#define BWP_DKV_NT 256                            // warpgroups A and B
+#define BWP_DKV_STAGES(D) ((D) == 512 ? 3 : 4)
+#define BWP_DQ_NT 160                             // the consumer warpgroup, then the producer warp
+#define BWP_DQ_STAGES 4
+#define BWP_P_BYTES (128 * 16 * 4)  // dk/dv: p^T from A to B, 16 f32 a thread
+#define BWP_P_FULL 1                // dk/dv: the named barriers of the p^T hand-over
+#define BWP_P_FREE 2
+// dk/dv: K, V, the stages of (q, dO), p^T, the partials (two parities x A's,
+// B's), the barriers (K / V, full and empty a stage, a partial's)
+#define BWP_DKV_SMEM(D)                                                             \
+    (1024 + 2 * BWP_RES(D) + 2 * BWP_DKV_STAGES(D) * BWP_STEP(D) + BWP_P_BYTES + \
+     4 * BWP_PART + 8 * (1 + 2 * BWP_DKV_STAGES(D) + 4))
+// dq: q, dO, the stages of (K, V), the partials (two parities x s and dp),
+// the barriers (q / dO, full and empty a stage, a partial's a parity)
+#define BWP_DQ_SMEM(D)                                                           \
+    (1024 + 2 * BWP_RES(D) + 2 * BWP_DQ_STAGES * BWP_STEP(D) + 4 * BWP_PART + \
+     8 * (1 + 2 * BWP_DQ_STAGES + 2))
+
+struct BwdPairArgs {
+    CUtensorMap q, k, v, dout;  // [b * h][n][d] bf16, roped q and k: the resident tiles'
+                                // maps of 64-row boxes, the streamed ones' of 32-row boxes
+    const int* lengths;
+    const float *lse, *delta;
+    bf16 *dq, *dk, *dv;         // [b, h, n, d]
+    int n, heads, d;            // d <= D, a multiple of 8: the rows' width in place
+    float scale;
+};
+
+template <int D>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWP_DKV_NT, 1)
+    flash_bwd_pair_dkdv_kernel(const __grid_constant__ BwdPairArgs a) {
+    constexpr int HALF = D / 2, HT = BWP_HT(D), RES = BWP_RES(D), STEP = BWP_STEP(D),
+                  STAGES = BWP_DKV_STAGES(D), NA = HALF / 2;
+    const int n = a.n;
+    const int r = cluster_rank();  // this block's column half
+    const int k0 = (blockIdx.x >> 1) * 64, h = blockIdx.y, b = blockIdx.z;
+    const int bh = b * a.heads + h;
+    const int len = min(max(a.lengths[b], 0), n);
+    // the 32-row q tiles up to the length's 64-row tile (the rows past the
+    // length inside it have a real lse; those of the tiles past it are dead
+    // by K7's lse) and n; a key block wholly past the length walks none: its
+    // dk and dv are zeros
+    const int n_qt = k0 < len ? min(2 * ((len + 63) / 64), (n + 31) / 32) : 0;
+    const int hbox = min(max((a.d - r * HALF + 63) / 64, 0), HT);  // this half's boxes < d
+    uint8_t* smem = align1024(bw_smem);
+    const uint32_t sK = smem_u32(smem), sV = sK + RES, sStage = sV + RES;
+    float* sP = reinterpret_cast<float*>(smem + 2 * RES + 2 * STAGES * STEP);
+    float* sX = sP + BWP_P_BYTES / 4;  // [parity][A, B] partials from the other block
+    const uint32_t bKV = smem_u32(sX) + 4 * BWP_PART, bFull = bKV + 8,
+                   bEmpty = bFull + 8 * STAGES, bX = bEmpty + 8 * STAGES;
+    zero_subtiles<BWP_DKV_NT>(smem, 2, RES, hbox, HT, WG_TILE);
+    zero_subtiles<BWP_DKV_NT>(smem + 2 * RES, 2 * STAGES, STEP, hbox, HT, WG_SUB32);
+    if (threadIdx.x == 0) {
+        mbar_init(bKV, 1);
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(bFull + 8 * s, 1);
+            mbar_init(bEmpty + 8 * s, BWP_DKV_NT);  // both warpgroups read every stage
+        }
+        for (int i = 0; i < 4; ++i) mbar_init(bX + 8 * i, 1);
+        mbar_init_fence();
+    }
+    cluster_sync();  // both blocks' barriers ready before any hand-over
+    // warpgroup 0 (A): s^T, p^T, dv[:, r]; warpgroup 1 (B): dp^T, ds^T,
+    // dk[:, r]. The two accumulators of a thread hold the same (key, query)
+    // entries, and so do those of a thread and its peer in the other block.
+    const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);  // uniform to ptxas
+    const int tid = threadIdx.x & 127;
+    const int g = (tid & 31) >> 2, t4 = tid & 3;
+    auto load_q = [&](int qt, int s) {
+        mbar_expect_tx(bFull + 8 * s, 2 * hbox * WG_SUB32);
+        tma_boxes(sStage + 2 * s * STEP, &a.q, qt * BWP_QR, bh, bFull + 8 * s, hbox, WG_SUB32,
+                  r * HALF);
+        tma_boxes(sStage + (2 * s + 1) * STEP, &a.dout, qt * BWP_QR, bh, bFull + 8 * s, hbox,
+                  WG_SUB32, r * HALF);
+    };
+    if (threadIdx.x == 0 && n_qt > 0) {
+        mbar_expect_tx(bKV, 2 * hbox * WG_TILE);
+        tma_boxes(sK, &a.k, k0, bh, bKV, hbox, WG_TILE, r * HALF);
+        tma_boxes(sV, &a.v, k0, bh, bKV, hbox, WG_TILE, r * HALF);
+        for (int qt = 0; qt < STAGES && qt < n_qt; ++qt) load_q(qt, qt);
+    }
+
+    const int key_lo = k0 + (tid >> 5) * 16 + g;  // this thread's rows are keys
+    const bool key_live[2] = {key_lo < len, key_lo + 8 < len};
+    const float scale2 = a.scale * BW_LOG2E;  // p = 2^(s * scale * log2(e) - lse * log2(e))
+    const uint32_t aS = wg == 0 ? sK : sV;     // A of the scores product
+    // A reads the q rows' lse, B their delta; a row past n is dead (lse
+    // -1e30) and adds nothing
+    const float* rowv = (wg == 0 ? a.lse : a.delta) + (size_t)bh * n;
+    const float past_n = wg == 0 ? -1e30f : 0.f;
+    float acc[NA];
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+    if (n_qt > 0) {
+        mbar_wait(bKV, 0);
+        if (wg == 1) bar_arrive(BWP_P_FREE, BWP_DKV_NT);  // p^T's buffer starts free
+    }
+    for (int qt = 0; qt < n_qt; ++qt) {
+        const int s = qt % STAGES, parity = (qt / STAGES) & 1, q0 = qt * BWP_QR;
+        const int xi = (qt & 1) * 2 + wg;  // this warpgroup's partial buffer of the step
+        mbar_wait(bFull + 8 * s, parity);
+        const uint32_t sQ = sStage + 2 * s * STEP, sO = sQ + STEP;
+        float t[16];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < HALF / 16; ++kk)  // A: s^T = K q^T; B: dp^T = V dO^T, half r
+            wgmma_ss<0>(t, sw128_desc(kslice(aS, kk)),
+                        sw128_desc(kslice(wg == 0 ? sQ : sO, kk, WG_SUB32)), kk);
+        wg_commit();
+        float rv[8];  // at this thread's q columns (i >> 1) * 8 + t4 * 2 + (i & 1)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const int row = q0 + (i >> 1) * 8 + t4 * 2 + (i & 1);
+            rv[i] = row < n ? rowv[row] : past_n;
+        }
+        wg_wait0();
+        fence_regs(t);
+        if (tid == 0) mbar_expect_tx(bX + 8 * xi, BWP_PART);  // the other's partial
+        send_partial(t, smem_u32(sX) + xi * BWP_PART, bX + 8 * xi, r ^ 1, tid);
+        recv_partial(t, sX + xi * (BWP_PART / 4), bX + 8 * xi, (qt >> 1) & 1, tid);
+        if (wg == 0) {
+#pragma unroll
+            for (int i = 0; i < 16; ++i) {
+                const float l = rv[(i >> 2) * 2 + (i & 1)];
+                t[i] = key_live[(i >> 1) & 1] && l > BW_DEAD
+                           ? exp2f(fmaf(t[i], scale2, -l * BW_LOG2E))
+                           : 0.f;
+            }
+            bar_sync(BWP_P_FREE, BWP_DKV_NT);
+#pragma unroll
+            for (int i = 0; i < 16; ++i) sP[i * 128 + tid] = t[i];
+            bar_arrive(BWP_P_FULL, BWP_DKV_NT);
+        } else {
+            bar_sync(BWP_P_FULL, BWP_DKV_NT);
+#pragma unroll
+            for (int i = 0; i < 16; ++i)
+                t[i] = sP[i * 128 + tid] * (t[i] - rv[(i >> 2) * 2 + (i & 1)]);
+            if (qt + 1 < n_qt) bar_arrive(BWP_P_FREE, BWP_DKV_NT);
+        }
+        uint32_t fa[2][4];
+#pragma unroll
+        for (int kc = 0; kc < 2; ++kc) acc_to_a(fa[kc], t, kc);
+        const uint32_t bM = wg == 0 ? sO : sQ;  // A: dv += p^T dO[:, r]; B: dk += ds^T q[:, r]
+        wg_fence();
+#pragma unroll
+        for (int kc = 0; kc < 2; ++kc)
+            wgmma_rs<1>(acc, fa[kc], mn_desc_lbo(bM + kc * 2048, WG_SUB32), 1);
+        wg_commit();
+        wg_wait0();
+        fence_regs(acc);
+        mbar_arrive(bEmpty + 8 * s);
+        if (wg == 1 && tid == 0 && qt + STAGES < n_qt) {  // B, the later reader, refills
+            mbar_wait(bEmpty + 8 * s, parity);
+            load_q(qt + STAGES, s);
+        }
+    }
+    bf16* dst = (wg == 0 ? a.dv : a.dk) + (size_t)bh * n * a.d + r * HALF;
+    const float sc = wg == 0 ? 1.f : a.scale;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int row = key_lo + i * 8;
+        if (row < n) store_acc_row(dst + (size_t)row * a.d + t4 * 2, acc, i, sc, a.d - r * HALF);
+    }
+    cluster_sync();  // no block leaves while the other may still hand it a partial
+}
+
+template <int D>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWP_DQ_NT, 1)
+    flash_bwd_pair_dq_kernel(const __grid_constant__ BwdPairArgs a) {
+    constexpr int HALF = D / 2, HT = BWP_HT(D), RES = BWP_RES(D), STEP = BWP_STEP(D),
+                  STAGES = BWP_DQ_STAGES, NA = HALF / 2;
+    const int n = a.n;
+    const int r = cluster_rank();  // this block's column half
+    const int q0 = (blockIdx.x >> 1) * 64, h = blockIdx.y, b = blockIdx.z;
+    const int bh = b * a.heads + h;
+    const int len = min(max(a.lengths[b], 0), n);
+    // a q tile wholly past the length (K7 wrote its lse dead) walks no key
+    // step: its dq is written as zeros; keys >= len add nothing
+    const int n_kt = q0 < len ? (len + BWP_QR - 1) / BWP_QR : 0;
+    const int hbox = min(max((a.d - r * HALF + 63) / 64, 0), HT);  // this half's boxes < d
+    uint8_t* smem = align1024(bw_smem);
+    const uint32_t sQ = smem_u32(smem), sO = sQ + RES, sStage = sO + RES;
+    float* sX = reinterpret_cast<float*>(smem + 2 * RES + 2 * STAGES * STEP);  // [parity][s, dp]
+    const uint32_t bQO = smem_u32(sX) + 4 * BWP_PART, bFull = bQO + 8,
+                   bEmpty = bFull + 8 * STAGES, bX = bEmpty + 8 * STAGES;
+    zero_subtiles<BWP_DQ_NT>(smem, 2, RES, hbox, HT, WG_TILE);
+    zero_subtiles<BWP_DQ_NT>(smem + 2 * RES, 2 * STAGES, STEP, hbox, HT, WG_SUB32);
+    if (threadIdx.x == 0) {
+        mbar_init(bQO, 1);
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(bFull + 8 * s, 1);
+            mbar_init(bEmpty + 8 * s, 128);
+        }
+        mbar_init(bX, 1);
+        mbar_init(bX + 8, 1);
+        mbar_init_fence();
+    }
+    cluster_sync();  // both blocks' barriers ready before any hand-over
+    // warp-uniform to ptxas: wgmma under a role branch it cannot prove
+    // uniform would be serialised (note C7520)
+    const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+    if (warp == 4) {  // the producer
+        if ((threadIdx.x & 31) == 0 && n_kt > 0) {
+            mbar_expect_tx(bQO, 2 * hbox * WG_TILE);
+            tma_boxes(sQ, &a.q, q0, bh, bQO, hbox, WG_TILE, r * HALF);
+            tma_boxes(sO, &a.dout, q0, bh, bQO, hbox, WG_TILE, r * HALF);
+            for (int kt = 0; kt < n_kt; ++kt) {
+                const int s = kt % STAGES, use = kt / STAGES;
+                if (use) mbar_wait(bEmpty + 8 * s, (use - 1) & 1);
+                mbar_expect_tx(bFull + 8 * s, 2 * hbox * WG_SUB32);
+                tma_boxes(sStage + 2 * s * STEP, &a.k, kt * BWP_QR, bh, bFull + 8 * s, hbox,
+                          WG_SUB32, r * HALF);
+                tma_boxes(sStage + (2 * s + 1) * STEP, &a.v, kt * BWP_QR, bh, bFull + 8 * s,
+                          hbox, WG_SUB32, r * HALF);
+            }
+        }
+        cluster_sync();  // no block leaves while the other may still hand it a partial
+        return;
+    }
+    const int tid = threadIdx.x, g = (tid & 31) >> 2, t4 = tid & 3;
+    const int row_lo = q0 + warp * 16 + g;  // this thread's rows are queries
+    const float scale2 = a.scale * BW_LOG2E;
+    float lse2[2], dlt[2];
+    bool row_live[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int row = row_lo + i * 8;
+        const float l = row < n ? a.lse[(size_t)bh * n + row] : 0.f;
+        row_live[i] = row < n && l > BW_DEAD;
+        lse2[i] = row_live[i] ? l * BW_LOG2E : 0.f;
+        dlt[i] = row_live[i] ? a.delta[(size_t)bh * n + row] : 0.f;
+    }
+    float dq[NA];
+#pragma unroll
+    for (int i = 0; i < NA; ++i) dq[i] = 0.f;
+    if (n_kt > 0) mbar_wait(bQO, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % STAGES, xp = kt & 1;
+        mbar_wait(bFull + 8 * s, (kt / STAGES) & 1);
+        const uint32_t sK = sStage + 2 * s * STEP, sV = sK + STEP;
+        float sd[32];  // the partial s (16), then dp (16)
+        float(&sc)[16] = *reinterpret_cast<float(*)[16]>(sd);
+        float(&dp)[16] = *reinterpret_cast<float(*)[16]>(sd + 16);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < HALF / 16; ++kk)  // s = q K^T, half r
+            wgmma_ss<0>(sc, sw128_desc(kslice(sQ, kk)), sw128_desc(kslice(sK, kk, WG_SUB32)),
+                        kk);
+#pragma unroll
+        for (int kk = 0; kk < HALF / 16; ++kk)  // dp = dO V^T, half r
+            wgmma_ss<0>(dp, sw128_desc(kslice(sO, kk)), sw128_desc(kslice(sV, kk, WG_SUB32)),
+                        kk);
+        wg_commit();
+        wg_wait0();
+        fence_regs(sd);
+        if (tid == 0) mbar_expect_tx(bX + 8 * xp, 2 * BWP_PART);  // the other's partials
+        send_partial(sd, smem_u32(sX) + xp * 2 * BWP_PART, bX + 8 * xp, r ^ 1, tid);
+        recv_partial(sd, sX + xp * (BWP_PART / 2), bX + 8 * xp, (kt >> 1) & 1, tid);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+            const int key = kt * BWP_QR + (i >> 2) * 8 + t4 * 2 + (i & 1);
+            const int ri = (i >> 1) & 1;
+            const float p =
+                (key < len && row_live[ri]) ? exp2f(fmaf(sc[i], scale2, -lse2[ri])) : 0.f;
+            sc[i] = p * (dp[i] - dlt[ri]);
+        }
+        uint32_t da[2][4];
+#pragma unroll
+        for (int kc = 0; kc < 2; ++kc) acc_to_a(da[kc], sc, kc);
+        wg_fence();
+#pragma unroll
+        for (int kc = 0; kc < 2; ++kc)  // dq[:, r] += ds K[:, r] (K N-major: 16 keys a step)
+            wgmma_rs<1>(dq, da[kc], mn_desc_lbo(sK + kc * 2048, WG_SUB32), 1);
+        wg_commit();
+        wg_wait0();
+        fence_regs(dq);
+        mbar_arrive(bEmpty + 8 * s);
+    }
+    bf16* dst = a.dq + (size_t)bh * n * a.d + r * HALF;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int row = row_lo + i * 8;
+        if (row < n)
+            store_acc_row(dst + (size_t)row * a.d + t4 * 2, dq, i, a.scale, a.d - r * HALF);
+    }
+    cluster_sync();
+}
+
+// ---------------------------------------------------------------------------
 // Launch: prologue, dk/dv, dq on the caller's stream
 // ---------------------------------------------------------------------------
 
@@ -1243,16 +1578,76 @@ static int launch_bwd_native(const void* q, const void* k, const void* v, const 
     return (int)cudaGetLastError();
 }
 
+// K9's pair kernels at D = 384 / 512 on rows of width d <= D: delta (the
+// slice mode's kernel, over d), dk/dv (a cluster of two blocks a (64 keys,
+// head, batch)), dq (a cluster a (64 q rows, head, batch)).
+template <int D>
+static int launch_bwd_pair(const void* q, const void* k, const void* v, const void* lengths,
+                           const void* o, const void* lse, const void* dout, void* dq, void* dk,
+                           void* dv, void* delta, int b, int n, int heads, int d, float scale,
+                           void* stream) {
+    if (b <= 0 || n <= 0) return (int)cudaGetLastError();
+    cudaStream_t s = (cudaStream_t)stream;
+    const BwdWideArgs w = {(const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lengths,
+                           (const bf16*)o, (const bf16*)dout, (const float*)lse, (float*)delta,
+                           (bf16*)dq, (bf16*)dk, (bf16*)dv, b, n, heads, d, scale};
+    const long long rows = (long long)b * heads * n;
+    flash_bwd_wide_delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(w);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    // dk/dv: K and V resident (64-row boxes), q and dO streamed (32-row);
+    // dq: q and dO resident, K and V streamed
+    BwdPairArgs kv, qd;
+    const int bh = b * heads;
+    if ((err = head_tensor_map(&kv.k, k, bh, n, d)) != cudaSuccess ||
+        (err = head_tensor_map(&kv.v, v, bh, n, d)) != cudaSuccess ||
+        (err = head_tensor_map(&kv.q, q, bh, n, d, 32)) != cudaSuccess ||
+        (err = head_tensor_map(&kv.dout, dout, bh, n, d, 32)) != cudaSuccess ||
+        (err = head_tensor_map(&qd.q, q, bh, n, d)) != cudaSuccess ||
+        (err = head_tensor_map(&qd.dout, dout, bh, n, d)) != cudaSuccess ||
+        (err = head_tensor_map(&qd.k, k, bh, n, d, 32)) != cudaSuccess ||
+        (err = head_tensor_map(&qd.v, v, bh, n, d, 32)) != cudaSuccess)
+        return (int)err;
+    BwdPairArgs* both[2] = {&kv, &qd};
+    for (BwdPairArgs* a : both) {
+        a->lengths = (const int*)lengths;
+        a->lse = (const float*)lse;
+        a->delta = (const float*)delta;
+        a->dq = (bf16*)dq;
+        a->dk = (bf16*)dk;
+        a->dv = (bf16*)dv;
+        a->n = n;
+        a->heads = heads;
+        a->d = d;
+        a->scale = scale;
+    }
+    if ((err = smem_limit_once((const void*)flash_bwd_pair_dkdv_kernel<D>, BW_SMEM_MAX)) !=
+            cudaSuccess ||
+        (err = smem_limit_once((const void*)flash_bwd_pair_dq_kernel<D>, BW_SMEM_MAX)) !=
+            cudaSuccess)
+        return (int)err;
+    const dim3 grid(2 * ((n + 63) / 64), heads, b);
+    flash_bwd_pair_dkdv_kernel<D><<<grid, BWP_DKV_NT, BWP_DKV_SMEM(D), s>>>(kv);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_pair_dq_kernel<D><<<grid, BWP_DQ_NT, BWP_DQ_SMEM(D), s>>>(qd);
+    return (int)cudaGetLastError();
+}
+
 // K9 takes any head width d % 8 == 0 and reads and writes the rows of [b,
 // h, n, d] in place: d <= 128 the core at D = 64 / 128, d in (128, 256] the
-// native wide kernels at D = 192 / 256, d > 256 the slice mode; any other d
-// returns cudaErrorInvalidValue.
+// native wide kernels at D = 192 / 256, d in (256, 512] the pair kernels at
+// D = 384 / 512, d > 512 the slice mode; any other d returns
+// cudaErrorInvalidValue.
 extern "C" int f5_flash_attn_bwd_bf16(const void* q, const void* k, const void* v,
                                       const void* lengths, const void* o, const void* lse,
                                       const void* dout, void* dq, void* dk, void* dv,
                                       void* delta, int b, int n, int heads, int head_dim,
                                       float scale, void* stream) {
     const int d = head_dim, D = head_tile_width(d);
+    if (D == 512 || D == 384)
+        return (D == 512 ? launch_bwd_pair<512> : launch_bwd_pair<384>)(
+            q, k, v, lengths, o, lse, dout, dq, dk, dv, delta, b, n, heads, d, scale, stream);
     if (D == 256 || D == 192)
         return (D == 256 ? launch_bwd_native<256> : launch_bwd_native<192>)(
             q, k, v, lengths, o, lse, dout, dq, dk, dv, delta, b, n, heads, d, scale, stream);

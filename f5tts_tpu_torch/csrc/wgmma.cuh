@@ -1,22 +1,25 @@
 // Hopper building blocks shared by the wgmma kernels (K3, K5, K7 and K11 in
 // attention.cu; K4, K8 and K9 in attention_bwd.cu; K10 in grouped_conv.cu):
 // cp.async and TMA copies into 128-byte-swizzled shared tiles, mbarriers and
-// named barriers, the wgmma descriptors, fences and products on 64 x 64 to
+// named barriers, the wgmma descriptors, fences and products on 64 x 32 to
 // 64 x 256 bf16 tiles, and the accumulator repack.
 //
-// A [64][D] bf16 tile of the head width D (64, 128, 192 or 256) lies as D /
-// 64 halves of 64 columns, WG_TILE bytes apart, each 128-byte swizzled (a
-// row of more than 128 bytes fits no swizzle atom): 16-byte chunk c of row r
-// is at (c / 8) * WG_TILE + sw128_off(r, c % 8). A K-major operand's 16-deep
-// slice kk is `kslice`; an N-major operand spans the halves through its
-// descriptor's leading offset.
+// A [64][D] bf16 tile of the head width D (64, 128, 192, 256, 384 or 512)
+// lies as D / 64 sub-tiles of 64 columns, WG_TILE bytes apart, each 128-byte
+// swizzled (a row of more than 128 bytes fits no swizzle atom): 16-byte
+// chunk c of row r is at (c / 8) * WG_TILE + sw128_off(r, c % 8). A [32][D]
+// tile (the 32-row tiles of K9 at D = 384 / 512) lies the same way with
+// sub-tiles WG_SUB32 bytes apart. A K-major operand's 16-deep slice kk is
+// `kslice`; an N-major operand spans the sub-tiles through its descriptor's
+// leading offset.
 #pragma once
 
 #include <cuda.h>
 
 #include "common.cuh"
 
-#define WG_TILE 8192  // bytes of one [64][64] bf16 tile, 128-byte rows
+#define WG_TILE 8192   // bytes of one [64][64] bf16 tile, 128-byte rows
+#define WG_SUB32 4096  // bytes of one [32][64] bf16 tile
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return (uint32_t)__cvta_generic_to_shared(p);
@@ -162,9 +165,17 @@ __device__ __forceinline__ uint64_t mn_desc(uint32_t addr) {
            ((uint64_t)64 << 32) | ((uint64_t)1 << 62);
 }
 
-// Shared address of the 16-deep K slice kk of a K-major [64][D] tile.
-__device__ __forceinline__ uint32_t kslice(uint32_t base, int kk) {
-    return base + (kk >> 2) * WG_TILE + (kk & 3) * 32;
+// Shared address of the 16-deep K slice kk of a K-major [64][D] tile (of a
+// [32][D] one with sub = WG_SUB32).
+__device__ __forceinline__ uint32_t kslice(uint32_t base, int kk, uint32_t sub = WG_TILE) {
+    return base + (kk >> 2) * sub + (kk & 3) * 32;
+}
+
+// The descriptor of an N-major B operand whose 64-column sub-tiles lie `lbo`
+// bytes apart (WG_SUB32: the sub-tiles of a [32][D] tile).
+__device__ __forceinline__ uint64_t mn_desc_lbo(uint32_t addr, uint32_t lbo) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+           ((uint64_t)64 << 32) | ((uint64_t)1 << 62);
 }
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -179,6 +190,26 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
     for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define WG_OUT16(d)                                                                            \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+        "+f"(d[14]), "+f"(d[15])
+
+// d[64 x 32] (+)= A[64 x 16] B[16 x 32], bf16 in, f32 accumulate, A and B in
+// shared memory (A K-major; B a K-major tile of 32 rows for TRANS_B 0): the
+// scores of K9's 32-row tiles at D = 384 / 512. The accumulator layout of
+// the 64-wide product, 4 column groups.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_D16
+        ", %16, %17, p, 1, 1, 0, %19;\n}\n"
+        : WG_OUT16(d)
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
 #define WG_D32                                                                                   \
@@ -309,8 +340,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
-// Columns 16kc .. 16kc + 15 of a 64 x 64 accumulator as bf16 A fragments.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[32], int kc) {
+// Columns 16kc .. 16kc + 15 of a 64 x 64 (64 x 32) accumulator as bf16 A
+// fragments.
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[N], int kc) {
     a[0] = pack_bf16x2(d[8 * kc], d[8 * kc + 1]);
     a[1] = pack_bf16x2(d[8 * kc + 2], d[8 * kc + 3]);
     a[2] = pack_bf16x2(d[8 * kc + 4], d[8 * kc + 5]);
@@ -381,7 +414,8 @@ __device__ __forceinline__ void mask_bits(uint32_t* words, const uint8_t* km, in
 
 // ---------------------------------------------------------------------------
 // TMA, mbarriers and named barriers: the native wide kernels (K7 / K9 at D =
-// 192 and 256). One thread copies a whole tile (`tma_rows`, completion
+// 192, 256, 384 and 512). One thread copies a whole tile (`tma_rows`,
+// `tma_boxes`, completion
 // counted in bytes on a stage's "full" mbarrier); the warpgroups wait on it
 // once a tile, and arrive on the stage's "empty" barrier when done with it,
 // where the thread that refills the stage waits.
@@ -445,6 +479,22 @@ __device__ __forceinline__ void bar_arrive(int id, int threads) {
     asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// The first `nbox` 64-column boxes from column col0 of rows [row0, row0 +
+// rows) of slice `bh` (its `head_tensor_map` of `rows`-row boxes) into the
+// sub-tiles of a [rows][D] tile at dst, `sub` bytes apart, completing on
+// `bar`: the boxes that hold columns < d (the caller zeroes the tile's
+// later sub-tiles once; no copy writes them).
+__device__ __forceinline__ void tma_boxes(uint32_t dst, const CUtensorMap* map, int row0, int bh,
+                                          uint32_t bar, int nbox, uint32_t sub, int col0 = 0) {
+    for (int c = 0; c < nbox; ++c)
+        asm volatile(
+            "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+            "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst + c * sub),
+            "l"(reinterpret_cast<uint64_t>(map)), "r"(col0 + c * 64), "r"(row0), "r"(bh),
+            "r"(bar)
+            : "memory");
+}
+
 // Rows [row0, row0 + 64) of slice `bh` of a [b * h][n][d] bf16 tensor (its
 // `head_tensor_map`, d <= D) into a [64][D] tile at dst (the D / 64 swizzled
 // halves of `tile_off`: TMA's 128-byte swizzle is wgmma's), D / 64 copies of
@@ -453,29 +503,99 @@ __device__ __forceinline__ void bar_arrive(int id, int threads) {
 template <int D>
 __device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map, int row0, int bh,
                                          uint32_t bar) {
+    tma_boxes(dst, map, row0, bh, bar, D / 64, WG_TILE);
+}
+
+// Zero the sub-tiles [first, last) (`sub` bytes each) of each of the `count`
+// tiles at base, base + stride, ... by the NT threads of the block, then
+// order the stores before the async proxy's (wgmma's) reads; the caller's
+// next block barrier makes them every thread's.
+template <int NT>
+__device__ __forceinline__ void zero_subtiles(uint8_t* base, int count, uint32_t stride, int first,
+                                              int last, uint32_t sub) {
+    const int per = (last - first) * (int)(sub / 16);
+    for (int i = threadIdx.x; i < count * per; i += NT) {
+        const int t = i / per, j = i - t * per;
+        *reinterpret_cast<uint4*>(base + t * stride + first * sub + j * 16) = make_uint4(0, 0, 0, 0);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Thread block clusters of two (the pair kernels: two blocks on the same
+// rows, each owning half of the width): the block's rank in its cluster and
+// a barrier over every thread of the cluster.
+__device__ __forceinline__ int cluster_rank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return (int)r;
+}
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// The shared::cluster address of `addr` (a shared::cta address) in block
+// `cta` of the cluster.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, int cta) {
+    uint32_t r;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(cta));
+    return r;
+}
+// Four f32 to the shared::cluster address `addr` of another block, counted
+// in bytes on its mbarrier at `bar` (a shared::cluster address): the pair
+// kernels' hand-over of partial scores.
+__device__ __forceinline__ void st_async4(uint32_t addr, float a, float b, float c, float d,
+                                          uint32_t bar) {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+        "[%5];\n" ::"r"(addr),
+        "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+        : "memory");
+}
+// A warpgroup's 4N f32 of a partial to block `cta`'s buffer at `buf`
+// (float j * 4 * 128 + 4 * tid + e its part e of group j), counted on its
+// mbarrier `bar` (both shared::cta addresses here, mapped there); `recv`
+// adds this block's buffer, where the other block wrote its partial, once
+// its barrier phase `parity` has completed (the caller arms the barrier
+// with the buffer's bytes once a phase).
+template <int N>
+__device__ __forceinline__ void send_partial(const float (&v)[N], uint32_t buf, uint32_t bar,
+                                             int cta, int tid) {
+    const uint32_t rbuf = mapa(buf, cta), rbar = mapa(bar, cta);
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c)
-        asm volatile(
-            "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-            "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst + c * WG_TILE),
-            "l"(reinterpret_cast<uint64_t>(map)), "r"(c * 64), "r"(row0), "r"(bh), "r"(bar)
-            : "memory");
+    for (int j = 0; j < N / 4; ++j)
+        st_async4(rbuf + (j * 128 + tid) * 16, v[4 * j], v[4 * j + 1], v[4 * j + 2],
+                  v[4 * j + 3], rbar);
+}
+template <int N>
+__device__ __forceinline__ void recv_partial(float (&v)[N], const float* buf, uint32_t bar,
+                                             int parity, int tid) {
+    mbar_wait(bar, parity);
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+        const float4 x = *reinterpret_cast<const float4*>(buf + (j * 128 + tid) * 4);
+        v[4 * j] += x.x;
+        v[4 * j + 1] += x.y;
+        v[4 * j + 2] += x.z;
+        v[4 * j + 3] += x.w;
+    }
 }
 
 // Host: the tile width D at which K7 / K9 read and write head-layout rows of
-// width d in place: the least of 64, 128, 192 and 256 that holds d (d % 8
-// == 0: 16-byte rows); 0 past 256 (their slice mode) or for any other d.
+// width d in place: the least of 64, 128, 192, 256, 384 and 512 that holds
+// d (d % 8 == 0: 16-byte rows); 0 past 512 (their slice mode) or for any
+// other d.
 inline int head_tile_width(int d) {
-    if (d <= 0 || d % 8 || d > 256) return 0;
-    return d <= 64 ? 64 : d <= 128 ? 128 : d <= 192 ? 192 : 256;
+    if (d <= 0 || d % 8 || d > 512) return 0;
+    return d <= 64 ? 64 : d <= 128 ? 128 : d <= 192 ? 192 : d <= 256 ? 256 : d <= 384 ? 384 : 512;
 }
 
 // Host: the TMA map of a contiguous [bh][n][d] bf16 tensor at `base` (d % 8
-// == 0: TMA's global strides are multiples of 16 bytes): [64][64] boxes,
-// 128-byte swizzle, rows past n and columns past d read as zeros.
+// == 0: TMA's global strides are multiples of 16 bytes): [rows][64] boxes
+// (64 or 32 rows), 128-byte swizzle, rows past n and columns past d read as
+// zeros.
 // cuTensorMapEncodeTiled is the driver's; its address is asked of the
 // runtime once.
-inline cudaError_t head_tensor_map(CUtensorMap* map, const void* base, int bh, int n, int d) {
+inline cudaError_t head_tensor_map(CUtensorMap* map, const void* base, int bh, int n, int d,
+                                   int rows = 64) {
     typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -493,7 +613,7 @@ inline cudaError_t head_tensor_map(CUtensorMap* map, const void* base, int bh, i
     if (!encode) return cudaErrorNotSupported;
     const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh};
     const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};
-    const cuuint32_t box[3] = {64, 64, 1}, step[3] = {1, 1, 1};
+    const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1}, step[3] = {1, 1, 1};
     const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
                               dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

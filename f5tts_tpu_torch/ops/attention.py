@@ -80,14 +80,17 @@ and takes its XLA formulas of the same function elsewhere). The head
 layout K7 / K9, whose Pallas body takes any d, takes any d too: the wgmma
 core at D = 64 and 128, their native wide kernels at D = 192 and 256
 (`flash_attn_native_*` / `flash_bwd_native_*`: the scores of a tile
-computed once over the whole width), and d > 256 in their slice mode (`flash_attn_wide_*` /
+computed once over the whole width), their pair kernels at D = 384 and
+512 (`flash_attn_pair_*` / `flash_bwd_pair_*`: clusters of two blocks, each
+owning half of the width and trading partial scores, so each score is
+computed once), and d > 512 in their slice mode (`flash_attn_wide_*` /
 `flash_bwd_wide_*`: a block a 128-column slice of the output, the scores
-over the whole width). Up to 256 a head of width d runs at the tile width
-`_kernel_width(d)`, the least of 64 / 128 / 192 / 256 that holds it, and
-the kernels read and write the caller's [b, h, n, d] rows in place (the
-tiles' lanes past d zero-filled in shared memory, no copy in the route).
-Only a width that is no multiple of WIDE_ALIGN is zero-padded, to
-`_row_width(d)` (`_to_row_width`), and its output sliced back.
+over the whole width). Up to 512 a head of width d runs at the tile width
+`_kernel_width(d)`, the least of 64 / 128 / 192 / 256 / 384 / 512 that
+holds it, and the kernels read and write the caller's [b, h, n, d] rows in
+place (the tiles' lanes past d zero-filled in shared memory, no copy in
+the route). Only a width that is no multiple of WIDE_ALIGN is zero-padded,
+to `_row_width(d)` (`_to_row_width`), and its output sliced back.
 """
 
 from __future__ import annotations
@@ -108,7 +111,7 @@ NEG_INF = -1e30
 # wholly past the length), as the Pallas backward tests lse > NEG_INF / 2
 DEAD_LSE = NEG_INF / 2
 HEAD_DIMS = (64, 128)  # the head widths the kernels are instantiated at
-NATIVE_WIDE_DIMS = (192, 256)  # K7 / K9's native wide kernels
+NATIVE_WIDE_DIMS = (192, 256, 384, 512)  # K7 / K9's native wide and pair kernels
 WIDE_ALIGN = 8  # K7 / K9 read rows of a multiple of 8 lanes (16 bytes) in place
 Q_TILE = 64    # K3's and K7's q tile: tiles wholly past the length are dead
 # the longest sequence the JAX package sends through its flat kernels; past
@@ -627,10 +630,11 @@ def _row_width(d: int) -> int:
 
 def _kernel_width(d: int) -> int:
     """The tile width D K7 / K9 run a head of width d at: the least of 64,
-    128, 192 and 256 that holds it (192 / 256 the native wide kernels, faster
-    there than the slice mode at d itself, `PERF.md` §6), the rows read and
-    written in place at `_row_width(d)`; past 256 (the slice mode, 128-column
-    output slices) the row width itself."""
+    128, 192, 256, 384 and 512 that holds it (192 / 256 the native wide
+    kernels, 384 / 512 the pair kernels, each faster there than the slice
+    mode at d itself, `PERF.md` §6), the rows read and written in place at
+    `_row_width(d)`; past 512 (the slice mode, 128-column output slices)
+    the row width itself."""
     row = _row_width(d)
     if row > NATIVE_WIDE_DIMS[-1]:
         return row
@@ -659,13 +663,14 @@ def flash_attention_fwd(q, k, v, lengths, return_lse: bool = False):
     (and with `return_lse` the row lse [b, h, n] f32). Kernel K7 on CUDA (its
     lse mode with `return_lse`), `flash_attention_fwd_ref` on the CPU.
 
-    K7 is instantiated at D = 64, 128, 192 and 256 (the last two its native
-    wide kernels) and reads and writes rows of any width d % 8 == 0 up to
-    256 in place at the tile width `_kernel_width(d)`: the tiles' lanes past
-    d are zero-filled in shared memory, so they add exact zeros to every
-    score and give output lanes that are not stored; d > 256 runs its slice
-    mode. A width that is no multiple of 8 is zero-padded to `_row_width(d)`
-    and its output sliced back. The scale is 1/sqrt(d) of the true d."""
+    K7 is instantiated at D = 64, 128, 192, 256, 384 and 512 (192 / 256 its
+    native wide kernels, 384 / 512 its pair kernels) and reads and writes
+    rows of any width d % 8 == 0 up to 512 in place at the tile width
+    `_kernel_width(d)`: the tiles' lanes past d are zero-filled in shared
+    memory, so they add exact zeros to every score and give output lanes
+    that are not stored; d > 512 runs its slice mode. A width that is no
+    multiple of 8 is zero-padded to `_row_width(d)` and its output sliced
+    back. The scale is 1/sqrt(d) of the true d."""
     if _device("flash_attention", q) == "cpu":
         return flash_attention_fwd_ref(q, k, v, lengths, return_lse)
     d = q.shape[-1]
@@ -693,8 +698,9 @@ def flash_attention_fwd(q, k, v, lengths, return_lse: bool = False):
 def flash_attention_bwd(q, k, v, lengths, o, lse, dout) -> tuple:
     """(dq, dk, dv) [b, h, n, d] of `flash_attention` from its saved output o
     and row lse, for the incoming gradient dout. Kernel K9 on CUDA, plain on
-    the CPU; d in (128, 256] runs K9's native wide kernels, d > 256 its
-    slice mode. It reads and writes rows of width d in place as the forward
+    the CPU; d in (128, 256] runs K9's native wide kernels, d in (256, 512]
+    its pair kernels, d > 512 its slice mode. It reads and writes rows of
+    width d in place as the forward
     does (the tiles' lanes past d zero-filled, so delta, p and ds are those
     of a zero-padded head and dq, dk and dv its kept lanes); a width that is
     no multiple of 8 is zero-padded to `_row_width(d)` and sliced back."""

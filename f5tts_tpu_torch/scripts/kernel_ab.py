@@ -75,7 +75,13 @@ delta at different rounding points), the codes and scales of K12's modes
 and K13's output bit for bit.
 Whether they are bit equal is reported, and each build's `-Xptxas -v` lines
 for the kernel's `__global__` functions (registers, shared memory, spills)
-and the source's ptxas notes (such as C7520, serialised wgmma).
+and the source's ptxas notes (such as C7520, serialised wgmma). Each K7
+/ K7_lse / K9 shape also gets its bound (the larger of
+its bf16 flops over 989 TFLOP/s and its bytes over 3.35 TB/s, as
+`chip_smoke.py` counts them) and the time of one PyTorch call of the same
+function on the same inputs, `library_ms` (K7: SDPA under the key mask;
+K7_lse: the memory-efficient attention with its lse, which takes d <= 256
+only, else null; K9: SDPA's backward, (forward + backward) - forward).
 Needs a CUDA device.
 """
 
@@ -113,7 +119,7 @@ DEQUANT = ((2048, 3072), (2048, 1024), (2048, 2048), (8192, 3072))  # m, n
 EXACT = ("K1Q", "K6Q", "K12", "K12G", "K13")  # bit-equal outputs, or the builds disagree
 CODES = ("codes", "row_scale")
 K3_GLOBALS = r"fused_qkv_rope_attn_(kernel|lse_kernel|krot_kernel)"
-K7_GLOBALS = r"_Z\d+flash_attn_(wide_|native_)?(lse_)?kernel"  # not masked_flash_attn_kernel
+K7_GLOBALS = r"_Z\d+flash_attn_(wide_|native_|pair_)?(lse_)?kernel"  # not masked_flash_attn_kernel
 # kernel: (source, C entry, a pattern found in each of its __global__ names,
 # shapes, the outputs compared)
 KERNELS = {
@@ -357,6 +363,50 @@ def inputs(kernel: str, shape, dev, d: int = 64) -> tuple[dict, str]:
     return t | attn_scalars(n, d), what
 
 
+def bound_and_library(kernel: str, t: dict, d: int) -> dict:
+    """K7 / K7_lse / K9's bound at the shape of `t` (ms: max of bf16 flops
+    over 989 TFLOP/s, 4 h d a live (query, key) pair forward, 10 h d
+    backward on the rows of the live q tiles, and bytes over 3.35 TB/s: q,
+    k, v and out read or written once, the lse, and the backward's dq, dk,
+    dv, o and dO) and one PyTorch call's ms on the same inputs (None where
+    none computes it)."""
+    import torch.nn.functional as F
+
+    q, k, v, lengths = t["q"], t["k"], t["v"], t["lengths"]
+    b, h, n, _ = q.shape
+    lens = lengths.tolist()
+    live = torch.arange(n, device=q.device)[None, :] < lengths[:, None]
+    mask4 = live[:, None, None, :]
+    if kernel == "K9":
+        rows = [min(-(-ln // 64) * 64, n) for ln in lens]
+        flops = 10 * h * d * sum(r * ln for r, ln in zip(rows, lens))
+        nbytes = 8 * b * h * n * d * 2 + b * h * n * 4
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+        def fwd_bwd():
+            o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask4)
+            return torch.autograd.grad(o, (qg, kg, vg), t["dout"])
+
+        with torch.no_grad():
+            fwd = time_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask4))
+        lib = time_ms(fwd_bwd) - fwd
+    else:
+        flops = 4 * h * d * sum(ln * ln for ln in lens)
+        nbytes = 4 * b * h * n * d * 2 + (b * h * n * 4 if kernel == "K7_lse" else 0)
+        if kernel == "K7":
+            lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4))
+        elif d <= 256:  # the efficient attention's lse, the mask as an additive bias
+            bias = torch.full((b, 1, 1, -(-n // 16) * 16), att.NEG_INF, dtype=q.dtype,
+                              device=q.device)
+            bias[..., :n] = torch.where(live, 0.0, att.NEG_INF)[:, None, None, :]
+            bias = bias[..., :n].expand(b, h, n, n)
+            fn = torch.ops.aten._scaled_dot_product_efficient_attention
+            lib = time_ms(lambda: fn(q, k, v, bias, True))
+        else:
+            lib = None
+    return {"bound_ms": max(flops / 989e12, nbytes / 3.35e12) * 1e3, "library_ms": lib}
+
+
 def agreement(name: str, a: torch.Tensor, w: torch.Tensor, exact: bool = False) -> dict:
     """How `a` (this build's output `name`) agrees with `w` (the other's);
     `exact`: only bit for bit."""
@@ -377,7 +427,8 @@ def agreement(name: str, a: torch.Tensor, w: torch.Tensor, exact: bool = False) 
 def run_kernel(kernel: str, other: Path, defines, tmp: Path, dev,
                head_dims=(64,)) -> tuple[dict, bool]:
     """Both builds of `kernel` in turns at each of its shapes (an attention
-    kernel's at each of `head_dims`)."""
+    kernel's at each of `head_dims`); K7 / K7_lse / K9 also with their
+    bound and a PyTorch call's time (`bound_and_library`)."""
     built = {"other": load(kernel, other, tmp, "other"),
              "this": load(kernel, THIS, tmp, "this", defines)}
     result = {"kernel": kernel, "ptxas_other": built["other"][2],
@@ -423,6 +474,8 @@ def run_kernel(kernel: str, other: Path, defines, tmp: Path, dev,
         torch.cuda.synchronize()
         row = {"kernel": kernel, "shape": what, "ms_other": times["other"],
                "ms_this": times["this"]}
+        if kernel in HEAD_LAYOUT:
+            row.update(bound_and_library(kernel, shared, d))
         for name in KERNELS[kernel][4]:
             row[name] = agreement(name, own["this"][name], own["other"][name], kernel in EXACT)
             ok &= row[name]["agree"]

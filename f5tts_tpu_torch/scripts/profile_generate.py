@@ -67,7 +67,7 @@ CLASSES = (
                                        "fused_qkv_rope_attn_bias_krot_kernel")),
     ("masked_flash_attention", ("masked_flash_attn_kernel",)),  # before its substring
     ("flash_attention", ("flash_attn_kernel", "flash_attn_wide_kernel",
-                         "flash_attn_native_kernel")),
+                         "flash_attn_native_kernel", "flash_attn_pair_kernel")),
     ("adaln_norm", ("AdaLNEpi",)),
     ("rms_norm", ("RmsEpi",)),
     ("conv_pos_embedding", K2_NAMES),  # before K10's, whose kernel it is a mode of

@@ -20,7 +20,8 @@ training rows in PERF.md); any other `--remat-policy` checkpoints each block
 (`ModelArch.checkpoint_activations`) under that policy. `--bf16-state`
 stores mu / nu and the EMA in bf16. `--heads` / `--dim-head` replace the
 preset's head split (e.g. 4 x 256 at the same inner width: every attention
-on the head layout, K7-lse / K9 in their native wide kernels; F5TTS_v1_Small
+on the head layout, K7-lse / K9 in their native wide kernels; 2 x 512:
+their pair kernels; F5TTS_v1_Small
 at 8 x 96: K7-lse / K9 reading rows of 96 in place).
 
 Cells (b x n), by default 16 x 1024 (the JAX bench default), the long band
@@ -63,9 +64,10 @@ CLASSES = (
     ("attention_bwd K8", ("attn_bias_bwd_prologue_kernel", "attn_bias_bwd_dq_kernel",
                           "attn_bias_bwd_dkdv_kernel")),
     ("attention_fwd K7 lse", ("flash_attn_lse_kernel", "flash_attn_wide_lse_kernel",
-                              "flash_attn_native_lse_kernel")),
+                              "flash_attn_native_lse_kernel", "flash_attn_pair_lse_kernel")),
     ("attention_bwd K9", ("flash_bwd_delta_kernel", "flash_bwd_dq_kernel",
-                          "flash_bwd_dkdv_kernel", "flash_bwd_wide_", "flash_bwd_native_")),
+                          "flash_bwd_dkdv_kernel", "flash_bwd_wide_", "flash_bwd_native_",
+                          "flash_bwd_pair_")),
     ("adaln_norm K1", ("AdaLNEpi",)),
     ("rms_norm K6", ("RmsEpi",)),
     ("conv_pos K2", K2_NAMES),

@@ -3,8 +3,9 @@
 Each hand-written kernel against its plain PyTorch version at small shapes,
 including ragged lengths and an n that is no multiple of the tiles; the
 lse modes of K3, K5 and K7 (K3 at lengths 0, 1, 64, 65 and n, K7 at 1, 63,
-64, 65, n - 1 and n; K7, its lse mode and K9 at head widths 32 to 512, past
-128 in their wide mode, and at 96 / 160 / 200 read in place bit-equal to
+64, 65, n - 1 and n; K7, its lse mode and K9 at head widths 32 to 640, past
+128 in their wide and pair kernels and past 512 in their slice mode, and
+at 96 / 160 / 200 read in place bit-equal to
 the zero-padded route; K11 with all-dead key tiles between live ones and a
 row with no live key); the attention backwards K4, K8 (each against both of
 its plain versions; K4 also at K3's edge lengths) and K9 alone and through
@@ -1270,14 +1271,16 @@ def test_bias_attention_kernels_d128(dev, n):
     assert not got[:, :, h * d:][~kmask].any()
 
 
-@pytest.mark.parametrize("d", [128, 96, 32, 160, 192, 200, 256, 320, 512])
+@pytest.mark.parametrize("d", [128, 96, 32, 160, 192, 200, 256, 264, 320, 384, 448, 512, 640])
 @pytest.mark.parametrize("n,length", [(64, 1), (200, 65), (1024, 777), (4224, 3001)])
 def test_flash_attention_kernels_head_widths(dev, n, length, d):
     """K7, its lse mode and K9 at 8 heads of d: 128 natively, 96 and 32 read
     in place at the next tile width, d in (128, 256] on the native wide
-    kernels, d > 256 in the slice mode (a 128-column output slice a block,
-    the scores over the whole width); outputs, lse and gradients of the
-    true width against the plain versions at d."""
+    kernels, d in (256, 512] on the pair kernels at D = 384 / 512 (264 and
+    320: whole 64-column boxes past d; 448 a dead sub-tile in the second
+    block's half), d > 512 in the slice mode (a 128-column output slice
+    a block, the scores over the whole width); outputs, lse and gradients of
+    the true width against the plain versions at d."""
     rng = np.random.default_rng(n + d)
     q, k, v, dout = (_bf16(rng, (2, 8, n, d), dev) for _ in range(4))
     lengths = torch.tensor([n, length], dtype=torch.int32, device=dev)

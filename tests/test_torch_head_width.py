@@ -3,19 +3,19 @@ on the CPU.
 
 Each backbone (DiT, UNetT, MMDiT) at dim 256, depth 2 and 2 heads of 128
 (the flat kernels' second instantiated width: K3 / K5's plain versions here),
-of 96 and of 256 (off the flat gate: the DiT and UNetT take the head layout,
-K7's plain version, on the card K7 reading rows of 96 in place at its D = 128
-tile and its native D = 256 kernel at 256; the MMDiT computes JAX's XLA
-branch `bias_decomposed_ref`).
+of 96, of 256 and of 512 (off the flat gate: the DiT and UNetT take the head
+layout, K7's plain version, on the card K7 reading rows of 96 in place at
+its D = 128 tile, its native D = 256 kernel at 256 and its pair D = 512
+kernel at 512; the MMDiT computes JAX's XLA branch `bias_decomposed_ref`).
 Weights are numpy-seeded in the JAX tree layout and carried across by
 `convert.*_params_from_jax`; the JAX side runs its XLA path in f32
 (`backend="xla"`), the port its plain versions in f32. Also: the converter
 carries a dim_head-128 and a dim_head-96 tree leaf for leaf, one `cfm_loss`
-gradient check of the DiT at 2 x 128, 2 x 96 and 2 x 256 (K7-lse / K9's
-plain versions at 96 and 256) against `jax.value_and_grad`, one
-`InferencePipeline.infer` of the DiT at 2 x 128, 2 x 96 and 2 x 256, the
-width routing of K7 / K9 (the tile width D and the row width read in
-place), and the operators' fakes and FLOP formulas at d = 128, 256 and
+gradient check of the DiT at 2 x 128, 2 x 96, 2 x 256 and 2 x 512 (K7-lse /
+K9's plain versions past 64) against `jax.value_and_grad`, one
+`InferencePipeline.infer` of the DiT at 2 x 128, 2 x 96, 2 x 256 and 2 x
+512, the width routing of K7 / K9 (the tile width D and the row width read
+in place), and the operators' fakes and FLOP formulas at d = 128, 256 and
 K10's new range.
 """
 
@@ -94,7 +94,12 @@ def dit96():
     return _model("DiT", 96)
 
 
-@pytest.mark.parametrize("dim_head", [128, 96, 256])
+@pytest.fixture(scope="module")
+def dit512():
+    return _model("DiT", 512)
+
+
+@pytest.mark.parametrize("dim_head", [128, 96, 256, 512])
 @pytest.mark.parametrize("backbone", ["DiT", "UNetT", "MMDiT"])
 def test_forward_at_head_width_matches_jax(backbone, dim_head):
     """The whole forward with CFG packing, ragged lengths and padded text."""
@@ -126,16 +131,16 @@ def test_forward_at_head_width_matches_jax(backbone, dim_head):
 
 def test_self_attention_routes_by_head_width(monkeypatch):
     """The DiT block's attention takes the flat K3 at 2 x 128 and the head
-    layout (K7) at 2 x 96 and 2 x 256 (its wide mode on the card), whose
-    plain versions the CPU runs: spies on the forwards the two operators
-    call."""
+    layout (K7) at 2 x 96, 2 x 256 and 2 x 512 (its native wide and split
+    kernels on the card), whose plain versions the CPU runs: spies on the
+    forwards the two operators call."""
     taken = []
     for name in ("fused_qkv_rope_attention_fwd", "flash_attention_fwd"):
         real = getattr(tatt, name)
         monkeypatch.setattr(tatt, name, lambda *a, _n=name, _r=real, **k: taken.append(_n)
                             or _r(*a, **k))
     for dim_head, want in ((128, "fused_qkv_rope_attention_fwd"), (96, "flash_attention_fwd"),
-                           (256, "flash_attention_fwd")):
+                           (256, "flash_attention_fwd"), (512, "flash_attention_fwd")):
         _, tarch, _, tp = _model("DiT", dim_head)
         statics = tdit.DiTStatics(tarch)
         x = torch.randn(1, 128, 256, generator=torch.Generator().manual_seed(dim_head))
@@ -148,13 +153,16 @@ def test_self_attention_routes_by_head_width(monkeypatch):
 @pytest.mark.parametrize("d,width,row", [(64, 64, 64), (128, 128, 128), (96, 128, 96),
                                          (32, 64, 32), (1, 64, 8), (160, 192, 160),
                                          (200, 256, 200), (256, 256, 256), (130, 192, 136),
-                                         (512, 512, 512), (192, 192, 192), (264, 264, 264)])
+                                         (512, 512, 512), (192, 192, 192), (264, 384, 264),
+                                         (320, 384, 320), (448, 512, 448), (520, 520, 520),
+                                         (640, 640, 640)])
 def test_kernel_width_covers_every_head_width(d, width, row):
     """The widths K7 / K9 run a head of d at on the card: the tile width D
-    (64, 128, 192 or 256, the least that holds d; 192 / 256 the native wide
-    kernels; past 256 the slice mode at the row width) and the row width
-    they read and write in place (d itself where it is a multiple of 8,
-    16-byte rows, else d rounded up to one)."""
+    (64, 128, 192, 256, 384 or 512, the least that holds d; 192 / 256 the
+    native wide kernels, 384 / 512 the pair kernels; past 512 the slice
+    mode at the row width) and the row width they read and write in place
+    (d itself where it is a multiple of 8, 16-byte rows, else d rounded up
+    to one)."""
     assert tatt._kernel_width(d) == width
     assert tatt._row_width(d) == row
 
@@ -210,13 +218,14 @@ def test_row_width_rule(d, monkeypatch):
                                        rtol=3e-4)
 
 
-@pytest.mark.parametrize("d", [160, 200])
+@pytest.mark.parametrize("d", [160, 200, 320, 448])
 def test_padded_native_width_matches_jax(d):
-    """What the card's tiles hold for a head of d in (128, 256]: q, k, v, o
+    """What the card's tiles hold for a head of d in (128, 512]: q, k, v, o
     and dO zero-padded to `_kernel_width(d)` (192 / 256, K7 / K9's native
-    wide kernels, whose TMA copies fill the lanes past d with zeros) by
-    `_pad_heads`, the plain versions at that width with the scale of the
-    true d, the lanes past d dropped. Against JAX's
+    wide kernels, whose TMA copies fill the lanes past d with zeros; 384 /
+    512 their pair kernels, whose sub-tiles past d are zeroed and never
+    copied into) by `_pad_heads`, the plain versions at that width with the
+    scale of the true d, the lanes past d dropped. Against JAX's
     `_flash_forward(return_lse=True)` and `_flash_backward_fused` (Pallas,
     interpret mode) at n = 128, lengths [128, 77], f32 on both sides, on
     live rows (forward rows and dq rows < length, dk / dv keys < length):
@@ -303,6 +312,12 @@ def test_cfm_loss_and_grads_at_dim_head_256_match_jax(dit256):
     _check_loss_and_grads(dit256)
 
 
+def test_cfm_loss_and_grads_at_dim_head_512_match_jax(dit512):
+    """The same at 2 x 512: the head layout, K7's lse mode and K9's plain
+    versions (their pair kernels at D = 512 on the card)."""
+    _check_loss_and_grads(dit512)
+
+
 def _check_loss_and_grads(model):
     jarch, tarch, tree, tp = model
     b, n, d = 4, 128, 100
@@ -352,6 +367,11 @@ def test_dit_96_pipeline_infer_on_cpu(dit96):
 def test_dit_256_pipeline_infer_on_cpu(dit256):
     """One InferencePipeline.infer at the DiT of 2 heads of 256 (depth 2)."""
     _pipeline_smoke(dit256)
+
+
+def test_dit_512_pipeline_infer_on_cpu(dit512):
+    """One InferencePipeline.infer at the DiT of 2 heads of 512 (depth 2)."""
+    _pipeline_smoke(dit512)
 
 
 def _pipeline_smoke(model):
